@@ -1,0 +1,392 @@
+"""Smoke run of the PyTorch / CUDA port on one NVIDIA card.
+
+    python3 chip_smoke.py
+
+Phases (any failure raises and exits non-zero):
+
+1. device: name, count, ``nvidia-smi`` name and power limit; no card fails;
+2. build: compile the CUDA kernels from ``src/repro_torch/kernels/csrc`` with
+   nvcc into ``build/kernels`` and print the seconds and ptxas's registers
+   and spills per kernel;
+3. kernels: each kernel against its plain PyTorch version on the card, at
+   the main path's shapes and at the edges;
+4. main path: ``FLSimulation`` (ring / contextual / mnist, 100 vehicles,
+   fl-mnist-mlp, the paper's section IV-A defaults) for 5 rounds on the card,
+   with the kernels' launch counts, and one round replayed from the same
+   state on the card and on the CPU;
+5. times: each kernel (CUDA events, after warm-up) beside its bound, its
+   plain version and a one-call PyTorch yardstick, and the round's wall time.
+
+The last two lines are the kernels' JSON record and the device JSON.
+"""
+from __future__ import annotations
+
+import json
+import math
+import os
+import subprocess
+import sys
+import time
+
+import torch
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, os.path.join(ROOT, "src"))
+
+# H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth, fp32 non-tensor rate.
+HBM_BYTES_PER_S = 3.35e12
+FP32_FLOPS_PER_S = 67e12
+ROUNDS = 5
+
+
+def smi() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        check=True, capture_output=True, text=True, timeout=60,
+    )
+    return out.stdout.strip().splitlines()[0]
+
+
+def time_ms(fn, iters: int = 200, warmup: int = 20) -> float:
+    """Mean device time of ``fn`` over ``iters`` back-to-back calls (CUDA events)."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def bound(n_bytes: float, n_flops: float):
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = n_flops / FP32_FLOPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def phase(name: str) -> None:
+    print(f"\n=== {name}", flush=True)
+
+
+def rttg_inputs(scenario: str, n: int, seed: int, cr: float, device):
+    from repro_torch.core.scenarios import scenario_config, scenario_params
+    from repro_torch.utils import prng
+
+    scn = scenario_params(scenario_config(scenario, num_vehicles=n), device)
+    k = prng.split(prng.key(seed), 4)
+    pos = prng.uniform(k[0], (n,), 0.0, scn.ring_length_m, device)
+    speed = 14.0 + 4.0 * prng.normal(k[1], (n,), device)
+    accel = 0.3 * prng.normal(k[2], (n,), device)
+    forced = prng.bernoulli(k[3], cr, (n,), device) if cr < 1.0 else None
+    t = torch.tensor(77.5, device=device)
+    return scn, pos, speed, accel, t, forced
+
+
+def check_rttg(scenario, n, predict, cr, want_rid, device) -> float:
+    from repro_torch.kernels.rttg_latency import rttg_latency, rttg_latency_plain
+
+    scn, pos, speed, accel, t, forced = rttg_inputs(scenario, n, n + 7, cr, device)
+    mb = 636_040.0
+    got = rttg_latency(pos, speed, accel, t, mb, forced, scn, predict=predict,
+                       want_rid=want_rid)
+    ref = rttg_latency_plain(pos, speed, accel, t, mb, forced, scn, predict, want_rid)
+    torch.cuda.synchronize()
+    if not torch.equal(got[1], ref[1]):
+        raise AssertionError(f"rttg_latency conn differs ({scenario}, N={n}, predict={predict})")
+    if want_rid and not torch.equal(got[2], ref[2]):
+        raise AssertionError(f"rttg_latency rid differs ({scenario}, N={n})")
+    if not bool(torch.isfinite(got[0]).all()):
+        raise AssertionError("rttg_latency produced non-finite latency")
+    # transcendentals (log10f, powf, log2f, sinf) may differ by an ulp or two
+    # between the kernel and PyTorch's elementwise kernels: rtol 1e-5
+    torch.testing.assert_close(got[0], ref[0], rtol=1e-5, atol=1e-7)
+    err = float((got[0] - ref[0]).abs().max())
+    print(f"rttg_latency {scenario:10s} N={n:5d} predict={predict!s:5s} CR={cr} "
+          f"rid={want_rid!s:5s} max_abs_err={err:.3e} conn/rid exact")
+    return err
+
+
+def check_fedavg(K, P, device) -> float:
+    from repro_torch.kernels.fedavg_reduce import fedavg_reduce, fedavg_reduce_plain
+    from repro_torch.utils import prng
+
+    k = prng.split(prng.key(K * 100_003 + P), 2)
+    u = 1e-3 * prng.normal(k[0], (K, P), device)
+    w = prng.uniform(k[1], (K,), device=device)
+    w = w / w.sum()
+    got = fedavg_reduce(u, w)
+    ref = fedavg_reduce_plain(u, w)
+    torch.cuda.synchronize()
+    # the two sum K products in different orders: tolerance scaled by sum |w u|
+    scale = float((w.abs() @ u.abs()).max())
+    torch.testing.assert_close(got, ref, rtol=1e-5, atol=1e-6 * scale)
+    err = float((got - ref).abs().max())
+    print(f"fedavg_reduce K={K:3d} P={P:7d} max_abs_err={err:.3e} (scale {scale:.3e})")
+    return err
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; this script needs a card",
+              file=sys.stderr)
+        return 1
+
+    # ---- 1. device -------------------------------------------------------
+    phase("device")
+    kind = torch.cuda.get_device_name(0)
+    count = torch.cuda.device_count()
+    card = smi()
+    print(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
+    print(f"device: {kind} (count {count})")
+    print(f"nvidia-smi: {card}")
+    device = torch.device("cuda:0")
+
+    from repro_torch.utils.device import resolve_device
+
+    resolve_device(device)  # full-fp32 matmuls (no TF32)
+
+    # ---- 2. build --------------------------------------------------------
+    phase("build")
+    from repro_torch.kernels import build as kbuild
+
+    info = kbuild.build(force=True)
+    print(f"built {os.path.relpath(info.path, ROOT)} in {info.seconds:.2f} s")
+    for line in info.ptxas_log.splitlines():
+        if line.startswith("==") or "registers" in line or "spill" in line \
+                or "Compiling entry" in line:
+            print("  " + line.strip())
+    kbuild.library()
+
+    # ---- 3. kernels against their plain versions ------------------------
+    phase("kernels vs plain versions")
+    main_err = {"rttg_latency": 0.0, "fedavg_reduce": 0.0}
+    for predict in (True, False):
+        e = check_rttg("ring", 100, predict, 1.0, False, device)
+        main_err["rttg_latency"] = max(main_err["rttg_latency"], e)
+    check_rttg("ring", 100, False, 1.0, True, device)
+    for n in (1, 257, 4096):
+        check_rttg("ring", n, True, 1.0, True, device)
+    check_rttg("rsu_outage", 100, True, 1.0, True, device)
+    check_rttg("rush_hour", 257, True, 0.7, False, device)
+    check_rttg("day_cycle", 100, False, 0.5, True, device)
+    main_err["fedavg_reduce"] = check_fedavg(10, 159_010, device)
+    for K, P in ((1, 159_010), (10, 2049), (1, 1), (10, 4096)):
+        check_fedavg(K, P, device)
+
+    # ---- 4. main path ----------------------------------------------------
+    phase("main path: FLSimulation ring / contextual / mnist on cuda")
+    from repro_torch.config import FLConfig
+    from repro_torch.configs import get_config
+    from repro_torch.core.scenarios import scenario_config, scenario_params
+    from repro_torch.fl.rounds import RoundMetrics, metrics_to_records
+    from repro_torch.fl.simulation import FLSimulation
+    from repro_torch.kernels import fedavg_reduce as fedavg_mod
+    from repro_torch.kernels import rttg_latency as rttg_mod
+    from repro_torch.utils import prng
+
+    # launch_fl_sim.run_experiment's defaults for mnist (paper section IV-A)
+    fl = FLConfig(num_clients=100, local_epochs=3, connection_rate=1.0,
+                  classes_per_client=2, samples_per_client=256, num_clusters=10,
+                  aggregator="fedavg", seed=0, compute_dtype="float32")
+    traffic = scenario_config("ring", num_vehicles=100)
+    t0 = time.perf_counter()
+    sim = FLSimulation(get_config("fl-mnist-mlp"), fl, traffic, "mnist", "contextual",
+                       prng.key(0), device=device)
+    torch.cuda.synchronize()
+    print(f"set-up (init + client shards on the card): {time.perf_counter() - t0:.2f} s; "
+          f"P={sim.state.params.numel()} N={fl.num_clients} K={fl.n_select}")
+
+    rttg_mod.launches = 0
+    fedavg_mod.launches = 0
+    sim.warmup_sketches()
+    state0 = sim.state
+    records = []
+    for _ in range(ROUNDS):
+        rec = sim.run_round()
+        records.append(rec)
+        print(json.dumps(rec.__dict__))
+    torch.cuda.synchronize()
+    launches = {"rttg_latency": rttg_mod.launches, "fedavg_reduce": fedavg_mod.launches}
+    print(f"launches over {ROUNDS} rounds: {launches}")
+    if launches != {"rttg_latency": 2 * ROUNDS, "fedavg_reduce": ROUNDS}:
+        raise AssertionError(f"expected 2 rttg_latency and 1 fedavg_reduce launch per "
+                             f"round, got {launches}")
+    for rec in records:
+        for k, v in rec.__dict__.items():
+            if not math.isfinite(v):
+                raise AssertionError(f"round {rec.round}: {k} = {v} is not finite")
+    if not bool(torch.isfinite(sim.state.params).all()):
+        raise AssertionError("global model has non-finite entries")
+
+    # the same round from the same state: on the card again (must repeat
+    # bitwise) and on the CPU through the plain versions
+    s_gpu, m_gpu = sim._step(state0, sim.scn, 0, 0, sim.data, True)
+    first = records[0]
+    again = metrics_to_records(RoundMetrics(*[x[None] for x in m_gpu]))[0]
+    if again != first:
+        raise AssertionError(f"replayed round differs on the card: {again} vs {first}")
+    scn_cpu = scenario_params(traffic, "cpu")
+    s_cpu, m_cpu = sim._step(state0.to("cpu"), scn_cpu, 0, 0, sim.data.to("cpu"), True)
+    cpu = metrics_to_records(RoundMetrics(*[x[None] for x in m_cpu]))[0]
+    for f in ("round", "n_selected", "n_succeeded", "n_buffered", "n_drained"):
+        if getattr(cpu, f) != getattr(first, f):
+            raise AssertionError(f"cuda vs cpu: {f} {getattr(first, f)} != {getattr(cpu, f)}")
+    if not torch.equal(s_gpu.sketch_age.cpu(), s_cpu.sketch_age):
+        raise AssertionError("cuda vs cpu: the reporting cohort differs")
+    # float order differs between the card and the CPU (GEMMs, reductions,
+    # transcendentals): metrics rtol 1e-4, the model after one round 1e-5 abs
+    for f in ("sim_time", "duration", "mean_pred_latency", "mean_real_latency",
+              "test_acc", "test_loss"):
+        a, b = getattr(first, f), getattr(cpu, f)
+        if not math.isclose(a, b, rel_tol=1e-4, abs_tol=1e-6):
+            raise AssertionError(f"cuda vs cpu: {f} {a} vs {b}")
+    torch.testing.assert_close(s_gpu.params.cpu(), s_cpu.params, rtol=0, atol=1e-5)
+    print(f"cuda vs cpu, one round from the same state: integers equal, "
+          f"max |dparams| = {float((s_gpu.params.cpu() - s_cpu.params).abs().max()):.3e}")
+
+    # ---- 5. times ----------------------------------------------------------
+    phase(f"times on {card}")
+    from repro_torch.kernels.build import library
+    from repro_torch.kernels.fedavg_reduce import fedavg_reduce_plain
+    from repro_torch.kernels.rttg_latency import pack_scalars, rttg_latency, rttg_latency_plain
+    from repro_torch.core.rttg import rsu_up_mask
+    from repro_torch.core.trajectory import horizon_steps
+
+    lib = library()
+    stream = torch.cuda.current_stream(device).cuda_stream
+    kernels = []
+
+    # rttg_latency at the main path's predicted-topology call: N=100, R=10,
+    # 50 predictor steps, CR = 1 (no forced mask), no rid
+    scn, pos, speed, accel, t, _ = rttg_inputs("ring", 100, 3, 1.0, device)
+    n, R = 100, scn.n_rsu
+    mb = 636_040.0
+    scalars = pack_scalars(t, mb, scn, device)
+    live = rsu_up_mask(scn).to(torch.uint8).contiguous()
+    counts = torch.empty((R,), dtype=torch.int32, device=device)
+    lat = torch.empty((n,), dtype=torch.float32, device=device)
+    conn = torch.empty((n,), dtype=torch.bool, device=device)
+    steps = horizon_steps(scn.predict_horizon_s, scn)
+    times = {}
+    for predict in (True, False):
+        ns = steps if predict else 0
+        hs = float(scn.predict_horizon_s) if predict else 0.0
+
+        def launch(ns=ns, hs=hs):
+            kbuild.check(lib.rttg_latency_launch(
+                scalars.data_ptr(), live.data_ptr(), R, pos.data_ptr(), speed.data_ptr(),
+                accel.data_ptr(), None, n, ns, float(scn.sim_dt_s), hs,
+                counts.data_ptr(), lat.data_ptr(), conn.data_ptr(), None, stream),
+                "rttg_latency")
+
+        times[predict] = (
+            time_ms(launch),
+            time_ms(lambda p=predict: rttg_latency_plain(pos, speed, accel, t, mb, None, scn, p),
+                    iters=20, warmup=3),
+        )
+    wrapper_ms = time_ms(lambda: rttg_latency(pos, speed, accel, t, mb, None, scn, predict=True),
+                         iters=50, warmup=5)
+    # bytes: 3 f32 inputs + 19 scalars + R live flags in, f32 lat + bool conn out
+    rttg_bytes = n * 4 * 3 + 19 * 4 + R + n * 4 + n
+    # flops per client: 8 per predictor step, 6 per RSU in the argmin, ~45 in
+    # the latency/SNR/congestion tail (counting each transcendental as one)
+    rttg_flops = n * (8 * steps + 6 * R + 45)
+    b_ms, b_by = bound(rttg_bytes, rttg_flops)
+    kernels.append({
+        "name": "rttg_latency", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/rttg_latency.cu",
+        "replaces": "src/repro/kernels/rttg_latency.py:242",
+        "launches": launches["rttg_latency"], "max_abs_err": main_err["rttg_latency"],
+        "ms": times[True][0], "plain_ms": times[True][1], "bound_ms": b_ms,
+        "bound_by": b_by, "library_ms": None,
+    })
+    print(f"rttg_latency N=100 R={R} predict (50 steps): kernel {times[True][0] * 1e3:.2f} us, "
+          f"plain {times[True][1] * 1e3:.1f} us, bound {b_ms * 1e3:.5f} us ({b_by}) [{card}]")
+    print(f"rttg_latency N=100 R={R} realized (0 steps): kernel {times[False][0] * 1e3:.2f} us, "
+          f"plain {times[False][1] * 1e3:.1f} us [{card}]")
+    print(f"rttg_latency wrapper as the round calls it (operand packing included): "
+          f"{wrapper_ms * 1e3:.1f} us [{card}]")
+
+    # fedavg_reduce at K=10, P=159,010; cycle through copies that together
+    # exceed the 50 MB L2, so each launch streams its rows from HBM
+    K, P = 10, 159_010
+    n_copies = 16
+    us = [1e-3 * prng.normal(prng.fold_in(prng.key(11), i), (K, P), device)
+          for i in range(n_copies)]
+    w = torch.full((K,), 0.1, dtype=torch.float32, device=device)
+    out = torch.empty((P,), dtype=torch.float32, device=device)
+    vec = 2 if P % 2 == 0 else 1
+    it = {"i": 0}
+
+    def nxt():
+        it["i"] = (it["i"] + 1) % n_copies
+        return us[it["i"]]
+
+    def fed_launch():
+        kbuild.check(lib.fedavg_reduce_launch(nxt().data_ptr(), w.data_ptr(), K, P, vec,
+                                              out.data_ptr(), stream), "fedavg_reduce")
+
+    fed_ms = time_ms(fed_launch)
+    fed_plain = time_ms(lambda: fedavg_reduce_plain(nxt(), w))
+    fed_lib = time_ms(lambda: torch.mv(nxt().t(), w))
+    fed_bytes = K * P * 4 + K * 4 + P * 4
+    b_ms, b_by = bound(fed_bytes, 2 * K * P)
+    kernels.append({
+        "name": "fedavg_reduce", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/fedavg_reduce.cu",
+        "replaces": "src/repro/kernels/fedavg_reduce.py:43",
+        "launches": launches["fedavg_reduce"], "max_abs_err": main_err["fedavg_reduce"],
+        "ms": fed_ms, "plain_ms": fed_plain, "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": fed_lib,
+    })
+    print(f"fedavg_reduce K={K} P={P} (vec {vec}): kernel {fed_ms * 1e3:.2f} us, plain "
+          f"{fed_plain * 1e3:.2f} us, torch.mv {fed_lib * 1e3:.2f} us, bound "
+          f"{b_ms * 1e3:.2f} us ({b_by}), {fed_bytes / (fed_ms * 1e-3) / 1e9:.0f} GB/s [{card}]")
+
+    # the round: wall time ending in a synchronize, then one profiled round
+    walls = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sim.step()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    print(f"round wall time (N=100, K=10, 3 epochs): "
+          f"{', '.join(f'{x * 1e3:.1f}' for x in walls)} ms [{card}]")
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sim.step()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    dev = [e for e in prof.events()
+           if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA]
+    busy_us = sum(e.time_range.elapsed_us() for e in dev)
+    if dev:
+        print(f"profiled round: wall {wall * 1e3:.1f} ms, {len(dev)} device kernels/copies, "
+              f"device busy {busy_us / 1e3:.2f} ms, idle share "
+              f"{1 - busy_us / 1e6 / wall:.3f} [{card}]")
+        by_name = {}
+        for e in dev:
+            c, us_ = by_name.get(e.name, (0, 0.0))
+            by_name[e.name] = (c + 1, us_ + e.time_range.elapsed_us())
+        top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
+        for name, (c, us_) in top:
+            print(f"  {c:5d} x {us_ / max(c, 1):7.2f} us  {name[:90]}")
+    else:
+        print("profiled round: the profiler recorded no device activity; "
+              "device busy share not measured")
+
+    print(json.dumps({"kernels": kernels}))
+    print(card)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

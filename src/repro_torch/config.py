@@ -1,0 +1,136 @@
+"""Configuration dataclasses of the port.
+
+Own copies of the JAX package's ``FLConfig`` and ``TrafficConfig`` (field for
+field, same defaults: the paper's section IV-A setting) and of the
+``ModelConfig`` fields the paper's FL models read.  The port imports nothing
+of the JAX package, so these are kept in step with ``repro.config`` by the
+tests, which compare the defaults.
+"""
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass
+from typing import Tuple
+
+
+@dataclass(frozen=True)
+class ModelConfig:
+    """The fields of ``repro.config.ModelConfig`` an FL image model reads."""
+
+    name: str
+    family: str  # mlp | cnn
+    d_ff: int
+    image_shape: Tuple[int, int, int] = (0, 0, 0)
+    num_classes: int = 0
+    channels: Tuple[int, ...] = ()
+    dtype: str = "float32"
+
+    def replace(self, **kw) -> "ModelConfig":
+        return dataclasses.replace(self, **kw)
+
+
+@dataclass(frozen=True)
+class TrafficConfig:
+    """Digital-twin road / radio model (``repro.config.TrafficConfig``)."""
+
+    num_vehicles: int = 100
+    ring_length_m: float = 10_000.0
+    num_lanes: int = 3
+    rsu_spacing_m: float = 1_000.0
+    mean_speed_mps: float = 14.0
+    speed_std_mps: float = 6.0
+    accel_std: float = 0.8
+    ou_theta: float = 0.3
+    cam_rate_hz: float = 10.0
+    carrier_ghz: float = 5.9
+    bandwidth_hz: float = 8e6
+    eirp_dbm: float = 33.0
+    noise_dbm: float = -95.0
+    snr_min_db: float = 3.0
+    backhaul_s: float = 0.010
+    queue_s_per_vehicle: float = 0.010
+    overhead_bytes: int = 2_048
+    sim_dt_s: float = 0.1
+    predict_horizon_s: float = 5.0
+    rush_amp: float = 0.0
+    rush_period_s: float = 900.0
+    rsu_outage_frac: float = 0.0
+    platoon_size: int = 4
+    platoon_coupling: float = 0.0
+    platoon_gap_m: float = 25.0
+    compute_lognorm_std: float = 0.35
+    fleet_truck_frac: float = 0.0
+    fleet_bus_frac: float = 0.0
+    fleet_truck_factor: float = 1.0
+    fleet_bus_factor: float = 1.0
+    day_amp: float = 0.0
+    day_period_s: float = 7_200.0
+    day_harmonic2: float = 0.0
+
+
+@dataclass(frozen=True)
+class FLConfig:
+    """Federated-learning round configuration (``repro.config.FLConfig``).
+
+    Every field of the reference is kept, so configs convert one to one;
+    the lanes this port does not run yet (``hierarchical``, ``client_block``,
+    aggregators other than ``fedavg``, bfloat16) are refused by
+    ``fl.rounds.make_round_step``.
+    """
+
+    num_clients: int = 100
+    select_fraction: float = 0.10
+    local_epochs: int = 1
+    batch_size: int = 64
+    learning_rate: float = 1e-3
+    strategy: str = "contextual"
+    num_clusters: int = 10
+    gamma: float = 0.10
+    sketch_dim: int = 1024
+    connection_rate: float = 1.0
+    classes_per_client: int = 2
+    dirichlet_alpha: float = 0.0
+    samples_per_client: int = 512
+    compute_s_per_epoch: float = 0.5
+    server_agg_s: float = 0.05
+    round_timeout_s: float = 15.0
+    recluster_every: int = 5
+    aggregator: str = "fedavg"
+    server_lr: float = 1.0
+    server_beta1: float = 0.9
+    server_beta2: float = 0.99
+    server_tau: float = 1e-3
+    fedprox_mu: float = 0.0
+    hierarchical: bool = False
+    client_block: int = 0
+    buffer_size: int = 8
+    buffer_fill: int = 1
+    param_dtype: str = "float32"
+    compute_dtype: str = "float32"
+    seed: int = 0
+
+    SUPPORTED_DTYPES = ("float32", "bfloat16")
+
+    def __post_init__(self):
+        if self.round_timeout_s <= 0:
+            raise ValueError(
+                "round_timeout_s must be positive: the staleness discount "
+                "timeout / (timeout + lateness) degenerates to 0/0 = NaN at "
+                f"a non-positive deadline, got {self.round_timeout_s!r}"
+            )
+        if self.buffer_size < 1:
+            raise ValueError(f"buffer_size must be >= 1, got {self.buffer_size!r}")
+        if self.buffer_fill < 1:
+            raise ValueError(f"buffer_fill must be >= 1, got {self.buffer_fill!r}")
+        for name in ("param_dtype", "compute_dtype"):
+            value = getattr(self, name)
+            if value not in self.SUPPORTED_DTYPES:
+                raise ValueError(
+                    f"unknown {name} {value!r}; supported dtypes: "
+                    f"{', '.join(self.SUPPORTED_DTYPES)}"
+                )
+
+    @property
+    def n_select(self) -> int:
+        """Per-round selection budget (the paper's 10% rate, at least 1)."""
+        return max(int(round(self.select_fraction * self.num_clients)), 1)

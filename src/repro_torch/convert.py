@@ -1,0 +1,104 @@
+"""Carry weights and round state across from the JAX package, through numpy.
+
+The JAX package's parameters come as a tree of numpy leaves (nested dicts,
+``{"convs": [], "fc1": {"b", "w"}, "fc2": {"b", "w"}}`` for the MLP) or as
+the flat ``(P,)`` vector of its ``flatten_to_vector``; a whole
+``RoundState`` / ``RoundData`` comes as a dict of numpy arrays keyed by the
+NamedTuple's field names, with ``twin`` a nested dict and ``key`` the two
+uint32 words of the PRNG key.  This module takes and gives numpy only; the
+JAX -> numpy half lives with whoever holds the JAX arrays.
+"""
+from __future__ import annotations
+
+from typing import Dict
+
+import numpy as np
+import torch
+
+from repro_torch.core.twin import TwinState
+from repro_torch.fl.rounds import RoundData, RoundState
+from repro_torch.utils import prng
+from repro_torch.utils.pytree import flatten_to_vector
+
+# dtypes the JAX package stores these leaves in (the port holds ids as int64)
+_INT32_LEAVES = ("clusters", "lane", "labels", "test_y")
+
+
+def _tensor(x, device) -> torch.Tensor:
+    return torch.from_numpy(np.array(x, copy=True, order="C")).to(device)
+
+
+def params_tree_from_numpy(tree, device="cpu") -> dict:
+    """A numpy parameter tree -> the port's dict of tensors (empty lists dropped)."""
+    out = {}
+    for name, value in tree.items():
+        if isinstance(value, dict):
+            out[name] = params_tree_from_numpy(value, device)
+        elif isinstance(value, (list, tuple)):
+            if value:
+                raise NotImplementedError("conv stacks are not ported yet (see ROADMAP.md)")
+        else:
+            out[name] = _tensor(np.asarray(value, np.float32), device)
+    return out
+
+
+def params_from_numpy(params, device="cpu") -> torch.Tensor:
+    """A numpy parameter tree or flat ``(P,)`` vector -> the port's flat vector."""
+    if isinstance(params, np.ndarray):
+        if params.ndim != 1:
+            raise ValueError(f"a flat parameter vector is 1-D, got shape {params.shape}")
+        return _tensor(params.astype(np.float32), device)
+    return flatten_to_vector(params_tree_from_numpy(params, device))
+
+
+def _leaf_from_numpy(name, x, device):
+    x = np.asarray(x)
+    if x.dtype.kind in "iu":
+        return _tensor(x.astype(np.int64), device)
+    return _tensor(x, device)
+
+
+def state_from_numpy(d: Dict, device="cpu") -> RoundState:
+    """A RoundState dict of numpy arrays -> the port's ``RoundState``."""
+    fields = {}
+    for name in RoundState._fields:
+        if name == "twin":
+            fields[name] = TwinState(*[_leaf_from_numpy(f, d["twin"][f], device)
+                                       for f in TwinState._fields])
+        elif name == "key":
+            fields[name] = prng.wrap_key_data(np.asarray(d["key"], np.uint32))
+        elif name == "round":
+            fields[name] = int(np.asarray(d["round"]))
+        else:
+            fields[name] = _leaf_from_numpy(name, d[name], device)
+    return RoundState(**fields)
+
+
+def _leaf_to_numpy(name, x):
+    a = x.detach().cpu().numpy()
+    return a.astype(np.int32) if name in _INT32_LEAVES else a
+
+
+def state_to_numpy(state: RoundState) -> Dict:
+    """The port's ``RoundState`` -> a dict of numpy arrays in the JAX dtypes."""
+    out = {}
+    for name in RoundState._fields:
+        value = getattr(state, name)
+        if name == "twin":
+            out[name] = {f: _leaf_to_numpy(f, getattr(value, f)) for f in TwinState._fields}
+        elif name == "key":
+            out[name] = prng.key_data(value)
+        elif name == "round":
+            out[name] = np.asarray(value, np.int32)
+        else:
+            out[name] = _leaf_to_numpy(name, value)
+    return out
+
+
+def data_from_numpy(d: Dict, device="cpu") -> RoundData:
+    """A RoundData dict of numpy arrays -> the port's ``RoundData``."""
+    return RoundData(*[_leaf_from_numpy(f, d[f], device) for f in RoundData._fields])
+
+
+def data_to_numpy(data: RoundData) -> Dict:
+    return {f: _leaf_to_numpy(f, getattr(data, f)) for f in RoundData._fields}

@@ -1,0 +1,58 @@
+"""Client-side local training over the cohort (``repro.fl.client``).
+
+The whole cohort trains at once: every parameter leaf carries a leading K
+axis (one model per client) and each step backpropagates the sum of the
+per-client losses.  The clients' parameters are independent, so each gets
+exactly its own gradient, as under ``jax.vmap(jax.grad(...))``.
+"""
+from __future__ import annotations
+
+from typing import Callable
+
+import torch
+
+from repro_torch.utils import prng
+from repro_torch.utils.pytree import flatten_to_vector, flat_spec_of, unflatten_from_vector
+
+
+def make_local_trainer(loss_fn: Callable, lr: float, epochs: int, batch_size: int,
+                       mu: float = 0.0, compute_dtype=None) -> Callable:
+    """Build the cohort trainer.
+
+    Returned fn: ``(global_params, images (K, n, ...), labels (K, n), key)
+    -> (updates tree with leading K, update_vecs (K, P))``.  ``key`` is one
+    cohort key (split K ways) or a ``(K, 2)`` batch of per-client keys.
+    Each client draws ``epochs`` permutations of its ``n`` samples and walks
+    them in batches of ``batch_size`` with plain SGD.
+    """
+    if mu:
+        raise NotImplementedError("the FedProx term (fedprox_mu != 0) is not ported "
+                                  "yet (see ROADMAP.md)")
+    if compute_dtype is not None:
+        raise NotImplementedError("the bf16 compute lane is not ported yet "
+                                  "(see ROADMAP.md)")
+
+    def train_cohort(global_params: dict, images: torch.Tensor,
+                     labels: torch.Tensor, key: torch.Tensor):
+        K, n = labels.shape
+        device = labels.device
+        keys = key if key.dim() == 2 else prng.split(key, K)
+        spe = max(n // batch_size, 1)
+        perm = prng.permutation(prng.split(keys, epochs), n, device)
+        idx = perm[..., : spe * batch_size].reshape(K, epochs * spe, batch_size)
+        spec = flat_spec_of(global_params)
+        start = flatten_to_vector(global_params)
+        p = start.expand(K, -1).clone()
+        rows = torch.arange(K, device=device)[:, None]
+        for s in range(epochs * spe):
+            bidx = idx[:, s]
+            batch = {"images": images[rows, bidx], "labels": labels[rows, bidx]}
+            with torch.enable_grad():
+                p = p.detach().requires_grad_(True)
+                loss, _ = loss_fn(unflatten_from_vector(p, spec), batch)
+                (g,) = torch.autograd.grad(loss.sum(), p)
+            p = p.detach() - lr * g
+        vecs = p - start[None]
+        return unflatten_from_vector(vecs, spec), vecs
+
+    return train_cohort

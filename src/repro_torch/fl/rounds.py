@@ -1,0 +1,410 @@
+"""The FL round core (``repro.fl.rounds``): one round = one ``round_step``.
+
+A round runs the paper's selector (fuse CAM/CPM -> predict the topology and
+price its latency -> elect over the data clusters), trains the cohort,
+costs the round on the realized topology, and applies the FedAvg update to
+the flat ``(P,)`` global model.  Selection is a fixed-size mask compacted
+into K cohort slots, as in the JAX package, so the shapes never depend on
+the data.
+
+The port runs one lane of the reference: flat aggregation, the
+``("fedavg",)`` registry, the fused geometry (``fused=True``: both geometry
+passes go through the ``rttg_latency`` kernel), fp32.  Every other lane
+raises ``NotImplementedError``.  Two kernels carry the round:
+``rttg_latency`` (twice: predicted and realized topology) and
+``fedavg_reduce`` (once: the server's weighted cohort sum).
+
+Randomness follows the reference stream for stream: every draw comes from
+the experiment key ``RoundState.key`` folded by round and by name.  Keys
+and the round counter live on the host (a key is two words; deriving one is
+cheaper there than a launch); everything else lives on the run's device.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import NamedTuple, Sequence, Tuple
+
+import torch
+
+from repro_torch.config import FLConfig
+from repro_torch.core.clustering import apply_sketch, kmeans_cluster, sketch_sign_vector
+from repro_torch.core.fusion import fuse_kinematics
+from repro_torch.core.messages import emit_cams, emit_cpms
+from repro_torch.core.selection import STRATEGIES
+from repro_torch.core.twin import TwinState, advance_twin, init_twin_state
+from repro_torch.fl.aggregators import init_opt_vectors, validate_aggregators
+from repro_torch.fl.client import make_local_trainer
+from repro_torch.fl.partition import client_sample_counts, make_test_set, partition_clients
+from repro_torch.fl.server import apply_delta_flat, normalized_weights
+from repro_torch.kernels.fedavg_reduce import fedavg_reduce
+from repro_torch.kernels.rttg_latency import rttg_latency
+from repro_torch.utils import prng
+from repro_torch.utils.pytree import flatten_to_vector, unflatten_from_vector
+
+STRATEGY_ORDER: Tuple[str, ...] = ("greedy", "gossip", "data", "network", "contextual")
+
+# Twin integration splits every advance into this many equal sub-steps.
+ADVANCE_SUBSTEPS = 15
+
+
+def _to(x, device):
+    return x.to(device) if isinstance(x, torch.Tensor) else x
+
+
+class RoundState(NamedTuple):
+    """Everything a round mutates.
+
+    ``params`` is the flat (P,) fp32 global model; ``opt_m`` / ``opt_v`` the
+    server-moment vectors (zeros: plain fedavg carries them untouched);
+    ``sketch_sign`` the per-experiment Rademacher signs.  The ``buf_*``
+    leaves are the reference's fedbuff ring buffer, carried as inert zeros
+    until that lane is ported.  ``round`` is a Python int and ``key`` a host
+    tensor; the rest lives on the run's device.
+    """
+
+    params: torch.Tensor
+    opt_m: torch.Tensor
+    opt_v: torch.Tensor
+    twin: TwinState
+    sketches: torch.Tensor  # (N, sketch_dim)
+    sketch_age: torch.Tensor  # (N,) rounds since last report
+    clusters: torch.Tensor  # (N,) int64 data-cluster labels
+    sketch_sign: torch.Tensor  # (P padded,)
+    buf_delta: torch.Tensor  # (Kb, P)
+    buf_arrive: torch.Tensor  # (Kb,)
+    buf_sent: torch.Tensor  # (Kb,)
+    buf_weight: torch.Tensor  # (Kb,)
+    buf_mask: torch.Tensor  # (Kb,) bool
+    round: int
+    sim_time: torch.Tensor  # () f32
+    key: torch.Tensor  # (2,) host key words
+
+    def to(self, device) -> "RoundState":
+        """The same state with every device leaf on ``device`` (keys stay)."""
+        moved = {f: _to(getattr(self, f), device) for f in self._fields
+                 if f not in ("twin", "key")}
+        return self._replace(twin=TwinState(*[_to(x, device) for x in self.twin]),
+                             **moved)
+
+
+class RoundData(NamedTuple):
+    """Per-experiment constants: client shards + global test set."""
+
+    images: torch.Tensor  # (N, n, H, W, C)
+    labels: torch.Tensor  # (N, n)
+    counts: torch.Tensor  # (N,) f32 per-client sample counts
+    test_x: torch.Tensor
+    test_y: torch.Tensor
+
+    def to(self, device) -> "RoundData":
+        return RoundData(*[_to(x, device) for x in self])
+
+
+class RoundMetrics(NamedTuple):
+    """Per-round telemetry (0-dim tensors on the run's device)."""
+
+    round: torch.Tensor
+    sim_time: torch.Tensor
+    duration: torch.Tensor
+    n_selected: torch.Tensor
+    n_succeeded: torch.Tensor
+    n_buffered: torch.Tensor
+    n_drained: torch.Tensor
+    mean_pred_latency: torch.Tensor
+    mean_real_latency: torch.Tensor
+    test_acc: torch.Tensor
+    test_loss: torch.Tensor
+
+
+@dataclasses.dataclass
+class RoundRecord:
+    """Host-side view of one round."""
+
+    round: int
+    sim_time: float
+    duration: float
+    n_selected: int
+    n_succeeded: int
+    mean_pred_latency: float
+    mean_real_latency: float
+    test_acc: float
+    test_loss: float
+    n_buffered: int = 0
+    n_drained: int = 0
+
+
+def cohort_size_for(fl: FLConfig, strategies: Sequence[str]) -> int:
+    """Static cohort width: greedy trains every connected client."""
+    return fl.num_clients if "greedy" in strategies else fl.n_select
+
+
+def regions_of(pos: torch.Tensor, cfg, n_regions: int = 10) -> torch.Tensor:
+    """(C,) home road region per CAV (geographic non-iid ownership)."""
+    return torch.floor(pos / cfg.ring_length_m * n_regions).to(torch.int64) % n_regions
+
+
+def twin_init_key(key: torch.Tensor) -> torch.Tensor:
+    """The fold chain from an experiment key to its twin-init key."""
+    return prng.fold_in_str(prng.fold_in_str(key, "traffic-twin"), "init")
+
+
+def init_state_for_key(api, fl: FLConfig, scn, key: torch.Tensor, device):
+    """One experiment's initial ``RoundState`` plus its (C,) home regions.
+
+    ``key`` is the already-folded experiment key (see ``init_state``).
+    """
+    params = api.init(prng.fold_in_str(key, "model-init"), device)
+    params_vec = flatten_to_vector(params)
+    P = params_vec.shape[0]
+    sketch_sign = sketch_sign_vector(prng.fold_in_str(key, "selector"), P,
+                                     fl.sketch_dim, device)
+    twin = init_twin_state(scn, twin_init_key(key), device)
+    regions = regions_of(twin.pos, scn)
+    N, Kb = fl.num_clients, fl.buffer_size
+    opt_m, opt_v = init_opt_vectors(params_vec)
+    f32 = dict(dtype=torch.float32, device=device)
+    state = RoundState(
+        params=params_vec,
+        opt_m=opt_m,
+        opt_v=opt_v,
+        twin=twin,
+        sketches=torch.zeros((N, fl.sketch_dim), **f32),
+        sketch_age=torch.full((N,), math.inf, **f32),
+        clusters=torch.zeros((N,), dtype=torch.int64, device=device),
+        sketch_sign=sketch_sign,
+        buf_delta=torch.zeros((Kb, P), **f32),
+        buf_arrive=torch.zeros((Kb,), **f32),
+        buf_sent=torch.zeros((Kb,), **f32),
+        buf_weight=torch.zeros((Kb,), **f32),
+        buf_mask=torch.zeros((Kb,), dtype=torch.bool, device=device),
+        round=0,
+        sim_time=torch.zeros((), **f32),
+        key=key.cpu(),
+    )
+    return state, regions
+
+
+def init_state(api, fl: FLConfig, scn, dataset: str, strategy: str,
+               key: torch.Tensor, device):
+    """Initial state of one experiment from the seed key (folds strategy + dataset)."""
+    if fl.num_clients != scn.num_vehicles:
+        raise ValueError("every FL client is a CAV: num_clients must equal num_vehicles")
+    key = prng.fold_in_str(key, f"fl-sim/{strategy}/{dataset}")
+    return init_state_for_key(api, fl, scn, key, device)
+
+
+def make_round_data(key: torch.Tensor, dataset: str, fl: FLConfig,
+                    regions: torch.Tensor, device) -> RoundData:
+    """Client shards + test set from (experiment key, home regions)."""
+    images, labels = partition_clients(key, dataset, fl, regions, device)
+    test_x, test_y = make_test_set(key, dataset, device=device)
+    return RoundData(images, labels, client_sample_counts(labels), test_x, test_y)
+
+
+def _check_lane(fl: FLConfig, fused: bool, aggregators) -> None:
+    if not fused:
+        raise NotImplementedError("the unfused geometry composition (fused=False) is "
+                                  "not ported (see ROADMAP.md)")
+    if fl.hierarchical or fl.client_block:
+        raise NotImplementedError("the two-tier RSU lane (hierarchical / client_block) "
+                                  "is not ported yet (see ROADMAP.md)")
+    if fl.param_dtype != "float32" or fl.compute_dtype != "float32":
+        raise NotImplementedError("the bf16 precision lane is not ported yet "
+                                  "(see ROADMAP.md)")
+    if validate_aggregators(aggregators) != ("fedavg",):
+        raise NotImplementedError("only the ('fedavg',) registry is ported (see ROADMAP.md)")
+
+
+def make_warmup(loss_fn, fl: FLConfig, param_spec):
+    """Deadline-rule bootstrap: every client reports one gradient sketch,
+    then the first clustering runs.  (state, data) -> state."""
+    one_step = make_local_trainer(loss_fn, fl.learning_rate, 1, fl.batch_size)
+
+    @torch.no_grad()
+    def warmup(state: RoundState, data: RoundData) -> RoundState:
+        bs = fl.batch_size
+        params = unflatten_from_vector(state.params, param_spec)
+        _, vecs = one_step(params, data.images[:, :bs], data.labels[:, :bs],
+                           prng.fold_in_str(state.key, "warmup"))
+        sketches = apply_sketch(vecs, state.sketch_sign, fl.sketch_dim)
+        k_km = prng.fold_in_str(prng.fold_in(state.key, 0), "kmeans")
+        clusters, _ = kmeans_cluster(sketches, k_km, fl.num_clusters)
+        return state._replace(sketches=sketches,
+                              sketch_age=torch.zeros_like(state.sketch_age),
+                              clusters=clusters)
+
+    return warmup
+
+
+def make_round_step(loss_fn, fl: FLConfig, cohort_size: int, model_bytes: float,
+                    param_spec, strategies: Sequence[str] = STRATEGY_ORDER,
+                    fused: bool = True, aggregators: Sequence[str] = ("fedavg",)):
+    """Build the round transition for a fixed FL config.
+
+    Returned fn: ``round_step(state, scn, strategy_idx, aggregator_idx,
+    data, do_eval, do_recluster=None) -> (state, metrics)``.
+    ``strategy_idx`` indexes ``strategies``; ``aggregator_idx`` must be 0
+    (the single ``fedavg`` rule).  ``do_recluster`` defaults to the
+    ``recluster_every`` schedule of the round counter.
+    """
+    strategies = tuple(strategies)
+    _check_lane(fl, fused, aggregators)
+    trainer = make_local_trainer(loss_fn, fl.learning_rate, fl.local_epochs,
+                                 fl.batch_size, mu=fl.fedprox_mu)
+    n_select = fl.n_select
+    N, K = fl.num_clients, cohort_size
+    compute_s = fl.local_epochs * fl.compute_s_per_epoch
+    cr = fl.connection_rate
+
+    def _forced(key, device):
+        """The forced connection-rate Bernoulli (Tab. I's CR < 1 rows)."""
+        if cr >= 1.0:
+            return None
+        return prng.bernoulli(key, cr, (N,), device)
+
+    def _predicted(twin, scn, rk, mb):
+        """Stages 1+2: fused observations -> predicted latency / connectivity."""
+        k_obs = prng.fold_in_str(rk, "observe")
+        cams = emit_cams(twin, scn, k_obs)
+        cpms = emit_cpms(twin, scn, k_obs)
+        forced = _forced(prng.fold_in_str(rk, "cr"), twin.pos.device)
+        pos, speed, accel, _ = fuse_kinematics(cams, cpms, scn)
+        return rttg_latency(pos, speed, accel, twin.t, mb, forced, scn, predict=True)
+
+    def _realized(mid_twin, scn, rk, mb):
+        """Mid-round geometry on the TRUE evolved topology."""
+        forced = _forced(prng.fold_in_str(rk, "upload-cr"), mid_twin.pos.device)
+        return rttg_latency(mid_twin.pos, mid_twin.speed, mid_twin.accel, mid_twin.t,
+                            mb, forced, scn, predict=False)
+
+    @torch.no_grad()
+    def round_step(state: RoundState, scn, strategy_idx, aggregator_idx,
+                   data: RoundData, do_eval, do_recluster=None):
+        if int(aggregator_idx) != 0:
+            raise NotImplementedError("only the ('fedavg',) registry is ported")
+        device = state.params.device
+        f32 = dict(dtype=torch.float32, device=device)
+        nan = torch.full((), math.nan, **f32)
+        mb = torch.tensor(float(model_bytes), **f32)
+        rk = prng.fold_in(state.key, state.round)
+
+        # ---- stages 1+2: fuse CAM/CPM, predict, price the topology -----
+        lat_pred, connected = _predicted(state.twin, scn, rk, mb)
+
+        # ---- stage 4: elect --------------------------------------------
+        name = strategies[int(strategy_idx)]
+        mask = STRATEGIES[name](prng.fold_in_str(rk, name), connected, lat_pred,
+                                state.clusters, n_select, fl.gamma)
+        n_selected = mask.sum().to(torch.int32)
+
+        # ---- fixed-size cohort: selected ids ascending, then padding ---
+        ar = torch.arange(N, device=device)
+        idx = torch.sort(torch.where(mask, ar, N + ar)).values[:K]
+        slot_valid = idx < N
+        idx_c = torch.where(slot_valid, idx, 0)
+
+        # ---- realized round economics on the TRUE evolved topology -----
+        compute_i = compute_s * state.twin.compute_factor[idx_c]
+        nsel_f = torch.clamp_min(n_selected.to(torch.float32), 1.0)
+        mean_compute = torch.where(slot_valid, compute_i, 0.0).sum() / nsel_f
+        mid_twin = advance_twin(state.twin, scn, prng.fold_in_str(rk, "mid"),
+                                mean_compute, ADVANCE_SUBSTEPS)
+        real_lat, still_conn = _realized(mid_twin, scn, rk, mb)
+        ok = slot_valid & still_conn[idx_c]
+        ok_any = ok.any()
+        timeout = torch.tensor(fl.round_timeout_s, **f32)
+        per_slot = real_lat[idx_c] + compute_i
+        # a selected client that missed the deadline costs the full timeout;
+        # padding slots must not contribute to the round maximum
+        slot_pay = torch.where(ok, per_slot, timeout)
+        dur_core = torch.where(slot_valid, slot_pay, -math.inf).max()
+        duration = torch.where(n_selected > 0, dur_core + fl.server_agg_s, timeout)
+
+        # ---- FedAvg weights from the per-client sample counts ----------
+        w = normalized_weights(ok, data.counts[idx_c])
+
+        # ---- local training over the cohort ----------------------------
+        params = unflatten_from_vector(state.params, param_spec)
+        imgs = data.images[idx_c]
+        imgs = imgs * slot_valid.reshape((K,) + (1,) * (imgs.dim() - 1))
+        lbls = torch.where(slot_valid[:, None], data.labels[idx_c], 0)
+        _, vecs = trainer(params, imgs, lbls, prng.fold_in_str(rk, "local"))
+        vecs = vecs * slot_valid[:, None]
+
+        # ---- deadline rule: survivors report sketches ------------------
+        sks = apply_sketch(vecs, state.sketch_sign, fl.sketch_dim)
+        scatter = torch.where(ok, idx_c, N)  # row N is a sink for the rest
+        sketches = torch.cat([state.sketches, state.sketches.new_zeros((1, fl.sketch_dim))])
+        sketches[scatter] = sks
+        sketches = sketches[:N]
+        sketch_age = torch.cat([state.sketch_age, state.sketch_age.new_zeros((1,))])
+        sketch_age[scatter] = 0.0
+        sketch_age = sketch_age[:N] + 1.0
+
+        # ---- server update over deadline survivors ---------------------
+        delta = fedavg_reduce(vecs, w)
+        params_vec = torch.where(ok_any, apply_delta_flat(state.params, delta), state.params)
+
+        # ---- advance the twin to round end -----------------------------
+        base = TwinState(*[torch.where(ok_any, m, o) for m, o in zip(mid_twin, state.twin)])
+        already = torch.where(ok_any, mean_compute, 0.0)
+        rem = torch.clamp_min(duration - already, 1e-3)
+        twin = advance_twin(base, scn, prng.fold_in_str(rk, "adv"), rem, ADVANCE_SUBSTEPS)
+
+        # ---- end of round: recluster on schedule, eval -----------------
+        new_round = state.round + 1
+        if do_recluster is None:
+            do_recluster = new_round % max(fl.recluster_every, 1) == 0
+        clusters = state.clusters
+        if do_recluster:
+            k_km = prng.fold_in_str(prng.fold_in(state.key, new_round), "kmeans")
+            clusters = kmeans_cluster(sketches, k_km, fl.num_clusters)[0]
+        sim_time = state.sim_time + duration
+        if do_eval:
+            tree = unflatten_from_vector(params_vec, param_spec)
+            _, m = loss_fn(tree, {"images": data.test_x, "labels": data.test_y})
+            test_acc, test_loss = m["accuracy"], m["ce"]
+        else:
+            test_acc, test_loss = nan, nan
+
+        zero_i = torch.zeros((), dtype=torch.int32, device=device)
+        has_sel = n_selected > 0
+        metrics = RoundMetrics(
+            round=torch.tensor(new_round, dtype=torch.int32, device=device),
+            sim_time=sim_time,
+            duration=duration,
+            n_selected=n_selected,
+            n_succeeded=ok.sum().to(torch.int32),
+            n_buffered=zero_i,
+            n_drained=zero_i,
+            mean_pred_latency=torch.where(
+                has_sel, torch.where(mask, lat_pred, 0.0).sum() / nsel_f, nan),
+            mean_real_latency=torch.where(
+                has_sel, torch.where(slot_valid, real_lat[idx_c], 0.0).sum() / nsel_f, nan),
+            test_acc=test_acc,
+            test_loss=test_loss,
+        )
+        new_state = state._replace(
+            params=params_vec,
+            twin=twin,
+            sketches=sketches,
+            sketch_age=sketch_age,
+            clusters=clusters,
+            round=new_round,
+            sim_time=sim_time,
+        )
+        return new_state, metrics
+
+    return round_step
+
+
+def metrics_to_records(metrics: RoundMetrics) -> list:
+    """Convert stacked (T,) ``RoundMetrics`` into host ``RoundRecord``s."""
+    m = {f: getattr(metrics, f).detach().cpu().tolist() for f in metrics._fields}
+    ints = ("round", "n_selected", "n_succeeded", "n_buffered", "n_drained")
+    return [
+        RoundRecord(**{f: (int(m[f][i]) if f in ints else float(m[f][i]))
+                       for f in metrics._fields})
+        for i in range(len(m["round"]))
+    ]

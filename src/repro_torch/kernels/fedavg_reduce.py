@@ -1,0 +1,64 @@
+"""FedAvg weighted cohort sum: CUDA kernel and its plain version.
+
+Port of ``repro/kernels/fedavg_reduce.py`` (Pallas ``_reduce_kernel``):
+``(K, P) x (K,) -> (P,)`` fp32, ``out[p] = sum_k w[k] u[k, p]``.
+CUDA tensors launch ``csrc/fedavg_reduce.cu``; CPU tensors run
+``fedavg_reduce_plain``.  There is no fallback from one to the other.
+"""
+from __future__ import annotations
+
+import torch
+
+# Kernel launches made by ``fedavg_reduce`` (one per call on CUDA tensors).
+launches = 0
+
+
+def fedavg_reduce_plain(updates: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
+    """The weighted sum over the cohort axis in fp32."""
+    return torch.einsum("k,kp->p", weights.to(torch.float32), updates.to(torch.float32))
+
+
+def _vector_width(x: torch.Tensor, P: int) -> int:
+    for vec in (4, 2):
+        if P % vec == 0 and x.data_ptr() % (4 * vec) == 0:
+            return vec
+    return 1
+
+
+def _fedavg_reduce_cuda(updates: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
+    from repro_torch.kernels.build import check, library
+
+    global launches
+    if updates.dtype != torch.float32:
+        raise NotImplementedError(
+            f"fedavg_reduce: {updates.dtype} update rows come with the bf16 lane "
+            "(see ROADMAP.md); this kernel takes float32 rows"
+        )
+    if updates.dim() != 2 or not updates.is_contiguous():
+        raise ValueError(f"fedavg_reduce: updates must be a contiguous (K, P) "
+                         f"tensor, got {tuple(updates.shape)}")
+    K, P = updates.shape
+    if (weights.device != updates.device or weights.dtype != torch.float32
+            or weights.shape != (K,) or not weights.is_contiguous()):
+        raise ValueError(f"fedavg_reduce: weights must be a contiguous ({K},) "
+                         f"float32 tensor on {updates.device}")
+    if K < 1:
+        raise ValueError("fedavg_reduce: the cohort must have at least one row")
+    out = torch.empty((P,), dtype=torch.float32, device=updates.device)
+    vec = min(_vector_width(updates, P), _vector_width(out, P))
+    stream = torch.cuda.current_stream(updates.device).cuda_stream
+    status = library().fedavg_reduce_launch(
+        updates.data_ptr(), weights.data_ptr(), K, P, vec, out.data_ptr(), stream
+    )
+    check(status, "fedavg_reduce")
+    launches += 1
+    return out
+
+
+def fedavg_reduce(updates: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
+    """Weighted sum over the cohort axis -> (P,) fp32."""
+    if updates.is_cuda:
+        return _fedavg_reduce_cuda(updates, weights)
+    if updates.device.type != "cpu":
+        raise ValueError(f"fedavg_reduce: unsupported device {updates.device}")
+    return fedavg_reduce_plain(updates, weights)

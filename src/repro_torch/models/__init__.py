@@ -1,0 +1,23 @@
+"""The port's FL task models: the MLP family so far (``repro.models``)."""
+from __future__ import annotations
+
+from typing import Callable, NamedTuple
+
+from repro_torch.config import ModelConfig
+from repro_torch.models import mlp as _mlp
+
+
+class ModelApi(NamedTuple):
+    cfg: ModelConfig
+    init: Callable  # (key, device) -> params dict
+    loss: Callable  # (params, batch) -> (loss, metrics)
+    spec: list  # flat-layout (path, shape) spec of the parameters
+
+
+def build_model(cfg: ModelConfig) -> ModelApi:
+    if cfg.family != "mlp":
+        raise NotImplementedError(
+            f"model family {cfg.family!r} is not ported yet (see ROADMAP.md)"
+        )
+    return ModelApi(cfg, init=lambda key, device: _mlp.init_mlp(key, cfg, device),
+                    loss=_mlp.mlp_loss, spec=_mlp.param_spec(cfg))
