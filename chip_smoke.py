@@ -9,18 +9,28 @@ Phases (any failure raises and exits non-zero):
    nvcc into ``build/kernels`` and print the seconds and ptxas's registers
    and spills per kernel;
 3. kernels: each kernel against its plain PyTorch version on the card, at
-   the main path's shapes and at the edges;
+   the main path's shapes and at the edges; ``server_update`` for every rule
+   and ``server_update_buffered`` for both ``drain`` states, and their two
+   bitwise contracts (rule 0 is ``fedavg_reduce`` + the AXPY; no drain is
+   the unbuffered update);
 4. main path: ``FLSimulation`` (ring / contextual / mnist, 100 vehicles,
    fl-mnist-mlp, the paper's section IV-A defaults) for 5 rounds on the card,
    with the kernels' launch counts, and one round replayed from the same
    state on the card and on the CPU;
+4b. aggregator lanes: the same simulation at CR 0.7 (Table I) for 5 rounds
+   under each of ``fedavgm``, ``fedadam``, ``fedyogi``, ``stale`` and
+   ``fedbuff``, each with its launch counts and a card-vs-CPU replay; then
+   the round-level contracts: the full registry at index 0 is the fedavg
+   round, and fedbuff with its buffer disabled is too, bit for bit;
 5. times: each kernel (CUDA events, after warm-up) beside its bound, its
-   plain version and a one-call PyTorch yardstick, and the round's wall time.
+   plain version and a one-call PyTorch yardstick, and the round's wall time
+   (the fedavg, fedadam and fedbuff lanes).
 
 The last two lines are the kernels' JSON record and the device JSON.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import os
@@ -37,6 +47,7 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS_PER_S = 67e12
 ROUNDS = 5
+LANES = ("fedavgm", "fedadam", "fedyogi", "stale", "fedbuff")
 
 
 def smi() -> str:
@@ -129,6 +140,192 @@ def check_fedavg(K, P, device) -> float:
     return err
 
 
+def server_operands(K, P, seed, device, exact=False):
+    """(updates, weights, params, m, v) for the server kernels.
+
+    ``exact``: dyadic updates and weights (7 and 3 significant bits) whose
+    weighted sums are exact in fp32 in any order, so the kernel's delta and
+    the plain version's are the same number, and ``v == delta**2`` ties are
+    ties on both sides (Yogi's ``sign(0) == 0``).
+    """
+    g = torch.Generator(device=device)
+    g.manual_seed(seed)
+    if exact:
+        u = torch.randint(-64, 65, (K, P), generator=g, device=device).float() * 2.0 ** -12
+        w = torch.randint(1, 9, (K,), generator=g, device=device).float() / 16
+    else:
+        u = 1e-3 * torch.randn((K, P), generator=g, device=device)
+        w = torch.rand((K,), generator=g, device=device)
+        w = w / w.sum()
+    params = 0.05 * torch.randn((P,), generator=g, device=device)
+    m = 1e-4 * torch.randn((P,), generator=g, device=device)
+    v = (1e-3 * torch.randn((P,), generator=g, device=device)) ** 2
+    return u, w, params, m, v
+
+
+def assert_server_close(got, ref, scale, what) -> float:
+    """The kernel against its plain version: another summation order, rtol
+    1e-5 with an atol scaled by sum_k |w_k u_k|; params get 100x that atol,
+    the adaptive step m / (sqrt(v) + tau) magnifying the sum's error by up
+    to (1 - beta1) / tau = 100."""
+    err = 0.0
+    for name, a, b, atol in zip(("params", "m", "v"), got, ref,
+                                (1e-4 * scale, 1e-6 * scale, 1e-6 * scale)):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=atol, msg=lambda m: f"{what} {name}: {m}")
+        err = max(err, float((a - b).abs().max()))
+    return err
+
+
+def check_server_update(K, P, rule, device, exact=False) -> float:
+    from repro_torch.kernels.fedavg_reduce import fedavg_reduce_plain
+    from repro_torch.kernels.server_update import server_update, server_update_plain
+
+    u, w, params, m, v = server_operands(K, P, K * 7 + P + rule, device, exact)
+    if exact:  # Yogi's sign ties: v == delta**2 on every 7th column
+        d = fedavg_reduce_plain(u, w)
+        v[::7] = (d * d)[::7]
+    got = server_update(u, w, params, m, v, rule, 3)
+    ref = server_update_plain(u, w, params, m, v, rule, 3)
+    torch.cuda.synchronize()
+    scale = float((w.abs() @ u.abs()).max())
+    return assert_server_close(got, ref, scale, f"server_update K={K} P={P} rule={rule}")
+
+
+def check_server_buffered(K, Kb, P, rule, drain, device) -> float:
+    from repro_torch.kernels.server_update import (
+        server_update_buffered, server_update_buffered_plain)
+
+    u, w, params, m, v = server_operands(K, P, K * 11 + Kb + P + rule, device)
+    ring, bw, *_ = server_operands(Kb, P, Kb * 13 + P + rule, device)
+    flag = torch.tensor(drain, device=device)
+    got = server_update_buffered(u, w, ring, bw, params, m, v, rule, 3, flag)
+    ref = server_update_buffered_plain(u, w, ring, bw, params, m, v, rule, 3, flag)
+    torch.cuda.synchronize()
+    rows, wts = (torch.cat([u, ring]), torch.cat([w, bw])) if drain else (u, w)
+    scale = float((wts.abs() @ rows.abs()).max())
+    return assert_server_close(got, ref, scale,
+                               f"server_update_buffered K={K} Kb={Kb} drain={drain} rule={rule}")
+
+
+def check_server_contracts(K, P, device) -> None:
+    """(a) rule 0 == fedavg_reduce + apply_delta_flat and (b) drain=False ==
+    the unbuffered update, every rule: bit for bit, signs of zeros included."""
+    from repro_torch.fl.server import apply_delta_flat
+    from repro_torch.kernels.fedavg_reduce import fedavg_reduce
+    from repro_torch.kernels.server_update import server_update, server_update_buffered
+
+    u, w, params, m, v = server_operands(K, P, 5 * K + P, device)
+    u[:, ::5] = 0.0  # columns whose delta is an exact +0.0
+    ring, bw, *_ = server_operands(8, P, 3 * P, device)
+    off = torch.tensor(False, device=device)
+    a = server_update(u, w, params, m, v, 0, 0)
+    want = apply_delta_flat(params, fedavg_reduce(u, w))
+    if not (torch.equal(a[0], want) and torch.equal(a[1], m) and torch.equal(a[2], v)):
+        raise AssertionError(f"contract (a) fails at K={K} P={P}")
+    for rule in range(6):
+        plain = server_update(u, w, params, m, v, rule, 0)
+        buffered = server_update_buffered(u, w, ring, bw, params, m, v, rule, 0, off)
+        for x, y in zip(plain, buffered):
+            if not (torch.equal(x, y) and torch.equal(torch.signbit(x), torch.signbit(y))):
+                raise AssertionError(f"contract (b) fails at K={K} P={P} rule={rule}")
+    print(f"server_update contracts (a) and (b) bitwise at K={K} P={P}")
+
+
+def kernel_modules():
+    from repro_torch.kernels import fedavg_reduce, rttg_latency, server_update
+
+    return rttg_latency, fedavg_reduce, server_update
+
+
+def read_launches() -> dict:
+    rttg, fedavg, su = kernel_modules()
+    return {"rttg_latency": rttg.launches, "fedavg_reduce": fedavg.launches,
+            "server_update": su.launches, "server_update_buffered": su.buffered_launches}
+
+
+def reset_launches() -> None:
+    rttg, fedavg, su = kernel_modules()
+    rttg.launches = fedavg.launches = su.launches = su.buffered_launches = 0
+
+
+def drive(sim, server: str):
+    """Warm-up and ROUNDS rounds, launch counts zeroed just before and read
+    just after: 2 rttg_latency and 1 ``server`` launch per round, nothing
+    else.  -> (state before round 1, records, launches)."""
+    reset_launches()
+    sim.warmup_sketches()
+    state0 = sim.state
+    records = [sim.run_round() for _ in range(ROUNDS)]
+    torch.cuda.synchronize()
+    launches = read_launches()
+    for rec in records:
+        print(json.dumps(rec.__dict__))
+    print(f"launches over {ROUNDS} rounds: {launches}")
+    want = dict.fromkeys(launches, 0)
+    want.update(rttg_latency=2 * ROUNDS, **{server: ROUNDS})
+    if launches != want:
+        raise AssertionError(f"expected {want}, got {launches}")
+    for rec in records:
+        for k, v in rec.__dict__.items():
+            if not math.isfinite(v):
+                raise AssertionError(f"round {rec.round}: {k} = {v} is not finite")
+    for f in ("params", "opt_m", "opt_v", "buf_delta"):
+        if not bool(torch.isfinite(getattr(sim.state, f)).all()):
+            raise AssertionError(f"{f} has non-finite entries")
+    return state0, records, launches
+
+
+def replay(sim, state0, first, traffic, params_atol: float, acc_atol: float = 1e-6) -> None:
+    """The first round again from ``state0``: on the card (it must repeat
+    bitwise) and on the CPU through the plain versions (the same integers)."""
+    from repro_torch.core.scenarios import scenario_params
+    from repro_torch.fl.rounds import RoundMetrics, metrics_to_records
+
+    s_gpu, m_gpu = sim._step(state0, sim.scn, 0, 0, sim.data, True)
+    again = metrics_to_records(RoundMetrics(*[x[None] for x in m_gpu]))[0]
+    if again != first:
+        raise AssertionError(f"replayed round differs on the card: {again} vs {first}")
+    scn_cpu = scenario_params(traffic, "cpu")
+    s_cpu, m_cpu = sim._step(state0.to("cpu"), scn_cpu, 0, 0, sim.data.to("cpu"), True)
+    cpu = metrics_to_records(RoundMetrics(*[x[None] for x in m_cpu]))[0]
+    for f in ("round", "n_selected", "n_succeeded", "n_buffered", "n_drained"):
+        if getattr(cpu, f) != getattr(first, f):
+            raise AssertionError(f"cuda vs cpu: {f} {getattr(first, f)} != {getattr(cpu, f)}")
+    for f in ("sketch_age", "buf_mask"):
+        if not torch.equal(getattr(s_gpu, f).cpu(), getattr(s_cpu, f)):
+            raise AssertionError(f"cuda vs cpu: {f} differs (the reporting cohort / the ring)")
+    # float order differs between the card and the CPU (GEMMs, reductions,
+    # transcendentals): metrics rtol 1e-4, the model after one round by
+    # ``params_atol``, test accuracy by ``acc_atol``
+    for f in ("sim_time", "duration", "mean_pred_latency", "mean_real_latency",
+              "test_acc", "test_loss"):
+        a, b = getattr(first, f), getattr(cpu, f)
+        if not math.isclose(a, b, rel_tol=1e-4, abs_tol=acc_atol if f == "test_acc" else 1e-6):
+            raise AssertionError(f"cuda vs cpu: {f} {a} vs {b}")
+    torch.testing.assert_close(s_gpu.params.cpu(), s_cpu.params, rtol=0, atol=params_atol)
+    for f in ("opt_m", "opt_v", "buf_delta"):
+        torch.testing.assert_close(getattr(s_gpu, f).cpu(), getattr(s_cpu, f), rtol=1e-4,
+                                   atol=1e-7)
+    print(f"cuda vs cpu, one round from the same state: integers equal, "
+          f"max |dparams| = {float((s_gpu.params.cpu() - s_cpu.params).abs().max()):.3e}")
+
+
+def assert_rounds_bitwise(a, b, what) -> None:
+    """Two rounds' (state, metrics) equal bit for bit (NaN metrics alike)."""
+    (sa, ma), (sb, mb) = a, b
+    for f in sa._fields:
+        x, y = getattr(sa, f), getattr(sb, f)
+        same = (all(torch.equal(p, q) for p, q in zip(x, y)) if f == "twin" else
+                torch.equal(x, y) if isinstance(x, torch.Tensor) else x == y)
+        if not same:
+            raise AssertionError(f"{what}: state leaf {f} differs")
+    for f in ma._fields:
+        x, y = getattr(ma, f), getattr(mb, f)
+        if not (torch.equal(x, y) or bool(torch.isnan(x).all() and torch.isnan(y).all())):
+            raise AssertionError(f"{what}: metric {f} differs")
+    print(f"{what}: every state leaf and metric bitwise")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script needs a card",
@@ -176,16 +373,34 @@ def main() -> int:
     main_err["fedavg_reduce"] = check_fedavg(10, 159_010, device)
     for K, P in ((1, 159_010), (10, 2049), (1, 1), (10, 4096)):
         check_fedavg(K, P, device)
+    main_err["server_update"] = main_err["server_update_buffered"] = 0.0
+    for K, P in ((10, 159_010), (1, 1), (1, 2047), (5, 2049), (100, 38_656)):
+        errs = [check_server_update(K, P, rule, device, exact) for rule in range(6)
+                for exact in (False, True)]
+        if (K, P) == (10, 159_010):
+            main_err["server_update"] = max(errs)
+        print(f"server_update K={K:3d} P={P:7d} rules 0-5, random and exact operands: "
+              f"max_abs_err={max(errs):.3e}")
+    for Kb in (1, 8):
+        for drain in (False, True):
+            errs = [check_server_buffered(10, Kb, 159_010, rule, drain, device)
+                    for rule in range(6)]
+            if Kb == 8:
+                main_err["server_update_buffered"] = max(
+                    main_err["server_update_buffered"], *errs)
+            print(f"server_update_buffered K=10 Kb={Kb} P=159010 drain={drain!s:5s} "
+                  f"rules 0-5: max_abs_err={max(errs):.3e}")
+    check_server_buffered(1, 1, 1, 2, True, device)
+    check_server_buffered(5, 3, 2049, 3, True, device)
+    for K, P in ((10, 159_010), (5, 2049), (1, 1)):
+        check_server_contracts(K, P, device)
 
     # ---- 4. main path ----------------------------------------------------
     phase("main path: FLSimulation ring / contextual / mnist on cuda")
     from repro_torch.config import FLConfig
     from repro_torch.configs import get_config
-    from repro_torch.core.scenarios import scenario_config, scenario_params
-    from repro_torch.fl.rounds import RoundMetrics, metrics_to_records
+    from repro_torch.core.scenarios import scenario_config
     from repro_torch.fl.simulation import FLSimulation
-    from repro_torch.kernels import fedavg_reduce as fedavg_mod
-    from repro_torch.kernels import rttg_latency as rttg_mod
     from repro_torch.utils import prng
 
     # launch_fl_sim.run_experiment's defaults for mnist (paper section IV-A)
@@ -200,53 +415,53 @@ def main() -> int:
     print(f"set-up (init + client shards on the card): {time.perf_counter() - t0:.2f} s; "
           f"P={sim.state.params.numel()} N={fl.num_clients} K={fl.n_select}")
 
-    rttg_mod.launches = 0
-    fedavg_mod.launches = 0
-    sim.warmup_sketches()
-    state0 = sim.state
-    records = []
-    for _ in range(ROUNDS):
-        rec = sim.run_round()
-        records.append(rec)
-        print(json.dumps(rec.__dict__))
-    torch.cuda.synchronize()
-    launches = {"rttg_latency": rttg_mod.launches, "fedavg_reduce": fedavg_mod.launches}
-    print(f"launches over {ROUNDS} rounds: {launches}")
-    if launches != {"rttg_latency": 2 * ROUNDS, "fedavg_reduce": ROUNDS}:
-        raise AssertionError(f"expected 2 rttg_latency and 1 fedavg_reduce launch per "
-                             f"round, got {launches}")
-    for rec in records:
-        for k, v in rec.__dict__.items():
-            if not math.isfinite(v):
-                raise AssertionError(f"round {rec.round}: {k} = {v} is not finite")
-    if not bool(torch.isfinite(sim.state.params).all()):
-        raise AssertionError("global model has non-finite entries")
+    state0, records, launches = drive(sim, "fedavg_reduce")
+    replay(sim, state0, records[0], traffic, params_atol=1e-5)
 
-    # the same round from the same state: on the card again (must repeat
-    # bitwise) and on the CPU through the plain versions
-    s_gpu, m_gpu = sim._step(state0, sim.scn, 0, 0, sim.data, True)
-    first = records[0]
-    again = metrics_to_records(RoundMetrics(*[x[None] for x in m_gpu]))[0]
-    if again != first:
-        raise AssertionError(f"replayed round differs on the card: {again} vs {first}")
-    scn_cpu = scenario_params(traffic, "cpu")
-    s_cpu, m_cpu = sim._step(state0.to("cpu"), scn_cpu, 0, 0, sim.data.to("cpu"), True)
-    cpu = metrics_to_records(RoundMetrics(*[x[None] for x in m_cpu]))[0]
-    for f in ("round", "n_selected", "n_succeeded", "n_buffered", "n_drained"):
-        if getattr(cpu, f) != getattr(first, f):
-            raise AssertionError(f"cuda vs cpu: {f} {getattr(first, f)} != {getattr(cpu, f)}")
-    if not torch.equal(s_gpu.sketch_age.cpu(), s_cpu.sketch_age):
-        raise AssertionError("cuda vs cpu: the reporting cohort differs")
-    # float order differs between the card and the CPU (GEMMs, reductions,
-    # transcendentals): metrics rtol 1e-4, the model after one round 1e-5 abs
-    for f in ("sim_time", "duration", "mean_pred_latency", "mean_real_latency",
-              "test_acc", "test_loss"):
-        a, b = getattr(first, f), getattr(cpu, f)
-        if not math.isclose(a, b, rel_tol=1e-4, abs_tol=1e-6):
-            raise AssertionError(f"cuda vs cpu: {f} {a} vs {b}")
-    torch.testing.assert_close(s_gpu.params.cpu(), s_cpu.params, rtol=0, atol=1e-5)
-    print(f"cuda vs cpu, one round from the same state: integers equal, "
-          f"max |dparams| = {float((s_gpu.params.cpu() - s_cpu.params).abs().max()):.3e}")
+    # ---- 4b. the aggregator lanes --------------------------------------------
+    phase("aggregator lanes: FLSimulation at CR 0.7 under each server rule on cuda")
+    from repro_torch.fl.aggregators import AGGREGATOR_ORDER, FEDBUFF_IDX
+    from repro_torch.fl.rounds import make_round_step
+
+    lane_sims, lane_launches = {}, {}
+    for lane in LANES:
+        # Table I's connection rate 0.7: some of the cohort miss the
+        # deadline, so stale reweights, fedbuff parks and drains
+        fl_lane = dataclasses.replace(fl, aggregator=lane, connection_rate=0.7)
+        sim_lane = FLSimulation(get_config("fl-mnist-mlp"), fl_lane, traffic, "mnist",
+                                "contextual", prng.key(0), device=device)
+        server = "server_update_buffered" if lane == "fedbuff" else "server_update"
+        print(f"-- {lane} ({server})")
+        s0, recs, lane_launches[lane] = drive(sim_lane, server)
+        if lane == "fedbuff":
+            parked = sum(r.n_buffered for r in recs)
+            landed = sum(r.n_drained for r in recs)
+            if not (parked and landed):
+                raise AssertionError(f"fedbuff at CR 0.7: {parked} parked, {landed} drained")
+        # the adaptive rules' step m / (sqrt(v) + tau) magnifies the card-vs-CPU
+        # drift of the update sum by up to (1 - beta1) / tau = 100
+        replay(sim_lane, s0, recs[0], traffic,
+               params_atol=1e-4 if lane in ("fedadam", "fedyogi") else 1e-5,
+               acc_atol=1e-3)  # two of the 2,000 test images
+        lane_sims[lane] = sim_lane
+
+    # contract (a): the full registry at index 0 is the ("fedavg",) round;
+    # fedbuff with its buffer disabled (fill at the cohort, CR 1.0) is too
+    K = fl.n_select
+    general = make_round_step(sim.api.loss, fl, K, sim.model_bytes, sim.param_spec,
+                              ("contextual",), aggregators=AGGREGATOR_ORDER)
+    fedavg_round = sim._step(state0, sim.scn, 0, 0, sim.data, True)
+    assert_rounds_bitwise(general(state0, sim.scn, 0, 0, sim.data, True), fedavg_round,
+                          "full registry at index 0 vs the ('fedavg',) round")
+    off = make_round_step(sim.api.loss, dataclasses.replace(fl, buffer_fill=K), K,
+                          sim.model_bytes, sim.param_spec, ("contextual",),
+                          aggregators=AGGREGATOR_ORDER)
+    s_off, m_off = off(state0, sim.scn, 0, FEDBUFF_IDX, sim.data, True)
+    if not (int(m_off.n_succeeded) == int(m_off.n_selected) > 0
+            and int(m_off.n_buffered) == 0):
+        raise AssertionError("disabled-buffer premise: a straggler at CR 1.0")
+    assert_rounds_bitwise((s_off, m_off), fedavg_round,
+                          "fedbuff with the buffer disabled vs the ('fedavg',) round")
 
     # ---- 5. times ----------------------------------------------------------
     phase(f"times on {card}")
@@ -347,16 +562,95 @@ def main() -> int:
           f"{fed_plain * 1e3:.2f} us, torch.mv {fed_lib * 1e3:.2f} us, bound "
           f"{b_ms * 1e3:.2f} us ({b_by}), {fed_bytes / (fed_ms * 1e-3) / 1e9:.0f} GB/s [{card}]")
 
-    # the round: wall time ending in a synchronize, then one profiled round
-    walls = []
-    for _ in range(3):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        sim.step()
-        torch.cuda.synchronize()
-        walls.append(time.perf_counter() - t0)
-    print(f"round wall time (N=100, K=10, 3 epochs): "
-          f"{', '.join(f'{x * 1e3:.1f}' for x in walls)} ms [{card}]")
+    # server_update (fedadam, rule 2) and server_update_buffered (fedbuff,
+    # rule 5, draining all Kb = 8 ring rows) at K=10, P=159,010, cycling
+    # through operand sets that together exceed the L2, as above
+    from repro_torch.fl.aggregators import ServerHP
+    from repro_torch.kernels.server_update import (
+        MOMENT_RULES, server_update, server_update_buffered, server_update_buffered_plain,
+        server_update_plain)
+
+    Kb = fl.buffer_size
+    sets = [server_operands(K, P, 100 + i, device) for i in range(n_copies)]
+    rings = [server_operands(Kb, P, 200 + i, device)[:2] for i in range(n_copies)]
+    outs = [torch.empty((P,), dtype=torch.float32, device=device) for _ in range(3)]
+    on = torch.tensor(True, device=device)
+    hp = ServerHP()
+
+    def nxt_set():
+        it["i"] = (it["i"] + 1) % n_copies
+        return sets[it["i"]], rings[it["i"]]
+
+    def su_launch(rule, buffered):
+        (u, w_, p_, m_, v_), (ring, bw) = nxt_set()
+        ring_args = (ring.data_ptr(), bw.data_ptr(), Kb, on.data_ptr()) if buffered \
+            else (None, None, 0, None)
+        kbuild.check(lib.server_update_launch(
+            u.data_ptr(), w_.data_ptr(), K, *ring_args, P, p_.data_ptr(), m_.data_ptr(),
+            v_.data_ptr(), rule, 0, hp.eta, hp.beta1, 1.0 - hp.beta1, hp.beta2,
+            1.0 - hp.beta2, hp.tau, vec, *[o.data_ptr() for o in outs], stream),
+            "server_update")
+
+    def su_plain(rule, buffered):
+        (u, w_, p_, m_, v_), (ring, bw) = nxt_set()
+        if buffered:
+            return server_update_buffered_plain(u, w_, ring, bw, p_, m_, v_, rule, 0, on)
+        return server_update_plain(u, w_, p_, m_, v_, rule, 0)
+
+    def su_wrapper(rule, buffered):
+        (u, w_, p_, m_, v_), (ring, bw) = nxt_set()
+        if buffered:
+            return server_update_buffered(u, w_, ring, bw, p_, m_, v_, rule, 0, on)
+        return server_update(u, w_, p_, m_, v_, rule, 0)
+
+    su_runs = {"server_update": (2, False, 0, sum(
+                   lane_launches[x]["server_update"] for x in LANES)),
+               "server_update_buffered": (5, True, Kb, lane_launches["fedbuff"][
+                   "server_update_buffered"])}
+    # two passes over the pair, each kernel timed in turn; the first pass is a
+    # warm-up (a call's first server timing reads slow), the second is kept
+    su_times = {}
+    for _ in range(2):
+        for name, (rule, buffered, _rows, _n) in su_runs.items():
+            su_times[name] = (time_ms(lambda: su_launch(rule, buffered)),
+                              time_ms(lambda: su_plain(rule, buffered)),
+                              time_ms(lambda: su_wrapper(rule, buffered)))
+    for name, (rule, buffered, rows_b, n_launch) in su_runs.items():
+        ms, plain_ms, wrap_ms = su_times[name]
+        rows = K + rows_b
+        # each input read once (rows, weights, drain flag, params, and m, v
+        # under a moment rule), each output written once (params', and m', v'
+        # under a moment rule: the AXPY rules leave the moments untouched);
+        # 2 flops per row value plus ~12 per column for a moment rule, 1 for the AXPY
+        moments = rule in MOMENT_RULES
+        su_bytes = (rows * P * 4 + rows * 4 + (1 if buffered else 0)
+                    + (6 if moments else 2) * P * 4)
+        b_ms, b_by = bound(su_bytes, 2 * rows * P + (12 if moments else 1) * P)
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/server_update.cu",
+            "replaces": "src/repro/kernels/server_update.py:124" if not buffered
+            else "src/repro/kernels/server_update.py:164",
+            "launches": n_launch, "max_abs_err": main_err[name], "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+        })
+        print(f"{name} K={K} Kb={rows_b} P={P} rule {rule} (vec {vec}): kernel "
+              f"{ms * 1e3:.2f} us, wrapper {wrap_ms * 1e3:.2f} us, plain "
+              f"{plain_ms * 1e3:.2f} us, bound {b_ms * 1e3:.2f} us ({b_by}), "
+              f"{su_bytes / (ms * 1e-3) / 1e9:.0f} GB/s [{card}]")
+
+    # the rounds: wall time ending in a synchronize, then one profiled round
+    for label, s_ in (("fedavg", sim), ("fedadam", lane_sims["fedadam"]),
+                      ("fedbuff", lane_sims["fedbuff"])):
+        walls = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            s_.step()
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        print(f"round wall time, {label} lane (N=100, K=10, 3 epochs): "
+              f"{', '.join(f'{x * 1e3:.1f}' for x in walls)} ms [{card}]")
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         torch.cuda.synchronize()

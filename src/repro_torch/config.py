@@ -74,8 +74,9 @@ class FLConfig:
 
     Every field of the reference is kept, so configs convert one to one;
     the lanes this port does not run yet (``hierarchical``, ``client_block``,
-    aggregators other than ``fedavg``, bfloat16) are refused by
-    ``fl.rounds.make_round_step``.
+    bfloat16) are refused by ``fl.rounds.make_round_step``.  Every
+    registered aggregator runs, with its ``server_*`` hyperparameters,
+    ``fedprox_mu`` and the fedbuff ring's ``buffer_size`` / ``buffer_fill``.
     """
 
     num_clients: int = 100

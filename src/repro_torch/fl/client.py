@@ -24,10 +24,11 @@ def make_local_trainer(loss_fn: Callable, lr: float, epochs: int, batch_size: in
     cohort key (split K ways) or a ``(K, 2)`` batch of per-client keys.
     Each client draws ``epochs`` permutations of its ``n`` samples and walks
     them in batches of ``batch_size`` with plain SGD.
+
+    ``mu`` is the FedProx proximal coefficient (Li et al.): each step's
+    gradient gains ``mu * (p - p_global)``.  The ``mu == 0`` gate is decided
+    here, once, so the default trainer runs no proximal term at all.
     """
-    if mu:
-        raise NotImplementedError("the FedProx term (fedprox_mu != 0) is not ported "
-                                  "yet (see ROADMAP.md)")
     if compute_dtype is not None:
         raise NotImplementedError("the bf16 compute lane is not ported yet "
                                   "(see ROADMAP.md)")
@@ -51,7 +52,10 @@ def make_local_trainer(loss_fn: Callable, lr: float, epochs: int, batch_size: in
                 p = p.detach().requires_grad_(True)
                 loss, _ = loss_fn(unflatten_from_vector(p, spec), batch)
                 (g,) = torch.autograd.grad(loss.sum(), p)
-            p = p.detach() - lr * g
+            p = p.detach()
+            if mu:
+                g = g + mu * (p - start)
+            p = p - lr * g
         vecs = p - start[None]
         return unflatten_from_vector(vecs, spec), vecs
 

@@ -7,17 +7,24 @@ the flat ``(P,)`` global model.  Selection is a fixed-size mask compacted
 into K cohort slots, as in the JAX package, so the shapes never depend on
 the data.
 
-The port runs one lane of the reference: flat aggregation, the
-``("fedavg",)`` registry, the fused geometry (``fused=True``: both geometry
-passes go through the ``rttg_latency`` kernel), fp32.  Every other lane
-raises ``NotImplementedError``.  Two kernels carry the round:
-``rttg_latency`` (twice: predicted and realized topology) and
-``fedavg_reduce`` (once: the server's weighted cohort sum).
+The port runs the flat, fused-geometry (``fused=True``: both geometry
+passes go through the ``rttg_latency`` kernel), fp32 lanes of the reference
+with every registered server rule (``fl.aggregators.AGGREGATOR_ORDER``);
+the two-tier, bf16 and unfused lanes raise ``NotImplementedError``.  The
+kernels of a round: ``rttg_latency`` twice (predicted and realized
+topology), then one server step.  The single-rule ``("fedavg",)`` registry
+keeps the plain ``fedavg_reduce`` + AXPY step; any other registry runs the
+fused ``server_update`` kernel, or ``server_update_buffered`` when it holds
+``fedbuff`` (the in-flight ring's drained rows join the same reduce).
 
 Randomness follows the reference stream for stream: every draw comes from
 the experiment key ``RoundState.key`` folded by round and by name.  Keys
 and the round counter live on the host (a key is two words; deriving one is
 cheaper there than a launch); everything else lives on the run's device.
+So does the aggregator index: a registry is resolved to its global rule
+index on the host, while every data-dependent decision of the server step
+(who parks, whether the ring drains, whether the model moves) stays a
+device tensor.
 """
 from __future__ import annotations
 
@@ -33,12 +40,21 @@ from repro_torch.core.fusion import fuse_kinematics
 from repro_torch.core.messages import emit_cams, emit_cpms
 from repro_torch.core.selection import STRATEGIES
 from repro_torch.core.twin import TwinState, advance_twin, init_twin_state
-from repro_torch.fl.aggregators import init_opt_vectors, validate_aggregators
+from repro_torch.fl.aggregators import (
+    AGGREGATOR_ORDER,
+    FEDBUFF_IDX,
+    STALE_IDX,
+    init_opt_vectors,
+    server_hp,
+    staleness_scale,
+    validate_aggregators,
+)
 from repro_torch.fl.client import make_local_trainer
 from repro_torch.fl.partition import client_sample_counts, make_test_set, partition_clients
 from repro_torch.fl.server import apply_delta_flat, normalized_weights
 from repro_torch.kernels.fedavg_reduce import fedavg_reduce
 from repro_torch.kernels.rttg_latency import rttg_latency
+from repro_torch.kernels.server_update import server_update, server_update_buffered
 from repro_torch.utils import prng
 from repro_torch.utils.pytree import flatten_to_vector, unflatten_from_vector
 
@@ -58,9 +74,11 @@ class RoundState(NamedTuple):
     ``params`` is the flat (P,) fp32 global model; ``opt_m`` / ``opt_v`` the
     server-moment vectors (zeros: plain fedavg carries them untouched);
     ``sketch_sign`` the per-experiment Rademacher signs.  The ``buf_*``
-    leaves are the reference's fedbuff ring buffer, carried as inert zeros
-    until that lane is ported.  ``round`` is a Python int and ``key`` a host
-    tensor; the rest lives on the run's device.
+    leaves are the fedbuff ring: ``Kb = FLConfig.buffer_size`` slots holding
+    deadline-missers' update rows, with arrival time, dispatch time,
+    sample-count weight and occupancy; other rules carry them as inert
+    zeros.  ``round`` is a Python int and ``key`` a host tensor; the rest
+    lives on the run's device.
     """
 
     params: torch.Tensor
@@ -202,7 +220,7 @@ def make_round_data(key: torch.Tensor, dataset: str, fl: FLConfig,
     return RoundData(images, labels, client_sample_counts(labels), test_x, test_y)
 
 
-def _check_lane(fl: FLConfig, fused: bool, aggregators) -> None:
+def _check_lane(fl: FLConfig, fused: bool) -> None:
     if not fused:
         raise NotImplementedError("the unfused geometry composition (fused=False) is "
                                   "not ported (see ROADMAP.md)")
@@ -212,8 +230,6 @@ def _check_lane(fl: FLConfig, fused: bool, aggregators) -> None:
     if fl.param_dtype != "float32" or fl.compute_dtype != "float32":
         raise NotImplementedError("the bf16 precision lane is not ported yet "
                                   "(see ROADMAP.md)")
-    if validate_aggregators(aggregators) != ("fedavg",):
-        raise NotImplementedError("only the ('fedavg',) registry is ported (see ROADMAP.md)")
 
 
 def make_warmup(loss_fn, fl: FLConfig, param_spec):
@@ -244,12 +260,22 @@ def make_round_step(loss_fn, fl: FLConfig, cohort_size: int, model_bytes: float,
 
     Returned fn: ``round_step(state, scn, strategy_idx, aggregator_idx,
     data, do_eval, do_recluster=None) -> (state, metrics)``.
-    ``strategy_idx`` indexes ``strategies``; ``aggregator_idx`` must be 0
-    (the single ``fedavg`` rule).  ``do_recluster`` defaults to the
+    ``strategy_idx`` indexes ``strategies`` and ``aggregator_idx``
+    ``aggregators`` (host ints).  ``do_recluster`` defaults to the
     ``recluster_every`` schedule of the round counter.
     """
     strategies = tuple(strategies)
-    _check_lane(fl, fused, aggregators)
+    _check_lane(fl, fused)
+    aggregators = validate_aggregators(aggregators)
+    # local aggregator index -> global AGGREGATOR_ORDER index (the kernel's
+    # rule switch and the STALE / FEDBUFF tests speak global)
+    agg_global = tuple(AGGREGATOR_ORDER.index(a) for a in aggregators)
+    plain_fedavg = aggregators == ("fedavg",)
+    # a registry holding fedbuff routes every lane through the buffered
+    # kernel (drain=False is the unbuffered step exactly)
+    has_fedbuff = "fedbuff" in aggregators
+    Kb, buffer_fill = fl.buffer_size, fl.buffer_fill
+    hp = server_hp(fl)
     trainer = make_local_trainer(loss_fn, fl.learning_rate, fl.local_epochs,
                                  fl.batch_size, mu=fl.fedprox_mu)
     n_select = fl.n_select
@@ -281,8 +307,6 @@ def make_round_step(loss_fn, fl: FLConfig, cohort_size: int, model_bytes: float,
     @torch.no_grad()
     def round_step(state: RoundState, scn, strategy_idx, aggregator_idx,
                    data: RoundData, do_eval, do_recluster=None):
-        if int(aggregator_idx) != 0:
-            raise NotImplementedError("only the ('fedavg',) registry is ported")
         device = state.params.device
         f32 = dict(dtype=torch.float32, device=device)
         nan = torch.full((), math.nan, **f32)
@@ -322,7 +346,49 @@ def make_round_step(loss_fn, fl: FLConfig, cohort_size: int, model_bytes: float,
         duration = torch.where(n_selected > 0, dur_core + fl.server_agg_s, timeout)
 
         # ---- FedAvg weights from the per-client sample counts ----------
-        w = normalized_weights(ok, data.counts[idx_c])
+        counts_k = data.counts[idx_c]
+        w = normalized_weights(ok, counts_k)
+        upd_any = ok_any
+        gidx = agg_global[int(aggregator_idx)]
+        if gidx == STALE_IDX:
+            # stragglers keep a weight discounted by their realized round
+            # time; any selected client moves the model
+            disc = torch.where(ok, 1.0, staleness_scale(per_slot, timeout))
+            w = normalized_weights(slot_valid, counts_k * disc)
+            upd_any = n_selected > 0
+
+        # ---- fedbuff: drain arrived ring slots, place new stragglers ---
+        # Mask-based on the fixed (Kb,) slot axis: the occupied slots that
+        # have ARRIVED by round end drain (discounted by their realized
+        # lateness, gated on the fill threshold) into the server step; this
+        # round's deadline-missers compact into the freed slots.
+        n_buffered = n_drained = torch.zeros((), dtype=torch.int32, device=device)
+        if has_fedbuff:
+            is_fedbuff = gidx == FEDBUFF_IDX
+            end_time = state.sim_time + duration
+            arrived = state.buf_mask & (state.buf_arrive <= end_time)
+            n_arrived = arrived.sum().to(torch.int32)
+            drain_fire = (n_arrived >= buffer_fill) & is_fedbuff
+            disc_b = staleness_scale(torch.clamp_min(end_time - state.buf_sent, 0.0), timeout)
+            # normalized by the UNDISCOUNTED drained mass, so the discount
+            # shrinks the step instead of cancelling out
+            mass_b = torch.where(arrived, state.buf_weight, 0.0).sum()
+            drained = drain_fire & arrived
+            bw = torch.where(drained, state.buf_weight * disc_b / torch.clamp_min(mass_b, 1e-9),
+                             0.0)
+            keep = state.buf_mask & ~drained
+            # the i-th straggler takes the i-th free slot; ranks past the
+            # free capacity get slot 2*Kb and drop (newest overflow dropped)
+            strag = slot_valid & ~ok & is_fedbuff
+            ar_b = torch.arange(Kb, device=device)
+            free_order = torch.sort(torch.where(keep, Kb + ar_b, ar_b)).values
+            rank = torch.cumsum(strag, 0) - 1
+            slot = torch.where(strag & (rank < Kb), free_order[rank.clamp(0, Kb - 1)], 2 * Kb)
+            n_buffered = (strag & (slot < Kb)).sum().to(torch.int32)
+            n_drained = torch.where(drain_fire, n_arrived, 0).to(torch.int32)
+            if is_fedbuff:
+                # a drain with no in-round survivor is still a server step
+                upd_any = ok_any | drain_fire
 
         # ---- local training over the cohort ----------------------------
         params = unflatten_from_vector(state.params, param_spec)
@@ -334,17 +400,42 @@ def make_round_step(loss_fn, fl: FLConfig, cohort_size: int, model_bytes: float,
 
         # ---- deadline rule: survivors report sketches ------------------
         sks = apply_sketch(vecs, state.sketch_sign, fl.sketch_dim)
-        scatter = torch.where(ok, idx_c, N)  # row N is a sink for the rest
-        sketches = torch.cat([state.sketches, state.sketches.new_zeros((1, fl.sketch_dim))])
-        sketches[scatter] = sks
-        sketches = sketches[:N]
-        sketch_age = torch.cat([state.sketch_age, state.sketch_age.new_zeros((1,))])
-        sketch_age[scatter] = 0.0
-        sketch_age = sketch_age[:N] + 1.0
+        scatter = torch.where(ok, idx_c, N)  # the rest drop
+        sketches = _scatter_rows(state.sketches, scatter, sks)
+        sketch_age = _scatter_rows(state.sketch_age, scatter, sks.new_zeros((K,))) + 1.0
 
-        # ---- server update over deadline survivors ---------------------
-        delta = fedavg_reduce(vecs, w)
-        params_vec = torch.where(ok_any, apply_delta_flat(state.params, delta), state.params)
+        # ---- server update over deadline survivors (one fused pass) ----
+        opt_m, opt_v = state.opt_m, state.opt_v
+        if plain_fedavg:
+            delta = fedavg_reduce(vecs, w)
+            params_vec = torch.where(ok_any, apply_delta_flat(state.params, delta),
+                                     state.params)
+        else:
+            if has_fedbuff:
+                # the PRE-scatter ring: bw is nonzero only on slots drained now
+                new = server_update_buffered(vecs, w, state.buf_delta, bw, state.params,
+                                             opt_m, opt_v, gidx, state.round, drain_fire,
+                                             **hp._asdict())
+            else:
+                new = server_update(vecs, w, state.params, opt_m, opt_v, gidx,
+                                    state.round, **hp._asdict())
+            params_vec, opt_m, opt_v = [torch.where(upd_any, n, o) for n, o in
+                                        zip(new, (state.params, opt_m, opt_v))]
+
+        # ---- fedbuff: park this round's stragglers in the ring ---------
+        buf = {f: getattr(state, f) for f in
+               ("buf_delta", "buf_arrive", "buf_sent", "buf_weight", "buf_mask")}
+        if has_fedbuff:
+            # a parked update lands one full deadline later (or at its
+            # realized round time, if even slower)
+            arrive_k = state.sim_time + torch.maximum(per_slot, timeout)
+            rows = {"buf_delta": vecs, "buf_arrive": arrive_k,
+                    "buf_sent": state.sim_time.expand(K), "buf_weight": counts_k,
+                    "buf_mask": torch.ones((K,), dtype=torch.bool, device=device)}
+            for f, new_rows in rows.items():
+                kept = keep if f == "buf_mask" else torch.where(
+                    keep.reshape((Kb,) + (1,) * (buf[f].dim() - 1)), buf[f], 0.0)
+                buf[f] = _scatter_rows(kept, slot, new_rows)
 
         # ---- advance the twin to round end -----------------------------
         base = TwinState(*[torch.where(ok_any, m, o) for m, o in zip(mid_twin, state.twin)])
@@ -368,7 +459,6 @@ def make_round_step(loss_fn, fl: FLConfig, cohort_size: int, model_bytes: float,
         else:
             test_acc, test_loss = nan, nan
 
-        zero_i = torch.zeros((), dtype=torch.int32, device=device)
         has_sel = n_selected > 0
         metrics = RoundMetrics(
             round=torch.tensor(new_round, dtype=torch.int32, device=device),
@@ -376,8 +466,8 @@ def make_round_step(loss_fn, fl: FLConfig, cohort_size: int, model_bytes: float,
             duration=duration,
             n_selected=n_selected,
             n_succeeded=ok.sum().to(torch.int32),
-            n_buffered=zero_i,
-            n_drained=zero_i,
+            n_buffered=n_buffered,
+            n_drained=n_drained,
             mean_pred_latency=torch.where(
                 has_sel, torch.where(mask, lat_pred, 0.0).sum() / nsel_f, nan),
             mean_real_latency=torch.where(
@@ -387,16 +477,28 @@ def make_round_step(loss_fn, fl: FLConfig, cohort_size: int, model_bytes: float,
         )
         new_state = state._replace(
             params=params_vec,
+            opt_m=opt_m,
+            opt_v=opt_v,
             twin=twin,
             sketches=sketches,
             sketch_age=sketch_age,
             clusters=clusters,
             round=new_round,
             sim_time=sim_time,
+            **buf,
         )
         return new_state, metrics
 
     return round_step
+
+
+def _scatter_rows(base: torch.Tensor, idx: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
+    """``base`` with ``base[idx[i]] = rows[i]``; indices >= len(base) drop
+    (they land on a sink row past the end)."""
+    n = base.shape[0]
+    out = torch.cat([base, base.new_zeros((1,) + base.shape[1:])])
+    out[torch.clamp_max(idx, n)] = rows
+    return out[:n]
 
 
 def metrics_to_records(metrics: RoundMetrics) -> list:

@@ -6,6 +6,12 @@ that reports every client's first sketch, then one ``round_step`` per round
 with the record read back to the host.  Time is simulated vehicular
 wall-clock: a round costs its slowest surviving upload plus compute, or the
 timeout when an upload misses the deadline.
+
+The server rule is ``FLConfig.aggregator``, any name of the registered
+catalog (``fl.aggregators.AGGREGATOR_ORDER``): the simulation builds a
+one-rule registry, so plain ``fedavg`` keeps the ``fedavg_reduce`` step and
+every other rule runs the fused ``server_update`` kernel (``fedbuff`` its
+buffered form, with the in-flight ring carried in the state).
 """
 from __future__ import annotations
 

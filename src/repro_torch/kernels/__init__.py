@@ -1,6 +1,7 @@
 """Hand-written Hopper kernels of the port and their plain PyTorch versions.
 
-One module per kernel (``rttg_latency``, ``fedavg_reduce``).  Each wrapper
+One module per kernel source (``rttg_latency``, ``fedavg_reduce``,
+``server_update``).  Each wrapper
 dispatches on its tensors' device: CUDA tensors launch the CUDA kernel
 (built on first use by ``kernels.build``), CPU tensors run the plain
 version.  Each module keeps a plain integer ``launches`` counter.

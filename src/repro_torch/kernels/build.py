@@ -20,7 +20,7 @@ import tempfile
 import time
 from pathlib import Path
 
-SOURCES = ("rttg_latency.cu", "fedavg_reduce.cu")
+SOURCES = ("rttg_latency.cu", "fedavg_reduce.cu", "server_update.cu")
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 # --fmad=false: every multiply and add rounds on its own, as the plain
@@ -35,6 +35,8 @@ _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_flo
 _SIGNATURES = {
     "rttg_latency_launch": (_P, _P, _I, _P, _P, _P, _P, _I, _I, _F, _F, _P, _P, _P, _P, _P),
     "fedavg_reduce_launch": (_P, _P, _I, _LL, _I, _P, _P),
+    "server_update_launch": (_P, _P, _I, _P, _P, _I, _P, _LL, _P, _P, _P, _I, _I,
+                             _F, _F, _F, _F, _F, _F, _I, _P, _P, _P, _P),
 }
 
 

@@ -1,0 +1,205 @@
+// Fused server update for Hopper (sm_90a): weighted cohort sum, then the
+// server rule, then the parameter step, in one pass over the columns.
+//
+// Replaces the Pallas TPU kernel src/repro/kernels/server_update.py
+// (_update_kernel + _rule_math, launched by server_update's pallas_call) and
+// its buffered form server_update_buffered, which reaches the same call with
+// the (Kb, P) fedbuff ring appended as extra update rows.
+//
+// For each column p:
+//   delta = sum_k w[k] u[k, p]  (+ sum_j bw[j] ring[j, p] when *drain)
+//   rule by its global AGGREGATOR_ORDER index: 1 FedAvgM, 2 FedAdam,
+//   3 FedYogi, anything else the plain AXPY;
+//   params' = params + step, and m', v' for the moment rules 1-3.
+//
+// What bounds it on this card: bytes.  A moment rule reads K (+ Kb) update
+// rows and params, m, v once and writes params', m', v' once, a few flops
+// per value: at K = 10, P = 159,010 that is 10.2 MB, a bound near 3.0 us at
+// 3.35 TB/s.  The AXPY rules (fedavg, stale, fedbuff) leave the moments as
+// they are, so the kernel neither reads nor writes them and the caller keeps
+// its m and v: 18 rows plus params in and params' out, 12.7 MB and 3.8 us,
+// on the fedbuff lane with the Kb = 8 ring draining.
+//
+// Design: the fedavg_reduce GEMV with the rule fused behind it.  Each thread
+// owns VEC adjacent columns and loads them with one VEC*4-byte vector load
+// per row, neighbouring threads on neighbouring addresses.  The cohort rows
+// and the ring rows come through two pointers: the (K + Kb, P) concatenation
+// is never built.  One fp32 accumulator per column starts at +0.0 and takes
+// fmaf over the cohort rows in ascending k, then over the ring rows in
+// ascending slot, so rule 0 reproduces fedavg_reduce + params + delta bit
+// for bit.  When *drain is false the ring rows are not read at all, which is
+// the reference's zero-weight rows exactly (a +0.0-started accumulator never
+// holds -0.0 except on underflow) and saves their bytes.  The library is
+// compiled with --fmad=false, so every multiply and add of the rule rounds on
+// its own as the plain PyTorch ops do; sqrtf and the division stay IEEE.
+// The rule's constants (1 - beta) come from the host, computed in double and
+// rounded to float once, as the reference's Python floats are.
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#define THREADS 256
+
+template <int VEC>
+struct Vec;
+template <>
+struct Vec<1> {
+  using T = float;
+  static __device__ __forceinline__ void load(const float* p, float* x) { x[0] = __ldg(p); }
+  static __device__ __forceinline__ void store(float* p, const float* x) { *p = x[0]; }
+};
+template <>
+struct Vec<2> {
+  using T = float2;
+  static __device__ __forceinline__ void load(const float* p, float* x) {
+    const float2 v = __ldg(reinterpret_cast<const float2*>(p));
+    x[0] = v.x;
+    x[1] = v.y;
+  }
+  static __device__ __forceinline__ void store(float* p, const float* x) {
+    *reinterpret_cast<float2*>(p) = make_float2(x[0], x[1]);
+  }
+};
+template <>
+struct Vec<4> {
+  using T = float4;
+  static __device__ __forceinline__ void load(const float* p, float* x) {
+    const float4 v = __ldg(reinterpret_cast<const float4*>(p));
+    x[0] = v.x;
+    x[1] = v.y;
+    x[2] = v.z;
+    x[3] = v.w;
+  }
+  static __device__ __forceinline__ void store(float* p, const float* x) {
+    *reinterpret_cast<float4*>(p) = make_float4(x[0], x[1], x[2], x[3]);
+  }
+};
+
+struct Rule {
+  int idx;  // global AGGREGATOR_ORDER index
+  float eta, beta1, one_m_beta1, beta2, one_m_beta2, tau;
+};
+
+// Rules 1-3 carry the server moments; the others are the AXPY alone.
+__host__ __device__ __forceinline__ bool has_moments(int idx) { return idx >= 1 && idx <= 3; }
+
+// jnp.sign: -1, 0 or +1 (0 at a tie; NaN passes through)
+__device__ __forceinline__ float sign3(float x) {
+  return x > 0.0f ? 1.0f : (x < 0.0f ? -1.0f : x);
+}
+
+// One column of the rule, each expression in the reference's order.
+__device__ __forceinline__ void apply_rule(const Rule& r, float d, float p, float m, float v,
+                                           float* po, float* mo, float* vo) {
+  float m_new = m, v_new = v, step = d;
+  if (r.idx == 1) {  // fedavgm
+    m_new = r.beta1 * m + d;
+    step = r.eta * m_new;
+  } else if (r.idx == 2) {  // fedadam
+    m_new = r.beta1 * m + r.one_m_beta1 * d;
+    v_new = r.beta2 * v + r.one_m_beta2 * (d * d);
+    step = r.eta * m_new / (sqrtf(v_new) + r.tau);
+  } else if (r.idx == 3) {  // fedyogi
+    m_new = r.beta1 * m + r.one_m_beta1 * d;
+    const float d2 = d * d;
+    v_new = v - r.one_m_beta2 * d2 * sign3(v - d2);
+    step = r.eta * m_new / (sqrtf(v_new) + r.tau);
+  }
+  *po = p + step;
+  *mo = m_new;
+  *vo = v_new;
+}
+
+template <int VEC>
+__global__ void server_update_kernel(const float* __restrict__ updates,
+                                     const float* __restrict__ weights, int k_rows,
+                                     const float* __restrict__ ring,
+                                     const float* __restrict__ ring_w, int kb_rows,
+                                     const bool* __restrict__ drain, long long p_cols,
+                                     const float* __restrict__ params,
+                                     const float* __restrict__ m_in,
+                                     const float* __restrict__ v_in, Rule rule,
+                                     float* __restrict__ p_out, float* __restrict__ m_out,
+                                     float* __restrict__ v_out) {
+  const long long col = ((long long)blockIdx.x * blockDim.x + threadIdx.x) * VEC;
+  if (col >= p_cols) return;
+  float acc[VEC], x[VEC];
+#pragma unroll
+  for (int j = 0; j < VEC; ++j) acc[j] = 0.0f;
+  for (int k = 0; k < k_rows; ++k) {
+    const float w = __ldg(weights + k);
+    Vec<VEC>::load(updates + (long long)k * p_cols + col, x);
+#pragma unroll
+    for (int j = 0; j < VEC; ++j) acc[j] = fmaf(w, x[j], acc[j]);
+  }
+  if (kb_rows > 0 && *drain) {
+    for (int k = 0; k < kb_rows; ++k) {
+      const float w = __ldg(ring_w + k);
+      Vec<VEC>::load(ring + (long long)k * p_cols + col, x);
+#pragma unroll
+      for (int j = 0; j < VEC; ++j) acc[j] = fmaf(w, x[j], acc[j]);
+    }
+  }
+  float p[VEC], po[VEC];
+  Vec<VEC>::load(params + col, p);
+  if (!has_moments(rule.idx)) {  // the AXPY: the moments are neither read nor written
+#pragma unroll
+    for (int j = 0; j < VEC; ++j) po[j] = p[j] + acc[j];
+    Vec<VEC>::store(p_out + col, po);
+    return;
+  }
+  float m[VEC], v[VEC], mo[VEC], vo[VEC];
+  Vec<VEC>::load(m_in + col, m);
+  Vec<VEC>::load(v_in + col, v);
+#pragma unroll
+  for (int j = 0; j < VEC; ++j) apply_rule(rule, acc[j], p[j], m[j], v[j], &po[j], &mo[j], &vo[j]);
+  Vec<VEC>::store(p_out + col, po);
+  Vec<VEC>::store(m_out + col, mo);
+  Vec<VEC>::store(v_out + col, vo);
+}
+
+// Launch on `stream`.  `ring`, `ring_w` and `drain` may be null with
+// kb_rows = 0 (the unbuffered form); `m`, `v`, `m_out` and `v_out` may be
+// null unless rule_idx is a moment rule (1-3).  `vec` (1, 2 or 4) must divide p_cols
+// and every pointer must be aligned to vec * 4 bytes (the wrapper picks it).
+// `rnd` is reserved for schedule-aware rules and ignored, as in the
+// reference.  Allocates nothing; returns cudaGetLastError() (0 = success).
+extern "C" int server_update_launch(const float* updates, const float* weights, int k_rows,
+                                    const float* ring, const float* ring_w, int kb_rows,
+                                    const bool* drain, long long p_cols, const float* params,
+                                    const float* m, const float* v, int rule_idx, int rnd,
+                                    float eta, float beta1, float one_m_beta1, float beta2,
+                                    float one_m_beta2, float tau, int vec, float* p_out,
+                                    float* m_out, float* v_out, void* stream) {
+  (void)rnd;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (kb_rows > 0 && (ring == nullptr || ring_w == nullptr || drain == nullptr))
+    return (int)cudaErrorInvalidValue;
+  if (has_moments(rule_idx) &&
+      (m == nullptr || v == nullptr || m_out == nullptr || v_out == nullptr))
+    return (int)cudaErrorInvalidValue;
+  const Rule rule{rule_idx, eta, beta1, one_m_beta1, beta2, one_m_beta2, tau};
+  const long long threads_needed = p_cols / vec;
+  const unsigned blocks = (unsigned)((threads_needed + THREADS - 1) / THREADS);
+  if (blocks == 0) return (int)cudaSuccess;
+#define SU_LAUNCH(V)                                                                    \
+  server_update_kernel<V><<<blocks, THREADS, 0, st>>>(updates, weights, k_rows, ring,   \
+                                                       ring_w, kb_rows, drain, p_cols,  \
+                                                       params, m, v, rule, p_out, m_out, \
+                                                       v_out)
+  switch (vec) {
+    case 4:
+      SU_LAUNCH(4);
+      break;
+    case 2:
+      SU_LAUNCH(2);
+      break;
+    case 1:
+      SU_LAUNCH(1);
+      break;
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+#undef SU_LAUNCH
+  return (int)cudaGetLastError();
+}

@@ -1,0 +1,166 @@
+"""Fused server update (reduce + rule + step): CUDA kernel and plain versions.
+
+Port of ``repro/kernels/server_update.py``: ``server_update`` (Pallas
+``_update_kernel``) and ``server_update_buffered`` (the same call with the
+``(Kb, P)`` fedbuff ring appended as update rows, their weights gated by
+``drain``).  Both wrappers launch the one kernel of
+``csrc/server_update.cu`` on CUDA tensors and run their plain version on CPU
+tensors; there is no fallback from one to the other.  The plain versions are
+the reference's unfused compositions (``repro/kernels/ref.py``): the
+weighted sum ``fedavg_reduce_plain`` followed by ``aggregators.apply_rule``.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.fl.aggregators import AGGREGATOR_ORDER, ServerHP, apply_rule
+from repro_torch.kernels.fedavg_reduce import _vector_width, fedavg_reduce_plain
+
+# Kernel launches made by each wrapper (one per call on CUDA tensors).
+launches = 0
+buffered_launches = 0
+
+
+# Rules that carry the server moments (fedavgm, fedadam, fedyogi); the
+# kernel neither reads nor writes m and v under the others.
+MOMENT_RULES = (1, 2, 3)
+
+
+def _assert_registry_order():
+    """The kernel's rule switch hardcodes the registry order: fail loudly
+    if it is ever reordered without touching the kernel."""
+    assert AGGREGATOR_ORDER == ("fedavg", "fedavgm", "fedadam", "fedyogi",
+                                "stale", "fedbuff"), AGGREGATOR_ORDER
+
+
+def _rule(delta, params, m, v, agg_idx, rnd, eta, beta1, beta2, tau):
+    hp = ServerHP(eta=eta, beta1=beta1, beta2=beta2, tau=tau)
+    (m2, v2), p2 = apply_rule(agg_idx, (m, v), params, delta, rnd, hp)
+    return p2, m2, v2
+
+
+def server_update_plain(updates, weights, params, m, v, agg_idx, rnd, *,
+                        eta=1.0, beta1=0.9, beta2=0.99, tau=1e-3):
+    """``fedavg_reduce_plain`` followed by ``apply_rule`` -> (params', m', v')."""
+    delta = fedavg_reduce_plain(updates, weights)
+    return _rule(delta, params, m, v, agg_idx, rnd, eta, beta1, beta2, tau)
+
+
+def server_update_buffered_plain(updates, weights, buf, buf_w, params, m, v, agg_idx,
+                                 rnd, drain, *, eta=1.0, beta1=0.9, beta2=0.99, tau=1e-3):
+    """One weighted sum over the cohort rows then the ring rows (ring
+    weights zeroed unless ``drain``), followed by ``apply_rule``."""
+    f32 = torch.float32
+    drain = torch.as_tensor(drain, device=buf_w.device)
+    wa = torch.cat([weights.to(f32), torch.where(drain, buf_w.to(f32), 0.0)])
+    ua = torch.cat([updates.to(f32), buf.to(f32)])
+    delta = fedavg_reduce_plain(ua, wa)
+    return _rule(delta, params, m, v, agg_idx, rnd, eta, beta1, beta2, tau)
+
+
+def _check_rows(name, x, device, P=None):
+    if x.device != device:
+        raise ValueError(f"server_update: {name} is on {x.device}, expected {device}")
+    if x.dtype != torch.float32:
+        raise NotImplementedError(
+            f"server_update: {x.dtype} {name} come with the bf16 lane (see ROADMAP.md); "
+            "this kernel takes float32"
+        )
+    if x.dim() != 2 or not x.is_contiguous() or (P is not None and x.shape[1] != P):
+        raise ValueError(f"server_update: {name} must be a contiguous (rows, P) "
+                         f"float32 tensor, got shape {tuple(x.shape)}")
+    if x.shape[0] < 1:
+        raise ValueError(f"server_update: {name} must have at least one row")
+
+
+def _check_vec(name, x, n, device):
+    if (x.device != device or x.dtype != torch.float32 or x.shape != (n,)
+            or not x.is_contiguous()):
+        raise ValueError(f"server_update: {name} must be a contiguous ({n},) float32 "
+                         f"tensor on {device}, got {x.dtype} {tuple(x.shape)} on {x.device}")
+
+
+def _launch(updates, weights, buf, buf_w, drain, params, m, v, agg_idx, rnd,
+            eta, beta1, beta2, tau):
+    from repro_torch.kernels.build import check, library
+
+    _assert_registry_order()
+    device = updates.device
+    _check_rows("updates", updates, device)
+    K, P = updates.shape
+    _check_vec("weights", weights, K, device)
+    for name, x in (("params", params), ("m", m), ("v", v)):
+        _check_vec(name, x, P, device)
+    Kb = 0
+    ring = ring_w = flag = None
+    if buf is not None:
+        _check_rows("buf", buf, device, P=P)
+        Kb = buf.shape[0]
+        _check_vec("buf_w", buf_w, Kb, device)
+        if drain.device != device or drain.dtype != torch.bool or drain.dim() != 0:
+            raise ValueError(f"server_update: drain must be a 0-dim bool tensor on {device}")
+        ring, ring_w, flag = buf.data_ptr(), buf_w.data_ptr(), drain.data_ptr()
+    p_out = torch.empty((P,), dtype=torch.float32, device=device)
+    operands = [updates, params, p_out] + ([buf] if buf is not None else [])
+    moments = int(agg_idx) in MOMENT_RULES
+    if moments:
+        m_out, v_out = torch.empty_like(p_out), torch.empty_like(p_out)
+        operands += [m, v, m_out, v_out]
+    else:  # the AXPY rules leave the moments as they are, as apply_rule does
+        m_out, v_out = m, v
+    mv = [x.data_ptr() if moments else None for x in (m, v, m_out, v_out)]
+    vec = min(_vector_width(x, P) for x in operands)
+    stream = torch.cuda.current_stream(device).cuda_stream
+    # (1 - beta) in double, rounded to float once, as the reference's Python floats
+    status = library().server_update_launch(
+        updates.data_ptr(), weights.data_ptr(), K, ring, ring_w, Kb, flag, P,
+        params.data_ptr(), mv[0], mv[1], int(agg_idx), int(rnd),
+        eta, beta1, 1.0 - beta1, beta2, 1.0 - beta2, tau, vec,
+        p_out.data_ptr(), mv[2], mv[3], stream,
+    )
+    check(status, "server_update")
+    return p_out, m_out, v_out
+
+
+def _device_of(updates: torch.Tensor) -> str:
+    if updates.is_cuda:
+        return "cuda"
+    if updates.device.type != "cpu":
+        raise ValueError(f"server_update: unsupported device {updates.device}")
+    return "cpu"
+
+
+def server_update(updates, weights, params, m, v, agg_idx, rnd, *,
+                  eta=1.0, beta1=0.9, beta2=0.99, tau=1e-3):
+    """Fused server update -> (params', m', v'), each (P,) fp32.
+
+    ``agg_idx`` is the GLOBAL ``AGGREGATOR_ORDER`` index (a Python int);
+    ``rnd`` is reserved for schedule-aware rules and ignored.
+    """
+    global launches
+    if _device_of(updates) == "cpu":
+        return server_update_plain(updates, weights, params, m, v, agg_idx, rnd,
+                                   eta=eta, beta1=beta1, beta2=beta2, tau=tau)
+    out = _launch(updates, weights, None, None, None, params, m, v, agg_idx, rnd,
+                  eta, beta1, beta2, tau)
+    launches += 1
+    return out
+
+
+def server_update_buffered(updates, weights, buf, buf_w, params, m, v, agg_idx, rnd,
+                           drain, *, eta=1.0, beta1=0.9, beta2=0.99, tau=1e-3):
+    """Fused buffered server update (the fedbuff lane) -> (params', m', v').
+
+    ``buf`` is the ``(Kb, P)`` ring, ``buf_w`` its drained-slot weights and
+    ``drain`` a 0-dim bool tensor on the rows' device (never read back to
+    the host).  With ``drain`` false the result equals ``server_update``.
+    """
+    global buffered_launches
+    if _device_of(updates) == "cpu":
+        return server_update_buffered_plain(
+            updates, weights, buf, buf_w, params, m, v, agg_idx, rnd, drain,
+            eta=eta, beta1=beta1, beta2=beta2, tau=tau)
+    out = _launch(updates, weights, buf, buf_w, drain, params, m, v, agg_idx, rnd,
+                  eta, beta1, beta2, tau)
+    buffered_launches += 1
+    return out

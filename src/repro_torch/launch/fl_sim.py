@@ -4,8 +4,10 @@
       --strategy contextual --rounds 60 --out artifacts/fl/mnist_contextual.json
 
 The flags of ``repro.launch.fl_sim`` plus ``--device`` (default ``cuda``;
-``cpu`` runs the plain kernel versions).  ``--aggregator`` and ``--dtype``
-take only ``fedavg`` and ``float32`` until those lanes are ported.
+``cpu`` runs the plain kernel versions).  ``--aggregator`` takes the whole
+registered catalog (``fedavg``, ``fedavgm``, ``fedadam``, ``fedyogi``,
+``stale``, ``fedbuff``); ``--dtype`` takes only ``float32`` until the bf16
+lane is ported.
 """
 from __future__ import annotations
 
@@ -18,7 +20,7 @@ from repro_torch.config import FLConfig
 from repro_torch.configs import PAPER_MODEL_BY_DATASET, get_config
 from repro_torch.core.scenarios import SCENARIOS, scenario_config
 from repro_torch.core.selection import STRATEGIES
-from repro_torch.fl.aggregators import PORTED_AGGREGATORS
+from repro_torch.fl.aggregators import AGGREGATOR_ORDER
 from repro_torch.fl.simulation import FLSimulation, time_to_accuracy
 from repro_torch.utils import prng
 
@@ -46,9 +48,11 @@ def run_experiment(
     if scenario not in SCENARIOS:
         raise ValueError(f"unknown scenario {scenario!r}; registered catalog: "
                          f"{', '.join(sorted(SCENARIOS))}")
-    if aggregator not in PORTED_AGGREGATORS:
-        raise ValueError(f"aggregator {aggregator!r} is not ported; the port runs "
-                         f"{', '.join(PORTED_AGGREGATORS)} (see ROADMAP.md)")
+    if aggregator not in AGGREGATOR_ORDER:
+        raise ValueError(
+            f"unknown aggregator {aggregator!r}; registered catalog: "
+            f"{', '.join(AGGREGATOR_ORDER)} (see repro_torch/fl/aggregators.py)"
+        )
     if dtype not in PORTED_DTYPES:
         raise ValueError(f"dtype {dtype!r} is not ported; the port runs "
                          f"{', '.join(PORTED_DTYPES)} (see ROADMAP.md)")
@@ -107,9 +111,9 @@ def main(argv=None):
     if args.scenario not in SCENARIOS:
         ap.error(f"unknown scenario {args.scenario!r}; registered catalog: "
                  f"{', '.join(sorted(SCENARIOS))}")
-    if args.aggregator not in PORTED_AGGREGATORS:
-        ap.error(f"aggregator {args.aggregator!r} is not ported; the port runs "
-                 f"{', '.join(PORTED_AGGREGATORS)}")
+    if args.aggregator not in AGGREGATOR_ORDER:
+        ap.error(f"unknown aggregator {args.aggregator!r}; registered catalog: "
+                 f"{', '.join(AGGREGATOR_ORDER)}")
     if args.dtype not in PORTED_DTYPES:
         ap.error(f"dtype {args.dtype!r} is not ported; the port runs "
                  f"{', '.join(PORTED_DTYPES)}")

@@ -1,10 +1,11 @@
 """JAX <-> port bridge for the port's tests, and the ``convert`` round trips.
 
 The helpers here turn the JAX package's arrays and NamedTuples into numpy
-(the half ``repro_torch.convert`` leaves to the caller); the other
-``test_torch_*`` files import them.  The tests hold ``convert`` to its
-contract: weights and a whole ``RoundState`` / ``RoundData`` pass from JAX
-through numpy into the port and back with every leaf unchanged.
+(the half ``repro_torch.convert`` leaves to the caller) and compare a port
+round with a JAX round; the other ``test_torch_*`` files import them.  The
+tests hold ``convert`` to its contract: weights and a whole ``RoundState`` /
+``RoundData`` pass from JAX through numpy into the port and back with every
+leaf unchanged.
 """
 import jax
 import jax.numpy as jnp
@@ -86,6 +87,39 @@ def jax_experiment(strategy="contextual", scenario="ring", n_clients=20, d_ff=32
         spec = flat_spec_of(jax.eval_shape(init_params, jax.random.key(0)))
         state = jax.jit(make_warmup(api.loss, fl, spec))(state, data)
     return state, data, fl, api
+
+
+REGISTRY_ROUND_TOL = {  # (rtol, atol) per compared float leaf
+    # the adaptive rules' step m / (sqrt(v) + tau) magnifies the ulp-level
+    # drift of the cohort sum by up to (1 - beta1) / tau
+    "params": (0.0, 5e-6),
+    "opt_m": (0.0, 1e-8),
+    "opt_v": (1e-5, 1e-12),
+    "buf_delta": (0.0, 1e-7),
+    "buf_arrive": (1e-6, 1e-5),
+    "buf_sent": (1e-6, 1e-5),
+    "buf_weight": (0.0, 0.0),  # sample counts
+    "sketches": (0.0, 1e-5),
+    "sim_time": (1e-5, 1e-6),
+    "duration": (1e-5, 1e-6),
+    "test_acc": (0.0, 1e-6),
+    "test_loss": (1e-5, 1e-6),
+}
+
+
+def assert_round_matches(tm, ts, jm, js):
+    """Integers exact, floats within ``REGISTRY_ROUND_TOL``: one port round
+    against one JAX round (``tm``/``ts`` port metrics and state, ``jm``/``js``
+    JAX)."""
+    for f in ("round", "n_selected", "n_succeeded", "n_buffered", "n_drained"):
+        assert int(getattr(tm, f)) == int(getattr(jm, f)), f
+    ref, got = state_to_numpy(js), convert.state_to_numpy(ts)
+    for f in ("sketch_age", "clusters", "buf_mask"):
+        np.testing.assert_array_equal(got[f], ref[f], err_msg=f)
+    for name, (rtol, atol) in REGISTRY_ROUND_TOL.items():
+        a, b = (got[name], ref[name]) if name in got else \
+            (float(getattr(tm, name)), float(getattr(jm, name)))
+        np.testing.assert_allclose(a, b, rtol=rtol, atol=atol, err_msg=name)
 
 
 def test_round_state_round_trip_is_exact():

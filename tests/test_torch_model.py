@@ -99,6 +99,4 @@ def test_cohort_updates_match(epochs, n, bs):
 def test_unported_trainer_lanes_raise():
     _, tapi = small_models(32)
     with pytest.raises(NotImplementedError):
-        make_local_trainer(tapi.loss, 0.1, 1, 8, mu=0.01)
-    with pytest.raises(NotImplementedError):
         make_local_trainer(tapi.loss, 0.1, 1, 8, compute_dtype=torch.bfloat16)

@@ -108,7 +108,7 @@ def test_cli_runs_on_the_cpu_and_refuses_unported_lanes(tmp_path, capsys):
     result = json.loads(out.read_text())
     assert result["device"] == "cpu" and len(result["rounds"]) == 1
     assert "time-to-0.5-acc" in capsys.readouterr().out
-    for flag, value in (("--aggregator", "fedadam"), ("--dtype", "bfloat16"),
+    for flag, value in (("--aggregator", "fedprox"), ("--dtype", "bfloat16"),
                         ("--scenario", "nowhere")):
         with pytest.raises(SystemExit):
             fl_sim.main(["--rounds", "1", "--device", "cpu", flag, value])
@@ -118,8 +118,7 @@ def test_unported_lanes_raise():
     from repro_torch.fl.rounds import make_round_step
 
     _, tapi = small_models(32)
-    for kw in (dict(hierarchical=True), dict(compute_dtype="bfloat16"),
-               dict(aggregator="fedadam"), dict(fedprox_mu=0.01)):
+    for kw in (dict(hierarchical=True), dict(compute_dtype="bfloat16")):
         fl = FLConfig(**small_fl_kwargs(N, **kw))
         with pytest.raises(NotImplementedError):
             make_round_step(tapi.loss, fl, 2, 1.0, tapi.spec,
