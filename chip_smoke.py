@@ -12,7 +12,8 @@ Phases (any failure raises and exits non-zero):
    the main path's shapes and at the edges; ``server_update`` for every rule
    and ``server_update_buffered`` for both ``drain`` states, and their two
    bitwise contracts (rule 0 is ``fedavg_reduce`` + the AXPY; no drain is
-   the unbuffered update);
+   the unbuffered update); ``rsu_reduce`` with and without its carry, on
+   random, dyadic and special operands, and a chunk walk bit for bit;
 4. main path: ``FLSimulation`` (ring / contextual / mnist, 100 vehicles,
    fl-mnist-mlp, the paper's section IV-A defaults) for 5 rounds on the card,
    with the kernels' launch counts, and one round replayed from the same
@@ -22,9 +23,21 @@ Phases (any failure raises and exits non-zero):
    ``fedbuff``, each with its launch counts and a card-vs-CPU replay; then
    the round-level contracts: the full registry at index 0 is the fedavg
    round, and fedbuff with its buffer disabled is too, bit for bit;
+4c. two-tier lanes (N=100): contract (a), the hierarchical round is the
+   flat round bit for bit, for ``("fedavg",)`` and every rule of the full
+   registry at CR 0.7; then 5 rounds each of the streamed lane
+   (``client_block=4``: 3 ``rsu_reduce`` launches a round) on ring under
+   ``fedavg`` and ``fedbuff`` and on rsu_outage under ``fedavg``, each round's
+   economics bitwise those of the unblocked hierarchical round from the same
+   state, and a card-vs-CPU replay;
+4d. fleet: the fleet bench's settings (2 samples per client, K=100 in chunks
+   of 32, no warm-up) at N=20,000 for 1 round and N=100,000 for 2, with set-up
+   and round times, peak memory, launches and the neighbour rows recomputed
+   densely; at N=20,000 one round again on the dense neighbour search and
+   fusion, which must give the same neighbours and integers;
 5. times: each kernel (CUDA events, after warm-up) beside its bound, its
    plain version and a one-call PyTorch yardstick, and the round's wall time
-   (the fedavg, fedadam and fedbuff lanes).
+   (the fedavg, fedadam, fedbuff and streamed lanes).
 
 The last two lines are the kernels' JSON record and the device JSON.
 """
@@ -47,6 +60,8 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS_PER_S = 67e12
 ROUNDS = 5
+# (vehicles, rounds) of the fleet phase: BENCH_engine.json's fleet runs
+FLEET = ((20_000, 1), (100_000, 2))
 LANES = ("fedavgm", "fedadam", "fedyogi", "stale", "fedbuff")
 
 
@@ -231,40 +246,98 @@ def check_server_contracts(K, P, device) -> None:
     print(f"server_update contracts (a) and (b) bitwise at K={K} P={P}")
 
 
-def kernel_modules():
-    from repro_torch.kernels import fedavg_reduce, rttg_latency, server_update
+def rsu_operands(K, P, R, mode, device):
+    """(updates, weights, rid, carry) for ``rsu_reduce``.  ``rand``: normal
+    rows, uniform weights; every other mode: dyadic rows and carry (7
+    significant bits) and integer weights, whose sums are exact in any
+    order, then ``one_rsu`` (all on one RSU), ``hole`` (an RSU never
+    attached), ``masked`` (an RSU whose clients all weigh 0) or
+    ``out_of_range`` (ids -1 and R + 3, which contribute nothing)."""
+    g = torch.Generator(device=device)
+    g.manual_seed(K * 7919 + P * 31 + R)
+    if mode == "rand":
+        u = 1e-3 * torch.randn((K, P), generator=g, device=device)
+        w = torch.rand((K,), generator=g, device=device)
+        carry = 1e-3 * torch.randn((R, P), generator=g, device=device)
+    else:
+        u = torch.randint(-64, 65, (K, P), generator=g, device=device).float() * 2.0 ** -12
+        w = torch.randint(0, 5, (K,), generator=g, device=device).float()
+        carry = torch.randint(-64, 65, (R, P), generator=g, device=device).float() * 2.0 ** -10
+    rid = torch.randint(0, R, (K,), generator=g, device=device).to(torch.int32)
+    if mode == "one_rsu":
+        rid[:] = R - 1
+    elif mode == "hole":
+        rid[rid == R // 2] = (R // 2 + 1) % R
+    elif mode == "masked":
+        w[rid == R // 2] = 0.0
+    elif mode == "out_of_range":
+        rid[::2] = R + 3
+        rid[1::3] = -1
+    return u, w, rid, carry
 
-    return rttg_latency, fedavg_reduce, server_update
+
+def check_rsu(K, P, R, mode, with_carry, device) -> float:
+    """The kernel against ``rsu_reduce_plain``: random operands within rtol
+    1e-5 and 1e-6 of sum_k |m_kr u_k| (another summation order), the other
+    modes bit for bit; a never-attached or all-zero-weight RSU's row is its
+    carry (or exactly 0) and its mass exactly 0."""
+    from repro_torch.kernels.rsu_reduce import rsu_reduce, rsu_reduce_plain
+
+    u, w, rid, carry = rsu_operands(K, P, R, mode, device)
+    got, mass = rsu_reduce(u, w, rid, R, carry=carry.clone() if with_carry else None)
+    ref, ref_mass = rsu_reduce_plain(u, w, rid, R, carry.clone() if with_carry else None)
+    torch.cuda.synchronize()
+    what = f"rsu_reduce K={K} P={P} R={R} {mode} carry={with_carry}"
+    if mode == "rand":
+        scale = float(rsu_reduce_plain(u.abs(), w, rid, R)[0].max())
+        torch.testing.assert_close(got, ref, rtol=1e-5, atol=1e-6 * scale,
+                                   msg=lambda m: f"{what}: {m}")
+        torch.testing.assert_close(mass, ref_mass, rtol=1e-6, atol=0.0)
+    elif not (torch.equal(got, ref) and torch.equal(mass, ref_mass)):
+        raise AssertionError(f"{what}: not bitwise")
+    if mode in ("hole", "masked") and R > 1:
+        base = carry[R // 2] if with_carry else torch.zeros_like(got[0])
+        if not (torch.equal(got[R // 2], base) and float(mass[R // 2]) == 0.0):
+            raise AssertionError(f"{what}: the idle RSU's row or mass moved")
+    return float((got - ref).abs().max())
+
+
+def check_rsu_walk(K, B, device) -> None:
+    """The streamed lane's chunk walk (the first chunk without a carry, the
+    rest in place) against zeros + the per-chunk plain sums, bit for bit."""
+    from repro_torch.kernels.rsu_reduce import rsu_reduce, rsu_reduce_plain
+
+    P, R = 159_010, 10
+    u, w, rid, _ = rsu_operands(K, P, R, "exact", device)
+    carry, acc = None, torch.zeros((R, P), device=device)
+    for i in range(0, K, B):
+        carry, _ = rsu_reduce(u[i:i + B], w[i:i + B], rid[i:i + B], R, carry=carry)
+        acc = acc + rsu_reduce_plain(u[i:i + B], w[i:i + B], rid[i:i + B], R)[0]
+    if not torch.equal(carry, acc):
+        raise AssertionError(f"rsu_reduce chunk walk K={K} B={B} is not the chunk composition")
+    print(f"rsu_reduce chunk walk K={K} in chunks of {B}: bitwise the per-chunk plain sums")
+
+
+def kernel_modules():
+    from repro_torch.kernels import fedavg_reduce, rsu_reduce, rttg_latency, server_update
+
+    return rttg_latency, fedavg_reduce, server_update, rsu_reduce
 
 
 def read_launches() -> dict:
-    rttg, fedavg, su = kernel_modules()
+    rttg, fedavg, su, rsu = kernel_modules()
     return {"rttg_latency": rttg.launches, "fedavg_reduce": fedavg.launches,
-            "server_update": su.launches, "server_update_buffered": su.buffered_launches}
+            "server_update": su.launches, "server_update_buffered": su.buffered_launches,
+            "rsu_reduce": rsu.launches}
 
 
 def reset_launches() -> None:
-    rttg, fedavg, su = kernel_modules()
-    rttg.launches = fedavg.launches = su.launches = su.buffered_launches = 0
+    rttg, fedavg, su, rsu = kernel_modules()
+    rttg.launches = fedavg.launches = su.launches = su.buffered_launches = rsu.launches = 0
 
 
-def drive(sim, server: str):
-    """Warm-up and ROUNDS rounds, launch counts zeroed just before and read
-    just after: 2 rttg_latency and 1 ``server`` launch per round, nothing
-    else.  -> (state before round 1, records, launches)."""
-    reset_launches()
-    sim.warmup_sketches()
-    state0 = sim.state
-    records = [sim.run_round() for _ in range(ROUNDS)]
-    torch.cuda.synchronize()
-    launches = read_launches()
-    for rec in records:
-        print(json.dumps(rec.__dict__))
-    print(f"launches over {ROUNDS} rounds: {launches}")
-    want = dict.fromkeys(launches, 0)
-    want.update(rttg_latency=2 * ROUNDS, **{server: ROUNDS})
-    if launches != want:
-        raise AssertionError(f"expected {want}, got {launches}")
+def check_records(sim, records) -> None:
+    """Every metric and every float state leaf finite."""
     for rec in records:
         for k, v in rec.__dict__.items():
             if not math.isfinite(v):
@@ -272,7 +345,32 @@ def drive(sim, server: str):
     for f in ("params", "opt_m", "opt_v", "buf_delta"):
         if not bool(torch.isfinite(getattr(sim.state, f)).all()):
             raise AssertionError(f"{f} has non-finite entries")
-    return state0, records, launches
+
+
+def drive(sim, server: str, rsu_per_round: int = 0):
+    """Warm-up and ROUNDS rounds, launch counts zeroed just before and read
+    just after: per round 2 rttg_latency, ``rsu_per_round`` rsu_reduce and 1
+    ``server`` launch, nothing else.  -> (the state before each round and
+    after the last, records, launches)."""
+    reset_launches()
+    sim.warmup_sketches()
+    states, records = [], []
+    for _ in range(ROUNDS):
+        states.append(sim.state)
+        records.append(sim.run_round())
+    states.append(sim.state)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    for rec in records:
+        print(json.dumps(rec.__dict__))
+    print(f"launches over {ROUNDS} rounds: {launches}")
+    want = dict.fromkeys(launches, 0)
+    want.update(rttg_latency=2 * ROUNDS, rsu_reduce=rsu_per_round * ROUNDS,
+                **{server: ROUNDS})
+    if launches != want:
+        raise AssertionError(f"expected {want}, got {launches}")
+    check_records(sim, records)
+    return states, records, launches
 
 
 def replay(sim, state0, first, traffic, params_atol: float, acc_atol: float = 1e-6) -> None:
@@ -308,6 +406,34 @@ def replay(sim, state0, first, traffic, params_atol: float, acc_atol: float = 1e
                                    atol=1e-7)
     print(f"cuda vs cpu, one round from the same state: integers equal, "
           f"max |dparams| = {float((s_gpu.params.cpu() - s_cpu.params).abs().max()):.3e}")
+
+
+def profile_round(label, sim, card) -> None:
+    """One round under torch.profiler: wall, device busy time and idle share,
+    and the device kernels by total time."""
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sim.step()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    dev = [e for e in prof.events()
+           if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA]
+    if not dev:
+        print(f"profiled round, {label}: the profiler recorded no device activity; "
+              "device busy share not measured")
+        return
+    busy_us = sum(e.time_range.elapsed_us() for e in dev)
+    print(f"profiled round, {label}: wall {wall * 1e3:.1f} ms, {len(dev)} device "
+          f"kernels/copies, device busy {busy_us / 1e3:.2f} ms, idle share "
+          f"{1 - busy_us / 1e6 / wall:.3f} [{card}]")
+    by_name = {}
+    for e in dev:
+        c, us_ = by_name.get(e.name, (0, 0.0))
+        by_name[e.name] = (c + 1, us_ + e.time_range.elapsed_us())
+    for name, (c, us_) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:8]:
+        print(f"  {c:5d} x {us_ / max(c, 1):9.2f} us = {us_ / 1e3:8.3f} ms  {name[:80]}")
 
 
 def assert_rounds_bitwise(a, b, what) -> None:
@@ -394,6 +520,19 @@ def main() -> int:
     check_server_buffered(5, 3, 2049, 3, True, device)
     for K, P in ((10, 159_010), (5, 2049), (1, 1)):
         check_server_contracts(K, P, device)
+    main_err["rsu_reduce"] = 0.0
+    for K, P, R in ((4, 159_010, 10), (32, 159_010, 10), (1, 1, 1), (1, 515, 10),
+                    (7, 515, 10), (5, 2049, 1)):
+        errs = [check_rsu(K, P, R, mode, with_carry, device)
+                for mode in ("rand", "exact", "one_rsu", "hole", "masked", "out_of_range")
+                for with_carry in (False, True)]
+        if (K, P) == (4, 159_010):
+            main_err["rsu_reduce"] = max(errs)
+        print(f"rsu_reduce K={K:2d} P={P:7d} R={R:2d} random, dyadic, one RSU, unattached, "
+              f"zero-weight and out-of-range ids, with and without carry: "
+              f"max_abs_err={max(errs):.3e}")
+    check_rsu_walk(10, 4, device)
+    check_rsu_walk(100, 32, device)
 
     # ---- 4. main path ----------------------------------------------------
     phase("main path: FLSimulation ring / contextual / mnist on cuda")
@@ -415,13 +554,14 @@ def main() -> int:
     print(f"set-up (init + client shards on the card): {time.perf_counter() - t0:.2f} s; "
           f"P={sim.state.params.numel()} N={fl.num_clients} K={fl.n_select}")
 
-    state0, records, launches = drive(sim, "fedavg_reduce")
+    states, records, launches = drive(sim, "fedavg_reduce")
+    state0 = states[0]
     replay(sim, state0, records[0], traffic, params_atol=1e-5)
 
     # ---- 4b. the aggregator lanes --------------------------------------------
     phase("aggregator lanes: FLSimulation at CR 0.7 under each server rule on cuda")
     from repro_torch.fl.aggregators import AGGREGATOR_ORDER, FEDBUFF_IDX
-    from repro_torch.fl.rounds import make_round_step
+    from repro_torch.fl.rounds import RoundMetrics, make_round_step, metrics_to_records
 
     lane_sims, lane_launches = {}, {}
     for lane in LANES:
@@ -432,7 +572,8 @@ def main() -> int:
                                 "contextual", prng.key(0), device=device)
         server = "server_update_buffered" if lane == "fedbuff" else "server_update"
         print(f"-- {lane} ({server})")
-        s0, recs, lane_launches[lane] = drive(sim_lane, server)
+        lane_states, recs, lane_launches[lane] = drive(sim_lane, server)
+        s0 = lane_states[0]
         if lane == "fedbuff":
             parked = sum(r.n_buffered for r in recs)
             landed = sum(r.n_drained for r in recs)
@@ -462,6 +603,157 @@ def main() -> int:
         raise AssertionError("disabled-buffer premise: a straggler at CR 1.0")
     assert_rounds_bitwise((s_off, m_off), fedavg_round,
                           "fedbuff with the buffer disabled vs the ('fedavg',) round")
+
+    # ---- 4c. the two-tier lanes at the paper setting ---------------------------
+    phase("two-tier lanes: hierarchical and client_block=4 streaming, N=100, on cuda")
+    hier = make_round_step(sim.api.loss, dataclasses.replace(fl, hierarchical=True), K,
+                           sim.model_bytes, sim.param_spec, ("contextual",))
+    assert_rounds_bitwise(hier(state0, sim.scn, 0, 0, sim.data, True), fedavg_round,
+                          "contract (a): hierarchical ('fedavg',) round vs the flat one")
+    fl07 = dataclasses.replace(fl, connection_rate=0.7)
+    flat07, hier07 = (make_round_step(sim.api.loss, dataclasses.replace(fl07, hierarchical=h),
+                                      K, sim.model_bytes, sim.param_spec, ("contextual",),
+                                      aggregators=AGGREGATOR_ORDER) for h in (False, True))
+    s07 = lane_sims["fedbuff"].state  # CR 0.7, the ring occupied
+    for rule, name in enumerate(AGGREGATOR_ORDER):
+        assert_rounds_bitwise(hier07(s07, sim.scn, 0, rule, sim.data, True),
+                              flat07(s07, sim.scn, 0, rule, sim.data, True),
+                              f"contract (a): hierarchical vs flat, full registry, {name}, CR 0.7")
+
+    streamed_sims, two_tier_launches = {}, {}
+    for label, scenario, agg, cr in (("ring/fedavg", "ring", "fedavg", 1.0),
+                                     ("ring/fedbuff", "ring", "fedbuff", 0.7),
+                                     ("rsu_outage/fedavg", "rsu_outage", "fedavg", 1.0)):
+        fl_s = dataclasses.replace(fl, aggregator=agg, connection_rate=cr, hierarchical=True,
+                                   client_block=4)
+        traffic_s = scenario_config(scenario, num_vehicles=100)
+        sim_s = FLSimulation(get_config("fl-mnist-mlp"), fl_s, traffic_s, "mnist",
+                             "contextual", prng.key(0), device=device)
+        server = "server_update_buffered" if agg == "fedbuff" else "fedavg_reduce"
+        n_chunks = -(-K // fl_s.client_block)
+        print(f"-- {label} at CR {cr}: K={K} in {n_chunks} chunks of {fl_s.client_block} "
+              f"({server})")
+        st, recs, two_tier_launches[label] = drive(sim_s, server, rsu_per_round=n_chunks)
+        # each round against the unblocked hierarchical round from the same
+        # state: the economics bit for bit, the model within 1e-6 (the
+        # cohort sum reassociates per RSU and chunk)
+        unblocked = make_round_step(sim_s.api.loss, dataclasses.replace(fl_s, client_block=0),
+                                    K, sim_s.model_bytes, sim_s.param_spec, ("contextual",),
+                                    aggregators=(agg,))
+        worst = 0.0
+        for i, rec in enumerate(recs):
+            s_u, m_u = unblocked(st[i], sim_s.scn, 0, 0, sim_s.data, True)
+            u_rec = metrics_to_records(RoundMetrics(*[x[None] for x in m_u]))[0]
+            for f in ("round", "n_selected", "n_succeeded", "n_buffered", "n_drained",
+                      "duration", "sim_time", "mean_pred_latency", "mean_real_latency"):
+                if getattr(u_rec, f) != getattr(rec, f):
+                    raise AssertionError(f"{label} round {rec.round}: {f} "
+                                         f"{getattr(rec, f)} != unblocked {getattr(u_rec, f)}")
+            for f in ("sketch_age", "clusters", "buf_mask"):
+                if not torch.equal(getattr(s_u, f), getattr(st[i + 1], f)):
+                    raise AssertionError(f"{label} round {rec.round}: {f} differs")
+            torch.testing.assert_close(st[i + 1].params, s_u.params, rtol=0, atol=1e-6)
+            worst = max(worst, float((st[i + 1].params - s_u.params).abs().max()))
+        print(f"{label}: economics bitwise the unblocked hierarchical lane's in every round, "
+              f"max |dparams| = {worst:.3e}")
+        if agg == "fedbuff" and not (sum(r.n_buffered for r in recs) and
+                                     sum(r.n_drained for r in recs)):
+            raise AssertionError(f"{label}: the ring neither parked nor drained")
+        replay(sim_s, st[0], recs[0], traffic_s, params_atol=1e-5, acc_atol=1e-3)
+        streamed_sims[label] = sim_s
+
+    # ---- 4d. fleet rounds ---------------------------------------------------
+    from repro_torch.core import messages
+    from repro_torch.core.fusion import fuse_kinematics
+
+    fleet_launches = {}
+    for n, n_rounds in FLEET:
+        phase(f"fleet: N={n}, {n_rounds} round(s), hierarchical, client_block=32, no warm-up")
+        # benchmarks/engine_throughput.py::fleet's settings
+        fl_f = FLConfig(num_clients=n, samples_per_client=2, batch_size=2, num_clusters=8,
+                        local_epochs=1, sketch_dim=64,
+                        select_fraction=min(max(100.0 / n, 1e-6), 1.0), hierarchical=True,
+                        client_block=32, aggregator="fedavg", seed=0)
+        traffic_f = scenario_config("ring", num_vehicles=n)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()  # by the earlier phases
+        t0 = time.perf_counter()
+        sim_f = FLSimulation(get_config("fl-mnist-mlp"), fl_f, traffic_f, "mnist",
+                             "contextual", prng.key(0), device=device)
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t0
+        setup_peak = torch.cuda.max_memory_allocated() - held
+        torch.cuda.reset_peak_memory_stats()
+        held_rounds = torch.cuda.memory_allocated()
+        state_f0 = sim_f.state
+        reset_launches()
+        rows0 = messages.dense_rows
+        walls, recs = [], []
+        for _ in range(n_rounds):
+            t0 = time.perf_counter()
+            recs.append(sim_f.run_round())
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        fleet_launches[n] = launches_f = read_launches()
+        rows = messages.dense_rows - rows0
+        round_peak = torch.cuda.max_memory_allocated() - held_rounds
+        n_chunks = -(-fl_f.n_select // fl_f.client_block)
+        print(f"set-up {setup_s:.2f} s (peak {setup_peak / 2**30:.2f} GiB above the "
+              f"{held / 2**30:.2f} GiB the earlier phases hold); N={n} "
+              f"K={fl_f.n_select} in {n_chunks} chunks of {fl_f.client_block} [{card}]")
+        for rec, wall in zip(recs, walls):
+            print(json.dumps(rec.__dict__), f"wall {wall * 1e3:.1f} ms")
+        print(f"launches over {n_rounds} round(s): {launches_f}; peak memory in the rounds "
+              f"{round_peak / 2**30:.2f} GiB above the {held_rounds / 2**30:.2f} GiB held "
+              f"before them; neighbour rows recomputed densely: {rows} "
+              f"of {n * n_rounds} [{card}]")
+        want = dict.fromkeys(launches_f, 0)
+        want.update(rttg_latency=2 * n_rounds, rsu_reduce=n_chunks * n_rounds,
+                    fedavg_reduce=n_rounds)
+        if launches_f != want:
+            raise AssertionError(f"expected {want}, got {launches_f}")
+        check_records(sim_f, recs)
+        if n != FLEET[0][0]:
+            continue
+        # the first round again from its state: the windowed search and compact
+        # fusion (as above; it must repeat bitwise), then the dense forms
+        rk = prng.fold_in(state_f0.key, state_f0.round)
+        k_obs = prng.fold_in_str(rk, "observe")
+        forms, saved = {}, messages.DENSE_MAX_N
+        for form, limit in (("windowed", saved), ("dense", n)):
+            messages.DENSE_MAX_N = limit
+            try:
+                cpms = messages.emit_cpms(state_f0.twin, sim_f.scn, k_obs)
+                kin = fuse_kinematics(messages.emit_cams(state_f0.twin, sim_f.scn, k_obs), cpms,
+                                      sim_f.scn)
+                s_x, m_x = sim_f._step(state_f0, sim_f.scn, 0, 0, sim_f.data, True)
+            finally:
+                messages.DENSE_MAX_N = saved
+            forms[form] = (cpms["obj"], kin, s_x,
+                           metrics_to_records(RoundMetrics(*[x[None] for x in m_x]))[0])
+        (obj_w, kin_w, s_w, rec_w), (obj_d, kin_d, s_d, rec_d) = forms["windowed"], forms["dense"]
+        if rec_w != recs[0]:
+            raise AssertionError(f"fleet N={n}: the round replayed on the card differs")
+        if not torch.equal(obj_w, obj_d):
+            raise AssertionError(f"fleet N={n}: the windowed neighbours differ from the dense")
+        # fused positions ~1e4 m (an ulp ~1e-3 m); the dense table sums N
+        # columns in a tree, the compact one its few slots in sequence
+        for name, a, b, atol in zip(("pos", "speed", "accel", "pos_var"), kin_w, kin_d,
+                                    (1e-2, 1e-5, 1e-5, 1e-7)):
+            torch.testing.assert_close(a, b, rtol=1e-5, atol=atol,
+                                       msg=lambda m: f"fleet N={n} fused {name}: {m}")
+        for f in ("round", "n_selected", "n_succeeded", "n_buffered", "n_drained"):
+            if getattr(rec_w, f) != getattr(rec_d, f):
+                raise AssertionError(f"fleet N={n} dense vs windowed: {f} differs")
+        for f in ("sketch_age", "clusters"):
+            if not torch.equal(getattr(s_w, f), getattr(s_d, f)):
+                raise AssertionError(f"fleet N={n} dense vs windowed: {f} differs")
+        torch.testing.assert_close(s_w.params, s_d.params, rtol=0, atol=1e-6)
+        print(f"fleet N={n}: the round repeats bitwise on the card; dense vs windowed "
+              f"neighbours equal, integers equal, max |dpos| = "
+              f"{float((kin_w[0] - kin_d[0]).abs().max()):.3e} m")
+    fleet_sim = sim_f
 
     # ---- 5. times ----------------------------------------------------------
     phase(f"times on {card}")
@@ -639,9 +931,82 @@ def main() -> int:
               f"{plain_ms * 1e3:.2f} us, bound {b_ms * 1e3:.2f} us ({b_by}), "
               f"{su_bytes / (ms * 1e-3) / 1e9:.0f} GB/s [{card}]")
 
-    # the rounds: wall time ending in a synchronize, then one profiled round
+    # rsu_reduce at the streamed lanes' chunks: R=10, the paper's K=4 and the
+    # fleet's K=32, each with its carry (the steady chunk) and the first
+    # chunk without one, cycling through copies that exceed the L2 as above
+    from repro_torch.kernels.rsu_reduce import rsu_reduce, rsu_reduce_plain
+
+    R = 10
+    rsu_times = {}
+    for K_c in (4, 32):
+        ops = [rsu_operands(K_c, P, R, "rand", device) for _ in range(n_copies)]
+        routes = [torch.nn.functional.one_hot(rid_.long(), R).float() * w_[:, None]
+                  for _, w_, rid_, _ in ops]
+        out_c = torch.empty((R, P), dtype=torch.float32, device=device)
+        mass_c = torch.empty((R,), dtype=torch.float32, device=device)
+        vec_c = 2 if P % 2 == 0 else 1
+
+        def nxt_rsu():
+            it["i"] = (it["i"] + 1) % n_copies
+            return ops[it["i"]], routes[it["i"]]
+
+        def rsu_launch(with_carry, K_c=K_c):
+            (u_, w_, rid_, c_), _ = nxt_rsu()
+            kbuild.check(lib.rsu_reduce_launch(
+                u_.data_ptr(), w_.data_ptr(), rid_.data_ptr(), K_c, R, P, vec_c,
+                c_.data_ptr() if with_carry else None,
+                c_.data_ptr() if with_carry else out_c.data_ptr(), mass_c.data_ptr(),
+                stream), "rsu_reduce")
+
+        def rsu_plain_call():
+            (u_, w_, rid_, c_), _ = nxt_rsu()
+            return rsu_reduce_plain(u_, w_, rid_, R, c_)
+
+        def rsu_library():
+            (u_, _, _, c_), m_ = nxt_rsu()
+            return torch.addmm(c_, m_.t(), u_)
+
+        def rsu_wrapper():
+            (u_, w_, rid_, c_), _ = nxt_rsu()
+            return rsu_reduce(u_, w_, rid_, R, carry=c_)
+
+        t = {}
+        for _ in range(2):  # the first pass warms up, the second is kept
+            t = {"carry": time_ms(lambda: rsu_launch(True)),
+                 "first": time_ms(lambda: rsu_launch(False)),
+                 "plain": time_ms(rsu_plain_call), "library": time_ms(rsu_library),
+                 "wrapper": time_ms(rsu_wrapper)}
+        # each input read once (rows, weights, ids, and the carry when there is
+        # one), each output written once (partials, mass); 2 flops per row value
+        # (its one RSU's multiply-add) plus the carry's add per partial
+        for key, with_carry in (("carry", True), ("first", False)):
+            b_bytes = K_c * P * 4 + 2 * K_c * 4 + R * P * 4 * (2 if with_carry else 1) + R * 4
+            t[key + "_bound"] = bound(b_bytes, 2 * K_c * P + (R * P if with_carry else 0))
+            t[key + "_bytes"] = b_bytes
+        rsu_times[K_c] = t
+        print(f"rsu_reduce K={K_c} P={P} R={R} (vec {vec_c}): kernel with carry "
+              f"{t['carry'] * 1e3:.2f} us (bound {t['carry_bound'][0] * 1e3:.2f} us, "
+              f"{t['carry_bytes'] / (t['carry'] * 1e-3) / 1e9:.0f} GB/s), first chunk "
+              f"{t['first'] * 1e3:.2f} us (bound {t['first_bound'][0] * 1e3:.2f} us), "
+              f"wrapper {t['wrapper'] * 1e3:.2f} us, plain {t['plain'] * 1e3:.2f} us, "
+              f"torch.addmm {t['library'] * 1e3:.2f} us [{card}]")
+    t = rsu_times[4]
+    kernels.append({
+        "name": "rsu_reduce", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/rsu_reduce.cu",
+        "replaces": "src/repro/kernels/rsu_reduce.py:120",
+        "launches": sum(x["rsu_reduce"] for x in two_tier_launches.values())
+        + sum(x["rsu_reduce"] for x in fleet_launches.values()),
+        "max_abs_err": main_err["rsu_reduce"], "ms": t["carry"], "plain_ms": t["plain"],
+        "bound_ms": t["carry_bound"][0], "bound_by": t["carry_bound"][1],
+        "library_ms": t["library"],
+    })
+
+    # the rounds: wall time ending in a synchronize, then profiled rounds
     for label, s_ in (("fedavg", sim), ("fedadam", lane_sims["fedadam"]),
-                      ("fedbuff", lane_sims["fedbuff"])):
+                      ("fedbuff", lane_sims["fedbuff"]),
+                      ("streamed ring/fedavg", streamed_sims["ring/fedavg"]),
+                      ("streamed ring/fedbuff", streamed_sims["ring/fedbuff"])):
         walls = []
         for _ in range(3):
             torch.cuda.synchronize()
@@ -651,30 +1016,10 @@ def main() -> int:
             walls.append(time.perf_counter() - t0)
         print(f"round wall time, {label} lane (N=100, K=10, 3 epochs): "
               f"{', '.join(f'{x * 1e3:.1f}' for x in walls)} ms [{card}]")
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        sim.step()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    dev = [e for e in prof.events()
-           if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA]
-    busy_us = sum(e.time_range.elapsed_us() for e in dev)
-    if dev:
-        print(f"profiled round: wall {wall * 1e3:.1f} ms, {len(dev)} device kernels/copies, "
-              f"device busy {busy_us / 1e3:.2f} ms, idle share "
-              f"{1 - busy_us / 1e6 / wall:.3f} [{card}]")
-        by_name = {}
-        for e in dev:
-            c, us_ = by_name.get(e.name, (0, 0.0))
-            by_name[e.name] = (c + 1, us_ + e.time_range.elapsed_us())
-        top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
-        for name, (c, us_) in top:
-            print(f"  {c:5d} x {us_ / max(c, 1):7.2f} us  {name[:90]}")
-    else:
-        print("profiled round: the profiler recorded no device activity; "
-              "device busy share not measured")
+    for label, s_ in (("fedavg N=100", sim), ("streamed fedavg N=100",
+                                              streamed_sims["ring/fedavg"]),
+                      (f"fleet N={fleet_sim.fl.num_clients}", fleet_sim)):
+        profile_round(label, s_, card)
 
     print(json.dumps({"kernels": kernels}))
     print(card)

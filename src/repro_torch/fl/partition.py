@@ -61,6 +61,19 @@ def client_sample_counts(labels: torch.Tensor) -> torch.Tensor:
     return (labels >= 0).sum(dim=1).to(torch.float32)
 
 
+def rsu_sample_mass(weights: torch.Tensor, rid: torch.Tensor, n_rsu: int) -> torch.Tensor:
+    """(R,) per-RSU aggregation mass: the weights summed by attachment.
+
+    The JAX package scatter-adds; here it is the column sum of the one-hot
+    ``(K, R)`` routing matrix, a fixed order on every device (a float
+    ``index_add_`` on CUDA adds in another order on each run).  An id
+    outside ``[0, R)`` contributes nothing.  Sample counts are
+    integer-valued, so the per-RSU masses sum to the flat sum exactly.
+    """
+    onehot = rid.to(torch.int64)[:, None] == torch.arange(n_rsu, device=rid.device)[None, :]
+    return (onehot.to(torch.float32) * weights.to(torch.float32)[:, None]).sum(dim=0)
+
+
 def partition_clients(key, dataset: str, cfg: FLConfig, regions=None, device="cpu"):
     """(images (C, n, H, W, ch), labels (C, n)) for all C clients."""
     labels = partition_labels(key, dataset, cfg, regions, device)

@@ -7,15 +7,24 @@ the flat ``(P,)`` global model.  Selection is a fixed-size mask compacted
 into K cohort slots, as in the JAX package, so the shapes never depend on
 the data.
 
-The port runs the flat, fused-geometry (``fused=True``: both geometry
-passes go through the ``rttg_latency`` kernel), fp32 lanes of the reference
-with every registered server rule (``fl.aggregators.AGGREGATOR_ORDER``);
-the two-tier, bf16 and unfused lanes raise ``NotImplementedError``.  The
+The port runs the fused-geometry (``fused=True``: both geometry passes go
+through the ``rttg_latency`` kernel), fp32 lanes of the reference with every
+registered server rule (``fl.aggregators.AGGREGATOR_ORDER``), flat or
+two-tier; the bf16 and unfused lanes raise ``NotImplementedError``.  The
 kernels of a round: ``rttg_latency`` twice (predicted and realized
 topology), then one server step.  The single-rule ``("fedavg",)`` registry
 keeps the plain ``fedavg_reduce`` + AXPY step; any other registry runs the
 fused ``server_update`` kernel, or ``server_update_buffered`` when it holds
 ``fedbuff`` (the in-flight ring's drained rows join the same reduce).
+
+Two-tier aggregation (``FLConfig.hierarchical``): the FedAvg weights are
+normalized by the per-RSU masses of the live RSUs (bitwise the flat weights
+while every RSU is live, the sample counts being integers).  With
+``client_block = B > 0`` the cohort is also STREAMED: chunks of B slots
+train in turn and ``rsu_reduce`` adds each chunk into ``(R, P)`` per-RSU
+partials (one launch per chunk), and the server step reduces the R partials
+at the live mask's weights.  The round's economics are computed before any
+training, by the same expressions in every lane.
 
 Randomness follows the reference stream for stream: every draw comes from
 the experiment key ``RoundState.key`` folded by round and by name.  Keys
@@ -38,6 +47,7 @@ from repro_torch.config import FLConfig
 from repro_torch.core.clustering import apply_sketch, kmeans_cluster, sketch_sign_vector
 from repro_torch.core.fusion import fuse_kinematics
 from repro_torch.core.messages import emit_cams, emit_cpms
+from repro_torch.core.rttg import n_rsu_of, rsu_up_mask
 from repro_torch.core.selection import STRATEGIES
 from repro_torch.core.twin import TwinState, advance_twin, init_twin_state
 from repro_torch.fl.aggregators import (
@@ -51,8 +61,9 @@ from repro_torch.fl.aggregators import (
 )
 from repro_torch.fl.client import make_local_trainer
 from repro_torch.fl.partition import client_sample_counts, make_test_set, partition_clients
-from repro_torch.fl.server import apply_delta_flat, normalized_weights
+from repro_torch.fl.server import apply_delta_flat, normalized_weights, rsu_normalized_weights
 from repro_torch.kernels.fedavg_reduce import fedavg_reduce
+from repro_torch.kernels.rsu_reduce import rsu_reduce
 from repro_torch.kernels.rttg_latency import rttg_latency
 from repro_torch.kernels.server_update import server_update, server_update_buffered
 from repro_torch.utils import prng
@@ -221,12 +232,16 @@ def make_round_data(key: torch.Tensor, dataset: str, fl: FLConfig,
 
 
 def _check_lane(fl: FLConfig, fused: bool) -> None:
+    if fl.client_block < 0:
+        raise ValueError(f"client_block must be >= 0, got {fl.client_block}")
+    if fl.client_block and not fl.hierarchical:
+        raise ValueError(
+            "client_block streaming segments the cohort by RSU attachment; "
+            "set hierarchical=True to enable it"
+        )
     if not fused:
         raise NotImplementedError("the unfused geometry composition (fused=False) is "
                                   "not ported (see ROADMAP.md)")
-    if fl.hierarchical or fl.client_block:
-        raise NotImplementedError("the two-tier RSU lane (hierarchical / client_block) "
-                                  "is not ported yet (see ROADMAP.md)")
     if fl.param_dtype != "float32" or fl.compute_dtype != "float32":
         raise NotImplementedError("the bf16 precision lane is not ported yet "
                                   "(see ROADMAP.md)")
@@ -278,6 +293,7 @@ def make_round_step(loss_fn, fl: FLConfig, cohort_size: int, model_bytes: float,
     hp = server_hp(fl)
     trainer = make_local_trainer(loss_fn, fl.learning_rate, fl.local_epochs,
                                  fl.batch_size, mu=fl.fedprox_mu)
+    hierarchical, B = fl.hierarchical, fl.client_block
     n_select = fl.n_select
     N, K = fl.num_clients, cohort_size
     compute_s = fl.local_epochs * fl.compute_s_per_epoch
@@ -299,10 +315,11 @@ def make_round_step(loss_fn, fl: FLConfig, cohort_size: int, model_bytes: float,
         return rttg_latency(pos, speed, accel, twin.t, mb, forced, scn, predict=True)
 
     def _realized(mid_twin, scn, rk, mb):
-        """Mid-round geometry on the TRUE evolved topology."""
+        """Mid-round geometry on the TRUE evolved topology (and, on the
+        two-tier lanes, each client's RSU)."""
         forced = _forced(prng.fold_in_str(rk, "upload-cr"), mid_twin.pos.device)
         return rttg_latency(mid_twin.pos, mid_twin.speed, mid_twin.accel, mid_twin.t,
-                            mb, forced, scn, predict=False)
+                            mb, forced, scn, predict=False, want_rid=hierarchical)
 
     @torch.no_grad()
     def round_step(state: RoundState, scn, strategy_idx, aggregator_idx,
@@ -334,7 +351,7 @@ def make_round_step(loss_fn, fl: FLConfig, cohort_size: int, model_bytes: float,
         mean_compute = torch.where(slot_valid, compute_i, 0.0).sum() / nsel_f
         mid_twin = advance_twin(state.twin, scn, prng.fold_in_str(rk, "mid"),
                                 mean_compute, ADVANCE_SUBSTEPS)
-        real_lat, still_conn = _realized(mid_twin, scn, rk, mb)
+        real_lat, still_conn, *attached = _realized(mid_twin, scn, rk, mb)
         ok = slot_valid & still_conn[idx_c]
         ok_any = ok.any()
         timeout = torch.tensor(fl.round_timeout_s, **f32)
@@ -345,16 +362,34 @@ def make_round_step(loss_fn, fl: FLConfig, cohort_size: int, model_bytes: float,
         dur_core = torch.where(slot_valid, slot_pay, -math.inf).max()
         duration = torch.where(n_selected > 0, dur_core + fl.server_agg_s, timeout)
 
-        # ---- FedAvg weights from the per-client sample counts ----------
+        # ---- FedAvg weights (flat, or RSU-routed two-tier) -------------
         counts_k = data.counts[idx_c]
-        w = normalized_weights(ok, counts_k)
+        if hierarchical:
+            R = n_rsu_of(scn)
+            live = rsu_up_mask(scn)
+            rid_k = attached[0][idx_c]
+            # the attachment argmin never picks a dark RSU: folding liveness
+            # in keeps a dark RSU's partial from ever reaching the server
+            live_k = live[rid_k.long()]
+
+            def _w_strict(m, c):
+                return rsu_normalized_weights(m & live_k, c, rid_k, live, R)[0]
+
+            def _w_stale(m, c):
+                # discounted counts are not integers: the flat normalizer
+                # keeps the stale lane bitwise with its flat sibling
+                return rsu_normalized_weights(m & live_k, c, rid_k, live, R,
+                                              mass_norm=False)[0]
+        else:
+            _w_strict = _w_stale = normalized_weights
+        w = _w_strict(ok, counts_k)
         upd_any = ok_any
         gidx = agg_global[int(aggregator_idx)]
         if gidx == STALE_IDX:
             # stragglers keep a weight discounted by their realized round
             # time; any selected client moves the model
             disc = torch.where(ok, 1.0, staleness_scale(per_slot, timeout))
-            w = normalized_weights(slot_valid, counts_k * disc)
+            w = _w_stale(slot_valid, counts_k * disc)
             upd_any = n_selected > 0
 
         # ---- fedbuff: drain arrived ring slots, place new stragglers ---
@@ -390,52 +425,81 @@ def make_round_step(loss_fn, fl: FLConfig, cohort_size: int, model_bytes: float,
                 # a drain with no in-round survivor is still a server step
                 upd_any = ok_any | drain_fire
 
-        # ---- local training over the cohort ----------------------------
+        # ---- local training, survivors' sketches, the edge reduce ------
         params = unflatten_from_vector(state.params, param_spec)
-        imgs = data.images[idx_c]
-        imgs = imgs * slot_valid.reshape((K,) + (1,) * (imgs.dim() - 1))
-        lbls = torch.where(slot_valid[:, None], data.labels[idx_c], 0)
-        _, vecs = trainer(params, imgs, lbls, prng.fold_in_str(rk, "local"))
-        vecs = vecs * slot_valid[:, None]
+        buf = {f: getattr(state, f) for f in
+               ("buf_delta", "buf_arrive", "buf_sent", "buf_weight", "buf_mask")}
+        if has_fedbuff:
+            # drained slots empty now; this round's stragglers fill them below
+            buf = {f: keep if f == "buf_mask" else torch.where(
+                keep.reshape((Kb,) + (1,) * (x.dim() - 1)), x, 0.0) for f, x in buf.items()}
+        if B:
+            # the streamed two-tier lane: chunks of B slots train and reduce
+            # straight into the (R, P) per-RSU partials, so the (K, P) update
+            # matrix never exists.  Per-client keys come from ONE cohort-wide
+            # split (the unblocked trainer's stream); padding slots repeat
+            # key 0 and train zeroed data into zero-masked updates.
+            n_chunks = -(-K // B)
+            pad = n_chunks * B - K
 
-        # ---- deadline rule: survivors report sketches ------------------
-        sks = apply_sketch(vecs, state.sketch_sign, fl.sketch_dim)
-        scatter = torch.where(ok, idx_c, N)  # the rest drop
-        sketches = _scatter_rows(state.sketches, scatter, sks)
-        sketch_age = _scatter_rows(state.sketch_age, scatter, sks.new_zeros((K,))) + 1.0
+            def _pad(x, fill):
+                return torch.cat([x, x.new_full((pad,) + x.shape[1:], fill)]) if pad else x
+
+            keys = prng.split(prng.fold_in_str(rk, "local"), K)
+            keys = torch.cat([keys, keys[:1].expand(pad, 2)]) if pad else keys
+            idx_p, valid_p, w_p, ok_p, rid_p = (_pad(idx_c, 0), _pad(slot_valid, False),
+                                                _pad(w, 0.0), _pad(ok, False), _pad(rid_k, 0))
+            slot_p = _pad(slot, 2 * Kb) if has_fedbuff else None
+            partials, sketches, sketch_age = None, state.sketches, state.sketch_age
+            for c in range(n_chunks):
+                cs = slice(c * B, (c + 1) * B)
+                vb = _train(trainer, params, data, idx_p[cs], valid_p[cs], keys[cs])
+                partials, _ = rsu_reduce(vb, w_p[cs], rid_p[cs], R, carry=partials)
+                sketches, sketch_age = _report(sketches, sketch_age, vb, ok_p[cs],
+                                               idx_p[cs], state.sketch_sign, fl.sketch_dim, N)
+                if has_fedbuff:
+                    # straggler rows park in the ring (padding slots drop)
+                    buf["buf_delta"] = _scatter_rows(buf["buf_delta"], slot_p[cs], vb)
+            # the server tier: R partials, the weights already applied at the edge
+            red, red_w = partials, live.to(torch.float32)
+        else:
+            vecs = _train(trainer, params, data, idx_c, slot_valid,
+                          prng.fold_in_str(rk, "local"))
+            sketches, sketch_age = _report(state.sketches, state.sketch_age, vecs, ok,
+                                           idx_c, state.sketch_sign, fl.sketch_dim, N)
+            if has_fedbuff:
+                buf["buf_delta"] = _scatter_rows(buf["buf_delta"], slot, vecs)
+            red, red_w = vecs, w
+        sketch_age = sketch_age + 1.0
 
         # ---- server update over deadline survivors (one fused pass) ----
         opt_m, opt_v = state.opt_m, state.opt_v
         if plain_fedavg:
-            delta = fedavg_reduce(vecs, w)
+            delta = fedavg_reduce(red, red_w)
             params_vec = torch.where(ok_any, apply_delta_flat(state.params, delta),
                                      state.params)
         else:
             if has_fedbuff:
                 # the PRE-scatter ring: bw is nonzero only on slots drained now
-                new = server_update_buffered(vecs, w, state.buf_delta, bw, state.params,
+                new = server_update_buffered(red, red_w, state.buf_delta, bw, state.params,
                                              opt_m, opt_v, gidx, state.round, drain_fire,
                                              **hp._asdict())
             else:
-                new = server_update(vecs, w, state.params, opt_m, opt_v, gidx,
+                new = server_update(red, red_w, state.params, opt_m, opt_v, gidx,
                                     state.round, **hp._asdict())
             params_vec, opt_m, opt_v = [torch.where(upd_any, n, o) for n, o in
                                         zip(new, (state.params, opt_m, opt_v))]
 
-        # ---- fedbuff: park this round's stragglers in the ring ---------
-        buf = {f: getattr(state, f) for f in
-               ("buf_delta", "buf_arrive", "buf_sent", "buf_weight", "buf_mask")}
+        # ---- fedbuff: the ring's metadata follows the row scatter -------
         if has_fedbuff:
             # a parked update lands one full deadline later (or at its
             # realized round time, if even slower)
             arrive_k = state.sim_time + torch.maximum(per_slot, timeout)
-            rows = {"buf_delta": vecs, "buf_arrive": arrive_k,
-                    "buf_sent": state.sim_time.expand(K), "buf_weight": counts_k,
+            rows = {"buf_arrive": arrive_k, "buf_sent": state.sim_time.expand(K),
+                    "buf_weight": counts_k,
                     "buf_mask": torch.ones((K,), dtype=torch.bool, device=device)}
             for f, new_rows in rows.items():
-                kept = keep if f == "buf_mask" else torch.where(
-                    keep.reshape((Kb,) + (1,) * (buf[f].dim() - 1)), buf[f], 0.0)
-                buf[f] = _scatter_rows(kept, slot, new_rows)
+                buf[f] = _scatter_rows(buf[f], slot, new_rows)
 
         # ---- advance the twin to round end -----------------------------
         base = TwinState(*[torch.where(ok_any, m, o) for m, o in zip(mid_twin, state.twin)])
@@ -490,6 +554,25 @@ def make_round_step(loss_fn, fl: FLConfig, cohort_size: int, model_bytes: float,
         return new_state, metrics
 
     return round_step
+
+
+def _train(trainer, params, data: RoundData, idx, valid, key) -> torch.Tensor:
+    """(B, P) updates of the clients ``idx``; invalid slots train zeroed
+    data and come out as zero rows."""
+    imgs = data.images[idx]
+    imgs = imgs * valid.reshape(valid.shape + (1,) * (imgs.dim() - 1))
+    lbls = torch.where(valid[:, None], data.labels[idx], 0)
+    _, vecs = trainer(params, imgs, lbls, key)
+    return vecs * valid[:, None]
+
+
+def _report(sketches, sketch_age, vecs, ok, idx, sign, sketch_dim, n):
+    """Deadline rule: the survivors' sketches land on their rows, their age
+    resets to 0; the other rows drop."""
+    sks = apply_sketch(vecs, sign, sketch_dim)
+    scatter = torch.where(ok, idx, n)
+    return (_scatter_rows(sketches, scatter, sks),
+            _scatter_rows(sketch_age, scatter, sks.new_zeros(idx.shape)))
 
 
 def _scatter_rows(base: torch.Tensor, idx: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:

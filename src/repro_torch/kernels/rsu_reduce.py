@@ -1,0 +1,97 @@
+"""Segment reduce by RSU attachment: CUDA kernel and its plain version.
+
+Port of ``repro/kernels/rsu_reduce.py`` (Pallas ``_seg_kernel``), the edge
+half of two-tier FedAvg: ``(K, P)`` updates, ``(K,)`` weights and ``(K,)``
+attachment ids -> ``(R, P)`` per-RSU partials and ``(R,)`` masses,
+
+    partials[r] = sum_k [rid_k == r] w_k u_k,   mass[r] = sum_k [rid_k == r] w_k.
+
+An id outside ``[0, R)`` contributes nothing.  An optional ``carry`` is the
+chunk walk's running ``(R, P)`` partials: the sum is added to it in place,
+``carry + sum``, as the JAX round's ``partials + part_c`` rounds it.  CUDA
+tensors launch ``csrc/rsu_reduce.cu``; CPU tensors run
+``rsu_reduce_plain``.  There is no fallback from one to the other.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels.fedavg_reduce import _vector_width
+
+# Kernel launches made by ``rsu_reduce`` (one per call on CUDA tensors).
+launches = 0
+
+# The kernel keeps one register accumulator per RSU and column.
+MAX_RSU = 32
+
+
+def rsu_reduce_plain(updates: torch.Tensor, weights: torch.Tensor, rid: torch.Tensor,
+                     n_rsu: int, carry=None):
+    """The reference's one-hot ``(K, R)`` routing matrix ``m``: ``m.t() @ u``
+    and ``m.sum(0)``; with a carry, ``carry += m.t() @ u``."""
+    w = weights.to(torch.float32)
+    onehot = rid.to(torch.int64)[:, None] == torch.arange(n_rsu, device=rid.device)[None, :]
+    m = onehot.to(torch.float32) * w[:, None]
+    partials = m.t() @ updates.to(torch.float32)
+    mass = m.sum(dim=0)
+    if carry is not None:
+        partials = carry.add_(partials)
+    return partials, mass
+
+
+def _check(name, x, shape, dtype, device):
+    if x.device != device or x.dtype != dtype or tuple(x.shape) != shape \
+            or not x.is_contiguous():
+        raise ValueError(f"rsu_reduce: {name} must be a contiguous {shape} {dtype} tensor "
+                         f"on {device}, got {tuple(x.shape)} {x.dtype} on {x.device}")
+
+
+def _rsu_reduce_cuda(updates, weights, rid, n_rsu, carry):
+    from repro_torch.kernels.build import check, library
+
+    global launches
+    if updates.dtype != torch.float32:
+        raise NotImplementedError(
+            f"rsu_reduce: {updates.dtype} update rows come with the bf16 lane "
+            "(see ROADMAP.md); this kernel takes float32 rows"
+        )
+    if updates.dim() != 2 or not updates.is_contiguous():
+        raise ValueError(f"rsu_reduce: updates must be a contiguous (K, P) tensor, "
+                         f"got {tuple(updates.shape)}")
+    if not 1 <= n_rsu <= MAX_RSU:
+        raise ValueError(f"rsu_reduce: the kernel holds 1 to {MAX_RSU} RSUs, got {n_rsu}")
+    K, P = updates.shape
+    if K < 1:
+        raise ValueError("rsu_reduce: the cohort chunk must have at least one row")
+    device = updates.device
+    _check("weights", weights, (K,), torch.float32, device)
+    _check("rid", rid, (K,), torch.int32, device)
+    if carry is None:
+        out = torch.empty((n_rsu, P), dtype=torch.float32, device=device)
+    else:
+        _check("carry", carry, (n_rsu, P), torch.float32, device)
+        out = carry
+    mass = torch.empty((n_rsu,), dtype=torch.float32, device=device)
+    vec = min(_vector_width(updates, P), _vector_width(out, P))
+    stream = torch.cuda.current_stream(device).cuda_stream
+    status = library().rsu_reduce_launch(
+        updates.data_ptr(), weights.data_ptr(), rid.data_ptr(), K, n_rsu, P, vec,
+        None if carry is None else carry.data_ptr(), out.data_ptr(), mass.data_ptr(), stream,
+    )
+    check(status, "rsu_reduce")
+    launches += 1
+    return out, mass
+
+
+def rsu_reduce(updates: torch.Tensor, weights: torch.Tensor, rid: torch.Tensor,
+               n_rsu: int, carry=None):
+    """Segment reduce -> (partials (R, P) fp32, mass (R,) fp32).
+
+    ``rid`` is int32 on the card.  With ``carry`` (R, P) the partials are
+    ``carry`` itself, updated in place.
+    """
+    if updates.is_cuda:
+        return _rsu_reduce_cuda(updates, weights, rid, n_rsu, carry)
+    if updates.device.type != "cpu":
+        raise ValueError(f"rsu_reduce: unsupported device {updates.device}")
+    return rsu_reduce_plain(updates, weights, rid, n_rsu, carry)

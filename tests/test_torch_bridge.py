@@ -107,16 +107,16 @@ REGISTRY_ROUND_TOL = {  # (rtol, atol) per compared float leaf
 }
 
 
-def assert_round_matches(tm, ts, jm, js):
-    """Integers exact, floats within ``REGISTRY_ROUND_TOL``: one port round
-    against one JAX round (``tm``/``ts`` port metrics and state, ``jm``/``js``
-    JAX)."""
+def assert_round_matches(tm, ts, jm, js, tol=None):
+    """Integers exact, floats within ``tol`` (default ``REGISTRY_ROUND_TOL``):
+    one port round against one JAX round (``tm``/``ts`` port metrics and
+    state, ``jm``/``js`` JAX)."""
     for f in ("round", "n_selected", "n_succeeded", "n_buffered", "n_drained"):
         assert int(getattr(tm, f)) == int(getattr(jm, f)), f
     ref, got = state_to_numpy(js), convert.state_to_numpy(ts)
     for f in ("sketch_age", "clusters", "buf_mask"):
         np.testing.assert_array_equal(got[f], ref[f], err_msg=f)
-    for name, (rtol, atol) in REGISTRY_ROUND_TOL.items():
+    for name, (rtol, atol) in (tol or REGISTRY_ROUND_TOL).items():
         a, b = (got[name], ref[name]) if name in got else \
             (float(getattr(tm, name)), float(getattr(jm, name)))
         np.testing.assert_allclose(a, b, rtol=rtol, atol=atol, err_msg=name)

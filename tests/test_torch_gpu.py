@@ -12,14 +12,21 @@ apart); the FedAvg sum within 1e-6 of ``sum_k |w_k u_k|`` (another
 summation order); the server update's ``m`` and ``v`` within the same,
 its ``params`` within 100 times that (the adaptive step
 ``m / (sqrt(v) + tau)`` magnifies the sum's error by up to
-``(1 - beta1) / tau``), and its two contracts bit for bit.  Without a card
-every test skips, decided in the fixture.
+``(1 - beta1) / tau``), and its two contracts bit for bit.  The RSU segment
+reduce within 1e-6 of ``sum_k |m_kr u_k|`` on random operands and bit for
+bit on dyadic ones (any order sums those exactly), a chunk walk included.
+The two-tier rounds: the hierarchical lane is the flat lane bit for bit
+(contract (a)), and the streamed lane launches one ``rsu_reduce`` per
+chunk.  At fleet size the windowed neighbour search is the dense one
+exactly and the compact fusion the dense fusion within rtol 1e-5.  Without
+a card every test skips, decided in the fixture.
 """
 import pytest
 import torch
 
 from repro_torch.core.scenarios import scenario_config, scenario_params
 from repro_torch.kernels import fedavg_reduce as fedavg_mod
+from repro_torch.kernels import rsu_reduce as rsu_mod
 from repro_torch.kernels import rttg_latency as rttg_mod
 from repro_torch.kernels import server_update as su_mod
 from repro_torch.utils import prng
@@ -212,3 +219,168 @@ def test_main_path_rounds_on_the_card_match_the_cpu(dev):
     for a, b in zip(rg, rc):
         assert (a.n_selected, a.n_succeeded) == (b.n_selected, b.n_succeeded)
         assert abs(a.test_acc - b.test_acc) <= 0.01
+
+
+def _rsu_operands(K, P, R, dev, seed, exact):
+    """(updates, weights, rid, carry); ``exact``: dyadic updates and carry,
+    integer weights, whose sums are exact in any order."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    if exact:
+        u = torch.randint(-64, 65, (K, P), generator=g, device=dev).float() * 2.0 ** -12
+        w = torch.randint(0, 5, (K,), generator=g, device=dev).float()
+        carry = torch.randint(-64, 65, (R, P), generator=g, device=dev).float() * 2.0 ** -10
+    else:
+        u = 1e-3 * torch.randn((K, P), generator=g, device=dev)
+        w = torch.rand((K,), generator=g, device=dev)
+        carry = 1e-3 * torch.randn((R, P), generator=g, device=dev)
+    rid = torch.randint(0, R, (K,), generator=g, device=dev).to(torch.int32)
+    return u, w, rid, carry
+
+
+@pytest.mark.parametrize("carry", [False, True])
+@pytest.mark.parametrize("mode", ["rand", "exact", "same", "hole", "masked", "out_of_range"])
+@pytest.mark.parametrize("K,P,R", [(4, 159_010, 10), (32, 159_010, 10), (1, 1, 1),
+                                   (1, 515, 10), (7, 515, 10), (5, 2049, 1)])
+def test_rsu_reduce_kernel_matches_plain(dev, K, P, R, mode, carry):
+    u, w, rid, c = _rsu_operands(K, P, R, dev, K * 31 + P + R, exact=mode != "rand")
+    if mode == "same":
+        rid[:] = R - 1
+    elif mode == "hole":
+        rid[rid == R // 2] = (R // 2 + 1) % R
+    elif mode == "masked":
+        w[rid == R // 2] = 0.0
+    elif mode == "out_of_range":
+        rid[::2] = R + 3
+        rid[1::3] = -1
+    before = rsu_mod.launches
+    got, mass = rsu_mod.rsu_reduce(u, w, rid, R, carry=c.clone() if carry else None)
+    assert rsu_mod.launches == before + 1
+    want, want_mass = rsu_mod.rsu_reduce_plain(u, w, rid, R, c.clone() if carry else None)
+    if mode == "rand":
+        scale = float(rsu_mod.rsu_reduce_plain(u.abs(), w, rid, R)[0].max())
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6 * scale)
+        torch.testing.assert_close(mass, want_mass, rtol=1e-6, atol=0.0)
+    else:
+        assert torch.equal(got, want) and torch.equal(mass, want_mass)
+    if mode in ("hole", "masked") and R > 1:
+        base = c[R // 2] if carry else torch.zeros(P, device=dev)
+        assert torch.equal(got[R // 2], base) and float(mass[R // 2]) == 0.0
+    # a fixed summation order: a second launch repeats the first bitwise
+    assert torch.equal(got, rsu_mod.rsu_reduce(u, w, rid, R, carry=c.clone() if carry
+                                               else None)[0])
+
+
+@pytest.mark.parametrize("K,B", [(10, 4), (100, 32)])
+def test_rsu_reduce_chunk_walk_is_the_chunkwise_plain_composition(dev, K, B):
+    """The streamed lane's walk (the first chunk without a carry, the rest
+    in place) against zeros + the per-chunk plain sums, bit for bit."""
+    P, R = 159_010, 10
+    u, w, rid, _ = _rsu_operands(K, P, R, dev, K + B, exact=True)
+    carry, acc = None, torch.zeros((R, P), device=dev)
+    for i in range(0, K, B):
+        carry, _ = rsu_mod.rsu_reduce(u[i:i + B], w[i:i + B], rid[i:i + B], R, carry=carry)
+        acc = acc + rsu_mod.rsu_reduce_plain(u[i:i + B], w[i:i + B], rid[i:i + B], R)[0]
+    assert torch.equal(carry, acc)
+
+
+def test_rsu_reduce_non_finite_row_poisons_every_rsu_as_the_plain_version(dev):
+    u, w, rid, _ = _rsu_operands(5, 2049, 4, dev, 3, exact=True)
+    u[2, :7] = float("inf")
+    got, _ = rsu_mod.rsu_reduce(u, w, rid, 4)
+    want, _ = rsu_mod.rsu_reduce_plain(u, w, rid, 4)
+    assert torch.equal(torch.isnan(got), torch.isnan(want))
+    assert bool(torch.isnan(got[:, :7]).any())
+    torch.testing.assert_close(got, want, equal_nan=True)
+
+
+def test_rsu_reduce_wrapper_refuses_what_the_kernel_does_not_take(dev):
+    u, w, rid, c = _rsu_operands(4, 8, 3, dev, 0, exact=False)
+    with pytest.raises(NotImplementedError):
+        rsu_mod.rsu_reduce(u.to(torch.bfloat16), w, rid, 3)
+    with pytest.raises(ValueError):
+        rsu_mod.rsu_reduce(u, w, rid, rsu_mod.MAX_RSU + 1)
+    with pytest.raises(ValueError):
+        rsu_mod.rsu_reduce(u, w, rid.long(), 3)
+    with pytest.raises(ValueError):
+        rsu_mod.rsu_reduce(torch.zeros((8, 4), device=dev).t(), w, rid, 3)
+    with pytest.raises(ValueError):
+        rsu_mod.rsu_reduce(u, w, rid, 3, carry=c[:2])
+
+
+def _two_tier_sims(dev, aggregator, cr, **kw):
+    from repro_torch.config import FLConfig
+    from repro_torch.configs import get_config
+    from repro_torch.fl.simulation import FLSimulation
+
+    fl = FLConfig(num_clients=20, samples_per_client=64, local_epochs=1, num_clusters=3,
+                  select_fraction=0.35, connection_rate=cr, aggregator=aggregator, **kw)
+    traffic = scenario_config("ring", num_vehicles=20)
+    cfg = get_config("fl-mnist-mlp").replace(d_ff=32)
+    return FLSimulation(cfg, fl, traffic, "mnist", "contextual", prng.key(0), device=dev)
+
+
+@pytest.mark.parametrize("aggregator", ["fedavg", "fedavgm", "fedadam", "fedyogi", "stale",
+                                        "fedbuff"])
+def test_hierarchical_lane_is_the_flat_lane_bitwise_on_the_card(dev, aggregator):
+    """Contract (a): every ring RSU is live and the counts are integers."""
+    flat = _two_tier_sims(dev, aggregator, 0.7)
+    hier = _two_tier_sims(dev, aggregator, 0.7, hierarchical=True)
+    for _ in range(3):
+        mf, mh = flat.step(), hier.step()
+        for f in mf._fields:
+            a, b = getattr(mf, f), getattr(mh, f)
+            assert torch.equal(a, b) or bool(torch.isnan(a) & torch.isnan(b)), f
+    for f in ("params", "opt_m", "opt_v", "sketches", "sketch_age", "buf_delta", "buf_mask"):
+        assert torch.equal(getattr(flat.state, f), getattr(hier.state, f)), f
+
+
+@pytest.mark.parametrize("aggregator", ["fedavg", "fedbuff"])
+def test_streamed_lane_on_the_card_launches_one_reduce_per_chunk(dev, aggregator):
+    """K = 7 in chunks of 3: three launches a round; the economics are the
+    unblocked hierarchical lane's, the model within 1e-6."""
+    hier = _two_tier_sims(dev, aggregator, 0.7, hierarchical=True)
+    streamed = _two_tier_sims(dev, aggregator, 0.7, hierarchical=True, client_block=3)
+    for _ in range(3):
+        mh = hier.step()
+        before = rsu_mod.launches
+        mb = streamed.step()
+        assert rsu_mod.launches == before + 3
+        for f in ("n_selected", "n_succeeded", "n_buffered", "n_drained", "duration",
+                  "sim_time"):
+            assert torch.equal(getattr(mh, f), getattr(mb, f)), f
+    torch.testing.assert_close(streamed.state.params, hier.state.params, rtol=0, atol=1e-6)
+
+
+@pytest.mark.parametrize("dup", [False, True])
+@pytest.mark.parametrize("n", [4097, 20_000])
+def test_fleet_geometry_on_the_card_matches_the_dense_forms(dev, n, dup):
+    """The windowed neighbour search gives the dense search's neighbours and
+    distances exactly; the compact fusion the dense fusion's kinematics
+    within rtol 1e-5 (positions ~1e4 m: atol 1e-2), and repeats bitwise."""
+    from repro_torch.core import fusion, messages
+    from repro_torch.core.twin import init_twin_state
+
+    scn = scenario_params(scenario_config("ring", num_vehicles=n), dev)
+    twin = init_twin_state(scn, prng.key(n), dev)
+    if dup:  # a third of the fleet at positions the others already hold
+        twin = twin._replace(pos=torch.cat([twin.pos[: n - n // 3], twin.pos[: n // 3]]))
+    before = messages.dense_rows
+    dist, obj = messages.nearest_windowed(twin.pos, scn.ring_length_m, 8)
+    assert messages.dense_rows > before
+    d_dense, o_dense = messages.nearest_dense(twin.pos, scn.ring_length_m, 8)
+    assert torch.equal(obj, o_dense) and torch.equal(dist, d_dense)
+    key = prng.key(1)
+    cams = messages.emit_cams(twin, scn, key)
+    cpms = messages.emit_cpms(twin, scn, key)
+    compact = fusion.fuse_kinematics(cams, cpms, scn)
+    assert all(torch.equal(a, b) for a, b in zip(compact, fusion.fuse_kinematics(cams, cpms,
+                                                                                   scn)))
+    saved = messages.DENSE_MAX_N
+    messages.DENSE_MAX_N = n
+    try:
+        dense = fusion.fuse_kinematics(cams, cpms, scn)
+    finally:
+        messages.DENSE_MAX_N = saved
+    for a, b, atol in zip(compact, dense, (1e-2, 1e-5, 1e-5, 1e-7)):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=atol)

@@ -118,7 +118,10 @@ def test_unported_lanes_raise():
     from repro_torch.fl.rounds import make_round_step
 
     _, tapi = small_models(32)
-    for kw in (dict(hierarchical=True), dict(compute_dtype="bfloat16")):
+    # the two-tier lane is ported (tests/test_torch_hierarchical.py); its
+    # bf16 form, like the flat one, is not
+    for kw in (dict(hierarchical=True, client_block=4, compute_dtype="bfloat16"),
+               dict(compute_dtype="bfloat16"), dict(param_dtype="bfloat16")):
         fl = FLConfig(**small_fl_kwargs(N, **kw))
         with pytest.raises(NotImplementedError):
             make_round_step(tapi.loss, fl, 2, 1.0, tapi.spec,
