@@ -14,6 +14,10 @@ Phases (any failure raises and exits non-zero):
    bitwise contracts (rule 0 is ``fedavg_reduce`` + the AXPY; no drain is
    the unbuffered update); ``rsu_reduce`` with and without its carry, on
    random, dyadic and special operands, and a chunk walk bit for bit;
+   ``swa_decode`` and ``ssd_scan`` at hymba-1.5b's shapes in bf16 and fp32
+   and at their edges (a ragged tile, one slot, G=1, a partly filled and a
+   wrapped ring, rows with no visible slot, softcap; one step, a ragged last
+   chunk, Q > S, a given h0, mamba2's ds=128 head);
 4. main path: ``FLSimulation`` (ring / contextual / mnist, 100 vehicles,
    fl-mnist-mlp, the paper's section IV-A defaults) for 5 rounds on the card,
    with the kernels' launch counts, and one round replayed from the same
@@ -35,9 +39,18 @@ Phases (any failure raises and exits non-zero):
    and round times, peak memory, launches and the neighbour rows recomputed
    densely; at N=20,000 one round again on the dense neighbour search and
    fusion, which must give the same neighbours and integers;
+4e. serving: ``python -m repro_torch.launch.serve --arch hymba-1.5b --full``'s
+   run (bf16, B=4, prompt 2048, gen 32: the prefill fills a wrapped 1024-slot
+   ring and spans 16 SSD chunks) with set-up, prefill and decode times, peak
+   memory, the sample row and the launch counts (32 ``ssd_scan``, 32 x 31
+   ``swa_decode``); then the same architecture cut to 2 layers, in fp32 and
+   bf16, prefill and 4 decode steps on the card against the CPU's plain path
+   from the same weights; then, at full width and depth in fp32, 2 decode
+   steps against one longer prefill;
 5. times: each kernel (CUDA events, after warm-up) beside its bound, its
-   plain version and a one-call PyTorch yardstick, and the round's wall time
-   (the fedavg, fedadam, fedbuff and streamed lanes).
+   plain version and a one-call PyTorch yardstick, the round's wall time
+   (the fedavg, fedadam, fedbuff and streamed lanes), and profiled rounds,
+   a profiled decode step and prefill.
 
 The last two lines are the kernels' JSON record and the device JSON.
 """
@@ -318,22 +331,240 @@ def check_rsu_walk(K, B, device) -> None:
     print(f"rsu_reduce chunk walk K={K} in chunks of {B}: bitwise the per-chunk plain sums")
 
 
-def kernel_modules():
-    from repro_torch.kernels import fedavg_reduce, rsu_reduce, rttg_latency, server_update
+def swa_operands(B, C, hkv, G, D, dtype, fills, device, seed=0):
+    """q, k, v drawn from ``seed``; row b's ring holds a context of ``fills[b]``
+    tokens (slot p % C keeps the latest p) and its query sits at fills[b] - 1."""
+    from repro_torch.models.layers import ring_positions
 
-    return rttg_latency, fedavg_reduce, server_update, rsu_reduce
+    g = torch.Generator(device=device)
+    g.manual_seed(seed)
+    q = torch.randn((B, hkv, G, D), generator=g, device=device).to(dtype)
+    k = torch.randn((B, C, hkv, D), generator=g, device=device).to(dtype)
+    v = torch.randn((B, C, hkv, D), generator=g, device=device).to(dtype)
+    kv_pos = torch.stack([ring_positions(f, C, device) for f in fills])
+    pos = torch.tensor([f - 1 for f in fills], dtype=torch.int32, device=device)
+    return q, k, v, kv_pos, pos
+
+
+def check_swa(B, C, hkv, G, D, window, softcap, fills, dtype, device, blind=()) -> float:
+    """``swa_decode`` against its plain version within 2e-5 (rtol and atol, on
+    outputs of size ~1: the online softmax and ``fmaf`` dots sum in another
+    order than the plain two-pass softmax); rows in ``blind`` see no slot and
+    must come out exactly 0 (``ref.swa_decode``'s answer)."""
+    from repro_torch.kernels.swa_decode import swa_decode, swa_decode_plain
+
+    q, k, v, kv_pos, pos = swa_operands(B, C, hkv, G, D, dtype, fills, device)
+    for r in blind:
+        kv_pos[r] = -1
+    got = swa_decode(q, k, v, kv_pos, pos, window=window, softcap=softcap)
+    ref = swa_decode_plain(q, k, v, kv_pos, pos, window, softcap)
+    torch.cuda.synchronize()
+    what = (f"swa_decode B={B} C={C} Hkv={hkv} G={G} D={D} window={window} "
+            f"softcap={softcap} fills={fills} {str(dtype)[6:]}")
+    torch.testing.assert_close(got, ref, rtol=2e-5, atol=2e-5, msg=lambda m: f"{what}: {m}")
+    for r in blind:
+        if not torch.equal(got[r], torch.zeros_like(got[r])):
+            raise AssertionError(f"{what}: row {r} sees no slot but is not 0")
+    err = float((got - ref).abs().max())
+    print(f"{what}{' blind rows ' + str(list(blind)) if blind else ''}: "
+          f"max_abs_err={err:.3e} (tol 2e-5)")
+    return err
+
+
+def ssd_operands(B, S, nh, hp, ds, dtype, device, with_h0=False, seed=0):
+    """x, B, C ~ N(0, 1) in ``dtype``; dt = softplus(N(0, 1)); A = -exp(0.3 N(0, 1))."""
+    g = torch.Generator(device=device)
+    g.manual_seed(seed)
+    x = torch.randn((B, S, nh, hp), generator=g, device=device).to(dtype)
+    dt = torch.nn.functional.softplus(torch.randn((B, S, nh), generator=g, device=device))
+    A = -torch.exp(0.3 * torch.randn((nh,), generator=g, device=device))
+    Bs = torch.randn((B, S, ds), generator=g, device=device).to(dtype)
+    Cs = torch.randn((B, S, ds), generator=g, device=device).to(dtype)
+    h0 = torch.randn((B, nh, hp, ds), generator=g, device=device) if with_h0 else None
+    return x, dt, A, Bs, Cs, h0
+
+
+def check_ssd(B, S, nh, hp, ds, chunk, with_h0, dtype, device) -> float:
+    """``ssd_scan`` against its plain version: y and h within 1e-4 of their
+    max |value| (the two cumsums of dt * A round differently, and
+    exp(cs_q - cs_k) carries cs's absolute rounding, an ulp of |cs| <= ~100
+    being ~1e-5, as a relative error)."""
+    from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_plain
+
+    x, dt, A, Bs, Cs, h0 = ssd_operands(B, S, nh, hp, ds, dtype, device, with_h0)
+    got = ssd_scan(x, dt, A, Bs, Cs, chunk, h0)
+    ref = ssd_scan_plain(x, dt, A, Bs, Cs, chunk, h0)
+    torch.cuda.synchronize()
+    what = (f"ssd_scan B={B} S={S} nh={nh} hp={hp} ds={ds} Q={min(chunk, S)} "
+            f"h0={with_h0} {str(dtype)[6:]}")
+    errs = []
+    for name, a, b in zip(("y", "h"), got, ref):
+        scale = float(b.abs().max())
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-4 * scale,
+                                   msg=lambda m: f"{what} {name}: {m}")
+        errs.append(float((a - b).abs().max()) / scale)
+    print(f"{what}: max_abs_err / max|value| y {errs[0]:.3e}, h {errs[1]:.3e} (tol 1e-4)")
+    return max(float((a - b).abs().max()) for a, b in zip(got, ref))
+
+
+def kernel_modules():
+    from repro_torch.kernels import (fedavg_reduce, rsu_reduce, rttg_latency, server_update,
+                                     ssd_scan, swa_decode)
+
+    return rttg_latency, fedavg_reduce, server_update, rsu_reduce, swa_decode, ssd_scan
 
 
 def read_launches() -> dict:
-    rttg, fedavg, su, rsu = kernel_modules()
+    rttg, fedavg, su, rsu, swa, ssd = kernel_modules()
     return {"rttg_latency": rttg.launches, "fedavg_reduce": fedavg.launches,
             "server_update": su.launches, "server_update_buffered": su.buffered_launches,
-            "rsu_reduce": rsu.launches}
+            "rsu_reduce": rsu.launches, "swa_decode": swa.launches, "ssd_scan": ssd.launches}
 
 
 def reset_launches() -> None:
-    rttg, fedavg, su, rsu = kernel_modules()
+    rttg, fedavg, su, rsu, swa, ssd = kernel_modules()
     rttg.launches = fedavg.launches = su.launches = su.buffered_launches = rsu.launches = 0
+    swa.launches = ssd.launches = 0
+
+
+def tree_to(tree, device):
+    if isinstance(tree, dict):
+        return {k: tree_to(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [tree_to(v, device) for v in tree]
+    return tree.to(device)
+
+
+def serve_full(device, card):
+    """The serving CLI's run at full width; launch counts zeroed just before
+    and read just after: 32 ``ssd_scan`` (the prefill) and 32 x 31
+    ``swa_decode`` (the first token comes from the prefill), nothing else."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve as serve_mod
+
+    batch, prompt, gen = 4, 2048, 32
+    cfg = get_config("hymba-1.5b")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    reset_launches()
+    res = serve_mod.serve("hymba-1.5b", batch, prompt, gen, full=True, device=device)
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated() - held
+    n_params = sum(x.numel() for x in _leaves(res.params))
+    print(f"hymba-1.5b {cfg.dtype}, {n_params:,} parameters: set-up (init on the card "
+          f"through the port's threefry, prompts) {res.setup_s:.2f} s; prefill "
+          f"{batch}x{prompt} {res.prefill_s * 1e3:.1f} ms; {gen - 1} decode steps "
+          f"{res.decode_s * 1e3:.1f} ms ({res.decode_s / (gen - 1) * 1e3:.2f} ms a step, "
+          f"{batch * gen / res.decode_s:.1f} tok/s as the CLI counts); peak memory "
+          f"{peak / 2**30:.2f} GiB above the {held / 2**30:.2f} GiB held [{card}]")
+    print(f"sample row: {res.tokens[0][:16].tolist()}")
+    print(f"launches: {launches}")
+    want = dict.fromkeys(launches, 0)
+    want.update(ssd_scan=cfg.num_layers, swa_decode=cfg.num_layers * (gen - 1))
+    if launches != want:
+        raise AssertionError(f"serving launches: expected {want}, got {launches}")
+    if tuple(res.tokens.shape) != (batch, gen) or not (
+            0 <= int(res.tokens.min()) and int(res.tokens.max()) < cfg.padded_vocab):
+        raise AssertionError(f"serving tokens: shape {tuple(res.tokens.shape)}, range "
+                             f"[{int(res.tokens.min())}, {int(res.tokens.max())}]")
+    if not bool(torch.isfinite(res.logits).all()):
+        raise AssertionError("serving: non-finite logits")
+    return res, launches
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    elif isinstance(tree, list):
+        for v in tree:
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+# the serving path on the card against the CPU's plain path: 2 layers at full
+# width.  fp32: both sides compute in fp32 and differ only in summation order
+# (cuBLAS vs the CPU's GEMMs, the kernels' online softmax and step-ordered
+# cumsum), ~1e-5 relative through 2 layers: 5e-4 leaves 10x room on logits of
+# size ~4.  bf16: every activation rounds to 8 significant bits and a GEMM summed
+# in another order flips roundings (one step is 2^-6 at |logits| in [2, 4)):
+# 0.125, eight such steps.
+PATH_TOL = {"float32": 5e-4, "bfloat16": 0.125}
+
+
+def path_vs_plain(dtype: str, device) -> float:
+    from repro_torch.configs import get_config
+    from repro_torch.data.synthetic import make_lm_batch
+    from repro_torch.models import build_model
+    from repro_torch.utils import prng
+
+    cfg = get_config("hymba-1.5b").replace(num_layers=2, dtype=dtype)
+    api = build_model(cfg)
+    key = prng.key(0, device)
+    params = api.init(prng.fold_in_str(key, "init"), device)
+    cpu_params = tree_to(params, "cpu")
+    S, steps, batch = 1100, 4, 2  # past the 1024 window: the ring wraps; 9 SSD chunks
+    toks = make_lm_batch(prng.fold_in_str(key, "prompts"), batch, S + steps + 1,
+                         cfg.vocab_size, device)["tokens"]
+    before = read_launches()
+    with torch.no_grad():
+        lg, cg = api.prefill(params, {"tokens": toks[:, :S]}, S + steps)
+        t0 = time.perf_counter()
+        lc, cc = api.prefill(cpu_params, {"tokens": toks[:, :S].cpu()}, S + steps)
+        cpu_s = time.perf_counter() - t0
+        pairs = [(lg, lc)]
+        for i in range(steps):
+            lg, cg = api.decode_step(params, cg, toks[:, S + i])
+            lc, cc = api.decode_step(cpu_params, cc, toks[:, S + i].cpu())
+            pairs.append((lg, lc))
+    after = read_launches()
+    if (after["ssd_scan"] - before["ssd_scan"], after["swa_decode"] - before["swa_decode"]) \
+            != (cfg.num_layers, cfg.num_layers * steps):
+        raise AssertionError("path vs plain: the card's path missed its kernels")
+    tol = PATH_TOL[dtype]
+    errs, same = [], []
+    for i, (a, b) in enumerate(pairs):
+        a = a.cpu().float()
+        b = b.float()
+        torch.testing.assert_close(a, b, rtol=tol, atol=tol,
+                                   msg=lambda m: f"path vs plain {dtype} step {i}: {m}")
+        errs.append(float((a - b).abs().max()))
+        same.append(bool(torch.equal(a.argmax(-1), b.argmax(-1))))
+    print(f"hymba-1.5b cut to 2 layers, {dtype}, B={batch}, prompt {S} + {steps} decode steps: "
+          f"card vs CPU logits max_abs_err per step {', '.join(f'{e:.3e}' for e in errs)} "
+          f"(tol {tol}, |logits| <= {float(pairs[0][1].float().abs().max()):.2f}); greedy "
+          f"tokens agree: {same}; CPU prefill {cpu_s:.1f} s")
+    return max(errs)
+
+
+def decode_vs_prefill(device) -> float:
+    """tests/test_models.py::test_decode_matches_prefill at full width and depth
+    (fp32, the dtype that test runs): 2 decode steps after a prefill against one
+    prefill of the longer context, atol = rtol = 2e-2 (that test's)."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.synthetic import make_lm_batch
+    from repro_torch.models import build_model
+    from repro_torch.utils import prng
+
+    cfg = get_config("hymba-1.5b").replace(dtype="float32")
+    api = build_model(cfg)
+    params = api.init(prng.key(0, device), device)
+    S = 1030  # past the window, so the ring has wrapped
+    budget = S + 4
+    toks = make_lm_batch(prng.key(3, device), 2, S + 5, cfg.vocab_size, device)["tokens"]
+    with torch.no_grad():
+        _, cache = api.prefill(params, {"tokens": toks[:, :S]}, budget)
+        for i in range(2):
+            ld, cache = api.decode_step(params, cache, toks[:, S + i])
+        lfull, _ = api.prefill(params, {"tokens": toks[:, :S + 2]}, budget)
+    torch.testing.assert_close(ld, lfull, rtol=2e-2, atol=2e-2)
+    err = float((ld - lfull).abs().max())
+    print(f"hymba-1.5b fp32, 32 layers: 2 decode steps after a {S}-token prefill vs one "
+          f"{S + 2}-token prefill: max_abs_err {err:.3e} (tol 2e-2), greedy tokens agree: "
+          f"{bool(torch.equal(ld.argmax(-1), lfull.argmax(-1)))}")
+    return err
 
 
 def check_records(sim, records) -> None:
@@ -408,24 +639,25 @@ def replay(sim, state0, first, traffic, params_atol: float, acc_atol: float = 1e
           f"max |dparams| = {float((s_gpu.params.cpu() - s_cpu.params).abs().max()):.3e}")
 
 
-def profile_round(label, sim, card) -> None:
-    """One round under torch.profiler: wall, device busy time and idle share,
-    and the device kernels by total time."""
+def profile_round(label, fn, card) -> None:
+    """One call of ``fn`` (a round, a decode step, a prefill) under
+    torch.profiler: wall, device busy time and idle share, and the device
+    kernels by total time."""
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        sim.step()
+        fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     dev = [e for e in prof.events()
            if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA]
     if not dev:
-        print(f"profiled round, {label}: the profiler recorded no device activity; "
+        print(f"profiled {label}: the profiler recorded no device activity; "
               "device busy share not measured")
         return
     busy_us = sum(e.time_range.elapsed_us() for e in dev)
-    print(f"profiled round, {label}: wall {wall * 1e3:.1f} ms, {len(dev)} device "
+    print(f"profiled {label}: wall {wall * 1e3:.1f} ms, {len(dev)} device "
           f"kernels/copies, device busy {busy_us / 1e3:.2f} ms, idle share "
           f"{1 - busy_us / 1e6 / wall:.3f} [{card}]")
     by_name = {}
@@ -450,6 +682,127 @@ def assert_rounds_bitwise(a, b, what) -> None:
         if not (torch.equal(x, y) or bool(torch.isnan(x).all() and torch.isnan(y).all())):
             raise AssertionError(f"{what}: metric {f} differs")
     print(f"{what}: every state leaf and metric bitwise")
+
+
+def time_serving_kernels(kernels, lib, stream, serve_launches, main_err, device, card):
+    """``swa_decode`` at hymba-1.5b's decode and ``ssd_scan`` at its prefill
+    (bf16): the C entry point with preallocated outputs, cycling operand copies
+    that exceed the 50 MB L2 (each layer reads its own cache), the plain
+    version, and for ``swa_decode`` one ``scaled_dot_product_attention`` call
+    with the same boolean mask (GQA through ``enable_gqa``)."""
+    from repro_torch.kernels import build as kbuild
+    from repro_torch.kernels.ssd_scan import smem_bytes, ssd_scan_plain
+    from repro_torch.kernels.swa_decode import swa_decode_plain
+
+    F = torch.nn.functional
+    B, C, hkv, G, D, window = 4, 1024, 5, 5, 64, 1024
+    dtype, n_copies = torch.bfloat16, 16
+    sets = [swa_operands(B, C, hkv, G, D, dtype, (2080,) * B, device, seed=i)
+            for i in range(n_copies)]
+    out = torch.empty((B, hkv, G, D), dtype=torch.float32, device=device)
+    sqrt_d = float(torch.sqrt(torch.tensor(D, dtype=torch.float32)))
+    it = {"i": 0}
+
+    def nxt(xs):
+        it["i"] = (it["i"] + 1) % len(xs)
+        return xs[it["i"]]
+
+    def swa_launch():
+        q, k, v, kv_pos, pos = nxt(sets)
+        kbuild.check(lib.swa_decode_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_pos.data_ptr(), pos.data_ptr(),
+            B, C, hkv, G, D, window, 0.0, sqrt_d, 1, out.data_ptr(), stream), "swa_decode")
+
+    def swa_plain():
+        return swa_decode_plain(*nxt(sets), window)
+
+    # the library call's operands: heads-major views of the same cache and the
+    # visibility mask, made once (the mask is an input of the call)
+    lib_sets = []
+    for q, k, v, kv_pos, pos in sets:
+        vis = (kv_pos >= 0) & (kv_pos <= pos[:, None]) & (pos[:, None] - kv_pos < window)
+        lib_sets.append((q.reshape(B, hkv * G, 1, D), k.transpose(1, 2), v.transpose(1, 2),
+                         vis[:, None, None, :]))
+
+    def swa_library():
+        q, k, v, mask = nxt(lib_sets)
+        return F.scaled_dot_product_attention(q, k, v, attn_mask=mask, enable_gqa=True)
+
+    t = {}
+    for _ in range(2):  # the first pass warms up, the second is kept
+        t = {"kernel": time_ms(swa_launch), "plain": time_ms(swa_plain, iters=50, warmup=5),
+             "library": time_ms(swa_library)}
+    q, k, v, kv_pos, pos = sets[0]
+    vis = int(((kv_pos >= 0) & (kv_pos <= pos[:, None]) & (pos[:, None] - kv_pos < window))
+              .sum())
+    isz = k.element_size()
+    swa_bytes = (q.numel() * isz + 2 * k.numel() * isz + kv_pos.numel() * 4 + B * 4
+                 + out.numel() * 4)
+    # per visible slot and query head: a D-long dot and a D-long p * v (4 D
+    # flops) and ~4 for the scale, exp and sums; per query head D divides
+    swa_flops = vis * hkv * G * (4 * D + 4) + B * hkv * G * D
+    b_ms, b_by = bound(swa_bytes, swa_flops)
+    print(f"swa_decode B={B} C={C} Hkv={hkv} G={G} D={D} bf16, full ring: kernel "
+          f"{t['kernel'] * 1e3:.2f} us ({swa_bytes / (t['kernel'] * 1e-3) / 1e9:.0f} GB/s), "
+          f"plain {t['plain'] * 1e3:.2f} us, scaled_dot_product_attention "
+          f"{t['library'] * 1e3:.2f} us, bound {b_ms * 1e3:.2f} us ({b_by}: "
+          f"{swa_bytes / 1e6:.2f} MB, {swa_flops / 1e6:.1f} MFLOP) [{card}]")
+    kernels.append({
+        "name": "swa_decode", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/swa_decode.cu",
+        "replaces": "src/repro/kernels/swa_decode.py:114",
+        "launches": serve_launches["swa_decode"], "max_abs_err": main_err["swa_decode"],
+        "ms": t["kernel"], "plain_ms": t["plain"], "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": t["library"],
+    })
+
+    Bz, S, nh, hp, ds, Q = 4, 2048, 50, 64, 16, 128
+    ssd_sets = [ssd_operands(Bz, S, nh, hp, ds, dtype, device, seed=i) for i in range(2)]
+    y = torch.empty((Bz, S, nh, hp), dtype=torch.float32, device=device)
+    h = torch.empty((Bz, nh, hp, ds), dtype=torch.float32, device=device)
+    smem = smem_bytes(Q, hp, ds)
+
+    def ssd_launch():
+        x, dt, A, Bs, Cs, _ = nxt(ssd_sets)
+        kbuild.check(lib.ssd_scan_launch(
+            x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bs.data_ptr(), Cs.data_ptr(), None,
+            Bz, S, nh, hp, ds, Q, smem, 1, y.data_ptr(), h.data_ptr(), stream), "ssd_scan")
+
+    def ssd_plain():
+        x, dt, A, Bs, Cs, _ = nxt(ssd_sets)
+        return ssd_scan_plain(x, dt, A, Bs, Cs, Q)
+
+    ts = {}
+    for _ in range(2):
+        ts = {"kernel": time_ms(ssd_launch, iters=20, warmup=3),
+              "plain": time_ms(ssd_plain, iters=5, warmup=2)}
+    x, dt, A, Bs, Cs, _ = ssd_sets[0]
+    isz = x.element_size()
+    ssd_bytes = (x.numel() * isz + dt.numel() * 4 + A.numel() * 4 + 2 * Bs.numel() * isz
+                 + y.numel() * 4 + h.numel() * 4)
+    # per chunk of qc steps (t = qc (qc + 1) / 2 pairs k <= q): C . B once per
+    # batch row (t ds multiply-adds); per head the masked product (t hp), the
+    # carried state's share and the state update (qc hp ds each), x * w (qc hp)
+    # and M's scale (3 t)
+    ssd_flops = 0
+    for c0 in range(0, S, Q):
+        qc = min(Q, S - c0)
+        tri = qc * (qc + 1) // 2
+        ssd_flops += Bz * 2 * tri * ds
+        ssd_flops += Bz * nh * (2 * tri * hp + 4 * qc * hp * ds + qc * hp + 3 * tri)
+    b_ms, b_by = bound(ssd_bytes, ssd_flops)
+    print(f"ssd_scan B={Bz} S={S} nh={nh} hp={hp} ds={ds} Q={Q} bf16: kernel "
+          f"{ts['kernel'] * 1e3:.1f} us, plain {ts['plain'] * 1e3:.1f} us, bound "
+          f"{b_ms * 1e3:.2f} us ({b_by}: {ssd_bytes / 1e6:.1f} MB, {ssd_flops / 1e9:.2f} GFLOP; "
+          f"{ssd_flops / (ts['kernel'] * 1e-3) / 1e12:.2f} TFLOP/s achieved) [{card}]")
+    kernels.append({
+        "name": "ssd_scan", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
+        "replaces": "src/repro/kernels/ssd_scan.py:124",
+        "launches": serve_launches["ssd_scan"], "max_abs_err": main_err["ssd_scan"],
+        "ms": ts["kernel"], "plain_ms": ts["plain"], "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": None,
+    })
 
 
 def main() -> int:
@@ -533,6 +886,28 @@ def main() -> int:
               f"max_abs_err={max(errs):.3e}")
     check_rsu_walk(10, 4, device)
     check_rsu_walk(100, 32, device)
+    main_err["swa_decode"] = main_err["ssd_scan"] = 0.0
+    for dtype in (torch.bfloat16, torch.float32):
+        # hymba-1.5b's decode: B=4, a full 1024-slot ring after 2,080 tokens
+        e = check_swa(4, 1024, 5, 5, 64, 1024, 0.0, (2080,) * 4, dtype, device)
+        if dtype == torch.bfloat16:
+            main_err["swa_decode"] = e
+    check_swa(2, 1000, 2, 3, 64, 0, 0.0, (1000, 640), torch.float32, device)  # ragged tile
+    check_swa(3, 1, 2, 4, 32, 0, 0.0, (1, 5, 9), torch.bfloat16, device)  # one slot
+    check_swa(2, 300, 4, 1, 128, 64, 0.0, (300, 77), torch.float32, device)  # G = 1
+    check_swa(3, 1024, 5, 5, 64, 1024, 0.0, (300, 5000, 700), torch.bfloat16, device)
+    check_swa(3, 1024, 5, 5, 64, 1024, 0.0, (2080, 2080, 2080), torch.bfloat16, device,
+              blind=(1,))
+    check_swa(2, 512, 2, 2, 256, 0, 50.0, (400, 5000), torch.float32, device)  # softcap
+    for dtype in (torch.bfloat16, torch.float32):
+        # hymba-1.5b's prefill: B=4, S=2048, 50 heads of (64 x 16), Q=128
+        e = check_ssd(4, 2048, 50, 64, 16, 128, False, dtype, device)
+        if dtype == torch.bfloat16:
+            main_err["ssd_scan"] = e
+    check_ssd(2, 1, 3, 16, 8, 128, False, torch.float32, device)  # one step
+    check_ssd(2, 200, 4, 32, 16, 128, True, torch.bfloat16, device)  # ragged chunk, h0
+    check_ssd(3, 100, 2, 8, 32, 128, False, torch.float32, device)  # Q > S
+    check_ssd(1, 300, 24, 64, 128, 128, True, torch.float32, device)  # mamba2's head
 
     # ---- 4. main path ----------------------------------------------------
     phase("main path: FLSimulation ring / contextual / mnist on cuda")
@@ -754,6 +1129,15 @@ def main() -> int:
               f"neighbours equal, integers equal, max |dpos| = "
               f"{float((kin_w[0] - kin_d[0]).abs().max()):.3e} m")
     fleet_sim = sim_f
+
+    # ---- 4e. serving ---------------------------------------------------------
+    phase("serving: hymba-1.5b at full width, bf16, B=4, prompt 2048, gen 32")
+    served, serve_launches = serve_full(device, card)
+    phase("serving: the path on the card vs the plain path on the CPU")
+    main_err["path"] = {dt: path_vs_plain(dt, device) for dt in ("float32", "bfloat16")}
+    phase("serving: decode vs prefill on the card")
+    decode_vs_prefill(device)
+    torch.cuda.empty_cache()
 
     # ---- 5. times ----------------------------------------------------------
     phase(f"times on {card}")
@@ -1002,6 +1386,8 @@ def main() -> int:
         "library_ms": t["library"],
     })
 
+    time_serving_kernels(kernels, lib, stream, serve_launches, main_err, device, card)
+
     # the rounds: wall time ending in a synchronize, then profiled rounds
     for label, s_ in (("fedavg", sim), ("fedadam", lane_sims["fedadam"]),
                       ("fedbuff", lane_sims["fedbuff"]),
@@ -1019,7 +1405,17 @@ def main() -> int:
     for label, s_ in (("fedavg N=100", sim), ("streamed fedavg N=100",
                                               streamed_sims["ring/fedavg"]),
                       (f"fleet N={fleet_sim.fl.num_clients}", fleet_sim)):
-        profile_round(label, s_, card)
+        profile_round(f"round, {label}", s_.step, card)
+    from repro_torch.configs import get_config as lm_config
+    from repro_torch.models import build_model as lm_build
+
+    lm_api = lm_build(lm_config("hymba-1.5b"))
+    tok = served.tokens[:, -1]
+    with torch.no_grad():
+        profile_round("decode step, hymba-1.5b B=4 (position 2079)",
+                      lambda: lm_api.decode_step(served.params, served.cache, tok), card)
+        profile_round("prefill, hymba-1.5b 4x2048",
+                      lambda: lm_api.prefill(served.params, served.prompts, 2080), card)
 
     print(json.dumps({"kernels": kernels}))
     print(card)

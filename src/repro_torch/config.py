@@ -1,10 +1,10 @@
 """Configuration dataclasses of the port.
 
-Own copies of the JAX package's ``FLConfig`` and ``TrafficConfig`` (field for
-field, same defaults: the paper's section IV-A setting) and of the
-``ModelConfig`` fields the paper's FL models read.  The port imports nothing
-of the JAX package, so these are kept in step with ``repro.config`` by the
-tests, which compare the defaults.
+Own copies of the JAX package's ``ModelConfig``, ``FLConfig`` and
+``TrafficConfig`` (field for field, same defaults: the paper's section IV-A
+setting for the last two).  The port imports nothing of the JAX package, so
+these are kept in step with ``repro.config`` by the tests, which compare the
+fields and defaults.
 """
 from __future__ import annotations
 
@@ -13,17 +13,108 @@ from dataclasses import dataclass
 from typing import Tuple
 
 
+def _round_up(x: int, m: int) -> int:
+    return ((x + m - 1) // m) * m
+
+
 @dataclass(frozen=True)
 class ModelConfig:
-    """The fields of ``repro.config.ModelConfig`` an FL image model reads."""
+    """Architecture description (``repro.config.ModelConfig``), every field.
+
+    The FL image models and the LM zoo share it, as in the reference; the
+    fields a family does not read keep their defaults.
+    """
 
     name: str
-    family: str  # mlp | cnn
+    family: str  # dense | moe | ssm | hybrid | encdec | vlm | cnn | mlp
+    num_layers: int
+    d_model: int
+    num_heads: int
+    num_kv_heads: int
     d_ff: int
+    vocab_size: int
+    head_dim: int = 0  # 0 -> d_model // num_heads
+
+    # --- MoE ---
+    num_experts: int = 0
+    experts_per_token: int = 0
+    router_aux_loss: float = 0.01
+
+    # --- SSM (mamba2 / SSD) ---
+    ssm_state: int = 0
+    ssm_head_dim: int = 64
+    ssm_expand: int = 2
+    ssm_chunk: int = 128
+    ssm_conv_width: int = 4
+
+    # --- attention flavour ---
+    rope_theta: float = 10_000.0
+    rope_style: str = "full"  # full | 2d | none
+    sliding_window: int = 0  # 0 => full attention
+    layer_pattern: Tuple[str, ...] = ()
+    attn_logit_softcap: float = 0.0
+    final_logit_softcap: float = 0.0
+    qkv_bias: bool = False
+    max_position_embeddings: int = 131_072
+    kv_repeat: int = 1
+    embed_scale: bool = False
+    zero_centered_norm: bool = False
+    attn_block_q: int = 512
+
+    # --- encoder-decoder (whisper) ---
+    encoder_layers: int = 0
+    encoder_seq: int = 0
+
+    # --- VLM (internvl2) ---
+    num_image_tokens: int = 0
+
+    # --- hybrid (hymba) ---
+    hybrid_parallel: bool = False
+
+    # --- CNN/MLP (the paper's own FL models) ---
     image_shape: Tuple[int, int, int] = (0, 0, 0)
     num_classes: int = 0
     channels: Tuple[int, ...] = ()
-    dtype: str = "float32"
+
+    # --- numerics / misc ---
+    norm_eps: float = 1e-5
+    tie_embeddings: bool = False
+    dtype: str = "bfloat16"
+    vocab_pad_multiple: int = 256
+    remat_policy: str = "minimal"  # kept for the configs; no remat in the port
+    scan_layers: bool = True
+    loss_chunk: int = 512
+    train_microbatches: int = 1
+    serve_fsdp: bool = False
+    sharding_profile: str = "tp"
+    variant: str = ""
+    source: str = ""  # citation for the assigned config
+
+    @property
+    def resolved_head_dim(self) -> int:
+        return self.head_dim or (self.d_model // max(self.num_heads, 1))
+
+    @property
+    def padded_vocab(self) -> int:
+        return _round_up(self.vocab_size, self.vocab_pad_multiple)
+
+    @property
+    def q_per_kv(self) -> int:
+        return self.num_heads // max(self.num_kv_heads, 1)
+
+    @property
+    def ssm_d_inner(self) -> int:
+        return self.ssm_expand * self.d_model
+
+    @property
+    def ssm_num_heads(self) -> int:
+        return self.ssm_d_inner // self.ssm_head_dim
+
+    def layer_kind(self, i: int) -> str:
+        """Attention flavour of layer ``i`` ('full', 'local', 'global')."""
+        if not self.layer_pattern:
+            return "local" if self.sliding_window else "full"
+        return self.layer_pattern[i % len(self.layer_pattern)]
 
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)

@@ -1,7 +1,9 @@
 """Carry weights and round state across from the JAX package, through numpy.
 
-The JAX package's parameters come as a tree of numpy leaves (nested dicts,
-``{"convs": [], "fc1": {"b", "w"}, "fc2": {"b", "w"}}`` for the MLP) or as
+The JAX package's parameters come as a tree of numpy leaves (nested dicts
+and lists: ``{"convs": [], "fc1": {"b", "w"}, "fc2": {"b", "w"}}`` for the
+MLP, a ``blocks`` list of dicts for the LM zoo, bf16 leaves as
+``ml_dtypes.bfloat16`` arrays), an LM decode cache likewise, or as
 the flat ``(P,)`` vector of its ``flatten_to_vector``; a whole
 ``RoundState`` / ``RoundData`` comes as a dict of numpy arrays keyed by the
 NamedTuple's field names, with ``twin`` a nested dict and ``key`` the two
@@ -28,18 +30,42 @@ def _tensor(x, device) -> torch.Tensor:
     return torch.from_numpy(np.array(x, copy=True, order="C")).to(device)
 
 
-def params_tree_from_numpy(tree, device="cpu") -> dict:
-    """A numpy parameter tree -> the port's dict of tensors (empty lists dropped)."""
-    out = {}
-    for name, value in tree.items():
-        if isinstance(value, dict):
-            out[name] = params_tree_from_numpy(value, device)
-        elif isinstance(value, (list, tuple)):
-            if value:
-                raise NotImplementedError("conv stacks are not ported yet (see ROADMAP.md)")
-        else:
-            out[name] = _tensor(np.asarray(value, np.float32), device)
-    return out
+def _leaf(x, device) -> torch.Tensor:
+    """A numpy leaf -> a tensor of the same dtype.  A bf16 leaf (an
+    ``ml_dtypes.bfloat16`` array) goes through float32, which is exact."""
+    a = np.asarray(x)
+    if a.dtype.name == "bfloat16":
+        return _tensor(a.astype(np.float32), device).to(torch.bfloat16)
+    return _tensor(a, device)
+
+
+def params_tree_from_numpy(tree, device="cpu"):
+    """A numpy parameter tree (dicts and lists, e.g. the LM zoo's ``blocks``)
+    -> the same structure of tensors, each leaf keeping its dtype; empty
+    lists (the MLP's ``convs``) are dropped."""
+    if isinstance(tree, dict):
+        return {name: params_tree_from_numpy(value, device) for name, value in tree.items()
+                if not (isinstance(value, (list, tuple)) and not value)}
+    if isinstance(tree, (list, tuple)):
+        return [params_tree_from_numpy(value, device) for value in tree]
+    return _leaf(tree, device)
+
+
+def lm_cache_from_numpy(cache, device="cpu") -> dict:
+    """A JAX LM decode cache as numpy -> the port's: the top-level ``pos``
+    (B,) and per pattern sub-layer ``attn`` {k, v, pos} and ``ssm`` {h, conv},
+    stacked over the layer axis; dtypes kept (positions int32)."""
+    return params_tree_from_numpy(cache, device)
+
+
+def tree_to_numpy(tree):
+    """The port's tensors (dicts and lists) -> numpy; bf16 leaves as float32."""
+    if isinstance(tree, dict):
+        return {name: tree_to_numpy(value) for name, value in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [tree_to_numpy(value) for value in tree]
+    t = tree.detach().cpu()
+    return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
 
 
 def params_from_numpy(params, device="cpu") -> torch.Tensor:

@@ -1,0 +1,130 @@
+"""Mamba2 SSD chunked scan: CUDA kernel and its plain version.
+
+Port of ``repro/kernels/ssd_scan.py`` (Pallas ``_ssd_chunk_kernel``), the
+prefill's state-space scan: xh ``(B, S, nh, hp)``, dt ``(B, S, nh)`` fp32
+(after softplus), A ``(nh,)`` negative, Bs / Cs ``(B, S, ds)`` (one group
+shared by the heads) and an optional initial state h0 ``(B, nh, hp, ds)``
+fp32.  The sequence runs in chunks of ``Q = min(chunk, S)`` steps; within a
+chunk, with ``cs = cumsum(dt * A)``,
+
+    y[q]  = sum_{k <= q} (C_q . B_k) exp(cs_q - cs_k) dt_k x_k + exp(cs_q) C_q . h
+    h'    = exp(cs_Q) h + sum_k exp(cs_Q - cs_k) dt_k x_k (x) B_k
+
+-> y ``(B, S, nh, hp)`` fp32 and the final state ``(B, nh, hp, ds)`` fp32.
+CUDA tensors launch ``csrc/ssd_scan.cu``; CPU tensors run
+``ssd_scan_plain``.  There is no fallback from one to the other.
+"""
+from __future__ import annotations
+
+import torch
+
+# Kernel launches made by ``ssd_scan`` (one per call on CUDA tensors).
+launches = 0
+
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def smem_bytes(Q: int, hp: int, ds: int) -> int:
+    """Shared memory of one block: the (hp, ds) state, B and C of a chunk,
+    the (Q, Q) chunk matrix and three (Q,) rows, all fp32."""
+    return 4 * (hp * ds + 2 * ds * Q + Q * Q + 3 * Q)
+
+
+def ssd_scan_plain(xh, dt, A, Bs, Cs, chunk: int, h0=None):
+    """The chunked scan of ``repro/models/ssm.py::ssd_scan`` in torch, with y
+    left in fp32 (the kernel's output; the model rounds it at the call site)."""
+    Bsz, S, nh, hp = xh.shape
+    ds = Bs.shape[-1]
+    Q = min(chunk, S)
+    pad = (-S) % Q
+    dt = dt.to(torch.float32)
+    if pad:
+        xh = torch.nn.functional.pad(xh, (0, 0, 0, 0, 0, pad))
+        dt = torch.nn.functional.pad(dt, (0, 0, 0, pad))
+        Bs = torch.nn.functional.pad(Bs, (0, 0, 0, pad))
+        Cs = torch.nn.functional.pad(Cs, (0, 0, 0, pad))
+    nc = (S + pad) // Q
+    h = (torch.zeros((Bsz, nh, hp, ds), dtype=torch.float32, device=xh.device)
+         if h0 is None else h0.to(torch.float32))
+    tri = torch.tril(torch.ones((Q, Q), dtype=torch.bool, device=xh.device))
+    ys = []
+    for c in range(nc):
+        sl = slice(c * Q, (c + 1) * Q)
+        x_c = xh[:, sl].to(torch.float32)  # (B, Q, nh, hp)
+        dt_c = dt[:, sl]  # (B, Q, nh)
+        B_c = Bs[:, sl].to(torch.float32)  # (B, Q, ds)
+        C_c = Cs[:, sl].to(torch.float32)
+        cs = torch.cumsum(dt_c * A, dim=1)  # inclusive
+        G = torch.einsum("bqn,bkn->bqk", C_c, B_c)
+        decay = torch.exp(cs[:, :, None, :] - cs[:, None, :, :])  # (B, Q, Q, nh)
+        M = G[..., None] * decay * dt_c[:, None, :, :]
+        M = torch.where(tri[None, :, :, None], M, torch.zeros((), device=M.device))
+        y = torch.einsum("bqkh,bkhp->bqhp", M, x_c)
+        y = y + torch.einsum("bqn,bhpn->bqhp", C_c, h) * torch.exp(cs)[..., None]
+        sdecay = torch.exp(cs[:, -1:, :] - cs) * dt_c  # (B, Q, nh)
+        Sc = torch.einsum("bkn,bkhp->bhpn", B_c, x_c * sdecay[..., None])
+        h = torch.exp(cs[:, -1, :])[:, :, None, None] * h + Sc
+        ys.append(y)
+    y = torch.cat(ys, dim=1)[:, :S]
+    return y, h
+
+
+def _check(name, x, shape, dtype, device):
+    if x.device != device or x.dtype != dtype or tuple(x.shape) != shape \
+            or not x.is_contiguous():
+        raise ValueError(f"ssd_scan: {name} must be a contiguous {shape} {dtype} tensor "
+                         f"on {device}, got {tuple(x.shape)} {x.dtype} on {x.device}")
+
+
+def _ssd_scan_cuda(xh, dt, A, Bs, Cs, chunk, h0):
+    from repro_torch.kernels.build import check, library
+
+    global launches
+    if xh.dtype not in _DTYPE_CODES:
+        raise NotImplementedError(f"ssd_scan: the kernel takes float32 or bfloat16, "
+                                  f"got {xh.dtype}")
+    if xh.dim() != 4:
+        raise ValueError(f"ssd_scan: xh must be (B, S, nh, hp), got {tuple(xh.shape)}")
+    Bsz, S, nh, hp = xh.shape
+    ds = Bs.shape[-1]
+    if S < 1 or chunk < 1 or Bsz * nh < 1:
+        raise ValueError(f"ssd_scan: needs S >= 1 and chunk >= 1, got S={S} chunk={chunk}")
+    device = xh.device
+    _check("xh", xh, (Bsz, S, nh, hp), xh.dtype, device)
+    _check("dt", dt, (Bsz, S, nh), torch.float32, device)
+    _check("A", A, (nh,), torch.float32, device)
+    _check("Bs", Bs, (Bsz, S, ds), xh.dtype, device)
+    _check("Cs", Cs, (Bsz, S, ds), xh.dtype, device)
+    if h0 is not None:
+        _check("h0", h0, (Bsz, nh, hp, ds), torch.float32, device)
+    Q = min(chunk, S)
+    need = smem_bytes(Q, hp, ds)
+    limit = torch.cuda.get_device_properties(device).shared_memory_per_block_optin
+    if need > limit:
+        raise ValueError(f"ssd_scan: a block needs {need} bytes of shared memory at "
+                         f"Q={Q} hp={hp} ds={ds}, the card gives {limit}")
+    y = torch.empty((Bsz, S, nh, hp), dtype=torch.float32, device=device)
+    h = torch.empty((Bsz, nh, hp, ds), dtype=torch.float32, device=device)
+    stream = torch.cuda.current_stream(device).cuda_stream
+    status = library().ssd_scan_launch(
+        xh.data_ptr(), dt.data_ptr(), A.data_ptr(), Bs.data_ptr(), Cs.data_ptr(),
+        None if h0 is None else h0.data_ptr(), Bsz, S, nh, hp, ds, Q, need,
+        _DTYPE_CODES[xh.dtype], y.data_ptr(), h.data_ptr(), stream,
+    )
+    check(status, "ssd_scan")
+    launches += 1
+    return y, h
+
+
+def ssd_scan(xh: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bs: torch.Tensor,
+             Cs: torch.Tensor, chunk: int = 128, h0=None):
+    """Chunked SSD -> (y (B, S, nh, hp) fp32, final state (B, nh, hp, ds) fp32).
+
+    On the card xh, Bs and Cs share one dtype (float32 or bfloat16); dt, A
+    and h0 are float32.
+    """
+    if xh.is_cuda:
+        return _ssd_scan_cuda(xh, dt, A, Bs, Cs, chunk, h0)
+    if xh.device.type != "cpu":
+        raise ValueError(f"ssd_scan: unsupported device {xh.device}")
+    return ssd_scan_plain(xh, dt, A, Bs, Cs, chunk, h0)

@@ -1,4 +1,9 @@
-"""The port's FL task models: the MLP family so far (``repro.models``)."""
+"""The port's models: the FL task MLP and the LM zoo's hybrid family.
+
+``build_model(cfg)`` gives the FL ``ModelApi`` for ``mlp`` and hands the LM
+families to ``models.zoo.build_lm``, which runs ``hybrid`` (hymba) and
+refuses the rest.
+"""
 from __future__ import annotations
 
 from typing import Callable, NamedTuple
@@ -14,10 +19,14 @@ class ModelApi(NamedTuple):
     spec: list  # flat-layout (path, shape) spec of the parameters
 
 
-def build_model(cfg: ModelConfig) -> ModelApi:
-    if cfg.family != "mlp":
-        raise NotImplementedError(
-            f"model family {cfg.family!r} is not ported yet (see ROADMAP.md)"
-        )
-    return ModelApi(cfg, init=lambda key, device: _mlp.init_mlp(key, cfg, device),
-                    loss=_mlp.mlp_loss, spec=_mlp.param_spec(cfg))
+def build_model(cfg: ModelConfig):
+    if cfg.family in ("mlp", "cnn"):
+        if cfg.family != "mlp":
+            raise NotImplementedError(
+                f"model family {cfg.family!r} is not ported yet (see ROADMAP.md)"
+            )
+        return ModelApi(cfg, init=lambda key, device: _mlp.init_mlp(key, cfg, device),
+                        loss=_mlp.mlp_loss, spec=_mlp.param_spec(cfg))
+    from repro_torch.models.zoo import build_lm
+
+    return build_lm(cfg)

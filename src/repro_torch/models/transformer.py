@@ -1,0 +1,293 @@
+"""Decoder-only LM engine of the port (``repro.models.transformer``), the
+``hybrid`` family (hymba):
+
+  hybrid : ln -> (GQA attn || mamba2) averaged -> res -> ln -> SwiGLU -> res
+
+Layers are stacked with a leading ``layers`` axis per pattern sub-layer, as
+in the reference; a Python loop over that axis takes the place of
+``lax.scan``.  Prefill attention is ``layers.blocked_attention`` in plain
+torch; every decode step's attention goes through ``kernels.swa_decode``
+and every prefill's SSM scan through ``kernels.ssd_scan`` (hand-written CUDA
+on the card, their plain versions on the CPU).  The reference's ``act_shard``
+annotations and remat policies have no counterpart on one card and are
+dropped.  ``lm_decode_step`` updates the cache it is given in place and
+returns it.  The other families (dense, moe, ssm, encdec, vlm) raise
+``NotImplementedError``.
+"""
+from __future__ import annotations
+
+import math
+from typing import Any
+
+import torch
+
+from repro_torch.kernels import swa_decode as _swa
+from repro_torch.models import layers as L
+from repro_torch.models.ssm import init_ssm, init_ssm_state, ssm_forward
+from repro_torch.utils import prng
+
+PORTED_FAMILIES = ("hybrid",)
+
+
+def check_family(cfg) -> None:
+    if cfg.family not in PORTED_FAMILIES:
+        raise NotImplementedError(
+            f"LM family {cfg.family!r} ({cfg.name}) is not ported yet (see ROADMAP.md); "
+            f"ported: {', '.join(PORTED_FAMILIES)}")
+
+
+def torch_dtype(cfg) -> torch.dtype:
+    return {"float32": torch.float32, "bfloat16": torch.bfloat16}[cfg.dtype]
+
+
+# ---------------------------------------------------------------------------
+# pattern helpers
+# ---------------------------------------------------------------------------
+
+
+def pattern_period(cfg) -> int:
+    return max(len(cfg.layer_pattern), 1)
+
+
+def pattern_kinds(cfg) -> tuple:
+    return tuple(cfg.layer_kind(i) for i in range(pattern_period(cfg)))
+
+
+def kind_window(cfg, kind: str, long_ctx_cap: int = 0) -> int:
+    """Static attention window for a sub-layer kind (0 = unlimited)."""
+    if kind == "full":
+        return 0
+    if kind == "global":
+        return long_ctx_cap
+    return cfg.sliding_window
+
+
+def cache_len_for(cfg, kind: str, seq_len: int) -> int:
+    w = kind_window(cfg, kind, long_ctx_cap=0)
+    if kind == "global" and cfg.variant == "swa-capped":
+        w = 32_768
+    return min(seq_len, w) if w else seq_len
+
+
+# ---------------------------------------------------------------------------
+# init
+# ---------------------------------------------------------------------------
+
+
+def init_lm(key, cfg, device=None) -> dict:
+    """Parameter tree (dict of tensors) of a hybrid LM, drawn as the reference's."""
+    check_family(cfg)
+    p = pattern_period(cfg)
+    if cfg.num_layers % p:
+        raise ValueError(f"{cfg.name}: num_layers {cfg.num_layers} % pattern {p} != 0")
+    Lp = cfg.num_layers // p
+    dtype = torch_dtype(cfg)
+    device = key.device if device is None else torch.device(device)
+    keys = prng.split(key, 3 + p)
+    d = cfg.d_model
+    params: dict[str, Any] = {
+        "embed": L.init_embedding(keys[0], cfg.padded_vocab, d, dtype, device),
+        "final_norm": L.ones_init((d,), dtype, device),
+        "blocks": [],
+    }
+    if not cfg.tie_embeddings:
+        params["lm_head"] = L.dense_init(keys[1], (d, cfg.padded_vocab), d, dtype,
+                                         device=device)
+    for i in range(p):
+        bk = prng.split(keys[3 + i], 4)
+        params["blocks"].append({
+            "ln1": L.ones_init((Lp, d), dtype, device),
+            "attn": L.init_attention(bk[0], cfg, Lp, dtype, device),
+            "ssm": init_ssm(bk[1], cfg, Lp, dtype, device),
+            "attn_out_norm": L.ones_init((Lp, d), dtype, device),
+            "ssm_out_norm": L.ones_init((Lp, d), dtype, device),
+            "mlp": L.init_swiglu(bk[2], d, cfg.d_ff, Lp, dtype, device),
+            "ln2": L.ones_init((Lp, d), dtype, device),
+        })
+    return params
+
+
+# ---------------------------------------------------------------------------
+# caches
+# ---------------------------------------------------------------------------
+
+
+def init_lm_cache(cfg, batch: int, seq_len: int, prefilled: int = 0, device=None) -> dict:
+    """Decode-state tree; ``prefilled`` marks positions [0, prefilled) as
+    already written (slot p % C holds the latest such position)."""
+    check_family(cfg)
+    p = pattern_period(cfg)
+    kinds = pattern_kinds(cfg)
+    Lp = cfg.num_layers // p
+    dtype = torch_dtype(cfg)
+    kv_eff = cfg.num_kv_heads * cfg.kv_repeat
+    hd = cfg.resolved_head_dim
+    layers_cache = []
+    for i in range(p):
+        C = cache_len_for(cfg, kinds[i], seq_len)
+        k = torch.zeros((Lp, batch, C, kv_eff, hd), dtype=dtype, device=device)
+        pos = torch.full((Lp, batch, C), -1, dtype=torch.int32, device=device)
+        if prefilled:
+            pos = L.ring_positions(prefilled, C, device)[None, None, :].expand(
+                Lp, batch, C).contiguous()
+        st = init_ssm_state(batch, cfg, dtype, device)
+        layers_cache.append({
+            "attn": {"k": k, "v": torch.zeros_like(k), "pos": pos},
+            "ssm": {n: a[None].expand((Lp,) + a.shape).contiguous() for n, a in st.items()},
+        })
+    return {"pos": torch.full((batch,), prefilled, dtype=torch.int32, device=device),
+            "layers": layers_cache}
+
+
+# ---------------------------------------------------------------------------
+# block application
+# ---------------------------------------------------------------------------
+
+
+def _attn_seq(cfg, bp, x, positions, inv_freq, window: int, cache_len: int):
+    """Sequence-mode attention; returns (out, cache_entry)."""
+    q, k, v = L.project_qkv(bp, x, cfg.kv_repeat)
+    q = L.apply_rope(q, positions, inv_freq, cfg.rope_style)
+    k = L.apply_rope(k, positions, inv_freq, cfg.rope_style)
+    out = L.blocked_attention(q, k, v, positions, positions, causal=True, window=window,
+                              cap=cfg.attn_logit_softcap, block_q=cfg.attn_block_q)
+    out = L.attn_output(bp, out)
+    B, S = x.shape[0], x.shape[1]
+    C = cache_len
+    # a ring buffer of C slots holding the last min(C, S) positions (slot = pos % C)
+    T = min(C, S)
+    ptail = positions[..., S - T:].expand(B, T)
+    slots = ptail[0] % C
+    shape = (B, C) + tuple(k.shape[2:])
+    ck = torch.zeros(shape, dtype=k.dtype, device=k.device)
+    cv = torch.zeros(shape, dtype=v.dtype, device=v.device)
+    cp = torch.full((B, C), -1, dtype=torch.int32, device=k.device)
+    ck[:, slots] = k[:, S - T:]
+    cv[:, slots] = v[:, S - T:]
+    cp[:, slots] = ptail.to(torch.int32)
+    return out, {"k": ck, "v": cv, "pos": cp}
+
+
+def _attn_decode(cfg, bp, x, pos, inv_freq, window: int, cache):
+    """Single-token attention against a ring-buffer cache (updated in place),
+    through ``kernels.swa_decode``."""
+    q, k, v = L.project_qkv(bp, x, cfg.kv_repeat)
+    q = L.apply_rope(q, pos[:, None], inv_freq, cfg.rope_style)
+    k = L.apply_rope(k, pos[:, None], inv_freq, cfg.rope_style)
+    ck, cv, cp = L.cache_write(cache["k"], cache["v"], cache["pos"], k, v, pos)
+    B, _, H, D = q.shape
+    hkv = ck.shape[2]
+    # query head hkv_i * G + g attends kv head hkv_i (layers.blocked_attention's grouping)
+    qg = q.reshape(B, hkv, H // hkv, D)
+    out = _swa.swa_decode(qg, ck, cv, cp, pos.to(torch.int32), window=window,
+                          softcap=cfg.attn_logit_softcap)
+    out = out.to(q.dtype).reshape(B, 1, H, D)
+    return L.attn_output(bp, out), {"k": ck, "v": cv, "pos": cp}
+
+
+def apply_block(cfg, kind: str, bp, x, positions, inv_freq, mode: str, cache=None,
+                seq_len_hint: int = 0):
+    """One hybrid sub-layer.  Returns (x, new_cache_entry)."""
+    window = kind_window(cfg, kind, long_ctx_cap=32_768 if cfg.variant == "swa-capped" else 0)
+    h = L.rms_norm(x, bp["ln1"], cfg.norm_eps, cfg.zero_centered_norm)
+    if mode == "decode":
+        a, ac = _attn_decode(cfg, bp["attn"], h, positions, inv_freq, window, cache["attn"])
+    else:
+        C = cache_len_for(cfg, kind, seq_len_hint or h.shape[1])
+        a, ac = _attn_seq(cfg, bp["attn"], h, positions, inv_freq, window, C)
+    s, st = ssm_forward(bp["ssm"], h, cfg, state=cache["ssm"] if mode == "decode" else None,
+                        decode=mode == "decode")
+    a = L.rms_norm(a, bp["attn_out_norm"], cfg.norm_eps)
+    s = L.rms_norm(s, bp["ssm_out_norm"], cfg.norm_eps)
+    x = x + 0.5 * (a + s)  # in the model dtype, as the reference rounds it
+    h2 = L.rms_norm(x, bp["ln2"], cfg.norm_eps, cfg.zero_centered_norm)
+    x = x + L.swiglu(bp["mlp"], h2)
+    return x, {"attn": ac, "ssm": st}
+
+
+# ---------------------------------------------------------------------------
+# full forward passes
+# ---------------------------------------------------------------------------
+
+
+def _layer_slice(tree, i: int):
+    if isinstance(tree, dict):
+        return {k: _layer_slice(v, i) for k, v in tree.items()}
+    return tree[i]
+
+
+def _embed_tokens(params, cfg, tokens):
+    x = params["embed"][tokens.long()].to(torch_dtype(cfg))
+    if cfg.embed_scale:
+        x = x * math.sqrt(cfg.d_model)
+    return x
+
+
+def _logits(params, cfg, x):
+    x = L.rms_norm(x, params["final_norm"], cfg.norm_eps, cfg.zero_centered_norm)
+    head = params["embed"].t() if cfg.tie_embeddings else params["lm_head"]
+    return torch.einsum("bsd,dv->bsv", x, head.to(x.dtype))
+
+
+def forward_seq(params, cfg, x, positions, max_seq=None):
+    """All layers in sequence (prefill) mode -> (x, caches): caches[i] stacks
+    sub-layer i's entries over the layer axis, as the reference's scan does."""
+    check_family(cfg)
+    p = pattern_period(cfg)
+    kinds = pattern_kinds(cfg)
+    inv_freq = L.rope_frequencies(cfg.resolved_head_dim, cfg.rope_style, cfg.rope_theta,
+                                  x.device)
+    S = max_seq or x.shape[1]
+    Lp = cfg.num_layers // p
+    per_layer = [[] for _ in range(p)]
+    for li in range(Lp):
+        for i in range(p):
+            x, nc = apply_block(cfg, kinds[i], _layer_slice(params["blocks"][i], li), x,
+                                positions, inv_freq, "prefill", seq_len_hint=S)
+            per_layer[i].append(nc)
+    return x, [_stack(entries) for entries in per_layer]
+
+
+def _stack(entries):
+    first = entries[0]
+    if isinstance(first, dict):
+        return {k: _stack([e[k] for e in entries]) for k in first}
+    return torch.stack(entries)
+
+
+def lm_prefill(params, cfg, batch, max_seq=None):
+    """Full-context forward -> (last-token logits (B, V), decode cache).
+
+    ``max_seq`` sizes the decode KV budget (>= prompt length); default S.
+    """
+    x = _embed_tokens(params, cfg, batch["tokens"])
+    B, S, _ = x.shape
+    positions = torch.arange(S, device=x.device)[None, :].expand(B, S)
+    x, caches = forward_seq(params, cfg, x, positions, max_seq=max_seq or S)
+    logits = _logits(params, cfg, x[:, -1:, :])[:, 0]
+    return logits, {"pos": torch.full((B,), S, dtype=torch.int32, device=x.device),
+                    "layers": caches}
+
+
+def lm_decode_step(params, cfg, cache, tokens):
+    """One decode step: tokens (B,) -> (logits (B, V), cache).  The stacked
+    caches are updated in place, layer by layer, and returned."""
+    check_family(cfg)
+    p = pattern_period(cfg)
+    kinds = pattern_kinds(cfg)
+    pos = cache["pos"]
+    x = _embed_tokens(params, cfg, tokens[:, None])
+    inv_freq = L.rope_frequencies(cfg.resolved_head_dim, cfg.rope_style, cfg.rope_theta,
+                                  x.device)
+    Lp = cfg.num_layers // p
+    for li in range(Lp):
+        for i in range(p):
+            lc = _layer_slice(cache["layers"][i], li)
+            x, nc = apply_block(cfg, kinds[i], _layer_slice(params["blocks"][i], li), x,
+                                pos, inv_freq, "decode", cache=lc)
+            # the attention entry was written in place; the SSM state is new
+            for name, new in nc["ssm"].items():
+                cache["layers"][i]["ssm"][name][li] = new.to(lc["ssm"][name].dtype)
+    logits = _logits(params, cfg, x)[:, 0]
+    cache["pos"] = pos + 1
+    return logits, cache

@@ -1,0 +1,38 @@
+"""The LM zoo's uniform API (``repro.models.zoo``), for the ported families.
+
+``build_lm(cfg)`` returns an ``LMApi`` with
+
+  init(key, device)                     -> parameter tree
+  prefill(params, batch, max_seq=None)  -> (last-token logits, cache)
+  decode_step(params, cache, tokens)    -> (logits, cache)   [cache updated in place]
+  init_cache(batch, seq_len, prefilled=0, device=None) -> cache tree
+
+Only the ``hybrid`` family (hymba) is ported; the others raise
+``NotImplementedError`` naming ROADMAP.md.
+"""
+from __future__ import annotations
+
+from typing import Callable, NamedTuple
+
+from repro_torch.config import ModelConfig
+from repro_torch.models import transformer as _tf
+
+
+class LMApi(NamedTuple):
+    cfg: ModelConfig
+    init: Callable
+    prefill: Callable
+    decode_step: Callable
+    init_cache: Callable
+
+
+def build_lm(cfg: ModelConfig) -> LMApi:
+    _tf.check_family(cfg)
+    return LMApi(
+        cfg,
+        init=lambda key, device=None: _tf.init_lm(key, cfg, device),
+        prefill=lambda p, b, max_seq=None: _tf.lm_prefill(p, cfg, b, max_seq),
+        decode_step=lambda p, c, t: _tf.lm_decode_step(p, cfg, c, t),
+        init_cache=lambda batch, seq, prefilled=0, device=None: _tf.init_lm_cache(
+            cfg, batch, seq, prefilled, device),
+    )

@@ -6,7 +6,8 @@ whole round of the port against the JAX round from the same state, and the
 draws happen inside the round.  So this module implements JAX's default
 generator, ``threefry2x32`` with ``jax_threefry_partitionable=True``, and the
 samplers built on it (``uniform``, ``normal``, ``truncated_normal``,
-``bernoulli``, ``randint``, ``permutation``) with the same bit recipes.
+``bernoulli``, ``randint``, ``permutation``, ``categorical``) with the same
+bit recipes.
 
 A key is an int64 tensor of shape ``(..., 2)`` holding the two uint32 words
 of a JAX key; leading dimensions batch keys the way ``vmap`` batches them in
@@ -16,7 +17,8 @@ Samplers draw on ``device`` (default: the key's device) and return shape
 ``key.shape[:-1] + shape``.
 
 Integers and booleans (bits, ``randint``, ``bernoulli``, ``permutation``,
-keys) and ``uniform`` match JAX exactly.  ``normal`` and
+keys) and ``uniform`` match JAX exactly; ``categorical`` is an argmax over
+Gumbel noise, exact wherever no two candidates come within an ulp.  ``normal`` and
 ``truncated_normal`` evaluate XLA's float32 ``erf_inv`` polynomial with its
 multiply-adds rounded once, as XLA contracts them into FMAs; they agree to
 an ulp (``log1p`` and ``sqrt`` round differently in a few per cent of
@@ -238,3 +240,18 @@ def permutation(k: torch.Tensor, n: int, device=None) -> torch.Tensor:
         order = torch.sort(sort_keys, dim=-1, stable=True).indices
         x = torch.gather(x, -1, order)
     return x
+
+
+_TINY = float(torch.finfo(torch.float32).tiny)
+
+
+def categorical(k: torch.Tensor, logits: torch.Tensor, shape: Sequence[int],
+                device=None) -> torch.Tensor:
+    """``jax.random.categorical(k, logits, shape=shape)`` for 1-D ``logits``
+    (with replacement): the Gumbel-max draw ``argmax(g + logits)`` over the
+    last axis, first index on ties, with JAX's ``mode='low'`` Gumbel noise
+    ``g = -log(-log(u))``, u uniform on ``[tiny, 1)`` -> int64 of ``shape``."""
+    device = k.device if device is None else torch.device(device)
+    u = uniform(k, _shape(shape) + (logits.shape[-1],), _TINY, 1.0, device)
+    g = -torch.log(-torch.log(u))
+    return torch.argmax(g + logits.to(device=device, dtype=torch.float32), dim=-1)

@@ -54,6 +54,43 @@ def test_config_copies_match_the_reference():
                 == dataclasses.asdict(jsc.scenario_config(name, 37)))
 
 
+def _field_defaults(cls):
+    return {f.name: (f.default if f.default is not dataclasses.MISSING else "<required>")
+            for f in dataclasses.fields(cls)}
+
+
+@pytest.mark.parametrize("arch", ["fl-mnist-mlp", "fl-cifar10-cnn", "fl-svhn-cnn",
+                                  "hymba-1.5b"])
+def test_model_config_copy_matches_the_reference(arch):
+    """The port's ModelConfig keeps the reference's fields, required fields and
+    defaults, and its configs (full and smoke) equal the reference's field for
+    field, derived properties included."""
+    from repro.config import ModelConfig as JModelConfig
+    from repro.configs import get_config as jget, get_smoke_config as jget_smoke
+    from repro_torch.config import ModelConfig
+    from repro_torch.configs import get_config, get_smoke_config
+
+    assert _field_defaults(ModelConfig) == _field_defaults(JModelConfig)
+    for mine, ref in ((get_config(arch), jget(arch)), (get_smoke_config(arch), jget_smoke(arch))):
+        assert dataclasses.asdict(mine) == dataclasses.asdict(ref)
+        for prop in ("resolved_head_dim", "padded_vocab", "q_per_kv", "ssm_d_inner",
+                     "ssm_num_heads"):
+            assert getattr(mine, prop) == getattr(ref, prop), prop
+        assert [mine.layer_kind(i) for i in range(4)] == [ref.layer_kind(i) for i in range(4)]
+
+
+def test_unported_lm_archs_raise_naming_the_roadmap():
+    from repro.configs import ALL_ARCH_IDS
+    from repro_torch.configs import ALL_ARCH_IDS as PORTED, UNPORTED_LM_ARCHS, get_config
+
+    assert sorted(PORTED + UNPORTED_LM_ARCHS) == sorted(ALL_ARCH_IDS)
+    for arch in UNPORTED_LM_ARCHS:
+        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+            get_config(arch)
+    with pytest.raises(KeyError):
+        get_config("no-such-arch")
+
+
 @pytest.mark.parametrize("name", sorted(jsc.SCENARIOS))
 def test_twin_init_and_advance_match(name):
     n = 20

@@ -384,3 +384,176 @@ def test_fleet_geometry_on_the_card_matches_the_dense_forms(dev, n, dup):
         messages.DENSE_MAX_N = saved
     for a, b, atol in zip(compact, dense, (1e-2, 1e-5, 1e-5, 1e-7)):
         torch.testing.assert_close(a, b, rtol=1e-5, atol=atol)
+
+
+# ---- the serving path's kernels: swa_decode (B7) and ssd_scan (B8) -------------------
+#
+# swa_decode against its plain version within 2e-5 (rtol and atol; the kernel's online
+# softmax and ``fmaf`` dots sum in another order than the plain two-pass softmax, on
+# outputs of size ~1); a row with no visible slot exactly 0.  ssd_scan within 1e-4 of
+# max |y| and max |h|: the two ``cumsum(dt * A)`` round differently and
+# ``exp(cs_q - cs_k)`` carries cs's absolute rounding (an ulp of |cs| <= ~100 is ~1e-5)
+# as a relative error.
+
+
+def _swa_operands(B, C, hkv, G, D, dtype, dev, fills, seed=0):
+    """q, k, v drawn from ``seed``; row b's ring holds a context of ``fills[b]`` tokens
+    (-1 where none) and the query sits at position fills[b] - 1."""
+    from repro_torch.models.layers import ring_positions
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    q = torch.randn((B, hkv, G, D), generator=g, device=dev).to(dtype)
+    k = torch.randn((B, C, hkv, D), generator=g, device=dev).to(dtype)
+    v = torch.randn((B, C, hkv, D), generator=g, device=dev).to(dtype)
+    kv_pos = torch.stack([ring_positions(f, C, dev) for f in fills])
+    pos = torch.tensor([f - 1 for f in fills], dtype=torch.int32, device=dev)
+    return q, k, v, kv_pos, pos
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,C,hkv,G,D,window,softcap,fills", [
+    (4, 1024, 5, 5, 64, 1024, 0.0, (2080, 2080, 2080, 2080)),  # hymba-1.5b decode
+    (2, 1000, 2, 3, 64, 0, 0.0, (1000, 640)),  # C not a multiple of the 256-slot tile
+    (3, 1, 2, 4, 32, 0, 0.0, (1, 5, 9)),  # one slot
+    (2, 300, 4, 1, 128, 64, 0.0, (300, 77)),  # G = 1, a window inside the ring
+    (2, 512, 2, 2, 256, 0, 50.0, (400, 5000)),  # a partly filled ring; softcap 50; D 256
+    (1, 64, 1, 16, 32, 17, 30.0, (3000,)),  # a wrapped ring, pos far beyond C; G 16
+])
+def test_swa_decode_kernel_matches_plain(dev, dtype, B, C, hkv, G, D, window, softcap, fills):
+    from repro_torch.kernels import swa_decode as swa
+
+    q, k, v, kv_pos, pos = _swa_operands(B, C, hkv, G, D, dtype, dev, fills)
+    before = swa.launches
+    got = swa.swa_decode(q, k, v, kv_pos, pos, window=window, softcap=softcap)
+    assert swa.launches == before + 1
+    ref = swa.swa_decode_plain(q, k, v, kv_pos, pos, window, softcap)
+    torch.testing.assert_close(got, ref, rtol=2e-5, atol=2e-5)
+    # a fixed order: a second launch repeats the first bitwise
+    assert torch.equal(got, swa.swa_decode(q, k, v, kv_pos, pos, window=window,
+                                           softcap=softcap))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_swa_decode_row_with_no_visible_slot_is_zero(dev, dtype):
+    """Row 1's ring is empty and row 2's slots all lie after its query: both give
+    exactly 0, as ``ref.swa_decode`` does; row 0 is an ordinary row."""
+    from repro_torch.kernels import swa_decode as swa
+
+    q, k, v, kv_pos, pos = _swa_operands(3, 300, 2, 3, 64, dtype, dev, (300, 300, 300))
+    kv_pos[1] = -1
+    pos[2] = -1
+    got = swa.swa_decode(q, k, v, kv_pos, pos, window=1024)
+    ref = swa.swa_decode_plain(q, k, v, kv_pos, pos, 1024)
+    assert torch.equal(got[1:], torch.zeros_like(got[1:]))
+    assert torch.equal(ref[1:], torch.zeros_like(ref[1:]))
+    torch.testing.assert_close(got, ref, rtol=2e-5, atol=2e-5)
+
+
+def test_swa_decode_wrapper_refuses_what_the_kernel_does_not_take(dev):
+    from repro_torch.kernels import swa_decode as swa
+
+    q, k, v, kv_pos, pos = _swa_operands(1, 8, 1, 2, 32, torch.float32, dev, (8,))
+    with pytest.raises(NotImplementedError):
+        swa.swa_decode(q.half(), k.half(), v.half(), kv_pos, pos)
+    with pytest.raises(ValueError):
+        swa.swa_decode(q, k.to(torch.bfloat16), v, kv_pos, pos)  # mixed dtypes
+    with pytest.raises(ValueError):
+        swa.swa_decode(q, k, v, kv_pos.long(), pos)
+    big = torch.zeros((1, 1, 17, 32), device=dev)
+    with pytest.raises(ValueError):
+        swa.swa_decode(big, k, v, kv_pos, pos)  # G = 17
+
+
+def _ssd_operands(B, S, nh, hp, ds, dtype, dev, seed=0, with_h0=False):
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    x = torch.randn((B, S, nh, hp), generator=g, device=dev).to(dtype)
+    dt = torch.nn.functional.softplus(torch.randn((B, S, nh), generator=g, device=dev))
+    A = -torch.exp(0.3 * torch.randn((nh,), generator=g, device=dev))
+    Bs = torch.randn((B, S, ds), generator=g, device=dev).to(dtype)
+    Cs = torch.randn((B, S, ds), generator=g, device=dev).to(dtype)
+    h0 = torch.randn((B, nh, hp, ds), generator=g, device=dev) if with_h0 else None
+    return x, dt, A, Bs, Cs, h0
+
+
+def _assert_ssd_close(got, ref):
+    for a, b in zip(got, ref):
+        scale = float(b.abs().max())
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-4 * scale)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,nh,hp,ds,chunk,with_h0", [
+    (4, 2048, 50, 64, 16, 128, False),  # hymba-1.5b prefill
+    (2, 1, 3, 16, 8, 128, False),  # one step
+    (2, 200, 4, 32, 16, 128, True),  # S not a multiple of Q, a given h0
+    (3, 100, 2, 8, 32, 128, False),  # Q > S: one chunk of S
+    (1, 300, 24, 64, 128, 128, True),  # mamba2-130m's head: the largest shared tile
+])
+def test_ssd_scan_kernel_matches_plain(dev, dtype, B, S, nh, hp, ds, chunk, with_h0):
+    from repro_torch.kernels import ssd_scan as ssd
+
+    x, dt, A, Bs, Cs, h0 = _ssd_operands(B, S, nh, hp, ds, dtype, dev, with_h0=with_h0)
+    before = ssd.launches
+    got = ssd.ssd_scan(x, dt, A, Bs, Cs, chunk, h0)
+    assert ssd.launches == before + 1
+    ref = ssd.ssd_scan_plain(x, dt, A, Bs, Cs, chunk, h0)
+    assert all(bool(torch.isfinite(t).all()) for t in got)
+    _assert_ssd_close(got, ref)
+    again = ssd.ssd_scan(x, dt, A, Bs, Cs, chunk, h0)
+    assert torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])
+
+
+def test_ssd_scan_wrapper_refuses_what_the_kernel_does_not_take(dev):
+    from repro_torch.kernels import ssd_scan as ssd
+
+    x, dt, A, Bs, Cs, _ = _ssd_operands(1, 16, 2, 8, 8, torch.float32, dev)
+    with pytest.raises(ValueError):
+        ssd.ssd_scan(x, dt.to(torch.bfloat16), A, Bs, Cs, 8)
+    with pytest.raises(ValueError):
+        ssd.ssd_scan(x, dt, A, Bs.to(torch.bfloat16), Cs, 8)
+    x, dt, A, Bs, Cs, _ = _ssd_operands(1, 256, 1, 256, 256, torch.float32, dev)
+    with pytest.raises(ValueError):  # a (Q, ds) / (hp, ds) tile beyond shared memory
+        ssd.ssd_scan(x, dt, A, Bs, Cs, 256)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_hybrid_serving_on_the_card_matches_the_cpu(dev, dtype):
+    """The smoke hybrid LM: prefill past the window (the ring wraps, the last SSD chunk
+    is partial) and 3 decode steps on the card through the kernels, and on the CPU
+    through the plain versions from the same weights.  fp32 logits within 1e-4; bf16
+    within 0.0625 (a few bf16 steps at |logits| ~ 4: GEMMs summed in another order
+    flip roundings of the 8-bit activations)."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.kernels import ssd_scan as ssd
+    from repro_torch.kernels import swa_decode as swa
+    from repro_torch.models import build_model
+
+    cfg = get_smoke_config("hymba-1.5b").replace(dtype=dtype)
+    api = build_model(cfg)
+    params = api.init(prng.key(0), dev)
+    cpu_params = _tree_to(params, "cpu")
+    toks = torch.randint(0, cfg.vocab_size, (2, 44), generator=torch.Generator().manual_seed(1))
+    before = (ssd.launches, swa.launches)
+    with torch.no_grad():
+        lg, cg = api.prefill(params, {"tokens": toks[:, :40].to(dev)}, 44)
+        lc, cc = api.prefill(cpu_params, {"tokens": toks[:, :40]}, 44)
+        outs = [(lg, lc)]
+        for i in range(3):
+            lg, cg = api.decode_step(params, cg, toks[:, 40 + i].to(dev))
+            lc, cc = api.decode_step(cpu_params, cc, toks[:, 40 + i])
+            outs.append((lg, lc))
+    layers = cfg.num_layers
+    assert (ssd.launches, swa.launches) == (before[0] + layers, before[1] + 3 * layers)
+    tol = 1e-4 if dtype == "float32" else 0.0625
+    for a, b in outs:
+        torch.testing.assert_close(a.cpu().float(), b.float(), rtol=tol, atol=tol)
+
+
+def _tree_to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_tree_to(v, device) for v in tree]
+    return tree.to(device)
