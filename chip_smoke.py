@@ -17,7 +17,10 @@ Phases (any failure raises and exits non-zero):
    ``swa_decode`` and ``ssd_scan`` at hymba-1.5b's shapes in bf16 and fp32
    and at their edges (a ragged tile, one slot, G=1, a partly filled and a
    wrapped ring, rows with no visible slot, softcap; one step, a ragged last
-   chunk, Q > S, a given h0, mamba2's ds=128 head);
+   chunk, Q > S, a given h0, mamba2's ds=128 head); ``pairwise_cosine`` at
+   the reference's shapes (the 128 / 512 tile edges, one row, D=1) in fp32
+   and bf16, with a zero row, bitwise symmetric, and ``gram_nt`` with
+   x != y, N != M;
 4. main path: ``FLSimulation`` (ring / contextual / mnist, 100 vehicles,
    fl-mnist-mlp, the paper's section IV-A defaults) for 5 rounds on the card,
    with the kernels' launch counts, and one round replayed from the same
@@ -47,8 +50,18 @@ Phases (any failure raises and exits non-zero):
    bf16, prefill and 4 decode steps on the card against the CPU's plain path
    from the same weights; then, at full width and depth in fp32, 2 decode
    steps against one longer prefill;
+4f. pipeline: ``python -m repro_torch.launch.quickstart`` on the card and
+   on the CPU (the same elected ids and cluster sizes); three rounds of
+   ``ContextualSelector`` at full width (ring, N=100, sketch_dim 1024,
+   fl-mnist-mlp updates, 10 clusters, contextual), each with one counted
+   ``pairwise_cosine`` launch (the stage-3 Gram) and per-stage wall times;
+   one selector round replayed on the CPU's plain path; one main-path
+   round through the unfused lane against the fused lane;
 5. times: each kernel (CUDA events, after warm-up) beside its bound, its
-   plain version and a one-call PyTorch yardstick, the round's wall time
+   plain version and a one-call PyTorch yardstick (``pairwise_cosine`` at
+   (100, 1024), (256, 4096) and (20,000, 1,024), with the profiled device
+   time of the kernel and of ``torch.mm`` at the two small shapes, where
+   the events read the host's launch rate), the round's wall time
    (the fedavg, fedadam, fedbuff and streamed lanes), and profiled rounds,
    a profiled decode step and prefill.
 
@@ -407,24 +420,85 @@ def check_ssd(B, S, nh, hp, ds, chunk, with_h0, dtype, device) -> float:
     return max(float((a - b).abs().max()) for a, b in zip(got, ref))
 
 
-def kernel_modules():
-    from repro_torch.kernels import (fedavg_reduce, rsu_reduce, rttg_latency, server_update,
-                                     ssd_scan, swa_decode)
+def gram_rows(n, d, dtype, device, seed):
+    g = torch.Generator(device=device)
+    g.manual_seed(seed)
+    return torch.randn((n, d), generator=g, device=device).to(dtype)
 
-    return rttg_latency, fedavg_reduce, server_update, rsu_reduce, swa_decode, ssd_scan
+
+def check_gram(n, d, dtype, device, zero_row=None) -> float:
+    """``pairwise_cosine`` against its plain version within atol 1e-5 (the
+    reference's fp32 test bound: cosines of size 1 summed in another order);
+    the Gram bitwise symmetric, its diagonal within 1e-5 of 1 for nonzero
+    rows, and a zero row exactly zero in its row and column."""
+    from repro_torch.kernels import pairwise_cosine as pc
+
+    x = gram_rows(n, d, dtype, device, n * 10_007 + d)
+    if zero_row is not None:
+        x[zero_row] = 0
+    before = pc.launches
+    got = pc.pairwise_cosine(x)
+    ref = pc.pairwise_cosine_plain(x)
+    torch.cuda.synchronize()
+    what = (f"pairwise_cosine N={n} D={d} {str(dtype)[6:]}"
+            f"{f' zero row {zero_row}' if zero_row is not None else ''}")
+    if pc.launches != before + 1:
+        raise AssertionError(f"{what}: the wrapper did not launch the kernel once")
+    torch.testing.assert_close(got, ref, rtol=0, atol=1e-5, msg=lambda m: f"{what}: {m}")
+    if not torch.equal(got, got.T):
+        raise AssertionError(f"{what}: the Gram is not bitwise symmetric")
+    keep = torch.ones((n,), dtype=torch.bool, device=device)
+    if zero_row is not None:
+        keep[zero_row] = False
+        if got[zero_row].any() or got[:, zero_row].any():
+            raise AssertionError(f"{what}: the zero row's row / column is not exactly 0")
+    if not bool(((got.diagonal()[keep] - 1.0).abs() <= 1e-5).all()):
+        raise AssertionError(f"{what}: a diagonal entry is more than 1e-5 from 1")
+    err = float((got - ref).abs().max())
+    print(f"{what}: max_abs_err={err:.3e} (tol 1e-5), bitwise symmetric, diagonal within "
+          f"1e-5 of 1")
+    return err
+
+
+def check_gram_nt(n, m, d, device) -> float:
+    """``gram_nt`` with x != y and N != M on unnormalized rows: within 1e-6
+    of ``max |x| |y|^T`` (another summation order)."""
+    from repro_torch.kernels.pairwise_cosine import gram_nt, gram_nt_plain
+
+    x = gram_rows(n, d, torch.float32, device, 1 + n)
+    y = gram_rows(m, d, torch.float32, device, 2 + m)
+    got, ref = gram_nt(x, y), gram_nt_plain(x, y)
+    torch.cuda.synchronize()
+    scale = float((x.abs() @ y.abs().T).max())
+    torch.testing.assert_close(got, ref, rtol=1e-5, atol=1e-6 * scale)
+    if not torch.equal(got, gram_nt(x, y)):
+        raise AssertionError("gram_nt: a second launch differs from the first")
+    err = float((got - ref).abs().max())
+    print(f"gram_nt N={n} M={m} D={d}: max_abs_err={err:.3e} (scale {scale:.3e}), repeats "
+          f"bitwise")
+    return err
+
+
+def kernel_modules():
+    from repro_torch.kernels import (fedavg_reduce, pairwise_cosine, rsu_reduce, rttg_latency,
+                                     server_update, ssd_scan, swa_decode)
+
+    return (rttg_latency, fedavg_reduce, server_update, rsu_reduce, swa_decode, ssd_scan,
+            pairwise_cosine)
 
 
 def read_launches() -> dict:
-    rttg, fedavg, su, rsu, swa, ssd = kernel_modules()
+    rttg, fedavg, su, rsu, swa, ssd, gram = kernel_modules()
     return {"rttg_latency": rttg.launches, "fedavg_reduce": fedavg.launches,
             "server_update": su.launches, "server_update_buffered": su.buffered_launches,
-            "rsu_reduce": rsu.launches, "swa_decode": swa.launches, "ssd_scan": ssd.launches}
+            "rsu_reduce": rsu.launches, "swa_decode": swa.launches, "ssd_scan": ssd.launches,
+            "pairwise_cosine": gram.launches}
 
 
 def reset_launches() -> None:
-    rttg, fedavg, su, rsu, swa, ssd = kernel_modules()
+    rttg, fedavg, su, rsu, swa, ssd, gram = kernel_modules()
     rttg.launches = fedavg.launches = su.launches = su.buffered_launches = rsu.launches = 0
-    swa.launches = ssd.launches = 0
+    swa.launches = ssd.launches = gram.launches = 0
 
 
 def tree_to(tree, device):
@@ -684,6 +758,287 @@ def assert_rounds_bitwise(a, b, what) -> None:
     print(f"{what}: every state leaf and metric bitwise")
 
 
+SELECTOR_ROUNDS = 3
+# card vs CPU tolerances of a selector round: positions ~1e4 m (an ulp is
+# ~1e-3 m) through the fusion's atan2 / sin / cos, which round an ulp apart
+# on the two devices, then 50 predictor steps; latency through log10 / pow
+RTTG_TOL = {"pos": (1e-6, 1e-2), "speed": (1e-5, 1e-5), "accel": (1e-5, 1e-5),
+            "pos_var": (1e-5, 1e-6), "rsu_dist": (1e-5, 2e-2)}
+
+
+def selector_rounds(device, card):
+    """The paper's pipeline stage by stage at full width: ring, N=100,
+    sketch_dim 1024, fl-mnist-mlp updates (P = 159,010), 10 clusters,
+    contextual.  Each round: observe -> predicted_latency -> report (the last
+    cohort's updates; every client's first update before round 0) ->
+    recluster -> the stage-3 Gram ``core.pairwise_cosine(sketches)`` ->
+    select -> train the elected cohort and FedAvg -> end_round; the twin then
+    advances 10 s.  Launch counts zeroed just before the rounds and read just
+    after: one ``pairwise_cosine`` a round, nothing else.  -> (the inputs and
+    outputs of every round, launches, per-stage wall ms)."""
+    from repro_torch import core
+    from repro_torch.config import FLConfig
+    from repro_torch.configs import get_config
+    from repro_torch.fl.client import make_local_trainer
+    from repro_torch.fl.partition import partition_clients
+    from repro_torch.fl.server import fedavg_aggregate, normalized_weights
+    from repro_torch.models import build_model
+    from repro_torch.utils import prng
+    from repro_torch.utils.pytree import tree_bytes
+
+    n = 100
+    fl = FLConfig(num_clients=n, samples_per_client=256, num_clusters=10, sketch_dim=1024)
+    traffic = core.scenario_config("ring", num_vehicles=n)
+    key = prng.key(0)
+    api = build_model(get_config("fl-mnist-mlp"))
+    params = api.init(key, device)
+    mb = tree_bytes(api.spec)
+    twin = core.TrafficTwin(traffic, key, device)
+    tstate = twin.advance(twin.init_state(), prng.key(1), 10.0)
+    sel = core.ContextualSelector(fl, traffic, key, device)
+    images, labels = partition_clients(key, "mnist", fl, device=device)
+    trainer = make_local_trainer(api.loss, fl.learning_rate, 1, fl.batch_size)
+    bs = fl.batch_size
+    _, vecs = trainer(params, images[:, :bs], labels[:, :bs], prng.key(2))
+    ids = torch.arange(n, device=device)
+    torch.cuda.synchronize()
+    stages = ("observe", "predict", "report", "recluster", "gram", "select", "train+fedavg",
+              "end_round")
+    stage_ms = {k: [] for k in stages}
+    rounds_ = []
+    reset_launches()
+    for r in range(SELECTOR_ROUNDS):
+        snap = dict(round=sel._round, sketches=sel.sketches, sketch_age=sel.sketch_age,
+                    clusters=sel.clusters, twin=tstate, ids=ids, vecs=vecs)
+        clock = {"t": time.perf_counter()}
+
+        def lap(name):
+            torch.cuda.synchronize()
+            now = time.perf_counter()
+            stage_ms[name].append((now - clock["t"]) * 1e3)
+            clock["t"] = now
+
+        rttg = sel.observe(tstate)
+        lap("observe")
+        lat, _ = sel.predicted_latency(mb)
+        lap("predict")
+        sel.report_updates(ids, vecs)
+        lap("report")
+        sel.recluster()
+        lap("recluster")
+        gram = core.pairwise_cosine(sel.sketches)
+        lap("gram")
+        out = sel.select("contextual", mb)
+        lap("select")
+        idx = torch.nonzero(out["mask"])[:, 0]
+        updates, vecs = trainer(params, images[idx], labels[idx], prng.fold_in(prng.key(3), r))
+        k = idx.numel()
+        w = normalized_weights(torch.ones((k,), dtype=torch.bool, device=device),
+                               torch.full((k,), float(fl.samples_per_client), device=device))
+        params = fedavg_aggregate(params, updates, w)
+        lap("train+fedavg")
+        snap.update(rttg=rttg, lat=lat, sketches_out=sel.sketches, clusters_out=sel.clusters,
+                    gram=gram, select=out)
+        sel.end_round()
+        lap("end_round")
+        rounds_.append(snap)
+        ids = idx
+        tstate = twin.advance(tstate, prng.fold_in(prng.key(4), r), 10.0)
+        if k < 1 or not bool(torch.isfinite(lat).all()):
+            raise AssertionError(f"selector round {r}: {k} elected, latency finite: "
+                                 f"{bool(torch.isfinite(lat).all())}")
+        if not torch.equal(gram, gram.T):
+            raise AssertionError(f"selector round {r}: the stage-3 Gram is not symmetric")
+        sizes = torch.bincount(sel.clusters, minlength=fl.num_clusters).tolist()
+        print(f"round {r}: elected {idx.tolist()}, cluster sizes {sizes}, predicted latency "
+              f"{float(lat.min()):.3f}..{float(lat.max()):.3f} s, Gram off-diagonal mean "
+              f"{float((gram.sum() - gram.diagonal().sum()) / (n * n - n)):.4f}")
+    torch.cuda.synchronize()
+    launches = read_launches()
+    print(f"launches over {SELECTOR_ROUNDS} selector rounds: {launches}")
+    want = dict.fromkeys(launches, 0)
+    want.update(pairwise_cosine=SELECTOR_ROUNDS)
+    if launches != want:
+        raise AssertionError(f"expected {want}, got {launches}")
+    print("per-stage wall time (ms, each stage ends in a synchronize; rounds "
+          f"{', '.join(str(i) for i in range(SELECTOR_ROUNDS))}) [{card}]:")
+    for name in stages:
+        print(f"  {name:13s} {', '.join(f'{x:.2f}' for x in stage_ms[name])}")
+    return dict(fl=fl, traffic=traffic, key=key, mb=mb, rounds=rounds_, launches=launches,
+                stage_ms=stage_ms)
+
+
+def selector_replay_cpu(run) -> None:
+    """Round 1 again from its state on the CPU's plain path: RSU ids, loads,
+    adjacency, connectivity, the mask and the cluster labels equal; floats
+    within ``RTTG_TOL``, latency rtol 1e-4, sketches atol 1e-6 and the Gram
+    atol 1e-5 (card and CPU sum in other orders)."""
+    from repro_torch import core
+
+    snap = run["rounds"][1]
+    sel = core.ContextualSelector(run["fl"], run["traffic"], run["key"], "cpu")
+    sel._round = snap["round"]
+    sel.sketches, sel.sketch_age = snap["sketches"].cpu(), snap["sketch_age"].cpu()
+    sel.clusters = snap["clusters"].cpu()
+    rttg = sel.observe(core.TwinState(*[x.cpu() for x in snap["twin"]]))
+    lat, _ = sel.predicted_latency(run["mb"])
+    sel.report_updates(snap["ids"].cpu(), snap["vecs"].cpu())
+    sel.recluster()
+    gram = core.pairwise_cosine(sel.sketches)
+    out = sel.select("contextual", run["mb"])
+    card_rttg, card_out = snap["rttg"], snap["select"]
+    for f in ("rsu_id", "load", "adj"):
+        if not torch.equal(getattr(card_rttg, f).cpu(), getattr(rttg, f)):
+            raise AssertionError(f"selector replay: rttg.{f} differs between card and CPU")
+    for f, (rtol, atol) in RTTG_TOL.items():
+        torch.testing.assert_close(getattr(card_rttg, f).cpu(), getattr(rttg, f), rtol=rtol,
+                                   atol=atol, msg=lambda m: f"selector replay rttg.{f}: {m}")
+    torch.testing.assert_close(snap["lat"].cpu(), lat, rtol=1e-4, atol=1e-6)
+    torch.testing.assert_close(snap["sketches_out"].cpu(), sel.sketches, rtol=0, atol=1e-6)
+    torch.testing.assert_close(snap["gram"].cpu(), gram, rtol=0, atol=1e-5)
+    if not torch.equal(snap["clusters_out"].cpu(), sel.clusters):
+        raise AssertionError("selector replay: cluster labels differ between card and CPU")
+    for f in ("mask", "connected"):
+        if not torch.equal(card_out[f].cpu(), out[f]):
+            raise AssertionError(f"selector replay: {f} differs between card and CPU")
+    print(f"selector round {snap['round']} replayed on the CPU: RSU ids, loads, adjacency, "
+          f"connectivity, mask and cluster labels equal; max |dlatency| "
+          f"{float((snap['lat'].cpu() - lat).abs().max()):.3e} s, max |dGram| "
+          f"{float((snap['gram'].cpu() - gram).abs().max()):.3e}")
+
+
+def fused_vs_unfused(sim, state0) -> bool:
+    """One main-path round from ``state0`` through the unfused lane (the RTTG
+    API, plain torch on the card) against the fused lane (``rttg_latency``):
+    integers and booleans equal, floats within rtol 1e-5; the unfused round
+    launches no ``rttg_latency``.  -> whether every leaf was bitwise."""
+    from repro_torch.fl.rounds import cohort_size_for, make_round_step
+
+    fused = sim._step(state0, sim.scn, 0, 0, sim.data, True)
+    unfused_step = make_round_step(sim.api.loss, sim.fl, cohort_size_for(sim.fl, ("contextual",)),
+                                   sim.model_bytes, sim.param_spec, ("contextual",),
+                                   fused=False)
+    reset_launches()
+    unfused = unfused_step(state0, sim.scn, 0, 0, sim.data, True)
+    torch.cuda.synchronize()
+    lu = read_launches()
+    want = dict.fromkeys(lu, 0)
+    want.update(fedavg_reduce=1)
+    if lu != want:
+        raise AssertionError(f"unfused round: expected launches {want}, got {lu}")
+    (sf, mf), (su, mu) = fused, unfused
+    bitwise = []
+
+    def same(what, x, y):
+        if x.dtype.is_floating_point:
+            torch.testing.assert_close(y, x, rtol=1e-5, atol=1e-6, equal_nan=True,
+                                       msg=lambda m: f"fused vs unfused {what}: {m}")
+            bitwise.append((what, bool(torch.equal(x, y) or (x.isnan() & y.isnan()).all())))
+        elif not torch.equal(x, y):
+            raise AssertionError(f"fused vs unfused: {what} differs")
+
+    for f in sf._fields:
+        x, y = getattr(sf, f), getattr(su, f)
+        if f == "twin":
+            for name, a, b in zip(x._fields, x, y):
+                same(f"twin.{name}", a, b)
+        elif isinstance(x, torch.Tensor):
+            same(f, x, y)
+        elif x != y:
+            raise AssertionError(f"fused vs unfused: {f} {x} != {y}")
+    for f in mf._fields:
+        same(f"metric {f}", getattr(mf, f), getattr(mu, f))
+    differ = [w for w, b in bitwise if not b]
+    print(f"fused vs unfused round (main path, from the first round's state): integers and "
+          f"booleans equal, floats within rtol 1e-5; bitwise: "
+          f"{'every leaf and metric' if not differ else 'all but ' + ', '.join(differ)}; "
+          f"unfused launches {lu}")
+    return not differ
+
+
+def device_us_per_call(fn, calls: int) -> float:
+    """Mean device time of ``fn``'s kernels per call, from torch.profiler
+    (NaN when the profiler records no device activity)."""
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    dev = [e for e in prof.events()
+           if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA]
+    if not dev:
+        return math.nan
+    return sum(e.time_range.elapsed_us() for e in dev) / calls
+
+
+def time_gram(kernels, lib, stream, sel_run, main_err, device, card):
+    """``pairwise_cosine`` at the stage-3 shape (100, 1024), the reference
+    kernel bench's (256, 4096) and the fleet's N with the default sketch
+    (20,000, 1,024): the C entry point on normalized rows with a preallocated
+    output, cycling operand copies that exceed the 50 MB L2; the wrapper; the
+    plain version; and one ``torch.mm(xn, xn.T)`` (cuBLAS SGEMM, TF32 off)."""
+    from repro_torch.kernels import build as kbuild
+    from repro_torch.kernels.pairwise_cosine import (_normalize, pairwise_cosine,
+                                                     pairwise_cosine_plain)
+
+    rows = {}
+    for n, d, copies, iters in ((100, 1024, 160, 200), (256, 4096, 16, 200),
+                                (20_000, 1024, 1, 5)):
+        xs = [gram_rows(n, d, torch.float32, device, 500 + i) for i in range(copies)]
+        xns = [_normalize(x) for x in xs]
+        out = torch.empty((n, n), dtype=torch.float32, device=device)
+        it = {"i": 0}
+
+        def nxt(seq):
+            it["i"] = (it["i"] + 1) % len(seq)
+            return seq[it["i"]]
+
+        def launch():
+            xn = nxt(xns)
+            kbuild.check(lib.gram_nt_launch(xn.data_ptr(), xn.data_ptr(), n, n, d,
+                                            out.data_ptr(), stream), "gram_nt")
+
+        def library():
+            xn = nxt(xns)
+            return torch.mm(xn, xn.T)
+
+        warm = 1 if iters < 20 else 10
+        t = {}
+        for _ in range(2):  # the first pass warms up, the second is kept
+            t = {"kernel": time_ms(launch, iters, warm),
+                 "wrapper": time_ms(lambda: pairwise_cosine(nxt(xs)), iters, warm),
+                 "plain": time_ms(lambda: pairwise_cosine_plain(nxt(xs)), iters, warm),
+                 "library": time_ms(library, iters, warm)}
+        flops = 2 * n * n * d
+        b_ms, b_by = bound(n * d * 4 + n * n * 4, flops)
+        t.update(bound=b_ms, bound_by=b_by, flops=flops)
+        rows[(n, d)] = t
+        if copies > 1:  # small shapes: the device time per call under the profiler
+            dev_us = {name: device_us_per_call(fn, 20) for name, fn in
+                      (("kernel", launch), ("torch.mm", library))}
+            print(f"pairwise_cosine N={n} D={d} device time per call (profiler): kernel "
+                  f"{dev_us['kernel']:.2f} us, torch.mm {dev_us['torch.mm']:.2f} us [{card}]")
+        print(f"pairwise_cosine N={n} D={d}: kernel {t['kernel'] * 1e3:.2f} us "
+              f"({flops / (t['kernel'] * 1e-3) / 1e12:.2f} TFLOP/s), wrapper "
+              f"{t['wrapper'] * 1e3:.2f} us, plain {t['plain'] * 1e3:.2f} us, torch.mm "
+              f"{t['library'] * 1e3:.2f} us ({flops / (t['library'] * 1e-3) / 1e12:.2f} "
+              f"TFLOP/s), bound {b_ms * 1e3:.3f} us ({b_by}: {flops / 1e6:.1f} MFLOP, "
+              f"{(n * d * 4 + n * n * 4) / 1e6:.2f} MB) [{card}]")
+        del xs, xns, out
+        torch.cuda.empty_cache()
+    t = rows[(100, 1024)]
+    kernels.append({
+        "name": "pairwise_cosine", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/pairwise_cosine.cu",
+        "replaces": "src/repro/kernels/pairwise_cosine.py:54",
+        "launches": sel_run["launches"]["pairwise_cosine"],
+        "max_abs_err": main_err["pairwise_cosine"], "ms": t["kernel"], "plain_ms": t["plain"],
+        "bound_ms": t["bound"], "bound_by": t["bound_by"], "library_ms": t["library"],
+    })
+
+
 def time_serving_kernels(kernels, lib, stream, serve_launches, main_err, device, card):
     """``swa_decode`` at hymba-1.5b's decode and ``ssd_scan`` at its prefill
     (bf16): the C entry point with preallocated outputs, cycling operand copies
@@ -908,6 +1263,19 @@ def main() -> int:
     check_ssd(2, 200, 4, 32, 16, 128, True, torch.bfloat16, device)  # ragged chunk, h0
     check_ssd(3, 100, 2, 8, 32, 128, False, torch.float32, device)  # Q > S
     check_ssd(1, 300, 24, 64, 128, 128, True, torch.float32, device)  # mamba2's head
+    main_err["pairwise_cosine"] = 0.0
+    # the reference's shapes (tests/test_kernels.py): 128 / 512 tile edges,
+    # one row, D = 1; the stage-3 shape is (100, 1024)
+    for n, d in ((7, 64), (100, 1024), (128, 512), (33, 2000), (127, 511), (129, 513),
+                 (1, 512), (256, 1)):
+        for dtype in (torch.float32, torch.bfloat16):
+            e = check_gram(n, d, dtype, device)
+            if (n, d) == (100, 1024) and dtype == torch.float32:
+                main_err["pairwise_cosine"] = e
+    check_gram(100, 1024, torch.float32, device, zero_row=37)
+    check_gram(9, 300, torch.bfloat16, device, zero_row=0)
+    for n, m, d in ((128, 256, 512), (33, 100, 2000), (1, 5, 1), (100, 7, 1024)):
+        check_gram_nt(n, m, d, device)
 
     # ---- 4. main path ----------------------------------------------------
     phase("main path: FLSimulation ring / contextual / mnist on cuda")
@@ -1138,6 +1506,33 @@ def main() -> int:
     phase("serving: decode vs prefill on the card")
     decode_vs_prefill(device)
     torch.cuda.empty_cache()
+
+    # ---- 4f. the four-stage pipeline, stage by stage ---------------------------
+    phase("pipeline: python -m repro_torch.launch.quickstart on cuda (N=40)")
+    from repro_torch.launch import quickstart
+
+    t0 = time.perf_counter()
+    qs = quickstart.run(device)
+    torch.cuda.synchronize()
+    qs_s = time.perf_counter() - t0
+    qs_cpu = quickstart.run("cpu", verbose=False)
+    if (qs["elected"], qs["cluster_sizes"]) != (qs_cpu["elected"], qs_cpu["cluster_sizes"]):
+        raise AssertionError(f"quickstart card vs CPU: elected {qs['elected']} vs "
+                             f"{qs_cpu['elected']}, sizes {qs['cluster_sizes']} vs "
+                             f"{qs_cpu['cluster_sizes']}")
+    for f in ("acc_before", "acc_after"):
+        if abs(qs[f] - qs_cpu[f]) > 2e-3:  # four of the 2,000 test images
+            raise AssertionError(f"quickstart card vs CPU: {f} {qs[f]} vs {qs_cpu[f]}")
+    print(f"quickstart on the card in {qs_s:.2f} s; card vs CPU: elected ids and cluster "
+          f"sizes equal, accuracies {qs['acc_before']:.4f} -> {qs['acc_after']:.4f} vs "
+          f"{qs_cpu['acc_before']:.4f} -> {qs_cpu['acc_after']:.4f} [{card}]")
+    phase("pipeline: ContextualSelector at full width (ring, N=100, sketch_dim 1024, "
+          "fl-mnist-mlp updates), 3 rounds")
+    sel_run = selector_rounds(device, card)
+    phase("pipeline: a selector round on the card vs the CPU's plain path")
+    selector_replay_cpu(sel_run)
+    phase("pipeline: the unfused round lane vs the fused lane on the card")
+    fused_vs_unfused(sim, state0)
 
     # ---- 5. times ----------------------------------------------------------
     phase(f"times on {card}")
@@ -1387,6 +1782,7 @@ def main() -> int:
     })
 
     time_serving_kernels(kernels, lib, stream, serve_launches, main_err, device, card)
+    time_gram(kernels, lib, stream, sel_run, main_err, device, card)
 
     # the rounds: wall time ending in a synchronize, then profiled rounds
     for label, s_ in (("fedavg", sim), ("fedadam", lane_sims["fedadam"]),

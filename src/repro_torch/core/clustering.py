@@ -2,12 +2,16 @@
 
 Each update is folded against a seeded Rademacher sign vector into a
 ``sketch_dim`` count-sketch, unit-normalized, and clustered with cosine
-k-means (farthest-point init, Lloyd iterations).
+k-means (farthest-point init, Lloyd iterations).  The pairwise-cosine Gram
+of the sketches, the stage's O(N^2 D) product, is the ``pairwise_cosine``
+kernel on the card (``kernels.pairwise_cosine``); k-means computes its
+(N, k) similarities with plain matmuls, as the JAX package does.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import pairwise_cosine as _gram
 from repro_torch.utils import prng
 
 
@@ -29,6 +33,22 @@ def apply_sketch(update_vecs: torch.Tensor, sign: torch.Tensor,
     acc = x.reshape(update_vecs.shape[:-1] + (-1, sketch_dim)).sum(dim=-2)
     norm = torch.linalg.vector_norm(acc, dim=-1, keepdim=True)
     return acc / torch.clamp_min(norm, 1e-12)
+
+
+def update_sketch(update_vecs: torch.Tensor, key: torch.Tensor, sketch_dim: int) -> torch.Tensor:
+    """Count-sketch of flat ``(..., P)`` updates, unit-normalized.
+
+    The one-call form of ``sketch_sign_vector`` + ``apply_sketch`` (the same
+    fold chain); every client uses the same key, so sketches compare.
+    """
+    sign = sketch_sign_vector(key, update_vecs.shape[-1], sketch_dim, update_vecs.device)
+    return apply_sketch(update_vecs, sign, sketch_dim)
+
+
+def pairwise_cosine(sketches: torch.Tensor) -> torch.Tensor:
+    """(N, D) -> (N, N) cosine similarity, fp32: the Gram kernel on the card,
+    its plain version on the CPU."""
+    return _gram.pairwise_cosine(sketches)
 
 
 def kmeans_cluster(sketches: torch.Tensor, key: torch.Tensor, k: int,

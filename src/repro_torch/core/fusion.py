@@ -2,7 +2,8 @@
 
 Inverse-variance fusion of one CAM self-report plus up to MAX_PERCEIVED CPM
 detections per vehicle; positions are fused on the unit circle to respect
-the ring's wraparound.
+the ring's wraparound.  ``fuse_messages`` wraps the fused kinematics into
+the RTTG (the unfused composition and the selector).
 """
 from __future__ import annotations
 
@@ -11,6 +12,7 @@ import math
 import torch
 
 from repro_torch.core import messages
+from repro_torch.core.rttg import RTTG, build_rttg
 
 
 def _cpm_sums_dense(terms: torch.Tensor, obj: torch.Tensor, src: torch.Tensor) -> torch.Tensor:
@@ -86,3 +88,8 @@ def fuse_kinematics(cams: dict, cpms: dict, cfg):
         torch.atan2(sum_sin / sum_w, sum_cos / sum_w) * (L / (2 * math.pi)), L
     )
     return pos, sum_speed / sum_w, sum_accel / sum_w, 1.0 / sum_w
+
+
+def fuse_messages(cams: dict, cpms: dict, t, cfg) -> RTTG:
+    pos, speed, accel, pos_var = fuse_kinematics(cams, cpms, cfg)
+    return build_rttg(t, pos, speed, accel, pos_var, cfg)

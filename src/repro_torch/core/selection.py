@@ -113,3 +113,10 @@ STRATEGIES: Dict[str, Callable] = {
     "network": select_network,
     "contextual": select_contextual,
 }
+
+
+def select_clients(strategy: str, key, connected, latency_pred, clusters, n_select: int,
+                   gamma: float) -> torch.Tensor:
+    if strategy not in STRATEGIES:
+        raise KeyError(f"unknown strategy {strategy!r}; known: {sorted(STRATEGIES)}")
+    return STRATEGIES[strategy](key, connected, latency_pred, clusters, n_select, gamma)

@@ -7,12 +7,17 @@ the flat ``(P,)`` global model.  Selection is a fixed-size mask compacted
 into K cohort slots, as in the JAX package, so the shapes never depend on
 the data.
 
-The port runs the fused-geometry (``fused=True``: both geometry passes go
-through the ``rttg_latency`` kernel), fp32 lanes of the reference with every
-registered server rule (``fl.aggregators.AGGREGATOR_ORDER``), flat or
-two-tier; the bf16 and unfused lanes raise ``NotImplementedError``.  The
-kernels of a round: ``rttg_latency`` twice (predicted and realized
-topology), then one server step.  The single-rule ``("fedavg",)`` registry
+The port runs the fp32 lanes of the reference with every registered server
+rule (``fl.aggregators.AGGREGATOR_ORDER``), flat or two-tier; the bf16 lane
+raises ``NotImplementedError``.  The geometry is fused by default
+(``fused=True``: both geometry passes go through the ``rttg_latency``
+kernel); ``fused=False`` composes the RTTG API instead (``fuse_messages ->
+predict_rttg -> latency_model / connectivity``, and ``build_rttg`` on the
+mid-round twin), the same arithmetic, so the two lanes agree bit for bit
+through the plain versions.  The unfused lane builds ``(N, N)`` adjacency
+matrices and stops at ``messages.DENSE_MAX_N`` vehicles.  The kernels of a
+fused round: ``rttg_latency`` twice (predicted and realized topology), then
+one server step.  The single-rule ``("fedavg",)`` registry
 keeps the plain ``fedavg_reduce`` + AXPY step; any other registry runs the
 fused ``server_update`` kernel, or ``server_update_buffered`` when it holds
 ``fedbuff`` (the in-flight ring's drained rows join the same reduce).
@@ -44,10 +49,13 @@ from typing import NamedTuple, Sequence, Tuple
 import torch
 
 from repro_torch.config import FLConfig
+from repro_torch.core import messages
 from repro_torch.core.clustering import apply_sketch, kmeans_cluster, sketch_sign_vector
-from repro_torch.core.fusion import fuse_kinematics
+from repro_torch.core.fusion import fuse_kinematics, fuse_messages
 from repro_torch.core.messages import emit_cams, emit_cpms
-from repro_torch.core.rttg import n_rsu_of, rsu_up_mask
+from repro_torch.core.network import connectivity, latency_model
+from repro_torch.core.rttg import build_rttg, n_rsu_of, rsu_up_mask
+from repro_torch.core.trajectory import predict_rttg
 from repro_torch.core.selection import STRATEGIES
 from repro_torch.core.twin import TwinState, advance_twin, init_twin_state
 from repro_torch.fl.aggregators import (
@@ -239,9 +247,12 @@ def _check_lane(fl: FLConfig, fused: bool) -> None:
             "client_block streaming segments the cohort by RSU attachment; "
             "set hierarchical=True to enable it"
         )
-    if not fused:
-        raise NotImplementedError("the unfused geometry composition (fused=False) is "
-                                  "not ported (see ROADMAP.md)")
+    if not fused and fl.num_clients > messages.DENSE_MAX_N:
+        raise ValueError(
+            f"the unfused geometry (fused=False) builds (N, N) RTTG adjacency matrices; "
+            f"it runs up to {messages.DENSE_MAX_N} vehicles, got {fl.num_clients}: "
+            "use fused=True"
+        )
     if fl.param_dtype != "float32" or fl.compute_dtype != "float32":
         raise NotImplementedError("the bf16 precision lane is not ported yet "
                                   "(see ROADMAP.md)")
@@ -310,16 +321,26 @@ def make_round_step(loss_fn, fl: FLConfig, cohort_size: int, model_bytes: float,
         k_obs = prng.fold_in_str(rk, "observe")
         cams = emit_cams(twin, scn, k_obs)
         cpms = emit_cpms(twin, scn, k_obs)
-        forced = _forced(prng.fold_in_str(rk, "cr"), twin.pos.device)
-        pos, speed, accel, _ = fuse_kinematics(cams, cpms, scn)
-        return rttg_latency(pos, speed, accel, twin.t, mb, forced, scn, predict=True)
+        k_cr = prng.fold_in_str(rk, "cr")
+        if fused:
+            pos, speed, accel, _ = fuse_kinematics(cams, cpms, scn)
+            return rttg_latency(pos, speed, accel, twin.t, mb, _forced(k_cr, twin.pos.device),
+                                scn, predict=True)
+        future = predict_rttg(fuse_messages(cams, cpms, twin.t, scn), scn.predict_horizon_s, scn)
+        return latency_model(future, mb, scn), connectivity(future, scn, cr, k_cr)
 
     def _realized(mid_twin, scn, rk, mb):
         """Mid-round geometry on the TRUE evolved topology (and, on the
         two-tier lanes, each client's RSU)."""
-        forced = _forced(prng.fold_in_str(rk, "upload-cr"), mid_twin.pos.device)
-        return rttg_latency(mid_twin.pos, mid_twin.speed, mid_twin.accel, mid_twin.t,
-                            mb, forced, scn, predict=False, want_rid=hierarchical)
+        k_cr = prng.fold_in_str(rk, "upload-cr")
+        if fused:
+            return rttg_latency(mid_twin.pos, mid_twin.speed, mid_twin.accel, mid_twin.t, mb,
+                                _forced(k_cr, mid_twin.pos.device), scn, predict=False,
+                                want_rid=hierarchical)
+        mid = build_rttg(mid_twin.t, mid_twin.pos, mid_twin.speed, mid_twin.accel,
+                         torch.zeros_like(mid_twin.pos), scn)
+        out = (latency_model(mid, mb, scn), connectivity(mid, scn, cr, k_cr))
+        return out + (mid.rsu_id.to(torch.int32),) if hierarchical else out
 
     @torch.no_grad()
     def round_step(state: RoundState, scn, strategy_idx, aggregator_idx,

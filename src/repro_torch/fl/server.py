@@ -1,9 +1,25 @@
-"""Server-side FedAvg primitives on the flat layout (``repro.fl.server``)."""
+"""Server-side FedAvg primitives (``repro.fl.server``): the flat layout the
+round core carries, and the pytree forms a stage-by-stage caller uses."""
 from __future__ import annotations
 
 import torch
 
 from repro_torch.fl.partition import rsu_sample_mass
+from repro_torch.utils.pytree import tree_map, tree_weighted_sum
+
+
+def apply_delta(global_params, delta):
+    """``global + delta`` leaf by leaf with fp32 accumulation, dtype-preserving."""
+    return tree_map(lambda p, d: (p.to(torch.float32) + d.to(torch.float32)).to(p.dtype),
+                    global_params, delta)
+
+
+def fedavg_aggregate(global_params, updates, weights: torch.Tensor):
+    """``global + sum_k w_k update_k`` (weights already normalized).
+
+    ``updates`` is a tree with a leading cohort axis K; ``weights`` (K,).
+    """
+    return apply_delta(global_params, tree_weighted_sum(updates, weights))
 
 
 def normalized_weights(mask_selected: torch.Tensor, n_samples: torch.Tensor) -> torch.Tensor:

@@ -21,7 +21,7 @@ import time
 from pathlib import Path
 
 SOURCES = ("rttg_latency.cu", "fedavg_reduce.cu", "server_update.cu", "rsu_reduce.cu",
-           "swa_decode.cu", "ssd_scan.cu")
+           "swa_decode.cu", "ssd_scan.cu", "pairwise_cosine.cu")
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 # --fmad=false: every multiply and add rounds on its own, as the plain
@@ -41,6 +41,7 @@ _SIGNATURES = {
     "rsu_reduce_launch": (_P, _P, _P, _I, _I, _LL, _I, _P, _P, _P, _P),
     "swa_decode_launch": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _I, _P, _P),
     "ssd_scan_launch": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P),
+    "gram_nt_launch": (_P, _P, _I, _I, _I, _P, _P),
 }
 
 

@@ -69,3 +69,24 @@ def tree_bytes(spec: Spec, itemsize: int = 4) -> int:
     """Storage bytes of a spec's leaves (fp32 by default)."""
     return flat_size_of(spec) * itemsize
 
+
+
+def tree_map(fn, tree, *rest):
+    """``fn`` over the leaves of one or more trees of the same structure."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v, *[r[k] for r in rest]) for k, v in tree.items()}
+    return fn(tree, *rest)
+
+
+def tree_weighted_sum(trees, weights: torch.Tensor):
+    """Weighted sum over the leading axis of a stacked tree.
+
+    ``trees`` has leaves ``(K, ...)`` (one slice per client), ``weights``
+    is ``(K,)``; each leaf sums in fp32 and returns in its own dtype.  The
+    pytree FedAvg contraction (``fedavg_reduce`` is its flat form).
+    """
+    def _ws(x):
+        w = weights.to(torch.float32).reshape((-1,) + (1,) * (x.dim() - 1))
+        return (x.to(torch.float32) * w).sum(dim=0).to(x.dtype)
+
+    return tree_map(_ws, trees)

@@ -18,7 +18,11 @@ bit on dyadic ones (any order sums those exactly), a chunk walk included.
 The two-tier rounds: the hierarchical lane is the flat lane bit for bit
 (contract (a)), and the streamed lane launches one ``rsu_reduce`` per
 chunk.  At fleet size the windowed neighbour search is the dense one
-exactly and the compact fusion the dense fusion within rtol 1e-5.  Without
+exactly and the compact fusion the dense fusion within rtol 1e-5.  The
+pairwise-cosine Gram within atol 1e-5 of its plain version (TF32 off) and
+bitwise symmetric; a selector round on the card against the CPU (RSU ids,
+connectivity, masks and cluster labels equal), and the unfused round
+against the fused one (integers equal, floats within rtol 1e-5).  Without
 a card every test skips, decided in the fixture.
 """
 import pytest
@@ -557,3 +561,140 @@ def _tree_to(tree, device):
     if isinstance(tree, list):
         return [_tree_to(v, device) for v in tree]
     return tree.to(device)
+
+
+# ---- pairwise_cosine and the four-stage pipeline ------------------------------
+
+GRAM_SHAPES = [(7, 64), (100, 1024), (128, 512), (33, 2000), (127, 511), (129, 513),
+               (1, 512), (256, 1)]
+
+
+def _gram_rows(n, d, dev, seed, dtype=torch.float32):
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    return torch.randn((n, d), generator=g, device=dev).to(dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,d", GRAM_SHAPES)
+def test_pairwise_cosine_kernel_matches_plain(dev, n, d, dtype):
+    """Within atol 1e-5 of the plain version (TF32 off), bitwise symmetric,
+    the diagonal within 1e-5 of 1."""
+    from repro_torch.kernels import pairwise_cosine as pc
+    from repro_torch.utils.device import resolve_device
+
+    resolve_device(dev)
+    x = _gram_rows(n, d, dev, n * 10_007 + d, dtype)
+    before = pc.launches
+    got = pc.pairwise_cosine(x)
+    assert pc.launches == before + 1
+    ref = pc.pairwise_cosine_plain(x)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, ref, rtol=0, atol=1e-5)
+    assert torch.equal(got, got.T)
+    assert bool(((got.diagonal() - 1.0).abs() <= 1e-5).all())
+
+
+def test_pairwise_cosine_zero_row_is_exactly_zero_on_the_card(dev):
+    from repro_torch.kernels import pairwise_cosine as pc
+
+    x = _gram_rows(100, 1024, dev, 3)
+    x[37] = 0
+    got = pc.pairwise_cosine(x)
+    assert not got[37].any() and not got[:, 37].any()
+    torch.testing.assert_close(got, pc.pairwise_cosine_plain(x), rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("n,m,d", [(128, 256, 512), (33, 100, 2000), (1, 5, 1), (100, 7, 1024)])
+def test_gram_nt_kernel_matches_plain(dev, n, m, d):
+    from repro_torch.kernels import pairwise_cosine as pc
+    from repro_torch.utils.device import resolve_device
+
+    resolve_device(dev)
+    x, y = _gram_rows(n, d, dev, 1 + n), _gram_rows(m, d, dev, 2 + m)
+    got = pc.gram_nt(x, y)
+    scale = float((x.abs() @ y.abs().T).max())
+    torch.testing.assert_close(got, pc.gram_nt_plain(x, y), rtol=1e-5, atol=1e-6 * scale)
+    assert torch.equal(got, pc.gram_nt(x, y))
+
+
+def test_gram_nt_wrapper_refuses_what_the_kernel_does_not_take(dev):
+    from repro_torch.kernels import pairwise_cosine as pc
+
+    x = torch.zeros((4, 8), device=dev)
+    with pytest.raises(ValueError):
+        pc.gram_nt(x, torch.zeros((4, 9), device=dev))  # another D
+    with pytest.raises(ValueError):
+        pc.gram_nt(x, torch.zeros((4, 8)))  # y on the CPU
+    with pytest.raises(ValueError):
+        pc.gram_nt(x[0], x)  # not (N, D)
+
+
+def test_selector_round_on_the_card_matches_the_cpu(dev):
+    """One ContextualSelector round (ring, N=100, sketch_dim 1024, random
+    updates) on the card and on the CPU from the same state: RSU ids, loads,
+    adjacency, connectivity, masks and cluster labels equal; one Gram launch."""
+    from repro_torch import core
+    from repro_torch.config import FLConfig
+    from repro_torch.kernels import pairwise_cosine as pc
+    from repro_torch.utils.device import resolve_device
+
+    resolve_device(dev)
+    n = 100
+    fl = FLConfig(num_clients=n, connection_rate=0.7)
+    traffic = scenario_config("ring", num_vehicles=n)
+    twin = core.TrafficTwin(traffic, prng.key(0), dev)
+    st = twin.advance(twin.init_state(), prng.key(1), 10.0)
+    vecs = 1e-2 * _gram_rows(n, 5000, dev, 4)
+    outs = {}
+    for where in (dev, torch.device("cpu")):
+        sel = core.ContextualSelector(fl, traffic, prng.key(0), where)
+        rttg = sel.observe(core.TwinState(*[x.to(where) for x in st]))
+        lat, _ = sel.predicted_latency(407_080)
+        sel.report_updates(torch.arange(n), vecs.to(where))
+        sel.recluster()
+        before = pc.launches
+        gram = core.pairwise_cosine(sel.sketches)
+        assert pc.launches == before + (1 if where.type == "cuda" else 0)
+        out = sel.select("contextual", 407_080)
+        outs[where.type] = (rttg, lat, sel.clusters, gram, out)
+    (rg, lg, cg, gg, og), (rc, lc, cc, gc, oc) = outs["cuda"], outs["cpu"]
+    for f in ("rsu_id", "load", "adj"):
+        assert torch.equal(getattr(rg, f).cpu(), getattr(rc, f)), f
+    torch.testing.assert_close(rg.pos.cpu(), rc.pos, rtol=1e-6, atol=1e-2)
+    torch.testing.assert_close(lg.cpu(), lc, rtol=1e-4, atol=1e-6)
+    torch.testing.assert_close(gg.cpu(), gc, rtol=0, atol=1e-5)
+    assert torch.equal(cg.cpu(), cc)
+    for f in ("mask", "connected"):
+        assert torch.equal(og[f].cpu(), oc[f]), f
+    assert int(og["mask"].sum()) > 0
+
+
+@pytest.mark.parametrize("cr", [1.0, 0.7])
+def test_unfused_round_on_the_card_matches_the_fused_round(dev, cr):
+    """The unfused lane (plain torch on the card) against the fused lane
+    (the rttg_latency kernel): integers equal, floats within rtol 1e-5."""
+    from repro_torch.config import FLConfig
+    from repro_torch.configs import get_config
+    from repro_torch.fl.rounds import cohort_size_for, make_round_step
+    from repro_torch.fl.simulation import FLSimulation
+
+    fl = FLConfig(num_clients=20, samples_per_client=64, local_epochs=1, num_clusters=3,
+                  connection_rate=cr)
+    sim = FLSimulation(get_config("fl-mnist-mlp").replace(d_ff=32), fl,
+                       scenario_config("ring", num_vehicles=20), "mnist", "contextual",
+                       prng.key(0), device=dev)
+    sim.warmup_sketches()
+    unfused = make_round_step(sim.api.loss, fl, cohort_size_for(fl, ("contextual",)),
+                              sim.model_bytes, sim.param_spec, ("contextual",), fused=False)
+    before = rttg_mod.launches
+    (su, mu) = unfused(sim.state, sim.scn, 0, 0, sim.data, True)
+    assert rttg_mod.launches == before
+    (sf, mf) = sim._step(sim.state, sim.scn, 0, 0, sim.data, True)
+    for f in ("round", "n_selected", "n_succeeded"):
+        assert int(getattr(mf, f)) == int(getattr(mu, f)), f
+    for f in ("sketch_age", "clusters", "buf_mask"):
+        assert torch.equal(getattr(sf, f), getattr(su, f)), f
+    for f in ("sim_time", "duration", "mean_pred_latency", "mean_real_latency"):
+        torch.testing.assert_close(getattr(mu, f), getattr(mf, f), rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(su.params, sf.params, rtol=1e-5, atol=1e-7)

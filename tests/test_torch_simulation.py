@@ -118,17 +118,16 @@ def test_unported_lanes_raise():
     from repro_torch.fl.rounds import make_round_step
 
     _, tapi = small_models(32)
-    # the two-tier lane is ported (tests/test_torch_hierarchical.py); its
-    # bf16 form, like the flat one, is not
+    # the two-tier lane is ported (tests/test_torch_hierarchical.py) and so
+    # is the unfused one (tests/test_torch_pipeline_e2e.py); their bf16
+    # forms, like the flat one, are not
     for kw in (dict(hierarchical=True, client_block=4, compute_dtype="bfloat16"),
                dict(compute_dtype="bfloat16"), dict(param_dtype="bfloat16")):
         fl = FLConfig(**small_fl_kwargs(N, **kw))
-        with pytest.raises(NotImplementedError):
-            make_round_step(tapi.loss, fl, 2, 1.0, tapi.spec,
-                            aggregators=(fl.aggregator,))
-    with pytest.raises(NotImplementedError):
-        make_round_step(tapi.loss, FLConfig(**small_fl_kwargs(N)), 2, 1.0, tapi.spec,
-                        fused=False)
+        for fused in (True, False):
+            with pytest.raises(NotImplementedError):
+                make_round_step(tapi.loss, fl, 2, 1.0, tapi.spec,
+                                aggregators=(fl.aggregator,), fused=fused)
 
 
 def test_time_to_accuracy():
