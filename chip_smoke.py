@@ -1011,7 +1011,9 @@ def time_gram(kernels, lib, stream, sel_run, main_err, device, card):
                  "wrapper": time_ms(lambda: pairwise_cosine(nxt(xs)), iters, warm),
                  "plain": time_ms(lambda: pairwise_cosine_plain(nxt(xs)), iters, warm),
                  "library": time_ms(library, iters, warm)}
-        flops = 2 * n * n * d
+        # x = x: the Gram is symmetric, so the work is its N(N+1)/2 distinct
+        # dot products of 2D flops each; the kernel computes all N^2 of them
+        flops = n * (n + 1) * d
         b_ms, b_by = bound(n * d * 4 + n * n * 4, flops)
         t.update(bound=b_ms, bound_by=b_by, flops=flops)
         rows[(n, d)] = t
@@ -1021,10 +1023,10 @@ def time_gram(kernels, lib, stream, sel_run, main_err, device, card):
             print(f"pairwise_cosine N={n} D={d} device time per call (profiler): kernel "
                   f"{dev_us['kernel']:.2f} us, torch.mm {dev_us['torch.mm']:.2f} us [{card}]")
         print(f"pairwise_cosine N={n} D={d}: kernel {t['kernel'] * 1e3:.2f} us "
-              f"({flops / (t['kernel'] * 1e-3) / 1e12:.2f} TFLOP/s), wrapper "
+              f"({flops / (t['kernel'] * 1e-3) / 1e12:.2f} useful TFLOP/s), wrapper "
               f"{t['wrapper'] * 1e3:.2f} us, plain {t['plain'] * 1e3:.2f} us, torch.mm "
               f"{t['library'] * 1e3:.2f} us ({flops / (t['library'] * 1e-3) / 1e12:.2f} "
-              f"TFLOP/s), bound {b_ms * 1e3:.3f} us ({b_by}: {flops / 1e6:.1f} MFLOP, "
+              f"useful TFLOP/s), bound {b_ms * 1e3:.3f} us ({b_by}: {flops / 1e6:.1f} MFLOP, "
               f"{(n * d * 4 + n * n * 4) / 1e6:.2f} MB) [{card}]")
         del xs, xns, out
         torch.cuda.empty_cache()

@@ -7,7 +7,6 @@ the RTTG (the unfused composition and the selector).
 """
 from __future__ import annotations
 
-import math
 
 import torch
 
@@ -62,7 +61,7 @@ def fuse_kinematics(cams: dict, cpms: dict, cfg):
     L = cfg.ring_length_m
     obj = cpms["obj"]
     w_cpm = cpms["valid"].to(torch.float32) / cpms["var"]
-    theta = cpms["pos"] * (2 * math.pi / L)
+    theta = cpms["pos"] * cfg.rad_per_m
     terms = torch.stack([
         w_cpm,
         w_cpm * torch.cos(theta),
@@ -77,7 +76,7 @@ def fuse_kinematics(cams: dict, cpms: dict, cfg):
     sum_w, sum_cos, sum_sin, sum_speed, sum_accel = sums
 
     w_cam = 1.0 / cams["var"]
-    th_cam = cams["pos"] * (2 * math.pi / L)
+    th_cam = cams["pos"] * cfg.rad_per_m
     sum_w = sum_w + w_cam
     sum_cos = sum_cos + w_cam * torch.cos(th_cam)
     sum_sin = sum_sin + w_cam * torch.sin(th_cam)
@@ -85,7 +84,7 @@ def fuse_kinematics(cams: dict, cpms: dict, cfg):
     sum_accel = sum_accel + w_cam * cams["accel"]
 
     pos = torch.remainder(
-        torch.atan2(sum_sin / sum_w, sum_cos / sum_w) * (L / (2 * math.pi)), L
+        torch.atan2(sum_sin / sum_w, sum_cos / sum_w) * cfg.m_per_rad, L
     )
     return pos, sum_speed / sum_w, sum_accel / sum_w, 1.0 / sum_w
 

@@ -15,7 +15,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.core.rttg import RTTG, as_f32, congestion_factor
+from repro_torch.core.rttg import RTTG, congestion_factor
 from repro_torch.utils import prng
 
 _C = 299_792_458.0
@@ -24,8 +24,7 @@ _C = 299_792_458.0
 def snr_from_dist(rsu_dist: torch.Tensor, cfg) -> torch.Tensor:
     """SNR (dB) per client from the 3D distance to the attached RSU."""
     d = torch.clamp_min(rsu_dist, 1.0)
-    pl = (32.4 + 20.0 * torch.log10(as_f32(cfg.carrier_ghz, d.device))
-          + 30.0 * torch.log10(d))
+    pl = 32.4 + 20.0 * torch.log10(cfg.carrier_ghz) + 30.0 * torch.log10(d)
     return cfg.eirp_dbm - pl - cfg.noise_dbm
 
 
@@ -58,14 +57,20 @@ def snr_db(rttg: RTTG, cfg) -> torch.Tensor:
     return snr_from_dist(rttg.rsu_dist, cfg)
 
 
+def forced_connections(key, connection_rate: float, shape, device):
+    """The forced connection-rate Bernoulli (Tab. I's CR < 1 rows): a bool
+    mask drawn from ``key``, or None at CR 1."""
+    if connection_rate >= 1.0:
+        return None
+    if key is None:
+        raise ValueError("connectivity: a forced connection rate needs a PRNG key")
+    return prng.bernoulli(key, connection_rate, shape, device)
+
+
 def connectivity(rttg: RTTG, cfg, connection_rate: float = 1.0, key=None) -> torch.Tensor:
     """Bool (N,) connected mask; below CR 1 the forced Bernoulli is drawn
     from ``key`` on ``rsu_dist``'s shape."""
-    forced = None
-    if connection_rate < 1.0:
-        if key is None:
-            raise ValueError("connectivity: a forced connection rate needs a PRNG key")
-        forced = prng.bernoulli(key, connection_rate, rttg.rsu_dist.shape,
+    forced = forced_connections(key, connection_rate, rttg.rsu_dist.shape,
                                 rttg.rsu_dist.device)
     return connected_from_snr(snr_db(rttg, cfg), cfg, forced)
 

@@ -15,7 +15,8 @@ the same fusion and prediction.  Keys follow the JAX package's tree: the
 selector key is ``fold_in_str(key, "selector")``, each round's key
 ``fold_in(selector key, round)``, and from it ``"observe"``, ``"cr"``,
 ``"kmeans"`` and the strategy's name.  The state tensors live on the
-selector's device, the keys on the host.
+selector's device, the keys on the host.  The ``TrafficConfig`` is lifted
+once, as the reference's selector rounds it (``scenarios.traffic_params``).
 """
 from __future__ import annotations
 
@@ -29,6 +30,7 @@ from repro_torch.core.fusion import fuse_messages
 from repro_torch.core.messages import emit_cams, emit_cpms
 from repro_torch.core.network import connectivity, latency_model
 from repro_torch.core.rttg import RTTG
+from repro_torch.core.scenarios import traffic_params
 from repro_torch.core.selection import select_clients
 from repro_torch.core.trajectory import predict_rttg
 from repro_torch.core.twin import TwinState
@@ -45,6 +47,7 @@ class ContextualSelector:
         self.fl = fl_cfg
         self.traffic = traffic_cfg
         self.device = resolve_device(device)
+        self.params = traffic_params(traffic_cfg, self.device)
         self.key = prng.fold_in_str(key, "selector")
         N = fl_cfg.num_clients
         f32 = dict(dtype=torch.float32, device=self.device)
@@ -64,7 +67,7 @@ class ContextualSelector:
     # ---- stage 1: V2X fusion -------------------------------------------
     def observe(self, twin_state: TwinState) -> RTTG:
         k = prng.fold_in_str(self._round_key(), "observe")
-        tr = self.traffic
+        tr = self.params
         self.rttg = fuse_messages(emit_cams(twin_state, tr, k), emit_cpms(twin_state, tr, k),
                                   twin_state.t, tr)
         return self.rttg
@@ -73,12 +76,12 @@ class ContextualSelector:
     def predicted_latency(self, model_bytes: float, horizon_s: Optional[float] = None):
         self._need_rttg("predicted_latency")
         h = self.traffic.predict_horizon_s if horizon_s is None else horizon_s
-        future = predict_rttg(self.rttg, h, self.traffic)
-        return latency_model(future, model_bytes, self.traffic), future
+        future = predict_rttg(self.rttg, h, self.params)
+        return latency_model(future, model_bytes, self.params), future
 
     def connected_mask(self, rttg: RTTG) -> torch.Tensor:
         k = prng.fold_in_str(self._round_key(), "cr")
-        return connectivity(rttg, self.traffic, self.fl.connection_rate, k)
+        return connectivity(rttg, self.params, self.fl.connection_rate, k)
 
     # ---- stage 3: data-level grouping ----------------------------------
     def report_update(self, client_id: int, update_vec: torch.Tensor) -> None:
@@ -102,7 +105,7 @@ class ContextualSelector:
         intermediate signals (for logging)."""
         self._need_rttg("select")
         k = self._round_key()
-        tr, fl = self.traffic, self.fl
+        tr, fl = self.params, self.fl
         mb = torch.tensor(float(model_bytes), dtype=torch.float32, device=self.device)
         future = predict_rttg(self.rttg, tr.predict_horizon_s, tr)
         lat_pred = latency_model(future, mb, tr)

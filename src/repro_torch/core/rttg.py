@@ -4,14 +4,8 @@ Nodes are CAVs with kinematic attributes; edges are V2V adjacency within
 range and V2I attachment to the nearest live RSU.  Besides the ``RTTG``
 tuple, the module holds the pure forms the round core and the
 ``rttg_latency`` kernel share: ring distance, RSU positions and liveness,
-the congestion schedule and the attachment with per-RSU load.
-
-``cfg`` is either a ``ScenarioParams`` (float32 0-dim tensors, as the round
-core passes it) or a plain ``TrafficConfig`` of Python floats (as the
-selector passes it).  The two round as the JAX package rounds them:
-arithmetic between two Python floats stays in double precision, and a value
-meets a tensor as float32 (``as_f32`` where a torch function needs a
-tensor, as ``jnp`` functions lift a Python float).
+the congestion schedule and the attachment with per-RSU load.  ``cfg`` is a
+``ScenarioParams`` (``core.scenarios``) except where a function says so.
 """
 from __future__ import annotations
 
@@ -35,20 +29,6 @@ class RTTG(NamedTuple):
     adj: torch.Tensor  # (N, N) bool V2V adjacency
 
 
-def cfg_device(cfg) -> torch.device:
-    """The device of a ``ScenarioParams``' tensors; the CPU for a ``TrafficConfig``."""
-    x = cfg.ring_length_m
-    return x.device if isinstance(x, torch.Tensor) else torch.device("cpu")
-
-
-def as_f32(x, device) -> torch.Tensor:
-    """A config value as a float32 tensor: a tensor as it is, a Python float
-    rounded to float32 once (JAX's weak-typed lift)."""
-    if isinstance(x, torch.Tensor):
-        return x
-    return torch.tensor(float(x), dtype=torch.float32, device=device)
-
-
 def ring_dist(a, b, length):
     """Shortest arc distance on a ring of circumference ``length``.
 
@@ -67,33 +47,31 @@ def n_rsu_of(cfg) -> int:
     return max(int(cfg.ring_length_m / cfg.rsu_spacing_m), 1)
 
 
-def rsu_positions(cfg, device=None) -> torch.Tensor:
+def rsu_positions(cfg) -> torch.Tensor:
     """(n_rsu,) arc positions of the RSUs."""
-    device = cfg_device(cfg) if device is None else device
+    device = cfg.ring_length_m.device
     return torch.arange(n_rsu_of(cfg), dtype=torch.float32, device=device) * cfg.rsu_spacing_m
 
 
 def day_envelope(t, cfg) -> torch.Tensor:
     """``1 + day_amp (sin^2(pi t/T) + day_harmonic2 sin^2(2 pi t/T))``."""
-    device = t.device if isinstance(t, torch.Tensor) else cfg_device(cfg)
-    t = torch.as_tensor(t, dtype=torch.float32, device=device)
-    x = math.pi * t / torch.clamp_min(as_f32(cfg.day_period_s, device), 1e-3)
+    t = torch.as_tensor(t, dtype=torch.float32, device=cfg.day_amp.device)
+    x = math.pi * t / torch.clamp_min(cfg.day_period_s, 1e-3)
     s1, s2 = torch.sin(x), torch.sin(2.0 * x)
     return 1.0 + cfg.day_amp * (s1 * s1 + cfg.day_harmonic2 * s2 * s2)
 
 
 def congestion_factor(t, cfg) -> torch.Tensor:
     """Density multiplier ``1 + rush_amp sin^2(pi t / rush_period) envelope``."""
-    device = t.device if isinstance(t, torch.Tensor) else cfg_device(cfg)
-    t = torch.as_tensor(t, dtype=torch.float32, device=device)
-    phase = torch.sin(math.pi * t / torch.clamp_min(as_f32(cfg.rush_period_s, device), 1e-3))
+    t = torch.as_tensor(t, dtype=torch.float32, device=cfg.rush_amp.device)
+    phase = torch.sin(math.pi * t / torch.clamp_min(cfg.rush_period_s, 1e-3))
     return 1.0 + cfg.rush_amp * phase * phase * day_envelope(t, cfg)
 
 
-def rsu_up_mask(cfg, device=None) -> torch.Tensor:
+def rsu_up_mask(cfg) -> torch.Tensor:
     """(n_rsu,) bool: RSUs whose index centre lies past ``rsu_outage_frac``."""
     n = n_rsu_of(cfg)
-    device = cfg_device(cfg) if device is None else device
+    device = cfg.rsu_outage_frac.device
     centers = (torch.arange(n, dtype=torch.float32, device=device) + 0.5) / n
     return centers >= cfg.rsu_outage_frac
 
@@ -104,9 +82,9 @@ def rsu_geometry(pos: torch.Tensor, cfg):
     Dark RSUs never win the argmin (first index on ties).  The load is the
     integer count of clients on the same RSU, exact in any summation order.
     """
-    rsu_pos = rsu_positions(cfg, pos.device)
+    rsu_pos = rsu_positions(cfg)
     d_along = ring_dist(pos[:, None], rsu_pos[None, :], cfg.ring_length_m)
-    d_along = torch.where(rsu_up_mask(cfg, pos.device)[None, :], d_along, math.inf)
+    d_along = torch.where(rsu_up_mask(cfg)[None, :], d_along, math.inf)
     rid = torch.argmin(d_along, dim=1)
     d_min = torch.gather(d_along, 1, rid[:, None])[:, 0]
     dist3d = torch.sqrt(d_min * d_min + 225.0 + 25.0)  # lateral offset, mast height

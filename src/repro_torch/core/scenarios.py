@@ -2,15 +2,26 @@
 
 The catalog is data: each family returns a ``TrafficConfig`` whose fields the
 twin, the radio model and the kernels read.  ``ScenarioParams`` is the view
-the round core computes with: every field the JAX package traces is a
+every core form computes with: each field the JAX package traces is a
 float32 0-dim tensor on the run's device, so scalar arithmetic rounds in
 float32 as it does there; fields that fix shapes or trip counts stay Python
 numbers.
+
+A few constants the reference forms from config values before they meet an
+array (``3 mean_speed``, ``1 - theta dt``, ``2 pi / L``, ...) round
+differently by the kind of config it is given: in float32 inside the traced
+round (a ``ScenarioParams``), in double precision and then once to float32
+in the selector and the twin (a ``TrafficConfig`` of Python floats).  The
+two lifts below are the one place that choice is made: ``scenario_params``
+for the round, ``traffic_params`` for ``ContextualSelector`` and
+``TrafficTwin``.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict
+import math
+from types import SimpleNamespace
+from typing import Callable, Dict, Union
 
 import torch
 
@@ -63,6 +74,14 @@ class ScenarioParams:
     day_amp: torch.Tensor
     day_period_s: torch.Tensor
     day_harmonic2: torch.Tensor
+    v_max: torch.Tensor  # 3 mean_speed: the twin's and the predictor's speed clip
+    v_init_max: torch.Tensor  # 2.5 mean_speed: the spawn speed clip
+    ou_decay: torch.Tensor  # 1 - ou_theta sim_dt_s: the predictor's per-step drift
+    rad_per_m: torch.Tensor  # 2 pi / ring_length_m
+    m_per_rad: torch.Tensor  # ring_length_m / (2 pi)
+    # accel_std^2 (prediction's variance inflation); a Python float in the
+    # traffic_params view, whose h-dependent product the reference forms in double
+    accel_var: Union[torch.Tensor, float]
     num_vehicles: int
     num_lanes: int
     n_rsu: int
@@ -72,13 +91,29 @@ class ScenarioParams:
     platoon_size: int
 
 
-def scenario_params(cfg: TrafficConfig, device="cpu") -> ScenarioParams:
-    """Lift a concrete ``TrafficConfig`` into float32 tensors on ``device``."""
+def _derived(c) -> dict:
+    """The constants of the module docstring; Python arithmetic on ``c``'s
+    fields rounds them as the reference does for that kind of value."""
+    return {"v_max": 3.0 * c.mean_speed_mps, "v_init_max": 2.5 * c.mean_speed_mps,
+            "ou_decay": 1.0 - c.ou_theta * c.sim_dt_s,
+            "rad_per_m": 2 * math.pi / c.ring_length_m,
+            "m_per_rad": c.ring_length_m / (2 * math.pi), "accel_var": c.accel_std ** 2}
+
+
+def _lift(cfg: TrafficConfig, device, in_double: bool) -> ScenarioParams:
     values = torch.tensor([float(getattr(cfg, f)) for f in _TRACED_FIELDS],
                           dtype=torch.float32, device=device)
     traced = {f: values[i] for i, f in enumerate(_TRACED_FIELDS)}
+    if in_double:
+        derived = _derived(cfg)
+        accel_var = derived.pop("accel_var")
+        lifted = torch.tensor(list(derived.values()), dtype=torch.float32, device=device)
+        derived = dict(zip(derived, lifted), accel_var=accel_var)
+    else:
+        derived = _derived(SimpleNamespace(**traced, sim_dt_s=cfg.sim_dt_s))
     return ScenarioParams(
         **traced,
+        **derived,
         num_vehicles=cfg.num_vehicles,
         num_lanes=cfg.num_lanes,
         n_rsu=n_rsu_of(cfg),
@@ -87,6 +122,18 @@ def scenario_params(cfg: TrafficConfig, device="cpu") -> ScenarioParams:
         predict_horizon_s=cfg.predict_horizon_s,
         platoon_size=cfg.platoon_size,
     )
+
+
+def scenario_params(cfg: TrafficConfig, device="cpu") -> ScenarioParams:
+    """Lift a concrete ``TrafficConfig`` into float32 tensors on ``device``,
+    as the reference's traced round sees it."""
+    return _lift(cfg, device, in_double=False)
+
+
+def traffic_params(cfg: TrafficConfig, device="cpu") -> ScenarioParams:
+    """Lift a ``TrafficConfig`` as the reference's selector and twin see it:
+    the derived constants formed in double precision."""
+    return _lift(cfg, device, in_double=True)
 
 
 def ring(num_vehicles: int = 100, **kw) -> TrafficConfig:

@@ -8,7 +8,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.core.rttg import RTTG, as_f32, build_rttg
+from repro_torch.core.rttg import RTTG, build_rttg
 
 
 def horizon_steps(horizon_s: float, cfg) -> int:
@@ -22,11 +22,9 @@ def predict_kinematics(pos, speed, accel, n: int, cfg):
     The ``rttg_latency`` kernel runs exactly this loop, op for op.
     """
     dt = cfg.sim_dt_s
-    decay = 1.0 - cfg.ou_theta * dt
-    v_max = as_f32(3.0 * cfg.mean_speed_mps, pos.device)
     for _ in range(n):
-        accel = accel * decay
-        speed = torch.minimum(torch.clamp_min(speed + accel * dt, 1.0), v_max)
+        accel = accel * cfg.ou_decay
+        speed = torch.minimum(torch.clamp_min(speed + accel * dt, 1.0), cfg.v_max)
         pos = torch.remainder(pos + speed * dt, cfg.ring_length_m)
     return pos, speed, accel
 
@@ -36,5 +34,5 @@ def predict_rttg(rttg: RTTG, horizon_s: float, cfg) -> RTTG:
     pos, speed, accel = predict_kinematics(rttg.pos, rttg.speed, rttg.accel,
                                            horizon_steps(horizon_s, cfg), cfg)
     # prediction inflates position variance (process noise accumulates)
-    var = rttg.pos_var + cfg.accel_std ** 2 * horizon_s ** 3 / 3.0
+    var = rttg.pos_var + cfg.accel_var * horizon_s ** 3 / 3.0
     return build_rttg(rttg.t + horizon_s, pos, speed, accel, var, cfg)

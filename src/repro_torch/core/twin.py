@@ -3,8 +3,8 @@
 N CAVs with Ornstein-Uhlenbeck acceleration noise; the platoon family
 correlates the noise within convoys, the hetero_fleet family mixes compute
 tiers, and rush_hour / day_cycle drag realized displacement through
-``congestion_factor``.  ``cfg`` is a ``ScenarioParams`` or a
-``TrafficConfig`` (see ``core.rttg``); ``TrafficTwin`` owns a twin on one
+``congestion_factor``.  ``cfg`` is a ``ScenarioParams``; ``TrafficTwin``
+lifts a ``TrafficConfig`` (``scenarios.traffic_params``), owns a twin on one
 device and advances it in ``sim_dt_s`` steps.
 """
 from __future__ import annotations
@@ -13,7 +13,8 @@ from typing import NamedTuple
 
 import torch
 
-from repro_torch.core.rttg import as_f32, congestion_factor
+from repro_torch.core.rttg import congestion_factor
+from repro_torch.core.scenarios import traffic_params
 from repro_torch.utils import prng
 from repro_torch.utils.device import resolve_device
 
@@ -48,7 +49,7 @@ def ou_innovations(key: torch.Tensor, n: int, cfg, device) -> torch.Tensor:
     size = _platoon_size(cfg)
     if size <= 1:
         return eps
-    c = torch.clamp(as_f32(cfg.platoon_coupling, device), 0.0, 1.0)
+    c = torch.clamp(cfg.platoon_coupling, 0.0, 1.0)
     n_conv = (n + size - 1) // size
     shared = prng.normal(prng.fold_in_str(key, "platoon"), (n_conv,), device)
     shared = shared[..., convoy_ids(cfg, n, device)]
@@ -57,15 +58,12 @@ def ou_innovations(key: torch.Tensor, n: int, cfg, device) -> torch.Tensor:
 
 def fleet_compute_factors(cfg, key: torch.Tensor, n: int, device) -> torch.Tensor:
     """(N,) compute-time multipliers: lognormal jitter x sedan/truck/bus tier."""
-    std = as_f32(cfg.compute_lognorm_std, device)
-    base = torch.exp(std * prng.normal(key, (n,), device))
-    bus = as_f32(cfg.fleet_bus_frac, device)
-    truck = as_f32(cfg.fleet_truck_frac, device)
+    base = torch.exp(cfg.compute_lognorm_std * prng.normal(key, (n,), device))
+    bus, truck = cfg.fleet_bus_frac, cfg.fleet_truck_frac
     u = prng.uniform(prng.fold_in_str(key, "fleet-tier"), (n,), device=device)
     one = torch.ones((), dtype=torch.float32, device=device)
-    tier = torch.where(u < bus, as_f32(cfg.fleet_bus_factor, device),
-                       torch.where(u < bus + truck, as_f32(cfg.fleet_truck_factor, device),
-                                   one))
+    tier = torch.where(u < bus, cfg.fleet_bus_factor,
+                       torch.where(u < bus + truck, cfg.fleet_truck_factor, one))
     return base * tier
 
 
@@ -75,8 +73,7 @@ def init_twin_state(cfg, key: torch.Tensor, device) -> TwinState:
     N = cfg.num_vehicles
     pos = prng.uniform(k1, (N,), 0.0, cfg.ring_length_m, device)
     speed = cfg.mean_speed_mps + cfg.speed_std_mps * prng.normal(k2, (N,), device)
-    speed = torch.minimum(torch.clamp_min(speed, 2.0),
-                          as_f32(2.5 * cfg.mean_speed_mps, device))
+    speed = torch.minimum(torch.clamp_min(speed, 2.0), cfg.v_init_max)
     lane = prng.randint(k3, (N,), 0, cfg.num_lanes, device)
     compute = fleet_compute_factors(cfg, k4, N, device)
     size = _platoon_size(cfg)
@@ -87,10 +84,9 @@ def init_twin_state(cfg, key: torch.Tensor, device) -> TwinState:
         rank = torch.arange(N, device=device) % size
         leader = torch.clamp_max(cid * size, N - 1)
         conv_pos = torch.remainder(
-            pos[leader] - rank.to(torch.float32) * as_f32(cfg.platoon_gap_m, device),
-            cfg.ring_length_m,
+            pos[leader] - rank.to(torch.float32) * cfg.platoon_gap_m, cfg.ring_length_m
         )
-        coupled = as_f32(cfg.platoon_coupling, device) > 0.0
+        coupled = cfg.platoon_coupling > 0.0
         pos = torch.where(coupled, conv_pos, pos)
         speed = torch.where(coupled, speed[leader], speed)
     return TwinState(
@@ -104,11 +100,9 @@ def init_twin_state(cfg, key: torch.Tensor, device) -> TwinState:
 
 
 def _euler_step(state: TwinState, cfg, eps: torch.Tensor, dt: float) -> TwinState:
-    device = state.pos.device
-    accel = (state.accel - cfg.ou_theta * state.accel * dt
-             + cfg.accel_std * torch.sqrt(as_f32(dt, device)) * eps)
-    speed = torch.minimum(torch.clamp_min(state.speed + accel * dt, 1.0),
-                          as_f32(3.0 * cfg.mean_speed_mps, device))
+    sqrt_dt = torch.sqrt(torch.as_tensor(dt, dtype=torch.float32, device=state.pos.device))
+    accel = state.accel - cfg.ou_theta * state.accel * dt + cfg.accel_std * sqrt_dt * eps
+    speed = torch.minimum(torch.clamp_min(state.speed + accel * dt, 1.0), cfg.v_max)
     # rush-hour congestion drags realized displacement, not the OU speed
     v_eff = speed / congestion_factor(state.t, cfg)
     pos = torch.remainder(state.pos + v_eff * dt, cfg.ring_length_m)
@@ -147,15 +141,14 @@ def advance_twin(state: TwinState, cfg, key: torch.Tensor, duration,
     dt = torch.as_tensor(duration, dtype=torch.float32, device=device) / num_substeps
     decay = torch.exp(-cfg.ou_theta * dt)
     noise_std = cfg.accel_std * torch.sqrt(
-        (1.0 - decay * decay) / torch.clamp_min(as_f32(2.0 * cfg.ou_theta, device), 1e-6)
+        (1.0 - decay * decay) / torch.clamp_min(2.0 * cfg.ou_theta, 1e-6)
     )
     keys = prng.fold_in(key, torch.arange(num_substeps))
     eps = ou_innovations(keys, state.pos.shape[0], cfg, device)
     t, pos, speed, accel = state.t, state.pos, state.speed, state.accel
-    v_max = as_f32(3.0 * cfg.mean_speed_mps, device)
     for i in range(num_substeps):
         accel = accel * decay + noise_std * eps[i]
-        speed = torch.minimum(torch.clamp_min(speed + accel * dt, 1.0), v_max)
+        speed = torch.minimum(torch.clamp_min(speed + accel * dt, 1.0), cfg.v_max)
         v_eff = speed / congestion_factor(t, cfg)  # rush-hour drag
         pos = torch.remainder(pos + v_eff * dt, cfg.ring_length_m)
         t = t + dt
@@ -173,13 +166,14 @@ class TrafficTwin:
         self.cfg = cfg
         self.key = prng.fold_in_str(key, "traffic-twin")
         self.device = resolve_device(device)
+        self.params = traffic_params(cfg, self.device)
 
     def init_state(self) -> TwinState:
-        return init_twin_state(self.cfg, prng.fold_in_str(self.key, "init"), self.device)
+        return init_twin_state(self.params, prng.fold_in_str(self.key, "init"), self.device)
 
     def step(self, state: TwinState, key: torch.Tensor, dt: float) -> TwinState:
-        return twin_step(state, self.cfg, key, dt)
+        return twin_step(state, self.params, key, dt)
 
     def advance(self, state: TwinState, key: torch.Tensor, duration: float) -> TwinState:
         """Advance ``duration`` seconds in ``sim_dt_s`` steps."""
-        return advance_twin(state, self.cfg, key, duration)
+        return advance_twin(state, self.params, key, duration)

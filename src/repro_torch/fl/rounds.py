@@ -53,7 +53,7 @@ from repro_torch.core import messages
 from repro_torch.core.clustering import apply_sketch, kmeans_cluster, sketch_sign_vector
 from repro_torch.core.fusion import fuse_kinematics, fuse_messages
 from repro_torch.core.messages import emit_cams, emit_cpms
-from repro_torch.core.network import connectivity, latency_model
+from repro_torch.core.network import connectivity, forced_connections, latency_model
 from repro_torch.core.rttg import build_rttg, n_rsu_of, rsu_up_mask
 from repro_torch.core.trajectory import predict_rttg
 from repro_torch.core.selection import STRATEGIES
@@ -310,12 +310,6 @@ def make_round_step(loss_fn, fl: FLConfig, cohort_size: int, model_bytes: float,
     compute_s = fl.local_epochs * fl.compute_s_per_epoch
     cr = fl.connection_rate
 
-    def _forced(key, device):
-        """The forced connection-rate Bernoulli (Tab. I's CR < 1 rows)."""
-        if cr >= 1.0:
-            return None
-        return prng.bernoulli(key, cr, (N,), device)
-
     def _predicted(twin, scn, rk, mb):
         """Stages 1+2: fused observations -> predicted latency / connectivity."""
         k_obs = prng.fold_in_str(rk, "observe")
@@ -324,8 +318,9 @@ def make_round_step(loss_fn, fl: FLConfig, cohort_size: int, model_bytes: float,
         k_cr = prng.fold_in_str(rk, "cr")
         if fused:
             pos, speed, accel, _ = fuse_kinematics(cams, cpms, scn)
-            return rttg_latency(pos, speed, accel, twin.t, mb, _forced(k_cr, twin.pos.device),
-                                scn, predict=True)
+            return rttg_latency(pos, speed, accel, twin.t, mb,
+                                forced_connections(k_cr, cr, (N,), twin.pos.device), scn,
+                                predict=True)
         future = predict_rttg(fuse_messages(cams, cpms, twin.t, scn), scn.predict_horizon_s, scn)
         return latency_model(future, mb, scn), connectivity(future, scn, cr, k_cr)
 
@@ -335,8 +330,8 @@ def make_round_step(loss_fn, fl: FLConfig, cohort_size: int, model_bytes: float,
         k_cr = prng.fold_in_str(rk, "upload-cr")
         if fused:
             return rttg_latency(mid_twin.pos, mid_twin.speed, mid_twin.accel, mid_twin.t, mb,
-                                _forced(k_cr, mid_twin.pos.device), scn, predict=False,
-                                want_rid=hierarchical)
+                                forced_connections(k_cr, cr, (N,), mid_twin.pos.device), scn,
+                                predict=False, want_rid=hierarchical)
         mid = build_rttg(mid_twin.t, mid_twin.pos, mid_twin.speed, mid_twin.accel,
                          torch.zeros_like(mid_twin.pos), scn)
         out = (latency_model(mid, mb, scn), connectivity(mid, scn, cr, k_cr))

@@ -5,10 +5,14 @@
 // pairwise_cosine): the stage-3 cosine Gram of the row-normalized update
 // sketches, an (N, D) x (M, D)^T product with an fp32 accumulator.
 //
-// What bounds it on this card: operations.  It does 2*N*M*D flops on
-// (N + M)*D + N*M values: at the stage-3 shape (N = M = 100, D = 1024) that
-// is 20.5 MFLOP on 0.45 MB, a bound near 0.31 us on the 67 TFLOP/s fp32
-// cores (a launch costs more); at N = M = 20,000 it is 819 GFLOP, 12.2 ms.
+// What bounds it on this card: operations.  With x != y it does 2*N*M*D
+// flops on (N + M)*D + N*M values.  The Gram of x with itself (what
+// pairwise_cosine asks for) is symmetric and needs only its N(N+1)/2
+// distinct outputs, N(N+1)*D flops on N*D + N*N values: at the stage-3
+// shape (N = 100, D = 1024) 10.3 MFLOP on 0.45 MB, a bound near 0.15 us on
+// the 67 TFLOP/s fp32 cores (a launch costs more); at N = 20,000 it is
+// 410 GFLOP, 6.1 ms.  This kernel computes the full N x N square there, so
+// half of its work is redundant.
 //
 // Design: a plain SIMT tiled GEMM on the fp32 cores, no tensor cores (TF32
 // would keep ten mantissa bits of the cosines).  A block of 16 x 16 threads

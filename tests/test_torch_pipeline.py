@@ -5,10 +5,11 @@ The port's RTTG API (``build_rttg``, ``fuse_messages``, ``predict_rttg``,
 ``update_sketch``, the twin's Euler path (``advance_twin(num_substeps=0)``,
 ``TrafficTwin``), ``ContextualSelector`` and the pytree FedAvg forms, each
 against its JAX counterpart on the same inputs (made from a seed with
-numpy, or drawn from the same key).  The core forms take either a
-``TrafficConfig`` of Python floats (as the selector passes it) or a
-``ScenarioParams`` of float32 tensors (as the round passes it); each is
-compared under both.  Integers and booleans must
+numpy, or drawn from the same key).  The reference's core forms take
+either a ``TrafficConfig`` of Python floats (as its selector passes it) or
+a ``ScenarioParams`` of float32 tensors (as its round passes it); the port
+lifts the first with ``traffic_params`` and the second with
+``scenario_params``, and each is compared under both.  Integers and booleans must
 match exactly (RSU ids, loads, adjacency, connectivity, masks, clusters,
 elected ids); floats within the tolerances below.  A discrete stage starts
 from the JAX stage's own inputs, converted through numpy, so an ulp
@@ -57,11 +58,12 @@ def tkey(jk):
 
 
 def cfg_pair(kind, name="ring", n=N):
-    """(JAX cfg, port cfg): both ``TrafficConfig``s, or both ``ScenarioParams``."""
+    """(JAX cfg, port cfg): a ``TrafficConfig`` and its ``traffic_params``,
+    or both ``ScenarioParams``."""
     jt = jsc.scenario_config(name, num_vehicles=n)
     tt = scenarios.scenario_config(name, num_vehicles=n)
     if kind == "traffic_config":
-        return jt, tt
+        return jt, scenarios.traffic_params(tt)
     return jsc.scenario_params(jt), scenarios.scenario_params(tt)
 
 
@@ -222,7 +224,8 @@ def test_advance_twin_euler_path_matches(kind, name):
     jcfg, tcfg = cfg_pair(kind, name)
     jk, ka = jax.random.key(12), jax.random.key(13)
     if kind == "traffic_config":  # the TrafficTwin API, init included
-        jt, tt = jtw.TrafficTwin(jcfg, jk), twin.TrafficTwin(tcfg, tkey(jk), "cpu")
+        tt = twin.TrafficTwin(scenarios.scenario_config(name, num_vehicles=N), tkey(jk), "cpu")
+        jt = jtw.TrafficTwin(jcfg, jk)
         st0 = jt.init_state()
         got0 = tt.init_state()
         np.testing.assert_array_equal(got0.lane.numpy(), np.asarray(st0.lane))
@@ -292,7 +295,7 @@ def selectors():
                     select_fraction=0.25)
     tfl = FLConfig(num_clients=N, num_clusters=3, sketch_dim=64, connection_rate=0.7,
                    select_fraction=0.25)
-    jtc, ttc = cfg_pair("traffic_config")
+    jtc, ttc = cfg_pair("traffic_config")[0], scenarios.scenario_config("ring", num_vehicles=N)
     key = jax.random.key(20)
     js = jpipe.ContextualSelector(jfl, jtc, key)
     ts = core.ContextualSelector(tfl, ttc, tkey(key), device="cpu")
