@@ -13,14 +13,17 @@ Phases (any failure raises and exits non-zero):
    and ``server_update_buffered`` for both ``drain`` states, and their two
    bitwise contracts (rule 0 is ``fedavg_reduce`` + the AXPY; no drain is
    the unbuffered update); ``rsu_reduce`` with and without its carry, on
-   random, dyadic and special operands, and a chunk walk bit for bit;
+   random, dyadic and special operands, at R = 10, 33 and 100 (one and
+   several 32-RSU groups), and a chunk walk bit for bit at R = 10 and 40;
    ``swa_decode`` and ``ssd_scan`` at hymba-1.5b's shapes in bf16 and fp32
-   and at their edges (a ragged tile, one slot, G=1, a partly filled and a
-   wrapped ring, rows with no visible slot, softcap; one step, a ragged last
-   chunk, Q > S, a given h0, mamba2's ds=128 head); ``pairwise_cosine`` at
-   the reference's shapes (the 128 / 512 tile edges, one row, D=1) in fp32
-   and bf16, with a zero row, bitwise symmetric, and ``gram_nt`` with
-   x != y, N != M;
+   and at their edges (a ragged split, one slot, G=1, a partly filled and a
+   wrapped ring, rows with no visible slot, softcap; a window narrower than
+   a split, G=16 at D=256, rows of 4-byte and 2-byte multiples; one step, a
+   ragged last chunk, Q > S, a given h0, mamba2's ds=128 head), each
+   ``swa_decode`` repeated bitwise; ``pairwise_cosine`` at the reference's
+   shapes (the 128 / 512 tile edges, one row, D=1) in fp32 and bf16 and at
+   its launch plan's tile and split edges, with a zero row, bitwise
+   symmetric, repeated bitwise, and ``gram_nt`` with x != y, N != M;
 4. main path: ``FLSimulation`` (ring / contextual / mnist, 100 vehicles,
    fl-mnist-mlp, the paper's section IV-A defaults) for 5 rounds on the card,
    with the kernels' launch counts, and one round replayed from the same
@@ -36,7 +39,8 @@ Phases (any failure raises and exits non-zero):
    (``client_block=4``: 3 ``rsu_reduce`` launches a round) on ring under
    ``fedavg`` and ``fedbuff`` and on rsu_outage under ``fedavg``, each round's
    economics bitwise those of the unblocked hierarchical round from the same
-   state, and a card-vs-CPU replay;
+   state, and a card-vs-CPU replay; the same on ring with an RSU every 250 m
+   (R = 40, past one 32-RSU group);
 4d. fleet: the fleet bench's settings (2 samples per client, K=100 in chunks
    of 32, no warm-up) at N=20,000 for 1 round and N=100,000 for 2, with set-up
    and round times, peak memory, launches and the neighbour rows recomputed
@@ -59,11 +63,11 @@ Phases (any failure raises and exits non-zero):
    round through the unfused lane against the fused lane;
 5. times: each kernel (CUDA events, after warm-up) beside its bound, its
    plain version and a one-call PyTorch yardstick (``pairwise_cosine`` at
-   (100, 1024), (256, 4096) and (20,000, 1,024), with the profiled device
-   time of the kernel and of ``torch.mm`` at the two small shapes, where
-   the events read the host's launch rate), the round's wall time
-   (the fedavg, fedadam, fedbuff and streamed lanes), and profiled rounds,
-   a profiled decode step and prefill.
+   (100, 1024), (256, 4096) and (20,000, 1,024)), and for every kernel and
+   yardstick whose events read under ~30 us (the host's launch rate, not the
+   device) its profiled device time per call; the round's wall time (the
+   fedavg, fedadam, fedbuff and streamed lanes), and profiled rounds, a
+   profiled decode step and prefill.
 
 The last two lines are the kernels' JSON record and the device JSON.
 """
@@ -328,20 +332,22 @@ def check_rsu(K, P, R, mode, with_carry, device) -> float:
     return float((got - ref).abs().max())
 
 
-def check_rsu_walk(K, B, device) -> None:
+def check_rsu_walk(K, B, device, R=10) -> None:
     """The streamed lane's chunk walk (the first chunk without a carry, the
     rest in place) against zeros + the per-chunk plain sums, bit for bit."""
     from repro_torch.kernels.rsu_reduce import rsu_reduce, rsu_reduce_plain
 
-    P, R = 159_010, 10
+    P = 159_010
     u, w, rid, _ = rsu_operands(K, P, R, "exact", device)
     carry, acc = None, torch.zeros((R, P), device=device)
     for i in range(0, K, B):
         carry, _ = rsu_reduce(u[i:i + B], w[i:i + B], rid[i:i + B], R, carry=carry)
         acc = acc + rsu_reduce_plain(u[i:i + B], w[i:i + B], rid[i:i + B], R)[0]
     if not torch.equal(carry, acc):
-        raise AssertionError(f"rsu_reduce chunk walk K={K} B={B} is not the chunk composition")
-    print(f"rsu_reduce chunk walk K={K} in chunks of {B}: bitwise the per-chunk plain sums")
+        raise AssertionError(f"rsu_reduce chunk walk K={K} B={B} R={R} is not the chunk "
+                             "composition")
+    print(f"rsu_reduce chunk walk K={K} in chunks of {B}, R={R}: bitwise the per-chunk plain "
+          "sums")
 
 
 def swa_operands(B, C, hkv, G, D, dtype, fills, device, seed=0):
@@ -369,18 +375,25 @@ def check_swa(B, C, hkv, G, D, window, softcap, fills, dtype, device, blind=()) 
     q, k, v, kv_pos, pos = swa_operands(B, C, hkv, G, D, dtype, fills, device)
     for r in blind:
         kv_pos[r] = -1
+    from repro_torch.kernels import swa_decode as swa
+
+    before = swa.launches
     got = swa_decode(q, k, v, kv_pos, pos, window=window, softcap=softcap)
     ref = swa_decode_plain(q, k, v, kv_pos, pos, window, softcap)
     torch.cuda.synchronize()
     what = (f"swa_decode B={B} C={C} Hkv={hkv} G={G} D={D} window={window} "
             f"softcap={softcap} fills={fills} {str(dtype)[6:]}")
+    if swa.launches != before + 1:
+        raise AssertionError(f"{what}: the wrapper did not launch the kernel once")
     torch.testing.assert_close(got, ref, rtol=2e-5, atol=2e-5, msg=lambda m: f"{what}: {m}")
+    if not torch.equal(got, swa_decode(q, k, v, kv_pos, pos, window=window, softcap=softcap)):
+        raise AssertionError(f"{what}: a second launch differs from the first")
     for r in blind:
         if not torch.equal(got[r], torch.zeros_like(got[r])):
             raise AssertionError(f"{what}: row {r} sees no slot but is not 0")
     err = float((got - ref).abs().max())
     print(f"{what}{' blind rows ' + str(list(blind)) if blind else ''}: "
-          f"max_abs_err={err:.3e} (tol 2e-5)")
+          f"max_abs_err={err:.3e} (tol 2e-5), repeats bitwise")
     return err
 
 
@@ -447,6 +460,8 @@ def check_gram(n, d, dtype, device, zero_row=None) -> float:
     torch.testing.assert_close(got, ref, rtol=0, atol=1e-5, msg=lambda m: f"{what}: {m}")
     if not torch.equal(got, got.T):
         raise AssertionError(f"{what}: the Gram is not bitwise symmetric")
+    if not torch.equal(got, pc.pairwise_cosine(x)):
+        raise AssertionError(f"{what}: a second launch differs from the first")
     keep = torch.ones((n,), dtype=torch.bool, device=device)
     if zero_row is not None:
         keep[zero_row] = False
@@ -455,8 +470,9 @@ def check_gram(n, d, dtype, device, zero_row=None) -> float:
     if not bool(((got.diagonal()[keep] - 1.0).abs() <= 1e-5).all()):
         raise AssertionError(f"{what}: a diagonal entry is more than 1e-5 from 1")
     err = float((got - ref).abs().max())
-    print(f"{what}: max_abs_err={err:.3e} (tol 1e-5), bitwise symmetric, diagonal within "
-          f"1e-5 of 1")
+    tm, splits, _ = pc.plan(n, n, d, True)
+    print(f"{what} ({16 * tm}x{16 * tm} tiles, D in {splits}): max_abs_err={err:.3e} "
+          f"(tol 1e-5), bitwise symmetric, repeats bitwise, diagonal within 1e-5 of 1")
     return err
 
 
@@ -956,7 +972,7 @@ def fused_vs_unfused(sim, state0) -> bool:
     return not differ
 
 
-def device_us_per_call(fn, calls: int) -> float:
+def device_us_per_call(fn, calls: int = 20) -> float:
     """Mean device time of ``fn``'s kernels per call, from torch.profiler
     (NaN when the profiler records no device activity)."""
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
@@ -977,11 +993,12 @@ def time_gram(kernels, lib, stream, sel_run, main_err, device, card):
     """``pairwise_cosine`` at the stage-3 shape (100, 1024), the reference
     kernel bench's (256, 4096) and the fleet's N with the default sketch
     (20,000, 1,024): the C entry point on normalized rows with a preallocated
-    output, cycling operand copies that exceed the 50 MB L2; the wrapper; the
-    plain version; and one ``torch.mm(xn, xn.T)`` (cuBLAS SGEMM, TF32 off)."""
+    output and scratch (the symmetric form, as the wrapper plans it),
+    cycling operand copies that exceed the 50 MB L2; the wrapper; the plain
+    version; and one ``torch.mm(xn, xn.T)`` (cuBLAS SGEMM, TF32 off)."""
     from repro_torch.kernels import build as kbuild
     from repro_torch.kernels.pairwise_cosine import (_normalize, pairwise_cosine,
-                                                     pairwise_cosine_plain)
+                                                     pairwise_cosine_plain, plan)
 
     rows = {}
     for n, d, copies, iters in ((100, 1024, 160, 200), (256, 4096, 16, 200),
@@ -989,6 +1006,10 @@ def time_gram(kernels, lib, stream, sel_run, main_err, device, card):
         xs = [gram_rows(n, d, torch.float32, device, 500 + i) for i in range(copies)]
         xns = [_normalize(x) for x in xs]
         out = torch.empty((n, n), dtype=torch.float32, device=device)
+        tm, splits, tiles = plan(n, n, d, True)
+        scratch = torch.empty((tiles * splits * (16 * tm) ** 2 if splits > 1 else 1,),
+                              dtype=torch.float32, device=device)
+        arrivals = kbuild.counters(device, "gram_nt", tiles)
         it = {"i": 0}
 
         def nxt(seq):
@@ -997,8 +1018,9 @@ def time_gram(kernels, lib, stream, sel_run, main_err, device, card):
 
         def launch():
             xn = nxt(xns)
-            kbuild.check(lib.gram_nt_launch(xn.data_ptr(), xn.data_ptr(), n, n, d,
-                                            out.data_ptr(), stream), "gram_nt")
+            kbuild.check(lib.gram_nt_launch(xn.data_ptr(), xn.data_ptr(), n, n, d, 1, tm, splits,
+                                            4, out.data_ptr(), scratch.data_ptr(),
+                                            arrivals.data_ptr(), stream), "gram_nt")
 
         def library():
             xn = nxt(xns)
@@ -1018,17 +1040,18 @@ def time_gram(kernels, lib, stream, sel_run, main_err, device, card):
         t.update(bound=b_ms, bound_by=b_by, flops=flops)
         rows[(n, d)] = t
         if copies > 1:  # small shapes: the device time per call under the profiler
-            dev_us = {name: device_us_per_call(fn, 20) for name, fn in
+            dev_us = {name: device_us_per_call(fn) for name, fn in
                       (("kernel", launch), ("torch.mm", library))}
             print(f"pairwise_cosine N={n} D={d} device time per call (profiler): kernel "
                   f"{dev_us['kernel']:.2f} us, torch.mm {dev_us['torch.mm']:.2f} us [{card}]")
-        print(f"pairwise_cosine N={n} D={d}: kernel {t['kernel'] * 1e3:.2f} us "
+        print(f"pairwise_cosine N={n} D={d} ({16 * tm}x{16 * tm} tiles, {tiles} of them, D in "
+              f"{splits}): kernel {t['kernel'] * 1e3:.2f} us "
               f"({flops / (t['kernel'] * 1e-3) / 1e12:.2f} useful TFLOP/s), wrapper "
               f"{t['wrapper'] * 1e3:.2f} us, plain {t['plain'] * 1e3:.2f} us, torch.mm "
               f"{t['library'] * 1e3:.2f} us ({flops / (t['library'] * 1e-3) / 1e12:.2f} "
               f"useful TFLOP/s), bound {b_ms * 1e3:.3f} us ({b_by}: {flops / 1e6:.1f} MFLOP, "
               f"{(n * d * 4 + n * n * 4) / 1e6:.2f} MB) [{card}]")
-        del xs, xns, out
+        del xs, xns, out, scratch
         torch.cuda.empty_cache()
     t = rows[(100, 1024)]
     kernels.append({
@@ -1049,7 +1072,8 @@ def time_serving_kernels(kernels, lib, stream, serve_launches, main_err, device,
     with the same boolean mask (GQA through ``enable_gqa``)."""
     from repro_torch.kernels import build as kbuild
     from repro_torch.kernels.ssd_scan import smem_bytes, ssd_scan_plain
-    from repro_torch.kernels.swa_decode import swa_decode_plain
+    from repro_torch.kernels.swa_decode import (scratch_numel, split_len, swa_decode_plain,
+                                                vector_bytes)
 
     F = torch.nn.functional
     B, C, hkv, G, D, window = 4, 1024, 5, 5, 64, 1024
@@ -1058,6 +1082,10 @@ def time_serving_kernels(kernels, lib, stream, serve_launches, main_err, device,
             for i in range(n_copies)]
     out = torch.empty((B, hkv, G, D), dtype=torch.float32, device=device)
     sqrt_d = float(torch.sqrt(torch.tensor(D, dtype=torch.float32)))
+    scratch = torch.empty((scratch_numel(B, C, hkv, G, D, 2),), dtype=torch.float32,
+                          device=device)
+    arrivals = kbuild.counters(device, "swa_decode", B * hkv)
+    split, vec = split_len(D, 2), vector_bytes(D, 2, *sets[0][1:3])
     it = {"i": 0}
 
     def nxt(xs):
@@ -1068,7 +1096,8 @@ def time_serving_kernels(kernels, lib, stream, serve_launches, main_err, device,
         q, k, v, kv_pos, pos = nxt(sets)
         kbuild.check(lib.swa_decode_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_pos.data_ptr(), pos.data_ptr(),
-            B, C, hkv, G, D, window, 0.0, sqrt_d, 1, out.data_ptr(), stream), "swa_decode")
+            B, C, hkv, G, D, window, 0.0, sqrt_d, 1, split, vec, out.data_ptr(),
+            scratch.data_ptr(), arrivals.data_ptr(), stream), "swa_decode")
 
     def swa_plain():
         return swa_decode_plain(*nxt(sets), window)
@@ -1089,6 +1118,8 @@ def time_serving_kernels(kernels, lib, stream, serve_launches, main_err, device,
     for _ in range(2):  # the first pass warms up, the second is kept
         t = {"kernel": time_ms(swa_launch), "plain": time_ms(swa_plain, iters=50, warmup=5),
              "library": time_ms(swa_library)}
+    dev_us = {"kernel": device_us_per_call(swa_launch),
+              "scaled_dot_product_attention": device_us_per_call(swa_library)}
     q, k, v, kv_pos, pos = sets[0]
     vis = int(((kv_pos >= 0) & (kv_pos <= pos[:, None]) & (pos[:, None] - kv_pos < window))
               .sum())
@@ -1099,11 +1130,15 @@ def time_serving_kernels(kernels, lib, stream, serve_launches, main_err, device,
     # flops) and ~4 for the scale, exp and sums; per query head D divides
     swa_flops = vis * hkv * G * (4 * D + 4) + B * hkv * G * D
     b_ms, b_by = bound(swa_bytes, swa_flops)
-    print(f"swa_decode B={B} C={C} Hkv={hkv} G={G} D={D} bf16, full ring: kernel "
-          f"{t['kernel'] * 1e3:.2f} us ({swa_bytes / (t['kernel'] * 1e-3) / 1e9:.0f} GB/s), "
+    print(f"swa_decode B={B} C={C} Hkv={hkv} G={G} D={D} bf16, full ring ({-(-C // split)} "
+          f"splits of {split} slots, {vec}-byte copies): kernel {t['kernel'] * 1e3:.2f} us "
+          f"({swa_bytes / (t['kernel'] * 1e-3) / 1e9:.0f} GB/s), "
           f"plain {t['plain'] * 1e3:.2f} us, scaled_dot_product_attention "
           f"{t['library'] * 1e3:.2f} us, bound {b_ms * 1e3:.2f} us ({b_by}: "
           f"{swa_bytes / 1e6:.2f} MB, {swa_flops / 1e6:.1f} MFLOP) [{card}]")
+    print(f"swa_decode device time per call (profiler): kernel {dev_us['kernel']:.2f} us "
+          f"({swa_bytes / (dev_us['kernel'] * 1e-6) / 1e9:.0f} GB/s), "
+          f"scaled_dot_product_attention {dev_us['scaled_dot_product_attention']:.2f} us [{card}]")
     kernels.append({
         "name": "swa_decode", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/swa_decode.cu",
@@ -1232,7 +1267,8 @@ def main() -> int:
         check_server_contracts(K, P, device)
     main_err["rsu_reduce"] = 0.0
     for K, P, R in ((4, 159_010, 10), (32, 159_010, 10), (1, 1, 1), (1, 515, 10),
-                    (7, 515, 10), (5, 2049, 1)):
+                    (7, 515, 10), (5, 2049, 1), (7, 515, 33), (4, 159_010, 33),
+                    (32, 159_010, 100)):
         errs = [check_rsu(K, P, R, mode, with_carry, device)
                 for mode in ("rand", "exact", "one_rsu", "hole", "masked", "out_of_range")
                 for with_carry in (False, True)]
@@ -1243,6 +1279,7 @@ def main() -> int:
               f"max_abs_err={max(errs):.3e}")
     check_rsu_walk(10, 4, device)
     check_rsu_walk(100, 32, device)
+    check_rsu_walk(100, 32, device, R=40)
     main_err["swa_decode"] = main_err["ssd_scan"] = 0.0
     for dtype in (torch.bfloat16, torch.float32):
         # hymba-1.5b's decode: B=4, a full 1024-slot ring after 2,080 tokens
@@ -1256,6 +1293,19 @@ def main() -> int:
     check_swa(3, 1024, 5, 5, 64, 1024, 0.0, (2080, 2080, 2080), torch.bfloat16, device,
               blind=(1,))
     check_swa(2, 512, 2, 2, 256, 0, 50.0, (400, 5000), torch.float32, device)  # softcap
+    # the split-KV design's edges (128-slot splits; 64 for rows over 128 bytes, 32 over 256)
+    check_swa(2, 300, 2, 3, 64, 17, 0.0, (300, 250), torch.bfloat16, device)  # narrow window
+    check_swa(1, 1024, 2, 2, 64, 0, 0.0, (100,), torch.float32, device)  # empty splits
+    check_swa(2, 1000, 5, 5, 64, 1024, 0.0, (1000, 2080), torch.bfloat16, device,
+              blind=(0,))  # a blind row over 16 splits, a ragged last split
+    for dtype in (torch.bfloat16, torch.float32):
+        check_swa(1, 200, 2, 16, 256, 0, 50.0, (200,), dtype, device)  # G 16, D 256
+        check_swa(2, 130, 3, 2, 36, 0, 0.0, (130, 90), dtype, device)  # 4-byte multiple rows
+        check_swa(1, 70, 2, 3, 17, 16, 0.0, (200,), dtype, device)  # odd D
+        # past 64 splits: the combine's chunks, a later one raising the max, and
+        # (window 500, row 0) a first chunk that sees no slot
+        check_swa(2, 9000, 2, 3, 64, 500, 0.0, (9000, 12000), dtype, device)
+        check_swa(1, 9000, 2, 3, 64, 0, 0.0, (9000,), dtype, device)
     for dtype in (torch.bfloat16, torch.float32):
         # hymba-1.5b's prefill: B=4, S=2048, 50 heads of (64 x 16), Q=128
         e = check_ssd(4, 2048, 50, 64, 16, 128, False, dtype, device)
@@ -1276,7 +1326,17 @@ def main() -> int:
                 main_err["pairwise_cosine"] = e
     check_gram(100, 1024, torch.float32, device, zero_row=37)
     check_gram(9, 300, torch.bfloat16, device, zero_row=0)
-    for n, m, d in ((128, 256, 512), (33, 100, 2000), (1, 5, 1), (100, 7, 1024)):
+    # the launch plan's edges: 32 x 32 tiles at and past a tile edge with D
+    # split 1-16 ways, unsplit up to N = 1920, 128 x 128 tiles from N = 1921
+    for n, d in ((1, 33), (32, 64), (33, 64), (65, 100), (97, 33), (200, 128), (960, 64),
+                 (961, 64), (1920, 64), (1921, 64), (2000, 96)):
+        check_gram(n, d, torch.float32, device, zero_row=n // 2)
+    # 49,141 upper tiles: the tile index decodes exactly (a float square root
+    # alone is off by one near there)
+    check_gram(40_000, 32, torch.float32, device, zero_row=12_345)
+    torch.cuda.empty_cache()
+    for n, m, d in ((128, 256, 512), (33, 100, 2000), (1, 5, 1), (100, 7, 1024), (40, 50, 1000),
+                    (700, 900, 256), (2100, 1900, 64)):
         check_gram_nt(n, m, d, device)
 
     # ---- 4. main path ----------------------------------------------------
@@ -1366,18 +1426,22 @@ def main() -> int:
                               f"contract (a): hierarchical vs flat, full registry, {name}, CR 0.7")
 
     streamed_sims, two_tier_launches = {}, {}
-    for label, scenario, agg, cr in (("ring/fedavg", "ring", "fedavg", 1.0),
-                                     ("ring/fedbuff", "ring", "fedbuff", 0.7),
-                                     ("rsu_outage/fedavg", "rsu_outage", "fedavg", 1.0)):
+    for label, scenario, agg, cr, spacing in (
+            ("ring/fedavg", "ring", "fedavg", 1.0, None),
+            ("ring/fedbuff", "ring", "fedbuff", 0.7, None),
+            ("rsu_outage/fedavg", "rsu_outage", "fedavg", 1.0, None),
+            # an RSU every 250 m: R = 40, past one 32-RSU group of rsu_reduce
+            ("ring R=40/fedavg", "ring", "fedavg", 0.7, 250.0)):
         fl_s = dataclasses.replace(fl, aggregator=agg, connection_rate=cr, hierarchical=True,
                                    client_block=4)
-        traffic_s = scenario_config(scenario, num_vehicles=100)
+        traffic_s = scenario_config(scenario, num_vehicles=100,
+                                    **({} if spacing is None else {"rsu_spacing_m": spacing}))
         sim_s = FLSimulation(get_config("fl-mnist-mlp"), fl_s, traffic_s, "mnist",
                              "contextual", prng.key(0), device=device)
         server = "server_update_buffered" if agg == "fedbuff" else "fedavg_reduce"
         n_chunks = -(-K // fl_s.client_block)
-        print(f"-- {label} at CR {cr}: K={K} in {n_chunks} chunks of {fl_s.client_block} "
-              f"({server})")
+        print(f"-- {label} at CR {cr}: R={sim_s.scn.n_rsu}, K={K} in {n_chunks} chunks of "
+              f"{fl_s.client_block} ({server})")
         st, recs, two_tier_launches[label] = drive(sim_s, server, rsu_per_round=n_chunks)
         # each round against the unblocked hierarchical round from the same
         # state: the economics bit for bit, the model within 1e-6 (the
@@ -1575,6 +1639,7 @@ def main() -> int:
             time_ms(launch),
             time_ms(lambda p=predict: rttg_latency_plain(pos, speed, accel, t, mb, None, scn, p),
                     iters=20, warmup=3),
+            device_us_per_call(launch),
         )
     wrapper_ms = time_ms(lambda: rttg_latency(pos, speed, accel, t, mb, None, scn, predict=True),
                          iters=50, warmup=5)
@@ -1592,10 +1657,12 @@ def main() -> int:
         "ms": times[True][0], "plain_ms": times[True][1], "bound_ms": b_ms,
         "bound_by": b_by, "library_ms": None,
     })
-    print(f"rttg_latency N=100 R={R} predict (50 steps): kernel {times[True][0] * 1e3:.2f} us, "
+    print(f"rttg_latency N=100 R={R} predict (50 steps): kernel {times[True][0] * 1e3:.2f} us "
+          f"(device time {times[True][2]:.2f} us: the count, memset and finish launches), "
           f"plain {times[True][1] * 1e3:.1f} us, bound {b_ms * 1e3:.5f} us ({b_by}) [{card}]")
-    print(f"rttg_latency N=100 R={R} realized (0 steps): kernel {times[False][0] * 1e3:.2f} us, "
-          f"plain {times[False][1] * 1e3:.1f} us [{card}]")
+    print(f"rttg_latency N=100 R={R} realized (0 steps): kernel {times[False][0] * 1e3:.2f} us "
+          f"(device time {times[False][2]:.2f} us), plain {times[False][1] * 1e3:.1f} us "
+          f"[{card}]")
     print(f"rttg_latency wrapper as the round calls it (operand packing included): "
           f"{wrapper_ms * 1e3:.1f} us [{card}]")
 
@@ -1621,6 +1688,7 @@ def main() -> int:
     fed_ms = time_ms(fed_launch)
     fed_plain = time_ms(lambda: fedavg_reduce_plain(nxt(), w))
     fed_lib = time_ms(lambda: torch.mv(nxt().t(), w))
+    fed_dev = (device_us_per_call(fed_launch), device_us_per_call(lambda: torch.mv(nxt().t(), w)))
     fed_bytes = K * P * 4 + K * 4 + P * 4
     b_ms, b_by = bound(fed_bytes, 2 * K * P)
     kernels.append({
@@ -1633,7 +1701,9 @@ def main() -> int:
     })
     print(f"fedavg_reduce K={K} P={P} (vec {vec}): kernel {fed_ms * 1e3:.2f} us, plain "
           f"{fed_plain * 1e3:.2f} us, torch.mv {fed_lib * 1e3:.2f} us, bound "
-          f"{b_ms * 1e3:.2f} us ({b_by}), {fed_bytes / (fed_ms * 1e-3) / 1e9:.0f} GB/s [{card}]")
+          f"{b_ms * 1e3:.2f} us ({b_by}), {fed_bytes / (fed_ms * 1e-3) / 1e9:.0f} GB/s; device "
+          f"time per call (profiler): kernel {fed_dev[0]:.2f} us, torch.mv {fed_dev[1]:.2f} us "
+          f"[{card}]")
 
     # server_update (fedadam, rule 2) and server_update_buffered (fedbuff,
     # rule 5, draining all Kb = 8 ring rows) at K=10, P=159,010, cycling
@@ -1687,9 +1757,10 @@ def main() -> int:
         for name, (rule, buffered, _rows, _n) in su_runs.items():
             su_times[name] = (time_ms(lambda: su_launch(rule, buffered)),
                               time_ms(lambda: su_plain(rule, buffered)),
-                              time_ms(lambda: su_wrapper(rule, buffered)))
+                              time_ms(lambda: su_wrapper(rule, buffered)),
+                              device_us_per_call(lambda: su_launch(rule, buffered)))
     for name, (rule, buffered, rows_b, n_launch) in su_runs.items():
-        ms, plain_ms, wrap_ms = su_times[name]
+        ms, plain_ms, wrap_ms, dev_us = su_times[name]
         rows = K + rows_b
         # each input read once (rows, weights, drain flag, params, and m, v
         # under a moment rule), each output written once (params', and m', v'
@@ -1708,8 +1779,8 @@ def main() -> int:
             "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
         })
         print(f"{name} K={K} Kb={rows_b} P={P} rule {rule} (vec {vec}): kernel "
-              f"{ms * 1e3:.2f} us, wrapper {wrap_ms * 1e3:.2f} us, plain "
-              f"{plain_ms * 1e3:.2f} us, bound {b_ms * 1e3:.2f} us ({b_by}), "
+              f"{ms * 1e3:.2f} us (device time {dev_us:.2f} us), wrapper {wrap_ms * 1e3:.2f} us, "
+              f"plain {plain_ms * 1e3:.2f} us, bound {b_ms * 1e3:.2f} us ({b_by}), "
               f"{su_bytes / (ms * 1e-3) / 1e9:.0f} GB/s [{card}]")
 
     # rsu_reduce at the streamed lanes' chunks: R=10, the paper's K=4 and the
@@ -1756,7 +1827,9 @@ def main() -> int:
             t = {"carry": time_ms(lambda: rsu_launch(True)),
                  "first": time_ms(lambda: rsu_launch(False)),
                  "plain": time_ms(rsu_plain_call), "library": time_ms(rsu_library),
-                 "wrapper": time_ms(rsu_wrapper)}
+                 "wrapper": time_ms(rsu_wrapper),
+                 "carry_dev": device_us_per_call(lambda: rsu_launch(True)),
+                 "library_dev": device_us_per_call(rsu_library)}
         # each input read once (rows, weights, ids, and the carry when there is
         # one), each output written once (partials, mass); 2 flops per row value
         # (its one RSU's multiply-add) plus the carry's add per partial
@@ -1770,7 +1843,9 @@ def main() -> int:
               f"{t['carry_bytes'] / (t['carry'] * 1e-3) / 1e9:.0f} GB/s), first chunk "
               f"{t['first'] * 1e3:.2f} us (bound {t['first_bound'][0] * 1e3:.2f} us), "
               f"wrapper {t['wrapper'] * 1e3:.2f} us, plain {t['plain'] * 1e3:.2f} us, "
-              f"torch.addmm {t['library'] * 1e3:.2f} us [{card}]")
+              f"torch.addmm {t['library'] * 1e3:.2f} us; device time per call (profiler): "
+              f"kernel with carry {t['carry_dev']:.2f} us, torch.addmm {t['library_dev']:.2f} us "
+              f"[{card}]")
     t = rsu_times[4]
     kernels.append({
         "name": "rsu_reduce", "route": "cuda",

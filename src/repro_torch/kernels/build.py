@@ -39,9 +39,10 @@ _SIGNATURES = {
     "server_update_launch": (_P, _P, _I, _P, _P, _I, _P, _LL, _P, _P, _P, _I, _I,
                              _F, _F, _F, _F, _F, _F, _I, _P, _P, _P, _P),
     "rsu_reduce_launch": (_P, _P, _P, _I, _I, _LL, _I, _P, _P, _P, _P),
-    "swa_decode_launch": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _I, _P, _P),
+    "swa_decode_launch": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _I, _I, _I,
+                          _P, _P, _P, _P),
     "ssd_scan_launch": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P),
-    "gram_nt_launch": (_P, _P, _I, _I, _I, _P, _P),
+    "gram_nt_launch": (_P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P),
 }
 
 
@@ -54,6 +55,7 @@ class BuildInfo:
 
 _LIBRARY = None
 _INFO = None
+_COUNTERS = {}
 
 
 def _nvcc() -> str:
@@ -130,6 +132,25 @@ def library() -> ctypes.CDLL:
             fn.restype = ctypes.c_int
         _LIBRARY = lib
     return _LIBRARY
+
+
+def counters(device, name: str, n: int):
+    """``name``'s arrival counters on ``device``: at least ``n`` int32 zeros.
+
+    The kernels that finish a reduction in the last block to arrive count
+    blocks in on these and reset each count to 0 before they exit, so the
+    buffer is zeroed once per device (and again only when a call needs more
+    counters than it holds), not per call.  Calls on one stream run in
+    order, so they never share a count.
+    """
+    import torch
+
+    key = (name, torch.device(device))
+    buf = _COUNTERS.get(key)
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros((max(n, 1024),), dtype=torch.int32, device=device)
+        _COUNTERS[key] = buf
+    return buf
 
 
 def check(status: int, name: str) -> None:

@@ -21,8 +21,9 @@ from repro_torch.kernels.fedavg_reduce import _vector_width
 # Kernel launches made by ``rsu_reduce`` (one per call on CUDA tensors).
 launches = 0
 
-# The kernel keeps one register accumulator per RSU and column.
-MAX_RSU = 32
+# The kernel's blocks take groups of 32 RSUs along the grid's y axis, whose
+# extent (65,535) bounds R.
+MAX_RSU = 32 * 65535
 
 
 def rsu_reduce_plain(updates: torch.Tensor, weights: torch.Tensor, rid: torch.Tensor,
@@ -59,7 +60,7 @@ def _rsu_reduce_cuda(updates, weights, rid, n_rsu, carry):
         raise ValueError(f"rsu_reduce: updates must be a contiguous (K, P) tensor, "
                          f"got {tuple(updates.shape)}")
     if not 1 <= n_rsu <= MAX_RSU:
-        raise ValueError(f"rsu_reduce: the kernel holds 1 to {MAX_RSU} RSUs, got {n_rsu}")
+        raise ValueError(f"rsu_reduce: the kernel takes 1 to {MAX_RSU} RSUs, got {n_rsu}")
     K, P = updates.shape
     if K < 1:
         raise ValueError("rsu_reduce: the cohort chunk must have at least one row")

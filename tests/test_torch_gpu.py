@@ -14,13 +14,17 @@ its ``params`` within 100 times that (the adaptive step
 ``m / (sqrt(v) + tau)`` magnifies the sum's error by up to
 ``(1 - beta1) / tau``), and its two contracts bit for bit.  The RSU segment
 reduce within 1e-6 of ``sum_k |m_kr u_k|`` on random operands and bit for
-bit on dyadic ones (any order sums those exactly), a chunk walk included.
+bit on dyadic ones (any order sums those exactly), a chunk walk included,
+at 10 RSUs and past one 32-RSU group of the kernel (33, 40 and 100).
 The two-tier rounds: the hierarchical lane is the flat lane bit for bit
 (contract (a)), and the streamed lane launches one ``rsu_reduce`` per
 chunk.  At fleet size the windowed neighbour search is the dense one
 exactly and the compact fusion the dense fusion within rtol 1e-5.  The
-pairwise-cosine Gram within atol 1e-5 of its plain version (TF32 off) and
-bitwise symmetric; a selector round on the card against the CPU (RSU ids,
+pairwise-cosine Gram within atol 1e-5 of its plain version (TF32 off),
+bitwise symmetric and repeated bitwise, also at its launch plan's tile and
+split edges; the split-KV decode at its split edges (a window narrower than
+a split, empty and ragged splits, blind rows, narrow rows, more than 64
+splits); a selector round on the card against the CPU (RSU ids,
 connectivity, masks and cluster labels equal), and the unfused round
 against the fused one (integers equal, floats within rtol 1e-5).  Without
 a card every test skips, decided in the fixture.
@@ -245,7 +249,9 @@ def _rsu_operands(K, P, R, dev, seed, exact):
 @pytest.mark.parametrize("carry", [False, True])
 @pytest.mark.parametrize("mode", ["rand", "exact", "same", "hole", "masked", "out_of_range"])
 @pytest.mark.parametrize("K,P,R", [(4, 159_010, 10), (32, 159_010, 10), (1, 1, 1),
-                                   (1, 515, 10), (7, 515, 10), (5, 2049, 1)])
+                                   (1, 515, 10), (7, 515, 10), (5, 2049, 1),
+                                   # beyond one block's group of 32 RSUs
+                                   (7, 515, 33), (4, 159_010, 33), (32, 2049, 100)])
 def test_rsu_reduce_kernel_matches_plain(dev, K, P, R, mode, carry):
     u, w, rid, c = _rsu_operands(K, P, R, dev, K * 31 + P + R, exact=mode != "rand")
     if mode == "same":
@@ -288,6 +294,19 @@ def test_rsu_reduce_chunk_walk_is_the_chunkwise_plain_composition(dev, K, B):
     assert torch.equal(carry, acc)
 
 
+@pytest.mark.parametrize("R", [33, 100])
+def test_rsu_reduce_chunk_walk_beyond_one_rsu_group(dev, R):
+    """The chunk walk at R > 32 (several RSU groups per column block), bit
+    for bit the per-chunk plain sums."""
+    P = 4099
+    u, w, rid, _ = _rsu_operands(40, P, R, dev, R, exact=True)
+    carry, acc = None, torch.zeros((R, P), device=dev)
+    for i in range(0, 40, 16):
+        carry, _ = rsu_mod.rsu_reduce(u[i:i + 16], w[i:i + 16], rid[i:i + 16], R, carry=carry)
+        acc = acc + rsu_mod.rsu_reduce_plain(u[i:i + 16], w[i:i + 16], rid[i:i + 16], R)[0]
+    assert torch.equal(carry, acc)
+
+
 def test_rsu_reduce_non_finite_row_poisons_every_rsu_as_the_plain_version(dev):
     u, w, rid, _ = _rsu_operands(5, 2049, 4, dev, 3, exact=True)
     u[2, :7] = float("inf")
@@ -303,6 +322,8 @@ def test_rsu_reduce_wrapper_refuses_what_the_kernel_does_not_take(dev):
     with pytest.raises(NotImplementedError):
         rsu_mod.rsu_reduce(u.to(torch.bfloat16), w, rid, 3)
     with pytest.raises(ValueError):
+        rsu_mod.rsu_reduce(u, w, rid, 0)
+    with pytest.raises(ValueError):  # past the grid's 65,535 groups of 32 RSUs
         rsu_mod.rsu_reduce(u, w, rid, rsu_mod.MAX_RSU + 1)
     with pytest.raises(ValueError):
         rsu_mod.rsu_reduce(u, w, rid.long(), 3)
@@ -312,14 +333,14 @@ def test_rsu_reduce_wrapper_refuses_what_the_kernel_does_not_take(dev):
         rsu_mod.rsu_reduce(u, w, rid, 3, carry=c[:2])
 
 
-def _two_tier_sims(dev, aggregator, cr, **kw):
+def _two_tier_sims(dev, aggregator, cr, traffic_kw=None, **kw):
     from repro_torch.config import FLConfig
     from repro_torch.configs import get_config
     from repro_torch.fl.simulation import FLSimulation
 
     fl = FLConfig(num_clients=20, samples_per_client=64, local_epochs=1, num_clusters=3,
                   select_fraction=0.35, connection_rate=cr, aggregator=aggregator, **kw)
-    traffic = scenario_config("ring", num_vehicles=20)
+    traffic = scenario_config("ring", num_vehicles=20, **(traffic_kw or {}))
     cfg = get_config("fl-mnist-mlp").replace(d_ff=32)
     return FLSimulation(cfg, fl, traffic, "mnist", "contextual", prng.key(0), device=dev)
 
@@ -354,6 +375,24 @@ def test_streamed_lane_on_the_card_launches_one_reduce_per_chunk(dev, aggregator
                   "sim_time"):
             assert torch.equal(getattr(mh, f), getattr(mb, f)), f
     torch.testing.assert_close(streamed.state.params, hier.state.params, rtol=0, atol=1e-6)
+
+
+def test_streamed_lane_with_40_rsus_on_the_card_matches_the_cpu(dev):
+    """The 10 km ring with an RSU every 250 m (R = 40: two RSU groups per
+    column block) on the streamed lane: two rounds on the card and on the
+    CPU from the same seed, three reduce launches a round, the same cohort
+    counts and test accuracy within 0.01."""
+    wide = dict(rsu_spacing_m=250.0)
+    card = _two_tier_sims(dev, "fedavg", 0.7, wide, hierarchical=True, client_block=3)
+    cpu = _two_tier_sims("cpu", "fedavg", 0.7, wide, hierarchical=True, client_block=3)
+    assert card.scn.n_rsu == 40
+    before = rsu_mod.launches
+    rg, rc = card.run(2), cpu.run(2)
+    assert rsu_mod.launches == before + 2 * 3
+    for a, b in zip(rg, rc):
+        assert (a.n_selected, a.n_succeeded, a.n_buffered, a.n_drained) == (
+            b.n_selected, b.n_succeeded, b.n_buffered, b.n_drained)
+        assert abs(a.test_acc - b.test_acc) <= 0.01
 
 
 @pytest.mark.parametrize("dup", [False, True])
@@ -423,6 +462,15 @@ def _swa_operands(B, C, hkv, G, D, dtype, dev, fills, seed=0):
     (2, 300, 4, 1, 128, 64, 0.0, (300, 77)),  # G = 1, a window inside the ring
     (2, 512, 2, 2, 256, 0, 50.0, (400, 5000)),  # a partly filled ring; softcap 50; D 256
     (1, 64, 1, 16, 32, 17, 30.0, (3000,)),  # a wrapped ring, pos far beyond C; G 16
+    # the split-KV design's edges (128-slot splits; 64 for rows over 128 bytes, 32 over 256)
+    (2, 300, 2, 3, 64, 17, 0.0, (300, 250)),  # a window narrower than a split
+    (1, 1024, 2, 2, 64, 0, 0.0, (100,)),  # splits 2..15 hold no slot
+    (1, 200, 2, 16, 256, 0, 50.0, (200,)),  # G 16, D 256, softcap 50
+    (2, 130, 3, 2, 36, 0, 0.0, (130, 90)),  # a row of 4-byte multiples, not 16
+    (1, 70, 2, 3, 17, 16, 0.0, (200,)),  # odd D: element copies in bf16
+    # past 64 splits the last block combines in chunks, rescaling between them
+    (1, 9000, 2, 3, 64, 0, 0.0, (9000,)),
+    (2, 9000, 1, 2, 64, 500, 0.0, (9000, 12000)),  # row 0: the first chunk sees nothing
 ])
 def test_swa_decode_kernel_matches_plain(dev, dtype, B, C, hkv, G, D, window, softcap, fills):
     from repro_torch.kernels import swa_decode as swa
@@ -454,6 +502,25 @@ def test_swa_decode_row_with_no_visible_slot_is_zero(dev, dtype):
     torch.testing.assert_close(got, ref, rtol=2e-5, atol=2e-5)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_swa_decode_blind_rows_across_many_splits_are_zero(dev, dtype):
+    """hymba's decode shape (16 splits per (b, kv head)) with row 1's ring
+    empty and row 2's window past every slot: exactly 0 there; the run
+    repeats bitwise."""
+    from repro_torch.kernels import swa_decode as swa
+
+    q, k, v, kv_pos, pos = _swa_operands(4, 1024, 5, 5, 64, dtype, dev, (2080,) * 4)
+    kv_pos[1] = -1
+    kv_pos[2] = torch.clamp(kv_pos[2], max=1000)  # every slot before pos - window
+    before = swa.launches
+    got = swa.swa_decode(q, k, v, kv_pos, pos, window=1024)
+    assert swa.launches == before + 1
+    ref = swa.swa_decode_plain(q, k, v, kv_pos, pos, 1024)
+    assert torch.equal(got[1:3], torch.zeros_like(got[1:3]))
+    torch.testing.assert_close(got, ref, rtol=2e-5, atol=2e-5)
+    assert torch.equal(got, swa.swa_decode(q, k, v, kv_pos, pos, window=1024))
+
+
 def test_swa_decode_wrapper_refuses_what_the_kernel_does_not_take(dev):
     from repro_torch.kernels import swa_decode as swa
 
@@ -467,6 +534,11 @@ def test_swa_decode_wrapper_refuses_what_the_kernel_does_not_take(dev):
     big = torch.zeros((1, 1, 17, 32), device=dev)
     with pytest.raises(ValueError):
         swa.swa_decode(big, k, v, kv_pos, pos)  # G = 17
+    many = torch.zeros((swa.MAX_BATCH_HEADS + 1, 1, 1, 1), device=dev)
+    with pytest.raises(ValueError):  # B * Hkv past the grid's y-extent
+        swa.swa_decode(many, many, many,
+                       torch.zeros((swa.MAX_BATCH_HEADS + 1, 1), dtype=torch.int32, device=dev),
+                       torch.zeros((swa.MAX_BATCH_HEADS + 1,), dtype=torch.int32, device=dev))
 
 
 def _ssd_operands(B, S, nh, hp, ds, dtype, dev, seed=0, with_h0=False):
@@ -605,7 +677,38 @@ def test_pairwise_cosine_zero_row_is_exactly_zero_on_the_card(dev):
     torch.testing.assert_close(got, pc.pairwise_cosine_plain(x), rtol=0, atol=1e-5)
 
 
-@pytest.mark.parametrize("n,m,d", [(128, 256, 512), (33, 100, 2000), (1, 5, 1), (100, 7, 1024)])
+# the launch plan's edges (kernels/pairwise_cosine.py::plan): one row; 32 x 32
+# tiles at and past a tile edge, with D split 1, 2, 8 and 16 ways; unsplit 32 x
+# 32 tiles up to N = 1920 and the switch to 128 x 128 tiles at N = 1921
+GRAM_EDGES = [(1, 33), (32, 64), (33, 64), (64, 100), (65, 100), (97, 33), (100, 1024),
+              (129, 513), (200, 128), (960, 64), (961, 64), (1920, 64), (1921, 64),
+              (2000, 96)]
+
+
+@pytest.mark.parametrize("n,d", GRAM_EDGES)
+def test_pairwise_cosine_at_the_plans_tile_and_split_edges(dev, n, d):
+    """One launch; within atol 1e-5 of the plain version, bitwise symmetric,
+    the diagonal within 1e-5 of 1, a zero row exactly zero in its row and
+    column, and a second call bitwise the first."""
+    from repro_torch.kernels import pairwise_cosine as pc
+    from repro_torch.utils.device import resolve_device
+
+    resolve_device(dev)
+    x = _gram_rows(n, d, dev, n + 7 * d)
+    x[n // 2] = 0
+    before = pc.launches
+    got = pc.pairwise_cosine(x)
+    assert pc.launches == before + 1
+    torch.testing.assert_close(got, pc.pairwise_cosine_plain(x), rtol=0, atol=1e-5)
+    assert torch.equal(got, got.T)
+    assert not got[n // 2].any() and not got[:, n // 2].any()
+    keep = torch.arange(n, device=dev) != n // 2
+    assert bool(((got.diagonal()[keep] - 1.0).abs() <= 1e-5).all())
+    assert torch.equal(got, pc.pairwise_cosine(x))
+
+
+@pytest.mark.parametrize("n,m,d", [(128, 256, 512), (33, 100, 2000), (1, 5, 1), (100, 7, 1024),
+                                   (40, 50, 1000), (700, 900, 256), (2100, 1900, 64)])
 def test_gram_nt_kernel_matches_plain(dev, n, m, d):
     from repro_torch.kernels import pairwise_cosine as pc
     from repro_torch.utils.device import resolve_device

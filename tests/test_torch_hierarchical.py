@@ -17,7 +17,9 @@ What is held:
   hierarchical lane (``client_block=0``) for every registered rule on
   ``rush_hour`` and ``rsu_outage``; the streamed lane (N=20, K=7,
   ``client_block=3``: three chunks, the last padded by 2) for every rule,
-  and a fedbuff round that both drains and parks;
+  a fedbuff round that both drains and parks, and the streamed round on a
+  ring with 40 RSUs (past the 32 that one block of the card's
+  ``rsu_reduce`` holds);
 * the lane's two ``ValueError``s, the JAX package's messages.
 """
 import dataclasses
@@ -224,8 +226,9 @@ def test_rsu_reduce_refuses_devices_it_does_not_serve():
 # ---------------------------------------------------------------------------
 # whole rounds from an injected JAX state
 # ---------------------------------------------------------------------------
-def _env(n, scenarios, **kw):
-    """Both sides' full-registry round programs for one two-tier config."""
+def _env(n, scenarios, traffic_kw=None, **kw):
+    """Both sides' full-registry round programs for one two-tier config
+    (``traffic_kw`` overrides the scenarios' traffic fields)."""
     state, data, fl, api = jax_experiment(scenario=scenarios[0], n_clients=n, warmup=False,
                                           hierarchical=True, **kw)
     spec_tree = jax.eval_shape(lambda k: split_params(api.init(k))[0], jax.random.key(0))
@@ -236,8 +239,9 @@ def _env(n, scenarios, **kw):
     tfl = FLConfig(**small_fl_kwargs(n, hierarchical=True, **kw))
     tstep = rounds.make_round_step(tapi.loss, tfl, tfl.n_select, mb, tapi.spec,
                                    ("contextual",), aggregators=AGGREGATOR_ORDER)
-    scn = {s: (jscenario_params(jscenario_config(s, num_vehicles=n)),
-               scenario_params(scenario_config(s, num_vehicles=n))) for s in scenarios}
+    tkw = traffic_kw or {}
+    scn = {s: (jscenario_params(jscenario_config(s, num_vehicles=n, **tkw)),
+               scenario_params(scenario_config(s, num_vehicles=n, **tkw))) for s in scenarios}
     return dict(state=state, data=data, jstep=jstep, tstep=tstep, scn=scn, fl=tfl)
 
 
@@ -301,6 +305,27 @@ def test_streamed_fedbuff_round_that_drains_and_parks(streamed_env):
             break
     assert int(m.n_drained) > 0 and int(m.n_buffered) > 0, "no drain-and-park round"
     _one_round(env, "rush_hour", FEDBUFF_IDX, prev)
+
+
+@pytest.fixture(scope="module")
+def wide_env():
+    """The streamed lane (K = 7 in chunks of 3, CR 0.7) on the 10 km ring with
+    an RSU every 250 m: R = 40."""
+    env = _env(20, ("ring",), traffic_kw=dict(rsu_spacing_m=250.0), connection_rate=0.7,
+               select_fraction=0.35, client_block=3)
+    assert env["scn"]["ring"][1].n_rsu == 40
+    return env
+
+
+@pytest.mark.parametrize("rule", [0, FEDBUFF_IDX])
+def test_streamed_round_with_40_rsus_matches_the_jax_round(wide_env, rule):
+    """No catalog scenario has more than 10 RSUs; this one has 40, so the
+    per-RSU partials span two of the card kernel's RSU groups."""
+    env = wide_env
+    jscn = env["scn"]["ring"][0]
+    js, _ = env["jstep"](env["state"], jscn, jnp.int32(0), jnp.int32(rule), env["data"], True)
+    jm = _one_round(env, "ring", rule, js)
+    assert int(jm.n_selected) > 0
 
 
 # ---------------------------------------------------------------------------

@@ -106,3 +106,33 @@ def test_wrappers_raise_on_a_device_that_is_neither_cpu_nor_cuda():
         pc.gram_nt(x, x)
     with pytest.raises(ValueError, match="unsupported device"):
         pc.pairwise_cosine(x)
+
+
+@pytest.mark.parametrize("n,m,d,symmetric", [
+    (100, 100, 1024, True),  # the stage-3 Gram: 10 tiles of 32, D in 16
+    (256, 256, 4096, True),
+    (1920, 1920, 64, True),  # the last N on 32 x 32 tiles
+    (1921, 1921, 64, True),  # the first on 128 x 128
+    (20_000, 20_000, 1024, True),
+    (1, 1, 33, True),  # two k slabs: no split
+    (40, 50, 1000, False),
+    (2100, 1900, 64, False),
+])
+def test_the_launch_plan_fills_the_card_where_d_allows(n, m, d, symmetric):
+    """``plan``: 128 x 128 tiles once they number at least one per SM (upper
+    tiles only for the symmetric Gram), else 32 x 32; D split only over
+    fewer tiles than SMs, each split at least two 32-wide k slabs, to about
+    two blocks per SM."""
+    tm, splits, tiles = pc.plan(n, m, d, symmetric)
+    bm = 16 * tm
+    rt, ct = -(-n // bm), -(-m // bm)
+    assert tiles == (rt * (rt + 1) // 2 if symmetric else rt * ct)
+    big = -(-n // 128)
+    assert tm == (8 if (big * (big + 1) // 2 if symmetric else big * -(-m // 128)) >= pc.SMS
+                  else 2)
+    k_slabs = -(-d // pc.TILE_K)
+    if splits > 1:
+        assert tm == 2 and tiles < pc.SMS and k_slabs // splits >= 2
+        assert tiles * splits <= 2 * pc.SMS
+    if tiles < pc.SMS and k_slabs >= 4:
+        assert tiles * splits >= min(pc.SMS, tiles * (k_slabs // 2))

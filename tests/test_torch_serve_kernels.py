@@ -11,10 +11,16 @@ seed and handed to both sides.  Tolerances:
   another order on outputs of size ~1.  On a row with no visible slot the
   port gives ``ref.swa_decode``'s exact 0; the Pallas kernel's ``-1e30``
   fill averages every slot's ``v`` there, so that row is held to ``ref``.
+  The card kernel's split-KV algebra (per-split max, sum and unnormalized
+  accumulator, combined in ascending split order with empty splits
+  skipped), written here in plain torch, is held to ``ref`` at the same
+  2e-5.
 - ``ssd_scan``: 5e-4 against the per-token recurrence and the interpret-mode
   kernel (``tests/test_kernels.py``'s: the chunked form reassociates the
   recurrence), 1e-5 against the jnp chunked scan, the same algorithm.
 """
+import math
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -66,6 +72,71 @@ def test_plain_swa_decode_matches_ref_and_the_interpret_kernel(window, softcap, 
     pallas = np.asarray(jswa_kernel(*args, window=window, softcap=softcap, block_c=128,
                                     interpret=True))
     np.testing.assert_allclose(got, pallas, rtol=2e-5, atol=2e-5)
+
+
+def _split_kv_decode(q, k, v, kv_pos, pos, window, softcap, split):
+    """``csrc/swa_decode.cu``'s algebra in plain torch.  Each split of
+    ``split`` slots keeps its max m (-inf when it sees no slot), l = sum
+    exp(s - m) and the unnormalized acc = sum exp(s - m) v; the splits are
+    then combined in ascending order, skipping those with m = -inf:
+    M = max m, L = sum l exp(m - M), out = sum acc exp(m - M) / L, 0 where
+    no split sees a slot."""
+    qf, kf, vf = (torch.from_numpy(np.asarray(x, np.float32)) for x in (q, k, v))
+    jk = torch.from_numpy(kv_pos)[:, None, None, :]
+    iq = torch.from_numpy(pos)[:, None, None, None]
+    s = torch.einsum("bhgd,bchd->bhgc", qf, kf) / math.sqrt(q.shape[-1])
+    if softcap > 0:
+        s = softcap * torch.tanh(s / softcap)
+    visible = (jk >= 0) & (jk <= iq)
+    if window > 0:
+        visible = visible & ((iq - jk) < window)
+    s = torch.where(visible, s, -torch.inf)
+    parts = []
+    for c0 in range(0, k.shape[1], split):
+        sc = s[..., c0:c0 + split]
+        m = sc.amax(-1, keepdim=True)
+        seen = m > -torch.inf
+        p = torch.where(seen, torch.exp(sc - torch.where(seen, m, 0.0)), 0.0)
+        acc = torch.einsum("bhgc,bchd->bhgd", p, vf[:, c0:c0 + split])
+        parts.append((m, p.sum(-1, keepdim=True), acc, seen))
+    big = torch.stack([m for m, *_ in parts]).amax(0)
+    total = torch.zeros_like(big)
+    out = torch.zeros_like(parts[0][2])
+    for m, l, acc, seen in parts:  # ascending split order
+        w = torch.where(seen, torch.exp(m - torch.where(seen, big, 0.0)), 0.0)
+        total = total + l * w
+        out = out + acc * w
+    return torch.where(total > 0, out / torch.where(total > 0, total, 1.0), 0.0).numpy()
+
+
+@pytest.mark.parametrize("split", [1, 7, 64])
+@pytest.mark.parametrize("window,softcap", [(0, 0.0), (64, 0.0), (0, 30.0), (37, 50.0)])
+@pytest.mark.parametrize("b,hkv,g,d,c,fills", [
+    (2, 4, 2, 64, 300, (300, 290)),
+    (1, 1, 8, 128, 512, (600,)),
+    (3, 2, 1, 32, 65, (20, 65, 1000)),  # row 0: every split past the 3rd is empty
+    (2, 2, 3, 32, 32, (40, 7)),
+])
+def test_split_kv_combine_matches_ref(split, window, softcap, b, hkv, g, d, c, fills):
+    q, k, v, kv_pos, pos = _swa_inputs(b, hkv, g, d, c, fills, seed=b * c + d)
+    got = _split_kv_decode(q, k, v, kv_pos, pos, window, softcap, split)
+    args = [jnp.asarray(x) for x in (q, k, v, kv_pos, pos)]
+    want = np.asarray(jref.swa_decode(*args, window=window, softcap=softcap))
+    np.testing.assert_allclose(got, want, rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("split", [1, 7, 64])
+def test_split_kv_combine_gives_blind_rows_refs_zero(split):
+    """Row 1's ring is empty, row 2's query precedes every slot: every split
+    of those rows is skipped and the row is exactly 0, as ``ref`` gives."""
+    q, k, v, kv_pos, pos = _swa_inputs(3, 2, 3, 32, 64, (64, 64, 64), seed=5)
+    kv_pos[1] = -1
+    pos[2] = -1
+    got = _split_kv_decode(q, k, v, kv_pos, pos, 32, 0.0, split)
+    want = np.asarray(jref.swa_decode(*[jnp.asarray(x) for x in (q, k, v, kv_pos, pos)],
+                                      window=32))
+    assert np.array_equal(got[1:], np.zeros_like(got[1:]))
+    np.testing.assert_allclose(got, want, rtol=2e-5, atol=2e-5)
 
 
 def test_plain_swa_decode_row_with_no_visible_slot_is_refs_zero():
