@@ -13,8 +13,11 @@ Phases (any failure raises and exits non-zero):
    and ``server_update_buffered`` for both ``drain`` states, and their two
    bitwise contracts (rule 0 is ``fedavg_reduce`` + the AXPY; no drain is
    the unbuffered update); ``rsu_reduce`` with and without its carry, on
-   random, dyadic and special operands, at R = 10, 33 and 100 (one and
-   several 32-RSU groups), and a chunk walk bit for bit at R = 10 and 40;
+   random, dyadic and special operands, at R = 10, 33, 40 and 100 (one and
+   several 32-RSU groups) and at its launch plan's edges (K off its 4-row
+   slab, ragged and odd P, 16- and 8-byte rows, the fleet's padded last
+   chunk), each launch repeated bitwise, and a chunk walk bit for bit at
+   R = 10 and 40;
    ``swa_decode`` and ``ssd_scan`` at hymba-1.5b's shapes in bf16 and fp32
    and at their edges (a ragged split, one slot, G=1, a partly filled and a
    wrapped ring, rows with no visible slot, softcap; a window narrower than
@@ -65,9 +68,11 @@ Phases (any failure raises and exits non-zero):
    plain version and a one-call PyTorch yardstick (``pairwise_cosine`` at
    (100, 1024), (256, 4096) and (20,000, 1,024)), and for every kernel and
    yardstick whose events read under ~30 us (the host's launch rate, not the
-   device) its profiled device time per call; the round's wall time (the
-   fedavg, fedadam, fedbuff and streamed lanes), and profiled rounds, a
-   profiled decode step and prefill.
+   device) its profiled device time per call (``rsu_reduce``'s with and
+   without its carry, beside a copy of its rows); the round's wall time (the fedavg, fedadam, fedbuff
+   and streamed lanes), and profiled rounds (with ``rsu_reduce``'s calls and
+   device time per call in the streamed and fleet rounds), a profiled
+   decode step and prefill.
 
 The last two lines are the kernels' JSON record and the device JSON.
 """
@@ -276,23 +281,27 @@ def check_server_contracts(K, P, device) -> None:
     print(f"server_update contracts (a) and (b) bitwise at K={K} P={P}")
 
 
-def rsu_operands(K, P, R, mode, device):
+def rsu_operands(K, P, R, mode, device, offset=0):
     """(updates, weights, rid, carry) for ``rsu_reduce``.  ``rand``: normal
     rows, uniform weights; every other mode: dyadic rows and carry (7
     significant bits) and integer weights, whose sums are exact in any
     order, then ``one_rsu`` (all on one RSU), ``hole`` (an RSU never
     attached), ``masked`` (an RSU whose clients all weigh 0) or
-    ``out_of_range`` (ids -1 and R + 3, which contribute nothing)."""
+    ``out_of_range`` (ids -1 and R + 3, which contribute nothing).  The
+    updates start ``offset`` floats into their storage (``offset = P``: a
+    row slice ``u[1:]``)."""
     g = torch.Generator(device=device)
     g.manual_seed(K * 7919 + P * 31 + R)
     if mode == "rand":
-        u = 1e-3 * torch.randn((K, P), generator=g, device=device)
+        u = 1e-3 * torch.randn((K * P + offset,), generator=g, device=device)
         w = torch.rand((K,), generator=g, device=device)
         carry = 1e-3 * torch.randn((R, P), generator=g, device=device)
     else:
-        u = torch.randint(-64, 65, (K, P), generator=g, device=device).float() * 2.0 ** -12
+        u = torch.randint(-64, 65, (K * P + offset,), generator=g,
+                          device=device).float() * 2.0 ** -12
         w = torch.randint(0, 5, (K,), generator=g, device=device).float()
         carry = torch.randint(-64, 65, (R, P), generator=g, device=device).float() * 2.0 ** -10
+    u = u[offset:].view(K, P)
     rid = torch.randint(0, R, (K,), generator=g, device=device).to(torch.int32)
     if mode == "one_rsu":
         rid[:] = R - 1
@@ -306,18 +315,26 @@ def rsu_operands(K, P, R, mode, device):
     return u, w, rid, carry
 
 
-def check_rsu(K, P, R, mode, with_carry, device) -> float:
+def check_rsu(K, P, R, mode, with_carry, device, offset=0, pad=0) -> float:
     """The kernel against ``rsu_reduce_plain``: random operands within rtol
     1e-5 and 1e-6 of sum_k |m_kr u_k| (another summation order), the other
     modes bit for bit; a never-attached or all-zero-weight RSU's row is its
-    carry (or exactly 0) and its mass exactly 0."""
+    carry (or exactly 0) and its mass exactly 0; a second launch repeats the
+    first bit for bit.  ``offset``: the updates start that many floats into
+    their storage; ``pad``: the last ``pad`` rows are the round's padding
+    slots (weight 0, id 0)."""
     from repro_torch.kernels.rsu_reduce import rsu_reduce, rsu_reduce_plain
 
-    u, w, rid, carry = rsu_operands(K, P, R, mode, device)
+    u, w, rid, carry = rsu_operands(K, P, R, mode, device, offset)
+    if pad:
+        w[K - pad:], rid[K - pad:] = 0.0, 0
     got, mass = rsu_reduce(u, w, rid, R, carry=carry.clone() if with_carry else None)
     ref, ref_mass = rsu_reduce_plain(u, w, rid, R, carry.clone() if with_carry else None)
+    again, again_mass = rsu_reduce(u, w, rid, R, carry=carry.clone() if with_carry else None)
     torch.cuda.synchronize()
-    what = f"rsu_reduce K={K} P={P} R={R} {mode} carry={with_carry}"
+    what = f"rsu_reduce K={K} P={P} R={R} {mode} carry={with_carry} offset={offset} pad={pad}"
+    if not (torch.equal(got, again) and torch.equal(mass, again_mass)):
+        raise AssertionError(f"{what}: a second launch differs from the first")
     if mode == "rand":
         scale = float(rsu_reduce_plain(u.abs(), w, rid, R)[0].max())
         torch.testing.assert_close(got, ref, rtol=1e-5, atol=1e-6 * scale,
@@ -756,6 +773,10 @@ def profile_round(label, fn, card) -> None:
         by_name[e.name] = (c + 1, us_ + e.time_range.elapsed_us())
     for name, (c, us_) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:8]:
         print(f"  {c:5d} x {us_ / max(c, 1):9.2f} us = {us_ / 1e3:8.3f} ms  {name[:80]}")
+    for name, (c, us_) in by_name.items():
+        if "rsu_reduce" in name:  # B5 in the path, with its carry and rows warm in L2
+            print(f"  rsu_reduce in this profile: {c} calls x {us_ / c:.2f} us of device "
+                  f"time = {us_ / 1e3:.3f} ms  ({name[:60]}) [{card}]")
 
 
 def assert_rounds_bitwise(a, b, what) -> None:
@@ -1266,17 +1287,26 @@ def main() -> int:
     for K, P in ((10, 159_010), (5, 2049), (1, 1)):
         check_server_contracts(K, P, device)
     main_err["rsu_reduce"] = 0.0
-    for K, P, R in ((4, 159_010, 10), (32, 159_010, 10), (1, 1, 1), (1, 515, 10),
-                    (7, 515, 10), (5, 2049, 1), (7, 515, 33), (4, 159_010, 33),
-                    (32, 159_010, 100)):
-        errs = [check_rsu(K, P, R, mode, with_carry, device)
+    for K, P, R, offset, pad in (
+            (4, 159_010, 10, 0, 0), (32, 159_010, 10, 0, 0), (1, 1, 1, 0, 0),
+            (1, 515, 10, 0, 0), (7, 515, 10, 0, 0), (5, 2049, 1, 0, 0), (7, 515, 33, 0, 0),
+            (4, 159_010, 33, 0, 0), (32, 159_010, 100, 0, 0),
+            # the launch plan's edges: K off the 4-row slab, ragged and odd P,
+            # 16-byte rows (P = 4096) and 8-byte ones (a storage offset of 2;
+            # a row slice u[1:] at P = 159,010), the fleet's padded last chunk
+            # (4 clients, 28 padding slots), 40 RSUs
+            (3, 159_010, 10, 0, 0), (31, 159_010, 10, 0, 0), (33, 159_010, 10, 0, 0),
+            (4, 3, 10, 0, 0), (5, 1029, 10, 0, 0), (4, 159_011, 10, 0, 0),
+            (6, 4096, 10, 0, 0), (6, 4096, 10, 2, 0), (4, 159_010, 10, 159_010, 0),
+            (32, 159_010, 10, 0, 28), (5, 2049, 40, 0, 0)):
+        errs = [check_rsu(K, P, R, mode, with_carry, device, offset, pad)
                 for mode in ("rand", "exact", "one_rsu", "hole", "masked", "out_of_range")
                 for with_carry in (False, True)]
-        if (K, P) == (4, 159_010):
+        if (K, P, offset, pad) == (4, 159_010, 0, 0) and R == 10:
             main_err["rsu_reduce"] = max(errs)
-        print(f"rsu_reduce K={K:2d} P={P:7d} R={R:2d} random, dyadic, one RSU, unattached, "
-              f"zero-weight and out-of-range ids, with and without carry: "
-              f"max_abs_err={max(errs):.3e}")
+        print(f"rsu_reduce K={K:2d} P={P:7d} R={R:3d} offset={offset} pad={pad}: random, "
+              f"dyadic, one RSU, unattached, zero-weight and out-of-range ids, with and "
+              f"without carry, each repeated bitwise: max_abs_err={max(errs):.3e}")
     check_rsu_walk(10, 4, device)
     check_rsu_walk(100, 32, device)
     check_rsu_walk(100, 32, device, R=40)
@@ -1786,7 +1816,7 @@ def main() -> int:
     # rsu_reduce at the streamed lanes' chunks: R=10, the paper's K=4 and the
     # fleet's K=32, each with its carry (the steady chunk) and the first
     # chunk without one, cycling through copies that exceed the L2 as above
-    from repro_torch.kernels.rsu_reduce import rsu_reduce, rsu_reduce_plain
+    from repro_torch.kernels.rsu_reduce import rsu_reduce, rsu_reduce_plain, vector_width
 
     R = 10
     rsu_times = {}
@@ -1796,7 +1826,8 @@ def main() -> int:
                   for _, w_, rid_, _ in ops]
         out_c = torch.empty((R, P), dtype=torch.float32, device=device)
         mass_c = torch.empty((R,), dtype=torch.float32, device=device)
-        vec_c = 2 if P % 2 == 0 else 1
+        vec_c = vector_width(P, ops[0][0], out_c)
+        rows_c = torch.empty((K_c, P), dtype=torch.float32, device=device)
 
         def nxt_rsu():
             it["i"] = (it["i"] + 1) % n_copies
@@ -1822,6 +1853,10 @@ def main() -> int:
             (u_, w_, rid_, c_), _ = nxt_rsu()
             return rsu_reduce(u_, w_, rid_, R, carry=c_)
 
+        def rows_copy():  # the card's copy rate at this size, for the bound's share
+            (u_, _, _, _), _ = nxt_rsu()
+            return rows_c.copy_(u_)
+
         t = {}
         for _ in range(2):  # the first pass warms up, the second is kept
             t = {"carry": time_ms(lambda: rsu_launch(True)),
@@ -1829,7 +1864,9 @@ def main() -> int:
                  "plain": time_ms(rsu_plain_call), "library": time_ms(rsu_library),
                  "wrapper": time_ms(rsu_wrapper),
                  "carry_dev": device_us_per_call(lambda: rsu_launch(True)),
-                 "library_dev": device_us_per_call(rsu_library)}
+                 "first_dev": device_us_per_call(lambda: rsu_launch(False)),
+                 "library_dev": device_us_per_call(rsu_library),
+                 "copy_dev": device_us_per_call(rows_copy)}
         # each input read once (rows, weights, ids, and the carry when there is
         # one), each output written once (partials, mass); 2 flops per row value
         # (its one RSU's multiply-add) plus the carry's add per partial
@@ -1838,14 +1875,19 @@ def main() -> int:
             t[key + "_bound"] = bound(b_bytes, 2 * K_c * P + (R * P if with_carry else 0))
             t[key + "_bytes"] = b_bytes
         rsu_times[K_c] = t
-        print(f"rsu_reduce K={K_c} P={P} R={R} (vec {vec_c}): kernel with carry "
-              f"{t['carry'] * 1e3:.2f} us (bound {t['carry_bound'][0] * 1e3:.2f} us, "
+        print(f"rsu_reduce K={K_c} P={P} R={R} (vec {vec_c}): "
+              f"kernel with carry {t['carry'] * 1e3:.2f} us (bound {t['carry_bound'][0] * 1e3:.2f} us, "
               f"{t['carry_bytes'] / (t['carry'] * 1e-3) / 1e9:.0f} GB/s), first chunk "
               f"{t['first'] * 1e3:.2f} us (bound {t['first_bound'][0] * 1e3:.2f} us), "
               f"wrapper {t['wrapper'] * 1e3:.2f} us, plain {t['plain'] * 1e3:.2f} us, "
               f"torch.addmm {t['library'] * 1e3:.2f} us; device time per call (profiler): "
-              f"kernel with carry {t['carry_dev']:.2f} us, torch.addmm {t['library_dev']:.2f} us "
-              f"[{card}]")
+              f"kernel with carry {t['carry_dev']:.2f} us "
+              f"({t['carry_dev'] / t['library_dev']:.3f}x torch.addmm's "
+              f"{t['library_dev']:.2f} us, {t['carry_bound'][0] * 1e3 / t['carry_dev']:.3f} of "
+              f"the bound), first chunk {t['first_dev']:.2f} us "
+              f"({t['first_bound'][0] * 1e3 / t['first_dev']:.3f} of the bound); the kernel "
+              f"moves {t['carry_bytes'] / t['carry_dev'] / 1e3:.0f} GB/s, a copy of its rows "
+              f"{2 * K_c * P * 4 / t['copy_dev'] / 1e3:.0f} GB/s ({t['copy_dev']:.2f} us) [{card}]")
     t = rsu_times[4]
     kernels.append({
         "name": "rsu_reduce", "route": "cuda",

@@ -10,34 +10,91 @@
 // What bounds it on this card: bytes.  It reads K*P update values once (and
 // the R*P carry, when there is one) and writes R*P partials, 2*R flops per
 // value read: at the streamed lane's chunk (K = 4, P = 159,010, R = 10, with
-// the carry) that is about 15.3 MB, a bound near 4.6 us at 3.35 TB/s.
+// the carry) that is about 15.3 MB, a bound near 4.6 us at 3.35 TB/s; at the
+// fleet's chunk (K = 32) 33.1 MB, 9.9 us.  Covering HBM's latency at that
+// rate takes several MB in flight, so the design is about keeping them there.
 //
-// Design: a grid axis over groups of RSU_GROUP (32) RSUs, so R is bounded
-// only by the grid's y-extent (65,535 groups).  Each thread owns a run of VEC
-// adjacent columns and keeps one fp32 accumulator per RSU of its block's
-// group and column in registers (RB accumulators per column, RB a
-// compile-time bound on the group's size).  It walks k in ascending order
-// from +0.0 and adds the one-hot product itself, (rid[k] == r ? w[k] : 0) *
-// u[k, p], to every RSU's accumulator of its group: the rows of other RSUs
-// are not skipped, so a non-finite row and signed zeros come out as the
-// reference's contraction gives them.  Loads are VEC*4-byte vectors on
-// neighbouring addresses, so every warp load is coalesced; w and rid (K
-// values each) come through the read-only cache.  The carry is added once,
-// after the sum: carry + sum, which rounds as the round's ``partials +
-// part_c`` does, and out may alias carry (each thread reads its carry
-// columns before writing them), so a chunk walk updates its (R, P)
-// partials in place.  The first block of each group also writes the
-// group's mass: thread r sums column r0 + r of the routing matrix in
-// ascending k.  The order of every sum is fixed, so a run repeats itself
-// bitwise.  With R > 32 every group's block reads the K update rows again
-// (from L2 at the streamed lane's chunk sizes).
+// Layout.  A grid axis over groups of RSU_GROUP (32) RSUs, so R is bounded
+// only by the grid's y-extent (65,535 groups), and blocks of THREADS (128)
+// threads along P.  Each thread owns COLS (4) columns as COLS / VEC runs of
+// VEC adjacent columns, the runs THREADS * VEC columns apart, so each warp
+// load or store of a run is one contiguous, coalesced span.  VEC (4, 2 or 1)
+// divides P and aligns every row (the wrapper's choice): at P = 159,010 rows
+// are only 8-byte aligned, and every access is an 8-byte pair.
+//
+// Bytes in flight.  Each thread streams its columns of the update rows
+// through a ring of STAGES (2) slabs of SLAB (4) rows in shared memory with
+// cp.async: the prologue issues the carry tile and the first 8 rows at once,
+// and each slab's slots are refilled with the slab two ahead as soon as its
+// FMAs have read them, so 4-8 rows (64-128 bytes a thread) stay on their way
+// while the FMAs run.  With the carry that is 36 KB a block, ~11 MB over the
+// 311 blocks of P = 159,010 (all resident, 2-3 an SM); on the card a deeper
+// ring was no faster and 4 slabs of 8 rows (2 blocks an SM) slower.  A
+// thread reads back only what it copied itself, so no barrier is needed; a
+// short last slab (K not a multiple of SLAB) issues and sums only its rows.
+// The 8-byte copies go through L1 (cp.async.ca); 16-byte-aligned rows take
+// 16-byte copies past it (.cg).  Copying the 16-byte-aligned cover of each
+// 8-byte-aligned row segment with the whole block, a barrier a slab, was
+// slower on the card than the 8-byte pairs.
+//
+// The carry overlaps.  The carry tile (the group's rows of this thread's
+// columns) is the first cp.async group, issued before any update row, and
+// sits in shared memory until the epilogue; out may alias carry (each
+// thread reads its carry columns before writing them), so a chunk walk
+// updates its (R, P) partials in place.  The partials are stored with the
+// default cache policy: the next chunk reads them back as its carry, from L2.
+//
+// Accumulators: RB per column, RB the smallest of RB_LIST not below the
+// group's size (R = 10 runs exactly 10).  The mass is summed by warp 0 of the
+// last column block in the same row loop, lane l for RSU r0 + l (RSU_GROUP is
+// a warp), so no serial loop runs before the columns.
+//
+// Summation order, unchanged: each partial is one fmaf chain in ascending k
+// from +0.0 over the one-hot product (rid[k] == r ? w[k] : 0) * u[k, p], added
+// for every RSU of the group (rows of other RSUs are not skipped, so a
+// non-finite row and signed zeros come out as the reference's contraction
+// gives them), then carry + sum, one rounding, as the round's ``partials +
+// part_c``; the mass sums m[k, r] in ascending k from +0.0.  Only the loads
+// are issued early.  The order of every sum is fixed, so a run repeats
+// itself bitwise.  With R > 32 every group's blocks read the K update rows
+// again (from L2 at the streamed lane's chunk sizes).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#define THREADS 256
-#define RSU_GROUP 32    // RSUs per block (grid axis y)
+#define THREADS 128     // threads a block
+#define COLS 4          // columns a thread
+#define RSU_GROUP 32    // RSUs a block (grid axis y)
 #define MAX_GROUPS 65535u
+#define SLAB 4          // update rows a cp.async group
+#define STAGES 2        // slabs in the ring
+// accumulator counts: 10 is every catalog scenario's R (ring length / RSU spacing)
+#define RB_LIST(X) X(1) X(2) X(4) X(8) X(10) X(16) X(32)
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+template <int BYTES>
+__device__ __forceinline__ void cp_async(float* dst, const float* src) {
+  if constexpr (BYTES == 16) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(dst)), "l"(src)
+                 : "memory");
+  } else {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(smem_addr(dst)), "l"(src),
+                 "n"(BYTES)
+                 : "memory");
+  }
+}
+
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
 
 template <int VEC>
 struct Vec;
@@ -48,95 +105,163 @@ struct Vec<2> { using T = float2; };
 template <>
 struct Vec<4> { using T = float4; };
 
-__device__ __forceinline__ void unpack(float* x, float v) { x[0] = v; }
-__device__ __forceinline__ void unpack(float* x, float2 v) {
-  x[0] = v.x;
-  x[1] = v.y;
-}
-__device__ __forceinline__ void unpack(float* x, float4 v) {
-  x[0] = v.x;
-  x[1] = v.y;
-  x[2] = v.z;
-  x[3] = v.w;
-}
-
-__device__ __forceinline__ void pack(float* out, const float* x, float) { *out = x[0]; }
-__device__ __forceinline__ void pack(float* out, const float* x, float2) {
-  *reinterpret_cast<float2*>(out) = make_float2(x[0], x[1]);
-}
-__device__ __forceinline__ void pack(float* out, const float* x, float4) {
-  *reinterpret_cast<float4*>(out) = make_float4(x[0], x[1], x[2], x[3]);
-}
-
-template <int VEC, int RB>
-__global__ void rsu_reduce_kernel(const float* __restrict__ updates,
-                                  const float* __restrict__ weights,
-                                  const int* __restrict__ rid, int k_rows, int n_rsu,
-                                  long long p_cols, const float* carry, float* out,
-                                  float* __restrict__ mass) {
-  using T = typename Vec<VEC>::T;
-  const int r0 = blockIdx.y * RSU_GROUP;  // this block's group: RSUs r0 .. r0 + nr - 1
-  const int nr = min(RSU_GROUP, n_rsu - r0);
-  if (blockIdx.x == 0 && threadIdx.x < nr) {
-    const int r = r0 + threadIdx.x;
-    float m = 0.0f;
-    for (int k = 0; k < k_rows; ++k) m = m + (__ldg(rid + k) == r ? __ldg(weights + k) : 0.0f);
-    mass[r] = m;
-  }
-  const long long col = ((long long)blockIdx.x * blockDim.x + threadIdx.x) * VEC;
-  if (col >= p_cols) return;
-  float acc[RB][VEC];
+// This thread's valid runs of one row (`src` its first column) into its
+// shared slot `dst` ([run][thread] VEC-float pieces, one row of the block).
+template <int VEC>
+__device__ __forceinline__ void copy_row(float* dst, const float* src, unsigned valid) {
 #pragma unroll
-  for (int r = 0; r < RB; ++r)
-#pragma unroll
-    for (int j = 0; j < VEC; ++j) acc[r][j] = 0.0f;
-  for (int k = 0; k < k_rows; ++k) {
-    const float w = __ldg(weights + k);
-    const int rk = __ldg(rid + k);
-    float u[VEC];
-    unpack(u, __ldg(reinterpret_cast<const T*>(updates + (long long)k * p_cols + col)));
-#pragma unroll
-    for (int r = 0; r < RB; ++r) {
-      const float m = rk == r0 + r ? w : 0.0f;
-#pragma unroll
-      for (int j = 0; j < VEC; ++j) acc[r][j] = fmaf(m, u[j], acc[r][j]);
-    }
-  }
-#pragma unroll
-  for (int r = 0; r < RB; ++r) {
-    if (r >= nr) break;
-    float* dst = out + (long long)(r0 + r) * p_cols + col;
-    if (carry != nullptr) {
-      float c[VEC];
-      unpack(c, *reinterpret_cast<const T*>(carry + (long long)(r0 + r) * p_cols + col));
-#pragma unroll
-      for (int j = 0; j < VEC; ++j) acc[r][j] = c[j] + acc[r][j];
-    }
-    pack(dst, acc[r], T{});
-  }
+  for (int q = 0; q < COLS / VEC; ++q)
+    if (valid >> q & 1u) cp_async<VEC * 4>(dst + q * THREADS * VEC, src + q * THREADS * VEC);
 }
 
 template <int VEC>
-static int launch_rb(int rb, dim3 blocks, cudaStream_t st, const float* updates,
+__device__ __forceinline__ void read_row(float* x, const float* slot) {
+  using T = typename Vec<VEC>::T;
+#pragma unroll
+  for (int q = 0; q < COLS / VEC; ++q) {
+    const T v = *reinterpret_cast<const T*>(slot + q * THREADS * VEC);
+    const float* f = reinterpret_cast<const float*>(&v);
+#pragma unroll
+    for (int j = 0; j < VEC; ++j) x[q * VEC + j] = f[j];
+  }
+}
+
+template <int VEC, int RB>
+__global__ void __launch_bounds__(THREADS)
+rsu_reduce_kernel(const float* __restrict__ updates, const float* __restrict__ weights,
+                  const int* __restrict__ rid, int k_rows, int n_rsu, long long p_cols,
+                  const float* carry, float* out, float* __restrict__ mass) {
+  using T = typename Vec<VEC>::T;
+  constexpr int RUNS = COLS / VEC;
+  constexpr int SLOT = THREADS * COLS;  // floats of one row's slot (the block's columns)
+  extern __shared__ __align__(16) float smem[];
+  const int t = threadIdx.x;
+  // this thread's pieces: element (q * THREADS + t) * VEC of every slot
+  float* ring = smem + t * VEC;                           // [STAGES * SLAB] slots
+  float* csm = smem + STAGES * SLAB * SLOT + t * VEC;     // [RB] slots: the carry tile
+  const int r0 = blockIdx.y * RSU_GROUP;                  // RSUs r0 .. r0 + nr - 1
+  const int nr = min(RSU_GROUP, n_rsu - r0);
+  const long long col = (long long)blockIdx.x * SLOT + (long long)t * VEC;  // run 0's first
+  unsigned valid = 0;
+#pragma unroll
+  for (int q = 0; q < RUNS; ++q)
+    if (col + (long long)q * THREADS * VEC < p_cols) valid |= 1u << q;
+  const bool mass_warp = blockIdx.x == gridDim.x - 1 && t < 32;
+  if (valid == 0 && !mass_warp) return;
+
+  // prologue: the carry tile, then the first STAGES slabs, one group each
+  if (carry != nullptr) {
+#pragma unroll
+    for (int r = 0; r < RB; ++r)
+      if (r < nr)
+        copy_row<VEC>(csm + r * SLOT, carry + (long long)(r0 + r) * p_cols + col, valid);
+  }
+  cp_commit();
+#pragma unroll
+  for (int s = 0; s < STAGES; ++s) {
+#pragma unroll
+    for (int j = 0; j < SLAB; ++j) {
+      const int k = s * SLAB + j;
+      if (k < k_rows)
+        copy_row<VEC>(ring + (s * SLAB + j) * SLOT, updates + (long long)k * p_cols + col, valid);
+    }
+    cp_commit();
+  }
+
+  float acc[RB][COLS];
+#pragma unroll
+  for (int r = 0; r < RB; ++r)
+#pragma unroll
+    for (int c = 0; c < COLS; ++c) acc[r][c] = 0.0f;
+  float msum = 0.0f;  // the mass warp: lane l sums RSU r0 + l's column of m
+  const int n_slabs = (k_rows + SLAB - 1) / SLAB;
+  for (int i = 0; i < n_slabs; ++i) {
+    const int k0 = i * SLAB;
+    float w[SLAB];
+    int id[SLAB];
+#pragma unroll
+    for (int j = 0; j < SLAB; ++j) {
+      w[j] = k0 + j < k_rows ? __ldg(weights + k0 + j) : 0.0f;
+      id[j] = k0 + j < k_rows ? __ldg(rid + k0 + j) : -1;
+    }
+    cp_wait<STAGES - 1>();  // slab i (and the carry) landed
+    float* slab = ring + (i % STAGES) * SLAB * SLOT;
+#pragma unroll
+    for (int j = 0; j < SLAB; ++j) {
+      if (k0 + j >= k_rows) break;
+      float u[COLS];
+      read_row<VEC>(u, slab + j * SLOT);
+#pragma unroll
+      for (int r = 0; r < RB; ++r) {
+        const float m = id[j] == r0 + r ? w[j] : 0.0f;
+#pragma unroll
+        for (int c = 0; c < COLS; ++c) acc[r][c] = fmaf(m, u[c], acc[r][c]);
+      }
+      if (mass_warp) msum = msum + (id[j] == r0 + t ? w[j] : 0.0f);
+    }
+    // refill the slots just read with the slab STAGES ahead
+#pragma unroll
+    for (int j = 0; j < SLAB; ++j) {
+      const int k = k0 + STAGES * SLAB + j;
+      if (k < k_rows)
+        copy_row<VEC>(slab + j * SLOT, updates + (long long)k * p_cols + col, valid);
+    }
+    cp_commit();
+  }
+  cp_wait<0>();
+
+  if (mass_warp && t < nr) mass[r0 + t] = msum;
+#pragma unroll
+  for (int r = 0; r < RB; ++r) {
+    if (r >= nr) break;
+    float v[COLS];
+    if (carry != nullptr) {
+      read_row<VEC>(v, csm + r * SLOT);
+#pragma unroll
+      for (int c = 0; c < COLS; ++c) v[c] = v[c] + acc[r][c];
+    } else {
+#pragma unroll
+      for (int c = 0; c < COLS; ++c) v[c] = acc[r][c];
+    }
+    float* dst = out + (long long)(r0 + r) * p_cols + col;
+#pragma unroll
+    for (int q = 0; q < RUNS; ++q) {
+      if (!(valid >> q & 1u)) continue;
+      T x;
+      float* f = reinterpret_cast<float*>(&x);
+#pragma unroll
+      for (int j = 0; j < VEC; ++j) f[j] = v[q * VEC + j];
+      *reinterpret_cast<T*>(dst + q * THREADS * VEC) = x;
+    }
+  }
+}
+
+template <int VEC, int RB>
+static int launch_cfg(dim3 blocks, cudaStream_t st, const float* updates, const float* weights,
+                      const int* rid, int k_rows, int n_rsu, long long p_cols,
+                      const float* carry, float* out, float* mass) {
+  const int smem = (STAGES * SLAB + (carry != nullptr ? RB : 0)) * THREADS * COLS * 4;
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        rsu_reduce_kernel<VEC, RB>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  rsu_reduce_kernel<VEC, RB><<<blocks, THREADS, smem, st>>>(updates, weights, rid, k_rows,
+                                                            n_rsu, p_cols, carry, out, mass);
+  return (int)cudaGetLastError();
+}
+
+template <int VEC>
+static int launch_rb(int group, dim3 blocks, cudaStream_t st, const float* updates,
                      const float* weights, const int* rid, int k_rows, int n_rsu,
                      long long p_cols, const float* carry, float* out, float* mass) {
 #define RSU_CASE(RB_)                                                                  \
-  case RB_:                                                                            \
-    rsu_reduce_kernel<VEC, RB_><<<blocks, THREADS, 0, st>>>(                           \
-        updates, weights, rid, k_rows, n_rsu, p_cols, carry, out, mass);               \
-    break;
-  switch (rb) {
-    RSU_CASE(1)
-    RSU_CASE(2)
-    RSU_CASE(4)
-    RSU_CASE(8)
-    RSU_CASE(16)
-    RSU_CASE(32)
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+  if (group <= RB_)                                                                    \
+    return launch_cfg<VEC, RB_>(blocks, st, updates, weights, rid, k_rows, n_rsu,      \
+                                p_cols, carry, out, mass);
+  RB_LIST(RSU_CASE)
 #undef RSU_CASE
-  return (int)cudaSuccess;
+  return (int)cudaErrorInvalidValue;
 }
 
 // Launch on `stream`.  `carry` may be null (the sum alone) or equal to `out`
@@ -149,32 +274,24 @@ extern "C" int rsu_reduce_launch(const float* updates, const float* weights, con
                                  const float* carry, float* out, float* mass,
                                  void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (n_rsu < 1 || k_rows < 0) return (int)cudaErrorInvalidValue;
+  if (n_rsu < 1 || k_rows < 0 || p_cols < 0) return (int)cudaErrorInvalidValue;
   const unsigned groups = (unsigned)((n_rsu + RSU_GROUP - 1) / RSU_GROUP);
   if (groups > MAX_GROUPS) return (int)cudaErrorInvalidValue;
-  int rb = 1;
-  while (rb < n_rsu && rb < RSU_GROUP) rb *= 2;
-  const long long threads_needed = (p_cols + vec - 1) / vec;
-  long long blocks_ll = (threads_needed + THREADS - 1) / THREADS;
-  if (blocks_ll < 1) blocks_ll = 1;  // block 0 of each group still writes the mass
+  const int group = n_rsu < RSU_GROUP ? n_rsu : RSU_GROUP;
+  long long blocks_ll = (p_cols + THREADS * COLS - 1) / (THREADS * COLS);
+  if (blocks_ll < 1) blocks_ll = 1;  // the last block of each group still writes the mass
   const dim3 blocks((unsigned)blocks_ll, groups);
-  int status;
   switch (vec) {
     case 4:
-      status = launch_rb<4>(rb, blocks, st, updates, weights, rid, k_rows, n_rsu, p_cols,
-                            carry, out, mass);
-      break;
+      return launch_rb<4>(group, blocks, st, updates, weights, rid, k_rows, n_rsu, p_cols,
+                          carry, out, mass);
     case 2:
-      status = launch_rb<2>(rb, blocks, st, updates, weights, rid, k_rows, n_rsu, p_cols,
-                            carry, out, mass);
-      break;
+      return launch_rb<2>(group, blocks, st, updates, weights, rid, k_rows, n_rsu, p_cols,
+                          carry, out, mass);
     case 1:
-      status = launch_rb<1>(rb, blocks, st, updates, weights, rid, k_rows, n_rsu, p_cols,
-                            carry, out, mass);
-      break;
+      return launch_rb<1>(group, blocks, st, updates, weights, rid, k_rows, n_rsu, p_cols,
+                          carry, out, mass);
     default:
       return (int)cudaErrorInvalidValue;
   }
-  if (status != (int)cudaSuccess) return status;
-  return (int)cudaGetLastError();
 }

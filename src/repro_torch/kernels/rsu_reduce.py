@@ -26,6 +26,12 @@ launches = 0
 MAX_RSU = 32 * 65535
 
 
+def vector_width(p_cols: int, *tensors: torch.Tensor) -> int:
+    """The kernel's vector width: the widest of 4, 2 and 1 floats that
+    divides P and aligns every tensor's rows."""
+    return min(_vector_width(x, p_cols) for x in tensors)
+
+
 def rsu_reduce_plain(updates: torch.Tensor, weights: torch.Tensor, rid: torch.Tensor,
                      n_rsu: int, carry=None):
     """The reference's one-hot ``(K, R)`` routing matrix ``m``: ``m.t() @ u``
@@ -73,7 +79,7 @@ def _rsu_reduce_cuda(updates, weights, rid, n_rsu, carry):
         _check("carry", carry, (n_rsu, P), torch.float32, device)
         out = carry
     mass = torch.empty((n_rsu,), dtype=torch.float32, device=device)
-    vec = min(_vector_width(updates, P), _vector_width(out, P))
+    vec = vector_width(P, updates, out)
     stream = torch.cuda.current_stream(device).cuda_stream
     status = library().rsu_reduce_launch(
         updates.data_ptr(), weights.data_ptr(), rid.data_ptr(), K, n_rsu, P, vec,

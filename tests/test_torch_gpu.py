@@ -15,7 +15,10 @@ its ``params`` within 100 times that (the adaptive step
 ``(1 - beta1) / tau``), and its two contracts bit for bit.  The RSU segment
 reduce within 1e-6 of ``sum_k |m_kr u_k|`` on random operands and bit for
 bit on dyadic ones (any order sums those exactly), a chunk walk included,
-at 10 RSUs and past one 32-RSU group of the kernel (33, 40 and 100).
+at 10 RSUs and past one 32-RSU group of the kernel (33, 40 and 100), and at
+its launch plan's edges (K off its 4-row slab, ragged and odd P, 16- and
+8-byte aligned rows, the fleet's padded last chunk), each launch repeated
+bit for bit.
 The two-tier rounds: the hierarchical lane is the flat lane bit for bit
 (contract (a)), and the streamed lane launches one ``rsu_reduce`` per
 chunk.  At fleet size the windowed neighbour search is the dense one
@@ -229,31 +232,48 @@ def test_main_path_rounds_on_the_card_match_the_cpu(dev):
         assert abs(a.test_acc - b.test_acc) <= 0.01
 
 
-def _rsu_operands(K, P, R, dev, seed, exact):
+def _rsu_operands(K, P, R, dev, seed, exact, offset=0):
     """(updates, weights, rid, carry); ``exact``: dyadic updates and carry,
-    integer weights, whose sums are exact in any order."""
+    integer weights, whose sums are exact in any order.  The updates start
+    ``offset`` floats into their storage (``offset = P``: a row slice
+    ``u[1:]``)."""
     g = torch.Generator(device=dev)
     g.manual_seed(seed)
     if exact:
-        u = torch.randint(-64, 65, (K, P), generator=g, device=dev).float() * 2.0 ** -12
+        u = torch.randint(-64, 65, (K * P + offset,), generator=g,
+                          device=dev).float() * 2.0 ** -12
         w = torch.randint(0, 5, (K,), generator=g, device=dev).float()
         carry = torch.randint(-64, 65, (R, P), generator=g, device=dev).float() * 2.0 ** -10
     else:
-        u = 1e-3 * torch.randn((K, P), generator=g, device=dev)
+        u = 1e-3 * torch.randn((K * P + offset,), generator=g, device=dev)
         w = torch.rand((K,), generator=g, device=dev)
         carry = 1e-3 * torch.randn((R, P), generator=g, device=dev)
     rid = torch.randint(0, R, (K,), generator=g, device=dev).to(torch.int32)
-    return u, w, rid, carry
+    return u[offset:].view(K, P), w, rid, carry
 
 
 @pytest.mark.parametrize("carry", [False, True])
 @pytest.mark.parametrize("mode", ["rand", "exact", "same", "hole", "masked", "out_of_range"])
-@pytest.mark.parametrize("K,P,R", [(4, 159_010, 10), (32, 159_010, 10), (1, 1, 1),
-                                   (1, 515, 10), (7, 515, 10), (5, 2049, 1),
-                                   # beyond one block's group of 32 RSUs
-                                   (7, 515, 33), (4, 159_010, 33), (32, 2049, 100)])
-def test_rsu_reduce_kernel_matches_plain(dev, K, P, R, mode, carry):
-    u, w, rid, c = _rsu_operands(K, P, R, dev, K * 31 + P + R, exact=mode != "rand")
+@pytest.mark.parametrize("K,P,R,offset,pad", [
+    pytest.param(*shape, 0, 0, id="-".join(map(str, shape))) for shape in (
+        (4, 159_010, 10), (32, 159_010, 10), (1, 1, 1), (1, 515, 10), (7, 515, 10),
+        (5, 2049, 1),
+        # beyond one block's group of 32 RSUs
+        (7, 515, 33), (4, 159_010, 33), (32, 2049, 100),
+        # K off the kernel's 4-row slab; ragged and odd P
+        (3, 159_010, 10), (31, 159_010, 10), (33, 159_010, 10), (4, 3, 10),
+        (5, 1029, 10), (4, 159_011, 10), (6, 4096, 10))] + [
+    # 8-byte rows at P % 4 == 0, and a row slice u[1:] at P = 159,010
+    pytest.param(6, 4096, 10, 2, 0, id="6-4096-10-offset2"),
+    pytest.param(4, 159_010, 10, 159_010, 0, id="4-159010-10-rowslice"),
+    # the fleet's padded last chunk: 4 clients, then 28 padding slots
+    pytest.param(32, 159_010, 10, 0, 28, id="32-159010-10-pad28"),
+    pytest.param(5, 2049, 40, 0, 0, id="5-2049-40")])
+def test_rsu_reduce_kernel_matches_plain(dev, K, P, R, offset, pad, mode, carry):
+    u, w, rid, c = _rsu_operands(K, P, R, dev, K * 31 + P + R, exact=mode != "rand",
+                                 offset=offset)
+    if pad:
+        w[K - pad:], rid[K - pad:] = 0.0, 0
     if mode == "same":
         rid[:] = R - 1
     elif mode == "hole":

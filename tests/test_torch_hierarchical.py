@@ -8,10 +8,12 @@ What is held:
   the flat normalizer under ``mass_norm=False``;
 * ``rsu_reduce_plain`` (what the ``rsu_reduce`` wrapper runs on the CPU)
   against the jitted oracle ``repro.kernels.ref.rsu_reduce`` and the Pallas
-  kernel in interpret mode, at the reference's edge shapes: integer weights
+  kernel in interpret mode, at the reference's edge shapes and the fleet's
+  padded last chunk: integer weights
   bit for bit, random operands within rtol 1e-6 / atol 1e-6; a chunk walk
   through the wrapper's in-place ``carry`` equals the chunk-wise composition
-  of oracles bit for bit (integer weights);
+  of oracles bit for bit (integer weights); the wrapper's vector width
+  divides P and aligns the rows, at both row alignments;
 * one whole round from an injected JAX state, through
   ``test_torch_bridge.assert_round_matches`` with ``ROUND_TOL``: the
   hierarchical lane (``client_block=0``) for every registered rule on
@@ -159,9 +161,12 @@ def _operands(k, p, r, seed=0, int_w=False):
     (8, 300, 5, "hole"),     # one RSU never attached: an exactly-zero row
     (8, 300, 5, "masked"),   # one RSU's clients all carry weight 0
     (6, 300, 5, "int"),      # integer weights
+    (32, 515, 10, "padded"),  # the fleet's last chunk: 4 clients, 28 padding slots
 ])
 def test_rsu_reduce_plain_matches_ref_and_interpret_kernel(k, p, r, mode):
     u, w, rid = _operands(k, p, r, int_w=mode == "int")
+    if mode == "padded":  # as fl/rounds.py pads: weight 0, id 0
+        w[4:], rid[4:] = 0.0, 0
     if mode == "same":
         rid[:] = r - 1
     elif mode == "hole":
@@ -183,6 +188,21 @@ def test_rsu_reduce_plain_matches_ref_and_interpret_kernel(k, p, r, mode):
             np.testing.assert_allclose(tm.numpy(), np.asarray(want[1]), rtol=1e-6, atol=1e-6)
     if mode in ("hole", "masked"):
         assert torch.equal(tp[2], torch.zeros(p)) and float(tm[2]) == 0.0
+
+
+@pytest.mark.parametrize("offset", [0, 2])  # floats into the storage: 16- and 8-byte aligned
+@pytest.mark.parametrize("p", [1, 3, 515, 2049, 4096, 159_010, 159_011])
+def test_rsu_reduce_vector_width_divides_p_and_aligns_rows(p, offset):
+    """The wrapper's one launch choice: the widest vector width that
+    divides P and aligns the update rows and the partials (the kernel's
+    column runs are then whole and aligned; the card tests cover its
+    layout at ragged P and 8-byte rows)."""
+    u = torch.empty(2 * p + offset)[offset:].view(2, p)
+    out = torch.empty((3, p))
+    vec = rsu_mod.vector_width(p, u, out)
+    assert p % vec == 0 and u.data_ptr() % (4 * vec) == 0 and out.data_ptr() % (4 * vec) == 0
+    assert vec == (1 if p % 2 else 2 if p % 4 or offset else 4)
+    assert rsu_mod.vector_width(p, out) == (1 if p % 2 else 2 if p % 4 else 4)
 
 
 def test_rsu_reduce_chunk_walk_composes_chunkwise():
