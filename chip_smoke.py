@@ -22,8 +22,9 @@ Phases (any failure raises and exits non-zero):
    and at their edges (a ragged split, one slot, G=1, a partly filled and a
    wrapped ring, rows with no visible slot, softcap; a window narrower than
    a split, G=16 at D=256, rows of 4-byte and 2-byte multiples; one step, a
-   ragged last chunk, Q > S, a given h0, mamba2's ds=128 head), each
-   ``swa_decode`` repeated bitwise; ``pairwise_cosine`` at the reference's
+   ragged last chunk, Q > S, a given h0, mamba2's ds=128 head, 12,800
+   chunks on the chain, odd hp and ds, chunks of 16), each repeated bitwise;
+   ``pairwise_cosine`` at the reference's
    shapes (the 128 / 512 tile edges, one row, D=1) in fp32 and bf16 and at
    its launch plan's tile and split edges, with a zero row, bitwise
    symmetric, repeated bitwise, and ``gram_nt`` with x != y, N != M;
@@ -69,10 +70,12 @@ Phases (any failure raises and exits non-zero):
    (100, 1024), (256, 4096) and (20,000, 1,024)), and for every kernel and
    yardstick whose events read under ~30 us (the host's launch rate, not the
    device) its profiled device time per call (``rsu_reduce``'s with and
-   without its carry, beside a copy of its rows); the round's wall time (the fedavg, fedadam, fedbuff
+   without its carry, beside a copy of its rows; ``ssd_scan``'s beside its
+   events, its bound with the products at the TF32 tensor-core rate and
+   beside it the fp32-core figure); the round's wall time (the fedavg, fedadam, fedbuff
    and streamed lanes), and profiled rounds (with ``rsu_reduce``'s calls and
    device time per call in the streamed and fleet rounds), a profiled
-   decode step and prefill.
+   decode step and prefill (with ``ssd_scan``'s calls and time per call).
 
 The last two lines are the kernels' JSON record and the device JSON.
 """
@@ -91,9 +94,11 @@ import torch
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
-# H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth, fp32 non-tensor rate.
+# H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth, fp32 non-tensor rate, TF32
+# tensor-core rate (dense).
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS_PER_S = 67e12
+TF32_FLOPS_PER_S = 495e12
 ROUNDS = 5
 # (vehicles, rounds) of the fleet phase: BENCH_engine.json's fleet runs
 FLEET = ((20_000, 1), (100_000, 2))
@@ -446,7 +451,11 @@ def check_ssd(B, S, nh, hp, ds, chunk, with_h0, dtype, device) -> float:
         torch.testing.assert_close(a, b, rtol=0, atol=1e-4 * scale,
                                    msg=lambda m: f"{what} {name}: {m}")
         errs.append(float((a - b).abs().max()) / scale)
-    print(f"{what}: max_abs_err / max|value| y {errs[0]:.3e}, h {errs[1]:.3e} (tol 1e-4)")
+    again = ssd_scan(x, dt, A, Bs, Cs, chunk, h0)
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        raise AssertionError(f"{what}: a second launch differs from the first")
+    print(f"{what}: max_abs_err / max|value| y {errs[0]:.3e}, h {errs[1]:.3e} (tol 1e-4), "
+          f"repeats bitwise")
     return max(float((a - b).abs().max()) for a, b in zip(got, ref))
 
 
@@ -774,9 +783,11 @@ def profile_round(label, fn, card) -> None:
     for name, (c, us_) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:8]:
         print(f"  {c:5d} x {us_ / max(c, 1):9.2f} us = {us_ / 1e3:8.3f} ms  {name[:80]}")
     for name, (c, us_) in by_name.items():
-        if "rsu_reduce" in name:  # B5 in the path, with its carry and rows warm in L2
-            print(f"  rsu_reduce in this profile: {c} calls x {us_ / c:.2f} us of device "
-                  f"time = {us_ / 1e3:.3f} ms  ({name[:60]}) [{card}]")
+        # B5 in the path, with its carry and rows warm in L2; B8 in the prefill
+        for kernel in ("rsu_reduce", "ssd_scan"):
+            if kernel in name:
+                print(f"  {kernel} in this profile: {c} calls x {us_ / c:.2f} us of device "
+                      f"time = {us_ / 1e3:.3f} ms  ({name[:60]}) [{card}]")
 
 
 def assert_rounds_bitwise(a, b, what) -> None:
@@ -1092,7 +1103,7 @@ def time_serving_kernels(kernels, lib, stream, serve_launches, main_err, device,
     version, and for ``swa_decode`` one ``scaled_dot_product_attention`` call
     with the same boolean mask (GQA through ``enable_gqa``)."""
     from repro_torch.kernels import build as kbuild
-    from repro_torch.kernels.ssd_scan import smem_bytes, ssd_scan_plain
+    from repro_torch.kernels.ssd_scan import counter_count, smem_bytes, ssd_scan_plain
     from repro_torch.kernels.swa_decode import (scratch_numel, split_len, swa_decode_plain,
                                                 vector_bytes)
 
@@ -1173,13 +1184,15 @@ def time_serving_kernels(kernels, lib, stream, serve_launches, main_err, device,
     ssd_sets = [ssd_operands(Bz, S, nh, hp, ds, dtype, device, seed=i) for i in range(2)]
     y = torch.empty((Bz, S, nh, hp), dtype=torch.float32, device=device)
     h = torch.empty((Bz, nh, hp, ds), dtype=torch.float32, device=device)
-    smem = smem_bytes(Q, hp, ds)
+    smem = smem_bytes(Q, hp, ds, 2)
+    chain = kbuild.counters(device, "ssd_scan", counter_count(Bz, nh))
 
     def ssd_launch():
         x, dt, A, Bs, Cs, _ = nxt(ssd_sets)
         kbuild.check(lib.ssd_scan_launch(
             x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bs.data_ptr(), Cs.data_ptr(), None,
-            Bz, S, nh, hp, ds, Q, smem, 1, y.data_ptr(), h.data_ptr(), stream), "ssd_scan")
+            Bz, S, nh, hp, ds, Q, smem, 1, y.data_ptr(), h.data_ptr(), chain.data_ptr(),
+            stream), "ssd_scan")
 
     def ssd_plain():
         x, dt, A, Bs, Cs, _ = nxt(ssd_sets)
@@ -1189,25 +1202,35 @@ def time_serving_kernels(kernels, lib, stream, serve_launches, main_err, device,
     for _ in range(2):
         ts = {"kernel": time_ms(ssd_launch, iters=20, warmup=3),
               "plain": time_ms(ssd_plain, iters=5, warmup=2)}
+    ssd_dev = device_us_per_call(ssd_launch)
     x, dt, A, Bs, Cs, _ = ssd_sets[0]
     isz = x.element_size()
     ssd_bytes = (x.numel() * isz + dt.numel() * 4 + A.numel() * 4 + 2 * Bs.numel() * isz
                  + y.numel() * 4 + h.numel() * 4)
-    # per chunk of qc steps (t = qc (qc + 1) / 2 pairs k <= q): C . B once per
-    # batch row (t ds multiply-adds); per head the masked product (t hp), the
-    # carried state's share and the state update (qc hp ds each), x * w (qc hp)
-    # and M's scale (3 t)
-    ssd_flops = 0
+    # per chunk of qc steps (t = qc (qc + 1) / 2 pairs k <= q), the products: C . B
+    # once per batch row (t ds multiply-adds); per head the masked product (t hp),
+    # the carried state's share and the state update (qc hp ds each); the rest, per
+    # head: x * w (qc hp) and M's scale (3 t)
+    products = rest = 0
     for c0 in range(0, S, Q):
         qc = min(Q, S - c0)
         tri = qc * (qc + 1) // 2
-        ssd_flops += Bz * 2 * tri * ds
-        ssd_flops += Bz * nh * (2 * tri * hp + 4 * qc * hp * ds + qc * hp + 3 * tri)
-    b_ms, b_by = bound(ssd_bytes, ssd_flops)
+        products += Bz * 2 * tri * ds + Bz * nh * (2 * tri * hp + 4 * qc * hp * ds)
+        rest += Bz * nh * (qc * hp + 3 * tri)
+    ssd_flops = products + rest
+    # the products on the TF32 tensor cores, the rest on the fp32 cores
+    t_ops = (products / TF32_FLOPS_PER_S + rest / FP32_FLOPS_PER_S) * 1e3
+    t_bytes = ssd_bytes / HBM_BYTES_PER_S * 1e3
+    b_ms, b_by = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    fp32_ms, _ = bound(0.0, ssd_flops)
     print(f"ssd_scan B={Bz} S={S} nh={nh} hp={hp} ds={ds} Q={Q} bf16: kernel "
           f"{ts['kernel'] * 1e3:.1f} us, plain {ts['plain'] * 1e3:.1f} us, bound "
-          f"{b_ms * 1e3:.2f} us ({b_by}: {ssd_bytes / 1e6:.1f} MB, {ssd_flops / 1e9:.2f} GFLOP; "
+          f"{b_ms * 1e3:.2f} us ({b_by}: {ssd_bytes / 1e6:.1f} MB; {ssd_flops / 1e9:.2f} GFLOP "
+          f"take {t_ops * 1e3:.2f} us with the products on the TF32 tensor cores, "
+          f"{fp32_ms * 1e3:.2f} us all on the fp32 cores; "
           f"{ssd_flops / (ts['kernel'] * 1e-3) / 1e12:.2f} TFLOP/s achieved) [{card}]")
+    print(f"ssd_scan device time per call (profiler): kernel {ssd_dev:.2f} us "
+          f"({ssd_bytes / (ssd_dev * 1e-6) / 1e9:.0f} GB/s) [{card}]")
     kernels.append({
         "name": "ssd_scan", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
@@ -1345,6 +1368,11 @@ def main() -> int:
     check_ssd(2, 200, 4, 32, 16, 128, True, torch.bfloat16, device)  # ragged chunk, h0
     check_ssd(3, 100, 2, 8, 32, 128, False, torch.float32, device)  # Q > S
     check_ssd(1, 300, 24, 64, 128, 128, True, torch.float32, device)  # mamba2's head
+    # the chunk-parallel design's edges: many resident waves on the chain, hp and ds
+    # off the mma tiles, the smoke config's chunks of 16
+    check_ssd(8, 4096, 50, 64, 16, 128, False, torch.bfloat16, device)
+    check_ssd(1, 77, 2, 13, 9, 32, True, torch.float32, device)
+    check_ssd(3, 100, 12, 32, 16, 16, True, torch.bfloat16, device)
     main_err["pairwise_cosine"] = 0.0
     # the reference's shapes (tests/test_kernels.py): 128 / 512 tile edges,
     # one row, D = 1; the stage-3 shape is (100, 1024)

@@ -41,7 +41,8 @@ _SIGNATURES = {
     "rsu_reduce_launch": (_P, _P, _P, _I, _I, _LL, _I, _P, _P, _P, _P),
     "swa_decode_launch": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _I, _I, _I,
                           _P, _P, _P, _P),
-    "ssd_scan_launch": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P),
+    "ssd_scan_launch": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P,
+                        _P),
     "gram_nt_launch": (_P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P),
 }
 
@@ -135,10 +136,11 @@ def library() -> ctypes.CDLL:
 
 
 def counters(device, name: str, n: int):
-    """``name``'s arrival counters on ``device``: at least ``n`` int32 zeros.
+    """``name``'s counters on ``device``: at least ``n`` int32 zeros.
 
     The kernels that finish a reduction in the last block to arrive count
-    blocks in on these and reset each count to 0 before they exit, so the
+    blocks in on these, and ``ssd_scan`` draws tickets and chains its chunks
+    on them; each resets every count it raised to 0 before it exits, so the
     buffer is zeroed once per device (and again only when a call needs more
     counters than it holds), not per call.  Calls on one stream run in
     order, so they never share a count.

@@ -11,7 +11,8 @@ chunk, with ``cs = cumsum(dt * A)``,
     h'    = exp(cs_Q) h + sum_k exp(cs_Q - cs_k) dt_k x_k (x) B_k
 
 -> y ``(B, S, nh, hp)`` fp32 and the final state ``(B, nh, hp, ds)`` fp32.
-CUDA tensors launch ``csrc/ssd_scan.cu``; CPU tensors run
+CUDA tensors launch ``csrc/ssd_scan.cu`` (one block per chunk of one head,
+the state chained from chunk to chunk through the output h); CPU tensors run
 ``ssd_scan_plain``.  There is no fallback from one to the other.
 """
 from __future__ import annotations
@@ -24,10 +25,30 @@ launches = 0
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
-def smem_bytes(Q: int, hp: int, ds: int) -> int:
-    """Shared memory of one block: the (hp, ds) state, B and C of a chunk,
-    the (Q, Q) chunk matrix and three (Q,) rows, all fp32."""
-    return 4 * (hp * ds + 2 * ds * Q + Q * Q + 3 * Q)
+def _up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+def _pitch(cols: int, tile: int, element_size: int) -> int:
+    """Row pitch in elements of a staged tile: ``cols`` padded to ``tile``, plus 8
+    bf16 or 4 fp32 elements (16-byte multiples, 4 mod 8 words)."""
+    return _up(cols, tile) + (8 if element_size == 2 else 4)
+
+
+def smem_bytes(Q: int, hp: int, ds: int, element_size: int) -> int:
+    """Shared memory of one block (one chunk of one head): x, B and C of the chunk
+    in the input's element type, then its dt, the (hp, ds) state and two more (Q,)
+    rows in fp32.  Q and ds round up to whole mma tiles (16), hp to whole units of
+    64 output columns, the tiles' rows carry pitch padding and the rows of length Q
+    round up to 32."""
+    Qp, hp64, ds16, Q32 = _up(Q, 16), _up(hp, 64), _up(ds, 16), _up(Q, 32)
+    tiles = Qp * (_pitch(hp, 64, element_size) + 2 * _pitch(ds, 16, element_size))
+    return element_size * tiles + 4 * (hp64 * (ds16 + 4) + 3 * Q32)
+
+
+def counter_count(B: int, nh: int) -> int:
+    """int32 counters of a launch: the ticket and one chain count per (b, head)."""
+    return 1 + B * nh
 
 
 def ssd_scan_plain(xh, dt, A, Bs, Cs, chunk: int, h0=None):
@@ -77,7 +98,7 @@ def _check(name, x, shape, dtype, device):
 
 
 def _ssd_scan_cuda(xh, dt, A, Bs, Cs, chunk, h0):
-    from repro_torch.kernels.build import check, library
+    from repro_torch.kernels.build import check, counters, library
 
     global launches
     if xh.dtype not in _DTYPE_CODES:
@@ -98,18 +119,19 @@ def _ssd_scan_cuda(xh, dt, A, Bs, Cs, chunk, h0):
     if h0 is not None:
         _check("h0", h0, (Bsz, nh, hp, ds), torch.float32, device)
     Q = min(chunk, S)
-    need = smem_bytes(Q, hp, ds)
+    need = smem_bytes(Q, hp, ds, xh.element_size())
     limit = torch.cuda.get_device_properties(device).shared_memory_per_block_optin
     if need > limit:
         raise ValueError(f"ssd_scan: a block needs {need} bytes of shared memory at "
                          f"Q={Q} hp={hp} ds={ds}, the card gives {limit}")
     y = torch.empty((Bsz, S, nh, hp), dtype=torch.float32, device=device)
     h = torch.empty((Bsz, nh, hp, ds), dtype=torch.float32, device=device)
+    chain = counters(device, "ssd_scan", counter_count(Bsz, nh))
     stream = torch.cuda.current_stream(device).cuda_stream
     status = library().ssd_scan_launch(
         xh.data_ptr(), dt.data_ptr(), A.data_ptr(), Bs.data_ptr(), Cs.data_ptr(),
         None if h0 is None else h0.data_ptr(), Bsz, S, nh, hp, ds, Q, need,
-        _DTYPE_CODES[xh.dtype], y.data_ptr(), h.data_ptr(), stream,
+        _DTYPE_CODES[xh.dtype], y.data_ptr(), h.data_ptr(), chain.data_ptr(), stream,
     )
     check(status, "ssd_scan")
     launches += 1

@@ -586,6 +586,12 @@ def _assert_ssd_close(got, ref):
     (2, 200, 4, 32, 16, 128, True),  # S not a multiple of Q, a given h0
     (3, 100, 2, 8, 32, 128, False),  # Q > S: one chunk of S
     (1, 300, 24, 64, 128, 128, True),  # mamba2-130m's head: the largest shared tile
+    (8, 4096, 50, 64, 16, 128, False),  # 12,800 blocks, many resident waves: the chain
+    (2, 1000, 50, 64, 16, 128, True),  # hymba's head with an h0, a ragged last chunk
+    (2, 300, 3, 36, 24, 128, True),  # hp, ds not whole mma tiles
+    (1, 77, 2, 13, 9, 32, True),  # odd hp and ds, a ragged chunk of 13 steps
+    (2, 40, 12, 32, 16, 16, False),  # the smoke config's prefill: chunks of 16
+    (3, 100, 12, 32, 16, 16, True),  # chunks of 16, a ragged last one, an h0
 ])
 def test_ssd_scan_kernel_matches_plain(dev, dtype, B, S, nh, hp, ds, chunk, with_h0):
     from repro_torch.kernels import ssd_scan as ssd

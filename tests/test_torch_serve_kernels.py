@@ -27,6 +27,8 @@ import numpy as np
 import pytest
 import torch
 
+from repro.configs import get_config as jget_config
+from repro.configs import get_smoke_config as jget_smoke
 from repro.kernels import ref as jref
 from repro.kernels import ssd_scan as jssd_kernel
 from repro.kernels import swa_decode as jswa_kernel
@@ -241,3 +243,36 @@ def test_plain_ssd_scan_bf16_inputs_round_as_the_models_scan():
     y_jax = np.asarray(y_j.astype(jnp.float32))
     np.testing.assert_allclose(y_port, y_jax, rtol=2 ** -7, atol=1e-5)
     np.testing.assert_allclose(h.numpy(), np.asarray(h_j), atol=1e-5, rtol=1e-5)
+
+
+# the card's opt-in shared memory per block (NVIDIA H100: 227 KB)
+H100_SMEM_OPTIN = 232_448
+
+
+@pytest.mark.parametrize("arch", ["hymba-1.5b", "mamba2-130m"])
+@pytest.mark.parametrize("smoke", [False, True])
+@pytest.mark.parametrize("element_size", [2, 4])
+def test_ssd_scan_block_fits_the_card_at_the_zoos_heads(arch, smoke, element_size):
+    """A block of the card kernel (one chunk of one head) fits the H100's opt-in
+    shared memory at each SSM config's (Q, hp, ds), the full and the smoke sizes,
+    with x, B and C in bf16 or fp32."""
+    cfg = (jget_smoke if smoke else jget_config)(arch)
+    Q, hp, ds = cfg.ssm_chunk, cfg.ssm_head_dim, cfg.ssm_state
+    assert ssd.smem_bytes(Q, hp, ds, element_size) <= H100_SMEM_OPTIN
+
+
+@pytest.mark.parametrize("Q,hp,ds,element_size,fits", [
+    (128, 64, 16, 2, True),  # hymba-1.5b
+    (128, 64, 128, 4, True),  # mamba2-130m in fp32, the largest tile the zoo needs
+    (128, 256, 16, 4, True),
+    (256, 256, 256, 4, False),  # the tile the card wrapper refuses
+    (256, 256, 256, 2, False),
+    (1024, 64, 16, 2, False),
+])
+def test_ssd_scan_shared_memory_at_the_edges(Q, hp, ds, element_size, fits):
+    assert (ssd.smem_bytes(Q, hp, ds, element_size) <= H100_SMEM_OPTIN) == fits
+
+
+def test_ssd_scan_counters_at_hymbas_prefill():
+    """B = 4, nh = 50: the ticket and one chain count per (b, head)."""
+    assert ssd.counter_count(4, 50) == 1 + 200
