@@ -1,6 +1,12 @@
 """Smoke run of the PyTorch / CUDA port on one NVIDIA card.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --wrapper-times CHECKOUT
+
+The second form runs phases 1 and 2 and then only ``rttg_latency``'s and
+``fedavg_reduce``'s wrappers as the round calls them (phase 5's profile of
+them), from the ``src/`` of another checkout (say, the parent commit's
+``git archive``), so that two trees can be compared in one call.
 
 Phases (any failure raises and exits non-zero):
 
@@ -9,7 +15,13 @@ Phases (any failure raises and exits non-zero):
    nvcc into ``build/kernels`` and print the seconds and ptxas's registers
    and spills per kernel;
 3. kernels: each kernel against its plain PyTorch version on the card, at
-   the main path's shapes and at the edges; ``server_update`` for every rule
+   the main path's shapes and at the edges, each call repeated bitwise:
+   ``rttg_latency`` around its one-block limit (1,024 and 1,025 clients), at
+   the fleet's 100,000 and at 300,000 (more clients than resident threads),
+   at R = 1, 40 and 32,768, and with positions at the predictor's wrap (0,
+   just under the ring, the ring, past twice the ring, below 0);
+   ``fedavg_reduce`` at K = 1, 7, 8, 9, 10, 17 and 100, odd P included;
+   ``server_update`` for every rule
    and ``server_update_buffered`` for both ``drain`` states, and their two
    bitwise contracts (rule 0 is ``fedavg_reduce`` + the AXPY; no drain is
    the unbuffered update); ``rsu_reduce`` with and without its carry, on
@@ -75,7 +87,10 @@ Phases (any failure raises and exits non-zero):
    beside it the fp32-core figure); the round's wall time (the fedavg, fedadam, fedbuff
    and streamed lanes), and profiled rounds (with ``rsu_reduce``'s calls and
    device time per call in the streamed and fleet rounds), a profiled
-   decode step and prefill (with ``ssd_scan``'s calls and time per call).
+   decode step and prefill (with ``ssd_scan``'s calls and time per call);
+   ``rttg_latency`` at N=100 predicted and realized and at N=100,000
+   predicted, and both it and ``fedavg_reduce`` through their wrappers as
+   the round calls them: device ops and device time per call.
 
 The last two lines are the kernels' JSON record and the device JSON.
 """
@@ -138,11 +153,11 @@ def phase(name: str) -> None:
     print(f"\n=== {name}", flush=True)
 
 
-def rttg_inputs(scenario: str, n: int, seed: int, cr: float, device):
+def rttg_inputs(scenario: str, n: int, seed: int, cr: float, device, **scn_kw):
     from repro_torch.core.scenarios import scenario_config, scenario_params
     from repro_torch.utils import prng
 
-    scn = scenario_params(scenario_config(scenario, num_vehicles=n), device)
+    scn = scenario_params(scenario_config(scenario, num_vehicles=n, **scn_kw), device)
     k = prng.split(prng.key(seed), 4)
     pos = prng.uniform(k[0], (n,), 0.0, scn.ring_length_m, device)
     speed = 14.0 + 4.0 * prng.normal(k[1], (n,), device)
@@ -152,27 +167,45 @@ def rttg_inputs(scenario: str, n: int, seed: int, cr: float, device):
     return scn, pos, speed, accel, t, forced
 
 
-def check_rttg(scenario, n, predict, cr, want_rid, device) -> float:
+def wrap_edges(pos, ring):
+    """``pos`` with its first entries at the predictor's wrap: 0, just under
+    the ring and the ring (the compare-and-subtract path), 2 ring and beyond
+    and below 0 (the fmodf path)."""
+    edges = torch.stack([0.0 * ring, torch.nextafter(ring, 0.0 * ring), ring, 2.0 * ring,
+                         3.5 * ring, -1.0 + 0.0 * ring, -0.5 * ring, -2.5 * ring])
+    return torch.cat([edges, pos[len(edges):]])
+
+
+def check_rttg(scenario, n, predict, cr, want_rid, device, at_wrap=False, **scn_kw) -> float:
+    """Two wrapper calls against the plain version: conn and rid exact,
+    latency within rtol 1e-5, the second call bit for bit the first."""
     from repro_torch.kernels.rttg_latency import rttg_latency, rttg_latency_plain
 
-    scn, pos, speed, accel, t, forced = rttg_inputs(scenario, n, n + 7, cr, device)
+    scn, pos, speed, accel, t, forced = rttg_inputs(scenario, n, n + 7, cr, device, **scn_kw)
+    if at_wrap:
+        pos = wrap_edges(pos, scn.ring_length_m)
     mb = 636_040.0
-    got = rttg_latency(pos, speed, accel, t, mb, forced, scn, predict=predict,
-                       want_rid=want_rid)
+    got, again = [rttg_latency(pos, speed, accel, t, mb, forced, scn, predict=predict,
+                               want_rid=want_rid) for _ in range(2)]
     ref = rttg_latency_plain(pos, speed, accel, t, mb, forced, scn, predict, want_rid)
     torch.cuda.synchronize()
+    what = f"{scenario}, N={n}, R={scn.n_rsu}, predict={predict}, at_wrap={at_wrap}"
     if not torch.equal(got[1], ref[1]):
-        raise AssertionError(f"rttg_latency conn differs ({scenario}, N={n}, predict={predict})")
+        raise AssertionError(f"rttg_latency conn differs ({what})")
     if want_rid and not torch.equal(got[2], ref[2]):
-        raise AssertionError(f"rttg_latency rid differs ({scenario}, N={n})")
+        raise AssertionError(f"rttg_latency rid differs ({what})")
     if not bool(torch.isfinite(got[0]).all()):
-        raise AssertionError("rttg_latency produced non-finite latency")
+        raise AssertionError(f"rttg_latency produced non-finite latency ({what})")
     # transcendentals (log10f, powf, log2f, sinf) may differ by an ulp or two
     # between the kernel and PyTorch's elementwise kernels: rtol 1e-5
     torch.testing.assert_close(got[0], ref[0], rtol=1e-5, atol=1e-7)
+    if not all(torch.equal(x, y) for x, y in zip(got, again)):
+        raise AssertionError(f"rttg_latency does not repeat bitwise ({what})")
     err = float((got[0] - ref[0]).abs().max())
-    print(f"rttg_latency {scenario:10s} N={n:5d} predict={predict!s:5s} CR={cr} "
-          f"rid={want_rid!s:5s} max_abs_err={err:.3e} conn/rid exact")
+    print(f"rttg_latency {scenario:10s} N={n:6d} R={scn.n_rsu:5d} "
+          f"ring={float(scn.ring_length_m):g} m predict={predict!s:5s} "
+          f"CR={cr} rid={want_rid!s:5s}{' at the wrap' if at_wrap else ''} "
+          f"max_abs_err={err:.3e} conn/rid exact, repeat bitwise")
     return err
 
 
@@ -184,14 +217,17 @@ def check_fedavg(K, P, device) -> float:
     u = 1e-3 * prng.normal(k[0], (K, P), device)
     w = prng.uniform(k[1], (K,), device=device)
     w = w / w.sum()
-    got = fedavg_reduce(u, w)
+    got, again = fedavg_reduce(u, w), fedavg_reduce(u, w)
     ref = fedavg_reduce_plain(u, w)
     torch.cuda.synchronize()
     # the two sum K products in different orders: tolerance scaled by sum |w u|
     scale = float((w.abs() @ u.abs()).max())
     torch.testing.assert_close(got, ref, rtol=1e-5, atol=1e-6 * scale)
+    if not torch.equal(got, again):
+        raise AssertionError(f"fedavg_reduce does not repeat bitwise (K={K}, P={P})")
     err = float((got - ref).abs().max())
-    print(f"fedavg_reduce K={K:3d} P={P:7d} max_abs_err={err:.3e} (scale {scale:.3e})")
+    print(f"fedavg_reduce K={K:3d} P={P:7d} max_abs_err={err:.3e} (scale {scale:.3e}), "
+          f"repeat bitwise")
     return err
 
 
@@ -1004,9 +1040,10 @@ def fused_vs_unfused(sim, state0) -> bool:
     return not differ
 
 
-def device_us_per_call(fn, calls: int = 20) -> float:
-    """Mean device time of ``fn``'s kernels per call, from torch.profiler
-    (NaN when the profiler records no device activity)."""
+def device_profile(fn, calls: int = 20, names=()):
+    """``fn``'s device time (us) and device ops per call, from torch.profiler:
+    over every kernel, copy and memset, or with ``names`` over those whose name
+    holds one of them (NaN and 0 when the profiler records no device activity)."""
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     fn()
     torch.cuda.synchronize()
@@ -1015,10 +1052,59 @@ def device_us_per_call(fn, calls: int = 20) -> float:
             fn()
         torch.cuda.synchronize()
     dev = [e for e in prof.events()
-           if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA]
+           if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA
+           and (not names or any(n in e.name for n in names))]
     if not dev:
-        return math.nan
-    return sum(e.time_range.elapsed_us() for e in dev) / calls
+        return math.nan, 0.0
+    return sum(e.time_range.elapsed_us() for e in dev) / calls, len(dev) / calls
+
+
+def device_us_per_call(fn, calls: int = 20) -> float:
+    """Mean device time of ``fn``'s kernels per call, from torch.profiler
+    (NaN when the profiler records no device activity)."""
+    return device_profile(fn, calls)[0]
+
+
+def wrapper_times(device, card) -> None:
+    """``rttg_latency`` and ``fedavg_reduce`` called as the round calls them,
+    through the wrappers of the ``repro_torch`` on ``sys.path``: per call, the
+    profiled device time and device ops of everything the call issues, and
+    of the kernels' own ops (their names, and memsets).  ``rttg_latency`` at
+    the main path's predicted call (N=100, R=10, 50 steps, CR 1), its
+    realized call (0 steps) and the fleet's predicted call (N=100,000);
+    ``fedavg_reduce`` at K=10, P=159,010 beside ``torch.mv``, cycling
+    operand copies that exceed the 50 MB L2."""
+    from repro_torch.kernels import fedavg_reduce as fedavg_mod
+    from repro_torch.kernels import rttg_latency as rttg_mod
+    from repro_torch.utils import prng
+
+    mb = torch.tensor(636_040.0, device=device)
+    for label, n, predict in (("predicted", 100, True), ("realized", 100, False),
+                              ("predicted", 100_000, True)):
+        scn, pos, speed, accel, t, _ = rttg_inputs("ring", n, 3, 1.0, device)
+
+        def call(pos=pos, speed=speed, accel=accel, t=t, scn=scn, predict=predict):
+            rttg_mod.rttg_latency(pos, speed, accel, t, mb, None, scn, predict=predict)
+
+        ev_us = time_ms(call, iters=100, warmup=10) * 1e3
+        all_us, all_ops = device_profile(call)
+        own_us, own_ops = device_profile(call, names=("rttg", "Memset"))
+        print(f"rttg_latency wrapper, {label} call at N={n}, R={scn.n_rsu}: device ops per "
+              f"call {all_ops:g} ({all_us:.2f} us), of them the kernel's {own_ops:g} "
+              f"({own_us:.2f} us); events {ev_us:.2f} us a call [{card}]")
+    K, P = 10, 159_010
+    us = [1e-3 * prng.normal(prng.fold_in(prng.key(11), i), (K, P), device) for i in range(16)]
+    w = torch.full((K,), 0.1, dtype=torch.float32, device=device)
+    it = {"i": 0}
+
+    def nxt():
+        it["i"] = (it["i"] + 1) % len(us)
+        return us[it["i"]]
+
+    fed_us, fed_ops = device_profile(lambda: fedavg_mod.fedavg_reduce(nxt(), w))
+    mv_us, _ = device_profile(lambda: torch.mv(nxt().t(), w))
+    print(f"fedavg_reduce wrapper K={K} P={P}: device ops per call {fed_ops:g}, device time "
+          f"{fed_us:.2f} us; torch.mv {mv_us:.2f} us (kernel {fed_us / mv_us:.3f}x) [{card}]")
 
 
 def time_gram(kernels, lib, stream, sel_run, main_err, device, card):
@@ -1241,11 +1327,18 @@ def time_serving_kernels(kernels, lib, stream, serve_launches, main_err, device,
     })
 
 
-def main() -> int:
+def main(argv=()) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script needs a card",
               file=sys.stderr)
         return 1
+    other = None
+    if argv:
+        if len(argv) != 2 or argv[0] != "--wrapper-times":
+            print("usage: python3 chip_smoke.py [--wrapper-times CHECKOUT]", file=sys.stderr)
+            return 2
+        other = os.path.abspath(argv[1])
+        sys.path.insert(0, os.path.join(other, "src"))  # before any repro_torch import
 
     # ---- 1. device -------------------------------------------------------
     phase("device")
@@ -1272,6 +1365,13 @@ def main() -> int:
                 or "Compiling entry" in line:
             print("  " + line.strip())
     kbuild.library()
+    if other is not None:
+        phase(f"wrapper times of {other}")
+        wrapper_times(device, card)
+        print(card)
+        print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
+                                                 "count": count}}))
+        return 0
 
     # ---- 3. kernels against their plain versions ------------------------
     phase("kernels vs plain versions")
@@ -1280,13 +1380,27 @@ def main() -> int:
         e = check_rttg("ring", 100, predict, 1.0, False, device)
         main_err["rttg_latency"] = max(main_err["rttg_latency"], e)
     check_rttg("ring", 100, False, 1.0, True, device)
-    for n in (1, 257, 4096):
+    # the launch plan's edges: one block up to 1,024 clients, then a cooperative
+    # grid; 300,000 clients outnumber the card's resident threads
+    for n in (1, 257, 1024, 1025, 4096, 100_000, 300_000):
         check_rttg("ring", n, True, 1.0, True, device)
+    check_rttg("ring", 100_000, False, 0.7, True, device)
+    # R = 1, 40 and the largest, 32,768 (160 KB of shared memory a block)
+    for spacing in (10_000.0, 250.0, 10_000.0 / 32768):
+        for n in (100, 5000):
+            check_rttg("ring", n, True, 1.0, True, device, rsu_spacing_m=spacing)
+    # positions at the wrap, on the 10 km ring and on a 5 m one, where
+    # 3 mean_speed dt > ring / 2 sends every step through the tested wrap
+    for ring_kw in ({}, {"ring_length_m": 5.0, "rsu_spacing_m": 1.0}):
+        for n in (100, 4096):
+            for predict in (True, False):
+                check_rttg("ring", n, predict, 1.0, True, device, at_wrap=True, **ring_kw)
     check_rttg("rsu_outage", 100, True, 1.0, True, device)
     check_rttg("rush_hour", 257, True, 0.7, False, device)
     check_rttg("day_cycle", 100, False, 0.5, True, device)
     main_err["fedavg_reduce"] = check_fedavg(10, 159_010, device)
-    for K, P in ((1, 159_010), (10, 2049), (1, 1), (10, 4096)):
+    for K, P in ((1, 159_010), (10, 2049), (1, 1), (10, 4096), (7, 159_011), (8, 4097),
+                 (9, 2049), (17, 159_010), (17, 4097), (100, 38_656)):
         check_fedavg(K, P, device)
     main_err["server_update"] = main_err["server_update_buffered"] = 0.0
     for K, P in ((10, 159_010), (1, 1), (1, 2047), (5, 2049), (100, 38_656)):
@@ -1662,47 +1776,52 @@ def main() -> int:
     phase(f"times on {card}")
     from repro_torch.kernels.build import library
     from repro_torch.kernels.fedavg_reduce import fedavg_reduce_plain
-    from repro_torch.kernels.rttg_latency import pack_scalars, rttg_latency, rttg_latency_plain
-    from repro_torch.core.rttg import rsu_up_mask
+    from repro_torch.kernels.rttg_latency import (launch_blocks, rttg_latency_plain,
+                                                  scenario_operand)
     from repro_torch.core.trajectory import horizon_steps
 
     lib = library()
     stream = torch.cuda.current_stream(device).cuda_stream
     kernels = []
 
-    # rttg_latency at the main path's predicted-topology call: N=100, R=10,
-    # 50 predictor steps, CR = 1 (no forced mask), no rid
-    scn, pos, speed, accel, t, _ = rttg_inputs("ring", 100, 3, 1.0, device)
-    n, R = 100, scn.n_rsu
-    mb = 636_040.0
-    scalars = pack_scalars(t, mb, scn, device)
-    live = rsu_up_mask(scn).to(torch.uint8).contiguous()
-    counts = torch.empty((R,), dtype=torch.int32, device=device)
-    lat = torch.empty((n,), dtype=torch.float32, device=device)
-    conn = torch.empty((n,), dtype=torch.bool, device=device)
-    steps = horizon_steps(scn.predict_horizon_s, scn)
+    # rttg_latency's C entry point with its operands prepared: the main path's
+    # predicted call (N=100, R=10, 50 predictor steps, CR = 1, no rid), its
+    # realized call (0 steps) and the fleet's predicted call (N=100,000)
+    mb = torch.tensor(636_040.0, device=device)
     times = {}
-    for predict in (True, False):
+    for label, n, predict in (("predict", 100, True), ("realized", 100, False),
+                              ("fleet", 100_000, True)):
+        scn, pos, speed, accel, t, _ = rttg_inputs("ring", n, 3, 1.0, device)
+        R = scn.n_rsu
+        op = scenario_operand(scn, device)
+        blocks = launch_blocks(lib, device, n, R)
+        counts = kbuild.counters(device, "rttg_latency", R + 2)
+        spill = torch.empty((3 * n,), dtype=torch.int32, device=device)
+        lat = torch.empty((n,), dtype=torch.float32, device=device)
+        conn = torch.empty((n,), dtype=torch.bool, device=device)
+        steps = horizon_steps(scn.predict_horizon_s, scn)
         ns = steps if predict else 0
         hs = float(scn.predict_horizon_s) if predict else 0.0
 
-        def launch(ns=ns, hs=hs):
+        def launch(op=op, R=R, t=t, pos=pos, speed=speed, accel=accel, n=n, ns=ns, hs=hs,
+                   blocks=blocks, counts=counts, spill=spill, lat=lat, conn=conn, dt=scn.sim_dt_s):
             kbuild.check(lib.rttg_latency_launch(
-                scalars.data_ptr(), live.data_ptr(), R, pos.data_ptr(), speed.data_ptr(),
-                accel.data_ptr(), None, n, ns, float(scn.sim_dt_s), hs,
-                counts.data_ptr(), lat.data_ptr(), conn.data_ptr(), None, stream),
+                op.data_ptr(), R, t.data_ptr(), mb.data_ptr(), pos.data_ptr(), speed.data_ptr(),
+                accel.data_ptr(), None, n, ns, float(dt), hs, blocks, counts.data_ptr(),
+                spill.data_ptr(), lat.data_ptr(), conn.data_ptr(), None, stream),
                 "rttg_latency")
 
-        times[predict] = (
+        plain_args = (pos, speed, accel, t, mb, None, scn, predict)
+        times[label] = (
             time_ms(launch),
-            time_ms(lambda p=predict: rttg_latency_plain(pos, speed, accel, t, mb, None, scn, p),
-                    iters=20, warmup=3),
+            time_ms(lambda a=plain_args: rttg_latency_plain(*a), iters=20, warmup=3),
             device_us_per_call(launch),
+            blocks,
         )
-    wrapper_ms = time_ms(lambda: rttg_latency(pos, speed, accel, t, mb, None, scn, predict=True),
-                         iters=50, warmup=5)
-    # bytes: 3 f32 inputs + 19 scalars + R live flags in, f32 lat + bool conn out
-    rttg_bytes = n * 4 * 3 + 19 * 4 + R + n * 4 + n
+    n, R = 100, 10
+    # bytes: 3 f32 inputs, 17 scalars, R live flags, t and model_bytes in; f32
+    # lat and bool conn out
+    rttg_bytes = n * 4 * 3 + 17 * 4 + R + 2 * 4 + n * 4 + n
     # flops per client: 8 per predictor step, 6 per RSU in the argmin, ~45 in
     # the latency/SNR/congestion tail (counting each transcendental as one)
     rttg_flops = n * (8 * steps + 6 * R + 45)
@@ -1712,17 +1831,18 @@ def main() -> int:
         "source": "src/repro_torch/kernels/csrc/rttg_latency.cu",
         "replaces": "src/repro/kernels/rttg_latency.py:242",
         "launches": launches["rttg_latency"], "max_abs_err": main_err["rttg_latency"],
-        "ms": times[True][0], "plain_ms": times[True][1], "bound_ms": b_ms,
+        "ms": times["predict"][0], "plain_ms": times["predict"][1], "bound_ms": b_ms,
         "bound_by": b_by, "library_ms": None,
     })
-    print(f"rttg_latency N=100 R={R} predict (50 steps): kernel {times[True][0] * 1e3:.2f} us "
-          f"(device time {times[True][2]:.2f} us: the count, memset and finish launches), "
-          f"plain {times[True][1] * 1e3:.1f} us, bound {b_ms * 1e3:.5f} us ({b_by}) [{card}]")
-    print(f"rttg_latency N=100 R={R} realized (0 steps): kernel {times[False][0] * 1e3:.2f} us "
-          f"(device time {times[False][2]:.2f} us), plain {times[False][1] * 1e3:.1f} us "
-          f"[{card}]")
-    print(f"rttg_latency wrapper as the round calls it (operand packing included): "
-          f"{wrapper_ms * 1e3:.1f} us [{card}]")
+    for label, what in (("predict", "N=100 R=10 predict (50 steps)"),
+                        ("realized", "N=100 R=10 realized (0 steps)"),
+                        ("fleet", "N=100,000 R=10 predict (50 steps)")):
+        ms, plain_ms, dev_us, blocks = times[label]
+        print(f"rttg_latency {what}, {blocks} block(s), one launch: kernel {ms * 1e3:.2f} us "
+              f"(device time {dev_us:.2f} us), plain {plain_ms * 1e3:.1f} us"
+              + (f", bound {b_ms * 1e3:.5f} us ({b_by})" if label == "predict" else "")
+              + f" [{card}]")
+    wrapper_times(device, card)
 
     # fedavg_reduce at K=10, P=159,010; cycle through copies that together
     # exceed the 50 MB L2, so each launch streams its rows from HBM
@@ -1967,4 +2087,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

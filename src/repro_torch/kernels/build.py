@@ -34,7 +34,9 @@ NVCC_FLAGS = (
 
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 _SIGNATURES = {
-    "rttg_latency_launch": (_P, _P, _I, _P, _P, _P, _P, _I, _I, _F, _F, _P, _P, _P, _P, _P),
+    "rttg_latency_launch": (_P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _F, _F, _I, _P, _P, _P, _P,
+                            _P, _P),
+    "rttg_latency_blocks": (_I, _I),
     "fedavg_reduce_launch": (_P, _P, _I, _LL, _I, _P, _P),
     "server_update_launch": (_P, _P, _I, _P, _P, _I, _P, _LL, _P, _P, _P, _I, _I,
                              _F, _F, _F, _F, _F, _F, _I, _P, _P, _P, _P),

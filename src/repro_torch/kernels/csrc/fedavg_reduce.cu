@@ -8,19 +8,27 @@
 // writes P outputs, two flops per value read: at the main path's K = 10,
 // P = 159,010 that is about 7.0 MB, a bound near 2.1 us at 3.35 TB/s.
 //
-// Design: a GEMV with no reuse to exploit, so the kernel only has to stream
-// the update matrix once at full width.  Each thread owns a run of VEC
-// adjacent columns, loads them with one VEC*4-byte vector load per row
-// (neighbouring threads on neighbouring addresses, so every warp load is
-// coalesced), and walks k in ascending order with an fp32 FMA accumulator.
-// The order of summation is fixed, so a run repeats itself bitwise.  The
-// weights (K floats) are read through the read-only cache.  No shared memory,
-// no atomics, no second pass.
+// Design: a GEMV with no reuse to exploit, so the kernel only has to keep
+// enough bytes in flight to stream the update matrix once at full rate.
+// Each thread owns a run of VEC adjacent columns (VEC by alignment: the
+// main path's rows are 8-byte aligned, VEC = 2) and loads them with one
+// VEC*4-byte vector load per row, neighbouring threads on neighbouring
+// addresses, so every warp load is coalesced.  It issues its rows' loads a
+// group of GROUP = 8 ahead of the FMA chain that consumes them: the next
+// group's loads go out before the current group's FMAs, so at K = 10 all
+// ten rows are in flight at once, where one load at a time was before.
+// Blocks of 128 threads give the 132 SMs an even share (4.7 blocks an SM
+// at the main path's P).  The chain walks k in ascending order from 0.0
+// with fmaf, so a run repeats itself bitwise and rule 0 of server_update
+// (the same chain) equals this sum plus the AXPY bit for bit.  The weights
+// (K floats) come through the read-only cache.  No shared memory, no
+// atomics, no second pass.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#define THREADS 256
+#define THREADS 128
+#define GROUP 8  // rows a thread loads ahead of its FMA chain
 
 template <int VEC>
 struct Vec;
@@ -55,19 +63,51 @@ __device__ __forceinline__ void store_vec(float* out, const float* acc, float4) 
   *reinterpret_cast<float4*>(out) = make_float4(acc[0], acc[1], acc[2], acc[3]);
 }
 
+// Rows k0 .. k0 + GROUP - 1 of this thread's columns and their weights; rows
+// past the cohort read as 0 and are never consumed.
+template <typename T>
+__device__ __forceinline__ void load_group(T* v, float* w, const T* __restrict__ col,
+                                           const float* __restrict__ weights, int k0,
+                                           int k_rows, long long row) {
+#pragma unroll
+  for (int j = 0; j < GROUP; ++j) {
+    if (k0 + j < k_rows) {
+      v[j] = __ldg(col + (long long)(k0 + j) * row);
+      w[j] = __ldg(weights + k0 + j);
+    } else {
+      v[j] = T{};
+      w[j] = 0.0f;
+    }
+  }
+}
+
 template <int VEC>
-__global__ void fedavg_reduce_kernel(const float* __restrict__ updates,
-                                     const float* __restrict__ weights, int k_rows,
-                                     long long p_cols, float* __restrict__ out) {
+__global__ void __launch_bounds__(THREADS) fedavg_reduce_kernel(
+    const float* __restrict__ updates, const float* __restrict__ weights, int k_rows,
+    long long p_cols, float* __restrict__ out) {
   using T = typename Vec<VEC>::T;
-  const long long col = ((long long)blockIdx.x * blockDim.x + threadIdx.x) * VEC;
+  const long long col = ((long long)blockIdx.x * THREADS + threadIdx.x) * VEC;
   if (col >= p_cols) return;
+  const T* src = reinterpret_cast<const T*>(updates + col);
+  const long long row = p_cols / VEC;  // one row of updates, in T
   float acc[VEC];
 #pragma unroll
   for (int j = 0; j < VEC; ++j) acc[j] = 0.0f;
-  for (int k = 0; k < k_rows; ++k) {
-    const float w = __ldg(weights + k);
-    fma_vec(acc, w, __ldg(reinterpret_cast<const T*>(updates + (long long)k * p_cols + col)));
+  T cur[GROUP];
+  float w_cur[GROUP];
+  load_group(cur, w_cur, src, weights, 0, k_rows, row);
+  for (int k0 = 0; k0 < k_rows; k0 += GROUP) {
+    T next[GROUP];
+    float w_next[GROUP];
+    load_group(next, w_next, src, weights, k0 + GROUP, k_rows, row);  // in flight meanwhile
+#pragma unroll
+    for (int j = 0; j < GROUP; ++j)
+      if (k0 + j < k_rows) fma_vec(acc, w_cur[j], cur[j]);
+#pragma unroll
+    for (int j = 0; j < GROUP; ++j) {
+      cur[j] = next[j];
+      w_cur[j] = w_next[j];
+    }
   }
   store_vec(out + col, acc, T{});
 }

@@ -8,41 +8,77 @@
 // day envelope), Shannon rate / load, latency = air + propagation + queue +
 // handover, and connected = (snr >= snr_min) & forced.
 //
-// What bounds it on this card: nothing but the launch.  At the main path's
-// shapes (N = 100 clients, R = 10 RSUs) it moves under 3 KB and does about
-// 5e4 flops, well under a microsecond of memory or arithmetic time.
+// What bounds it on this card: one launch and a dependent chain, not bytes or
+// operations.  At the main path's shapes (N = 100 clients, R = 10 RSUs) it
+// moves under 3 KB and does about 5e4 flops, far under a microsecond of
+// memory or arithmetic time.  A call costs its launch, then each client's
+// predictor, n_steps = predict_horizon_s / sim_dt_s = 50 dependent Euler
+// steps, then the argmin over R and the latency tail.
 //
-// Design: the per-RSU counts are the one quantity that crosses clients.
-// The TPU kernel carried them across an ordered two-phase grid in VMEM
-// scratch; Hopper blocks run in no order, so the chain runs as two launches
-// on one stream.  Launch 1 predicts, attaches and atomically adds each client
-// into an int32 (R,) histogram (integer adds are exact in any order).
-// Launch 2 recomputes the cheap elementwise predict+attach, reads the
-// finished counts and writes latency, connectivity and (optionally) the RSU
-// id.  One thread per client; each block stages the scalars and the R live
-// flags in shared memory.  Built with --fmad=false and without fast math, so
-// every multiply and add rounds as the plain PyTorch version's separate ops
-// do and log10f / powf / log2f / sinf stay within ulps of it.
+// Design: one launch a call at every N, each client's predictor run once.
+// The per-RSU counts are the one quantity that crosses clients; the TPU
+// kernel carried them across an ordered two-phase grid in VMEM scratch.
+// - N <= ONE_BLOCK_MAX (1,024): one block, a thread per client.  Each thread
+//   predicts and attaches its client and keeps (rid, d_min, speed) in
+//   registers; the block counts into a shared-memory histogram (one shared
+//   add per distinct RSU of a warp, found with __match_any_sync),
+//   __syncthreads(), and every thread finishes its client from the counts.
+//   No global scratch.
+// - Above: a cooperative launch of GRID_THREADS-thread blocks, no more than
+//   the card holds resident, thread g taking clients g, g + grid threads, ...
+//   Each block counts into shared memory as above, adds its nonzero counts
+//   into a global (R,) array (one add per block and RSU, not per client),
+//   and waits at a grid barrier (an arrival count); then it reads the
+//   finished counts.  The last block to read them zeroes them and the two
+//   barrier counts, so the next call finds them at zero (the wrapper zeroes
+//   the buffer once per device).  A thread's first client stays in registers
+//   across the barrier; a thread with more (above ~135,000 clients at R = 10)
+//   keeps the others' attachments in a global spill.
+//   Integer adds are exact in any order: a call repeats itself bit for bit.
+// - The predictor's wrap: for x in [0, 2 ring), fmodf(x, ring) is x, or
+//   x - ring above ring (exact by Sterbenz's lemma), and the kernel takes
+//   that compare and select instead of fmodf, a software loop without fast
+//   math; any other x takes fmodf, so the result is torch.remainder's bit
+//   for bit.  After the first step pos lies in [0, ring], and where
+//   3 mean_speed dt <= ring / 2 (4.2 m against 5 km on the main path's
+//   ring) every later step lands in (0, 1.5 ring]: the 49 steps after the
+//   first run with no range test and no branch.
+// - Shared memory: the 17 scalars, then R int32 counts and R live flags, 5R
+//   bytes dynamic: 160 KB at the largest R = 32,768, opted into above 48 KB,
+//   one block an SM there.
+// Built with --fmad=false and without fast math, so every multiply and add
+// rounds as the plain PyTorch version's separate ops do and log10f / powf /
+// log2f / sinf stay within ulps of it.
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
-// Layout of the packed float32 scalar operand (kernels/rttg_latency.py SCALARS).
+// Layout of the scenario operand (kernels/rttg_latency.py SCENARIO_SCALARS):
+// S_COUNT float32 scalars, then the R uint8 live flags.
 enum {
-  S_T, S_MODEL_BYTES, S_RING, S_SPACING, S_THETA, S_MEAN_SPEED, S_CARRIER,
-  S_EIRP, S_NOISE, S_SNR_MIN, S_BANDWIDTH, S_OVERHEAD, S_BACKHAUL, S_QUEUE,
-  S_RUSH_AMP, S_RUSH_PERIOD, S_DAY_AMP, S_DAY_PERIOD, S_DAY_H2, S_COUNT
+  S_RING, S_SPACING, S_THETA, S_MEAN_SPEED, S_CARRIER, S_EIRP, S_NOISE, S_SNR_MIN,
+  S_BANDWIDTH, S_OVERHEAD, S_BACKHAUL, S_QUEUE, S_RUSH_AMP, S_RUSH_PERIOD, S_DAY_AMP,
+  S_DAY_PERIOD, S_DAY_H2, S_COUNT
 };
 
 #define PI_F 3.14159265358979323846f
-#define THREADS 256
+#define ONE_BLOCK_MAX 1024  // up to this many clients: one block, a thread each
+#define GRID_THREADS 256    // block size of the cooperative launch above it
+#define FULL_MASK 0xffffffffu
 
 // jnp.mod / torch.remainder: the result takes the divisor's sign.
 __device__ __forceinline__ float ring_mod(float x, float m) {
+  if (x >= 0.0f && x < 2.0f * m) return x >= m ? x - m : x;
   float r = fmodf(x, m);
   if (r != 0.0f && ((r < 0.0f) != (m < 0.0f))) r += m;
   return r;
+}
+
+__device__ __forceinline__ int load_acquire(const int* p) {
+  int v;
+  asm volatile("ld.acquire.gpu.global.b32 %0, [%1];" : "=r"(v) : "l"(p) : "memory");
+  return v;
 }
 
 struct Attach {
@@ -51,12 +87,12 @@ struct Attach {
   int rid;
 };
 
-__device__ __forceinline__ void stage(const float* __restrict__ scalars,
-                                      const uint8_t* __restrict__ live, int n_rsu,
-                                      float* s, uint8_t* s_live) {
-  for (int j = threadIdx.x; j < S_COUNT; j += blockDim.x) s[j] = scalars[j];
-  for (int j = threadIdx.x; j < n_rsu; j += blockDim.x) s_live[j] = live[j];
-  __syncthreads();
+// One OU-mean Euler step of accel and speed; returns pos + speed dt, unwrapped.
+__device__ __forceinline__ float euler(float& accel, float& speed, float pos, float decay,
+                                       float dt, float v_max) {
+  accel = accel * decay;
+  speed = fminf(fmaxf(speed + accel * dt, 1.0f), v_max);
+  return pos + speed * dt;
 }
 
 __device__ __forceinline__ Attach predict_attach(const float* s, const uint8_t* s_live,
@@ -66,10 +102,18 @@ __device__ __forceinline__ Attach predict_attach(const float* s, const uint8_t* 
   if (n_steps > 0) {
     const float decay = 1.0f - s[S_THETA] * dt;
     const float v_max = 3.0f * s[S_MEAN_SPEED];
-    for (int k = 0; k < n_steps; ++k) {
-      accel = accel * decay;
-      speed = fminf(fmaxf(speed + accel * dt, 1.0f), v_max);
-      pos = ring_mod(pos + speed * dt, ring);
+    pos = ring_mod(euler(accel, speed, pos, decay, dt, v_max), ring);
+    // Now pos lies in [0, ring] (a remainder may round up to ring).  With
+    // dt > 0, 1 <= speed <= v_max and v_max dt <= ring / 2, every later
+    // pos + speed dt lies in (0, 1.5 ring]: its wrap needs no range test.
+    if (dt > 0.0f && v_max >= 1.0f && v_max * dt <= 0.5f * ring) {
+      for (int k = 1; k < n_steps; ++k) {
+        const float x = euler(accel, speed, pos, decay, dt, v_max);
+        pos = x >= ring ? x - ring : x;
+      }
+    } else {
+      for (int k = 1; k < n_steps; ++k)
+        pos = ring_mod(euler(accel, speed, pos, decay, dt, v_max), ring);
     }
   }
   Attach a{speed, INFINITY, 0};
@@ -85,38 +129,13 @@ __device__ __forceinline__ Attach predict_attach(const float* s, const uint8_t* 
   return a;
 }
 
-extern "C" __global__ void rttg_count_kernel(
-    const float* __restrict__ scalars, const uint8_t* __restrict__ live, int n_rsu,
-    const float* __restrict__ pos, const float* __restrict__ speed,
-    const float* __restrict__ accel, int n, int n_steps, float dt,
-    int* __restrict__ counts) {
-  __shared__ float s[S_COUNT];
-  extern __shared__ uint8_t s_live[];
-  stage(scalars, live, n_rsu, s, s_live);
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  Attach a = predict_attach(s, s_live, n_rsu, pos[i], speed[i], accel[i], n_steps, dt);
-  atomicAdd(&counts[a.rid], 1);
-}
-
-extern "C" __global__ void rttg_finish_kernel(
-    const float* __restrict__ scalars, const uint8_t* __restrict__ live, int n_rsu,
-    const float* __restrict__ pos, const float* __restrict__ speed,
-    const float* __restrict__ accel, const uint8_t* __restrict__ forced, int n,
-    int n_steps, float dt, float horizon_s, const int* __restrict__ counts,
-    float* __restrict__ lat, uint8_t* __restrict__ conn, int* __restrict__ rid_out) {
-  __shared__ float s[S_COUNT];
-  extern __shared__ uint8_t s_live[];
-  stage(scalars, live, n_rsu, s, s_live);
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  Attach a = predict_attach(s, s_live, n_rsu, pos[i], speed[i], accel[i], n_steps, dt);
-  const float t_eff = n_steps > 0 ? s[S_T] + horizon_s : s[S_T];
-
+// network.latency_from_geometry and the connectivity test for one client.
+__device__ __forceinline__ void finish(const float* s, Attach a, float load, float t_eff,
+                                       float model_bytes, int i,
+                                       const uint8_t* __restrict__ forced,
+                                       float* __restrict__ lat, uint8_t* __restrict__ conn,
+                                       int* __restrict__ rid_out) {
   const float dist3d = sqrtf(a.d_min * a.d_min + 225.0f + 25.0f);
-  const float load = (float)counts[a.rid];
-
-  // network.latency_from_geometry, expression for expression
   const float dmax = fmaxf(dist3d, 1.0f);
   const float pl = 32.4f + 20.0f * log10f(s[S_CARRIER]) + 30.0f * log10f(dmax);
   const float snr = s[S_EIRP] - pl - s[S_NOISE];
@@ -130,7 +149,7 @@ extern "C" __global__ void rttg_finish_kernel(
   const float load_eff = load * congestion;
   float rate = s[S_BANDWIDTH] / fmaxf(load_eff, 1.0f) * log2f(1.0f + snr_lin);
   rate = fmaxf(rate, 1e4f);
-  const float payload_bits = 8.0f * (s[S_MODEL_BYTES] + s[S_OVERHEAD]);
+  const float payload_bits = 8.0f * (model_bytes + s[S_OVERHEAD]);
   const float t_air = 2.0f * payload_bits / rate;
   const float t_prop = 2.0f * dist3d / 299792458.0f + 2.0f * s[S_BACKHAUL];
   const float t_queue = s[S_QUEUE] * load_eff;
@@ -143,24 +162,156 @@ extern "C" __global__ void rttg_finish_kernel(
   if (rid_out != nullptr) rid_out[i] = a.rid;
 }
 
-// Zero the counts, then the two launches, all on `stream`.  Allocates
-// nothing; returns the CUDA error code of the sequence (0 = success).
+// counts: (R + 2,) int32, zero on entry (the R totals, then the arrival and
+// departure counts of the grid barrier); read only when gridDim.x > 1.
+// spill: (3 N,) int32 (rid, d_min bits, speed bits), touched only by threads
+// with more than one client.
+extern "C" __global__ void __launch_bounds__(ONE_BLOCK_MAX) rttg_latency_kernel(
+    const uint8_t* __restrict__ scenario, int n_rsu, const float* __restrict__ t,
+    const float* __restrict__ model_bytes, const float* __restrict__ pos,
+    const float* __restrict__ speed, const float* __restrict__ accel,
+    const uint8_t* __restrict__ forced, int n, int n_steps, float dt, float horizon_s,
+    int* __restrict__ counts, int* __restrict__ spill, float* __restrict__ lat,
+    uint8_t* __restrict__ conn, int* __restrict__ rid_out) {
+  __shared__ float s[S_COUNT];
+  __shared__ int s_last;
+  extern __shared__ int s_dyn[];
+  int* hist = s_dyn;                                            // (R,) counts
+  uint8_t* s_live = reinterpret_cast<uint8_t*>(s_dyn + n_rsu);  // (R,) live flags
+  const int tid = threadIdx.x;
+  const float* scalars = reinterpret_cast<const float*>(scenario);
+  for (int j = tid; j < S_COUNT; j += blockDim.x) s[j] = scalars[j];
+  for (int r = tid; r < n_rsu; r += blockDim.x) {
+    s_live[r] = scenario[S_COUNT * sizeof(float) + r];
+    hist[r] = 0;
+  }
+  __syncthreads();
+
+  // Predict and attach each client once; count it into the block's histogram.
+  const int lane = tid & 31;
+  const int stride = gridDim.x * blockDim.x;
+  const int i0 = blockIdx.x * blockDim.x + tid;
+  Attach first{0.0f, 0.0f, 0};
+  for (int c = 0; i0 - lane + c * stride < n; ++c) {  // a warp-uniform trip count
+    const int i = i0 + c * stride;
+    const unsigned active = __ballot_sync(FULL_MASK, i < n);
+    if (i < n) {
+      const Attach a =
+          predict_attach(s, s_live, n_rsu, pos[i], speed[i], accel[i], n_steps, dt);
+      const unsigned peers = __match_any_sync(active, a.rid);
+      if (lane == __ffs(peers) - 1) atomicAdd(hist + a.rid, __popc(peers));
+      if (c == 0) {
+        first = a;
+      } else {
+        spill[i] = a.rid;
+        spill[n + i] = __float_as_int(a.d_min);
+        spill[2 * n + i] = __float_as_int(a.speed);
+      }
+    }
+  }
+  __syncthreads();
+
+  if (gridDim.x > 1) {
+    // every block's counts into the totals, then a grid barrier
+    int* arrived = counts + n_rsu;
+    int* departed = arrived + 1;
+    for (int r = tid; r < n_rsu; r += blockDim.x) {
+      const int h = hist[r];
+      if (h != 0) atomicAdd(counts + r, h);
+    }
+    __threadfence();
+    __syncthreads();
+    if (tid == 0) {
+      atomicAdd(arrived, 1);
+      while (load_acquire(arrived) < (int)gridDim.x) {
+      }
+      __threadfence();
+    }
+    __syncthreads();
+    for (int r = tid; r < n_rsu; r += blockDim.x) hist[r] = __ldcg(counts + r);
+    __syncthreads();
+    // the last block to read the totals leaves them and the barrier at zero
+    if (tid == 0) s_last = atomicAdd(departed, 1) == (int)gridDim.x - 1;
+    __syncthreads();
+    if (s_last) {
+      for (int r = tid; r < n_rsu; r += blockDim.x) counts[r] = 0;
+      if (tid == 0) {
+        *arrived = 0;
+        *departed = 0;
+      }
+    }
+  }
+
+  const float t_now = *t;
+  const float t_eff = n_steps > 0 ? t_now + horizon_s : t_now;
+  const float mb = *model_bytes;
+  for (int c = 0, i = i0; i < n; ++c, i += stride) {
+    Attach a = first;
+    if (c > 0) a = Attach{__int_as_float(spill[2 * n + i]), __int_as_float(spill[n + i]), spill[i]};
+    finish(s, a, (float)hist[a.rid], t_eff, mb, i, forced, lat, conn, rid_out);
+  }
+}
+
+static int shared_bytes(int n_rsu) { return n_rsu * (int)(sizeof(int) + sizeof(uint8_t)); }
+
+// Above 48 KB a block's dynamic shared memory must be opted into.
+static cudaError_t grant(int smem) {
+  static int granted = 48 * 1024;
+  if (smem <= granted) return cudaSuccess;
+  const cudaError_t err = cudaFuncSetAttribute(
+      rttg_latency_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err == cudaSuccess) granted = smem;
+  return err;
+}
+
+// Blocks of the launch plan for n clients on the current device: 1 up to
+// ONE_BLOCK_MAX clients; above, as many GRID_THREADS-thread blocks as the
+// clients need and the card holds resident.  Minus the CUDA error on failure.
+extern "C" int rttg_latency_blocks(int n, int n_rsu) {
+  if (n <= ONE_BLOCK_MAX) return 1;
+  const int smem = shared_bytes(n_rsu);
+  cudaError_t err = grant(smem);
+  int device = 0, sms = 0, per_sm = 0;
+  if (err == cudaSuccess) err = cudaGetDevice(&device);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, rttg_latency_kernel,
+                                                        GRID_THREADS, smem);
+  if (err != cudaSuccess) return -(int)err;
+  const long long need = ((long long)n + GRID_THREADS - 1) / GRID_THREADS;
+  const long long resident = (long long)per_sm * sms;
+  return (int)(need < resident ? need : resident);
+}
+
+// One launch on `stream` with `blocks` from rttg_latency_blocks.  t and
+// model_bytes are device scalars.  counts (R + 2 int32, zero) is needed when
+// blocks > 1, spill (3 N int32) when blocks * GRID_THREADS < n.  Allocates
+// nothing; returns the launch's CUDA error code (0 = success).
 extern "C" int rttg_latency_launch(
-    const float* scalars, const uint8_t* live, int n_rsu, const float* pos,
-    const float* speed, const float* accel, const uint8_t* forced, int n,
-    int n_steps, float dt, float horizon_s, int* counts, float* lat,
+    const uint8_t* scenario, int n_rsu, const float* t, const float* model_bytes,
+    const float* pos, const float* speed, const float* accel, const uint8_t* forced, int n,
+    int n_steps, float dt, float horizon_s, int blocks, int* counts, int* spill, float* lat,
     uint8_t* conn, int* rid_out, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err = cudaMemsetAsync(counts, 0, sizeof(int) * n_rsu, st);
+  const int smem = shared_bytes(n_rsu);
+  cudaError_t err = grant(smem);
   if (err != cudaSuccess) return (int)err;
-  const int blocks = (n + THREADS - 1) / THREADS;
-  const size_t shmem = (size_t)n_rsu;
-  rttg_count_kernel<<<blocks, THREADS, shmem, st>>>(scalars, live, n_rsu, pos, speed,
-                                                    accel, n, n_steps, dt, counts);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  rttg_finish_kernel<<<blocks, THREADS, shmem, st>>>(
-      scalars, live, n_rsu, pos, speed, accel, forced, n, n_steps, dt, horizon_s,
-      counts, lat, conn, rid_out);
-  return (int)cudaGetLastError();
+  if (blocks == 1) {
+    if (n > ONE_BLOCK_MAX) return (int)cudaErrorInvalidValue;
+    const int threads = (n + 31) / 32 * 32;
+    rttg_latency_kernel<<<1, threads, smem, st>>>(scenario, n_rsu, t, model_bytes, pos,
+                                                  speed, accel, forced, n, n_steps, dt,
+                                                  horizon_s, counts, spill, lat, conn,
+                                                  rid_out);
+    return (int)cudaGetLastError();
+  }
+  if (blocks < 1 || counts == nullptr ||
+      ((long long)blocks * GRID_THREADS < n && spill == nullptr))
+    return (int)cudaErrorInvalidValue;
+  void* args[] = {&scenario, &n_rsu, &t,     &model_bytes, &pos,   &speed,
+                  &accel,    &forced, &n,    &n_steps,     &dt,    &horizon_s,
+                  &counts,   &spill,  &lat,  &conn,        &rid_out};
+  return (int)cudaLaunchCooperativeKernel((const void*)rttg_latency_kernel, dim3(blocks),
+                                          dim3(GRID_THREADS), args, (size_t)smem, st);
 }

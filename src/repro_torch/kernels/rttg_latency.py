@@ -5,13 +5,15 @@ client: [predict n Euler steps] -> attach to the nearest live RSU -> per-RSU
 load -> SNR / latency -> connectivity (and optionally the RSU id).
 
 ``rttg_latency`` dispatches on the tensors' device: CUDA tensors launch the
-hand-written kernel (``csrc/rttg_latency.cu``), CPU tensors run
-``rttg_latency_plain``, the composition of the core pure forms chained as
-``repro/kernels/ref.py::rttg_latency`` chains them.  There is no fallback
-from one to the other.  The PRNG stays outside: the connection-rate
-Bernoulli mask comes in as ``forced``.
+hand-written kernel (``csrc/rttg_latency.cu``, one launch a call), CPU
+tensors run ``rttg_latency_plain``, the composition of the core pure forms
+chained as ``repro/kernels/ref.py::rttg_latency`` chains them.  There is no
+fallback from one to the other.  The PRNG stays outside: the
+connection-rate Bernoulli mask comes in as ``forced``.
 """
 from __future__ import annotations
+
+import weakref
 
 import torch
 
@@ -23,16 +25,22 @@ from repro_torch.core.network import (
 from repro_torch.core.rttg import n_rsu_of, rsu_geometry, rsu_up_mask
 from repro_torch.core.trajectory import horizon_steps, predict_kinematics
 
-# Layout of the packed float32 scalar operand (the S_* enum of the .cu source).
-SCALARS = (
-    "t", "model_bytes", "ring_length_m", "rsu_spacing_m", "ou_theta",
-    "mean_speed_mps", "carrier_ghz", "eirp_dbm", "noise_dbm", "snr_min_db",
-    "bandwidth_hz", "overhead_bytes", "backhaul_s", "queue_s_per_vehicle",
-    "rush_amp", "rush_period_s", "day_amp", "day_period_s", "day_harmonic2",
+# The float32 scalars of the scenario operand, in the order of the .cu
+# source's S_* enum; the R uint8 live flags follow them.
+SCENARIO_SCALARS = (
+    "ring_length_m", "rsu_spacing_m", "ou_theta", "mean_speed_mps", "carrier_ghz",
+    "eirp_dbm", "noise_dbm", "snr_min_db", "bandwidth_hz", "overhead_bytes", "backhaul_s",
+    "queue_s_per_vehicle", "rush_amp", "rush_period_s", "day_amp", "day_period_s",
+    "day_harmonic2",
 )
+GRID_THREADS = 256  # block size of the kernel's cooperative launch (N > 1,024)
+MAX_RSU = 32768
 
 # Kernel launches made by ``rttg_latency`` (one per call on CUDA tensors).
 launches = 0
+
+_OPERANDS = {}  # (id(cfg), device) -> (weakref to cfg, scenario operand)
+_BLOCKS = {}  # (device, N, R) -> blocks of the kernel's launch plan
 
 
 def rttg_latency_plain(pos, speed, accel, t, model_bytes, forced, cfg, predict,
@@ -55,13 +63,40 @@ def rttg_latency_plain(pos, speed, accel, t, model_bytes, forced, cfg, predict,
     return lat, conn
 
 
-def pack_scalars(t, model_bytes, cfg, device) -> torch.Tensor:
-    """The (19,) float32 scalar operand, built on the device (no host sync)."""
-    vals = {"t": t, "model_bytes": model_bytes}
-    row = [torch.as_tensor(vals[n] if n in vals else getattr(cfg, n),
-                           dtype=torch.float32, device=device).reshape(())
-           for n in SCALARS]
-    return torch.stack(row)
+def scenario_operand(cfg, device) -> torch.Tensor:
+    """``cfg``'s fixed kernel operand on ``device``, as uint8: the float32
+    bytes of ``SCENARIO_SCALARS``, then ``rsu_up_mask(cfg)`` as 0 / 1.
+
+    Built once per ``ScenarioParams`` object and device (plain torch, no
+    host sync) and kept while the object lives.
+    """
+    device = torch.device(device)
+    key = (id(cfg), device)
+    hit = _OPERANDS.get(key)
+    if hit is not None and hit[0]() is cfg:
+        return hit[1]
+    scalars = torch.stack([torch.as_tensor(getattr(cfg, name), dtype=torch.float32,
+                                           device=device).reshape(())
+                           for name in SCENARIO_SCALARS])
+    live = rsu_up_mask(cfg).to(device=device, dtype=torch.uint8)
+    operand = torch.cat([scalars.view(torch.uint8), live])
+    _OPERANDS[key] = (weakref.ref(cfg, lambda _, key=key: _OPERANDS.pop(key, None)), operand)
+    return operand
+
+
+def launch_blocks(lib, device, n: int, n_rsu: int) -> int:
+    """Blocks of the kernel's launch plan (1 up to 1,024 clients), per shape."""
+    from repro_torch.kernels.build import check
+
+    key = (device, n, n_rsu)
+    blocks = _BLOCKS.get(key)
+    if blocks is None:
+        with torch.cuda.device(device):
+            blocks = lib.rttg_latency_blocks(n, n_rsu)
+        if blocks < 1:
+            check(-blocks, "rttg_latency")
+        _BLOCKS[key] = blocks
+    return blocks
 
 
 def _check_vector(name, x, n, dtype, device):
@@ -72,35 +107,48 @@ def _check_vector(name, x, n, dtype, device):
         )
 
 
+def _device_scalar(name, x, device):
+    x = torch.as_tensor(x, dtype=torch.float32, device=device)
+    if x.numel() != 1:
+        raise ValueError(f"rttg_latency: {name} must be a scalar, got shape {tuple(x.shape)}")
+    return x
+
+
 def _rttg_latency_cuda(pos, speed, accel, t, model_bytes, forced, cfg, predict,
                        want_rid):
-    from repro_torch.kernels.build import check, library
+    from repro_torch.kernels.build import check, counters, library
 
     global launches
     device = pos.device
     n = pos.shape[0]
     n_rsu = n_rsu_of(cfg)
-    if n < 1 or n_rsu < 1 or n_rsu > 32768:
-        raise ValueError(f"rttg_latency: need N >= 1 and 1 <= R <= 32768, got N={n}, R={n_rsu}")
+    if n < 1 or n > 2**30 or n_rsu < 1 or n_rsu > MAX_RSU:
+        raise ValueError(f"rttg_latency: need 1 <= N <= 2**30 and 1 <= R <= {MAX_RSU}, "
+                         f"got N={n}, R={n_rsu}")
     for name, x in (("pos", pos), ("speed", speed), ("accel", accel)):
         _check_vector(name, x, n, torch.float32, device)
     if forced is not None:
         _check_vector("forced", forced, n, torch.bool, device)
-    scalars = pack_scalars(t, model_bytes, cfg, device)
-    live = rsu_up_mask(cfg).to(device=device, dtype=torch.uint8).contiguous()
+    t = _device_scalar("t", t, device)
+    model_bytes = _device_scalar("model_bytes", model_bytes, device)
+    operand = scenario_operand(cfg, device)
+    lib = library()
+    blocks = launch_blocks(lib, device, n, n_rsu)
+    counts = counters(device, "rttg_latency", n_rsu + 2) if blocks > 1 else None
+    spill = (torch.empty((3 * n,), dtype=torch.int32, device=device)
+             if blocks * GRID_THREADS < n else None)
     n_steps = horizon_steps(cfg.predict_horizon_s, cfg) if predict else 0
     horizon_s = float(cfg.predict_horizon_s) if predict else 0.0
-    counts = torch.empty((n_rsu,), dtype=torch.int32, device=device)
     lat = torch.empty((n,), dtype=torch.float32, device=device)
     conn = torch.empty((n,), dtype=torch.bool, device=device)
     rid = torch.empty((n,), dtype=torch.int32, device=device) if want_rid else None
+    ptr = lambda x: None if x is None else x.data_ptr()  # noqa: E731
     stream = torch.cuda.current_stream(device).cuda_stream
-    status = library().rttg_latency_launch(
-        scalars.data_ptr(), live.data_ptr(), n_rsu, pos.data_ptr(),
-        speed.data_ptr(), accel.data_ptr(),
-        None if forced is None else forced.data_ptr(), n, n_steps,
-        float(cfg.sim_dt_s), horizon_s, counts.data_ptr(), lat.data_ptr(),
-        conn.data_ptr(), None if rid is None else rid.data_ptr(), stream,
+    status = lib.rttg_latency_launch(
+        operand.data_ptr(), n_rsu, t.data_ptr(), model_bytes.data_ptr(), pos.data_ptr(),
+        speed.data_ptr(), accel.data_ptr(), ptr(forced), n, n_steps,
+        float(cfg.sim_dt_s), horizon_s, blocks, ptr(counts), ptr(spill), lat.data_ptr(),
+        conn.data_ptr(), ptr(rid), stream,
     )
     check(status, "rttg_latency")
     launches += 1
@@ -114,8 +162,8 @@ def rttg_latency(pos, speed, accel, t, model_bytes, forced, cfg, *, predict: boo
     """Fused geometry chain -> (latency (N,) f32, connected (N,) bool[, rid]).
 
     ``cfg`` is a ``ScenarioParams``; ``t`` and ``model_bytes`` may be 0-dim
-    tensors (they are packed on the device, so no host sync).  CUDA tensors
-    go to the kernel, CPU tensors to ``rttg_latency_plain``.
+    tensors (the kernel reads them on the device, so no host sync).  CUDA
+    tensors go to the kernel, CPU tensors to ``rttg_latency_plain``.
     """
     if pos.is_cuda:
         return _rttg_latency_cuda(pos, speed, accel, t, model_bytes, forced, cfg,

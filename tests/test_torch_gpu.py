@@ -6,7 +6,9 @@ Run on a machine with a card:
 
 This file imports no JAX (the card's machine has none): each kernel is held
 against its plain PyTorch version on the card.  Connectivity and RSU ids
-exactly; latency within rtol 1e-5 (the kernel's ``log10f`` / ``powf`` /
+exactly (also around the geometry kernel's one-block limit, past the
+card's resident threads, at R = 1, 40 and 32,768 and with positions at
+the predictor's wrap, each call repeated bit for bit); latency within rtol 1e-5 (the kernel's ``log10f`` / ``powf`` /
 ``log2f`` / ``sinf`` and PyTorch's elementwise kernels may round an ulp
 apart); the FedAvg sum within 1e-6 of ``sum_k |w_k u_k|`` (another
 summation order); the server update's ``m`` and ``v`` within the same,
@@ -53,8 +55,8 @@ def dev():
     return torch.device("cuda")
 
 
-def _geometry(name, n, cr, dev):
-    scn = scenario_params(scenario_config(name, num_vehicles=n), dev)
+def _geometry(name, n, cr, dev, **scn_kw):
+    scn = scenario_params(scenario_config(name, num_vehicles=n, **scn_kw), dev)
     k = prng.split(prng.key(n), 4)
     pos = prng.uniform(k[0], (n,), 0.0, scn.ring_length_m, dev)
     speed = 14.0 + prng.normal(k[1], (n,), dev)
@@ -80,7 +82,59 @@ def test_rttg_latency_kernel_matches_plain(dev, n, name, predict, cr):
     torch.testing.assert_close(got[0], ref[0], rtol=1e-5, atol=1e-7)
 
 
-@pytest.mark.parametrize("K,P", [(1, 1), (1, 159_010), (10, 2049), (10, 4096), (10, 159_010)])
+def _rttg_twice_vs_plain(scn, pos, speed, accel, forced, predict):
+    """Two wrapper calls against the plain version: connectivity and RSU ids
+    exactly, latency within rtol 1e-5, the second call bit for bit the first."""
+    t = torch.tensor(77.5, device=pos.device)
+    before = rttg_mod.launches
+    got, again = [rttg_mod.rttg_latency(pos, speed, accel, t, 636_040.0, forced, scn,
+                                        predict=predict, want_rid=True) for _ in range(2)]
+    assert rttg_mod.launches == before + 2
+    ref = rttg_mod.rttg_latency_plain(pos, speed, accel, t, 636_040.0, forced, scn,
+                                      predict, want_rid=True)
+    torch.cuda.synchronize()
+    assert torch.equal(got[1], ref[1]) and torch.equal(got[2], ref[2])
+    torch.testing.assert_close(got[0], ref[0], rtol=1e-5, atol=1e-7)
+    for x, y in zip(got, again):
+        assert torch.equal(x, y)
+
+
+# around the one-block limit (1,024 clients), the fleet's 100,000, and
+# 300,000: more clients than the card holds resident threads
+@pytest.mark.parametrize("n", [1024, 1025, 100_000, 300_000])
+@pytest.mark.parametrize("predict", [True, False])
+def test_rttg_latency_kernel_launch_plan_edges(dev, n, predict):
+    scn, pos, speed, accel, forced = _geometry("ring", n, 0.7, dev)
+    _rttg_twice_vs_plain(scn, pos, speed, accel, forced, predict)
+
+
+# R = 1, 40 and the largest, 32,768 (160 KB of shared memory a block)
+@pytest.mark.parametrize("spacing", [10_000.0, 250.0, 10_000.0 / 32768])
+@pytest.mark.parametrize("n", [100, 5000])
+def test_rttg_latency_kernel_rsu_counts(dev, spacing, n):
+    scn, pos, speed, accel, forced = _geometry("ring", n, 1.0, dev, rsu_spacing_m=spacing)
+    assert scn.n_rsu == round(10_000.0 / spacing)
+    _rttg_twice_vs_plain(scn, pos, speed, accel, forced, True)
+
+
+# a 5 m ring: 3 mean_speed dt > ring / 2, so every step takes the tested wrap
+@pytest.mark.parametrize("ring_kw", [{}, {"ring_length_m": 5.0, "rsu_spacing_m": 1.0}])
+@pytest.mark.parametrize("n", [100, 4096])
+@pytest.mark.parametrize("predict", [True, False])
+def test_rttg_latency_kernel_positions_at_the_wrap(dev, n, predict, ring_kw):
+    """0, just under the ring and the ring itself take the predictor's
+    compare-and-subtract wrap; 2 ring and beyond, and below 0, take fmodf."""
+    scn, pos, speed, accel, forced = _geometry("ring", n, 1.0, dev, **ring_kw)
+    ring = scn.ring_length_m
+    edges = torch.stack([0.0 * ring, torch.nextafter(ring, 0.0 * ring), ring, 2.0 * ring,
+                         3.5 * ring, -1.0 + 0.0 * ring, -0.5 * ring, -2.5 * ring])
+    pos = torch.cat([edges, pos[len(edges):]])
+    _rttg_twice_vs_plain(scn, pos, speed, accel, forced, predict)
+
+
+@pytest.mark.parametrize("K,P", [(1, 1), (1, 159_010), (10, 2049), (10, 4096), (10, 159_010),
+                                 (7, 159_011), (8, 4097), (9, 2049), (17, 159_010),
+                                 (17, 4097), (100, 38_656)])
 def test_fedavg_reduce_kernel_matches_plain(dev, K, P):
     u = 1e-3 * prng.normal(prng.key(K + P), (K, P), dev)
     w = prng.uniform(prng.key(K), (K,), device=dev)

@@ -7,7 +7,11 @@ it.  Connectivity and RSU ids must match exactly; latency within rtol 1e-5
 (torch and XLA round ``log10`` / ``pow`` / ``log2`` / ``sin`` a few ulps
 apart, and XLA contracts multiply-adds into FMAs).  The FedAvg sum within
 rtol 1e-5 of ``sum_k |w_k u_k|`` (the two sum K products in different
-orders).  The CUDA kernels themselves run in ``tests/test_torch_gpu.py``
+orders).  Two facts the geometry kernel rests on are checked here too: its
+predictor's wrap without ``fmodf`` is ``torch.remainder`` bit for bit on
+``[0, 2 ring)``, and its scenario operand holds the scenario's scalars and
+live flags, built once per scenario.  The CUDA kernels themselves run in
+``tests/test_torch_gpu.py``
 (marked ``gpu``, skipped where there is no card) and in ``chip_smoke.py``.
 """
 import jax
@@ -21,7 +25,8 @@ from repro.core.scenarios import scenario_params as jscenario_params
 from repro.kernels import fedavg_reduce as jfedavg_reduce
 from repro.kernels import ref as jref
 from repro.kernels import rttg_latency as jrttg_latency
-from repro_torch.core.scenarios import scenario_config, scenario_params
+from repro_torch.core.rttg import rsu_up_mask
+from repro_torch.core.scenarios import SCENARIOS, scenario_config, scenario_params
 from repro_torch.kernels import fedavg_reduce as fedavg_mod
 from repro_torch.kernels import rttg_latency as rttg_mod
 from test_torch_bridge import _one_thread  # noqa: F401  (autouse fixture)
@@ -95,6 +100,41 @@ def test_fedavg_reduce_plain_matches_ref_and_interpret_kernel(K, P):
     scale = float((np.abs(w) @ np.abs(u)).max())
     for other in (ref, kern):
         np.testing.assert_allclose(got.numpy(), other, rtol=1e-5, atol=1e-5 * scale)
+
+
+@pytest.mark.parametrize("name", sorted(SCENARIOS))
+def test_ring_wrap_fast_path_is_remainder_bitwise(name):
+    """The kernel's predictor wraps ``x`` in ``[0, 2 ring)`` by one compare
+    and one subtraction (exact by Sterbenz's lemma): bit for bit
+    ``torch.remainder``, at every catalog ring length and its edges."""
+    ring = torch.tensor(scenario_config(name).ring_length_m, dtype=torch.float32)
+    two = 2.0 * ring
+    below = lambda x: torch.nextafter(x, torch.zeros(()))  # noqa: E731
+    edges = torch.stack([torch.tensor(0.0), torch.tensor(-0.0), below(ring), ring,
+                         torch.nextafter(ring, two), below(two)])
+    rng = np.random.default_rng(len(name))
+    drawn = torch.from_numpy(rng.uniform(0.0, float(two), 100_000).astype(np.float32))
+    x = torch.cat([edges, drawn[drawn < two]])
+    assert bool((x >= 0).all() and (x < two).all())
+    fast = torch.where(x >= ring, x - ring, x)
+    assert torch.equal(fast.view(torch.int32), torch.remainder(x, ring).view(torch.int32))
+
+
+def test_rttg_scenario_operand_is_built_once_per_scenario():
+    scn = scenario_params(scenario_config("rsu_outage", num_vehicles=8))
+    op = rttg_mod.scenario_operand(scn, "cpu")
+    S = len(rttg_mod.SCENARIO_SCALARS)
+    assert op.dtype == torch.uint8 and op.shape == (4 * S + scn.n_rsu,)
+    want = torch.stack([getattr(scn, f) for f in rttg_mod.SCENARIO_SCALARS])
+    assert torch.equal(op[:4 * S].view(torch.float32), want)
+    assert torch.equal(op[4 * S:], rsu_up_mask(scn).to(torch.uint8))
+    assert 0 < int(op[4 * S:].sum()) < scn.n_rsu  # the outage darkens some RSUs
+    assert rttg_mod.scenario_operand(scn, "cpu") is op  # a second call reuses it
+    other = scenario_params(scenario_config("rsu_outage", num_vehicles=8))
+    assert rttg_mod.scenario_operand(other, "cpu") is not op
+    n_cached = len(rttg_mod._OPERANDS)
+    del other
+    assert len(rttg_mod._OPERANDS) == n_cached - 1  # dropped with its scenario
 
 
 def test_wrappers_reject_devices_they_do_not_serve():
