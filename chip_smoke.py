@@ -30,6 +30,15 @@ Phases (any failure raises and exits non-zero):
    slab, ragged and odd P, 16- and 8-byte rows, the fleet's padded last
    chunk), each launch repeated bitwise, and a chunk walk bit for bit at
    R = 10 and 40;
+   the bf16 lane's rows through the same four kernels: ``fedavg_reduce`` at
+   (10, 159,010), K = 1, odd P, P = 2 mod 4 and rows one element off their
+   4-byte alignment; ``server_update`` under every rule with an fp32 and a
+   bf16 master, its buffered form with a bf16 ring draining and not, and
+   both contracts on bf16 rows; ``rsu_reduce`` with bf16 rows into bf16 and
+   fp32 partials, with and without its carry, at K = 4 and 32, R = 10, 33
+   and 40, odd P and 2-byte-aligned rows, the fleet's padded chunk, the
+   bf16 carry's two roundings (the JAX round's ``partials + part_c``) on
+   operands where one rounding differs, and bf16 chunk walks;
    ``swa_decode`` and ``ssd_scan`` at hymba-1.5b's shapes in bf16 and fp32
    and at their edges (a ragged split, one slot, G=1, a partly filled and a
    wrapped ring, rows with no visible slot, softcap; a window narrower than
@@ -77,6 +86,14 @@ Phases (any failure raises and exits non-zero):
    ``pairwise_cosine`` launch (the stage-3 Gram) and per-stage wall times;
    one selector round replayed on the CPU's plain path; one main-path
    round through the unfused lane against the fused lane;
+4g. bf16 lane: ``python -m repro_torch.launch.fl_sim --dtype bfloat16``'s
+   main path for 5 rounds, one round each of ``fedadam`` and ``stale``, 5
+   of ``fedbuff`` (its bf16 ring must park and drain), 3 of the streamed
+   two-tier lane (``fedbuff``, ``client_block=4``: bf16 chunk partials and
+   carry) and 2 of ``fedadam`` with a bf16 master, each with its launch
+   counts and its first round replayed on the CPU's plain path (integers
+   equal, floats within ``BF16_REPLAY``); then one fleet round at
+   N=100,000 in bf16, its peak memory beside the fp32 fleet round's;
 5. times: each kernel (CUDA events, after warm-up) beside its bound, its
    plain version and a one-call PyTorch yardstick (``pairwise_cosine`` at
    (100, 1024), (256, 4096) and (20,000, 1,024)), and for every kernel and
@@ -90,9 +107,12 @@ Phases (any failure raises and exits non-zero):
    decode step and prefill (with ``ssd_scan``'s calls and time per call);
    ``rttg_latency`` at N=100 predicted and realized and at N=100,000
    predicted, and both it and ``fedavg_reduce`` through their wrappers as
-   the round calls them: device ops and device time per call.
+   the round calls them: device ops and device time per call; B2-B5 on the
+   bf16 lane's rows beside their fp32 rows (the ``bf16_rows`` JSON line),
+   and the bf16 main path's round wall and profile.
 
-The last two lines are the kernels' JSON record and the device JSON.
+The last three lines are the kernels' JSON record (their fp32 rows), the
+card's name and power limit, and the device JSON.
 """
 from __future__ import annotations
 
@@ -114,6 +134,7 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS_PER_S = 67e12
 TF32_FLOPS_PER_S = 495e12
+BF16_ULP = 2.0 ** -7  # one unit in the last place of a bf16 in [1, 2)
 ROUNDS = 5
 # (vehicles, rounds) of the fleet phase: BENCH_engine.json's fleet runs
 FLEET = ((20_000, 1), (100_000, 2))
@@ -209,25 +230,36 @@ def check_rttg(scenario, n, predict, cr, want_rid, device, at_wrap=False, **scn_
     return err
 
 
-def check_fedavg(K, P, device) -> float:
+def offset_rows(u, dtype, offset=0):
+    """``u`` in ``dtype``, its rows starting ``offset`` elements into their
+    storage (offset 1 takes a bf16 row off its 4-byte alignment)."""
+    K, P = u.shape
+    out = torch.empty((K * P + offset,), dtype=dtype, device=u.device)[offset:].view(K, P)
+    return out.copy_(u)
+
+
+def check_fedavg(K, P, device, rows=torch.float32, offset=0) -> float:
+    """Two launches against the plain version (rows in ``rows``)."""
     from repro_torch.kernels.fedavg_reduce import fedavg_reduce, fedavg_reduce_plain
     from repro_torch.utils import prng
 
     k = prng.split(prng.key(K * 100_003 + P), 2)
     u = 1e-3 * prng.normal(k[0], (K, P), device)
+    if rows != torch.float32 or offset:
+        u = offset_rows(u, rows, offset)
     w = prng.uniform(k[1], (K,), device=device)
     w = w / w.sum()
     got, again = fedavg_reduce(u, w), fedavg_reduce(u, w)
     ref = fedavg_reduce_plain(u, w)
     torch.cuda.synchronize()
     # the two sum K products in different orders: tolerance scaled by sum |w u|
-    scale = float((w.abs() @ u.abs()).max())
+    scale = float((w.abs() @ u.float().abs()).max())
     torch.testing.assert_close(got, ref, rtol=1e-5, atol=1e-6 * scale)
     if not torch.equal(got, again):
         raise AssertionError(f"fedavg_reduce does not repeat bitwise (K={K}, P={P})")
     err = float((got - ref).abs().max())
-    print(f"fedavg_reduce K={K:3d} P={P:7d} max_abs_err={err:.3e} (scale {scale:.3e}), "
-          f"repeat bitwise")
+    print(f"fedavg_reduce K={K:3d} P={P:7d} {str(rows)[6:]} rows offset={offset} "
+          f"max_abs_err={err:.3e} (scale {scale:.3e}), repeat bitwise")
     return err
 
 
@@ -258,47 +290,58 @@ def assert_server_close(got, ref, scale, what) -> float:
     """The kernel against its plain version: another summation order, rtol
     1e-5 with an atol scaled by sum_k |w_k u_k|; params get 100x that atol,
     the adaptive step m / (sqrt(v) + tau) magnifying the sum's error by up
-    to (1 - beta1) / tau = 100."""
+    to (1 - beta1) / tau = 100; a bf16 params' rtol one bf16 ulp (2^-7: the
+    sum's last fp32 bit may round it the other way)."""
     err = 0.0
     for name, a, b, atol in zip(("params", "m", "v"), got, ref,
                                 (1e-4 * scale, 1e-6 * scale, 1e-6 * scale)):
-        torch.testing.assert_close(a, b, rtol=1e-5, atol=atol, msg=lambda m: f"{what} {name}: {m}")
+        if a.dtype != b.dtype:
+            raise AssertionError(f"{what} {name}: dtype {a.dtype}, plain {b.dtype}")
+        rtol = BF16_ULP if a.dtype == torch.bfloat16 else 1e-5
+        a, b = a.float(), b.float()
+        torch.testing.assert_close(a, b, rtol=rtol, atol=atol, msg=lambda m: f"{what} {name}: {m}")
         err = max(err, float((a - b).abs().max()))
     return err
 
 
-def check_server_update(K, P, rule, device, exact=False) -> float:
+def check_server_update(K, P, rule, device, exact=False, rows=torch.float32,
+                        master=torch.float32) -> float:
     from repro_torch.kernels.fedavg_reduce import fedavg_reduce_plain
     from repro_torch.kernels.server_update import server_update, server_update_plain
 
     u, w, params, m, v = server_operands(K, P, K * 7 + P + rule, device, exact)
+    u, params = u.to(rows), params.to(master)  # the dyadic rows are exact in bf16
     if exact:  # Yogi's sign ties: v == delta**2 on every 7th column
         d = fedavg_reduce_plain(u, w)
         v[::7] = (d * d)[::7]
     got = server_update(u, w, params, m, v, rule, 3)
     ref = server_update_plain(u, w, params, m, v, rule, 3)
     torch.cuda.synchronize()
-    scale = float((w.abs() @ u.abs()).max())
-    return assert_server_close(got, ref, scale, f"server_update K={K} P={P} rule={rule}")
+    scale = float((w.abs() @ u.float().abs()).max())
+    return assert_server_close(got, ref, scale, f"server_update K={K} P={P} rule={rule} "
+                                                f"rows {rows} master {master}")
 
 
-def check_server_buffered(K, Kb, P, rule, drain, device) -> float:
+def check_server_buffered(K, Kb, P, rule, drain, device, rows=torch.float32,
+                          master=torch.float32) -> float:
     from repro_torch.kernels.server_update import (
         server_update_buffered, server_update_buffered_plain)
 
     u, w, params, m, v = server_operands(K, P, K * 11 + Kb + P + rule, device)
     ring, bw, *_ = server_operands(Kb, P, Kb * 13 + P + rule, device)
+    u, ring, params = u.to(rows), ring.to(rows), params.to(master)
     flag = torch.tensor(drain, device=device)
     got = server_update_buffered(u, w, ring, bw, params, m, v, rule, 3, flag)
     ref = server_update_buffered_plain(u, w, ring, bw, params, m, v, rule, 3, flag)
     torch.cuda.synchronize()
-    rows, wts = (torch.cat([u, ring]), torch.cat([w, bw])) if drain else (u, w)
-    scale = float((wts.abs() @ rows.abs()).max())
+    cat, wts = (torch.cat([u, ring]), torch.cat([w, bw])) if drain else (u, w)
+    scale = float((wts.abs() @ cat.float().abs()).max())
     return assert_server_close(got, ref, scale,
-                               f"server_update_buffered K={K} Kb={Kb} drain={drain} rule={rule}")
+                               f"server_update_buffered K={K} Kb={Kb} drain={drain} rule={rule} "
+                               f"rows {rows} master {master}")
 
 
-def check_server_contracts(K, P, device) -> None:
+def check_server_contracts(K, P, device, rows=torch.float32, master=torch.float32) -> None:
     """(a) rule 0 == fedavg_reduce + apply_delta_flat and (b) drain=False ==
     the unbuffered update, every rule: bit for bit, signs of zeros included."""
     from repro_torch.fl.server import apply_delta_flat
@@ -308,6 +351,7 @@ def check_server_contracts(K, P, device) -> None:
     u, w, params, m, v = server_operands(K, P, 5 * K + P, device)
     u[:, ::5] = 0.0  # columns whose delta is an exact +0.0
     ring, bw, *_ = server_operands(8, P, 3 * P, device)
+    u, ring, params = u.to(rows), ring.to(rows), params.to(master)
     off = torch.tensor(False, device=device)
     a = server_update(u, w, params, m, v, 0, 0)
     want = apply_delta_flat(params, fedavg_reduce(u, w))
@@ -319,7 +363,8 @@ def check_server_contracts(K, P, device) -> None:
         for x, y in zip(plain, buffered):
             if not (torch.equal(x, y) and torch.equal(torch.signbit(x), torch.signbit(y))):
                 raise AssertionError(f"contract (b) fails at K={K} P={P} rule={rule}")
-    print(f"server_update contracts (a) and (b) bitwise at K={K} P={P}")
+    print(f"server_update contracts (a) and (b) bitwise at K={K} P={P}, rows {rows}, "
+          f"master {master}")
 
 
 def rsu_operands(K, P, R, mode, device, offset=0):
@@ -356,29 +401,43 @@ def rsu_operands(K, P, R, mode, device, offset=0):
     return u, w, rid, carry
 
 
-def check_rsu(K, P, R, mode, with_carry, device, offset=0, pad=0) -> float:
+def check_rsu(K, P, R, mode, with_carry, device, offset=0, pad=0, rows=torch.float32,
+              out=torch.float32) -> float:
     """The kernel against ``rsu_reduce_plain``: random operands within rtol
-    1e-5 and 1e-6 of sum_k |m_kr u_k| (another summation order), the other
-    modes bit for bit; a never-attached or all-zero-weight RSU's row is its
-    carry (or exactly 0) and its mass exactly 0; a second launch repeats the
-    first bit for bit.  ``offset``: the updates start that many floats into
-    their storage; ``pad``: the last ``pad`` rows are the round's padding
-    slots (weight 0, id 0)."""
+    1e-5 (one bf16 ulp, 2^-7, for bf16 partials) and 1e-6 of sum_k |m_kr
+    u_k| (another summation order), the other modes bit for bit; a
+    never-attached or all-zero-weight RSU's row is its carry (or exactly 0)
+    and its mass exactly 0; a second launch repeats the first bit for bit.
+    ``offset``: the updates start that many elements into their storage;
+    ``pad``: the last ``pad`` rows are the round's padding slots (weight 0,
+    id 0); ``rows`` / ``out``: the rows' and the partials' (and carry's)
+    dtypes (the dyadic operands are exact in bf16)."""
     from repro_torch.kernels.rsu_reduce import rsu_reduce, rsu_reduce_plain
 
-    u, w, rid, carry = rsu_operands(K, P, R, mode, device, offset)
+    u, w, rid, carry = rsu_operands(K, P, R, mode, device, 0 if rows != torch.float32
+                                    else offset)
+    if rows != torch.float32:
+        u = offset_rows(u, rows, offset)
+    carry = carry.to(out)
     if pad:
         w[K - pad:], rid[K - pad:] = 0.0, 0
-    got, mass = rsu_reduce(u, w, rid, R, carry=carry.clone() if with_carry else None)
-    ref, ref_mass = rsu_reduce_plain(u, w, rid, R, carry.clone() if with_carry else None)
-    again, again_mass = rsu_reduce(u, w, rid, R, carry=carry.clone() if with_carry else None)
+    got, mass = rsu_reduce(u, w, rid, R, carry=carry.clone() if with_carry else None,
+                           out_dtype=out)
+    ref, ref_mass = rsu_reduce_plain(u, w, rid, R, carry.clone() if with_carry else None,
+                                     out_dtype=out)
+    again, again_mass = rsu_reduce(u, w, rid, R, carry=carry.clone() if with_carry else None,
+                                   out_dtype=out)
     torch.cuda.synchronize()
-    what = f"rsu_reduce K={K} P={P} R={R} {mode} carry={with_carry} offset={offset} pad={pad}"
+    what = (f"rsu_reduce K={K} P={P} R={R} {mode} carry={with_carry} offset={offset} pad={pad} "
+            f"rows {rows} out {out}")
+    if got.dtype != out:
+        raise AssertionError(f"{what}: partials in {got.dtype}")
     if not (torch.equal(got, again) and torch.equal(mass, again_mass)):
         raise AssertionError(f"{what}: a second launch differs from the first")
     if mode == "rand":
-        scale = float(rsu_reduce_plain(u.abs(), w, rid, R)[0].max())
-        torch.testing.assert_close(got, ref, rtol=1e-5, atol=1e-6 * scale,
+        scale = float(rsu_reduce_plain(u.float().abs(), w, rid, R)[0].max())
+        rtol = BF16_ULP if out == torch.bfloat16 else 1e-5
+        torch.testing.assert_close(got.float(), ref.float(), rtol=rtol, atol=1e-6 * scale,
                                    msg=lambda m: f"{what}: {m}")
         torch.testing.assert_close(mass, ref_mass, rtol=1e-6, atol=0.0)
     elif not (torch.equal(got, ref) and torch.equal(mass, ref_mass)):
@@ -387,25 +446,52 @@ def check_rsu(K, P, R, mode, with_carry, device, offset=0, pad=0) -> float:
         base = carry[R // 2] if with_carry else torch.zeros_like(got[0])
         if not (torch.equal(got[R // 2], base) and float(mass[R // 2]) == 0.0):
             raise AssertionError(f"{what}: the idle RSU's row or mass moved")
-    return float((got - ref).abs().max())
+    return float((got.float() - ref.float()).abs().max())
 
 
-def check_rsu_walk(K, B, device, R=10) -> None:
+def check_rsu_two_roundings(device) -> None:
+    """Chunk sums 2^-8 + 2^-20 on a bf16 carry of 1, at the streamed lane's
+    chunk (K=4, P=159,010, R=10): the JAX round rounds the sum to bf16 first
+    (2^-8), then the carry add (1 + 2^-8, a tie to even: 1.0); one rounding
+    would give 1 + 2^-7.  The kernel must give the plain version's 1.0."""
+    from repro_torch.kernels.rsu_reduce import rsu_reduce, rsu_reduce_plain
+
+    K, P, R = 4, 159_010, 10
+    u = torch.zeros((K, P), dtype=torch.bfloat16, device=device)
+    u[0], u[1], u[2] = 2.0 ** -8, 2.0 ** -20, 2.0 ** -9
+    w = torch.ones(K, device=device)
+    rid = torch.tensor([0, 0, 1, 1], dtype=torch.int32, device=device)
+    carry = torch.ones((R, P), dtype=torch.bfloat16, device=device)
+    got, _ = rsu_reduce(u, w, rid, R, carry=carry.clone(), out_dtype=torch.bfloat16)
+    ref, _ = rsu_reduce_plain(u, w, rid, R, carry.clone(), out_dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    one = float(torch.tensor(1.0 + 2.0 ** -8 + 2.0 ** -20).to(torch.bfloat16))
+    if not (torch.equal(got, ref) and bool((got[0] == 1.0).all()) and one == 1.0 + 2.0 ** -7):
+        raise AssertionError(f"rsu_reduce bf16 carry: {got[0, :4].tolist()}, plain "
+                             f"{ref[0, :4].tolist()}, want 1.0 (two roundings), not {one}")
+    print("rsu_reduce bf16 carry rounds twice as the JAX round: 1 + bf16(2^-8 + 2^-20) -> 1.0 "
+          f"(one rounding would give {one}), bitwise the plain version")
+
+
+def check_rsu_walk(K, B, device, R=10, rows=torch.float32, out=torch.float32) -> None:
     """The streamed lane's chunk walk (the first chunk without a carry, the
-    rest in place) against zeros + the per-chunk plain sums, bit for bit."""
+    rest in place) against the per-chunk plain sums (fp32: zeros plus each
+    chunk's sum; bf16: the plain walk with its carry), bit for bit."""
     from repro_torch.kernels.rsu_reduce import rsu_reduce, rsu_reduce_plain
 
     P = 159_010
     u, w, rid, _ = rsu_operands(K, P, R, "exact", device)
-    carry, acc = None, torch.zeros((R, P), device=device)
+    u = u.to(rows)
+    carry, acc = None, torch.zeros((R, P), dtype=out, device=device)
     for i in range(0, K, B):
-        carry, _ = rsu_reduce(u[i:i + B], w[i:i + B], rid[i:i + B], R, carry=carry)
-        acc = acc + rsu_reduce_plain(u[i:i + B], w[i:i + B], rid[i:i + B], R)[0]
+        cs = slice(i, i + B)
+        carry, _ = rsu_reduce(u[cs], w[cs], rid[cs], R, carry=carry, out_dtype=out)
+        acc = rsu_reduce_plain(u[cs], w[cs], rid[cs], R, acc, out_dtype=out)[0]
     if not torch.equal(carry, acc):
-        raise AssertionError(f"rsu_reduce chunk walk K={K} B={B} R={R} is not the chunk "
-                             "composition")
-    print(f"rsu_reduce chunk walk K={K} in chunks of {B}, R={R}: bitwise the per-chunk plain "
-          "sums")
+        raise AssertionError(f"rsu_reduce chunk walk K={K} B={B} R={R} rows {rows} out {out} "
+                             "is not the chunk composition")
+    print(f"rsu_reduce chunk walk K={K} in chunks of {B}, R={R}, rows {rows}, out {out}: "
+          "bitwise the per-chunk plain sums")
 
 
 def swa_operands(B, C, hkv, G, D, dtype, fills, device, seed=0):
@@ -730,15 +816,15 @@ def check_records(sim, records) -> None:
             raise AssertionError(f"{f} has non-finite entries")
 
 
-def drive(sim, server: str, rsu_per_round: int = 0):
-    """Warm-up and ROUNDS rounds, launch counts zeroed just before and read
-    just after: per round 2 rttg_latency, ``rsu_per_round`` rsu_reduce and 1
-    ``server`` launch, nothing else.  -> (the state before each round and
-    after the last, records, launches)."""
+def drive(sim, server: str, rsu_per_round: int = 0, rounds: int = ROUNDS):
+    """Warm-up and ``rounds`` rounds, launch counts zeroed just before and
+    read just after: per round 2 rttg_latency, ``rsu_per_round`` rsu_reduce
+    and 1 ``server`` launch, nothing else.  -> (the state before each round
+    and after the last, records, launches)."""
     reset_launches()
     sim.warmup_sketches()
     states, records = [], []
-    for _ in range(ROUNDS):
+    for _ in range(rounds):
         states.append(sim.state)
         records.append(sim.run_round())
     states.append(sim.state)
@@ -746,19 +832,21 @@ def drive(sim, server: str, rsu_per_round: int = 0):
     launches = read_launches()
     for rec in records:
         print(json.dumps(rec.__dict__))
-    print(f"launches over {ROUNDS} rounds: {launches}")
+    print(f"launches over {rounds} round(s): {launches}")
     want = dict.fromkeys(launches, 0)
-    want.update(rttg_latency=2 * ROUNDS, rsu_reduce=rsu_per_round * ROUNDS,
-                **{server: ROUNDS})
+    want.update(rttg_latency=2 * rounds, rsu_reduce=rsu_per_round * rounds,
+                **{server: rounds})
     if launches != want:
         raise AssertionError(f"expected {want}, got {launches}")
     check_records(sim, records)
     return states, records, launches
 
 
-def replay(sim, state0, first, traffic, params_atol: float, acc_atol: float = 1e-6) -> None:
+def replay(sim, state0, first, traffic, params_atol: float, acc_atol: float = 1e-6,
+           leaf_tol=(1e-4, 1e-7), loss_rtol: float = 1e-4) -> None:
     """The first round again from ``state0``: on the card (it must repeat
-    bitwise) and on the CPU through the plain versions (the same integers)."""
+    bitwise) and on the CPU through the plain versions (the same integers;
+    the moments and the ring within ``leaf_tol``, (rtol, atol))."""
     from repro_torch.core.scenarios import scenario_params
     from repro_torch.fl.rounds import RoundMetrics, metrics_to_records
 
@@ -781,14 +869,20 @@ def replay(sim, state0, first, traffic, params_atol: float, acc_atol: float = 1e
     for f in ("sim_time", "duration", "mean_pred_latency", "mean_real_latency",
               "test_acc", "test_loss"):
         a, b = getattr(first, f), getattr(cpu, f)
-        if not math.isclose(a, b, rel_tol=1e-4, abs_tol=acc_atol if f == "test_acc" else 1e-6):
+        if not math.isclose(a, b, rel_tol=loss_rtol if f == "test_loss" else 1e-4,
+                            abs_tol=acc_atol if f == "test_acc" else 1e-6):
             raise AssertionError(f"cuda vs cpu: {f} {a} vs {b}")
-    torch.testing.assert_close(s_gpu.params.cpu(), s_cpu.params, rtol=0, atol=params_atol)
+    for f in ("params", "buf_delta"):
+        if getattr(s_gpu, f).dtype != getattr(s_cpu, f).dtype:
+            raise AssertionError(f"cuda vs cpu: {f} in {getattr(s_gpu, f).dtype} vs "
+                                 f"{getattr(s_cpu, f).dtype}")
+    torch.testing.assert_close(s_gpu.params.cpu().float(), s_cpu.params.float(), rtol=0,
+                               atol=params_atol)
     for f in ("opt_m", "opt_v", "buf_delta"):
-        torch.testing.assert_close(getattr(s_gpu, f).cpu(), getattr(s_cpu, f), rtol=1e-4,
-                                   atol=1e-7)
-    print(f"cuda vs cpu, one round from the same state: integers equal, "
-          f"max |dparams| = {float((s_gpu.params.cpu() - s_cpu.params).abs().max()):.3e}")
+        torch.testing.assert_close(getattr(s_gpu, f).cpu().float(), getattr(s_cpu, f).float(),
+                                   rtol=leaf_tol[0], atol=leaf_tol[1])
+    print(f"cuda vs cpu, one round from the same state: integers equal, max |dparams| = "
+          f"{float((s_gpu.params.cpu().float() - s_cpu.params.float()).abs().max()):.3e}")
 
 
 def profile_round(label, fn, card) -> None:
@@ -1327,6 +1421,106 @@ def time_serving_kernels(kernels, lib, stream, serve_launches, main_err, device,
     })
 
 
+# card vs CPU tolerances of a bf16 round: the clients' forward passes run in
+# bf16, and cuBLAS and the CPU's GEMMs round a product at other places, so an
+# update row may differ by a bf16 ulp (~4e-6 at |u| ~ 1e-3) that the server
+# step carries on: the model after one round by 1e-4 (10x what that gives),
+# by 2e-3 under fedadam (its step magnifies a delta's error up to (1 - beta1)
+# / tau = 100) and with a bf16 master (one bf16 ulp at |params| ~ 0.15 is
+# 9.8e-4); the moments and the bf16 ring within two bf16 ulps (2^-6) and
+# 1e-5; test accuracy by 4 of the 2,000 test images, test loss rtol 1e-3
+BF16_REPLAY = dict(acc_atol=2e-3, leaf_tol=(2 * BF16_ULP, 1e-5), loss_rtol=1e-3)
+
+
+def bf16_lane(fl, traffic, fp32_records, fleet_runs, device, card):
+    """``fl_sim --dtype bfloat16``: the main path for ROUNDS rounds, then its
+    aggregator lanes (fedadam and stale 1 round, fedbuff ROUNDS rounds, which
+    must park and drain), the streamed two-tier lane (fedbuff, 3 rounds) and
+    fedadam with a bf16 master (2 rounds), each with its launch counts and
+    its first round replayed on the CPU's plain path; then one fleet round
+    at N = 100,000 with its peak memory beside the fp32 fleet round's.
+    -> (sims, launches) by lane."""
+    from repro_torch.configs import get_config
+    from repro_torch.fl.simulation import FLSimulation
+    from repro_torch.utils import prng
+
+    phase("bf16 lane: fl_sim --dtype bfloat16, ring / contextual / mnist, N=100, on cuda")
+    fl16 = dataclasses.replace(fl, compute_dtype="bfloat16")
+    sims, launches = {}, {}
+    for label, agg, kw, server, n_rounds, atol in (
+            ("fedavg", "fedavg", {}, "fedavg_reduce", ROUNDS, 1e-4),
+            ("fedadam", "fedadam", dict(connection_rate=0.7), "server_update", 1, 2e-3),
+            ("stale", "stale", dict(connection_rate=0.7), "server_update", 1, 1e-4),
+            ("fedbuff", "fedbuff", dict(connection_rate=0.7), "server_update_buffered", ROUNDS,
+             1e-4),
+            ("streamed ring/fedbuff", "fedbuff",
+             dict(connection_rate=0.7, hierarchical=True, client_block=4),
+             "server_update_buffered", 3, 1e-4),
+            ("fedadam, bf16 master", "fedadam",
+             dict(connection_rate=0.7, param_dtype="bfloat16"), "server_update", 2, 2e-3)):
+        fl_l = dataclasses.replace(fl16, aggregator=agg, **kw)
+        rsu = -(-fl_l.n_select // fl_l.client_block) if fl_l.client_block else 0
+        sim_l = FLSimulation(get_config("fl-mnist-mlp"), fl_l, traffic, "mnist", "contextual",
+                             prng.key(0), device=device)
+        st = sim_l.state
+        if st.buf_delta.dtype != torch.bfloat16 or st.opt_m.dtype != torch.float32 or \
+                st.params.dtype != getattr(torch, fl_l.param_dtype):
+            raise AssertionError(f"bf16 {label}: carry dtypes {st.params.dtype} "
+                                 f"{st.opt_m.dtype} {st.buf_delta.dtype}")
+        print(f"-- bf16 {label} ({server}), {n_rounds} round(s), params {st.params.dtype}")
+        states, recs, launches[label] = drive(sim_l, server, rsu_per_round=rsu,
+                                              rounds=n_rounds)
+        if label == "fedbuff" and not (sum(r.n_buffered for r in recs)
+                                       and sum(r.n_drained for r in recs)):
+            raise AssertionError("bf16 fedbuff: the bf16 ring neither parked nor drained")
+        replay(sim_l, states[0], recs[0], traffic, params_atol=atol, **BF16_REPLAY)
+        sims[label] = sim_l
+        if label == "fedavg":
+            main_recs = recs
+    print(f"main path accuracy after {ROUNDS} rounds: fp32 {fp32_records[-1].test_acc:.4f}, "
+          f"bf16 {main_recs[-1].test_acc:.4f}; mean predicted latency of round 1: fp32 "
+          f"{fp32_records[0].mean_pred_latency:.4f} s, bf16 {main_recs[0].mean_pred_latency:.4f} "
+          f"s (the bf16 upload is half the bytes)")
+
+    n = max(fleet_runs)  # the fleet phase's largest, 100,000
+    fl_f, traffic_f, _, fp32_peak = fleet_runs[n]
+    phase(f"bf16 lane: a fleet round at N={n}, hierarchical, client_block=32, no warm-up")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    sim_f = FLSimulation(get_config("fl-mnist-mlp"), dataclasses.replace(
+        fl_f, compute_dtype="bfloat16"), traffic_f, "mnist", "contextual", prng.key(0),
+                         device=device)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    setup_peak = torch.cuda.max_memory_allocated() - held
+    torch.cuda.reset_peak_memory_stats()
+    held_round = torch.cuda.memory_allocated()
+    reset_launches()
+    t0 = time.perf_counter()
+    rec = sim_f.run_round()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches["fleet"] = read_launches()
+    round_peak = torch.cuda.max_memory_allocated() - held_round
+    n_chunks = -(-fl_f.n_select // fl_f.client_block)
+    print(json.dumps(rec.__dict__), f"wall {wall * 1e3:.1f} ms")
+    print(f"bf16 fleet N={n}: set-up {setup_s:.2f} s (peak {setup_peak / 2**30:.3f} GiB above "
+          f"the {held / 2**30:.2f} GiB held); peak memory in the round {round_peak / 2**30:.3f} "
+          f"GiB ({round_peak / 2**20:.1f} MiB), the fp32 fleet round's in this call "
+          f"{fp32_peak / 2**30:.3f} GiB ({fp32_peak / 2**20:.1f} MiB); launches "
+          f"{launches['fleet']} [{card}]")
+    want = dict.fromkeys(launches["fleet"], 0)
+    want.update(rttg_latency=2, rsu_reduce=n_chunks, fedavg_reduce=1)
+    if launches["fleet"] != want:
+        raise AssertionError(f"bf16 fleet: expected {want}, got {launches['fleet']}")
+    check_records(sim_f, [rec])
+    del sim_f
+    torch.cuda.empty_cache()
+    return sims, launches
+
+
 def main(argv=()) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script needs a card",
@@ -1447,6 +1641,53 @@ def main(argv=()) -> int:
     check_rsu_walk(10, 4, device)
     check_rsu_walk(100, 32, device)
     check_rsu_walk(100, 32, device, R=40)
+    # the bf16 lane: B2-B5 read 2-byte rows (and B5 writes 2-byte partials)
+    # in their own bodies; the same checks at the main shapes and the edges
+    f32, bf16 = torch.float32, torch.bfloat16
+    main_err["bf16"] = {"fedavg_reduce": check_fedavg(10, 159_010, device, bf16)}
+    # K = 1, odd P, P = 2 mod 4 (4-byte pieces), a row one element off its
+    # 4-byte alignment (2-byte loads), a ragged K past the load group
+    for K, P, offset in ((1, 159_010, 0), (7, 159_011, 0), (10, 4098, 0), (10, 4096, 1),
+                         (1, 1, 0), (17, 4097, 0), (10, 159_010, 1)):
+        check_fedavg(K, P, device, bf16, offset)
+    for master in (f32, bf16):
+        for K, P in ((10, 159_010), (1, 1), (5, 2049), (3, 159_011)):
+            errs = [check_server_update(K, P, rule, device, exact, rows=bf16, master=master)
+                    for rule in range(6) for exact in (False, True)]
+            if (K, P, master) == (10, 159_010, f32):
+                main_err["bf16"]["server_update"] = max(errs)
+            print(f"server_update K={K:3d} P={P:7d} bf16 rows, {str(master)[6:]} master, rules "
+                  f"0-5, random and exact operands: max_abs_err={max(errs):.3e}")
+        for drain in (False, True):
+            errs = [check_server_buffered(10, 8, 159_010, rule, drain, device, rows=bf16,
+                                          master=master) for rule in range(6)]
+            if master == f32:
+                main_err["bf16"]["server_update_buffered"] = max(
+                    main_err["bf16"].get("server_update_buffered", 0.0), *errs)
+            print(f"server_update_buffered K=10 Kb=8 P=159010 bf16 rows and ring, "
+                  f"{str(master)[6:]} master, drain={drain!s:5s} rules 0-5: "
+                  f"max_abs_err={max(errs):.3e}")
+        check_server_buffered(5, 3, 2049, 3, True, device, rows=bf16, master=master)
+        for K, P in ((10, 159_010), (5, 2049), (1, 1)):
+            check_server_contracts(K, P, device, rows=bf16, master=master)
+    for out in (bf16, f32):
+        for K, P, R, offset, pad in (
+                (4, 159_010, 10, 0, 0), (32, 159_010, 10, 0, 0), (4, 159_010, 40, 0, 0),
+                (32, 159_010, 40, 0, 0), (5, 159_011, 10, 0, 0), (4, 3, 10, 0, 0),
+                (1, 1, 1, 0, 0), (6, 4096, 10, 2, 0), (6, 4096, 10, 1, 0),
+                (4, 159_010, 10, 1, 0), (32, 159_010, 10, 0, 28), (7, 515, 33, 0, 0)):
+            errs = [check_rsu(K, P, R, mode, with_carry, device, offset, pad, rows=bf16,
+                              out=out)
+                    for mode in ("rand", "exact", "one_rsu", "hole", "masked", "out_of_range")
+                    for with_carry in (False, True)]
+            if (K, P, R, offset, pad, out) == (4, 159_010, 10, 0, 0, bf16):
+                main_err["bf16"]["rsu_reduce"] = max(errs)
+            print(f"rsu_reduce K={K:2d} P={P:7d} R={R:3d} offset={offset} pad={pad} bf16 rows, "
+                  f"{str(out)[6:]} partials: every mode with and without carry, each repeated "
+                  f"bitwise: max_abs_err={max(errs):.3e}")
+    check_rsu_two_roundings(device)
+    for K, B, R in ((10, 4, 10), (100, 32, 10), (100, 32, 40)):
+        check_rsu_walk(K, B, device, R=R, rows=bf16, out=bf16)
     main_err["swa_decode"] = main_err["ssd_scan"] = 0.0
     for dtype in (torch.bfloat16, torch.float32):
         # hymba-1.5b's decode: B=4, a full 1024-slot ring after 2,080 tokens
@@ -1647,7 +1888,7 @@ def main(argv=()) -> int:
     from repro_torch.core import messages
     from repro_torch.core.fusion import fuse_kinematics
 
-    fleet_launches = {}
+    fleet_launches, fleet_runs = {}, {}
     for n, n_rounds in FLEET:
         phase(f"fleet: N={n}, {n_rounds} round(s), hierarchical, client_block=32, no warm-up")
         # benchmarks/engine_throughput.py::fleet's settings
@@ -1679,6 +1920,7 @@ def main(argv=()) -> int:
         fleet_launches[n] = launches_f = read_launches()
         rows = messages.dense_rows - rows0
         round_peak = torch.cuda.max_memory_allocated() - held_rounds
+        fleet_runs[n] = (fl_f, traffic_f, setup_peak, round_peak)
         n_chunks = -(-fl_f.n_select // fl_f.client_block)
         print(f"set-up {setup_s:.2f} s (peak {setup_peak / 2**30:.2f} GiB above the "
               f"{held / 2**30:.2f} GiB the earlier phases hold); N={n} "
@@ -1772,6 +2014,9 @@ def main(argv=()) -> int:
     phase("pipeline: the unfused round lane vs the fused lane on the card")
     fused_vs_unfused(sim, state0)
 
+    # ---- 4g. the bf16 lane ----------------------------------------------------
+    bf16_sims, bf16_launches = bf16_lane(fl, traffic, records, fleet_runs, device, card)
+
     # ---- 5. times ----------------------------------------------------------
     phase(f"times on {card}")
     from repro_torch.kernels.build import library
@@ -1850,18 +2095,23 @@ def main(argv=()) -> int:
     n_copies = 16
     us = [1e-3 * prng.normal(prng.fold_in(prng.key(11), i), (K, P), device)
           for i in range(n_copies)]
+    # the bf16 rows: twice the copies, so they too exceed the L2
+    us16 = [x.to(torch.bfloat16) for x in us] + [
+        (1e-3 * prng.normal(prng.fold_in(prng.key(12), i), (K, P), device)).to(torch.bfloat16)
+        for i in range(n_copies)]
     w = torch.full((K,), 0.1, dtype=torch.float32, device=device)
     out = torch.empty((P,), dtype=torch.float32, device=device)
     vec = 2 if P % 2 == 0 else 1
     it = {"i": 0}
 
-    def nxt():
-        it["i"] = (it["i"] + 1) % n_copies
-        return us[it["i"]]
+    def nxt(rows=us):
+        it["i"] = (it["i"] + 1) % len(rows)
+        return rows[it["i"]]
 
-    def fed_launch():
-        kbuild.check(lib.fedavg_reduce_launch(nxt().data_ptr(), w.data_ptr(), K, P, vec,
-                                              out.data_ptr(), stream), "fedavg_reduce")
+    def fed_launch(rows=us):
+        u_ = nxt(rows)
+        kbuild.check(lib.fedavg_reduce_launch(u_.data_ptr(), u_.element_size(), w.data_ptr(), K,
+                                              P, vec, out.data_ptr(), stream), "fedavg_reduce")
 
     fed_ms = time_ms(fed_launch)
     fed_plain = time_ms(lambda: fedavg_reduce_plain(nxt(), w))
@@ -1882,6 +2132,20 @@ def main(argv=()) -> int:
           f"{b_ms * 1e3:.2f} us ({b_by}), {fed_bytes / (fed_ms * 1e-3) / 1e9:.0f} GB/s; device "
           f"time per call (profiler): kernel {fed_dev[0]:.2f} us, torch.mv {fed_dev[1]:.2f} us "
           f"[{card}]")
+    # the bf16 lane's rows: the kernel reads 2-byte rows (no library call
+    # computes bf16 rows into an fp32 sum in one call: torch.mv would need
+    # the rows upcast first)
+    fed16 = (time_ms(lambda: fed_launch(us16)),
+             time_ms(lambda: fedavg_reduce_plain(nxt(us16), w)),
+             device_us_per_call(lambda: fed_launch(us16)))
+    fed16_bytes = K * P * 2 + K * 4 + P * 4
+    b16 = bound(fed16_bytes, 2 * K * P)
+    bf16_times = {"fedavg_reduce": fed16 + (b16, fed16_bytes)}
+    print(f"fedavg_reduce K={K} P={P} bf16 rows (vec {vec}): kernel {fed16[0] * 1e3:.2f} us "
+          f"(device time {fed16[2]:.2f} us, fp32 rows {fed_dev[0]:.2f} us), plain "
+          f"{fed16[1] * 1e3:.2f} us, bound {b16[0] * 1e3:.2f} us ({b16[1]}, "
+          f"{fed16_bytes / 1e6:.2f} MB; fp32 rows {b_ms * 1e3:.2f} us), "
+          f"{fed16_bytes / fed16[2] / 1e3:.0f} GB/s by device time [{card}]")
 
     # server_update (fedadam, rule 2) and server_update_buffered (fedbuff,
     # rule 5, draining all Kb = 8 ring rows) at K=10, P=159,010, cycling
@@ -1894,26 +2158,29 @@ def main(argv=()) -> int:
     Kb = fl.buffer_size
     sets = [server_operands(K, P, 100 + i, device) for i in range(n_copies)]
     rings = [server_operands(Kb, P, 200 + i, device)[:2] for i in range(n_copies)]
+    # the bf16 lane's rows and ring over the fp32 master and moments
+    sets16 = [(u.to(torch.bfloat16), *rest) for u, *rest in sets]
+    rings16 = [(ring.to(torch.bfloat16), bw) for ring, bw in rings]
     outs = [torch.empty((P,), dtype=torch.float32, device=device) for _ in range(3)]
     on = torch.tensor(True, device=device)
     hp = ServerHP()
 
-    def nxt_set():
+    def nxt_set(half=False):
         it["i"] = (it["i"] + 1) % n_copies
-        return sets[it["i"]], rings[it["i"]]
+        return (sets16 if half else sets)[it["i"]], (rings16 if half else rings)[it["i"]]
 
-    def su_launch(rule, buffered):
-        (u, w_, p_, m_, v_), (ring, bw) = nxt_set()
+    def su_launch(rule, buffered, half=False):
+        (u, w_, p_, m_, v_), (ring, bw) = nxt_set(half)
         ring_args = (ring.data_ptr(), bw.data_ptr(), Kb, on.data_ptr()) if buffered \
             else (None, None, 0, None)
         kbuild.check(lib.server_update_launch(
-            u.data_ptr(), w_.data_ptr(), K, *ring_args, P, p_.data_ptr(), m_.data_ptr(),
-            v_.data_ptr(), rule, 0, hp.eta, hp.beta1, 1.0 - hp.beta1, hp.beta2,
-            1.0 - hp.beta2, hp.tau, vec, *[o.data_ptr() for o in outs], stream),
-            "server_update")
+            u.data_ptr(), u.element_size(), w_.data_ptr(), K, *ring_args, P, p_.data_ptr(),
+            p_.element_size(), m_.data_ptr(), v_.data_ptr(), rule, 0, hp.eta, hp.beta1,
+            1.0 - hp.beta1, hp.beta2, 1.0 - hp.beta2, hp.tau, vec,
+            *[o.data_ptr() for o in outs], stream), "server_update")
 
-    def su_plain(rule, buffered):
-        (u, w_, p_, m_, v_), (ring, bw) = nxt_set()
+    def su_plain(rule, buffered, half=False):
+        (u, w_, p_, m_, v_), (ring, bw) = nxt_set(half)
         if buffered:
             return server_update_buffered_plain(u, w_, ring, bw, p_, m_, v_, rule, 0, on)
         return server_update_plain(u, w_, p_, m_, v_, rule, 0)
@@ -1930,13 +2197,16 @@ def main(argv=()) -> int:
                    "server_update_buffered"])}
     # two passes over the pair, each kernel timed in turn; the first pass is a
     # warm-up (a call's first server timing reads slow), the second is kept
-    su_times = {}
+    su_times, su16 = {}, {}
     for _ in range(2):
         for name, (rule, buffered, _rows, _n) in su_runs.items():
             su_times[name] = (time_ms(lambda: su_launch(rule, buffered)),
                               time_ms(lambda: su_plain(rule, buffered)),
                               time_ms(lambda: su_wrapper(rule, buffered)),
                               device_us_per_call(lambda: su_launch(rule, buffered)))
+            su16[name] = (time_ms(lambda: su_launch(rule, buffered, True)),
+                          time_ms(lambda: su_plain(rule, buffered, True)),
+                          device_us_per_call(lambda: su_launch(rule, buffered, True)))
     for name, (rule, buffered, rows_b, n_launch) in su_runs.items():
         ms, plain_ms, wrap_ms, dev_us = su_times[name]
         rows = K + rows_b
@@ -1960,6 +2230,15 @@ def main(argv=()) -> int:
               f"{ms * 1e3:.2f} us (device time {dev_us:.2f} us), wrapper {wrap_ms * 1e3:.2f} us, "
               f"plain {plain_ms * 1e3:.2f} us, bound {b_ms * 1e3:.2f} us ({b_by}), "
               f"{su_bytes / (ms * 1e-3) / 1e9:.0f} GB/s [{card}]")
+        # the same call on bf16 rows (and ring), the master and moments fp32
+        b16_bytes = su_bytes - rows * P * 2
+        b16 = bound(b16_bytes, 2 * rows * P + (12 if moments else 1) * P)
+        bf16_times[name] = su16[name] + (b16, b16_bytes)
+        print(f"{name} K={K} Kb={rows_b} P={P} rule {rule} bf16 rows, fp32 master: kernel "
+              f"{su16[name][0] * 1e3:.2f} us (device time {su16[name][2]:.2f} us, fp32 rows "
+              f"{dev_us:.2f} us), plain {su16[name][1] * 1e3:.2f} us, bound {b16[0] * 1e3:.2f} us "
+              f"({b16[1]}, {b16_bytes / 1e6:.2f} MB), {b16_bytes / su16[name][2] / 1e3:.0f} GB/s "
+              f"by device time [{card}]")
 
     # rsu_reduce at the streamed lanes' chunks: R=10, the paper's K=4 and the
     # fleet's K=32, each with its carry (the steady chunk) and the first
@@ -1970,28 +2249,34 @@ def main(argv=()) -> int:
     rsu_times = {}
     for K_c in (4, 32):
         ops = [rsu_operands(K_c, P, R, "rand", device) for _ in range(n_copies)]
+        # the bf16 lane's chunk: bf16 rows into bf16 partials and carry
+        ops16 = [(u_.to(torch.bfloat16), w_, rid_, c_.to(torch.bfloat16))
+                 for u_, w_, rid_, c_ in ops]
         routes = [torch.nn.functional.one_hot(rid_.long(), R).float() * w_[:, None]
                   for _, w_, rid_, _ in ops]
         out_c = torch.empty((R, P), dtype=torch.float32, device=device)
+        out16 = torch.empty((R, P), dtype=torch.bfloat16, device=device)
         mass_c = torch.empty((R,), dtype=torch.float32, device=device)
         vec_c = vector_width(P, ops[0][0], out_c)
+        if vector_width(P, ops16[0][0], out16) != vec_c:
+            raise AssertionError("the bf16 chunk takes another vector width")
         rows_c = torch.empty((K_c, P), dtype=torch.float32, device=device)
 
-        def nxt_rsu():
+        def nxt_rsu(half=False):
             it["i"] = (it["i"] + 1) % n_copies
-            return ops[it["i"]], routes[it["i"]]
+            return (ops16 if half else ops)[it["i"]], routes[it["i"]]
 
-        def rsu_launch(with_carry, K_c=K_c):
-            (u_, w_, rid_, c_), _ = nxt_rsu()
+        def rsu_launch(with_carry, half=False, K_c=K_c):
+            (u_, w_, rid_, c_), _ = nxt_rsu(half)
+            out_ = c_ if with_carry else out16 if half else out_c
             kbuild.check(lib.rsu_reduce_launch(
-                u_.data_ptr(), w_.data_ptr(), rid_.data_ptr(), K_c, R, P, vec_c,
-                c_.data_ptr() if with_carry else None,
-                c_.data_ptr() if with_carry else out_c.data_ptr(), mass_c.data_ptr(),
-                stream), "rsu_reduce")
+                u_.data_ptr(), u_.element_size(), w_.data_ptr(), rid_.data_ptr(), K_c, R, P,
+                vec_c, c_.data_ptr() if with_carry else None, out_.data_ptr(),
+                out_.element_size(), mass_c.data_ptr(), stream), "rsu_reduce")
 
-        def rsu_plain_call():
-            (u_, w_, rid_, c_), _ = nxt_rsu()
-            return rsu_reduce_plain(u_, w_, rid_, R, c_)
+        def rsu_plain_call(half=False):
+            (u_, w_, rid_, c_), _ = nxt_rsu(half)
+            return rsu_reduce_plain(u_, w_, rid_, R, c_, out_dtype=c_.dtype)
 
         def rsu_library():
             (u_, _, _, c_), m_ = nxt_rsu()
@@ -2014,12 +2299,18 @@ def main(argv=()) -> int:
                  "carry_dev": device_us_per_call(lambda: rsu_launch(True)),
                  "first_dev": device_us_per_call(lambda: rsu_launch(False)),
                  "library_dev": device_us_per_call(rsu_library),
-                 "copy_dev": device_us_per_call(rows_copy)}
+                 "copy_dev": device_us_per_call(rows_copy),
+                 "carry16": time_ms(lambda: rsu_launch(True, True)),
+                 "plain16": time_ms(lambda: rsu_plain_call(True)),
+                 "carry16_dev": device_us_per_call(lambda: rsu_launch(True, True)),
+                 "first16_dev": device_us_per_call(lambda: rsu_launch(False, True))}
         # each input read once (rows, weights, ids, and the carry when there is
         # one), each output written once (partials, mass); 2 flops per row value
         # (its one RSU's multiply-add) plus the carry's add per partial
-        for key, with_carry in (("carry", True), ("first", False)):
-            b_bytes = K_c * P * 4 + 2 * K_c * 4 + R * P * 4 * (2 if with_carry else 1) + R * 4
+        for key, with_carry, size in (("carry", True, 4), ("first", False, 4),
+                                      ("carry16", True, 2), ("first16", False, 2)):
+            b_bytes = (K_c * P * size + 2 * K_c * 4 + R * P * size * (2 if with_carry else 1)
+                       + R * 4)
             t[key + "_bound"] = bound(b_bytes, 2 * K_c * P + (R * P if with_carry else 0))
             t[key + "_bytes"] = b_bytes
         rsu_times[K_c] = t
@@ -2036,6 +2327,15 @@ def main(argv=()) -> int:
               f"({t['first_bound'][0] * 1e3 / t['first_dev']:.3f} of the bound); the kernel "
               f"moves {t['carry_bytes'] / t['carry_dev'] / 1e3:.0f} GB/s, a copy of its rows "
               f"{2 * K_c * P * 4 / t['copy_dev'] / 1e3:.0f} GB/s ({t['copy_dev']:.2f} us) [{card}]")
+        print(f"rsu_reduce K={K_c} P={P} R={R} bf16 rows and partials (vec {vec_c}): kernel "
+              f"with carry {t['carry16'] * 1e3:.2f} us (device time {t['carry16_dev']:.2f} us, "
+              f"fp32 {t['carry_dev']:.2f} us; bound {t['carry16_bound'][0] * 1e3:.2f} us, "
+              f"{t['carry16_bytes'] / 1e6:.2f} MB, "
+              f"{t['carry16_bytes'] / t['carry16_dev'] / 1e3:.0f} GB/s), first chunk device "
+              f"time {t['first16_dev']:.2f} us (fp32 {t['first_dev']:.2f} us; bound "
+              f"{t['first16_bound'][0] * 1e3:.2f} us), plain {t['plain16'] * 1e3:.2f} us [{card}]")
+        bf16_times[f"rsu_reduce K={K_c}"] = (t["carry16"], t["plain16"], t["carry16_dev"],
+                                             t["carry16_bound"], t["carry16_bytes"])
     t = rsu_times[4]
     kernels.append({
         "name": "rsu_reduce", "route": "cuda",
@@ -2047,12 +2347,19 @@ def main(argv=()) -> int:
         "bound_ms": t["carry_bound"][0], "bound_by": t["carry_bound"][1],
         "library_ms": t["library"],
     })
+    # the bf16 rows of B2-B5 (the fp32 rows stand in the kernels line below)
+    print(json.dumps({"bf16_rows": {
+        name: {"ms": v[0], "plain_ms": v[1], "device_us": v[2], "bound_ms": v[3][0],
+               "bound_by": v[3][1], "bytes": v[4]} for name, v in bf16_times.items()},
+        "max_abs_err": main_err["bf16"], "bf16_lane_launches": bf16_launches}))
 
     time_serving_kernels(kernels, lib, stream, serve_launches, main_err, device, card)
     time_gram(kernels, lib, stream, sel_run, main_err, device, card)
 
     # the rounds: wall time ending in a synchronize, then profiled rounds
-    for label, s_ in (("fedavg", sim), ("fedadam", lane_sims["fedadam"]),
+    for label, s_ in (("fedavg", sim), ("bf16 fedavg", bf16_sims["fedavg"]),
+                      ("fedadam", lane_sims["fedadam"]),
+                      ("bf16 fedadam", bf16_sims["fedadam"]),
                       ("fedbuff", lane_sims["fedbuff"]),
                       ("streamed ring/fedavg", streamed_sims["ring/fedavg"]),
                       ("streamed ring/fedbuff", streamed_sims["ring/fedbuff"])):
@@ -2065,8 +2372,8 @@ def main(argv=()) -> int:
             walls.append(time.perf_counter() - t0)
         print(f"round wall time, {label} lane (N=100, K=10, 3 epochs): "
               f"{', '.join(f'{x * 1e3:.1f}' for x in walls)} ms [{card}]")
-    for label, s_ in (("fedavg N=100", sim), ("streamed fedavg N=100",
-                                              streamed_sims["ring/fedavg"]),
+    for label, s_ in (("fedavg N=100", sim), ("bf16 fedavg N=100", bf16_sims["fedavg"]),
+                      ("streamed fedavg N=100", streamed_sims["ring/fedavg"]),
                       (f"fleet N={fleet_sim.fl.num_clients}", fleet_sim)):
         profile_round(f"round, {label}", s_.step, card)
     from repro_torch.configs import get_config as lm_config

@@ -27,16 +27,13 @@ _INT32_LEAVES = ("clusters", "lane", "labels", "test_y")
 
 
 def _tensor(x, device) -> torch.Tensor:
-    return torch.from_numpy(np.array(x, copy=True, order="C")).to(device)
-
-
-def _leaf(x, device) -> torch.Tensor:
-    """A numpy leaf -> a tensor of the same dtype.  A bf16 leaf (an
-    ``ml_dtypes.bfloat16`` array) goes through float32, which is exact."""
-    a = np.asarray(x)
+    """A numpy array -> a tensor of the same dtype.  ``torch.from_numpy``
+    refuses a bf16 array (``ml_dtypes.bfloat16``), so its 16-bit patterns
+    cross as ``uint16`` and are viewed back as ``torch.bfloat16``."""
+    a = np.array(x, copy=True, order="C")
     if a.dtype.name == "bfloat16":
-        return _tensor(a.astype(np.float32), device).to(torch.bfloat16)
-    return _tensor(a, device)
+        return torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16).to(device)
+    return torch.from_numpy(a).to(device)
 
 
 def params_tree_from_numpy(tree, device="cpu"):
@@ -48,7 +45,7 @@ def params_tree_from_numpy(tree, device="cpu"):
                 if not (isinstance(value, (list, tuple)) and not value)}
     if isinstance(tree, (list, tuple)):
         return [params_tree_from_numpy(value, device) for value in tree]
-    return _leaf(tree, device)
+    return _tensor(tree, device)
 
 
 def lm_cache_from_numpy(cache, device="cpu") -> dict:
@@ -69,11 +66,15 @@ def tree_to_numpy(tree):
 
 
 def params_from_numpy(params, device="cpu") -> torch.Tensor:
-    """A numpy parameter tree or flat ``(P,)`` vector -> the port's flat vector."""
+    """A numpy parameter tree or flat ``(P,)`` vector -> the port's flat
+    vector: fp32, or bf16 for a bf16 vector (a bf16 master); a tree
+    flattens to fp32, as ``flatten_to_vector`` does in both packages."""
     if isinstance(params, np.ndarray):
         if params.ndim != 1:
             raise ValueError(f"a flat parameter vector is 1-D, got shape {params.shape}")
-        return _tensor(params.astype(np.float32), device)
+        if params.dtype.name != "bfloat16":
+            params = params.astype(np.float32)
+        return _tensor(params, device)
     return flatten_to_vector(params_tree_from_numpy(params, device))
 
 
@@ -101,12 +102,14 @@ def state_from_numpy(d: Dict, device="cpu") -> RoundState:
 
 
 def _leaf_to_numpy(name, x):
-    a = x.detach().cpu().numpy()
+    x = x.detach().cpu()
+    a = (x.float() if x.dtype == torch.bfloat16 else x).numpy()
     return a.astype(np.int32) if name in _INT32_LEAVES else a
 
 
 def state_to_numpy(state: RoundState) -> Dict:
-    """The port's ``RoundState`` -> a dict of numpy arrays in the JAX dtypes."""
+    """The port's ``RoundState`` -> a dict of numpy arrays in the JAX dtypes,
+    bf16 leaves (the bf16 lane's ring and master) as float32, which is exact."""
     out = {}
     for name in RoundState._fields:
         value = getattr(state, name)

@@ -12,7 +12,8 @@ from typing import Callable
 import torch
 
 from repro_torch.utils import prng
-from repro_torch.utils.pytree import flatten_to_vector, flat_spec_of, unflatten_from_vector
+from repro_torch.utils.pytree import (flat_spec_of, flatten_to_vector, tree_cast,
+                                      unflatten_from_vector)
 
 
 def make_local_trainer(loss_fn: Callable, lr: float, epochs: int, batch_size: int,
@@ -28,10 +29,15 @@ def make_local_trainer(loss_fn: Callable, lr: float, epochs: int, batch_size: in
     ``mu`` is the FedProx proximal coefficient (Li et al.): each step's
     gradient gains ``mu * (p - p_global)``.  The ``mu == 0`` gate is decided
     here, once, so the default trainer runs no proximal term at all.
+
+    ``compute_dtype`` (a torch dtype, or None = fp32) is the mixed-precision
+    lane: each step casts the fp32 parameters to it inside the
+    differentiated closure, so the forward pass (and the activations, which
+    follow the parameters' dtype) runs in it while autograd of the cast
+    hands fp32 gradients back to the fp32 SGD state.  Like ``mu``, the gate
+    is decided once: the default trainer casts nothing.
     """
-    if compute_dtype is not None:
-        raise NotImplementedError("the bf16 compute lane is not ported yet "
-                                  "(see ROADMAP.md)")
+    cast = compute_dtype is not None and compute_dtype != torch.float32
 
     def train_cohort(global_params: dict, images: torch.Tensor,
                      labels: torch.Tensor, key: torch.Tensor):
@@ -50,7 +56,10 @@ def make_local_trainer(loss_fn: Callable, lr: float, epochs: int, batch_size: in
             batch = {"images": images[rows, bidx], "labels": labels[rows, bidx]}
             with torch.enable_grad():
                 p = p.detach().requires_grad_(True)
-                loss, _ = loss_fn(unflatten_from_vector(p, spec), batch)
+                tree = unflatten_from_vector(p, spec)
+                if cast:
+                    tree = tree_cast(tree, compute_dtype)
+                loss, _ = loss_fn(tree, batch)
                 (g,) = torch.autograd.grad(loss.sum(), p)
             p = p.detach()
             if mu:

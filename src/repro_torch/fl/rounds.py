@@ -7,9 +7,9 @@ the flat ``(P,)`` global model.  Selection is a fixed-size mask compacted
 into K cohort slots, as in the JAX package, so the shapes never depend on
 the data.
 
-The port runs the fp32 lanes of the reference with every registered server
-rule (``fl.aggregators.AGGREGATOR_ORDER``), flat or two-tier; the bf16 lane
-raises ``NotImplementedError``.  The geometry is fused by default
+The port runs the reference's lanes with every registered server rule
+(``fl.aggregators.AGGREGATOR_ORDER``), flat or two-tier, in both precisions
+(``precision_of``).  The geometry is fused by default
 (``fused=True``: both geometry passes go through the ``rttg_latency``
 kernel); ``fused=False`` composes the RTTG API instead (``fuse_messages ->
 predict_rttg -> latency_model / connectivity``, and ``build_rttg`` on the
@@ -79,6 +79,23 @@ from repro_torch.utils.pytree import flatten_to_vector, unflatten_from_vector
 
 STRATEGY_ORDER: Tuple[str, ...] = ("greedy", "gossip", "data", "network", "contextual")
 
+# FLConfig dtype names -> torch dtypes (FLConfig rejects any other name)
+_PRECISIONS = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def precision_of(fl: FLConfig) -> Tuple[torch.dtype, torch.dtype]:
+    """The config's precision axis -> ``(param_dtype, compute_dtype)``.
+
+    ``param_dtype`` is the master model carry (``RoundState.params``);
+    ``compute_dtype`` the client-update / comm lane: the ``(K, P)`` update
+    rows, the ``(Kb, P)`` fedbuff ring and the ``(R, P)`` chunk partials.
+    The server moments stay fp32 whatever the axis, and so does every
+    kernel's accumulator.  Both default to fp32, and then no gate below
+    casts anything.
+    """
+    return _PRECISIONS[fl.param_dtype], _PRECISIONS[fl.compute_dtype]
+
+
 # Twin integration splits every advance into this many equal sub-steps.
 ADVANCE_SUBSTEPS = 15
 
@@ -90,8 +107,9 @@ def _to(x, device):
 class RoundState(NamedTuple):
     """Everything a round mutates.
 
-    ``params`` is the flat (P,) fp32 global model; ``opt_m`` / ``opt_v`` the
-    server-moment vectors (zeros: plain fedavg carries them untouched);
+    ``params`` is the flat (P,) global model in the master dtype
+    (``FLConfig.param_dtype``, fp32 by default); ``opt_m`` / ``opt_v`` the
+    fp32 server-moment vectors (zeros: plain fedavg carries them untouched);
     ``sketch_sign`` the per-experiment Rademacher signs.  The ``buf_*``
     leaves are the fedbuff ring: ``Kb = FLConfig.buffer_size`` slots holding
     deadline-missers' update rows, with arrival time, dispatch time,
@@ -108,7 +126,7 @@ class RoundState(NamedTuple):
     sketch_age: torch.Tensor  # (N,) rounds since last report
     clusters: torch.Tensor  # (N,) int64 data-cluster labels
     sketch_sign: torch.Tensor  # (P padded,)
-    buf_delta: torch.Tensor  # (Kb, P)
+    buf_delta: torch.Tensor  # (Kb, P) in the compute dtype
     buf_arrive: torch.Tensor  # (Kb,)
     buf_sent: torch.Tensor  # (Kb,)
     buf_weight: torch.Tensor  # (Kb,)
@@ -199,10 +217,13 @@ def init_state_for_key(api, fl: FLConfig, scn, key: torch.Tensor, device):
     twin = init_twin_state(scn, twin_init_key(key), device)
     regions = regions_of(twin.pos, scn)
     N, Kb = fl.num_clients, fl.buffer_size
+    # the moments from the fp32 init, before the master takes its dtype; the
+    # fedbuff ring in the compute dtype
+    pd, cd = precision_of(fl)
     opt_m, opt_v = init_opt_vectors(params_vec)
     f32 = dict(dtype=torch.float32, device=device)
     state = RoundState(
-        params=params_vec,
+        params=params_vec.to(pd),
         opt_m=opt_m,
         opt_v=opt_v,
         twin=twin,
@@ -210,7 +231,7 @@ def init_state_for_key(api, fl: FLConfig, scn, key: torch.Tensor, device):
         sketch_age=torch.full((N,), math.inf, **f32),
         clusters=torch.zeros((N,), dtype=torch.int64, device=device),
         sketch_sign=sketch_sign,
-        buf_delta=torch.zeros((Kb, P), **f32),
+        buf_delta=torch.zeros((Kb, P), dtype=cd, device=device),
         buf_arrive=torch.zeros((Kb,), **f32),
         buf_sent=torch.zeros((Kb,), **f32),
         buf_weight=torch.zeros((Kb,), **f32),
@@ -253,20 +274,18 @@ def _check_lane(fl: FLConfig, fused: bool) -> None:
             f"it runs up to {messages.DENSE_MAX_N} vehicles, got {fl.num_clients}: "
             "use fused=True"
         )
-    if fl.param_dtype != "float32" or fl.compute_dtype != "float32":
-        raise NotImplementedError("the bf16 precision lane is not ported yet "
-                                  "(see ROADMAP.md)")
 
 
 def make_warmup(loss_fn, fl: FLConfig, param_spec):
     """Deadline-rule bootstrap: every client reports one gradient sketch,
     then the first clustering runs.  (state, data) -> state."""
-    one_step = make_local_trainer(loss_fn, fl.learning_rate, 1, fl.batch_size)
+    one_step = make_local_trainer(loss_fn, fl.learning_rate, 1, fl.batch_size,
+                                  compute_dtype=precision_of(fl)[1])
 
     @torch.no_grad()
     def warmup(state: RoundState, data: RoundData) -> RoundState:
         bs = fl.batch_size
-        params = unflatten_from_vector(state.params, param_spec)
+        params = _params_tree(state.params, param_spec)
         _, vecs = one_step(params, data.images[:, :bs], data.labels[:, :bs],
                            prng.fold_in_str(state.key, "warmup"))
         sketches = apply_sketch(vecs, state.sketch_sign, fl.sketch_dim)
@@ -302,8 +321,13 @@ def make_round_step(loss_fn, fl: FLConfig, cohort_size: int, model_bytes: float,
     has_fedbuff = "fedbuff" in aggregators
     Kb, buffer_fill = fl.buffer_size, fl.buffer_fill
     hp = server_hp(fl)
+    # the comm lane: updates travel (and park in the ring, and reduce into
+    # the chunk partials) in the compute dtype; a vehicle uploads
+    # model_bytes * itemsize / 4 bytes (exactly model_bytes in fp32)
+    _, cd = precision_of(fl)
+    upload_bytes = float(model_bytes) * (cd.itemsize / 4.0)
     trainer = make_local_trainer(loss_fn, fl.learning_rate, fl.local_epochs,
-                                 fl.batch_size, mu=fl.fedprox_mu)
+                                 fl.batch_size, mu=fl.fedprox_mu, compute_dtype=cd)
     hierarchical, B = fl.hierarchical, fl.client_block
     n_select = fl.n_select
     N, K = fl.num_clients, cohort_size
@@ -343,7 +367,7 @@ def make_round_step(loss_fn, fl: FLConfig, cohort_size: int, model_bytes: float,
         device = state.params.device
         f32 = dict(dtype=torch.float32, device=device)
         nan = torch.full((), math.nan, **f32)
-        mb = torch.tensor(float(model_bytes), **f32)
+        mb = torch.tensor(upload_bytes, **f32)
         rk = prng.fold_in(state.key, state.round)
 
         # ---- stages 1+2: fuse CAM/CPM, predict, price the topology -----
@@ -442,7 +466,7 @@ def make_round_step(loss_fn, fl: FLConfig, cohort_size: int, model_bytes: float,
                 upd_any = ok_any | drain_fire
 
         # ---- local training, survivors' sketches, the edge reduce ------
-        params = unflatten_from_vector(state.params, param_spec)
+        params = _params_tree(state.params, param_spec)
         buf = {f: getattr(state, f) for f in
                ("buf_delta", "buf_arrive", "buf_sent", "buf_weight", "buf_mask")}
         if has_fedbuff:
@@ -469,8 +493,9 @@ def make_round_step(loss_fn, fl: FLConfig, cohort_size: int, model_bytes: float,
             partials, sketches, sketch_age = None, state.sketches, state.sketch_age
             for c in range(n_chunks):
                 cs = slice(c * B, (c + 1) * B)
-                vb = _train(trainer, params, data, idx_p[cs], valid_p[cs], keys[cs])
-                partials, _ = rsu_reduce(vb, w_p[cs], rid_p[cs], R, carry=partials)
+                vb = _train(trainer, params, data, idx_p[cs], valid_p[cs], keys[cs]).to(cd)
+                partials, _ = rsu_reduce(vb, w_p[cs], rid_p[cs], R, carry=partials,
+                                         out_dtype=cd)
                 sketches, sketch_age = _report(sketches, sketch_age, vb, ok_p[cs],
                                                idx_p[cs], state.sketch_sign, fl.sketch_dim, N)
                 if has_fedbuff:
@@ -480,7 +505,7 @@ def make_round_step(loss_fn, fl: FLConfig, cohort_size: int, model_bytes: float,
             red, red_w = partials, live.to(torch.float32)
         else:
             vecs = _train(trainer, params, data, idx_c, slot_valid,
-                          prng.fold_in_str(rk, "local"))
+                          prng.fold_in_str(rk, "local")).to(cd)
             sketches, sketch_age = _report(state.sketches, state.sketch_age, vecs, ok,
                                            idx_c, state.sketch_sign, fl.sketch_dim, N)
             if has_fedbuff:
@@ -533,7 +558,7 @@ def make_round_step(loss_fn, fl: FLConfig, cohort_size: int, model_bytes: float,
             clusters = kmeans_cluster(sketches, k_km, fl.num_clusters)[0]
         sim_time = state.sim_time + duration
         if do_eval:
-            tree = unflatten_from_vector(params_vec, param_spec)
+            tree = _params_tree(params_vec, param_spec)
             _, m = loss_fn(tree, {"images": data.test_x, "labels": data.test_y})
             test_acc, test_loss = m["accuracy"], m["ce"]
         else:
@@ -570,6 +595,12 @@ def make_round_step(loss_fn, fl: FLConfig, cohort_size: int, model_bytes: float,
         return new_state, metrics
 
     return round_step
+
+
+def _params_tree(params_vec: torch.Tensor, param_spec):
+    """The model tree of the flat master, in fp32 (a bf16 master upcasts
+    exactly, as the reference's unflatten casts to the spec's fp32)."""
+    return unflatten_from_vector(params_vec.to(torch.float32), param_spec)
 
 
 def _train(trainer, params, data: RoundData, idx, valid, key) -> torch.Tensor:

@@ -2,11 +2,13 @@
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/fedavg_reduce.py
 // (_reduce_kernel, launched by fedavg_reduce's pallas_call): a (1, K) x
-// (K, P) product with an fp32 accumulator.
+// (K, P) product with an fp32 accumulator, the update rows in fp32 or bf16
+// (the bf16 lane's rows, upcast in the tile there, as here).
 //
 // What bounds it on this card: bytes.  It reads K*P update values once and
 // writes P outputs, two flops per value read: at the main path's K = 10,
-// P = 159,010 that is about 7.0 MB, a bound near 2.1 us at 3.35 TB/s.
+// P = 159,010 that is about 7.0 MB, a bound near 2.1 us at 3.35 TB/s (bf16
+// rows: 3.8 MB, 1.1 us).
 //
 // Design: a GEMV with no reuse to exploit, so the kernel only has to keep
 // enough bytes in flight to stream the update matrix once at full rate.
@@ -23,34 +25,82 @@
 // (the same chain) equals this sum plus the AXPY bit for bit.  The weights
 // (K floats) come through the read-only cache.  No shared memory, no
 // atomics, no second pass.
+//
+// bf16 rows: the same kernel over 2-byte elements (the row type E is a
+// template parameter).  A run of VEC columns is one VEC*2-byte load
+// (VEC = 2 at the main path's P: 4 bytes a row), each value widened to fp32
+// exactly (a bf16 is the high half of its fp32), then the same fmaf chain in
+// the same order.  The output stays fp32.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #define THREADS 128
 #define GROUP 8  // rows a thread loads ahead of its FMA chain
 
-template <int VEC>
-struct Vec;
+// A run of VEC adjacent elements of type E: the type one load moves, and
+// its values widened to fp32 (exactly).
+template <typename E, int VEC>
+struct Run;
 template <>
-struct Vec<1> { using T = float; };
+struct Run<float, 1> {
+  using T = float;
+  static __device__ __forceinline__ void widen(T v, float* x) { x[0] = v; }
+};
 template <>
-struct Vec<2> { using T = float2; };
+struct Run<float, 2> {
+  using T = float2;
+  static __device__ __forceinline__ void widen(T v, float* x) {
+    x[0] = v.x;
+    x[1] = v.y;
+  }
+};
 template <>
-struct Vec<4> { using T = float4; };
+struct Run<float, 4> {
+  using T = float4;
+  static __device__ __forceinline__ void widen(T v, float* x) {
+    x[0] = v.x;
+    x[1] = v.y;
+    x[2] = v.z;
+    x[3] = v.w;
+  }
+};
 
-__device__ __forceinline__ void fma_vec(float* acc, float w, float v) {
-  acc[0] = fmaf(w, v, acc[0]);
+// bf16 bits -> fp32 (element 0 of a run in the low half: little-endian)
+__device__ __forceinline__ float bf16_bits(unsigned bits) {
+  return __bfloat162float(__ushort_as_bfloat16((unsigned short)(bits & 0xffffu)));
 }
-__device__ __forceinline__ void fma_vec(float* acc, float w, float2 v) {
-  acc[0] = fmaf(w, v.x, acc[0]);
-  acc[1] = fmaf(w, v.y, acc[1]);
-}
-__device__ __forceinline__ void fma_vec(float* acc, float w, float4 v) {
-  acc[0] = fmaf(w, v.x, acc[0]);
-  acc[1] = fmaf(w, v.y, acc[1]);
-  acc[2] = fmaf(w, v.z, acc[2]);
-  acc[3] = fmaf(w, v.w, acc[3]);
+template <>
+struct Run<__nv_bfloat16, 1> {
+  using T = unsigned short;
+  static __device__ __forceinline__ void widen(T v, float* x) { x[0] = bf16_bits(v); }
+};
+template <>
+struct Run<__nv_bfloat16, 2> {
+  using T = unsigned int;
+  static __device__ __forceinline__ void widen(T v, float* x) {
+    x[0] = bf16_bits(v);
+    x[1] = bf16_bits(v >> 16);
+  }
+};
+template <>
+struct Run<__nv_bfloat16, 4> {
+  using T = uint2;
+  static __device__ __forceinline__ void widen(T v, float* x) {
+    x[0] = bf16_bits(v.x);
+    x[1] = bf16_bits(v.x >> 16);
+    x[2] = bf16_bits(v.y);
+    x[3] = bf16_bits(v.y >> 16);
+  }
+};
+
+template <typename E, int VEC>
+__device__ __forceinline__ void fma_vec(float* acc, float w, typename Run<E, VEC>::T v) {
+  float x[VEC];
+  Run<E, VEC>::widen(v, x);
+#pragma unroll
+  for (int j = 0; j < VEC; ++j) acc[j] = fmaf(w, x[j], acc[j]);
 }
 
 __device__ __forceinline__ void store_vec(float* out, const float* acc, float) {
@@ -81,11 +131,11 @@ __device__ __forceinline__ void load_group(T* v, float* w, const T* __restrict__
   }
 }
 
-template <int VEC>
+template <typename E, int VEC>
 __global__ void __launch_bounds__(THREADS) fedavg_reduce_kernel(
-    const float* __restrict__ updates, const float* __restrict__ weights, int k_rows,
+    const E* __restrict__ updates, const float* __restrict__ weights, int k_rows,
     long long p_cols, float* __restrict__ out) {
-  using T = typename Vec<VEC>::T;
+  using T = typename Run<E, VEC>::T;
   const long long col = ((long long)blockIdx.x * THREADS + threadIdx.x) * VEC;
   if (col >= p_cols) return;
   const T* src = reinterpret_cast<const T*>(updates + col);
@@ -102,38 +152,54 @@ __global__ void __launch_bounds__(THREADS) fedavg_reduce_kernel(
     load_group(next, w_next, src, weights, k0 + GROUP, k_rows, row);  // in flight meanwhile
 #pragma unroll
     for (int j = 0; j < GROUP; ++j)
-      if (k0 + j < k_rows) fma_vec(acc, w_cur[j], cur[j]);
+      if (k0 + j < k_rows) fma_vec<E, VEC>(acc, w_cur[j], cur[j]);
 #pragma unroll
     for (int j = 0; j < GROUP; ++j) {
       cur[j] = next[j];
       w_cur[j] = w_next[j];
     }
   }
-  store_vec(out + col, acc, T{});
+  store_vec(out + col, acc, typename Run<float, VEC>::T{});
 }
 
-// Launch on `stream`; `vec` (1, 2 or 4) must divide p_cols and the pointers
-// must be aligned to vec * 4 bytes (the wrapper picks it).  Allocates
-// nothing; returns cudaGetLastError() (0 = success).
-extern "C" int fedavg_reduce_launch(const float* updates, const float* weights,
+template <typename E>
+static int launch_rows(const E* updates, const float* weights, int k_rows, long long p_cols,
+                       int vec, float* out, unsigned blocks, cudaStream_t st) {
+  switch (vec) {
+    case 4:
+      fedavg_reduce_kernel<E, 4><<<blocks, THREADS, 0, st>>>(updates, weights, k_rows, p_cols,
+                                                             out);
+      break;
+    case 2:
+      fedavg_reduce_kernel<E, 2><<<blocks, THREADS, 0, st>>>(updates, weights, k_rows, p_cols,
+                                                             out);
+      break;
+    case 1:
+      fedavg_reduce_kernel<E, 1><<<blocks, THREADS, 0, st>>>(updates, weights, k_rows, p_cols,
+                                                             out);
+      break;
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}
+
+// Launch on `stream`.  `row_bytes` is the update rows' element size: 4
+// (fp32) or 2 (bf16).  `vec` (1, 2 or 4) must divide p_cols, the rows must
+// be aligned to vec * row_bytes bytes and out to vec * 4 (the wrapper picks
+// it).  Allocates nothing; returns cudaGetLastError() (0 = success).
+extern "C" int fedavg_reduce_launch(const void* updates, int row_bytes, const float* weights,
                                     int k_rows, long long p_cols, int vec, float* out,
                                     void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const long long threads_needed = p_cols / vec;
   const unsigned blocks = (unsigned)((threads_needed + THREADS - 1) / THREADS);
   if (blocks == 0) return (int)cudaSuccess;
-  switch (vec) {
-    case 4:
-      fedavg_reduce_kernel<4><<<blocks, THREADS, 0, st>>>(updates, weights, k_rows, p_cols, out);
-      break;
-    case 2:
-      fedavg_reduce_kernel<2><<<blocks, THREADS, 0, st>>>(updates, weights, k_rows, p_cols, out);
-      break;
-    case 1:
-      fedavg_reduce_kernel<1><<<blocks, THREADS, 0, st>>>(updates, weights, k_rows, p_cols, out);
-      break;
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
+  if (row_bytes == 4)
+    return launch_rows(static_cast<const float*>(updates), weights, k_rows, p_cols, vec, out,
+                       blocks, st);
+  if (row_bytes == 2)
+    return launch_rows(static_cast<const __nv_bfloat16*>(updates), weights, k_rows, p_cols,
+                       vec, out, blocks, st);
+  return (int)cudaErrorInvalidValue;
 }

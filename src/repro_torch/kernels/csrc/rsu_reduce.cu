@@ -53,12 +53,27 @@
 // from +0.0 over the one-hot product (rid[k] == r ? w[k] : 0) * u[k, p], added
 // for every RSU of the group (rows of other RSUs are not skipped, so a
 // non-finite row and signed zeros come out as the reference's contraction
-// gives them), then carry + sum, one rounding, as the round's ``partials +
-// part_c``; the mass sums m[k, r] in ascending k from +0.0.  Only the loads
+// gives them), then carry + sum (one rounding in fp32; bf16 below), as the
+// round's ``partials + part_c``; the mass sums m[k, r] in ascending k from +0.0.  Only the loads
 // are issued early.  The order of every sum is fixed, so a run repeats
 // itself bitwise.  With R > 32 every group's blocks read the K update rows
 // again (from L2 at the streamed lane's chunk sizes).
+//
+// Precision (the bf16 lane): the update rows come as E, fp32 or bf16, and
+// the partials, carry included, as O, fp32 or (for bf16 rows) bf16 (the
+// reference's out_dtype; the bf16 lane's chunk carry); weights, mass and every
+// accumulator stay fp32.  The ring and the carry tile hold the operands in
+// their own types, a bf16 value widening to fp32 exactly when a thread reads
+// it back.  A piece of VEC bf16 values is VEC*2 bytes: 4 or 8 go by cp.async
+// as above, but cp.async has no 2-byte form, so the pieces of odd-P bf16 rows
+// (VEC = 1) are a plain load and a store to the thread's slot, which it alone
+// reads back.  The partials round as the JAX round rounds them: with a bf16
+// out, the sum is rounded to bf16 first (its part_c), then added to the
+// carry in fp32 and rounded again (partials + part_c, two roundings); with
+// an fp32 out the first rounding is exact and the carry add rounds once, as
+// before.  A bf16 store rounds to nearest even (__float2bfloat16_rn).
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -75,9 +90,14 @@ __device__ __forceinline__ unsigned smem_addr(const void* p) {
   return static_cast<unsigned>(__cvta_generic_to_shared(p));
 }
 
+// One piece of BYTES bytes from global into this thread's shared slot:
+// cp.async for 4, 8 (through L1) and 16 bytes (past it); a plain load and
+// store for 2, which cp.async cannot copy.
 template <int BYTES>
-__device__ __forceinline__ void cp_async(float* dst, const float* src) {
-  if constexpr (BYTES == 16) {
+__device__ __forceinline__ void copy_piece(void* dst, const void* src) {
+  if constexpr (BYTES == 2) {
+    *static_cast<unsigned short*>(dst) = __ldg(static_cast<const unsigned short*>(src));
+  } else if constexpr (BYTES == 16) {
     asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(dst)), "l"(src)
                  : "memory");
   } else {
@@ -96,49 +116,117 @@ __device__ __forceinline__ void cp_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-template <int VEC>
-struct Vec;
+// VEC adjacent elements of type E as one value of T, widened to fp32
+// (exactly) and narrowed from it (bf16: to nearest even).
+template <typename E, int VEC>
+struct Piece;
 template <>
-struct Vec<1> { using T = float; };
+struct Piece<float, 1> {
+  using T = float;
+  static __device__ __forceinline__ void widen(T v, float* x) { x[0] = v; }
+  static __device__ __forceinline__ T narrow(const float* x) { return x[0]; }
+};
 template <>
-struct Vec<2> { using T = float2; };
+struct Piece<float, 2> {
+  using T = float2;
+  static __device__ __forceinline__ void widen(T v, float* x) {
+    x[0] = v.x;
+    x[1] = v.y;
+  }
+  static __device__ __forceinline__ T narrow(const float* x) { return make_float2(x[0], x[1]); }
+};
 template <>
-struct Vec<4> { using T = float4; };
+struct Piece<float, 4> {
+  using T = float4;
+  static __device__ __forceinline__ void widen(T v, float* x) {
+    x[0] = v.x;
+    x[1] = v.y;
+    x[2] = v.z;
+    x[3] = v.w;
+  }
+  static __device__ __forceinline__ T narrow(const float* x) {
+    return make_float4(x[0], x[1], x[2], x[3]);
+  }
+};
+
+__device__ __forceinline__ float bf16_to_f32(unsigned bits) {  // the low 16 bits
+  return __bfloat162float(__ushort_as_bfloat16((unsigned short)(bits & 0xffffu)));
+}
+__device__ __forceinline__ unsigned f32_to_bf16(float x) {
+  return __bfloat16_as_ushort(__float2bfloat16_rn(x));
+}
+template <>
+struct Piece<__nv_bfloat16, 1> {
+  using T = unsigned short;
+  static __device__ __forceinline__ void widen(T v, float* x) { x[0] = bf16_to_f32(v); }
+  static __device__ __forceinline__ T narrow(const float* x) { return (T)f32_to_bf16(x[0]); }
+};
+template <>
+struct Piece<__nv_bfloat16, 2> {
+  using T = unsigned;
+  static __device__ __forceinline__ void widen(T v, float* x) {
+    x[0] = bf16_to_f32(v);
+    x[1] = bf16_to_f32(v >> 16);
+  }
+  static __device__ __forceinline__ T narrow(const float* x) {
+    return f32_to_bf16(x[0]) | f32_to_bf16(x[1]) << 16;
+  }
+};
+template <>
+struct Piece<__nv_bfloat16, 4> {
+  using T = uint2;
+  static __device__ __forceinline__ void widen(T v, float* x) {
+    x[0] = bf16_to_f32(v.x);
+    x[1] = bf16_to_f32(v.x >> 16);
+    x[2] = bf16_to_f32(v.y);
+    x[3] = bf16_to_f32(v.y >> 16);
+  }
+  static __device__ __forceinline__ T narrow(const float* x) {
+    return make_uint2(f32_to_bf16(x[0]) | f32_to_bf16(x[1]) << 16,
+                      f32_to_bf16(x[2]) | f32_to_bf16(x[3]) << 16);
+  }
+};
+
+// x rounded to O and back (the part_c of the JAX round; exact for fp32)
+template <typename O>
+__device__ __forceinline__ float round_to(float x) {
+  if constexpr (sizeof(O) == 2)
+    return bf16_to_f32(f32_to_bf16(x));
+  else
+    return x;
+}
 
 // This thread's valid runs of one row (`src` its first column) into its
-// shared slot `dst` ([run][thread] VEC-float pieces, one row of the block).
-template <int VEC>
-__device__ __forceinline__ void copy_row(float* dst, const float* src, unsigned valid) {
+// shared slot `dst` ([run][thread] VEC-element pieces, one row of the block).
+template <typename E, int VEC>
+__device__ __forceinline__ void copy_row(E* dst, const E* src, unsigned valid) {
 #pragma unroll
   for (int q = 0; q < COLS / VEC; ++q)
-    if (valid >> q & 1u) cp_async<VEC * 4>(dst + q * THREADS * VEC, src + q * THREADS * VEC);
+    if (valid >> q & 1u)
+      copy_piece<VEC * (int)sizeof(E)>(dst + q * THREADS * VEC, src + q * THREADS * VEC);
 }
 
-template <int VEC>
-__device__ __forceinline__ void read_row(float* x, const float* slot) {
-  using T = typename Vec<VEC>::T;
+template <typename E, int VEC>
+__device__ __forceinline__ void read_row(float* x, const E* slot) {
+  using T = typename Piece<E, VEC>::T;
 #pragma unroll
-  for (int q = 0; q < COLS / VEC; ++q) {
-    const T v = *reinterpret_cast<const T*>(slot + q * THREADS * VEC);
-    const float* f = reinterpret_cast<const float*>(&v);
-#pragma unroll
-    for (int j = 0; j < VEC; ++j) x[q * VEC + j] = f[j];
-  }
+  for (int q = 0; q < COLS / VEC; ++q)
+    Piece<E, VEC>::widen(*reinterpret_cast<const T*>(slot + q * THREADS * VEC), x + q * VEC);
 }
 
-template <int VEC, int RB>
+template <typename E, typename O, int VEC, int RB>
 __global__ void __launch_bounds__(THREADS)
-rsu_reduce_kernel(const float* __restrict__ updates, const float* __restrict__ weights,
+rsu_reduce_kernel(const E* __restrict__ updates, const float* __restrict__ weights,
                   const int* __restrict__ rid, int k_rows, int n_rsu, long long p_cols,
-                  const float* carry, float* out, float* __restrict__ mass) {
-  using T = typename Vec<VEC>::T;
+                  const O* carry, O* out, float* __restrict__ mass) {
+  using TO = typename Piece<O, VEC>::T;
   constexpr int RUNS = COLS / VEC;
-  constexpr int SLOT = THREADS * COLS;  // floats of one row's slot (the block's columns)
-  extern __shared__ __align__(16) float smem[];
+  constexpr int SLOT = THREADS * COLS;  // elements of one row's slot (the block's columns)
+  extern __shared__ __align__(16) unsigned char smem[];
   const int t = threadIdx.x;
   // this thread's pieces: element (q * THREADS + t) * VEC of every slot
-  float* ring = smem + t * VEC;                           // [STAGES * SLAB] slots
-  float* csm = smem + STAGES * SLAB * SLOT + t * VEC;     // [RB] slots: the carry tile
+  E* ring = reinterpret_cast<E*>(smem) + t * VEC;                    // [STAGES * SLAB] slots
+  O* csm = reinterpret_cast<O*>(smem + STAGES * SLAB * SLOT * sizeof(E)) + t * VEC;  // [RB]
   const int r0 = blockIdx.y * RSU_GROUP;                  // RSUs r0 .. r0 + nr - 1
   const int nr = min(RSU_GROUP, n_rsu - r0);
   const long long col = (long long)blockIdx.x * SLOT + (long long)t * VEC;  // run 0's first
@@ -154,7 +242,7 @@ rsu_reduce_kernel(const float* __restrict__ updates, const float* __restrict__ w
 #pragma unroll
     for (int r = 0; r < RB; ++r)
       if (r < nr)
-        copy_row<VEC>(csm + r * SLOT, carry + (long long)(r0 + r) * p_cols + col, valid);
+        copy_row<O, VEC>(csm + r * SLOT, carry + (long long)(r0 + r) * p_cols + col, valid);
   }
   cp_commit();
 #pragma unroll
@@ -163,7 +251,8 @@ rsu_reduce_kernel(const float* __restrict__ updates, const float* __restrict__ w
     for (int j = 0; j < SLAB; ++j) {
       const int k = s * SLAB + j;
       if (k < k_rows)
-        copy_row<VEC>(ring + (s * SLAB + j) * SLOT, updates + (long long)k * p_cols + col, valid);
+        copy_row<E, VEC>(ring + (s * SLAB + j) * SLOT, updates + (long long)k * p_cols + col,
+                         valid);
     }
     cp_commit();
   }
@@ -185,12 +274,12 @@ rsu_reduce_kernel(const float* __restrict__ updates, const float* __restrict__ w
       id[j] = k0 + j < k_rows ? __ldg(rid + k0 + j) : -1;
     }
     cp_wait<STAGES - 1>();  // slab i (and the carry) landed
-    float* slab = ring + (i % STAGES) * SLAB * SLOT;
+    E* slab = ring + (i % STAGES) * SLAB * SLOT;
 #pragma unroll
     for (int j = 0; j < SLAB; ++j) {
       if (k0 + j >= k_rows) break;
       float u[COLS];
-      read_row<VEC>(u, slab + j * SLOT);
+      read_row<E, VEC>(u, slab + j * SLOT);
 #pragma unroll
       for (int r = 0; r < RB; ++r) {
         const float m = id[j] == r0 + r ? w[j] : 0.0f;
@@ -204,7 +293,7 @@ rsu_reduce_kernel(const float* __restrict__ updates, const float* __restrict__ w
     for (int j = 0; j < SLAB; ++j) {
       const int k = k0 + STAGES * SLAB + j;
       if (k < k_rows)
-        copy_row<VEC>(slab + j * SLOT, updates + (long long)k * p_cols + col, valid);
+        copy_row<E, VEC>(slab + j * SLOT, updates + (long long)k * p_cols + col, valid);
     }
     cp_commit();
   }
@@ -216,63 +305,73 @@ rsu_reduce_kernel(const float* __restrict__ updates, const float* __restrict__ w
     if (r >= nr) break;
     float v[COLS];
     if (carry != nullptr) {
-      read_row<VEC>(v, csm + r * SLOT);
+      read_row<O, VEC>(v, csm + r * SLOT);
 #pragma unroll
-      for (int c = 0; c < COLS; ++c) v[c] = v[c] + acc[r][c];
+      for (int c = 0; c < COLS; ++c) v[c] = v[c] + round_to<O>(acc[r][c]);
     } else {
 #pragma unroll
       for (int c = 0; c < COLS; ++c) v[c] = acc[r][c];
     }
-    float* dst = out + (long long)(r0 + r) * p_cols + col;
+    O* dst = out + (long long)(r0 + r) * p_cols + col;
 #pragma unroll
-    for (int q = 0; q < RUNS; ++q) {
-      if (!(valid >> q & 1u)) continue;
-      T x;
-      float* f = reinterpret_cast<float*>(&x);
-#pragma unroll
-      for (int j = 0; j < VEC; ++j) f[j] = v[q * VEC + j];
-      *reinterpret_cast<T*>(dst + q * THREADS * VEC) = x;
-    }
+    for (int q = 0; q < RUNS; ++q)
+      if (valid >> q & 1u)
+        *reinterpret_cast<TO*>(dst + q * THREADS * VEC) = Piece<O, VEC>::narrow(v + q * VEC);
   }
 }
 
-template <int VEC, int RB>
-static int launch_cfg(dim3 blocks, cudaStream_t st, const float* updates, const float* weights,
-                      const int* rid, int k_rows, int n_rsu, long long p_cols,
-                      const float* carry, float* out, float* mass) {
-  const int smem = (STAGES * SLAB + (carry != nullptr ? RB : 0)) * THREADS * COLS * 4;
+template <typename E, typename O, int VEC, int RB>
+static int launch_cfg(dim3 blocks, cudaStream_t st, const E* updates, const float* weights,
+                      const int* rid, int k_rows, int n_rsu, long long p_cols, const O* carry,
+                      O* out, float* mass) {
+  const int smem = (int)((STAGES * SLAB * sizeof(E) + (carry != nullptr ? RB * sizeof(O) : 0))
+                         * THREADS * COLS);
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        rsu_reduce_kernel<VEC, RB>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+        rsu_reduce_kernel<E, O, VEC, RB>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return (int)e;
   }
-  rsu_reduce_kernel<VEC, RB><<<blocks, THREADS, smem, st>>>(updates, weights, rid, k_rows,
-                                                            n_rsu, p_cols, carry, out, mass);
+  rsu_reduce_kernel<E, O, VEC, RB><<<blocks, THREADS, smem, st>>>(
+      updates, weights, rid, k_rows, n_rsu, p_cols, carry, out, mass);
   return (int)cudaGetLastError();
 }
 
-template <int VEC>
-static int launch_rb(int group, dim3 blocks, cudaStream_t st, const float* updates,
-                     const float* weights, const int* rid, int k_rows, int n_rsu,
-                     long long p_cols, const float* carry, float* out, float* mass) {
-#define RSU_CASE(RB_)                                                                  \
-  if (group <= RB_)                                                                    \
-    return launch_cfg<VEC, RB_>(blocks, st, updates, weights, rid, k_rows, n_rsu,      \
-                                p_cols, carry, out, mass);
-  RB_LIST(RSU_CASE)
+template <typename E, typename O>
+static int launch_types(int vec, int group, dim3 blocks, cudaStream_t st, const void* updates,
+                        const float* weights, const int* rid, int k_rows, int n_rsu,
+                        long long p_cols, const void* carry, void* out, float* mass) {
+  const E* u = static_cast<const E*>(updates);
+  const O* c = static_cast<const O*>(carry);
+  O* o = static_cast<O*>(out);
+#define RSU_CASE(V, RB_)                                                               \
+  if (vec == V && group <= RB_)                                                        \
+    return launch_cfg<E, O, V, RB_>(blocks, st, u, weights, rid, k_rows, n_rsu, p_cols, \
+                                    c, o, mass);
+#define RSU_VEC4(RB_) RSU_CASE(4, RB_)
+#define RSU_VEC2(RB_) RSU_CASE(2, RB_)
+#define RSU_VEC1(RB_) RSU_CASE(1, RB_)
+  RB_LIST(RSU_VEC4)
+  RB_LIST(RSU_VEC2)
+  RB_LIST(RSU_VEC1)
+#undef RSU_VEC1
+#undef RSU_VEC2
+#undef RSU_VEC4
 #undef RSU_CASE
   return (int)cudaErrorInvalidValue;
 }
 
-// Launch on `stream`.  `carry` may be null (the sum alone) or equal to `out`
-// (in place).  `vec` (1, 2 or 4) must divide p_cols and every (R, P) / (K, P)
-// pointer must be aligned to vec * 4 bytes; 1 <= n_rsu <= 32 * 65535 (the
-// grid's y-extent; the wrapper checks both).  Allocates nothing; returns
+// Launch on `stream`.  `row_bytes` is the update rows' element size and
+// `out_bytes` that of carry and out (4: fp32, 2: bf16; bf16 out only from
+// bf16 rows, the one pairing the round makes).  `carry` may be
+// null (the sum alone) or equal to `out` (in place).  `vec` (1, 2 or 4)
+// must divide p_cols and every (R, P) / (K, P) pointer must be aligned to
+// vec elements of its own type; 1 <= n_rsu <= 32 * 65535 (the grid's
+// y-extent; the wrapper checks both).  Allocates nothing; returns
 // cudaGetLastError() (0 = success).
-extern "C" int rsu_reduce_launch(const float* updates, const float* weights, const int* rid,
-                                 int k_rows, int n_rsu, long long p_cols, int vec,
-                                 const float* carry, float* out, float* mass,
-                                 void* stream) {
+extern "C" int rsu_reduce_launch(const void* updates, int row_bytes, const float* weights,
+                                 const int* rid, int k_rows, int n_rsu, long long p_cols,
+                                 int vec, const void* carry, void* out, int out_bytes,
+                                 float* mass, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (n_rsu < 1 || k_rows < 0 || p_cols < 0) return (int)cudaErrorInvalidValue;
   const unsigned groups = (unsigned)((n_rsu + RSU_GROUP - 1) / RSU_GROUP);
@@ -281,17 +380,12 @@ extern "C" int rsu_reduce_launch(const float* updates, const float* weights, con
   long long blocks_ll = (p_cols + THREADS * COLS - 1) / (THREADS * COLS);
   if (blocks_ll < 1) blocks_ll = 1;  // the last block of each group still writes the mass
   const dim3 blocks((unsigned)blocks_ll, groups);
-  switch (vec) {
-    case 4:
-      return launch_rb<4>(group, blocks, st, updates, weights, rid, k_rows, n_rsu, p_cols,
-                          carry, out, mass);
-    case 2:
-      return launch_rb<2>(group, blocks, st, updates, weights, rid, k_rows, n_rsu, p_cols,
-                          carry, out, mass);
-    case 1:
-      return launch_rb<1>(group, blocks, st, updates, weights, rid, k_rows, n_rsu, p_cols,
-                          carry, out, mass);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+#define RSU_TYPES(E, O)                                                                    \
+  launch_types<E, O>(vec, group, blocks, st, updates, weights, rid, k_rows, n_rsu, p_cols, \
+                     carry, out, mass)
+  if (row_bytes == 4 && out_bytes == 4) return RSU_TYPES(float, float);
+  if (row_bytes == 2 && out_bytes == 2) return RSU_TYPES(__nv_bfloat16, __nv_bfloat16);
+  if (row_bytes == 2 && out_bytes == 4) return RSU_TYPES(__nv_bfloat16, float);
+#undef RSU_TYPES
+  return (int)cudaErrorInvalidValue;
 }

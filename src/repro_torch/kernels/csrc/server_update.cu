@@ -34,23 +34,31 @@
 // its own as the plain PyTorch ops do; sqrtf and the division stay IEEE.
 // The rule's constants (1 - beta) come from the host, computed in double and
 // rounded to float once, as the reference's Python floats are.
+//
+// Precision (the bf16 lane): the cohort rows and the ring share one row type
+// E, fp32 or bf16, and params / params' one master type M, fp32 or bf16;
+// m, v, m' and v' are fp32.  A bf16 value widens to fp32 exactly on its
+// load, every sum and the rule run in fp32 as above, and a bf16 params' is
+// rounded once, to nearest even (__float2bfloat16_rn), as the reference's
+// astype(params.dtype).  A run of VEC bf16 values is one VEC*2-byte load.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #define THREADS 256
 
-template <int VEC>
+// VEC adjacent elements of type E: one load into fp32 (exact), one store
+// from fp32 (rounded to nearest even for bf16).
+template <typename E, int VEC>
 struct Vec;
 template <>
-struct Vec<1> {
-  using T = float;
+struct Vec<float, 1> {
   static __device__ __forceinline__ void load(const float* p, float* x) { x[0] = __ldg(p); }
   static __device__ __forceinline__ void store(float* p, const float* x) { *p = x[0]; }
 };
 template <>
-struct Vec<2> {
-  using T = float2;
+struct Vec<float, 2> {
   static __device__ __forceinline__ void load(const float* p, float* x) {
     const float2 v = __ldg(reinterpret_cast<const float2*>(p));
     x[0] = v.x;
@@ -61,8 +69,7 @@ struct Vec<2> {
   }
 };
 template <>
-struct Vec<4> {
-  using T = float4;
+struct Vec<float, 4> {
   static __device__ __forceinline__ void load(const float* p, float* x) {
     const float4 v = __ldg(reinterpret_cast<const float4*>(p));
     x[0] = v.x;
@@ -72,6 +79,47 @@ struct Vec<4> {
   }
   static __device__ __forceinline__ void store(float* p, const float* x) {
     *reinterpret_cast<float4*>(p) = make_float4(x[0], x[1], x[2], x[3]);
+  }
+};
+
+__device__ __forceinline__ float widen(unsigned bits) {  // the low 16 bits, a bf16
+  return __bfloat162float(__ushort_as_bfloat16((unsigned short)(bits & 0xffffu)));
+}
+__device__ __forceinline__ unsigned narrow(float x) {  // fp32 -> bf16 bits, nearest even
+  return __bfloat16_as_ushort(__float2bfloat16_rn(x));
+}
+template <>
+struct Vec<__nv_bfloat16, 1> {
+  static __device__ __forceinline__ void load(const __nv_bfloat16* p, float* x) {
+    x[0] = widen(__ldg(reinterpret_cast<const unsigned short*>(p)));
+  }
+  static __device__ __forceinline__ void store(__nv_bfloat16* p, const float* x) {
+    *reinterpret_cast<unsigned short*>(p) = (unsigned short)narrow(x[0]);
+  }
+};
+template <>
+struct Vec<__nv_bfloat16, 2> {
+  static __device__ __forceinline__ void load(const __nv_bfloat16* p, float* x) {
+    const unsigned v = __ldg(reinterpret_cast<const unsigned*>(p));
+    x[0] = widen(v);
+    x[1] = widen(v >> 16);
+  }
+  static __device__ __forceinline__ void store(__nv_bfloat16* p, const float* x) {
+    *reinterpret_cast<unsigned*>(p) = narrow(x[0]) | narrow(x[1]) << 16;
+  }
+};
+template <>
+struct Vec<__nv_bfloat16, 4> {
+  static __device__ __forceinline__ void load(const __nv_bfloat16* p, float* x) {
+    const uint2 v = __ldg(reinterpret_cast<const uint2*>(p));
+    x[0] = widen(v.x);
+    x[1] = widen(v.x >> 16);
+    x[2] = widen(v.y);
+    x[3] = widen(v.y >> 16);
+  }
+  static __device__ __forceinline__ void store(__nv_bfloat16* p, const float* x) {
+    *reinterpret_cast<uint2*>(p) =
+        make_uint2(narrow(x[0]) | narrow(x[1]) << 16, narrow(x[2]) | narrow(x[3]) << 16);
   }
 };
 
@@ -110,16 +158,16 @@ __device__ __forceinline__ void apply_rule(const Rule& r, float d, float p, floa
   *vo = v_new;
 }
 
-template <int VEC>
-__global__ void server_update_kernel(const float* __restrict__ updates,
+template <typename E, typename M, int VEC>
+__global__ void server_update_kernel(const E* __restrict__ updates,
                                      const float* __restrict__ weights, int k_rows,
-                                     const float* __restrict__ ring,
+                                     const E* __restrict__ ring,
                                      const float* __restrict__ ring_w, int kb_rows,
                                      const bool* __restrict__ drain, long long p_cols,
-                                     const float* __restrict__ params,
+                                     const M* __restrict__ params,
                                      const float* __restrict__ m_in,
                                      const float* __restrict__ v_in, Rule rule,
-                                     float* __restrict__ p_out, float* __restrict__ m_out,
+                                     M* __restrict__ p_out, float* __restrict__ m_out,
                                      float* __restrict__ v_out) {
   const long long col = ((long long)blockIdx.x * blockDim.x + threadIdx.x) * VEC;
   if (col >= p_cols) return;
@@ -128,65 +176,50 @@ __global__ void server_update_kernel(const float* __restrict__ updates,
   for (int j = 0; j < VEC; ++j) acc[j] = 0.0f;
   for (int k = 0; k < k_rows; ++k) {
     const float w = __ldg(weights + k);
-    Vec<VEC>::load(updates + (long long)k * p_cols + col, x);
+    Vec<E, VEC>::load(updates + (long long)k * p_cols + col, x);
 #pragma unroll
     for (int j = 0; j < VEC; ++j) acc[j] = fmaf(w, x[j], acc[j]);
   }
   if (kb_rows > 0 && *drain) {
     for (int k = 0; k < kb_rows; ++k) {
       const float w = __ldg(ring_w + k);
-      Vec<VEC>::load(ring + (long long)k * p_cols + col, x);
+      Vec<E, VEC>::load(ring + (long long)k * p_cols + col, x);
 #pragma unroll
       for (int j = 0; j < VEC; ++j) acc[j] = fmaf(w, x[j], acc[j]);
     }
   }
   float p[VEC], po[VEC];
-  Vec<VEC>::load(params + col, p);
+  Vec<M, VEC>::load(params + col, p);
   if (!has_moments(rule.idx)) {  // the AXPY: the moments are neither read nor written
 #pragma unroll
     for (int j = 0; j < VEC; ++j) po[j] = p[j] + acc[j];
-    Vec<VEC>::store(p_out + col, po);
+    Vec<M, VEC>::store(p_out + col, po);
     return;
   }
   float m[VEC], v[VEC], mo[VEC], vo[VEC];
-  Vec<VEC>::load(m_in + col, m);
-  Vec<VEC>::load(v_in + col, v);
+  Vec<float, VEC>::load(m_in + col, m);
+  Vec<float, VEC>::load(v_in + col, v);
 #pragma unroll
   for (int j = 0; j < VEC; ++j) apply_rule(rule, acc[j], p[j], m[j], v[j], &po[j], &mo[j], &vo[j]);
-  Vec<VEC>::store(p_out + col, po);
-  Vec<VEC>::store(m_out + col, mo);
-  Vec<VEC>::store(v_out + col, vo);
+  Vec<M, VEC>::store(p_out + col, po);
+  Vec<float, VEC>::store(m_out + col, mo);
+  Vec<float, VEC>::store(v_out + col, vo);
 }
 
-// Launch on `stream`.  `ring`, `ring_w` and `drain` may be null with
-// kb_rows = 0 (the unbuffered form); `m`, `v`, `m_out` and `v_out` may be
-// null unless rule_idx is a moment rule (1-3).  `vec` (1, 2 or 4) must divide p_cols
-// and every pointer must be aligned to vec * 4 bytes (the wrapper picks it).
-// `rnd` is reserved for schedule-aware rules and ignored, as in the
-// reference.  Allocates nothing; returns cudaGetLastError() (0 = success).
-extern "C" int server_update_launch(const float* updates, const float* weights, int k_rows,
-                                    const float* ring, const float* ring_w, int kb_rows,
-                                    const bool* drain, long long p_cols, const float* params,
-                                    const float* m, const float* v, int rule_idx, int rnd,
-                                    float eta, float beta1, float one_m_beta1, float beta2,
-                                    float one_m_beta2, float tau, int vec, float* p_out,
-                                    float* m_out, float* v_out, void* stream) {
-  (void)rnd;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (kb_rows > 0 && (ring == nullptr || ring_w == nullptr || drain == nullptr))
-    return (int)cudaErrorInvalidValue;
-  if (has_moments(rule_idx) &&
-      (m == nullptr || v == nullptr || m_out == nullptr || v_out == nullptr))
-    return (int)cudaErrorInvalidValue;
-  const Rule rule{rule_idx, eta, beta1, one_m_beta1, beta2, one_m_beta2, tau};
-  const long long threads_needed = p_cols / vec;
-  const unsigned blocks = (unsigned)((threads_needed + THREADS - 1) / THREADS);
-  if (blocks == 0) return (int)cudaSuccess;
-#define SU_LAUNCH(V)                                                                    \
-  server_update_kernel<V><<<blocks, THREADS, 0, st>>>(updates, weights, k_rows, ring,   \
-                                                       ring_w, kb_rows, drain, p_cols,  \
-                                                       params, m, v, rule, p_out, m_out, \
-                                                       v_out)
+template <typename E, typename M>
+static int launch_types(const void* updates, const float* weights, int k_rows, const void* ring,
+                        const float* ring_w, int kb_rows, const bool* drain, long long p_cols,
+                        const void* params, const float* m, const float* v, Rule rule, int vec,
+                        void* p_out, float* m_out, float* v_out, unsigned blocks,
+                        cudaStream_t st) {
+  const E* u = static_cast<const E*>(updates);
+  const E* r = static_cast<const E*>(ring);
+  const M* p = static_cast<const M*>(params);
+  M* po = static_cast<M*>(p_out);
+#define SU_LAUNCH(V)                                                                       \
+  server_update_kernel<E, M, V><<<blocks, THREADS, 0, st>>>(u, weights, k_rows, r, ring_w, \
+                                                            kb_rows, drain, p_cols, p, m, v, \
+                                                            rule, po, m_out, v_out)
   switch (vec) {
     case 4:
       SU_LAUNCH(4);
@@ -202,4 +235,42 @@ extern "C" int server_update_launch(const float* updates, const float* weights, 
   }
 #undef SU_LAUNCH
   return (int)cudaGetLastError();
+}
+
+// Launch on `stream`.  `row_bytes` is the element size of the update rows
+// and the ring (4: fp32, 2: bf16), `param_bytes` that of params and p_out.
+// `ring`, `ring_w` and `drain` may be null with kb_rows = 0 (the unbuffered
+// form); `m`, `v`, `m_out` and `v_out` may be null unless rule_idx is a
+// moment rule (1-3).  `vec` (1, 2 or 4) must divide p_cols and every pointer
+// must be aligned to vec elements of its own type (the wrapper picks it).
+// `rnd` is reserved for schedule-aware rules and ignored, as in the
+// reference.  Allocates nothing; returns cudaGetLastError() (0 = success).
+extern "C" int server_update_launch(const void* updates, int row_bytes, const float* weights,
+                                    int k_rows, const void* ring, const float* ring_w,
+                                    int kb_rows, const bool* drain, long long p_cols,
+                                    const void* params, int param_bytes, const float* m,
+                                    const float* v, int rule_idx, int rnd, float eta,
+                                    float beta1, float one_m_beta1, float beta2,
+                                    float one_m_beta2, float tau, int vec, void* p_out,
+                                    float* m_out, float* v_out, void* stream) {
+  (void)rnd;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (kb_rows > 0 && (ring == nullptr || ring_w == nullptr || drain == nullptr))
+    return (int)cudaErrorInvalidValue;
+  if (has_moments(rule_idx) &&
+      (m == nullptr || v == nullptr || m_out == nullptr || v_out == nullptr))
+    return (int)cudaErrorInvalidValue;
+  const Rule rule{rule_idx, eta, beta1, one_m_beta1, beta2, one_m_beta2, tau};
+  const long long threads_needed = p_cols / vec;
+  const unsigned blocks = (unsigned)((threads_needed + THREADS - 1) / THREADS);
+  if (blocks == 0) return (int)cudaSuccess;
+#define SU_TYPES(E, M)                                                                 \
+  launch_types<E, M>(updates, weights, k_rows, ring, ring_w, kb_rows, drain, p_cols,   \
+                     params, m, v, rule, vec, p_out, m_out, v_out, blocks, st)
+  if (row_bytes == 4 && param_bytes == 4) return SU_TYPES(float, float);
+  if (row_bytes == 2 && param_bytes == 4) return SU_TYPES(__nv_bfloat16, float);
+  if (row_bytes == 4 && param_bytes == 2) return SU_TYPES(float, __nv_bfloat16);
+  if (row_bytes == 2 && param_bytes == 2) return SU_TYPES(__nv_bfloat16, __nv_bfloat16);
+#undef SU_TYPES
+  return (int)cudaErrorInvalidValue;
 }

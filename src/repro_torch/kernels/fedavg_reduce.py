@@ -1,9 +1,11 @@
 """FedAvg weighted cohort sum: CUDA kernel and its plain version.
 
 Port of ``repro/kernels/fedavg_reduce.py`` (Pallas ``_reduce_kernel``):
-``(K, P) x (K,) -> (P,)`` fp32, ``out[p] = sum_k w[k] u[k, p]``.
-CUDA tensors launch ``csrc/fedavg_reduce.cu``; CPU tensors run
-``fedavg_reduce_plain``.  There is no fallback from one to the other.
+``(K, P) x (K,) -> (P,)`` fp32, ``out[p] = sum_k w[k] u[k, p]``, the update
+rows in fp32 or bf16 (the bf16 lane's rows; they widen to fp32 exactly and
+the sum accumulates in fp32).  CUDA tensors launch ``csrc/fedavg_reduce.cu``;
+CPU tensors run ``fedavg_reduce_plain``.  There is no fallback from one to
+the other.
 """
 from __future__ import annotations
 
@@ -12,6 +14,9 @@ import torch
 # Kernel launches made by ``fedavg_reduce`` (one per call on CUDA tensors).
 launches = 0
 
+# Row dtypes the CUDA kernels read in their own bodies (2- and 4-byte rows).
+ROW_DTYPES = (torch.float32, torch.bfloat16)
+
 
 def fedavg_reduce_plain(updates: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
     """The weighted sum over the cohort axis in fp32."""
@@ -19,8 +24,10 @@ def fedavg_reduce_plain(updates: torch.Tensor, weights: torch.Tensor) -> torch.T
 
 
 def _vector_width(x: torch.Tensor, P: int) -> int:
+    """The widest of 4, 2 and 1 elements that divides P and aligns ``x``'s
+    rows to that many of its own elements."""
     for vec in (4, 2):
-        if P % vec == 0 and x.data_ptr() % (4 * vec) == 0:
+        if P % vec == 0 and x.data_ptr() % (x.element_size() * vec) == 0:
             return vec
     return 1
 
@@ -29,14 +36,9 @@ def _fedavg_reduce_cuda(updates: torch.Tensor, weights: torch.Tensor) -> torch.T
     from repro_torch.kernels.build import check, library
 
     global launches
-    if updates.dtype != torch.float32:
-        raise NotImplementedError(
-            f"fedavg_reduce: {updates.dtype} update rows come with the bf16 lane "
-            "(see ROADMAP.md); this kernel takes float32 rows"
-        )
-    if updates.dim() != 2 or not updates.is_contiguous():
-        raise ValueError(f"fedavg_reduce: updates must be a contiguous (K, P) "
-                         f"tensor, got {tuple(updates.shape)}")
+    if updates.dtype not in ROW_DTYPES or updates.dim() != 2 or not updates.is_contiguous():
+        raise ValueError(f"fedavg_reduce: updates must be a contiguous (K, P) float32 or "
+                         f"bfloat16 tensor, got {updates.dtype} {tuple(updates.shape)}")
     K, P = updates.shape
     if (weights.device != updates.device or weights.dtype != torch.float32
             or weights.shape != (K,) or not weights.is_contiguous()):
@@ -48,7 +50,8 @@ def _fedavg_reduce_cuda(updates: torch.Tensor, weights: torch.Tensor) -> torch.T
     vec = min(_vector_width(updates, P), _vector_width(out, P))
     stream = torch.cuda.current_stream(updates.device).cuda_stream
     status = library().fedavg_reduce_launch(
-        updates.data_ptr(), weights.data_ptr(), K, P, vec, out.data_ptr(), stream
+        updates.data_ptr(), updates.element_size(), weights.data_ptr(), K, P, vec,
+        out.data_ptr(), stream,
     )
     check(status, "fedavg_reduce")
     launches += 1

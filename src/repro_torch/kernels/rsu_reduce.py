@@ -6,11 +6,16 @@ attachment ids -> ``(R, P)`` per-RSU partials and ``(R,)`` masses,
 
     partials[r] = sum_k [rid_k == r] w_k u_k,   mass[r] = sum_k [rid_k == r] w_k.
 
-An id outside ``[0, R)`` contributes nothing.  An optional ``carry`` is the
-chunk walk's running ``(R, P)`` partials: the sum is added to it in place,
-``carry + sum``, as the JAX round's ``partials + part_c`` rounds it.  CUDA
-tensors launch ``csrc/rsu_reduce.cu``; CPU tensors run
-``rsu_reduce_plain``.  There is no fallback from one to the other.
+An id outside ``[0, R)`` contributes nothing.  The rows come in fp32 or
+bf16 and the sum accumulates in fp32; ``out_dtype`` (fp32 or bf16, fp32 by
+default) is the partials' dtype, as the reference's ``out_dtype`` (the bf16
+lane's chunk carry).  An optional ``carry`` is the chunk walk's running
+``(R, P)`` partials, in ``out_dtype``: the sum is added to it in place as the
+JAX round's ``partials + part_c`` rounds it, the sum first rounded to
+``out_dtype`` (``part_c``), then added in fp32 and rounded again (one
+rounding in fp32, where the first is exact).  CUDA tensors launch
+``csrc/rsu_reduce.cu``; CPU tensors run ``rsu_reduce_plain``.  There is no
+fallback from one to the other.
 """
 from __future__ import annotations
 
@@ -25,21 +30,27 @@ launches = 0
 # extent (65,535) bounds R.
 MAX_RSU = 32 * 65535
 
+# (rows, partials) dtypes the kernel takes: bf16 partials only from bf16
+# rows, the pairing the bf16 lane makes (the plain version takes any).
+TYPE_PAIRS = ((torch.float32, torch.float32), (torch.bfloat16, torch.float32),
+              (torch.bfloat16, torch.bfloat16))
+
 
 def vector_width(p_cols: int, *tensors: torch.Tensor) -> int:
-    """The kernel's vector width: the widest of 4, 2 and 1 floats that
-    divides P and aligns every tensor's rows."""
+    """The kernel's vector width: the widest of 4, 2 and 1 elements that
+    divides P and aligns every tensor's rows (each in its own element size)."""
     return min(_vector_width(x, p_cols) for x in tensors)
 
 
 def rsu_reduce_plain(updates: torch.Tensor, weights: torch.Tensor, rid: torch.Tensor,
-                     n_rsu: int, carry=None):
+                     n_rsu: int, carry=None, out_dtype=torch.float32):
     """The reference's one-hot ``(K, R)`` routing matrix ``m``: ``m.t() @ u``
-    and ``m.sum(0)``; with a carry, ``carry += m.t() @ u``."""
+    in fp32, rounded to ``out_dtype``, and ``m.sum(0)``; with a carry,
+    ``carry += that``."""
     w = weights.to(torch.float32)
     onehot = rid.to(torch.int64)[:, None] == torch.arange(n_rsu, device=rid.device)[None, :]
     m = onehot.to(torch.float32) * w[:, None]
-    partials = m.t() @ updates.to(torch.float32)
+    partials = (m.t() @ updates.to(torch.float32)).to(out_dtype)
     mass = m.sum(dim=0)
     if carry is not None:
         partials = carry.add_(partials)
@@ -53,18 +64,16 @@ def _check(name, x, shape, dtype, device):
                          f"on {device}, got {tuple(x.shape)} {x.dtype} on {x.device}")
 
 
-def _rsu_reduce_cuda(updates, weights, rid, n_rsu, carry):
+def _rsu_reduce_cuda(updates, weights, rid, n_rsu, carry, out_dtype):
     from repro_torch.kernels.build import check, library
 
     global launches
-    if updates.dtype != torch.float32:
-        raise NotImplementedError(
-            f"rsu_reduce: {updates.dtype} update rows come with the bf16 lane "
-            "(see ROADMAP.md); this kernel takes float32 rows"
-        )
     if updates.dim() != 2 or not updates.is_contiguous():
         raise ValueError(f"rsu_reduce: updates must be a contiguous (K, P) tensor, "
                          f"got {tuple(updates.shape)}")
+    if (updates.dtype, out_dtype) not in TYPE_PAIRS:
+        raise ValueError(f"rsu_reduce: the kernel takes (rows, partials) in {TYPE_PAIRS}, "
+                         f"got ({updates.dtype}, {out_dtype})")
     if not 1 <= n_rsu <= MAX_RSU:
         raise ValueError(f"rsu_reduce: the kernel takes 1 to {MAX_RSU} RSUs, got {n_rsu}")
     K, P = updates.shape
@@ -74,16 +83,17 @@ def _rsu_reduce_cuda(updates, weights, rid, n_rsu, carry):
     _check("weights", weights, (K,), torch.float32, device)
     _check("rid", rid, (K,), torch.int32, device)
     if carry is None:
-        out = torch.empty((n_rsu, P), dtype=torch.float32, device=device)
+        out = torch.empty((n_rsu, P), dtype=out_dtype, device=device)
     else:
-        _check("carry", carry, (n_rsu, P), torch.float32, device)
+        _check("carry", carry, (n_rsu, P), out_dtype, device)
         out = carry
     mass = torch.empty((n_rsu,), dtype=torch.float32, device=device)
     vec = vector_width(P, updates, out)
     stream = torch.cuda.current_stream(device).cuda_stream
     status = library().rsu_reduce_launch(
-        updates.data_ptr(), weights.data_ptr(), rid.data_ptr(), K, n_rsu, P, vec,
-        None if carry is None else carry.data_ptr(), out.data_ptr(), mass.data_ptr(), stream,
+        updates.data_ptr(), updates.element_size(), weights.data_ptr(), rid.data_ptr(), K,
+        n_rsu, P, vec, None if carry is None else carry.data_ptr(), out.data_ptr(),
+        out.element_size(), mass.data_ptr(), stream,
     )
     check(status, "rsu_reduce")
     launches += 1
@@ -91,14 +101,14 @@ def _rsu_reduce_cuda(updates, weights, rid, n_rsu, carry):
 
 
 def rsu_reduce(updates: torch.Tensor, weights: torch.Tensor, rid: torch.Tensor,
-               n_rsu: int, carry=None):
-    """Segment reduce -> (partials (R, P) fp32, mass (R,) fp32).
+               n_rsu: int, carry=None, out_dtype=torch.float32):
+    """Segment reduce -> (partials (R, P) in ``out_dtype``, mass (R,) fp32).
 
-    ``rid`` is int32 on the card.  With ``carry`` (R, P) the partials are
-    ``carry`` itself, updated in place.
+    ``rid`` is int32 on the card.  With ``carry`` (R, P, in ``out_dtype``)
+    the partials are ``carry`` itself, updated in place.
     """
     if updates.is_cuda:
-        return _rsu_reduce_cuda(updates, weights, rid, n_rsu, carry)
+        return _rsu_reduce_cuda(updates, weights, rid, n_rsu, carry, out_dtype)
     if updates.device.type != "cpu":
         raise ValueError(f"rsu_reduce: unsupported device {updates.device}")
-    return rsu_reduce_plain(updates, weights, rid, n_rsu, carry)
+    return rsu_reduce_plain(updates, weights, rid, n_rsu, carry, out_dtype)

@@ -8,13 +8,18 @@ Port of ``repro/kernels/server_update.py``: ``server_update`` (Pallas
 tensors; there is no fallback from one to the other.  The plain versions are
 the reference's unfused compositions (``repro/kernels/ref.py``): the
 weighted sum ``fedavg_reduce_plain`` followed by ``aggregators.apply_rule``.
+
+Precision: the update rows and the ring come in fp32 or bf16 (one dtype for
+both), ``params`` in the master dtype (fp32 or bf16), ``m`` and ``v`` in
+fp32.  Every sum and the rule run in fp32; params' is written back in the
+master dtype, m' and v' in fp32.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.fl.aggregators import AGGREGATOR_ORDER, ServerHP, apply_rule
-from repro_torch.kernels.fedavg_reduce import _vector_width, fedavg_reduce_plain
+from repro_torch.kernels.fedavg_reduce import ROW_DTYPES, _vector_width, fedavg_reduce_plain
 
 # Kernel launches made by each wrapper (one per call on CUDA tensors).
 launches = 0
@@ -34,9 +39,11 @@ def _assert_registry_order():
 
 
 def _rule(delta, params, m, v, agg_idx, rnd, eta, beta1, beta2, tau):
+    """The rule in fp32; params' back in the master dtype."""
+    f32 = torch.float32
     hp = ServerHP(eta=eta, beta1=beta1, beta2=beta2, tau=tau)
-    (m2, v2), p2 = apply_rule(agg_idx, (m, v), params, delta, rnd, hp)
-    return p2, m2, v2
+    (m2, v2), p2 = apply_rule(agg_idx, (m.to(f32), v.to(f32)), params.to(f32), delta, rnd, hp)
+    return p2.to(params.dtype), m2, v2
 
 
 def server_update_plain(updates, weights, params, m, v, agg_idx, rnd, *,
@@ -58,26 +65,22 @@ def server_update_buffered_plain(updates, weights, buf, buf_w, params, m, v, agg
     return _rule(delta, params, m, v, agg_idx, rnd, eta, beta1, beta2, tau)
 
 
-def _check_rows(name, x, device, P=None):
+def _check_rows(name, x, device, dtypes, P=None):
     if x.device != device:
         raise ValueError(f"server_update: {name} is on {x.device}, expected {device}")
-    if x.dtype != torch.float32:
-        raise NotImplementedError(
-            f"server_update: {x.dtype} {name} come with the bf16 lane (see ROADMAP.md); "
-            "this kernel takes float32"
-        )
-    if x.dim() != 2 or not x.is_contiguous() or (P is not None and x.shape[1] != P):
-        raise ValueError(f"server_update: {name} must be a contiguous (rows, P) "
-                         f"float32 tensor, got shape {tuple(x.shape)}")
+    if (x.dtype not in dtypes or x.dim() != 2 or not x.is_contiguous()
+            or (P is not None and x.shape[1] != P)):
+        raise ValueError(f"server_update: {name} must be a contiguous (rows, P) tensor of "
+                         f"{dtypes}, got {x.dtype} {tuple(x.shape)}")
     if x.shape[0] < 1:
         raise ValueError(f"server_update: {name} must have at least one row")
 
 
-def _check_vec(name, x, n, device):
-    if (x.device != device or x.dtype != torch.float32 or x.shape != (n,)
+def _check_vec(name, x, n, device, dtypes=(torch.float32,)):
+    if (x.device != device or x.dtype not in dtypes or x.shape != (n,)
             or not x.is_contiguous()):
-        raise ValueError(f"server_update: {name} must be a contiguous ({n},) float32 "
-                         f"tensor on {device}, got {x.dtype} {tuple(x.shape)} on {x.device}")
+        raise ValueError(f"server_update: {name} must be a contiguous ({n},) tensor of "
+                         f"{dtypes} on {device}, got {x.dtype} {tuple(x.shape)} on {x.device}")
 
 
 def _launch(updates, weights, buf, buf_w, drain, params, m, v, agg_idx, rnd,
@@ -86,25 +89,27 @@ def _launch(updates, weights, buf, buf_w, drain, params, m, v, agg_idx, rnd,
 
     _assert_registry_order()
     device = updates.device
-    _check_rows("updates", updates, device)
+    _check_rows("updates", updates, device, ROW_DTYPES)
     K, P = updates.shape
     _check_vec("weights", weights, K, device)
-    for name, x in (("params", params), ("m", m), ("v", v)):
+    _check_vec("params", params, P, device, ROW_DTYPES)
+    for name, x in (("m", m), ("v", v)):
         _check_vec(name, x, P, device)
     Kb = 0
     ring = ring_w = flag = None
     if buf is not None:
-        _check_rows("buf", buf, device, P=P)
+        # the ring's rows share the cohort rows' dtype (one row type a launch)
+        _check_rows("buf", buf, device, (updates.dtype,), P=P)
         Kb = buf.shape[0]
         _check_vec("buf_w", buf_w, Kb, device)
         if drain.device != device or drain.dtype != torch.bool or drain.dim() != 0:
             raise ValueError(f"server_update: drain must be a 0-dim bool tensor on {device}")
         ring, ring_w, flag = buf.data_ptr(), buf_w.data_ptr(), drain.data_ptr()
-    p_out = torch.empty((P,), dtype=torch.float32, device=device)
+    p_out = torch.empty_like(params)
     operands = [updates, params, p_out] + ([buf] if buf is not None else [])
     moments = int(agg_idx) in MOMENT_RULES
     if moments:
-        m_out, v_out = torch.empty_like(p_out), torch.empty_like(p_out)
+        m_out, v_out = torch.empty_like(m), torch.empty_like(v)
         operands += [m, v, m_out, v_out]
     else:  # the AXPY rules leave the moments as they are, as apply_rule does
         m_out, v_out = m, v
@@ -113,9 +118,9 @@ def _launch(updates, weights, buf, buf_w, drain, params, m, v, agg_idx, rnd,
     stream = torch.cuda.current_stream(device).cuda_stream
     # (1 - beta) in double, rounded to float once, as the reference's Python floats
     status = library().server_update_launch(
-        updates.data_ptr(), weights.data_ptr(), K, ring, ring_w, Kb, flag, P,
-        params.data_ptr(), mv[0], mv[1], int(agg_idx), int(rnd),
-        eta, beta1, 1.0 - beta1, beta2, 1.0 - beta2, tau, vec,
+        updates.data_ptr(), updates.element_size(), weights.data_ptr(), K, ring, ring_w, Kb,
+        flag, P, params.data_ptr(), params.element_size(), mv[0], mv[1], int(agg_idx),
+        int(rnd), eta, beta1, 1.0 - beta1, beta2, 1.0 - beta2, tau, vec,
         p_out.data_ptr(), mv[2], mv[3], stream,
     )
     check(status, "server_update")
@@ -132,7 +137,7 @@ def _device_of(updates: torch.Tensor) -> str:
 
 def server_update(updates, weights, params, m, v, agg_idx, rnd, *,
                   eta=1.0, beta1=0.9, beta2=0.99, tau=1e-3):
-    """Fused server update -> (params', m', v'), each (P,) fp32.
+    """Fused server update -> (params' in the master dtype, m', v' fp32), each (P,).
 
     ``agg_idx`` is the GLOBAL ``AGGREGATOR_ORDER`` index (a Python int);
     ``rnd`` is reserved for schedule-aware rules and ignored.

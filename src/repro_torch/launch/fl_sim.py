@@ -6,8 +6,9 @@
 The flags of ``repro.launch.fl_sim`` plus ``--device`` (default ``cuda``;
 ``cpu`` runs the plain kernel versions).  ``--aggregator`` takes the whole
 registered catalog (``fedavg``, ``fedavgm``, ``fedadam``, ``fedyogi``,
-``stale``, ``fedbuff``); ``--dtype`` takes only ``float32`` until the bf16
-lane is ported.
+``stale``, ``fedbuff``); ``--dtype bfloat16`` turns on the mixed-precision
+lane (bf16 client updates, fedbuff ring and chunk partials, and the halved
+upload they cost, over the fp32 master and moments), as in the reference.
 """
 from __future__ import annotations
 
@@ -23,8 +24,6 @@ from repro_torch.core.selection import STRATEGIES
 from repro_torch.fl.aggregators import AGGREGATOR_ORDER
 from repro_torch.fl.simulation import FLSimulation, time_to_accuracy
 from repro_torch.utils import prng
-
-PORTED_DTYPES = ("float32",)
 
 
 def run_experiment(
@@ -53,9 +52,9 @@ def run_experiment(
             f"unknown aggregator {aggregator!r}; registered catalog: "
             f"{', '.join(AGGREGATOR_ORDER)} (see repro_torch/fl/aggregators.py)"
         )
-    if dtype not in PORTED_DTYPES:
-        raise ValueError(f"dtype {dtype!r} is not ported; the port runs "
-                         f"{', '.join(PORTED_DTYPES)} (see ROADMAP.md)")
+    if dtype not in FLConfig.SUPPORTED_DTYPES:
+        raise ValueError(f"unknown dtype {dtype!r}; supported dtypes: "
+                         f"{', '.join(FLConfig.SUPPORTED_DTYPES)}")
     model_cfg = get_config(PAPER_MODEL_BY_DATASET[dataset])
     # paper section IV-A: 3 local epochs on MNIST, 1 on CIFAR-10/SVHN
     epochs = local_epochs if local_epochs is not None else (3 if dataset == "mnist" else 1)
@@ -114,9 +113,9 @@ def main(argv=None):
     if args.aggregator not in AGGREGATOR_ORDER:
         ap.error(f"unknown aggregator {args.aggregator!r}; registered catalog: "
                  f"{', '.join(AGGREGATOR_ORDER)}")
-    if args.dtype not in PORTED_DTYPES:
-        ap.error(f"dtype {args.dtype!r} is not ported; the port runs "
-                 f"{', '.join(PORTED_DTYPES)}")
+    if args.dtype not in FLConfig.SUPPORTED_DTYPES:
+        ap.error(f"unknown dtype {args.dtype!r}; supported dtypes: "
+                 f"{', '.join(FLConfig.SUPPORTED_DTYPES)}")
     result = run_experiment(
         args.dataset, args.strategy, args.rounds, args.connection_rate,
         args.classes_per_client, args.num_clients, args.seed,

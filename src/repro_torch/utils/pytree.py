@@ -78,6 +78,11 @@ def tree_map(fn, tree, *rest):
     return fn(tree, *rest)
 
 
+def tree_cast(tree, dtype):
+    """Every leaf of ``tree`` cast to ``dtype``."""
+    return tree_map(lambda x: x.to(dtype), tree)
+
+
 def tree_weighted_sum(trees, weights: torch.Tensor):
     """Weighted sum over the leading axis of a stacked tree.
 

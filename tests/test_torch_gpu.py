@@ -46,6 +46,8 @@ from repro_torch.utils import prng
 
 pytestmark = pytest.mark.gpu
 
+BF16_ULP = 2.0 ** -7  # one unit in the last place of a bf16 in [1, 2)
+
 
 @pytest.fixture
 def dev():
@@ -150,8 +152,15 @@ def test_fedavg_reduce_kernel_matches_plain(dev, K, P):
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
     u = torch.zeros((4, 8), device=dev)
-    with pytest.raises(NotImplementedError):
-        fedavg_mod.fedavg_reduce(u.to(torch.bfloat16), torch.ones(4, device=dev))
+    # bf16 rows go through the kernel
+    ub = (1e-3 * torch.randn((4, 8), device=dev)).to(torch.bfloat16)
+    w = torch.rand(4, device=dev)
+    before = fedavg_mod.launches
+    torch.testing.assert_close(fedavg_mod.fedavg_reduce(ub, w),
+                               fedavg_mod.fedavg_reduce_plain(ub, w), rtol=1e-5, atol=1e-8)
+    assert fedavg_mod.launches == before + 1
+    with pytest.raises(ValueError):
+        fedavg_mod.fedavg_reduce(u.to(torch.float16), torch.ones(4, device=dev))
     with pytest.raises(ValueError):
         fedavg_mod.fedavg_reduce(u.t(), torch.ones(8, device=dev))  # not contiguous
     scn = scenario_params(scenario_config("ring", num_vehicles=8), dev)
@@ -172,9 +181,12 @@ def _server_operands(K, P, dev, seed):
 
 
 def _assert_server_close(got, ref, u, w):
-    scale = float((w.abs() @ u.abs()).max())
+    scale = float((w.abs() @ u.float().abs()).max())
     for a, b, atol in zip(got, ref, (1e-4 * scale, 1e-6 * scale, 1e-6 * scale)):
-        torch.testing.assert_close(a, b, rtol=1e-5, atol=atol)
+        assert a.dtype == b.dtype
+        # a bf16 params' may round the other way on the sum's last fp32 bit
+        rtol = BF16_ULP if a.dtype == torch.bfloat16 else 1e-5
+        torch.testing.assert_close(a.float(), b.float(), rtol=rtol, atol=atol)
 
 
 @pytest.mark.parametrize("rule", range(6))
@@ -226,16 +238,25 @@ def test_server_update_contracts_bitwise(dev, K, P):
 
 def test_server_update_wrappers_refuse_what_the_kernel_does_not_take(dev):
     u, w, params, m, v = _server_operands(4, 8, dev, 0)
-    with pytest.raises(NotImplementedError):
-        su_mod.server_update(u.to(torch.bfloat16), w, params, m, v, 2, 0)
+    # bf16 rows and a bf16 ring go through the kernel
+    ub = u.to(torch.bfloat16)
+    _assert_server_close(su_mod.server_update(ub, w, params, m, v, 2, 0),
+                         su_mod.server_update_plain(ub, w, params, m, v, 2, 0), u, w)
+    with pytest.raises(ValueError):
+        su_mod.server_update(u.to(torch.float16), w, params, m, v, 2, 0)
     with pytest.raises(ValueError):
         su_mod.server_update(torch.zeros((8, 4), device=dev).t(), w, params, m, v, 2, 0)
     with pytest.raises(ValueError):
         su_mod.server_update(u, w, params[:4], m, v, 2, 0)  # the wrong length
     ring = torch.zeros((2, 8), device=dev)
-    with pytest.raises(NotImplementedError):
-        su_mod.server_update_buffered(u, w, ring.to(torch.bfloat16), w[:2], params, m, v,
-                                      5, 0, torch.tensor(True, device=dev))
+    on = torch.tensor(True, device=dev)
+    rb = (1e-3 * torch.randn((2, 8), device=dev)).to(torch.bfloat16)
+    _assert_server_close(
+        su_mod.server_update_buffered(ub, w, rb, w[:2], params, m, v, 5, 0, on),
+        su_mod.server_update_buffered_plain(ub, w, rb, w[:2], params, m, v, 5, 0, on),
+        torch.cat([u, rb.float()]), torch.cat([w, w[:2]]))
+    with pytest.raises(ValueError):  # the ring's rows in another dtype than the cohort's
+        su_mod.server_update_buffered(u, w, rb, w[:2], params, m, v, 5, 0, on)
     with pytest.raises(ValueError):
         su_mod.server_update_buffered(u, w, torch.zeros((8, 2), device=dev).t(), w[:2],
                                       params, m, v, 5, 0, torch.tensor(True, device=dev))
@@ -393,8 +414,19 @@ def test_rsu_reduce_non_finite_row_poisons_every_rsu_as_the_plain_version(dev):
 
 def test_rsu_reduce_wrapper_refuses_what_the_kernel_does_not_take(dev):
     u, w, rid, c = _rsu_operands(4, 8, 3, dev, 0, exact=False)
-    with pytest.raises(NotImplementedError):
-        rsu_mod.rsu_reduce(u.to(torch.bfloat16), w, rid, 3)
+    # bf16 rows go through the kernel, into fp32 and bf16 partials
+    for out in (torch.float32, torch.bfloat16):
+        got = rsu_mod.rsu_reduce(u.to(torch.bfloat16), w, rid, 3, out_dtype=out)[0]
+        want = rsu_mod.rsu_reduce_plain(u.to(torch.bfloat16), w, rid, 3, out_dtype=out)[0]
+        assert got.dtype == out
+        torch.testing.assert_close(got.float(), want.float(), rtol=2.0 ** -7, atol=1e-8)
+    with pytest.raises(ValueError):
+        rsu_mod.rsu_reduce(u.to(torch.float16), w, rid, 3)
+    with pytest.raises(ValueError):  # bf16 partials come from bf16 rows only
+        rsu_mod.rsu_reduce(u, w, rid, 3, out_dtype=torch.bfloat16)
+    with pytest.raises(ValueError):  # the carry must be in out_dtype
+        rsu_mod.rsu_reduce(u.to(torch.bfloat16), w, rid, 3, carry=c.clone(),
+                           out_dtype=torch.bfloat16)
     with pytest.raises(ValueError):
         rsu_mod.rsu_reduce(u, w, rid, 0)
     with pytest.raises(ValueError):  # past the grid's 65,535 groups of 32 RSUs
@@ -501,6 +533,162 @@ def test_fleet_geometry_on_the_card_matches_the_dense_forms(dev, n, dup):
         messages.DENSE_MAX_N = saved
     for a, b, atol in zip(compact, dense, (1e-2, 1e-5, 1e-5, 1e-7)):
         torch.testing.assert_close(a, b, rtol=1e-5, atol=atol)
+
+
+# ---- the bf16 lane: B2-B5 read 2-byte rows in their own bodies -----------------------
+def _bf16_rows(K, P, dev, seed, offset=0):
+    """(K, P) bf16 rows starting ``offset`` elements into their storage."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    u = (1e-3 * torch.randn((K * P + offset,), generator=g, device=dev)).to(torch.bfloat16)
+    return u[offset:].view(K, P), torch.rand((K,), generator=g, device=dev)
+
+
+# the main shape, K = 1, odd P, P = 2 mod 4, rows one element off their 4-byte
+# alignment, a ragged K past the load group of 8
+@pytest.mark.parametrize("K,P,offset", [(10, 159_010, 0), (1, 159_010, 0), (7, 159_011, 0),
+                                        (10, 4098, 0), (10, 4096, 1), (1, 1, 0),
+                                        (17, 4097, 0)])
+def test_fedavg_reduce_kernel_bf16_rows_match_plain(dev, K, P, offset):
+    u, w = _bf16_rows(K, P, dev, K + P + offset, offset)
+    before = fedavg_mod.launches
+    got = fedavg_mod.fedavg_reduce(u, w)
+    assert fedavg_mod.launches == before + 1 and got.dtype == torch.float32
+    ref = fedavg_mod.fedavg_reduce_plain(u, w)
+    scale = float((w.abs() @ u.float().abs()).max())
+    torch.testing.assert_close(got, ref, rtol=1e-5, atol=1e-6 * scale)
+    assert torch.equal(got, fedavg_mod.fedavg_reduce(u, w))
+
+
+@pytest.mark.parametrize("master", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rule", range(6))
+@pytest.mark.parametrize("K,P", [(10, 159_010), (1, 1), (5, 2049), (3, 159_011)])
+def test_server_update_kernel_bf16_rows_match_plain(dev, K, P, rule, master):
+    u, w, params, m, v = _server_operands(K, P, dev, K + P + rule)
+    ub, pm = u.to(torch.bfloat16), params.to(master)
+    before = su_mod.launches
+    got = su_mod.server_update(ub, w, pm, m, v, rule, 3)
+    assert su_mod.launches == before + 1 and got[0].dtype == master
+    _assert_server_close(got, su_mod.server_update_plain(ub, w, pm, m, v, rule, 3), ub, w)
+
+
+@pytest.mark.parametrize("master", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("drain", [False, True])
+@pytest.mark.parametrize("rule", range(6))
+def test_server_update_buffered_kernel_bf16_ring_matches_plain(dev, rule, drain, master):
+    u, w, params, m, v = _server_operands(10, 159_010, dev, rule)
+    ring, bw, *_ = _server_operands(8, 159_010, dev, 108)
+    ub, rb, pm = u.to(torch.bfloat16), ring.to(torch.bfloat16), params.to(master)
+    flag = torch.tensor(drain, device=dev)
+    got = su_mod.server_update_buffered(ub, w, rb, bw, pm, m, v, rule, 3, flag)
+    ref = su_mod.server_update_buffered_plain(ub, w, rb, bw, pm, m, v, rule, 3, flag)
+    rows, wts = (torch.cat([ub, rb]), torch.cat([w, bw])) if drain else (ub, w)
+    _assert_server_close(got, ref, rows, wts)
+
+
+@pytest.mark.parametrize("master", [torch.float32, torch.bfloat16])
+def test_server_update_contracts_bitwise_on_bf16_rows(dev, master):
+    """The two contracts with bf16 rows and ring: (a) rule 0 is fedavg_reduce
+    + apply_delta_flat, in the master dtype; (b) drain=False is the
+    unbuffered update, every rule."""
+    from repro_torch.fl.server import apply_delta_flat
+
+    u, w, params, m, v = _server_operands(10, 159_010, dev, 5)
+    u[:, ::3] = 0.0
+    ub, pm = u.to(torch.bfloat16), params.to(master)
+    p2, _, _ = su_mod.server_update(ub, w, pm, m, v, 0, 0)
+    assert torch.equal(p2, apply_delta_flat(pm, fedavg_mod.fedavg_reduce(ub, w)))
+    ring, bw, *_ = _server_operands(8, 159_010, dev, 6)
+    off = torch.tensor(False, device=dev)
+    for rule in range(6):
+        plain = su_mod.server_update(ub, w, pm, m, v, rule, 0)
+        buffered = su_mod.server_update_buffered(ub, w, ring.to(torch.bfloat16), bw, pm, m, v,
+                                                 rule, 0, off)
+        for a, b in zip(plain, buffered):
+            assert torch.equal(a, b) and torch.equal(torch.signbit(a), torch.signbit(b))
+
+
+@pytest.mark.parametrize("out", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("carry", [False, True])
+@pytest.mark.parametrize("mode", ["rand", "exact"])
+@pytest.mark.parametrize("K,P,R,offset", [
+    (4, 159_010, 10, 0), (32, 159_010, 10, 0), (4, 159_010, 40, 0), (32, 159_010, 40, 0),
+    (5, 159_011, 10, 0), (4, 3, 10, 0), (1, 1, 1, 0), (6, 4096, 10, 2), (6, 4096, 10, 1)])
+def test_rsu_reduce_kernel_bf16_rows_match_plain(dev, K, P, R, offset, mode, carry, out):
+    """bf16 rows into fp32 or bf16 partials, at the streamed lane's and the
+    fleet's chunks, R = 10 and 40, odd P (the 2-byte plain-load pieces), 8-
+    and 2-byte-aligned rows: dyadic operands bit for bit, random ones within
+    one bf16 ulp (a last fp32 bit may round a bf16 partial the other way)."""
+    u, w, rid, c = _rsu_operands(K, P, R, dev, K * 31 + P + R, exact=mode == "exact")
+    ub = torch.empty((K * P + offset,), dtype=torch.bfloat16, device=dev)[offset:].view(K, P)
+    ub.copy_(u)  # exact for the dyadic rows
+    cb = c.to(out)
+    before = rsu_mod.launches
+    got, mass = rsu_mod.rsu_reduce(ub, w, rid, R, carry=cb.clone() if carry else None,
+                                   out_dtype=out)
+    assert rsu_mod.launches == before + 1 and got.dtype == out
+    want, want_mass = rsu_mod.rsu_reduce_plain(ub, w, rid, R, cb.clone() if carry else None,
+                                               out_dtype=out)
+    if mode == "exact":
+        assert torch.equal(got, want) and torch.equal(mass, want_mass)
+    else:
+        scale = float(rsu_mod.rsu_reduce_plain(ub.float().abs(), w, rid, R)[0].max())
+        rtol = BF16_ULP if out == torch.bfloat16 else 1e-5
+        torch.testing.assert_close(got.float(), want.float(), rtol=rtol, atol=1e-6 * scale)
+        torch.testing.assert_close(mass, want_mass, rtol=1e-6, atol=0.0)
+    again, _ = rsu_mod.rsu_reduce(ub, w, rid, R, carry=cb.clone() if carry else None,
+                                  out_dtype=out)
+    assert torch.equal(got, again)
+
+
+def test_rsu_reduce_kernel_bf16_carry_rounds_twice(dev):
+    """A chunk sum of 2^-8 + 2^-20 on a bf16 carry of 1: the kernel rounds
+    the sum to bf16 (2^-8), adds the carry in fp32 and rounds again (a tie
+    to even: 1.0), as the JAX round's partials + part_c; one rounding would
+    give 1 + 2^-7."""
+    P, R = 4099, 3
+    u = torch.zeros((2, P), dtype=torch.bfloat16, device=dev)
+    u[0], u[1] = 2.0 ** -8, 2.0 ** -20
+    w = torch.ones(2, device=dev)
+    rid = torch.zeros(2, dtype=torch.int32, device=dev)
+    carry = torch.ones((R, P), dtype=torch.bfloat16, device=dev)
+    got, _ = rsu_mod.rsu_reduce(u, w, rid, R, carry=carry.clone(), out_dtype=torch.bfloat16)
+    want, _ = rsu_mod.rsu_reduce_plain(u, w, rid, R, carry.clone(), out_dtype=torch.bfloat16)
+    assert torch.equal(got, want) and bool((got == 1.0).all())
+
+
+@pytest.mark.parametrize("K,B,R", [(10, 4, 10), (100, 32, 10), (100, 32, 40)])
+def test_rsu_reduce_bf16_chunk_walk_is_the_plain_walk(dev, K, B, R):
+    """The bf16 streamed lane's walk (bf16 partials, the carry in place)
+    against the plain walk, bit for bit on dyadic operands."""
+    P = 159_010
+    u, w, rid, _ = _rsu_operands(K, P, R, dev, K + B + R, exact=True)
+    ub = u.to(torch.bfloat16)
+    carry = want = None
+    for i in range(0, K, B):
+        cs = slice(i, i + B)
+        carry, _ = rsu_mod.rsu_reduce(ub[cs], w[cs], rid[cs], R, carry=carry,
+                                      out_dtype=torch.bfloat16)
+        want, _ = rsu_mod.rsu_reduce_plain(ub[cs], w[cs], rid[cs], R, want,
+                                           out_dtype=torch.bfloat16)
+    assert torch.equal(carry, want)
+
+
+@pytest.mark.parametrize("aggregator,kw", [("fedavg", {}), ("fedadam", {}), ("fedbuff", {}),
+                                           ("fedbuff", dict(hierarchical=True, client_block=3)),
+                                           ("fedadam", dict(param_dtype="bfloat16"))])
+def test_bf16_lane_rounds_on_the_card_match_the_cpu(dev, aggregator, kw):
+    """Two bf16 rounds on the card and on the CPU from the same seed: the
+    same cohort counts, test accuracy within 0.01, the carry's dtypes kept."""
+    card = _two_tier_sims(dev, aggregator, 0.7, compute_dtype="bfloat16", **kw)
+    cpu = _two_tier_sims("cpu", aggregator, 0.7, compute_dtype="bfloat16", **kw)
+    rg, rc = card.run(2), cpu.run(2)
+    for a, b in zip(rg, rc):
+        assert (a.n_selected, a.n_succeeded, a.n_buffered, a.n_drained) == (
+            b.n_selected, b.n_succeeded, b.n_buffered, b.n_drained)
+        assert abs(a.test_acc - b.test_acc) <= 0.01
+    assert card.state.buf_delta.dtype == torch.bfloat16
+    assert card.state.params.dtype == cpu.state.params.dtype
 
 
 # ---- the serving path's kernels: swa_decode (B7) and ssd_scan (B8) -------------------

@@ -431,7 +431,24 @@ def test_client_block_errors_match_the_jax_package():
             rounds.make_round_step(tapi.loss, FLConfig(**small_fl_kwargs(**kw)), 2, 1.0,
                                    tapi.spec, ("contextual",))
         assert str(got.value) == str(want.value)
+    # the bf16 streamed lane runs: bf16 rows into bf16 chunk partials, the
+    # economics bit for bit those of the unblocked bf16 two-tier round from
+    # the same state
+    from repro_torch.utils import prng
+
     bf16 = dataclasses.replace(FLConfig(**small_fl_kwargs(hierarchical=True, client_block=4)),
                                compute_dtype="bfloat16")
-    with pytest.raises(NotImplementedError):
-        rounds.make_round_step(tapi.loss, bf16, 2, 1.0, tapi.spec, ("contextual",))
+    scn = scenario_params(scenario_config("ring", num_vehicles=20))
+    state, regions = rounds.init_state(tapi, bf16, scn, "mnist", "contextual", prng.key(0),
+                                       "cpu")
+    data = rounds.make_round_data(state.key, "mnist", bf16, regions, "cpu")
+    streamed, unblocked = (rounds.make_round_step(
+        tapi.loss, dataclasses.replace(bf16, client_block=b), 2, 636_040.0, tapi.spec,
+        ("contextual",)) for b in (4, 0))
+    (s_b, m_b), (s_u, m_u) = (step(state, scn, 0, 0, data, True)
+                              for step in (streamed, unblocked))
+    assert s_b.buf_delta.dtype == torch.bfloat16 and s_b.params.dtype == torch.float32
+    for f in _ECONOMICS:
+        assert torch.equal(getattr(m_b, f), getattr(m_u, f)), f
+    assert torch.equal(s_b.sketch_age, s_u.sketch_age)
+    torch.testing.assert_close(s_b.params, s_u.params, rtol=0, atol=1e-6)

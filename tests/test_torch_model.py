@@ -97,6 +97,27 @@ def test_cohort_updates_match(epochs, n, bs):
 
 
 def test_unported_trainer_lanes_raise():
-    _, tapi = small_models(32)
-    with pytest.raises(NotImplementedError):
-        make_local_trainer(tapi.loss, 0.1, 1, 8, compute_dtype=torch.bfloat16)
+    """The bf16 compute lane trains: the forward in bf16 inside the
+    differentiated closure, fp32 gradients into the fp32 SGD state, as
+    ``repro.fl.client`` does.  The
+    updates stay fp32 and sit within 2% of the largest of JAX's (both sides
+    round every bf16 product, at different places: XLA keeps some fused
+    intermediates in fp32), and differ from the fp32 trainer's."""
+    api, tapi = small_models(32)
+    tree = split_params(api.init(jax.random.key(6)))[0]
+    K, n, bs = 4, 32, 16
+    rng = np.random.default_rng(9)
+    images = rng.normal(size=(K, n, 28, 28, 1)).astype(np.float32)
+    labels = rng.integers(0, 10, (K, n)).astype(np.int32)
+    jk = jax.random.key(7)
+    _, ref = jmake_local_trainer(api.loss, 0.05, 2, bs, compute_dtype=jnp.bfloat16)(
+        tree, jnp.asarray(images), jnp.asarray(labels), jk)
+    args = (convert.params_tree_from_numpy(tree_to_numpy(tree)), torch.from_numpy(images),
+            torch.from_numpy(labels.astype(np.int64)),
+            prng.wrap_key_data(np.asarray(jax.random.key_data(jk))))
+    _, got = make_local_trainer(tapi.loss, 0.05, 2, bs, compute_dtype=torch.bfloat16)(*args)
+    _, fp32 = make_local_trainer(tapi.loss, 0.05, 2, bs)(*args)
+    ref = np.asarray(ref)
+    assert got.dtype == torch.float32 and ref.dtype == np.float32
+    np.testing.assert_allclose(got.numpy(), ref, rtol=0, atol=0.02 * np.abs(ref).max())
+    assert not torch.equal(got, fp32)

@@ -108,26 +108,33 @@ def test_cli_runs_on_the_cpu_and_refuses_unported_lanes(tmp_path, capsys):
     result = json.loads(out.read_text())
     assert result["device"] == "cpu" and len(result["rounds"]) == 1
     assert "time-to-0.5-acc" in capsys.readouterr().out
-    for flag, value in (("--aggregator", "fedprox"), ("--dtype", "bfloat16"),
+    for flag, value in (("--aggregator", "fedprox"), ("--dtype", "float16"),
                         ("--scenario", "nowhere")):
         with pytest.raises(SystemExit):
             fl_sim.main(["--rounds", "1", "--device", "cpu", flag, value])
+    # the bf16 lane runs
+    fl_sim.main(["--rounds", "1", "--num-clients", "10", "--device", "cpu", "--quiet",
+                 "--dtype", "bfloat16", "--out", str(out)])
+    result = json.loads(out.read_text())
+    assert result["dtype"] == "bfloat16" and len(result["rounds"]) == 1
 
 
 def test_unported_lanes_raise():
-    from repro_torch.fl.rounds import make_round_step
+    from repro_torch.fl.rounds import make_round_data, make_round_step
 
     _, tapi = small_models(32)
-    # the two-tier lane is ported (tests/test_torch_hierarchical.py) and so
-    # is the unfused one (tests/test_torch_pipeline_e2e.py); their bf16
-    # forms, like the flat one, are not
+    # the bf16 forms of the flat, two-tier and unfused lanes build, fused and
+    # unfused (tests/test_torch_precision_rounds.py holds them to JAX)
     for kw in (dict(hierarchical=True, client_block=4, compute_dtype="bfloat16"),
                dict(compute_dtype="bfloat16"), dict(param_dtype="bfloat16")):
         fl = FLConfig(**small_fl_kwargs(N, **kw))
         for fused in (True, False):
-            with pytest.raises(NotImplementedError):
-                make_round_step(tapi.loss, fl, 2, 1.0, tapi.spec,
-                                aggregators=(fl.aggregator,), fused=fused)
+            assert callable(make_round_step(tapi.loss, fl, 2, 1.0, tapi.spec,
+                                            aggregators=(fl.aggregator,), fused=fused))
+    # what stays unported raises: Dirichlet client shards (prng.dirichlet)
+    fl = FLConfig(**small_fl_kwargs(N, dirichlet_alpha=0.5))
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        make_round_data(prng.key(0), "mnist", fl, torch.zeros(N, dtype=torch.int64), "cpu")
 
 
 def test_time_to_accuracy():
