@@ -39,8 +39,10 @@ Phases (any failure raises and exits non-zero):
    and 40, odd P and 2-byte-aligned rows, the fleet's padded chunk, the
    bf16 carry's two roundings (the JAX round's ``partials + part_c``) on
    operands where one rounding differs, and bf16 chunk walks;
-   ``swa_decode`` and ``ssd_scan`` at hymba-1.5b's shapes in bf16 and fp32
-   and at their edges (a ragged split, one slot, G=1, a partly filled and a
+   ``swa_decode`` and ``ssd_scan`` at hymba-1.5b's shapes in bf16 and fp32,
+   at the ssm and dense families' serving shapes (gemma2-9b's wrapped
+   4,096-slot ring and its global layers at D=256 with softcap 50, G=2 at
+   D=128, qwen1.5-0.5b's G=1 at D=64, mamba2-130m's prefill) and at their edges (a ragged split, one slot, G=1, a partly filled and a
    wrapped ring, rows with no visible slot, softcap; a window narrower than
    a split, G=16 at D=256, rows of 4-byte and 2-byte multiples; one step, a
    ragged last chunk, Q > S, a given h0, mamba2's ds=128 head, 12,800
@@ -78,7 +80,11 @@ Phases (any failure raises and exits non-zero):
    ``swa_decode``); then the same architecture cut to 2 layers, in fp32 and
    bf16, prefill and 4 decode steps on the card against the CPU's plain path
    from the same weights; then, at full width and depth in fp32, 2 decode
-   steps against one longer prefill;
+   steps against one longer prefill; then the ssm and dense families, 2
+   layers card-vs-CPU in fp32 and bf16 for mamba2-130m (S=300, a ragged
+   chunk), gemma2-9b (one local and one global layer, S=4100, one row) and
+   chatglm3-6b (S=600), and mamba2-130m's decode vs prefill in fp32 at full
+   depth (their serving runs come last, after phase 5);
 4f. pipeline: ``python -m repro_torch.launch.quickstart`` on the card and
    on the CPU (the same elected ids and cluster sizes); three rounds of
    ``ContextualSelector`` at full width (ring, N=100, sketch_dim 1024,
@@ -101,15 +107,21 @@ Phases (any failure raises and exits non-zero):
    device) its profiled device time per call (``rsu_reduce``'s with and
    without its carry, beside a copy of its rows; ``ssd_scan``'s beside its
    events, its bound with the products at the TF32 tensor-core rate and
-   beside it the fp32-core figure); the round's wall time (the fedavg, fedadam, fedbuff
-   and streamed lanes), and profiled rounds (with ``rsu_reduce``'s calls and
+   beside it the fp32-core figure; both also at the ssm and dense families'
+   serving shapes, printed beside the kernels line); the round's wall time
+   (the fedavg, fedadam, fedbuff and streamed lanes), and profiled rounds (with ``rsu_reduce``'s calls and
    device time per call in the streamed and fleet rounds), a profiled
    decode step and prefill (with ``ssd_scan``'s calls and time per call);
    ``rttg_latency`` at N=100 predicted and realized and at N=100,000
    predicted, and both it and ``fedavg_reduce`` through their wrappers as
    the round calls them: device ops and device time per call; B2-B5 on the
    bf16 lane's rows beside their fp32 rows (the ``bf16_rows`` JSON line),
-   and the bf16 main path's round wall and profile.
+   and the bf16 main path's round wall and profile;
+6. serving the ssm and dense families: the CLI's run at full width and
+   depth in bf16 for mamba2-130m (4 x 2048, 32 tokens), qwen1.5-0.5b (4 x
+   2048, 32), gemma2-9b (2 x 4160, 16: the local layers' ring wraps),
+   mistral-nemo-12b and chatglm3-6b (2 x 512, 8), each with its times, peak
+   memory, exact launch counts and one profiled decode step.
 
 The last three lines are the kernels' JSON record (their fp32 rows), the
 card's name and power limit, and the device JSON.
@@ -673,24 +685,42 @@ def tree_to(tree, device):
     return tree.to(device)
 
 
-def serve_full(device, card):
-    """The serving CLI's run at full width; launch counts zeroed just before
-    and read just after: 32 ``ssd_scan`` (the prefill) and 32 x 31
-    ``swa_decode`` (the first token comes from the prefill), nothing else."""
+# The ssm and dense families' serving runs: (arch, batch, prompt, gen).  gemma2-9b's
+# 4,160-token prompt wraps its local layers' 4,096-slot ring; its global layers keep
+# every position.
+FAMILY_RUNS = (("mamba2-130m", 4, 2048, 32), ("qwen1.5-0.5b", 4, 2048, 32),
+               ("gemma2-9b", 2, 4160, 16), ("mistral-nemo-12b", 2, 512, 8),
+               ("chatglm3-6b", 2, 512, 8))
+
+
+def expected_serving_launches(cfg, steps: int) -> dict:
+    """A prefill and ``steps`` decode steps: ``ssd_scan`` once per SSM layer (the
+    prefill), ``swa_decode`` once per attention layer and step; no other kernel."""
+    from repro_torch.models.transformer import _has_attn, _has_ssm
+
+    want = dict.fromkeys(read_launches(), 0)
+    want.update(ssd_scan=cfg.num_layers if _has_ssm(cfg) else 0,
+                swa_decode=cfg.num_layers * steps if _has_attn(cfg) else 0)
+    return want
+
+
+def serve_full(device, card, arch="hymba-1.5b", batch=4, prompt=2048, gen=32):
+    """The serving CLI's run at full width (``--arch arch --full``); launch
+    counts zeroed just before and read just after, held exactly to
+    ``expected_serving_launches``."""
     from repro_torch.configs import get_config
     from repro_torch.launch import serve as serve_mod
 
-    batch, prompt, gen = 4, 2048, 32
-    cfg = get_config("hymba-1.5b")
+    cfg = get_config(arch)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     held = torch.cuda.memory_allocated()
     reset_launches()
-    res = serve_mod.serve("hymba-1.5b", batch, prompt, gen, full=True, device=device)
+    res = serve_mod.serve(arch, batch, prompt, gen, full=True, device=device)
     launches = read_launches()
     peak = torch.cuda.max_memory_allocated() - held
     n_params = sum(x.numel() for x in _leaves(res.params))
-    print(f"hymba-1.5b {cfg.dtype}, {n_params:,} parameters: set-up (init on the card "
+    print(f"{arch} {cfg.dtype}, {n_params:,} parameters: set-up (init on the card "
           f"through the port's threefry, prompts) {res.setup_s:.2f} s; prefill "
           f"{batch}x{prompt} {res.prefill_s * 1e3:.1f} ms; {gen - 1} decode steps "
           f"{res.decode_s * 1e3:.1f} ms ({res.decode_s / (gen - 1) * 1e3:.2f} ms a step, "
@@ -698,17 +728,34 @@ def serve_full(device, card):
           f"{peak / 2**30:.2f} GiB above the {held / 2**30:.2f} GiB held [{card}]")
     print(f"sample row: {res.tokens[0][:16].tolist()}")
     print(f"launches: {launches}")
-    want = dict.fromkeys(launches, 0)
-    want.update(ssd_scan=cfg.num_layers, swa_decode=cfg.num_layers * (gen - 1))
+    want = expected_serving_launches(cfg, gen - 1)  # the first token comes from the prefill
     if launches != want:
-        raise AssertionError(f"serving launches: expected {want}, got {launches}")
+        raise AssertionError(f"{arch} serving launches: expected {want}, got {launches}")
     if tuple(res.tokens.shape) != (batch, gen) or not (
             0 <= int(res.tokens.min()) and int(res.tokens.max()) < cfg.padded_vocab):
-        raise AssertionError(f"serving tokens: shape {tuple(res.tokens.shape)}, range "
+        raise AssertionError(f"{arch} serving tokens: shape {tuple(res.tokens.shape)}, range "
                              f"[{int(res.tokens.min())}, {int(res.tokens.max())}]")
     if not bool(torch.isfinite(res.logits).all()):
-        raise AssertionError("serving: non-finite logits")
+        raise AssertionError(f"{arch} serving: non-finite logits")
     return res, launches
+
+
+def serve_families(device, card) -> None:
+    """Each of ``FAMILY_RUNS`` through ``serve_full``, then one more decode step
+    under the profiler (device ops, busy time and idle share); each run's
+    weights and cache are freed before the next."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+
+    for arch, batch, prompt, gen in FAMILY_RUNS:
+        res, _ = serve_full(device, card, arch, batch, prompt, gen)
+        api = build_model(get_config(arch))
+        tok = res.tokens[:, -1]
+        with torch.no_grad():
+            profile_round(f"decode step, {arch} B={batch} (position {prompt + gen - 1})",
+                          lambda: api.decode_step(res.params, res.cache, tok), card)
+        del res, api, tok
+        torch.cuda.empty_cache()
 
 
 def _leaves(tree):
@@ -732,18 +779,23 @@ def _leaves(tree):
 PATH_TOL = {"float32": 5e-4, "bfloat16": 0.125}
 
 
-def path_vs_plain(dtype: str, device) -> float:
+def path_vs_plain(dtype: str, device, arch="hymba-1.5b", S=1100, batch=2) -> float:
+    """``arch`` cut to 2 layers at full width: a prefill of ``S`` tokens and 4
+    decode steps on the card and on the CPU from the same weights, logits
+    within ``PATH_TOL``; the card's run launches its kernels as many times as
+    ``expected_serving_launches`` says.  hymba-1.5b's S = 1100 passes its
+    1024 window (the ring wraps) and spans 9 SSD chunks."""
     from repro_torch.configs import get_config
     from repro_torch.data.synthetic import make_lm_batch
     from repro_torch.models import build_model
     from repro_torch.utils import prng
 
-    cfg = get_config("hymba-1.5b").replace(num_layers=2, dtype=dtype)
+    cfg = get_config(arch).replace(num_layers=2, dtype=dtype)
     api = build_model(cfg)
     key = prng.key(0, device)
     params = api.init(prng.fold_in_str(key, "init"), device)
     cpu_params = tree_to(params, "cpu")
-    S, steps, batch = 1100, 4, 2  # past the 1024 window: the ring wraps; 9 SSD chunks
+    steps = 4
     toks = make_lm_batch(prng.fold_in_str(key, "prompts"), batch, S + steps + 1,
                          cfg.vocab_size, device)["tokens"]
     before = read_launches()
@@ -758,38 +810,41 @@ def path_vs_plain(dtype: str, device) -> float:
             lc, cc = api.decode_step(cpu_params, cc, toks[:, S + i].cpu())
             pairs.append((lg, lc))
     after = read_launches()
-    if (after["ssd_scan"] - before["ssd_scan"], after["swa_decode"] - before["swa_decode"]) \
-            != (cfg.num_layers, cfg.num_layers * steps):
-        raise AssertionError("path vs plain: the card's path missed its kernels")
+    want = expected_serving_launches(cfg, steps)
+    if {k: after[k] - before[k] for k in after} != want:
+        raise AssertionError(f"{arch} path vs plain: the card's path missed its kernels")
     tol = PATH_TOL[dtype]
     errs, same = [], []
     for i, (a, b) in enumerate(pairs):
         a = a.cpu().float()
         b = b.float()
         torch.testing.assert_close(a, b, rtol=tol, atol=tol,
-                                   msg=lambda m: f"path vs plain {dtype} step {i}: {m}")
+                                   msg=lambda m: f"{arch} path vs plain {dtype} step {i}: {m}")
         errs.append(float((a - b).abs().max()))
         same.append(bool(torch.equal(a.argmax(-1), b.argmax(-1))))
-    print(f"hymba-1.5b cut to 2 layers, {dtype}, B={batch}, prompt {S} + {steps} decode steps: "
+    kinds = f" ({', '.join(cfg.layer_pattern)})" if cfg.layer_pattern else ""
+    print(f"{arch} cut to 2 layers{kinds}, {dtype}, B={batch}, prompt {S} + {steps} decode steps: "
           f"card vs CPU logits max_abs_err per step {', '.join(f'{e:.3e}' for e in errs)} "
           f"(tol {tol}, |logits| <= {float(pairs[0][1].float().abs().max()):.2f}); greedy "
           f"tokens agree: {same}; CPU prefill {cpu_s:.1f} s")
     return max(errs)
 
 
-def decode_vs_prefill(device) -> float:
+def decode_vs_prefill(device, arch="hymba-1.5b") -> float:
     """tests/test_models.py::test_decode_matches_prefill at full width and depth
     (fp32, the dtype that test runs): 2 decode steps after a prefill against one
-    prefill of the longer context, atol = rtol = 2e-2 (that test's)."""
+    prefill of the longer context, atol = rtol = 2e-2 (that test's).  S = 1030
+    passes hymba-1.5b's window (the ring has wrapped) and leaves a ragged last
+    SSD chunk of 6."""
     from repro_torch.configs import get_config
     from repro_torch.data.synthetic import make_lm_batch
     from repro_torch.models import build_model
     from repro_torch.utils import prng
 
-    cfg = get_config("hymba-1.5b").replace(dtype="float32")
+    cfg = get_config(arch).replace(dtype="float32")
     api = build_model(cfg)
     params = api.init(prng.key(0, device), device)
-    S = 1030  # past the window, so the ring has wrapped
+    S = 1030
     budget = S + 4
     toks = make_lm_batch(prng.key(3, device), 2, S + 5, cfg.vocab_size, device)["tokens"]
     with torch.no_grad():
@@ -799,7 +854,7 @@ def decode_vs_prefill(device) -> float:
         lfull, _ = api.prefill(params, {"tokens": toks[:, :S + 2]}, budget)
     torch.testing.assert_close(ld, lfull, rtol=2e-2, atol=2e-2)
     err = float((ld - lfull).abs().max())
-    print(f"hymba-1.5b fp32, 32 layers: 2 decode steps after a {S}-token prefill vs one "
+    print(f"{arch} fp32, {cfg.num_layers} layers: 2 decode steps after a {S}-token prefill vs one "
           f"{S + 2}-token prefill: max_abs_err {err:.3e} (tol 2e-2), greedy tokens agree: "
           f"{bool(torch.equal(ld.argmax(-1), lfull.argmax(-1)))}")
     return err
@@ -1276,21 +1331,33 @@ def time_gram(kernels, lib, stream, sel_run, main_err, device, card):
     })
 
 
-def time_serving_kernels(kernels, lib, stream, serve_launches, main_err, device, card):
-    """``swa_decode`` at hymba-1.5b's decode and ``ssd_scan`` at its prefill
-    (bf16): the C entry point with preallocated outputs, cycling operand copies
-    that exceed the 50 MB L2 (each layer reads its own cache), the plain
-    version, and for ``swa_decode`` one ``scaled_dot_product_attention`` call
-    with the same boolean mask (GQA through ``enable_gqa``)."""
+def _cycle(xs):
+    """A function that returns the next of ``xs`` on each call, round and round."""
+    it = {"i": 0}
+
+    def nxt():
+        it["i"] = (it["i"] + 1) % len(xs)
+        return xs[it["i"]]
+
+    return nxt
+
+
+def time_swa(lib, stream, B, C, hkv, G, D, window, softcap, fills, device, card) -> dict:
+    """``swa_decode`` (bf16) at one decode shape: the C entry point with
+    preallocated outputs, cycling operand copies that together exceed the
+    50 MB L2 (each layer reads its own cache), the plain version, and one
+    ``scaled_dot_product_attention`` call with the same boolean mask (GQA
+    through ``enable_gqa``); CUDA events and profiled device time.  -> the
+    times in ms and the bound."""
     from repro_torch.kernels import build as kbuild
-    from repro_torch.kernels.ssd_scan import counter_count, smem_bytes, ssd_scan_plain
     from repro_torch.kernels.swa_decode import (scratch_numel, split_len, swa_decode_plain,
                                                 vector_bytes)
 
     F = torch.nn.functional
-    B, C, hkv, G, D, window = 4, 1024, 5, 5, 64, 1024
-    dtype, n_copies = torch.bfloat16, 16
-    sets = [swa_operands(B, C, hkv, G, D, dtype, (2080,) * B, device, seed=i)
+    dtype = torch.bfloat16
+    set_bytes = 2 * B * C * hkv * D * 2
+    n_copies = max(2, -(-100_000_000 // set_bytes))
+    sets = [swa_operands(B, C, hkv, G, D, dtype, fills, device, seed=i)
             for i in range(n_copies)]
     out = torch.empty((B, hkv, G, D), dtype=torch.float32, device=device)
     sqrt_d = float(torch.sqrt(torch.tensor(D, dtype=torch.float32)))
@@ -1298,32 +1365,31 @@ def time_serving_kernels(kernels, lib, stream, serve_launches, main_err, device,
                           device=device)
     arrivals = kbuild.counters(device, "swa_decode", B * hkv)
     split, vec = split_len(D, 2), vector_bytes(D, 2, *sets[0][1:3])
-    it = {"i": 0}
-
-    def nxt(xs):
-        it["i"] = (it["i"] + 1) % len(xs)
-        return xs[it["i"]]
+    nxt = _cycle(sets)
 
     def swa_launch():
-        q, k, v, kv_pos, pos = nxt(sets)
+        q, k, v, kv_pos, pos = nxt()
         kbuild.check(lib.swa_decode_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_pos.data_ptr(), pos.data_ptr(),
-            B, C, hkv, G, D, window, 0.0, sqrt_d, 1, split, vec, out.data_ptr(),
+            B, C, hkv, G, D, window, softcap, sqrt_d, 1, split, vec, out.data_ptr(),
             scratch.data_ptr(), arrivals.data_ptr(), stream), "swa_decode")
 
     def swa_plain():
-        return swa_decode_plain(*nxt(sets), window)
+        return swa_decode_plain(*nxt(), window, softcap)
+
+    def visible(kv_pos, pos):
+        vis = (kv_pos >= 0) & (kv_pos <= pos[:, None])
+        return vis & (pos[:, None] - kv_pos < window) if window > 0 else vis
 
     # the library call's operands: heads-major views of the same cache and the
-    # visibility mask, made once (the mask is an input of the call)
-    lib_sets = []
-    for q, k, v, kv_pos, pos in sets:
-        vis = (kv_pos >= 0) & (kv_pos <= pos[:, None]) & (pos[:, None] - kv_pos < window)
-        lib_sets.append((q.reshape(B, hkv * G, 1, D), k.transpose(1, 2), v.transpose(1, 2),
-                         vis[:, None, None, :]))
+    # visibility mask, made once (the mask is an input of the call); SDPA has no
+    # softcap, so at softcap > 0 it times the uncapped attention
+    lib_sets = [(q.reshape(B, hkv * G, 1, D), k.transpose(1, 2), v.transpose(1, 2),
+                 visible(kv_pos, pos)[:, None, None, :]) for q, k, v, kv_pos, pos in sets]
+    nxt_lib = _cycle(lib_sets)
 
     def swa_library():
-        q, k, v, mask = nxt(lib_sets)
+        q, k, v, mask = nxt_lib()
         return F.scaled_dot_product_attention(q, k, v, attn_mask=mask, enable_gqa=True)
 
     t = {}
@@ -1333,49 +1399,57 @@ def time_serving_kernels(kernels, lib, stream, serve_launches, main_err, device,
     dev_us = {"kernel": device_us_per_call(swa_launch),
               "scaled_dot_product_attention": device_us_per_call(swa_library)}
     q, k, v, kv_pos, pos = sets[0]
-    vis = int(((kv_pos >= 0) & (kv_pos <= pos[:, None]) & (pos[:, None] - kv_pos < window))
-              .sum())
+    vis = int(visible(kv_pos, pos).sum())
     isz = k.element_size()
     swa_bytes = (q.numel() * isz + 2 * k.numel() * isz + kv_pos.numel() * 4 + B * 4
                  + out.numel() * 4)
     # per visible slot and query head: a D-long dot and a D-long p * v (4 D
-    # flops) and ~4 for the scale, exp and sums; per query head D divides
-    swa_flops = vis * hkv * G * (4 * D + 4) + B * hkv * G * D
+    # flops) and ~4 for the scale, exp and sums (~2 more for a softcap's divide
+    # and tanh); per query head D divides
+    swa_flops = vis * hkv * G * (4 * D + 4 + (2 if softcap > 0 else 0)) + B * hkv * G * D
     b_ms, b_by = bound(swa_bytes, swa_flops)
-    print(f"swa_decode B={B} C={C} Hkv={hkv} G={G} D={D} bf16, full ring ({-(-C // split)} "
-          f"splits of {split} slots, {vec}-byte copies): kernel {t['kernel'] * 1e3:.2f} us "
+    what = (f"swa_decode B={B} C={C} Hkv={hkv} G={G} D={D} window={window} "
+            f"softcap={softcap} bf16 ({-(-C // split)} splits of {split} slots, {vec}-byte "
+            f"copies)")
+    print(f"{what}: kernel {t['kernel'] * 1e3:.2f} us "
           f"({swa_bytes / (t['kernel'] * 1e-3) / 1e9:.0f} GB/s), "
           f"plain {t['plain'] * 1e3:.2f} us, scaled_dot_product_attention "
           f"{t['library'] * 1e3:.2f} us, bound {b_ms * 1e3:.2f} us ({b_by}: "
           f"{swa_bytes / 1e6:.2f} MB, {swa_flops / 1e6:.1f} MFLOP) [{card}]")
-    print(f"swa_decode device time per call (profiler): kernel {dev_us['kernel']:.2f} us "
+    print(f"  device time per call (profiler): kernel {dev_us['kernel']:.2f} us "
           f"({swa_bytes / (dev_us['kernel'] * 1e-6) / 1e9:.0f} GB/s), "
-          f"scaled_dot_product_attention {dev_us['scaled_dot_product_attention']:.2f} us [{card}]")
-    kernels.append({
-        "name": "swa_decode", "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/swa_decode.cu",
-        "replaces": "src/repro/kernels/swa_decode.py:114",
-        "launches": serve_launches["swa_decode"], "max_abs_err": main_err["swa_decode"],
-        "ms": t["kernel"], "plain_ms": t["plain"], "bound_ms": b_ms, "bound_by": b_by,
-        "library_ms": t["library"],
-    })
+          f"scaled_dot_product_attention {dev_us['scaled_dot_product_attention']:.2f} us "
+          f"[{card}]")
+    return {"ms": t["kernel"], "plain_ms": t["plain"], "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": t["library"]}
 
-    Bz, S, nh, hp, ds, Q = 4, 2048, 50, 64, 16, 128
+
+def time_ssd(lib, stream, Bz, S, nh, hp, ds, Q, device, card) -> dict:
+    """``ssd_scan`` (bf16) at one prefill shape: the C entry point with
+    preallocated outputs on two operand sets in turns, and the plain version;
+    CUDA events and profiled device time.  The bound counts the products at
+    the TF32 tensor-core rate and the rest at the fp32 rate.  -> the times in
+    ms and the bound."""
+    from repro_torch.kernels import build as kbuild
+    from repro_torch.kernels.ssd_scan import counter_count, smem_bytes, ssd_scan_plain
+
+    dtype = torch.bfloat16
     ssd_sets = [ssd_operands(Bz, S, nh, hp, ds, dtype, device, seed=i) for i in range(2)]
     y = torch.empty((Bz, S, nh, hp), dtype=torch.float32, device=device)
     h = torch.empty((Bz, nh, hp, ds), dtype=torch.float32, device=device)
     smem = smem_bytes(Q, hp, ds, 2)
     chain = kbuild.counters(device, "ssd_scan", counter_count(Bz, nh))
+    nxt = _cycle(ssd_sets)
 
     def ssd_launch():
-        x, dt, A, Bs, Cs, _ = nxt(ssd_sets)
+        x, dt, A, Bs, Cs, _ = nxt()
         kbuild.check(lib.ssd_scan_launch(
             x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bs.data_ptr(), Cs.data_ptr(), None,
             Bz, S, nh, hp, ds, Q, smem, 1, y.data_ptr(), h.data_ptr(), chain.data_ptr(),
             stream), "ssd_scan")
 
     def ssd_plain():
-        x, dt, A, Bs, Cs, _ = nxt(ssd_sets)
+        x, dt, A, Bs, Cs, _ = nxt()
         return ssd_scan_plain(x, dt, A, Bs, Cs, Q)
 
     ts = {}
@@ -1398,7 +1472,6 @@ def time_serving_kernels(kernels, lib, stream, serve_launches, main_err, device,
         products += Bz * 2 * tri * ds + Bz * nh * (2 * tri * hp + 4 * qc * hp * ds)
         rest += Bz * nh * (qc * hp + 3 * tri)
     ssd_flops = products + rest
-    # the products on the TF32 tensor cores, the rest on the fp32 cores
     t_ops = (products / TF32_FLOPS_PER_S + rest / FP32_FLOPS_PER_S) * 1e3
     t_bytes = ssd_bytes / HBM_BYTES_PER_S * 1e3
     b_ms, b_by = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
@@ -1409,16 +1482,45 @@ def time_serving_kernels(kernels, lib, stream, serve_launches, main_err, device,
           f"take {t_ops * 1e3:.2f} us with the products on the TF32 tensor cores, "
           f"{fp32_ms * 1e3:.2f} us all on the fp32 cores; "
           f"{ssd_flops / (ts['kernel'] * 1e-3) / 1e12:.2f} TFLOP/s achieved) [{card}]")
-    print(f"ssd_scan device time per call (profiler): kernel {ssd_dev:.2f} us "
+    print(f"  device time per call (profiler): kernel {ssd_dev:.2f} us "
           f"({ssd_bytes / (ssd_dev * 1e-6) / 1e9:.0f} GB/s) [{card}]")
-    kernels.append({
-        "name": "ssd_scan", "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
-        "replaces": "src/repro/kernels/ssd_scan.py:124",
-        "launches": serve_launches["ssd_scan"], "max_abs_err": main_err["ssd_scan"],
-        "ms": ts["kernel"], "plain_ms": ts["plain"], "bound_ms": b_ms, "bound_by": b_by,
-        "library_ms": None,
-    })
+    return {"ms": ts["kernel"], "plain_ms": ts["plain"], "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": None}
+
+
+# The serving kernels' shapes in the ssm and dense families' runs (FAMILY_RUNS):
+# B7 on the cache after ``kv_repeat`` at the last decode step, B8 at the prefill.
+FAMILY_SWA_SHAPES = {  # arch: (B, C, Hkv, G, D, window, softcap, fills)
+    "qwen1.5-0.5b": (4, 2080, 16, 1, 64, 0, 0.0, (2079,) * 4),
+    "gemma2-9b local": (2, 4096, 16, 1, 256, 4096, 50.0, (4175,) * 2),
+    "gemma2-9b global": (2, 4176, 16, 1, 256, 0, 50.0, (4175,) * 2),
+    "mistral-nemo-12b / chatglm3-6b": (2, 520, 16, 2, 128, 0, 0.0, (519,) * 2),
+}
+FAMILY_SSD_SHAPES = {"mamba2-130m": (4, 2048, 24, 64, 128, 128)}
+
+
+def time_serving_kernels(kernels, lib, stream, serve_launches, main_err, device, card):
+    """``swa_decode`` at hymba-1.5b's decode and ``ssd_scan`` at its prefill
+    (bf16), the kernels' JSON rows; then both at the ssm and dense families'
+    shapes, printed beside them."""
+    print("hymba-1.5b's serving shapes (the kernels line):")
+    kernels.append(dict(
+        name="swa_decode", route="cuda", source="src/repro_torch/kernels/csrc/swa_decode.cu",
+        replaces="src/repro/kernels/swa_decode.py:114",
+        launches=serve_launches["swa_decode"], max_abs_err=main_err["swa_decode"],
+        **time_swa(lib, stream, 4, 1024, 5, 5, 64, 1024, 0.0, (2080,) * 4, device, card)))
+    kernels.append(dict(
+        name="ssd_scan", route="cuda", source="src/repro_torch/kernels/csrc/ssd_scan.cu",
+        replaces="src/repro/kernels/ssd_scan.py:124",
+        launches=serve_launches["ssd_scan"], max_abs_err=main_err["ssd_scan"],
+        **time_ssd(lib, stream, 4, 2048, 50, 64, 16, 128, device, card)))
+    for arch, shape in FAMILY_SWA_SHAPES.items():
+        print(f"{arch}'s decode shape:")
+        time_swa(lib, stream, *shape, device, card)
+    for arch, shape in FAMILY_SSD_SHAPES.items():
+        print(f"{arch}'s prefill shape:")
+        time_ssd(lib, stream, *shape, device, card)
+    torch.cuda.empty_cache()
 
 
 # card vs CPU tolerances of a bf16 round: the clients' forward passes run in
@@ -1728,6 +1830,16 @@ def main(argv=()) -> int:
     check_ssd(8, 4096, 50, 64, 16, 128, False, torch.bfloat16, device)
     check_ssd(1, 77, 2, 13, 9, 32, True, torch.float32, device)
     check_ssd(3, 100, 12, 32, 16, 16, True, torch.bfloat16, device)
+    # the ssm and dense families' serving shapes: gemma2-9b's local layers (16 kv
+    # heads, D 256, softcap 50, the 4,096-slot ring wrapped) and global layers (every
+    # position, no window), mistral-nemo-12b / chatglm3-6b (G 2, D 128), qwen1.5-0.5b
+    # (G 1, D 64); mamba2-130m's prefill
+    for dtype in (torch.bfloat16, torch.float32):
+        check_swa(2, 4096, 16, 1, 256, 4096, 50.0, (4176, 4170), dtype, device)
+        check_swa(2, 4176, 16, 1, 256, 0, 50.0, (4176, 4170), dtype, device)
+        check_swa(2, 520, 16, 2, 128, 0, 0.0, (520, 513), dtype, device)
+        check_swa(4, 2080, 16, 1, 64, 0, 0.0, (2080,) * 4, dtype, device)
+        check_ssd(4, 2048, 24, 64, 128, 128, False, dtype, device)
     main_err["pairwise_cosine"] = 0.0
     # the reference's shapes (tests/test_kernels.py): 128 / 512 tile edges,
     # one row, D = 1; the stage-3 shape is (100, 1024)
@@ -1985,6 +2097,18 @@ def main(argv=()) -> int:
     main_err["path"] = {dt: path_vs_plain(dt, device) for dt in ("float32", "bfloat16")}
     phase("serving: decode vs prefill on the card")
     decode_vs_prefill(device)
+    torch.cuda.empty_cache()
+    phase("serving: the families' paths on the card vs the plain path on the CPU")
+    # mamba2-130m: a ragged last chunk (300 = 2 x 128 + 44); gemma2-9b: one local and
+    # one global layer, 4 past the 4,096 window (one row: the CPU's share of the
+    # time); chatglm3-6b: the 2d rope, the bias, G = 2
+    for arch, S, batch in (("mamba2-130m", 300, 2), ("gemma2-9b", 4100, 1),
+                           ("chatglm3-6b", 600, 2)):
+        for dt in ("float32", "bfloat16"):
+            path_vs_plain(dt, device, arch, S, batch)
+        torch.cuda.empty_cache()
+    phase("serving: mamba2-130m decode vs prefill on the card")
+    decode_vs_prefill(device, "mamba2-130m")
     torch.cuda.empty_cache()
 
     # ---- 4f. the four-stage pipeline, stage by stage ---------------------------
@@ -2386,6 +2510,10 @@ def main(argv=()) -> int:
                       lambda: lm_api.decode_step(served.params, served.cache, tok), card)
         profile_round("prefill, hymba-1.5b 4x2048",
                       lambda: lm_api.prefill(served.params, served.prompts, 2080), card)
+    # last: whole decode steps profiled before phase 5's device_profile calls made
+    # those calls read half the device time (torch 2.11 on an H100 80GB HBM3)
+    phase("serving: the ssm and dense families at full width and depth, bf16")
+    serve_families(device, card)
 
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -4,7 +4,9 @@ Declared as in ``repro/configs/``: ``get_config(arch)`` gives the exact
 assigned config, ``get_smoke_config(arch)`` the reduced same-family variant
 the CPU tests run.  Of the FL models only ``fl-mnist-mlp`` runs so far (the
 two CNNs are declared and refused by ``models.build_model``); of the LM zoo
-only ``hymba-1.5b``.  The other LM arch ids of the reference raise
+the ``hybrid`` (hymba-1.5b), ``ssm`` (mamba2-130m) and ``dense``
+(qwen1.5-0.5b, gemma2-9b, mistral-nemo-12b, chatglm3-6b) families.  The other
+LM arch ids of the reference (``moe``, ``encdec``, ``vlm``) raise
 ``NotImplementedError``.
 """
 from __future__ import annotations
@@ -89,12 +91,214 @@ def hymba_15b_smoke() -> ModelConfig:
     )
 
 
-LM_ARCHS = {"hymba-1.5b": (hymba_15b, hymba_15b_smoke)}
+def mamba2_130m() -> ModelConfig:
+    """mamba2-130m: attention-free SSD (state-space duality) [arXiv:2405.21060]."""
+    return ModelConfig(
+        name="mamba2-130m",
+        family="ssm",
+        num_layers=24,
+        d_model=768,
+        num_heads=0,  # attention-free
+        num_kv_heads=0,
+        d_ff=0,  # mamba2 blocks have no separate MLP
+        vocab_size=50280,
+        ssm_state=128,
+        ssm_head_dim=64,  # d_inner 1536 -> 24 SSD heads
+        ssm_expand=2,
+        ssm_chunk=128,
+        rope_style="none",
+        tie_embeddings=True,
+        sharding_profile="dp",
+        remat_policy="dots",
+        loss_chunk=0,
+        max_position_embeddings=1_048_576,
+        source="arXiv:2405.21060",
+    )
+
+
+def mamba2_130m_smoke() -> ModelConfig:
+    return mamba2_130m().replace(
+        name="mamba2-130m-smoke",
+        num_layers=2,
+        d_model=256,
+        vocab_size=512,
+        ssm_state=32,
+        ssm_head_dim=32,
+        ssm_chunk=16,
+        dtype="float32",
+        remat_policy="none",
+    )
+
+
+def qwen15_05b() -> ModelConfig:
+    """qwen1.5-0.5b: dense MHA with QKV bias [hf:Qwen/Qwen1.5-0.5B]."""
+    return ModelConfig(
+        name="qwen1.5-0.5b",
+        family="dense",
+        num_layers=24,
+        d_model=1024,
+        num_heads=16,
+        num_kv_heads=16,
+        d_ff=2816,
+        vocab_size=151936,
+        qkv_bias=True,
+        tie_embeddings=True,  # qwen1.5-0.5b ties lm_head to the embedding
+        rope_theta=1e6,
+        sharding_profile="dp",
+        remat_policy="dots",
+        loss_chunk=0,
+        max_position_embeddings=32_768,
+        source="hf:Qwen/Qwen1.5-0.5B",
+    )
+
+
+def qwen15_05b_smoke() -> ModelConfig:
+    return qwen15_05b().replace(
+        name="qwen1.5-0.5b-smoke",
+        num_layers=2,
+        d_model=256,
+        num_heads=8,
+        num_kv_heads=8,
+        d_ff=512,
+        vocab_size=512,
+        dtype="float32",
+        remat_policy="none",
+    )
+
+
+def gemma2_9b() -> ModelConfig:
+    """gemma2-9b: dense GQA, local/global alternation, logit softcaps
+    [arXiv:2408.00118].  The base config keeps full-attention global layers;
+    ``gemma2_9b_long_ctx`` is the ``swa-capped`` variant."""
+    return ModelConfig(
+        name="gemma2-9b",
+        family="dense",
+        num_layers=42,
+        d_model=3584,
+        num_heads=16,
+        num_kv_heads=8,
+        d_ff=14336,
+        vocab_size=256000,
+        head_dim=256,  # gemma2-9b decouples head_dim
+        kv_repeat=2,
+        sliding_window=4096,
+        layer_pattern=("local", "global"),
+        attn_logit_softcap=50.0,
+        final_logit_softcap=30.0,
+        zero_centered_norm=True,
+        embed_scale=True,
+        train_microbatches=4,
+        max_position_embeddings=8_192,
+        source="arXiv:2408.00118",
+    )
+
+
+def gemma2_9b_long_ctx() -> ModelConfig:
+    """The sliding-window variant that runs long_500k (global layers 32k)."""
+    return gemma2_9b().replace(variant="swa-capped", max_position_embeddings=1_048_576)
+
+
+def gemma2_9b_smoke() -> ModelConfig:
+    return gemma2_9b().replace(
+        name="gemma2-9b-smoke",
+        num_layers=2,
+        d_model=256,
+        num_heads=4,
+        num_kv_heads=2,
+        head_dim=64,
+        d_ff=512,
+        vocab_size=512,
+        kv_repeat=1,
+        sliding_window=32,
+        max_position_embeddings=256,
+        dtype="float32",
+        remat_policy="none",
+    )
+
+
+def mistral_nemo_12b() -> ModelConfig:
+    """mistral-nemo-12b: dense GQA, 128k context, head_dim 128
+    [hf:mistralai/Mistral-Nemo-Base-2407]."""
+    return ModelConfig(
+        name="mistral-nemo-12b",
+        family="dense",
+        num_layers=40,
+        d_model=5120,
+        num_heads=32,
+        num_kv_heads=8,
+        d_ff=14336,
+        vocab_size=131072,
+        head_dim=128,  # nemo decouples head_dim from d_model / num_heads
+        kv_repeat=2,
+        rope_theta=1e6,
+        max_position_embeddings=131_072,  # "128k ctx"
+        train_microbatches=8,
+        source="hf:mistralai/Mistral-Nemo-Base-2407",
+    )
+
+
+def mistral_nemo_12b_smoke() -> ModelConfig:
+    return mistral_nemo_12b().replace(
+        name="mistral-nemo-12b-smoke",
+        num_layers=2,
+        d_model=256,
+        num_heads=8,
+        num_kv_heads=4,
+        d_ff=512,
+        vocab_size=512,
+        head_dim=32,
+        kv_repeat=1,
+        dtype="float32",
+        remat_policy="none",
+    )
+
+
+def chatglm3_6b() -> ModelConfig:
+    """chatglm3-6b: dense GQA (2 KV heads) with 2d RoPE [arXiv:2406.12793]."""
+    return ModelConfig(
+        name="chatglm3-6b",
+        family="dense",
+        num_layers=28,
+        d_model=4096,
+        num_heads=32,
+        num_kv_heads=2,
+        d_ff=13696,
+        vocab_size=65024,
+        kv_repeat=8,  # kv 2 -> 16
+        rope_style="2d",  # chatglm rotates half the head dim
+        qkv_bias=True,
+        train_microbatches=4,
+        max_position_embeddings=32_768,
+        source="arXiv:2406.12793",
+    )
+
+
+def chatglm3_6b_smoke() -> ModelConfig:
+    return chatglm3_6b().replace(
+        name="chatglm3-6b-smoke",
+        num_layers=2,
+        d_model=256,
+        num_heads=8,
+        num_kv_heads=2,
+        d_ff=512,
+        vocab_size=512,
+        kv_repeat=1,
+        dtype="float32",
+        remat_policy="none",
+    )
+
+
+LM_ARCHS = {
+    "chatglm3-6b": (chatglm3_6b, chatglm3_6b_smoke),
+    "gemma2-9b": (gemma2_9b, gemma2_9b_smoke),
+    "hymba-1.5b": (hymba_15b, hymba_15b_smoke),
+    "mamba2-130m": (mamba2_130m, mamba2_130m_smoke),
+    "mistral-nemo-12b": (mistral_nemo_12b, mistral_nemo_12b_smoke),
+    "qwen1.5-0.5b": (qwen15_05b, qwen15_05b_smoke),
+}
 
 # The reference's other LM arch ids: known, not ported yet.
-UNPORTED_LM_ARCHS = ("chatglm3-6b", "gemma2-9b", "internvl2-76b", "mamba2-130m",
-                     "mistral-nemo-12b", "mixtral-8x7b", "phi3.5-moe-42b-a6.6b",
-                     "qwen1.5-0.5b", "whisper-small")
+UNPORTED_LM_ARCHS = ("internvl2-76b", "mixtral-8x7b", "phi3.5-moe-42b-a6.6b", "whisper-small")
 
 ALL_ARCH_IDS = tuple(sorted(PAPER_MODELS)) + tuple(sorted(LM_ARCHS))
 

@@ -1,13 +1,13 @@
 """Batched serving on the port: prefill a prompt batch, decode greedily.
 
-  PYTHONPATH=src python -m repro_torch.launch.serve --arch hymba-1.5b --full \\
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen1.5-0.5b --full \\
       --batch 4 --prompt-len 2048 --gen 32
 
 The flags of ``repro.launch.serve`` (``--arch --batch --prompt-len --gen
 --full``) plus ``--device`` (default ``cuda``; it raises without a card,
 ``cpu`` runs the kernels' plain versions).  ``--arch`` takes the ported LM
-arch ids, so its default is ``hymba-1.5b``: the reference's default,
-``qwen1.5-0.5b``, is not ported yet.  Weights are drawn from a seed as the
+arch ids (the dense, ssm and hybrid families); its default is the
+reference's, ``qwen1.5-0.5b``.  Weights are drawn from a seed as the
 reference draws them (``fold_in_str(key(0), "init")``, prompts from
 ``"prompts"``), and the two ``[serve]`` lines are the reference's; each time
 ends in ``torch.cuda.synchronize()`` on the card.
@@ -44,7 +44,7 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
-def serve(arch: str = "hymba-1.5b", batch: int = 4, prompt_len: int = 64, gen: int = 32,
+def serve(arch: str = "qwen1.5-0.5b", batch: int = 4, prompt_len: int = 64, gen: int = 32,
           full: bool = False, device="cuda") -> ServeResult:
     """The CLI's run: the generated tokens, the three times, and what the
     run ends with (last logits, weights, cache, prompts)."""
@@ -81,7 +81,7 @@ def serve(arch: str = "hymba-1.5b", batch: int = 4, prompt_len: int = 64, gen: i
 
 def main(argv=None) -> ServeResult:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="hymba-1.5b", choices=sorted(LM_ARCHS))
+    ap.add_argument("--arch", default="qwen1.5-0.5b", choices=sorted(LM_ARCHS))
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=64)
     ap.add_argument("--gen", type=int, default=32)

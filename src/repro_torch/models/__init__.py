@@ -1,8 +1,9 @@
-"""The port's models: the FL task MLP and the LM zoo's hybrid family.
+"""The port's models: the FL task MLP and the LM zoo's dense, ssm and hybrid
+families.
 
 ``build_model(cfg)`` gives the FL ``ModelApi`` for ``mlp`` and hands the LM
-families to ``models.zoo.build_lm``, which runs ``hybrid`` (hymba) and
-refuses the rest.
+families to ``models.zoo.build_lm``, which runs ``dense``, ``ssm`` and
+``hybrid`` and refuses the rest.
 """
 from __future__ import annotations
 

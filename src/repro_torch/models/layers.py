@@ -31,12 +31,31 @@ from repro_torch.utils import prng
 # ---------------------------------------------------------------------------
 
 
+# Elements of one weight drawn at a time: a draw keeps several 8-byte
+# temporaries per element alive (threefry's int64 words, ``uniform``'s float64
+# multiply-add), so a full-width stack (mistral-nemo-12b's 2.9 G-element
+# ``w_gate``) is drawn range by range into its tensor.
+INIT_CHUNK = 2 ** 26
+
+
+def _scaled_truncated_normal(key, std: float, shape, dtype, device):
+    """``(std * truncated_normal(key, -2, 2, shape)).to(dtype)``, the single
+    draw bit for bit, filled ``INIT_CHUNK`` elements at a time."""
+    device = key.device if device is None else torch.device(device)
+    out = torch.empty(tuple(shape), dtype=dtype, device=device)
+    flat = out.view(-1)
+    for start in range(0, flat.numel(), INIT_CHUNK):
+        n = min(INIT_CHUNK, flat.numel() - start)
+        flat[start:start + n] = std * prng.truncated_normal(key, -2.0, 2.0, (n,), device,
+                                                            start)
+    return out
+
+
 def dense_init(key, shape, in_axis_dims=None, dtype=torch.float32, scale=1.0, device=None):
     """Truncated-normal fan-in init (``std * truncated_normal(-2, 2)``)."""
     fan_in = in_axis_dims if in_axis_dims is not None else shape[0]
     std = scale / math.sqrt(max(fan_in, 1))
-    w = std * prng.truncated_normal(key, -2.0, 2.0, shape, device)
-    return w.to(dtype)
+    return _scaled_truncated_normal(key, std, shape, dtype, device)
 
 
 def zeros_init(shape, dtype=torch.float32, device=None):
@@ -48,8 +67,7 @@ def ones_init(shape, dtype=torch.float32, device=None):
 
 
 def init_embedding(key, vocab: int, d: int, dtype, device=None):
-    w = 0.02 * prng.truncated_normal(key, -2.0, 2.0, (vocab, d), device)
-    return w.to(dtype)
+    return _scaled_truncated_normal(key, 0.02, (vocab, d), dtype, device)
 
 
 # ---------------------------------------------------------------------------

@@ -1,6 +1,8 @@
 """Decoder-only LM engine of the port (``repro.models.transformer``), the
-``hybrid`` family (hymba):
+``dense``, ``ssm`` and ``hybrid`` families:
 
+  dense  : ln -> GQA attn -> res -> ln -> SwiGLU -> res
+  ssm    : ln -> mamba2 mixer -> res                       (no attn, no MLP)
   hybrid : ln -> (GQA attn || mamba2) averaged -> res -> ln -> SwiGLU -> res
 
 Layers are stacked with a leading ``layers`` axis per pattern sub-layer, as
@@ -11,7 +13,7 @@ and every prefill's SSM scan through ``kernels.ssd_scan`` (hand-written CUDA
 on the card, their plain versions on the CPU).  The reference's ``act_shard``
 annotations and remat policies have no counterpart on one card and are
 dropped.  ``lm_decode_step`` updates the cache it is given in place and
-returns it.  The other families (dense, moe, ssm, encdec, vlm) raise
+returns it.  The other families (moe, encdec, vlm) raise
 ``NotImplementedError``.
 """
 from __future__ import annotations
@@ -26,7 +28,7 @@ from repro_torch.models import layers as L
 from repro_torch.models.ssm import init_ssm, init_ssm_state, ssm_forward
 from repro_torch.utils import prng
 
-PORTED_FAMILIES = ("hybrid",)
+PORTED_FAMILIES = ("hybrid", "ssm", "dense")
 
 
 def check_family(cfg) -> None:
@@ -74,8 +76,25 @@ def cache_len_for(cfg, kind: str, seq_len: int) -> int:
 # ---------------------------------------------------------------------------
 
 
+def _has_attn(cfg) -> bool:
+    return cfg.family in ("dense", "moe", "vlm", "hybrid")
+
+
+def _has_ssm(cfg) -> bool:
+    return cfg.family in ("ssm", "hybrid")
+
+
+def _ffn_kind(cfg):
+    if cfg.family == "moe":
+        return "moe"
+    if cfg.family in ("dense", "vlm", "hybrid"):
+        return "swiglu"
+    return None  # ssm: no FFN (mamba2 mixer only)
+
+
 def init_lm(key, cfg, device=None) -> dict:
-    """Parameter tree (dict of tensors) of a hybrid LM, drawn as the reference's."""
+    """Parameter tree (dict of tensors) of an LM, drawn as the reference's:
+    block key ``bk[0]`` draws the attention, ``bk[1]`` the SSM, ``bk[2]`` the FFN."""
     check_family(cfg)
     p = pattern_period(cfg)
     if cfg.num_layers % p:
@@ -95,15 +114,18 @@ def init_lm(key, cfg, device=None) -> dict:
                                          device=device)
     for i in range(p):
         bk = prng.split(keys[3 + i], 4)
-        params["blocks"].append({
-            "ln1": L.ones_init((Lp, d), dtype, device),
-            "attn": L.init_attention(bk[0], cfg, Lp, dtype, device),
-            "ssm": init_ssm(bk[1], cfg, Lp, dtype, device),
-            "attn_out_norm": L.ones_init((Lp, d), dtype, device),
-            "ssm_out_norm": L.ones_init((Lp, d), dtype, device),
-            "mlp": L.init_swiglu(bk[2], d, cfg.d_ff, Lp, dtype, device),
-            "ln2": L.ones_init((Lp, d), dtype, device),
-        })
+        block = {"ln1": L.ones_init((Lp, d), dtype, device)}
+        if _has_attn(cfg):
+            block["attn"] = L.init_attention(bk[0], cfg, Lp, dtype, device)
+        if _has_ssm(cfg):
+            block["ssm"] = init_ssm(bk[1], cfg, Lp, dtype, device)
+            if cfg.family == "hybrid":
+                block["attn_out_norm"] = L.ones_init((Lp, d), dtype, device)
+                block["ssm_out_norm"] = L.ones_init((Lp, d), dtype, device)
+        if _ffn_kind(cfg) == "swiglu":
+            block["mlp"] = L.init_swiglu(bk[2], d, cfg.d_ff, Lp, dtype, device)
+            block["ln2"] = L.ones_init((Lp, d), dtype, device)
+        params["blocks"].append(block)
     return params
 
 
@@ -124,17 +146,20 @@ def init_lm_cache(cfg, batch: int, seq_len: int, prefilled: int = 0, device=None
     hd = cfg.resolved_head_dim
     layers_cache = []
     for i in range(p):
-        C = cache_len_for(cfg, kinds[i], seq_len)
-        k = torch.zeros((Lp, batch, C, kv_eff, hd), dtype=dtype, device=device)
-        pos = torch.full((Lp, batch, C), -1, dtype=torch.int32, device=device)
-        if prefilled:
-            pos = L.ring_positions(prefilled, C, device)[None, None, :].expand(
-                Lp, batch, C).contiguous()
-        st = init_ssm_state(batch, cfg, dtype, device)
-        layers_cache.append({
-            "attn": {"k": k, "v": torch.zeros_like(k), "pos": pos},
-            "ssm": {n: a[None].expand((Lp,) + a.shape).contiguous() for n, a in st.items()},
-        })
+        entry = {}
+        if _has_attn(cfg):
+            C = cache_len_for(cfg, kinds[i], seq_len)
+            k = torch.zeros((Lp, batch, C, kv_eff, hd), dtype=dtype, device=device)
+            pos = torch.full((Lp, batch, C), -1, dtype=torch.int32, device=device)
+            if prefilled:
+                pos = L.ring_positions(prefilled, C, device)[None, None, :].expand(
+                    Lp, batch, C).contiguous()
+            entry["attn"] = {"k": k, "v": torch.zeros_like(k), "pos": pos}
+        if _has_ssm(cfg):
+            st = init_ssm_state(batch, cfg, dtype, device)
+            entry["ssm"] = {n: a[None].expand((Lp,) + a.shape).contiguous()
+                            for n, a in st.items()}
+        layers_cache.append(entry)
     return {"pos": torch.full((batch,), prefilled, dtype=torch.int32, device=device),
             "layers": layers_cache}
 
@@ -187,22 +212,33 @@ def _attn_decode(cfg, bp, x, pos, inv_freq, window: int, cache):
 
 def apply_block(cfg, kind: str, bp, x, positions, inv_freq, mode: str, cache=None,
                 seq_len_hint: int = 0):
-    """One hybrid sub-layer.  Returns (x, new_cache_entry)."""
+    """One sub-layer.  Returns (x, new_cache_entry): the entries the block has."""
     window = kind_window(cfg, kind, long_ctx_cap=32_768 if cfg.variant == "swa-capped" else 0)
+    decode = mode == "decode"
     h = L.rms_norm(x, bp["ln1"], cfg.norm_eps, cfg.zero_centered_norm)
-    if mode == "decode":
-        a, ac = _attn_decode(cfg, bp["attn"], h, positions, inv_freq, window, cache["attn"])
-    else:
-        C = cache_len_for(cfg, kind, seq_len_hint or h.shape[1])
-        a, ac = _attn_seq(cfg, bp["attn"], h, positions, inv_freq, window, C)
-    s, st = ssm_forward(bp["ssm"], h, cfg, state=cache["ssm"] if mode == "decode" else None,
-                        decode=mode == "decode")
-    a = L.rms_norm(a, bp["attn_out_norm"], cfg.norm_eps)
-    s = L.rms_norm(s, bp["ssm_out_norm"], cfg.norm_eps)
-    x = x + 0.5 * (a + s)  # in the model dtype, as the reference rounds it
-    h2 = L.rms_norm(x, bp["ln2"], cfg.norm_eps, cfg.zero_centered_norm)
-    x = x + L.swiglu(bp["mlp"], h2)
-    return x, {"attn": ac, "ssm": st}
+    new_cache = {}
+    if "attn" in bp:
+        if decode:
+            a, new_cache["attn"] = _attn_decode(cfg, bp["attn"], h, positions, inv_freq,
+                                                window, cache["attn"])
+        else:
+            C = cache_len_for(cfg, kind, seq_len_hint or h.shape[1])
+            a, new_cache["attn"] = _attn_seq(cfg, bp["attn"], h, positions, inv_freq, window, C)
+    if "ssm" in bp:
+        s, new_cache["ssm"] = ssm_forward(bp["ssm"], h, cfg,
+                                          state=cache["ssm"] if decode else None, decode=decode)
+    if cfg.family == "ssm":
+        return x + s, new_cache
+    if cfg.family == "hybrid":
+        a = L.rms_norm(a, bp["attn_out_norm"], cfg.norm_eps)
+        s = L.rms_norm(s, bp["ssm_out_norm"], cfg.norm_eps)
+        x = x + 0.5 * (a + s)  # in the model dtype, as the reference rounds it
+    else:  # dense
+        x = x + a
+    if "ln2" in bp:
+        h2 = L.rms_norm(x, bp["ln2"], cfg.norm_eps, cfg.zero_centered_norm)
+        x = x + L.swiglu(bp["mlp"], h2)
+    return x, new_cache
 
 
 # ---------------------------------------------------------------------------
@@ -219,11 +255,15 @@ def _layer_slice(tree, i: int):
 def _embed_tokens(params, cfg, tokens):
     x = params["embed"][tokens.long()].to(torch_dtype(cfg))
     if cfg.embed_scale:
-        x = x * math.sqrt(cfg.d_model)
+        # the reference's Python scalar is weakly typed: it rounds to the model
+        # dtype before the product (sqrt(3584) is 59.75 in bf16)
+        x = x * float(torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype))
     return x
 
 
 def _logits(params, cfg, x):
+    """Final norm and LM head; ``final_logit_softcap`` belongs to the loss, as in
+    the reference, and is not applied here."""
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps, cfg.zero_centered_norm)
     head = params["embed"].t() if cfg.tie_embeddings else params["lm_head"]
     return torch.einsum("bsd,dv->bsv", x, head.to(x.dtype))
@@ -285,8 +325,8 @@ def lm_decode_step(params, cfg, cache, tokens):
             lc = _layer_slice(cache["layers"][i], li)
             x, nc = apply_block(cfg, kinds[i], _layer_slice(params["blocks"][i], li), x,
                                 pos, inv_freq, "decode", cache=lc)
-            # the attention entry was written in place; the SSM state is new
-            for name, new in nc["ssm"].items():
+            # an attention entry was written in place; an SSM state is new
+            for name, new in nc.get("ssm", {}).items():
                 cache["layers"][i]["ssm"][name][li] = new.to(lc["ssm"][name].dtype)
     logits = _logits(params, cfg, x)[:, 0]
     cache["pos"] = pos + 1

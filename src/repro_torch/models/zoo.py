@@ -7,8 +7,8 @@
   decode_step(params, cache, tokens)    -> (logits, cache)   [cache updated in place]
   init_cache(batch, seq_len, prefilled=0, device=None) -> cache tree
 
-Only the ``hybrid`` family (hymba) is ported; the others raise
-``NotImplementedError`` naming ROADMAP.md.
+The ``dense``, ``ssm`` and ``hybrid`` families are ported; ``moe``,
+``encdec`` and ``vlm`` raise ``NotImplementedError`` naming ROADMAP.md.
 """
 from __future__ import annotations
 

@@ -14,7 +14,10 @@ of a JAX key; leading dimensions batch keys the way ``vmap`` batches them in
 JAX.  uint32 arithmetic runs on int64 tensors with explicit 32-bit masks, so
 everything here runs on any device.  Nothing reads torch's global RNG.
 Samplers draw on ``device`` (default: the key's device) and return shape
-``key.shape[:-1] + shape``.
+``key.shape[:-1] + shape``.  ``bits``, ``uniform`` and ``truncated_normal``
+take a ``start``: they then draw elements ``[start, start + prod(shape))`` of
+the flat counter.  Element ``i``'s bits depend only on the key and ``i``, so
+a large draw made range by range is the single draw, bit for bit.
 
 Integers and booleans (bits, ``randint``, ``bernoulli``, ``permutation``,
 keys) and ``uniform`` match JAX exactly; ``categorical`` is an argmax over
@@ -118,13 +121,15 @@ def _shape(shape) -> Tuple[int, ...]:
     return (shape,) if isinstance(shape, int) else tuple(shape)
 
 
-def bits(k: torch.Tensor, shape: Sequence[int] = (), device=None) -> torch.Tensor:
-    """32 random bits per element (int64 in [0, 2**32)), ``jax.random.bits``."""
+def bits(k: torch.Tensor, shape: Sequence[int] = (), device=None,
+         start: int = 0) -> torch.Tensor:
+    """32 random bits per element (int64 in [0, 2**32)), ``jax.random.bits``;
+    elements ``[start, start + prod(shape))`` of the flat draw."""
     shape = _shape(shape)
     device = k.device if device is None else torch.device(device)
     k = k.to(device)
     n = math.prod(shape)
-    counts = torch.arange(n, dtype=torch.int64, device=device)
+    counts = torch.arange(start, start + n, dtype=torch.int64, device=device)
     batch = k.shape[:-1]
     k0 = k[..., 0].reshape(batch + (1,))
     k1 = k[..., 1].reshape(batch + (1,))
@@ -143,10 +148,10 @@ def _fma(a, b, c) -> torch.Tensor:
 
 
 def uniform(k: torch.Tensor, shape: Sequence[int] = (), minval=0.0, maxval=1.0,
-            device=None) -> torch.Tensor:
+            device=None, start: int = 0) -> torch.Tensor:
     """float32 uniform in ``[minval, maxval)`` from the top 23 bits."""
     device = k.device if device is None else torch.device(device)
-    b = bits(k, shape, device)
+    b = bits(k, shape, device, start)
     fb = (b >> 9) | 0x3F800000
     floats = fb.to(torch.int32).view(torch.float32) - 1.0
     lo, hi = _as_f32(minval, device), _as_f32(maxval, device)
@@ -187,13 +192,13 @@ def normal(k: torch.Tensor, shape: Sequence[int] = (), device=None) -> torch.Ten
 
 
 def truncated_normal(k: torch.Tensor, lower: float, upper: float,
-                     shape: Sequence[int] = (), device=None) -> torch.Tensor:
+                     shape: Sequence[int] = (), device=None, start: int = 0) -> torch.Tensor:
     """Standard normal truncated to the open interval ``(lower, upper)``."""
     device = k.device if device is None else torch.device(device)
     lo, hi = _as_f32(lower, device), _as_f32(upper, device)
     a = torch.special.erf(lo / _SQRT2)
     b = torch.special.erf(hi / _SQRT2)
-    u = uniform(k, shape, a, b, device)
+    u = uniform(k, shape, a, b, device, start)
     out = _SQRT2 * erf_inv(u)
     inf = _as_f32(math.inf, device)
     return torch.clamp(out, torch.nextafter(lo, inf), torch.nextafter(hi, -inf))

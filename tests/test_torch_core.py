@@ -60,7 +60,8 @@ def _field_defaults(cls):
 
 
 @pytest.mark.parametrize("arch", ["fl-mnist-mlp", "fl-cifar10-cnn", "fl-svhn-cnn",
-                                  "hymba-1.5b"])
+                                  "hymba-1.5b", "mamba2-130m", "qwen1.5-0.5b", "gemma2-9b",
+                                  "mistral-nemo-12b", "chatglm3-6b"])
 def test_model_config_copy_matches_the_reference(arch):
     """The port's ModelConfig keeps the reference's fields, required fields and
     defaults, and its configs (full and smoke) equal the reference's field for

@@ -719,6 +719,10 @@ def _swa_operands(B, C, hkv, G, D, dtype, dev, fills, seed=0):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("B,C,hkv,G,D,window,softcap,fills", [
     (4, 1024, 5, 5, 64, 1024, 0.0, (2080, 2080, 2080, 2080)),  # hymba-1.5b decode
+    # gemma2-9b's local layers: 16 kv heads (8 repeated twice), D 256, softcap 50, the
+    # 4,096-slot ring wrapped
+    (2, 4096, 16, 1, 256, 4096, 50.0, (4176, 4170)),
+    (2, 520, 16, 2, 128, 0, 0.0, (520, 513)),  # mistral-nemo-12b / chatglm3-6b: G 2, D 128
     (2, 1000, 2, 3, 64, 0, 0.0, (1000, 640)),  # C not a multiple of the 256-slot tile
     (3, 1, 2, 4, 32, 0, 0.0, (1, 5, 9)),  # one slot
     (2, 300, 4, 1, 128, 64, 0.0, (300, 77)),  # G = 1, a window inside the ring
@@ -824,6 +828,7 @@ def _assert_ssd_close(got, ref):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("B,S,nh,hp,ds,chunk,with_h0", [
     (4, 2048, 50, 64, 16, 128, False),  # hymba-1.5b prefill
+    (4, 2048, 24, 64, 128, 128, False),  # mamba2-130m prefill
     (2, 1, 3, 16, 8, 128, False),  # one step
     (2, 200, 4, 32, 16, 128, True),  # S not a multiple of Q, a given h0
     (3, 100, 2, 8, 32, 128, False),  # Q > S: one chunk of S
@@ -893,6 +898,40 @@ def test_hybrid_serving_on_the_card_matches_the_cpu(dev, dtype):
     tol = 1e-4 if dtype == "float32" else 0.0625
     for a, b in outs:
         torch.testing.assert_close(a.cpu().float(), b.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("arch", ["mamba2-130m", "qwen1.5-0.5b", "gemma2-9b",
+                                  "mistral-nemo-12b", "chatglm3-6b"])
+def test_family_serving_on_the_card_matches_the_cpu(dev, arch):
+    """The ssm and dense smoke LMs in fp32: prefill past gemma2-smoke's 32-slot
+    window (mamba2-smoke's last chunk partial) and 3 decode steps on the card
+    through the kernels and on the CPU from the same weights, logits within 1e-4;
+    ``ssd_scan`` once per SSM layer, ``swa_decode`` once per attention layer a step."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.kernels import ssd_scan as ssd
+    from repro_torch.kernels import swa_decode as swa
+    from repro_torch.models import build_model
+
+    cfg = get_smoke_config(arch)
+    api = build_model(cfg)
+    params = api.init(prng.key(0), dev)
+    cpu_params = _tree_to(params, "cpu")
+    toks = torch.randint(0, cfg.vocab_size, (2, 44), generator=torch.Generator().manual_seed(1))
+    before = (ssd.launches, swa.launches)
+    with torch.no_grad():
+        lg, cg = api.prefill(params, {"tokens": toks[:, :40].to(dev)}, 44)
+        lc, cc = api.prefill(cpu_params, {"tokens": toks[:, :40]}, 44)
+        outs = [(lg, lc)]
+        for i in range(3):
+            lg, cg = api.decode_step(params, cg, toks[:, 40 + i].to(dev))
+            lc, cc = api.decode_step(cpu_params, cc, toks[:, 40 + i])
+            outs.append((lg, lc))
+    ssm_layers = cfg.num_layers if cfg.family == "ssm" else 0
+    attn_layers = cfg.num_layers - ssm_layers
+    assert (ssd.launches, swa.launches) == (before[0] + ssm_layers,
+                                            before[1] + 3 * attn_layers)
+    for a, b in outs:
+        torch.testing.assert_close(a.cpu(), b, rtol=1e-4, atol=1e-4)
 
 
 def _tree_to(tree, device):
