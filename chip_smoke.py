@@ -42,7 +42,9 @@ Phases (any failure raises and exits non-zero):
    ``swa_decode`` and ``ssd_scan`` at hymba-1.5b's shapes in bf16 and fp32,
    at the ssm and dense families' serving shapes (gemma2-9b's wrapped
    4,096-slot ring and its global layers at D=256 with softcap 50, G=2 at
-   D=128, qwen1.5-0.5b's G=1 at D=64, mamba2-130m's prefill) and at their edges (a ragged split, one slot, G=1, a partly filled and a
+   D=128, qwen1.5-0.5b's G=1 at D=64, mamba2-130m's prefill), at the moe and
+   vlm families' (mixtral-8x7b's wrapped 4,096-slot ring at G=2, phi3.5-moe's
+   B=4, internvl2-76b's G=4) and at their edges (a ragged split, one slot, G=1, a partly filled and a
    wrapped ring, rows with no visible slot, softcap; a window narrower than
    a split, G=16 at D=256, rows of 4-byte and 2-byte multiples; one step, a
    ragged last chunk, Q > S, a given h0, mamba2's ds=128 head, 12,800
@@ -84,7 +86,12 @@ Phases (any failure raises and exits non-zero):
    layers card-vs-CPU in fp32 and bf16 for mamba2-130m (S=300, a ragged
    chunk), gemma2-9b (one local and one global layer, S=4100, one row) and
    chatglm3-6b (S=600), and mamba2-130m's decode vs prefill in fp32 at full
-   depth (their serving runs come last, after phase 5);
+   depth; then one MoE layer of mixtral-8x7b and of phi3.5-moe at full width
+   on a skewed input that drops copies, card vs CPU in fp32 and bf16 (expert
+   ids, slots and kept mask exactly, no device-to-host sync on the card), and
+   2 layers card-vs-CPU in fp32 and bf16 for mixtral-8x7b (S=600),
+   phi3.5-moe (S=600) and internvl2-76b (S=300 after its 256 image tokens)
+   (the families' serving runs come last, after phase 5);
 4f. pipeline: ``python -m repro_torch.launch.quickstart`` on the card and
    on the CPU (the same elected ids and cluster sizes); three rounds of
    ``ContextualSelector`` at full width (ring, N=100, sketch_dim 1024,
@@ -121,10 +128,15 @@ Phases (any failure raises and exits non-zero):
    depth in bf16 for mamba2-130m (4 x 2048, 32 tokens), qwen1.5-0.5b (4 x
    2048, 32), gemma2-9b (2 x 4160, 16: the local layers' ring wraps),
    mistral-nemo-12b and chatglm3-6b (2 x 512, 8), each with its times, peak
-   memory, exact launch counts and one profiled decode step.
+   memory, exact launch counts and one profiled decode step; then the moe
+   and vlm families the same way at full width and 16 layers (no more fits
+   one card): mixtral-8x7b (2 x 4160, 16: its window ring wraps),
+   phi3.5-moe (4 x 2048, 32) and internvl2-76b (2 x (256 image + 512), 16),
+   each also with the copies its prefill dropped over capacity.
 
-The last three lines are the kernels' JSON record (their fp32 rows), the
-card's name and power limit, and the device JSON.
+The last three lines are the kernels' JSON record (their fp32 rows;
+``swa_decode``'s launches summed over every serving run), the card's name and
+power limit, and the device JSON.
 """
 from __future__ import annotations
 
@@ -691,6 +703,13 @@ def tree_to(tree, device):
 FAMILY_RUNS = (("mamba2-130m", 4, 2048, 32), ("qwen1.5-0.5b", 4, 2048, 32),
                ("gemma2-9b", 2, 4160, 16), ("mistral-nemo-12b", 2, 512, 8),
                ("chatglm3-6b", 2, 512, 8))
+# The moe and vlm families' runs: (arch, batch, prompt, gen, layers).  At full depth
+# none fits one card (bf16 weights: mixtral-8x7b 87.0 GiB, phi3.5-moe 78.0,
+# internvl2-76b 131), so each runs at full width and 16 layers: 43.7, 39.2 and 29.4
+# GiB beside what the script holds.  mixtral's 4,160-token prompt wraps its 4,096-slot
+# window ring; internvl2's 512 tokens follow its 256 image tokens.
+MOE_VLM_RUNS = (("mixtral-8x7b", 2, 4160, 16, 16), ("phi3.5-moe-42b-a6.6b", 4, 2048, 32, 16),
+                ("internvl2-76b", 2, 512, 16, 16))
 
 
 def expected_serving_launches(cfg, steps: int) -> dict:
@@ -704,28 +723,63 @@ def expected_serving_launches(cfg, steps: int) -> dict:
     return want
 
 
-def serve_full(device, card, arch="hymba-1.5b", batch=4, prompt=2048, gen=32):
-    """The serving CLI's run at full width (``--arch arch --full``); launch
-    counts zeroed just before and read just after, held exactly to
-    ``expected_serving_launches``."""
+class count_drops:
+    """Within the block, the (token, k) copies ``moe.route`` leaves over capacity,
+    summed on the card over every MoE layer and call (no sync until read)."""
+
+    def __enter__(self):
+        from repro_torch.models import moe
+
+        self.moe, self.route, self.total = moe, moe.route, []
+
+        def route(*a, **kw):
+            r = self.route(*a, **kw)
+            self.total.append((~r.keep).sum())
+            return r
+
+        moe.route = route
+        return self
+
+    def __exit__(self, *exc):
+        self.moe.route = self.route
+
+    def read(self) -> int:
+        return int(sum(self.total)) if self.total else 0
+
+
+def serve_full(device, card, arch="hymba-1.5b", batch=4, prompt=2048, gen=32, layers=None):
+    """The serving CLI's run at full width (``--arch arch --full``), at full depth
+    or cut to ``layers``; launch counts zeroed just before and read just after,
+    held exactly to ``expected_serving_launches``; an MoE model's dropped copies
+    counted."""
     from repro_torch.configs import get_config
     from repro_torch.launch import serve as serve_mod
 
     cfg = get_config(arch)
+    depth = f"{cfg.num_layers} layers"
+    if layers:
+        depth = f"{layers} of {cfg.num_layers} layers"
+        cfg = cfg.replace(num_layers=layers)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     held = torch.cuda.memory_allocated()
     reset_launches()
-    res = serve_mod.serve(arch, batch, prompt, gen, full=True, device=device)
+    with count_drops() as drops:
+        res = serve_mod.serve(arch, batch, prompt, gen, device=device, cfg=cfg)
     launches = read_launches()
     peak = torch.cuda.max_memory_allocated() - held
     n_params = sum(x.numel() for x in _leaves(res.params))
-    print(f"{arch} {cfg.dtype}, {n_params:,} parameters: set-up (init on the card "
+    img = f" + {cfg.num_image_tokens} image tokens" if cfg.num_image_tokens else ""
+    print(f"{arch} {cfg.dtype}, {depth}, {n_params:,} parameters: set-up (init on the card "
           f"through the port's threefry, prompts) {res.setup_s:.2f} s; prefill "
-          f"{batch}x{prompt} {res.prefill_s * 1e3:.1f} ms; {gen - 1} decode steps "
+          f"{batch}x{prompt}{img} {res.prefill_s * 1e3:.1f} ms; {gen - 1} decode steps "
           f"{res.decode_s * 1e3:.1f} ms ({res.decode_s / (gen - 1) * 1e3:.2f} ms a step, "
           f"{batch * gen / res.decode_s:.1f} tok/s as the CLI counts); peak memory "
           f"{peak / 2**30:.2f} GiB above the {held / 2**30:.2f} GiB held [{card}]")
+    if cfg.family == "moe":
+        print(f"{arch}: {drops.read():,} (token, k) copies dropped over capacity in the "
+              f"prefill's {cfg.num_layers} MoE layers ({batch * prompt * cfg.experts_per_token:,} "
+              f"copies a layer)")
     print(f"sample row: {res.tokens[0][:16].tolist()}")
     print(f"launches: {launches}")
     want = expected_serving_launches(cfg, gen - 1)  # the first token comes from the prefill
@@ -740,22 +794,27 @@ def serve_full(device, card, arch="hymba-1.5b", batch=4, prompt=2048, gen=32):
     return res, launches
 
 
-def serve_families(device, card) -> None:
-    """Each of ``FAMILY_RUNS`` through ``serve_full``, then one more decode step
-    under the profiler (device ops, busy time and idle share); each run's
-    weights and cache are freed before the next."""
-    from repro_torch.configs import get_config
+def serve_families(device, card, runs) -> dict:
+    """Each run (arch, batch, prompt, gen[, layers]) through ``serve_full``, then
+    one more decode step under the profiler (device ops, busy time and idle
+    share); each run's weights and cache are freed before the next.  -> each
+    run's launch counts."""
     from repro_torch.models import build_model
 
-    for arch, batch, prompt, gen in FAMILY_RUNS:
-        res, _ = serve_full(device, card, arch, batch, prompt, gen)
-        api = build_model(get_config(arch))
+    counts = {}
+    for arch, batch, prompt, gen, *layers in runs:
+        res, counts[arch] = serve_full(device, card, arch, batch, prompt, gen, *layers)
+        cfg = res.cfg
+        api = build_model(cfg)
         tok = res.tokens[:, -1]
+        last = prompt + cfg.num_image_tokens + gen - 1
         with torch.no_grad():
-            profile_round(f"decode step, {arch} B={batch} (position {prompt + gen - 1})",
+            profile_round(f"decode step, {arch} {cfg.num_layers} layers B={batch} "
+                          f"(position {last})",
                           lambda: api.decode_step(res.params, res.cache, tok), card)
         del res, api, tok
         torch.cuda.empty_cache()
+    return counts
 
 
 def _leaves(tree):
@@ -779,12 +838,71 @@ def _leaves(tree):
 PATH_TOL = {"float32": 5e-4, "bfloat16": 0.125}
 
 
+# A routing flip: the card and the CPU rank two experts of a token the other way
+# round.  Their layer inputs differ by rounding (bf16: ulps of 2^-8 relative in
+# the residual stream), so a token whose router probabilities lie closer than
+# that can route to another expert on each; then the two paths compute different
+# functions.  ``pin_routes`` lets the CPU take the card's choice there and
+# reports the flip; a flip is allowed only within these margins (router
+# probability units) of a tie.  bf16: 49 flips in the two MoE configs' 2-layer
+# prefills of 1,200 tokens, the widest 2.8e-3 apart (NVIDIA H100 80GB HBM3, 700 W):
+# 1e-2 leaves 3.5x.  fp32 rounds 2^16 times finer and flipped nowhere there.
+FLIP_MARGIN = {"float32": 1e-5, "bfloat16": 1e-2}
+
+
+class pin_routes:
+    """Within the block, ``moe.route`` records each call's experts on the card;
+    the CPU's calls, made in the same order, take the card's experts where the
+    two differ, with gates and slots recomputed from the CPU's own router
+    probabilities.  ``flips``: (call, token, card experts, CPU experts, the CPU's
+    probability gap between them)."""
+
+    def __init__(self):
+        self.card, self.flips, self.calls = [], [], 0
+
+    @staticmethod
+    def on_card(xt) -> bool:
+        return xt.is_cuda
+
+    def __enter__(self):
+        from repro_torch.models import moe
+
+        self.moe, self.route = moe, moe.route
+
+        def route(router, xt, K, capacity_factor=1.25):
+            r = self.route(router, xt, K, capacity_factor)
+            if self.on_card(xt):
+                self.card.append(r.expert)
+                return r
+            call, self.calls = self.calls, self.calls + 1
+            e = self.card.pop(0).cpu()
+            if torch.equal(e, r.expert):
+                return r
+            N = xt.shape[0]
+            probs = torch.softmax(xt.float() @ router.float(), dim=-1)
+            mine, theirs = r.expert.view(N, K), e.view(N, K)
+            for n in (mine != theirs).any(dim=1).nonzero()[:, 0].tolist():
+                gap = float((probs[n, mine[n]] - probs[n, theirs[n]]).abs().max())
+                self.flips.append((call, n, theirs[n].tolist(), mine[n].tolist(), gap))
+            return moe.assign(probs, theirs, capacity_factor)
+
+        moe.route = route
+        return self
+
+    def __exit__(self, *exc):
+        self.moe.route = self.route
+
+
 def path_vs_plain(dtype: str, device, arch="hymba-1.5b", S=1100, batch=2) -> float:
     """``arch`` cut to 2 layers at full width: a prefill of ``S`` tokens and 4
     decode steps on the card and on the CPU from the same weights, logits
     within ``PATH_TOL``; the card's run launches its kernels as many times as
     ``expected_serving_launches`` says.  hymba-1.5b's S = 1100 passes its
-    1024 window (the ring wraps) and spans 9 SSD chunks."""
+    1024 window (the ring wraps) and spans 9 SSD chunks.  A ``vlm``'s image
+    embeddings, drawn as the serve CLI draws them, go in front of the S tokens.
+    In an MoE model a routing flip (``pin_routes``) is printed with its token,
+    layer and margin, must lie within ``FLIP_MARGIN`` of a tie, and the CPU
+    follows the card's choice there."""
     from repro_torch.configs import get_config
     from repro_torch.data.synthetic import make_lm_batch
     from repro_torch.models import build_model
@@ -798,11 +916,16 @@ def path_vs_plain(dtype: str, device, arch="hymba-1.5b", S=1100, batch=2) -> flo
     steps = 4
     toks = make_lm_batch(prng.fold_in_str(key, "prompts"), batch, S + steps + 1,
                          cfg.vocab_size, device)["tokens"]
+    prompt = {"tokens": toks[:, :S]}
+    if cfg.family == "vlm":
+        prompt["image_embeds"] = 0.02 * prng.normal(
+            prng.fold_in_str(key, "img"), (batch, cfg.num_image_tokens, cfg.d_model))
+    budget = S + cfg.num_image_tokens + steps
     before = read_launches()
-    with torch.no_grad():
-        lg, cg = api.prefill(params, {"tokens": toks[:, :S]}, S + steps)
+    with torch.no_grad(), pin_routes() as pins:
+        lg, cg = api.prefill(params, prompt, budget)
         t0 = time.perf_counter()
-        lc, cc = api.prefill(cpu_params, {"tokens": toks[:, :S].cpu()}, S + steps)
+        lc, cc = api.prefill(cpu_params, tree_to(prompt, "cpu"), budget)
         cpu_s = time.perf_counter() - t0
         pairs = [(lg, lc)]
         for i in range(steps):
@@ -810,6 +933,15 @@ def path_vs_plain(dtype: str, device, arch="hymba-1.5b", S=1100, batch=2) -> flo
             lc, cc = api.decode_step(cpu_params, cc, toks[:, S + i].cpu())
             pairs.append((lg, lc))
     after = read_launches()
+    for call, n, card_e, cpu_e, gap in pins.flips:
+        step, layer = divmod(call, cfg.num_layers)
+        where = "prefill" if step == 0 else f"decode step {step - 1}"
+        print(f"{arch} {dtype} routing flip: {where}, layer {layer}, token {n}: card experts "
+              f"{card_e}, CPU {cpu_e}, CPU router probabilities {gap:.3e} apart "
+              f"(allowed {FLIP_MARGIN[dtype]})")
+        if gap > FLIP_MARGIN[dtype]:
+            raise AssertionError(f"{arch} path vs plain {dtype}: a routing flip {gap:.3e} "
+                                 f"from a tie")
     want = expected_serving_launches(cfg, steps)
     if {k: after[k] - before[k] for k in after} != want:
         raise AssertionError(f"{arch} path vs plain: the card's path missed its kernels")
@@ -823,11 +955,72 @@ def path_vs_plain(dtype: str, device, arch="hymba-1.5b", S=1100, batch=2) -> flo
         errs.append(float((a - b).abs().max()))
         same.append(bool(torch.equal(a.argmax(-1), b.argmax(-1))))
     kinds = f" ({', '.join(cfg.layer_pattern)})" if cfg.layer_pattern else ""
-    print(f"{arch} cut to 2 layers{kinds}, {dtype}, B={batch}, prompt {S} + {steps} decode steps: "
+    img = f" after {cfg.num_image_tokens} image tokens" if cfg.num_image_tokens else ""
+    print(f"{arch} cut to 2 layers{kinds}, {dtype}, B={batch}, prompt {S}{img} + {steps} "
+          f"decode steps: "
           f"card vs CPU logits max_abs_err per step {', '.join(f'{e:.3e}' for e in errs)} "
           f"(tol {tol}, |logits| <= {float(pairs[0][1].float().abs().max()):.2f}); greedy "
-          f"tokens agree: {same}; CPU prefill {cpu_s:.1f} s")
+          f"tokens agree: {same}; CPU prefill {cpu_s:.1f} s"
+          + (f"; {len(pins.flips)} routing flip(s) at near-ties" if cfg.family == "moe" else ""))
     return max(errs)
+
+
+def moe_layer_vs_cpu(dtype: str, device, arch: str, B=2, S=512) -> int:
+    """One MoE layer of ``arch`` at full width on the card and on the CPU, on
+    identical inputs: seeded weights (1 / sqrt(fan-in)) and an input that leans
+    along router column 0, so that expert overflows its capacity.  Expert ids,
+    slots and the kept mask equal exactly; y and aux within ``PATH_TOL``; the
+    card's call makes no device-to-host sync.  -> the copies dropped."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+
+    cfg = get_config(arch)
+    d, ff, E, K = cfg.d_model, cfg.d_ff, cfg.num_experts, cfg.experts_per_token
+    wdt = getattr(torch, dtype)
+    g = torch.Generator(device=device)
+    g.manual_seed(7)
+
+    def draw(shape, fan_in, dt=wdt):
+        return (torch.randn(shape, generator=g, device=device) / math.sqrt(fan_in)).to(dt)
+
+    p = {"router": draw((d, E), d, torch.float32), "w_gate": draw((E, d, ff), d),
+         "w_up": draw((E, d, ff), d), "w_down": draw((E, ff, d), ff)}
+    col = p["router"][:, 0]
+    x = (0.5 * torch.randn((B, S, d), generator=g, device=device)
+         + 6.0 * col / col.norm()).to(wdt)
+    cpu_p, cpu_x = tree_to(p, "cpu"), x.cpu()
+    torch.cuda.synchronize()
+    with torch.no_grad():
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            y, aux = moe.moe_ffn(p, x, cfg)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        yc, auxc = moe.moe_ffn(cpu_p, cpu_x, cfg)
+        r = moe.route(p["router"], x.reshape(B * S, d), K)
+        rc = moe.route(cpu_p["router"], cpu_x.reshape(B * S, d), K)
+    what = f"{arch} MoE layer {dtype}, N={B * S}, C={r.capacity}"
+    for f in ("expert", "slot", "keep"):
+        a, b = getattr(r, f).cpu(), getattr(rc, f)
+        if not torch.equal(a, b):
+            bad = int((a != b).nonzero()[0, 0]) // K
+            probs = torch.softmax(cpu_x.reshape(B * S, d)[bad].float() @ cpu_p["router"], -1)
+            top = torch.sort(probs, descending=True).values
+            raise AssertionError(f"{what}: {f} differs card vs CPU, first at token {bad}, "
+                                 f"whose top-{K + 1} probabilities are {top[:K + 1].tolist()}")
+    drops = int((~rc.keep).sum())
+    if drops == 0:
+        raise AssertionError(f"{what}: the skewed input dropped no copy")
+    tol = PATH_TOL[dtype]
+    torch.testing.assert_close(y.cpu().float(), yc.float(), rtol=tol, atol=tol,
+                               msg=lambda m: f"{what} y card vs CPU: {m}")
+    torch.testing.assert_close(aux.cpu(), auxc, rtol=tol, atol=tol,
+                               msg=lambda m: f"{what} aux card vs CPU: {m}")
+    print(f"{what}: {drops} of {B * S * K} copies dropped, expert ids / slots / kept mask "
+          f"equal card vs CPU, y max_abs_err {float((y.cpu().float() - yc.float()).abs().max()):.3e} "
+          f"(|y| <= {float(yc.float().abs().max()):.2f}), aux {float(aux):.6f} vs "
+          f"{float(auxc):.6f} (tol {tol}); no device-to-host sync in the card's call")
+    return drops
 
 
 def decode_vs_prefill(device, arch="hymba-1.5b") -> float:
@@ -1488,13 +1681,17 @@ def time_ssd(lib, stream, Bz, S, nh, hp, ds, Q, device, card) -> dict:
             "library_ms": None}
 
 
-# The serving kernels' shapes in the ssm and dense families' runs (FAMILY_RUNS):
-# B7 on the cache after ``kv_repeat`` at the last decode step, B8 at the prefill.
+# The serving kernels' shapes in the ssm, dense, moe and vlm families' runs
+# (FAMILY_RUNS, MOE_VLM_RUNS): B7 on the cache after ``kv_repeat`` at the last
+# decode step, B8 at the prefill.
 FAMILY_SWA_SHAPES = {  # arch: (B, C, Hkv, G, D, window, softcap, fills)
     "qwen1.5-0.5b": (4, 2080, 16, 1, 64, 0, 0.0, (2079,) * 4),
     "gemma2-9b local": (2, 4096, 16, 1, 256, 4096, 50.0, (4175,) * 2),
     "gemma2-9b global": (2, 4176, 16, 1, 256, 0, 50.0, (4175,) * 2),
     "mistral-nemo-12b / chatglm3-6b": (2, 520, 16, 2, 128, 0, 0.0, (519,) * 2),
+    "mixtral-8x7b": (2, 4096, 16, 2, 128, 4096, 0.0, (4175,) * 2),
+    "phi3.5-moe-42b-a6.6b": (4, 2080, 16, 2, 128, 0, 0.0, (2079,) * 4),
+    "internvl2-76b": (2, 784, 16, 4, 128, 0, 0.0, (783,) * 2),
 }
 FAMILY_SSD_SHAPES = {"mamba2-130m": (4, 2048, 24, 64, 128, 128)}
 
@@ -1840,6 +2037,12 @@ def main(argv=()) -> int:
         check_swa(2, 520, 16, 2, 128, 0, 0.0, (520, 513), dtype, device)
         check_swa(4, 2080, 16, 1, 64, 0, 0.0, (2080,) * 4, dtype, device)
         check_ssd(4, 2048, 24, 64, 128, 128, False, dtype, device)
+    # the moe and vlm families' serving shapes: mixtral-8x7b's 4,096-slot window ring
+    # wrapped (G 2, D 128), phi3.5-moe's full attention at B 4, internvl2-76b's G 4
+    for dtype in (torch.bfloat16, torch.float32):
+        check_swa(2, 4096, 16, 2, 128, 4096, 0.0, (4176, 4170), dtype, device)
+        check_swa(4, 2080, 16, 2, 128, 0, 0.0, (2080, 2079, 1500, 2080), dtype, device)
+        check_swa(2, 784, 16, 4, 128, 0, 0.0, (784, 700), dtype, device)
     main_err["pairwise_cosine"] = 0.0
     # the reference's shapes (tests/test_kernels.py): 128 / 512 tile edges,
     # one row, D = 1; the stage-3 shape is (100, 1024)
@@ -2110,6 +2313,19 @@ def main(argv=()) -> int:
     phase("serving: mamba2-130m decode vs prefill on the card")
     decode_vs_prefill(device, "mamba2-130m")
     torch.cuda.empty_cache()
+    phase("serving: one MoE layer at full width on the card vs the CPU, a skewed input")
+    for arch in ("mixtral-8x7b", "phi3.5-moe-42b-a6.6b"):
+        for dt in ("float32", "bfloat16"):
+            moe_layer_vs_cpu(dt, device, arch)
+        torch.cuda.empty_cache()
+    phase("serving: the moe and vlm families' paths on the card vs the plain path on the CPU")
+    # mixtral-8x7b: 600 tokens, G 2 through its window; phi3.5-moe: 16 experts;
+    # internvl2-76b: 300 tokens after its 256 image embeddings, G 4
+    for arch, S, batch in (("mixtral-8x7b", 600, 2), ("phi3.5-moe-42b-a6.6b", 600, 2),
+                           ("internvl2-76b", 300, 2)):
+        for dt in ("float32", "bfloat16"):
+            path_vs_plain(dt, device, arch, S, batch)
+        torch.cuda.empty_cache()
 
     # ---- 4f. the four-stage pipeline, stage by stage ---------------------------
     phase("pipeline: python -m repro_torch.launch.quickstart on cuda (N=40)")
@@ -2513,7 +2729,15 @@ def main(argv=()) -> int:
     # last: whole decode steps profiled before phase 5's device_profile calls made
     # those calls read half the device time (torch 2.11 on an H100 80GB HBM3)
     phase("serving: the ssm and dense families at full width and depth, bf16")
-    serve_families(device, card)
+    family_launches = serve_families(device, card, FAMILY_RUNS)
+    phase("serving: the moe and vlm families at full width, 16 layers, bf16")
+    family_launches.update(serve_families(device, card, MOE_VLM_RUNS))
+    # B7's launches over every serving run: hymba-1.5b's and the families'
+    swa_row = next(k for k in kernels if k["name"] == "swa_decode")
+    swa_row["launches"] += sum(c["swa_decode"] for c in family_launches.values())
+    print(f"swa_decode launches by serving run: hymba-1.5b {serve_launches['swa_decode']}, "
+          + ", ".join(f"{a} {c['swa_decode']}" for a, c in family_launches.items())
+          + f"; {swa_row['launches']} in all")
 
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -4,10 +4,10 @@ Declared as in ``repro/configs/``: ``get_config(arch)`` gives the exact
 assigned config, ``get_smoke_config(arch)`` the reduced same-family variant
 the CPU tests run.  Of the FL models only ``fl-mnist-mlp`` runs so far (the
 two CNNs are declared and refused by ``models.build_model``); of the LM zoo
-the ``hybrid`` (hymba-1.5b), ``ssm`` (mamba2-130m) and ``dense``
-(qwen1.5-0.5b, gemma2-9b, mistral-nemo-12b, chatglm3-6b) families.  The other
-LM arch ids of the reference (``moe``, ``encdec``, ``vlm``) raise
-``NotImplementedError``.
+every decoder-only family: ``hybrid`` (hymba-1.5b), ``ssm`` (mamba2-130m),
+``dense`` (qwen1.5-0.5b, gemma2-9b, mistral-nemo-12b, chatglm3-6b), ``moe``
+(mixtral-8x7b, phi3.5-moe-42b-a6.6b) and ``vlm`` (internvl2-76b).  The
+reference's ``encdec`` arch id (whisper-small) raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -288,17 +288,138 @@ def chatglm3_6b_smoke() -> ModelConfig:
     )
 
 
+def mixtral_8x7b() -> ModelConfig:
+    """mixtral-8x7b: 8-expert top-2 MoE with sliding-window attention
+    [arXiv:2401.04088]."""
+    return ModelConfig(
+        name="mixtral-8x7b",
+        family="moe",
+        num_layers=32,
+        d_model=4096,
+        num_heads=32,
+        num_kv_heads=8,
+        d_ff=14336,
+        vocab_size=32000,
+        num_experts=8,
+        experts_per_token=2,
+        kv_repeat=2,
+        sliding_window=4096,
+        layer_pattern=("local",),  # every layer windowed (SWA), Mistral-style
+        rope_theta=1e6,
+        max_position_embeddings=131_072,
+        train_microbatches=8,
+        source="arXiv:2401.04088",
+    )
+
+
+def mixtral_8x7b_smoke() -> ModelConfig:
+    return mixtral_8x7b().replace(
+        name="mixtral-8x7b-smoke",
+        num_layers=2,
+        d_model=256,
+        num_heads=8,
+        num_kv_heads=4,
+        d_ff=512,
+        vocab_size=512,
+        num_experts=4,
+        kv_repeat=1,
+        sliding_window=32,
+        dtype="float32",
+        remat_policy="none",
+    )
+
+
+def phi35_moe_42b() -> ModelConfig:
+    """phi3.5-moe-42b-a6.6b: 16-expert top-2 MoE [hf:microsoft/Phi-3.5-MoE-instruct]."""
+    return ModelConfig(
+        name="phi3.5-moe-42b-a6.6b",
+        family="moe",
+        num_layers=32,
+        d_model=4096,
+        num_heads=32,
+        num_kv_heads=8,
+        d_ff=6400,
+        vocab_size=32064,
+        num_experts=16,
+        experts_per_token=2,
+        kv_repeat=2,  # kv 8 -> 16, as the reference shards the cache
+        rope_theta=10_000.0,
+        max_position_embeddings=131_072,
+        train_microbatches=4,
+        source="hf:microsoft/Phi-3.5-MoE-instruct",
+    )
+
+
+def phi35_moe_42b_smoke() -> ModelConfig:
+    return phi35_moe_42b().replace(
+        name="phi3.5-moe-42b-a6.6b-smoke",
+        num_layers=2,
+        d_model=256,
+        num_heads=8,
+        num_kv_heads=4,
+        d_ff=512,
+        vocab_size=512,
+        num_experts=4,
+        kv_repeat=1,
+        dtype="float32",
+        remat_policy="none",
+    )
+
+
+def internvl2_76b() -> ModelConfig:
+    """internvl2-76b: the VLM's language decoder [arXiv:2404.16821].  The
+    vision encoder is stubbed, as in the reference: ``num_image_tokens``
+    precomputed patch embeddings go in front of the text tokens."""
+    return ModelConfig(
+        name="internvl2-76b",
+        family="vlm",
+        num_layers=80,
+        d_model=8192,
+        num_heads=64,
+        num_kv_heads=8,
+        d_ff=28672,
+        vocab_size=128256,
+        kv_repeat=2,
+        num_image_tokens=256,
+        rope_theta=5e5,
+        max_position_embeddings=131_072,
+        train_microbatches=16,
+        serve_fsdp=True,
+        attn_block_q=256,
+        source="arXiv:2404.16821",
+    )
+
+
+def internvl2_76b_smoke() -> ModelConfig:
+    return internvl2_76b().replace(
+        name="internvl2-76b-smoke",
+        num_layers=2,
+        d_model=256,
+        num_heads=8,
+        num_kv_heads=4,
+        d_ff=512,
+        vocab_size=512,
+        kv_repeat=1,
+        num_image_tokens=4,
+        dtype="float32",
+        remat_policy="none",
+    )
+
+
 LM_ARCHS = {
     "chatglm3-6b": (chatglm3_6b, chatglm3_6b_smoke),
     "gemma2-9b": (gemma2_9b, gemma2_9b_smoke),
     "hymba-1.5b": (hymba_15b, hymba_15b_smoke),
+    "internvl2-76b": (internvl2_76b, internvl2_76b_smoke),
     "mamba2-130m": (mamba2_130m, mamba2_130m_smoke),
     "mistral-nemo-12b": (mistral_nemo_12b, mistral_nemo_12b_smoke),
+    "mixtral-8x7b": (mixtral_8x7b, mixtral_8x7b_smoke),
+    "phi3.5-moe-42b-a6.6b": (phi35_moe_42b, phi35_moe_42b_smoke),
     "qwen1.5-0.5b": (qwen15_05b, qwen15_05b_smoke),
 }
 
-# The reference's other LM arch ids: known, not ported yet.
-UNPORTED_LM_ARCHS = ("internvl2-76b", "mixtral-8x7b", "phi3.5-moe-42b-a6.6b", "whisper-small")
+# The reference's other LM arch id: known, not ported yet.
+UNPORTED_LM_ARCHS = ("whisper-small",)
 
 ALL_ARCH_IDS = tuple(sorted(PAPER_MODELS)) + tuple(sorted(LM_ARCHS))
 

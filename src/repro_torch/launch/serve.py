@@ -5,12 +5,13 @@
 
 The flags of ``repro.launch.serve`` (``--arch --batch --prompt-len --gen
 --full``) plus ``--device`` (default ``cuda``; it raises without a card,
-``cpu`` runs the kernels' plain versions).  ``--arch`` takes the ported LM
-arch ids (the dense, ssm and hybrid families); its default is the
-reference's, ``qwen1.5-0.5b``.  Weights are drawn from a seed as the
-reference draws them (``fold_in_str(key(0), "init")``, prompts from
-``"prompts"``), and the two ``[serve]`` lines are the reference's; each time
-ends in ``torch.cuda.synchronize()`` on the card.
+``cpu`` runs the kernels' plain versions).  ``--arch`` takes the reference's
+LM arch ids (every decoder-only family runs; whisper-small raises
+``NotImplementedError`` naming ROADMAP.md); its default is the reference's,
+``qwen1.5-0.5b``.  Weights are drawn from a seed as the reference draws them
+(``fold_in_str(key(0), "init")``, prompts from ``"prompts"``, a ``vlm``'s
+stubbed image embeddings from ``"img"``), and the two ``[serve]`` lines are
+the reference's; each time ends in ``torch.cuda.synchronize()`` on the card.
 """
 from __future__ import annotations
 
@@ -20,7 +21,8 @@ import time
 
 import torch
 
-from repro_torch.configs import LM_ARCHS, get_config, get_smoke_config
+from repro_torch.config import ModelConfig
+from repro_torch.configs import LM_ARCHS, UNPORTED_LM_ARCHS, get_config, get_smoke_config
 from repro_torch.data.synthetic import make_lm_batch
 from repro_torch.models import build_model
 from repro_torch.utils import prng
@@ -36,7 +38,8 @@ class ServeResult:
     logits: torch.Tensor  # the last step's (batch, vocab) logits
     params: dict
     cache: dict  # after the last decode step
-    prompts: dict  # {"tokens": (batch, prompt_len)}
+    prompts: dict  # {"tokens": (batch, prompt_len)}, and a vlm's "image_embeds"
+    cfg: ModelConfig  # the config served
 
 
 def _sync(device: torch.device) -> None:
@@ -45,11 +48,13 @@ def _sync(device: torch.device) -> None:
 
 
 def serve(arch: str = "qwen1.5-0.5b", batch: int = 4, prompt_len: int = 64, gen: int = 32,
-          full: bool = False, device="cuda") -> ServeResult:
+          full: bool = False, device="cuda", cfg: ModelConfig | None = None) -> ServeResult:
     """The CLI's run: the generated tokens, the three times, and what the
-    run ends with (last logits, weights, cache, prompts)."""
+    run ends with (last logits, weights, cache, prompts).  A ``cfg`` given
+    (say, a config cut in depth) takes the place of ``arch`` and ``full``."""
     device = resolve_device(device)
-    cfg = get_config(arch) if full else get_smoke_config(arch)
+    if cfg is None:
+        cfg = get_config(arch) if full else get_smoke_config(arch)
     api = build_model(cfg)
     key = prng.key(0, device)
     t0 = time.perf_counter()
@@ -57,10 +62,13 @@ def serve(arch: str = "qwen1.5-0.5b", batch: int = 4, prompt_len: int = 64, gen:
     b = make_lm_batch(prng.fold_in_str(key, "prompts"), batch, prompt_len + 1,
                       cfg.vocab_size, device)
     prompts = {"tokens": b["tokens"][:, :prompt_len]}
+    if cfg.family == "vlm":
+        prompts["image_embeds"] = 0.02 * prng.normal(
+            prng.fold_in_str(key, "img"), (batch, cfg.num_image_tokens, cfg.d_model))
     _sync(device)
     setup_s = time.perf_counter() - t0
 
-    max_seq = prompt_len + gen
+    max_seq = prompt_len + gen + cfg.num_image_tokens
     with torch.no_grad():
         t0 = time.perf_counter()
         logits, cache = api.prefill(params, prompts, max_seq)
@@ -76,12 +84,13 @@ def serve(arch: str = "qwen1.5-0.5b", batch: int = 4, prompt_len: int = 64, gen:
         out = torch.stack(generated, dim=1)
         _sync(device)
         decode_s = time.perf_counter() - t0
-    return ServeResult(out, setup_s, prefill_s, decode_s, logits, params, cache, prompts)
+    return ServeResult(out, setup_s, prefill_s, decode_s, logits, params, cache, prompts, cfg)
 
 
 def main(argv=None) -> ServeResult:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="qwen1.5-0.5b", choices=sorted(LM_ARCHS))
+    ap.add_argument("--arch", default="qwen1.5-0.5b",
+                    choices=sorted(LM_ARCHS) + list(UNPORTED_LM_ARCHS))
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=64)
     ap.add_argument("--gen", type=int, default=32)
@@ -89,8 +98,7 @@ def main(argv=None) -> ServeResult:
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = ap.parse_args(argv)
     res = serve(args.arch, args.batch, args.prompt_len, args.gen, args.full, args.device)
-    name = (get_config if args.full else get_smoke_config)(args.arch).name
-    print(f"[serve] {name}: prefill {args.batch}x{args.prompt_len} in {res.prefill_s:.2f}s")
+    print(f"[serve] {res.cfg.name}: prefill {args.batch}x{args.prompt_len} in {res.prefill_s:.2f}s")
     print(f"[serve] decoded {args.gen} tokens/seq in {res.decode_s:.2f}s "
           f"({args.batch * args.gen / res.decode_s:.1f} tok/s); "
           f"sample row: {res.tokens[0][:16].tolist()}")

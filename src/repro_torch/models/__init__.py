@@ -1,9 +1,9 @@
-"""The port's models: the FL task MLP and the LM zoo's dense, ssm and hybrid
-families.
+"""The port's models: the FL task MLP and the LM zoo's decoder-only families
+(dense, moe, ssm, hybrid, vlm).
 
 ``build_model(cfg)`` gives the FL ``ModelApi`` for ``mlp`` and hands the LM
-families to ``models.zoo.build_lm``, which runs ``dense``, ``ssm`` and
-``hybrid`` and refuses the rest.
+families to ``models.zoo.build_lm``, which runs every decoder-only family
+and refuses ``encdec``.
 """
 from __future__ import annotations
 

@@ -1,20 +1,24 @@
-"""Decoder-only LM engine of the port (``repro.models.transformer``), the
-``dense``, ``ssm`` and ``hybrid`` families:
+"""Decoder-only LM engine of the port (``repro.models.transformer``), every
+decoder-only family of the reference:
 
   dense  : ln -> GQA attn -> res -> ln -> SwiGLU -> res
+  moe    : ln -> GQA attn -> res -> ln -> MoE FFN -> res
   ssm    : ln -> mamba2 mixer -> res                       (no attn, no MLP)
   hybrid : ln -> (GQA attn || mamba2) averaged -> res -> ln -> SwiGLU -> res
+  vlm    : dense blocks; stubbed image patch embeddings go in front of the
+           token embeddings at prefill
 
 Layers are stacked with a leading ``layers`` axis per pattern sub-layer, as
 in the reference; a Python loop over that axis takes the place of
 ``lax.scan``.  Prefill attention is ``layers.blocked_attention`` in plain
-torch; every decode step's attention goes through ``kernels.swa_decode``
-and every prefill's SSM scan through ``kernels.ssd_scan`` (hand-written CUDA
-on the card, their plain versions on the CPU).  The reference's ``act_shard``
-annotations and remat policies have no counterpart on one card and are
-dropped.  ``lm_decode_step`` updates the cache it is given in place and
-returns it.  The other families (moe, encdec, vlm) raise
-``NotImplementedError``.
+torch and the MoE FFN is ``models.moe.moe_ffn`` in plain torch; every decode
+step's attention goes through ``kernels.swa_decode`` and every prefill's SSM
+scan through ``kernels.ssd_scan`` (hand-written CUDA on the card, their plain
+versions on the CPU).  The reference's ``act_shard`` annotations and remat
+policies have no counterpart on one card and are dropped.  The MoE layer's
+load-balance loss is dropped too: it only feeds ``lm_loss``, which is not
+ported.  ``lm_decode_step`` updates the cache it is given in place and
+returns it.  The ``encdec`` family raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -25,10 +29,11 @@ import torch
 
 from repro_torch.kernels import swa_decode as _swa
 from repro_torch.models import layers as L
+from repro_torch.models.moe import init_moe, moe_ffn
 from repro_torch.models.ssm import init_ssm, init_ssm_state, ssm_forward
 from repro_torch.utils import prng
 
-PORTED_FAMILIES = ("hybrid", "ssm", "dense")
+PORTED_FAMILIES = ("hybrid", "ssm", "dense", "moe", "vlm")
 
 
 def check_family(cfg) -> None:
@@ -122,8 +127,12 @@ def init_lm(key, cfg, device=None) -> dict:
             if cfg.family == "hybrid":
                 block["attn_out_norm"] = L.ones_init((Lp, d), dtype, device)
                 block["ssm_out_norm"] = L.ones_init((Lp, d), dtype, device)
-        if _ffn_kind(cfg) == "swiglu":
+        ffn = _ffn_kind(cfg)
+        if ffn == "moe":
+            block["moe"] = init_moe(bk[2], cfg, Lp, dtype, device)
+        elif ffn == "swiglu":
             block["mlp"] = L.init_swiglu(bk[2], d, cfg.d_ff, Lp, dtype, device)
+        if ffn:
             block["ln2"] = L.ones_init((Lp, d), dtype, device)
         params["blocks"].append(block)
     return params
@@ -212,7 +221,9 @@ def _attn_decode(cfg, bp, x, pos, inv_freq, window: int, cache):
 
 def apply_block(cfg, kind: str, bp, x, positions, inv_freq, mode: str, cache=None,
                 seq_len_hint: int = 0):
-    """One sub-layer.  Returns (x, new_cache_entry): the entries the block has."""
+    """One sub-layer.  Returns (x, new_cache_entry): the entries the block has.
+    The reference also returns the MoE layer's aux loss; it is dropped here
+    until ``lm_loss`` is ported."""
     window = kind_window(cfg, kind, long_ctx_cap=32_768 if cfg.variant == "swa-capped" else 0)
     decode = mode == "decode"
     h = L.rms_norm(x, bp["ln1"], cfg.norm_eps, cfg.zero_centered_norm)
@@ -233,11 +244,11 @@ def apply_block(cfg, kind: str, bp, x, positions, inv_freq, mode: str, cache=Non
         a = L.rms_norm(a, bp["attn_out_norm"], cfg.norm_eps)
         s = L.rms_norm(s, bp["ssm_out_norm"], cfg.norm_eps)
         x = x + 0.5 * (a + s)  # in the model dtype, as the reference rounds it
-    else:  # dense
+    else:  # dense / moe / vlm
         x = x + a
     if "ln2" in bp:
         h2 = L.rms_norm(x, bp["ln2"], cfg.norm_eps, cfg.zero_centered_norm)
-        x = x + L.swiglu(bp["mlp"], h2)
+        x = x + (moe_ffn(bp["moe"], h2, cfg)[0] if "moe" in bp else L.swiglu(bp["mlp"], h2))
     return x, new_cache
 
 
@@ -258,6 +269,14 @@ def _embed_tokens(params, cfg, tokens):
         # the reference's Python scalar is weakly typed: it rounds to the model
         # dtype before the product (sqrt(3584) is 59.75 in bf16)
         x = x * float(torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype))
+    return x
+
+
+def _assemble_input(params, cfg, batch):
+    """Token embeddings, with the stubbed image patches in front for ``vlm``."""
+    x = _embed_tokens(params, cfg, batch["tokens"])
+    if cfg.family == "vlm":
+        x = torch.cat([batch["image_embeds"].to(x.dtype), x], dim=1)
     return x
 
 
@@ -298,9 +317,11 @@ def _stack(entries):
 def lm_prefill(params, cfg, batch, max_seq=None):
     """Full-context forward -> (last-token logits (B, V), decode cache).
 
-    ``max_seq`` sizes the decode KV budget (>= prompt length); default S.
+    ``batch`` holds ``tokens`` (B, S), and for ``vlm`` ``image_embeds`` (B,
+    num_image_tokens, d): positions then run over both.  ``max_seq`` sizes
+    the decode KV budget (>= the positions prefilled); default all of them.
     """
-    x = _embed_tokens(params, cfg, batch["tokens"])
+    x = _assemble_input(params, cfg, batch)
     B, S, _ = x.shape
     positions = torch.arange(S, device=x.device)[None, :].expand(B, S)
     x, caches = forward_seq(params, cfg, x, positions, max_seq=max_seq or S)

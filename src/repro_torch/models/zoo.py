@@ -7,8 +7,9 @@
   decode_step(params, cache, tokens)    -> (logits, cache)   [cache updated in place]
   init_cache(batch, seq_len, prefilled=0, device=None) -> cache tree
 
-The ``dense``, ``ssm`` and ``hybrid`` families are ported; ``moe``,
-``encdec`` and ``vlm`` raise ``NotImplementedError`` naming ROADMAP.md.
+Every decoder-only family is ported (``dense``, ``moe``, ``ssm``,
+``hybrid``, ``vlm``; a ``vlm`` prefill batch also holds ``image_embeds``);
+``encdec`` raises ``NotImplementedError`` naming ROADMAP.md.
 """
 from __future__ import annotations
 

@@ -61,7 +61,8 @@ def _field_defaults(cls):
 
 @pytest.mark.parametrize("arch", ["fl-mnist-mlp", "fl-cifar10-cnn", "fl-svhn-cnn",
                                   "hymba-1.5b", "mamba2-130m", "qwen1.5-0.5b", "gemma2-9b",
-                                  "mistral-nemo-12b", "chatglm3-6b"])
+                                  "mistral-nemo-12b", "chatglm3-6b", "mixtral-8x7b",
+                                  "phi3.5-moe-42b-a6.6b", "internvl2-76b"])
 def test_model_config_copy_matches_the_reference(arch):
     """The port's ModelConfig keeps the reference's fields, required fields and
     defaults, and its configs (full and smoke) equal the reference's field for

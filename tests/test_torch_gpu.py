@@ -31,7 +31,9 @@ split edges; the split-KV decode at its split edges (a window narrower than
 a split, empty and ragged splits, blind rows, narrow rows, more than 64
 splits); a selector round on the card against the CPU (RSU ids,
 connectivity, masks and cluster labels equal), and the unfused round
-against the fused one (integers equal, floats within rtol 1e-5).  Without
+against the fused one (integers equal, floats within rtol 1e-5).  The MoE
+layer on a skewed input that drops copies: routing equal card vs CPU, no
+device-to-host sync; the smoke moe and vlm LMs served card vs CPU.  Without
 a card every test skips, decided in the fixture.
 """
 import pytest
@@ -723,6 +725,10 @@ def _swa_operands(B, C, hkv, G, D, dtype, dev, fills, seed=0):
     # 4,096-slot ring wrapped
     (2, 4096, 16, 1, 256, 4096, 50.0, (4176, 4170)),
     (2, 520, 16, 2, 128, 0, 0.0, (520, 513)),  # mistral-nemo-12b / chatglm3-6b: G 2, D 128
+    # mixtral-8x7b: G 2, D 128 on its 4,096-slot window ring, wrapped
+    (2, 4096, 16, 2, 128, 4096, 0.0, (4176, 4170)),
+    (4, 2080, 16, 2, 128, 0, 0.0, (2080, 2079, 1500, 2080)),  # phi3.5-moe: B 4, no window
+    (2, 784, 16, 4, 128, 0, 0.0, (784, 700)),  # internvl2-76b: G 4, image tokens first
     (2, 1000, 2, 3, 64, 0, 0.0, (1000, 640)),  # C not a multiple of the 256-slot tile
     (3, 1, 2, 4, 32, 0, 0.0, (1, 5, 9)),  # one slot
     (2, 300, 4, 1, 128, 64, 0.0, (300, 77)),  # G = 1, a window inside the ring
@@ -1108,3 +1114,74 @@ def test_unfused_round_on_the_card_matches_the_fused_round(dev, cr):
     for f in ("sim_time", "duration", "mean_pred_latency", "mean_real_latency"):
         torch.testing.assert_close(getattr(mu, f), getattr(mf, f), rtol=1e-5, atol=1e-6)
     torch.testing.assert_close(su.params, sf.params, rtol=1e-5, atol=1e-7)
+
+
+def _skewed_moe_layer(cfg, dtype, dev, B=2, S=256):
+    """One layer's weights and an input leaning along router column 0."""
+    d, ff, E = cfg.d_model, cfg.d_ff, cfg.num_experts
+    g = torch.Generator(device=dev)
+    g.manual_seed(3)
+
+    def draw(shape, fan_in, dt=dtype):
+        return (torch.randn(shape, generator=g, device=dev) / fan_in ** 0.5).to(dt)
+
+    p = {"router": draw((d, E), d, torch.float32), "w_gate": draw((E, d, ff), d),
+         "w_up": draw((E, d, ff), d), "w_down": draw((E, ff, d), ff)}
+    col = p["router"][:, 0]
+    x = (0.5 * torch.randn((B, S, d), generator=g, device=dev) + 6.0 * col / col.norm())
+    return p, x.to(dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("arch", ["mixtral-8x7b", "phi3.5-moe-42b-a6.6b"])
+def test_moe_layer_on_the_card_matches_the_cpu(dev, arch, dtype):
+    """The smoke MoE layer on a skewed input that drops copies: expert ids, slots
+    and the kept mask equal on the card and the CPU, y within 1e-4 (fp32) /
+    0.0625 (bf16) on identical inputs, and the card's call syncs with the host
+    nowhere."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import moe
+
+    cfg = get_smoke_config(arch)
+    p, x = _skewed_moe_layer(cfg, dtype, dev)
+    cp, cx = _tree_to(p, "cpu"), x.cpu()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        y, aux = moe.moe_ffn(p, x, cfg)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    yc, auxc = moe.moe_ffn(cp, cx, cfg)
+    N, d = x.shape[0] * x.shape[1], x.shape[2]
+    r = moe.route(p["router"], x.reshape(N, d), cfg.experts_per_token)
+    rc = moe.route(cp["router"], cx.reshape(N, d), cfg.experts_per_token)
+    for f in ("expert", "slot", "keep"):
+        assert torch.equal(getattr(r, f).cpu(), getattr(rc, f)), f
+    assert int((~rc.keep).sum()) > 0
+    tol = 1e-4 if dtype == torch.float32 else 0.0625
+    torch.testing.assert_close(y.cpu().float(), yc.float(), rtol=tol, atol=tol)
+    torch.testing.assert_close(aux.cpu(), auxc, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("arch", ["mixtral-8x7b", "phi3.5-moe-42b-a6.6b", "internvl2-76b"])
+def test_moe_and_vlm_serving_on_the_card_matches_the_cpu(dev, arch, dtype):
+    """The smoke moe and vlm LMs through the serve CLI's code on the card and the
+    CPU: the same prompt tokens, image embeddings within 4 ulps (the draw's
+    ``erf_inv`` polynomial may round apart on the two), one ``swa_decode``
+    launch per layer and decode step, logits within 1e-4 (fp32) / 0.0625 (bf16)."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.kernels import swa_decode as swa
+    from repro_torch.launch import serve
+
+    cfg = get_smoke_config(arch).replace(dtype=dtype)
+    before = swa.launches
+    card = serve.serve(batch=2, prompt_len=40, gen=4, device=dev, cfg=cfg)
+    assert swa.launches == before + 3 * cfg.num_layers
+    cpu = serve.serve(batch=2, prompt_len=40, gen=4, device="cpu", cfg=cfg)
+    tol = 1e-4 if dtype == "float32" else 0.0625
+    assert torch.equal(card.prompts["tokens"].cpu(), cpu.prompts["tokens"])
+    if cfg.family == "vlm":
+        torch.testing.assert_close(card.prompts["image_embeds"].cpu(),
+                                   cpu.prompts["image_embeds"], rtol=4 * 2.0 ** -23, atol=0)
+    torch.testing.assert_close(card.logits.cpu().float(), cpu.logits.float(), rtol=tol, atol=tol)
