@@ -44,7 +44,9 @@ Phases (any failure raises and exits non-zero):
    4,096-slot ring and its global layers at D=256 with softcap 50, G=2 at
    D=128, qwen1.5-0.5b's G=1 at D=64, mamba2-130m's prefill), at the moe and
    vlm families' (mixtral-8x7b's wrapped 4,096-slot ring at G=2, phi3.5-moe's
-   B=4, internvl2-76b's G=4) and at their edges (a ragged split, one slot, G=1, a partly filled and a
+   B=4, internvl2-76b's G=4), at whisper-small's self ring (64 slots,
+   wrapped) and cross-attention (1,500 frames, every one visible) and at
+   their edges (a ragged split, one slot, G=1, a partly filled and a
    wrapped ring, rows with no visible slot, softcap; a window narrower than
    a split, G=16 at D=256, rows of 4-byte and 2-byte multiples; one step, a
    ragged last chunk, Q > S, a given h0, mamba2's ds=128 head, 12,800
@@ -90,8 +92,10 @@ Phases (any failure raises and exits non-zero):
    on a skewed input that drops copies, card vs CPU in fp32 and bf16 (expert
    ids, slots and kept mask exactly, no device-to-host sync on the card), and
    2 layers card-vs-CPU in fp32 and bf16 for mixtral-8x7b (S=600),
-   phi3.5-moe (S=600) and internvl2-76b (S=300 after its 256 image tokens)
-   (the families' serving runs come last, after phase 5);
+   phi3.5-moe (S=600) and internvl2-76b (S=300 after its 256 image tokens),
+   and whisper-small cut to 2 + 2 layers (4 x 64 behind 1,500 frames, its
+   ring wrapping, as the CLI prefills it) (the families' serving runs come
+   last, after phase 5);
 4f. pipeline: ``python -m repro_torch.launch.quickstart`` on the card and
    on the CPU (the same elected ids and cluster sizes); three rounds of
    ``ContextualSelector`` at full width (ring, N=100, sketch_dim 1024,
@@ -115,7 +119,8 @@ Phases (any failure raises and exits non-zero):
    without its carry, beside a copy of its rows; ``ssd_scan``'s beside its
    events, its bound with the products at the TF32 tensor-core rate and
    beside it the fp32-core figure; both also at the ssm and dense families'
-   serving shapes, printed beside the kernels line); the round's wall time
+   serving shapes and whisper-small's two decode shapes, printed beside the
+   kernels line); the round's wall time
    (the fedavg, fedadam, fedbuff and streamed lanes), and profiled rounds (with ``rsu_reduce``'s calls and
    device time per call in the streamed and fleet rounds), a profiled
    decode step and prefill (with ``ssd_scan``'s calls and time per call);
@@ -132,7 +137,10 @@ Phases (any failure raises and exits non-zero):
    and vlm families the same way at full width and 16 layers (no more fits
    one card): mixtral-8x7b (2 x 4160, 16: its window ring wraps),
    phi3.5-moe (4 x 2048, 32) and internvl2-76b (2 x (256 image + 512), 16),
-   each also with the copies its prefill dropped over capacity.
+   each also with the copies its prefill dropped over capacity; last, the
+   encdec family: whisper-small at full width and depth (12 + 12 layers), 4 x
+   64 behind 4 x 1,500 frames, 32 tokens, exactly 2 x 12 ``swa_decode``
+   launches a decode step.
 
 The last three lines are the kernels' JSON record (their fp32 rows;
 ``swa_decode``'s launches summed over every serving run), the card's name and
@@ -710,14 +718,23 @@ FAMILY_RUNS = (("mamba2-130m", 4, 2048, 32), ("qwen1.5-0.5b", 4, 2048, 32),
 # window ring; internvl2's 512 tokens follow its 256 image tokens.
 MOE_VLM_RUNS = (("mixtral-8x7b", 2, 4160, 16, 16), ("phi3.5-moe-42b-a6.6b", 4, 2048, 32, 16),
                 ("internvl2-76b", 2, 512, 16, 16))
+# The encdec family's run: ``--arch whisper-small --full`` at the CLI's defaults, 12 +
+# 12 layers.  The prefill (no max_seq, as the CLI's) leaves a 64-slot self ring that
+# wraps on the first decode step; the cross-attention reads 1,500 cached frames.
+ENCDEC_RUNS = (("whisper-small", 4, 64, 32),)
 
 
 def expected_serving_launches(cfg, steps: int) -> dict:
     """A prefill and ``steps`` decode steps: ``ssd_scan`` once per SSM layer (the
-    prefill), ``swa_decode`` once per attention layer and step; no other kernel."""
+    prefill), ``swa_decode`` once per attention layer and step (twice per
+    decoder layer and step in an ``encdec`` model: self and cross); no other
+    kernel."""
     from repro_torch.models.transformer import _has_attn, _has_ssm
 
     want = dict.fromkeys(read_launches(), 0)
+    if cfg.family == "encdec":
+        want.update(swa_decode=2 * cfg.num_layers * steps)
+        return want
     want.update(ssd_scan=cfg.num_layers if _has_ssm(cfg) else 0,
                 swa_decode=cfg.num_layers * steps if _has_attn(cfg) else 0)
     return want
@@ -747,6 +764,11 @@ class count_drops:
         return int(sum(self.total)) if self.total else 0
 
 
+def cut_depth(cfg, layers: int):
+    """``cfg`` cut to ``layers`` layers; an encoder-decoder's encoder too."""
+    return cfg.replace(num_layers=layers, encoder_layers=min(cfg.encoder_layers, layers))
+
+
 def serve_full(device, card, arch="hymba-1.5b", batch=4, prompt=2048, gen=32, layers=None):
     """The serving CLI's run at full width (``--arch arch --full``), at full depth
     or cut to ``layers``; launch counts zeroed just before and read just after,
@@ -759,7 +781,9 @@ def serve_full(device, card, arch="hymba-1.5b", batch=4, prompt=2048, gen=32, la
     depth = f"{cfg.num_layers} layers"
     if layers:
         depth = f"{layers} of {cfg.num_layers} layers"
-        cfg = cfg.replace(num_layers=layers)
+        cfg = cut_depth(cfg, layers)
+    elif cfg.encoder_layers:
+        depth = f"{cfg.encoder_layers} + {cfg.num_layers} layers"
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     held = torch.cuda.memory_allocated()
@@ -770,6 +794,8 @@ def serve_full(device, card, arch="hymba-1.5b", batch=4, prompt=2048, gen=32, la
     peak = torch.cuda.max_memory_allocated() - held
     n_params = sum(x.numel() for x in _leaves(res.params))
     img = f" + {cfg.num_image_tokens} image tokens" if cfg.num_image_tokens else ""
+    if cfg.encoder_seq:
+        img = f" behind {batch}x{cfg.encoder_seq} encoder frames"
     print(f"{arch} {cfg.dtype}, {depth}, {n_params:,} parameters: set-up (init on the card "
           f"through the port's threefry, prompts) {res.setup_s:.2f} s; prefill "
           f"{batch}x{prompt}{img} {res.prefill_s * 1e3:.1f} ms; {gen - 1} decode steps "
@@ -908,7 +934,7 @@ def path_vs_plain(dtype: str, device, arch="hymba-1.5b", S=1100, batch=2) -> flo
     from repro_torch.models import build_model
     from repro_torch.utils import prng
 
-    cfg = get_config(arch).replace(num_layers=2, dtype=dtype)
+    cfg = cut_depth(get_config(arch), 2).replace(dtype=dtype)
     api = build_model(cfg)
     key = prng.key(0, device)
     params = api.init(prng.fold_in_str(key, "init"), device)
@@ -921,6 +947,10 @@ def path_vs_plain(dtype: str, device, arch="hymba-1.5b", S=1100, batch=2) -> flo
         prompt["image_embeds"] = 0.02 * prng.normal(
             prng.fold_in_str(key, "img"), (batch, cfg.num_image_tokens, cfg.d_model))
     budget = S + cfg.num_image_tokens + steps
+    if cfg.family == "encdec":
+        prompt["frames"] = 0.02 * prng.normal(
+            prng.fold_in_str(key, "frames"), (batch, cfg.encoder_seq, cfg.d_model))
+        budget = None  # as the CLI prefills it: an S-slot ring, wrapping from step 0
     before = read_launches()
     with torch.no_grad(), pin_routes() as pins:
         lg, cg = api.prefill(params, prompt, budget)
@@ -956,6 +986,8 @@ def path_vs_plain(dtype: str, device, arch="hymba-1.5b", S=1100, batch=2) -> flo
         same.append(bool(torch.equal(a.argmax(-1), b.argmax(-1))))
     kinds = f" ({', '.join(cfg.layer_pattern)})" if cfg.layer_pattern else ""
     img = f" after {cfg.num_image_tokens} image tokens" if cfg.num_image_tokens else ""
+    if cfg.family == "encdec":
+        kinds, img = " + 2 encoder layers", f" behind {cfg.encoder_seq} frames"
     print(f"{arch} cut to 2 layers{kinds}, {dtype}, B={batch}, prompt {S}{img} + {steps} "
           f"decode steps: "
           f"card vs CPU logits max_abs_err per step {', '.join(f'{e:.3e}' for e in errs)} "
@@ -1681,9 +1713,9 @@ def time_ssd(lib, stream, Bz, S, nh, hp, ds, Q, device, card) -> dict:
             "library_ms": None}
 
 
-# The serving kernels' shapes in the ssm, dense, moe and vlm families' runs
-# (FAMILY_RUNS, MOE_VLM_RUNS): B7 on the cache after ``kv_repeat`` at the last
-# decode step, B8 at the prefill.
+# The serving kernels' shapes in the ssm, dense, moe, vlm and encdec families'
+# runs (FAMILY_RUNS, MOE_VLM_RUNS, ENCDEC_RUNS): B7 on the cache after
+# ``kv_repeat`` at the last decode step, B8 at the prefill.
 FAMILY_SWA_SHAPES = {  # arch: (B, C, Hkv, G, D, window, softcap, fills)
     "qwen1.5-0.5b": (4, 2080, 16, 1, 64, 0, 0.0, (2079,) * 4),
     "gemma2-9b local": (2, 4096, 16, 1, 256, 4096, 50.0, (4175,) * 2),
@@ -1692,14 +1724,16 @@ FAMILY_SWA_SHAPES = {  # arch: (B, C, Hkv, G, D, window, softcap, fills)
     "mixtral-8x7b": (2, 4096, 16, 2, 128, 4096, 0.0, (4175,) * 2),
     "phi3.5-moe-42b-a6.6b": (4, 2080, 16, 2, 128, 0, 0.0, (2079,) * 4),
     "internvl2-76b": (2, 784, 16, 4, 128, 0, 0.0, (783,) * 2),
+    "whisper-small self": (4, 64, 12, 1, 64, 0, 0.0, (95,) * 4),
+    "whisper-small cross": (4, 1500, 12, 1, 64, 0, 0.0, (1500,) * 4),
 }
 FAMILY_SSD_SHAPES = {"mamba2-130m": (4, 2048, 24, 64, 128, 128)}
 
 
 def time_serving_kernels(kernels, lib, stream, serve_launches, main_err, device, card):
     """``swa_decode`` at hymba-1.5b's decode and ``ssd_scan`` at its prefill
-    (bf16), the kernels' JSON rows; then both at the ssm and dense families'
-    shapes, printed beside them."""
+    (bf16), the kernels' JSON rows; then each at the other families' shapes
+    (``FAMILY_SWA_SHAPES``, ``FAMILY_SSD_SHAPES``), printed beside them."""
     print("hymba-1.5b's serving shapes (the kernels line):")
     kernels.append(dict(
         name="swa_decode", route="cuda", source="src/repro_torch/kernels/csrc/swa_decode.cu",
@@ -2043,6 +2077,12 @@ def main(argv=()) -> int:
         check_swa(2, 4096, 16, 2, 128, 4096, 0.0, (4176, 4170), dtype, device)
         check_swa(4, 2080, 16, 2, 128, 0, 0.0, (2080, 2079, 1500, 2080), dtype, device)
         check_swa(2, 784, 16, 4, 128, 0, 0.0, (784, 700), dtype, device)
+    # whisper-small's decode: the self ring of 64 slots wrapped at position 94, and
+    # the cross-attention over 1,500 frames (not a multiple of the 128-slot split)
+    # with the query at frame 1,499, so that every frame is visible
+    for dtype in (torch.bfloat16, torch.float32):
+        check_swa(4, 64, 12, 1, 64, 0, 0.0, (95,) * 4, dtype, device)
+        check_swa(4, 1500, 12, 1, 64, 0, 0.0, (1500,) * 4, dtype, device)
     main_err["pairwise_cosine"] = 0.0
     # the reference's shapes (tests/test_kernels.py): 128 / 512 tile edges,
     # one row, D = 1; the stage-3 shape is (100, 1024)
@@ -2326,6 +2366,11 @@ def main(argv=()) -> int:
         for dt in ("float32", "bfloat16"):
             path_vs_plain(dt, device, arch, S, batch)
         torch.cuda.empty_cache()
+    phase("serving: the encdec family's path on the card vs the plain path on the CPU")
+    # whisper-small: 2 + 2 layers, 4 x 64 behind 1,500 frames, the 64-slot ring wrapping
+    for dt in ("float32", "bfloat16"):
+        path_vs_plain(dt, device, "whisper-small", 64, 4)
+    torch.cuda.empty_cache()
 
     # ---- 4f. the four-stage pipeline, stage by stage ---------------------------
     phase("pipeline: python -m repro_torch.launch.quickstart on cuda (N=40)")
@@ -2732,6 +2777,8 @@ def main(argv=()) -> int:
     family_launches = serve_families(device, card, FAMILY_RUNS)
     phase("serving: the moe and vlm families at full width, 16 layers, bf16")
     family_launches.update(serve_families(device, card, MOE_VLM_RUNS))
+    phase("serving: the encdec family at full width and depth, bf16")
+    family_launches.update(serve_families(device, card, ENCDEC_RUNS))
     # B7's launches over every serving run: hymba-1.5b's and the families'
     swa_row = next(k for k in kernels if k["name"] == "swa_decode")
     swa_row["launches"] += sum(c["swa_decode"] for c in family_launches.values())

@@ -4,10 +4,10 @@ Declared as in ``repro/configs/``: ``get_config(arch)`` gives the exact
 assigned config, ``get_smoke_config(arch)`` the reduced same-family variant
 the CPU tests run.  Of the FL models only ``fl-mnist-mlp`` runs so far (the
 two CNNs are declared and refused by ``models.build_model``); of the LM zoo
-every decoder-only family: ``hybrid`` (hymba-1.5b), ``ssm`` (mamba2-130m),
-``dense`` (qwen1.5-0.5b, gemma2-9b, mistral-nemo-12b, chatglm3-6b), ``moe``
-(mixtral-8x7b, phi3.5-moe-42b-a6.6b) and ``vlm`` (internvl2-76b).  The
-reference's ``encdec`` arch id (whisper-small) raises ``NotImplementedError``.
+every family: ``hybrid`` (hymba-1.5b), ``ssm`` (mamba2-130m), ``dense``
+(qwen1.5-0.5b, gemma2-9b, mistral-nemo-12b, chatglm3-6b), ``moe``
+(mixtral-8x7b, phi3.5-moe-42b-a6.6b), ``vlm`` (internvl2-76b) and ``encdec``
+(whisper-small).  An unknown arch id raises ``KeyError``.
 """
 from __future__ import annotations
 
@@ -406,6 +406,50 @@ def internvl2_76b_smoke() -> ModelConfig:
     )
 
 
+def whisper_small() -> ModelConfig:
+    """whisper-small: encoder-decoder ASR backbone, conv frontend stubbed
+    [arXiv:2212.04356].
+
+    The encoder takes precomputed frame embeddings (B, 1500, 768) (the mel +
+    conv stub); decoding runs the decoder with a self-attention KV cache and
+    the cached cross-attention K / V.
+    """
+    return ModelConfig(
+        name="whisper-small",
+        family="encdec",
+        num_layers=12,
+        d_model=768,
+        num_heads=12,
+        num_kv_heads=12,
+        d_ff=3072,
+        vocab_size=51865,
+        encoder_layers=12,
+        encoder_seq=1500,
+        rope_style="none",  # whisper uses absolute positions
+        attn_block_q=256,
+        train_microbatches=2,
+        max_position_embeddings=33_024,
+        source="arXiv:2212.04356",
+    )
+
+
+def whisper_small_smoke() -> ModelConfig:
+    return whisper_small().replace(
+        name="whisper-small-smoke",
+        num_layers=2,
+        encoder_layers=2,
+        d_model=128,
+        num_heads=4,
+        num_kv_heads=4,
+        d_ff=256,
+        vocab_size=512,
+        encoder_seq=16,
+        max_position_embeddings=128,
+        dtype="float32",
+        remat_policy="none",
+    )
+
+
 LM_ARCHS = {
     "chatglm3-6b": (chatglm3_6b, chatglm3_6b_smoke),
     "gemma2-9b": (gemma2_9b, gemma2_9b_smoke),
@@ -416,10 +460,8 @@ LM_ARCHS = {
     "mixtral-8x7b": (mixtral_8x7b, mixtral_8x7b_smoke),
     "phi3.5-moe-42b-a6.6b": (phi35_moe_42b, phi35_moe_42b_smoke),
     "qwen1.5-0.5b": (qwen15_05b, qwen15_05b_smoke),
+    "whisper-small": (whisper_small, whisper_small_smoke),
 }
-
-# The reference's other LM arch id: known, not ported yet.
-UNPORTED_LM_ARCHS = ("whisper-small",)
 
 ALL_ARCH_IDS = tuple(sorted(PAPER_MODELS)) + tuple(sorted(LM_ARCHS))
 
@@ -429,10 +471,6 @@ def _lookup(name: str, smoke: bool) -> ModelConfig:
         return PAPER_MODELS[name]
     if name in LM_ARCHS:
         return LM_ARCHS[name][1 if smoke else 0]()
-    if name in UNPORTED_LM_ARCHS:
-        raise NotImplementedError(
-            f"architecture {name!r} is not ported yet (see ROADMAP.md); "
-            f"ported: {', '.join(ALL_ARCH_IDS)}")
     raise KeyError(f"unknown model {name!r}; known: {sorted(ALL_ARCH_IDS)}")
 
 

@@ -2,7 +2,8 @@
 
 The JAX package's parameters come as a tree of numpy leaves (nested dicts
 and lists: ``{"convs": [], "fc1": {"b", "w"}, "fc2": {"b", "w"}}`` for the
-MLP, a ``blocks`` list of dicts for the LM zoo, bf16 leaves as
+MLP, a ``blocks`` list of dicts for the decoder-only LMs, ``encoder`` /
+``decoder`` dicts of stacked leaves for ``encdec``, bf16 leaves as
 ``ml_dtypes.bfloat16`` arrays), an LM decode cache likewise, or as
 the flat ``(P,)`` vector of its ``flatten_to_vector``; a whole
 ``RoundState`` / ``RoundData`` comes as a dict of numpy arrays keyed by the
@@ -37,9 +38,10 @@ def _tensor(x, device) -> torch.Tensor:
 
 
 def params_tree_from_numpy(tree, device="cpu"):
-    """A numpy parameter tree (dicts and lists, e.g. the LM zoo's ``blocks``)
-    -> the same structure of tensors, each leaf keeping its dtype; empty
-    lists (the MLP's ``convs``) are dropped."""
+    """A numpy parameter tree (dicts and lists, e.g. the LM zoo's ``blocks``
+    or whisper's stacked ``encoder`` / ``decoder`` dicts) -> the same
+    structure of tensors, each leaf keeping its dtype; empty lists (the
+    MLP's ``convs``) are dropped."""
     if isinstance(tree, dict):
         return {name: params_tree_from_numpy(value, device) for name, value in tree.items()
                 if not (isinstance(value, (list, tuple)) and not value)}
@@ -51,7 +53,9 @@ def params_tree_from_numpy(tree, device="cpu"):
 def lm_cache_from_numpy(cache, device="cpu") -> dict:
     """A JAX LM decode cache as numpy -> the port's: the top-level ``pos``
     (B,) and per pattern sub-layer ``attn`` {k, v, pos} and ``ssm`` {h, conv},
-    stacked over the layer axis; dtypes kept (positions int32)."""
+    stacked over the layer axis; or an ``encdec`` cache, ``pos``, ``self``
+    {k, v, pos, xk, xv} stacked over the decoder layers and ``enc_pos``
+    (B, S_enc); dtypes kept (positions int32), the same generic walk."""
     return params_tree_from_numpy(cache, device)
 
 

@@ -5,13 +5,15 @@
 
 The flags of ``repro.launch.serve`` (``--arch --batch --prompt-len --gen
 --full``) plus ``--device`` (default ``cuda``; it raises without a card,
-``cpu`` runs the kernels' plain versions).  ``--arch`` takes the reference's
-LM arch ids (every decoder-only family runs; whisper-small raises
-``NotImplementedError`` naming ROADMAP.md); its default is the reference's,
-``qwen1.5-0.5b``.  Weights are drawn from a seed as the reference draws them
+``cpu`` runs the kernels' plain versions).  ``--arch`` takes every LM arch
+id of the reference; its default is the reference's, ``qwen1.5-0.5b``.
+Weights are drawn from a seed as the reference draws them
 (``fold_in_str(key(0), "init")``, prompts from ``"prompts"``, a ``vlm``'s
-stubbed image embeddings from ``"img"``), and the two ``[serve]`` lines are
-the reference's; each time ends in ``torch.cuda.synchronize()`` on the card.
+stubbed image embeddings from ``"img"``, an ``encdec``'s stubbed audio frames
+from ``"frames"``), and the two ``[serve]`` lines are the reference's; each
+time ends in ``torch.cuda.synchronize()`` on the card.  As in the reference,
+an ``encdec`` prefill gets no ``max_seq``: its self-attention ring holds
+``prompt_len`` slots, and decoding past them overwrites the oldest.
 """
 from __future__ import annotations
 
@@ -22,7 +24,7 @@ import time
 import torch
 
 from repro_torch.config import ModelConfig
-from repro_torch.configs import LM_ARCHS, UNPORTED_LM_ARCHS, get_config, get_smoke_config
+from repro_torch.configs import LM_ARCHS, get_config, get_smoke_config
 from repro_torch.data.synthetic import make_lm_batch
 from repro_torch.models import build_model
 from repro_torch.utils import prng
@@ -38,7 +40,7 @@ class ServeResult:
     logits: torch.Tensor  # the last step's (batch, vocab) logits
     params: dict
     cache: dict  # after the last decode step
-    prompts: dict  # {"tokens": (batch, prompt_len)}, and a vlm's "image_embeds"
+    prompts: dict  # "tokens" (batch, prompt_len); a vlm's "image_embeds"; an encdec's "frames"
     cfg: ModelConfig  # the config served
 
 
@@ -65,10 +67,13 @@ def serve(arch: str = "qwen1.5-0.5b", batch: int = 4, prompt_len: int = 64, gen:
     if cfg.family == "vlm":
         prompts["image_embeds"] = 0.02 * prng.normal(
             prng.fold_in_str(key, "img"), (batch, cfg.num_image_tokens, cfg.d_model))
+    if cfg.family == "encdec":
+        prompts["frames"] = 0.02 * prng.normal(
+            prng.fold_in_str(key, "frames"), (batch, cfg.encoder_seq, cfg.d_model))
     _sync(device)
     setup_s = time.perf_counter() - t0
 
-    max_seq = prompt_len + gen + cfg.num_image_tokens
+    max_seq = None if cfg.family == "encdec" else prompt_len + gen + cfg.num_image_tokens
     with torch.no_grad():
         t0 = time.perf_counter()
         logits, cache = api.prefill(params, prompts, max_seq)
@@ -90,7 +95,7 @@ def serve(arch: str = "qwen1.5-0.5b", batch: int = 4, prompt_len: int = 64, gen:
 def main(argv=None) -> ServeResult:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="qwen1.5-0.5b",
-                    choices=sorted(LM_ARCHS) + list(UNPORTED_LM_ARCHS))
+                    choices=sorted(LM_ARCHS))
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=64)
     ap.add_argument("--gen", type=int, default=32)

@@ -1,9 +1,8 @@
-"""The port's models: the FL task MLP and the LM zoo's decoder-only families
-(dense, moe, ssm, hybrid, vlm).
+"""The port's models: the FL task MLP and every family of the LM zoo
+(dense, moe, ssm, hybrid, vlm, encdec).
 
 ``build_model(cfg)`` gives the FL ``ModelApi`` for ``mlp`` and hands the LM
-families to ``models.zoo.build_lm``, which runs every decoder-only family
-and refuses ``encdec``.
+families to ``models.zoo.build_lm``.
 """
 from __future__ import annotations
 

@@ -38,17 +38,29 @@ from repro_torch.utils import prng
 INIT_CHUNK = 2 ** 26
 
 
-def _scaled_truncated_normal(key, std: float, shape, dtype, device):
-    """``(std * truncated_normal(key, -2, 2, shape)).to(dtype)``, the single
+def _chunked(draw, std: float, shape, dtype, device):
+    """``(std * draw(n, start)).to(dtype)`` over a tensor of ``shape``, the single
     draw bit for bit, filled ``INIT_CHUNK`` elements at a time."""
-    device = key.device if device is None else torch.device(device)
     out = torch.empty(tuple(shape), dtype=dtype, device=device)
     flat = out.view(-1)
     for start in range(0, flat.numel(), INIT_CHUNK):
         n = min(INIT_CHUNK, flat.numel() - start)
-        flat[start:start + n] = std * prng.truncated_normal(key, -2.0, 2.0, (n,), device,
-                                                            start)
+        flat[start:start + n] = std * draw(n, start)
     return out
+
+
+def _scaled_truncated_normal(key, std: float, shape, dtype, device):
+    """``(std * truncated_normal(key, -2, 2, shape)).to(dtype)``, chunked."""
+    device = key.device if device is None else torch.device(device)
+    return _chunked(lambda n, start: prng.truncated_normal(key, -2.0, 2.0, (n,), device, start),
+                    std, shape, dtype, device)
+
+
+def scaled_normal(key, std: float, shape, dtype, device=None):
+    """``(std * normal(key, shape)).to(dtype)``, chunked (whisper's ``pos_embed``)."""
+    device = key.device if device is None else torch.device(device)
+    return _chunked(lambda n, start: prng.normal(key, (n,), device, start),
+                    std, shape, dtype, device)
 
 
 def dense_init(key, shape, in_axis_dims=None, dtype=torch.float32, scale=1.0, device=None):
@@ -83,6 +95,15 @@ def rms_norm(x, weight, eps=1e-5, zero_centered=False):
     if zero_centered:  # gemma-style (1 + w)
         w = 1.0 + w
     return (y * w).to(x.dtype)
+
+
+def layer_norm(x, weight, bias, eps=1e-5):
+    """fp32 LayerNorm with the population variance (``jnp.var``'s)."""
+    xf = x.to(torch.float32)
+    mean = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.var(xf, dim=-1, keepdim=True, correction=0)
+    y = (xf - mean) * torch.rsqrt(var + eps)
+    return (y * weight.to(torch.float32) + bias.to(torch.float32)).to(x.dtype)
 
 
 def rope_frequencies(head_dim: int, rope_style: str, theta: float, device=None):
@@ -168,8 +189,9 @@ def blocked_attention(q, k, v, q_positions, kv_positions, *, causal: bool, windo
 # ---------------------------------------------------------------------------
 
 
-def init_attention(key, cfg, num_layers: int, dtype, device=None):
-    """Stacked attention params for ``num_layers`` layers."""
+def init_attention(key, cfg, num_layers: int, dtype, device=None, cross: bool = False):
+    """Stacked attention params for ``num_layers`` layers; a cross-attention
+    (``cross``) has no bias."""
     d, H, KV, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
     ks = prng.split(key, 4)
     L = num_layers
@@ -179,18 +201,20 @@ def init_attention(key, cfg, num_layers: int, dtype, device=None):
         "wv": dense_init(ks[2], (L, d, KV, hd), d, dtype, device=device),
         "wo": dense_init(ks[3], (L, H, hd, d), H * hd, dtype, device=device),
     }
-    if cfg.qkv_bias:
+    if cfg.qkv_bias and not cross:
         params["bq"] = zeros_init((L, H, hd), dtype, device)
         params["bk"] = zeros_init((L, KV, hd), dtype, device)
         params["bv"] = zeros_init((L, KV, hd), dtype, device)
     return params
 
 
-def project_qkv(p, x, kv_repeat: int = 1):
-    """q, k, v projections; ``kv_repeat`` repeats kv heads after projection."""
+def project_qkv(p, x, kv_repeat: int = 1, x_kv=None):
+    """q, k, v projections; k and v come from ``x_kv`` where it is given
+    (cross-attention); ``kv_repeat`` repeats kv heads after projection."""
+    src = x if x_kv is None else x_kv
     q = torch.einsum("bsd,dhk->bshk", x, p["wq"].to(x.dtype))
-    k = torch.einsum("bsd,dhk->bshk", x, p["wk"].to(x.dtype))
-    v = torch.einsum("bsd,dhk->bshk", x, p["wv"].to(x.dtype))
+    k = torch.einsum("bsd,dhk->bshk", src, p["wk"].to(x.dtype))
+    v = torch.einsum("bsd,dhk->bshk", src, p["wv"].to(x.dtype))
     if "bq" in p:
         q = q + p["bq"].to(x.dtype)
         k = k + p["bk"].to(x.dtype)
@@ -264,3 +288,21 @@ def swiglu(p, x):
     u = torch.einsum("bsd,df->bsf", x, p["w_up"].to(x.dtype))
     h = F.silu(g.to(torch.float32)).to(x.dtype) * u
     return torch.einsum("bsf,fd->bsd", h, p["w_down"].to(x.dtype))
+
+
+def init_gelu_mlp(key, d: int, ff: int, num_layers: int, dtype, device=None):
+    k1, k2 = prng.split(key, 2)
+    L = num_layers
+    return {
+        "w1": dense_init(k1, (L, d, ff), d, dtype, device=device),
+        "b1": zeros_init((L, ff), dtype, device),
+        "w2": dense_init(k2, (L, ff, d), ff, dtype, device=device),
+        "b2": zeros_init((L, d), dtype, device),
+    }
+
+
+def gelu_mlp(p, x):
+    """The GELU is ``jax.nn.gelu``'s default, the tanh approximation, in fp32."""
+    h = torch.einsum("bsd,df->bsf", x, p["w1"].to(x.dtype)) + p["b1"].to(x.dtype)
+    h = F.gelu(h.to(torch.float32), approximate="tanh").to(x.dtype)
+    return torch.einsum("bsf,fd->bsd", h, p["w2"].to(x.dtype)) + p["b2"].to(x.dtype)

@@ -18,7 +18,8 @@ versions on the CPU).  The reference's ``act_shard`` annotations and remat
 policies have no counterpart on one card and are dropped.  The MoE layer's
 load-balance loss is dropped too: it only feeds ``lm_loss``, which is not
 ported.  ``lm_decode_step`` updates the cache it is given in place and
-returns it.  The ``encdec`` family raises ``NotImplementedError``.
+returns it.  The ``encdec`` family (whisper-small) lives in ``models/encdec.py``,
+which shares this module's helpers; ``models.zoo.build_lm`` picks the engine.
 """
 from __future__ import annotations
 
@@ -33,7 +34,7 @@ from repro_torch.models.moe import init_moe, moe_ffn
 from repro_torch.models.ssm import init_ssm, init_ssm_state, ssm_forward
 from repro_torch.utils import prng
 
-PORTED_FAMILIES = ("hybrid", "ssm", "dense", "moe", "vlm")
+PORTED_FAMILIES = ("hybrid", "ssm", "dense", "moe", "vlm", "encdec")
 
 
 def check_family(cfg) -> None:
@@ -209,14 +210,19 @@ def _attn_decode(cfg, bp, x, pos, inv_freq, window: int, cache):
     q = L.apply_rope(q, pos[:, None], inv_freq, cfg.rope_style)
     k = L.apply_rope(k, pos[:, None], inv_freq, cfg.rope_style)
     ck, cv, cp = L.cache_write(cache["k"], cache["v"], cache["pos"], k, v, pos)
-    B, _, H, D = q.shape
-    hkv = ck.shape[2]
-    # query head hkv_i * G + g attends kv head hkv_i (layers.blocked_attention's grouping)
-    qg = q.reshape(B, hkv, H // hkv, D)
-    out = _swa.swa_decode(qg, ck, cv, cp, pos.to(torch.int32), window=window,
-                          softcap=cfg.attn_logit_softcap)
-    out = out.to(q.dtype).reshape(B, 1, H, D)
+    out = decode_attention(q, ck, cv, cp, pos.to(torch.int32), window, cfg.attn_logit_softcap)
     return L.attn_output(bp, out), {"k": ck, "v": cv, "pos": cp}
+
+
+def decode_attention(q, k, v, kv_pos, pos, window: int = 0, softcap: float = 0.0):
+    """(B, 1, H, D) queries against one layer's cache (B, C, Hkv, D) through
+    ``kernels.swa_decode`` -> (B, 1, H, D) in q's dtype."""
+    B, _, H, D = q.shape
+    hkv = k.shape[2]
+    # query head hkv_i * G + g attends kv head hkv_i (layers.blocked_attention's grouping)
+    out = _swa.swa_decode(q.reshape(B, hkv, H // hkv, D), k, v, kv_pos, pos, window=window,
+                          softcap=softcap)
+    return out.to(q.dtype).reshape(B, 1, H, D)
 
 
 def apply_block(cfg, kind: str, bp, x, positions, inv_freq, mode: str, cache=None,

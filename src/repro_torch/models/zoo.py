@@ -7,15 +7,17 @@
   decode_step(params, cache, tokens)    -> (logits, cache)   [cache updated in place]
   init_cache(batch, seq_len, prefilled=0, device=None) -> cache tree
 
-Every decoder-only family is ported (``dense``, ``moe``, ``ssm``,
-``hybrid``, ``vlm``; a ``vlm`` prefill batch also holds ``image_embeds``);
-``encdec`` raises ``NotImplementedError`` naming ROADMAP.md.
+Every family of the reference is ported: the decoder-only ``dense``,
+``moe``, ``ssm``, ``hybrid`` and ``vlm`` (``models/transformer.py``; a
+``vlm`` prefill batch also holds ``image_embeds``) and ``encdec``
+(``models/encdec.py``; its prefill batch holds ``frames`` and ``tokens``).
 """
 from __future__ import annotations
 
 from typing import Callable, NamedTuple
 
 from repro_torch.config import ModelConfig
+from repro_torch.models import encdec as _encdec
 from repro_torch.models import transformer as _tf
 
 
@@ -29,6 +31,15 @@ class LMApi(NamedTuple):
 
 def build_lm(cfg: ModelConfig) -> LMApi:
     _tf.check_family(cfg)
+    if cfg.family == "encdec":
+        return LMApi(
+            cfg,
+            init=lambda key, device=None: _encdec.init_encdec(key, cfg, device),
+            prefill=lambda p, b, max_seq=None: _encdec.encdec_prefill(p, cfg, b, max_seq),
+            decode_step=lambda p, c, t: _encdec.encdec_decode_step(p, cfg, c, t),
+            init_cache=lambda batch, seq, prefilled=0, device=None: _encdec.init_encdec_cache(
+                cfg, batch, seq, prefilled, device),
+        )
     return LMApi(
         cfg,
         init=lambda key, device=None: _tf.init_lm(key, cfg, device),

@@ -185,9 +185,10 @@ _NEXT_ABOVE_MINUS_ONE = float(torch.nextafter(
     torch.tensor(-1.0, dtype=torch.float32), torch.tensor(0.0, dtype=torch.float32)))
 
 
-def normal(k: torch.Tensor, shape: Sequence[int] = (), device=None) -> torch.Tensor:
+def normal(k: torch.Tensor, shape: Sequence[int] = (), device=None,
+           start: int = 0) -> torch.Tensor:
     """Standard normal: ``sqrt(2) * erf_inv(u)``, u uniform on (-1, 1)."""
-    u = uniform(k, shape, _NEXT_ABOVE_MINUS_ONE, 1.0, device)
+    u = uniform(k, shape, _NEXT_ABOVE_MINUS_ONE, 1.0, device, start)
     return _SQRT2 * erf_inv(u)
 
 

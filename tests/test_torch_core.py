@@ -62,7 +62,7 @@ def _field_defaults(cls):
 @pytest.mark.parametrize("arch", ["fl-mnist-mlp", "fl-cifar10-cnn", "fl-svhn-cnn",
                                   "hymba-1.5b", "mamba2-130m", "qwen1.5-0.5b", "gemma2-9b",
                                   "mistral-nemo-12b", "chatglm3-6b", "mixtral-8x7b",
-                                  "phi3.5-moe-42b-a6.6b", "internvl2-76b"])
+                                  "phi3.5-moe-42b-a6.6b", "internvl2-76b", "whisper-small"])
 def test_model_config_copy_matches_the_reference(arch):
     """The port's ModelConfig keeps the reference's fields, required fields and
     defaults, and its configs (full and smoke) equal the reference's field for
@@ -82,13 +82,14 @@ def test_model_config_copy_matches_the_reference(arch):
 
 
 def test_unported_lm_archs_raise_naming_the_roadmap():
+    """No arch id is left unported: the port's ids are the reference's, and an
+    unknown id raises ``KeyError``."""
     from repro.configs import ALL_ARCH_IDS
-    from repro_torch.configs import ALL_ARCH_IDS as PORTED, UNPORTED_LM_ARCHS, get_config
+    from repro_torch.configs import ALL_ARCH_IDS as PORTED, get_config
 
-    assert sorted(PORTED + UNPORTED_LM_ARCHS) == sorted(ALL_ARCH_IDS)
-    for arch in UNPORTED_LM_ARCHS:
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            get_config(arch)
+    assert sorted(PORTED) == sorted(ALL_ARCH_IDS)
+    for arch in PORTED:
+        assert get_config(arch).name == arch
     with pytest.raises(KeyError):
         get_config("no-such-arch")
 

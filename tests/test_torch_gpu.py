@@ -33,7 +33,7 @@ splits); a selector round on the card against the CPU (RSU ids,
 connectivity, masks and cluster labels equal), and the unfused round
 against the fused one (integers equal, floats within rtol 1e-5).  The MoE
 layer on a skewed input that drops copies: routing equal card vs CPU, no
-device-to-host sync; the smoke moe and vlm LMs served card vs CPU.  Without
+device-to-host sync; the smoke moe, vlm and encdec LMs served card vs CPU.  Without
 a card every test skips, decided in the fixture.
 """
 import pytest
@@ -729,6 +729,10 @@ def _swa_operands(B, C, hkv, G, D, dtype, dev, fills, seed=0):
     (2, 4096, 16, 2, 128, 4096, 0.0, (4176, 4170)),
     (4, 2080, 16, 2, 128, 0, 0.0, (2080, 2079, 1500, 2080)),  # phi3.5-moe: B 4, no window
     (2, 784, 16, 4, 128, 0, 0.0, (784, 700)),  # internvl2-76b: G 4, image tokens first
+    # whisper-small: the self ring of 64 slots wrapped, and the cross-attention over the
+    # 1,500 cached frames with the query at the last one (every frame visible)
+    (4, 64, 12, 1, 64, 0, 0.0, (95, 95, 95, 95)),
+    (4, 1500, 12, 1, 64, 0, 0.0, (1500, 1500, 1500, 1500)),
     (2, 1000, 2, 3, 64, 0, 0.0, (1000, 640)),  # C not a multiple of the 256-slot tile
     (3, 1, 2, 4, 32, 0, 0.0, (1, 5, 9)),  # one slot
     (2, 300, 4, 1, 128, 64, 0.0, (300, 77)),  # G = 1, a window inside the ring
@@ -1184,4 +1188,25 @@ def test_moe_and_vlm_serving_on_the_card_matches_the_cpu(dev, arch, dtype):
     if cfg.family == "vlm":
         torch.testing.assert_close(card.prompts["image_embeds"].cpu(),
                                    cpu.prompts["image_embeds"], rtol=4 * 2.0 ** -23, atol=0)
+    torch.testing.assert_close(card.logits.cpu().float(), cpu.logits.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_encdec_serving_on_the_card_matches_the_cpu(dev, dtype):
+    """The smoke whisper-small through the serve CLI's code on the card and the
+    CPU: frames within 4 ulps, two ``swa_decode`` launches per decoder layer
+    and decode step, logits within 1e-4 (fp32) / 0.0625 (bf16)."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.kernels import swa_decode as swa
+    from repro_torch.launch import serve
+
+    cfg = get_smoke_config("whisper-small").replace(dtype=dtype)
+    before = swa.launches
+    card = serve.serve(batch=2, prompt_len=8, gen=4, device=dev, cfg=cfg)
+    assert swa.launches == before + 2 * cfg.num_layers * 3
+    cpu = serve.serve(batch=2, prompt_len=8, gen=4, device="cpu", cfg=cfg)
+    tol = 1e-4 if dtype == "float32" else 0.0625
+    assert torch.equal(card.prompts["tokens"].cpu(), cpu.prompts["tokens"])
+    torch.testing.assert_close(card.prompts["frames"].cpu(), cpu.prompts["frames"],
+                               rtol=4 * 2.0 ** -23, atol=0)
     torch.testing.assert_close(card.logits.cpu().float(), cpu.logits.float(), rtol=tol, atol=tol)

@@ -343,11 +343,32 @@ def test_init_lm_cache_matches_jax(built):
 
 @pytest.mark.parametrize("family", ["encdec"])
 def test_unported_families_raise_naming_the_roadmap(family):
-    cfg = get_smoke_config(ARCH).replace(family=family)
+    """Every family of the reference is ported: ``check_family`` and
+    ``build_model`` take whisper-small's ``encdec`` and give its API; an
+    unknown family still raises, naming ROADMAP.md."""
+    from repro_torch.models import encdec
+
+    cfg = get_smoke_config("whisper-small")
+    assert cfg.family == family
+    tf.check_family(cfg)
+    api = build_model(cfg)
+    assert api.cfg is cfg
+    params = api.init(prng.key(0), "cpu")
+    assert sorted(params) == ["decoder", "embed", "encoder", "final_norm", "final_norm_b",
+                              "pos_embed"]
+    assert sorted(api.init_cache(2, 8)) == ["enc_pos", "pos", "self"]
+    frames = 0.02 * torch.randn((2, cfg.encoder_seq, cfg.d_model))
+    tokens = torch.zeros((2, 3), dtype=torch.long)
+    logits, cache = api.prefill(params, {"frames": frames, "tokens": tokens})
+    assert tuple(logits.shape) == (2, cfg.padded_vocab)
+    wk = params["decoder"]["cross_attn"]["wk"][0]
+    torch.testing.assert_close(cache["self"]["xk"][0], torch.einsum(
+        "bsd,dhk->bshk", encdec.encode(params, cfg, frames), wk))
+    bad = get_smoke_config(ARCH).replace(family="no-such-family")
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        build_model(cfg)
+        build_model(bad)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tf.init_lm(prng.key(0), cfg)
+        tf.init_lm(prng.key(0), bad)
 
 
 def _sample_row(out: str):

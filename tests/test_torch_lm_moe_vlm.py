@@ -327,12 +327,15 @@ def test_serve_takes_a_config_in_place_of_the_arch():
     assert tuple(res.tokens.shape) == (2, 2)
 
 
-def test_serve_cli_refuses_only_the_encdec_arch_naming_the_roadmap():
-    """The CLI takes every LM arch id of the reference; all but whisper-small serve."""
+def test_serve_cli_refuses_only_the_encdec_arch_naming_the_roadmap(capsys):
+    """The CLI takes every LM arch id of the reference, and all of them serve:
+    whisper-small (the last one ported) runs at its defaults on the CPU."""
     from repro.configs import ALL_ARCH_IDS
     from repro_torch.configs import LM_ARCHS, PAPER_MODELS
     from repro_torch.launch import serve
 
-    assert set(ALL_ARCH_IDS) - set(PAPER_MODELS) - set(LM_ARCHS) == {"whisper-small"}
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        serve.main(["--arch", "whisper-small", "--device", "cpu"])
+    assert set(ALL_ARCH_IDS) - set(PAPER_MODELS) == set(LM_ARCHS)
+    res = serve.main(["--arch", "whisper-small", "--device", "cpu"])
+    assert capsys.readouterr().out.count("[serve] whisper-small-smoke") == 1
+    assert tuple(res.tokens.shape) == (4, 32)
+    assert bool(torch.isfinite(res.logits).all())
