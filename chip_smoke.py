@@ -20,9 +20,12 @@ Phases (any failure raises and exits non-zero):
    the fleet's 100,000 and at 300,000 (more clients than resident threads),
    at R = 1, 40 and 32,768, and with positions at the predictor's wrap (0,
    just under the ring, the ring, past twice the ring, below 0);
-   ``fedavg_reduce`` at K = 1, 7, 8, 9, 10, 17 and 100, odd P included;
+   ``rttg_latency`` also at the engine grids' N = 20 in each of the 8 catalog
+   scenarios, predicted and realized, at CR 1.0 and 0.7;
+   ``fedavg_reduce`` at K = 1, 2, 7, 8, 9, 10, 17 and 100, odd P included;
    ``server_update`` for every rule
-   and ``server_update_buffered`` for both ``drain`` states, and their two
+   and ``server_update_buffered`` for both ``drain`` states (also at the
+   async engine grid's K = 2 beside its 8-slot ring), and their two
    bitwise contracts (rule 0 is ``fedavg_reduce`` + the AXPY; no drain is
    the unbuffered update); ``rsu_reduce`` with and without its carry, on
    random, dyadic and special operands, at R = 10, 33, 40 and 100 (one and
@@ -31,7 +34,7 @@ Phases (any failure raises and exits non-zero):
    chunk), each launch repeated bitwise, and a chunk walk bit for bit at
    R = 10 and 40;
    the bf16 lane's rows through the same four kernels: ``fedavg_reduce`` at
-   (10, 159,010), K = 1, odd P, P = 2 mod 4 and rows one element off their
+   (10, 159,010), the precision engine grid's (2, 159,010), K = 1, odd P, P = 2 mod 4 and rows one element off their
    4-byte alignment; ``server_update`` under every rule with an fp32 and a
    bf16 master, its buffered form with a bf16 ring draining and not, and
    both contracts on bf16 rows; ``rsu_reduce`` with bf16 rows into bf16 and
@@ -72,11 +75,15 @@ Phases (any failure raises and exits non-zero):
    economics bitwise those of the unblocked hierarchical round from the same
    state, and a card-vs-CPU replay; the same on ring with an RSU every 250 m
    (R = 40, past one 32-RSU group);
-4d. fleet: the fleet bench's settings (2 samples per client, K=100 in chunks
-   of 32, no warm-up) at N=20,000 for 1 round and N=100,000 for 2, with set-up
-   and round times, peak memory, launches and the neighbour rows recomputed
-   densely; at N=20,000 one round again on the dense neighbour search and
-   fusion, which must give the same neighbours and integers;
+4d. fleet: the fleet bench's settings and engine (``ExperimentEngine``, 2
+   samples per client, K=100 in chunks of 32, no warm-up) at N=20,000 for 1
+   round and N=100,000 for 2: the engine's set-up (``_lanes``) and then its
+   round loop one grid round at a time, with the set-up time, each round's
+   wall, peak memory (the set-up's and the rounds'), launches, the neighbour
+   rows recomputed densely and the final state finite; at N=20,000 the
+   engine's first round again from its initial state (bitwise) and on the
+   dense neighbour search and fusion, which must give the same neighbours
+   and integers;
 4e. serving: ``python -m repro_torch.launch.serve --arch hymba-1.5b --full``'s
    run (bf16, B=4, prompt 2048, gen 32: the prefill fills a wrapped 1024-slot
    ring and spans 16 SSD chunks) with set-up, prefill and decode times, peak
@@ -111,6 +118,18 @@ Phases (any failure raises and exits non-zero):
    counts and its first round replayed on the CPU's plain path (integers
    equal, floats within ``BF16_REPLAY``); then one fleet round at
    N=100,000 in bf16, its peak memory beside the fp32 fleet round's;
+4h. engine: ``benchmarks/engine_throughput.py``'s grids through
+   ``ExperimentEngine`` (3 strategies x the 8 catalog scenarios, N=20, 5
+   rounds, eval every 5): the 24-run grid cold and warm, exactly 240
+   ``rttg_latency`` and 120 ``fedavg_reduce`` launches a sweep, every lane's
+   final accuracy finite, two lanes replayed on the CPU's plain path; the
+   same 24 runs through ``FLSimulation``; one grid round profiled; the round
+   loop under ``torch.cuda.set_sync_debug_mode("error")`` (where the round
+   core synchronizes, the first such operation and then the count by source
+   line under ``"warn"``; none may be the engine's); ``async_lane``'s grid
+   (``fedbuff``, CR 0.7: 120 ``server_update_buffered`` launches, some lane
+   parks and drains) and ``precision_lane``'s (bf16 rows: 120
+   ``fedavg_reduce``), each with one lane replayed on the CPU;
 5. times: each kernel (CUDA events, after warm-up) beside its bound, its
    plain version and a one-call PyTorch yardstick (``pairwise_cosine`` at
    (100, 1024), (256, 4096) and (20,000, 1,024)), and for every kernel and
@@ -143,8 +162,10 @@ Phases (any failure raises and exits non-zero):
    launches a decode step.
 
 The last three lines are the kernels' JSON record (their fp32 rows;
-``swa_decode``'s launches summed over every serving run), the card's name and
-power limit, and the device JSON.
+``swa_decode``'s launches summed over every serving run; ``rttg_latency``'s,
+``fedavg_reduce``'s and ``server_update_buffered``'s with one sweep of each
+engine grid of phase 4h, the parts named in their ``launches_by_path``), the
+card's name and power limit, and the device JSON.
 """
 from __future__ import annotations
 
@@ -1085,14 +1106,19 @@ def decode_vs_prefill(device, arch="hymba-1.5b") -> float:
     return err
 
 
-def check_records(sim, records) -> None:
-    """Every metric and every float state leaf finite."""
+def check_records(state, records, eval_rounds=None) -> None:
+    """Every metric and every float leaf of ``state`` finite; with
+    ``eval_rounds``, the test metrics NaN on the other rounds (no eval)."""
     for rec in records:
         for k, v in rec.__dict__.items():
-            if not math.isfinite(v):
+            if eval_rounds is not None and k in ("test_acc", "test_loss") \
+                    and rec.round not in eval_rounds:
+                if not math.isnan(v):
+                    raise AssertionError(f"round {rec.round}: {k} = {v} without an eval")
+            elif not math.isfinite(v):
                 raise AssertionError(f"round {rec.round}: {k} = {v} is not finite")
     for f in ("params", "opt_m", "opt_v", "buf_delta"):
-        if not bool(torch.isfinite(getattr(sim.state, f)).all()):
+        if not bool(torch.isfinite(getattr(state, f)).all()):
             raise AssertionError(f"{f} has non-finite entries")
 
 
@@ -1118,7 +1144,7 @@ def drive(sim, server: str, rsu_per_round: int = 0, rounds: int = ROUNDS):
                 **{server: rounds})
     if launches != want:
         raise AssertionError(f"expected {want}, got {launches}")
-    check_records(sim, records)
+    check_records(sim.state, records)
     return states, records, launches
 
 
@@ -1848,10 +1874,241 @@ def bf16_lane(fl, traffic, fp32_records, fleet_runs, device, card):
     want.update(rttg_latency=2, rsu_reduce=n_chunks, fedavg_reduce=1)
     if launches["fleet"] != want:
         raise AssertionError(f"bf16 fleet: expected {want}, got {launches['fleet']}")
-    check_records(sim_f, [rec])
+    check_records(sim_f.state, [rec])
     del sim_f
     torch.cuda.empty_cache()
     return sims, launches
+
+
+# benchmarks/engine_throughput.py's timed grid (``_run``, ``async_lane``,
+# ``precision_lane``): 3 strategies x seed 0 x the 8 catalog scenarios, N = 20
+GRID_STRATEGIES = ("contextual", "gossip", "network")
+GRID_SCENARIOS = ("ring", "highway", "urban_grid", "rush_hour", "rsu_outage", "platoon",
+                  "hetero_fleet", "day_cycle")
+GRID_ROUNDS = GRID_EVAL_EVERY = 5
+# card vs CPU over a lane's 5 rounds: the engine tests' tolerance (the
+# reference's own scan-vs-loop one), rtol 2e-4, atol 1e-5; the bf16 lane's test
+# accuracy and loss as ``BF16_REPLAY``'s
+GRID_TOL = dict(rtol=2e-4, atol=1e-5, acc_atol=1e-5, loss_rtol=2e-4)
+BF16_GRID_TOL = dict(GRID_TOL, acc_atol=BF16_REPLAY["acc_atol"],
+                     loss_rtol=BF16_REPLAY["loss_rtol"])
+
+
+def grid_fl(**kw):
+    """``engine_throughput.py::_grid_cfgs``' FLConfig (N = 20, 64 samples)."""
+    from repro_torch.config import FLConfig
+
+    return FLConfig(num_clients=20, samples_per_client=64, batch_size=32, num_clusters=5,
+                    local_epochs=1, **kw)
+
+
+def grid_sweeps(eng, server: str, n_warm: int, card: str):
+    """A cold and ``n_warm`` warm sweeps of the grid, each with its launch
+    counts zeroed just before and read just after: exactly 2 rttg_latency
+    and one ``server`` launch a lane and round, nothing else.
+    -> (the first result, the walls (cold first), one sweep's launches)."""
+    lane_rounds = len(GRID_STRATEGIES) * len(GRID_SCENARIOS) * GRID_ROUNDS
+    walls, first = [], None
+    for _ in range(1 + n_warm):
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = eng.run_grid(seeds=(0,), scenarios=GRID_SCENARIOS, rounds=GRID_ROUNDS,
+                           eval_every=GRID_EVAL_EVERY)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        launches = read_launches()
+        want = dict.fromkeys(launches, 0)
+        want.update(rttg_latency=2 * lane_rounds, **{server: lane_rounds})
+        if launches != want:
+            raise AssertionError(f"engine grid: expected {want}, got {launches}")
+        first = first or res
+    acc = first.final_accuracy()
+    if not all(math.isfinite(a) for a in acc.values()):
+        raise AssertionError(f"engine grid: a lane's final accuracy is not finite: {acc}")
+    print(f"{len(first.runs)} lanes x {GRID_ROUNDS} rounds: walls (cold first) "
+          f"{', '.join(f'{w:.3f}' for w in walls)} s ({lane_rounds / walls[-1]:.2f} "
+          f"lane-rounds/s in the last); launches a sweep {launches}; final accuracy "
+          f"{min(acc.values()):.4f}-{max(acc.values()):.4f} [{card}]")
+    return first, walls, launches
+
+
+def lane_vs_cpu(res, eng, lane, tol, card) -> float:
+    """One lane of the card's grid against the same lane on the CPU's plain
+    path (``run_single`` of a CPU engine of the same strategies, registry and
+    config): integers equal, floats within ``tol``, NaN alike.  ``lane`` is
+    the first of its data row, as ``run_single`` builds its own."""
+    from repro_torch.fl import ExperimentEngine
+
+    strategy, aggregator, seed, scenario = lane
+    cpu = ExperimentEngine(eng.api.cfg, eng.fl, eng.dataset, strategies=eng.strategies,
+                           aggregators=eng.aggregators, warmup=eng.warmup_enabled, device="cpu")
+    want = cpu.run_single(strategy, seed, scenario, rounds=GRID_ROUNDS,
+                          eval_every=GRID_EVAL_EVERY, aggregator=aggregator)
+    got = res.records(strategy, seed, scenario, aggregator=aggregator)
+    worst = 0.0
+    for a, b in zip(got, want):
+        for f in ("round", "n_selected", "n_succeeded", "n_buffered", "n_drained"):
+            if getattr(a, f) != getattr(b, f):
+                raise AssertionError(f"{lane} round {a.round}: {f} card {getattr(a, f)} vs "
+                                     f"cpu {getattr(b, f)}")
+        for f in ("sim_time", "duration", "mean_pred_latency", "mean_real_latency",
+                  "test_acc", "test_loss"):
+            x, y = getattr(a, f), getattr(b, f)
+            if math.isnan(x) or math.isnan(y):
+                if not (math.isnan(x) and math.isnan(y)):
+                    raise AssertionError(f"{lane} round {a.round}: {f} {x} vs {y} (NaN)")
+                continue
+            rtol = tol["loss_rtol"] if f == "test_loss" else tol["rtol"]
+            atol = tol["acc_atol"] if f == "test_acc" else tol["atol"]
+            if not math.isclose(x, y, rel_tol=rtol, abs_tol=atol):
+                raise AssertionError(f"{lane} round {a.round}: {f} card {x} vs cpu {y}")
+            worst = max(worst, abs(x - y) / (atol + rtol * abs(y)))
+    print(f"{lane}: {GRID_ROUNDS} rounds on the card vs the CPU's plain path: integers equal, "
+          f"floats within the tolerance (worst {worst:.3f} of it) [{card}]")
+    return worst
+
+
+def sync_check(eng, runs, card) -> dict:
+    """The warm sweep's round loop (``ExperimentEngine._sweep``, lanes built
+    outside it) under ``torch.cuda.set_sync_debug_mode("error")``.  If an
+    operation synchronizes, print the first, then run the loop again under
+    ``"warn"`` and count the warnings by source line."""
+    import collections
+    import traceback
+    import warnings
+
+    lanes = eng._lanes(runs)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        eng._sweep(lanes, GRID_ROUNDS, GRID_EVAL_EVERY)
+        first = None
+    except RuntimeError as e:
+        frames = [f for f in traceback.extract_tb(e.__traceback__) if "repro_torch" in f.filename]
+        where = frames[-1] if frames else traceback.extract_tb(e.__traceback__)[-1]
+        first = (f"{os.path.relpath(where.filename, ROOT)}:{where.lineno} "
+                 f"({where.line.strip()}): {str(e).splitlines()[0]}")
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    if first is None:
+        print(f"sync check: the round loop ran {GRID_ROUNDS} rounds of {len(runs)} lanes under "
+              "set_sync_debug_mode('error') without a device-to-host sync")
+        return {"mode": "error", "syncs": 0}
+    print(f"sync check: set_sync_debug_mode('error') trips in the round core: {first}")
+    lanes = eng._lanes(runs)
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            eng._sweep(lanes, GRID_ROUNDS, GRID_EVAL_EVERY)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    syncs = [w for w in caught if "synchroniz" in str(w.message)]
+    sites = collections.Counter(f"{os.path.relpath(w.filename, ROOT)}:{w.lineno}"
+                                for w in syncs)
+    engine_sites = {k: v for k, v in sites.items() if "fl/engine.py" in k}
+    lane_rounds = len(runs) * GRID_ROUNDS
+    print(f"sync check under 'warn': {len(syncs)} synchronizing operations in "
+          f"{lane_rounds} lane-rounds ({len(syncs) / lane_rounds:.1f} a lane-round); by "
+          f"source line: {dict(sites.most_common())}; in fl/engine.py: {engine_sites} [{card}]")
+    if engine_sites:
+        raise AssertionError(f"the engine's own code synchronizes: {engine_sites}")
+    return {"mode": "warn", "first": first, "syncs": len(syncs), "sites": dict(sites)}
+
+
+def engine_phase(device, card) -> dict:
+    """Phase 4h: ``benchmarks/engine_throughput.py``'s grids through
+    ``ExperimentEngine`` on the card.  -> the launch counts of one sweep of
+    each grid, by grid."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.scenarios import scenario_config
+    from repro_torch.fl import ExperimentEngine, FLSimulation
+    from repro_torch.utils import prng
+
+    model = get_config("fl-mnist-mlp")
+    runs = [(st, "fedavg", 0, sc) for st in GRID_STRATEGIES for sc in GRID_SCENARIOS]
+    lane_rounds = len(runs) * GRID_ROUNDS
+    summary, launches = {"card": card}, {}
+
+    phase("engine: the bench's 24-run grid (3 strategies x 8 scenarios, N=20, 5 rounds, "
+          "eval every 5, ('fedavg',)) through ExperimentEngine on cuda")
+    fl = grid_fl()
+    eng = ExperimentEngine(model, fl, "mnist", strategies=GRID_STRATEGIES,
+                           aggregators=("fedavg",), device=device)
+    res, walls, launches["fedavg"] = grid_sweeps(eng, "fedavg_reduce", 1, card)
+    summary.update(cold_s=walls[0], warm_s=walls[1], rounds_per_s=lane_rounds / walls[1])
+    for lane in (("contextual", "fedavg", 0, "ring"), ("network", "fedavg", 0, "platoon")):
+        lane_vs_cpu(res, eng, lane, GRID_TOL, card)
+
+    phase("engine: the same 24 runs through FLSimulation on cuda (the bench's serial_s)")
+    serial, serial_acc = [], {}
+    for _ in range(2):
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for st in GRID_STRATEGIES:
+            for sc in GRID_SCENARIOS:
+                sim = FLSimulation(model, fl, scenario_config(sc, num_vehicles=fl.num_clients),
+                                   "mnist", st, prng.key(0), device=device)
+                serial_acc[(st, sc)] = sim.run(GRID_ROUNDS)[-1].test_acc
+        torch.cuda.synchronize()
+        serial.append(time.perf_counter() - t0)
+    sl = read_launches()
+    want = dict.fromkeys(sl, 0)
+    want.update(rttg_latency=2 * lane_rounds, fedavg_reduce=lane_rounds)
+    if sl != want:
+        raise AssertionError(f"FLSimulation sweep: expected {want}, got {sl}")
+    # a data row's first lane (ring, platoon) is its simulation's run
+    worst = max(abs(res.final_accuracy()[(st, "fedavg", 0, sc)] - serial_acc[(st, sc)])
+                for st in GRID_STRATEGIES for sc in ("ring", "platoon"))
+    if worst > GRID_TOL["atol"]:
+        raise AssertionError(f"engine vs FLSimulation final accuracy differs by {worst}")
+    summary.update(serial_cold_s=serial[0], serial_s=serial[1],
+                   serial_rounds_per_s=lane_rounds / serial[1])
+    print(f"FLSimulation, the same {len(runs)} runs (eval every round): cold {serial[0]:.3f} s, "
+          f"warm {serial[1]:.3f} s "
+          f"({summary['serial_rounds_per_s']:.1f} lane-rounds/s; engine "
+          f"{summary['rounds_per_s']:.1f}); final accuracy of the rows' first lanes within "
+          f"{worst:.2e} of the engine's [{card}]")
+
+    phase("engine: one grid round profiled (24 lanes, no eval)")
+    lanes = eng._lanes(runs)
+    profile_round(f"engine grid round, {len(runs)} lanes (N=20, K=2)",
+                  lambda: eng._grid_round(lanes, False, False), card)
+    del lanes
+
+    phase("engine: the warm sweep's round loop under torch.cuda.set_sync_debug_mode")
+    summary["sync"] = sync_check(eng, runs, card)
+
+    phase("engine: async_lane's grid (('fedbuff',), CR 0.7) through ExperimentEngine")
+    fl_a = grid_fl(connection_rate=0.7)
+    eng_a = ExperimentEngine(model, fl_a, "mnist", strategies=GRID_STRATEGIES,
+                             aggregators=("fedbuff",), device=device)
+    res_a, walls, launches["async"] = grid_sweeps(eng_a, "server_update_buffered", 0, card)
+    parked, drained = int(res_a.metrics.n_buffered.sum()), int(res_a.metrics.n_drained.sum())
+    if not (parked and drained):
+        raise AssertionError(f"async grid: {parked} parked, {drained} drained")
+    print(f"async grid: {parked} updates parked, {drained} drained over the grid")
+    summary["async"] = dict(cold_s=walls[0], parked=parked, drained=drained)
+    # the ring / platoon lane that parks most (each the first of its data row)
+    firsts = [(st, "fedbuff", 0, sc) for st in GRID_STRATEGIES for sc in ("ring", "platoon")]
+    lane = max(firsts, key=lambda r: int(res_a.metrics.n_buffered[res_a.runs.index(r)].sum()))
+    lane_vs_cpu(res_a, eng_a, lane, GRID_TOL, card)
+
+    phase("engine: precision_lane's grid (compute_dtype bfloat16, ('fedavg',))")
+    fl_p = dataclasses.replace(fl, compute_dtype="bfloat16")
+    eng_p = ExperimentEngine(model, fl_p, "mnist", strategies=GRID_STRATEGIES,
+                             aggregators=("fedavg",), device=device)
+    if eng_p.init_run("contextual", 0, "ring")[0].buf_delta.dtype != torch.bfloat16:
+        raise AssertionError("precision grid: the lanes' update rows are not bf16")
+    res_p, walls, launches["precision"] = grid_sweeps(eng_p, "fedavg_reduce", 0, card)
+    summary["precision"] = dict(cold_s=walls[0])
+    lane_vs_cpu(res_p, eng_p, ("gossip", "fedavg", 0, "ring"), BF16_GRID_TOL, card)
+    summary["launches"] = launches
+    print(json.dumps({"engine_grid": summary}))
+    return launches
 
 
 def main(argv=()) -> int:
@@ -1925,9 +2182,16 @@ def main(argv=()) -> int:
     check_rttg("rsu_outage", 100, True, 1.0, True, device)
     check_rttg("rush_hour", 257, True, 0.7, False, device)
     check_rttg("day_cycle", 100, False, 0.5, True, device)
+    # the engine grids' calls (phase 4h): N = 20 in every catalog scenario, each
+    # with its own ring and RSU count, predicted and realized, at CR 1.0 and 0.7
+    for sc in GRID_SCENARIOS:
+        for predict in (True, False):
+            for cr in (1.0, 0.7):
+                check_rttg(sc, 20, predict, cr, False, device)
     main_err["fedavg_reduce"] = check_fedavg(10, 159_010, device)
     for K, P in ((1, 159_010), (10, 2049), (1, 1), (10, 4096), (7, 159_011), (8, 4097),
-                 (9, 2049), (17, 159_010), (17, 4097), (100, 38_656)):
+                 (9, 2049), (17, 159_010), (17, 4097), (100, 38_656),
+                 (2, 159_010)):  # the engine grids' cohort (phase 4h)
         check_fedavg(K, P, device)
     main_err["server_update"] = main_err["server_update_buffered"] = 0.0
     for K, P in ((10, 159_010), (1, 1), (1, 2047), (5, 2049), (100, 38_656)):
@@ -1948,6 +2212,11 @@ def main(argv=()) -> int:
                   f"rules 0-5: max_abs_err={max(errs):.3e}")
     check_server_buffered(1, 1, 1, 2, True, device)
     check_server_buffered(5, 3, 2049, 3, True, device)
+    # the async engine grid's call (phase 4h): K = 2 beside the 8-slot ring
+    for drain in (False, True):
+        errs = [check_server_buffered(2, 8, 159_010, rule, drain, device) for rule in range(6)]
+        print(f"server_update_buffered K=2 Kb=8 P=159010 drain={drain!s:5s} rules 0-5: "
+              f"max_abs_err={max(errs):.3e}")
     for K, P in ((10, 159_010), (5, 2049), (1, 1)):
         check_server_contracts(K, P, device)
     main_err["rsu_reduce"] = 0.0
@@ -1981,7 +2250,8 @@ def main(argv=()) -> int:
     # K = 1, odd P, P = 2 mod 4 (4-byte pieces), a row one element off its
     # 4-byte alignment (2-byte loads), a ragged K past the load group
     for K, P, offset in ((1, 159_010, 0), (7, 159_011, 0), (10, 4098, 0), (10, 4096, 1),
-                         (1, 1, 0), (17, 4097, 0), (10, 159_010, 1)):
+                         (1, 1, 0), (17, 4097, 0), (10, 159_010, 1),
+                         (2, 159_010, 0)):  # the precision engine grid's cohort
         check_fedavg(K, P, device, bf16, offset)
     for master in (f32, bf16):
         for K, P in ((10, 159_010), (1, 1), (5, 2049), (3, 159_011)):
@@ -2242,70 +2512,81 @@ def main(argv=()) -> int:
     # ---- 4d. fleet rounds ---------------------------------------------------
     from repro_torch.core import messages
     from repro_torch.core.fusion import fuse_kinematics
+    from repro_torch.fl import ExperimentEngine
+    from repro_torch.fl.engine import _eval_flags, _recluster_flags
 
     fleet_launches, fleet_runs = {}, {}
     for n, n_rounds in FLEET:
-        phase(f"fleet: N={n}, {n_rounds} round(s), hierarchical, client_block=32, no warm-up")
-        # benchmarks/engine_throughput.py::fleet's settings
+        phase(f"fleet: N={n}, {n_rounds} round(s) through ExperimentEngine, hierarchical, "
+              "client_block=32, no warm-up")
+        # benchmarks/engine_throughput.py::fleet's settings and engine
         fl_f = FLConfig(num_clients=n, samples_per_client=2, batch_size=2, num_clusters=8,
                         local_epochs=1, sketch_dim=64,
                         select_fraction=min(max(100.0 / n, 1e-6), 1.0), hierarchical=True,
                         client_block=32, aggregator="fedavg", seed=0)
         traffic_f = scenario_config("ring", num_vehicles=n)
+        eng_f = ExperimentEngine(get_config("fl-mnist-mlp"), fl_f, "mnist",
+                                 strategies=("contextual",), aggregators=("fedavg",),
+                                 warmup=False, device=device)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         held = torch.cuda.memory_allocated()  # by the earlier phases
+        # the engine's run as ``run_grid`` makes it: its set-up (``_lanes``), then
+        # its round loop (``_sweep``'s), one grid round at a time so each is timed
         t0 = time.perf_counter()
-        sim_f = FLSimulation(get_config("fl-mnist-mlp"), fl_f, traffic_f, "mnist",
-                             "contextual", prng.key(0), device=device)
+        lanes_f = eng_f._lanes([("contextual", "fedavg", 0, "ring")])
         torch.cuda.synchronize()
         setup_s = time.perf_counter() - t0
         setup_peak = torch.cuda.max_memory_allocated() - held
+        state_f0, scn_f0, data_f0 = lanes_f.states[0], lanes_f.scns[0], lanes_f.rows[0]
         torch.cuda.reset_peak_memory_stats()
         held_rounds = torch.cuda.memory_allocated()
-        state_f0 = sim_f.state
         reset_launches()
         rows0 = messages.dense_rows
-        walls, recs = [], []
-        for _ in range(n_rounds):
+        walls, ms_f = [], []
+        for do_eval, do_recluster in zip(_eval_flags(n_rounds, n_rounds),
+                                         _recluster_flags(n_rounds, fl_f.recluster_every)):
             t0 = time.perf_counter()
-            recs.append(sim_f.run_round())
+            ms_f.append(eng_f._grid_round(lanes_f, do_eval, do_recluster)[0])
             torch.cuda.synchronize()
             walls.append(time.perf_counter() - t0)
         fleet_launches[n] = launches_f = read_launches()
         rows = messages.dense_rows - rows0
         round_peak = torch.cuda.max_memory_allocated() - held_rounds
+        recs = metrics_to_records(RoundMetrics(*[torch.stack(xs) for xs in zip(*ms_f)]))
         fleet_runs[n] = (fl_f, traffic_f, setup_peak, round_peak)
         n_chunks = -(-fl_f.n_select // fl_f.client_block)
-        print(f"set-up {setup_s:.2f} s (peak {setup_peak / 2**30:.2f} GiB above the "
-              f"{held / 2**30:.2f} GiB the earlier phases hold); N={n} "
-              f"K={fl_f.n_select} in {n_chunks} chunks of {fl_f.client_block} [{card}]")
-        for rec, wall in zip(recs, walls):
-            print(json.dumps(rec.__dict__), f"wall {wall * 1e3:.1f} ms")
-        print(f"launches over {n_rounds} round(s): {launches_f}; peak memory in the rounds "
+        for rec in recs:
+            print(json.dumps(rec.__dict__))
+        print(f"engine set-up (_lanes: init, data row) {setup_s:.2f} s, peak "
+              f"{setup_peak / 2**30:.2f} GiB above the {held / 2**30:.2f} GiB the earlier phases "
+              f"hold; N={n} K={fl_f.n_select} in {n_chunks} chunks of {fl_f.client_block}; "
+              f"round walls {', '.join(f'{w * 1e3:.1f}' for w in walls)} ms "
+              f"({n_rounds / sum(walls):.3f} rounds/s), peak memory in the rounds "
               f"{round_peak / 2**30:.2f} GiB above the {held_rounds / 2**30:.2f} GiB held "
-              f"before them; neighbour rows recomputed densely: {rows} "
+              f"before them; launches: {launches_f}; neighbour rows recomputed densely: {rows} "
               f"of {n * n_rounds} [{card}]")
         want = dict.fromkeys(launches_f, 0)
         want.update(rttg_latency=2 * n_rounds, rsu_reduce=n_chunks * n_rounds,
                     fedavg_reduce=n_rounds)
         if launches_f != want:
             raise AssertionError(f"expected {want}, got {launches_f}")
-        check_records(sim_f, recs)
+        check_records(lanes_f.states[0], recs, eval_rounds={n_rounds})
+        del lanes_f
         if n != FLEET[0][0]:
             continue
         # the first round again from its state: the windowed search and compact
-        # fusion (as above; it must repeat bitwise), then the dense forms
+        # fusion (it must repeat the engine's round bitwise), then the dense forms
         rk = prng.fold_in(state_f0.key, state_f0.round)
         k_obs = prng.fold_in_str(rk, "observe")
         forms, saved = {}, messages.DENSE_MAX_N
         for form, limit in (("windowed", saved), ("dense", n)):
             messages.DENSE_MAX_N = limit
             try:
-                cpms = messages.emit_cpms(state_f0.twin, sim_f.scn, k_obs)
-                kin = fuse_kinematics(messages.emit_cams(state_f0.twin, sim_f.scn, k_obs), cpms,
-                                      sim_f.scn)
-                s_x, m_x = sim_f._step(state_f0, sim_f.scn, 0, 0, sim_f.data, True)
+                cpms = messages.emit_cpms(state_f0.twin, scn_f0, k_obs)
+                kin = fuse_kinematics(messages.emit_cams(state_f0.twin, scn_f0, k_obs), cpms,
+                                      scn_f0)
+                s_x, m_x = eng_f._round_step(state_f0, scn_f0, 0, 0, data_f0, True)
             finally:
                 messages.DENSE_MAX_N = saved
             forms[form] = (cpms["obj"], kin, s_x,
@@ -2328,10 +2609,12 @@ def main(argv=()) -> int:
             if not torch.equal(getattr(s_w, f), getattr(s_d, f)):
                 raise AssertionError(f"fleet N={n} dense vs windowed: {f} differs")
         torch.testing.assert_close(s_w.params, s_d.params, rtol=0, atol=1e-6)
-        print(f"fleet N={n}: the round repeats bitwise on the card; dense vs windowed "
-              f"neighbours equal, integers equal, max |dpos| = "
+        print(f"fleet N={n}: the engine's round repeats bitwise from its initial state; dense "
+              f"vs windowed neighbours equal, integers equal, max |dpos| = "
               f"{float((kin_w[0] - kin_d[0]).abs().max()):.3e} m")
-    fleet_sim = sim_f
+    # phase 5 profiles a fleet round from the initial state
+    fleet_n = n
+    fleet_step = lambda: eng_f._round_step(state_f0, scn_f0, 0, 0, data_f0, False)  # noqa: E731
 
     # ---- 4e. serving ---------------------------------------------------------
     phase("serving: hymba-1.5b at full width, bf16, B=4, prompt 2048, gen 32")
@@ -2402,6 +2685,15 @@ def main(argv=()) -> int:
     # ---- 4g. the bf16 lane ----------------------------------------------------
     bf16_sims, bf16_launches = bf16_lane(fl, traffic, records, fleet_runs, device, card)
 
+    # ---- 4h. the experiment engine ---------------------------------------------
+    grid_launches = engine_phase(device, card)
+
+    def by_path(name, first, first_path="the main path"):
+        """The parts of a kernel's ``launches``: ``first`` on ``first_path``
+        and one sweep of each engine grid that launched it."""
+        return {first_path: first, **{f"engine {grid} grid": g[name]
+                                      for grid, g in grid_launches.items() if g[name]}}
+
     # ---- 5. times ----------------------------------------------------------
     phase(f"times on {card}")
     from repro_torch.kernels.build import library
@@ -2460,7 +2752,11 @@ def main(argv=()) -> int:
         "name": "rttg_latency", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/rttg_latency.cu",
         "replaces": "src/repro/kernels/rttg_latency.py:242",
-        "launches": launches["rttg_latency"], "max_abs_err": main_err["rttg_latency"],
+        # the main path's and one sweep of each engine grid's (phase 4h)
+        "launches": launches["rttg_latency"]
+        + sum(g["rttg_latency"] for g in grid_launches.values()),
+        "launches_by_path": by_path("rttg_latency", launches["rttg_latency"]),
+        "max_abs_err": main_err["rttg_latency"],
         "ms": times["predict"][0], "plain_ms": times["predict"][1], "bound_ms": b_ms,
         "bound_by": b_by, "library_ms": None,
     })
@@ -2508,7 +2804,10 @@ def main(argv=()) -> int:
         "name": "fedavg_reduce", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/fedavg_reduce.cu",
         "replaces": "src/repro/kernels/fedavg_reduce.py:43",
-        "launches": launches["fedavg_reduce"], "max_abs_err": main_err["fedavg_reduce"],
+        "launches": launches["fedavg_reduce"]
+        + sum(g["fedavg_reduce"] for g in grid_launches.values()),
+        "launches_by_path": by_path("fedavg_reduce", launches["fedavg_reduce"]),
+        "max_abs_err": main_err["fedavg_reduce"],
         "ms": fed_ms, "plain_ms": fed_plain, "bound_ms": b_ms, "bound_by": b_by,
         "library_ms": fed_lib,
     })
@@ -2579,7 +2878,10 @@ def main(argv=()) -> int:
     su_runs = {"server_update": (2, False, 0, sum(
                    lane_launches[x]["server_update"] for x in LANES)),
                "server_update_buffered": (5, True, Kb, lane_launches["fedbuff"][
-                   "server_update_buffered"])}
+                   "server_update_buffered"] + grid_launches["async"]["server_update_buffered"])}
+    su_paths = {"server_update_buffered": by_path(
+        "server_update_buffered", lane_launches["fedbuff"]["server_update_buffered"],
+        "the fedbuff lane")}
     # two passes over the pair, each kernel timed in turn; the first pass is a
     # warm-up (a call's first server timing reads slow), the second is kept
     su_times, su16 = {}, {}
@@ -2608,7 +2910,9 @@ def main(argv=()) -> int:
             "source": "src/repro_torch/kernels/csrc/server_update.cu",
             "replaces": "src/repro/kernels/server_update.py:124" if not buffered
             else "src/repro/kernels/server_update.py:164",
-            "launches": n_launch, "max_abs_err": main_err[name], "ms": ms,
+            "launches": n_launch, **({"launches_by_path": su_paths[name]}
+                                     if name in su_paths else {}),
+            "max_abs_err": main_err[name], "ms": ms,
             "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
         })
         print(f"{name} K={K} Kb={rows_b} P={P} rule {rule} (vec {vec}): kernel "
@@ -2757,10 +3061,10 @@ def main(argv=()) -> int:
             walls.append(time.perf_counter() - t0)
         print(f"round wall time, {label} lane (N=100, K=10, 3 epochs): "
               f"{', '.join(f'{x * 1e3:.1f}' for x in walls)} ms [{card}]")
-    for label, s_ in (("fedavg N=100", sim), ("bf16 fedavg N=100", bf16_sims["fedavg"]),
-                      ("streamed fedavg N=100", streamed_sims["ring/fedavg"]),
-                      (f"fleet N={fleet_sim.fl.num_clients}", fleet_sim)):
-        profile_round(f"round, {label}", s_.step, card)
+    for label, step in (("fedavg N=100", sim.step), ("bf16 fedavg N=100", bf16_sims["fedavg"].step),
+                        ("streamed fedavg N=100", streamed_sims["ring/fedavg"].step),
+                        (f"fleet N={fleet_n}", fleet_step)):
+        profile_round(f"round, {label}", step, card)
     from repro_torch.configs import get_config as lm_config
     from repro_torch.models import build_model as lm_build
 

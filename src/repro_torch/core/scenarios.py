@@ -14,14 +14,16 @@ round (a ``ScenarioParams``), in double precision and then once to float32
 in the selector and the twin (a ``TrafficConfig`` of Python floats).  The
 two lifts below are the one place that choice is made: ``scenario_params``
 for the round, ``traffic_params`` for ``ContextualSelector`` and
-``TrafficTwin``.
+``TrafficTwin``.  ``stack_scenarios`` stacks round lifts along a leading
+grid axis (the experiment engine calls it to refuse a grid whose static
+fields differ), and ``scenario_lane`` gives one lane of a stack back.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
 from types import SimpleNamespace
-from typing import Callable, Dict, Union
+from typing import Callable, Dict, Sequence, Union
 
 import torch
 
@@ -134,6 +136,48 @@ def traffic_params(cfg: TrafficConfig, device="cpu") -> ScenarioParams:
     """Lift a ``TrafficConfig`` as the reference's selector and twin see it:
     the derived constants formed in double precision."""
     return _lift(cfg, device, in_double=True)
+
+
+def data_signature(cfg: TrafficConfig) -> tuple:
+    """Hashable summary of the fields that shape an experiment's client data.
+
+    Client shards derive from the experiment key and the twin's spawn
+    layout (the home regions).  Outside the platoon family the normalized
+    spawn positions depend on the key alone, so lanes sharing (strategy,
+    seed) share one ``RoundData`` row; platoon spawn regroups vehicles
+    behind convoy leaders, so its rows carry their own signature.
+    """
+    if cfg.platoon_coupling > 0.0:
+        return ("platoon", cfg.platoon_size, float(cfg.platoon_gap_m),
+                float(cfg.ring_length_m))
+    return ()
+
+
+_LANE_FIELDS = tuple(f.name for f in dataclasses.fields(ScenarioParams)
+                     if f.name not in _STATIC_FIELDS)
+
+
+def stack_scenarios(params: Sequence[ScenarioParams]) -> ScenarioParams:
+    """Stack scenarios along a leading grid axis (static fields must agree).
+
+    Every tensor field, the derived ones included, becomes ``(G,)``.  The
+    ``traffic_params`` view (``accel_var`` a Python float) is refused: the
+    grid lifts its scenarios with ``scenario_params``.
+    """
+    metas = {tuple(getattr(p, f) for f in _STATIC_FIELDS) for p in params}
+    if len(metas) != 1:
+        raise ValueError(
+            f"scenarios disagree on static fields {_STATIC_FIELDS}: {sorted(metas)}"
+        )
+    if not all(isinstance(p.accel_var, torch.Tensor) for p in params):
+        raise ValueError("stack_scenarios takes scenario_params views, not traffic_params")
+    return dataclasses.replace(
+        params[0], **{f: torch.stack([getattr(p, f) for p in params]) for f in _LANE_FIELDS})
+
+
+def scenario_lane(stacked: ScenarioParams, g: int) -> ScenarioParams:
+    """Lane ``g`` of a ``stack_scenarios`` stack: 0-dim views of its row."""
+    return dataclasses.replace(stacked, **{f: getattr(stacked, f)[g] for f in _LANE_FIELDS})
 
 
 def ring(num_vehicles: int = 100, **kw) -> TrafficConfig:

@@ -1,0 +1,318 @@
+"""The experiment engine (``repro.fl.engine``): grids of experiments on one card.
+
+A grid is the product (strategy x aggregator x seed x scenario), in that
+order, as the reference forms it.  The reference runs it as one ``vmap`` of
+a ``lax.scan`` over rounds; the port runs the same semantics lane by lane
+through the round core of ``fl.rounds``:
+
+  * ONE round step and ONE warm-up serve the whole engine, built for its
+    strategies and its aggregator registry: the cohort width is
+    ``cohort_size_for(fl, strategies)`` (with ``greedy`` among them every
+    lane trains N slots), and the registry picks the server path (only
+    ``("fedavg",)`` keeps ``fedavg_reduce`` + the AXPY; a registry holding
+    ``fedbuff`` sends every lane through ``server_update_buffered``);
+  * ``RoundData`` rows are de-duplicated: one per unique (strategy, seed,
+    ``scenarios.data_signature``), built from the first lane of its triple
+    and read by reference by every lane of it (the experiment key never
+    folds the scenario, so only the platoon spawn changes a lane's home
+    regions);
+  * the lanes' states are kept as a list, one ``RoundState`` a lane, each
+    replaced by its round's result; the loop runs rounds outer and lanes
+    inner.  A batched round over a lane axis would keep them stacked
+    instead (every leaf with a leading grid axis), as the reference does;
+  * each lane's ``ScenarioParams`` is built once per ``run_grid``, so
+    ``rttg_latency``'s per-object operand cache holds for the whole run;
+    ``stack_scenarios`` is called on them only to refuse a grid whose
+    static fields differ, as the reference's stacking does;
+  * eval runs every ``eval_every`` rounds and on the last; re-clustering
+    every ``recluster_every`` rounds; both schedules are host flags;
+  * each round's ``RoundMetrics`` is written into ``(G, rounds)`` device
+    tensors: nothing is read back to the host until ``GridResult.records``
+    or ``final_accuracy`` is called.
+
+Not ported: the reference's ``mesh`` / ``shard_map`` grid sharding
+(``grid_shards``, ``last_data_plan``, ``partition.shard_local_rows``), since
+one card has no mesh, and ``partition_on_device`` / ``init_on_device``,
+which choose between XLA placements: the port always builds state and data
+on the run's device.
+
+Usage:
+
+    eng = ExperimentEngine(model_cfg, fl_cfg, "mnist",
+                           strategies=("contextual", "gossip"),
+                           aggregators=("fedavg", "fedadam"), device="cuda")
+    result = eng.run_grid(seeds=(0, 1), scenarios=("ring", "rush_hour"),
+                          rounds=40, eval_every=5)
+    result.records(strategy="contextual", seed=0, scenario="ring",
+                   aggregator="fedadam")
+"""
+from __future__ import annotations
+
+import dataclasses
+import itertools
+from typing import Dict, List, Optional, Sequence, Tuple, Union
+
+import torch
+
+from repro_torch.config import FLConfig, ModelConfig, TrafficConfig
+from repro_torch.core.scenarios import (
+    ScenarioParams,
+    data_signature,
+    scenario_config,
+    scenario_params,
+    stack_scenarios,
+)
+from repro_torch.fl.aggregators import validate_aggregators
+from repro_torch.fl.rounds import (
+    RoundData,
+    RoundMetrics,
+    RoundRecord,
+    RoundState,
+    cohort_size_for,
+    derive_regions,
+    experiment_key,
+    init_state_for_key,
+    make_round_data,
+    make_round_step,
+    make_warmup,
+    metrics_to_records,
+)
+from repro_torch.models import build_model
+from repro_torch.utils.device import resolve_device
+from repro_torch.utils.pytree import tree_bytes
+
+ScenarioLike = Union[str, TrafficConfig]
+
+_INT_METRICS = ("round", "n_selected", "n_succeeded", "n_buffered", "n_drained")
+
+
+def _eval_flags(rounds: int, eval_every: int) -> List[bool]:
+    return [(r + 1) % max(eval_every, 1) == 0 or r == rounds - 1 for r in range(rounds)]
+
+
+def _recluster_flags(rounds: int, recluster_every: int) -> List[bool]:
+    every = max(recluster_every, 1)
+    return [(r + 1) % every == 0 for r in range(rounds)]
+
+
+@dataclasses.dataclass
+class _Lanes:
+    """A grid's lanes as ``run_grid`` keeps them: each lane's state,
+    scenario, strategy and aggregator index, and its data row."""
+
+    states: List[RoundState]
+    scns: List[ScenarioParams]
+    strategy_idx: List[int]
+    aggregator_idx: List[int]
+    rows: List[RoundData]  # one per unique (strategy, seed, data_signature)
+    row_idx: List[int]
+
+
+@dataclasses.dataclass
+class GridResult:
+    """Stacked metrics for a flat experiment grid.
+
+    ``runs`` rows are (strategy, aggregator, seed, scenario name).  The
+    lookups take ``aggregator`` as a defaulted trailing keyword: omitted, it
+    resolves to the grid's sole aggregator, and a multi-aggregator lookup
+    that omits it fails with the axis' values.
+    """
+
+    metrics: RoundMetrics  # leaves (G, rounds), on the run's device
+    runs: List[Tuple[str, str, int, str]]  # (strategy, aggregator, seed, scenario)
+
+    def _resolve_aggregator(self, aggregator: Optional[str]) -> str:
+        if aggregator is not None:
+            return aggregator
+        axis = sorted({r[1] for r in self.runs})
+        if len(axis) != 1:
+            raise ValueError(
+                "this grid swept multiple aggregators — pass aggregator= "
+                f"explicitly (one of: {', '.join(axis)})"
+            )
+        return axis[0]
+
+    def index_of(self, strategy: str, seed: int, scenario: str,
+                 aggregator: Optional[str] = None) -> int:
+        aggregator = self._resolve_aggregator(aggregator)
+        return self.runs.index((strategy, aggregator, seed, scenario))
+
+    def records(self, strategy: str, seed: int, scenario: str,
+                aggregator: Optional[str] = None) -> List[RoundRecord]:
+        g = self.index_of(strategy, seed, scenario, aggregator)
+        return metrics_to_records(RoundMetrics(*[x[g] for x in self.metrics]))
+
+    def final_accuracy(self) -> Dict[Tuple[str, str, int, str], float]:
+        acc = self.metrics.test_acc[:, -1].cpu().tolist()
+        return {run: float(acc[g]) for g, run in enumerate(self.runs)}
+
+
+class ExperimentEngine:
+    """One round step for a fixed (model, FL config, strategies, registry),
+    run over grids of experiments on ``device``.
+
+    Runs on ``cuda`` unless ``device="cpu"`` is passed; raises when CUDA is
+    asked for and no card is present.  ``warmup=False`` skips the
+    deadline-rule bootstrap, which trains all N clients once (the fleet lane
+    cannot afford it).
+    """
+
+    def __init__(
+        self,
+        model_cfg: ModelConfig,
+        fl_cfg: FLConfig,
+        dataset: str,
+        strategies: Sequence[str] = ("contextual",),
+        num_clients: Optional[int] = None,
+        aggregators: Sequence[str] = ("fedavg",),
+        warmup: bool = True,
+        device="cuda",
+    ):
+        self.device = resolve_device(device)
+        if num_clients is not None:
+            fl_cfg = dataclasses.replace(fl_cfg, num_clients=num_clients)
+        self.fl = fl_cfg
+        self.warmup_enabled = bool(warmup)
+        self.dataset = dataset
+        self.strategies = tuple(strategies)
+        self.aggregators = validate_aggregators(aggregators)
+        self.api = build_model(model_cfg)
+        self.cohort_size = cohort_size_for(fl_cfg, self.strategies)
+        self.param_spec = self.api.spec
+        self.model_bytes = float(tree_bytes(self.param_spec))
+        self._round_step = make_round_step(
+            self.api.loss, self.fl, self.cohort_size, self.model_bytes, self.param_spec,
+            strategies=self.strategies, aggregators=self.aggregators,
+        )
+        self._warmup = make_warmup(self.api.loss, self.fl, self.param_spec)
+
+    def _traffic_of(self, scenario: ScenarioLike) -> TrafficConfig:
+        if isinstance(scenario, TrafficConfig):
+            tc = scenario
+        else:
+            tc = scenario_config(scenario, num_vehicles=self.fl.num_clients)
+        if tc.num_vehicles != self.fl.num_clients:
+            raise ValueError(
+                "every FL client is a CAV: num_clients "
+                f"({self.fl.num_clients}) must equal num_vehicles "
+                f"({tc.num_vehicles})"
+            )
+        return tc
+
+    def init_run(self, strategy: str, seed: int, scenario: ScenarioLike):
+        """One lane's (state, data, scn, strategy index), before any warm-up,
+        all on the engine's device."""
+        scn = scenario_params(self._traffic_of(scenario), self.device)
+        key = experiment_key(self.dataset, strategy, seed)
+        state, regions = init_state_for_key(self.api, self.fl, scn, key, self.device)
+        data = make_round_data(key, self.dataset, self.fl, regions, self.device)
+        return state, data, scn, self.strategies.index(strategy)
+
+    def _lanes(self, runs) -> _Lanes:
+        """Every lane of ``runs`` initialized (and warmed up)."""
+        dev, fl = self.device, self.fl
+        tcs = [self._traffic_of(run[3]) for run in runs]
+        scns = [scenario_params(tc, dev) for tc in tcs]
+        stack_scenarios(scns)  # refuses lanes whose static fields differ
+        states, sidx, aidx = [], [], []
+        rows, row_of, row_idx = [], {}, []
+        for (strategy, aggregator, seed, _), tc, scn in zip(runs, tcs, scns):
+            key = experiment_key(self.dataset, strategy, seed)
+            # client shards depend on (strategy, seed) and the spawn layout's
+            # signature, never on the aggregator: one row per unique triple,
+            # built from its first lane's scenario
+            triple = (strategy, seed, data_signature(tc))
+            if triple not in row_of:
+                row_of[triple] = len(rows)
+                rows.append(make_round_data(key, self.dataset, fl, derive_regions(key, scn), dev))
+            row_idx.append(row_of[triple])
+            state = init_state_for_key(self.api, fl, scn, key, dev)[0]
+            if self.warmup_enabled:
+                state = self._warmup(state, rows[row_idx[-1]])
+            states.append(state)
+            sidx.append(self.strategies.index(strategy))
+            aidx.append(self.aggregators.index(aggregator))
+        return _Lanes(states, scns, sidx, aidx, rows, row_idx)
+
+    def _grid_round(self, lanes: _Lanes, do_eval: bool, do_recluster: bool) -> List[RoundMetrics]:
+        """One round of every lane, each lane's state replaced by its new
+        one; the lanes' metrics (device tensors)."""
+        out = []
+        for g, scn in enumerate(lanes.scns):
+            lanes.states[g], m = self._round_step(
+                lanes.states[g], scn, lanes.strategy_idx[g], lanes.aggregator_idx[g],
+                lanes.rows[lanes.row_idx[g]], do_eval, do_recluster)
+            out.append(m)
+        return out
+
+    def _sweep(self, lanes: _Lanes, rounds: int, eval_every: int) -> RoundMetrics:
+        """``rounds`` rounds of every lane: ``(G, rounds)`` metrics on the
+        device, nothing read back."""
+        G = len(lanes.scns)
+        metrics = RoundMetrics(*[
+            torch.empty((G, rounds), device=self.device,
+                        dtype=torch.int32 if f in _INT_METRICS else torch.float32)
+            for f in RoundMetrics._fields])
+        flags = zip(_eval_flags(rounds, eval_every),
+                    _recluster_flags(rounds, self.fl.recluster_every))
+        for r, (do_eval, do_recluster) in enumerate(flags):
+            for g, m in enumerate(self._grid_round(lanes, do_eval, do_recluster)):
+                for buf, x in zip(metrics, m):
+                    buf[g, r].copy_(x)
+        return metrics
+
+    def run_grid(
+        self,
+        seeds: Sequence[int],
+        scenarios: Sequence[ScenarioLike],
+        rounds: int,
+        strategies: Optional[Sequence[str]] = None,
+        aggregators: Optional[Sequence[str]] = None,
+        eval_every: int = 1,
+    ) -> GridResult:
+        """Run the (strategy x aggregator x seed x scenario) grid."""
+        strategies = tuple(strategies) if strategies is not None else self.strategies
+        unknown = set(strategies) - set(self.strategies)
+        if unknown:
+            raise ValueError(
+                f"strategies {sorted(unknown)} not covered by this engine's "
+                f"cohort size; construct it with strategies={sorted(set(self.strategies) | unknown)}"
+            )
+        aggregators = (
+            tuple(aggregators) if aggregators is not None else self.aggregators
+        )
+        unknown = set(aggregators) - set(self.aggregators)
+        if unknown:
+            raise ValueError(
+                f"aggregators {sorted(unknown)} not in this engine's compiled "
+                f"registry; construct it with "
+                f"aggregators={sorted(set(self.aggregators) | unknown)}"
+            )
+        runs = list(itertools.product(strategies, aggregators, seeds, scenarios))
+        metrics = self._sweep(self._lanes(runs), rounds, eval_every)
+        scenarios = list(scenarios)
+
+        def _label(sc):
+            return sc if isinstance(sc, str) else f"custom-{scenarios.index(sc)}"
+
+        labels = [(strategy, aggregator, seed, _label(sc))
+                  for strategy, aggregator, seed, sc in runs]
+        return GridResult(metrics=metrics, runs=labels)
+
+    def run_single(
+        self,
+        strategy: str,
+        seed: int,
+        scenario: ScenarioLike = "ring",
+        rounds: int = 40,
+        eval_every: int = 1,
+        aggregator: Optional[str] = None,
+    ) -> List[RoundRecord]:
+        """One experiment: a grid of one lane."""
+        result = self.run_grid(
+            seeds=(seed,), scenarios=(scenario,), rounds=rounds,
+            strategies=(strategy,),
+            aggregators=(aggregator or self.aggregators[0],),
+            eval_every=eval_every,
+        )
+        return metrics_to_records(RoundMetrics(*[x[0] for x in result.metrics]))

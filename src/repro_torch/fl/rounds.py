@@ -199,15 +199,37 @@ def regions_of(pos: torch.Tensor, cfg, n_regions: int = 10) -> torch.Tensor:
     return torch.floor(pos / cfg.ring_length_m * n_regions).to(torch.int64) % n_regions
 
 
+def _fold_experiment(key: torch.Tensor, dataset: str, strategy: str) -> torch.Tensor:
+    """The strategy + dataset fold of a seed key (never the scenario)."""
+    return prng.fold_in_str(key, f"fl-sim/{strategy}/{dataset}")
+
+
+def experiment_key(dataset: str, strategy: str, seed: int) -> torch.Tensor:
+    """The per-experiment base key (``RoundState.key``), on the host.
+
+    Lanes differing only by scenario share it, and with it their data
+    streams: the engine's ``RoundData`` de-duplication relies on this.
+    """
+    return _fold_experiment(prng.key(seed), dataset, strategy)
+
+
 def twin_init_key(key: torch.Tensor) -> torch.Tensor:
     """The fold chain from an experiment key to its twin-init key."""
     return prng.fold_in_str(prng.fold_in_str(key, "traffic-twin"), "init")
 
 
+def derive_regions(key: torch.Tensor, scn) -> torch.Tensor:
+    """(C,) home regions straight from the experiment key: the twin spawn
+    ``init_state_for_key`` makes for ``scn``, on ``scn``'s device."""
+    twin = init_twin_state(scn, twin_init_key(key), scn.ring_length_m.device)
+    return regions_of(twin.pos, scn)
+
+
 def init_state_for_key(api, fl: FLConfig, scn, key: torch.Tensor, device):
     """One experiment's initial ``RoundState`` plus its (C,) home regions.
 
-    ``key`` is the already-folded experiment key (see ``init_state``).
+    ``key`` is the already-folded experiment key (``experiment_key``); the
+    reference's counterpart is ``init_state_traced``.
     """
     params = api.init(prng.fold_in_str(key, "model-init"), device)
     params_vec = flatten_to_vector(params)
@@ -248,8 +270,7 @@ def init_state(api, fl: FLConfig, scn, dataset: str, strategy: str,
     """Initial state of one experiment from the seed key (folds strategy + dataset)."""
     if fl.num_clients != scn.num_vehicles:
         raise ValueError("every FL client is a CAV: num_clients must equal num_vehicles")
-    key = prng.fold_in_str(key, f"fl-sim/{strategy}/{dataset}")
-    return init_state_for_key(api, fl, scn, key, device)
+    return init_state_for_key(api, fl, scn, _fold_experiment(key, dataset, strategy), device)
 
 
 def make_round_data(key: torch.Tensor, dataset: str, fl: FLConfig,

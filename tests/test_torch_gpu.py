@@ -1210,3 +1210,42 @@ def test_encdec_serving_on_the_card_matches_the_cpu(dev, dtype):
     torch.testing.assert_close(card.prompts["frames"].cpu(), cpu.prompts["frames"],
                                rtol=4 * 2.0 ** -23, atol=0)
     torch.testing.assert_close(card.logits.cpu().float(), cpu.logits.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("aggregators", [("fedavg",), ("fedavg", "fedbuff")])
+def test_engine_grid_on_the_card_matches_the_cpu(dev, aggregators):
+    """A 4-lane grid per aggregator (contextual / gossip x ring / platoon, N=20,
+    CR 0.7, 3 rounds, eval every 2) on the card against the CPU's plain path:
+    integers equal, floats within rtol 2e-4, atol 1e-5 (the engine tests'
+    tolerance), NaN alike; exactly 2 rttg_latency launches a lane and round
+    and one server step (fedavg_reduce, or server_update_buffered on a
+    registry holding fedbuff)."""
+    from repro_torch.config import FLConfig
+    from repro_torch.configs import get_config
+    from repro_torch.fl import ExperimentEngine
+
+    fl = FLConfig(num_clients=20, samples_per_client=64, local_epochs=1, num_clusters=3,
+                  batch_size=32, connection_rate=0.7, recluster_every=2)
+    grid = dict(seeds=(0,), scenarios=("ring", "platoon"), rounds=3, eval_every=2)
+    out = {}
+    for where in (dev, torch.device("cpu")):
+        eng = ExperimentEngine(get_config("fl-mnist-mlp").replace(d_ff=32), fl, "mnist",
+                               strategies=("contextual", "gossip"), aggregators=aggregators,
+                               device=where)
+        before = (rttg_mod.launches, fedavg_mod.launches, su_mod.buffered_launches)
+        out[where.type] = eng.run_grid(**grid)
+        after = (rttg_mod.launches, fedavg_mod.launches, su_mod.buffered_launches)
+        lane_rounds = len(out[where.type].runs) * grid["rounds"]
+        if where.type == "cuda":
+            fedbuff = "fedbuff" in aggregators
+            assert [a - b for a, b in zip(after, before)] == [
+                2 * lane_rounds, 0 if fedbuff else lane_rounds, lane_rounds if fedbuff else 0]
+    got, ref = out["cuda"], out["cpu"]
+    assert got.runs == ref.runs
+    for f in got.metrics._fields:
+        a, b = getattr(got.metrics, f).cpu(), getattr(ref.metrics, f)
+        if a.dtype == torch.int32:
+            assert torch.equal(a, b), f
+        else:
+            assert torch.equal(torch.isnan(a), torch.isnan(b)), f
+            torch.testing.assert_close(a, b, rtol=2e-4, atol=1e-5, equal_nan=True, msg=f)
