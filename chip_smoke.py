@@ -22,6 +22,16 @@ Phases (any failure raises and exits non-zero):
    just under the ring, the ring, past twice the ring, below 0);
    ``rttg_latency`` also at the engine grids' N = 20 in each of the 8 catalog
    scenarios, predicted and realized, at CR 1.0 and 0.7;
+   ``rttg_latency_grid`` (B1g, the batched grid round's geometry) on 24
+   lanes over the 8 catalog scenarios at N = 20 and 100, predicted and
+   realized, CR 1.0 and 0.7, and at one lane, one client, 1,024 clients and
+   a dark-RSU lane beside a live one: every lane bit for bit a
+   ``rttg_latency`` call on that lane, conn exact and latency within rtol
+   1e-5 of its plain version, repeated bitwise; ``fedavg_reduce_grid`` (B2g)
+   on 24 lanes at K = 2 and 10, P = 159,010, fp32 and bf16 rows, and at one
+   lane, K = 1, an odd P and rows off their alignment: every lane bit for
+   bit a ``fedavg_reduce`` call, within its plain version's tolerance,
+   repeated bitwise;
    ``fedavg_reduce`` at K = 1, 2, 7, 8, 9, 10, 17 and 100, odd P included;
    ``server_update`` for every rule
    and ``server_update_buffered`` for both ``drain`` states (also at the
@@ -120,16 +130,22 @@ Phases (any failure raises and exits non-zero):
    N=100,000 in bf16, its peak memory beside the fp32 fleet round's;
 4h. engine: ``benchmarks/engine_throughput.py``'s grids through
    ``ExperimentEngine`` (3 strategies x the 8 catalog scenarios, N=20, 5
-   rounds, eval every 5): the 24-run grid cold and warm, exactly 240
-   ``rttg_latency`` and 120 ``fedavg_reduce`` launches a sweep, every lane's
-   final accuracy finite, two lanes replayed on the CPU's plain path; the
-   same 24 runs through ``FLSimulation``; one grid round profiled; the round
-   loop under ``torch.cuda.set_sync_debug_mode("error")`` (where the round
-   core synchronizes, the first such operation and then the count by source
-   line under ``"warn"``; none may be the engine's); ``async_lane``'s grid
-   (``fedbuff``, CR 0.7: 120 ``server_update_buffered`` launches, some lane
-   parks and drains) and ``precision_lane``'s (bf16 rows: 120
-   ``fedavg_reduce``), each with one lane replayed on the CPU;
+   rounds, eval every 5): the 24-run grid through the batched round, cold
+   and warm, exactly 10 ``rttg_latency_grid`` and 5 ``fedavg_reduce_grid``
+   launches a sweep and no one-lane B1 or B2, every lane's final accuracy
+   finite; the same lanes through the lane loop on the card (240 B1, 120
+   B2) against the batched grid, every lane within ``GRID_TOL``; two lanes
+   replayed on the CPU's plain path; the same 24 runs through
+   ``FLSimulation`` (240 B1, 120 B2); each path's set-up and round loop
+   timed apart; one batched grid round and one lane-loop grid round
+   profiled in turns (batched, loop, loop, batched);
+   the batched round loop under ``torch.cuda.set_sync_debug_mode("error")``
+   (where the round core synchronizes, the first such operation and then
+   the count by source line under ``"warn"``; none may be the engine's);
+   ``async_lane``'s grid (``fedbuff``, CR 0.7, the lane loop: 240
+   ``rttg_latency`` and 120 ``server_update_buffered`` launches, some lane
+   parks and drains) and ``precision_lane``'s (bf16 rows, the batched
+   round: 10 B1g and 5 B2g), each with one lane replayed on the CPU;
 5. times: each kernel (CUDA events, after warm-up) beside its bound, its
    plain version and a one-call PyTorch yardstick (``pairwise_cosine`` at
    (100, 1024), (256, 4096) and (20,000, 1,024)), and for every kernel and
@@ -144,8 +160,12 @@ Phases (any failure raises and exits non-zero):
    device time per call in the streamed and fleet rounds), a profiled
    decode step and prefill (with ``ssd_scan``'s calls and time per call);
    ``rttg_latency`` at N=100 predicted and realized and at N=100,000
-   predicted, and both it and ``fedavg_reduce`` through their wrappers as
-   the round calls them: device ops and device time per call; B2-B5 on the
+   predicted; ``rttg_latency_grid`` at the bench grid's 24 lanes (N=20,
+   predicted) beside the lane loop's 24 ``rttg_latency`` launches, and
+   ``fedavg_reduce_grid`` at its (24, 2, 159,010) on fp32 and bf16 rows
+   beside the lane loop's 24 ``fedavg_reduce`` launches and ``torch.bmm``,
+   each with its device time from CUDA graph replays; ``rttg_latency`` and ``fedavg_reduce`` through their
+   wrappers as the round calls them: device ops and device time per call; B2-B5 on the
    bf16 lane's rows beside their fp32 rows (the ``bf16_rows`` JSON line),
    and the bf16 main path's round wall and profile;
 6. serving the ssm and dense families: the CLI's run at full width and
@@ -164,8 +184,10 @@ Phases (any failure raises and exits non-zero):
 The last three lines are the kernels' JSON record (their fp32 rows;
 ``swa_decode``'s launches summed over every serving run; ``rttg_latency``'s,
 ``fedavg_reduce``'s and ``server_update_buffered``'s with one sweep of each
-engine grid of phase 4h, the parts named in their ``launches_by_path``), the
-card's name and power limit, and the device JSON.
+engine grid of phase 4h, the parts named in their ``launches_by_path``;
+``rttg_latency_grid``'s and ``fedavg_reduce_grid``'s from one sweep of the
+fp32 and the bf16 grid), the card's name and power limit, and the device
+JSON.
 """
 from __future__ import annotations
 
@@ -313,6 +335,89 @@ def check_fedavg(K, P, device, rows=torch.float32, offset=0) -> float:
     err = float((got - ref).abs().max())
     print(f"fedavg_reduce K={K:3d} P={P:7d} {str(rows)[6:]} rows offset={offset} "
           f"max_abs_err={err:.3e} (scale {scale:.3e}), repeat bitwise")
+    return err
+
+
+def grid_lane_inputs(scenarios, n, seed, cr, device):
+    """G lanes of ``rttg_inputs``, one a scenario: each lane's own
+    ``ScenarioParams`` (B1's), their ``lane_view`` stack (B1g's), ``(G, N)``
+    kinematics, ``(G,)`` times (a lane apart by 3.25 s) and ``(G, N)`` forced
+    masks (None at CR 1)."""
+    from repro_torch.core.scenarios import lane_view, stack_scenarios
+
+    lanes = [rttg_inputs(sc, n, seed + 101 * g, cr, device) for g, sc in enumerate(scenarios)]
+    scns = [lane[0] for lane in lanes]
+    pos, speed, accel = (torch.stack([lane[i] for lane in lanes]) for i in (1, 2, 3))
+    t = torch.stack([lane[4] + 3.25 * g for g, lane in enumerate(lanes)])
+    forced = torch.stack([lane[5] for lane in lanes]) if cr < 1.0 else None
+    return scns, lane_view(stack_scenarios(scns)), pos, speed, accel, t, forced
+
+
+def check_rttg_grid(scenarios, n, predict, cr, device) -> float:
+    """B1g on G = len(scenarios) lanes: bit for bit G calls of B1 (one a
+    lane, on the lane's own scenario); against its plain version conn
+    exact, latency within ``check_rttg``'s rtol 1e-5; a second call bit for
+    bit the first."""
+    from repro_torch.kernels.rttg_latency import (rttg_latency, rttg_latency_grid,
+                                                  rttg_latency_grid_plain)
+
+    scns, view, pos, speed, accel, t, forced = grid_lane_inputs(scenarios, n, n + 11, cr,
+                                                                device)
+    G = len(scenarios)
+    mb = torch.tensor(636_040.0, device=device)
+    got, again = [rttg_latency_grid(pos, speed, accel, t, mb, forced, view, predict=predict)
+                  for _ in range(2)]
+    lanes = [rttg_latency(pos[g], speed[g], accel[g], t[g], mb,
+                          None if forced is None else forced[g], scns[g], predict=predict)
+             for g in range(G)]
+    ref = rttg_latency_grid_plain(pos, speed, accel, t, mb, forced, view, predict)
+    torch.cuda.synchronize()
+    what = (f"G={G} ({', '.join(sorted(set(scenarios)))}), N={n}, predict={predict}, "
+            f"CR={cr}")
+    for g in range(G):
+        if not (torch.equal(got[0][g], lanes[g][0]) and torch.equal(got[1][g], lanes[g][1])):
+            raise AssertionError(f"rttg_latency_grid lane {g} is not rttg_latency's ({what})")
+    if not torch.equal(got[1], ref[1]):
+        raise AssertionError(f"rttg_latency_grid conn differs from the plain version ({what})")
+    if not bool(torch.isfinite(got[0]).all()):
+        raise AssertionError(f"rttg_latency_grid produced non-finite latency ({what})")
+    torch.testing.assert_close(got[0], ref[0], rtol=1e-5, atol=1e-7)
+    if not all(torch.equal(x, y) for x, y in zip(got, again)):
+        raise AssertionError(f"rttg_latency_grid does not repeat bitwise ({what})")
+    err = float((got[0] - ref[0]).abs().max())
+    print(f"rttg_latency_grid {what}: every lane bitwise rttg_latency's, conn exact, "
+          f"max_abs_err={err:.3e} vs plain, repeat bitwise")
+    return err
+
+
+def check_fedavg_grid(G, K, P, device, rows=torch.float32, offset=0) -> float:
+    """B2g on (G, K, P) rows in ``rows`` (``offset`` elements into their
+    storage): bit for bit G calls of B2 (one a lane), against its plain
+    version at ``check_fedavg``'s tolerance, a second call bit for bit."""
+    from repro_torch.kernels.fedavg_reduce import (fedavg_reduce, fedavg_reduce_grid,
+                                                   fedavg_reduce_grid_plain)
+    from repro_torch.utils import prng
+
+    k = prng.split(prng.key(G * 1_000_003 + K * 100_003 + P), 2)
+    u = 1e-3 * prng.normal(k[0], (G, K, P), device)
+    if rows != torch.float32 or offset:
+        u = offset_rows(u.view(G * K, P), rows, offset).view(G, K, P)
+    w = prng.uniform(k[1], (G, K), device=device)
+    w = w / w.sum(dim=-1, keepdim=True)
+    got, again = fedavg_reduce_grid(u, w), fedavg_reduce_grid(u, w)
+    lanes = torch.stack([fedavg_reduce(u[g], w[g]) for g in range(G)])
+    ref = fedavg_reduce_grid_plain(u, w)
+    torch.cuda.synchronize()
+    what = f"G={G}, K={K}, P={P}, {str(rows)[6:]} rows, offset={offset}"
+    if not torch.equal(got, lanes):
+        raise AssertionError(f"fedavg_reduce_grid is not fedavg_reduce lane by lane ({what})")
+    scale = float((w.abs()[:, None, :] @ u.float().abs()).max())
+    torch.testing.assert_close(got, ref, rtol=1e-5, atol=1e-6 * scale)
+    if not torch.equal(got, again):
+        raise AssertionError(f"fedavg_reduce_grid does not repeat bitwise ({what})")
+    err = float((got - ref).abs().max())
+    print(f"fedavg_reduce_grid {what}: every lane bitwise fedavg_reduce's, max_abs_err="
+          f"{err:.3e} vs plain (scale {scale:.3e}), repeat bitwise")
     return err
 
 
@@ -707,6 +812,7 @@ def kernel_modules():
 def read_launches() -> dict:
     rttg, fedavg, su, rsu, swa, ssd, gram = kernel_modules()
     return {"rttg_latency": rttg.launches, "fedavg_reduce": fedavg.launches,
+            "rttg_latency_grid": rttg.grid_launches, "fedavg_reduce_grid": fedavg.grid_launches,
             "server_update": su.launches, "server_update_buffered": su.buffered_launches,
             "rsu_reduce": rsu.launches, "swa_decode": swa.launches, "ssd_scan": ssd.launches,
             "pairwise_cosine": gram.launches}
@@ -715,6 +821,7 @@ def read_launches() -> dict:
 def reset_launches() -> None:
     rttg, fedavg, su, rsu, swa, ssd, gram = kernel_modules()
     rttg.launches = fedavg.launches = su.launches = su.buffered_launches = rsu.launches = 0
+    rttg.grid_launches = fedavg.grid_launches = 0
     swa.launches = ssd.launches = gram.launches = 0
 
 
@@ -1191,10 +1298,11 @@ def replay(sim, state0, first, traffic, params_atol: float, acc_atol: float = 1e
           f"{float((s_gpu.params.cpu().float() - s_cpu.params.float()).abs().max()):.3e}")
 
 
-def profile_round(label, fn, card) -> None:
+def profile_round(label, fn, card):
     """One call of ``fn`` (a round, a decode step, a prefill) under
     torch.profiler: wall, device busy time and idle share, and the device
-    kernels by total time."""
+    kernels by total time.  -> {"wall_ms", "ops", "busy_ms", "idle"} (None
+    when the profiler saw no device activity)."""
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         torch.cuda.synchronize()
@@ -1207,7 +1315,7 @@ def profile_round(label, fn, card) -> None:
     if not dev:
         print(f"profiled {label}: the profiler recorded no device activity; "
               "device busy share not measured")
-        return
+        return None
     busy_us = sum(e.time_range.elapsed_us() for e in dev)
     print(f"profiled {label}: wall {wall * 1e3:.1f} ms, {len(dev)} device "
           f"kernels/copies, device busy {busy_us / 1e3:.2f} ms, idle share "
@@ -1224,6 +1332,8 @@ def profile_round(label, fn, card) -> None:
             if kernel in name:
                 print(f"  {kernel} in this profile: {c} calls x {us_ / c:.2f} us of device "
                       f"time = {us_ / 1e3:.3f} ms  ({name[:60]}) [{card}]")
+    return {"wall_ms": wall * 1e3, "ops": len(dev), "busy_ms": busy_us / 1e3,
+            "idle": 1 - busy_us / 1e6 / wall}
 
 
 def assert_rounds_bitwise(a, b, what) -> None:
@@ -1505,6 +1615,160 @@ def wrapper_times(device, card) -> None:
     mv_us, _ = device_profile(lambda: torch.mv(nxt().t(), w))
     print(f"fedavg_reduce wrapper K={K} P={P}: device ops per call {fed_ops:g}, device time "
           f"{fed_us:.2f} us; torch.mv {mv_us:.2f} us (kernel {fed_us / mv_us:.3f}x) [{card}]")
+
+
+def graph_us(fn, reps: int = 50) -> float:
+    """Device time of one ``fn`` call, in us: CUDA events around replays of
+    a CUDA graph that holds ``reps`` calls, so the host's launch cost drops
+    out (the profiler's windows can miss events late in the script; a graph
+    replay has no host in it).  ``fn`` launches on the current stream."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(5):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) * 1e3 / (5 * reps)
+
+
+def time_grid_kernels(kernels, lib, grid_launches, main_err, bf16_times, device, card):
+    """B1g and B2g at the bench grid's shapes, each beside the lane loop's G
+    one-lane calls, appended to ``kernels``: CUDA events over back-to-back
+    launches of the C entry point, and the device time a launch from CUDA
+    graph replays.  B1g: 24 lanes over the 8 catalog scenarios, N=20, R=10,
+    predicted (50 steps), CR 1.  B2g: (24, 2, 159,010), fp32 and bf16 rows,
+    cycling copies that exceed the 50 MB L2 (45.8 MB a copy in fp32), beside
+    ``torch.bmm(w[:, None, :], u)``."""
+    from repro_torch.core.trajectory import horizon_steps
+    from repro_torch.kernels import build as kbuild
+    from repro_torch.kernels.fedavg_reduce import fedavg_reduce_grid_plain
+    from repro_torch.kernels.rttg_latency import (grid_operand, rttg_latency_grid_plain,
+                                                  scenario_operand)
+    from repro_torch.utils import prng
+
+    def stream():
+        return torch.cuda.current_stream(device).cuda_stream
+
+    G, n = 24, 20
+    mb = torch.tensor(636_040.0, device=device)
+    scns, view, pos, speed, accel, t, _ = grid_lane_inputs(GRID_SCENARIOS * 3, n, 5, 1.0,
+                                                           device)
+    R, steps = view.n_rsu, horizon_steps(view.predict_horizon_s, view)
+    dt, hs = float(view.sim_dt_s), float(view.predict_horizon_s)
+    op = grid_operand(view, device)
+    ops = [scenario_operand(scn, device) for scn in scns]
+    lat = torch.empty((G, n), dtype=torch.float32, device=device)
+    conn = torch.empty((G, n), dtype=torch.bool, device=device)
+
+    def b1g():
+        kbuild.check(lib.rttg_latency_grid_launch(
+            op.data_ptr(), op.shape[1], R, G, t.data_ptr(), mb.data_ptr(), pos.data_ptr(),
+            speed.data_ptr(), accel.data_ptr(), None, n, steps, dt, hs, lat.data_ptr(),
+            conn.data_ptr(), stream()), "rttg_latency_grid")
+
+    def b1_lanes():  # the lane loop's geometry: one B1 launch a lane
+        for g in range(G):
+            kbuild.check(lib.rttg_latency_launch(
+                ops[g].data_ptr(), R, t[g:].data_ptr(), mb.data_ptr(), pos[g].data_ptr(),
+                speed[g].data_ptr(), accel[g].data_ptr(), None, n, steps, dt, hs, 1, None,
+                None, lat[g].data_ptr(), conn[g].data_ptr(), None, stream()), "rttg_latency")
+
+    b1g_t = (time_ms(b1g), time_ms(lambda: rttg_latency_grid_plain(pos, speed, accel, t, mb,
+                                                                    None, view, True),
+                                   iters=20, warmup=3), graph_us(b1g), graph_us(b1_lanes, 4))
+    # bytes: 3 f32 inputs a client, each lane's scenario row and t, model_bytes;
+    # f32 lat and bool conn out.  Flops as rttg_latency's, per lane
+    b1g_bytes = G * (n * 4 * 3 + op.shape[1] + 4 + n * 4 + n) + 4
+    b_ms, b_by = bound(b1g_bytes, G * n * (8 * steps + 6 * R + 45))
+    kernels.append({
+        "name": "rttg_latency_grid", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/rttg_latency.cu",
+        "replaces": "src/repro/kernels/rttg_latency.py:242",
+        "launches": sum(g["rttg_latency_grid"] for g in grid_launches.values()),
+        "launches_by_path": {f"engine {grid} grid": g["rttg_latency_grid"]
+                             for grid, g in grid_launches.items() if g["rttg_latency_grid"]},
+        "max_abs_err": main_err["rttg_latency_grid"],
+        "ms": b1g_t[0], "plain_ms": b1g_t[1], "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": None, "device_us": b1g_t[2],
+    })
+    print(f"rttg_latency_grid G={G} N={n} R={R} predict (50 steps), one launch: events "
+          f"{b1g_t[0] * 1e3:.2f} us, device time {b1g_t[2]:.2f} us (graph replay); the lane "
+          f"loop's {G} rttg_latency launches {b1g_t[3]:.2f} us of device time; plain "
+          f"{b1g_t[1] * 1e3:.1f} us; bound {b_ms * 1e3:.5f} us ({b_by}) [{card}]")
+
+    K, P = 2, 159_010
+    us = [1e-3 * prng.normal(prng.fold_in(prng.key(13), i), (G, K, P), device) for i in range(4)]
+    us16 = [x.to(torch.bfloat16) for x in us] + [
+        (1e-3 * prng.normal(prng.fold_in(prng.key(14), i), (G, K, P), device))
+        .to(torch.bfloat16) for i in range(4)]
+    w = torch.full((G, K), 0.5, dtype=torch.float32, device=device)
+    out = torch.empty((G, P), dtype=torch.float32, device=device)
+    vec = 2 if P % 2 == 0 else 1
+    it = {"i": 0}
+
+    def nxt(rows):
+        it["i"] = (it["i"] + 1) % len(rows)
+        return rows[it["i"]]
+
+    def b2g(rows=us):
+        u = nxt(rows)
+        kbuild.check(lib.fedavg_reduce_grid_launch(u.data_ptr(), u.element_size(), w.data_ptr(),
+                                                   G, K, P, vec, out.data_ptr(), stream()),
+                     "fedavg_reduce_grid")
+
+    def b2_lanes(rows=us):  # the lane loop's reduce: one B2 launch a lane
+        u = nxt(rows)
+        for g in range(G):
+            kbuild.check(lib.fedavg_reduce_launch(u[g].data_ptr(), u.element_size(),
+                                                  w[g].data_ptr(), K, P, vec, out[g].data_ptr(),
+                                                  stream()), "fedavg_reduce")
+
+    def bmm():
+        return torch.bmm(w[:, None, :], nxt(us))
+
+    b2g_t = (time_ms(b2g), time_ms(lambda: fedavg_reduce_grid_plain(nxt(us), w), iters=50,
+                                   warmup=5),
+             time_ms(bmm), graph_us(b2g), graph_us(bmm), graph_us(b2_lanes, 4))
+    b2g_bytes = G * K * P * 4 + G * K * 4 + G * P * 4
+    b_ms, b_by = bound(b2g_bytes, 2 * G * K * P)
+    kernels.append({
+        "name": "fedavg_reduce_grid", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/fedavg_reduce.cu",
+        "replaces": "src/repro/kernels/fedavg_reduce.py:43",
+        "launches": sum(g["fedavg_reduce_grid"] for g in grid_launches.values()),
+        "launches_by_path": {f"engine {grid} grid": g["fedavg_reduce_grid"]
+                             for grid, g in grid_launches.items() if g["fedavg_reduce_grid"]},
+        "max_abs_err": main_err["fedavg_reduce_grid"],
+        "ms": b2g_t[0], "plain_ms": b2g_t[1], "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": b2g_t[2], "device_us": b2g_t[3], "library_device_us": b2g_t[4],
+    })
+    print(f"fedavg_reduce_grid G={G} K={K} P={P} (vec {vec}): events {b2g_t[0] * 1e3:.2f} us, "
+          f"device time {b2g_t[3]:.2f} us (graph replay; {b2g_bytes / (b2g_t[3] * 1e3):.0f} "
+          f"GB/s); the lane loop's {G} fedavg_reduce launches {b2g_t[5]:.2f} us; torch.bmm "
+          f"events {b2g_t[2] * 1e3:.2f} us, device time {b2g_t[4]:.2f} us; plain "
+          f"{b2g_t[1] * 1e3:.1f} us; bound {b_ms * 1e3:.2f} us ({b_by}, "
+          f"{b2g_bytes / 1e6:.1f} MB) [{card}]")
+    b16 = (time_ms(lambda: b2g(us16)),
+           time_ms(lambda: fedavg_reduce_grid_plain(nxt(us16), w), iters=50, warmup=5),
+           graph_us(lambda: b2g(us16)))
+    b16_bytes = G * K * P * 2 + G * K * 4 + G * P * 4
+    b16_bound = bound(b16_bytes, 2 * G * K * P)
+    bf16_times["fedavg_reduce_grid"] = b16 + (b16_bound, b16_bytes)
+    print(f"fedavg_reduce_grid G={G} K={K} P={P} bf16 rows: events {b16[0] * 1e3:.2f} us, "
+          f"device time {b16[2]:.2f} us (graph replay), plain {b16[1] * 1e3:.1f} us, bound "
+          f"{b16_bound[0] * 1e3:.2f} us ({b16_bound[1]}, {b16_bytes / 1e6:.1f} MB) [{card}]")
 
 
 def time_gram(kernels, lib, stream, sel_run, main_err, device, card):
@@ -1902,10 +2166,10 @@ def grid_fl(**kw):
                     local_epochs=1, **kw)
 
 
-def grid_sweeps(eng, server: str, n_warm: int, card: str):
+def grid_sweeps(eng, want: dict, n_warm: int, card: str):
     """A cold and ``n_warm`` warm sweeps of the grid, each with its launch
-    counts zeroed just before and read just after: exactly 2 rttg_latency
-    and one ``server`` launch a lane and round, nothing else.
+    counts zeroed just before and read just after: exactly ``want`` (a
+    sweep's launches by kernel), nothing else.
     -> (the first result, the walls (cold first), one sweep's launches)."""
     lane_rounds = len(GRID_STRATEGIES) * len(GRID_SCENARIOS) * GRID_ROUNDS
     walls, first = [], None
@@ -1918,19 +2182,74 @@ def grid_sweeps(eng, server: str, n_warm: int, card: str):
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
         launches = read_launches()
-        want = dict.fromkeys(launches, 0)
-        want.update(rttg_latency=2 * lane_rounds, **{server: lane_rounds})
-        if launches != want:
-            raise AssertionError(f"engine grid: expected {want}, got {launches}")
+        expected = dict.fromkeys(launches, 0)
+        expected.update(want)
+        if launches != expected:
+            raise AssertionError(f"engine grid: expected {expected}, got {launches}")
         first = first or res
     acc = first.final_accuracy()
     if not all(math.isfinite(a) for a in acc.values()):
         raise AssertionError(f"engine grid: a lane's final accuracy is not finite: {acc}")
-    print(f"{len(first.runs)} lanes x {GRID_ROUNDS} rounds: walls (cold first) "
-          f"{', '.join(f'{w:.3f}' for w in walls)} s ({lane_rounds / walls[-1]:.2f} "
-          f"lane-rounds/s in the last); launches a sweep {launches}; final accuracy "
-          f"{min(acc.values()):.4f}-{max(acc.values()):.4f} [{card}]")
+    print(f"{len(first.runs)} lanes x {GRID_ROUNDS} rounds ({'batched round' if eng.batched else 'lane loop'}): "
+          f"walls (cold first) {', '.join(f'{w:.3f}' for w in walls)} s "
+          f"({lane_rounds / walls[-1]:.2f} lane-rounds/s in the last); launches a sweep "
+          f"{launches}; final accuracy {min(acc.values()):.4f}-{max(acc.values()):.4f} [{card}]")
     return first, walls, launches
+
+
+def batched_want() -> dict:
+    """A batched sweep's launches: 2 B1g and 1 B2g a grid round, whatever G."""
+    return {"rttg_latency_grid": 2 * GRID_ROUNDS, "fedavg_reduce_grid": GRID_ROUNDS}
+
+
+def loop_want(server: str) -> dict:
+    """A lane-loop sweep's launches: 2 B1 and one ``server`` a lane-round."""
+    lane_rounds = len(GRID_STRATEGIES) * len(GRID_SCENARIOS) * GRID_ROUNDS
+    return {"rttg_latency": 2 * lane_rounds, server: lane_rounds}
+
+
+def grid_vs_loop(eng, runs, res, tol, card) -> float:
+    """The batched grid against the card's lane loop on the same lanes
+    (``_lane_list`` set-up, per-lane warm-up, one lane after another):
+    integers equal, floats within ``tol``, NaN alike, every lane.  ->
+    the loop's set-up and round-loop walls."""
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    lanes = eng._lane_list(runs)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    loop = eng._sweep(lanes, GRID_ROUNDS, GRID_EVAL_EVERY)
+    torch.cuda.synchronize()
+    wall = {"setup_s": t1 - t0, "rounds_s": time.perf_counter() - t1}
+    launches = read_launches()
+    want = dict.fromkeys(launches, 0)
+    want.update(loop_want("fedavg_reduce"))
+    if launches != want:
+        raise AssertionError(f"lane loop: expected {want}, got {launches}")
+    worst = 0.0
+    for f in loop._fields:
+        a, b = getattr(res.metrics, f), getattr(loop, f)
+        if f in ("round", "n_selected", "n_succeeded", "n_buffered", "n_drained"):
+            if not torch.equal(a, b):
+                raise AssertionError(f"batched vs loop: {f} differs in lanes "
+                                     f"{torch.nonzero((a != b).any(1)).flatten().tolist()}")
+            continue
+        if not torch.equal(torch.isnan(a), torch.isnan(b)):
+            raise AssertionError(f"batched vs loop: {f} NaNs differ")
+        rtol = tol["loss_rtol"] if f == "test_loss" else tol["rtol"]
+        atol = tol["acc_atol"] if f == "test_acc" else tol["atol"]
+        a, b = a.nan_to_num(), b.nan_to_num()
+        over = (a - b).abs() / (atol + rtol * b.abs())
+        worst = max(worst, float(over.max()))
+    if worst > 1.0:
+        raise AssertionError(f"batched vs loop: a float differs by {worst:.3f} of the tolerance")
+    print(f"batched grid vs the lane loop on the card, {len(runs)} lanes x {GRID_ROUNDS} "
+          f"rounds: integers equal, floats within the tolerance (worst {worst:.3f} of it); the "
+          f"loop's set-up {wall['setup_s']:.3f} s and {GRID_ROUNDS} rounds "
+          f"{wall['rounds_s']:.3f} s with {launches['rttg_latency']} B1 and "
+          f"{launches['fedavg_reduce']} B2 launches [{card}]")
+    return wall
 
 
 def lane_vs_cpu(res, eng, lane, tol, card) -> float:
@@ -2033,12 +2352,15 @@ def engine_phase(device, card) -> dict:
     summary, launches = {"card": card}, {}
 
     phase("engine: the bench's 24-run grid (3 strategies x 8 scenarios, N=20, 5 rounds, "
-          "eval every 5, ('fedavg',)) through ExperimentEngine on cuda")
+          "eval every 5, ('fedavg',)) through ExperimentEngine on cuda, the batched round")
     fl = grid_fl()
     eng = ExperimentEngine(model, fl, "mnist", strategies=GRID_STRATEGIES,
                            aggregators=("fedavg",), device=device)
-    res, walls, launches["fedavg"] = grid_sweeps(eng, "fedavg_reduce", 1, card)
+    if not eng.batched:
+        raise AssertionError("the ('fedavg',) grid engine did not take the batched round")
+    res, walls, launches["fedavg"] = grid_sweeps(eng, batched_want(), 1, card)
     summary.update(cold_s=walls[0], warm_s=walls[1], rounds_per_s=lane_rounds / walls[1])
+    split = {"loop": grid_vs_loop(eng, runs, res, GRID_TOL, card)}
     for lane in (("contextual", "fedavg", 0, "ring"), ("network", "fedavg", 0, "platoon")):
         lane_vs_cpu(res, eng, lane, GRID_TOL, card)
 
@@ -2073,11 +2395,29 @@ def engine_phase(device, card) -> dict:
           f"{summary['rounds_per_s']:.1f}); final accuracy of the rows' first lanes within "
           f"{worst:.2e} of the engine's [{card}]")
 
-    phase("engine: one grid round profiled (24 lanes, no eval)")
-    lanes = eng._lanes(runs)
-    profile_round(f"engine grid round, {len(runs)} lanes (N=20, K=2)",
-                  lambda: eng._grid_round(lanes, False, False), card)
-    del lanes
+    phase("engine: the batched set-up and round loop timed apart, then one grid round "
+          "profiled, batched and lane loop in turns (24 lanes, no eval)")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    batched = eng._lanes(runs)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    eng._sweep(batched, GRID_ROUNDS, GRID_EVAL_EVERY)
+    torch.cuda.synchronize()
+    split["batched"] = {"setup_s": t1 - t0, "rounds_s": time.perf_counter() - t1}
+    summary["split"] = split
+    print(f"set-up (lanes built and warmed up) / {GRID_ROUNDS} rounds: batched "
+          f"{split['batched']['setup_s']:.3f} / {split['batched']['rounds_s']:.3f} s, lane loop "
+          f"{split['loop']['setup_s']:.3f} / {split['loop']['rounds_s']:.3f} s [{card}]")
+    loop = eng._lane_list(runs)
+    profiles = {"batched": [], "loop": []}
+    for which in ("batched", "loop", "loop", "batched"):
+        lanes = batched if which == "batched" else loop
+        profiles[which].append(profile_round(
+            f"engine grid round ({which}), {len(runs)} lanes (N=20, K=2)",
+            lambda lanes=lanes: eng._grid_round(lanes, False, False), card))
+    summary["profiles"] = profiles
+    del batched, loop, lanes
 
     phase("engine: the warm sweep's round loop under torch.cuda.set_sync_debug_mode")
     summary["sync"] = sync_check(eng, runs, card)
@@ -2086,7 +2426,10 @@ def engine_phase(device, card) -> dict:
     fl_a = grid_fl(connection_rate=0.7)
     eng_a = ExperimentEngine(model, fl_a, "mnist", strategies=GRID_STRATEGIES,
                              aggregators=("fedbuff",), device=device)
-    res_a, walls, launches["async"] = grid_sweeps(eng_a, "server_update_buffered", 0, card)
+    if eng_a.batched:
+        raise AssertionError("the ('fedbuff',) grid engine took the batched round")
+    res_a, walls, launches["async"] = grid_sweeps(eng_a, loop_want("server_update_buffered"),
+                                                  0, card)
     parked, drained = int(res_a.metrics.n_buffered.sum()), int(res_a.metrics.n_drained.sum())
     if not (parked and drained):
         raise AssertionError(f"async grid: {parked} parked, {drained} drained")
@@ -2103,7 +2446,7 @@ def engine_phase(device, card) -> dict:
                              aggregators=("fedavg",), device=device)
     if eng_p.init_run("contextual", 0, "ring")[0].buf_delta.dtype != torch.bfloat16:
         raise AssertionError("precision grid: the lanes' update rows are not bf16")
-    res_p, walls, launches["precision"] = grid_sweeps(eng_p, "fedavg_reduce", 0, card)
+    res_p, walls, launches["precision"] = grid_sweeps(eng_p, batched_want(), 0, card)
     summary["precision"] = dict(cold_s=walls[0])
     lane_vs_cpu(res_p, eng_p, ("gossip", "fedavg", 0, "ring"), BF16_GRID_TOL, card)
     summary["launches"] = launches
@@ -2188,6 +2531,21 @@ def main(argv=()) -> int:
         for predict in (True, False):
             for cr in (1.0, 0.7):
                 check_rttg(sc, 20, predict, cr, False, device)
+    # B1g (the batched grid round's geometry, one block a lane): the bench grid's
+    # 24 lanes over the 8 catalog scenarios at N = 20 and 100, predicted and
+    # realized, CR 1.0 and 0.7; then one lane, one client, 1,024 clients, and a
+    # dark-RSU lane beside a live one
+    main_err["rttg_latency_grid"] = 0.0
+    for n in (20, 100):
+        for predict in (True, False):
+            for cr in (1.0, 0.7):
+                e = check_rttg_grid(GRID_SCENARIOS * 3, n, predict, cr, device)
+                if (n, predict, cr) == (20, True, 1.0):
+                    main_err["rttg_latency_grid"] = e
+    for scenarios, n in ((("ring",), 20), (("highway",) * 5, 1), (("day_cycle",) * 3, 1024),
+                         (("rush_hour", "urban_grid"), 1024), (("rsu_outage", "ring"), 100)):
+        for predict in (True, False):
+            check_rttg_grid(scenarios, n, predict, 0.7, device)
     main_err["fedavg_reduce"] = check_fedavg(10, 159_010, device)
     for K, P in ((1, 159_010), (10, 2049), (1, 1), (10, 4096), (7, 159_011), (8, 4097),
                  (9, 2049), (17, 159_010), (17, 4097), (100, 38_656),
@@ -2288,6 +2646,20 @@ def main(argv=()) -> int:
             print(f"rsu_reduce K={K:2d} P={P:7d} R={R:3d} offset={offset} pad={pad} bf16 rows, "
                   f"{str(out)[6:]} partials: every mode with and without carry, each repeated "
                   f"bitwise: max_abs_err={max(errs):.3e}")
+    # B2g (the batched grid round's reduce, a lane a grid row): the bench grid's
+    # 24 lanes at K = 2 and 10, P = 159,010, fp32 and bf16 rows; then one lane,
+    # K = 1, an odd P and rows off their vector alignment
+    main_err["fedavg_reduce_grid"] = 0.0
+    for rows in (f32, bf16):
+        for K in (2, 10):
+            e = check_fedavg_grid(24, K, 159_010, device, rows)
+            if (K, rows) == (2, f32):
+                main_err["fedavg_reduce_grid"] = e
+            if (K, rows) == (2, bf16):
+                main_err["bf16"]["fedavg_reduce_grid"] = e
+        for G, K, P, offset in ((1, 2, 159_010, 0), (24, 1, 159_010, 0), (3, 7, 159_011, 0),
+                                (5, 3, 159_010, 1), (2, 9, 4097, 1), (1, 1, 1, 0)):
+            check_fedavg_grid(G, K, P, device, rows, offset)
     check_rsu_two_roundings(device)
     for K, B, R in ((10, 4, 10), (100, 32, 10), (100, 32, 40)):
         check_rsu_walk(K, B, device, R=R, rows=bf16, out=bf16)
@@ -2547,7 +2919,8 @@ def main(argv=()) -> int:
         for do_eval, do_recluster in zip(_eval_flags(n_rounds, n_rounds),
                                          _recluster_flags(n_rounds, fl_f.recluster_every)):
             t0 = time.perf_counter()
-            ms_f.append(eng_f._grid_round(lanes_f, do_eval, do_recluster)[0])
+            ms_f.append(RoundMetrics(*[x[0] for x in eng_f._grid_round(
+                lanes_f, do_eval, do_recluster)]))
             torch.cuda.synchronize()
             walls.append(time.perf_counter() - t0)
         fleet_launches[n] = launches_f = read_launches()
@@ -2830,6 +3203,8 @@ def main(argv=()) -> int:
           f"{fed16[1] * 1e3:.2f} us, bound {b16[0] * 1e3:.2f} us ({b16[1]}, "
           f"{fed16_bytes / 1e6:.2f} MB; fp32 rows {b_ms * 1e3:.2f} us), "
           f"{fed16_bytes / fed16[2] / 1e3:.0f} GB/s by device time [{card}]")
+
+    time_grid_kernels(kernels, lib, grid_launches, main_err, bf16_times, device, card)
 
     # server_update (fedadam, rule 2) and server_update_buffered (fedbuff,
     # rule 5, draining all Kb = 8 ring rows) at K=10, P=159,010, cycling

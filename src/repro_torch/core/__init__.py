@@ -9,12 +9,12 @@ Pipeline stages (paper Fig. 2), as in ``repro.core``:
 
 The traffic digital twin lives in ``core.twin``, the radio / latency model
 in ``core.network``, and ``ContextualSelector`` runs the four stages one
-call at a time.  The names are ``repro.core.__all__`` but one:
-``stack_scenarios`` belongs to the batched grid engine, which is not
-ported (ROADMAP.md item 14).
+call at a time.  The names are ``repro.core.__all__``; ``stack_scenarios``
+stacks the lanes of the experiment engine's grid.
 """
 from repro_torch.core.twin import TrafficTwin, TwinState, advance_twin, init_twin_state, twin_step
-from repro_torch.core.scenarios import SCENARIOS, ScenarioParams, scenario_config, scenario_params
+from repro_torch.core.scenarios import (SCENARIOS, ScenarioParams, scenario_config,
+                                        scenario_params, stack_scenarios)
 from repro_torch.core.messages import emit_cams, emit_cpms
 from repro_torch.core.fusion import fuse_messages
 from repro_torch.core.rttg import RTTG, build_rttg
@@ -34,6 +34,7 @@ __all__ = [
     "ScenarioParams",
     "scenario_config",
     "scenario_params",
+    "stack_scenarios",
     "emit_cams",
     "emit_cpms",
     "fuse_messages",

@@ -51,36 +51,44 @@ def pairwise_cosine(sketches: torch.Tensor) -> torch.Tensor:
     return _gram.pairwise_cosine(sketches)
 
 
+def _row(x: torch.Tensor, i: torch.Tensor) -> torch.Tensor:
+    """Row ``i`` of ``(..., N, D)`` points, ``i`` a ``(...)`` device index:
+    a gather, so nothing is read back to the host."""
+    return torch.gather(x, -2, i[..., None, None].expand(i.shape + (1, x.shape[-1])))[..., 0, :]
+
+
 def kmeans_cluster(sketches: torch.Tensor, key: torch.Tensor, k: int,
                    iters: int = 25):
     """Cosine k-means on unit sketches -> (labels (N,) int64, centroids (k, D)).
 
     Deterministic given ``key``; farthest-point init; empty clusters
     re-seed at the globally worst-fit point.  argmin / argmax return the
-    first index on ties, as in JAX.
+    first index on ties, as in JAX.  G lanes at once: ``(G, N, D)``
+    sketches and ``(G, 2)`` keys give ``(G, N)`` labels and ``(G, k, D)``
+    centroids, each lane's its one-lane clustering.
     """
     x = sketches.to(torch.float32)
-    x = x / torch.clamp_min(torch.linalg.vector_norm(x, dim=1, keepdim=True), 1e-12)
-    N, D = x.shape
+    x = x / torch.clamp_min(torch.linalg.vector_norm(x, dim=-1, keepdim=True), 1e-12)
+    N, D = x.shape[-2:]
     device = x.device
     first = prng.randint(prng.fold_in_str(key, "kmeans-init"), (), 0, N, device)
-    cents = torch.zeros((k, D), dtype=torch.float32, device=device)
-    cents[0] = x[first]
-    cols = torch.arange(k, device=device)[None, :]
+    cents = torch.zeros(x.shape[:-2] + (k, D), dtype=torch.float32, device=device)
+    cents[..., 0, :] = _row(x, first)
+    cols = torch.arange(k, device=device)
     for n_done in range(1, k):
-        sim = x @ cents.T
+        sim = x @ cents.mT
         sim = torch.where(cols < n_done, sim, -torch.inf)
-        best = sim.max(dim=1).values  # most-similar chosen centroid
-        cents[n_done] = x[torch.argmin(best)]  # farthest point
+        best = sim.max(dim=-1).values  # most-similar chosen centroid
+        cents[..., n_done, :] = _row(x, torch.argmin(best, dim=-1))  # farthest point
     for _ in range(iters):
-        sim = x @ cents.T
-        labels = torch.argmax(sim, dim=1)
+        sim = x @ cents.mT
+        labels = torch.argmax(sim, dim=-1)
         onehot = torch.nn.functional.one_hot(labels, k).to(torch.float32)
-        sums = onehot.T @ x
-        counts = onehot.sum(dim=0)
-        new = sums / torch.clamp_min(counts[:, None], 1e-9)
-        worst = torch.argmin(sim.max(dim=1).values)
-        new = torch.where(counts[:, None] > 0, new, x[worst][None, :])
-        cents = new / torch.clamp_min(torch.linalg.vector_norm(new, dim=1, keepdim=True), 1e-12)
-    labels = torch.argmax(x @ cents.T, dim=1)
+        sums = onehot.mT @ x
+        counts = onehot.sum(dim=-2)
+        new = sums / torch.clamp_min(counts[..., None], 1e-9)
+        worst = torch.argmin(sim.max(dim=-1).values, dim=-1)
+        new = torch.where(counts[..., None] > 0, new, _row(x, worst)[..., None, :])
+        cents = new / torch.clamp_min(torch.linalg.vector_norm(new, dim=-1, keepdim=True), 1e-12)
+    labels = torch.argmax(x @ cents.mT, dim=-1)
     return labels, cents

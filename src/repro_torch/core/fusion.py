@@ -3,23 +3,32 @@
 Inverse-variance fusion of one CAM self-report plus up to MAX_PERCEIVED CPM
 detections per vehicle; positions are fused on the unit circle to respect
 the ring's wraparound.  ``fuse_messages`` wraps the fused kinematics into
-the RTTG (the unfused composition and the selector).
+the RTTG (the unfused composition and the selector).  ``fuse_kinematics``
+also fuses G lanes at once (``messages``' batched form, up to
+``messages.DENSE_MAX_N`` vehicles): ``(G, N)`` outputs, each lane's row its
+one-lane fusion.
 """
 from __future__ import annotations
 
+import math
 
 import torch
 
 from repro_torch.core import messages
-from repro_torch.core.rttg import RTTG, build_rttg
+from repro_torch.core.rttg import RTTG, build_rttg, table_scalar
+from repro_torch.utils.elementwise import per_element
 
 
 def _cpm_sums_dense(terms: torch.Tensor, obj: torch.Tensor, src: torch.Tensor) -> torch.Tensor:
-    """(5, N) sums over a dense ``(object, sender)`` table, one row per object."""
-    N = obj.shape[0]
-    dense = torch.zeros((5, N, N), dtype=torch.float32, device=terms.device)
-    dense[:, obj.reshape(-1), src.reshape(-1)] = terms.reshape(5, -1)
-    return dense.sum(dim=2)
+    """(5, ..., N) sums over a dense ``(object, sender)`` table, one row per
+    object and one table per lane: ``(5, G, N, N)`` for ``(G, N, P)`` CPMs."""
+    N = obj.shape[-2]
+    batch = obj.shape[:-2]
+    lanes = math.prod(batch)
+    dense = torch.zeros((5, lanes, N, N), dtype=torch.float32, device=terms.device)
+    lane = torch.arange(lanes, device=terms.device)[:, None]
+    dense[:, lane, obj.reshape(lanes, -1), src.reshape(-1)] = terms.reshape(5, lanes, -1)
+    return dense.sum(dim=-1).reshape((5,) + batch + (N,))
 
 
 def _cpm_sums_compact(terms: torch.Tensor, obj: torch.Tensor) -> torch.Tensor:
@@ -57,11 +66,11 @@ def fuse_kinematics(cams: dict, cpms: dict, cfg):
     ``(object, sender)`` one (a sender lists an object at most once, so no
     slot is written twice); above it, the compact ``(object, slot)`` table.
     """
-    N = cams["pos"].shape[0]
+    N = cams["pos"].shape[-1]
     L = cfg.ring_length_m
     obj = cpms["obj"]
     w_cpm = cpms["valid"].to(torch.float32) / cpms["var"]
-    theta = cpms["pos"] * cfg.rad_per_m
+    theta = cpms["pos"] * table_scalar(cfg.rad_per_m)
     terms = torch.stack([
         w_cpm,
         w_cpm * torch.cos(theta),
@@ -84,7 +93,7 @@ def fuse_kinematics(cams: dict, cpms: dict, cfg):
     sum_accel = sum_accel + w_cam * cams["accel"]
 
     pos = torch.remainder(
-        torch.atan2(sum_sin / sum_w, sum_cos / sum_w) * cfg.m_per_rad, L
+        per_element(torch.atan2, sum_sin / sum_w, sum_cos / sum_w) * cfg.m_per_rad, L
     )
     return pos, sum_speed / sum_w, sum_accel / sum_w, 1.0 / sum_w
 

@@ -2,7 +2,10 @@
 
 Noisy observations of the twin's ground truth as dense arrays
 (``repro.core.messages``): CAMs are ``(N,)``, CPMs ``(N, MAX_PERCEIVED)``
-with a ``valid`` mask for detections in range.
+with a ``valid`` mask for detections in range.  Up to ``DENSE_MAX_N``
+vehicles both also take G lanes at once (a ``(G, N)`` twin, a
+``scenarios.lane_view`` scenario, ``(G, 2)`` keys): every field gains a
+leading G, and each lane's row is its one-lane message.
 
 The neighbour search is the reference's ``(N, N)`` ring-distance top-k up
 to ``DENSE_MAX_N`` vehicles.  Above it (a fleet of 100,000 would need a
@@ -15,7 +18,7 @@ import math
 
 import torch
 
-from repro_torch.core.rttg import ring_dist
+from repro_torch.core.rttg import ring_dist, table_scalar
 from repro_torch.core.twin import TwinState
 from repro_torch.utils import prng
 
@@ -47,9 +50,10 @@ def smallest_k(x: torch.Tensor, k: int):
 
 def nearest_dense(pos: torch.Tensor, length, k: int):
     """The reference's search: ring distances to every vehicle, yourself at
-    +1e9, the k smallest.  -> (dist (N, k), obj (N, k))."""
-    N = pos.shape[0]
-    d = ring_dist(pos[:, None], pos[None, :], length)
+    +1e9, the k smallest.  -> (dist (N, k), obj (N, k)); with ``(G, N)``
+    positions and ``(G, 1)`` lengths, ``(G, N, k)`` each."""
+    N = pos.shape[-1]
+    d = ring_dist(pos[..., :, None], pos[..., None, :], table_scalar(length))
     d = d + 1e9 * torch.eye(N, dtype=torch.float32, device=pos.device)  # not yourself
     return smallest_k(d, k)
 
@@ -111,11 +115,17 @@ def nearest_windowed(pos: torch.Tensor, length, k: int):
     return _unpack(keys)
 
 
+def take(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``x[idx]`` for ``(N,)`` values and ``(N, k)`` indices, lane by lane
+    for ``(G, N)`` values and ``(G, N, k)`` indices."""
+    return torch.gather(x, -1, idx.reshape(idx.shape[:-2] + (-1,))).reshape(idx.shape)
+
+
 def emit_cams(state: TwinState, cfg, key: torch.Tensor) -> dict:
     """Every CAV reports its own state with GNSS-grade noise."""
     N = cfg.num_vehicles
     device = state.pos.device
-    k1, k2, k3 = prng.split(prng.fold_in_str(key, "cam"), 3)
+    k1, k2, k3 = prng.split(prng.fold_in_str(key, "cam"), 3).unbind(-2)
     ids = torch.arange(N, device=device)
     return {
         "src": ids,
@@ -133,7 +143,7 @@ def emit_cpms(state: TwinState, cfg, key: torch.Tensor) -> dict:
     """Each CAV perceives up to MAX_PERCEIVED nearest neighbours in range."""
     N, P = cfg.num_vehicles, MAX_PERCEIVED
     device = state.pos.device
-    k1, k2, k3 = prng.split(prng.fold_in_str(key, "cpm"), 3)
+    k1, k2, k3 = prng.split(prng.fold_in_str(key, "cpm"), 3).unbind(-2)
     search = nearest_dense if N <= DENSE_MAX_N else nearest_windowed
     dist_p, obj = search(state.pos, cfg.ring_length_m, P)
     valid = dist_p < PERCEPTION_RANGE_M
@@ -144,9 +154,9 @@ def emit_cpms(state: TwinState, cfg, key: torch.Tensor) -> dict:
     return {
         "src": torch.arange(N, device=device)[:, None].expand(N, P),
         "obj": obj,
-        "pos": torch.remainder(state.pos[obj] + pos_n, cfg.ring_length_m),
-        "speed": state.speed[obj] + spd_n,
-        "accel": state.accel[obj] + 0.2 * prng.normal(k3, (N, P), device),
+        "pos": torch.remainder(take(state.pos, obj) + pos_n, table_scalar(cfg.ring_length_m)),
+        "speed": take(state.speed, obj) + spd_n,
+        "accel": take(state.accel, obj) + 0.2 * prng.normal(k3, (N, P), device),
         "var": pos_std * pos_std,
         "valid": valid,
     }

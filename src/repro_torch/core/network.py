@@ -17,6 +17,7 @@ import torch
 
 from repro_torch.core.rttg import RTTG, congestion_factor
 from repro_torch.utils import prng
+from repro_torch.utils.elementwise import per_element
 
 _C = 299_792_458.0
 
@@ -39,7 +40,7 @@ def connected_from_snr(snr: torch.Tensor, cfg, forced=None) -> torch.Tensor:
 def latency_from_geometry(t, speed, rsu_dist, rsu_load, model_bytes, cfg):
     """Round-trip FL latency (s) from per-client attachment geometry."""
     snr = snr_from_dist(rsu_dist, cfg)
-    snr_lin = torch.pow(10.0, snr / 10.0)
+    snr_lin = per_element(lambda x: torch.pow(10.0, x), snr / 10.0)
     load = rsu_load * congestion_factor(t, cfg)
     rate = cfg.bandwidth_hz / torch.clamp_min(load, 1.0) * torch.log2(1.0 + snr_lin)
     rate = torch.clamp_min(rate, 1e4)  # 10 kb/s floor off coverage

@@ -6,6 +6,9 @@ tuple, the module holds the pure forms the round core and the
 ``rttg_latency`` kernel share: ring distance, RSU positions and liveness,
 the congestion schedule and the attachment with per-RSU load.  ``cfg`` is a
 ``ScenarioParams`` (``core.scenarios``) except where a function says so.
+The pure forms also take G lanes at once: ``(G, N)`` kinematics with a
+``scenarios.lane_view`` scenario (every field ``(G, 1)``), each lane's row
+then its one-lane result (``rsu_geometry``'s tables become ``(G, N, R)``).
 """
 from __future__ import annotations
 
@@ -27,6 +30,12 @@ class RTTG(NamedTuple):
     rsu_dist: torch.Tensor  # (N,) 3D distance to the attached RSU (m)
     load: torch.Tensor  # (N,) vehicles on the same RSU
     adj: torch.Tensor  # (N, N) bool V2V adjacency
+
+
+def table_scalar(x):
+    """A scenario field as a per-client table ``(..., N, M)`` reads it: a
+    0-dim field as it is, a lane view's ``(G, 1)`` field as ``(G, 1, 1)``."""
+    return x[..., None] if isinstance(x, torch.Tensor) and x.dim() else x
 
 
 def ring_dist(a, b, length):
@@ -80,16 +89,18 @@ def rsu_geometry(pos: torch.Tensor, cfg):
     """Nearest live RSU id, 3D distance and per-RSU load for arc positions.
 
     Dark RSUs never win the argmin (first index on ties).  The load is the
-    integer count of clients on the same RSU, exact in any summation order.
+    integer count of clients on the same RSU (of the same lane), exact in
+    any summation order.  ``pos`` is ``(N,)`` or, with a lane view, ``(G, N)``.
     """
     rsu_pos = rsu_positions(cfg)
-    d_along = ring_dist(pos[:, None], rsu_pos[None, :], cfg.ring_length_m)
-    d_along = torch.where(rsu_up_mask(cfg)[None, :], d_along, math.inf)
-    rid = torch.argmin(d_along, dim=1)
-    d_min = torch.gather(d_along, 1, rid[:, None])[:, 0]
+    d_along = ring_dist(pos[..., :, None], rsu_pos[..., None, :], table_scalar(cfg.ring_length_m))
+    d_along = torch.where(rsu_up_mask(cfg)[..., None, :], d_along, math.inf)
+    rid = torch.argmin(d_along, dim=-1)
+    d_min = torch.gather(d_along, -1, rid[..., None])[..., 0]
     dist3d = torch.sqrt(d_min * d_min + 225.0 + 25.0)  # lateral offset, mast height
-    counts = torch.bincount(rid, minlength=rsu_pos.shape[0]).to(torch.float32)
-    return rid, dist3d, counts[rid]
+    counts = torch.zeros(rid.shape[:-1] + (rsu_pos.shape[-1],), dtype=torch.int64,
+                         device=rid.device).scatter_add_(-1, rid, torch.ones_like(rid))
+    return rid, dist3d, torch.gather(counts, -1, rid).to(torch.float32)
 
 
 def build_rttg(t, pos, speed, accel, pos_var, cfg) -> RTTG:

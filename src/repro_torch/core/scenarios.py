@@ -16,7 +16,10 @@ two lifts below are the one place that choice is made: ``scenario_params``
 for the round, ``traffic_params`` for ``ContextualSelector`` and
 ``TrafficTwin``.  ``stack_scenarios`` stacks round lifts along a leading
 grid axis (the experiment engine calls it to refuse a grid whose static
-fields differ), and ``scenario_lane`` gives one lane of a stack back.
+fields differ), ``scenario_lane`` gives one lane of a stack back, and
+``lane_view`` gives the whole stack as the batched round reads it: every
+lane field ``(G, 1)``, so that a per-client expression over ``(G, N)``
+broadcasts each lane's value along its own row, unchanged.
 """
 from __future__ import annotations
 
@@ -178,6 +181,12 @@ def stack_scenarios(params: Sequence[ScenarioParams]) -> ScenarioParams:
 def scenario_lane(stacked: ScenarioParams, g: int) -> ScenarioParams:
     """Lane ``g`` of a ``stack_scenarios`` stack: 0-dim views of its row."""
     return dataclasses.replace(stacked, **{f: getattr(stacked, f)[g] for f in _LANE_FIELDS})
+
+
+def lane_view(stacked: ScenarioParams) -> ScenarioParams:
+    """A ``stack_scenarios`` stack with every lane field ``(G, 1)``: the
+    batched round's scenario (static fields as they are)."""
+    return dataclasses.replace(stacked, **{f: getattr(stacked, f)[:, None] for f in _LANE_FIELDS})
 
 
 def ring(num_vehicles: int = 100, **kw) -> TrafficConfig:

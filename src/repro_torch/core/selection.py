@@ -10,7 +10,10 @@ All five share one signature and return a bool participation mask (N,):
                members with the lowest predicted latency (>= 1 each).
 
 Ties break toward the lower client index everywhere, as ``lax.top_k`` and
-``jnp.lexsort`` break them in the JAX package.
+``jnp.lexsort`` break them in the JAX package.  Each strategy also elects G
+lanes at once: ``(G, N)`` inputs and ``(G, 2)`` keys give a ``(G, N)`` mask,
+each lane's row its one-lane election (every sort, gather and count runs
+along the last axis).
 """
 from __future__ import annotations
 
@@ -25,14 +28,13 @@ _BIG = 1e30
 
 def _top_k_mask(score: torch.Tensor, k: int) -> torch.Tensor:
     """Mask of the k smallest scores (lower index first on ties); +_BIG never."""
-    N = score.shape[0]
+    N = score.shape[-1]
     k = max(min(k, N), 0)
-    mask = torch.zeros((N,), dtype=torch.bool, device=score.device)
+    mask = torch.zeros(score.shape, dtype=torch.bool, device=score.device)
     if k == 0:
         return mask
-    idx = torch.sort(score, stable=True).indices[:k]
-    mask[idx] = True
-    return mask & (score < _BIG)
+    idx = torch.sort(score, dim=-1, stable=True).indices[..., :k]
+    return mask.scatter_(-1, idx, True) & (score < _BIG)
 
 
 def _where_connected(connected, score):
@@ -44,12 +46,19 @@ def select_greedy(key, connected, latency_pred, clusters, n_select, gamma):
 
 
 def select_gossip(key, connected, latency_pred, clusters, n_select, gamma):
-    noise = prng.uniform(key, connected.shape, device=connected.device)
+    noise = prng.uniform(key, connected.shape[-1:], device=connected.device)
     return _top_k_mask(_where_connected(connected, noise), n_select)
 
 
 def select_network(key, connected, latency_pred, clusters, n_select, gamma):
     return _top_k_mask(_where_connected(connected, latency_pred), n_select)
+
+
+def _segments(sorted_clusters: torch.Tensor) -> torch.Tensor:
+    """Bool: where a new cluster starts along the last axis of sorted labels."""
+    newseg = torch.ones(sorted_clusters.shape, dtype=torch.bool, device=sorted_clusters.device)
+    newseg[..., 1:] = sorted_clusters[..., 1:] != sorted_clusters[..., :-1]
+    return newseg
 
 
 def _per_cluster_rank(score: torch.Tensor, clusters: torch.Tensor) -> torch.Tensor:
@@ -58,37 +67,28 @@ def _per_cluster_rank(score: torch.Tensor, clusters: torch.Tensor) -> torch.Tens
     ``jnp.lexsort((idx, score, clusters))`` built from stable sorts, last key
     first; the running segment start is a cumulative max.
     """
-    N = score.shape[0]
+    N = score.shape[-1]
     idx = torch.arange(N, device=score.device)
-    order = torch.sort(score, stable=True).indices
-    order = order[torch.sort(clusters[order], stable=True).indices]
-    sc = clusters[order]
-    newseg = torch.ones((N,), dtype=torch.bool, device=score.device)
-    newseg[1:] = sc[1:] != sc[:-1]
-    start = torch.cummax(torch.where(newseg, idx, 0), dim=0).values
-    rank = torch.empty((N,), dtype=torch.int64, device=score.device)
-    rank[order] = idx - start
-    return rank
+    order = torch.sort(score, dim=-1, stable=True).indices
+    order = torch.gather(order, -1, torch.sort(torch.gather(clusters, -1, order), dim=-1,
+                                               stable=True).indices)
+    newseg = _segments(torch.gather(clusters, -1, order))
+    start = torch.cummax(torch.where(newseg, idx, 0), dim=-1).values
+    return torch.empty_like(order).scatter_(-1, order, idx - start)
 
 
 def _cluster_sizes(clusters: torch.Tensor, connected: torch.Tensor) -> torch.Tensor:
-    """(N,) connected-member count of each client's cluster (integer-exact)."""
-    N = clusters.shape[0]
-    order = torch.sort(clusters, stable=True).indices
-    sc = clusters[order]
-    newseg = torch.ones((N,), dtype=torch.bool, device=clusters.device)
-    newseg[1:] = sc[1:] != sc[:-1]
-    seg = torch.cumsum(newseg.to(torch.int64), dim=0) - 1  # compact id < N
-    cnt = torch.zeros((N,), dtype=torch.int64, device=clusters.device)
-    cnt.index_add_(0, seg, connected[order].to(torch.int64))
-    sizes = torch.empty((N,), dtype=torch.int64, device=clusters.device)
-    sizes[order] = cnt[seg]
-    return sizes
+    """(..., N) connected-member count of each client's cluster (integer-exact)."""
+    order = torch.sort(clusters, dim=-1, stable=True).indices
+    seg = torch.cumsum(_segments(torch.gather(clusters, -1, order)).to(torch.int64), dim=-1) - 1
+    cnt = torch.zeros(clusters.shape, dtype=torch.int64, device=clusters.device).scatter_add_(
+        -1, seg, torch.gather(connected, -1, order).to(torch.int64))  # compact ids < N
+    return torch.empty_like(order).scatter_(-1, order, torch.gather(cnt, -1, seg))
 
 
 def select_data(key, connected, latency_pred, clusters, n_select, gamma):
     """Cluster coverage with random within-cluster choice."""
-    noise = prng.uniform(key, connected.shape, device=connected.device)
+    noise = prng.uniform(key, connected.shape[-1:], device=connected.device)
     score = _where_connected(connected, noise)
     rank = _per_cluster_rank(score, clusters)
     order_score = rank.to(torch.float32) * 1e6 + score

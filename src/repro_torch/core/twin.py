@@ -6,6 +6,11 @@ tiers, and rush_hour / day_cycle drag realized displacement through
 ``congestion_factor``.  ``cfg`` is a ``ScenarioParams``; ``TrafficTwin``
 lifts a ``TrafficConfig`` (``scenarios.traffic_params``), owns a twin on one
 device and advances it in ``sim_dt_s`` steps.
+
+``advance_twin``'s sub-step path also advances G lanes at once: a
+``TwinState`` whose leaves are ``(G, N)`` and whose ``t`` is ``(G, 1)``, a
+``scenarios.lane_view`` scenario, ``(G, 2)`` keys and ``(G, 1)`` durations.
+Each lane's row is then its one-lane advance, element for element.
 """
 from __future__ import annotations
 
@@ -40,8 +45,8 @@ def convoy_ids(cfg, n: int, device) -> torch.Tensor:
 def ou_innovations(key: torch.Tensor, n: int, cfg, device) -> torch.Tensor:
     """Standard-normal OU innovations, convoy-correlated under platoon.
 
-    ``key`` may carry leading batch dims (one key per substep); the result
-    is ``key.shape[:-1] + (n,)``.  With coupling c the innovation is
+    ``key`` may carry leading batch dims (one key per substep, and then one
+    per lane); the result is ``key.shape[:-1] + (n,)``.  With coupling c the innovation is
     ``sqrt(1-c) own + sqrt(c) shared``, one shared draw per convoy; at
     c == 0 it is exactly the independent draw.
     """
@@ -126,7 +131,9 @@ def advance_twin(state: TwinState, cfg, key: torch.Tensor, duration,
     takes ``max(round(duration / sim_dt_s), 1)`` Euler steps of
     ``sim_dt_s`` (``twin_step``), the count rounded half to even in
     float32 as ``jnp.round`` rounds it.  Either way sub-step i draws its
-    innovations from ``fold_in(key, i)``, all in one batch.
+    innovations from ``fold_in(key, i)``, all in one batch.  The sub-step
+    path takes G lanes too (the module docstring): the innovations are then
+    ``(num_substeps, G, N)``, sub-step first.
     """
     device = state.pos.device
     if num_substeps <= 0:
@@ -143,8 +150,8 @@ def advance_twin(state: TwinState, cfg, key: torch.Tensor, duration,
     noise_std = cfg.accel_std * torch.sqrt(
         (1.0 - decay * decay) / torch.clamp_min(2.0 * cfg.ou_theta, 1e-6)
     )
-    keys = prng.fold_in(key, torch.arange(num_substeps))
-    eps = ou_innovations(keys, state.pos.shape[0], cfg, device)
+    steps = torch.arange(num_substeps).reshape((num_substeps,) + (1,) * (key.dim() - 1))
+    eps = ou_innovations(prng.fold_in(key, steps), state.pos.shape[-1], cfg, device)
     t, pos, speed, accel = state.t, state.pos, state.speed, state.accel
     for i in range(num_substeps):
         accel = accel * decay + noise_std * eps[i]

@@ -1,13 +1,29 @@
-"""The FL runtime: partitioning, clients, server, the round core, the
-experiment engine and the per-experiment simulation.
+"""The FL runtime: partitioning, clients, server, the aggregator registry,
+the round core, the experiment engine and the per-experiment simulation.
 
-``ExperimentEngine``, ``GridResult``, ``FLSimulation`` and
-``time_to_accuracy`` load on first use: the kernels import
-``fl.aggregators``, and the engine imports the kernels.
+The names are ``repro.fl.__all__``, with ``init_state_for_key`` in the
+place of the reference's ``init_state_traced`` (the port builds a lane's
+state eagerly from its folded key; nothing is traced).  Every name loads on
+first use: the kernels import ``fl.aggregators``, and the round core and
+the engine import the kernels.
 """
 
-_EXPORTS = {"ExperimentEngine": "engine", "GridResult": "engine",
-            "FLSimulation": "simulation", "time_to_accuracy": "simulation"}
+_EXPORTS = {
+    **dict.fromkeys(("AGGREGATOR_ORDER", "ServerHP", "apply_rule", "staleness_scale",
+                     "validate_aggregators"), "aggregators"),
+    **dict.fromkeys(("partition_clients", "partition_labels", "client_images",
+                     "client_sample_counts", "make_test_set"), "partition"),
+    "make_local_trainer": "client",
+    "fedavg_aggregate": "server",
+    **dict.fromkeys(("RoundData", "RoundMetrics", "RoundRecord", "RoundState",
+                     "STRATEGY_ORDER", "experiment_key", "init_experiment", "init_state",
+                     "init_state_for_key", "regions_of", "make_round_data", "make_round_step",
+                     "make_warmup", "metrics_to_records"), "rounds"),
+    "ExperimentEngine": "engine",
+    "GridResult": "engine",
+    "FLSimulation": "simulation",
+    "time_to_accuracy": "simulation",
+}
 __all__ = list(_EXPORTS)
 
 

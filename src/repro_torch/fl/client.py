@@ -20,9 +20,13 @@ def make_local_trainer(loss_fn: Callable, lr: float, epochs: int, batch_size: in
                        mu: float = 0.0, compute_dtype=None) -> Callable:
     """Build the cohort trainer.
 
-    Returned fn: ``(global_params, images (K, n, ...), labels (K, n), key)
-    -> (updates tree with leading K, update_vecs (K, P))``.  ``key`` is one
-    cohort key (split K ways) or a ``(K, 2)`` batch of per-client keys.
+    Returned fn: ``(global_params, images (K, n, ...), labels (K, n), key,
+    batch_dims=0) -> (updates tree with leading K, update_vecs (K, P))``.
+    ``key`` is one cohort key (split K ways) or a ``(K, 2)`` batch of
+    per-client keys.  ``global_params``' leaves carry ``batch_dims`` leading
+    axes: 0 for one start shared by the cohort, 1 for a start per client
+    (``(K, ...)``: the batched grid round trains G lanes' cohorts at once,
+    each client from its own lane's model).
     Each client draws ``epochs`` permutations of its ``n`` samples and walks
     them in batches of ``batch_size`` with plain SGD.
 
@@ -40,15 +44,15 @@ def make_local_trainer(loss_fn: Callable, lr: float, epochs: int, batch_size: in
     cast = compute_dtype is not None and compute_dtype != torch.float32
 
     def train_cohort(global_params: dict, images: torch.Tensor,
-                     labels: torch.Tensor, key: torch.Tensor):
+                     labels: torch.Tensor, key: torch.Tensor, batch_dims: int = 0):
         K, n = labels.shape
         device = labels.device
         keys = key if key.dim() == 2 else prng.split(key, K)
         spe = max(n // batch_size, 1)
         perm = prng.permutation(prng.split(keys, epochs), n, device)
         idx = perm[..., : spe * batch_size].reshape(K, epochs * spe, batch_size)
-        spec = flat_spec_of(global_params)
-        start = flatten_to_vector(global_params)
+        spec = flat_spec_of(global_params, batch_dims)
+        start = flatten_to_vector(global_params, batch_dims)  # (P,) or (K, P)
         p = start.expand(K, -1).clone()
         rows = torch.arange(K, device=device)[:, None]
         for s in range(epochs * spe):
@@ -65,7 +69,7 @@ def make_local_trainer(loss_fn: Callable, lr: float, epochs: int, batch_size: in
             if mu:
                 g = g + mu * (p - start)
             p = p - lr * g
-        vecs = p - start[None]
+        vecs = p - start
         return unflatten_from_vector(vecs, spec), vecs
 
     return train_cohort

@@ -2,8 +2,19 @@
 
 A grid is the product (strategy x aggregator x seed x scenario), in that
 order, as the reference forms it.  The reference runs it as one ``vmap`` of
-a ``lax.scan`` over rounds; the port runs the same semantics lane by lane
-through the round core of ``fl.rounds``:
+a ``lax.scan`` over rounds.  The port takes one of two paths, chosen once,
+in ``__init__``, from the engine's registry and lane:
+
+  * the BATCHED round (``fl.rounds.make_grid_round_step``) when the
+    registry is ``("fedavg",)``, the lanes are flat and N <= 1,024
+    (``rounds.grid_round_fits``): the lanes' states stay stacked along a
+    leading grid axis, as the reference keeps them, and one round of every
+    lane runs at once (two ``rttg_latency_grid`` launches and one
+    ``fedavg_reduce_grid`` a grid round, whatever G);
+  * otherwise the LANE LOOP: each lane's round in turn through the one-lane
+    round step (two ``rttg_latency`` and one server-kernel launch a lane).
+
+Both run the same semantics:
 
   * ONE round step and ONE warm-up serve the whole engine, built for its
     strategies and its aggregator registry: the cohort width is
@@ -16,19 +27,21 @@ through the round core of ``fl.rounds``:
     and read by reference by every lane of it (the experiment key never
     folds the scenario, so only the platoon spawn changes a lane's home
     regions);
-  * the lanes' states are kept as a list, one ``RoundState`` a lane, each
-    replaced by its round's result; the loop runs rounds outer and lanes
-    inner.  A batched round over a lane axis would keep them stacked
-    instead (every leaf with a leading grid axis), as the reference does;
+  * the lane loop keeps the lanes' states as a list, one ``RoundState`` a
+    lane, each replaced by its round's result (rounds outer, lanes inner);
+    the batched round keeps one ``rounds.stack_states`` stack, the unique
+    data rows stacked ``(M, ...)`` and each lane's ``(G,)`` row index,
+    read at each gather (no per-lane copy of the client shards);
   * each lane's ``ScenarioParams`` is built once per ``run_grid``, so
     ``rttg_latency``'s per-object operand cache holds for the whole run;
-    ``stack_scenarios`` is called on them only to refuse a grid whose
-    static fields differ, as the reference's stacking does;
+    ``stack_scenarios`` refuses a grid whose static fields differ, as the
+    reference's stacking does, and its ``lane_view`` is the batched
+    round's scenario (``rttg_latency_grid``'s operand built once from it);
   * eval runs every ``eval_every`` rounds and on the last; re-clustering
     every ``recluster_every`` rounds; both schedules are host flags;
-  * each round's ``RoundMetrics`` is written into ``(G, rounds)`` device
-    tensors: nothing is read back to the host until ``GridResult.records``
-    or ``final_accuracy`` is called.
+  * each round's ``(G,)`` metrics are written into ``(G, rounds)`` device
+    tensors, one op a field: nothing is read back to the host until
+    ``GridResult.records`` or ``final_accuracy`` is called.
 
 Not ported: the reference's ``mesh`` / ``shard_map`` grid sharding
 (``grid_shards``, ``last_data_plan``, ``partition.shard_local_rows``), since
@@ -58,6 +71,7 @@ from repro_torch.config import FLConfig, ModelConfig, TrafficConfig
 from repro_torch.core.scenarios import (
     ScenarioParams,
     data_signature,
+    lane_view,
     scenario_config,
     scenario_params,
     stack_scenarios,
@@ -71,11 +85,16 @@ from repro_torch.fl.rounds import (
     cohort_size_for,
     derive_regions,
     experiment_key,
+    grid_round_fits,
     init_state_for_key,
+    make_grid_round_step,
+    make_grid_warmup,
     make_round_data,
     make_round_step,
     make_warmup,
     metrics_to_records,
+    stack_rows,
+    stack_states,
 )
 from repro_torch.models import build_model
 from repro_torch.utils.device import resolve_device
@@ -97,7 +116,7 @@ def _recluster_flags(rounds: int, recluster_every: int) -> List[bool]:
 
 @dataclasses.dataclass
 class _Lanes:
-    """A grid's lanes as ``run_grid`` keeps them: each lane's state,
+    """A grid's lanes as the lane loop keeps them: each lane's state,
     scenario, strategy and aggregator index, and its data row."""
 
     states: List[RoundState]
@@ -106,6 +125,19 @@ class _Lanes:
     aggregator_idx: List[int]
     rows: List[RoundData]  # one per unique (strategy, seed, data_signature)
     row_idx: List[int]
+
+
+@dataclasses.dataclass
+class _GridLanes:
+    """A grid's lanes as the batched round keeps them: one stacked state,
+    the scenarios' lane view, and ``(G,)`` strategy and row indices on the
+    device into the stacked rows."""
+
+    state: RoundState  # every device leaf (G, ...)
+    scn: ScenarioParams  # lane_view: every lane field (G, 1)
+    strategy_idx: torch.Tensor
+    rows: RoundData  # (M, ...), one per unique (strategy, seed, data_signature)
+    row_idx: torch.Tensor
 
 
 @dataclasses.dataclass
@@ -154,7 +186,8 @@ class ExperimentEngine:
     Runs on ``cuda`` unless ``device="cpu"`` is passed; raises when CUDA is
     asked for and no card is present.  ``warmup=False`` skips the
     deadline-rule bootstrap, which trains all N clients once (the fleet lane
-    cannot afford it).
+    cannot afford it).  ``batched`` says which path ``run_grid`` takes (the
+    module docstring), decided here from the registry and the lane.
     """
 
     def __init__(
@@ -185,6 +218,12 @@ class ExperimentEngine:
             strategies=self.strategies, aggregators=self.aggregators,
         )
         self._warmup = make_warmup(self.api.loss, self.fl, self.param_spec)
+        self.batched = grid_round_fits(self.fl, self.aggregators)
+        if self.batched:
+            self._grid_step = make_grid_round_step(
+                self.api.loss, self.fl, self.cohort_size, self.model_bytes, self.param_spec,
+                strategies=self.strategies)
+            self._grid_warmup = make_grid_warmup(self.api.loss, self.fl, self.param_spec)
 
     def _traffic_of(self, scenario: ScenarioLike) -> TrafficConfig:
         if isinstance(scenario, TrafficConfig):
@@ -208,8 +247,10 @@ class ExperimentEngine:
         data = make_round_data(key, self.dataset, self.fl, regions, self.device)
         return state, data, scn, self.strategies.index(strategy)
 
-    def _lanes(self, runs) -> _Lanes:
-        """Every lane of ``runs`` initialized (and warmed up)."""
+    def _lane_list(self, runs, warm: bool = True) -> _Lanes:
+        """Every lane of ``runs`` initialized (and, with ``warm`` and the
+        engine's warm-up on, warmed up one lane at a time), as the lane loop
+        keeps them."""
         dev, fl = self.device, self.fl
         tcs = [self._traffic_of(run[3]) for run in runs]
         scns = [scenario_params(tc, dev) for tc in tcs]
@@ -227,28 +268,48 @@ class ExperimentEngine:
                 rows.append(make_round_data(key, self.dataset, fl, derive_regions(key, scn), dev))
             row_idx.append(row_of[triple])
             state = init_state_for_key(self.api, fl, scn, key, dev)[0]
-            if self.warmup_enabled:
+            if warm and self.warmup_enabled:
                 state = self._warmup(state, rows[row_idx[-1]])
             states.append(state)
             sidx.append(self.strategies.index(strategy))
             aidx.append(self.aggregators.index(aggregator))
         return _Lanes(states, scns, sidx, aidx, rows, row_idx)
 
-    def _grid_round(self, lanes: _Lanes, do_eval: bool, do_recluster: bool) -> List[RoundMetrics]:
+    def _lanes(self, runs) -> Union[_Lanes, _GridLanes]:
+        """Every lane of ``runs`` initialized and warmed up, as this engine's
+        path keeps them (stacked for the batched round)."""
+        if not self.batched:
+            return self._lane_list(runs)
+        lanes = self._lane_list(runs, warm=False)
+        dev = self.device
+        row_idx = torch.tensor(lanes.row_idx, device=dev)
+        rows = stack_rows(lanes.rows)
+        state = stack_states(lanes.states)
+        if self.warmup_enabled:
+            state = self._grid_warmup(state, rows, row_idx)
+        return _GridLanes(state, lane_view(stack_scenarios(lanes.scns)),
+                          torch.tensor(lanes.strategy_idx, device=dev), rows, row_idx)
+
+    def _grid_round(self, lanes, do_eval: bool, do_recluster: bool) -> RoundMetrics:
         """One round of every lane, each lane's state replaced by its new
-        one; the lanes' metrics (device tensors)."""
+        one; the lanes' ``(G,)`` metrics (device tensors).  Stacked lanes
+        take the batched round, a lane list the lane loop."""
+        if isinstance(lanes, _GridLanes):
+            lanes.state, m = self._grid_step(lanes.state, lanes.scn, lanes.strategy_idx,
+                                             lanes.rows, lanes.row_idx, do_eval, do_recluster)
+            return m
         out = []
         for g, scn in enumerate(lanes.scns):
             lanes.states[g], m = self._round_step(
                 lanes.states[g], scn, lanes.strategy_idx[g], lanes.aggregator_idx[g],
                 lanes.rows[lanes.row_idx[g]], do_eval, do_recluster)
             out.append(m)
-        return out
+        return RoundMetrics(*[torch.stack(xs) for xs in zip(*out)])
 
-    def _sweep(self, lanes: _Lanes, rounds: int, eval_every: int) -> RoundMetrics:
+    def _sweep(self, lanes, rounds: int, eval_every: int) -> RoundMetrics:
         """``rounds`` rounds of every lane: ``(G, rounds)`` metrics on the
         device, nothing read back."""
-        G = len(lanes.scns)
+        G = len(lanes.row_idx)
         metrics = RoundMetrics(*[
             torch.empty((G, rounds), device=self.device,
                         dtype=torch.int32 if f in _INT_METRICS else torch.float32)
@@ -256,9 +317,8 @@ class ExperimentEngine:
         flags = zip(_eval_flags(rounds, eval_every),
                     _recluster_flags(rounds, self.fl.recluster_every))
         for r, (do_eval, do_recluster) in enumerate(flags):
-            for g, m in enumerate(self._grid_round(lanes, do_eval, do_recluster)):
-                for buf, x in zip(metrics, m):
-                    buf[g, r].copy_(x)
+            for buf, x in zip(metrics, self._grid_round(lanes, do_eval, do_recluster)):
+                buf[:, r].copy_(x)
         return metrics
 
     def run_grid(

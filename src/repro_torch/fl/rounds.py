@@ -39,6 +39,17 @@ So does the aggregator index: a registry is resolved to its global rule
 index on the host, while every data-dependent decision of the server step
 (who parks, whether the ring drains, whether the model moves) stays a
 device tensor.
+
+The batched grid round (``make_grid_round_step``, with
+``make_grid_warmup``) runs one round of G lanes at once for the flat
+``("fedavg",)`` fused lane, as the reference's engine runs its grid under
+``vmap``: ``round_step``'s expressions, line for line, on states stacked
+along a leading grid axis (``stack_states``), through the same core forms,
+which broadcast over that axis, and ``rttg_latency_grid`` /
+``fedavg_reduce_grid`` (one launch each a pass for all G lanes).  Each
+lane's strategy is picked on the device: every strategy of the engine runs
+over all lanes and a ``(G,)`` index selects each lane's mask, as the
+reference's ``lax.switch`` does under ``vmap``.
 """
 from __future__ import annotations
 
@@ -70,9 +81,9 @@ from repro_torch.fl.aggregators import (
 from repro_torch.fl.client import make_local_trainer
 from repro_torch.fl.partition import client_sample_counts, make_test_set, partition_clients
 from repro_torch.fl.server import apply_delta_flat, normalized_weights, rsu_normalized_weights
-from repro_torch.kernels.fedavg_reduce import fedavg_reduce
+from repro_torch.kernels.fedavg_reduce import fedavg_reduce, fedavg_reduce_grid
 from repro_torch.kernels.rsu_reduce import rsu_reduce
-from repro_torch.kernels.rttg_latency import rttg_latency
+from repro_torch.kernels.rttg_latency import GRID_MAX_N, rttg_latency, rttg_latency_grid
 from repro_torch.kernels.server_update import server_update, server_update_buffered
 from repro_torch.utils import prng
 from repro_torch.utils.pytree import flatten_to_vector, unflatten_from_vector
@@ -281,6 +292,33 @@ def make_round_data(key: torch.Tensor, dataset: str, fl: FLConfig,
     return RoundData(images, labels, client_sample_counts(labels), test_x, test_y)
 
 
+def init_experiment(api, fl: FLConfig, scn, dataset: str, strategy: str,
+                    key: torch.Tensor, device) -> Tuple[RoundState, RoundData]:
+    """The initial state and data of one experiment from the seed key."""
+    state, regions = init_state(api, fl, scn, dataset, strategy, key, device)
+    return state, make_round_data(state.key, dataset, fl, regions, device)
+
+
+def stack_states(states: Sequence[RoundState]) -> RoundState:
+    """Lanes' states stacked along a leading grid axis, as the batched round
+    carries them: every device leaf ``(G, ...)``, the twin's ``t`` ``(G, 1)``
+    (a lane scalar beside ``(G, N)`` kinematics), the keys ``(G, 2)`` on the
+    host, the shared round counter an int."""
+    if len({s.round for s in states}) != 1:
+        raise ValueError("stack_states: the lanes must share their round counter")
+    first = states[0]
+    stacked = {f: torch.stack([getattr(s, f) for s in states]) for f in first._fields
+               if f not in ("twin", "round")}
+    twin = TwinState(*[torch.stack(xs) for xs in zip(*[s.twin for s in states])])
+    return first._replace(twin=twin._replace(t=twin.t[:, None]), **stacked)
+
+
+def stack_rows(rows: Sequence[RoundData]) -> RoundData:
+    """Data rows stacked ``(M, ...)``; a lane reads its row through a
+    ``(G,)`` row index at each gather, never through a copy of its own."""
+    return RoundData(*[torch.stack(xs) for xs in zip(*rows)])
+
+
 def _check_lane(fl: FLConfig, fused: bool) -> None:
     if fl.client_block < 0:
         raise ValueError(f"client_block must be >= 0, got {fl.client_block}")
@@ -317,6 +355,214 @@ def make_warmup(loss_fn, fl: FLConfig, param_spec):
                               clusters=clusters)
 
     return warmup
+
+
+# Client rows the batched warm-up trains in one trainer call: the lanes go
+# through it in chunks of max(1, GRID_WARMUP_ROWS // N) lanes, so its (rows,
+# P) start, parameters and gradients stay bounded (4,096 rows of the
+# fl-mnist-mlp's P = 159,010 are 2.6 GB each).
+GRID_WARMUP_ROWS = 4096
+
+
+def make_grid_warmup(loss_fn, fl: FLConfig, param_spec):
+    """``make_warmup`` for G stacked lanes: every client of every lane
+    reports one gradient sketch, then one batched k-means clusters each
+    lane.  ``(state, rows, row_idx) -> state``; each lane's result is its
+    one-lane warm-up's."""
+    one_step = make_local_trainer(loss_fn, fl.learning_rate, 1, fl.batch_size,
+                                  compute_dtype=precision_of(fl)[1])
+    N, bs = fl.num_clients, fl.batch_size
+    chunk = max(1, GRID_WARMUP_ROWS // N)
+
+    @torch.no_grad()
+    def warmup(state: RoundState, rows: RoundData, row_idx: torch.Tensor) -> RoundState:
+        G, P = state.params.shape
+        keys = prng.split(prng.fold_in_str(state.key, "warmup"), N)  # (G, N, 2)
+        sketches = []
+        for lo in range(0, G, chunk):
+            hi = min(lo + chunk, G)
+            ridx = row_idx[lo:hi]
+            start = state.params[lo:hi].to(torch.float32).repeat_interleave(N, dim=0)
+            _, vecs = one_step(unflatten_from_vector(start, param_spec),
+                               rows.images[ridx, :, :bs].flatten(0, 1),
+                               rows.labels[ridx, :, :bs].flatten(0, 1),
+                               keys[lo:hi].flatten(0, 1), batch_dims=1)
+            sketches.append(apply_sketch(vecs.view(hi - lo, N, P),
+                                         state.sketch_sign[lo:hi, None, :], fl.sketch_dim))
+        sketches = torch.cat(sketches)
+        k_km = prng.fold_in_str(prng.fold_in(state.key, 0), "kmeans")
+        clusters, _ = kmeans_cluster(sketches, k_km, fl.num_clusters)
+        return state._replace(sketches=sketches,
+                              sketch_age=torch.zeros_like(state.sketch_age),
+                              clusters=clusters)
+
+    return warmup
+
+
+def grid_round_fits(fl: FLConfig, aggregators: Sequence[str]) -> bool:
+    """Whether ``make_grid_round_step`` serves this lane: the flat fused
+    ``("fedavg",)`` registry, up to ``GRID_MAX_N`` clients."""
+    return (tuple(aggregators) == ("fedavg",) and not fl.hierarchical
+            and fl.num_clients <= GRID_MAX_N)
+
+
+def make_grid_round_step(loss_fn, fl: FLConfig, cohort_size: int, model_bytes: float,
+                         param_spec, strategies: Sequence[str] = STRATEGY_ORDER):
+    """Build one round of G lanes at once for the flat fused ``("fedavg",)``
+    lane (``grid_round_fits``).
+
+    Returned fn: ``grid_round_step(state, scn, strategy_idx, rows, row_idx,
+    do_eval, do_recluster) -> (state, metrics)``.  ``state`` is a
+    ``stack_states`` stack, ``scn`` a ``scenarios.lane_view``,
+    ``strategy_idx`` a ``(G,)`` device index into ``strategies``, ``rows``
+    a ``stack_rows`` stack and ``row_idx`` each lane's ``(G,)`` row;
+    ``metrics`` fields are ``(G,)``.  Every lane is ``round_step`` on that
+    lane: the same expressions in the same order, with a leading G.
+    """
+    strategies = tuple(strategies)
+    if not grid_round_fits(fl, ("fedavg",)):
+        raise ValueError(f"the batched grid round runs flat lanes of up to {GRID_MAX_N} "
+                         f"clients, got hierarchical={fl.hierarchical}, N={fl.num_clients}")
+    _, cd = precision_of(fl)
+    upload_bytes = float(model_bytes) * (cd.itemsize / 4.0)
+    trainer = make_local_trainer(loss_fn, fl.learning_rate, fl.local_epochs,
+                                 fl.batch_size, mu=fl.fedprox_mu, compute_dtype=cd)
+    n_select = fl.n_select
+    N, K = fl.num_clients, cohort_size
+    compute_s = fl.local_epochs * fl.compute_s_per_epoch
+    cr = fl.connection_rate
+    consts = {}  # device -> (mb, timeout): copied to the card once, not per round
+
+    def _elect(rk, connected, lat_pred, clusters, strategy_idx):
+        """Stage 4 over G lanes: every strategy of the engine on every lane,
+        each lane's mask picked by its (G,) index, as ``lax.switch`` under
+        ``vmap`` computes every branch and selects."""
+        masks = [STRATEGIES[name](prng.fold_in_str(rk, name), connected, lat_pred, clusters,
+                                  n_select, fl.gamma) for name in strategies]
+        if len(masks) == 1:
+            return masks[0]
+        return torch.gather(torch.stack(masks), 0, strategy_idx[None, :, None].expand(
+            1, *connected.shape))[0]
+
+    @torch.no_grad()
+    def grid_round_step(state: RoundState, scn, strategy_idx, rows: RoundData, row_idx,
+                        do_eval, do_recluster):
+        device = state.params.device
+        G = state.params.shape[0]
+        f32 = dict(dtype=torch.float32, device=device)
+        if device not in consts:
+            consts[device] = (torch.tensor(upload_bytes, **f32),
+                              torch.tensor(fl.round_timeout_s, **f32))
+        mb, timeout = consts[device]
+        nan = torch.full((G,), math.nan, **f32)
+        rk = prng.fold_in(state.key, state.round)  # (G, 2)
+
+        # ---- stages 1+2: fuse CAM/CPM, predict, price the topology -----
+        twin = state.twin
+        k_obs = prng.fold_in_str(rk, "observe")
+        cams = emit_cams(twin, scn, k_obs)
+        cpms = emit_cpms(twin, scn, k_obs)
+        pos, speed, accel, _ = fuse_kinematics(cams, cpms, scn)
+        lat_pred, connected = rttg_latency_grid(
+            pos, speed, accel, twin.t[:, 0], mb,
+            forced_connections(prng.fold_in_str(rk, "cr"), cr, (N,), device), scn,
+            predict=True)
+
+        # ---- stage 4: elect --------------------------------------------
+        mask = _elect(rk, connected, lat_pred, state.clusters, strategy_idx)
+        n_selected = mask.sum(dim=-1).to(torch.int32)
+
+        # ---- fixed-size cohort: selected ids ascending, then padding ---
+        ar = torch.arange(N, device=device)
+        idx = torch.sort(torch.where(mask, ar, N + ar), dim=-1).values[:, :K]
+        slot_valid = idx < N
+        idx_c = torch.where(slot_valid, idx, 0)
+
+        # ---- realized round economics on the TRUE evolved topology -----
+        compute_i = compute_s * torch.gather(twin.compute_factor, -1, idx_c)
+        nsel_f = torch.clamp_min(n_selected.to(torch.float32), 1.0)
+        mean_compute = torch.where(slot_valid, compute_i, 0.0).sum(dim=-1) / nsel_f
+        mid_twin = advance_twin(twin, scn, prng.fold_in_str(rk, "mid"),
+                                mean_compute[:, None], ADVANCE_SUBSTEPS)
+        real_lat, still_conn = rttg_latency_grid(
+            mid_twin.pos, mid_twin.speed, mid_twin.accel, mid_twin.t[:, 0], mb,
+            forced_connections(prng.fold_in_str(rk, "upload-cr"), cr, (N,), device), scn,
+            predict=False)
+        ok = slot_valid & torch.gather(still_conn, -1, idx_c)
+        ok_any = ok.any(dim=-1)
+        per_slot = torch.gather(real_lat, -1, idx_c) + compute_i
+        slot_pay = torch.where(ok, per_slot, timeout)
+        dur_core = torch.where(slot_valid, slot_pay, -math.inf).max(dim=-1).values
+        duration = torch.where(n_selected > 0, dur_core + fl.server_agg_s, timeout)
+
+        # ---- FedAvg weights --------------------------------------------
+        counts_k = rows.counts[row_idx[:, None], idx_c]
+        w = normalized_weights(ok, counts_k)
+
+        # ---- local training (G*K clients, each from its lane's model) ---
+        valid = slot_valid.flatten()
+        imgs = rows.images[row_idx[:, None], idx_c].flatten(0, 1)
+        imgs = imgs * valid.reshape(valid.shape + (1,) * (imgs.dim() - 1))
+        lbls = torch.where(valid[:, None], rows.labels[row_idx[:, None], idx_c].flatten(0, 1), 0)
+        start = state.params.to(torch.float32).repeat_interleave(K, dim=0)
+        keys = prng.split(prng.fold_in_str(rk, "local"), K).flatten(0, 1)
+        _, vecs = trainer(unflatten_from_vector(start, param_spec), imgs, lbls, keys,
+                          batch_dims=1)
+        vecs = (vecs * valid[:, None]).to(cd).view(G, K, -1)
+        sks = apply_sketch(vecs, state.sketch_sign[:, None, :], fl.sketch_dim)
+        scatter = torch.where(ok, idx_c, N)
+        sketches = _scatter_rows(state.sketches, scatter, sks)
+        sketch_age = _scatter_rows(state.sketch_age, scatter, sks.new_zeros(idx_c.shape)) + 1.0
+
+        # ---- server update over deadline survivors ----------------------
+        delta = fedavg_reduce_grid(vecs, w)
+        params_vec = torch.where(ok_any[:, None], apply_delta_flat(state.params, delta),
+                                 state.params)
+
+        # ---- advance the twin to round end -----------------------------
+        base = TwinState(*[torch.where(ok_any[:, None], m, o) for m, o in zip(mid_twin, twin)])
+        already = torch.where(ok_any, mean_compute, 0.0)
+        rem = torch.clamp_min(duration - already, 1e-3)
+        twin = advance_twin(base, scn, prng.fold_in_str(rk, "adv"), rem[:, None],
+                            ADVANCE_SUBSTEPS)
+
+        # ---- end of round: recluster on schedule, eval -----------------
+        new_round = state.round + 1
+        clusters = state.clusters
+        if do_recluster:
+            k_km = prng.fold_in_str(prng.fold_in(state.key, new_round), "kmeans")
+            clusters = kmeans_cluster(sketches, k_km, fl.num_clusters)[0]
+        sim_time = state.sim_time + duration
+        if do_eval:
+            tree = _params_tree(params_vec, param_spec)
+            _, m = loss_fn(tree, {"images": rows.test_x[row_idx], "labels": rows.test_y[row_idx]})
+            test_acc, test_loss = m["accuracy"], m["ce"]
+        else:
+            test_acc, test_loss = nan, nan
+
+        has_sel = n_selected > 0
+        zeros = torch.zeros((G,), dtype=torch.int32, device=device)
+        metrics = RoundMetrics(
+            round=torch.full((G,), new_round, dtype=torch.int32, device=device),
+            sim_time=sim_time,
+            duration=duration,
+            n_selected=n_selected,
+            n_succeeded=ok.sum(dim=-1).to(torch.int32),
+            n_buffered=zeros,
+            n_drained=zeros,
+            mean_pred_latency=torch.where(
+                has_sel, torch.where(mask, lat_pred, 0.0).sum(dim=-1) / nsel_f, nan),
+            mean_real_latency=torch.where(
+                has_sel, torch.where(slot_valid, torch.gather(real_lat, -1, idx_c), 0.0)
+                .sum(dim=-1) / nsel_f, nan),
+            test_acc=test_acc,
+            test_loss=test_loss,
+        )
+        return state._replace(params=params_vec, twin=twin, sketches=sketches,
+                              sketch_age=sketch_age, clusters=clusters, round=new_round,
+                              sim_time=sim_time), metrics
+
+    return grid_round_step
 
 
 def make_round_step(loss_fn, fl: FLConfig, cohort_size: int, model_bytes: float,
@@ -645,11 +891,15 @@ def _report(sketches, sketch_age, vecs, ok, idx, sign, sketch_dim, n):
 
 def _scatter_rows(base: torch.Tensor, idx: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
     """``base`` with ``base[idx[i]] = rows[i]``; indices >= len(base) drop
-    (they land on a sink row past the end)."""
-    n = base.shape[0]
-    out = torch.cat([base, base.new_zeros((1,) + base.shape[1:])])
-    out[torch.clamp_max(idx, n)] = rows
-    return out[:n]
+    (they land on a sink row past the end).  With G lanes, ``(G, n, ...)``
+    rows, ``(G, K)`` indices and ``(G, K, ...)`` rows, each lane's own."""
+    b = idx.dim() - 1  # leading lane axes
+    n = base.shape[b]
+    out = torch.cat([base, base.new_zeros(base.shape[:b] + (1,) + base.shape[b + 1:])], dim=b)
+    lanes = tuple(torch.arange(size, device=idx.device).view((-1,) + (1,) * (b - i))
+                  for i, size in enumerate(idx.shape[:-1]))
+    out[lanes + (torch.clamp_max(idx, n),)] = rows
+    return out.narrow(b, 0, n)
 
 
 def metrics_to_records(metrics: RoundMetrics) -> list:

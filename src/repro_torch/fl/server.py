@@ -23,9 +23,10 @@ def fedavg_aggregate(global_params, updates, weights: torch.Tensor):
 
 
 def normalized_weights(mask_selected: torch.Tensor, n_samples: torch.Tensor) -> torch.Tensor:
-    """FedAvg weights proportional to sample counts, masked + normalized."""
+    """FedAvg weights proportional to sample counts, masked + normalized
+    along the last axis: ``(K,)``, or ``(G, K)`` for G lanes."""
     w = mask_selected.to(torch.float32) * n_samples.to(torch.float32)
-    return w / torch.clamp_min(w.sum(), 1e-9)
+    return w / torch.clamp_min(w.sum(dim=-1, keepdim=True), 1e-9)
 
 
 def rsu_normalized_weights(mask_selected, n_samples, rid, live, n_rsu: int, *,

@@ -31,6 +31,12 @@
 // (VEC = 2 at the main path's P: 4 bytes a row), each value widened to fp32
 // exactly (a bf16 is the high half of its fp32), then the same fmaf chain in
 // the same order.  The output stays fp32.
+//
+// B2g, fedavg_reduce_grid_kernel: G lanes' sums in one launch, out[g, p] =
+// sum_k w[g, k] u[g, k, p], the lane as the grid's second dimension
+// (blockIdx.y).  Each lane runs the same column code on its own rows,
+// weights and output row, so a lane is bitwise B2 on that lane.  With VEC
+// dividing P, every lane's rows start VEC-aligned when the first lane's do.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -131,10 +137,12 @@ __device__ __forceinline__ void load_group(T* v, float* w, const T* __restrict__
   }
 }
 
+// This thread's run of VEC columns of one (K, P) cohort: the fmaf chain over
+// ascending k from 0.0, stored to out.
 template <typename E, int VEC>
-__global__ void __launch_bounds__(THREADS) fedavg_reduce_kernel(
-    const E* __restrict__ updates, const float* __restrict__ weights, int k_rows,
-    long long p_cols, float* __restrict__ out) {
+__device__ __forceinline__ void reduce_run(const E* __restrict__ updates,
+                                           const float* __restrict__ weights, int k_rows,
+                                           long long p_cols, float* __restrict__ out) {
   using T = typename Run<E, VEC>::T;
   const long long col = ((long long)blockIdx.x * THREADS + threadIdx.x) * VEC;
   if (col >= p_cols) return;
@@ -162,26 +170,67 @@ __global__ void __launch_bounds__(THREADS) fedavg_reduce_kernel(
   store_vec(out + col, acc, typename Run<float, VEC>::T{});
 }
 
+template <typename E, int VEC>
+__global__ void __launch_bounds__(THREADS) fedavg_reduce_kernel(
+    const E* __restrict__ updates, const float* __restrict__ weights, int k_rows,
+    long long p_cols, float* __restrict__ out) {
+  reduce_run<E, VEC>(updates, weights, k_rows, p_cols, out);
+}
+
+template <typename E, int VEC>
+__global__ void __launch_bounds__(THREADS) fedavg_reduce_grid_kernel(
+    const E* __restrict__ updates, const float* __restrict__ weights, int k_rows,
+    long long p_cols, float* __restrict__ out) {
+  const long long g = blockIdx.y;
+  reduce_run<E, VEC>(updates + g * k_rows * p_cols, weights + g * k_rows, k_rows, p_cols,
+                     out + g * p_cols);
+}
+
+// One launch of B2 (lanes == 0: a 1-D grid) or B2g (lanes >= 1: a lane a
+// grid row).
+template <typename E, int VEC>
+static void launch_vec(const E* updates, const float* weights, int lanes, int k_rows,
+                       long long p_cols, float* out, unsigned blocks, cudaStream_t st) {
+  if (lanes == 0)
+    fedavg_reduce_kernel<E, VEC><<<blocks, THREADS, 0, st>>>(updates, weights, k_rows, p_cols,
+                                                             out);
+  else
+    fedavg_reduce_grid_kernel<E, VEC><<<dim3(blocks, lanes), THREADS, 0, st>>>(
+        updates, weights, k_rows, p_cols, out);
+}
+
 template <typename E>
-static int launch_rows(const E* updates, const float* weights, int k_rows, long long p_cols,
-                       int vec, float* out, unsigned blocks, cudaStream_t st) {
+static int launch_rows(const E* updates, const float* weights, int lanes, int k_rows,
+                       long long p_cols, int vec, float* out, unsigned blocks, cudaStream_t st) {
   switch (vec) {
     case 4:
-      fedavg_reduce_kernel<E, 4><<<blocks, THREADS, 0, st>>>(updates, weights, k_rows, p_cols,
-                                                             out);
+      launch_vec<E, 4>(updates, weights, lanes, k_rows, p_cols, out, blocks, st);
       break;
     case 2:
-      fedavg_reduce_kernel<E, 2><<<blocks, THREADS, 0, st>>>(updates, weights, k_rows, p_cols,
-                                                             out);
+      launch_vec<E, 2>(updates, weights, lanes, k_rows, p_cols, out, blocks, st);
       break;
     case 1:
-      fedavg_reduce_kernel<E, 1><<<blocks, THREADS, 0, st>>>(updates, weights, k_rows, p_cols,
-                                                             out);
+      launch_vec<E, 1>(updates, weights, lanes, k_rows, p_cols, out, blocks, st);
       break;
     default:
       return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();
+}
+
+static int launch_any(const void* updates, int row_bytes, const float* weights, int lanes,
+                      int k_rows, long long p_cols, int vec, float* out, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const long long threads_needed = p_cols / vec;
+  const unsigned blocks = (unsigned)((threads_needed + THREADS - 1) / THREADS);
+  if (blocks == 0) return (int)cudaSuccess;
+  if (row_bytes == 4)
+    return launch_rows(static_cast<const float*>(updates), weights, lanes, k_rows, p_cols, vec,
+                       out, blocks, st);
+  if (row_bytes == 2)
+    return launch_rows(static_cast<const __nv_bfloat16*>(updates), weights, lanes, k_rows,
+                       p_cols, vec, out, blocks, st);
+  return (int)cudaErrorInvalidValue;
 }
 
 // Launch on `stream`.  `row_bytes` is the update rows' element size: 4
@@ -191,15 +240,14 @@ static int launch_rows(const E* updates, const float* weights, int k_rows, long 
 extern "C" int fedavg_reduce_launch(const void* updates, int row_bytes, const float* weights,
                                     int k_rows, long long p_cols, int vec, float* out,
                                     void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const long long threads_needed = p_cols / vec;
-  const unsigned blocks = (unsigned)((threads_needed + THREADS - 1) / THREADS);
-  if (blocks == 0) return (int)cudaSuccess;
-  if (row_bytes == 4)
-    return launch_rows(static_cast<const float*>(updates), weights, k_rows, p_cols, vec, out,
-                       blocks, st);
-  if (row_bytes == 2)
-    return launch_rows(static_cast<const __nv_bfloat16*>(updates), weights, k_rows, p_cols,
-                       vec, out, blocks, st);
-  return (int)cudaErrorInvalidValue;
+  return launch_any(updates, row_bytes, weights, 0, k_rows, p_cols, vec, out, stream);
+}
+
+// B2g: `lanes` (1 .. 65,535) cohorts of (k_rows, p_cols) rows, lane-major,
+// (lanes, k_rows) weights, (lanes, p_cols) out; otherwise as above.
+extern "C" int fedavg_reduce_grid_launch(const void* updates, int row_bytes,
+                                         const float* weights, int lanes, int k_rows,
+                                         long long p_cols, int vec, float* out, void* stream) {
+  if (lanes < 1 || lanes > 65535) return (int)cudaErrorInvalidValue;
+  return launch_any(updates, row_bytes, weights, lanes, k_rows, p_cols, vec, out, stream);
 }

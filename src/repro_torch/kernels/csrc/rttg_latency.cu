@@ -49,6 +49,15 @@
 // Built with --fmad=false and without fast math, so every multiply and add
 // rounds as the plain PyTorch version's separate ops do and log10f / powf /
 // log2f / sinf stay within ulps of it.
+//
+// B1g, rttg_latency_grid_kernel: G lanes of the batched grid round in one
+// launch, one block a lane (blockIdx.x = lane), each lane's own scenario
+// row, kinematics row, t and forced row.  A block is the one-block design
+// above: a thread per client, the lane's histogram in its own shared
+// memory, the same predict_attach and finish, so a lane is bitwise B1 on
+// that lane.  Up to ONE_BLOCK_MAX clients a lane; no counters, no grid
+// barrier, no state between calls.  The scenario operand is (G, row_bytes):
+// the S_COUNT float32 scalars, the R live flags, padding to 4 bytes.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -252,16 +261,59 @@ extern "C" __global__ void __launch_bounds__(ONE_BLOCK_MAX) rttg_latency_kernel(
   }
 }
 
+// scenario: (G, row_bytes) lane rows; t: (G,); pos / speed / accel / forced
+// / lat / conn: (G, n), lane-major.
+extern "C" __global__ void __launch_bounds__(ONE_BLOCK_MAX) rttg_latency_grid_kernel(
+    const uint8_t* __restrict__ scenario, int row_bytes, int n_rsu, const float* __restrict__ t,
+    const float* __restrict__ model_bytes, const float* __restrict__ pos,
+    const float* __restrict__ speed, const float* __restrict__ accel,
+    const uint8_t* __restrict__ forced, int n, int n_steps, float dt, float horizon_s,
+    float* __restrict__ lat, uint8_t* __restrict__ conn) {
+  __shared__ float s[S_COUNT];
+  extern __shared__ int s_dyn[];
+  int* hist = s_dyn;                                            // (R,) counts
+  uint8_t* s_live = reinterpret_cast<uint8_t*>(s_dyn + n_rsu);  // (R,) live flags
+  const int tid = threadIdx.x;
+  const int g = blockIdx.x;
+  const uint8_t* row = scenario + (long long)g * row_bytes;
+  const float* scalars = reinterpret_cast<const float*>(row);
+  for (int j = tid; j < S_COUNT; j += blockDim.x) s[j] = scalars[j];
+  for (int r = tid; r < n_rsu; r += blockDim.x) {
+    s_live[r] = row[S_COUNT * sizeof(float) + r];
+    hist[r] = 0;
+  }
+  __syncthreads();
+
+  const int i = g * n + tid;  // this thread's client of lane g
+  const unsigned active = __ballot_sync(FULL_MASK, tid < n);
+  Attach a{0.0f, 0.0f, 0};
+  if (tid < n) {
+    a = predict_attach(s, s_live, n_rsu, pos[i], speed[i], accel[i], n_steps, dt);
+    const unsigned peers = __match_any_sync(active, a.rid);
+    if ((tid & 31) == __ffs(peers) - 1) atomicAdd(hist + a.rid, __popc(peers));
+  }
+  __syncthreads();
+  if (tid < n) {
+    const float t_now = t[g];
+    const float t_eff = n_steps > 0 ? t_now + horizon_s : t_now;
+    finish(s, a, (float)hist[a.rid], t_eff, *model_bytes, i, forced, lat, conn, nullptr);
+  }
+}
+
 static int shared_bytes(int n_rsu) { return n_rsu * (int)(sizeof(int) + sizeof(uint8_t)); }
 
-// Above 48 KB a block's dynamic shared memory must be opted into.
+// Above 48 KB a block's dynamic shared memory must be opted into (per kernel).
+static cudaError_t grant_for(const void* kernel, int* granted, int smem) {
+  if (smem <= *granted) return cudaSuccess;
+  const cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err == cudaSuccess) *granted = smem;
+  return err;
+}
+
 static cudaError_t grant(int smem) {
   static int granted = 48 * 1024;
-  if (smem <= granted) return cudaSuccess;
-  const cudaError_t err = cudaFuncSetAttribute(
-      rttg_latency_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err == cudaSuccess) granted = smem;
-  return err;
+  return grant_for((const void*)rttg_latency_kernel, &granted, smem);
 }
 
 // Blocks of the launch plan for n clients on the current device: 1 up to
@@ -314,4 +366,27 @@ extern "C" int rttg_latency_launch(
                   &counts,   &spill,  &lat,  &conn,        &rid_out};
   return (int)cudaLaunchCooperativeKernel((const void*)rttg_latency_kernel, dim3(blocks),
                                           dim3(GRID_THREADS), args, (size_t)smem, st);
+}
+
+// B1g: one launch on `stream` of `lanes` blocks, one a lane, for lanes of
+// n <= ONE_BLOCK_MAX clients.  scenario is (lanes, row_bytes) with row_bytes
+// a multiple of 4 holding S_COUNT floats and n_rsu flags; t is (lanes,) on
+// the device.  Allocates nothing; returns the launch's CUDA error code.
+extern "C" int rttg_latency_grid_launch(
+    const uint8_t* scenario, int row_bytes, int n_rsu, int lanes, const float* t,
+    const float* model_bytes, const float* pos, const float* speed, const float* accel,
+    const uint8_t* forced, int n, int n_steps, float dt, float horizon_s, float* lat,
+    uint8_t* conn, void* stream) {
+  if (lanes < 1 || n < 1 || n > ONE_BLOCK_MAX || row_bytes % 4 != 0 ||
+      row_bytes < S_COUNT * (int)sizeof(float) + n_rsu || (long long)lanes * n > 0x7fffffffLL)
+    return (int)cudaErrorInvalidValue;
+  static int granted = 48 * 1024;
+  const int smem = shared_bytes(n_rsu);
+  const cudaError_t err = grant_for((const void*)rttg_latency_grid_kernel, &granted, smem);
+  if (err != cudaSuccess) return (int)err;
+  const int threads = (n + 31) / 32 * 32;
+  rttg_latency_grid_kernel<<<lanes, threads, smem, static_cast<cudaStream_t>(stream)>>>(
+      scenario, row_bytes, n_rsu, t, model_bytes, pos, speed, accel, forced, n, n_steps, dt,
+      horizon_s, lat, conn);
+  return (int)cudaGetLastError();
 }

@@ -10,6 +10,12 @@ tensors run ``rttg_latency_plain``, the composition of the core pure forms
 chained as ``repro/kernels/ref.py::rttg_latency`` chains them.  There is no
 fallback from one to the other.  The PRNG stays outside: the
 connection-rate Bernoulli mask comes in as ``forced``.
+
+``rttg_latency_grid`` is the batched grid round's form (B1g, the reference
+kernel under the engine's ``vmap``): G lanes of up to ``GRID_MAX_N``
+clients, each with its own scenario, kinematics, time and forced mask, in
+one launch (one block a lane, bitwise ``rttg_latency`` on each lane); its
+plain version is ``rttg_latency_grid_plain``.
 """
 from __future__ import annotations
 
@@ -35,11 +41,14 @@ SCENARIO_SCALARS = (
 )
 GRID_THREADS = 256  # block size of the kernel's cooperative launch (N > 1,024)
 MAX_RSU = 32768
+GRID_MAX_N = 1024  # clients a lane of rttg_latency_grid: one block a lane
 
 # Kernel launches made by ``rttg_latency`` (one per call on CUDA tensors).
 launches = 0
+# Kernel launches made by ``rttg_latency_grid`` (one per call on CUDA tensors).
+grid_launches = 0
 
-_OPERANDS = {}  # (id(cfg), device) -> (weakref to cfg, scenario operand)
+_OPERANDS = {}  # (id(cfg), device, grid) -> (weakref to cfg, scenario operand)
 _BLOCKS = {}  # (device, N, R) -> blocks of the kernel's launch plan
 
 
@@ -70,16 +79,31 @@ def scenario_operand(cfg, device) -> torch.Tensor:
     Built once per ``ScenarioParams`` object and device (plain torch, no
     host sync) and kept while the object lives.
     """
+    return _operand(cfg, device, grid=False)
+
+
+def grid_operand(cfg, device) -> torch.Tensor:
+    """A lane view's kernel operand on ``device``: ``(G, row_bytes)`` uint8,
+    each row one lane's ``scenario_operand`` zero-padded to a multiple of 4
+    bytes.  Built once per lane-view object and device and kept while the
+    object lives: once per ``run_grid``."""
+    return _operand(cfg, device, grid=True)
+
+
+def _operand(cfg, device, grid: bool) -> torch.Tensor:
     device = torch.device(device)
-    key = (id(cfg), device)
+    key = (id(cfg), device, grid)
     hit = _OPERANDS.get(key)
     if hit is not None and hit[0]() is cfg:
         return hit[1]
     scalars = torch.stack([torch.as_tensor(getattr(cfg, name), dtype=torch.float32,
-                                           device=device).reshape(())
-                           for name in SCENARIO_SCALARS])
-    live = rsu_up_mask(cfg).to(device=device, dtype=torch.uint8)
-    operand = torch.cat([scalars.view(torch.uint8), live])
+                                           device=device).reshape(-1)
+                           for name in SCENARIO_SCALARS], dim=-1)  # (G, S); one lane (1, S)
+    lanes = scalars.shape[0]
+    live = rsu_up_mask(cfg).to(device=device, dtype=torch.uint8).reshape(lanes, -1)
+    pad = -(scalars.shape[1] * 4 + live.shape[1]) % 4 if grid else 0
+    operand = torch.cat([scalars.view(torch.uint8), live, live.new_zeros((lanes, pad))], dim=1)
+    operand = operand if grid else operand[0]
     _OPERANDS[key] = (weakref.ref(cfg, lambda _, key=key: _OPERANDS.pop(key, None)), operand)
     return operand
 
@@ -172,3 +196,70 @@ def rttg_latency(pos, speed, accel, t, model_bytes, forced, cfg, *, predict: boo
         raise ValueError(f"rttg_latency: unsupported device {pos.device}")
     return rttg_latency_plain(pos, speed, accel, t, model_bytes, forced, cfg,
                               predict, want_rid)
+
+
+def rttg_latency_grid_plain(pos, speed, accel, t, model_bytes, forced, cfg, predict):
+    """``(G, N)`` kinematics, ``(G,)`` times and a ``scenarios.lane_view``
+    scenario -> (latency (G, N) f32, connected (G, N) bool): the plain
+    version's composition over the lane axis."""
+    t = torch.as_tensor(t, dtype=torch.float32, device=pos.device)[:, None]
+    return rttg_latency_plain(pos, speed, accel, t, model_bytes, forced, cfg, predict)
+
+
+def _rttg_latency_grid_cuda(pos, speed, accel, t, model_bytes, forced, cfg, predict):
+    from repro_torch.kernels.build import check, library
+
+    global grid_launches
+    device = pos.device
+    if pos.dim() != 2:
+        raise ValueError(f"rttg_latency_grid: pos must be (G, N), got {tuple(pos.shape)}")
+    G, n = pos.shape
+    n_rsu = n_rsu_of(cfg)
+    if not (1 <= n <= GRID_MAX_N and 1 <= G <= 2**31 // GRID_MAX_N and 1 <= n_rsu <= MAX_RSU):
+        raise ValueError(f"rttg_latency_grid: need 1 <= N <= {GRID_MAX_N}, 1 <= G and "
+                         f"1 <= R <= {MAX_RSU}, got G={G}, N={n}, R={n_rsu}")
+    for name, x, dtype in (("pos", pos, torch.float32), ("speed", speed, torch.float32),
+                           ("accel", accel, torch.float32), ("forced", forced, torch.bool)):
+        if x is not None and (x.device != device or x.dtype != dtype or x.shape != (G, n)
+                              or not x.is_contiguous()):
+            raise ValueError(f"rttg_latency_grid: {name} must be a contiguous ({G}, {n}) "
+                             f"{dtype} tensor on {device}, got {tuple(x.shape)} {x.dtype} "
+                             f"on {x.device}")
+    if (t.device != device or t.dtype != torch.float32 or t.shape != (G,)
+            or not t.is_contiguous()):
+        raise ValueError(f"rttg_latency_grid: t must be a contiguous ({G},) float32 tensor "
+                         f"on {device}")
+    model_bytes = _device_scalar("model_bytes", model_bytes, device)
+    operand = grid_operand(cfg, device)
+    if operand.shape[0] != G:
+        raise ValueError(f"rttg_latency_grid: the scenario has {operand.shape[0]} lanes, "
+                         f"the kinematics {G}")
+    n_steps = horizon_steps(cfg.predict_horizon_s, cfg) if predict else 0
+    horizon_s = float(cfg.predict_horizon_s) if predict else 0.0
+    lat = torch.empty((G, n), dtype=torch.float32, device=device)
+    conn = torch.empty((G, n), dtype=torch.bool, device=device)
+    status = library().rttg_latency_grid_launch(
+        operand.data_ptr(), operand.shape[1], n_rsu, G, t.data_ptr(), model_bytes.data_ptr(),
+        pos.data_ptr(), speed.data_ptr(), accel.data_ptr(),
+        None if forced is None else forced.data_ptr(), n, n_steps, float(cfg.sim_dt_s),
+        horizon_s, lat.data_ptr(), conn.data_ptr(),
+        torch.cuda.current_stream(device).cuda_stream,
+    )
+    check(status, "rttg_latency_grid")
+    grid_launches += 1
+    return lat, conn
+
+
+def rttg_latency_grid(pos, speed, accel, t, model_bytes, forced, cfg, *, predict: bool):
+    """G lanes' geometry chains -> (latency (G, N) f32, connected (G, N) bool).
+
+    ``pos`` / ``speed`` / ``accel`` / ``forced`` are ``(G, N)``, ``t`` a
+    ``(G,)`` tensor, ``cfg`` a ``scenarios.lane_view`` stack.  CUDA tensors
+    go to the kernel (one launch, N <= ``GRID_MAX_N``), CPU tensors to
+    ``rttg_latency_grid_plain``.
+    """
+    if pos.is_cuda:
+        return _rttg_latency_grid_cuda(pos, speed, accel, t, model_bytes, forced, cfg, predict)
+    if pos.device.type != "cpu":
+        raise ValueError(f"rttg_latency_grid: unsupported device {pos.device}")
+    return rttg_latency_grid_plain(pos, speed, accel, t, model_bytes, forced, cfg, predict)

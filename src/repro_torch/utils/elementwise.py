@@ -1,0 +1,30 @@
+"""Elementwise ops whose CPU result must not depend on where an element sits.
+
+On the CPU, PyTorch runs a contiguous elementwise op through SIMD code in
+chunks of the vector width and through the op's scalar form on the tail of
+each contiguous run.  For most ops the two agree bit for bit; for
+``atan2`` and ``pow`` they differ in the last place for a few per cent of
+inputs.  So a value computed in a ``(N,)`` lane and the same value computed
+in row g of a ``(G, N)`` stack could differ, and the batched grid round
+would not reproduce the lane loop.  ``per_element`` hands such an op
+strided inputs, which PyTorch evaluates element by element through the
+scalar form, so every element takes the same code whatever the shape, the
+tail and the thread split.  A CUDA op evaluates every element alike and is
+called as it is.
+"""
+from __future__ import annotations
+
+import torch
+
+
+def per_element(fn, *xs):
+    """``fn(*xs)``, every element through the same code on the CPU."""
+    if not any(isinstance(x, torch.Tensor) and x.device.type == "cpu" for x in xs):
+        return fn(*xs)
+    strided = []
+    for x in xs:
+        if isinstance(x, torch.Tensor) and x.dim():
+            buf = x.new_empty(x.shape + (2,))[..., 0]  # every stride doubled
+            x = buf.copy_(x)
+        strided.append(x)
+    return fn(*strided)

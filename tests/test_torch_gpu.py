@@ -1217,9 +1217,10 @@ def test_engine_grid_on_the_card_matches_the_cpu(dev, aggregators):
     """A 4-lane grid per aggregator (contextual / gossip x ring / platoon, N=20,
     CR 0.7, 3 rounds, eval every 2) on the card against the CPU's plain path:
     integers equal, floats within rtol 2e-4, atol 1e-5 (the engine tests'
-    tolerance), NaN alike; exactly 2 rttg_latency launches a lane and round
-    and one server step (fedavg_reduce, or server_update_buffered on a
-    registry holding fedbuff)."""
+    tolerance), NaN alike.  ``("fedavg",)`` takes the batched round: exactly
+    2 rttg_latency_grid and 1 fedavg_reduce_grid launches a round, whatever
+    the lanes; a registry holding fedbuff the lane loop: 2 rttg_latency
+    launches a lane and round and one server_update_buffered."""
     from repro_torch.config import FLConfig
     from repro_torch.configs import get_config
     from repro_torch.fl import ExperimentEngine
@@ -1232,14 +1233,19 @@ def test_engine_grid_on_the_card_matches_the_cpu(dev, aggregators):
         eng = ExperimentEngine(get_config("fl-mnist-mlp").replace(d_ff=32), fl, "mnist",
                                strategies=("contextual", "gossip"), aggregators=aggregators,
                                device=where)
-        before = (rttg_mod.launches, fedavg_mod.launches, su_mod.buffered_launches)
+        counters = lambda: (rttg_mod.launches, fedavg_mod.launches,  # noqa: E731
+                            su_mod.buffered_launches, rttg_mod.grid_launches,
+                            fedavg_mod.grid_launches)
+        before = counters()
         out[where.type] = eng.run_grid(**grid)
-        after = (rttg_mod.launches, fedavg_mod.launches, su_mod.buffered_launches)
+        after = counters()
         lane_rounds = len(out[where.type].runs) * grid["rounds"]
         if where.type == "cuda":
             fedbuff = "fedbuff" in aggregators
-            assert [a - b for a, b in zip(after, before)] == [
-                2 * lane_rounds, 0 if fedbuff else lane_rounds, lane_rounds if fedbuff else 0]
+            assert eng.batched == (not fedbuff)
+            assert [a - b for a, b in zip(after, before)] == (
+                [2 * lane_rounds, 0, lane_rounds, 0, 0] if fedbuff
+                else [0, 0, 0, 2 * grid["rounds"], grid["rounds"]])
     got, ref = out["cuda"], out["cpu"]
     assert got.runs == ref.runs
     for f in got.metrics._fields:
@@ -1248,4 +1254,114 @@ def test_engine_grid_on_the_card_matches_the_cpu(dev, aggregators):
             assert torch.equal(a, b), f
         else:
             assert torch.equal(torch.isnan(a), torch.isnan(b)), f
+            torch.testing.assert_close(a, b, rtol=2e-4, atol=1e-5, equal_nan=True, msg=f)
+
+
+def _grid_lanes(scenarios, n, cr, dev):
+    """G lanes of ``_geometry``, one a scenario: each lane's own scenario,
+    their lane view, (G, N) kinematics, (G,) times, (G, N) forced or None."""
+    from repro_torch.core.scenarios import lane_view, stack_scenarios
+
+    lanes = [_geometry(name, n, cr, dev) for name in scenarios]
+    scns = [lane[0] for lane in lanes]
+    pos, speed, accel = (torch.stack([lane[i] for lane in lanes]) for i in (1, 2, 3))
+    forced = torch.stack([lane[4] for lane in lanes]) if cr < 1.0 else None
+    t = 77.5 + 3.25 * torch.arange(len(scenarios), dtype=torch.float32, device=dev)
+    return scns, lane_view(stack_scenarios(scns)), pos, speed, accel, t, forced
+
+
+CATALOG = ("ring", "highway", "urban_grid", "rush_hour", "rsu_outage", "platoon",
+           "hetero_fleet", "day_cycle")
+
+
+@pytest.mark.parametrize("scenarios,n", [(CATALOG * 3, 20), (CATALOG * 3, 100), (("ring",), 1),
+                                         (("day_cycle", "rush_hour"), 1024),
+                                         (("rsu_outage", "ring"), 100)])
+@pytest.mark.parametrize("predict", [True, False])
+@pytest.mark.parametrize("cr", [1.0, 0.7])
+def test_rttg_latency_grid_kernel_is_the_one_lane_kernel_lane_by_lane(dev, scenarios, n,
+                                                                      predict, cr):
+    """B1g: one launch for G lanes, each lane bit for bit B1 on that lane;
+    against its plain version connectivity exactly, latency within rtol 1e-5;
+    a second call bit for bit the first."""
+    scns, view, pos, speed, accel, t, forced = _grid_lanes(scenarios, n, cr, dev)
+    before = rttg_mod.grid_launches
+    got, again = [rttg_mod.rttg_latency_grid(pos, speed, accel, t, 636_040.0, forced, view,
+                                             predict=predict) for _ in range(2)]
+    assert rttg_mod.grid_launches == before + 2
+    ref = rttg_mod.rttg_latency_grid_plain(pos, speed, accel, t, 636_040.0, forced, view, predict)
+    for g, scn in enumerate(scns):
+        lat, conn = rttg_mod.rttg_latency(pos[g], speed[g], accel[g], t[g], 636_040.0,
+                                          None if forced is None else forced[g], scn,
+                                          predict=predict)
+        assert torch.equal(got[0][g], lat) and torch.equal(got[1][g], conn), g
+    assert torch.equal(got[1], ref[1])
+    torch.testing.assert_close(got[0], ref[0], rtol=1e-5, atol=1e-7)
+    assert all(torch.equal(x, y) for x, y in zip(got, again))
+
+
+@pytest.mark.parametrize("rows", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("G,K,P,offset", [(24, 2, 159_010, 0), (24, 10, 159_010, 0),
+                                          (1, 2, 159_010, 0), (24, 1, 159_010, 0),
+                                          (3, 7, 159_011, 0), (5, 3, 159_010, 1),
+                                          (1, 1, 1, 0)])
+def test_fedavg_reduce_grid_kernel_is_the_one_lane_kernel_lane_by_lane(dev, G, K, P, offset,
+                                                                       rows):
+    """B2g: one launch for G lanes, each lane bit for bit B2 on that lane,
+    against its plain version within 1e-6 of sum_k |w_k u_k|, repeated
+    bitwise.  ``offset`` starts the rows one element off their alignment."""
+    u = 1e-3 * prng.normal(prng.key(G + K + P), (G, K, P), dev)
+    u = torch.empty((G * K * P + offset,), dtype=rows, device=dev)[offset:].view(G, K, P).copy_(u)
+    w = prng.uniform(prng.key(G * K), (G, K), device=dev)
+    before = fedavg_mod.grid_launches
+    got = fedavg_mod.fedavg_reduce_grid(u, w)
+    assert fedavg_mod.grid_launches == before + 1
+    lanes = torch.stack([fedavg_mod.fedavg_reduce(u[g], w[g]) for g in range(G)])
+    assert torch.equal(got, lanes)
+    ref = fedavg_mod.fedavg_reduce_grid_plain(u, w)
+    scale = float((w.abs()[:, None, :] @ u.float().abs()).max())
+    torch.testing.assert_close(got, ref, rtol=1e-5, atol=1e-6 * scale)
+    assert torch.equal(got, fedavg_mod.fedavg_reduce_grid(u, w))
+
+
+def test_grid_wrappers_refuse_what_the_kernels_do_not_take(dev):
+    scns, view, pos, speed, accel, t, _ = _grid_lanes(("ring", "highway"), 8, 1.0, dev)
+    with pytest.raises(ValueError):
+        rttg_mod.rttg_latency_grid(pos[:1], speed[:1], accel[:1], t[:1], 1.0, None, view,
+                                   predict=True)  # one lane of kinematics, two of scenario
+    with pytest.raises(ValueError):
+        rttg_mod.rttg_latency_grid(pos, speed, accel, t[:1], 1.0, None, view, predict=True)
+    big = _grid_lanes(("ring",), 1025, 1.0, dev)
+    with pytest.raises(ValueError, match="1024"):
+        rttg_mod.rttg_latency_grid(*big[2:5], big[5], 1.0, None, big[1], predict=True)
+    u = torch.zeros((2, 3, 8), device=dev)
+    with pytest.raises(ValueError):
+        fedavg_mod.fedavg_reduce_grid(u, torch.ones((2, 2), device=dev))
+    with pytest.raises(ValueError):
+        fedavg_mod.fedavg_reduce_grid(u.half(), torch.ones((2, 3), device=dev))
+    with pytest.raises(ValueError):
+        fedavg_mod.fedavg_reduce_grid(u.transpose(0, 1), torch.ones((3, 2), device=dev))
+
+
+def test_batched_grid_on_the_card_matches_its_lane_loop(dev):
+    """The five-strategy ("fedavg",) grid (N=20, CR 0.7, 3 rounds) through the
+    batched round and through the lane loop on the same lanes, both on the
+    card: integers equal, floats within rtol 2e-4, atol 1e-5, NaN alike."""
+    from repro_torch.config import FLConfig
+    from repro_torch.configs import get_config
+    from repro_torch.fl import ExperimentEngine
+
+    fl = FLConfig(num_clients=20, samples_per_client=64, local_epochs=1, num_clusters=3,
+                  batch_size=32, connection_rate=0.7, recluster_every=2)
+    eng = ExperimentEngine(get_config("fl-mnist-mlp").replace(d_ff=32), fl, "mnist",
+                           strategies=("greedy", "gossip", "data", "network", "contextual"),
+                           device=dev)
+    runs = [(st, "fedavg", 0, sc) for st in eng.strategies for sc in ("ring", "platoon")]
+    batched = eng._sweep(eng._lanes(runs), 3, 2)
+    loop = eng._sweep(eng._lane_list(runs), 3, 2)
+    for f in batched._fields:
+        a, b = getattr(batched, f).cpu(), getattr(loop, f).cpu()
+        if a.dtype == torch.int32:
+            assert torch.equal(a, b), f
+        else:
             torch.testing.assert_close(a, b, rtol=2e-4, atol=1e-5, equal_nan=True, msg=f)

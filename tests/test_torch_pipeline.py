@@ -106,7 +106,8 @@ def assert_rttg_matches(got, ref):
 
 
 def test_core_exports_the_jax_core_names_but_the_grid_engines():
-    assert set(core.__all__) == set(JCORE_ALL) - {"stack_scenarios"}
+    # the grid engine's stack_scenarios is ported and exported too: every name
+    assert set(core.__all__) == set(JCORE_ALL)
     assert rttg.V2V_RANGE_M == jrttg.V2V_RANGE_M
 
 
