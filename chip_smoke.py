@@ -31,7 +31,14 @@ Phases (any failure raises and exits non-zero):
    on 24 lanes at K = 2 and 10, P = 159,010, fp32 and bf16 rows, and at one
    lane, K = 1, an odd P and rows off their alignment: every lane bit for
    bit a ``fedavg_reduce`` call, within its plain version's tolerance,
-   repeated bitwise;
+   repeated bitwise; ``server_update_grid`` and
+   ``server_update_buffered_grid`` (B3g / B4g, the batched round's server
+   step) on 24, 40 and 48 lanes at K = 2 and 20, the 8-slot ring, P =
+   159,010, every rule mixed across lanes and ``drain`` mixed, fp32 and
+   bf16 rows and master, the registry with no moment rule, and at one lane,
+   an odd P, one ring slot and rows off their alignment: every lane bit for
+   bit a ``server_update`` (``server_update_buffered``) call on that lane,
+   within its plain version's tolerance, repeated bitwise;
    ``fedavg_reduce`` at K = 1, 2, 7, 8, 9, 10, 17 and 100, odd P included;
    ``server_update`` for every rule
    and ``server_update_buffered`` for both ``drain`` states (also at the
@@ -138,14 +145,21 @@ Phases (any failure raises and exits non-zero):
    replayed on the CPU's plain path; the same 24 runs through
    ``FLSimulation`` (240 B1, 120 B2); each path's set-up and round loop
    timed apart; one batched grid round and one lane-loop grid round
-   profiled in turns (batched, loop, loop, batched);
+   profiled in turns (batched, loop, batched);
    the batched round loop under ``torch.cuda.set_sync_debug_mode("error")``
    (where the round core synchronizes, the first such operation and then
-   the count by source line under ``"warn"``; none may be the engine's);
-   ``async_lane``'s grid (``fedbuff``, CR 0.7, the lane loop: 240
-   ``rttg_latency`` and 120 ``server_update_buffered`` launches, some lane
-   parks and drains) and ``precision_lane``'s (bf16 rows, the batched
-   round: 10 B1g and 5 B2g), each with one lane replayed on the CPU;
+   the count by source line under ``"warn"``; none may lie outside
+   ``utils/prng.py``'s host keys and scalars);
+   ``async_lane``'s grid (``fedbuff``, CR 0.7) through the batched round,
+   cold and warm (exactly 10 B1g and 5 B4g a sweep, some lane parks and
+   drains), against its lane loop on the card (240 B1, 120 B4), its most
+   parking lane replayed on the CPU, its batched grid round profiled twice,
+   and its sync check; ``engine_throughput.py::smoke``'s grid
+   at N = 20 (contextual x the six rules x the 8 scenarios, 48 lanes, 1
+   round: 2 B1g and 1 B4g) against its lane loop and one lane a rule on the
+   CPU, and the same grid without fedbuff (40 lanes: 2 B1g and 1 B3g)
+   against its lane loop; ``precision_lane``'s grid (bf16 rows, the batched
+   round: 10 B1g and 5 B2g) with one lane replayed on the CPU;
 5. times: each kernel (CUDA events, after warm-up) beside its bound, its
    plain version and a one-call PyTorch yardstick (``pairwise_cosine`` at
    (100, 1024), (256, 4096) and (20,000, 1,024)), and for every kernel and
@@ -164,7 +178,11 @@ Phases (any failure raises and exits non-zero):
    predicted) beside the lane loop's 24 ``rttg_latency`` launches, and
    ``fedavg_reduce_grid`` at its (24, 2, 159,010) on fp32 and bf16 rows
    beside the lane loop's 24 ``fedavg_reduce`` launches and ``torch.bmm``,
-   each with its device time from CUDA graph replays; ``rttg_latency`` and ``fedavg_reduce`` through their
+   each with its device time from CUDA graph replays; B4g at the async
+   grid's (24, 2, Kb 8, 159,010) with no lane and every lane draining,
+   beside the lane loop's 24 B4 launches, and B3g at the smoke grid's 40
+   lanes (K = 2, rules 0-4), each by CUDA graph replay;
+   ``rttg_latency`` and ``fedavg_reduce`` through their
    wrappers as the round calls them: device ops and device time per call; B2-B5 on the
    bf16 lane's rows beside their fp32 rows (the ``bf16_rows`` JSON line),
    and the bf16 main path's round wall and profile;
@@ -185,9 +203,10 @@ The last three lines are the kernels' JSON record (their fp32 rows;
 ``swa_decode``'s launches summed over every serving run; ``rttg_latency``'s,
 ``fedavg_reduce``'s and ``server_update_buffered``'s with one sweep of each
 engine grid of phase 4h, the parts named in their ``launches_by_path``;
-``rttg_latency_grid``'s and ``fedavg_reduce_grid``'s from one sweep of the
-fp32 and the bf16 grid), the card's name and power limit, and the device
-JSON.
+``rttg_latency_grid``'s, ``fedavg_reduce_grid``'s, ``server_update_grid``'s
+and ``server_update_buffered_grid``'s from one sweep of each engine grid),
+the card's name and power limit, and the device JSON.  Each phase's
+heading carries the seconds since the script started.
 """
 from __future__ import annotations
 
@@ -245,8 +264,11 @@ def bound(n_bytes: float, n_flops: float):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+START = time.perf_counter()
+
+
 def phase(name: str) -> None:
-    print(f"\n=== {name}", flush=True)
+    print(f"\n=== {name} [{time.perf_counter() - START:.0f} s]", flush=True)
 
 
 def rttg_inputs(scenario: str, n: int, seed: int, cr: float, device, **scn_kw):
@@ -523,6 +545,84 @@ def check_server_contracts(K, P, device, rows=torch.float32, master=torch.float3
                 raise AssertionError(f"contract (b) fails at K={K} P={P} rule={rule}")
     print(f"server_update contracts (a) and (b) bitwise at K={K} P={P}, rows {rows}, "
           f"master {master}")
+
+
+# every global AGGREGATOR_ORDER index, and the AXPY rules alone (a registry
+# with no moment rule: B3g / B4g then neither read nor write m and v)
+ALL_RULES = (0, 1, 2, 3, 4, 5)
+AXPY_RULES = (0, 4, 5)
+
+
+def server_grid_operands(G, K, Kb, P, registry, seed, device, rows=torch.float32,
+                         master=torch.float32, offset=0):
+    """G lanes of ``server_operands`` with a (G, Kb, P) ring, each lane's
+    rule from ``registry`` (every rule of it on the first lanes, then
+    drawn) and a drain flag (the first two lanes draining and not, then
+    drawn); the rows and ring in ``rows`` (``offset`` elements into their
+    storage), params in ``master``."""
+    lanes = [server_operands(K, P, seed + g, device) for g in range(G)]
+    u, w, params, m, v = (torch.stack(xs) for xs in zip(*lanes))
+    ring = torch.stack([server_operands(Kb, P, seed + 7 * G + g, device)[0] for g in range(G)])
+    gen_dev = torch.Generator(device=device)
+    gen_dev.manual_seed(seed)
+    bw = torch.rand((G, Kb), generator=gen_dev, device=device)
+    if rows != torch.float32 or offset:
+        u = offset_rows(u.view(G * K, P), rows, offset).view(G, K, P)
+        ring = offset_rows(ring.view(G * Kb, P), rows, offset).view(G, Kb, P)
+    gen = torch.Generator(device="cpu")
+    gen.manual_seed(seed)
+    pick = torch.randint(0, len(registry), (G,), generator=gen)
+    pick[:min(G, len(registry))] = torch.arange(min(G, len(registry)))
+    rules = torch.tensor(registry, dtype=torch.int32)[pick].to(device)
+    drain = torch.rand((G,), generator=gen) < 0.5
+    drain[:2] = torch.tensor([True, False])[:G]
+    return u, w, params.to(master), m, v, ring, bw, rules, drain.to(device)
+
+
+def check_server_grid(G, K, Kb, P, registry, buffered, device, rows=torch.float32,
+                      master=torch.float32, offset=0) -> float:
+    """B3g (or, ``buffered``, B4g) on G lanes whose rules (and drain flags)
+    differ: every lane bit for bit a B3 (B4) call on that lane (an AXPY
+    lane's m' and v' its m and v; the caller's own m and v when the
+    registry holds no moment rule), against its plain version within
+    ``assert_server_close``'s tolerance, a second launch bit for bit."""
+    from repro_torch.kernels.server_update import (
+        server_update, server_update_buffered, server_update_buffered_grid,
+        server_update_buffered_grid_plain, server_update_grid, server_update_grid_plain)
+
+    u, w, params, m, v, ring, bw, rules, drain = server_grid_operands(
+        G, K, Kb, P, registry, G * 7 + K * 5 + Kb + P, device, rows, master, offset)
+    if buffered:
+        def call():
+            return server_update_buffered_grid(u, w, ring, bw, params, m, v, rules, 3, drain,
+                                               registry=registry)
+        ref = server_update_buffered_grid_plain(u, w, ring, bw, params, m, v, rules, 3, drain,
+                                                registry=registry)
+    else:
+        def call():
+            return server_update_grid(u, w, params, m, v, rules, 3, registry=registry)
+        ref = server_update_grid_plain(u, w, params, m, v, rules, 3, registry=registry)
+    got, again = call(), call()
+    what = (f"{'server_update_buffered_grid' if buffered else 'server_update_grid'} G={G} K={K}"
+            f"{f' Kb={Kb}' if buffered else ''} P={P} rules {registry} rows "
+            f"{str(rows)[6:]} master {str(master)[6:]} offset={offset}")
+    for g, rule in enumerate(rules.tolist()):
+        one = (server_update_buffered(u[g], w[g], ring[g], bw[g], params[g], m[g], v[g], rule, 3,
+                                      drain[g]) if buffered
+               else server_update(u[g], w[g], params[g], m[g], v[g], rule, 3))
+        if not all(torch.equal(a[g], b) for a, b in zip(got, one)):
+            raise AssertionError(f"{what}: lane {g} (rule {rule}) is not the one-lane kernel's")
+    if registry == AXPY_RULES and not (got[1] is m and got[2] is v):
+        raise AssertionError(f"{what}: the moments were not handed back untouched")
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        raise AssertionError(f"{what}: does not repeat bitwise")
+    wts = torch.cat([w, torch.where(drain[:, None], bw, 0.0)], 1) if buffered else w
+    cat = torch.cat([u, ring], 1) if buffered else u
+    scale = float((wts.abs()[:, None, :] @ cat.float().abs()).max())
+    err = assert_server_close(got, ref, scale, what)
+    print(f"{what}: every lane bitwise the one-lane kernel's, max_abs_err={err:.3e} vs plain, "
+          f"repeat bitwise")
+    return err
 
 
 def rsu_operands(K, P, R, mode, device, offset=0):
@@ -814,6 +914,8 @@ def read_launches() -> dict:
     return {"rttg_latency": rttg.launches, "fedavg_reduce": fedavg.launches,
             "rttg_latency_grid": rttg.grid_launches, "fedavg_reduce_grid": fedavg.grid_launches,
             "server_update": su.launches, "server_update_buffered": su.buffered_launches,
+            "server_update_grid": su.grid_launches,
+            "server_update_buffered_grid": su.buffered_grid_launches,
             "rsu_reduce": rsu.launches, "swa_decode": swa.launches, "ssd_scan": ssd.launches,
             "pairwise_cosine": gram.launches}
 
@@ -821,7 +923,8 @@ def read_launches() -> dict:
 def reset_launches() -> None:
     rttg, fedavg, su, rsu, swa, ssd, gram = kernel_modules()
     rttg.launches = fedavg.launches = su.launches = su.buffered_launches = rsu.launches = 0
-    rttg.grid_launches = fedavg.grid_launches = 0
+    rttg.grid_launches = fedavg.grid_launches = su.grid_launches = 0
+    su.buffered_grid_launches = 0
     swa.launches = ssd.launches = gram.launches = 0
 
 
@@ -1771,6 +1874,138 @@ def time_grid_kernels(kernels, lib, grid_launches, main_err, bf16_times, device,
           f"{b16_bound[0] * 1e3:.2f} us ({b16_bound[1]}, {b16_bytes / 1e6:.1f} MB) [{card}]")
 
 
+def time_server_grid(kernels, lib, grid_launches, main_err, device, card):
+    """B4g and B3g at the engine grids' shapes, appended to ``kernels``: CUDA
+    events over back-to-back launches of the C entry point and the device
+    time a launch from CUDA graph replays, cycling two operand sets (each
+    past the 50 MB L2), beside the plain version (the one-lane plain version
+    lane by lane) and, for B4g, the lane loop's G B4 launches.  B4g: the
+    async grid's (24, 2, Kb 8, 159,010), fp32, the ``("fedbuff",)`` registry
+    (no moment rule: m and v neither read nor written), with no lane and
+    with every lane draining.  B3g: the smoke grid without fedbuff, 40 lanes
+    at K = 2 under rules 0-4 (8 lanes each), m' and v' written by every lane."""
+    from repro_torch.kernels import build as kbuild
+    from repro_torch.kernels.server_update import (MOMENT_RULES,
+                                                   server_update_buffered_grid_plain,
+                                                   server_update_grid_plain)
+
+    def stream():
+        return torch.cuda.current_stream(device).cuda_stream
+
+    P, K, Kb = 159_010, 2, 8
+    hp = (1.0, 0.9, 1.0 - 0.9, 0.99, 1.0 - 0.99, 1e-3)
+    rows_of = {}
+
+    def operands(G, rules, seed):
+        sets = []
+        for i in range(2):
+            u, w, params, m, v, ring, bw, _, _ = server_grid_operands(
+                G, K, Kb, P, rules, seed + 101 * i, device)
+            sets.append((u, w, params, m, v, ring, bw))
+        return sets
+
+    def launcher(G, sets, rule_t, drain_t, buffered, moments):
+        outs = [torch.empty((G, P), dtype=torch.float32, device=device) for _ in range(3)]
+        it = {"i": 0}
+
+        def launch():
+            it["i"] ^= 1
+            u, w, params, m, v, ring, bw = sets[it["i"]]
+            ring_args = (ring.data_ptr(), bw.data_ptr(), Kb, drain_t.data_ptr()) if buffered \
+                else (None, None, 0, None)
+            mv = (m.data_ptr(), v.data_ptr()) if moments else (None, None)
+            kbuild.check(lib.server_update_grid_launch(
+                u.data_ptr(), 4, w.data_ptr(), G, K, *ring_args, P, params.data_ptr(), 4, *mv,
+                rule_t.data_ptr(), 0, *hp, 2, outs[0].data_ptr(),
+                *((outs[1].data_ptr(), outs[2].data_ptr()) if moments else (None, None)),
+                stream()), "server_update_grid")
+        return launch
+
+    # B4g: 24 fedbuff lanes, no moments
+    G = 24
+    sets = operands(G, (5,), 300)
+    rule5 = torch.full((G,), 5, dtype=torch.int32, device=device)
+    t4 = {}
+    for label, drain in (("none draining", False), ("all draining", True)):
+        drain_t = torch.full((G,), drain, dtype=torch.bool, device=device)
+        launch = launcher(G, sets, rule5, drain_t, True, False)
+        u, w, params, m, v, ring, bw = sets[0]
+
+        def plain(u=u, w=w, ring=ring, bw=bw, params=params, m=m, v=v, drain_t=drain_t):
+            return server_update_buffered_grid_plain(u, w, ring, bw, params, m, v, rule5, 0,
+                                                     drain_t, registry=(5,))
+
+        def lanes(drain_t=drain_t):  # the lane loop's server step: one B4 launch a lane
+            u, w, params, m, v, ring, bw = sets[0]
+            out = torch.empty((P,), dtype=torch.float32, device=device)
+            for g in range(G):
+                kbuild.check(lib.server_update_launch(
+                    u[g].data_ptr(), 4, w[g].data_ptr(), K, ring[g].data_ptr(),
+                    bw[g].data_ptr(), Kb, drain_t[g:].data_ptr(), P, params[g].data_ptr(), 4,
+                    None, None, 5, 0, *hp, 2, out.data_ptr(), None, None, stream()),
+                    "server_update")
+
+        rows = K + (Kb if drain else 0)
+        n_bytes = G * (rows * P * 4 + K * 4 + Kb * 4 + 1 + 4 + 2 * P * 4)
+        t4[label] = dict(ms=time_ms(launch), plain_ms=time_ms(plain, iters=10, warmup=2),
+                         device_us=graph_us(launch), loop_device_us=graph_us(lanes, 4),
+                         bound=bound(n_bytes, G * (2 * rows * P + P)), bytes=n_bytes)
+        t = t4[label]
+        print(f"server_update_buffered_grid G={G} K={K} Kb={Kb} P={P} fedbuff, {label}, one "
+              f"launch: events {t['ms'] * 1e3:.2f} us, device time {t['device_us']:.2f} us "
+              f"(graph replay; {n_bytes / (t['device_us'] * 1e3):.0f} GB/s); the lane loop's "
+              f"{G} server_update_buffered launches {t['loop_device_us']:.2f} us; plain "
+              f"{t['plain_ms'] * 1e3:.1f} us; bound {t['bound'][0] * 1e3:.2f} us "
+              f"({t['bound'][1]}, {n_bytes / 1e6:.1f} MB) [{card}]")
+    rows_of["server_update_buffered_grid"] = t4
+    del sets
+
+    # B3g: 40 lanes, rules 0-4, every lane writes m' and v'
+    G = 40
+    registry = (0, 1, 2, 3, 4)
+    sets = operands(G, registry, 400)
+    rules = torch.tensor([registry[g // 8] for g in range(G)], dtype=torch.int32, device=device)
+    launch = launcher(G, sets, rules, None, False, True)
+    u, w, params, m, v, _, _ = sets[0]
+
+    def plain3():
+        return server_update_grid_plain(u, w, params, m, v, rules, 0, registry=registry)
+
+    n_moment = sum(1 for r in rules.tolist() if r in MOMENT_RULES)
+    n_bytes = G * (K * P * 4 + K * 4 + 4 + 2 * P * 4 + 4 * P * 4)
+    t3 = dict(ms=time_ms(launch), plain_ms=time_ms(plain3, iters=10, warmup=2),
+              device_us=graph_us(launch),
+              bound=bound(n_bytes, G * 2 * K * P + n_moment * 12 * P + (G - n_moment) * P),
+              bytes=n_bytes)
+    print(f"server_update_grid G={G} K={K} P={P} rules 0-4 (m', v' from every lane), one "
+          f"launch: events {t3['ms'] * 1e3:.2f} us, device time {t3['device_us']:.2f} us (graph "
+          f"replay; {n_bytes / (t3['device_us'] * 1e3):.0f} GB/s); plain "
+          f"{t3['plain_ms'] * 1e3:.1f} us; bound {t3['bound'][0] * 1e3:.2f} us "
+          f"({t3['bound'][1]}, {n_bytes / 1e6:.1f} MB) [{card}]")
+    del sets
+
+    for name, t, extra in (
+            ("server_update_grid", t3, {}),
+            ("server_update_buffered_grid", t4["none draining"], {
+                "ms_all_draining": t4["all draining"]["ms"],
+                "device_us_all_draining": t4["all draining"]["device_us"],
+                "bound_ms_all_draining": t4["all draining"]["bound"][0],
+                "loop_device_us": t4["none draining"]["loop_device_us"],
+                "loop_device_us_all_draining": t4["all draining"]["loop_device_us"]})):
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/server_update.cu",
+            "replaces": "src/repro/kernels/server_update.py:124" if name == "server_update_grid"
+            else "src/repro/kernels/server_update.py:164",
+            "launches": sum(g[name] for g in grid_launches.values()),
+            "launches_by_path": {f"engine {grid} grid": g[name]
+                                 for grid, g in grid_launches.items() if g[name]},
+            "max_abs_err": main_err[name],
+            "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound"][0],
+            "bound_by": t["bound"][1], "library_ms": None, "device_us": t["device_us"], **extra,
+        })
+
+
 def time_gram(kernels, lib, stream, sel_run, main_err, device, card):
     """``pairwise_cosine`` at the stage-3 shape (100, 1024), the reference
     kernel bench's (256, 4096) and the fleet's N with the default sketch
@@ -2166,19 +2401,64 @@ def grid_fl(**kw):
                     local_epochs=1, **kw)
 
 
-def grid_sweeps(eng, want: dict, n_warm: int, card: str):
-    """A cold and ``n_warm`` warm sweeps of the grid, each with its launch
+def smoke_fl():
+    """``engine_throughput.py::smoke``'s FLConfig at the bench's N = 20 (its
+    ``--clients``): 32 samples, batches of 16, 4 clusters, CR 1.0 (K = 2)."""
+    from repro_torch.config import FLConfig
+
+    return FLConfig(num_clients=20, samples_per_client=32, batch_size=16, num_clusters=4,
+                    local_epochs=1)
+
+
+@dataclasses.dataclass(frozen=True)
+class Grid:
+    """A grid of phase 4h: its axes (seed 0), rounds and eval schedule."""
+
+    strategies: tuple
+    aggregators: tuple
+    scenarios: tuple = GRID_SCENARIOS
+    rounds: int = GRID_ROUNDS
+    eval_every: int = GRID_EVAL_EVERY
+
+    def runs(self) -> list:
+        return [(st, a, 0, sc) for st in self.strategies for a in self.aggregators
+                for sc in self.scenarios]
+
+    def lane_rounds(self) -> int:
+        return len(self.runs()) * self.rounds
+
+    def batched_want(self, server: str) -> dict:
+        """A batched sweep's launches: 2 B1g and one ``server`` a grid round,
+        whatever G."""
+        return {"rttg_latency_grid": 2 * self.rounds, server: self.rounds}
+
+    def loop_want(self, server: str) -> dict:
+        """A lane-loop sweep's launches: 2 B1 and one ``server`` a lane-round."""
+        return {"rttg_latency": 2 * self.lane_rounds(), server: self.lane_rounds()}
+
+
+BENCH = Grid(GRID_STRATEGIES, ("fedavg",))
+ASYNC = Grid(GRID_STRATEGIES, ("fedbuff",))
+# engine_throughput.py::smoke: contextual x the whole registry x the catalog, 1
+# round; and the same without fedbuff, whose lanes take B3g instead of B4g
+RULES = ("fedavg", "fedavgm", "fedadam", "fedyogi", "stale", "fedbuff")
+SMOKE = Grid(("contextual",), RULES, rounds=1, eval_every=1)
+SMOKE_SYNC = Grid(("contextual",), RULES[:-1], rounds=1, eval_every=1)
+
+
+def grid_sweeps(eng, grid: Grid, want: dict, n_warm: int, card: str):
+    """A cold and ``n_warm`` warm sweeps of ``grid``, each with its launch
     counts zeroed just before and read just after: exactly ``want`` (a
     sweep's launches by kernel), nothing else.
     -> (the first result, the walls (cold first), one sweep's launches)."""
-    lane_rounds = len(GRID_STRATEGIES) * len(GRID_SCENARIOS) * GRID_ROUNDS
     walls, first = [], None
     for _ in range(1 + n_warm):
         reset_launches()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        res = eng.run_grid(seeds=(0,), scenarios=GRID_SCENARIOS, rounds=GRID_ROUNDS,
-                           eval_every=GRID_EVAL_EVERY)
+        res = eng.run_grid(seeds=(0,), scenarios=grid.scenarios, rounds=grid.rounds,
+                           strategies=grid.strategies, aggregators=grid.aggregators,
+                           eval_every=grid.eval_every)
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
         launches = read_launches()
@@ -2190,41 +2470,32 @@ def grid_sweeps(eng, want: dict, n_warm: int, card: str):
     acc = first.final_accuracy()
     if not all(math.isfinite(a) for a in acc.values()):
         raise AssertionError(f"engine grid: a lane's final accuracy is not finite: {acc}")
-    print(f"{len(first.runs)} lanes x {GRID_ROUNDS} rounds ({'batched round' if eng.batched else 'lane loop'}): "
+    print(f"{len(first.runs)} lanes x {grid.rounds} rounds "
+          f"({'batched round' if eng.batched else 'lane loop'}): "
           f"walls (cold first) {', '.join(f'{w:.3f}' for w in walls)} s "
-          f"({lane_rounds / walls[-1]:.2f} lane-rounds/s in the last); launches a sweep "
-          f"{launches}; final accuracy {min(acc.values()):.4f}-{max(acc.values()):.4f} [{card}]")
+          f"({grid.lane_rounds() / walls[-1]:.2f} lane-rounds/s in the last); launches a sweep "
+          f"{ {k: v for k, v in launches.items() if v} }; final accuracy "
+          f"{min(acc.values()):.4f}-{max(acc.values()):.4f} [{card}]")
     return first, walls, launches
 
 
-def batched_want() -> dict:
-    """A batched sweep's launches: 2 B1g and 1 B2g a grid round, whatever G."""
-    return {"rttg_latency_grid": 2 * GRID_ROUNDS, "fedavg_reduce_grid": GRID_ROUNDS}
-
-
-def loop_want(server: str) -> dict:
-    """A lane-loop sweep's launches: 2 B1 and one ``server`` a lane-round."""
-    lane_rounds = len(GRID_STRATEGIES) * len(GRID_SCENARIOS) * GRID_ROUNDS
-    return {"rttg_latency": 2 * lane_rounds, server: lane_rounds}
-
-
-def grid_vs_loop(eng, runs, res, tol, card) -> float:
+def grid_vs_loop(eng, grid: Grid, res, tol, server: str, card):
     """The batched grid against the card's lane loop on the same lanes
-    (``_lane_list`` set-up, per-lane warm-up, one lane after another):
-    integers equal, floats within ``tol``, NaN alike, every lane.  ->
-    the loop's set-up and round-loop walls."""
+    (``_lane_list`` set-up, per-lane warm-up, one lane after another, one
+    ``server`` launch a lane-round): integers equal, floats within ``tol``,
+    NaN alike, every lane.  -> the loop's set-up and round-loop walls."""
     reset_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    lanes = eng._lane_list(runs)
+    lanes = eng._lane_list(grid.runs())
     torch.cuda.synchronize()
     t1 = time.perf_counter()
-    loop = eng._sweep(lanes, GRID_ROUNDS, GRID_EVAL_EVERY)
+    loop = eng._sweep(lanes, grid.rounds, grid.eval_every)
     torch.cuda.synchronize()
     wall = {"setup_s": t1 - t0, "rounds_s": time.perf_counter() - t1}
     launches = read_launches()
     want = dict.fromkeys(launches, 0)
-    want.update(loop_want("fedavg_reduce"))
+    want.update(grid.loop_want(server))
     if launches != want:
         raise AssertionError(f"lane loop: expected {want}, got {launches}")
     worst = 0.0
@@ -2244,26 +2515,27 @@ def grid_vs_loop(eng, runs, res, tol, card) -> float:
         worst = max(worst, float(over.max()))
     if worst > 1.0:
         raise AssertionError(f"batched vs loop: a float differs by {worst:.3f} of the tolerance")
-    print(f"batched grid vs the lane loop on the card, {len(runs)} lanes x {GRID_ROUNDS} "
+    print(f"batched grid vs the lane loop on the card, {len(grid.runs())} lanes x {grid.rounds} "
           f"rounds: integers equal, floats within the tolerance (worst {worst:.3f} of it); the "
-          f"loop's set-up {wall['setup_s']:.3f} s and {GRID_ROUNDS} rounds "
+          f"loop's set-up {wall['setup_s']:.3f} s and {grid.rounds} rounds "
           f"{wall['rounds_s']:.3f} s with {launches['rttg_latency']} B1 and "
-          f"{launches['fedavg_reduce']} B2 launches [{card}]")
+          f"{launches[server]} {server} launches [{card}]")
     return wall
 
 
-def lane_vs_cpu(res, eng, lane, tol, card) -> float:
+def lane_vs_cpu(res, eng, grid: Grid, lane, tol, card) -> float:
     """One lane of the card's grid against the same lane on the CPU's plain
     path (``run_single`` of a CPU engine of the same strategies, registry and
-    config): integers equal, floats within ``tol``, NaN alike.  ``lane`` is
-    the first of its data row, as ``run_single`` builds its own."""
+    config): integers equal, floats within ``tol``, NaN alike.  ``lane``'s
+    data row must be its own scenario's (``run_single`` builds its own):
+    any lane but a platoon one whose row came from another scenario."""
     from repro_torch.fl import ExperimentEngine
 
     strategy, aggregator, seed, scenario = lane
     cpu = ExperimentEngine(eng.api.cfg, eng.fl, eng.dataset, strategies=eng.strategies,
                            aggregators=eng.aggregators, warmup=eng.warmup_enabled, device="cpu")
-    want = cpu.run_single(strategy, seed, scenario, rounds=GRID_ROUNDS,
-                          eval_every=GRID_EVAL_EVERY, aggregator=aggregator)
+    want = cpu.run_single(strategy, seed, scenario, rounds=grid.rounds,
+                          eval_every=grid.eval_every, aggregator=aggregator)
     got = res.records(strategy, seed, scenario, aggregator=aggregator)
     worst = 0.0
     for a, b in zip(got, want):
@@ -2283,12 +2555,12 @@ def lane_vs_cpu(res, eng, lane, tol, card) -> float:
             if not math.isclose(x, y, rel_tol=rtol, abs_tol=atol):
                 raise AssertionError(f"{lane} round {a.round}: {f} card {x} vs cpu {y}")
             worst = max(worst, abs(x - y) / (atol + rtol * abs(y)))
-    print(f"{lane}: {GRID_ROUNDS} rounds on the card vs the CPU's plain path: integers equal, "
+    print(f"{lane}: {grid.rounds} round(s) on the card vs the CPU's plain path: integers equal, "
           f"floats within the tolerance (worst {worst:.3f} of it) [{card}]")
     return worst
 
 
-def sync_check(eng, runs, card) -> dict:
+def sync_check(eng, grid: Grid, card) -> dict:
     """The warm sweep's round loop (``ExperimentEngine._sweep``, lanes built
     outside it) under ``torch.cuda.set_sync_debug_mode("error")``.  If an
     operation synchronizes, print the first, then run the loop again under
@@ -2297,11 +2569,12 @@ def sync_check(eng, runs, card) -> dict:
     import traceback
     import warnings
 
+    runs = grid.runs()
     lanes = eng._lanes(runs)
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
-        eng._sweep(lanes, GRID_ROUNDS, GRID_EVAL_EVERY)
+        eng._sweep(lanes, grid.rounds, grid.eval_every)
         first = None
     except RuntimeError as e:
         frames = [f for f in traceback.extract_tb(e.__traceback__) if "repro_torch" in f.filename]
@@ -2311,7 +2584,7 @@ def sync_check(eng, runs, card) -> dict:
     finally:
         torch.cuda.set_sync_debug_mode(0)
     if first is None:
-        print(f"sync check: the round loop ran {GRID_ROUNDS} rounds of {len(runs)} lanes under "
+        print(f"sync check: the round loop ran {grid.rounds} rounds of {len(runs)} lanes under "
               "set_sync_debug_mode('error') without a device-to-host sync")
         return {"mode": "error", "syncs": 0}
     print(f"sync check: set_sync_debug_mode('error') trips in the round core: {first}")
@@ -2321,19 +2594,22 @@ def sync_check(eng, runs, card) -> dict:
         warnings.simplefilter("always")
         torch.cuda.set_sync_debug_mode("warn")
         try:
-            eng._sweep(lanes, GRID_ROUNDS, GRID_EVAL_EVERY)
+            eng._sweep(lanes, grid.rounds, grid.eval_every)
         finally:
             torch.cuda.set_sync_debug_mode(0)
     syncs = [w for w in caught if "synchroniz" in str(w.message)]
     sites = collections.Counter(f"{os.path.relpath(w.filename, ROOT)}:{w.lineno}"
                                 for w in syncs)
-    engine_sites = {k: v for k, v in sites.items() if "fl/engine.py" in k}
-    lane_rounds = len(runs) * GRID_ROUNDS
+    # the round core's own syncs: any outside the host keys and scalars of
+    # utils/prng.py
+    core_sites = {k: v for k, v in sites.items() if "utils/prng.py" not in k}
     print(f"sync check under 'warn': {len(syncs)} synchronizing operations in "
-          f"{lane_rounds} lane-rounds ({len(syncs) / lane_rounds:.1f} a lane-round); by "
-          f"source line: {dict(sites.most_common())}; in fl/engine.py: {engine_sites} [{card}]")
-    if engine_sites:
-        raise AssertionError(f"the engine's own code synchronizes: {engine_sites}")
+          f"{grid.lane_rounds()} lane-rounds ({len(syncs) / grid.lane_rounds():.2f} a "
+          f"lane-round); by source line: {dict(sites.most_common())}; outside utils/prng.py: "
+          f"{core_sites} [{card}]")
+    if core_sites:
+        raise AssertionError(f"the batched round synchronizes outside utils/prng.py: "
+                             f"{core_sites}")
     return {"mode": "warn", "first": first, "syncs": len(syncs), "sites": dict(sites)}
 
 
@@ -2347,8 +2623,8 @@ def engine_phase(device, card) -> dict:
     from repro_torch.utils import prng
 
     model = get_config("fl-mnist-mlp")
-    runs = [(st, "fedavg", 0, sc) for st in GRID_STRATEGIES for sc in GRID_SCENARIOS]
-    lane_rounds = len(runs) * GRID_ROUNDS
+    runs = BENCH.runs()
+    lane_rounds = BENCH.lane_rounds()
     summary, launches = {"card": card}, {}
 
     phase("engine: the bench's 24-run grid (3 strategies x 8 scenarios, N=20, 5 rounds, "
@@ -2358,11 +2634,12 @@ def engine_phase(device, card) -> dict:
                            aggregators=("fedavg",), device=device)
     if not eng.batched:
         raise AssertionError("the ('fedavg',) grid engine did not take the batched round")
-    res, walls, launches["fedavg"] = grid_sweeps(eng, batched_want(), 1, card)
+    res, walls, launches["fedavg"] = grid_sweeps(eng, BENCH,
+                                                 BENCH.batched_want("fedavg_reduce_grid"), 1, card)
     summary.update(cold_s=walls[0], warm_s=walls[1], rounds_per_s=lane_rounds / walls[1])
-    split = {"loop": grid_vs_loop(eng, runs, res, GRID_TOL, card)}
+    split = {"loop": grid_vs_loop(eng, BENCH, res, GRID_TOL, "fedavg_reduce", card)}
     for lane in (("contextual", "fedavg", 0, "ring"), ("network", "fedavg", 0, "platoon")):
-        lane_vs_cpu(res, eng, lane, GRID_TOL, card)
+        lane_vs_cpu(res, eng, BENCH, lane, GRID_TOL, card)
 
     phase("engine: the same 24 runs through FLSimulation on cuda (the bench's serial_s)")
     serial, serial_acc = [], {}
@@ -2396,7 +2673,7 @@ def engine_phase(device, card) -> dict:
           f"{worst:.2e} of the engine's [{card}]")
 
     phase("engine: the batched set-up and round loop timed apart, then one grid round "
-          "profiled, batched and lane loop in turns (24 lanes, no eval)")
+          "profiled, batched, lane loop and batched (24 lanes, no eval)")
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     batched = eng._lanes(runs)
@@ -2411,7 +2688,9 @@ def engine_phase(device, card) -> dict:
           f"{split['loop']['setup_s']:.3f} / {split['loop']['rounds_s']:.3f} s [{card}]")
     loop = eng._lane_list(runs)
     profiles = {"batched": [], "loop": []}
-    for which in ("batched", "loop", "loop", "batched"):
+    # one lane-loop profile: the profiler's ~110,000 events of a loop round
+    # take over a minute to gather
+    for which in ("batched", "loop", "batched"):
         lanes = batched if which == "batched" else loop
         profiles[which].append(profile_round(
             f"engine grid round ({which}), {len(runs)} lanes (N=20, K=2)",
@@ -2420,25 +2699,54 @@ def engine_phase(device, card) -> dict:
     del batched, loop, lanes
 
     phase("engine: the warm sweep's round loop under torch.cuda.set_sync_debug_mode")
-    summary["sync"] = sync_check(eng, runs, card)
+    summary["sync"] = sync_check(eng, BENCH, card)
 
-    phase("engine: async_lane's grid (('fedbuff',), CR 0.7) through ExperimentEngine")
+    phase("engine: async_lane's grid (('fedbuff',), CR 0.7) through ExperimentEngine, the "
+          "batched round, then its lane loop")
     fl_a = grid_fl(connection_rate=0.7)
     eng_a = ExperimentEngine(model, fl_a, "mnist", strategies=GRID_STRATEGIES,
                              aggregators=("fedbuff",), device=device)
-    if eng_a.batched:
-        raise AssertionError("the ('fedbuff',) grid engine took the batched round")
-    res_a, walls, launches["async"] = grid_sweeps(eng_a, loop_want("server_update_buffered"),
-                                                  0, card)
+    if not eng_a.batched:
+        raise AssertionError("the ('fedbuff',) grid engine did not take the batched round")
+    res_a, walls, launches["async"] = grid_sweeps(
+        eng_a, ASYNC, ASYNC.batched_want("server_update_buffered_grid"), 1, card)
     parked, drained = int(res_a.metrics.n_buffered.sum()), int(res_a.metrics.n_drained.sum())
     if not (parked and drained):
         raise AssertionError(f"async grid: {parked} parked, {drained} drained")
     print(f"async grid: {parked} updates parked, {drained} drained over the grid")
-    summary["async"] = dict(cold_s=walls[0], parked=parked, drained=drained)
+    loop_wall = grid_vs_loop(eng_a, ASYNC, res_a, GRID_TOL, "server_update_buffered", card)
+    summary["async"] = dict(cold_s=walls[0], warm_s=walls[1], parked=parked, drained=drained,
+                            loop=loop_wall)
     # the ring / platoon lane that parks most (each the first of its data row)
     firsts = [(st, "fedbuff", 0, sc) for st in GRID_STRATEGIES for sc in ("ring", "platoon")]
     lane = max(firsts, key=lambda r: int(res_a.metrics.n_buffered[res_a.runs.index(r)].sum()))
-    lane_vs_cpu(res_a, eng_a, lane, GRID_TOL, card)
+    lane_vs_cpu(res_a, eng_a, ASYNC, lane, GRID_TOL, card)
+    batched_a = eng_a._lanes(ASYNC.runs())
+    eng_a._sweep(batched_a, 2, 5)  # two rounds in: the ring holds updates
+    summary["async"]["profiles"] = [profile_round(
+        f"async grid round (batched), {len(ASYNC.runs())} lanes (N=20, K=2, Kb=8)",
+        lambda: eng_a._grid_round(batched_a, False, False), card) for _ in range(2)]
+    del batched_a
+    phase("engine: the async grid's round loop under torch.cuda.set_sync_debug_mode")
+    summary["async"]["sync"] = sync_check(eng_a, ASYNC, card)
+
+    for grid, server, loop_server, name in (
+            (SMOKE, "server_update_buffered_grid", "server_update_buffered", "smoke"),
+            (SMOKE_SYNC, "server_update_grid", "server_update", "smoke_sync")):
+        phase(f"engine: engine_throughput.py::smoke's grid at N=20 (contextual x "
+              f"{len(grid.aggregators)} rules x 8 scenarios, 1 round), the batched round, "
+              f"then its lane loop")
+        eng_s = ExperimentEngine(model, smoke_fl(), "mnist", strategies=grid.strategies,
+                                 aggregators=grid.aggregators, device=device)
+        if not eng_s.batched:
+            raise AssertionError(f"the {name} grid engine did not take the batched round")
+        res_s, walls, launches[name] = grid_sweeps(eng_s, grid, grid.batched_want(server), 0,
+                                                   card)
+        loop_wall = grid_vs_loop(eng_s, grid, res_s, GRID_TOL, loop_server, card)
+        summary[name] = dict(cold_s=walls[0], loop=loop_wall)
+        if name == "smoke":  # one lane a rule on the CPU's plain path
+            for rule, sc in zip(grid.aggregators, GRID_SCENARIOS):
+                lane_vs_cpu(res_s, eng_s, grid, ("contextual", rule, 0, sc), GRID_TOL, card)
 
     phase("engine: precision_lane's grid (compute_dtype bfloat16, ('fedavg',))")
     fl_p = dataclasses.replace(fl, compute_dtype="bfloat16")
@@ -2446,9 +2754,10 @@ def engine_phase(device, card) -> dict:
                              aggregators=("fedavg",), device=device)
     if eng_p.init_run("contextual", 0, "ring")[0].buf_delta.dtype != torch.bfloat16:
         raise AssertionError("precision grid: the lanes' update rows are not bf16")
-    res_p, walls, launches["precision"] = grid_sweeps(eng_p, batched_want(), 0, card)
+    res_p, walls, launches["precision"] = grid_sweeps(
+        eng_p, BENCH, BENCH.batched_want("fedavg_reduce_grid"), 0, card)
     summary["precision"] = dict(cold_s=walls[0])
-    lane_vs_cpu(res_p, eng_p, ("gossip", "fedavg", 0, "ring"), BF16_GRID_TOL, card)
+    lane_vs_cpu(res_p, eng_p, BENCH, ("gossip", "fedavg", 0, "ring"), BF16_GRID_TOL, card)
     summary["launches"] = launches
     print(json.dumps({"engine_grid": summary}))
     return launches
@@ -2570,7 +2879,7 @@ def main(argv=()) -> int:
                   f"rules 0-5: max_abs_err={max(errs):.3e}")
     check_server_buffered(1, 1, 1, 2, True, device)
     check_server_buffered(5, 3, 2049, 3, True, device)
-    # the async engine grid's call (phase 4h): K = 2 beside the 8-slot ring
+    # the async engine grid's lane-loop call (phase 4h): K = 2 beside the 8-slot ring
     for drain in (False, True):
         errs = [check_server_buffered(2, 8, 159_010, rule, drain, device) for rule in range(6)]
         print(f"server_update_buffered K=2 Kb=8 P=159010 drain={drain!s:5s} rules 0-5: "
@@ -2660,6 +2969,31 @@ def main(argv=()) -> int:
         for G, K, P, offset in ((1, 2, 159_010, 0), (24, 1, 159_010, 0), (3, 7, 159_011, 0),
                                 (5, 3, 159_010, 1), (2, 9, 4097, 1), (1, 1, 1, 0)):
             check_fedavg_grid(G, K, P, device, rows, offset)
+    # B3g / B4g (the batched grid round's server step, a lane a grid row): the
+    # engine grids' lanes (24 and 48; 40, the smoke grid without fedbuff) at K = 2
+    # and K = N = 20 (an engine with greedy), the 8-slot ring, P = 159,010, every
+    # rule mixed across lanes and drain mixed; fp32 and bf16 rows and master; the
+    # registry with no moment rule; then one lane, an odd P, one ring slot and
+    # rows off their vector alignment
+    main_err["server_update_grid"] = main_err["server_update_buffered_grid"] = 0.0
+    for G, K in ((24, 2), (40, 2), (48, 2), (24, 20), (48, 20)):
+        for buffered in (False, True):
+            e = check_server_grid(G, K, 8, 159_010, ALL_RULES, buffered, device)
+            if (G, K) == ((24, 2) if buffered else (40, 2)):
+                main_err["server_update_buffered_grid" if buffered else "server_update_grid"] = e
+    for rows, master in ((bf16, f32), (f32, bf16), (bf16, bf16)):
+        for G, K in ((24, 2), (48, 20)):
+            for buffered in (False, True):
+                check_server_grid(G, K, 8, 159_010, ALL_RULES, buffered, device, rows, master)
+    for G in (24, 48):
+        for buffered in (False, True):
+            check_server_grid(G, 2, 8, 159_010, AXPY_RULES, buffered, device)
+    for G, K, Kb, P, offset in ((1, 2, 8, 159_010, 0), (5, 3, 8, 2049, 0),
+                                (6, 2, 1, 159_010, 0), (7, 2, 8, 159_011, 0),
+                                (6, 3, 2, 4098, 1), (1, 1, 1, 1, 0)):
+        for rows in (f32, bf16):
+            for buffered in (False, True):
+                check_server_grid(G, K, Kb, P, ALL_RULES, buffered, device, rows, rows, offset)
     check_rsu_two_roundings(device)
     for K, B, R in ((10, 4, 10), (100, 32, 10), (100, 32, 40)):
         check_rsu_walk(K, B, device, R=R, rows=bf16, out=bf16)
@@ -3205,6 +3539,7 @@ def main(argv=()) -> int:
           f"{fed16_bytes / fed16[2] / 1e3:.0f} GB/s by device time [{card}]")
 
     time_grid_kernels(kernels, lib, grid_launches, main_err, bf16_times, device, card)
+    time_server_grid(kernels, lib, grid_launches, main_err, device, card)
 
     # server_update (fedadam, rule 2) and server_update_buffered (fedbuff,
     # rule 5, draining all Kb = 8 ring rows) at K=10, P=159,010, cycling

@@ -3,16 +3,21 @@
 A grid is the product (strategy x aggregator x seed x scenario), in that
 order, as the reference forms it.  The reference runs it as one ``vmap`` of
 a ``lax.scan`` over rounds.  The port takes one of two paths, chosen once,
-in ``__init__``, from the engine's registry and lane:
+in ``__init__``, from the engine's lane:
 
-  * the BATCHED round (``fl.rounds.make_grid_round_step``) when the
-    registry is ``("fedavg",)``, the lanes are flat and N <= 1,024
-    (``rounds.grid_round_fits``): the lanes' states stay stacked along a
-    leading grid axis, as the reference keeps them, and one round of every
-    lane runs at once (two ``rttg_latency_grid`` launches and one
-    ``fedavg_reduce_grid`` a grid round, whatever G);
-  * otherwise the LANE LOOP: each lane's round in turn through the one-lane
-    round step (two ``rttg_latency`` and one server-kernel launch a lane).
+  * the BATCHED round (``fl.rounds.make_grid_round_step``) when the lanes
+    are flat and N <= 1,024 (``rounds.grid_round_fits``), whatever the
+    registry: the lanes' states stay stacked along a leading grid axis, as
+    the reference keeps them, and one round of every lane runs at once (two
+    ``rttg_latency_grid`` launches and one server launch a grid round,
+    whatever G: ``fedavg_reduce_grid`` for ``("fedavg",)``,
+    ``server_update_buffered_grid`` for a registry holding ``fedbuff``,
+    ``server_update_grid`` for any other); each lane's rule is a ``(G,)``
+    global ``AGGREGATOR_ORDER`` index on the device, built once per
+    ``run_grid``;
+  * otherwise (two-tier lanes, or more than 1,024 clients) the LANE LOOP:
+    each lane's round in turn through the one-lane round step (two
+    ``rttg_latency`` and one server-kernel launch a lane).
 
 Both run the same semantics:
 
@@ -21,7 +26,8 @@ Both run the same semantics:
     ``cohort_size_for(fl, strategies)`` (with ``greedy`` among them every
     lane trains N slots), and the registry picks the server path (only
     ``("fedavg",)`` keeps ``fedavg_reduce`` + the AXPY; a registry holding
-    ``fedbuff`` sends every lane through ``server_update_buffered``);
+    ``fedbuff`` sends every lane through ``server_update_buffered``, or its
+    grid form, ``fedavg`` lanes too);
   * ``RoundData`` rows are de-duplicated: one per unique (strategy, seed,
     ``scenarios.data_signature``), built from the first lane of its triple
     and read by reference by every lane of it (the experiment key never
@@ -76,7 +82,7 @@ from repro_torch.core.scenarios import (
     scenario_params,
     stack_scenarios,
 )
-from repro_torch.fl.aggregators import validate_aggregators
+from repro_torch.fl.aggregators import AGGREGATOR_ORDER, validate_aggregators
 from repro_torch.fl.rounds import (
     RoundData,
     RoundMetrics,
@@ -130,12 +136,14 @@ class _Lanes:
 @dataclasses.dataclass
 class _GridLanes:
     """A grid's lanes as the batched round keeps them: one stacked state,
-    the scenarios' lane view, and ``(G,)`` strategy and row indices on the
-    device into the stacked rows."""
+    the scenarios' lane view, and ``(G,)`` strategy, rule and row indices on
+    the device (the rule a global ``AGGREGATOR_ORDER`` index, the row one
+    into the stacked rows)."""
 
     state: RoundState  # every device leaf (G, ...)
     scn: ScenarioParams  # lane_view: every lane field (G, 1)
     strategy_idx: torch.Tensor
+    rule_idx: torch.Tensor  # (G,) int32
     rows: RoundData  # (M, ...), one per unique (strategy, seed, data_signature)
     row_idx: torch.Tensor
 
@@ -187,7 +195,7 @@ class ExperimentEngine:
     asked for and no card is present.  ``warmup=False`` skips the
     deadline-rule bootstrap, which trains all N clients once (the fleet lane
     cannot afford it).  ``batched`` says which path ``run_grid`` takes (the
-    module docstring), decided here from the registry and the lane.
+    module docstring), decided here from the lane.
     """
 
     def __init__(
@@ -222,7 +230,7 @@ class ExperimentEngine:
         if self.batched:
             self._grid_step = make_grid_round_step(
                 self.api.loss, self.fl, self.cohort_size, self.model_bytes, self.param_spec,
-                strategies=self.strategies)
+                strategies=self.strategies, aggregators=self.aggregators)
             self._grid_warmup = make_grid_warmup(self.api.loss, self.fl, self.param_spec)
 
     def _traffic_of(self, scenario: ScenarioLike) -> TrafficConfig:
@@ -287,8 +295,10 @@ class ExperimentEngine:
         state = stack_states(lanes.states)
         if self.warmup_enabled:
             state = self._grid_warmup(state, rows, row_idx)
+        rules = [AGGREGATOR_ORDER.index(self.aggregators[a]) for a in lanes.aggregator_idx]
         return _GridLanes(state, lane_view(stack_scenarios(lanes.scns)),
-                          torch.tensor(lanes.strategy_idx, device=dev), rows, row_idx)
+                          torch.tensor(lanes.strategy_idx, device=dev),
+                          torch.tensor(rules, dtype=torch.int32, device=dev), rows, row_idx)
 
     def _grid_round(self, lanes, do_eval: bool, do_recluster: bool) -> RoundMetrics:
         """One round of every lane, each lane's state replaced by its new
@@ -296,7 +306,8 @@ class ExperimentEngine:
         take the batched round, a lane list the lane loop."""
         if isinstance(lanes, _GridLanes):
             lanes.state, m = self._grid_step(lanes.state, lanes.scn, lanes.strategy_idx,
-                                             lanes.rows, lanes.row_idx, do_eval, do_recluster)
+                                             lanes.rule_idx, lanes.rows, lanes.row_idx, do_eval,
+                                             do_recluster)
             return m
         out = []
         for g, scn in enumerate(lanes.scns):

@@ -41,15 +41,20 @@ index on the host, while every data-dependent decision of the server step
 device tensor.
 
 The batched grid round (``make_grid_round_step``, with
-``make_grid_warmup``) runs one round of G lanes at once for the flat
-``("fedavg",)`` fused lane, as the reference's engine runs its grid under
+``make_grid_warmup``) runs one round of G lanes at once for the flat fused
+lane, whatever the registry, as the reference's engine runs its grid under
 ``vmap``: ``round_step``'s expressions, line for line, on states stacked
 along a leading grid axis (``stack_states``), through the same core forms,
-which broadcast over that axis, and ``rttg_latency_grid`` /
-``fedavg_reduce_grid`` (one launch each a pass for all G lanes).  Each
-lane's strategy is picked on the device: every strategy of the engine runs
-over all lanes and a ``(G,)`` index selects each lane's mask, as the
-reference's ``lax.switch`` does under ``vmap``.
+which broadcast over that axis, and the kernels' grid forms (one launch
+each a pass for all G lanes): ``rttg_latency_grid`` twice, then one server
+step by the registry, as ``round_step`` picks it: ``fedavg_reduce_grid``
+for ``("fedavg",)``, ``server_update_buffered_grid`` for a registry that
+holds ``fedbuff``, ``server_update_grid`` for any other.  Each lane's
+strategy and rule are picked on the device: every strategy of the engine
+runs over all lanes and a ``(G,)`` index selects each lane's mask, as the
+reference's ``lax.switch`` does under ``vmap``; a ``(G,)`` global rule
+index selects each lane's weights (``stale``), ring (``fedbuff``) and
+server rule, as the reference's traced ``gidx`` does.
 """
 from __future__ import annotations
 
@@ -84,7 +89,8 @@ from repro_torch.fl.server import apply_delta_flat, normalized_weights, rsu_norm
 from repro_torch.kernels.fedavg_reduce import fedavg_reduce, fedavg_reduce_grid
 from repro_torch.kernels.rsu_reduce import rsu_reduce
 from repro_torch.kernels.rttg_latency import GRID_MAX_N, rttg_latency, rttg_latency_grid
-from repro_torch.kernels.server_update import server_update, server_update_buffered
+from repro_torch.kernels.server_update import (server_update, server_update_buffered,
+                                                server_update_buffered_grid, server_update_grid)
 from repro_torch.utils import prng
 from repro_torch.utils.pytree import flatten_to_vector, unflatten_from_vector
 
@@ -400,29 +406,39 @@ def make_grid_warmup(loss_fn, fl: FLConfig, param_spec):
 
 
 def grid_round_fits(fl: FLConfig, aggregators: Sequence[str]) -> bool:
-    """Whether ``make_grid_round_step`` serves this lane: the flat fused
-    ``("fedavg",)`` registry, up to ``GRID_MAX_N`` clients."""
-    return (tuple(aggregators) == ("fedavg",) and not fl.hierarchical
-            and fl.num_clients <= GRID_MAX_N)
+    """Whether ``make_grid_round_step`` serves this lane and registry: flat
+    lanes of up to ``GRID_MAX_N`` clients, under any registry of the
+    catalog."""
+    validate_aggregators(aggregators)
+    return not fl.hierarchical and fl.num_clients <= GRID_MAX_N
 
 
 def make_grid_round_step(loss_fn, fl: FLConfig, cohort_size: int, model_bytes: float,
-                         param_spec, strategies: Sequence[str] = STRATEGY_ORDER):
-    """Build one round of G lanes at once for the flat fused ``("fedavg",)``
-    lane (``grid_round_fits``).
+                         param_spec, strategies: Sequence[str] = STRATEGY_ORDER,
+                         aggregators: Sequence[str] = ("fedavg",)):
+    """Build one round of G lanes at once for the flat fused lane
+    (``grid_round_fits``) under the registry ``aggregators``.
 
-    Returned fn: ``grid_round_step(state, scn, strategy_idx, rows, row_idx,
-    do_eval, do_recluster) -> (state, metrics)``.  ``state`` is a
-    ``stack_states`` stack, ``scn`` a ``scenarios.lane_view``,
-    ``strategy_idx`` a ``(G,)`` device index into ``strategies``, ``rows``
-    a ``stack_rows`` stack and ``row_idx`` each lane's ``(G,)`` row;
-    ``metrics`` fields are ``(G,)``.  Every lane is ``round_step`` on that
-    lane: the same expressions in the same order, with a leading G.
+    Returned fn: ``grid_round_step(state, scn, strategy_idx, rule_idx,
+    rows, row_idx, do_eval, do_recluster) -> (state, metrics)``.  ``state``
+    is a ``stack_states`` stack, ``scn`` a ``scenarios.lane_view``,
+    ``strategy_idx`` a ``(G,)`` device index into ``strategies``,
+    ``rule_idx`` each lane's ``(G,)`` int32 GLOBAL ``AGGREGATOR_ORDER``
+    index (a rule of the registry), ``rows`` a ``stack_rows`` stack and
+    ``row_idx`` each lane's ``(G,)`` row; ``metrics`` fields are ``(G,)``.
+    Every lane is ``round_step`` on that lane: the same expressions in the
+    same order, with a leading G.
     """
     strategies = tuple(strategies)
-    if not grid_round_fits(fl, ("fedavg",)):
+    aggregators = validate_aggregators(aggregators)
+    if not grid_round_fits(fl, aggregators):
         raise ValueError(f"the batched grid round runs flat lanes of up to {GRID_MAX_N} "
                          f"clients, got hierarchical={fl.hierarchical}, N={fl.num_clients}")
+    registry = tuple(AGGREGATOR_ORDER.index(a) for a in aggregators)
+    plain_fedavg = aggregators == ("fedavg",)
+    has_stale, has_fedbuff = STALE_IDX in registry, FEDBUFF_IDX in registry
+    Kb, buffer_fill = fl.buffer_size, fl.buffer_fill
+    hp = server_hp(fl)._asdict()
     _, cd = precision_of(fl)
     upload_bytes = float(model_bytes) * (cd.itemsize / 4.0)
     trainer = make_local_trainer(loss_fn, fl.learning_rate, fl.local_epochs,
@@ -445,8 +461,8 @@ def make_grid_round_step(loss_fn, fl: FLConfig, cohort_size: int, model_bytes: f
             1, *connected.shape))[0]
 
     @torch.no_grad()
-    def grid_round_step(state: RoundState, scn, strategy_idx, rows: RoundData, row_idx,
-                        do_eval, do_recluster):
+    def grid_round_step(state: RoundState, scn, strategy_idx, rule_idx, rows: RoundData,
+                        row_idx, do_eval, do_recluster):
         device = state.params.device
         G = state.params.shape[0]
         f32 = dict(dtype=torch.float32, device=device)
@@ -495,9 +511,46 @@ def make_grid_round_step(loss_fn, fl: FLConfig, cohort_size: int, model_bytes: f
         dur_core = torch.where(slot_valid, slot_pay, -math.inf).max(dim=-1).values
         duration = torch.where(n_selected > 0, dur_core + fl.server_agg_s, timeout)
 
-        # ---- FedAvg weights --------------------------------------------
+        # ---- FedAvg weights, each lane's rule picked on the device -------
         counts_k = rows.counts[row_idx[:, None], idx_c]
         w = normalized_weights(ok, counts_k)
+        upd_any = ok_any
+        if has_stale:
+            # stragglers keep a weight discounted by their realized round
+            # time; any selected client moves the model
+            is_stale = rule_idx == STALE_IDX
+            disc = torch.where(ok, 1.0, staleness_scale(per_slot, timeout))
+            w = torch.where(is_stale[:, None], normalized_weights(slot_valid, counts_k * disc), w)
+            upd_any = torch.where(is_stale, n_selected > 0, ok_any)
+
+        # ---- fedbuff: drain arrived ring slots, place new stragglers ---
+        n_buffered = n_drained = torch.zeros((G,), dtype=torch.int32, device=device)
+        if has_fedbuff:
+            is_fedbuff = rule_idx == FEDBUFF_IDX
+            end_time = (state.sim_time + duration)[:, None]
+            arrived = state.buf_mask & (state.buf_arrive <= end_time)
+            n_arrived = arrived.sum(dim=-1).to(torch.int32)
+            drain_fire = (n_arrived >= buffer_fill) & is_fedbuff
+            disc_b = staleness_scale(torch.clamp_min(end_time - state.buf_sent, 0.0), timeout)
+            # normalized by the UNDISCOUNTED drained mass
+            mass_b = torch.where(arrived, state.buf_weight, 0.0).sum(dim=-1)
+            drained = drain_fire[:, None] & arrived
+            bw = torch.where(drained, state.buf_weight * disc_b
+                             / torch.clamp_min(mass_b, 1e-9)[:, None], 0.0)
+            keep = state.buf_mask & ~drained
+            # the i-th straggler takes the i-th free slot of its lane; ranks
+            # past the free capacity get slot 2*Kb and drop
+            strag = slot_valid & ~ok & is_fedbuff[:, None]
+            ar_b = torch.arange(Kb, device=device)
+            free_order = torch.sort(torch.where(keep, Kb + ar_b, ar_b), dim=-1,
+                                    stable=True).values
+            rank = torch.cumsum(strag, dim=-1) - 1
+            slot = torch.where(strag & (rank < Kb),
+                               torch.gather(free_order, -1, rank.clamp(0, Kb - 1)), 2 * Kb)
+            n_buffered = (strag & (slot < Kb)).sum(dim=-1).to(torch.int32)
+            n_drained = torch.where(drain_fire, n_arrived, 0).to(torch.int32)
+            # a drain with no in-round survivor is still a server step
+            upd_any = torch.where(is_fedbuff, ok_any | drain_fire, upd_any)
 
         # ---- local training (G*K clients, each from its lane's model) ---
         valid = slot_valid.flatten()
@@ -513,11 +566,41 @@ def make_grid_round_step(loss_fn, fl: FLConfig, cohort_size: int, model_bytes: f
         scatter = torch.where(ok, idx_c, N)
         sketches = _scatter_rows(state.sketches, scatter, sks)
         sketch_age = _scatter_rows(state.sketch_age, scatter, sks.new_zeros(idx_c.shape)) + 1.0
+        buf = {f: getattr(state, f) for f in
+               ("buf_delta", "buf_arrive", "buf_sent", "buf_weight", "buf_mask")}
+        if has_fedbuff:
+            # drained slots empty now; this round's stragglers fill them
+            buf = {f: keep if f == "buf_mask" else torch.where(
+                keep.reshape((G, Kb) + (1,) * (x.dim() - 2)), x, 0.0) for f, x in buf.items()}
+            buf["buf_delta"] = _scatter_rows(buf["buf_delta"], slot, vecs)
 
-        # ---- server update over deadline survivors ----------------------
-        delta = fedavg_reduce_grid(vecs, w)
-        params_vec = torch.where(ok_any[:, None], apply_delta_flat(state.params, delta),
-                                 state.params)
+        # ---- server update over deadline survivors (one launch) ---------
+        opt_m, opt_v = state.opt_m, state.opt_v
+        if plain_fedavg:
+            delta = fedavg_reduce_grid(vecs, w)
+            params_vec = torch.where(ok_any[:, None], apply_delta_flat(state.params, delta),
+                                     state.params)
+        else:
+            if has_fedbuff:
+                # every lane through the ring's form; the PRE-scatter ring
+                new = server_update_buffered_grid(vecs, w, state.buf_delta, bw, state.params,
+                                                  opt_m, opt_v, rule_idx, state.round,
+                                                  drain_fire, registry=registry, **hp)
+            else:
+                new = server_update_grid(vecs, w, state.params, opt_m, opt_v, rule_idx,
+                                         state.round, registry=registry, **hp)
+            params_vec, opt_m, opt_v = [torch.where(upd_any[:, None], n, o) for n, o in
+                                        zip(new, (state.params, opt_m, opt_v))]
+
+        # ---- fedbuff: the ring's metadata follows the row scatter -------
+        if has_fedbuff:
+            arrive_k = state.sim_time[:, None] + torch.maximum(per_slot, timeout)
+            new_rows = {"buf_arrive": arrive_k,
+                        "buf_sent": state.sim_time[:, None].expand(G, K),
+                        "buf_weight": counts_k,
+                        "buf_mask": torch.ones((G, K), dtype=torch.bool, device=device)}
+            for f, x in new_rows.items():
+                buf[f] = _scatter_rows(buf[f], slot, x)
 
         # ---- advance the twin to round end -----------------------------
         base = TwinState(*[torch.where(ok_any[:, None], m, o) for m, o in zip(mid_twin, twin)])
@@ -541,15 +624,14 @@ def make_grid_round_step(loss_fn, fl: FLConfig, cohort_size: int, model_bytes: f
             test_acc, test_loss = nan, nan
 
         has_sel = n_selected > 0
-        zeros = torch.zeros((G,), dtype=torch.int32, device=device)
         metrics = RoundMetrics(
             round=torch.full((G,), new_round, dtype=torch.int32, device=device),
             sim_time=sim_time,
             duration=duration,
             n_selected=n_selected,
             n_succeeded=ok.sum(dim=-1).to(torch.int32),
-            n_buffered=zeros,
-            n_drained=zeros,
+            n_buffered=n_buffered,
+            n_drained=n_drained,
             mean_pred_latency=torch.where(
                 has_sel, torch.where(mask, lat_pred, 0.0).sum(dim=-1) / nsel_f, nan),
             mean_real_latency=torch.where(
@@ -558,9 +640,9 @@ def make_grid_round_step(loss_fn, fl: FLConfig, cohort_size: int, model_bytes: f
             test_acc=test_acc,
             test_loss=test_loss,
         )
-        return state._replace(params=params_vec, twin=twin, sketches=sketches,
-                              sketch_age=sketch_age, clusters=clusters, round=new_round,
-                              sim_time=sim_time), metrics
+        return state._replace(params=params_vec, opt_m=opt_m, opt_v=opt_v, twin=twin,
+                              sketches=sketches, sketch_age=sketch_age, clusters=clusters,
+                              round=new_round, sim_time=sim_time, **buf), metrics
 
     return grid_round_step
 
@@ -895,11 +977,14 @@ def _scatter_rows(base: torch.Tensor, idx: torch.Tensor, rows: torch.Tensor) -> 
     rows, ``(G, K)`` indices and ``(G, K, ...)`` rows, each lane's own."""
     b = idx.dim() - 1  # leading lane axes
     n = base.shape[b]
-    out = torch.cat([base, base.new_zeros(base.shape[:b] + (1,) + base.shape[b + 1:])], dim=b)
-    lanes = tuple(torch.arange(size, device=idx.device).view((-1,) + (1,) * (b - i))
-                  for i, size in enumerate(idx.shape[:-1]))
-    out[lanes + (torch.clamp_max(idx, n),)] = rows
-    return out.narrow(b, 0, n)
+    row = base.shape[b + 1:]
+    # the lanes' rows flattened, one sink row after them: the result is a
+    # prefix of one buffer, so it stays contiguous (the grid kernels need it)
+    G = math.prod(base.shape[:b])
+    out = torch.cat([base.reshape((G * n,) + row), base.new_zeros((1,) + row)])
+    lane = torch.arange(G, device=idx.device).view(idx.shape[:-1] + (1,)) * n
+    out[torch.where(idx < n, lane + idx, G * n).flatten()] = rows.reshape((-1,) + row)
+    return out[:G * n].view(base.shape)
 
 
 def metrics_to_records(metrics: RoundMetrics) -> list:

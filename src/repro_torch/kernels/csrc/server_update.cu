@@ -41,6 +41,20 @@
 // load, every sum and the rule run in fp32 as above, and a bf16 params' is
 // rounded once, to nearest even (__float2bfloat16_rn), as the reference's
 // astype(params.dtype).  A run of VEC bf16 values is one VEC*2-byte load.
+//
+// B3g / B4g, server_update_grid_kernel: the same pass for G lanes in one
+// launch, as the reference's engine runs _update_kernel under its grid's
+// vmap with the rule a traced per-lane operand.  The lane is the grid's
+// second dimension (blockIdx.y); a block reads its lane's rule index and
+// drain flag once, so every branch is uniform in it, and runs the
+// one-lane column code (update_run) on its lane's rows: each lane is bitwise
+// B3 / B4 on that lane.  Bytes bound it as above, G times over: at the async
+// grid's G = 24, K = 2, P = 159,010 under fedbuff 61.1 MB with no lane
+// draining (18.2 us) and 183 MB with every lane draining 8 ring rows
+// (54.7 us).  When some lane may run a moment rule every lane writes m' and
+// v' (an AXPY lane's are its m and v, written through), so the caller takes
+// all three outputs from the one launch; when none may, the moments are
+// neither read nor written.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -158,17 +172,22 @@ __device__ __forceinline__ void apply_rule(const Rule& r, float d, float p, floa
   *vo = v_new;
 }
 
+// This thread's run of VEC columns of one lane: the cohort's fmaf chain,
+// then the ring's when `drain`, then the rule.  Under an AXPY rule the
+// moments are neither read nor written, unless m_out is given: then m' and
+// v' are m and v written through (B3g's lanes of a registry that holds a
+// moment rule, whose outputs every lane fills).
 template <typename E, typename M, int VEC>
-__global__ void server_update_kernel(const E* __restrict__ updates,
-                                     const float* __restrict__ weights, int k_rows,
-                                     const E* __restrict__ ring,
-                                     const float* __restrict__ ring_w, int kb_rows,
-                                     const bool* __restrict__ drain, long long p_cols,
-                                     const M* __restrict__ params,
-                                     const float* __restrict__ m_in,
-                                     const float* __restrict__ v_in, Rule rule,
-                                     M* __restrict__ p_out, float* __restrict__ m_out,
-                                     float* __restrict__ v_out) {
+__device__ __forceinline__ void update_run(const E* __restrict__ updates,
+                                           const float* __restrict__ weights, int k_rows,
+                                           const E* __restrict__ ring,
+                                           const float* __restrict__ ring_w, int kb_rows,
+                                           bool drain, long long p_cols,
+                                           const M* __restrict__ params,
+                                           const float* __restrict__ m_in,
+                                           const float* __restrict__ v_in, const Rule& rule,
+                                           M* __restrict__ p_out, float* __restrict__ m_out,
+                                           float* __restrict__ v_out) {
   const long long col = ((long long)blockIdx.x * blockDim.x + threadIdx.x) * VEC;
   if (col >= p_cols) return;
   float acc[VEC], x[VEC];
@@ -180,7 +199,7 @@ __global__ void server_update_kernel(const E* __restrict__ updates,
 #pragma unroll
     for (int j = 0; j < VEC; ++j) acc[j] = fmaf(w, x[j], acc[j]);
   }
-  if (kb_rows > 0 && *drain) {
+  if (kb_rows > 0 && drain) {
     for (int k = 0; k < kb_rows; ++k) {
       const float w = __ldg(ring_w + k);
       Vec<E, VEC>::load(ring + (long long)k * p_cols + col, x);
@@ -190,9 +209,23 @@ __global__ void server_update_kernel(const E* __restrict__ updates,
   }
   float p[VEC], po[VEC];
   Vec<M, VEC>::load(params + col, p);
-  if (!has_moments(rule.idx)) {  // the AXPY: the moments are neither read nor written
+  if (!has_moments(rule.idx)) {  // the AXPY
 #pragma unroll
     for (int j = 0; j < VEC; ++j) po[j] = p[j] + acc[j];
+    Vec<M, VEC>::store(p_out + col, po);
+    if (m_out != nullptr) {
+      float mv[VEC];
+      Vec<float, VEC>::load(m_in + col, mv);
+      Vec<float, VEC>::store(m_out + col, mv);
+      Vec<float, VEC>::load(v_in + col, mv);
+      Vec<float, VEC>::store(v_out + col, mv);
+    }
+    return;
+  }
+  if (m_in == nullptr) {  // a moment rule on a lane launched without moments: refuse
+    // the step visibly (the wrapper's registry check makes this unreachable)
+#pragma unroll
+    for (int j = 0; j < VEC; ++j) po[j] = __int_as_float(0x7fffffff);
     Vec<M, VEC>::store(p_out + col, po);
     return;
   }
@@ -206,20 +239,75 @@ __global__ void server_update_kernel(const E* __restrict__ updates,
   Vec<float, VEC>::store(v_out + col, vo);
 }
 
+template <typename E, typename M, int VEC>
+__global__ void server_update_kernel(const E* __restrict__ updates,
+                                     const float* __restrict__ weights, int k_rows,
+                                     const E* __restrict__ ring,
+                                     const float* __restrict__ ring_w, int kb_rows,
+                                     const bool* __restrict__ drain, long long p_cols,
+                                     const M* __restrict__ params,
+                                     const float* __restrict__ m_in,
+                                     const float* __restrict__ v_in, Rule rule,
+                                     M* __restrict__ p_out, float* __restrict__ m_out,
+                                     float* __restrict__ v_out) {
+  update_run<E, M, VEC>(updates, weights, k_rows, ring, ring_w, kb_rows,
+                        kb_rows > 0 && *drain, p_cols, params, m_in, v_in, rule, p_out, m_out,
+                        v_out);
+}
+
+// B3g / B4g: G lanes in one launch, the lane as the grid's second dimension
+// (blockIdx.y).  Lane g reads its rule (a global AGGREGATOR_ORDER index) and
+// its drain flag once, into shared memory, so the branch is uniform in the
+// block; its rows, weights, ring, params, moments and outputs are row g of
+// each (lanes, ...) operand.  Each lane runs update_run as B3 / B4 does, so
+// a lane is bitwise the one-lane kernel on that lane.
+template <typename E, typename M, int VEC>
+__global__ void server_update_grid_kernel(
+    const E* __restrict__ updates, const float* __restrict__ weights, int k_rows,
+    const E* __restrict__ ring, const float* __restrict__ ring_w, int kb_rows,
+    const bool* __restrict__ drain, long long p_cols, const M* __restrict__ params,
+    const float* __restrict__ m_in, const float* __restrict__ v_in,
+    const int* __restrict__ rules, Rule rule, M* __restrict__ p_out,
+    float* __restrict__ m_out, float* __restrict__ v_out) {
+  const long long g = blockIdx.y;
+  __shared__ int lane_rule;
+  __shared__ bool lane_drain;
+  if (threadIdx.x == 0) {
+    lane_rule = rules[g];
+    lane_drain = kb_rows > 0 && drain[g];
+  }
+  __syncthreads();
+  Rule r = rule;
+  r.idx = lane_rule;
+  const long long row = g * p_cols;
+  const bool moments = m_in != nullptr;
+  update_run<E, M, VEC>(updates + g * k_rows * p_cols, weights + g * k_rows, k_rows,
+                        kb_rows > 0 ? ring + g * kb_rows * p_cols : nullptr,
+                        kb_rows > 0 ? ring_w + g * kb_rows : nullptr, kb_rows, lane_drain,
+                        p_cols, params + row, moments ? m_in + row : nullptr,
+                        moments ? v_in + row : nullptr, r, p_out + row,
+                        moments ? m_out + row : nullptr, moments ? v_out + row : nullptr);
+}
+
 template <typename E, typename M>
-static int launch_types(const void* updates, const float* weights, int k_rows, const void* ring,
-                        const float* ring_w, int kb_rows, const bool* drain, long long p_cols,
-                        const void* params, const float* m, const float* v, Rule rule, int vec,
-                        void* p_out, float* m_out, float* v_out, unsigned blocks,
-                        cudaStream_t st) {
+static int launch_types(const void* updates, const float* weights, int lanes, int k_rows,
+                        const void* ring, const float* ring_w, int kb_rows, const bool* drain,
+                        long long p_cols, const void* params, const float* m, const float* v,
+                        const int* rules, Rule rule, int vec, void* p_out, float* m_out,
+                        float* v_out, unsigned blocks, cudaStream_t st) {
   const E* u = static_cast<const E*>(updates);
   const E* r = static_cast<const E*>(ring);
   const M* p = static_cast<const M*>(params);
   M* po = static_cast<M*>(p_out);
-#define SU_LAUNCH(V)                                                                       \
-  server_update_kernel<E, M, V><<<blocks, THREADS, 0, st>>>(u, weights, k_rows, r, ring_w, \
-                                                            kb_rows, drain, p_cols, p, m, v, \
-                                                            rule, po, m_out, v_out)
+#define SU_LAUNCH(V)                                                                        \
+  if (lanes == 0)                                                                           \
+    server_update_kernel<E, M, V><<<blocks, THREADS, 0, st>>>(                              \
+        u, weights, k_rows, r, ring_w, kb_rows, drain, p_cols, p, m, v, rule, po, m_out,    \
+        v_out);                                                                             \
+  else                                                                                      \
+    server_update_grid_kernel<E, M, V><<<dim3(blocks, lanes), THREADS, 0, st>>>(            \
+        u, weights, k_rows, r, ring_w, kb_rows, drain, p_cols, p, m, v, rules, rule, po,    \
+        m_out, v_out)
   switch (vec) {
     case 4:
       SU_LAUNCH(4);
@@ -235,6 +323,29 @@ static int launch_types(const void* updates, const float* weights, int k_rows, c
   }
 #undef SU_LAUNCH
   return (int)cudaGetLastError();
+}
+
+// One launch of B3 / B4 (lanes == 0) or B3g / B4g (lanes >= 1).
+static int launch_any(const void* updates, int row_bytes, const float* weights, int lanes,
+                      int k_rows, const void* ring, const float* ring_w, int kb_rows,
+                      const bool* drain, long long p_cols, const void* params, int param_bytes,
+                      const float* m, const float* v, const int* rules, Rule rule, int vec,
+                      void* p_out, float* m_out, float* v_out, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (kb_rows > 0 && (ring == nullptr || ring_w == nullptr || drain == nullptr))
+    return (int)cudaErrorInvalidValue;
+  const long long threads_needed = p_cols / vec;
+  const unsigned blocks = (unsigned)((threads_needed + THREADS - 1) / THREADS);
+  if (blocks == 0) return (int)cudaSuccess;
+#define SU_TYPES(E, M)                                                                      \
+  launch_types<E, M>(updates, weights, lanes, k_rows, ring, ring_w, kb_rows, drain, p_cols, \
+                     params, m, v, rules, rule, vec, p_out, m_out, v_out, blocks, st)
+  if (row_bytes == 4 && param_bytes == 4) return SU_TYPES(float, float);
+  if (row_bytes == 2 && param_bytes == 4) return SU_TYPES(__nv_bfloat16, float);
+  if (row_bytes == 4 && param_bytes == 2) return SU_TYPES(float, __nv_bfloat16);
+  if (row_bytes == 2 && param_bytes == 2) return SU_TYPES(__nv_bfloat16, __nv_bfloat16);
+#undef SU_TYPES
+  return (int)cudaErrorInvalidValue;
 }
 
 // Launch on `stream`.  `row_bytes` is the element size of the update rows
@@ -254,23 +365,39 @@ extern "C" int server_update_launch(const void* updates, int row_bytes, const fl
                                     float one_m_beta2, float tau, int vec, void* p_out,
                                     float* m_out, float* v_out, void* stream) {
   (void)rnd;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (kb_rows > 0 && (ring == nullptr || ring_w == nullptr || drain == nullptr))
-    return (int)cudaErrorInvalidValue;
   if (has_moments(rule_idx) &&
       (m == nullptr || v == nullptr || m_out == nullptr || v_out == nullptr))
     return (int)cudaErrorInvalidValue;
   const Rule rule{rule_idx, eta, beta1, one_m_beta1, beta2, one_m_beta2, tau};
-  const long long threads_needed = p_cols / vec;
-  const unsigned blocks = (unsigned)((threads_needed + THREADS - 1) / THREADS);
-  if (blocks == 0) return (int)cudaSuccess;
-#define SU_TYPES(E, M)                                                                 \
-  launch_types<E, M>(updates, weights, k_rows, ring, ring_w, kb_rows, drain, p_cols,   \
-                     params, m, v, rule, vec, p_out, m_out, v_out, blocks, st)
-  if (row_bytes == 4 && param_bytes == 4) return SU_TYPES(float, float);
-  if (row_bytes == 2 && param_bytes == 4) return SU_TYPES(__nv_bfloat16, float);
-  if (row_bytes == 4 && param_bytes == 2) return SU_TYPES(float, __nv_bfloat16);
-  if (row_bytes == 2 && param_bytes == 2) return SU_TYPES(__nv_bfloat16, __nv_bfloat16);
-#undef SU_TYPES
-  return (int)cudaErrorInvalidValue;
+  return launch_any(updates, row_bytes, weights, 0, k_rows, ring, ring_w, kb_rows, drain,
+                    p_cols, params, param_bytes, m, v, nullptr, rule, vec, p_out, m_out, v_out,
+                    stream);
+}
+
+// B3g / B4g: `lanes` (1 .. 65,535) lanes, lane-major: (lanes, k_rows, p_cols)
+// updates and (lanes, k_rows) weights; with kb_rows > 0 a (lanes, kb_rows,
+// p_cols) ring, (lanes, kb_rows) ring weights and (lanes,) drain flags;
+// (lanes, p_cols) params, m, v and outputs; `rules` (lanes,) int32 global
+// AGGREGATOR_ORDER indices on the device.  `m`, `v`, `m_out` and `v_out`
+// are all null (no lane may run a moment rule: the moments stay the
+// caller's) or all given (every lane writes m' and v', an AXPY lane's
+// through).  Otherwise as above.
+extern "C" int server_update_grid_launch(const void* updates, int row_bytes,
+                                         const float* weights, int lanes, int k_rows,
+                                         const void* ring, const float* ring_w, int kb_rows,
+                                         const bool* drain, long long p_cols,
+                                         const void* params, int param_bytes, const float* m,
+                                         const float* v, const int* rules, int rnd, float eta,
+                                         float beta1, float one_m_beta1, float beta2,
+                                         float one_m_beta2, float tau, int vec, void* p_out,
+                                         float* m_out, float* v_out, void* stream) {
+  (void)rnd;
+  if (lanes < 1 || lanes > 65535 || rules == nullptr) return (int)cudaErrorInvalidValue;
+  const bool any = m != nullptr || v != nullptr || m_out != nullptr || v_out != nullptr;
+  const bool all = m != nullptr && v != nullptr && m_out != nullptr && v_out != nullptr;
+  if (any && !all) return (int)cudaErrorInvalidValue;
+  const Rule rule{0, eta, beta1, one_m_beta1, beta2, one_m_beta2, tau};
+  return launch_any(updates, row_bytes, weights, lanes, k_rows, ring, ring_w, kb_rows, drain,
+                    p_cols, params, param_bytes, m, v, rules, rule, vec, p_out, m_out, v_out,
+                    stream);
 }

@@ -10,10 +10,9 @@ switch picks each lane's mask on the device).  Tolerance as in
 ``tests/test_torch_engine.py``: integers equal, floats within rtol 2e-4,
 atol 1e-5, NaN where the reference has NaN.
 
-Which path an engine takes: ``("fedavg",)`` flat engines up to 1,024
-clients the batched round; a registry holding another rule, two-tier
-lanes and larger fleets the lane loop; decided once, in ``__init__``, with
-no argument of its own.
+Which path an engine takes: flat engines up to 1,024 clients the batched
+round, whatever their registry; two-tier lanes and larger fleets the lane
+loop; decided once, in ``__init__``, with no argument of its own.
 """
 import dataclasses
 import inspect
@@ -101,9 +100,9 @@ def _engine(**fl_kw):
     (dict(strategies=STRATEGIES), True),
     (dict(compute_dtype="bfloat16"), True),
     (dict(num_clients=1024), True),
-    (dict(aggregators=("fedbuff",)), False),
-    (dict(aggregators=("fedavg", "fedadam")), False),
-    (dict(aggregators=("fedadam",)), False),
+    (dict(aggregators=("fedbuff",)), True),
+    (dict(aggregators=("fedavg", "fedadam")), True),
+    (dict(aggregators=("fedadam",)), True),
     (dict(hierarchical=True), False),
     (dict(hierarchical=True, client_block=4), False),
     (dict(num_clients=1025), False),
@@ -131,4 +130,6 @@ def test_the_batched_round_refuses_lanes_it_does_not_serve():
         with pytest.raises(ValueError, match="batched grid round"):
             rounds.make_grid_round_step(None, bad, N, 1.0, [], STRATEGIES)
     assert rounds.grid_round_fits(fl, ("fedavg",))
-    assert not rounds.grid_round_fits(fl, ("fedavg", "fedbuff"))
+    assert rounds.grid_round_fits(fl, ("fedavg", "fedbuff"))
+    assert not rounds.grid_round_fits(dataclasses.replace(fl, hierarchical=True), ("fedavg",))
+    assert not rounds.grid_round_fits(dataclasses.replace(fl, num_clients=1025), ("fedbuff",))

@@ -1217,10 +1217,10 @@ def test_engine_grid_on_the_card_matches_the_cpu(dev, aggregators):
     """A 4-lane grid per aggregator (contextual / gossip x ring / platoon, N=20,
     CR 0.7, 3 rounds, eval every 2) on the card against the CPU's plain path:
     integers equal, floats within rtol 2e-4, atol 1e-5 (the engine tests'
-    tolerance), NaN alike.  ``("fedavg",)`` takes the batched round: exactly
-    2 rttg_latency_grid and 1 fedavg_reduce_grid launches a round, whatever
-    the lanes; a registry holding fedbuff the lane loop: 2 rttg_latency
-    launches a lane and round and one server_update_buffered."""
+    tolerance), NaN alike.  Both registries take the batched round: exactly
+    2 rttg_latency_grid launches a round and one server launch, whatever the
+    lanes: fedavg_reduce_grid for ("fedavg",), server_update_buffered_grid
+    for a registry holding fedbuff; no one-lane launch."""
     from repro_torch.config import FLConfig
     from repro_torch.configs import get_config
     from repro_torch.fl import ExperimentEngine
@@ -1235,17 +1235,16 @@ def test_engine_grid_on_the_card_matches_the_cpu(dev, aggregators):
                                device=where)
         counters = lambda: (rttg_mod.launches, fedavg_mod.launches,  # noqa: E731
                             su_mod.buffered_launches, rttg_mod.grid_launches,
-                            fedavg_mod.grid_launches)
+                            fedavg_mod.grid_launches, su_mod.buffered_grid_launches)
         before = counters()
         out[where.type] = eng.run_grid(**grid)
         after = counters()
-        lane_rounds = len(out[where.type].runs) * grid["rounds"]
         if where.type == "cuda":
             fedbuff = "fedbuff" in aggregators
-            assert eng.batched == (not fedbuff)
+            assert eng.batched
             assert [a - b for a, b in zip(after, before)] == (
-                [2 * lane_rounds, 0, lane_rounds, 0, 0] if fedbuff
-                else [0, 0, 0, 2 * grid["rounds"], grid["rounds"]])
+                [0, 0, 0, 2 * grid["rounds"], 0 if fedbuff else grid["rounds"],
+                 grid["rounds"] if fedbuff else 0])
     got, ref = out["cuda"], out["cpu"]
     assert got.runs == ref.runs
     for f in got.metrics._fields:
@@ -1365,3 +1364,155 @@ def test_batched_grid_on_the_card_matches_its_lane_loop(dev):
             assert torch.equal(a, b), f
         else:
             torch.testing.assert_close(a, b, rtol=2e-4, atol=1e-5, equal_nan=True, msg=f)
+
+
+ALL_RULES = (0, 1, 2, 3, 4, 5)
+AXPY_RULES = (0, 4, 5)
+
+
+def _server_grid_operands(G, K, Kb, P, registry, rows, master, dev, seed):
+    """G lanes of server operands on the card: rows and ring in ``rows``,
+    params in ``master``, each lane's rule from ``registry`` (all of them
+    present when G allows, then drawn), drain mixed across lanes."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    u = (1e-3 * torch.randn((G, K, P), generator=g, device=dev)).to(rows)
+    w = torch.rand((G, K), generator=g, device=dev)
+    w = w / w.sum(dim=1, keepdim=True)
+    params = (0.05 * torch.randn((G, P), generator=g, device=dev)).to(master)
+    m = 1e-4 * torch.randn((G, P), generator=g, device=dev)
+    v = (1e-3 * torch.randn((G, P), generator=g, device=dev)) ** 2
+    ring = (1e-3 * torch.randn((G, Kb, P), generator=g, device=dev)).to(rows)
+    bw = torch.rand((G, Kb), generator=g, device=dev)
+    reg = torch.tensor(registry, dtype=torch.int32, device=dev)
+    pick = torch.randint(0, len(registry), (G,), generator=g, device=dev)
+    pick[:min(G, len(registry))] = torch.arange(min(G, len(registry)), device=dev)
+    drain = torch.rand((G,), generator=g, device=dev) < 0.5
+    drain[:2] = torch.tensor([True, False], device=dev)[:G]
+    return u, w, params, m, v, ring, bw, reg[pick].contiguous(), drain
+
+
+@pytest.mark.parametrize("buffered", [False, True])
+@pytest.mark.parametrize("registry", [ALL_RULES, AXPY_RULES])
+@pytest.mark.parametrize("rows,master", [(torch.float32, torch.float32),
+                                         (torch.bfloat16, torch.float32),
+                                         (torch.float32, torch.bfloat16),
+                                         (torch.bfloat16, torch.bfloat16)])
+@pytest.mark.parametrize("G,K,Kb,P", [(24, 2, 8, 159_010), (48, 2, 8, 159_010),
+                                      (24, 20, 8, 159_010), (1, 2, 8, 159_010),
+                                      (5, 3, 8, 2049), (6, 2, 1, 159_010)])
+def test_server_update_grid_kernel_is_the_one_lane_kernel_lane_by_lane(dev, G, K, Kb, P, rows,
+                                                                       master, registry,
+                                                                       buffered):
+    """B3g / B4g: one launch for G lanes whose rules (and, buffered, drain
+    flags) differ, each lane bit for bit B3 / B4 on that lane (an AXPY lane's
+    m' and v' its m and v when the registry holds a moment rule; m and v
+    themselves when it holds none), against the plain version within the
+    one-lane tolerance, and a second launch bit for bit the first."""
+    u, w, params, m, v, ring, bw, rules, drain = _server_grid_operands(
+        G, K, Kb, P, registry, rows, master, dev, G * 1000 + K + Kb + P)
+    if buffered:
+        call = lambda: su_mod.server_update_buffered_grid(  # noqa: E731
+            u, w, ring, bw, params, m, v, rules, 3, drain, registry=registry)
+        plain = su_mod.server_update_buffered_grid_plain(u, w, ring, bw, params, m, v, rules, 3,
+                                                         drain, registry=registry)
+        counter = "buffered_grid_launches"
+    else:
+        call = lambda: su_mod.server_update_grid(u, w, params, m, v, rules, 3,  # noqa: E731
+                                                 registry=registry)
+        plain = su_mod.server_update_grid_plain(u, w, params, m, v, rules, 3, registry=registry)
+        counter = "grid_launches"
+    before = getattr(su_mod, counter)
+    got, again = call(), call()
+    assert getattr(su_mod, counter) == before + 2
+    for g, rule in enumerate(rules.tolist()):
+        if buffered:
+            one = su_mod.server_update_buffered(u[g], w[g], ring[g], bw[g], params[g], m[g],
+                                                v[g], rule, 3, drain[g])
+        else:
+            one = su_mod.server_update(u[g], w[g], params[g], m[g], v[g], rule, 3)
+        for a, b in zip(got, one):
+            assert torch.equal(a[g], b), (g, rule)
+    if registry == AXPY_RULES:
+        assert got[1] is m and got[2] is v
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)
+    wts = torch.cat([w, torch.where(drain[:, None], bw, 0.0)], 1) if buffered else w
+    cat = torch.cat([u, ring], 1) if buffered else u
+    scale = float((wts.abs()[:, None, :] @ cat.float().abs()).max())
+    for a, b, atol in zip(got, plain, (1e-4 * scale, 1e-6 * scale, 1e-6 * scale)):
+        assert a.dtype == b.dtype
+        rtol = BF16_ULP if a.dtype == torch.bfloat16 else 1e-5
+        torch.testing.assert_close(a.float(), b.float(), rtol=rtol, atol=atol)
+
+
+def test_server_update_grid_wrappers_refuse_what_the_kernel_does_not_take(dev):
+    u, w, params, m, v, ring, bw, rules, drain = _server_grid_operands(
+        3, 2, 4, 8, ALL_RULES, torch.float32, torch.float32, dev, 0)
+    with pytest.raises(ValueError):  # the rule index must be int32
+        su_mod.server_update_grid(u, w, params, m, v, rules.long(), 0)
+    with pytest.raises(ValueError):  # on the rows' device
+        su_mod.server_update_grid(u, w, params, m, v, rules.cpu(), 0)
+    with pytest.raises(ValueError):
+        su_mod.server_update_grid(u.to(torch.float16), w, params, m, v, rules, 0)
+    with pytest.raises(ValueError):
+        su_mod.server_update_grid(u.transpose(1, 2).contiguous().transpose(1, 2), w, params, m,
+                                  v, rules, 0)
+    with pytest.raises(ValueError):  # one lane of params for three of rows
+        su_mod.server_update_grid(u, w, params[:1], m, v, rules, 0)
+    with pytest.raises(ValueError):
+        su_mod.server_update_grid(u[0], w[0], params[0], m[0], v[0], rules[:1], 0)
+    with pytest.raises(ValueError):  # the ring in another dtype than the rows
+        su_mod.server_update_buffered_grid(u, w, ring.to(torch.bfloat16), bw, params, m, v,
+                                           rules, 0, drain)
+    with pytest.raises(ValueError):  # drain stays on the card, (G,) bool
+        su_mod.server_update_buffered_grid(u, w, ring, bw, params, m, v, rules, 0, drain.cpu())
+    with pytest.raises(ValueError):
+        su_mod.server_update_buffered_grid(u, w, ring, bw, params, m, v, rules, 0, drain[:2])
+    with pytest.raises(ValueError):
+        su_mod.server_update_buffered_grid(u, w, ring, bw[:, :2], params, m, v, rules, 0, drain)
+    big = torch.zeros((su_mod.MAX_LANES + 1, 1, 1), device=dev)
+    with pytest.raises(ValueError):  # past the grid's second dimension
+        su_mod.server_update_grid(big, big[:, :, 0], big[:, 0], big[:, 0], big[:, 0],
+                                  torch.zeros((big.shape[0],), dtype=torch.int32, device=dev), 0)
+
+
+@pytest.mark.parametrize("aggregators,cr", [(("fedavg", "fedavgm", "fedadam", "fedyogi", "stale",
+                                              "fedbuff"), 0.7),
+                                             (("fedavgm", "fedadam", "fedyogi", "stale"), 0.7),
+                                             (("fedbuff",), 0.7)])
+def test_batched_grid_under_every_rule_on_the_card_matches_its_lane_loop(dev, aggregators, cr):
+    """A registry's grid (contextual / greedy x its rules x ring / platoon,
+    N=20, 3 rounds) through the batched round (2 B1g and one B3g or B4g a
+    round, no one-lane launch) and through the lane loop, both on the card:
+    integers equal, floats within rtol 2e-4, atol 1e-5, NaN alike."""
+    from repro_torch.config import FLConfig
+    from repro_torch.configs import get_config
+    from repro_torch.fl import ExperimentEngine
+
+    fl = FLConfig(num_clients=20, samples_per_client=64, local_epochs=1, num_clusters=3,
+                  batch_size=32, connection_rate=cr, recluster_every=2)
+    eng = ExperimentEngine(get_config("fl-mnist-mlp").replace(d_ff=32), fl, "mnist",
+                           strategies=("contextual", "greedy"), aggregators=aggregators,
+                           device=dev)
+    assert eng.batched
+    runs = [(st, a, 0, sc) for st in eng.strategies for a in aggregators
+            for sc in ("ring", "platoon")]
+    lanes = eng._lanes(runs)
+    counters = lambda: (rttg_mod.launches, su_mod.launches, su_mod.buffered_launches,  # noqa: E731
+                        rttg_mod.grid_launches, su_mod.grid_launches,
+                        su_mod.buffered_grid_launches)
+    before = counters()
+    batched = eng._sweep(lanes, 3, 2)
+    fedbuff = "fedbuff" in aggregators
+    assert [a - b for a, b in zip(counters(), before)] == [0, 0, 0, 6, 0 if fedbuff else 3,
+                                                           3 if fedbuff else 0]
+    loop = eng._sweep(eng._lane_list(runs), 3, 2)
+    for f in batched._fields:
+        a, b = getattr(batched, f).cpu(), getattr(loop, f).cpu()
+        if a.dtype == torch.int32:
+            assert torch.equal(a, b), f
+        else:
+            torch.testing.assert_close(a, b, rtol=2e-4, atol=1e-5, equal_nan=True, msg=f)
+    if fedbuff:
+        assert int(batched.n_buffered.sum()) > 0
