@@ -27,7 +27,16 @@ Phases (any failure raises and exits non-zero):
    realized, CR 1.0 and 0.7, and at one lane, one client, 1,024 clients and
    a dark-RSU lane beside a live one: every lane bit for bit a
    ``rttg_latency`` call on that lane, conn exact and latency within rtol
-   1e-5 of its plain version, repeated bitwise; ``fedavg_reduce_grid`` (B2g)
+   1e-5 of its plain version, repeated bitwise; B1g with the RSU ids (the
+   two-tier grids' realized pass) on the hierarchical probe's 12 lanes at N =
+   20, the streamed grid's 8 at N = 100 and two lanes of 1,024, the ids bit
+   for bit B1's and the plain version's; ``rsu_reduce_grid`` (B5g, the
+   two-tier grids' chunk walk) on the probe's (12, 3, 159,010) and the
+   streamed grid's (8, 4, 159,010) chunks, at R = 10, 33 and 40, an odd P
+   with rows off their alignment and one lane of one row, with and without
+   the carry, fp32 rows and bf16 rows into fp32 and bf16 partials: every lane
+   bit for bit an ``rsu_reduce`` call on that lane, within its plain
+   version's tolerance, repeated bitwise; ``fedavg_reduce_grid`` (B2g)
    on 24 lanes at K = 2 and 10, P = 159,010, fp32 and bf16 rows, and at one
    lane, K = 1, an odd P and rows off their alignment: every lane bit for
    bit a ``fedavg_reduce`` call, within its plain version's tolerance,
@@ -159,7 +168,17 @@ Phases (any failure raises and exits non-zero):
    round: 2 B1g and 1 B4g) against its lane loop and one lane a rule on the
    CPU, and the same grid without fedbuff (40 lanes: 2 B1g and 1 B3g)
    against its lane loop; ``precision_lane``'s grid (bf16 rows, the batched
-   round: 10 B1g and 5 B2g) with one lane replayed on the CPU;
+   round: 10 B1g and 5 B2g) with one lane replayed on the CPU; then the
+   two-tier grids through the batched round, cold and warm:
+   ``engine_throughput.py::smoke``'s hierarchical probe (N = 20,
+   ``client_block=3``, no warm-up, contextual x the six rules x rush_hour /
+   rsu_outage, 12 lanes, 1 round: exactly 2 B1g, 1 B5g and 1 B4g) and a
+   streamed grid (N = 100, K = 10 in 3 chunks of 4, ``("fedavg",)`` x the 8
+   scenarios, 3 rounds: exactly 6 B1g, 9 B5g and 3 B2g), each against its
+   lane loop on the card (24 B1, 12 B5, 12 B4; 48 B1, 72 B5, 24 B2) within
+   ``GRID_TOL`` and two lanes on the CPU's plain path; the streamed grid's
+   set-up and rounds timed apart, its batched round profiled beside a
+   lane-loop round (batched, loop, batched), and its sync check;
 5. times: each kernel (CUDA events, after warm-up) beside its bound, its
    plain version and a one-call PyTorch yardstick (``pairwise_cosine`` at
    (100, 1024), (256, 4096) and (20,000, 1,024)), and for every kernel and
@@ -181,7 +200,11 @@ Phases (any failure raises and exits non-zero):
    each with its device time from CUDA graph replays; B4g at the async
    grid's (24, 2, Kb 8, 159,010) with no lane and every lane draining,
    beside the lane loop's 24 B4 launches, and B3g at the smoke grid's 40
-   lanes (K = 2, rules 0-4), each by CUDA graph replay;
+   lanes (K = 2, rules 0-4), each by CUDA graph replay; B5g at the streamed
+   grid's chunk (8, 4, R 10, 159,010) with its carry, without one (the first
+   chunk) and on bf16 rows and partials, beside its bound, its plain
+   version, the lane loop's 8 B5 launches and ``torch.baddbmm`` /
+   ``torch.bmm``, by CUDA graph replay;
    ``rttg_latency`` and ``fedavg_reduce`` through their
    wrappers as the round calls them: device ops and device time per call; B2-B5 on the
    bf16 lane's rows beside their fp32 rows (the ``bf16_rows`` JSON line),
@@ -203,8 +226,9 @@ The last three lines are the kernels' JSON record (their fp32 rows;
 ``swa_decode``'s launches summed over every serving run; ``rttg_latency``'s,
 ``fedavg_reduce``'s and ``server_update_buffered``'s with one sweep of each
 engine grid of phase 4h, the parts named in their ``launches_by_path``;
-``rttg_latency_grid``'s, ``fedavg_reduce_grid``'s, ``server_update_grid``'s
-and ``server_update_buffered_grid``'s from one sweep of each engine grid),
+``rttg_latency_grid``'s, ``fedavg_reduce_grid``'s, ``server_update_grid``'s,
+``server_update_buffered_grid``'s and ``rsu_reduce_grid``'s from one sweep
+of each engine grid, the two-tier ones included),
 the card's name and power limit, and the device JSON.  Each phase's
 heading carries the seconds since the script started.
 """
@@ -262,6 +286,41 @@ def bound(n_bytes: float, n_flops: float):
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     t_ops = n_flops / FP32_FLOPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def rsu_carry_rows(rid, n_rsu: int, updates, carry) -> int:
+    """The carry rows an in-place chunk of ``rsu_reduce`` (``rid`` ``(K,)``)
+    or ``rsu_reduce_grid`` (``(G, K)``) must read and write on this data:
+    the distinct (lane, id) pairs with the id in ``[0, n_rsu)``.  A row no id
+    names comes out as it went in, unless a row holds a non-finite value
+    (0 * inf reaches every RSU's partial) or the carry a -0.0 (+0.0 after the
+    add); then every row counts.  The kernel reads and writes every row."""
+    lanes = rid.numel() // rid.shape[-1]
+    if not bool(torch.isfinite(updates).all()) or bool(torch.signbit(carry[carry == 0]).any()):
+        return lanes * n_rsu
+    hit = rid.long()[..., None] == torch.arange(n_rsu, device=rid.device)
+    return int(hit.any(dim=-2).sum())
+
+
+def rsu_bounds(lanes: int, K: int, R: int, P: int, carry_rows: float) -> dict:
+    """Bounds ``(ms, by, bytes)`` of ``lanes`` lanes of ``rsu_reduce`` at K
+    rows, R RSUs and P columns, fp32 (``carry``, ``dense``, ``first``) and
+    bf16 rows and partials (the same keys + ``16``).  Each input read once
+    (rows, weights, ids, and the carry when there is one), each output
+    written once (partials, mass); 2 flops per row value (its one RSU's
+    multiply-add) plus the carry's add per partial.  ``carry``: in place,
+    ``carry_rows`` carry rows read and written (``rsu_carry_rows`` of this
+    run's ids); ``dense``: every carry row, the traffic the kernel makes;
+    ``first``: no carry, every partial written."""
+    out = {}
+    for size, sfx in ((4, ""), (2, "16")):
+        fixed = lanes * (K * P * size + 2 * K * 4 + R * 4)
+        for key, rows in (("carry", carry_rows), ("dense", lanes * R), ("first", None)):
+            moved = lanes * R * P * size if rows is None else rows * P * size * 2
+            n_bytes = fixed + moved
+            flops = lanes * 2 * K * P + (0 if rows is None else rows * P)
+            out[key + sfx] = bound(n_bytes, flops) + (n_bytes,)
+    return out
 
 
 START = time.perf_counter()
@@ -375,11 +434,11 @@ def grid_lane_inputs(scenarios, n, seed, cr, device):
     return scns, lane_view(stack_scenarios(scns)), pos, speed, accel, t, forced
 
 
-def check_rttg_grid(scenarios, n, predict, cr, device) -> float:
+def check_rttg_grid(scenarios, n, predict, cr, device, want_rid=False) -> float:
     """B1g on G = len(scenarios) lanes: bit for bit G calls of B1 (one a
-    lane, on the lane's own scenario); against its plain version conn
-    exact, latency within ``check_rttg``'s rtol 1e-5; a second call bit for
-    bit the first."""
+    lane, on the lane's own scenario), RSU ids included with ``want_rid``;
+    against its plain version conn (and ids) exact, latency within
+    ``check_rttg``'s rtol 1e-5; a second call bit for bit the first."""
     from repro_torch.kernels.rttg_latency import (rttg_latency, rttg_latency_grid,
                                                   rttg_latency_grid_plain)
 
@@ -387,28 +446,31 @@ def check_rttg_grid(scenarios, n, predict, cr, device) -> float:
                                                                 device)
     G = len(scenarios)
     mb = torch.tensor(636_040.0, device=device)
-    got, again = [rttg_latency_grid(pos, speed, accel, t, mb, forced, view, predict=predict)
-                  for _ in range(2)]
+    got, again = [rttg_latency_grid(pos, speed, accel, t, mb, forced, view, predict=predict,
+                                    want_rid=want_rid) for _ in range(2)]
     lanes = [rttg_latency(pos[g], speed[g], accel[g], t[g], mb,
-                          None if forced is None else forced[g], scns[g], predict=predict)
+                          None if forced is None else forced[g], scns[g], predict=predict,
+                          want_rid=want_rid)
              for g in range(G)]
-    ref = rttg_latency_grid_plain(pos, speed, accel, t, mb, forced, view, predict)
+    ref = rttg_latency_grid_plain(pos, speed, accel, t, mb, forced, view, predict, want_rid)
     torch.cuda.synchronize()
     what = (f"G={G} ({', '.join(sorted(set(scenarios)))}), N={n}, predict={predict}, "
-            f"CR={cr}")
+            f"CR={cr}, want_rid={want_rid}")
     for g in range(G):
-        if not (torch.equal(got[0][g], lanes[g][0]) and torch.equal(got[1][g], lanes[g][1])):
+        if not all(torch.equal(x[g], y) for x, y in zip(got, lanes[g])):
             raise AssertionError(f"rttg_latency_grid lane {g} is not rttg_latency's ({what})")
-    if not torch.equal(got[1], ref[1]):
-        raise AssertionError(f"rttg_latency_grid conn differs from the plain version ({what})")
+    if not all(torch.equal(got[i], ref[i]) for i in range(1, len(got))):
+        raise AssertionError(f"rttg_latency_grid conn or ids differ from the plain version "
+                             f"({what})")
     if not bool(torch.isfinite(got[0]).all()):
         raise AssertionError(f"rttg_latency_grid produced non-finite latency ({what})")
     torch.testing.assert_close(got[0], ref[0], rtol=1e-5, atol=1e-7)
     if not all(torch.equal(x, y) for x, y in zip(got, again)):
         raise AssertionError(f"rttg_latency_grid does not repeat bitwise ({what})")
     err = float((got[0] - ref[0]).abs().max())
-    print(f"rttg_latency_grid {what}: every lane bitwise rttg_latency's, conn exact, "
-          f"max_abs_err={err:.3e} vs plain, repeat bitwise")
+    print(f"rttg_latency_grid {what}: every lane bitwise rttg_latency's, conn"
+          f"{' and ids' if want_rid else ''} exact, max_abs_err={err:.3e} vs plain, repeat "
+          "bitwise")
     return err
 
 
@@ -752,6 +814,55 @@ def check_rsu_walk(K, B, device, R=10, rows=torch.float32, out=torch.float32) ->
           "bitwise the per-chunk plain sums")
 
 
+def check_rsu_grid(G, K, P, R, with_carry, device, rows=torch.float32, out=torch.float32,
+                   offset=0) -> float:
+    """B5g on G lanes of random chunks (each lane its own rows, weights and
+    ids; ids -1 and R + 3 among them; the last slot a padding slot, weight 0
+    and id 0), the rows ``offset`` elements into their storage: bit for bit
+    G calls of B5 (one a lane, the carry in place in both), against its
+    plain version at ``check_rsu``'s tolerance, a second launch bit for bit
+    the first."""
+    from repro_torch.kernels.rsu_reduce import rsu_reduce, rsu_reduce_grid, rsu_reduce_grid_plain
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(G * 1_000_003 + K * 7919 + P * 31 + R)
+    u = 1e-3 * torch.randn((G * K, P), generator=gen, device=device)
+    u = offset_rows(u, rows, offset).view(G, K, P)
+    w = torch.rand((G, K), generator=gen, device=device)
+    rid = torch.randint(0, R, (G, K), generator=gen, device=device).to(torch.int32)
+    rid.view(-1)[1::5], rid.view(-1)[3::7] = -1, R + 3
+    w[:, K - 1], rid[:, K - 1] = 0.0, 0
+    carry = (1e-3 * torch.randn((G, R, P), generator=gen, device=device)).to(out) \
+        if with_carry else None
+
+    def call():
+        return rsu_reduce_grid(u, w, rid, R, carry=None if carry is None else carry.clone(),
+                               out_dtype=out)
+
+    (got, mass), (again, again_mass) = call(), call()
+    one = [rsu_reduce(u[g], w[g], rid[g], R, carry=None if carry is None else carry[g].clone(),
+                      out_dtype=out) for g in range(G)]
+    ref, ref_mass = rsu_reduce_grid_plain(u, w, rid, R,
+                                          None if carry is None else carry.clone(), out)
+    torch.cuda.synchronize()
+    what = (f"rsu_reduce_grid G={G} K={K} P={P} R={R} carry={with_carry} rows {str(rows)[6:]} "
+            f"out {str(out)[6:]} offset={offset}")
+    for g in range(G):
+        if not (torch.equal(got[g], one[g][0]) and torch.equal(mass[g], one[g][1])):
+            raise AssertionError(f"{what}: lane {g} is not rsu_reduce's")
+    if not (torch.equal(got, again) and torch.equal(mass, again_mass)):
+        raise AssertionError(f"{what}: a second launch differs from the first")
+    scale = float(rsu_reduce_grid_plain(u.float().abs(), w, rid, R)[0].max())
+    rtol = BF16_ULP if out == torch.bfloat16 else 1e-5
+    torch.testing.assert_close(got.float(), ref.float(), rtol=rtol, atol=1e-6 * scale,
+                               msg=lambda m: f"{what}: {m}")
+    torch.testing.assert_close(mass, ref_mass, rtol=1e-6, atol=0.0)
+    err = float((got.float() - ref.float()).abs().max())
+    print(f"{what}: every lane bitwise rsu_reduce's, max_abs_err={err:.3e} vs plain (scale "
+          f"{scale:.3e}), repeat bitwise")
+    return err
+
+
 def swa_operands(B, C, hkv, G, D, dtype, fills, device, seed=0):
     """q, k, v drawn from ``seed``; row b's ring holds a context of ``fills[b]``
     tokens (slot p % C keeps the latest p) and its query sits at fills[b] - 1."""
@@ -916,14 +1027,15 @@ def read_launches() -> dict:
             "server_update": su.launches, "server_update_buffered": su.buffered_launches,
             "server_update_grid": su.grid_launches,
             "server_update_buffered_grid": su.buffered_grid_launches,
-            "rsu_reduce": rsu.launches, "swa_decode": swa.launches, "ssd_scan": ssd.launches,
+            "rsu_reduce": rsu.launches, "rsu_reduce_grid": rsu.grid_launches,
+            "swa_decode": swa.launches, "ssd_scan": ssd.launches,
             "pairwise_cosine": gram.launches}
 
 
 def reset_launches() -> None:
     rttg, fedavg, su, rsu, swa, ssd, gram = kernel_modules()
     rttg.launches = fedavg.launches = su.launches = su.buffered_launches = rsu.launches = 0
-    rttg.grid_launches = fedavg.grid_launches = su.grid_launches = 0
+    rttg.grid_launches = fedavg.grid_launches = su.grid_launches = rsu.grid_launches = 0
     su.buffered_grid_launches = 0
     swa.launches = ssd.launches = gram.launches = 0
 
@@ -1779,7 +1891,7 @@ def time_grid_kernels(kernels, lib, grid_launches, main_err, bf16_times, device,
         kbuild.check(lib.rttg_latency_grid_launch(
             op.data_ptr(), op.shape[1], R, G, t.data_ptr(), mb.data_ptr(), pos.data_ptr(),
             speed.data_ptr(), accel.data_ptr(), None, n, steps, dt, hs, lat.data_ptr(),
-            conn.data_ptr(), stream()), "rttg_latency_grid")
+            conn.data_ptr(), None, stream()), "rttg_latency_grid")
 
     def b1_lanes():  # the lane loop's geometry: one B1 launch a lane
         for g in range(G):
@@ -2004,6 +2116,131 @@ def time_server_grid(kernels, lib, grid_launches, main_err, device, card):
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound"][0],
             "bound_by": t["bound"][1], "library_ms": None, "device_us": t["device_us"], **extra,
         })
+
+
+def time_rsu_grid(kernels, lib, grid_launches, main_err, bf16_times, device, card):
+    """B5g at the streamed two-tier grid's chunk, (G 8, K 4, R 10, P
+    159,010), appended to ``kernels``: CUDA events over back-to-back
+    launches of the C entry point and the device time a launch from CUDA
+    graph replays, with the carry updated in place (the steady chunk) and
+    without one (the first chunk), fp32 and bf16 rows and partials, cycling
+    two operand sets (each past the 50 MB L2); beside the plain version (the
+    one-lane plain version lane by lane), the lane loop's 8 B5 launches and
+    one ``torch.baddbmm(carry, m^T, u)`` (``torch.bmm`` for the first chunk),
+    ``m`` the (G, K, R) weighted one-hot."""
+    from repro_torch.kernels import build as kbuild
+    from repro_torch.kernels.rsu_reduce import rsu_reduce_grid_plain, vector_width
+
+    def stream():
+        return torch.cuda.current_stream(device).cuda_stream
+
+    G, K, R, P = 8, 4, 10, 159_010
+    sets = []
+    for i in range(2):
+        gen = torch.Generator(device=device)
+        gen.manual_seed(500 + i)
+        u = 1e-3 * torch.randn((G, K, P), generator=gen, device=device)
+        w = torch.rand((G, K), generator=gen, device=device)
+        rid = torch.randint(0, R, (G, K), generator=gen, device=device).to(torch.int32)
+        carry = 1e-3 * torch.randn((G, R, P), generator=gen, device=device)
+        m = torch.nn.functional.one_hot(rid.long(), R).float() * w[..., None]
+        sets.append({"u": u, "w": w, "rid": rid, "carry": carry, "m": m,
+                     "u16": u.to(torch.bfloat16), "carry16": carry.to(torch.bfloat16)})
+    # the carry rows the ids touch, counted before the timed launches update it
+    carry_rows = sum(rsu_carry_rows(x["rid"], R, x["u"], x["carry"]) for x in sets) / len(sets)
+    out = torch.empty((G, R, P), dtype=torch.float32, device=device)
+    out16 = torch.empty((G, R, P), dtype=torch.bfloat16, device=device)
+    mass = torch.empty((G, R), dtype=torch.float32, device=device)
+    vec = vector_width(P, sets[0]["u"], out)
+    it = {"i": 0}
+
+    def nxt():
+        it["i"] ^= 1
+        return sets[it["i"]]
+
+    def b5g(with_carry, half=False):
+        x = nxt()
+        u = x["u16"] if half else x["u"]
+        c = x["carry16"] if half else x["carry"]
+        o = c if with_carry else out16 if half else out
+        kbuild.check(lib.rsu_reduce_launch(
+            u.data_ptr(), u.element_size(), x["w"].data_ptr(), x["rid"].data_ptr(), G, K, R, P,
+            vec, c.data_ptr() if with_carry else None, o.data_ptr(), o.element_size(),
+            mass.data_ptr(), stream()), "rsu_reduce_grid")
+
+    def b5_lanes():  # the lane loop's chunk: one B5 launch a lane, each in place
+        x = nxt()
+        for g in range(G):
+            kbuild.check(lib.rsu_reduce_launch(
+                x["u"][g].data_ptr(), 4, x["w"][g].data_ptr(), x["rid"][g].data_ptr(), 1, K, R,
+                P, vec, x["carry"][g].data_ptr(), x["carry"][g].data_ptr(), 4,
+                mass[g].data_ptr(), stream()), "rsu_reduce")
+
+    def baddbmm():
+        x = nxt()
+        return torch.baddbmm(x["carry"], x["m"].transpose(1, 2), x["u"])
+
+    def bmm():
+        x = nxt()
+        return torch.bmm(x["m"].transpose(1, 2), x["u"])
+
+    def plain():
+        x = nxt()
+        return rsu_reduce_grid_plain(x["u"], x["w"], x["rid"], R, x["carry"])
+
+    t = {"ms": time_ms(lambda: b5g(True)), "first_ms": time_ms(lambda: b5g(False)),
+         "ms16": time_ms(lambda: b5g(True, True)),
+         "plain_ms": time_ms(plain, iters=10, warmup=2),
+         "library_ms": time_ms(baddbmm), "bmm_ms": time_ms(bmm),
+         "device_us": graph_us(lambda: b5g(True)), "first_device_us": graph_us(lambda: b5g(False)),
+         "device_us16": graph_us(lambda: b5g(True, True)),
+         "first_device_us16": graph_us(lambda: b5g(False, True)),
+         "library_device_us": graph_us(baddbmm), "bmm_device_us": graph_us(bmm),
+         "loop_device_us": graph_us(b5_lanes, 4)}
+    bounds = rsu_bounds(G, K, R, P, carry_rows)
+    kernels.append({
+        "name": "rsu_reduce_grid", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/rsu_reduce.cu",
+        "replaces": "src/repro/kernels/rsu_reduce.py:120",
+        "launches": sum(g["rsu_reduce_grid"] for g in grid_launches.values()),
+        "launches_by_path": {f"engine {grid} grid": g["rsu_reduce_grid"]
+                             for grid, g in grid_launches.items() if g["rsu_reduce_grid"]},
+        "max_abs_err": main_err["rsu_reduce_grid"],
+        "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": bounds["carry"][0],
+        "bound_by": bounds["carry"][1], "library_ms": t["library_ms"],
+        "carry_rows": carry_rows, "dense_bound_ms": bounds["dense"][0],
+        "device_us": t["device_us"], "library_device_us": t["library_device_us"],
+        "first_chunk": {"ms": t["first_ms"], "device_us": t["first_device_us"],
+                        "bound_ms": bounds["first"][0], "bmm_ms": t["bmm_ms"],
+                        "bmm_device_us": t["bmm_device_us"]},
+        "loop_device_us": t["loop_device_us"],
+    })
+    bf16_times["rsu_reduce_grid"] = (t["ms16"], None, t["device_us16"],
+                                     bounds["carry16"][:2], bounds["carry16"][2])
+    print(f"rsu_reduce_grid G={G} K={K} R={R} P={P} (vec {vec}), one launch: with the carry "
+          f"events {t['ms'] * 1e3:.2f} us, device time {t['device_us']:.2f} us (graph replay; "
+          f"{bounds['carry'][0] * 1e3 / t['device_us']:.3f} of the bound "
+          f"{bounds['carry'][0] * 1e3:.2f} us, {bounds['carry'][2] / 1e6:.1f} MB with the "
+          f"{carry_rows:.1f} carry rows its ids touch of {G * R}; "
+          f"{bounds['dense'][0] * 1e3 / t['device_us']:.3f} of the dense "
+          f"{bounds['dense'][0] * 1e3:.2f} us, {bounds['dense'][2] / 1e6:.1f} MB, "
+          f"{bounds['dense'][2] / (t['device_us'] * 1e3):.0f} GB/s); the lane loop's {G} "
+          f"rsu_reduce launches {t['loop_device_us']:.2f} us; torch.baddbmm events "
+          f"{t['library_ms'] * 1e3:.2f} us, device time {t['library_device_us']:.2f} us; plain "
+          f"{t['plain_ms'] * 1e3:.1f} us [{card}]")
+    print(f"rsu_reduce_grid G={G} K={K} R={R} P={P} first chunk (no carry): events "
+          f"{t['first_ms'] * 1e3:.2f} us, device time {t['first_device_us']:.2f} us "
+          f"({bounds['first'][0] * 1e3 / t['first_device_us']:.3f} of the bound "
+          f"{bounds['first'][0] * 1e3:.2f} us, {bounds['first'][2] / 1e6:.1f} MB); torch.bmm "
+          f"events {t['bmm_ms'] * 1e3:.2f} us, device time {t['bmm_device_us']:.2f} us [{card}]")
+    print(f"rsu_reduce_grid G={G} K={K} R={R} P={P} bf16 rows and partials: with the carry "
+          f"events {t['ms16'] * 1e3:.2f} us, device time {t['device_us16']:.2f} us "
+          f"({bounds['carry16'][0] * 1e3 / t['device_us16']:.3f} of the bound "
+          f"{bounds['carry16'][0] * 1e3:.2f} us, {bounds['carry16'][2] / 1e6:.1f} MB; "
+          f"{bounds['dense16'][0] * 1e3 / t['device_us16']:.3f} of the dense "
+          f"{bounds['dense16'][0] * 1e3:.2f} us), first "
+          f"chunk {t['first_device_us16']:.2f} us (bound {bounds['first16'][0] * 1e3:.2f} us) "
+          f"[{card}]")
 
 
 def time_gram(kernels, lib, stream, sel_run, main_err, device, card):
@@ -2394,11 +2631,12 @@ BF16_GRID_TOL = dict(GRID_TOL, acc_atol=BF16_REPLAY["acc_atol"],
 
 
 def grid_fl(**kw):
-    """``engine_throughput.py::_grid_cfgs``' FLConfig (N = 20, 64 samples)."""
+    """``engine_throughput.py::_grid_cfgs``' FLConfig (N = 20, 64 samples),
+    ``kw`` replacing or adding fields."""
     from repro_torch.config import FLConfig
 
-    return FLConfig(num_clients=20, samples_per_client=64, batch_size=32, num_clusters=5,
-                    local_epochs=1, **kw)
+    return FLConfig(**{**dict(num_clients=20, samples_per_client=64, batch_size=32,
+                              num_clusters=5, local_epochs=1), **kw})
 
 
 def smoke_fl():
@@ -2419,6 +2657,7 @@ class Grid:
     scenarios: tuple = GRID_SCENARIOS
     rounds: int = GRID_ROUNDS
     eval_every: int = GRID_EVAL_EVERY
+    chunks: int = 0  # the streamed two-tier lanes' chunks a round (0: not streamed)
 
     def runs(self) -> list:
         return [(st, a, 0, sc) for st in self.strategies for a in self.aggregators
@@ -2428,13 +2667,16 @@ class Grid:
         return len(self.runs()) * self.rounds
 
     def batched_want(self, server: str) -> dict:
-        """A batched sweep's launches: 2 B1g and one ``server`` a grid round,
-        whatever G."""
-        return {"rttg_latency_grid": 2 * self.rounds, server: self.rounds}
+        """A batched sweep's launches: 2 B1g, one B5g a chunk and one
+        ``server`` a grid round, whatever G."""
+        want = {"rttg_latency_grid": 2 * self.rounds, server: self.rounds}
+        return {**want, "rsu_reduce_grid": self.chunks * self.rounds} if self.chunks else want
 
     def loop_want(self, server: str) -> dict:
-        """A lane-loop sweep's launches: 2 B1 and one ``server`` a lane-round."""
-        return {"rttg_latency": 2 * self.lane_rounds(), server: self.lane_rounds()}
+        """A lane-loop sweep's launches: 2 B1, one B5 a chunk and one
+        ``server`` a lane-round."""
+        want = {"rttg_latency": 2 * self.lane_rounds(), server: self.lane_rounds()}
+        return {**want, "rsu_reduce": self.chunks * self.lane_rounds()} if self.chunks else want
 
 
 BENCH = Grid(GRID_STRATEGIES, ("fedavg",))
@@ -2444,6 +2686,12 @@ ASYNC = Grid(GRID_STRATEGIES, ("fedbuff",))
 RULES = ("fedavg", "fedavgm", "fedadam", "fedyogi", "stale", "fedbuff")
 SMOKE = Grid(("contextual",), RULES, rounds=1, eval_every=1)
 SMOKE_SYNC = Grid(("contextual",), RULES[:-1], rounds=1, eval_every=1)
+# the two-tier grids: engine_throughput.py::smoke's hierarchical probe
+# (client_block=3, no warm-up; K = 2, one chunk with a padding slot), and a
+# streamed grid at N = 100 (K = 10 in 3 chunks of 4, the last padded by 2)
+SMOKE_HIER = Grid(("contextual",), RULES, scenarios=("rush_hour", "rsu_outage"), rounds=1,
+                  eval_every=1, chunks=1)
+STREAMED_HIER = Grid(("contextual",), ("fedavg",), rounds=3, eval_every=3, chunks=3)
 
 
 def grid_sweeps(eng, grid: Grid, want: dict, n_warm: int, card: str):
@@ -2518,8 +2766,8 @@ def grid_vs_loop(eng, grid: Grid, res, tol, server: str, card):
     print(f"batched grid vs the lane loop on the card, {len(grid.runs())} lanes x {grid.rounds} "
           f"rounds: integers equal, floats within the tolerance (worst {worst:.3f} of it); the "
           f"loop's set-up {wall['setup_s']:.3f} s and {grid.rounds} rounds "
-          f"{wall['rounds_s']:.3f} s with {launches['rttg_latency']} B1 and "
-          f"{launches[server]} {server} launches [{card}]")
+          f"{wall['rounds_s']:.3f} s with {launches['rttg_latency']} B1, "
+          f"{launches['rsu_reduce']} B5 and {launches[server]} {server} launches [{card}]")
     return wall
 
 
@@ -2758,9 +3006,76 @@ def engine_phase(device, card) -> dict:
         eng_p, BENCH, BENCH.batched_want("fedavg_reduce_grid"), 0, card)
     summary["precision"] = dict(cold_s=walls[0])
     lane_vs_cpu(res_p, eng_p, BENCH, ("gossip", "fedavg", 0, "ring"), BF16_GRID_TOL, card)
+    two_tier_grids(model, device, card, summary, launches)
     summary["launches"] = launches
     print(json.dumps({"engine_grid": summary}))
     return launches
+
+
+def two_tier_grids(model, device, card, summary, launches) -> None:
+    """Phase 4h's two-tier grids through the batched round: the reference's
+    hierarchical smoke probe, then a streamed grid of three chunks, each
+    cold and warm with its exact launches, against its lane loop on the
+    card and two lanes on the CPU's plain path; the streamed grid's round
+    profiled beside a lane-loop round, and its round loop's sync check."""
+    from repro_torch.fl import ExperimentEngine
+
+    phase("engine: engine_throughput.py::smoke's hierarchical probe at N=20 (contextual x 6 "
+          "rules x rush_hour / rsu_outage, client_block=3, no warm-up, 1 round), the batched "
+          "round, then its lane loop")
+    fl_h = dataclasses.replace(smoke_fl(), hierarchical=True, client_block=3)
+    eng_h = ExperimentEngine(model, fl_h, "mnist", strategies=SMOKE_HIER.strategies,
+                             aggregators=SMOKE_HIER.aggregators, warmup=False, device=device)
+    if not eng_h.batched or -(-eng_h.cohort_size // fl_h.client_block) != SMOKE_HIER.chunks:
+        raise AssertionError("the hierarchical probe did not take the batched round in one "
+                             "chunk")
+    res_h, walls, launches["smoke_hier"] = grid_sweeps(
+        eng_h, SMOKE_HIER, SMOKE_HIER.batched_want("server_update_buffered_grid"), 1, card)
+    loop_wall = grid_vs_loop(eng_h, SMOKE_HIER, res_h, GRID_TOL, "server_update_buffered", card)
+    summary["smoke_hier"] = dict(cold_s=walls[0], warm_s=walls[1], loop=loop_wall)
+    for lane in (("contextual", "fedadam", 0, "rush_hour"),
+                 ("contextual", "fedbuff", 0, "rsu_outage")):
+        lane_vs_cpu(res_h, eng_h, SMOKE_HIER, lane, GRID_TOL, card)
+
+    phase("engine: a streamed two-tier grid (contextual x ('fedavg',) x 8 scenarios, N=100, "
+          "K=10 in 3 chunks of 4, 3 rounds, eval at the end), the batched round, then its "
+          "lane loop")
+    fl_s = grid_fl(num_clients=100, hierarchical=True, client_block=4)
+    eng_s = ExperimentEngine(model, fl_s, "mnist", strategies=STREAMED_HIER.strategies,
+                             aggregators=STREAMED_HIER.aggregators, device=device)
+    if not eng_s.batched or -(-eng_s.cohort_size // fl_s.client_block) != STREAMED_HIER.chunks:
+        raise AssertionError("the streamed two-tier grid did not take the batched round in 3 "
+                             "chunks")
+    res_s, walls, launches["streamed_hier"] = grid_sweeps(
+        eng_s, STREAMED_HIER, STREAMED_HIER.batched_want("fedavg_reduce_grid"), 1, card)
+    loop_wall = grid_vs_loop(eng_s, STREAMED_HIER, res_s, GRID_TOL, "fedavg_reduce", card)
+    summary["streamed_hier"] = dict(cold_s=walls[0], warm_s=walls[1], loop=loop_wall)
+    for lane in (("contextual", "fedavg", 0, "ring"), ("contextual", "fedavg", 0, "rsu_outage")):
+        lane_vs_cpu(res_s, eng_s, STREAMED_HIER, lane, GRID_TOL, card)
+    runs = STREAMED_HIER.runs()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    batched = eng_s._lanes(runs)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    eng_s._sweep(batched, STREAMED_HIER.rounds, STREAMED_HIER.eval_every)
+    torch.cuda.synchronize()
+    summary["streamed_hier"]["batched"] = {"setup_s": t1 - t0,
+                                           "rounds_s": time.perf_counter() - t1}
+    print(f"streamed two-tier grid, set-up / {STREAMED_HIER.rounds} rounds: batched "
+          f"{t1 - t0:.3f} / {summary['streamed_hier']['batched']['rounds_s']:.3f} s, lane loop "
+          f"{loop_wall['setup_s']:.3f} / {loop_wall['rounds_s']:.3f} s [{card}]")
+    loop = eng_s._lane_list(runs)
+    profiles = {"batched": [], "loop": []}
+    for which in ("batched", "loop", "batched"):
+        lanes = batched if which == "batched" else loop
+        profiles[which].append(profile_round(
+            f"streamed two-tier grid round ({which}), {len(runs)} lanes (N=100, K=10 in 3 "
+            f"chunks)", lambda lanes=lanes: eng_s._grid_round(lanes, False, False), card))
+    summary["streamed_hier"]["profiles"] = profiles
+    del batched, loop, lanes
+    phase("engine: the streamed two-tier grid's round loop under torch.cuda.set_sync_debug_mode")
+    summary["streamed_hier"]["sync"] = sync_check(eng_s, STREAMED_HIER, card)
 
 
 def main(argv=()) -> int:
@@ -2855,6 +3170,12 @@ def main(argv=()) -> int:
                          (("rush_hour", "urban_grid"), 1024), (("rsu_outage", "ring"), 100)):
         for predict in (True, False):
             check_rttg_grid(scenarios, n, predict, 0.7, device)
+    # B1g's RSU ids (the two-tier grids' realized pass): the smoke probe's 12
+    # lanes at N = 20, the streamed grid's 8 at N = 100, and the one-block edge
+    for scenarios, n in ((("rush_hour", "rsu_outage") * 6, 20), (GRID_SCENARIOS, 100),
+                         (("rsu_outage", "ring"), 1024)):
+        for predict in (True, False):
+            check_rttg_grid(scenarios, n, predict, 0.7, device, want_rid=True)
     main_err["fedavg_reduce"] = check_fedavg(10, 159_010, device)
     for K, P in ((1, 159_010), (10, 2049), (1, 1), (10, 4096), (7, 159_011), (8, 4097),
                  (9, 2049), (17, 159_010), (17, 4097), (100, 38_656),
@@ -2997,6 +3318,19 @@ def main(argv=()) -> int:
     check_rsu_two_roundings(device)
     for K, B, R in ((10, 4, 10), (100, 32, 10), (100, 32, 40)):
         check_rsu_walk(K, B, device, R=R, rows=bf16, out=bf16)
+    # B5g (the two-tier grids' chunk walk, a lane a grid layer): the smoke
+    # probe's chunk (12 lanes, 3 slots, the last padding), the streamed grid's
+    # (8 lanes, 4 slots) with and without the carry, R = 40, an odd P with rows
+    # off their vector alignment; fp32 rows, bf16 rows into fp32 and bf16 partials
+    main_err["rsu_reduce_grid"] = 0.0
+    for rows, out in ((f32, f32), (bf16, f32), (bf16, bf16)):
+        for G, K, P, R, offset in ((12, 3, 159_010, 10, 0), (8, 4, 159_010, 10, 0),
+                                   (8, 4, 159_010, 40, 0), (5, 3, 159_011, 10, 1),
+                                   (3, 4, 4096, 33, 2), (1, 1, 1, 1, 0)):
+            for with_carry in (False, True):
+                e = check_rsu_grid(G, K, P, R, with_carry, device, rows, out, offset)
+                if (G, K, R, with_carry, rows, out) == (8, 4, 10, True, f32, f32):
+                    main_err["rsu_reduce_grid"] = e
     main_err["swa_decode"] = main_err["ssd_scan"] = 0.0
     for dtype in (torch.bfloat16, torch.float32):
         # hymba-1.5b's decode: B=4, a full 1024-slot ring after 2,080 tokens
@@ -3540,6 +3874,7 @@ def main(argv=()) -> int:
 
     time_grid_kernels(kernels, lib, grid_launches, main_err, bf16_times, device, card)
     time_server_grid(kernels, lib, grid_launches, main_err, device, card)
+    time_rsu_grid(kernels, lib, grid_launches, main_err, bf16_times, device, card)
 
     # server_update (fedadam, rule 2) and server_update_buffered (fedbuff,
     # rule 5, draining all Kb = 8 ring rows) at K=10, P=159,010, cycling
@@ -3660,6 +3995,8 @@ def main(argv=()) -> int:
         if vector_width(P, ops16[0][0], out16) != vec_c:
             raise AssertionError("the bf16 chunk takes another vector width")
         rows_c = torch.empty((K_c, P), dtype=torch.float32, device=device)
+        # the carry rows the ids touch, counted before the timed launches
+        carry_rows = sum(rsu_carry_rows(rid_, R, u_, c_) for u_, _, rid_, c_ in ops) / n_copies
 
         def nxt_rsu(half=False):
             it["i"] = (it["i"] + 1) % n_copies
@@ -3669,7 +4006,7 @@ def main(argv=()) -> int:
             (u_, w_, rid_, c_), _ = nxt_rsu(half)
             out_ = c_ if with_carry else out16 if half else out_c
             kbuild.check(lib.rsu_reduce_launch(
-                u_.data_ptr(), u_.element_size(), w_.data_ptr(), rid_.data_ptr(), K_c, R, P,
+                u_.data_ptr(), u_.element_size(), w_.data_ptr(), rid_.data_ptr(), 1, K_c, R, P,
                 vec_c, c_.data_ptr() if with_carry else None, out_.data_ptr(),
                 out_.element_size(), mass_c.data_ptr(), stream), "rsu_reduce")
 
@@ -3703,34 +4040,32 @@ def main(argv=()) -> int:
                  "plain16": time_ms(lambda: rsu_plain_call(True)),
                  "carry16_dev": device_us_per_call(lambda: rsu_launch(True, True)),
                  "first16_dev": device_us_per_call(lambda: rsu_launch(False, True))}
-        # each input read once (rows, weights, ids, and the carry when there is
-        # one), each output written once (partials, mass); 2 flops per row value
-        # (its one RSU's multiply-add) plus the carry's add per partial
-        for key, with_carry, size in (("carry", True, 4), ("first", False, 4),
-                                      ("carry16", True, 2), ("first16", False, 2)):
-            b_bytes = (K_c * P * size + 2 * K_c * 4 + R * P * size * (2 if with_carry else 1)
-                       + R * 4)
-            t[key + "_bound"] = bound(b_bytes, 2 * K_c * P + (R * P if with_carry else 0))
+        for key, (b_ms, b_by, b_bytes) in rsu_bounds(1, K_c, R, P, carry_rows).items():
+            t[key + "_bound"] = (b_ms, b_by)
             t[key + "_bytes"] = b_bytes
+        t["carry_rows"] = carry_rows
         rsu_times[K_c] = t
         print(f"rsu_reduce K={K_c} P={P} R={R} (vec {vec_c}): "
-              f"kernel with carry {t['carry'] * 1e3:.2f} us (bound {t['carry_bound'][0] * 1e3:.2f} us, "
-              f"{t['carry_bytes'] / (t['carry'] * 1e-3) / 1e9:.0f} GB/s), first chunk "
+              f"kernel with carry {t['carry'] * 1e3:.2f} us (bound {t['carry_bound'][0] * 1e3:.2f} us "
+              f"with the {carry_rows:.1f} carry rows its ids touch of {R}, dense "
+              f"{t['dense_bound'][0] * 1e3:.2f} us, "
+              f"{t['dense_bytes'] / (t['carry'] * 1e-3) / 1e9:.0f} GB/s), first chunk "
               f"{t['first'] * 1e3:.2f} us (bound {t['first_bound'][0] * 1e3:.2f} us), "
               f"wrapper {t['wrapper'] * 1e3:.2f} us, plain {t['plain'] * 1e3:.2f} us, "
               f"torch.addmm {t['library'] * 1e3:.2f} us; device time per call (profiler): "
               f"kernel with carry {t['carry_dev']:.2f} us "
               f"({t['carry_dev'] / t['library_dev']:.3f}x torch.addmm's "
               f"{t['library_dev']:.2f} us, {t['carry_bound'][0] * 1e3 / t['carry_dev']:.3f} of "
-              f"the bound), first chunk {t['first_dev']:.2f} us "
+              f"the bound, {t['dense_bound'][0] * 1e3 / t['carry_dev']:.3f} of the dense), first "
+              f"chunk {t['first_dev']:.2f} us "
               f"({t['first_bound'][0] * 1e3 / t['first_dev']:.3f} of the bound); the kernel "
-              f"moves {t['carry_bytes'] / t['carry_dev'] / 1e3:.0f} GB/s, a copy of its rows "
+              f"moves {t['dense_bytes'] / t['carry_dev'] / 1e3:.0f} GB/s, a copy of its rows "
               f"{2 * K_c * P * 4 / t['copy_dev'] / 1e3:.0f} GB/s ({t['copy_dev']:.2f} us) [{card}]")
         print(f"rsu_reduce K={K_c} P={P} R={R} bf16 rows and partials (vec {vec_c}): kernel "
               f"with carry {t['carry16'] * 1e3:.2f} us (device time {t['carry16_dev']:.2f} us, "
               f"fp32 {t['carry_dev']:.2f} us; bound {t['carry16_bound'][0] * 1e3:.2f} us, "
-              f"{t['carry16_bytes'] / 1e6:.2f} MB, "
-              f"{t['carry16_bytes'] / t['carry16_dev'] / 1e3:.0f} GB/s), first chunk device "
+              f"{t['carry16_bytes'] / 1e6:.2f} MB, dense {t['dense16_bound'][0] * 1e3:.2f} us, "
+              f"{t['dense16_bytes'] / t['carry16_dev'] / 1e3:.0f} GB/s), first chunk device "
               f"time {t['first16_dev']:.2f} us (fp32 {t['first_dev']:.2f} us; bound "
               f"{t['first16_bound'][0] * 1e3:.2f} us), plain {t['plain16'] * 1e3:.2f} us [{card}]")
         bf16_times[f"rsu_reduce K={K_c}"] = (t["carry16"], t["plain16"], t["carry16_dev"],
@@ -3744,7 +4079,8 @@ def main(argv=()) -> int:
         + sum(x["rsu_reduce"] for x in fleet_launches.values()),
         "max_abs_err": main_err["rsu_reduce"], "ms": t["carry"], "plain_ms": t["plain"],
         "bound_ms": t["carry_bound"][0], "bound_by": t["carry_bound"][1],
-        "library_ms": t["library"],
+        "library_ms": t["library"], "carry_rows": t["carry_rows"],
+        "dense_bound_ms": t["dense_bound"][0],
     })
     # the bf16 rows of B2-B5 (the fp32 rows stand in the kernels line below)
     print(json.dumps({"bf16_rows": {

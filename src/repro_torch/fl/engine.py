@@ -5,19 +5,21 @@ order, as the reference forms it.  The reference runs it as one ``vmap`` of
 a ``lax.scan`` over rounds.  The port takes one of two paths, chosen once,
 in ``__init__``, from the engine's lane:
 
-  * the BATCHED round (``fl.rounds.make_grid_round_step``) when the lanes
-    are flat and N <= 1,024 (``rounds.grid_round_fits``), whatever the
-    registry: the lanes' states stay stacked along a leading grid axis, as
-    the reference keeps them, and one round of every lane runs at once (two
-    ``rttg_latency_grid`` launches and one server launch a grid round,
-    whatever G: ``fedavg_reduce_grid`` for ``("fedavg",)``,
-    ``server_update_buffered_grid`` for a registry holding ``fedbuff``,
-    ``server_update_grid`` for any other); each lane's rule is a ``(G,)``
-    global ``AGGREGATOR_ORDER`` index on the device, built once per
-    ``run_grid``;
-  * otherwise (two-tier lanes, or more than 1,024 clients) the LANE LOOP:
+  * the BATCHED round (``fl.rounds.make_grid_round_step``) when N <=
+    1,024 (``rounds.grid_round_fits``), flat or two-tier, streamed or not,
+    whatever the registry: the lanes' states stay stacked along a leading
+    grid axis, as the reference keeps them, and one round of every lane
+    runs at once (two ``rttg_latency_grid`` launches, one
+    ``rsu_reduce_grid`` launch a chunk on the streamed lanes and one
+    server launch a grid round, whatever G: ``fedavg_reduce_grid`` for
+    ``("fedavg",)``, ``server_update_buffered_grid`` for a registry holding
+    ``fedbuff``, ``server_update_grid`` for any other); each lane's rule
+    is a ``(G,)`` global ``AGGREGATOR_ORDER`` index on the device, built
+    once per ``run_grid``;
+  * otherwise (more than 1,024 clients: the fleet runs) the LANE LOOP:
     each lane's round in turn through the one-lane round step (two
-    ``rttg_latency`` and one server-kernel launch a lane).
+    ``rttg_latency`` launches, one ``rsu_reduce`` a chunk and one
+    server-kernel launch a lane).
 
 Both run the same semantics:
 
@@ -195,7 +197,8 @@ class ExperimentEngine:
     asked for and no card is present.  ``warmup=False`` skips the
     deadline-rule bootstrap, which trains all N clients once (the fleet lane
     cannot afford it).  ``batched`` says which path ``run_grid`` takes (the
-    module docstring), decided here from the lane.
+    module docstring), decided here from the config alone: the batched round
+    for every engine of N <= 1,024, the lane loop above.
     """
 
     def __init__(

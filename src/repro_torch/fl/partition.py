@@ -62,7 +62,8 @@ def client_sample_counts(labels: torch.Tensor) -> torch.Tensor:
 
 
 def rsu_sample_mass(weights: torch.Tensor, rid: torch.Tensor, n_rsu: int) -> torch.Tensor:
-    """(R,) per-RSU aggregation mass: the weights summed by attachment.
+    """(R,) per-RSU aggregation mass: the weights summed by attachment;
+    ``(G, K)`` weights and ids give each lane's ``(G, R)``.
 
     The JAX package scatter-adds; here it is the column sum of the one-hot
     ``(K, R)`` routing matrix, a fixed order on every device (a float
@@ -70,8 +71,8 @@ def rsu_sample_mass(weights: torch.Tensor, rid: torch.Tensor, n_rsu: int) -> tor
     outside ``[0, R)`` contributes nothing.  Sample counts are
     integer-valued, so the per-RSU masses sum to the flat sum exactly.
     """
-    onehot = rid.to(torch.int64)[:, None] == torch.arange(n_rsu, device=rid.device)[None, :]
-    return (onehot.to(torch.float32) * weights.to(torch.float32)[:, None]).sum(dim=0)
+    onehot = rid.to(torch.int64)[..., :, None] == torch.arange(n_rsu, device=rid.device)
+    return (onehot.to(torch.float32) * weights.to(torch.float32)[..., :, None]).sum(dim=-2)
 
 
 def partition_clients(key, dataset: str, cfg: FLConfig, regions=None, device="cpu"):

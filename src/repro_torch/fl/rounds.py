@@ -41,15 +41,18 @@ index on the host, while every data-dependent decision of the server step
 device tensor.
 
 The batched grid round (``make_grid_round_step``, with
-``make_grid_warmup``) runs one round of G lanes at once for the flat fused
-lane, whatever the registry, as the reference's engine runs its grid under
-``vmap``: ``round_step``'s expressions, line for line, on states stacked
-along a leading grid axis (``stack_states``), through the same core forms,
-which broadcast over that axis, and the kernels' grid forms (one launch
-each a pass for all G lanes): ``rttg_latency_grid`` twice, then one server
-step by the registry, as ``round_step`` picks it: ``fedavg_reduce_grid``
-for ``("fedavg",)``, ``server_update_buffered_grid`` for a registry that
-holds ``fedbuff``, ``server_update_grid`` for any other.  Each lane's
+``make_grid_warmup``) runs one round of G lanes at once for the fused
+lane, flat or two-tier, streamed or not, whatever the registry, as the
+reference's engine runs its grid under ``vmap``: ``round_step``'s
+expressions, line for line, on states stacked along a leading grid axis
+(``stack_states``), through the same core forms, which broadcast over that
+axis, and the kernels' grid forms (one launch each a pass for all G
+lanes): ``rttg_latency_grid`` twice (the realized pass with each client's
+RSU on the two-tier lanes), ``rsu_reduce_grid`` once a chunk on the
+streamed lanes, then one server step by the registry, as ``round_step``
+picks it: ``fedavg_reduce_grid`` for ``("fedavg",)``,
+``server_update_buffered_grid`` for a registry that holds ``fedbuff``,
+``server_update_grid`` for any other.  Each lane's
 strategy and rule are picked on the device: every strategy of the engine
 runs over all lanes and a ``(G,)`` index selects each lane's mask, as the
 reference's ``lax.switch`` does under ``vmap``; a ``(G,)`` global rule
@@ -87,7 +90,7 @@ from repro_torch.fl.client import make_local_trainer
 from repro_torch.fl.partition import client_sample_counts, make_test_set, partition_clients
 from repro_torch.fl.server import apply_delta_flat, normalized_weights, rsu_normalized_weights
 from repro_torch.kernels.fedavg_reduce import fedavg_reduce, fedavg_reduce_grid
-from repro_torch.kernels.rsu_reduce import rsu_reduce
+from repro_torch.kernels.rsu_reduce import rsu_reduce, rsu_reduce_grid
 from repro_torch.kernels.rttg_latency import GRID_MAX_N, rttg_latency, rttg_latency_grid
 from repro_torch.kernels.server_update import (server_update, server_update_buffered,
                                                 server_update_buffered_grid, server_update_grid)
@@ -406,17 +409,17 @@ def make_grid_warmup(loss_fn, fl: FLConfig, param_spec):
 
 
 def grid_round_fits(fl: FLConfig, aggregators: Sequence[str]) -> bool:
-    """Whether ``make_grid_round_step`` serves this lane and registry: flat
-    lanes of up to ``GRID_MAX_N`` clients, under any registry of the
-    catalog."""
+    """Whether ``make_grid_round_step`` serves this lane and registry: lanes
+    of up to ``GRID_MAX_N`` clients, flat or two-tier, streamed or not,
+    under any registry of the catalog."""
     validate_aggregators(aggregators)
-    return not fl.hierarchical and fl.num_clients <= GRID_MAX_N
+    return fl.num_clients <= GRID_MAX_N
 
 
 def make_grid_round_step(loss_fn, fl: FLConfig, cohort_size: int, model_bytes: float,
                          param_spec, strategies: Sequence[str] = STRATEGY_ORDER,
                          aggregators: Sequence[str] = ("fedavg",)):
-    """Build one round of G lanes at once for the flat fused lane
+    """Build one round of G lanes at once for the fused lane
     (``grid_round_fits``) under the registry ``aggregators``.
 
     Returned fn: ``grid_round_step(state, scn, strategy_idx, rule_idx,
@@ -430,10 +433,11 @@ def make_grid_round_step(loss_fn, fl: FLConfig, cohort_size: int, model_bytes: f
     same order, with a leading G.
     """
     strategies = tuple(strategies)
+    _check_lane(fl, True)
     aggregators = validate_aggregators(aggregators)
     if not grid_round_fits(fl, aggregators):
-        raise ValueError(f"the batched grid round runs flat lanes of up to {GRID_MAX_N} "
-                         f"clients, got hierarchical={fl.hierarchical}, N={fl.num_clients}")
+        raise ValueError(f"the batched grid round runs lanes of up to {GRID_MAX_N} "
+                         f"clients, got N={fl.num_clients}")
     registry = tuple(AGGREGATOR_ORDER.index(a) for a in aggregators)
     plain_fedavg = aggregators == ("fedavg",)
     has_stale, has_fedbuff = STALE_IDX in registry, FEDBUFF_IDX in registry
@@ -443,6 +447,7 @@ def make_grid_round_step(loss_fn, fl: FLConfig, cohort_size: int, model_bytes: f
     upload_bytes = float(model_bytes) * (cd.itemsize / 4.0)
     trainer = make_local_trainer(loss_fn, fl.learning_rate, fl.local_epochs,
                                  fl.batch_size, mu=fl.fedprox_mu, compute_dtype=cd)
+    hierarchical, B = fl.hierarchical, fl.client_block
     n_select = fl.n_select
     N, K = fl.num_clients, cohort_size
     compute_s = fl.local_epochs * fl.compute_s_per_epoch
@@ -500,10 +505,10 @@ def make_grid_round_step(loss_fn, fl: FLConfig, cohort_size: int, model_bytes: f
         mean_compute = torch.where(slot_valid, compute_i, 0.0).sum(dim=-1) / nsel_f
         mid_twin = advance_twin(twin, scn, prng.fold_in_str(rk, "mid"),
                                 mean_compute[:, None], ADVANCE_SUBSTEPS)
-        real_lat, still_conn = rttg_latency_grid(
+        real_lat, still_conn, *attached = rttg_latency_grid(
             mid_twin.pos, mid_twin.speed, mid_twin.accel, mid_twin.t[:, 0], mb,
             forced_connections(prng.fold_in_str(rk, "upload-cr"), cr, (N,), device), scn,
-            predict=False)
+            predict=False, want_rid=hierarchical)
         ok = slot_valid & torch.gather(still_conn, -1, idx_c)
         ok_any = ok.any(dim=-1)
         per_slot = torch.gather(real_lat, -1, idx_c) + compute_i
@@ -511,16 +516,21 @@ def make_grid_round_step(loss_fn, fl: FLConfig, cohort_size: int, model_bytes: f
         dur_core = torch.where(slot_valid, slot_pay, -math.inf).max(dim=-1).values
         duration = torch.where(n_selected > 0, dur_core + fl.server_agg_s, timeout)
 
-        # ---- FedAvg weights, each lane's rule picked on the device -------
+        # ---- FedAvg weights (flat, or RSU-routed two-tier), each lane's
+        # rule picked on the device ----------------------------------------
         counts_k = rows.counts[row_idx[:, None], idx_c]
-        w = normalized_weights(ok, counts_k)
+        if hierarchical:
+            R, live, rid_k, _w_strict, _w_stale = _rsu_routing(scn, attached[0], idx_c)
+        else:
+            _w_strict = _w_stale = normalized_weights
+        w = _w_strict(ok, counts_k)
         upd_any = ok_any
         if has_stale:
             # stragglers keep a weight discounted by their realized round
             # time; any selected client moves the model
             is_stale = rule_idx == STALE_IDX
             disc = torch.where(ok, 1.0, staleness_scale(per_slot, timeout))
-            w = torch.where(is_stale[:, None], normalized_weights(slot_valid, counts_k * disc), w)
+            w = torch.where(is_stale[:, None], _w_stale(slot_valid, counts_k * disc), w)
             upd_any = torch.where(is_stale, n_selected > 0, ok_any)
 
         # ---- fedbuff: drain arrived ring slots, place new stragglers ---
@@ -552,42 +562,51 @@ def make_grid_round_step(loss_fn, fl: FLConfig, cohort_size: int, model_bytes: f
             # a drain with no in-round survivor is still a server step
             upd_any = torch.where(is_fedbuff, ok_any | drain_fire, upd_any)
 
-        # ---- local training (G*K clients, each from its lane's model) ---
-        valid = slot_valid.flatten()
-        imgs = rows.images[row_idx[:, None], idx_c].flatten(0, 1)
-        imgs = imgs * valid.reshape(valid.shape + (1,) * (imgs.dim() - 1))
-        lbls = torch.where(valid[:, None], rows.labels[row_idx[:, None], idx_c].flatten(0, 1), 0)
-        start = state.params.to(torch.float32).repeat_interleave(K, dim=0)
-        keys = prng.split(prng.fold_in_str(rk, "local"), K).flatten(0, 1)
-        _, vecs = trainer(unflatten_from_vector(start, param_spec), imgs, lbls, keys,
-                          batch_dims=1)
-        vecs = (vecs * valid[:, None]).to(cd).view(G, K, -1)
-        sks = apply_sketch(vecs, state.sketch_sign[:, None, :], fl.sketch_dim)
-        scatter = torch.where(ok, idx_c, N)
-        sketches = _scatter_rows(state.sketches, scatter, sks)
-        sketch_age = _scatter_rows(state.sketch_age, scatter, sks.new_zeros(idx_c.shape)) + 1.0
+        # ---- local training (each client from its lane's model), the
+        # survivors' sketches, the edge reduce ----------------------------
+        sign = state.sketch_sign[:, None, :]
         buf = {f: getattr(state, f) for f in
                ("buf_delta", "buf_arrive", "buf_sent", "buf_weight", "buf_mask")}
         if has_fedbuff:
             # drained slots empty now; this round's stragglers fill them
             buf = {f: keep if f == "buf_mask" else torch.where(
                 keep.reshape((G, Kb) + (1,) * (x.dim() - 2)), x, 0.0) for f, x in buf.items()}
-            buf["buf_delta"] = _scatter_rows(buf["buf_delta"], slot, vecs)
+        keys = prng.split(prng.fold_in_str(rk, "local"), K)  # (G, K, 2)
+        if B:
+            # the streamed two-tier lanes: one trainer call on G*B rows and
+            # one rsu_reduce_grid launch a chunk
+            partials, sketches, sketch_age, buf["buf_delta"] = _stream_walk(
+                lambda i, v, k: _train_grid(trainer, state.params, rows, row_idx, i, v, k,
+                                            param_spec),
+                B, R, cd, keys, idx_c, slot_valid, w, ok, rid_k,
+                slot if has_fedbuff else None, state.sketches, state.sketch_age, sign,
+                fl.sketch_dim, N, buf["buf_delta"])
+            # the server tier: R partials a lane, the weights applied at the edge
+            red, red_w = partials, live.to(torch.float32)
+        else:
+            vecs = _train_grid(trainer, state.params, rows, row_idx, idx_c, slot_valid, keys,
+                               param_spec).to(cd)
+            sketches, sketch_age = _report(state.sketches, state.sketch_age, vecs, ok, idx_c,
+                                           sign, fl.sketch_dim, N)
+            if has_fedbuff:
+                buf["buf_delta"] = _scatter_rows(buf["buf_delta"], slot, vecs)
+            red, red_w = vecs, w
+        sketch_age = sketch_age + 1.0
 
         # ---- server update over deadline survivors (one launch) ---------
         opt_m, opt_v = state.opt_m, state.opt_v
         if plain_fedavg:
-            delta = fedavg_reduce_grid(vecs, w)
+            delta = fedavg_reduce_grid(red, red_w)
             params_vec = torch.where(ok_any[:, None], apply_delta_flat(state.params, delta),
                                      state.params)
         else:
             if has_fedbuff:
                 # every lane through the ring's form; the PRE-scatter ring
-                new = server_update_buffered_grid(vecs, w, state.buf_delta, bw, state.params,
+                new = server_update_buffered_grid(red, red_w, state.buf_delta, bw, state.params,
                                                   opt_m, opt_v, rule_idx, state.round,
                                                   drain_fire, registry=registry, **hp)
             else:
-                new = server_update_grid(vecs, w, state.params, opt_m, opt_v, rule_idx,
+                new = server_update_grid(red, red_w, state.params, opt_m, opt_v, rule_idx,
                                          state.round, registry=registry, **hp)
             params_vec, opt_m, opt_v = [torch.where(upd_any[:, None], n, o) for n, o in
                                         zip(new, (state.params, opt_m, opt_v))]
@@ -754,21 +773,7 @@ def make_round_step(loss_fn, fl: FLConfig, cohort_size: int, model_bytes: float,
         # ---- FedAvg weights (flat, or RSU-routed two-tier) -------------
         counts_k = data.counts[idx_c]
         if hierarchical:
-            R = n_rsu_of(scn)
-            live = rsu_up_mask(scn)
-            rid_k = attached[0][idx_c]
-            # the attachment argmin never picks a dark RSU: folding liveness
-            # in keeps a dark RSU's partial from ever reaching the server
-            live_k = live[rid_k.long()]
-
-            def _w_strict(m, c):
-                return rsu_normalized_weights(m & live_k, c, rid_k, live, R)[0]
-
-            def _w_stale(m, c):
-                # discounted counts are not integers: the flat normalizer
-                # keeps the stale lane bitwise with its flat sibling
-                return rsu_normalized_weights(m & live_k, c, rid_k, live, R,
-                                              mass_norm=False)[0]
+            R, live, rid_k, _w_strict, _w_stale = _rsu_routing(scn, attached[0], idx_c)
         else:
             _w_strict = _w_stale = normalized_weights
         w = _w_strict(ok, counts_k)
@@ -823,37 +828,17 @@ def make_round_step(loss_fn, fl: FLConfig, cohort_size: int, model_bytes: float,
             buf = {f: keep if f == "buf_mask" else torch.where(
                 keep.reshape((Kb,) + (1,) * (x.dim() - 1)), x, 0.0) for f, x in buf.items()}
         if B:
-            # the streamed two-tier lane: chunks of B slots train and reduce
-            # straight into the (R, P) per-RSU partials, so the (K, P) update
-            # matrix never exists.  Per-client keys come from ONE cohort-wide
-            # split (the unblocked trainer's stream); padding slots repeat
-            # key 0 and train zeroed data into zero-masked updates.
-            n_chunks = -(-K // B)
-            pad = n_chunks * B - K
-
-            def _pad(x, fill):
-                return torch.cat([x, x.new_full((pad,) + x.shape[1:], fill)]) if pad else x
-
-            keys = prng.split(prng.fold_in_str(rk, "local"), K)
-            keys = torch.cat([keys, keys[:1].expand(pad, 2)]) if pad else keys
-            idx_p, valid_p, w_p, ok_p, rid_p = (_pad(idx_c, 0), _pad(slot_valid, False),
-                                                _pad(w, 0.0), _pad(ok, False), _pad(rid_k, 0))
-            slot_p = _pad(slot, 2 * Kb) if has_fedbuff else None
-            partials, sketches, sketch_age = None, state.sketches, state.sketch_age
-            for c in range(n_chunks):
-                cs = slice(c * B, (c + 1) * B)
-                vb = _train(trainer, params, data, idx_p[cs], valid_p[cs], keys[cs]).to(cd)
-                partials, _ = rsu_reduce(vb, w_p[cs], rid_p[cs], R, carry=partials,
-                                         out_dtype=cd)
-                sketches, sketch_age = _report(sketches, sketch_age, vb, ok_p[cs],
-                                               idx_p[cs], state.sketch_sign, fl.sketch_dim, N)
-                if has_fedbuff:
-                    # straggler rows park in the ring (padding slots drop)
-                    buf["buf_delta"] = _scatter_rows(buf["buf_delta"], slot_p[cs], vb)
+            # the streamed two-tier lane (``_stream_walk``): per-client keys
+            # come from ONE cohort-wide split (the unblocked trainer's stream)
+            partials, sketches, sketch_age, buf["buf_delta"] = _stream_walk(
+                lambda i, v, k: _train(trainer, params, data.images[i], data.labels[i], v, k),
+                B, R, cd, prng.split(prng.fold_in_str(rk, "local"), K), idx_c, slot_valid, w,
+                ok, rid_k, slot if has_fedbuff else None, state.sketches, state.sketch_age,
+                state.sketch_sign, fl.sketch_dim, N, buf["buf_delta"])
             # the server tier: R partials, the weights already applied at the edge
             red, red_w = partials, live.to(torch.float32)
         else:
-            vecs = _train(trainer, params, data, idx_c, slot_valid,
+            vecs = _train(trainer, params, data.images[idx_c], data.labels[idx_c], slot_valid,
                           prng.fold_in_str(rk, "local")).to(cd)
             sketches, sketch_age = _report(state.sketches, state.sketch_age, vecs, ok,
                                            idx_c, state.sketch_sign, fl.sketch_dim, N)
@@ -946,25 +931,106 @@ def make_round_step(loss_fn, fl: FLConfig, cohort_size: int, model_bytes: float,
     return round_step
 
 
+def _rsu_routing(scn, rid, idx):
+    """The two-tier routing of a cohort: ``rid`` is each client's RSU and
+    ``idx`` the cohort's slots, ``(N,)`` / ``(K,)`` for a lane or ``(G, N)`` /
+    ``(G, K)`` for G lanes.  -> (R, the live mask, the slots' RSU ids, the
+    strict and the stale weight rules, each ``(mask, counts) -> weights``)."""
+    R = n_rsu_of(scn)
+    live = rsu_up_mask(scn)
+    rid_k = torch.gather(rid, -1, idx)
+    # the attachment argmin never picks a dark RSU: folding liveness in
+    # keeps a dark RSU's partial from ever reaching the server
+    live_k = torch.gather(live, -1, rid_k.long())
+
+    def strict(m, c):
+        return rsu_normalized_weights(m & live_k, c, rid_k, live, R)[0]
+
+    def stale(m, c):
+        # discounted counts are not integers: the flat normalizer keeps the
+        # stale lane bitwise with its flat sibling
+        return rsu_normalized_weights(m & live_k, c, rid_k, live, R, mass_norm=False)[0]
+
+    return R, live, rid_k, strict, stale
+
+
 def _params_tree(params_vec: torch.Tensor, param_spec):
     """The model tree of the flat master, in fp32 (a bf16 master upcasts
     exactly, as the reference's unflatten casts to the spec's fp32)."""
     return unflatten_from_vector(params_vec.to(torch.float32), param_spec)
 
 
-def _train(trainer, params, data: RoundData, idx, valid, key) -> torch.Tensor:
-    """(B, P) updates of the clients ``idx``; invalid slots train zeroed
-    data and come out as zero rows."""
-    imgs = data.images[idx]
-    imgs = imgs * valid.reshape(valid.shape + (1,) * (imgs.dim() - 1))
-    lbls = torch.where(valid[:, None], data.labels[idx], 0)
-    _, vecs = trainer(params, imgs, lbls, key)
+def _train(trainer, params, images, labels, valid, key, **kw) -> torch.Tensor:
+    """(B, P) updates of the clients whose data are ``images`` / ``labels``;
+    invalid slots train zeroed data and come out as zero rows."""
+    imgs = images * valid.reshape(valid.shape + (1,) * (images.dim() - 1))
+    lbls = torch.where(valid[:, None], labels, 0)
+    _, vecs = trainer(params, imgs, lbls, key, **kw)
     return vecs * valid[:, None]
+
+
+def _train_grid(trainer, params, rows: RoundData, row_idx, idx, valid, keys,
+                param_spec) -> torch.Tensor:
+    """``_train`` for G lanes: ``(G, B, P)`` updates of the clients ``idx``
+    (``(G, B)``, each lane's row of ``rows`` read through ``row_idx``), each
+    trained from its lane's model ``params[g]`` with its ``(G, B, 2)`` key."""
+    G, Bc = idx.shape
+    start = params.to(torch.float32).repeat_interleave(Bc, dim=0)
+    return _train(trainer, unflatten_from_vector(start, param_spec),
+                  rows.images[row_idx[:, None], idx].flatten(0, 1),
+                  rows.labels[row_idx[:, None], idx].flatten(0, 1), valid.flatten(),
+                  keys.flatten(0, 1), batch_dims=1).view(G, Bc, -1)
+
+
+def _stream_walk(train, B, n_rsu, cd, keys, idx, valid, w, ok, rid, slot, sketches,
+                 sketch_age, sign, sketch_dim, n, ring):
+    """The streamed two-tier walk: chunks of ``B`` cohort slots train
+    (``train(idx, valid, keys)``) and reduce straight into the per-RSU
+    partials, so the (K, P) update matrix never exists; each chunk's
+    survivors report their sketches and, with a fedbuff ``slot``, its
+    stragglers park in the ``ring``.  Every slot operand is ``(K,)`` for a
+    lane or ``(G, K)`` for G lanes (``keys`` with a trailing 2), and the
+    reduce is ``rsu_reduce`` or ``rsu_reduce_grid`` to match.  Padding slots
+    repeat key 0 and take id 0, weight 0 and no ring slot, and train zeroed
+    data into zero-masked updates.  -> (partials, sketches, sketch_age,
+    ring)."""
+    K = idx.shape[-1]
+    n_chunks = -(-K // B)
+    pad = n_chunks * B - K
+
+    def _pad(x, fill, dim=-1):
+        if not pad:
+            return x
+        shape = list(x.shape)
+        shape[dim] = pad
+        return torch.cat([x, x.new_full(shape, fill)], dim=dim)
+
+    reduce = rsu_reduce_grid if idx.dim() == 2 else rsu_reduce
+    if pad:
+        keys = torch.cat([keys, keys[..., :1, :].expand(keys.shape[:-2] + (pad, 2))], dim=-2)
+    idx, valid, ok = _pad(idx, 0), _pad(valid, False), _pad(ok, False)
+    # the kernel's weights and ids chunk-major, each chunk contiguous
+    w_c, rid_c = (_pad(x, fill).unflatten(-1, (n_chunks, B)).movedim(-2, 0).contiguous()
+                  for x, fill in ((w, 0.0), (rid, 0)))
+    if slot is not None:
+        slot = _pad(slot, 2 * ring.shape[idx.dim() - 1])
+    partials = None
+    for c in range(n_chunks):
+        cs = slice(c * B, (c + 1) * B)
+        vb = train(idx[..., cs], valid[..., cs], keys[..., cs, :]).to(cd)
+        partials, _ = reduce(vb, w_c[c], rid_c[c], n_rsu, carry=partials, out_dtype=cd)
+        sketches, sketch_age = _report(sketches, sketch_age, vb, ok[..., cs], idx[..., cs],
+                                       sign, sketch_dim, n)
+        if slot is not None:
+            # straggler rows park in the ring (padding slots drop)
+            ring = _scatter_rows(ring, slot[..., cs], vb)
+    return partials, sketches, sketch_age, ring
 
 
 def _report(sketches, sketch_age, vecs, ok, idx, sign, sketch_dim, n):
     """Deadline rule: the survivors' sketches land on their rows, their age
-    resets to 0; the other rows drop."""
+    resets to 0; the other rows drop.  With G lanes every argument has a
+    leading lane axis (``sign`` ``(G, 1, P)``)."""
     sks = apply_sketch(vecs, sign, sketch_dim)
     scatter = torch.where(ok, idx, n)
     return (_scatter_rows(sketches, scatter, sks),

@@ -31,7 +31,9 @@ def normalized_weights(mask_selected: torch.Tensor, n_samples: torch.Tensor) -> 
 
 def rsu_normalized_weights(mask_selected, n_samples, rid, live, n_rsu: int, *,
                            mass_norm: bool = True):
-    """Two-tier FedAvg weights -> ``(w (K,), mass (R,), total ())``.
+    """Two-tier FedAvg weights -> ``(w (K,), mass (R,), total ())``; with
+    G lanes, ``(G, K)`` masks, counts and ids and a ``(G, R)`` live mask
+    give ``(w (G, K), mass (G, R), total (G,))``.
 
     The unnormalized weights are ``normalized_weights``' expression; the
     normalizer is the sum of LIVE RSU masses, so a dark RSU's partial
@@ -42,8 +44,8 @@ def rsu_normalized_weights(mask_selected, n_samples, rid, live, n_rsu: int, *,
     """
     w = mask_selected.to(torch.float32) * n_samples.to(torch.float32)
     mass = rsu_sample_mass(w, rid, n_rsu)
-    total = torch.where(live, mass, 0.0).sum() if mass_norm else w.sum()
-    return w / torch.clamp_min(total, 1e-9), mass, total
+    total = (torch.where(live, mass, 0.0) if mass_norm else w).sum(dim=-1, keepdim=True)
+    return w / torch.clamp_min(total, 1e-9), mass, total[..., 0]
 
 
 def apply_delta_flat(params_vec: torch.Tensor, delta_vec: torch.Tensor) -> torch.Tensor:

@@ -72,6 +72,20 @@
 // carry in fp32 and rounded again (partials + part_c, two roundings); with
 // an fp32 out the first rounding is exact and the carry add rounds once, as
 // before.  A bf16 store rounds to nearest even (__float2bfloat16_rn).
+//
+// B5g (rsu_reduce_launch with lanes > 1): G lanes of the batched grid
+// round's chunk walk in one launch, the reference kernel under the engine's
+// vmap.  The lane is the grid's third dimension (blockIdx.z, up to 65,535
+// lanes): a block offsets the rows, weights, ids, carry, partials and
+// masses by its lane (64-bit offsets: (G, K, P) rows, (G, K) weights and
+// ids, (G, R, P) carry and out, (G, R) mass) and runs the column code above
+// on its lane alone, so every lane is bitwise B5 on that lane, carry in
+// place included.  B5 is the same launch at one lane.  Every partial is
+// carry + sum, so every carry row is read and written, touched by the
+// chunk or not: a row no id names still changes where the chunk holds a
+// non-finite value (0 * inf) or the carry a -0.0.  At the streamed grid's
+// chunk (G = 8, K = 4, R = 10, P = 159,010, with the carry) that is 122 MB
+// over 2,488 blocks; the rows its ids touch need 61 MB or less.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -224,6 +238,14 @@ rsu_reduce_kernel(const E* __restrict__ updates, const float* __restrict__ weigh
   constexpr int SLOT = THREADS * COLS;  // elements of one row's slot (the block's columns)
   extern __shared__ __align__(16) unsigned char smem[];
   const int t = threadIdx.x;
+  // this block's lane (0 for B5): its rows, weights, ids, carry, out and mass
+  const long long lane = blockIdx.z;
+  updates += lane * k_rows * p_cols;
+  weights += lane * k_rows;
+  rid += lane * k_rows;
+  if (carry != nullptr) carry += lane * n_rsu * p_cols;
+  out += lane * n_rsu * p_cols;
+  mass += lane * n_rsu;
   // this thread's pieces: element (q * THREADS + t) * VEC of every slot
   E* ring = reinterpret_cast<E*>(smem) + t * VEC;                    // [STAGES * SLAB] slots
   O* csm = reinterpret_cast<O*>(smem + STAGES * SLAB * SLOT * sizeof(E)) + t * VEC;  // [RB]
@@ -360,26 +382,30 @@ static int launch_types(int vec, int group, dim3 blocks, cudaStream_t st, const 
   return (int)cudaErrorInvalidValue;
 }
 
-// Launch on `stream`.  `row_bytes` is the update rows' element size and
-// `out_bytes` that of carry and out (4: fp32, 2: bf16; bf16 out only from
-// bf16 rows, the one pairing the round makes).  `carry` may be
-// null (the sum alone) or equal to `out` (in place).  `vec` (1, 2 or 4)
-// must divide p_cols and every (R, P) / (K, P) pointer must be aligned to
-// vec elements of its own type; 1 <= n_rsu <= 32 * 65535 (the grid's
-// y-extent; the wrapper checks both).  Allocates nothing; returns
-// cudaGetLastError() (0 = success).
+// Launch `lanes` lanes on `stream`: B5 is one lane, B5g (the batched grid
+// round's chunk) 1 to 65,535.  `updates` is (lanes, k_rows, p_cols),
+// `weights` and `rid` (lanes, k_rows), `carry` and `out` (lanes, n_rsu,
+// p_cols), `mass` (lanes, n_rsu), each lane-major and contiguous.
+// `row_bytes` is the update rows' element size and `out_bytes` that of carry
+// and out (4: fp32, 2: bf16; bf16 out only from bf16 rows, the one pairing
+// the round makes).  `carry` may be null (the sum alone) or equal to `out`
+// (in place).  `vec` (1, 2 or 4) must divide p_cols and every (R, P) /
+// (K, P) pointer must be aligned to vec elements of its own type;
+// 1 <= n_rsu <= 32 * 65535 (the grid's y-extent; the wrapper checks both).
+// Allocates nothing; returns cudaGetLastError() (0 = success).
 extern "C" int rsu_reduce_launch(const void* updates, int row_bytes, const float* weights,
-                                 const int* rid, int k_rows, int n_rsu, long long p_cols,
-                                 int vec, const void* carry, void* out, int out_bytes,
-                                 float* mass, void* stream) {
+                                 const int* rid, int lanes, int k_rows, int n_rsu,
+                                 long long p_cols, int vec, const void* carry, void* out,
+                                 int out_bytes, float* mass, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (n_rsu < 1 || k_rows < 0 || p_cols < 0) return (int)cudaErrorInvalidValue;
+  if (n_rsu < 1 || k_rows < 0 || p_cols < 0 || lanes < 1 || lanes > (int)MAX_GROUPS)
+    return (int)cudaErrorInvalidValue;
   const unsigned groups = (unsigned)((n_rsu + RSU_GROUP - 1) / RSU_GROUP);
   if (groups > MAX_GROUPS) return (int)cudaErrorInvalidValue;
   const int group = n_rsu < RSU_GROUP ? n_rsu : RSU_GROUP;
   long long blocks_ll = (p_cols + THREADS * COLS - 1) / (THREADS * COLS);
   if (blocks_ll < 1) blocks_ll = 1;  // the last block of each group still writes the mass
-  const dim3 blocks((unsigned)blocks_ll, groups);
+  const dim3 blocks((unsigned)blocks_ll, groups, (unsigned)lanes);
 #define RSU_TYPES(E, O)                                                                    \
   launch_types<E, O>(vec, group, blocks, st, updates, weights, rid, k_rows, n_rsu, p_cols, \
                      carry, out, mass)
@@ -389,3 +415,4 @@ extern "C" int rsu_reduce_launch(const void* updates, int row_bytes, const float
 #undef RSU_TYPES
   return (int)cudaErrorInvalidValue;
 }
+

@@ -57,7 +57,9 @@
 // memory, the same predict_attach and finish, so a lane is bitwise B1 on
 // that lane.  Up to ONE_BLOCK_MAX clients a lane; no counters, no grid
 // barrier, no state between calls.  The scenario operand is (G, row_bytes):
-// the S_COUNT float32 scalars, the R live flags, padding to 4 bytes.
+// the S_COUNT float32 scalars, the R live flags, padding to 4 bytes.  With
+// a rid_out pointer each client's attachment id lands beside its latency
+// (the two-tier lanes' realized pass), as B1's does.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -262,13 +264,13 @@ extern "C" __global__ void __launch_bounds__(ONE_BLOCK_MAX) rttg_latency_kernel(
 }
 
 // scenario: (G, row_bytes) lane rows; t: (G,); pos / speed / accel / forced
-// / lat / conn: (G, n), lane-major.
+// / lat / conn / rid_out: (G, n), lane-major.
 extern "C" __global__ void __launch_bounds__(ONE_BLOCK_MAX) rttg_latency_grid_kernel(
     const uint8_t* __restrict__ scenario, int row_bytes, int n_rsu, const float* __restrict__ t,
     const float* __restrict__ model_bytes, const float* __restrict__ pos,
     const float* __restrict__ speed, const float* __restrict__ accel,
     const uint8_t* __restrict__ forced, int n, int n_steps, float dt, float horizon_s,
-    float* __restrict__ lat, uint8_t* __restrict__ conn) {
+    float* __restrict__ lat, uint8_t* __restrict__ conn, int* __restrict__ rid_out) {
   __shared__ float s[S_COUNT];
   extern __shared__ int s_dyn[];
   int* hist = s_dyn;                                            // (R,) counts
@@ -296,7 +298,7 @@ extern "C" __global__ void __launch_bounds__(ONE_BLOCK_MAX) rttg_latency_grid_ke
   if (tid < n) {
     const float t_now = t[g];
     const float t_eff = n_steps > 0 ? t_now + horizon_s : t_now;
-    finish(s, a, (float)hist[a.rid], t_eff, *model_bytes, i, forced, lat, conn, nullptr);
+    finish(s, a, (float)hist[a.rid], t_eff, *model_bytes, i, forced, lat, conn, rid_out);
   }
 }
 
@@ -371,12 +373,13 @@ extern "C" int rttg_latency_launch(
 // B1g: one launch on `stream` of `lanes` blocks, one a lane, for lanes of
 // n <= ONE_BLOCK_MAX clients.  scenario is (lanes, row_bytes) with row_bytes
 // a multiple of 4 holding S_COUNT floats and n_rsu flags; t is (lanes,) on
-// the device.  Allocates nothing; returns the launch's CUDA error code.
+// the device; rid_out (lanes, n) int32 may be null (no ids).  Allocates
+// nothing; returns the launch's CUDA error code.
 extern "C" int rttg_latency_grid_launch(
     const uint8_t* scenario, int row_bytes, int n_rsu, int lanes, const float* t,
     const float* model_bytes, const float* pos, const float* speed, const float* accel,
     const uint8_t* forced, int n, int n_steps, float dt, float horizon_s, float* lat,
-    uint8_t* conn, void* stream) {
+    uint8_t* conn, int* rid_out, void* stream) {
   if (lanes < 1 || n < 1 || n > ONE_BLOCK_MAX || row_bytes % 4 != 0 ||
       row_bytes < S_COUNT * (int)sizeof(float) + n_rsu || (long long)lanes * n > 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
@@ -387,6 +390,6 @@ extern "C" int rttg_latency_grid_launch(
   const int threads = (n + 31) / 32 * 32;
   rttg_latency_grid_kernel<<<lanes, threads, smem, static_cast<cudaStream_t>(stream)>>>(
       scenario, row_bytes, n_rsu, t, model_bytes, pos, speed, accel, forced, n, n_steps, dt,
-      horizon_s, lat, conn);
+      horizon_s, lat, conn, rid_out);
   return (int)cudaGetLastError();
 }

@@ -14,8 +14,9 @@ connection-rate Bernoulli mask comes in as ``forced``.
 ``rttg_latency_grid`` is the batched grid round's form (B1g, the reference
 kernel under the engine's ``vmap``): G lanes of up to ``GRID_MAX_N``
 clients, each with its own scenario, kinematics, time and forced mask, in
-one launch (one block a lane, bitwise ``rttg_latency`` on each lane); its
-plain version is ``rttg_latency_grid_plain``.
+one launch (one block a lane, bitwise ``rttg_latency`` on each lane, the
+RSU ids too when asked for); its plain version is
+``rttg_latency_grid_plain``.
 """
 from __future__ import annotations
 
@@ -198,15 +199,18 @@ def rttg_latency(pos, speed, accel, t, model_bytes, forced, cfg, *, predict: boo
                               predict, want_rid)
 
 
-def rttg_latency_grid_plain(pos, speed, accel, t, model_bytes, forced, cfg, predict):
+def rttg_latency_grid_plain(pos, speed, accel, t, model_bytes, forced, cfg, predict,
+                            want_rid=False):
     """``(G, N)`` kinematics, ``(G,)`` times and a ``scenarios.lane_view``
-    scenario -> (latency (G, N) f32, connected (G, N) bool): the plain
-    version's composition over the lane axis."""
+    scenario -> (latency (G, N) f32, connected (G, N) bool[, rid (G, N)
+    int32]): the plain version's composition over the lane axis."""
     t = torch.as_tensor(t, dtype=torch.float32, device=pos.device)[:, None]
-    return rttg_latency_plain(pos, speed, accel, t, model_bytes, forced, cfg, predict)
+    return rttg_latency_plain(pos, speed, accel, t, model_bytes, forced, cfg, predict,
+                              want_rid)
 
 
-def _rttg_latency_grid_cuda(pos, speed, accel, t, model_bytes, forced, cfg, predict):
+def _rttg_latency_grid_cuda(pos, speed, accel, t, model_bytes, forced, cfg, predict,
+                            want_rid):
     from repro_torch.kernels.build import check, library
 
     global grid_launches
@@ -238,20 +242,25 @@ def _rttg_latency_grid_cuda(pos, speed, accel, t, model_bytes, forced, cfg, pred
     horizon_s = float(cfg.predict_horizon_s) if predict else 0.0
     lat = torch.empty((G, n), dtype=torch.float32, device=device)
     conn = torch.empty((G, n), dtype=torch.bool, device=device)
+    rid = torch.empty((G, n), dtype=torch.int32, device=device) if want_rid else None
     status = library().rttg_latency_grid_launch(
         operand.data_ptr(), operand.shape[1], n_rsu, G, t.data_ptr(), model_bytes.data_ptr(),
         pos.data_ptr(), speed.data_ptr(), accel.data_ptr(),
         None if forced is None else forced.data_ptr(), n, n_steps, float(cfg.sim_dt_s),
-        horizon_s, lat.data_ptr(), conn.data_ptr(),
+        horizon_s, lat.data_ptr(), conn.data_ptr(), None if rid is None else rid.data_ptr(),
         torch.cuda.current_stream(device).cuda_stream,
     )
     check(status, "rttg_latency_grid")
     grid_launches += 1
+    if want_rid:
+        return lat, conn, rid
     return lat, conn
 
 
-def rttg_latency_grid(pos, speed, accel, t, model_bytes, forced, cfg, *, predict: bool):
-    """G lanes' geometry chains -> (latency (G, N) f32, connected (G, N) bool).
+def rttg_latency_grid(pos, speed, accel, t, model_bytes, forced, cfg, *, predict: bool,
+                      want_rid: bool = False):
+    """G lanes' geometry chains -> (latency (G, N) f32, connected (G, N)
+    bool[, rid (G, N) int32]).
 
     ``pos`` / ``speed`` / ``accel`` / ``forced`` are ``(G, N)``, ``t`` a
     ``(G,)`` tensor, ``cfg`` a ``scenarios.lane_view`` stack.  CUDA tensors
@@ -259,7 +268,9 @@ def rttg_latency_grid(pos, speed, accel, t, model_bytes, forced, cfg, *, predict
     ``rttg_latency_grid_plain``.
     """
     if pos.is_cuda:
-        return _rttg_latency_grid_cuda(pos, speed, accel, t, model_bytes, forced, cfg, predict)
+        return _rttg_latency_grid_cuda(pos, speed, accel, t, model_bytes, forced, cfg, predict,
+                                       want_rid)
     if pos.device.type != "cpu":
         raise ValueError(f"rttg_latency_grid: unsupported device {pos.device}")
-    return rttg_latency_grid_plain(pos, speed, accel, t, model_bytes, forced, cfg, predict)
+    return rttg_latency_grid_plain(pos, speed, accel, t, model_bytes, forced, cfg, predict,
+                                   want_rid)

@@ -10,9 +10,9 @@ switch picks each lane's mask on the device).  Tolerance as in
 ``tests/test_torch_engine.py``: integers equal, floats within rtol 2e-4,
 atol 1e-5, NaN where the reference has NaN.
 
-Which path an engine takes: flat engines up to 1,024 clients the batched
-round, whatever their registry; two-tier lanes and larger fleets the lane
-loop; decided once, in ``__init__``, with no argument of its own.
+Which path an engine takes: engines up to 1,024 clients the batched round,
+flat or two-tier, whatever their registry; larger fleets the lane loop;
+decided once, in ``__init__``, with no argument of its own.
 """
 import dataclasses
 import inspect
@@ -27,6 +27,7 @@ from repro.config import ModelConfig as JModelConfig
 from repro.fl.engine import ExperimentEngine as JEngine
 from repro_torch.config import FLConfig, ModelConfig
 from repro_torch.fl import ExperimentEngine, engine, rounds
+from repro_torch.fl.aggregators import AGGREGATOR_ORDER
 from test_torch_bridge import _one_thread  # noqa: F401
 from test_torch_engine import FL, MLP, N, assert_lane_matches
 
@@ -103,8 +104,9 @@ def _engine(**fl_kw):
     (dict(aggregators=("fedbuff",)), True),
     (dict(aggregators=("fedavg", "fedadam")), True),
     (dict(aggregators=("fedadam",)), True),
-    (dict(hierarchical=True), False),
-    (dict(hierarchical=True, client_block=4), False),
+    (dict(hierarchical=True), True),
+    (dict(hierarchical=True, client_block=4), True),
+    (dict(hierarchical=True, client_block=4, num_clients=1025), False),
     (dict(num_clients=1025), False),
 ])
 def test_the_engine_picks_its_path_once_from_registry_lane_and_size(kw, batched):
@@ -125,11 +127,16 @@ def test_no_argument_chooses_the_path():
 
 def test_the_batched_round_refuses_lanes_it_does_not_serve():
     fl = FLConfig(**FL)
-    for bad in (dataclasses.replace(fl, hierarchical=True),
-                dataclasses.replace(fl, num_clients=1025)):
+    for bad in (dataclasses.replace(fl, num_clients=1025),
+                dataclasses.replace(fl, hierarchical=True, client_block=4, num_clients=1025)):
         with pytest.raises(ValueError, match="batched grid round"):
             rounds.make_grid_round_step(None, bad, N, 1.0, [], STRATEGIES)
+    with pytest.raises(ValueError, match="client_block"):  # streaming needs two tiers
+        rounds.make_grid_round_step(None, dataclasses.replace(fl, client_block=4), N, 1.0, [],
+                                    STRATEGIES)
     assert rounds.grid_round_fits(fl, ("fedavg",))
     assert rounds.grid_round_fits(fl, ("fedavg", "fedbuff"))
-    assert not rounds.grid_round_fits(dataclasses.replace(fl, hierarchical=True), ("fedavg",))
+    assert rounds.grid_round_fits(dataclasses.replace(fl, hierarchical=True), ("fedavg",))
+    assert rounds.grid_round_fits(dataclasses.replace(fl, hierarchical=True, client_block=4),
+                                  AGGREGATOR_ORDER)
     assert not rounds.grid_round_fits(dataclasses.replace(fl, num_clients=1025), ("fedbuff",))

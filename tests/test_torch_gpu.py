@@ -1516,3 +1516,175 @@ def test_batched_grid_under_every_rule_on_the_card_matches_its_lane_loop(dev, ag
             torch.testing.assert_close(a, b, rtol=2e-4, atol=1e-5, equal_nan=True, msg=f)
     if fedbuff:
         assert int(batched.n_buffered.sum()) > 0
+
+
+def _rsu_grid_operands(G, K, P, R, rows, out, offset, dev, seed):
+    """B5g's operands: (G, K, P) rows in ``rows`` starting ``offset``
+    elements into their storage, (G, K) weights, (G, K) int32 ids with some
+    outside [0, R) and padding slots (weight 0, id 0), a (G, R, P) carry in
+    ``out``."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    u = 1e-3 * torch.randn((G, K, P), generator=g, device=dev)
+    u = torch.empty((G * K * P + offset,), dtype=rows, device=dev)[offset:].view(G, K, P).copy_(u)
+    w = torch.rand((G, K), generator=g, device=dev)
+    rid = torch.randint(0, R, (G, K), generator=g, device=dev).to(torch.int32)
+    flat = rid.view(-1)
+    flat[1::5], flat[3::7] = -1, R + 3
+    w[:, K - 1:], rid[:, K - 1:] = 0.0, 0  # the round's padding slot
+    carry = (1e-3 * torch.randn((G, R, P), generator=g, device=dev)).to(out)
+    return u, w, rid, carry
+
+
+@pytest.mark.parametrize("carry", [False, True])
+@pytest.mark.parametrize("rows,out", [(torch.float32, torch.float32),
+                                      (torch.bfloat16, torch.float32),
+                                      (torch.bfloat16, torch.bfloat16)])
+@pytest.mark.parametrize("G,K,P,R,offset", [(12, 3, 159_010, 10, 0), (8, 4, 159_010, 10, 0),
+                                            (5, 4, 2049, 40, 0), (3, 5, 159_011, 10, 0),
+                                            (4, 4, 4096, 10, 2), (6, 2, 159_010, 33, 1),
+                                            (1, 1, 1, 1, 0)])
+def test_rsu_reduce_grid_kernel_is_the_one_lane_kernel_lane_by_lane(dev, G, K, P, R, offset,
+                                                                    rows, out, carry):
+    """B5g: one launch for G lanes, each lane bit for bit B5 on that lane
+    (the carry updated in place in both); against its plain version within
+    rtol 1e-5 (one bf16 ulp for bf16 partials) and 1e-6 of sum_k |m_kr u_k|;
+    a second launch bit for bit the first."""
+    u, w, rid, c = _rsu_grid_operands(G, K, P, R, rows, out, offset, dev, G * 7 + K + P + R)
+    before, one_before = rsu_mod.grid_launches, rsu_mod.launches
+    got, mass = rsu_mod.rsu_reduce_grid(u, w, rid, R, carry=c.clone() if carry else None,
+                                        out_dtype=out)
+    assert rsu_mod.grid_launches == before + 1 and rsu_mod.launches == one_before
+    assert got.shape == (G, R, P) and got.dtype == out and mass.shape == (G, R)
+    for g in range(G):
+        one, one_mass = rsu_mod.rsu_reduce(u[g], w[g], rid[g], R,
+                                           carry=c[g].clone() if carry else None, out_dtype=out)
+        assert torch.equal(got[g], one) and torch.equal(mass[g], one_mass), g
+    ref, ref_mass = rsu_mod.rsu_reduce_grid_plain(u, w, rid, R, c.clone() if carry else None,
+                                                  out)
+    scale = float(rsu_mod.rsu_reduce_grid_plain(u.float().abs(), w, rid, R)[0].max())
+    rtol = BF16_ULP if out == torch.bfloat16 else 1e-5
+    torch.testing.assert_close(got.float(), ref.float(), rtol=rtol, atol=1e-6 * scale)
+    torch.testing.assert_close(mass, ref_mass, rtol=1e-6, atol=0.0)
+    again, _ = rsu_mod.rsu_reduce_grid(u, w, rid, R, carry=c.clone() if carry else None,
+                                       out_dtype=out)
+    assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize("rows,out", [(torch.float32, torch.float32),
+                                      (torch.bfloat16, torch.bfloat16)])
+@pytest.mark.parametrize("R", [10, 40])
+def test_rsu_reduce_grid_chunk_walk_is_each_lanes_b5_walk(dev, R, rows, out):
+    """Eight lanes' walk of 10 slots in chunks of 4 (the streamed grid's
+    K = 10, the last chunk padded by 2): the first chunk without a carry,
+    the rest in place, every lane bit for bit its one-lane B5 walk."""
+    G, K, B, P = 8, 12, 4, 159_010
+    u, w, rid, _ = _rsu_grid_operands(G, K, P, R, rows, out, 0, dev, R)
+    w[:, 10:], rid[:, 10:] = 0.0, 0
+    carry = None
+    for c in range(0, K, B):
+        carry, _ = rsu_mod.rsu_reduce_grid(u[:, c:c + B].contiguous(),
+                                           w[:, c:c + B].contiguous(),
+                                           rid[:, c:c + B].contiguous(), R, carry=carry,
+                                           out_dtype=out)
+    for g in range(G):
+        one = None
+        for c in range(0, K, B):
+            one, _ = rsu_mod.rsu_reduce(u[g, c:c + B], w[g, c:c + B], rid[g, c:c + B], R,
+                                        carry=one, out_dtype=out)
+        assert torch.equal(carry[g], one), g
+
+
+def test_rsu_reduce_grid_wrapper_refuses_what_the_kernel_does_not_take(dev):
+    u, w, rid, c = _rsu_grid_operands(2, 3, 8, 4, torch.float32, torch.float32, 0, dev, 1)
+    with pytest.raises(ValueError):  # strided rows
+        rsu_mod.rsu_reduce_grid(u.transpose(0, 1).contiguous().transpose(0, 1), w, rid, 4)
+    with pytest.raises(ValueError):  # fp16 rows
+        rsu_mod.rsu_reduce_grid(u.half(), w, rid, 4)
+    with pytest.raises(ValueError):  # bf16 partials from fp32 rows
+        rsu_mod.rsu_reduce_grid(u, w, rid, 4, out_dtype=torch.bfloat16)
+    with pytest.raises(ValueError):  # int64 ids
+        rsu_mod.rsu_reduce_grid(u, w, rid.long(), 4)
+    with pytest.raises(ValueError):  # strided ids
+        rsu_mod.rsu_reduce_grid(u, w, rid.t().contiguous().t(), 4)
+    with pytest.raises(ValueError):  # weights on the host
+        rsu_mod.rsu_reduce_grid(u, w.cpu(), rid, 4)
+    with pytest.raises(ValueError):  # a carry of another lane count
+        rsu_mod.rsu_reduce_grid(u, w, rid, 4, carry=c[:1].clone())
+    with pytest.raises(ValueError):  # one lane's rows: B5's form
+        rsu_mod.rsu_reduce_grid(u[0], w[0], rid[0], 4)
+    big = torch.zeros((rsu_mod.MAX_LANES + 1, 1, 1), device=dev)
+    with pytest.raises(ValueError):  # past the grid's third dimension
+        rsu_mod.rsu_reduce_grid(big, big[:, :, 0], big[:, :, 0].to(torch.int32), 1)
+
+
+@pytest.mark.parametrize("scenarios,n", [(CATALOG * 3, 20), (CATALOG, 100),
+                                         (("rsu_outage", "ring"), 1024)])
+@pytest.mark.parametrize("predict", [True, False])
+def test_rttg_latency_grid_kernel_ids_are_the_one_lane_kernels(dev, scenarios, n, predict):
+    """B1g's RSU ids (the two-tier lanes' realized pass): each lane's ids,
+    latency and connectivity bit for bit B1's with ids on that lane; the ids
+    equal the plain version's exactly; asking for them changes nothing else."""
+    scns, view, pos, speed, accel, t, forced = _grid_lanes(scenarios, n, 0.7, dev)
+    before = rttg_mod.grid_launches
+    lat, conn, rid = rttg_mod.rttg_latency_grid(pos, speed, accel, t, 636_040.0, forced, view,
+                                                predict=predict, want_rid=True)
+    assert rttg_mod.grid_launches == before + 1 and rid.dtype == torch.int32
+    for g, scn in enumerate(scns):
+        one = rttg_mod.rttg_latency(pos[g], speed[g], accel[g], t[g], 636_040.0, forced[g], scn,
+                                    predict=predict, want_rid=True)
+        assert all(torch.equal(a[g], b) for a, b in zip((lat, conn, rid), one)), g
+    ref = rttg_mod.rttg_latency_grid_plain(pos, speed, accel, t, 636_040.0, forced, view,
+                                           predict, want_rid=True)
+    assert torch.equal(rid, ref[2]) and torch.equal(conn, ref[1])
+    without = rttg_mod.rttg_latency_grid(pos, speed, accel, t, 636_040.0, forced, view,
+                                         predict=predict)
+    assert torch.equal(lat, without[0]) and torch.equal(conn, without[1])
+
+
+@pytest.mark.parametrize("name,fl_kw,aggregators,rounds", [
+    ("probe", dict(samples_per_client=32, batch_size=16, num_clusters=4, client_block=3),
+     ("fedavg", "fedavgm", "fedadam", "fedyogi", "stale", "fedbuff"), 1),
+    ("streamed", dict(samples_per_client=64, batch_size=32, num_clusters=3, client_block=2,
+                      select_fraction=0.25, connection_rate=0.7), ("fedavg", "fedbuff"), 3),
+    ("unstreamed", dict(samples_per_client=64, batch_size=32, num_clusters=3,
+                        connection_rate=0.7), ("fedavg",), 3),
+])
+def test_batched_two_tier_grid_on_the_card_matches_its_lane_loop(dev, name, fl_kw, aggregators,
+                                                                 rounds):
+    """Two-tier grids (N=20; contextual x the registry x rush_hour /
+    rsu_outage, no warm-up) through the batched round, with exactly 2 B1g,
+    one B5g a chunk and one server launch a round and no one-lane launch,
+    and through the lane loop, both on the card: integers equal, floats
+    within rtol 2e-4, atol 1e-5, NaN alike.  The probe is
+    engine_throughput.py::smoke's hierarchical grid (K = 2 in one chunk of
+    3); streamed is K = 5 in 3 chunks of 2."""
+    from repro_torch.config import FLConfig
+    from repro_torch.configs import get_config
+    from repro_torch.fl import ExperimentEngine
+
+    fl = FLConfig(num_clients=20, local_epochs=1, hierarchical=True, **fl_kw)
+    eng = ExperimentEngine(get_config("fl-mnist-mlp").replace(d_ff=32), fl, "mnist",
+                           strategies=("contextual",), aggregators=aggregators, warmup=False,
+                           device=dev)
+    assert eng.batched
+    runs = [("contextual", a, 0, sc) for a in aggregators for sc in ("rush_hour", "rsu_outage")]
+    lanes = eng._lanes(runs)
+    counters = lambda: (rttg_mod.launches, rsu_mod.launches, fedavg_mod.launches,  # noqa: E731
+                        su_mod.launches, su_mod.buffered_launches, rttg_mod.grid_launches,
+                        rsu_mod.grid_launches, fedavg_mod.grid_launches, su_mod.grid_launches,
+                        su_mod.buffered_grid_launches)
+    before = counters()
+    batched = eng._sweep(lanes, rounds, rounds)
+    chunks = -(-eng.cohort_size // fl.client_block) if fl.client_block else 0
+    server = {("fedavg",): 7}.get(tuple(aggregators), 9 if "fedbuff" in aggregators else 8)
+    want = [0] * 10
+    want[5], want[6], want[server] = 2 * rounds, chunks * rounds, rounds
+    assert [a - b for a, b in zip(counters(), before)] == want
+    loop = eng._sweep(eng._lane_list(runs), rounds, rounds)
+    for f in batched._fields:
+        a, b = getattr(batched, f).cpu(), getattr(loop, f).cpu()
+        if a.dtype == torch.int32:
+            assert torch.equal(a, b), f
+        else:
+            torch.testing.assert_close(a, b, rtol=2e-4, atol=1e-5, equal_nan=True, msg=f)
