@@ -53,7 +53,12 @@ Phases (any failure raises and exits non-zero):
    and ``server_update_buffered`` for both ``drain`` states (also at the
    async engine grid's K = 2 beside its 8-slot ring), and their two
    bitwise contracts (rule 0 is ``fedavg_reduce`` + the AXPY; no drain is
-   the unbuffered update); ``rsu_reduce`` with and without its carry, on
+   the unbuffered update); ``fedavg_reduce`` and ``fedavg_reduce_grid`` at
+   the CNN datasets' P (fl-cifar10-cnn's 1,070,794 and fl-svhn-cnn's
+   603,034): B2 at K = 10 on fp32 and bf16 rows, B2g at (24, 2) and, on bf16
+   rows, (24, 10), and B2g on a (9, 256, 1,070,794) bf16 grid whose last
+   lane starts past 2^31 elements, every lane bit for bit B2's;
+   ``rsu_reduce`` with and without its carry, on
    random, dyadic and special operands, at R = 10, 33, 40 and 100 (one and
    several 32-RSU groups) and at its launch plan's edges (K off its 4-row
    slab, ragged and odd P, 16- and 8-byte rows, the fleet's padded last
@@ -179,6 +184,20 @@ Phases (any failure raises and exits non-zero):
    ``GRID_TOL`` and two lanes on the CPU's plain path; the streamed grid's
    set-up and rounds timed apart, its batched round profiled beside a
    lane-loop round (batched, loop, batched), and its sync check;
+4i. CNN datasets: ``FLSimulation`` (ring / contextual, ``fl_sim``'s
+   defaults: N=100, K=10, 256 samples, batches of 64, 1 local epoch) at
+   fl-cifar10-cnn for 5 rounds and fl-svhn-cnn for 3, full width, exactly 2
+   ``rttg_latency`` and 1 ``fedavg_reduce`` launches a round, each first
+   round replayed (bitwise on the card, within ``CNN_REPLAY`` on the CPU)
+   and a round profiled; at CIFAR's width the full registry at index 0 is
+   the ``("fedavg",)`` round and the hierarchical round the flat one, bit
+   for bit; the three datasets' final accuracy side by side; the bench's
+   24-lane grid (N=20, 5 rounds, eval every 5) at fl-cifar10-cnn through the
+   batched round, cold and warm (exactly 10 B1g and 5 B2g a sweep) against
+   its lane loop within ``GRID_TOL`` and one lane on the CPU, set-up and
+   round loop timed apart, a grid round profiled with and without the eval,
+   the sweeps' peak memory; the bf16 lane at CIFAR-10 for 3 rounds beside
+   fp32's accuracy; ``fl_sim --dataset cifar10 --rounds 2`` (4 B1, 2 B2);
 5. times: each kernel (CUDA events, after warm-up) beside its bound, its
    plain version and a one-call PyTorch yardstick (``pairwise_cosine`` at
    (100, 1024), (256, 4096) and (20,000, 1,024)), and for every kernel and
@@ -205,6 +224,9 @@ Phases (any failure raises and exits non-zero):
    chunk) and on bf16 rows and partials, beside its bound, its plain
    version, the lane loop's 8 B5 launches and ``torch.baddbmm`` /
    ``torch.bmm``, by CUDA graph replay;
+   B2 at the CNN main paths' (10, P) on fp32 and bf16 rows and B2g at the
+   CIFAR-10 and SVHN grids' (24, 2, P), beside ``torch.mv`` / ``torch.bmm``
+   and their bounds (``cnn_shapes`` of their rows in the kernels line);
    ``rttg_latency`` and ``fedavg_reduce`` through their
    wrappers as the round calls them: device ops and device time per call; B2-B5 on the
    bf16 lane's rows beside their fp32 rows (the ``bf16_rows`` JSON line),
@@ -225,7 +247,8 @@ Phases (any failure raises and exits non-zero):
 The last three lines are the kernels' JSON record (their fp32 rows;
 ``swa_decode``'s launches summed over every serving run; ``rttg_latency``'s,
 ``fedavg_reduce``'s and ``server_update_buffered``'s with one sweep of each
-engine grid of phase 4h, the parts named in their ``launches_by_path``;
+engine grid of phases 4h and 4i and the CNN paths of phase 4i, the parts
+named in their ``launches_by_path``;
 ``rttg_latency_grid``'s, ``fedavg_reduce_grid``'s, ``server_update_grid``'s,
 ``server_update_buffered_grid``'s and ``rsu_reduce_grid``'s from one sweep
 of each engine grid, the two-tier ones included),
@@ -257,6 +280,8 @@ ROUNDS = 5
 # (vehicles, rounds) of the fleet phase: BENCH_engine.json's fleet runs
 FLEET = ((20_000, 1), (100_000, 2))
 LANES = ("fedavgm", "fedadam", "fedyogi", "stale", "fedbuff")
+# the CNN datasets' models (phase 4i): P of fl-cifar10-cnn and fl-svhn-cnn
+CNN_P = {"cifar10": 1_070_794, "svhn": 603_034}
 
 
 def smi() -> str:
@@ -503,6 +528,39 @@ def check_fedavg_grid(G, K, P, device, rows=torch.float32, offset=0) -> float:
     print(f"fedavg_reduce_grid {what}: every lane bitwise fedavg_reduce's, max_abs_err="
           f"{err:.3e} vs plain (scale {scale:.3e}), repeat bitwise")
     return err
+
+
+def check_fedavg_grid_past_int32(device, G=9, K=256, P=CNN_P["cifar10"]) -> None:
+    """B2g on bf16 rows whose element offsets pass 2^31: lane 8's rows start
+    at 8 * 256 * 1,070,794 = 2.19e9 (4.9 GB of rows; a greedy grid of K = N
+    = 100 at G = 24 passes 2^31 as well).  Every lane bit for bit a B2 call,
+    the last lane within ``check_fedavg``'s tolerance of its plain version,
+    a second launch bit for bit the first."""
+    from repro_torch.kernels.fedavg_reduce import (fedavg_reduce, fedavg_reduce_grid,
+                                                   fedavg_reduce_plain)
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(29)
+    u = torch.randn((G, K, P), generator=gen, device=device, dtype=torch.bfloat16) * 1e-3
+    w = torch.rand((G, K), generator=gen, device=device)
+    w = w / w.sum(dim=-1, keepdim=True)
+    if (G - 1) * K * P < 2 ** 31:
+        raise AssertionError("the last lane's rows do not start past 2^31 elements")
+    got, again = fedavg_reduce_grid(u, w), fedavg_reduce_grid(u, w)
+    for g in range(G):
+        if not torch.equal(got[g], fedavg_reduce(u[g], w[g])):
+            raise AssertionError(f"fedavg_reduce_grid past 2^31: lane {g} is not fedavg_reduce's")
+    if not torch.equal(got, again):
+        raise AssertionError("fedavg_reduce_grid past 2^31 does not repeat bitwise")
+    ref = fedavg_reduce_plain(u[-1], w[-1])
+    scale = float((w[-1].abs() @ u[-1].float().abs()).max())
+    torch.testing.assert_close(got[-1], ref, rtol=1e-5, atol=1e-6 * scale)
+    print(f"fedavg_reduce_grid G={G}, K={K}, P={P}, bf16 rows ({G * K * P:,} elements, lane "
+          f"{G - 1} from element {(G - 1) * K * P:,}): every lane bitwise fedavg_reduce's, the "
+          f"last within tolerance of plain (max_abs_err {float((got[-1] - ref).abs().max()):.3e}),"
+          " repeat bitwise")
+    del u, got, again, ref
+    torch.cuda.empty_cache()
 
 
 def server_operands(K, P, seed, device, exact=False):
@@ -1986,6 +2044,80 @@ def time_grid_kernels(kernels, lib, grid_launches, main_err, bf16_times, device,
           f"{b16_bound[0] * 1e3:.2f} us ({b16_bound[1]}, {b16_bytes / 1e6:.1f} MB) [{card}]")
 
 
+def time_cnn_reduces(kernels, lib, main_err, device, card) -> None:
+    """B2 and B2g at the CNN datasets' P (phase 4i), added to their rows of
+    ``kernels`` under ``cnn_shapes``: B2 at the main path's K = 10 on fp32
+    and bf16 rows, B2g at the bench grid's (24, 2), at fl-cifar10-cnn's P =
+    1,070,794 and fl-svhn-cnn's 603,034.  CUDA events over back-to-back
+    launches of the C entry point cycling copies that together exceed the
+    50 MB L2, the device time a launch from CUDA graph replays, beside the
+    plain version, ``torch.mv`` / ``torch.bmm`` on fp32 rows and the bound."""
+    from repro_torch.kernels import build as kbuild
+    from repro_torch.kernels.fedavg_reduce import fedavg_reduce_grid_plain, fedavg_reduce_plain
+
+    def stream():  # the current stream at each launch: a graph captures on its own
+        return torch.cuda.current_stream(device).cuda_stream
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(31)
+    rows_by_name = {row["name"]: row for row in kernels}
+    for name in ("fedavg_reduce", "fedavg_reduce_grid"):
+        rows_by_name[name]["cnn_shapes"] = []
+    for dataset, P in CNN_P.items():
+        for name, G, K, rows in (("fedavg_reduce", 0, 10, torch.float32),
+                                 ("fedavg_reduce", 0, 10, torch.bfloat16),
+                                 ("fedavg_reduce_grid", 24, 2, torch.float32)):
+            shape = (G, K, P) if G else (K, P)
+            item = torch.tensor([], dtype=rows).element_size()
+            n_bytes = (G or 1) * (K * P * item + K * 4 + P * 4)
+            us = [(1e-3 * torch.randn(shape, generator=gen, device=device)).to(rows)
+                  for _ in range(max(2, math.ceil(100e6 / n_bytes)))]
+            w = torch.full(shape[:-1], 1.0 / K, dtype=torch.float32, device=device)
+            out = torch.empty(shape[:-2] + (P,), dtype=torch.float32, device=device)
+            vec = 4 if P % 4 == 0 else 2 if P % 2 == 0 else 1
+            it = {"i": 0}
+
+            def nxt(us=us):
+                it["i"] = (it["i"] + 1) % len(us)
+                return us[it["i"]]
+
+            def launch(G=G, K=K, P=P, w=w, out=out, vec=vec, nxt=nxt):
+                u = nxt()
+                if G:
+                    status = lib.fedavg_reduce_grid_launch(u.data_ptr(), u.element_size(),
+                                                           w.data_ptr(), G, K, P, vec,
+                                                           out.data_ptr(), stream())
+                else:
+                    status = lib.fedavg_reduce_launch(u.data_ptr(), u.element_size(),
+                                                      w.data_ptr(), K, P, vec, out.data_ptr(),
+                                                      stream())
+                kbuild.check(status, "fedavg_reduce_grid" if G else "fedavg_reduce")
+
+            plain = fedavg_reduce_grid_plain if G else fedavg_reduce_plain
+            yardstick = None
+            if rows == torch.float32:
+                yardstick = ((lambda: torch.bmm(w[:, None, :], nxt())) if G
+                             else (lambda: torch.mv(nxt().t(), w)))
+            b_ms, b_by = bound(n_bytes, 2 * (G or 1) * K * P)
+            row = {"dataset": dataset, "shape": list(shape), "rows": str(rows)[6:],
+                   "ms": time_ms(launch), "plain_ms": time_ms(lambda: plain(nxt(), w), iters=20,
+                                                               warmup=3),
+                   "device_us": graph_us(launch), "bound_ms": b_ms, "bound_by": b_by,
+                   "library_ms": time_ms(yardstick) if yardstick else None,
+                   "max_abs_err": main_err["cnn"][f"fedavg_reduce_grid P={P}" if G else
+                                                  f"fedavg_reduce {str(rows)[6:]} P={P}"]}
+            rows_by_name[name]["cnn_shapes"].append(row)
+            lib_txt = (f", {'torch.bmm' if G else 'torch.mv'} {row['library_ms'] * 1e3:.2f} us"
+                       if yardstick else "")
+            print(f"{name} {tuple(shape)} {row['rows']} rows ({dataset}): events "
+                  f"{row['ms'] * 1e3:.2f} us, device time {row['device_us']:.2f} us (graph replay, "
+                  f"{n_bytes / (row['device_us'] * 1e3):.0f} GB/s), plain "
+                  f"{row['plain_ms'] * 1e3:.1f} us{lib_txt}, bound {b_ms * 1e3:.2f} us ({b_by}, "
+                  f"{n_bytes / 1e6:.1f} MB) [{card}]")
+            del us, w, out
+    torch.cuda.empty_cache()
+
+
 def time_server_grid(kernels, lib, grid_launches, main_err, device, card):
     """B4g and B3g at the engine grids' shapes, appended to ``kernels``: CUDA
     events over back-to-back launches of the C entry point and the device
@@ -3078,6 +3210,155 @@ def two_tier_grids(model, device, card, summary, launches) -> None:
     summary["streamed_hier"]["sync"] = sync_check(eng_s, STREAMED_HIER, card)
 
 
+# the CNN datasets' main path (phase 4i): launch_fl_sim.run_experiment's
+# defaults for CIFAR-10 and SVHN (N = 100, K = 10, 256 samples, batches of 64,
+# one local epoch, ("fedavg",), CR 1.0, fp32) for this many rounds
+CNN_RUNS = (("cifar10", "fl-cifar10-cnn", 5), ("svhn", "fl-svhn-cnn", 3))
+# card vs CPU after one CNN round: each client's 4 SGD steps sum every conv's
+# and matmul's products in another order on each device (cuDNN vs the CPU's
+# convolutions), ~1e-6 relative a step on updates of ~1e-2
+CNN_REPLAY = dict(params_atol=1e-5, acc_atol=1e-3)  # test accuracy: 2 of the 2,000 images
+CNN_BF16_ROUNDS = 3
+
+
+def cnn_phase(fl, mnist_records, device, card) -> dict:
+    """Phase 4i: the CNN datasets on the card.  ``FLSimulation`` at
+    fl-cifar10-cnn (5 rounds) and fl-svhn-cnn (3 rounds) at full width with
+    ``fl_sim``'s defaults, exactly 2 B1 and 1 B2 a round, each first round
+    replayed (bitwise on the card, within ``CNN_REPLAY`` on the CPU) and a
+    round profiled; the round-level contracts at CIFAR's width; the final
+    accuracy of the three datasets side by side; the bench's 24-lane grid at
+    fl-cifar10-cnn through the batched round (10 B1g and 5 B2g a sweep)
+    against its lane loop and one lane on the CPU, its set-up and round loop
+    timed apart, a grid round profiled with and without the eval, its peak
+    memory; the bf16 lane at CIFAR-10; ``fl_sim --dataset cifar10 --rounds
+    2``.  -> launches by path (the main paths' and one batched sweep's)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.scenarios import scenario_config
+    from repro_torch.fl import ExperimentEngine
+    from repro_torch.fl.aggregators import AGGREGATOR_ORDER
+    from repro_torch.fl.rounds import make_round_step
+    from repro_torch.fl.simulation import FLSimulation
+    from repro_torch.launch import fl_sim
+    from repro_torch.utils import prng
+
+    fl_cnn = dataclasses.replace(fl, local_epochs=1)
+    traffic = scenario_config("ring", num_vehicles=fl.num_clients)
+    launches, final, sims = {}, {"mnist": mnist_records[-1].test_acc}, {}
+    for dataset, arch, n_rounds in CNN_RUNS:
+        phase(f"CNN datasets: FLSimulation ring / contextual / {dataset} ({arch}, full width) "
+              f"on cuda, {n_rounds} rounds")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        sim = FLSimulation(get_config(arch), fl_cnn, traffic, dataset, "contextual",
+                           prng.key(0), device=device)
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        states, recs, launches[f"the {dataset} main path"] = drive(sim, "fedavg_reduce",
+                                                                    rounds=n_rounds)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() - held
+        print(f"{dataset}: P={sim.state.params.numel():,} N={fl_cnn.num_clients} "
+              f"K={fl_cnn.n_select}; set-up {setup_s:.2f} s, warm-up and {n_rounds} rounds "
+              f"{wall:.2f} s, peak memory {peak / 2**30:.2f} GiB above the {held / 2**30:.2f} "
+              f"GiB held [{card}]")
+        replay(sim, states[0], recs[0], traffic, **CNN_REPLAY)
+        profile_round(f"{dataset} main-path round (N=100, K=10, 4 steps of 64 a client, eval)",
+                      lambda: sim._step(states[-1], sim.scn, 0, 0, sim.data, True), card)
+        final[dataset] = recs[-1].test_acc
+        sims[dataset] = (sim, states[0], recs)
+
+    phase("CNN datasets: the round-level contracts at fl-cifar10-cnn")
+    sim, state0, cifar_recs = sims["cifar10"]
+    K = fl_cnn.n_select
+    fedavg_round = sim._step(state0, sim.scn, 0, 0, sim.data, True)
+    general = make_round_step(sim.api.loss, fl_cnn, K, sim.model_bytes, sim.param_spec,
+                              ("contextual",), aggregators=AGGREGATOR_ORDER)
+    assert_rounds_bitwise(general(state0, sim.scn, 0, 0, sim.data, True), fedavg_round,
+                          "cifar10: full registry at index 0 vs the ('fedavg',) round")
+    hier = make_round_step(sim.api.loss, dataclasses.replace(fl_cnn, hierarchical=True), K,
+                           sim.model_bytes, sim.param_spec, ("contextual",))
+    assert_rounds_bitwise(hier(state0, sim.scn, 0, 0, sim.data, True), fedavg_round,
+                          "cifar10: contract (a), hierarchical ('fedavg',) round vs the flat one")
+    del general, hier, fedavg_round
+    print(f"final test accuracy (ring / contextual, N=100): mnist {final['mnist']:.4f} "
+          f"(fl-mnist-mlp, {ROUNDS} rounds of 3 epochs), cifar10 {final['cifar10']:.4f} "
+          f"(fl-cifar10-cnn, {CNN_RUNS[0][2]} rounds of 1 epoch), svhn {final['svhn']:.4f} "
+          f"(fl-svhn-cnn, {CNN_RUNS[1][2]} rounds of 1 epoch) [{card}]")
+
+    phase("CNN datasets: the bench's 24-run grid at fl-cifar10-cnn (3 strategies x 8 scenarios, "
+          "N=20, 5 rounds, eval every 5, ('fedavg',)), the batched round, then its lane loop")
+    eng = ExperimentEngine(get_config("fl-cifar10-cnn"), grid_fl(), "cifar10",
+                           strategies=GRID_STRATEGIES, aggregators=("fedavg",), device=device)
+    if not eng.batched:
+        raise AssertionError("the fl-cifar10-cnn grid engine did not take the batched round")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    res, walls, launches["engine cifar10 grid"] = grid_sweeps(
+        eng, BENCH, BENCH.batched_want("fedavg_reduce_grid"), 1, card)
+    sweep_peak = torch.cuda.max_memory_allocated() - held
+    loop_wall = grid_vs_loop(eng, BENCH, res, GRID_TOL, "fedavg_reduce", card)
+    lane_vs_cpu(res, eng, BENCH, ("contextual", "fedavg", 0, "ring"), GRID_TOL, card)
+    runs = BENCH.runs()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    batched = eng._lanes(runs)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    eng._sweep(batched, GRID_ROUNDS, GRID_EVAL_EVERY)
+    torch.cuda.synchronize()
+    rounds_s = time.perf_counter() - t1
+    print(f"cifar10 grid, {len(runs)} lanes: warm sweep {walls[1]:.3f} s "
+          f"({BENCH.lane_rounds() / walls[1]:.2f} lane-rounds/s), set-up (lanes built and warmed "
+          f"up) {t1 - t0:.3f} s and {GRID_ROUNDS} rounds {rounds_s:.3f} s batched, lane loop "
+          f"{loop_wall['setup_s']:.3f} s and {loop_wall['rounds_s']:.3f} s; peak memory in the "
+          f"sweeps {sweep_peak / 2**30:.2f} GiB above the {held / 2**30:.2f} GiB held [{card}]")
+    for do_eval in (False, True):
+        profile_round(f"cifar10 engine grid round (batched), {len(runs)} lanes (N=20, K=2), "
+                      f"{'with' if do_eval else 'no'} eval",
+                      lambda do_eval=do_eval: eng._grid_round(batched, do_eval, False), card)
+    del batched, eng, res
+    torch.cuda.empty_cache()
+
+    phase(f"CNN datasets: the bf16 lane at fl-cifar10-cnn (compute_dtype bfloat16), "
+          f"{CNN_BF16_ROUNDS} rounds")
+    fl16 = dataclasses.replace(fl_cnn, compute_dtype="bfloat16")
+    sim16 = FLSimulation(get_config("fl-cifar10-cnn"), fl16, traffic, "cifar10", "contextual",
+                         prng.key(0), device=device)
+    st16, recs16, launches["the cifar10 bf16 main path"] = drive(
+        sim16, "fedavg_reduce", rounds=CNN_BF16_ROUNDS)
+    replay(sim16, st16[0], recs16[0], traffic, params_atol=1e-4, **BF16_REPLAY)
+    print(f"cifar10 test accuracy after {CNN_BF16_ROUNDS} rounds: fp32 "
+          f"{cifar_recs[CNN_BF16_ROUNDS - 1].test_acc:.4f}, bf16 {recs16[-1].test_acc:.4f} "
+          f"[{card}]")
+    del sim16, st16
+
+    phase("CNN datasets: python -m repro_torch.launch.fl_sim --dataset cifar10 --rounds 2 on cuda")
+    reset_launches()
+    t0 = time.perf_counter()
+    out = fl_sim.run_experiment("cifar10", "contextual", 2, device=str(device))
+    torch.cuda.synchronize()
+    got = read_launches()
+    want = dict.fromkeys(got, 0)
+    want.update(rttg_latency=4, fedavg_reduce=2)
+    if got != want:
+        raise AssertionError(f"fl_sim --dataset cifar10: expected {want}, got {got}")
+    launches["fl_sim --dataset cifar10"] = got
+    accs = [r["test_acc"] for r in out["rounds"]]
+    if out["device"] != str(device) or not all(math.isfinite(a) for a in accs):
+        raise AssertionError(f"fl_sim --dataset cifar10: device {out['device']}, accuracy {accs}")
+    print(f"fl_sim --dataset cifar10 --rounds 2 on {out['device']}: {time.perf_counter() - t0:.2f}"
+          f" s, test accuracy by round {accs}, launches {got} [{card}]")
+    del sims
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main(argv=()) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script needs a card",
@@ -3290,6 +3571,18 @@ def main(argv=()) -> int:
         for G, K, P, offset in ((1, 2, 159_010, 0), (24, 1, 159_010, 0), (3, 7, 159_011, 0),
                                 (5, 3, 159_010, 1), (2, 9, 4097, 1), (1, 1, 1, 0)):
             check_fedavg_grid(G, K, P, device, rows, offset)
+    # B2 and B2g at the CNN datasets' P (phase 4i): fl-cifar10-cnn's 1,070,794
+    # and fl-svhn-cnn's 603,034 (both 2 mod 4: runs of 2), the main path's
+    # cohort K = 10 in fp32 and bf16 rows, the bench grid's (24, 2) and (24, 10);
+    # then a grid whose last lane starts past 2^31 elements
+    main_err["cnn"] = {}
+    for P in CNN_P.values():
+        for rows in (f32, bf16):
+            main_err["cnn"][f"fedavg_reduce {str(rows)[6:]} P={P}"] = check_fedavg(
+                10, P, device, rows)
+        main_err["cnn"][f"fedavg_reduce_grid P={P}"] = check_fedavg_grid(24, 2, P, device)
+    check_fedavg_grid(24, 10, CNN_P["cifar10"], device, bf16)
+    check_fedavg_grid_past_int32(device)
     # B3g / B4g (the batched grid round's server step, a lane a grid row): the
     # engine grids' lanes (24 and 48; 40, the smoke grid without fedbuff) at K = 2
     # and K = N = 20 (an engine with greedy), the 8-slot ring, P = 159,010, every
@@ -3729,11 +4022,16 @@ def main(argv=()) -> int:
     # ---- 4h. the experiment engine ---------------------------------------------
     grid_launches = engine_phase(device, card)
 
+    # ---- 4i. the CNN datasets ----------------------------------------------------
+    cnn_launches = cnn_phase(fl, records, device, card)
+    grid_launches["cifar10"] = cnn_launches.pop("engine cifar10 grid")
+
     def by_path(name, first, first_path="the main path"):
-        """The parts of a kernel's ``launches``: ``first`` on ``first_path``
-        and one sweep of each engine grid that launched it."""
-        return {first_path: first, **{f"engine {grid} grid": g[name]
-                                      for grid, g in grid_launches.items() if g[name]}}
+        """The parts of a kernel's ``launches``: ``first`` on ``first_path``,
+        one sweep of each engine grid and each CNN path that launched it."""
+        return {first_path: first,
+                **{f"engine {grid} grid": g[name] for grid, g in grid_launches.items() if g[name]},
+                **{path: c[name] for path, c in cnn_launches.items() if c[name]}}
 
     # ---- 5. times ----------------------------------------------------------
     phase(f"times on {card}")
@@ -3794,8 +4092,7 @@ def main(argv=()) -> int:
         "source": "src/repro_torch/kernels/csrc/rttg_latency.cu",
         "replaces": "src/repro/kernels/rttg_latency.py:242",
         # the main path's and one sweep of each engine grid's (phase 4h)
-        "launches": launches["rttg_latency"]
-        + sum(g["rttg_latency"] for g in grid_launches.values()),
+        "launches": sum(by_path("rttg_latency", launches["rttg_latency"]).values()),
         "launches_by_path": by_path("rttg_latency", launches["rttg_latency"]),
         "max_abs_err": main_err["rttg_latency"],
         "ms": times["predict"][0], "plain_ms": times["predict"][1], "bound_ms": b_ms,
@@ -3845,8 +4142,7 @@ def main(argv=()) -> int:
         "name": "fedavg_reduce", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/fedavg_reduce.cu",
         "replaces": "src/repro/kernels/fedavg_reduce.py:43",
-        "launches": launches["fedavg_reduce"]
-        + sum(g["fedavg_reduce"] for g in grid_launches.values()),
+        "launches": sum(by_path("fedavg_reduce", launches["fedavg_reduce"]).values()),
         "launches_by_path": by_path("fedavg_reduce", launches["fedavg_reduce"]),
         "max_abs_err": main_err["fedavg_reduce"],
         "ms": fed_ms, "plain_ms": fed_plain, "bound_ms": b_ms, "bound_by": b_by,
@@ -3873,6 +4169,7 @@ def main(argv=()) -> int:
           f"{fed16_bytes / fed16[2] / 1e3:.0f} GB/s by device time [{card}]")
 
     time_grid_kernels(kernels, lib, grid_launches, main_err, bf16_times, device, card)
+    time_cnn_reduces(kernels, lib, main_err, device, card)
     time_server_grid(kernels, lib, grid_launches, main_err, device, card)
     time_rsu_grid(kernels, lib, grid_launches, main_err, bf16_times, device, card)
 

@@ -2,9 +2,9 @@
 
 Declared as in ``repro/configs/``: ``get_config(arch)`` gives the exact
 assigned config, ``get_smoke_config(arch)`` the reduced same-family variant
-the CPU tests run.  Of the FL models only ``fl-mnist-mlp`` runs so far (the
-two CNNs are declared and refused by ``models.build_model``); of the LM zoo
-every family: ``hybrid`` (hymba-1.5b), ``ssm`` (mamba2-130m), ``dense``
+the CPU tests run.  Every FL model runs: ``fl-mnist-mlp`` and the two CNNs
+``fl-cifar10-cnn`` and ``fl-svhn-cnn``; of the LM zoo every family:
+``hybrid`` (hymba-1.5b), ``ssm`` (mamba2-130m), ``dense``
 (qwen1.5-0.5b, gemma2-9b, mistral-nemo-12b, chatglm3-6b), ``moe``
 (mixtral-8x7b, phi3.5-moe-42b-a6.6b), ``vlm`` (internvl2-76b) and ``encdec``
 (whisper-small).  An unknown arch id raises ``KeyError``.

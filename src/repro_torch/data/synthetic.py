@@ -41,6 +41,23 @@ def class_prototypes(key: torch.Tensor, spec: ImageSpec, device) -> torch.Tensor
     return spec.proto_scale * prng.normal(k, (spec.num_classes, *spec.shape), device)
 
 
+def make_image_dataset(key: torch.Tensor, name: str, num_samples: int, labels=None,
+                       device=None):
+    """Sample ``(images (n, H, W, C) f32, labels (n,) int64)``; with
+    ``labels`` given, the images condition on them
+    (``repro.data.synthetic.make_image_dataset``)."""
+    spec = dataset_spec(name)
+    device = key.device if device is None else torch.device(device)
+    kp, kl, kn = (prng.fold_in_str(key, "proto"), prng.fold_in_str(key, "labels"),
+                  prng.fold_in_str(key, "noise"))
+    protos = class_prototypes(kp, spec, device)
+    if labels is None:
+        labels = prng.randint(kl, (num_samples,), 0, spec.num_classes, device)
+    labels = torch.as_tensor(labels, dtype=torch.int64, device=device)
+    noise = spec.noise * prng.normal(kn, (num_samples, *spec.shape), device)
+    return protos[labels] + noise, labels
+
+
 def make_lm_batch(key: torch.Tensor, batch: int, seq_len: int, vocab: int,
                   device=None) -> dict:
     """Token batch with learnable structure: x[t+1] = perm[x[t]] w.p. 0.7.

@@ -36,9 +36,8 @@ def param_spec(cfg: ModelConfig):
 def init_mlp(key, cfg: ModelConfig, device) -> dict:
     """Parameters of the MLP family, drawn from ``key`` as ``init_cnn`` draws them."""
     if cfg.family != "mlp":
-        raise NotImplementedError(
-            f"model family {cfg.family!r} is not ported yet (see ROADMAP.md)"
-        )
+        raise ValueError(f"models.mlp builds the mlp family, got {cfg.family!r} "
+                         "(the cnn family is models.cnn)")
     H, W, C = cfg.image_shape
     flat = H * W * C
     ks = prng.split(key, 4)
@@ -59,11 +58,17 @@ def mlp_logits(params: dict, images: torch.Tensor) -> torch.Tensor:
     return x @ params["fc2"]["w"] + params["fc2"]["b"][..., None, :]
 
 
+def loss_from_logits(logits: torch.Tensor, labels: torch.Tensor):
+    """Mean cross-entropy over the last batch axis, in fp32 whatever the
+    logits' dtype -> (loss (...,), metrics)."""
+    logits = logits.to(torch.float32)
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels[..., None])[..., 0]
+    loss = (logz - gold).mean(dim=-1)
+    acc = (torch.argmax(logits, dim=-1) == labels).to(torch.float32).mean(dim=-1)
+    return loss, {"ce": loss, "accuracy": acc}
+
+
 def mlp_loss(params: dict, batch: dict):
     """Mean cross-entropy over the last batch axis -> (loss (...,), metrics)."""
-    logits = mlp_logits(params, batch["images"]).to(torch.float32)
-    logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, batch["labels"][..., None])[..., 0]
-    loss = (logz - gold).mean(dim=-1)
-    acc = (torch.argmax(logits, dim=-1) == batch["labels"]).to(torch.float32).mean(dim=-1)
-    return loss, {"ce": loss, "accuracy": acc}
+    return loss_from_logits(mlp_logits(params, batch["images"]), batch["labels"])

@@ -10,7 +10,9 @@ def resolve_device(device="cuda") -> torch.device:
     Raises when CUDA is asked for and no card is present: an entry point
     never carries on quietly on the CPU.  On the card, float32 matrix
     products and convolutions run in full float32 (no TF32): the JAX
-    reference is full float32, and TF32 keeps only about three digits.
+    reference is full float32, and TF32 keeps only about three digits.  The
+    CNNs' convolutions take cuDNN's deterministic algorithms, picked by its
+    heuristics rather than by timing, so a round repeats bit for bit.
     """
     device = torch.device(device)
     if device.type == "cuda":
@@ -21,6 +23,8 @@ def resolve_device(device="cuda") -> torch.device:
             )
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cudnn.deterministic = True
+        torch.backends.cudnn.benchmark = False
     elif device.type != "cpu":
         raise ValueError(f"unsupported device {device}; use 'cuda' or 'cpu'")
     return device

@@ -33,7 +33,9 @@ splits); a selector round on the card against the CPU (RSU ids,
 connectivity, masks and cluster labels equal), and the unfused round
 against the fused one (integers equal, floats within rtol 1e-5).  The MoE
 layer on a skewed input that drops copies: routing equal card vs CPU, no
-device-to-host sync; the smoke moe, vlm and encdec LMs served card vs CPU.  Without
+device-to-host sync; the smoke moe, vlm and encdec LMs served card vs CPU.  The
+CNN datasets' models at full width, forward and trainer card vs CPU, and a
+narrow CNN's round repeated bit for bit on the card.  Without
 a card every test skips, decided in the fixture.
 """
 import pytest
@@ -1688,3 +1690,97 @@ def test_batched_two_tier_grid_on_the_card_matches_its_lane_loop(dev, name, fl_k
             assert torch.equal(a, b), f
         else:
             torch.testing.assert_close(a, b, rtol=2e-4, atol=1e-5, equal_nan=True, msg=f)
+
+
+# ---- the CNN datasets' models (fl-cifar10-cnn, fl-svhn-cnn) on the card ------------
+
+
+def _cnn(arch):
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+
+    return build_model(get_config(arch))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("arch", ["fl-cifar10-cnn", "fl-svhn-cnn"])
+def test_cnn_forward_on_the_card_matches_the_cpu(dev, arch, dtype):
+    """The full-width CNN, one model and 5 stacked ones, card vs CPU (cuDNN
+    and the CPU's convolutions sum in other orders): fp32 within 1e-4 of the
+    largest logit, bf16 within 2% of it; a second call on the card bitwise
+    the first."""
+    from repro_torch.models.cnn import cnn_logits
+    from repro_torch.utils.device import resolve_device
+    from repro_torch.utils.pytree import (flatten_to_vector, tree_cast, tree_map,
+                                          unflatten_from_vector)
+
+    resolve_device(dev)
+    api = _cnn(arch)
+    vecs = torch.stack([flatten_to_vector(api.init(prng.key(s), "cpu")) for s in range(5)])
+    images = prng.normal(prng.key(9), (5, 16, 32, 32, 3))
+    for params, x in ((unflatten_from_vector(vecs[0], api.spec), images[0]),
+                      (unflatten_from_vector(vecs, api.spec), images)):
+        cpu = cnn_logits(tree_cast(params, dtype), x)
+        gpu_params = tree_cast(tree_map(lambda t: t.to(dev), params), dtype)
+        got, again = (cnn_logits(gpu_params, x.to(dev)) for _ in range(2))
+        assert torch.equal(got, again) and got.dtype == dtype
+        scale = float(cpu.float().abs().max())
+        tol = 1e-4 if dtype == torch.float32 else 0.02
+        torch.testing.assert_close(got.cpu().float(), cpu.float(), rtol=0, atol=tol * scale)
+
+
+@pytest.mark.parametrize("arch", ["fl-cifar10-cnn", "fl-svhn-cnn"])
+def test_cnn_trainer_on_the_card_matches_the_cpu(dev, arch):
+    """The cohort trainer (K = 4, 2 epochs of 2 steps) at full width, card vs
+    CPU: updates within 1e-3 of the largest (gradients summed in other
+    orders through 4 steps); repeated on the card bit for bit (cuDNN set
+    deterministic by ``resolve_device``)."""
+    from repro_torch.fl.client import make_local_trainer
+    from repro_torch.utils.device import resolve_device
+    from repro_torch.utils.pytree import tree_map
+
+    resolve_device(dev)
+    api = _cnn(arch)
+    params = api.init(prng.key(1), "cpu")
+    images = prng.normal(prng.key(2), (4, 32, 32, 32, 3))
+    labels = prng.randint(prng.key(3), (4, 32), 0, 10)
+    train = make_local_trainer(api.loss, 0.05, 2, 16)
+    _, cpu = train(params, images, labels, prng.key(4))
+    gpu_args = (tree_map(lambda t: t.to(dev), params), images.to(dev), labels.to(dev),
+                prng.key(4))
+    (_, got), (_, again) = train(*gpu_args), train(*gpu_args)
+    assert torch.equal(got, again)
+    torch.testing.assert_close(got.cpu(), cpu, rtol=0, atol=1e-3 * float(cpu.abs().max()))
+
+
+@pytest.mark.parametrize("dataset", ["cifar10", "svhn"])
+def test_cnn_round_repeats_bitwise_on_the_card(dev, dataset):
+    """One narrow-CNN round of ``FLSimulation`` from the same state twice on
+    the card: every state leaf and metric bit for bit, with 2 B1 and 1 B2
+    launches each; and against the CPU's plain path, the same integers."""
+    from repro_torch.config import FLConfig
+    from repro_torch.configs import PAPER_MODEL_BY_DATASET, get_config
+    from repro_torch.fl.simulation import FLSimulation
+
+    fl = FLConfig(num_clients=20, samples_per_client=64, local_epochs=1, num_clusters=3)
+    traffic = scenario_config("ring", num_vehicles=20)
+    cfg = get_config(PAPER_MODEL_BY_DATASET[dataset]).replace(channels=(4, 8), d_ff=16)
+    sim = FLSimulation(cfg, fl, traffic, dataset, "contextual", prng.key(0), device=dev)
+    sim.warmup_sketches()
+    s0 = sim.state
+    before = (rttg_mod.launches, fedavg_mod.launches)
+    runs = [sim._step(s0, sim.scn, 0, 0, sim.data, True) for _ in range(2)]
+    assert (rttg_mod.launches, fedavg_mod.launches) == (before[0] + 4, before[1] + 2)
+    (sa, ma), (sb, mb) = runs
+    for f in sa._fields:
+        x, y = getattr(sa, f), getattr(sb, f)
+        same = (all(torch.equal(p, q) for p, q in zip(x, y)) if f == "twin" else
+                torch.equal(x, y) if isinstance(x, torch.Tensor) else x == y)
+        assert same, f
+    for f in ma._fields:
+        assert torch.equal(getattr(ma, f), getattr(mb, f)), f
+    cpu = FLSimulation(cfg, fl, traffic, dataset, "contextual", prng.key(0), device="cpu")
+    _, mc = cpu._step(s0.to("cpu"), cpu.scn, 0, 0, sim.data.to("cpu"), True)
+    for f in ("round", "n_selected", "n_succeeded"):
+        assert int(getattr(mc, f)) == int(getattr(ma, f)), f
+    assert abs(float(mc.test_acc) - float(ma.test_acc)) <= 0.01
