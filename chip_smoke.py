@@ -243,6 +243,20 @@ Phases (any failure raises and exits non-zero):
    encdec family: whisper-small at full width and depth (12 + 12 layers), 4 x
    64 behind 4 x 1,500 frames, 32 tokens, exactly 2 x 12 ``swa_decode``
    launches a decode step.
+7. training (after the serving runs): ``python -m repro_torch.launch.train
+   --arch qwen1.5-0.5b --full --steps 5`` (464,118,784 bf16 parameters,
+   fp32 AdamW moments, B=8 x 128; finite losses, its step times, tokens/s
+   and peak memory, no kernel launched), 5 AdamW steps on one repeated
+   batch (the loss must fall) and one profiled step; qwen1.5-0.5b at full
+   width cut to 2 layers, fp32, one step on the card against the CPU
+   (loss, the global and each leaf's gradient norm, in each leaf fewer than
+   1e-3 of the elements more than lr / 10 apart); each dense / moe / vlm /
+   encdec smoke config, one step card vs CPU at one microbatch and at the
+   config's own count; the ssm / hybrid trainers (hymba-1.5b, mamba2-130m) refused on the card
+   (``ssd_scan`` has no backward); ``python -m
+   repro_torch.launch.federated_llm --rounds 2`` on the card, its cohorts and
+   clusters the CPU's, eval losses within rtol 1e-5 and each round's update
+   norm within rtol 1e-4.
 
 The last three lines are the kernels' JSON record (their fp32 rows;
 ``swa_decode``'s launches summed over every serving run; ``rttg_latency``'s,
@@ -3359,6 +3373,188 @@ def cnn_phase(fl, mnist_records, device, card) -> dict:
     return launches
 
 
+# The LM trainer (phase 7).  Every family but ssm / hybrid trains through plain
+# torch on the card: no kernel runs, so every launch count must stay 0.
+TRAIN_LR = 3e-4
+# The families' smoke configs, card vs CPU: (arch, batch) at one microbatch
+# and at the config's own count (batch = max(4, m))
+TRAIN_SMOKE_ARCHS = ("qwen1.5-0.5b", "gemma2-9b", "mistral-nemo-12b", "chatglm3-6b",
+                     "mixtral-8x7b", "phi3.5-moe-42b-a6.6b", "internvl2-76b", "whisper-small")
+
+
+def assert_no_launches(what: str) -> None:
+    launches = read_launches()
+    if any(launches.values()):
+        raise AssertionError(f"{what}: the path runs no kernel, but launched {launches}")
+
+
+def train_step_card_vs_cpu(cfg, batch, seq, device, label, params=None):
+    """One AdamW step (``launch.steps.make_train_step``) on the card and on the CPU
+    from the same weights (drawn on the card, copied) and the trainer's first
+    batch.  Loss and metrics within rtol 1e-5; at one microbatch the gradient's
+    global norm within rtol 1e-4 and each leaf's gradient norm within rtol 1e-4
+    (atol 1e-5 of the global norm); in each leaf fewer than 1e-3 of the
+    elements more than lr / 10 apart after the step (AdamW's first step is
+    about ``lr * sign(g)``, so a wrong gradient moves its elements by ~2 lr)."""
+    from repro_torch.config import TrainConfig
+    from repro_torch.launch.steps import TrainState, make_train_step, value_and_grad
+    from repro_torch.launch.train import make_batch
+    from repro_torch.models import build_model
+    from repro_torch.utils import prng
+    from repro_torch.utils.pytree import tree_global_norm
+
+    api = build_model(cfg)
+    step, opt = make_train_step(api, TrainConfig(learning_rate=TRAIN_LR))
+    if params is None:
+        params = api.init(prng.fold_in_str(prng.key(0, device), "init"), device)
+    b = make_batch(cfg, prng.fold_in(prng.key(0, device), 1), batch, seq)
+    sides = {}
+    reset_launches()
+    for side, p, bb in (("card", params, b), ("cpu", tree_to(params, "cpu"), tree_to(b, "cpu"))):
+        state, met = step(TrainState(p, opt.init(p)), bb)
+        norms = None
+        if cfg.train_microbatches == 1:
+            g = value_and_grad(api.loss, p, bb)[2]
+            # squares summed in fp32 by torch.sum: the CPU's vector_norm of a
+            # large fp32 leaf is off by up to 2e-2 relative (torch 2.13, 155 M elements)
+            norms = (tree_global_norm(g).cpu(), [tree_global_norm(x).cpu() for x in _leaves(g)])
+            del g
+        sides[side] = (state, met, norms)
+        if side == "card":
+            assert_no_launches(f"{label} train step")
+    (sg, mg, ng), (sc, mc, nc) = sides["card"], sides["cpu"]
+    for k in mc:
+        torch.testing.assert_close(mg[k].cpu(), mc[k], rtol=1e-5, atol=1e-6,
+                                   msg=f"{label}: {k}")
+    if ng is not None:
+        torch.testing.assert_close(ng[0], nc[0], rtol=1e-4, atol=0, msg=f"{label}: grad norm")
+        for i, (a, c) in enumerate(zip(ng[1], nc[1])):
+            torch.testing.assert_close(a, c, rtol=1e-4, atol=1e-5 * float(nc[0]),
+                                       msg=f"{label}: leaf {i}'s grad norm, card {float(a)!r} "
+                                       f"vs CPU {float(c)!r}")
+    worst, worst_share, apart, n = 0.0, 0.0, 0, 0
+    for i, (a, c) in enumerate(zip(_leaves(sg.params), _leaves(sc.params))):
+        d = (a.cpu().float() - c.float()).abs()
+        k = int((d > TRAIN_LR / 10).sum())
+        if k >= 1e-3 * d.numel():
+            raise AssertionError(f"{label}: leaf {i} {tuple(d.shape)}: {k:,} of {d.numel():,} "
+                                 f"elements more than lr / 10 apart, card vs CPU")
+        worst, worst_share = max(worst, float(d.max())), max(worst_share, k / d.numel())
+        apart += k
+        n += d.numel()
+    print(f"{label}: card vs CPU loss {float(mg['loss']):.6f} vs {float(mc['loss']):.6f}"
+          + (f", grad norm {float(ng[0]):.6f} vs {float(nc[0]):.6f}, {len(nc[1])} leaves' "
+             f"grad norms within rtol 1e-4" if ng is not None else "")
+          + f"; params' max |d| {worst:.3e} (lr = {TRAIN_LR:.1e}), {apart:,} of {n:,} "
+          f"elements > lr / 10 apart, at most {worst_share:.2e} of a leaf")
+
+
+def train_phase(device, card) -> None:
+    """Phase 7: ``python -m repro_torch.launch.train --arch qwen1.5-0.5b --full
+    --steps 5`` on the card (step time, tokens/s, peak memory, no launch), then
+    AdamW steps on one repeated batch (the loss falls) and one profiled step;
+    qwen1.5-0.5b cut to 2 layers card vs CPU in fp32; each dense / moe / vlm /
+    encdec smoke config card vs CPU at one microbatch and at its own count; the
+    ssm and hybrid trainers refusing the card; ``federated_llm --rounds 2`` on the
+    card against the CPU."""
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.launch import federated_llm
+    from repro_torch.launch import train as train_mod
+    from repro_torch.launch.train import make_batch
+    from repro_torch.utils import prng
+    from repro_torch.utils.pytree import tree_leaves
+
+    arch = "qwen1.5-0.5b"
+    batch, seq = 8, 128  # the CLI's defaults
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    reset_launches()
+    res = train_mod.main(["--arch", arch, "--full", "--steps", "5"])
+    assert_no_launches(f"{arch} training")
+    peak = torch.cuda.max_memory_allocated() - held
+    params = res.state.params
+    if res.n_params != 464_118_784:
+        raise AssertionError(f"{arch}: {res.n_params:,} parameters, expected 464,118,784")
+    if any(x.dtype != torch.bfloat16 for x in tree_leaves(params)) or any(
+            x.dtype != torch.float32 for x in tree_leaves(res.state.opt_state.mu)
+            + tree_leaves(res.state.opt_state.nu)):
+        raise AssertionError(f"{arch}: params must be bf16 and the AdamW moments fp32")
+    if not all(math.isfinite(x) for x in res.losses):
+        raise AssertionError(f"{arch}: losses {res.losses}")
+    step_ms = sorted(res.step_s[1:])[len(res.step_s[1:]) // 2] * 1e3  # median past the first
+    print(f"{arch} --full training: {res.n_params:,} bf16 parameters, fp32 AdamW moments, "
+          f"B={batch} x {seq} tokens; step times "
+          f"{', '.join(f'{x * 1e3:.1f}' for x in res.step_s)} ms (the first warms the card "
+          f"up); median past the first {step_ms:.1f} ms, "
+          f"{batch * seq / step_ms * 1e3:,.0f} tokens/s; peak memory {peak / 2**30:.2f} GiB "
+          f"above the {held / 2**30:.2f} GiB held; launches {read_launches()} [{card}]")
+
+    # AdamW steps on one repeated batch: the loss must fall
+    from repro_torch.config import TrainConfig
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import build_model
+
+    cfg = get_config(arch)
+    step, _ = make_train_step(build_model(cfg), TrainConfig(learning_rate=TRAIN_LR))
+    b = make_batch(cfg, prng.fold_in(prng.key(0, device), 1), batch, seq)
+    state, losses = res.state, []
+    for _ in range(5):
+        state, met = step(state, b)
+        losses.append(float(met["loss"]))
+    if not (all(math.isfinite(x) for x in losses) and losses[-1] < losses[0]):
+        raise AssertionError(f"{arch}: the loss on one repeated batch does not fall: {losses}")
+    print(f"{arch}: 5 AdamW steps on one repeated batch, loss "
+          f"{' -> '.join(f'{x:.4f}' for x in losses)}")
+    profile_round(f"train step, {arch} full, B={batch} x {seq}", lambda: step(state, b), card)
+    del res, state, params, step, b
+    torch.cuda.empty_cache()
+
+    # full width cut to 2 layers, fp32, card vs CPU
+    train_step_card_vs_cpu(cut_depth(get_config(arch), 2).replace(dtype="float32"), 2, 64, device,
+                           f"{arch} full width, 2 layers, fp32, B=2 x 64")
+    torch.cuda.empty_cache()
+    # the smoke configs of dense, moe, vlm and encdec at m = 1 and their own m
+    for a in TRAIN_SMOKE_ARCHS:
+        cfg = get_smoke_config(a)
+        for m in sorted({1, cfg.train_microbatches}):
+            train_step_card_vs_cpu(cfg.replace(train_microbatches=m), max(4, m), 32, device,
+                                   f"{a} smoke, m={m}, B={max(4, m)} x 32")
+    # ssm / hybrid: the scan kernel has no backward, so their trainer refuses the card
+    for a in ("hymba-1.5b", "mamba2-130m"):
+        reset_launches()
+        try:
+            train_mod.train(a, steps=1, batch=4, seq=32, device=device, verbose=False)
+        except RuntimeError as e:
+            if "A10b" not in str(e):
+                raise
+            print(f"{a} training on the card refused: {e}")
+        else:
+            raise AssertionError(f"{a}: training on the card ran through a kernel with no "
+                                 f"backward")
+        assert_no_launches(f"{a} refused training")
+    # the federated-LM example on the card against the CPU
+    reset_launches()
+    t0 = time.perf_counter()
+    fed = federated_llm.main(["--rounds", "2"])
+    torch.cuda.synchronize()
+    fed_s = time.perf_counter() - t0
+    assert_no_launches("federated_llm")
+    fed_cpu = federated_llm.run(2, device="cpu", verbose=False)
+    # the card and the CPU differed by 4.8e-7 in eval loss on an H100, while a
+    # round moves it by ~1e-3: the losses within rtol 1e-5, each round's update
+    # norm within rtol 1e-4
+    for g, c in zip(fed, fed_cpu):
+        if (g["cohort"], g["clusters"]) != (c["cohort"], c["clusters"]) \
+                or not math.isclose(g["eval_loss"], c["eval_loss"], rel_tol=1e-5) \
+                or not math.isclose(g["update_norm"], c["update_norm"], rel_tol=1e-4):
+            raise AssertionError(f"federated_llm card vs CPU: {g} vs {c}")
+    print(f"federated_llm --rounds 2 on the card in {fed_s:.2f} s: cohorts and clusters "
+          f"the CPU's, eval losses {[r['eval_loss'] for r in fed]} vs "
+          f"{[r['eval_loss'] for r in fed_cpu]}, update norms "
+          f"{[r['update_norm'] for r in fed]} vs {[r['update_norm'] for r in fed_cpu]} [{card}]")
+
+
 def main(argv=()) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script needs a card",
@@ -4426,6 +4622,12 @@ def main(argv=()) -> int:
     family_launches.update(serve_families(device, card, MOE_VLM_RUNS))
     phase("serving: the encdec family at full width and depth, bf16")
     family_launches.update(serve_families(device, card, ENCDEC_RUNS))
+
+    # ---- 7. training ----------------------------------------------------------
+    phase("training: the LM zoo's trainer on the card")
+    train_phase(device, card)
+    torch.cuda.empty_cache()
+
     # B7's launches over every serving run: hymba-1.5b's and the families'
     swa_row = next(k for k in kernels if k["name"] == "swa_decode")
     swa_row["launches"] += sum(c["swa_decode"] for c in family_launches.values())

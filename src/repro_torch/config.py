@@ -1,10 +1,10 @@
 """Configuration dataclasses of the port.
 
-Own copies of the JAX package's ``ModelConfig``, ``FLConfig`` and
-``TrafficConfig`` (field for field, same defaults: the paper's section IV-A
-setting for the last two).  The port imports nothing of the JAX package, so
-these are kept in step with ``repro.config`` by the tests, which compare the
-fields and defaults.
+Own copies of the JAX package's ``ModelConfig``, ``FLConfig``,
+``TrafficConfig`` and ``TrainConfig`` (field for field, same defaults:
+the paper's section IV-A setting for ``FLConfig`` and ``TrafficConfig``).
+The port imports nothing of the JAX package, so these are kept in step with
+``repro.config`` by the tests, which compare the fields and defaults.
 """
 from __future__ import annotations
 
@@ -118,6 +118,21 @@ class ModelConfig:
 
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    """Training-step hyperparameters of the LM zoo (``repro.config.TrainConfig``)."""
+
+    learning_rate: float = 3e-4
+    weight_decay: float = 0.1
+    beta1: float = 0.9
+    beta2: float = 0.95
+    eps: float = 1e-8
+    grad_clip: float = 1.0
+    optimizer: str = "adamw"  # adamw | sgd | momentum
+    param_dtype: str = "float32"
+    compute_dtype: str = "bfloat16"
 
 
 @dataclass(frozen=True)

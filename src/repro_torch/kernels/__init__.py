@@ -6,6 +6,26 @@ One module per kernel source (``rttg_latency``, ``fedavg_reduce``,
 dispatches on its tensors' device: CUDA tensors launch the CUDA kernel
 (built on first use by ``kernels.build``), CPU tensors run the plain
 version.  Each module keeps a plain integer ``launches`` counter.
+
+No kernel has a backward.  On the card every wrapper refuses an operand
+that requires grad while grad mode is on (``refuse_grad``): the kernel
+writes fresh tensors through ``ctypes``, so autograd would give every input
+upstream of it no gradient, silently.  The plain versions on the CPU are
+differentiable torch.
 """
+import torch
+
 __all__ = ("rttg_latency", "fedavg_reduce", "server_update", "rsu_reduce", "swa_decode",
            "ssd_scan", "pairwise_cosine")
+
+
+def refuse_grad(name: str, *operands, queue: str = "") -> None:
+    """Raise where grad mode is on and an operand (a tensor, or None) requires
+    grad: kernel ``name`` has no backward."""
+    if torch.is_grad_enabled() and any(isinstance(x, torch.Tensor) and x.requires_grad
+                                       for x in operands):
+        todo = (f"; its backward is ROADMAP.md queue {queue}, and until then this path "
+                f"trains on the CPU only") if queue else ""
+        raise RuntimeError(
+            f"{name}: the CUDA kernel has no backward, and an operand requires grad with "
+            f"grad mode on; run it under torch.no_grad() or detach the operands{todo}")

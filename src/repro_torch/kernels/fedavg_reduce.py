@@ -16,6 +16,8 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import refuse_grad
+
 # Kernel launches made by ``fedavg_reduce`` (one per call on CUDA tensors).
 launches = 0
 # Kernel launches made by ``fedavg_reduce_grid`` (one per call on CUDA tensors).
@@ -43,6 +45,7 @@ def _vector_width(x: torch.Tensor, P: int) -> int:
 def _fedavg_reduce_cuda(updates: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
     from repro_torch.kernels.build import check, library
 
+    refuse_grad("fedavg_reduce", updates, weights)
     global launches
     if updates.dtype not in ROW_DTYPES or updates.dim() != 2 or not updates.is_contiguous():
         raise ValueError(f"fedavg_reduce: updates must be a contiguous (K, P) float32 or "
@@ -90,6 +93,7 @@ def fedavg_reduce_grid_plain(updates: torch.Tensor, weights: torch.Tensor) -> to
 def _fedavg_reduce_grid_cuda(updates: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
     from repro_torch.kernels.build import check, library
 
+    refuse_grad("fedavg_reduce_grid", updates, weights)
     global grid_launches
     if updates.dtype not in ROW_DTYPES or updates.dim() != 3 or not updates.is_contiguous():
         raise ValueError(f"fedavg_reduce_grid: updates must be a contiguous (G, K, P) float32 "

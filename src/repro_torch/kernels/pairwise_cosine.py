@@ -17,6 +17,8 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import refuse_grad
+
 # Kernel launches made by ``gram_nt`` (one per call on CUDA tensors).
 launches = 0
 
@@ -61,6 +63,7 @@ def pairwise_cosine_plain(x: torch.Tensor) -> torch.Tensor:
 def _gram_nt_cuda(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     from repro_torch.kernels.build import check, counters, library
 
+    refuse_grad("pairwise_cosine", x, y)
     global launches
     if x.dim() != 2 or y.dim() != 2 or x.shape[1] != y.shape[1]:
         raise ValueError(f"gram_nt: need x (N, D) and y (M, D), got {tuple(x.shape)} "

@@ -27,6 +27,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import refuse_grad
 from repro_torch.kernels.fedavg_reduce import _vector_width
 
 # Kernel launches made by ``rsu_reduce`` (one per call on CUDA tensors).
@@ -109,6 +110,7 @@ def _launch(name, updates, weights, rid, n_rsu, carry, out_dtype, lanes):
     for B5, one lane; 1 for B5g, G lanes) -> (partials, masses)."""
     from repro_torch.kernels.build import check, library
 
+    refuse_grad(name, updates, weights, carry)
     out, mass, vec = _operands_cuda(name, updates, weights, rid, n_rsu, carry, out_dtype,
                                     lanes)
     G = updates.shape[0] if lanes else 1

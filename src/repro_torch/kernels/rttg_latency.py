@@ -31,6 +31,7 @@ from repro_torch.core.network import (
 )
 from repro_torch.core.rttg import n_rsu_of, rsu_geometry, rsu_up_mask
 from repro_torch.core.trajectory import horizon_steps, predict_kinematics
+from repro_torch.kernels import refuse_grad
 
 # The float32 scalars of the scenario operand, in the order of the .cu
 # source's S_* enum; the R uint8 live flags follow them.
@@ -143,6 +144,7 @@ def _rttg_latency_cuda(pos, speed, accel, t, model_bytes, forced, cfg, predict,
                        want_rid):
     from repro_torch.kernels.build import check, counters, library
 
+    refuse_grad("rttg_latency", pos, speed, accel, t, model_bytes)
     global launches
     device = pos.device
     n = pos.shape[0]
@@ -213,6 +215,7 @@ def _rttg_latency_grid_cuda(pos, speed, accel, t, model_bytes, forced, cfg, pred
                             want_rid):
     from repro_torch.kernels.build import check, library
 
+    refuse_grad("rttg_latency_grid", pos, speed, accel, t, model_bytes)
     global grid_launches
     device = pos.device
     if pos.dim() != 2:

@@ -27,6 +27,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.fl.aggregators import AGGREGATOR_ORDER, ServerHP, apply_rule
+from repro_torch.kernels import refuse_grad
 from repro_torch.kernels.fedavg_reduce import (MAX_LANES, ROW_DTYPES, _vector_width,
                                                fedavg_reduce_plain)
 
@@ -66,13 +67,17 @@ def server_update_plain(updates, weights, params, m, v, agg_idx, rnd, *,
 
 def server_update_buffered_plain(updates, weights, buf, buf_w, params, m, v, agg_idx,
                                  rnd, drain, *, eta=1.0, beta1=0.9, beta2=0.99, tau=1e-3):
-    """One weighted sum over the cohort rows then the ring rows (ring
-    weights zeroed unless ``drain``), followed by ``apply_rule``."""
-    f32 = torch.float32
+    """The cohort's weighted sum (``server_update_plain``'s), plus the ring's
+    weighted sum where ``drain`` holds, followed by ``apply_rule``.
+
+    The two sums are separate products so that a lane that does not drain
+    is ``server_update_plain`` bit for bit on any host: one product over
+    the K + Kb rows would round the cohort's part by the BLAS path the host
+    takes (MKL's AVX-512 ``sgemv`` rounds it unlike the K-row product).
+    """
     drain = torch.as_tensor(drain, device=buf_w.device)
-    wa = torch.cat([weights.to(f32), torch.where(drain, buf_w.to(f32), 0.0)])
-    ua = torch.cat([updates.to(f32), buf.to(f32)])
-    delta = fedavg_reduce_plain(ua, wa)
+    delta = fedavg_reduce_plain(updates, weights)
+    delta = torch.where(drain, delta + fedavg_reduce_plain(buf, buf_w), delta)
     return _rule(delta, params, m, v, agg_idx, rnd, eta, beta1, beta2, tau)
 
 
@@ -98,6 +103,7 @@ def _launch(updates, weights, buf, buf_w, drain, params, m, v, agg_idx, rnd,
             eta, beta1, beta2, tau):
     from repro_torch.kernels.build import check, library
 
+    refuse_grad("server_update", updates, weights, buf, buf_w, params, m, v)
     _assert_registry_order()
     device = updates.device
     _check_rows("updates", updates, device, ROW_DTYPES)
@@ -247,6 +253,7 @@ def _launch_grid(updates, weights, buf, buf_w, drain, params, m, v, rule_idx, rn
                  eta, beta1, beta2, tau):
     from repro_torch.kernels.build import check, library
 
+    refuse_grad("server_update_grid", updates, weights, buf, buf_w, params, m, v)
     _assert_registry_order()
     device = updates.device
     if updates.dim() != 3:

@@ -19,6 +19,8 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import refuse_grad
+
 # Kernel launches made by ``ssd_scan`` (one per call on CUDA tensors).
 launches = 0
 
@@ -100,6 +102,8 @@ def _check(name, x, shape, dtype, device):
 def _ssd_scan_cuda(xh, dt, A, Bs, Cs, chunk, h0):
     from repro_torch.kernels.build import check, counters, library
 
+    # no backward until ROADMAP.md's A10b: the ssm and hybrid families train on the CPU
+    refuse_grad("ssd_scan", xh, dt, A, Bs, Cs, h0, queue="A10b")
     global launches
     if xh.dtype not in _DTYPE_CODES:
         raise NotImplementedError(f"ssd_scan: the kernel takes float32 or bfloat16, "
@@ -143,7 +147,8 @@ def ssd_scan(xh: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bs: torch.Tens
     """Chunked SSD -> (y (B, S, nh, hp) fp32, final state (B, nh, hp, ds) fp32).
 
     On the card xh, Bs and Cs share one dtype (float32 or bfloat16); dt, A
-    and h0 are float32.
+    and h0 are float32, and no operand may require grad under grad mode
+    (the kernel has no backward); the plain version is differentiable.
     """
     if xh.is_cuda:
         return _ssd_scan_cuda(xh, dt, A, Bs, Cs, chunk, h0)

@@ -19,6 +19,8 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import refuse_grad
+
 # Kernel launches made by ``swa_decode`` (one per call on CUDA tensors).
 launches = 0
 
@@ -86,6 +88,7 @@ def _check(name, x, shape, dtype, device):
 def _swa_decode_cuda(q, k, v, kv_pos, pos, window, softcap):
     from repro_torch.kernels.build import check, counters, library
 
+    refuse_grad("swa_decode", q, k, v)
     global launches
     if q.dtype not in _DTYPE_CODES:
         raise NotImplementedError(f"swa_decode: the kernel takes float32 or bfloat16, "

@@ -13,13 +13,15 @@ in plain torch; each decode step runs both of its attentions per layer through
 over the cached encoder K / V with the query placed at the last frame, so
 that every frame is visible (the reference's ``causal=False``).
 ``encdec_decode_step`` updates the cache it is given in place and returns it.
+``encdec_loss`` is the training objective: the decoder's sequence path with
+no cache built, the CE with no softcap and no auxiliary loss.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.models import layers as L
-from repro_torch.models.transformer import _layer_slice, decode_attention, torch_dtype
+from repro_torch.models.transformer import decode_attention, layer_slices, torch_dtype
 from repro_torch.utils import prng
 
 
@@ -82,8 +84,7 @@ def encode(params, cfg, frames):
     B, S, _ = x.shape
     x = x + _sinusoid(S, cfg.d_model, x.device).to(x.dtype)[None]
     positions = _positions(B, S, x.device)
-    for li in range(cfg.encoder_layers):
-        bp = _layer_slice(params["encoder"], li)
+    for bp in layer_slices(params["encoder"], cfg.encoder_layers):
         h = L.layer_norm(x, bp["ln1"], bp["ln1b"], cfg.norm_eps)
         q, k, v = L.project_qkv(bp["attn"], h)
         a = L.blocked_attention(q, k, v, positions, positions, causal=False,
@@ -99,26 +100,20 @@ def _logits(params, cfg, x):
     return torch.einsum("bsd,vd->bsv", x, params["embed"].to(x.dtype))
 
 
-def encdec_prefill(params, cfg, batch, max_seq=None):
-    """Encoder plus decoder prompt -> (last-token logits (B, V), decode cache).
+def _embed(params, cfg, tok):
+    x = params["embed"][tok.long()].to(torch_dtype(cfg))
+    return x + params["pos_embed"][:tok.shape[1]].to(x.dtype)[None]
 
-    ``batch`` holds ``frames`` (B, S_enc, d) and ``tokens`` (B, S).
-    ``max_seq`` sizes the self-attention ring (>= S; default S).  The cache
-    is the reference's tree: ``pos`` (B,), ``self`` {k, v, pos, xk, xv}, each
-    stacked over the decoder layers, and ``enc_pos`` (B, S_enc) int32.
-    """
+
+def _decoder_seq(params, cfg, x, enc, positions, cache_len=None):
+    """The decoder over a whole sequence -> (x, cache): with ``cache_len`` the
+    decode cache's stacked ``self`` entries {k, v, pos, xk, xv} (a ring of
+    ``cache_len`` slots), else None (training builds no cache)."""
     dtype = torch_dtype(cfg)
-    enc = encode(params, cfg, batch["frames"])
-    tok = batch["tokens"]
-    B, S = tok.shape
-    C = max(max_seq or S, S)
-    x = params["embed"][tok.long()].to(dtype)
-    x = x + params["pos_embed"][:S].to(x.dtype)[None]
-    positions = _positions(B, S, x.device)
+    B, S = positions.shape
     enc_pos = _positions(B, enc.shape[1], x.device)
     per_layer = []
-    for li in range(cfg.num_layers):
-        bp = _layer_slice(params["decoder"], li)
+    for bp in layer_slices(params["decoder"], cfg.num_layers):
         h = L.layer_norm(x, bp["ln1"], bp["ln1b"], cfg.norm_eps)
         q, k, v = L.project_qkv(bp["self_attn"], h, cfg.kv_repeat)
         a = L.blocked_attention(q, k, v, positions, positions, causal=True,
@@ -131,16 +126,48 @@ def encdec_prefill(params, cfg, batch, max_seq=None):
         x = x + L.attn_output(bp["cross_attn"], a)
         h = L.layer_norm(x, bp["ln2"], bp["ln2b"], cfg.norm_eps)
         x = x + L.gelu_mlp(bp["mlp"], h)
-        ck = torch.zeros((B, C) + tuple(k.shape[2:]), dtype=dtype, device=x.device)
-        cv = torch.zeros_like(ck)
-        cp = torch.full((B, C), -1, dtype=torch.int32, device=x.device)
-        ck[:, :S], cv[:, :S], cp[:, :S] = k, v, positions
-        per_layer.append({"k": ck, "v": cv, "pos": cp, "xk": kx.to(dtype),
-                          "xv": vx.to(dtype)})
+        if cache_len is not None:
+            ck = torch.zeros((B, cache_len) + tuple(k.shape[2:]), dtype=dtype, device=x.device)
+            cv = torch.zeros_like(ck)
+            cp = torch.full((B, cache_len), -1, dtype=torch.int32, device=x.device)
+            ck[:, :S], cv[:, :S], cp[:, :S] = k, v, positions
+            per_layer.append({"k": ck, "v": cv, "pos": cp, "xk": kx.to(dtype),
+                              "xv": vx.to(dtype)})
+    if cache_len is None:
+        return x, None
+    return x, {name: torch.stack([c[name] for c in per_layer]) for name in per_layer[0]}
+
+
+def encdec_loss(params, cfg, batch):
+    """Training objective -> (loss, {"ce"}); ``batch`` holds frames (B, S_enc,
+    d), tokens (B, S) and targets (B, S), -1 for no target."""
+    enc = encode(params, cfg, batch["frames"])
+    tok = batch["tokens"]
+    x = _embed(params, cfg, tok)
+    x, _ = _decoder_seq(params, cfg, x, enc, _positions(*tok.shape, x.device))
+    targets = batch["targets"]
+    loss = L.cross_entropy_loss(_logits(params, cfg, x), torch.clamp_min(targets, 0),
+                                targets >= 0)
+    return loss, {"ce": loss}
+
+
+def encdec_prefill(params, cfg, batch, max_seq=None):
+    """Encoder plus decoder prompt -> (last-token logits (B, V), decode cache).
+
+    ``batch`` holds ``frames`` (B, S_enc, d) and ``tokens`` (B, S).
+    ``max_seq`` sizes the self-attention ring (>= S; default S).  The cache
+    is the reference's tree: ``pos`` (B,), ``self`` {k, v, pos, xk, xv}, each
+    stacked over the decoder layers, and ``enc_pos`` (B, S_enc) int32.
+    """
+    enc = encode(params, cfg, batch["frames"])
+    tok = batch["tokens"]
+    B, S = tok.shape
+    x = _embed(params, cfg, tok)
+    x, caches = _decoder_seq(params, cfg, x, enc, _positions(B, S, x.device),
+                             cache_len=max(max_seq or S, S))
     logits = _logits(params, cfg, x[:, -1:, :])[:, 0]
-    caches = {name: torch.stack([c[name] for c in per_layer]) for name in per_layer[0]}
     return logits, {"pos": torch.full((B,), S, dtype=torch.int32, device=x.device),
-                    "self": caches, "enc_pos": enc_pos}
+                    "self": caches, "enc_pos": _positions(B, enc.shape[1], x.device)}
 
 
 def encdec_decode_step(params, cfg, cache, tokens):
@@ -154,8 +181,7 @@ def encdec_decode_step(params, cfg, cache, tokens):
     enc_last = torch.full_like(pos, enc_pos.shape[1] - 1, dtype=torch.int32)
     pos32 = pos.to(torch.int32)
     sc = cache["self"]
-    for li in range(cfg.num_layers):
-        bp = _layer_slice(params["decoder"], li)
+    for li, bp in enumerate(layer_slices(params["decoder"], cfg.num_layers)):
         h = L.layer_norm(x, bp["ln1"], bp["ln1b"], cfg.norm_eps)
         q, k, v = L.project_qkv(bp["self_attn"], h, cfg.kv_repeat)
         ck, cv, cp = L.cache_write(sc["k"][li], sc["v"][li], sc["pos"][li], k, v, pos)

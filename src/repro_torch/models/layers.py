@@ -15,6 +15,7 @@ The reference's layouts and dtypes, so the tests compare like with like:
   hand-written ``kernels.swa_decode`` instead (``models/transformer.py``).
 - ``cache_write`` updates the ring-buffer cache in place (the reference
   returns new arrays); the caller owns the cache.
+- ``cross_entropy_loss`` is the training objective's token-level CE.
 """
 from __future__ import annotations
 
@@ -306,3 +307,28 @@ def gelu_mlp(p, x):
     h = torch.einsum("bsd,df->bsf", x, p["w1"].to(x.dtype)) + p["b1"].to(x.dtype)
     h = F.gelu(h.to(torch.float32), approximate="tanh").to(x.dtype)
     return torch.einsum("bsf,fd->bsd", h, p["w2"].to(x.dtype)) + p["b2"].to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# loss
+# ---------------------------------------------------------------------------
+
+
+def masked_nll(logits, targets, mask, cap: float = 0.0):
+    """(sum of the token NLL over ``mask``, the mask's token count), both fp32;
+    logits (B, S, V), targets and mask (B, S).  The softcap is applied first."""
+    lf = softcap(logits.to(torch.float32), cap)
+    logz = torch.logsumexp(lf, dim=-1)
+    gold = torch.gather(lf, -1, targets.long()[..., None])[..., 0]
+    mask = mask.to(torch.float32)
+    return torch.sum((logz - gold) * mask), torch.sum(mask)
+
+
+def cross_entropy_loss(logits, targets, mask=None, cap: float = 0.0):
+    """Mean token-level CE in fp32; logits (B, S, V), targets (B, S).  The
+    softcap is applied first; with a ``mask`` the mean is over its tokens,
+    ``sum(nll * mask) / max(sum(mask), 1)``."""
+    if mask is None:
+        mask = torch.ones(targets.shape, dtype=torch.bool, device=targets.device)
+    nll, count = masked_nll(logits, targets, mask, cap)
+    return nll / torch.clamp_min(count, 1.0)

@@ -10,16 +10,22 @@ decoder-only family of the reference:
 
 Layers are stacked with a leading ``layers`` axis per pattern sub-layer, as
 in the reference; a Python loop over that axis takes the place of
-``lax.scan``.  Prefill attention is ``layers.blocked_attention`` in plain
-torch and the MoE FFN is ``models.moe.moe_ffn`` in plain torch; every decode
-step's attention goes through ``kernels.swa_decode`` and every prefill's SSM
-scan through ``kernels.ssd_scan`` (hand-written CUDA on the card, their plain
-versions on the CPU).  The reference's ``act_shard`` annotations and remat
-policies have no counterpart on one card and are dropped.  The MoE layer's
-load-balance loss is dropped too: it only feeds ``lm_loss``, which is not
-ported.  ``lm_decode_step`` updates the cache it is given in place and
-returns it.  The ``encdec`` family (whisper-small) lives in ``models/encdec.py``,
-which shares this module's helpers; ``models.zoo.build_lm`` picks the engine.
+``lax.scan``.  Sequence-mode attention is ``layers.blocked_attention`` in
+plain torch and the MoE FFN is ``models.moe.moe_ffn`` in plain torch; every
+decode step's attention goes through ``kernels.swa_decode`` and every
+sequence-mode SSM scan through ``kernels.ssd_scan`` (hand-written CUDA on the
+card, their plain versions on the CPU).  The reference's ``act_shard``
+annotations and remat policies have no counterpart on one card and are
+dropped; only the chunked loss keeps its remat (``_chunked_ce``).
+
+``lm_loss`` is the training objective: ``forward_seq`` in its ``train`` mode
+(no cache is built), the MoE layers' load-balance losses summed over the
+layers in fp32, and the CE over the whole logits or chunk by chunk.  It is
+differentiable by autograd wherever no kernel runs: on the card the
+``ssm`` and ``hybrid`` families' scan refuses a gradient (``kernels.ssd_scan``).
+``lm_decode_step`` updates the cache it is given in place and returns it.
+The ``encdec`` family (whisper-small) lives in ``models/encdec.py``, which
+shares this module's helpers; ``models.zoo.build_lm`` picks the engine.
 """
 from __future__ import annotations
 
@@ -27,6 +33,8 @@ import math
 from typing import Any
 
 import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels import swa_decode as _swa
 from repro_torch.models import layers as L
@@ -179,14 +187,17 @@ def init_lm_cache(cfg, batch: int, seq_len: int, prefilled: int = 0, device=None
 # ---------------------------------------------------------------------------
 
 
-def _attn_seq(cfg, bp, x, positions, inv_freq, window: int, cache_len: int):
-    """Sequence-mode attention; returns (out, cache_entry)."""
+def _attn_seq(cfg, bp, x, positions, inv_freq, window: int, cache_len):
+    """Sequence-mode attention; returns (out, cache_entry), the entry None
+    where ``cache_len`` is None (training builds no cache)."""
     q, k, v = L.project_qkv(bp, x, cfg.kv_repeat)
     q = L.apply_rope(q, positions, inv_freq, cfg.rope_style)
     k = L.apply_rope(k, positions, inv_freq, cfg.rope_style)
     out = L.blocked_attention(q, k, v, positions, positions, causal=True, window=window,
                               cap=cfg.attn_logit_softcap, block_q=cfg.attn_block_q)
     out = L.attn_output(bp, out)
+    if cache_len is None:
+        return out, None
     B, S = x.shape[0], x.shape[1]
     C = cache_len
     # a ring buffer of C slots holding the last min(C, S) positions (slot = pos % C)
@@ -227,25 +238,29 @@ def decode_attention(q, k, v, kv_pos, pos, window: int = 0, softcap: float = 0.0
 
 def apply_block(cfg, kind: str, bp, x, positions, inv_freq, mode: str, cache=None,
                 seq_len_hint: int = 0):
-    """One sub-layer.  Returns (x, new_cache_entry): the entries the block has.
-    The reference also returns the MoE layer's aux loss; it is dropped here
-    until ``lm_loss`` is ported."""
+    """One sub-layer in ``mode`` ``prefill``, ``decode`` or ``train``.  Returns
+    (x, new_cache_entry, aux): the cache entries the block has (none in
+    ``train``), and the MoE layer's load-balance loss (None without one)."""
     window = kind_window(cfg, kind, long_ctx_cap=32_768 if cfg.variant == "swa-capped" else 0)
     decode = mode == "decode"
     h = L.rms_norm(x, bp["ln1"], cfg.norm_eps, cfg.zero_centered_norm)
     new_cache = {}
+    aux = None
     if "attn" in bp:
         if decode:
-            a, new_cache["attn"] = _attn_decode(cfg, bp["attn"], h, positions, inv_freq,
-                                                window, cache["attn"])
+            a, ac = _attn_decode(cfg, bp["attn"], h, positions, inv_freq, window, cache["attn"])
         else:
-            C = cache_len_for(cfg, kind, seq_len_hint or h.shape[1])
-            a, new_cache["attn"] = _attn_seq(cfg, bp["attn"], h, positions, inv_freq, window, C)
+            C = None if mode == "train" else cache_len_for(cfg, kind, seq_len_hint or h.shape[1])
+            a, ac = _attn_seq(cfg, bp["attn"], h, positions, inv_freq, window, C)
+        if mode != "train":
+            new_cache["attn"] = ac
     if "ssm" in bp:
-        s, new_cache["ssm"] = ssm_forward(bp["ssm"], h, cfg,
-                                          state=cache["ssm"] if decode else None, decode=decode)
+        s, st = ssm_forward(bp["ssm"], h, cfg, state=cache["ssm"] if decode else None,
+                            decode=decode)
+        if mode != "train":
+            new_cache["ssm"] = st
     if cfg.family == "ssm":
-        return x + s, new_cache
+        return x + s, new_cache, aux
     if cfg.family == "hybrid":
         a = L.rms_norm(a, bp["attn_out_norm"], cfg.norm_eps)
         s = L.rms_norm(s, bp["ssm_out_norm"], cfg.norm_eps)
@@ -254,8 +269,12 @@ def apply_block(cfg, kind: str, bp, x, positions, inv_freq, mode: str, cache=Non
         x = x + a
     if "ln2" in bp:
         h2 = L.rms_norm(x, bp["ln2"], cfg.norm_eps, cfg.zero_centered_norm)
-        x = x + (moe_ffn(bp["moe"], h2, cfg)[0] if "moe" in bp else L.swiglu(bp["mlp"], h2))
-    return x, new_cache
+        if "moe" in bp:
+            y, aux = moe_ffn(bp["moe"], h2, cfg)
+        else:
+            y = L.swiglu(bp["mlp"], h2)
+        x = x + y
+    return x, new_cache, aux
 
 
 # ---------------------------------------------------------------------------
@@ -264,9 +283,20 @@ def apply_block(cfg, kind: str, bp, x, positions, inv_freq, mode: str, cache=Non
 
 
 def _layer_slice(tree, i: int):
+    """Layer ``i``'s views of a stacked cache tree (written in place by decode)."""
     if isinstance(tree, dict):
         return {k: _layer_slice(v, i) for k, v in tree.items()}
     return tree[i]
+
+
+def layer_slices(tree, n: int) -> list:
+    """The ``n`` layer slices of a stacked tree, one ``unbind`` a leaf: its
+    backward stacks the layers' gradients in one op, where indexing layer by
+    layer would add one full-size zero-padded gradient a layer."""
+    if isinstance(tree, dict):
+        parts = {k: layer_slices(v, n) for k, v in tree.items()}
+        return [{k: parts[k][i] for k in tree} for i in range(n)]
+    return list(torch.unbind(tree, 0))
 
 
 def _embed_tokens(params, cfg, tokens):
@@ -286,17 +316,73 @@ def _assemble_input(params, cfg, batch):
     return x
 
 
+def _head(params, cfg):
+    return params["embed"].t() if cfg.tie_embeddings else params["lm_head"]
+
+
 def _logits(params, cfg, x):
     """Final norm and LM head; ``final_logit_softcap`` belongs to the loss, as in
     the reference, and is not applied here."""
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps, cfg.zero_centered_norm)
-    head = params["embed"].t() if cfg.tie_embeddings else params["lm_head"]
-    return torch.einsum("bsd,dv->bsv", x, head.to(x.dtype))
+    return torch.einsum("bsd,dv->bsv", x, _head(params, cfg).to(x.dtype))
 
 
-def forward_seq(params, cfg, x, positions, max_seq=None):
-    """All layers in sequence (prefill) mode -> (x, caches): caches[i] stacks
-    sub-layer i's entries over the layer axis, as the reference's scan does."""
+def _ce_chunk(xb, head, tb, cap: float):
+    """One chunk's (sum of masked NLL, token count), both fp32."""
+    logits = torch.einsum("bsd,dv->bsv", xb, head.to(xb.dtype))
+    return L.masked_nll(logits, torch.clamp_min(tb, 0), tb >= 0, cap)
+
+
+def _chunked_ce(params, cfg, x, targets, chunk: int):
+    """CE over sequence chunks of ``chunk`` positions (targets padded with -1):
+    each chunk's (B, chunk, V) fp32 logits are recomputed in the backward
+    (``torch.utils.checkpoint``) instead of kept, so the whole (B, S, V)
+    logits never stand at once.  -> sum of NLL / max(token count, 1)."""
+    x = L.rms_norm(x, params["final_norm"], cfg.norm_eps, cfg.zero_centered_norm)
+    head = _head(params, cfg)
+    S = x.shape[1]
+    pad = (-S) % chunk
+    if pad:
+        x = F.pad(x, (0, 0, 0, pad))
+        targets = F.pad(targets, (0, pad), value=-1)
+    s_nll = s_cnt = torch.zeros((), dtype=torch.float32, device=x.device)
+    for c0 in range(0, S + pad, chunk):
+        nll, cnt = checkpoint(_ce_chunk, x[:, c0:c0 + chunk], head,
+                              targets[:, c0:c0 + chunk], cfg.final_logit_softcap,
+                              use_reentrant=False)
+        s_nll, s_cnt = s_nll + nll, s_cnt + cnt
+    return s_nll / torch.clamp_min(s_cnt, 1.0)
+
+
+def lm_loss(params, cfg, batch):
+    """Training objective -> (loss, {"ce", "aux"}); ``batch`` holds tokens (B,
+    S) and targets (B, S), -1 for no target, and for ``vlm`` image_embeds,
+    whose positions get no target.  loss = ce + router_aux_loss * aux."""
+    x = _assemble_input(params, cfg, batch)
+    B, S, _ = x.shape
+    positions = torch.arange(S, device=x.device)[None, :].expand(B, S)
+    x, _, aux = forward_seq(params, cfg, x, positions, "train")
+    if aux is None:
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    targets = batch["targets"]
+    if cfg.family == "vlm":
+        pad = torch.full((B, cfg.num_image_tokens), -1, dtype=targets.dtype,
+                         device=targets.device)
+        targets = torch.cat([pad, targets], dim=1)
+    if cfg.loss_chunk and S > cfg.loss_chunk:
+        loss = _chunked_ce(params, cfg, x, targets, cfg.loss_chunk)
+    else:
+        loss = L.cross_entropy_loss(_logits(params, cfg, x), torch.clamp_min(targets, 0),
+                                    targets >= 0, cfg.final_logit_softcap)
+    return loss + cfg.router_aux_loss * aux, {"ce": loss, "aux": aux}
+
+
+def forward_seq(params, cfg, x, positions, mode: str = "prefill", max_seq=None):
+    """All layers in sequence mode -> (x, caches, aux).  In ``prefill`` mode
+    caches[i] stacks sub-layer i's entries over the layer axis, as the
+    reference's scan does; in ``train`` mode no cache is built (caches is
+    None).  aux sums the MoE layers' load-balance losses in fp32, layer by
+    layer from zero (None for a family without MoE layers)."""
     check_family(cfg)
     p = pattern_period(cfg)
     kinds = pattern_kinds(cfg)
@@ -304,13 +390,19 @@ def forward_seq(params, cfg, x, positions, max_seq=None):
                                   x.device)
     S = max_seq or x.shape[1]
     Lp = cfg.num_layers // p
+    blocks = [layer_slices(b, Lp) for b in params["blocks"]]
     per_layer = [[] for _ in range(p)]
+    aux = None
     for li in range(Lp):
         for i in range(p):
-            x, nc = apply_block(cfg, kinds[i], _layer_slice(params["blocks"][i], li), x,
-                                positions, inv_freq, "prefill", seq_len_hint=S)
+            x, nc, a = apply_block(cfg, kinds[i], blocks[i][li], x, positions, inv_freq, mode,
+                                   seq_len_hint=S)
             per_layer[i].append(nc)
-    return x, [_stack(entries) for entries in per_layer]
+            if a is not None:
+                aux = a if aux is None else aux + a
+    if mode == "train":
+        return x, None, aux
+    return x, [_stack(entries) for entries in per_layer], aux
 
 
 def _stack(entries):
@@ -330,7 +422,7 @@ def lm_prefill(params, cfg, batch, max_seq=None):
     x = _assemble_input(params, cfg, batch)
     B, S, _ = x.shape
     positions = torch.arange(S, device=x.device)[None, :].expand(B, S)
-    x, caches = forward_seq(params, cfg, x, positions, max_seq=max_seq or S)
+    x, caches, _ = forward_seq(params, cfg, x, positions, "prefill", max_seq=max_seq or S)
     logits = _logits(params, cfg, x[:, -1:, :])[:, 0]
     return logits, {"pos": torch.full((B,), S, dtype=torch.int32, device=x.device),
                     "layers": caches}
@@ -347,11 +439,12 @@ def lm_decode_step(params, cfg, cache, tokens):
     inv_freq = L.rope_frequencies(cfg.resolved_head_dim, cfg.rope_style, cfg.rope_theta,
                                   x.device)
     Lp = cfg.num_layers // p
+    blocks = [layer_slices(b, Lp) for b in params["blocks"]]
     for li in range(Lp):
         for i in range(p):
             lc = _layer_slice(cache["layers"][i], li)
-            x, nc = apply_block(cfg, kinds[i], _layer_slice(params["blocks"][i], li), x,
-                                pos, inv_freq, "decode", cache=lc)
+            x, nc, _ = apply_block(cfg, kinds[i], blocks[i][li], x, pos, inv_freq, "decode",
+                                   cache=lc)
             # an attention entry was written in place; an SSM state is new
             for name, new in nc.get("ssm", {}).items():
                 cache["layers"][i]["ssm"][name][li] = new.to(lc["ssm"][name].dtype)

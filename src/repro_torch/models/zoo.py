@@ -3,6 +3,7 @@
 ``build_lm(cfg)`` returns an ``LMApi`` with
 
   init(key, device)                     -> parameter tree
+  loss(params, batch)                   -> (loss, metrics)   [the training objective]
   prefill(params, batch, max_seq=None)  -> (last-token logits, cache)
   decode_step(params, cache, tokens)    -> (logits, cache)   [cache updated in place]
   init_cache(batch, seq_len, prefilled=0, device=None) -> cache tree
@@ -11,6 +12,7 @@ Every family of the reference is ported: the decoder-only ``dense``,
 ``moe``, ``ssm``, ``hybrid`` and ``vlm`` (``models/transformer.py``; a
 ``vlm`` prefill batch also holds ``image_embeds``) and ``encdec``
 (``models/encdec.py``; its prefill batch holds ``frames`` and ``tokens``).
+A training batch adds ``targets`` (B, S) to the prefill batch's entries.
 """
 from __future__ import annotations
 
@@ -24,6 +26,7 @@ from repro_torch.models import transformer as _tf
 class LMApi(NamedTuple):
     cfg: ModelConfig
     init: Callable
+    loss: Callable
     prefill: Callable
     decode_step: Callable
     init_cache: Callable
@@ -35,6 +38,7 @@ def build_lm(cfg: ModelConfig) -> LMApi:
         return LMApi(
             cfg,
             init=lambda key, device=None: _encdec.init_encdec(key, cfg, device),
+            loss=lambda p, b: _encdec.encdec_loss(p, cfg, b),
             prefill=lambda p, b, max_seq=None: _encdec.encdec_prefill(p, cfg, b, max_seq),
             decode_step=lambda p, c, t: _encdec.encdec_decode_step(p, cfg, c, t),
             init_cache=lambda batch, seq, prefilled=0, device=None: _encdec.init_encdec_cache(
@@ -43,6 +47,7 @@ def build_lm(cfg: ModelConfig) -> LMApi:
     return LMApi(
         cfg,
         init=lambda key, device=None: _tf.init_lm(key, cfg, device),
+        loss=lambda p, b: _tf.lm_loss(p, cfg, b),
         prefill=lambda p, b, max_seq=None: _tf.lm_prefill(p, cfg, b, max_seq),
         decode_step=lambda p, c, t: _tf.lm_decode_step(p, cfg, c, t),
         init_cache=lambda batch, seq, prefilled=0, device=None: _tf.init_lm_cache(

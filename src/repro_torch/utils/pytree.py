@@ -80,6 +80,54 @@ def tree_bytes(spec: Spec, itemsize: int = 4) -> int:
     return flat_size_of(spec) * itemsize
 
 
+def tree_leaves_with_path(tree) -> list:
+    """(path, leaf) pairs in flat order, a path element a ``str`` (a dict key)
+    or an ``int`` (a list index)."""
+    return list(_leaves(tree))
+
+
+def tree_leaves(tree) -> list:
+    """The leaves of a tree in flat order (JAX's: sorted keys, list items by index)."""
+    return [x for _, x in _leaves(tree)]
+
+
+def tree_size(tree) -> int:
+    """Elements over every leaf of a tensor tree."""
+    return sum(x.numel() for x in tree_leaves(tree))
+
+
+def tree_nbytes(tree) -> int:
+    """Storage bytes of a tensor tree, each leaf in its own dtype (the
+    reference's ``tree_bytes`` of an array tree; ``tree_bytes`` here takes a spec)."""
+    return sum(x.numel() * x.element_size() for x in tree_leaves(tree))
+
+
+def tree_global_norm(tree) -> torch.Tensor:
+    """L2 norm over every element: each leaf's squares summed in fp32, the
+    leaves added in flat order from the first, then the root."""
+    total = None
+    for x in tree_leaves(tree):
+        sq = torch.sum(torch.square(x.to(torch.float32)))
+        total = sq if total is None else total + sq
+    return torch.sqrt(total) if total is not None else torch.zeros(())
+
+
+def tree_add(a, b):
+    return tree_map(torch.add, a, b)
+
+
+def tree_sub(a, b):
+    return tree_map(torch.sub, a, b)
+
+
+def tree_scale(tree, s):
+    return tree_map(lambda x: x * s, tree)
+
+
+def tree_zeros_like(tree):
+    return tree_map(torch.zeros_like, tree)
+
+
 def tree_map(fn, tree, *rest):
     """``fn`` over the leaves of one or more trees of the same structure."""
     if isinstance(tree, dict):

@@ -35,8 +35,12 @@ against the fused one (integers equal, floats within rtol 1e-5).  The MoE
 layer on a skewed input that drops copies: routing equal card vs CPU, no
 device-to-host sync; the smoke moe, vlm and encdec LMs served card vs CPU.  The
 CNN datasets' models at full width, forward and trainer card vs CPU, and a
-narrow CNN's round repeated bit for bit on the card.  Without
-a card every test skips, decided in the fixture.
+narrow CNN's round repeated bit for bit on the card.  The LM trainer: one
+step of the dense, moe, vlm and encdec smoke LMs card vs CPU (loss within
+rtol 1e-5, params within 2 lr), no kernel launched; ``ssd_scan`` and
+``swa_decode`` refusing an operand that requires grad under grad mode (no
+kernel has a backward), and the ssm and hybrid trainers refusing the card.
+Without a card every test skips, decided in the fixture.
 """
 import pytest
 import torch
@@ -1784,3 +1788,102 @@ def test_cnn_round_repeats_bitwise_on_the_card(dev, dataset):
     for f in ("round", "n_selected", "n_succeeded"):
         assert int(getattr(mc, f)) == int(getattr(ma, f)), f
     assert abs(float(mc.test_acc) - float(ma.test_acc)) <= 0.01
+
+
+# ---- LM training: no kernel with a gradient ------------------------------------
+
+TRAIN_LR = 3e-4
+
+
+def _train_one_step(arch, m, B, device, params):
+    """One AdamW step of ``launch.steps.make_train_step`` at ``m`` microbatches on
+    the trainer's first batch (``launch.train.make_batch``, S = 32)."""
+    from repro_torch.config import TrainConfig
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch.steps import TrainState, make_train_step
+    from repro_torch.launch.train import make_batch
+    from repro_torch.models import build_model
+
+    cfg = get_smoke_config(arch).replace(train_microbatches=m)
+    step, opt = make_train_step(build_model(cfg), TrainConfig(learning_rate=TRAIN_LR))
+    batch = make_batch(cfg, prng.fold_in(prng.key(0, device), 1), B, 32)
+    return step(TrainState(params, opt.init(params)), batch)
+
+
+@pytest.mark.parametrize("arch,m,B", [("qwen1.5-0.5b", 1, 4), ("mixtral-8x7b", 1, 4),
+                                      ("mixtral-8x7b", 8, 8), ("internvl2-76b", 1, 2),
+                                      ("whisper-small", 2, 4)])
+def test_smoke_trainer_on_the_card_matches_the_cpu(dev, arch, m, B):
+    """One train step of the dense, moe, vlm and encdec smoke LMs (fp32) on the
+    card and on the CPU from the same weights: loss and metrics within rtol
+    1e-5, every parameter within 2 lr (AdamW's first step is about
+    ``lr * sign(g)``) and fewer than 0.1 % more than lr / 10 apart; the moments
+    fp32; no kernel launched (this path runs none)."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.kernels import ssd_scan as ssd
+    from repro_torch.kernels import swa_decode as swa
+    from repro_torch.models import build_model
+    from repro_torch.utils.pytree import tree_leaves
+
+    params = build_model(get_smoke_config(arch)).init(prng.key(0), "cpu")
+    before = (ssd.launches, swa.launches)
+    sg, mg = _train_one_step(arch, m, B, dev, _tree_to(params, dev))
+    sc, mc = _train_one_step(arch, m, B, "cpu", params)
+    assert (ssd.launches, swa.launches) == before
+    for k in mc:
+        torch.testing.assert_close(mg[k].cpu(), mc[k], rtol=1e-5, atol=1e-6, msg=k)
+    for a, b in zip(tree_leaves(sg.params), tree_leaves(sc.params)):
+        d = (a.cpu() - b).abs()
+        assert float(d.max()) <= 2 * TRAIN_LR
+        assert float((d > TRAIN_LR / 10).float().mean()) < 1e-3
+    assert all(x.dtype == torch.float32 for x in tree_leaves(sg.opt_state.nu))
+
+
+def test_ssd_scan_refuses_an_operand_that_requires_grad(dev):
+    """B8 has no backward: under grad mode an operand that requires grad raises
+    (naming the queue of its backward); with grad off, or no operand requiring
+    grad, it launches."""
+    from repro_torch.kernels import ssd_scan as ssd
+
+    x, dt, A, Bs, Cs, _ = _ssd_operands(2, 40, 3, 16, 8, torch.float32, dev)
+    before = ssd.launches
+    for i, name in enumerate(("xh", "dt", "A", "Bs", "Cs")):
+        ops = [x, dt, A, Bs, Cs]
+        ops[i] = ops[i].clone().requires_grad_(True)
+        with pytest.raises(RuntimeError, match="no backward.*A10b"):
+            ssd.ssd_scan(*ops, 16)
+        with torch.no_grad():
+            ssd.ssd_scan(*ops, 16)
+    h0 = torch.zeros((2, 3, 16, 8), device=dev, requires_grad=True)
+    with pytest.raises(RuntimeError, match="A10b"):
+        ssd.ssd_scan(x, dt, A, Bs, Cs, 16, h0)
+    ssd.ssd_scan(x, dt, A, Bs, Cs, 16)
+    assert ssd.launches == before + 6
+
+
+def test_swa_decode_refuses_an_operand_that_requires_grad(dev):
+    from repro_torch.kernels import swa_decode as swa
+
+    q, k, v, kv_pos, pos = _swa_operands(2, 64, 2, 2, 32, torch.float32, dev, (40, 64))
+    before = swa.launches
+    for i in range(3):
+        ops = [q, k, v]
+        ops[i] = ops[i].clone().requires_grad_(True)
+        with pytest.raises(RuntimeError, match="swa_decode: the CUDA kernel has no backward"):
+            swa.swa_decode(*ops, kv_pos, pos)
+        with torch.no_grad():
+            swa.swa_decode(*ops, kv_pos, pos)
+    assert swa.launches == before + 3
+
+
+@pytest.mark.parametrize("arch", ["hymba-1.5b", "mamba2-130m"])
+def test_ssm_and_hybrid_training_on_the_card_raise(dev, arch):
+    """Their forward reaches B8, which has no backward: the trainer raises on the
+    card rather than lose the gradient or fall back to the plain scan."""
+    from repro_torch.kernels import ssd_scan as ssd
+    from repro_torch.launch.train import train
+
+    before = ssd.launches
+    with pytest.raises(RuntimeError, match="ssd_scan: the CUDA kernel has no backward.*A10b"):
+        train(arch, steps=1, batch=4, seq=32, device=dev, verbose=False)
+    assert ssd.launches == before
