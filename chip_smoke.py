@@ -198,6 +198,16 @@ Phases (any failure raises and exits non-zero):
    round loop timed apart, a grid round profiled with and without the eval,
    the sweeps' peak memory; the bf16 lane at CIFAR-10 for 3 rounds beside
    fp32's accuracy; ``fl_sim --dataset cifar10 --rounds 2`` (4 B1, 2 B2);
+4j. Dirichlet shards and the last two examples: a 4-lane ``("fedavg",)``
+   engine grid at ``dirichlet_alpha`` 0.5 (contextual x seeds 0, 1 x ring /
+   rush_hour, N=20, 3 rounds) through the batched round (exactly 6 B1g and 3
+   B2g), each lane's labels equal to the CPU's and its records within
+   ``GRID_TOL`` of a CPU engine's; ``python -m
+   repro_torch.launch.serve_decode`` (the mixtral-8x7b smoke config, one
+   ``swa_decode`` an attention layer a decode step), its greedy tokens the
+   CPU's; ``python -m repro_torch.launch.fl_cits_benchmark --rounds 3
+   --clients 20`` (2 B1 and 1 B2 a round), its records within ``GRID_TOL``
+   of the CPU's;
 5. times: each kernel (CUDA events, after warm-up) beside its bound, its
    plain version and a one-call PyTorch yardstick (``pairwise_cosine`` at
    (100, 1024), (256, 4096) and (20,000, 1,024)), and for every kernel and
@@ -244,16 +254,20 @@ Phases (any failure raises and exits non-zero):
    64 behind 4 x 1,500 frames, 32 tokens, exactly 2 x 12 ``swa_decode``
    launches a decode step.
 7. training (after the serving runs): ``python -m repro_torch.launch.train
-   --arch qwen1.5-0.5b --full --steps 5`` (464,118,784 bf16 parameters,
-   fp32 AdamW moments, B=8 x 128; finite losses, its step times, tokens/s
-   and peak memory, no kernel launched), 5 AdamW steps on one repeated
-   batch (the loss must fall) and one profiled step; qwen1.5-0.5b at full
+   --arch ARCH --full --steps 5`` for qwen1.5-0.5b (464,118,784 bf16
+   parameters), hymba-1.5b (1,641,790,720; 4 microbatches) and mamba2-130m
+   (129,100,224), bf16 but for the SSM's per-head fp32 leaves (4,800 and
+   1,728), fp32 AdamW moments, B=8 x 128: finite losses, the step
+   times, tokens/s and peak memory, no kernel launched (the ssm / hybrid scan
+   is the plain one under grad mode); 5 (qwen1.5-0.5b) and 3 (hymba-1.5b)
+   AdamW steps on one repeated batch (the loss must fall); one profiled step
+   each;
+   qwen1.5-0.5b at full
    width cut to 2 layers, fp32, one step on the card against the CPU
    (loss, the global and each leaf's gradient norm, in each leaf fewer than
-   1e-3 of the elements more than lr / 10 apart); each dense / moe / vlm /
-   encdec smoke config, one step card vs CPU at one microbatch and at the
-   config's own count; the ssm / hybrid trainers (hymba-1.5b, mamba2-130m) refused on the card
-   (``ssd_scan`` has no backward); ``python -m
+   1e-3 of the elements more than lr / 10 apart); every family's smoke
+   config, the ssm and hybrid ones too, one step card vs CPU at one
+   microbatch and at the config's own count; ``python -m
    repro_torch.launch.federated_llm --rounds 2`` on the card, its cohorts and
    clusters the CPU's, eval losses within rtol 1e-5 and each round's update
    norm within rtol 1e-4.
@@ -261,8 +275,8 @@ Phases (any failure raises and exits non-zero):
 The last three lines are the kernels' JSON record (their fp32 rows;
 ``swa_decode``'s launches summed over every serving run; ``rttg_latency``'s,
 ``fedavg_reduce``'s and ``server_update_buffered``'s with one sweep of each
-engine grid of phases 4h and 4i and the CNN paths of phase 4i, the parts
-named in their ``launches_by_path``;
+engine grid of phases 4h, 4i and 4j, the CNN paths of phase 4i and the
+example paths of phase 4j, the parts named in their ``launches_by_path``;
 ``rttg_latency_grid``'s, ``fedavg_reduce_grid``'s, ``server_update_grid``'s,
 ``server_update_buffered_grid``'s and ``rsu_reduce_grid``'s from one sweep
 of each engine grid, the two-tier ones included),
@@ -1587,11 +1601,11 @@ def replay(sim, state0, first, traffic, params_atol: float, acc_atol: float = 1e
 
 def profile_round(label, fn, card):
     """One call of ``fn`` (a round, a decode step, a prefill) under
-    torch.profiler: wall, device busy time and idle share, and the device
+    torch.profiler, the device traced alone (a host trace would slow the call
+    it measures): wall, device busy time and idle share, and the device
     kernels by total time.  -> {"wall_ms", "ops", "busy_ms", "idle"} (None
     when the profiler saw no device activity)."""
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         fn()
@@ -2917,6 +2931,32 @@ def grid_vs_loop(eng, grid: Grid, res, tol, server: str, card):
     return wall
 
 
+def check_records_close(got, want, tol, what) -> float:
+    """Round records (``RoundRecord`` or their dicts) card vs CPU: integers
+    equal, floats within ``tol`` (``GRID_TOL``'s keys), NaN alike.  -> the
+    worst float's share of its tolerance."""
+    worst = 0.0
+    for a, b in zip(got, want):
+        a = a if isinstance(a, dict) else dataclasses.asdict(a)
+        b = b if isinstance(b, dict) else dataclasses.asdict(b)
+        for f, y in b.items():
+            x = a[f]
+            if f in ("round", "n_selected", "n_succeeded", "n_buffered", "n_drained"):
+                if x != y:
+                    raise AssertionError(f"{what} round {b['round']}: {f} card {x} vs cpu {y}")
+                continue
+            if math.isnan(x) or math.isnan(y):
+                if not (math.isnan(x) and math.isnan(y)):
+                    raise AssertionError(f"{what} round {b['round']}: {f} {x} vs {y} (NaN)")
+                continue
+            rtol = tol["loss_rtol"] if f == "test_loss" else tol["rtol"]
+            atol = tol["acc_atol"] if f == "test_acc" else tol["atol"]
+            if not math.isclose(x, y, rel_tol=rtol, abs_tol=atol):
+                raise AssertionError(f"{what} round {b['round']}: {f} card {x} vs cpu {y}")
+            worst = max(worst, abs(x - y) / (atol + rtol * abs(y)))
+    return worst
+
+
 def lane_vs_cpu(res, eng, grid: Grid, lane, tol, card) -> float:
     """One lane of the card's grid against the same lane on the CPU's plain
     path (``run_single`` of a CPU engine of the same strategies, registry and
@@ -2931,24 +2971,7 @@ def lane_vs_cpu(res, eng, grid: Grid, lane, tol, card) -> float:
     want = cpu.run_single(strategy, seed, scenario, rounds=grid.rounds,
                           eval_every=grid.eval_every, aggregator=aggregator)
     got = res.records(strategy, seed, scenario, aggregator=aggregator)
-    worst = 0.0
-    for a, b in zip(got, want):
-        for f in ("round", "n_selected", "n_succeeded", "n_buffered", "n_drained"):
-            if getattr(a, f) != getattr(b, f):
-                raise AssertionError(f"{lane} round {a.round}: {f} card {getattr(a, f)} vs "
-                                     f"cpu {getattr(b, f)}")
-        for f in ("sim_time", "duration", "mean_pred_latency", "mean_real_latency",
-                  "test_acc", "test_loss"):
-            x, y = getattr(a, f), getattr(b, f)
-            if math.isnan(x) or math.isnan(y):
-                if not (math.isnan(x) and math.isnan(y)):
-                    raise AssertionError(f"{lane} round {a.round}: {f} {x} vs {y} (NaN)")
-                continue
-            rtol = tol["loss_rtol"] if f == "test_loss" else tol["rtol"]
-            atol = tol["acc_atol"] if f == "test_acc" else tol["atol"]
-            if not math.isclose(x, y, rel_tol=rtol, abs_tol=atol):
-                raise AssertionError(f"{lane} round {a.round}: {f} card {x} vs cpu {y}")
-            worst = max(worst, abs(x - y) / (atol + rtol * abs(y)))
+    worst = check_records_close(got, want, tol, str(lane))
     print(f"{lane}: {grid.rounds} round(s) on the card vs the CPU's plain path: integers equal, "
           f"floats within the tolerance (worst {worst:.3f} of it) [{card}]")
     return worst
@@ -3373,13 +3396,132 @@ def cnn_phase(fl, mnist_records, device, card) -> dict:
     return launches
 
 
-# The LM trainer (phase 7).  Every family but ssm / hybrid trains through plain
-# torch on the card: no kernel runs, so every launch count must stay 0.
+# Phase 4j: an engine grid on Dirichlet client shards (``dirichlet_alpha`` 0.5,
+# the reference engine test's), ("fedavg",) x contextual x seeds 0, 1 x two
+# scenarios at the bench's N = 20, 3 rounds, eval every round
+DIRICHLET_GRID = dict(seeds=(0, 1), scenarios=("ring", "rush_hour"), rounds=3, eval_every=1)
+# ``launch.fl_cits_benchmark``'s run on the card: 3 strategies x 3 rounds, N = 20
+FL_CITS = dict(rounds=3, clients=20)
+
+
+def dirichlet_and_examples_phase(device, card):
+    """Phase 4j: the port's last paths on the card.  A 4-lane ``("fedavg",)``
+    engine grid on Dirichlet shards through the batched round (exactly 2 B1g
+    and 1 B2g a round), each lane's labels equal to the CPU's and its records
+    within ``GRID_TOL`` of the CPU's; ``python -m
+    repro_torch.launch.serve_decode`` (one B7 launch an attention layer a
+    decode step), its tokens the CPU's; ``python -m
+    repro_torch.launch.fl_cits_benchmark --rounds 3 --clients 20`` (2 B1 and 1
+    B2 a round), its records within ``GRID_TOL`` of the CPU's.  -> (the grid's
+    launches, the two examples' launches by path)."""
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.fl import ExperimentEngine
+    from repro_torch.launch import fl_cits_benchmark, serve_decode
+
+    phase("Dirichlet shards: a 4-lane ('fedavg',) engine grid at dirichlet_alpha 0.5 (N=20, "
+          "3 rounds) on cuda, the batched round")
+    fl = grid_fl(dirichlet_alpha=0.5)
+    model = get_config("fl-mnist-mlp")
+    eng = ExperimentEngine(model, fl, "mnist", strategies=("contextual",), device=device)
+    if not eng.batched:
+        raise AssertionError("the Dirichlet grid engine did not take the batched round")
+    reset_launches()
+    t0 = time.perf_counter()
+    res = eng.run_grid(**DIRICHLET_GRID)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    grid = read_launches()
+    rounds = DIRICHLET_GRID["rounds"]
+    want = dict.fromkeys(grid, 0)
+    want.update(rttg_latency_grid=2 * rounds, fedavg_reduce_grid=rounds)
+    if grid != want:
+        raise AssertionError(f"Dirichlet grid: expected {want}, got {grid}")
+    cpu = ExperimentEngine(model, fl, "mnist", strategies=("contextual",), device="cpu")
+    ref = cpu.run_grid(**DIRICHLET_GRID)
+    worst, classes = 0.0, []
+    for run in res.runs:
+        strategy, aggregator, seed, scenario = run
+        labels = eng.init_run(strategy, seed, scenario)[1].labels
+        want_labels = cpu.init_run(strategy, seed, scenario)[1].labels
+        if not torch.equal(labels.cpu(), want_labels):
+            raise AssertionError(f"Dirichlet grid {run}: the card's labels are not the CPU's")
+        classes.append(int((torch.nn.functional.one_hot(want_labels, 10).sum(1) > 0)
+                           .sum(1).max()))
+        worst = max(worst, check_records_close(
+            res.records(strategy, seed, scenario, aggregator=aggregator),
+            ref.records(strategy, seed, scenario, aggregator=aggregator), GRID_TOL, str(run)))
+    acc = res.final_accuracy()
+    print(f"Dirichlet grid, {len(res.runs)} lanes x {rounds} rounds on the card in {wall:.3f} s: "
+          f"launches {({k: v for k, v in grid.items() if v})}; labels the CPU's (up to "
+          f"{max(classes)} classes a client), records within GRID_TOL of the CPU's (worst "
+          f"{worst:.3f} of it); final accuracy {min(acc.values()):.4f}-"
+          f"{max(acc.values()):.4f} [{card}]")
+    del eng, cpu, res, ref
+    torch.cuda.empty_cache()
+
+    phase("examples: python -m repro_torch.launch.serve_decode on cuda (mixtral-8x7b smoke, "
+          "4 x 48, 24 tokens)")
+    paths = {}
+    reset_launches()
+    t0 = time.perf_counter()
+    tokens = serve_decode.main([])
+    torch.cuda.synchronize()
+    sd_s = time.perf_counter() - t0
+    got = read_launches()
+    cfg = get_smoke_config("mixtral-8x7b")
+    want = dict.fromkeys(got, 0)
+    want.update(swa_decode=cfg.num_layers * (serve_decode.GEN - 1))
+    if got != want:
+        raise AssertionError(f"serve_decode: expected {want}, got {got}")
+    cpu_tokens = serve_decode.run("cpu", verbose=False)
+    if not torch.equal(tokens.cpu(), cpu_tokens):
+        raise AssertionError(f"serve_decode: the card's tokens {tokens.tolist()} are not the "
+                             f"CPU's {cpu_tokens.tolist()}")
+    paths["serve_decode"] = got
+    print(f"serve_decode on the card in {sd_s:.2f} s: greedy tokens the CPU's, launches "
+          f"{({k: v for k, v in got.items() if v})} [{card}]")
+
+    phase(f"examples: python -m repro_torch.launch.fl_cits_benchmark --rounds "
+          f"{FL_CITS['rounds']} --clients {FL_CITS['clients']} on cuda")
+    argv = ["--rounds", str(FL_CITS["rounds"]), "--clients", str(FL_CITS["clients"])]
+    reset_launches()
+    t0 = time.perf_counter()
+    out = fl_cits_benchmark.main(argv)
+    torch.cuda.synchronize()
+    fc_s = time.perf_counter() - t0
+    got = read_launches()
+    n = len(fl_cits_benchmark.STRATEGIES) * FL_CITS["rounds"]
+    want = dict.fromkeys(got, 0)
+    want.update(rttg_latency=2 * n, fedavg_reduce=n)
+    if got != want:
+        raise AssertionError(f"fl_cits_benchmark: expected {want}, got {got}")
+    paths["fl_cits_benchmark"] = got
+    ref = fl_cits_benchmark.run(FL_CITS["rounds"], clients=FL_CITS["clients"], device="cpu",
+                                verbose=False)
+    worst = max(check_records_close(out[s]["rounds"], ref[s]["rounds"], GRID_TOL, s)
+                for s in fl_cits_benchmark.STRATEGIES)
+    print(f"fl_cits_benchmark on the card in {fc_s:.2f} s: records within GRID_TOL of the "
+          f"CPU's (worst {worst:.3f} of it), launches {({k: v for k, v in got.items() if v})} "
+          f"[{card}]")
+    torch.cuda.empty_cache()
+    return grid, paths
+
+
+# The LM trainer (phase 7).  Every family trains through plain torch on the card
+# (the ssm / hybrid scan through ``ssd_scan_plain`` under grad mode): no kernel
+# runs, so every launch count must stay 0.
 TRAIN_LR = 3e-4
+# ``launch.train --full --steps 5`` at the CLI's defaults: (arch, parameters)
+TRAIN_FULL = (("qwen1.5-0.5b", 464_118_784), ("hymba-1.5b", 1_641_790_720),
+              ("mamba2-130m", 129_100_224))
+# the full runs that also take AdamW steps on one repeated batch (the loss must
+# fall): arch -> steps
+TRAIN_REPEATED = {"qwen1.5-0.5b": 5, "hymba-1.5b": 3}
 # The families' smoke configs, card vs CPU: (arch, batch) at one microbatch
 # and at the config's own count (batch = max(4, m))
 TRAIN_SMOKE_ARCHS = ("qwen1.5-0.5b", "gemma2-9b", "mistral-nemo-12b", "chatglm3-6b",
-                     "mixtral-8x7b", "phi3.5-moe-42b-a6.6b", "internvl2-76b", "whisper-small")
+                     "mixtral-8x7b", "phi3.5-moe-42b-a6.6b", "internvl2-76b", "whisper-small",
+                     "hymba-1.5b", "mamba2-130m")
 
 
 def assert_no_launches(what: str) -> None:
@@ -3449,22 +3591,22 @@ def train_step_card_vs_cpu(cfg, batch, seq, device, label, params=None):
           f"elements > lr / 10 apart, at most {worst_share:.2e} of a leaf")
 
 
-def train_phase(device, card) -> None:
-    """Phase 7: ``python -m repro_torch.launch.train --arch qwen1.5-0.5b --full
-    --steps 5`` on the card (step time, tokens/s, peak memory, no launch), then
-    AdamW steps on one repeated batch (the loss falls) and one profiled step;
-    qwen1.5-0.5b cut to 2 layers card vs CPU in fp32; each dense / moe / vlm /
-    encdec smoke config card vs CPU at one microbatch and at its own count; the
-    ssm and hybrid trainers refusing the card; ``federated_llm --rounds 2`` on the
-    card against the CPU."""
-    from repro_torch.configs import get_config, get_smoke_config
-    from repro_torch.launch import federated_llm
+def train_full(arch: str, n_params: int, device, card) -> None:
+    """``python -m repro_torch.launch.train --arch ARCH --full --steps 5`` on the
+    card: the exact parameter count, bf16 params (the SSM's per-head leaves
+    fp32) and fp32 AdamW moments,
+    finite losses, no kernel launched; its step times (median past the first),
+    tokens/s and peak memory above what was held; for ``TRAIN_REPEATED`` its
+    AdamW steps on one repeated batch (the loss must fall); one profiled step."""
+    from repro_torch.config import TrainConfig
+    from repro_torch.configs import get_config
     from repro_torch.launch import train as train_mod
+    from repro_torch.launch.steps import make_train_step
     from repro_torch.launch.train import make_batch
+    from repro_torch.models import build_model
     from repro_torch.utils import prng
     from repro_torch.utils.pytree import tree_leaves
 
-    arch = "qwen1.5-0.5b"
     batch, seq = 8, 128  # the CLI's defaults
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -3474,65 +3616,75 @@ def train_phase(device, card) -> None:
     assert_no_launches(f"{arch} training")
     peak = torch.cuda.max_memory_allocated() - held
     params = res.state.params
-    if res.n_params != 464_118_784:
-        raise AssertionError(f"{arch}: {res.n_params:,} parameters, expected 464,118,784")
-    if any(x.dtype != torch.bfloat16 for x in tree_leaves(params)) or any(
+    if res.n_params != n_params:
+        raise AssertionError(f"{arch}: {res.n_params:,} parameters, expected {n_params:,}")
+    # bf16 params but the SSM's per-head fp32 leaves (A_log, dt_bias, D: (layers,
+    # heads)), as the reference draws them; fp32 moments
+    def fp32_ok(x):
+        return res.cfg.family in ("ssm", "hybrid") and x.dtype == torch.float32 \
+            and x.dim() == 2 and x.shape[-1] == res.cfg.ssm_num_heads
+
+    if any(x.dtype != torch.bfloat16 and not fp32_ok(x) for x in tree_leaves(params)) or any(
             x.dtype != torch.float32 for x in tree_leaves(res.state.opt_state.mu)
             + tree_leaves(res.state.opt_state.nu)):
-        raise AssertionError(f"{arch}: params must be bf16 and the AdamW moments fp32")
+        raise AssertionError(f"{arch}: params must be bf16 (the SSM's per-head leaves fp32) "
+                             f"and the AdamW moments fp32")
+    n_fp32 = sum(x.numel() for x in tree_leaves(params) if x.dtype == torch.float32)
     if not all(math.isfinite(x) for x in res.losses):
         raise AssertionError(f"{arch}: losses {res.losses}")
     step_ms = sorted(res.step_s[1:])[len(res.step_s[1:]) // 2] * 1e3  # median past the first
-    print(f"{arch} --full training: {res.n_params:,} bf16 parameters, fp32 AdamW moments, "
-          f"B={batch} x {seq} tokens; step times "
+    print(f"{arch} --full training: {res.n_params:,} parameters ({n_fp32:,} of them the "
+          f"SSM's fp32 per-head leaves, the rest bf16), fp32 AdamW moments, "
+          f"B={batch} x {seq} tokens, {res.cfg.train_microbatches} microbatch(es); step times "
           f"{', '.join(f'{x * 1e3:.1f}' for x in res.step_s)} ms (the first warms the card "
           f"up); median past the first {step_ms:.1f} ms, "
           f"{batch * seq / step_ms * 1e3:,.0f} tokens/s; peak memory {peak / 2**30:.2f} GiB "
           f"above the {held / 2**30:.2f} GiB held; launches {read_launches()} [{card}]")
 
-    # AdamW steps on one repeated batch: the loss must fall
-    from repro_torch.config import TrainConfig
-    from repro_torch.launch.steps import make_train_step
-    from repro_torch.models import build_model
-
     cfg = get_config(arch)
     step, _ = make_train_step(build_model(cfg), TrainConfig(learning_rate=TRAIN_LR))
     b = make_batch(cfg, prng.fold_in(prng.key(0, device), 1), batch, seq)
-    state, losses = res.state, []
-    for _ in range(5):
-        state, met = step(state, b)
-        losses.append(float(met["loss"]))
-    if not (all(math.isfinite(x) for x in losses) and losses[-1] < losses[0]):
-        raise AssertionError(f"{arch}: the loss on one repeated batch does not fall: {losses}")
-    print(f"{arch}: 5 AdamW steps on one repeated batch, loss "
-          f"{' -> '.join(f'{x:.4f}' for x in losses)}")
+    state = res.state
+    if arch in TRAIN_REPEATED:
+        losses = []
+        reset_launches()
+        for _ in range(TRAIN_REPEATED[arch]):
+            state, met = step(state, b)
+            losses.append(float(met["loss"]))
+        assert_no_launches(f"{arch} repeated batch")
+        if not (all(math.isfinite(x) for x in losses) and losses[-1] < losses[0]):
+            raise AssertionError(f"{arch}: the loss on one repeated batch does not fall: "
+                                 f"{losses}")
+        print(f"{arch}: {len(losses)} AdamW steps on one repeated batch, loss "
+              f"{' -> '.join(f'{x:.4f}' for x in losses)}")
     profile_round(f"train step, {arch} full, B={batch} x {seq}", lambda: step(state, b), card)
     del res, state, params, step, b
     torch.cuda.empty_cache()
+
+
+def train_phase(device, card) -> None:
+    """Phase 7: ``python -m repro_torch.launch.train --arch ARCH --full --steps
+    5`` on the card for qwen1.5-0.5b, hymba-1.5b and mamba2-130m
+    (``train_full``); qwen1.5-0.5b cut to 2 layers card vs CPU in fp32; every
+    smoke config card vs CPU at one microbatch and at its own count, the ssm and
+    hybrid ones too; ``federated_llm --rounds 2`` on the card against the CPU."""
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.launch import federated_llm
+
+    for a, n in TRAIN_FULL:
+        train_full(a, n, device, card)
+    arch = "qwen1.5-0.5b"
 
     # full width cut to 2 layers, fp32, card vs CPU
     train_step_card_vs_cpu(cut_depth(get_config(arch), 2).replace(dtype="float32"), 2, 64, device,
                            f"{arch} full width, 2 layers, fp32, B=2 x 64")
     torch.cuda.empty_cache()
-    # the smoke configs of dense, moe, vlm and encdec at m = 1 and their own m
+    # every family's smoke config at m = 1 and its own m
     for a in TRAIN_SMOKE_ARCHS:
         cfg = get_smoke_config(a)
         for m in sorted({1, cfg.train_microbatches}):
             train_step_card_vs_cpu(cfg.replace(train_microbatches=m), max(4, m), 32, device,
                                    f"{a} smoke, m={m}, B={max(4, m)} x 32")
-    # ssm / hybrid: the scan kernel has no backward, so their trainer refuses the card
-    for a in ("hymba-1.5b", "mamba2-130m"):
-        reset_launches()
-        try:
-            train_mod.train(a, steps=1, batch=4, seq=32, device=device, verbose=False)
-        except RuntimeError as e:
-            if "A10b" not in str(e):
-                raise
-            print(f"{a} training on the card refused: {e}")
-        else:
-            raise AssertionError(f"{a}: training on the card ran through a kernel with no "
-                                 f"backward")
-        assert_no_launches(f"{a} refused training")
     # the federated-LM example on the card against the CPU
     reset_launches()
     t0 = time.perf_counter()
@@ -4219,15 +4371,20 @@ def main(argv=()) -> int:
     grid_launches = engine_phase(device, card)
 
     # ---- 4i. the CNN datasets ----------------------------------------------------
-    cnn_launches = cnn_phase(fl, records, device, card)
-    grid_launches["cifar10"] = cnn_launches.pop("engine cifar10 grid")
+    path_launches = cnn_phase(fl, records, device, card)
+    grid_launches["cifar10"] = path_launches.pop("engine cifar10 grid")
+
+    # ---- 4j. Dirichlet shards and the two remaining examples -----------------
+    grid_launches["dirichlet"], example_launches = dirichlet_and_examples_phase(device, card)
+    path_launches.update(example_launches)
 
     def by_path(name, first, first_path="the main path"):
         """The parts of a kernel's ``launches``: ``first`` on ``first_path``,
-        one sweep of each engine grid and each CNN path that launched it."""
+        one sweep of each engine grid and each CNN or example path that
+        launched it."""
         return {first_path: first,
                 **{f"engine {grid} grid": g[name] for grid, g in grid_launches.items() if g[name]},
-                **{path: c[name] for path, c in cnn_launches.items() if c[name]}}
+                **{path: c[name] for path, c in path_launches.items() if c[name]}}
 
     # ---- 5. times ----------------------------------------------------------
     phase(f"times on {card}")
@@ -4630,6 +4787,7 @@ def main(argv=()) -> int:
 
     # B7's launches over every serving run: hymba-1.5b's and the families'
     swa_row = next(k for k in kernels if k["name"] == "swa_decode")
+    family_launches["serve_decode"] = path_launches["serve_decode"]  # phase 4j's
     swa_row["launches"] += sum(c["swa_decode"] for c in family_launches.values())
     print(f"swa_decode launches by serving run: hymba-1.5b {serve_launches['swa_decode']}, "
           + ", ".join(f"{a} {c['swa_decode']}" for a, c in family_launches.items())

@@ -1,7 +1,10 @@
 """Non-iid data partitioning across CAV clients (``repro.fl.partition``).
 
 Each client owns ``classes_per_client`` of the 10 classes, chosen by its
-home road region (geographic non-iid) when ``regions`` is given.  Class
+home road region (geographic non-iid) when ``regions`` is given.  Dirichlet
+mode (``FLConfig.dirichlet_alpha > 0``) draws each client's class
+proportions from Dirichlet(alpha) instead (``prng.dirichlet``, JAX's draw)
+and its labels from them (``prng.categorical``), whatever the regions.  Class
 prototypes are shared across clients; sample noise is per client.
 """
 from __future__ import annotations
@@ -31,9 +34,11 @@ def partition_labels(key, dataset: str, cfg: FLConfig, regions=None, device="cpu
     C, n = cfg.num_clients, cfg.samples_per_client
     kd = prng.fold_in_str(key, f"data/{dataset}")
     if cfg.dirichlet_alpha > 0:
-        raise NotImplementedError(
-            "Dirichlet partitioning (dirichlet_alpha > 0) is not ported (see ROADMAP.md)"
-        )
+        alphas = torch.full((spec.num_classes,), cfg.dirichlet_alpha, dtype=torch.float32,
+                            device=device)
+        props = prng.dirichlet(prng.fold_in_str(kd, "dirichlet"), alphas, (C,), device)
+        kl = prng.split(prng.fold_in_str(kd, "labels"), C)
+        return prng.categorical(kl, torch.log(props + 1e-9), (n,), device)
     k = max(min(cfg.classes_per_client, spec.num_classes), 1)
     if regions is not None:
         own = geographic_class_sets(regions.to(device), spec.num_classes, k)

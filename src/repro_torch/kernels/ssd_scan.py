@@ -13,11 +13,17 @@ chunk, with ``cs = cumsum(dt * A)``,
 -> y ``(B, S, nh, hp)`` fp32 and the final state ``(B, nh, hp, ds)`` fp32.
 CUDA tensors launch ``csrc/ssd_scan.cu`` (one block per chunk of one head,
 the state chained from chunk to chunk through the output h); CPU tensors run
-``ssd_scan_plain``.  There is no fallback from one to the other.
+``ssd_scan_plain``.  There is no fallback from one to the other.  The
+kernel has no backward: training runs ``ssd_scan_plain`` on either device
+(``models/ssm.py`` picks it by grad mode), and the wrapper refuses a
+grad-requiring operand on the card.
 """
 from __future__ import annotations
 
+import math
+
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels import refuse_grad
 
@@ -53,40 +59,66 @@ def counter_count(B: int, nh: int) -> int:
     return 1 + B * nh
 
 
+def ssd_chunk(h, x_c, dt_c, B_c, C_c, A):
+    """One chunk of the scan: carried state h (B, nh, hp, ds) fp32 and the
+    chunk's x (B, Q, nh, hp), dt (B, Q, nh) fp32, B / C (B, Q, ds) -> (y (B, Q,
+    nh, hp) fp32, h'); x, B and C are read in h's dtype.
+
+    The reference's ``one_chunk``, but the decay's exponent is masked to
+    ``-inf`` above the diagonal before the ``exp``: there ``cs_q - cs_k``
+    reaches ~|A| dt Q (~102 at A = -16, dt = 0.05, Q = 128), ``exp``
+    overflows to inf, and the backward would multiply the zero cotangent the
+    ``where`` leaves there by it (NaN).  The forward is the unmasked one bit
+    for bit: those entries are zeroed either way."""
+    Q = x_c.shape[1]
+    x_c = x_c.to(h.dtype)
+    B_c = B_c.to(h.dtype)
+    C_c = C_c.to(h.dtype)
+    tri = torch.tril(torch.ones((Q, Q), dtype=torch.bool, device=x_c.device))[None, :, :, None]
+    cs = torch.cumsum(dt_c * A, dim=1)  # inclusive
+    G = torch.einsum("bqn,bkn->bqk", C_c, B_c)
+    expo = cs[:, :, None, :] - cs[:, None, :, :]  # (B, Q, Q, nh)
+    decay = torch.exp(torch.where(tri, expo, torch.full((), -math.inf, device=expo.device)))
+    M = G[..., None] * decay * dt_c[:, None, :, :]
+    M = torch.where(tri, M, torch.zeros((), device=M.device))
+    y = torch.einsum("bqkh,bkhp->bqhp", M, x_c)
+    y = y + torch.einsum("bqn,bhpn->bqhp", C_c, h) * torch.exp(cs)[..., None]
+    sdecay = torch.exp(cs[:, -1:, :] - cs) * dt_c  # (B, Q, nh)
+    Sc = torch.einsum("bkn,bkhp->bhpn", B_c, x_c * sdecay[..., None])
+    h = torch.exp(cs[:, -1, :])[:, :, None, None] * h + Sc
+    return y, h
+
+
 def ssd_scan_plain(xh, dt, A, Bs, Cs, chunk: int, h0=None):
     """The chunked scan of ``repro/models/ssm.py::ssd_scan`` in torch, with y
-    left in fp32 (the kernel's output; the model rounds it at the call site)."""
+    left in fp32 (the kernel's output; the model rounds it at the call site);
+    float64 operands compute in float64.
+
+    Under grad mode each chunk runs under ``torch.utils.checkpoint`` (the
+    reference's ``jax.checkpoint(one_chunk, policy=nothing_saveable)``): the
+    backward keeps only each chunk's inputs and carried state and recomputes
+    the (B, Q, Q, nh) temporaries.  The values are the same bit for bit."""
     Bsz, S, nh, hp = xh.shape
     ds = Bs.shape[-1]
     Q = min(chunk, S)
     pad = (-S) % Q
-    dt = dt.to(torch.float32)
+    f = torch.promote_types(xh.dtype, torch.float32)  # float64 operands stay float64
+    dt = dt.to(f)
     if pad:
         xh = torch.nn.functional.pad(xh, (0, 0, 0, 0, 0, pad))
         dt = torch.nn.functional.pad(dt, (0, 0, 0, pad))
         Bs = torch.nn.functional.pad(Bs, (0, 0, 0, pad))
         Cs = torch.nn.functional.pad(Cs, (0, 0, 0, pad))
     nc = (S + pad) // Q
-    h = (torch.zeros((Bsz, nh, hp, ds), dtype=torch.float32, device=xh.device)
-         if h0 is None else h0.to(torch.float32))
-    tri = torch.tril(torch.ones((Q, Q), dtype=torch.bool, device=xh.device))
+    h = (torch.zeros((Bsz, nh, hp, ds), dtype=f, device=xh.device)
+         if h0 is None else h0.to(f))
+    remat = torch.is_grad_enabled()
     ys = []
     for c in range(nc):
         sl = slice(c * Q, (c + 1) * Q)
-        x_c = xh[:, sl].to(torch.float32)  # (B, Q, nh, hp)
-        dt_c = dt[:, sl]  # (B, Q, nh)
-        B_c = Bs[:, sl].to(torch.float32)  # (B, Q, ds)
-        C_c = Cs[:, sl].to(torch.float32)
-        cs = torch.cumsum(dt_c * A, dim=1)  # inclusive
-        G = torch.einsum("bqn,bkn->bqk", C_c, B_c)
-        decay = torch.exp(cs[:, :, None, :] - cs[:, None, :, :])  # (B, Q, Q, nh)
-        M = G[..., None] * decay * dt_c[:, None, :, :]
-        M = torch.where(tri[None, :, :, None], M, torch.zeros((), device=M.device))
-        y = torch.einsum("bqkh,bkhp->bqhp", M, x_c)
-        y = y + torch.einsum("bqn,bhpn->bqhp", C_c, h) * torch.exp(cs)[..., None]
-        sdecay = torch.exp(cs[:, -1:, :] - cs) * dt_c  # (B, Q, nh)
-        Sc = torch.einsum("bkn,bkhp->bhpn", B_c, x_c * sdecay[..., None])
-        h = torch.exp(cs[:, -1, :])[:, :, None, None] * h + Sc
+        args = (h, xh[:, sl], dt[:, sl], Bs[:, sl], Cs[:, sl], A)
+        y, h = (checkpoint(ssd_chunk, *args, use_reentrant=False) if remat
+                else ssd_chunk(*args))
         ys.append(y)
     y = torch.cat(ys, dim=1)[:, :S]
     return y, h
@@ -102,8 +134,9 @@ def _check(name, x, shape, dtype, device):
 def _ssd_scan_cuda(xh, dt, A, Bs, Cs, chunk, h0):
     from repro_torch.kernels.build import check, counters, library
 
-    # no backward until ROADMAP.md's A10b: the ssm and hybrid families train on the CPU
-    refuse_grad("ssd_scan", xh, dt, A, Bs, Cs, h0, queue="A10b")
+    # no backward: training calls ssd_scan_plain (models/ssm.py routes by grad mode)
+    refuse_grad("ssd_scan", xh, dt, A, Bs, Cs, h0,
+                use="call ssd_scan_plain, as models.ssm does")
     global launches
     if xh.dtype not in _DTYPE_CODES:
         raise NotImplementedError(f"ssd_scan: the kernel takes float32 or bfloat16, "

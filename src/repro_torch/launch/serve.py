@@ -74,6 +74,16 @@ def serve(arch: str = "qwen1.5-0.5b", batch: int = 4, prompt_len: int = 64, gen:
     setup_s = time.perf_counter() - t0
 
     max_seq = None if cfg.family == "encdec" else prompt_len + gen + cfg.num_image_tokens
+    out, logits, cache, prefill_s, decode_s = generate(api, params, prompts, gen, max_seq,
+                                                       device)
+    return ServeResult(out, setup_s, prefill_s, decode_s, logits, params, cache, prompts, cfg)
+
+
+def generate(api, params: dict, prompts: dict, gen: int, max_seq, device):
+    """Prefill ``prompts`` (into a cache of ``max_seq`` positions), then ``gen -
+    1`` greedy decode steps, under ``no_grad`` -> (tokens (batch, gen), the
+    last logits, the cache, prefill s, decode s)."""
+    device = torch.device(device)
     with torch.no_grad():
         t0 = time.perf_counter()
         logits, cache = api.prefill(params, prompts, max_seq)
@@ -89,7 +99,7 @@ def serve(arch: str = "qwen1.5-0.5b", batch: int = 4, prompt_len: int = 64, gen:
         out = torch.stack(generated, dim=1)
         _sync(device)
         decode_s = time.perf_counter() - t0
-    return ServeResult(out, setup_s, prefill_s, decode_s, logits, params, cache, prompts, cfg)
+    return out, logits, cache, prefill_s, decode_s
 
 
 def main(argv=None) -> ServeResult:

@@ -11,8 +11,9 @@ The flags of ``repro.launch.train`` plus ``--device`` (default ``cuda``; it
 raises without a card, ``cpu`` runs the plain torch path).  Weights are
 drawn as the reference draws them (``init(fold_in_str(key(0), "init"))``)
 and step s trains on ``make_batch(cfg, fold_in(key(0), s), batch, seq)``,
-so the printed lines are the reference's.  On the card the ``ssm`` and
-``hybrid`` families raise: their scan kernel has no backward yet.
+so the printed lines are the reference's.  No kernel runs in training: the
+``ssm`` and ``hybrid`` families' scan is the plain torch one under grad mode
+(``models/ssm.py``), on the card as on the CPU.
 """
 from __future__ import annotations
 

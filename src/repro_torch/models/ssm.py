@@ -1,10 +1,14 @@
 """Mamba2 (state-space duality) mixer of the LM zoo (``repro.models.ssm``).
 
-Sequence mode (prefill) runs the chunked SSD scan through
-``kernels.ssd_scan``: the hand-written CUDA kernel on the card, its plain
-version on the CPU.  Decode mode is the single-token recurrence in plain
-torch (no TPU kernel covers it).  Layout as in the reference: one B/C group
-shared by the heads, a separate projection per stream.
+Sequence mode runs the chunked SSD scan.  Under grad mode with an operand
+that requires grad (training) it is ``kernels.ssd_scan.ssd_scan_plain``,
+each chunk rematerialized, on whatever device the operands are on (the
+reference trains through its plain scan under ``jax.checkpoint`` too);
+otherwise (prefill) ``kernels.ssd_scan``: the hand-written CUDA kernel on
+the card, its plain version on the CPU.  Decode mode is the single-token
+recurrence in plain torch (no TPU kernel covers it).  Layout as in the
+reference: one B/C group shared by the heads, a separate projection per
+stream.
 
 Where bf16 rounds (the model dtype at full width): the causal conv sums its
 taps in the model dtype, tap by tap from the first, as the reference does;
@@ -117,8 +121,13 @@ def ssm_forward(p, x, cfg, state=None, decode: bool = False):
         xs, Bss, Css = torch.split(xbc_t, [di, ds, ds], dim=-1)
         xhh = xs.reshape(x.shape[0], -1, nh, hp)
         h0 = state["h"] if state is not None else None
-        y, h = _ssd.ssd_scan(xhh.contiguous(), dt.contiguous(), A.contiguous(),
-                             Bss.contiguous(), Css.contiguous(), cfg.ssm_chunk, h0)
+        ops = (xhh.contiguous(), dt.contiguous(), A.contiguous(), Bss.contiguous(),
+               Css.contiguous())
+        if torch.is_grad_enabled() and any(
+                t is not None and t.requires_grad for t in ops + (h0,)):
+            y, h = _ssd.ssd_scan_plain(*ops, cfg.ssm_chunk, h0)
+        else:
+            y, h = _ssd.ssd_scan(*ops, cfg.ssm_chunk, h0)
         y = y.to(xhh.dtype)  # the reference's scan returns y in xh's dtype
         y = y.to(torch.float32) + p["D"][None, None, :, None] * xhh.to(torch.float32)
         y = y.reshape(x.shape[0], -1, di).to(x.dtype)

@@ -13,16 +13,17 @@ in the reference; a Python loop over that axis takes the place of
 ``lax.scan``.  Sequence-mode attention is ``layers.blocked_attention`` in
 plain torch and the MoE FFN is ``models.moe.moe_ffn`` in plain torch; every
 decode step's attention goes through ``kernels.swa_decode`` and every
-sequence-mode SSM scan through ``kernels.ssd_scan`` (hand-written CUDA on the
+prefill's SSM scan through ``kernels.ssd_scan`` (hand-written CUDA on the
 card, their plain versions on the CPU).  The reference's ``act_shard``
 annotations and remat policies have no counterpart on one card and are
-dropped; only the chunked loss keeps its remat (``_chunked_ce``).
+dropped; only the chunked loss (``_chunked_ce``) and the training scan's
+chunks (``models/ssm.py``) keep their remat.
 
 ``lm_loss`` is the training objective: ``forward_seq`` in its ``train`` mode
 (no cache is built), the MoE layers' load-balance losses summed over the
 layers in fp32, and the CE over the whole logits or chunk by chunk.  It is
-differentiable by autograd wherever no kernel runs: on the card the
-``ssm`` and ``hybrid`` families' scan refuses a gradient (``kernels.ssd_scan``).
+differentiable by autograd and runs no kernel: under grad mode the ``ssm``
+and ``hybrid`` families' scan is the plain one (``models/ssm.py``).
 ``lm_decode_step`` updates the cache it is given in place and returns it.
 The ``encdec`` family (whisper-small) lives in ``models/encdec.py``, which
 shares this module's helpers; ``models.zoo.build_lm`` picks the engine.

@@ -6,8 +6,8 @@ whole round of the port against the JAX round from the same state, and the
 draws happen inside the round.  So this module implements JAX's default
 generator, ``threefry2x32`` with ``jax_threefry_partitionable=True``, and the
 samplers built on it (``uniform``, ``normal``, ``truncated_normal``,
-``bernoulli``, ``randint``, ``permutation``, ``categorical``) with the same
-bit recipes.
+``bernoulli``, ``randint``, ``permutation``, ``categorical``,
+``exponential``, ``loggamma``, ``dirichlet``) with the same bit recipes.
 
 A key is an int64 tensor of shape ``(..., 2)`` holding the two uint32 words
 of a JAX key; leading dimensions batch keys the way ``vmap`` batches them in
@@ -253,11 +253,100 @@ _TINY = float(torch.finfo(torch.float32).tiny)
 
 def categorical(k: torch.Tensor, logits: torch.Tensor, shape: Sequence[int],
                 device=None) -> torch.Tensor:
-    """``jax.random.categorical(k, logits, shape=shape)`` for 1-D ``logits``
-    (with replacement): the Gumbel-max draw ``argmax(g + logits)`` over the
-    last axis, first index on ties, with JAX's ``mode='low'`` Gumbel noise
-    ``g = -log(-log(u))``, u uniform on ``[tiny, 1)`` -> int64 of ``shape``."""
+    """``jax.random.categorical(k, logits, shape=shape)`` over the last axis
+    of ``logits`` (with replacement): the Gumbel-max draw ``argmax(g +
+    logits)``, first index on ties, with JAX's ``mode='low'`` Gumbel noise
+    ``g = -log(-log(u))``, u uniform on ``[tiny, 1)`` -> int64.  One key and
+    1-D logits give ``shape``; a batch of keys ``(..., 2)`` with logits
+    ``(..., classes)`` gives ``(...) + shape``, as ``jax.vmap`` of the one-key
+    draw does."""
     device = k.device if device is None else torch.device(device)
-    u = uniform(k, _shape(shape) + (logits.shape[-1],), _TINY, 1.0, device)
+    shape = _shape(shape)
+    u = uniform(k, shape + (logits.shape[-1],), _TINY, 1.0, device)
     g = -torch.log(-torch.log(u))
-    return torch.argmax(g + logits.to(device=device, dtype=torch.float32), dim=-1)
+    logits = logits.to(device=device, dtype=torch.float32)
+    logits = logits.reshape(logits.shape[:-1] + (1,) * len(shape) + logits.shape[-1:])
+    return torch.argmax(g + logits, dim=-1)
+
+
+def exponential(k: torch.Tensor, shape: Sequence[int] = (), device=None) -> torch.Tensor:
+    """``jax.random.exponential``: ``-log1p(-u)``, u uniform on [0, 1)."""
+    return -torch.log1p(-uniform(k, shape, device=device))
+
+
+_THIRD = float(torch.tensor(1.0 / 3.0, dtype=torch.float32))
+_SQUEEZE = float(torch.tensor(0.0331, dtype=torch.float32))
+
+
+def loggamma(k: torch.Tensor, alpha, shape: Sequence[int] | None = None,
+             device=None) -> torch.Tensor:
+    """``jax.random.loggamma(k, alpha, shape)``: the log of Gamma(alpha, 1)
+    draws in float32, JAX's ``_gamma_one`` with ``log_space=True``.
+
+    Element i of the flattened (broadcast) ``alpha`` draws from ``split(k,
+    numel)[i]`` by Marsaglia and Tsang's rejection: ``d = a - 1/3``, ``c =
+    (1/3) / sqrt(d)``; a pass splits its key into three, draws normals ``x``
+    on the second (splitting it again each time) until ``v = 1 + x c > 0``,
+    and a uniform ``U`` on the third; it accepts ``V = v^3`` once ``U < 1 -
+    0.0331 x^4`` or ``log U < x^2 / 2 + d (1 - V + log V)``.  ``alpha < 1``
+    draws at ``alpha + 1`` and adds ``log(u') / alpha`` (``u'`` the key's other
+    half's ``-exponential``).  JAX's per-element while loops run here on
+    every element at once, each element's state advancing under a mask until
+    all accept; each pass reads one bool back to the host."""
+    device = k.device if device is None else torch.device(device)
+    k = k.to(device)
+    alpha = torch.as_tensor(alpha, dtype=torch.float32, device=device)
+    out_shape = tuple(alpha.shape) if shape is None else _shape(shape)
+    a = alpha.expand(out_shape).reshape(-1)
+    keys = split(k, a.numel())  # (n, 2)
+    boost = a >= 1.0
+    ab = torch.where(boost, a, a + 1.0)
+    d = ab - _THIRD
+    c = _THIRD / torch.sqrt(d)
+    ks = split(keys)
+    key, subkey = ks[:, 0], ks[:, 1]
+
+    def rejected(X, V, U):  # JAX's loop condition
+        return (U >= 1.0 - _SQUEEZE * (X * X)) & (
+            torch.log(U) >= X * 0.5 + d * ((1.0 - V) + torch.log(V)))
+
+    X = torch.zeros_like(a)
+    V = torch.ones_like(a)
+    U = torch.full_like(a, 2.0)
+    todo = rejected(X, V, U)  # the start state is rejected everywhere
+    while bool(todo.any()):
+        k3 = split(key, 3)
+        key = torch.where(todo[:, None], k3[:, 0], key)
+        x_key = k3[:, 1]
+        x = torch.zeros_like(a)
+        v = torch.full_like(a, -1.0)
+        redraw = todo.clone()
+        while bool(redraw.any()):
+            k2 = split(x_key)
+            x_key = torch.where(redraw[:, None], k2[:, 0], x_key)
+            xn = normal(k2[:, 1], (), device)
+            x = torch.where(redraw, xn, x)
+            v = torch.where(redraw, _fma(xn, c, torch.ones_like(xn)), v)
+            redraw = redraw & (v <= 0.0)
+        un = uniform(k3[:, 2], (), device=device)
+        X = torch.where(todo, x * x, X)
+        V = torch.where(todo, (v * v) * v, V)
+        U = torch.where(todo, un, U)
+        todo = todo & rejected(X, V, U)
+    log_samples = -exponential(subkey, (), device)
+    log_boost = torch.where(boost | (log_samples == 0.0), torch.zeros_like(a),
+                            log_samples * (1.0 / a))
+    return ((torch.log(d) + torch.log(V)) + log_boost).reshape(out_shape)
+
+
+def dirichlet(k: torch.Tensor, alpha, shape: Sequence[int] | None = None,
+              device=None) -> torch.Tensor:
+    """``jax.random.dirichlet(k, alpha, shape)``: the softmax over the last axis
+    of ``loggamma`` draws at ``alpha`` broadcast to ``shape + alpha.shape[-1:]``
+    -> float32 of that shape."""
+    device = k.device if device is None else torch.device(device)
+    alpha = torch.as_tensor(alpha, dtype=torch.float32, device=device)
+    shape = tuple(alpha.shape[:-1]) if shape is None else _shape(shape)
+    g = loggamma(k, alpha, shape + tuple(alpha.shape[-1:]), device)
+    e = torch.exp(g - g.max(dim=-1, keepdim=True).values)
+    return e / e.sum(dim=-1, keepdim=True)

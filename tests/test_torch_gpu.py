@@ -37,9 +37,10 @@ device-to-host sync; the smoke moe, vlm and encdec LMs served card vs CPU.  The
 CNN datasets' models at full width, forward and trainer card vs CPU, and a
 narrow CNN's round repeated bit for bit on the card.  The LM trainer: one
 step of the dense, moe, vlm and encdec smoke LMs card vs CPU (loss within
-rtol 1e-5, params within 2 lr), no kernel launched; ``ssd_scan`` and
+rtol 1e-5, params within 2 lr), no kernel launched, the ssm and hybrid
+ones too (their scan is the plain one under grad mode); ``ssd_scan`` and
 ``swa_decode`` refusing an operand that requires grad under grad mode (no
-kernel has a backward), and the ssm and hybrid trainers refusing the card.
+kernel has a backward).  Dirichlet shards drawn on the card as on the CPU.
 Without a card every test skips, decided in the fixture.
 """
 import pytest
@@ -1841,7 +1842,7 @@ def test_smoke_trainer_on_the_card_matches_the_cpu(dev, arch, m, B):
 
 def test_ssd_scan_refuses_an_operand_that_requires_grad(dev):
     """B8 has no backward: under grad mode an operand that requires grad raises
-    (naming the queue of its backward); with grad off, or no operand requiring
+    (naming the differentiable plain scan); with grad off, or no operand requiring
     grad, it launches."""
     from repro_torch.kernels import ssd_scan as ssd
 
@@ -1850,12 +1851,12 @@ def test_ssd_scan_refuses_an_operand_that_requires_grad(dev):
     for i, name in enumerate(("xh", "dt", "A", "Bs", "Cs")):
         ops = [x, dt, A, Bs, Cs]
         ops[i] = ops[i].clone().requires_grad_(True)
-        with pytest.raises(RuntimeError, match="no backward.*A10b"):
+        with pytest.raises(RuntimeError, match="no backward.*ssd_scan_plain"):
             ssd.ssd_scan(*ops, 16)
         with torch.no_grad():
             ssd.ssd_scan(*ops, 16)
     h0 = torch.zeros((2, 3, 16, 8), device=dev, requires_grad=True)
-    with pytest.raises(RuntimeError, match="A10b"):
+    with pytest.raises(RuntimeError, match="ssd_scan_plain, as models.ssm does"):
         ssd.ssd_scan(x, dt, A, Bs, Cs, 16, h0)
     ssd.ssd_scan(x, dt, A, Bs, Cs, 16)
     assert ssd.launches == before + 6
@@ -1876,14 +1877,52 @@ def test_swa_decode_refuses_an_operand_that_requires_grad(dev):
     assert swa.launches == before + 3
 
 
-@pytest.mark.parametrize("arch", ["hymba-1.5b", "mamba2-130m"])
-def test_ssm_and_hybrid_training_on_the_card_raise(dev, arch):
-    """Their forward reaches B8, which has no backward: the trainer raises on the
-    card rather than lose the gradient or fall back to the plain scan."""
+@pytest.mark.parametrize("arch,m,B", [("hymba-1.5b", 1, 4), ("hymba-1.5b", 4, 4),
+                                      ("mamba2-130m", 1, 4)])
+def test_ssm_and_hybrid_trainers_on_the_card_match_the_cpu(dev, arch, m, B):
+    """The ssm and hybrid smoke LMs train through the plain scan on the card
+    (``models/ssm.py`` routes by grad mode): one step card vs CPU as the other
+    families', no ``ssd_scan`` launch; a prefill under ``no_grad`` then still
+    launches B8 once per SSM layer."""
+    from repro_torch.configs import get_smoke_config
     from repro_torch.kernels import ssd_scan as ssd
-    from repro_torch.launch.train import train
+    from repro_torch.models import build_model
+    from repro_torch.utils.pytree import tree_leaves
 
+    cfg = get_smoke_config(arch)
+    api = build_model(cfg)
+    params = api.init(prng.key(0), "cpu")
     before = ssd.launches
-    with pytest.raises(RuntimeError, match="ssd_scan: the CUDA kernel has no backward.*A10b"):
-        train(arch, steps=1, batch=4, seq=32, device=dev, verbose=False)
+    sg, mg = _train_one_step(arch, m, B, dev, _tree_to(params, dev))
+    sc, mc = _train_one_step(arch, m, B, "cpu", params)
     assert ssd.launches == before
+    for k in mc:
+        torch.testing.assert_close(mg[k].cpu(), mc[k], rtol=1e-5, atol=1e-6, msg=k)
+    for a, b in zip(tree_leaves(sg.params), tree_leaves(sc.params)):
+        assert bool(torch.isfinite(a).all())
+        d = (a.cpu() - b).abs()
+        assert float(d.max()) <= 2 * TRAIN_LR
+        assert float((d > TRAIN_LR / 10).float().mean()) < 1e-3
+    with torch.no_grad():
+        api.prefill(sg.params, {"tokens": torch.zeros((2, 24), dtype=torch.int64, device=dev)},
+                    32)
+    assert ssd.launches == before + cfg.num_layers
+
+
+@pytest.mark.parametrize("alpha", [0.05, 0.5, 2.5])
+def test_loggamma_and_partition_labels_on_the_card_match_the_cpu(dev, alpha):
+    """Dirichlet shards drawn on the card: ``loggamma`` within rtol 1e-5 of the
+    CPU's draw, ``partition_labels`` equal."""
+    from repro_torch.config import FLConfig
+    from repro_torch.fl.partition import partition_labels
+
+    alphas = torch.full((10,), alpha)
+    g = prng.loggamma(prng.key(3, dev), alphas.to(dev), (64, 10))
+    c = prng.loggamma(prng.key(3), alphas, (64, 10))
+    assert g.device.type == "cuda"
+    torch.testing.assert_close(g.cpu(), c, rtol=1e-5, atol=1e-6)
+    fl = FLConfig(num_clients=100, samples_per_client=256, dirichlet_alpha=alpha)
+    for dataset in ("mnist", "cifar10"):
+        lg = partition_labels(prng.key(0, dev), dataset, fl, device=dev)
+        assert lg.device.type == "cuda"
+        assert torch.equal(lg.cpu(), partition_labels(prng.key(0), dataset, fl))

@@ -131,10 +131,17 @@ def test_unported_lanes_raise():
         for fused in (True, False):
             assert callable(make_round_step(tapi.loss, fl, 2, 1.0, tapi.spec,
                                             aggregators=(fl.aggregator,), fused=fused))
-    # what stays unported raises: Dirichlet client shards (prng.dirichlet)
-    fl = FLConfig(**small_fl_kwargs(N, dirichlet_alpha=0.5))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        make_round_data(prng.key(0), "mnist", fl, torch.zeros(N, dtype=torch.int64), "cpu")
+    # Dirichlet client shards (prng.dirichlet) are the reference's
+    from repro.fl.rounds import make_round_data as jmake_round_data
+
+    kw = small_fl_kwargs(N, dirichlet_alpha=0.5)
+    data = make_round_data(prng.key(0), "mnist", FLConfig(**kw),
+                           torch.zeros(N, dtype=torch.int64), "cpu")
+    want = jmake_round_data(jax.random.key(0), "mnist", JFLConfig(**kw),
+                            jax.numpy.zeros(N, dtype=jax.numpy.int32))
+    np.testing.assert_array_equal(data.labels.numpy(), np.asarray(want.labels))
+    np.testing.assert_allclose(data.images.numpy(), np.asarray(want.images), rtol=1e-5,
+                               atol=1e-5)
 
 
 def test_time_to_accuracy():

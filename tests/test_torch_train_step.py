@@ -4,8 +4,8 @@
 ``repro.launch.steps.make_train_step`` (jitted): 3 AdamW steps from the
 same weights on the same numpy-seeded batches (B x 32 tokens), at one
 microbatch and at the config's own count (mixtral-8x7b's 8 at B = 16,
-whisper-small's 2).  Tolerances: each step's loss and metrics within rtol
-2e-6; after 3 steps every parameter within 6 lr of the reference's (AdamW's
+whisper-small's 2, hymba-1.5b's 4; mamba2-130m's is 1).  Tolerances: each
+step's loss and metrics within rtol 2e-6; after 3 steps every parameter within 6 lr of the reference's (AdamW's
 step is about ``lr * sign(g)``, so where a gradient is rounding noise the
 two may step apart by up to 2 lr a step) and fewer than 0.1 % of the
 elements more than lr / 10 apart.  A batch whose rows do not divide into
@@ -95,7 +95,8 @@ def _assert_params_close(got, want, what):
 
 
 @pytest.mark.parametrize("arch,m,B", [("qwen1.5-0.5b", 1, 4), ("mixtral-8x7b", 8, 16),
-                                      ("whisper-small", 2, 4)])
+                                      ("whisper-small", 2, 4), ("hymba-1.5b", 4, 4),
+                                      ("mamba2-130m", 1, 4)])
 def test_three_train_steps_match_the_reference(reference, arch, m, B):
     api, params, opt, jstep = reference(arch, m)
     js = jsteps.TrainState(params, opt.init(params))
