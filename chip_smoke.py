@@ -13,7 +13,8 @@ Phases (any failure raises and exits non-zero):
 1. device: name, count, ``nvidia-smi`` name and power limit; no card fails;
 2. build: compile the CUDA kernels from ``src/repro_torch/kernels/csrc`` with
    nvcc into ``build/kernels`` and print the seconds and ptxas's registers
-   and spills per kernel;
+   and spills per kernel; ``rttg_latency_grid_kernel``'s (B1g, up to four
+   clients a thread under ``__launch_bounds__(1024, 1)``) must not spill;
 3. kernels: each kernel against its plain PyTorch version on the card, at
    the main path's shapes and at the edges, each call repeated bitwise:
    ``rttg_latency`` around its one-block limit (1,024 and 1,025 clients), at
@@ -25,7 +26,9 @@ Phases (any failure raises and exits non-zero):
    ``rttg_latency_grid`` (B1g, the batched grid round's geometry) on 24
    lanes over the 8 catalog scenarios at N = 20 and 100, predicted and
    realized, CR 1.0 and 0.7, and at one lane, one client, 1,024 clients and
-   a dark-RSU lane beside a live one: every lane bit for bit a
+   a dark-RSU lane beside a live one, and above one block of threads (N =
+   1,025, 2,048 and 4,096, one dark-RSU lane and 24 over the catalog,
+   predicted and realized, with and without the ids): every lane bit for bit a
    ``rttg_latency`` call on that lane, conn exact and latency within rtol
    1e-5 of its plain version, repeated bitwise; B1g with the RSU ids (the
    two-tier grids' realized pass) on the hierarchical probe's 12 lanes at N =
@@ -208,6 +211,15 @@ Phases (any failure raises and exits non-zero):
    CPU's; ``python -m repro_torch.launch.fl_cits_benchmark --rounds 3
    --clients 20`` (2 B1 and 1 B2 a round), its records within ``GRID_TOL``
    of the CPU's;
+4k. wide grids, the batched round above 1,024 clients (32 samples a
+   client): the bench's 24-run ``("fedavg",)`` grid at N = 2,048 for 2
+   rounds (one lane group: exactly 4 B1g and 2 B2g) against its lane loop
+   within ``GRID_TOL``, both walls and the sweep's peak memory; an 8-lane
+   streamed two-tier grid at N = 4,096 (K = 410 in 7 chunks of 64, 2
+   rounds: 4 B1g with ids, 14 B5g, 2 B2g) against its lane loop; a 24-lane
+   grid with ``greedy`` at N = 4,096 for 1 round in lane groups (K = N; 2
+   B1g and 1 B2g a group), its group count and peak memory (under
+   ``WIDE_PEAK_BYTES``), two of its lanes against the lane loop;
 5. times: each kernel (CUDA events, after warm-up) beside its bound, its
    plain version and a one-call PyTorch yardstick (``pairwise_cosine`` at
    (100, 1024), (256, 4096) and (20,000, 1,024)), and for every kernel and
@@ -223,7 +235,8 @@ Phases (any failure raises and exits non-zero):
    decode step and prefill (with ``ssd_scan``'s calls and time per call);
    ``rttg_latency`` at N=100 predicted and realized and at N=100,000
    predicted; ``rttg_latency_grid`` at the bench grid's 24 lanes (N=20,
-   predicted) beside the lane loop's 24 ``rttg_latency`` launches, and
+   predicted) beside the lane loop's 24 ``rttg_latency`` launches, and at
+   24 lanes of 2,048 and 4,096 clients (``wide_shapes`` in its row), and
    ``fedavg_reduce_grid`` at its (24, 2, 159,010) on fp32 and bf16 rows
    beside the lane loop's 24 ``fedavg_reduce`` launches and ``torch.bmm``,
    each with its device time from CUDA graph replays; B4g at the async
@@ -377,6 +390,29 @@ def rsu_bounds(lanes: int, K: int, R: int, P: int, carry_rows: float) -> dict:
 
 
 START = time.perf_counter()
+
+
+def ptxas_entry(log: str, kernel: str) -> dict:
+    """``kernel``'s registers and spilled bytes (stores and loads) from
+    nvcc's ``-Xptxas -v`` report."""
+    import re
+
+    lines = log.splitlines()
+    starts = [i for i, line in enumerate(lines)
+              if "Compiling entry function" in line and f"'{kernel}'" in line]
+    if len(starts) != 1:
+        raise AssertionError(f"ptxas reported {kernel} {len(starts)} times")
+    block = []
+    for line in lines[starts[0] + 1:]:
+        if "Compiling entry function" in line:
+            break
+        block.append(line)
+    text = "\n".join(block)
+    regs = re.search(r"Used (\d+) registers", text)
+    if regs is None:
+        raise AssertionError(f"ptxas reported no registers for {kernel}")
+    spills = re.findall(r"(\d+) bytes spill (?:stores|loads)", text)
+    return {"registers": int(regs.group(1)), "spill_bytes": sum(map(int, spills))}
 
 
 def phase(name: str) -> None:
@@ -1989,10 +2025,41 @@ def time_grid_kernels(kernels, lib, grid_launches, main_err, bf16_times, device,
     b1g_t = (time_ms(b1g), time_ms(lambda: rttg_latency_grid_plain(pos, speed, accel, t, mb,
                                                                     None, view, True),
                                    iters=20, warmup=3), graph_us(b1g), graph_us(b1_lanes, 4))
-    # bytes: 3 f32 inputs a client, each lane's scenario row and t, model_bytes;
-    # f32 lat and bool conn out.  Flops as rttg_latency's, per lane
-    b1g_bytes = G * (n * 4 * 3 + op.shape[1] + 4 + n * 4 + n) + 4
-    b_ms, b_by = bound(b1g_bytes, G * n * (8 * steps + 6 * R + 45))
+
+    def b1g_bound(n_clients, row_bytes):
+        # bytes: 3 f32 inputs a client, each lane's scenario row and t,
+        # model_bytes; f32 lat and bool conn out.  Flops as rttg_latency's
+        return bound(G * (n_clients * 4 * 3 + row_bytes + 4 + n_clients * 4 + n_clients) + 4,
+                     G * n_clients * (8 * steps + 6 * R + 45))
+
+    b_ms, b_by = b1g_bound(n, op.shape[1])
+    # the wide grids' lanes (phase 4k): 24 lanes of 2,048 and 4,096 clients, up
+    # to 4 a thread, predicted
+    wide = []
+    for n_w in (2048, 4096):
+        _, view_w, pos_w, speed_w, accel_w, t_w, _ = grid_lane_inputs(GRID_SCENARIOS * 3, n_w, 5,
+                                                                      1.0, device)
+        op_w = grid_operand(view_w, device)
+        lat_w = torch.empty((G, n_w), dtype=torch.float32, device=device)
+        conn_w = torch.empty((G, n_w), dtype=torch.bool, device=device)
+
+        def b1g_w(op_w=op_w, t_w=t_w, pos_w=pos_w, speed_w=speed_w, accel_w=accel_w, n_w=n_w,
+                  lat_w=lat_w, conn_w=conn_w):
+            kbuild.check(lib.rttg_latency_grid_launch(
+                op_w.data_ptr(), op_w.shape[1], R, G, t_w.data_ptr(), mb.data_ptr(),
+                pos_w.data_ptr(), speed_w.data_ptr(), accel_w.data_ptr(), None, n_w, steps, dt,
+                hs, lat_w.data_ptr(), conn_w.data_ptr(), None, stream()), "rttg_latency_grid")
+
+        w_ms, w_by = b1g_bound(n_w, op_w.shape[1])
+        row = {"G": G, "N": n_w, "R": R, "ms": time_ms(b1g_w), "device_us": graph_us(b1g_w),
+               "plain_ms": time_ms(lambda: rttg_latency_grid_plain(
+                   pos_w, speed_w, accel_w, t_w, mb, None, view_w, True), iters=5, warmup=1),
+               "bound_ms": w_ms, "bound_by": w_by}
+        wide.append(row)
+        print(f"rttg_latency_grid G={G} N={n_w} R={R} predict (50 steps), one launch: events "
+              f"{row['ms'] * 1e3:.2f} us, device time {row['device_us']:.2f} us (graph replay); "
+              f"plain {row['plain_ms'] * 1e3:.1f} us; bound {w_ms * 1e3:.5f} us ({w_by}) "
+              f"[{card}]")
     kernels.append({
         "name": "rttg_latency_grid", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/rttg_latency.cu",
@@ -2002,7 +2069,7 @@ def time_grid_kernels(kernels, lib, grid_launches, main_err, bf16_times, device,
                              for grid, g in grid_launches.items() if g["rttg_latency_grid"]},
         "max_abs_err": main_err["rttg_latency_grid"],
         "ms": b1g_t[0], "plain_ms": b1g_t[1], "bound_ms": b_ms, "bound_by": b_by,
-        "library_ms": None, "device_us": b1g_t[2],
+        "library_ms": None, "device_us": b1g_t[2], "wide_shapes": wide,
     })
     print(f"rttg_latency_grid G={G} N={n} R={R} predict (50 steps), one launch: events "
           f"{b1g_t[0] * 1e3:.2f} us, device time {b1g_t[2]:.2f} us (graph replay); the lane "
@@ -2818,6 +2885,7 @@ class Grid:
     rounds: int = GRID_ROUNDS
     eval_every: int = GRID_EVAL_EVERY
     chunks: int = 0  # the streamed two-tier lanes' chunks a round (0: not streamed)
+    groups: int = 1  # the engine's lane groups (ExperimentEngine.lanes_per_group)
 
     def runs(self) -> list:
         return [(st, a, 0, sc) for st in self.strategies for a in self.aggregators
@@ -2828,9 +2896,10 @@ class Grid:
 
     def batched_want(self, server: str) -> dict:
         """A batched sweep's launches: 2 B1g, one B5g a chunk and one
-        ``server`` a grid round, whatever G."""
-        want = {"rttg_latency_grid": 2 * self.rounds, server: self.rounds}
-        return {**want, "rsu_reduce_grid": self.chunks * self.rounds} if self.chunks else want
+        ``server`` a round of each lane group, whatever its lanes."""
+        n = self.rounds * self.groups
+        want = {"rttg_latency_grid": 2 * n, server: n}
+        return {**want, "rsu_reduce_grid": self.chunks * n} if self.chunks else want
 
     def loop_want(self, server: str) -> dict:
         """A lane-loop sweep's launches: 2 B1, one B5 a chunk and one
@@ -3507,6 +3576,119 @@ def dirichlet_and_examples_phase(device, card):
     return grid, paths
 
 
+# Phase 4k: batched grid rounds above one block of B1g's threads, each fl-mnist-mlp
+# at 32 samples a client: the bench grid's 24 runs at N = 2,048 (K = 205, one
+# group); an 8-lane streamed two-tier grid at N = 4,096 (K = 410 in 7 chunks of
+# 64); a 24-lane grid with greedy at N = 4,096 (K = N: lane groups of 2)
+WIDE_N = 2048
+WIDE = Grid(GRID_STRATEGIES, ("fedavg",), rounds=2, eval_every=2)
+WIDE_STREAMED = Grid(("contextual",), ("fedavg",), rounds=2, eval_every=2, chunks=7)
+WIDE_GREEDY = Grid(("greedy", "contextual", "gossip"), ("fedavg",), rounds=1, eval_every=1)
+WIDE_PEAK_BYTES = 40e9  # the largest lane group's peak: the budgets' aim
+
+
+def lanes_vs_loop(eng, grid: Grid, res, runs, card) -> float:
+    """``runs`` (lanes of ``res``) through the card's lane loop
+    (``_lane_list`` set-up, per-lane warm-up): integers equal, floats within
+    ``GRID_TOL``.  -> the worst float's share of its tolerance."""
+    from repro_torch.fl.rounds import metrics_to_records
+
+    loop = eng._sweep(eng._lane_list(runs), grid.rounds, grid.eval_every)
+    worst = 0.0
+    for i, (strategy, aggregator, seed, scenario) in enumerate(runs):
+        got = res.records(strategy, seed, scenario, aggregator=aggregator)
+        want = metrics_to_records(type(loop)(*[x[i] for x in loop]))
+        worst = max(worst, check_records_close(got, want, GRID_TOL, str(runs[i])))
+    print(f"{len(runs)} lanes of the batched grid vs the same lanes through the lane loop on "
+          f"the card: integers equal, floats within GRID_TOL (worst {worst:.3f} of it) [{card}]")
+    return worst
+
+
+def peak_sweep(eng, grid: Grid, want: dict, card):
+    """One cold sweep (``grid_sweeps``) with its peak device memory above
+    what was held before it.  -> (result, wall, launches, peak bytes)."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    res, walls, launches = grid_sweeps(eng, grid, want, 0, card)
+    peak = torch.cuda.max_memory_allocated() - held
+    print(f"peak device memory of the sweep: {peak / 2**30:.2f} GiB above the {held / 2**30:.2f} "
+          f"GiB held ({eng.lanes_per_group()} lanes a group, {grid.groups} group(s)) [{card}]")
+    if peak > WIDE_PEAK_BYTES:
+        raise AssertionError(f"the sweep's peak {peak / 1e9:.2f} GB passes "
+                             f"{WIDE_PEAK_BYTES / 1e9:.0f} GB")
+    return res, walls[0], launches, peak
+
+
+def wide_grids_phase(device, card) -> dict:
+    """Phase 4k: the batched grid round above 1,024 clients, in lane groups.
+    -> each grid's launches of one sweep."""
+    from repro_torch.configs import get_config
+    from repro_torch.fl import ExperimentEngine
+
+    model = get_config("fl-mnist-mlp")
+    launches = {}
+    phase(f"wide grids: the bench's 24-run ('fedavg',) grid at N={WIDE_N} (32 samples, "
+          f"{WIDE.rounds} rounds), the batched round, then its lane loop")
+    fl = grid_fl(num_clients=WIDE_N, samples_per_client=32)
+    eng = ExperimentEngine(model, fl, "mnist", strategies=WIDE.strategies,
+                           aggregators=WIDE.aggregators, device=device)
+    if not eng.batched or eng.lanes_per_group() < len(WIDE.runs()):
+        raise AssertionError(f"the N={WIDE_N} grid did not take the batched round in one group")
+    res, wall, launches[f"wide {WIDE_N}"], _ = peak_sweep(
+        eng, WIDE, WIDE.batched_want("fedavg_reduce_grid"), card)
+    loop = grid_vs_loop(eng, WIDE, res, GRID_TOL, "fedavg_reduce", card)
+    print(f"N={WIDE_N} grid, {len(WIDE.runs())} lanes x {WIDE.rounds} rounds: the batched sweep "
+          f"{wall:.3f} s, the lane loop's {loop['setup_s'] + loop['rounds_s']:.3f} s (set-up "
+          f"{loop['setup_s']:.3f}, rounds {loop['rounds_s']:.3f}) [{card}]")
+    del eng, res
+    torch.cuda.empty_cache()
+
+    n = dense_max_n()
+    phase(f"wide grids: an 8-lane streamed two-tier grid at N={n} (contextual x ('fedavg',) x 8 "
+          f"scenarios, K=410 in {WIDE_STREAMED.chunks} chunks of 64, {WIDE_STREAMED.rounds} "
+          "rounds), the batched round (B1g with ids, then B5g), then its lane loop")
+    fl = grid_fl(num_clients=n, samples_per_client=32, hierarchical=True, client_block=64)
+    eng = ExperimentEngine(model, fl, "mnist", strategies=WIDE_STREAMED.strategies,
+                           aggregators=WIDE_STREAMED.aggregators, device=device)
+    if (not eng.batched or -(-eng.cohort_size // fl.client_block) != WIDE_STREAMED.chunks
+            or eng.lanes_per_group() < len(WIDE_STREAMED.runs())):
+        raise AssertionError(f"the streamed N={n} grid did not take the batched round in one "
+                             f"group of {WIDE_STREAMED.chunks} chunks")
+    res, wall, launches[f"wide streamed {n}"], _ = peak_sweep(
+        eng, WIDE_STREAMED, WIDE_STREAMED.batched_want("fedavg_reduce_grid"), card)
+    grid_vs_loop(eng, WIDE_STREAMED, res, GRID_TOL, "fedavg_reduce", card)
+    del eng, res
+    torch.cuda.empty_cache()
+
+    phase(f"wide grids: a 24-lane grid with greedy at N={n} (greedy / contextual / gossip x 8 "
+          f"scenarios, K=N, 1 round), the batched round in lane groups")
+    fl = grid_fl(num_clients=n, samples_per_client=32)
+    eng = ExperimentEngine(model, fl, "mnist", strategies=WIDE_GREEDY.strategies,
+                           aggregators=WIDE_GREEDY.aggregators, device=device)
+    grid = dataclasses.replace(WIDE_GREEDY, groups=len(eng._groups(WIDE_GREEDY.runs())))
+    if not eng.batched or eng.cohort_size != n or grid.groups < 2:
+        raise AssertionError(f"the greedy N={n} grid did not take the batched round in lane "
+                             f"groups ({grid.groups})")
+    res, wall, launches[f"wide greedy {n}"], _ = peak_sweep(
+        eng, grid, grid.batched_want("fedavg_reduce_grid"), card)
+    lanes_vs_loop(eng, grid, res, [("greedy", "fedavg", 0, "ring"),
+                                          ("contextual", "fedavg", 0, "platoon")], card)
+    del eng, res
+    torch.cuda.empty_cache()
+    return launches
+
+
+def dense_max_n() -> int:
+    from repro_torch.core.messages import DENSE_MAX_N
+    from repro_torch.kernels.rttg_latency import GRID_MAX_N
+
+    if GRID_MAX_N != DENSE_MAX_N:
+        raise AssertionError(f"B1g's GRID_MAX_N {GRID_MAX_N} is not DENSE_MAX_N {DENSE_MAX_N}")
+    return DENSE_MAX_N
+
+
 # The LM trainer (phase 7).  Every family trains through plain torch on the card
 # (the ssm / hybrid scan through ``ssd_scan_plain`` under grad mode): no kernel
 # runs, so every launch count must stay 0.
@@ -3744,6 +3926,12 @@ def main(argv=()) -> int:
         if line.startswith("==") or "registers" in line or "spill" in line \
                 or "Compiling entry" in line:
             print("  " + line.strip())
+    if other is None:
+        b1g = ptxas_entry(info.ptxas_log, "rttg_latency_grid_kernel")
+        print(f"rttg_latency_grid_kernel (B1g, up to 4 clients a thread, __launch_bounds__"
+              f"(1024, 1)): {b1g['registers']} registers, {b1g['spill_bytes']} bytes spilled")
+        if b1g["spill_bytes"]:
+            raise AssertionError("ptxas spills rttg_latency_grid_kernel's registers")
     kbuild.library()
     if other is not None:
         phase(f"wrapper times of {other}")
@@ -3799,6 +3987,14 @@ def main(argv=()) -> int:
                          (("rush_hour", "urban_grid"), 1024), (("rsu_outage", "ring"), 100)):
         for predict in (True, False):
             check_rttg_grid(scenarios, n, predict, 0.7, device)
+    # B1g above one block of threads (up to 4,096 clients a lane, 4 a thread): one
+    # dark-RSU lane and 24 lanes over the catalog, predicted and realized, with and
+    # without the ids, every lane bitwise B1's cooperative launch on that lane
+    for n in (1025, 2048, 4096):
+        for scenarios in (("rsu_outage",), GRID_SCENARIOS * 3):
+            for predict in (True, False):
+                for want_rid in (False, True):
+                    check_rttg_grid(scenarios, n, predict, 0.7, device, want_rid=want_rid)
     # B1g's RSU ids (the two-tier grids' realized pass): the smoke probe's 12
     # lanes at N = 20, the streamed grid's 8 at N = 100, and the one-block edge
     for scenarios, n in ((("rush_hour", "rsu_outage") * 6, 20), (GRID_SCENARIOS, 100),
@@ -4377,6 +4573,9 @@ def main(argv=()) -> int:
     # ---- 4j. Dirichlet shards and the two remaining examples -----------------
     grid_launches["dirichlet"], example_launches = dirichlet_and_examples_phase(device, card)
     path_launches.update(example_launches)
+
+    # ---- 4k. batched grid rounds above 1,024 clients, in lane groups -------------
+    grid_launches.update(wide_grids_phase(device, card))
 
     def by_path(name, first, first_path="the main path"):
         """The parts of a kernel's ``launches``: ``first`` on ``first_path``,

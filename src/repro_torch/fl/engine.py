@@ -6,20 +6,26 @@ a ``lax.scan`` over rounds.  The port takes one of two paths, chosen once,
 in ``__init__``, from the engine's lane:
 
   * the BATCHED round (``fl.rounds.make_grid_round_step``) when N <=
-    1,024 (``rounds.grid_round_fits``), flat or two-tier, streamed or not,
-    whatever the registry: the lanes' states stay stacked along a leading
-    grid axis, as the reference keeps them, and one round of every lane
-    runs at once (two ``rttg_latency_grid`` launches, one
+    ``messages.DENSE_MAX_N`` = 4,096 (``rounds.grid_round_fits``), flat or
+    two-tier, streamed or not, whatever the registry: the lanes' states stay
+    stacked along a leading grid axis, as the reference keeps them, and one
+    round of every lane of a lane group runs at once (two
+    ``rttg_latency_grid`` launches, one
     ``rsu_reduce_grid`` launch a chunk on the streamed lanes and one
-    server launch a grid round, whatever G: ``fedavg_reduce_grid`` for
+    server launch a round of each group, whatever its lanes: ``fedavg_reduce_grid`` for
     ``("fedavg",)``, ``server_update_buffered_grid`` for a registry holding
     ``fedbuff``, ``server_update_grid`` for any other); each lane's rule
     is a ``(G,)`` global ``AGGREGATOR_ORDER`` index on the device, built
-    once per ``run_grid``;
-  * otherwise (more than 1,024 clients: the fleet runs) the LANE LOOP:
-    each lane's round in turn through the one-lane round step (two
-    ``rttg_latency`` launches, one ``rsu_reduce`` a chunk and one
-    server-kernel launch a lane).
+    once per group.  The lanes run in LANE GROUPS, in run order, each
+    stacked and swept on its own (``lanes_per_group``: as many lanes as
+    ``GRID_ROW_BYTES`` and ``GRID_PAIR_BYTES`` allow), so the round's
+    ``(lanes * K, P)`` trainer rows and ``(lanes, N, N)`` pair tables stay
+    bounded whatever G; a lane's arithmetic does not depend on its group;
+  * otherwise (more than 4,096 clients: the fleet runs, whose neighbour
+    search and fusion are the windowed and compact forms, one lane at a
+    time) the LANE LOOP: each lane's round in turn through the one-lane
+    round step (two ``rttg_latency`` launches, one ``rsu_reduce`` a chunk
+    and one server-kernel launch a lane).
 
 Both run the same semantics:
 
@@ -30,8 +36,9 @@ Both run the same semantics:
     ``("fedavg",)`` keeps ``fedavg_reduce`` + the AXPY; a registry holding
     ``fedbuff`` sends every lane through ``server_update_buffered``, or its
     grid form, ``fedavg`` lanes too);
-  * ``RoundData`` rows are de-duplicated: one per unique (strategy, seed,
-    ``scenarios.data_signature``), built from the first lane of its triple
+  * ``RoundData`` rows are de-duplicated (within a lane group): one per
+    unique (strategy, seed, ``scenarios.data_signature``), built from the
+    first lane of its triple
     and read by reference by every lane of it (the experiment key never
     folds the scenario, so only the platoon spawn changes a lane's home
     regions);
@@ -40,7 +47,7 @@ Both run the same semantics:
     the batched round keeps one ``rounds.stack_states`` stack, the unique
     data rows stacked ``(M, ...)`` and each lane's ``(G,)`` row index,
     read at each gather (no per-lane copy of the client shards);
-  * each lane's ``ScenarioParams`` is built once per ``run_grid``, so
+  * each lane's ``ScenarioParams`` is built once per lane group, so
     ``rttg_latency``'s per-object operand cache holds for the whole run;
     ``stack_scenarios`` refuses a grid whose static fields differ, as the
     reference's stacking does, and its ``lane_view`` is the batched
@@ -106,11 +113,25 @@ from repro_torch.fl.rounds import (
 )
 from repro_torch.models import build_model
 from repro_torch.utils.device import resolve_device
-from repro_torch.utils.pytree import tree_bytes
+from repro_torch.utils.pytree import flat_size_of, tree_bytes
 
 ScenarioLike = Union[str, TrafficConfig]
 
 _INT_METRICS = ("round", "n_selected", "n_succeeded", "n_buffered", "n_drained")
+
+# The batched path's lane groups take as many lanes as both budgets allow
+# (at least one).  GRID_ROW_BYTES bounds one (lanes * rows, P) fp32 tensor
+# of the round's trainer, rows the cohort width K (the chunk B on the
+# streamed lanes): its start, parameters and gradients are fp32 in either
+# precision, and ~6 such tensors live at its peak.  6 GiB: at fl-mnist-mlp's
+# P = 159,010 and N = 4,096 it admits 24 lanes without greedy (K = 410,
+# 260.8 MB a lane) and 2 with it (K = N, 2.6 GB a lane; a group of 2 peaked
+# at 32.5 GiB on an H100).  GRID_PAIR_BYTES bounds the fusion's (5, lanes, N, N)
+# fp32 table, 20 N^2 bytes a lane (335.5 MB at N = 4,096), which the
+# neighbour search's (lanes, N, N) distances, sorted values and int64
+# indices match: 4 GiB, 12 lanes at N = 4,096 and 51 at N = 2,048.
+GRID_ROW_BYTES = 6 << 30
+GRID_PAIR_BYTES = 4 << 30
 
 
 def _eval_flags(rounds: int, eval_every: int) -> List[bool]:
@@ -198,7 +219,8 @@ class ExperimentEngine:
     deadline-rule bootstrap, which trains all N clients once (the fleet lane
     cannot afford it).  ``batched`` says which path ``run_grid`` takes (the
     module docstring), decided here from the config alone: the batched round
-    for every engine of N <= 1,024, the lane loop above.
+    for every engine of N <= ``messages.DENSE_MAX_N`` (4,096), in lane
+    groups of ``lanes_per_group()``, the lane loop above.
     """
 
     def __init__(
@@ -303,6 +325,21 @@ class ExperimentEngine:
                           torch.tensor(lanes.strategy_idx, device=dev),
                           torch.tensor(rules, dtype=torch.int32, device=dev), rows, row_idx)
 
+    def lanes_per_group(self) -> int:
+        """Lanes of one lane group on the batched path: as many as
+        ``GRID_ROW_BYTES`` and ``GRID_PAIR_BYTES`` allow, at least one."""
+        rows = self.fl.client_block or self.cohort_size
+        row_bytes = rows * flat_size_of(self.param_spec) * 4
+        pair_bytes = 5 * 4 * self.fl.num_clients ** 2
+        return max(1, min(GRID_ROW_BYTES // row_bytes, GRID_PAIR_BYTES // pair_bytes))
+
+    def _groups(self, runs) -> List[list]:
+        """``runs`` cut into lane groups in run order: one group on the lane
+        loop, ``lanes_per_group()`` lanes each (the last maybe fewer) on the
+        batched path."""
+        size = self.lanes_per_group() if self.batched else len(runs)
+        return [runs[lo:lo + size] for lo in range(0, len(runs), size)]
+
     def _grid_round(self, lanes, do_eval: bool, do_recluster: bool) -> RoundMetrics:
         """One round of every lane, each lane's state replaced by its new
         one; the lanes' ``(G,)`` metrics (device tensors).  Stacked lanes
@@ -363,7 +400,13 @@ class ExperimentEngine:
                 f"aggregators={sorted(set(self.aggregators) | unknown)}"
             )
         runs = list(itertools.product(strategies, aggregators, seeds, scenarios))
-        metrics = self._sweep(self._lanes(runs), rounds, eval_every)
+        # refuse lanes whose static fields differ, whichever groups they fall in
+        stack_scenarios([scenario_params(self._traffic_of(sc), self.device) for sc in scenarios])
+        # each group set up, swept and dropped before the next: one group's
+        # stack on the device at a time; the rows back in run order
+        parts = [self._sweep(self._lanes(group), rounds, eval_every)
+                 for group in self._groups(runs)]
+        metrics = RoundMetrics(*[torch.cat(xs) for xs in zip(*parts)])
         scenarios = list(scenarios)
 
         def _label(sc):

@@ -42,9 +42,10 @@ device tensor.
 
 The batched grid round (``make_grid_round_step``, with
 ``make_grid_warmup``) runs one round of G lanes at once for the fused
-lane, flat or two-tier, streamed or not, whatever the registry, as the
-reference's engine runs its grid under ``vmap``: ``round_step``'s
-expressions, line for line, on states stacked along a leading grid axis
+lane, flat or two-tier, streamed or not, whatever the registry, at every N
+up to ``messages.DENSE_MAX_N`` (4,096: the dense neighbour search's and
+fusion's), as the reference's engine runs its grid under ``vmap``:
+``round_step``'s expressions, line for line, on states stacked along a leading grid axis
 (``stack_states``), through the same core forms, which broadcast over that
 axis, and the kernels' grid forms (one launch each a pass for all G
 lanes): ``rttg_latency_grid`` twice (the realized pass with each client's
@@ -91,7 +92,7 @@ from repro_torch.fl.partition import client_sample_counts, make_test_set, partit
 from repro_torch.fl.server import apply_delta_flat, normalized_weights, rsu_normalized_weights
 from repro_torch.kernels.fedavg_reduce import fedavg_reduce, fedavg_reduce_grid
 from repro_torch.kernels.rsu_reduce import rsu_reduce, rsu_reduce_grid
-from repro_torch.kernels.rttg_latency import GRID_MAX_N, rttg_latency, rttg_latency_grid
+from repro_torch.kernels.rttg_latency import rttg_latency, rttg_latency_grid
 from repro_torch.kernels.server_update import (server_update, server_update_buffered,
                                                 server_update_buffered_grid, server_update_grid)
 from repro_torch.utils import prng
@@ -410,10 +411,13 @@ def make_grid_warmup(loss_fn, fl: FLConfig, param_spec):
 
 def grid_round_fits(fl: FLConfig, aggregators: Sequence[str]) -> bool:
     """Whether ``make_grid_round_step`` serves this lane and registry: lanes
-    of up to ``GRID_MAX_N`` clients, flat or two-tier, streamed or not,
-    under any registry of the catalog."""
+    of up to ``messages.DENSE_MAX_N`` clients (``rttg_latency_grid``'s
+    ``GRID_MAX_N``), flat or two-tier, streamed or not, under any registry
+    of the catalog.  Above it the neighbour search is the windowed one and
+    the fusion the compact one, each one lane at a time with host reads:
+    those fleets keep the lane loop."""
     validate_aggregators(aggregators)
-    return fl.num_clients <= GRID_MAX_N
+    return fl.num_clients <= messages.DENSE_MAX_N
 
 
 def make_grid_round_step(loss_fn, fl: FLConfig, cohort_size: int, model_bytes: float,
@@ -436,8 +440,9 @@ def make_grid_round_step(loss_fn, fl: FLConfig, cohort_size: int, model_bytes: f
     _check_lane(fl, True)
     aggregators = validate_aggregators(aggregators)
     if not grid_round_fits(fl, aggregators):
-        raise ValueError(f"the batched grid round runs lanes of up to {GRID_MAX_N} "
-                         f"clients, got N={fl.num_clients}")
+        raise ValueError(f"the batched grid round runs lanes of up to "
+                         f"{messages.DENSE_MAX_N} clients (the dense neighbour search's), "
+                         f"got N={fl.num_clients}")
     registry = tuple(AGGREGATOR_ORDER.index(a) for a in aggregators)
     plain_fedavg = aggregators == ("fedavg",)
     has_stale, has_fedbuff = STALE_IDX in registry, FEDBUFF_IDX in registry

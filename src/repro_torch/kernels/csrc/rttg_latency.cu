@@ -53,13 +53,22 @@
 // B1g, rttg_latency_grid_kernel: G lanes of the batched grid round in one
 // launch, one block a lane (blockIdx.x = lane), each lane's own scenario
 // row, kinematics row, t and forced row.  A block is the one-block design
-// above: a thread per client, the lane's histogram in its own shared
-// memory, the same predict_attach and finish, so a lane is bitwise B1 on
-// that lane.  Up to ONE_BLOCK_MAX clients a lane; no counters, no grid
-// barrier, no state between calls.  The scenario operand is (G, row_bytes):
-// the S_COUNT float32 scalars, the R live flags, padding to 4 bytes.  With
-// a rid_out pointer each client's attachment id lands beside its latency
-// (the two-tier lanes' realized pass), as B1's does.
+// above, widened: up to GRID_LANE_MAX (4,096, the dense neighbour search's
+// limit, core/messages.py DENSE_MAX_N) clients a lane, at most
+// ONE_BLOCK_MAX threads, thread tid taking clients tid, tid + blockDim.x,
+// ... (at most GRID_PER_THREAD = 4), their attachments in a fixed-size
+// register array.  Each thread counts its clients into the lane's
+// shared-memory histogram as B1 does (__match_any_sync, one add per
+// distinct RSU of a warp), one __syncthreads(), then it finishes each of
+// its clients from the counts.  Integer counts are exact in any order and
+// each client runs the same predict_attach and finish, so a lane is bitwise
+// B1 on that lane (its cooperative launch above 1,024 clients included),
+// RSU ids too.  No counters, no grid barrier, no state between calls.  The
+// cost is latency: up to 4 x n_steps dependent Euler steps a thread, with G
+// SMs busy.  The scenario operand is (G, row_bytes): the S_COUNT float32
+// scalars, the R live flags, padding to 4 bytes.  With a rid_out pointer
+// each client's attachment id lands beside its latency (the two-tier
+// lanes' realized pass), as B1's does.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -76,6 +85,8 @@ enum {
 #define PI_F 3.14159265358979323846f
 #define ONE_BLOCK_MAX 1024  // up to this many clients: one block, a thread each
 #define GRID_THREADS 256    // block size of the cooperative launch above it
+#define GRID_PER_THREAD 4   // B1g: clients a thread at most
+#define GRID_LANE_MAX (GRID_PER_THREAD * ONE_BLOCK_MAX)  // B1g: clients a lane, DENSE_MAX_N
 #define FULL_MASK 0xffffffffu
 
 // jnp.mod / torch.remainder: the result takes the divisor's sign.
@@ -264,8 +275,10 @@ extern "C" __global__ void __launch_bounds__(ONE_BLOCK_MAX) rttg_latency_kernel(
 }
 
 // scenario: (G, row_bytes) lane rows; t: (G,); pos / speed / accel / forced
-// / lat / conn / rid_out: (G, n), lane-major.
-extern "C" __global__ void __launch_bounds__(ONE_BLOCK_MAX) rttg_latency_grid_kernel(
+// / lat / conn / rid_out: (G, n), lane-major.  At least one block an SM: under
+// __launch_bounds__(1024) alone ptxas aims at two and spills a thread's
+// attachments at 32 registers; with one it takes 39 and spills none.
+extern "C" __global__ void __launch_bounds__(ONE_BLOCK_MAX, 1) rttg_latency_grid_kernel(
     const uint8_t* __restrict__ scenario, int row_bytes, int n_rsu, const float* __restrict__ t,
     const float* __restrict__ model_bytes, const float* __restrict__ pos,
     const float* __restrict__ speed, const float* __restrict__ accel,
@@ -286,19 +299,35 @@ extern "C" __global__ void __launch_bounds__(ONE_BLOCK_MAX) rttg_latency_grid_ke
   }
   __syncthreads();
 
-  const int i = g * n + tid;  // this thread's client of lane g
-  const unsigned active = __ballot_sync(FULL_MASK, tid < n);
-  Attach a{0.0f, 0.0f, 0};
-  if (tid < n) {
-    a = predict_attach(s, s_live, n_rsu, pos[i], speed[i], accel[i], n_steps, dt);
-    const unsigned peers = __match_any_sync(active, a.rid);
-    if ((tid & 31) == __ffs(peers) - 1) atomicAdd(hist + a.rid, __popc(peers));
+  // Predict and attach this thread's clients of lane g, tid + c * blockDim.x,
+  // and count each into the lane's histogram; the loop unrolls, so the
+  // attachments stay in registers.
+  const int lane = tid & 31;
+  const int base = g * n;  // the launch keeps G * n below 2^31
+  Attach a[GRID_PER_THREAD];
+#pragma unroll
+  for (int c = 0; c < GRID_PER_THREAD; ++c) {
+    const int j = tid + c * (int)blockDim.x;
+    a[c] = Attach{0.0f, 0.0f, 0};
+    if (j - lane < n) {  // warp-uniform: some client of this warp is live
+      const unsigned active = __ballot_sync(FULL_MASK, j < n);
+      if (j < n) {
+        const int i = base + j;
+        a[c] = predict_attach(s, s_live, n_rsu, pos[i], speed[i], accel[i], n_steps, dt);
+        const unsigned peers = __match_any_sync(active, a[c].rid);
+        if (lane == __ffs(peers) - 1) atomicAdd(hist + a[c].rid, __popc(peers));
+      }
+    }
   }
   __syncthreads();
-  if (tid < n) {
-    const float t_now = t[g];
-    const float t_eff = n_steps > 0 ? t_now + horizon_s : t_now;
-    finish(s, a, (float)hist[a.rid], t_eff, *model_bytes, i, forced, lat, conn, rid_out);
+  const float t_now = t[g];
+  const float t_eff = n_steps > 0 ? t_now + horizon_s : t_now;
+  const float mb = *model_bytes;
+#pragma unroll
+  for (int c = 0; c < GRID_PER_THREAD; ++c) {
+    const int j = tid + c * (int)blockDim.x;
+    if (j < n)
+      finish(s, a[c], (float)hist[a[c].rid], t_eff, mb, base + j, forced, lat, conn, rid_out);
   }
 }
 
@@ -371,7 +400,8 @@ extern "C" int rttg_latency_launch(
 }
 
 // B1g: one launch on `stream` of `lanes` blocks, one a lane, for lanes of
-// n <= ONE_BLOCK_MAX clients.  scenario is (lanes, row_bytes) with row_bytes
+// n <= GRID_LANE_MAX clients (min(n, ONE_BLOCK_MAX) threads a block, rounded
+// up to a warp).  scenario is (lanes, row_bytes) with row_bytes
 // a multiple of 4 holding S_COUNT floats and n_rsu flags; t is (lanes,) on
 // the device; rid_out (lanes, n) int32 may be null (no ids).  Allocates
 // nothing; returns the launch's CUDA error code.
@@ -380,14 +410,14 @@ extern "C" int rttg_latency_grid_launch(
     const float* model_bytes, const float* pos, const float* speed, const float* accel,
     const uint8_t* forced, int n, int n_steps, float dt, float horizon_s, float* lat,
     uint8_t* conn, int* rid_out, void* stream) {
-  if (lanes < 1 || n < 1 || n > ONE_BLOCK_MAX || row_bytes % 4 != 0 ||
+  if (lanes < 1 || n < 1 || n > GRID_LANE_MAX || row_bytes % 4 != 0 ||
       row_bytes < S_COUNT * (int)sizeof(float) + n_rsu || (long long)lanes * n > 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
   static int granted = 48 * 1024;
   const int smem = shared_bytes(n_rsu);
   const cudaError_t err = grant_for((const void*)rttg_latency_grid_kernel, &granted, smem);
   if (err != cudaSuccess) return (int)err;
-  const int threads = (n + 31) / 32 * 32;
+  const int threads = n < ONE_BLOCK_MAX ? (n + 31) / 32 * 32 : ONE_BLOCK_MAX;
   rttg_latency_grid_kernel<<<lanes, threads, smem, static_cast<cudaStream_t>(stream)>>>(
       scenario, row_bytes, n_rsu, t, model_bytes, pos, speed, accel, forced, n, n_steps, dt,
       horizon_s, lat, conn, rid_out);

@@ -13,10 +13,10 @@ connection-rate Bernoulli mask comes in as ``forced``.
 
 ``rttg_latency_grid`` is the batched grid round's form (B1g, the reference
 kernel under the engine's ``vmap``): G lanes of up to ``GRID_MAX_N``
-clients, each with its own scenario, kinematics, time and forced mask, in
-one launch (one block a lane, bitwise ``rttg_latency`` on each lane, the
-RSU ids too when asked for); its plain version is
-``rttg_latency_grid_plain``.
+(4,096) clients, each with its own scenario, kinematics, time and forced
+mask, in one launch (one block a lane, a thread taking up to four clients;
+bitwise ``rttg_latency`` on each lane, the RSU ids too when asked for); its
+plain version is ``rttg_latency_grid_plain``.
 """
 from __future__ import annotations
 
@@ -43,7 +43,11 @@ SCENARIO_SCALARS = (
 )
 GRID_THREADS = 256  # block size of the kernel's cooperative launch (N > 1,024)
 MAX_RSU = 32768
-GRID_MAX_N = 1024  # clients a lane of rttg_latency_grid: one block a lane
+# Clients a lane of rttg_latency_grid (the .cu source's GRID_LANE_MAX: one
+# block a lane, up to four clients a thread).  It is core.messages.DENSE_MAX_N,
+# the largest fleet the dense neighbour search and fusion take, so the batched
+# grid round (fl.rounds.grid_round_fits) serves every N that search does.
+GRID_MAX_N = 4096
 
 # Kernel launches made by ``rttg_latency`` (one per call on CUDA tensors).
 launches = 0
@@ -222,9 +226,10 @@ def _rttg_latency_grid_cuda(pos, speed, accel, t, model_bytes, forced, cfg, pred
         raise ValueError(f"rttg_latency_grid: pos must be (G, N), got {tuple(pos.shape)}")
     G, n = pos.shape
     n_rsu = n_rsu_of(cfg)
-    if not (1 <= n <= GRID_MAX_N and 1 <= G <= 2**31 // GRID_MAX_N and 1 <= n_rsu <= MAX_RSU):
-        raise ValueError(f"rttg_latency_grid: need 1 <= N <= {GRID_MAX_N}, 1 <= G and "
-                         f"1 <= R <= {MAX_RSU}, got G={G}, N={n}, R={n_rsu}")
+    if not (1 <= n <= GRID_MAX_N and 1 <= G and G * n < 2**31 and 1 <= n_rsu <= MAX_RSU):
+        raise ValueError(f"rttg_latency_grid: need 1 <= N <= {GRID_MAX_N}, 1 <= G, "
+                         f"G * N < 2**31 and 1 <= R <= {MAX_RSU}, got G={G}, N={n}, "
+                         f"R={n_rsu}")
     for name, x, dtype in (("pos", pos, torch.float32), ("speed", speed, torch.float32),
                            ("accel", accel, torch.float32), ("forced", forced, torch.bool)):
         if x is not None and (x.device != device or x.dtype != dtype or x.shape != (G, n)
@@ -267,8 +272,8 @@ def rttg_latency_grid(pos, speed, accel, t, model_bytes, forced, cfg, *, predict
 
     ``pos`` / ``speed`` / ``accel`` / ``forced`` are ``(G, N)``, ``t`` a
     ``(G,)`` tensor, ``cfg`` a ``scenarios.lane_view`` stack.  CUDA tensors
-    go to the kernel (one launch, N <= ``GRID_MAX_N``), CPU tensors to
-    ``rttg_latency_grid_plain``.
+    go to the kernel (one launch, N <= ``GRID_MAX_N``; a failed build or
+    launch raises), CPU tensors to ``rttg_latency_grid_plain``.
     """
     if pos.is_cuda:
         return _rttg_latency_grid_cuda(pos, speed, accel, t, model_bytes, forced, cfg, predict,

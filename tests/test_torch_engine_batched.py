@@ -10,9 +10,10 @@ switch picks each lane's mask on the device).  Tolerance as in
 ``tests/test_torch_engine.py``: integers equal, floats within rtol 2e-4,
 atol 1e-5, NaN where the reference has NaN.
 
-Which path an engine takes: engines up to 1,024 clients the batched round,
-flat or two-tier, whatever their registry; larger fleets the lane loop;
-decided once, in ``__init__``, with no argument of its own.
+Which path an engine takes: engines up to ``messages.DENSE_MAX_N`` = 4,096
+clients the batched round, flat or two-tier, whatever their registry;
+larger fleets the lane loop; decided once, in ``__init__``, with no
+argument of its own.
 """
 import dataclasses
 import inspect
@@ -101,13 +102,17 @@ def _engine(**fl_kw):
     (dict(strategies=STRATEGIES), True),
     (dict(compute_dtype="bfloat16"), True),
     (dict(num_clients=1024), True),
+    (dict(num_clients=1025), True),
+    (dict(num_clients=4096), True),
     (dict(aggregators=("fedbuff",)), True),
     (dict(aggregators=("fedavg", "fedadam")), True),
     (dict(aggregators=("fedadam",)), True),
     (dict(hierarchical=True), True),
     (dict(hierarchical=True, client_block=4), True),
-    (dict(hierarchical=True, client_block=4, num_clients=1025), False),
-    (dict(num_clients=1025), False),
+    (dict(hierarchical=True, client_block=4, num_clients=1025), True),
+    (dict(hierarchical=True, client_block=4, num_clients=4096), True),
+    (dict(hierarchical=True, client_block=4, num_clients=4097), False),
+    (dict(num_clients=4097), False),
 ])
 def test_the_engine_picks_its_path_once_from_registry_lane_and_size(kw, batched):
     eng = _engine(**kw)
@@ -127,8 +132,8 @@ def test_no_argument_chooses_the_path():
 
 def test_the_batched_round_refuses_lanes_it_does_not_serve():
     fl = FLConfig(**FL)
-    for bad in (dataclasses.replace(fl, num_clients=1025),
-                dataclasses.replace(fl, hierarchical=True, client_block=4, num_clients=1025)):
+    for bad in (dataclasses.replace(fl, num_clients=4097),
+                dataclasses.replace(fl, hierarchical=True, client_block=4, num_clients=4097)):
         with pytest.raises(ValueError, match="batched grid round"):
             rounds.make_grid_round_step(None, bad, N, 1.0, [], STRATEGIES)
     with pytest.raises(ValueError, match="client_block"):  # streaming needs two tiers
@@ -139,4 +144,6 @@ def test_the_batched_round_refuses_lanes_it_does_not_serve():
     assert rounds.grid_round_fits(dataclasses.replace(fl, hierarchical=True), ("fedavg",))
     assert rounds.grid_round_fits(dataclasses.replace(fl, hierarchical=True, client_block=4),
                                   AGGREGATOR_ORDER)
-    assert not rounds.grid_round_fits(dataclasses.replace(fl, num_clients=1025), ("fedbuff",))
+    for n in (1025, 4096):
+        assert rounds.grid_round_fits(dataclasses.replace(fl, num_clients=n), ("fedbuff",))
+    assert not rounds.grid_round_fits(dataclasses.replace(fl, num_clients=4097), ("fedbuff",))

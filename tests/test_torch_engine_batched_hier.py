@@ -104,11 +104,12 @@ def test_the_streamed_fedbuff_lanes_park(grids):
 
 
 def test_a_two_tier_grid_over_the_gridded_limit_keeps_the_lane_loop():
-    from repro_torch.kernels.rttg_latency import GRID_MAX_N
+    from repro_torch.core.messages import DENSE_MAX_N
 
-    fl = FLConfig(**dict(STREAMED_FL, num_clients=GRID_MAX_N + 1))
+    fl = FLConfig(**dict(STREAMED_FL, num_clients=DENSE_MAX_N + 1))
     eng = ExperimentEngine(ModelConfig(**MLP), fl, "mnist", device="cpu", **STREAMED)
     assert not eng.batched
-    small = dataclasses.replace(fl, num_clients=GRID_MAX_N)
-    assert ExperimentEngine(ModelConfig(**MLP), small, "mnist", device="cpu",
-                            **STREAMED).batched
+    for n in (1025, DENSE_MAX_N):  # above one block of B1g, and its limit
+        small = dataclasses.replace(fl, num_clients=n)
+        assert ExperimentEngine(ModelConfig(**MLP), small, "mnist", device="cpu",
+                                **STREAMED).batched

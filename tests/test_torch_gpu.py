@@ -7,7 +7,7 @@ Run on a machine with a card:
 This file imports no JAX (the card's machine has none): each kernel is held
 against its plain PyTorch version on the card.  Connectivity and RSU ids
 exactly (also around the geometry kernel's one-block limit, past the
-card's resident threads, at R = 1, 40 and 32,768 and with positions at
+card's resident threads, its lane-batched form up to 4,096 clients a lane, at R = 1, 40 and 32,768 and with positions at
 the predictor's wrap, each call repeated bit for bit); latency within rtol 1e-5 (the kernel's ``log10f`` / ``powf`` /
 ``log2f`` / ``sinf`` and PyTorch's elementwise kernels may round an ulp
 apart); the FedAvg sum within 1e-6 of ``sum_k |w_k u_k|`` (another
@@ -1337,8 +1337,8 @@ def test_grid_wrappers_refuse_what_the_kernels_do_not_take(dev):
                                    predict=True)  # one lane of kinematics, two of scenario
     with pytest.raises(ValueError):
         rttg_mod.rttg_latency_grid(pos, speed, accel, t[:1], 1.0, None, view, predict=True)
-    big = _grid_lanes(("ring",), 1025, 1.0, dev)
-    with pytest.raises(ValueError, match="1024"):
+    big = _grid_lanes(("ring",), 4097, 1.0, dev)
+    with pytest.raises(ValueError, match="4096"):
         rttg_mod.rttg_latency_grid(*big[2:5], big[5], 1.0, None, big[1], predict=True)
     u = torch.zeros((2, 3, 8), device=dev)
     with pytest.raises(ValueError):
@@ -1647,6 +1647,35 @@ def test_rttg_latency_grid_kernel_ids_are_the_one_lane_kernels(dev, scenarios, n
     without = rttg_mod.rttg_latency_grid(pos, speed, accel, t, 636_040.0, forced, view,
                                          predict=predict)
     assert torch.equal(lat, without[0]) and torch.equal(conn, without[1])
+
+
+# B1g above one block of threads: lanes of up to 4,096 clients (four a thread),
+# one lane (rsu_outage: dark RSUs) and 24 over the catalog (dark-RSU lanes beside
+# live ones), predicted and realized, with and without the ids
+@pytest.mark.parametrize("n", [1025, 2048, 4096])
+@pytest.mark.parametrize("scenarios", [("rsu_outage",), CATALOG * 3], ids=["G1", "G24"])
+@pytest.mark.parametrize("predict", [True, False])
+@pytest.mark.parametrize("want_rid", [False, True])
+def test_rttg_latency_grid_kernel_above_one_block_is_the_one_lane_kernel(dev, n, scenarios,
+                                                                        predict, want_rid):
+    """Every lane bit for bit a B1 call on that lane (B1's cooperative launch
+    above 1,024 clients), ids included; conn (and ids) exactly the plain
+    version's, latency within rtol 1e-5; a second call bit for bit the first."""
+    scns, view, pos, speed, accel, t, forced = _grid_lanes(scenarios, n, 0.7, dev)
+    before = rttg_mod.grid_launches
+    got, again = [rttg_mod.rttg_latency_grid(pos, speed, accel, t, 636_040.0, forced, view,
+                                             predict=predict, want_rid=want_rid)
+                  for _ in range(2)]
+    assert rttg_mod.grid_launches == before + 2
+    for g, scn in enumerate(scns):
+        one = rttg_mod.rttg_latency(pos[g], speed[g], accel[g], t[g], 636_040.0, forced[g], scn,
+                                    predict=predict, want_rid=want_rid)
+        assert all(torch.equal(a[g], b) for a, b in zip(got, one)), g
+    ref = rttg_mod.rttg_latency_grid_plain(pos, speed, accel, t, 636_040.0, forced, view,
+                                           predict, want_rid=want_rid)
+    assert all(torch.equal(a, b) for a, b in zip(got[1:], ref[1:]))
+    torch.testing.assert_close(got[0], ref[0], rtol=1e-5, atol=1e-7)
+    assert all(torch.equal(x, y) for x, y in zip(got, again))
 
 
 @pytest.mark.parametrize("name,fl_kw,aggregators,rounds", [
