@@ -3,18 +3,24 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --wrapper-times CHECKOUT
 
-The second form runs phases 1 and 2 and then only ``rttg_latency``'s and
-``fedavg_reduce``'s wrappers as the round calls them (phase 5's profile of
-them), from the ``src/`` of another checkout (say, the parent commit's
-``git archive``), so that two trees can be compared in one call.
+The second form runs phases 1 and 2 from the ``src/`` of another checkout
+(say, the parent commit's ``git archive``; CHECKOUT ``.`` is this tree) and
+then only its wrappers as the rounds call them (``wrapper_times``):
+``rttg_latency``'s and ``fedavg_reduce``'s device ops and time a call,
+``rttg_latency_grid`` at ``B1G_SHAPES`` by CUDA graph replay, and one
+profiled grid round of phase 4k's N = 2,048 grid and of its greedy grid's
+first lane group with B1g's share of the device time; run it on both trees
+in turns (parent, change, change, parent) in one call to compare them.
 
 Phases (any failure raises and exits non-zero):
 
 1. device: name, count, ``nvidia-smi`` name and power limit; no card fails;
 2. build: compile the CUDA kernels from ``src/repro_torch/kernels/csrc`` with
    nvcc into ``build/kernels`` and print the seconds and ptxas's registers
-   and spills per kernel; ``rttg_latency_grid_kernel``'s (B1g, up to four
-   clients a thread under ``__launch_bounds__(1024, 1)``) must not spill;
+   and spills per kernel; B1g's two kernels (``rttg_latency_grid_kernel``,
+   one block a lane, and ``rttg_latency_grid_tiles_kernel``, T tiles a lane;
+   up to four clients a thread under ``__launch_bounds__(1024, 1)``) must
+   not spill;
 3. kernels: each kernel against its plain PyTorch version on the card, at
    the main path's shapes and at the edges, each call repeated bitwise:
    ``rttg_latency`` around its one-block limit (1,024 and 1,025 clients), at
@@ -26,11 +32,16 @@ Phases (any failure raises and exits non-zero):
    ``rttg_latency_grid`` (B1g, the batched grid round's geometry) on 24
    lanes over the 8 catalog scenarios at N = 20 and 100, predicted and
    realized, CR 1.0 and 0.7, and at one lane, one client, 1,024 clients and
-   a dark-RSU lane beside a live one, and above one block of threads (N =
-   1,025, 2,048 and 4,096, one dark-RSU lane and 24 over the catalog,
-   predicted and realized, with and without the ids): every lane bit for bit a
-   ``rttg_latency`` call on that lane, conn exact and latency within rtol
-   1e-5 of its plain version, repeated bitwise; B1g with the RSU ids (the
+   a dark-RSU lane beside a live one, and at its launch plan's edges (N =
+   33, 257, 767 and 768 around its spread threshold, 1,025, 2,048, 4,095
+   and 4,096; G = 1, 2, 24 and 133, more lanes than SMs; predicted and
+   realized, with and without the ids), at R = 1, 40 and 32,768 (one block
+   a lane above 32 RSUs): every
+   lane bit for bit a ``rttg_latency`` call on that lane, conn exact and
+   latency within rtol 1e-5 of its plain version, repeated bitwise, its
+   per-lane counters at zero after each call; B1g captured into a CUDA graph
+   (the cooperative launch of 2 lanes of 4,096 and 24 of 2,048, the one-block
+   launch of 24 of 20), two replays bitwise the eager call; B1g with the RSU ids (the
    two-tier grids' realized pass) on the hierarchical probe's 12 lanes at N =
    20, the streamed grid's 8 at N = 100 and two lanes of 1,024, the ids bit
    for bit B1's and the plain version's; ``rsu_reduce_grid`` (B5g, the
@@ -219,7 +230,9 @@ Phases (any failure raises and exits non-zero):
    rounds: 4 B1g with ids, 14 B5g, 2 B2g) against its lane loop; a 24-lane
    grid with ``greedy`` at N = 4,096 for 1 round in lane groups (K = N; 2
    B1g and 1 B2g a group), its group count and peak memory (under
-   ``WIDE_PEAK_BYTES``), two of its lanes against the lane loop;
+   ``WIDE_PEAK_BYTES``), two of its lanes against the lane loop; one grid
+   round of the N = 2,048 grid and of the greedy grid's first lane group (2
+   lanes) profiled: device ops, busy ms, idle share and B1g's share;
 5. times: each kernel (CUDA events, after warm-up) beside its bound, its
    plain version and a one-call PyTorch yardstick (``pairwise_cosine`` at
    (100, 1024), (256, 4096) and (20,000, 1,024)), and for every kernel and
@@ -236,7 +249,10 @@ Phases (any failure raises and exits non-zero):
    ``rttg_latency`` at N=100 predicted and realized and at N=100,000
    predicted; ``rttg_latency_grid`` at the bench grid's 24 lanes (N=20,
    predicted) beside the lane loop's 24 ``rttg_latency`` launches, and at
-   24 lanes of 2,048 and 4,096 clients (``wide_shapes`` in its row), and
+   ``B1G_SHAPES`` (8 lanes of 100, 24 of 1,024, 2,048 and 4,096, 2 of 4,096),
+   predicted and realized, each at its launch plan (``wide_shapes`` in its
+   row), and its spread plan against one block a lane around the spread
+   threshold (``b1g_plan_crossover``), and
    ``fedavg_reduce_grid`` at its (24, 2, 159,010) on fp32 and bf16 rows
    beside the lane loop's 24 ``fedavg_reduce`` launches and ``torch.bmm``,
    each with its device time from CUDA graph replays; B4g at the async
@@ -508,14 +524,15 @@ def check_fedavg(K, P, device, rows=torch.float32, offset=0) -> float:
     return err
 
 
-def grid_lane_inputs(scenarios, n, seed, cr, device):
+def grid_lane_inputs(scenarios, n, seed, cr, device, **scn_kw):
     """G lanes of ``rttg_inputs``, one a scenario: each lane's own
     ``ScenarioParams`` (B1's), their ``lane_view`` stack (B1g's), ``(G, N)``
     kinematics, ``(G,)`` times (a lane apart by 3.25 s) and ``(G, N)`` forced
     masks (None at CR 1)."""
     from repro_torch.core.scenarios import lane_view, stack_scenarios
 
-    lanes = [rttg_inputs(sc, n, seed + 101 * g, cr, device) for g, sc in enumerate(scenarios)]
+    lanes = [rttg_inputs(sc, n, seed + 101 * g, cr, device, **scn_kw)
+             for g, sc in enumerate(scenarios)]
     scns = [lane[0] for lane in lanes]
     pos, speed, accel = (torch.stack([lane[i] for lane in lanes]) for i in (1, 2, 3))
     t = torch.stack([lane[4] + 3.25 * g for g, lane in enumerate(lanes)])
@@ -523,28 +540,58 @@ def grid_lane_inputs(scenarios, n, seed, cr, device):
     return scns, lane_view(stack_scenarios(scns)), pos, speed, accel, t, forced
 
 
-def check_rttg_grid(scenarios, n, predict, cr, device, want_rid=False) -> float:
+def grid_counters_zero(device, G, n_rsu) -> bool:
+    """B1g's per-lane counter region (``(G, R + 1)`` int32: the RSU totals,
+    then a lane's departure count) reads zeros."""
+    from repro_torch.kernels.build import counters
+
+    return int(torch.count_nonzero(counters(device, "rttg_latency_grid",
+                                            G * (n_rsu + 1))[:G * (n_rsu + 1)])) == 0
+
+
+def grid_catalog(G):
+    """G lanes over the 8 catalog scenarios; one lane is rsu_outage's (dark RSUs)."""
+    return (("rsu_outage",) + GRID_SCENARIOS * (G // len(GRID_SCENARIOS) + 1))[:G]
+
+
+def check_rttg_grid(scenarios, n, predict, cr, device, want_rid=False, **scn_kw) -> float:
     """B1g on G = len(scenarios) lanes: bit for bit G calls of B1 (one a
     lane, on the lane's own scenario), RSU ids included with ``want_rid``;
     against its plain version conn (and ids) exact, latency within
-    ``check_rttg``'s rtol 1e-5; a second call bit for bit the first."""
-    from repro_torch.kernels.rttg_latency import (rttg_latency, rttg_latency_grid,
-                                                  rttg_latency_grid_plain)
+    ``check_rttg``'s rtol 1e-5 (lane by lane where the grid's (G, N, R)
+    distances would pass 2^28 elements); a second call bit for bit the
+    first; the per-lane counters at zero after each call."""
+    from repro_torch.kernels.rttg_latency import (grid_launch_plan, rttg_latency,
+                                                  rttg_latency_grid, rttg_latency_grid_plain,
+                                                  rttg_latency_plain)
+    from repro_torch.kernels.build import library
 
     scns, view, pos, speed, accel, t, forced = grid_lane_inputs(scenarios, n, n + 11, cr,
-                                                                device)
-    G = len(scenarios)
+                                                                device, **scn_kw)
+    G, R = len(scenarios), view.n_rsu
     mb = torch.tensor(636_040.0, device=device)
-    got, again = [rttg_latency_grid(pos, speed, accel, t, mb, forced, view, predict=predict,
-                                    want_rid=want_rid) for _ in range(2)]
+    got = rttg_latency_grid(pos, speed, accel, t, mb, forced, view, predict=predict,
+                            want_rid=want_rid)
+    zero = grid_counters_zero(device, G, R)
+    again = rttg_latency_grid(pos, speed, accel, t, mb, forced, view, predict=predict,
+                              want_rid=want_rid)
+    zero = zero and grid_counters_zero(device, G, R)
     lanes = [rttg_latency(pos[g], speed[g], accel[g], t[g], mb,
                           None if forced is None else forced[g], scns[g], predict=predict,
                           want_rid=want_rid)
              for g in range(G)]
-    ref = rttg_latency_grid_plain(pos, speed, accel, t, mb, forced, view, predict, want_rid)
+    if G * n * R > 2 ** 28:
+        ref = [torch.stack(x) for x in zip(*[
+            rttg_latency_plain(pos[g], speed[g], accel[g], t[g], mb,
+                               None if forced is None else forced[g], scns[g], predict,
+                               want_rid) for g in range(G)])]
+    else:
+        ref = rttg_latency_grid_plain(pos, speed, accel, t, mb, forced, view, predict, want_rid)
     torch.cuda.synchronize()
-    what = (f"G={G} ({', '.join(sorted(set(scenarios)))}), N={n}, predict={predict}, "
-            f"CR={cr}, want_rid={want_rid}")
+    plan = grid_launch_plan(library(), device, G, n, R)
+    what = (f"G={G} ({', '.join(sorted(set(scenarios)))}), N={n}, R={R}, predict={predict}, "
+            f"CR={cr}, want_rid={want_rid}; plan {plan[0]} tile(s) a lane x {plan[1]} threads, "
+            f"{plan[2]} client(s) a thread")
     for g in range(G):
         if not all(torch.equal(x[g], y) for x, y in zip(got, lanes[g])):
             raise AssertionError(f"rttg_latency_grid lane {g} is not rttg_latency's ({what})")
@@ -556,11 +603,85 @@ def check_rttg_grid(scenarios, n, predict, cr, device, want_rid=False) -> float:
     torch.testing.assert_close(got[0], ref[0], rtol=1e-5, atol=1e-7)
     if not all(torch.equal(x, y) for x, y in zip(got, again)):
         raise AssertionError(f"rttg_latency_grid does not repeat bitwise ({what})")
+    if not zero:
+        raise AssertionError(f"rttg_latency_grid left its counters nonzero ({what})")
     err = float((got[0] - ref[0]).abs().max())
     print(f"rttg_latency_grid {what}: every lane bitwise rttg_latency's, conn"
           f"{' and ids' if want_rid else ''} exact, max_abs_err={err:.3e} vs plain, repeat "
-          "bitwise")
+          "bitwise, counters zero")
     return err
+
+
+def check_rttg_grid_capture(scenarios, n, predict, device, want_rid=False) -> dict:
+    """B1g captured into a CUDA graph: one wrapper call (after a warm-up on a
+    side stream) recorded and replayed twice; each replay bit for bit the
+    eager call and the counters at zero after it.  -> the shape and the
+    plan's tiles a lane (more than one: a cooperative launch)."""
+    from repro_torch.kernels.build import library
+    from repro_torch.kernels.rttg_latency import grid_launch_plan, rttg_latency_grid
+
+    scns, view, pos, speed, accel, t, forced = grid_lane_inputs(scenarios, n, n + 13, 0.7,
+                                                                device)
+    G, R = len(scenarios), view.n_rsu
+    mb = torch.tensor(636_040.0, device=device)
+
+    def call():
+        return rttg_latency_grid(pos, speed, accel, t, mb, forced, view, predict=predict,
+                                 want_rid=want_rid)
+
+    eager = call()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        call()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        static = call()
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(static, eager)):
+            raise AssertionError(f"a replayed B1g graph differs from the eager call (G={G}, "
+                                 f"N={n})")
+        if not grid_counters_zero(device, G, R):
+            raise AssertionError(f"a replayed B1g graph left its counters nonzero (G={G}, "
+                                 f"N={n})")
+    tiles = grid_launch_plan(library(), device, G, n, R)[0]
+    print(f"rttg_latency_grid captured into a CUDA graph (G={G}, N={n}, predict={predict}, "
+          f"want_rid={want_rid}, {tiles} tile(s) a lane: "
+          f"{'a cooperative launch' if tiles > 1 else 'an ordinary launch'}): two replays bit "
+          "for bit the eager call, counters zero after each")
+    return {"G": G, "N": n, "tiles": tiles}
+
+
+def check_b1g_edges(device) -> None:
+    """B1g at its launch plan's edges, its RSU-count edges and in a CUDA graph
+    (phase 3)."""
+    # B1g at its launch plan's edges (up to 4,096 clients a lane, one a thread up to
+    # four, one block a lane below 768 or T tiles of a cooperative launch): one
+    # dark-RSU lane, two (the greedy grid's lane group), 24 over the catalog and 133
+    # (more lanes than SMs), predicted and realized, with and without the ids, every
+    # lane bitwise B1's on that lane (its cooperative launch above 1,024 clients)
+    for n in (33, 257, 767, 768, 1025, 2048, 4095, 4096):
+        for G in (1, 2, 24, 133):
+            for predict in (True, False):
+                for want_rid in (False, True):
+                    check_rttg_grid(grid_catalog(G), n, predict, 0.7, device, want_rid=want_rid)
+    # R = 1 (lanes of 4,096 in tiles), 40 (past the 32 RSUs whose totals one warp
+    # polls) and 32,768 (160 KB of shared memory a block): above 32 RSUs one block
+    # a lane, four clients a thread at N = 4,096
+    for spacing in (10_000.0, 250.0, 10_000.0 / 32768):
+        for G, n in ((2, 33), (24, 257), (2, 4096), (24, 4096)):
+            for predict in (True, False):
+                check_rttg_grid(("ring",) * G, n, predict, 0.7, device, want_rid=True,
+                                rsu_spacing_m=spacing)
+    # B1g in a CUDA graph (as graph_us times it and a captured grid round would run
+    # it): the cooperative launch of the greedy grid's lane group and of 24 lanes,
+    # and the one-block launch of the bench grid's N = 20
+    for G, n, predict, want_rid in ((2, 4096, True, False), (24, 2048, False, True),
+                                    (24, 20, True, False)):
+        check_rttg_grid_capture(grid_catalog(G), n, predict, device, want_rid)
 
 
 def check_fedavg_grid(G, K, P, device, rows=torch.float32, offset=0) -> float:
@@ -1635,11 +1756,12 @@ def replay(sim, state0, first, traffic, params_atol: float, acc_atol: float = 1e
           f"{float((s_gpu.params.cpu().float() - s_cpu.params.float()).abs().max()):.3e}")
 
 
-def profile_round(label, fn, card):
+def profile_round(label, fn, card, names=False):
     """One call of ``fn`` (a round, a decode step, a prefill) under
     torch.profiler, the device traced alone (a host trace would slow the call
     it measures): wall, device busy time and idle share, and the device
-    kernels by total time.  -> {"wall_ms", "ops", "busy_ms", "idle"} (None
+    kernels by total time.  -> {"wall_ms", "ops", "busy_ms", "idle"}, with
+    ``names`` also "by_name" (each device op's name -> (count, us)) (None
     when the profiler saw no device activity)."""
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
         torch.cuda.synchronize()
@@ -1669,8 +1791,30 @@ def profile_round(label, fn, card):
             if kernel in name:
                 print(f"  {kernel} in this profile: {c} calls x {us_ / c:.2f} us of device "
                       f"time = {us_ / 1e3:.3f} ms  ({name[:60]}) [{card}]")
-    return {"wall_ms": wall * 1e3, "ops": len(dev), "busy_ms": busy_us / 1e3,
-            "idle": 1 - busy_us / 1e6 / wall}
+    out = {"wall_ms": wall * 1e3, "ops": len(dev), "busy_ms": busy_us / 1e3,
+           "idle": 1 - busy_us / 1e6 / wall}
+    return {**out, "by_name": by_name} if names else out
+
+
+def profile_grid_rounds(eng, runs, label, card) -> dict:
+    """One batched grid round of ``runs`` (one lane group) profiled
+    (``profile_round``) after one unprofiled round, with B1g's share of the
+    device time.  -> the profile with its ``b1g_share``, ``b1g_calls`` and
+    ``b1g_us`` (None when the profiler saw no device activity)."""
+    lanes = eng._lanes(runs)
+    eng._grid_round(lanes, False, False)
+    prof = profile_round(label, lambda: eng._grid_round(lanes, False, False), card, names=True)
+    del lanes
+    torch.cuda.empty_cache()
+    if prof is None:
+        return None
+    b1g = [(c, us_) for name, (c, us_) in prof.pop("by_name").items()
+           if "rttg_latency_grid" in name]
+    calls, b1g_us = sum(c for c, _ in b1g), sum(us_ for _, us_ in b1g)
+    prof.update(b1g_calls=calls, b1g_us=b1g_us, b1g_share=b1g_us / 1e3 / prof["busy_ms"])
+    print(f"  B1g in this round: {calls} launches, {b1g_us:.2f} us of device time, "
+          f"{prof['b1g_share']:.4f} of the {prof['busy_ms']:.2f} ms busy [{card}]")
+    return prof
 
 
 def assert_rounds_bitwise(a, b, what) -> None:
@@ -1920,7 +2064,13 @@ def wrapper_times(device, card) -> None:
     the main path's predicted call (N=100, R=10, 50 steps, CR 1), its
     realized call (0 steps) and the fleet's predicted call (N=100,000);
     ``fedavg_reduce`` at K=10, P=159,010 beside ``torch.mv``, cycling
-    operand copies that exceed the 50 MB L2."""
+    operand copies that exceed the 50 MB L2; ``rttg_latency_grid`` (B1g) at
+    ``B1G_SHAPES``, predicted and realized, by CUDA graph replay of wrapper
+    calls and by events; one grid round of phase 4k's N = 2,048 grid and of
+    its greedy grid's first lane group profiled, with B1g's share."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.trajectory import horizon_steps
+    from repro_torch.fl import ExperimentEngine
     from repro_torch.kernels import fedavg_reduce as fedavg_mod
     from repro_torch.kernels import rttg_latency as rttg_mod
     from repro_torch.utils import prng
@@ -1952,6 +2102,34 @@ def wrapper_times(device, card) -> None:
     mv_us, _ = device_profile(lambda: torch.mv(nxt().t(), w))
     print(f"fedavg_reduce wrapper K={K} P={P}: device ops per call {fed_ops:g}, device time "
           f"{fed_us:.2f} us; torch.mv {mv_us:.2f} us (kernel {fed_us / mv_us:.3f}x) [{card}]")
+    del us
+    for G, n in B1G_SHAPES:
+        _, view, pos, speed, accel, t, _ = grid_lane_inputs((GRID_SCENARIOS * 3)[:G], n, 5, 1.0,
+                                                            device)
+        for predict in (True, False):
+            def grid_call(pos=pos, speed=speed, accel=accel, t=t, view=view, predict=predict):
+                rttg_mod.rttg_latency_grid(pos, speed, accel, t, mb, None, view, predict=predict)
+
+            steps = horizon_steps(view.predict_horizon_s, view) if predict else 0
+            print(f"rttg_latency_grid wrapper G={G} N={n} R={view.n_rsu} {steps} steps: device "
+                  f"time {graph_us(grid_call):.2f} us a call (graph replay), events "
+                  f"{time_ms(grid_call) * 1e3:.2f} us [{card}]")
+    model = get_config("fl-mnist-mlp")
+    eng = ExperimentEngine(model, grid_fl(num_clients=WIDE_N, samples_per_client=32), "mnist",
+                           strategies=WIDE.strategies, aggregators=WIDE.aggregators,
+                           device=device)
+    profile_grid_rounds(eng, WIDE.runs(), f"N={WIDE_N} grid round, {len(WIDE.runs())} lanes",
+                        card)
+    del eng
+    n = dense_max_n()
+    eng = ExperimentEngine(model, grid_fl(num_clients=n, samples_per_client=32), "mnist",
+                           strategies=WIDE_GREEDY.strategies,
+                           aggregators=WIDE_GREEDY.aggregators, device=device)
+    group = eng._groups(WIDE_GREEDY.runs())[0]
+    profile_grid_rounds(eng, group, f"greedy N={n} grid round, a lane group of {len(group)}",
+                        card)
+    del eng
+    torch.cuda.empty_cache()
 
 
 def graph_us(fn, reps: int = 50) -> float:
@@ -1980,86 +2158,139 @@ def graph_us(fn, reps: int = 50) -> float:
     return start.elapsed_time(end) * 1e3 / (5 * reps)
 
 
+# b1g_plan_crossover's shapes (lanes, clients a lane): the streamed grid's 8 lanes
+# of 100, then 24 and 2 lanes from 257 to 1,024 clients around GRID_SPREAD_MIN
+B1G_CROSSOVER_SHAPES = ((8, 100), (24, 257), (24, 512), (24, 640), (24, 768), (24, 1024),
+                        (2, 640), (2, 768))
+
+
+def b1g_plan_crossover(lib, device, card) -> None:
+    """B1g's spread plan (``grid_plan`` with ``spread_min`` 33: every lane
+    tiled that can be) against one block a lane, on the same kernel and
+    inputs, by CUDA graph replay in turns (spread, one block, one block,
+    spread), predicted and realized, at lane widths around
+    ``GRID_SPREAD_MIN``, below which the plan keeps one block a lane."""
+    from repro_torch.core.trajectory import horizon_steps
+    from repro_torch.kernels import build as kbuild
+    from repro_torch.kernels.rttg_latency import (GRID_SPREAD_MIN, grid_launch_plan,
+                                                  grid_operand, grid_plan, grid_resident)
+
+    mb = torch.tensor(636_040.0, device=device)
+    for G, n in B1G_CROSSOVER_SHAPES:
+        _, view, pos, speed, accel, t, _ = grid_lane_inputs((GRID_SCENARIOS * 3)[:G], n, 5, 1.0,
+                                                            device)
+        R, steps = view.n_rsu, horizon_steps(view.predict_horizon_s, view)
+        op = grid_operand(view, device)
+        lat = torch.empty((G, n), dtype=torch.float32, device=device)
+        conn = torch.empty((G, n), dtype=torch.bool, device=device)
+        counts = kbuild.counters(device, "rttg_latency_grid", G * (R + 1)).data_ptr()
+        spread = grid_plan(G, n, R, *grid_resident(lib, device, R), spread_min=33)[:2]
+        one = (1, min(-(-n // 32) * 32, 1024))
+        taken = ("the spread" if grid_launch_plan(lib, device, G, n, R)[:2] == spread
+                 else "one block")
+        for predict in (True, False):
+            def launch(tiles_threads, predict=predict):
+                kbuild.check(lib.rttg_latency_grid_launch(
+                    op.data_ptr(), op.shape[1], R, G, t.data_ptr(), mb.data_ptr(),
+                    pos.data_ptr(), speed.data_ptr(), accel.data_ptr(), None, n,
+                    steps if predict else 0, float(view.sim_dt_s),
+                    float(view.predict_horizon_s) if predict else 0.0, *tiles_threads, counts,
+                    lat.data_ptr(), conn.data_ptr(), None,
+                    torch.cuda.current_stream(device).cuda_stream), "rttg_latency_grid")
+
+            us = [graph_us(lambda p=p: launch(p)) for p in (spread, one, one, spread)]
+            print(f"rttg_latency_grid G={G} N={n} {'predicted' if predict else 'realized'}: "
+                  f"spread {spread[0]} tile(s) x {spread[1]} threads {(us[0] + us[3]) / 2:.2f} "
+                  f"us, one block of {one[1]} a lane {(us[1] + us[2]) / 2:.2f} us (graph "
+                  f"replay, turns {', '.join(f'{x:.2f}' for x in us)}); the plan "
+                  f"(GRID_SPREAD_MIN {GRID_SPREAD_MIN}) takes {taken} [{card}]")
+
+
+# B1g's timed shapes (lanes, clients a lane): the bench grid's 24 lanes at N = 20
+# (the kernels line's row), the streamed grid's 8 at N = 100, 24 lanes at the
+# one-block limit of 1,024, the wide grids' 24 lanes at N = 2,048 and 4,096 and
+# the greedy grid's lane group of 2 at 4,096
+B1G_SHAPES = ((24, 20), (8, 100), (24, 1024), (24, 2048), (24, 4096), (2, 4096))
+
+
 def time_grid_kernels(kernels, lib, grid_launches, main_err, bf16_times, device, card):
-    """B1g and B2g at the bench grid's shapes, each beside the lane loop's G
-    one-lane calls, appended to ``kernels``: CUDA events over back-to-back
+    """B1g and B2g, appended to ``kernels``: CUDA events over back-to-back
     launches of the C entry point, and the device time a launch from CUDA
-    graph replays.  B1g: 24 lanes over the 8 catalog scenarios, N=20, R=10,
-    predicted (50 steps), CR 1.  B2g: (24, 2, 159,010), fp32 and bf16 rows,
-    cycling copies that exceed the 50 MB L2 (45.8 MB a copy in fp32), beside
+    graph replays.  B1g: ``B1G_SHAPES`` over the 8 catalog scenarios, R=10,
+    predicted (50 steps) and realized (0 steps), CR 1, each at its launch
+    plan; at N = 20 also the lane loop's 24 one-lane launches.  B2g: (24, 2,
+    159,010), fp32 and bf16 rows, cycling copies that exceed the 50 MB L2 (45.8 MB a copy in fp32), beside
     ``torch.bmm(w[:, None, :], u)``."""
     from repro_torch.core.trajectory import horizon_steps
     from repro_torch.kernels import build as kbuild
     from repro_torch.kernels.fedavg_reduce import fedavg_reduce_grid_plain
-    from repro_torch.kernels.rttg_latency import (grid_operand, rttg_latency_grid_plain,
-                                                  scenario_operand)
+    from repro_torch.kernels.rttg_latency import (grid_launch_plan, grid_operand,
+                                                  rttg_latency_grid_plain, scenario_operand)
     from repro_torch.utils import prng
 
     def stream():
         return torch.cuda.current_stream(device).cuda_stream
 
-    G, n = 24, 20
     mb = torch.tensor(636_040.0, device=device)
-    scns, view, pos, speed, accel, t, _ = grid_lane_inputs(GRID_SCENARIOS * 3, n, 5, 1.0,
-                                                           device)
-    R, steps = view.n_rsu, horizon_steps(view.predict_horizon_s, view)
-    dt, hs = float(view.sim_dt_s), float(view.predict_horizon_s)
-    op = grid_operand(view, device)
-    ops = [scenario_operand(scn, device) for scn in scns]
-    lat = torch.empty((G, n), dtype=torch.float32, device=device)
-    conn = torch.empty((G, n), dtype=torch.bool, device=device)
+    rows = []
+    for G, n in B1G_SHAPES:
+        scns, view, pos, speed, accel, t, _ = grid_lane_inputs((GRID_SCENARIOS * 3)[:G], n, 5,
+                                                               1.0, device)
+        R, steps = view.n_rsu, horizon_steps(view.predict_horizon_s, view)
+        dt, hs = float(view.sim_dt_s), float(view.predict_horizon_s)
+        op = grid_operand(view, device)
+        lat = torch.empty((G, n), dtype=torch.float32, device=device)
+        conn = torch.empty((G, n), dtype=torch.bool, device=device)
+        plan = grid_launch_plan(lib, device, G, n, R)
+        counts = (kbuild.counters(device, "rttg_latency_grid", G * (R + 1)).data_ptr()
+                  if plan[0] > 1 else None)
 
-    def b1g():
-        kbuild.check(lib.rttg_latency_grid_launch(
-            op.data_ptr(), op.shape[1], R, G, t.data_ptr(), mb.data_ptr(), pos.data_ptr(),
-            speed.data_ptr(), accel.data_ptr(), None, n, steps, dt, hs, lat.data_ptr(),
-            conn.data_ptr(), None, stream()), "rttg_latency_grid")
-
-    def b1_lanes():  # the lane loop's geometry: one B1 launch a lane
-        for g in range(G):
-            kbuild.check(lib.rttg_latency_launch(
-                ops[g].data_ptr(), R, t[g:].data_ptr(), mb.data_ptr(), pos[g].data_ptr(),
-                speed[g].data_ptr(), accel[g].data_ptr(), None, n, steps, dt, hs, 1, None,
-                None, lat[g].data_ptr(), conn[g].data_ptr(), None, stream()), "rttg_latency")
-
-    b1g_t = (time_ms(b1g), time_ms(lambda: rttg_latency_grid_plain(pos, speed, accel, t, mb,
-                                                                    None, view, True),
-                                   iters=20, warmup=3), graph_us(b1g), graph_us(b1_lanes, 4))
-
-    def b1g_bound(n_clients, row_bytes):
-        # bytes: 3 f32 inputs a client, each lane's scenario row and t,
-        # model_bytes; f32 lat and bool conn out.  Flops as rttg_latency's
-        return bound(G * (n_clients * 4 * 3 + row_bytes + 4 + n_clients * 4 + n_clients) + 4,
-                     G * n_clients * (8 * steps + 6 * R + 45))
-
-    b_ms, b_by = b1g_bound(n, op.shape[1])
-    # the wide grids' lanes (phase 4k): 24 lanes of 2,048 and 4,096 clients, up
-    # to 4 a thread, predicted
-    wide = []
-    for n_w in (2048, 4096):
-        _, view_w, pos_w, speed_w, accel_w, t_w, _ = grid_lane_inputs(GRID_SCENARIOS * 3, n_w, 5,
-                                                                      1.0, device)
-        op_w = grid_operand(view_w, device)
-        lat_w = torch.empty((G, n_w), dtype=torch.float32, device=device)
-        conn_w = torch.empty((G, n_w), dtype=torch.bool, device=device)
-
-        def b1g_w(op_w=op_w, t_w=t_w, pos_w=pos_w, speed_w=speed_w, accel_w=accel_w, n_w=n_w,
-                  lat_w=lat_w, conn_w=conn_w):
+        def b1g(predict, op=op, R=R, G=G, t=t, pos=pos, speed=speed, accel=accel, n=n,
+                steps=steps, dt=dt, hs=hs, plan=plan, counts=counts, lat=lat, conn=conn):
             kbuild.check(lib.rttg_latency_grid_launch(
-                op_w.data_ptr(), op_w.shape[1], R, G, t_w.data_ptr(), mb.data_ptr(),
-                pos_w.data_ptr(), speed_w.data_ptr(), accel_w.data_ptr(), None, n_w, steps, dt,
-                hs, lat_w.data_ptr(), conn_w.data_ptr(), None, stream()), "rttg_latency_grid")
+                op.data_ptr(), op.shape[1], R, G, t.data_ptr(), mb.data_ptr(), pos.data_ptr(),
+                speed.data_ptr(), accel.data_ptr(), None, n, steps if predict else 0, dt,
+                hs if predict else 0.0, plan[0], plan[1], counts, lat.data_ptr(),
+                conn.data_ptr(), None, stream()), "rttg_latency_grid")
 
-        w_ms, w_by = b1g_bound(n_w, op_w.shape[1])
-        row = {"G": G, "N": n_w, "R": R, "ms": time_ms(b1g_w), "device_us": graph_us(b1g_w),
-               "plain_ms": time_ms(lambda: rttg_latency_grid_plain(
-                   pos_w, speed_w, accel_w, t_w, mb, None, view_w, True), iters=5, warmup=1),
-               "bound_ms": w_ms, "bound_by": w_by}
-        wide.append(row)
-        print(f"rttg_latency_grid G={G} N={n_w} R={R} predict (50 steps), one launch: events "
-              f"{row['ms'] * 1e3:.2f} us, device time {row['device_us']:.2f} us (graph replay); "
-              f"plain {row['plain_ms'] * 1e3:.1f} us; bound {w_ms * 1e3:.5f} us ({w_by}) "
-              f"[{card}]")
+        for predict in (True, False):
+            flops = G * n * ((8 * steps if predict else 0) + 6 * R + 45)
+            # bytes: 3 f32 inputs a client, each lane's scenario row and t,
+            # model_bytes; f32 lat and bool conn out
+            b_ms, b_by = bound(G * (n * 4 * 3 + op.shape[1] + 4 + n * 4 + n) + 4, flops)
+            mine = lambda predict=predict, b1g=b1g: b1g(predict)  # noqa: E731
+            row = {"G": G, "N": n, "R": R, "predict": predict, "tiles": plan[0],
+                   "threads": plan[1], "per_thread": plan[2], "bound_ms": b_ms, "bound_by": b_by}
+            row.update(device_us=graph_us(mine), ms=time_ms(mine))
+            if predict:
+                row["plain_ms"] = time_ms(lambda: rttg_latency_grid_plain(
+                    pos, speed, accel, t, mb, None, view, True), iters=5 if n > 100 else 20,
+                    warmup=1 if n > 100 else 3)
+            if (G, n, predict) == (24, 20, True):
+                ops = [scenario_operand(scn, device) for scn in scns]
+
+                def b1_lanes(ops=ops, R=R, t=t, pos=pos, speed=speed, accel=accel, n=n,
+                             steps=steps, dt=dt, hs=hs, lat=lat, conn=conn, G=G):
+                    for g in range(G):  # the lane loop's geometry: one B1 launch a lane
+                        kbuild.check(lib.rttg_latency_launch(
+                            ops[g].data_ptr(), R, t[g:].data_ptr(), mb.data_ptr(),
+                            pos[g].data_ptr(), speed[g].data_ptr(), accel[g].data_ptr(), None,
+                            n, steps, dt, hs, 1, None, None, lat[g].data_ptr(),
+                            conn[g].data_ptr(), None, stream()), "rttg_latency")
+
+                row["lane_loop_device_us"] = graph_us(b1_lanes, 4)
+            rows.append(row)
+            beside = ""
+            if "lane_loop_device_us" in row:
+                beside += f"; the lane loop's {G} B1 launches {row['lane_loop_device_us']:.2f} us"
+            if "plain_ms" in row:
+                beside += f"; plain {row['plain_ms'] * 1e3:.1f} us"
+            print(f"rttg_latency_grid G={G} N={n} R={R} "
+                  f"{'predict (50 steps)' if predict else 'realized (0 steps)'}, plan "
+                  f"{plan[0]} tile(s) x {plan[1]} threads x {plan[2]} a thread: device time "
+                  f"{row['device_us']:.2f} us (graph replay), events {row['ms'] * 1e3:.2f} us"
+                  f"{beside}; bound {b_ms * 1e3:.5f} us ({b_by}) [{card}]")
+    main_row = rows[0]
     kernels.append({
         "name": "rttg_latency_grid", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/rttg_latency.cu",
@@ -2068,14 +2299,12 @@ def time_grid_kernels(kernels, lib, grid_launches, main_err, bf16_times, device,
         "launches_by_path": {f"engine {grid} grid": g["rttg_latency_grid"]
                              for grid, g in grid_launches.items() if g["rttg_latency_grid"]},
         "max_abs_err": main_err["rttg_latency_grid"],
-        "ms": b1g_t[0], "plain_ms": b1g_t[1], "bound_ms": b_ms, "bound_by": b_by,
-        "library_ms": None, "device_us": b1g_t[2], "wide_shapes": wide,
+        "ms": main_row["ms"], "plain_ms": main_row["plain_ms"], "bound_ms": main_row["bound_ms"],
+        "bound_by": main_row["bound_by"], "library_ms": None,
+        "device_us": main_row["device_us"], "wide_shapes": rows[1:],
     })
-    print(f"rttg_latency_grid G={G} N={n} R={R} predict (50 steps), one launch: events "
-          f"{b1g_t[0] * 1e3:.2f} us, device time {b1g_t[2]:.2f} us (graph replay); the lane "
-          f"loop's {G} rttg_latency launches {b1g_t[3]:.2f} us of device time; plain "
-          f"{b1g_t[1] * 1e3:.1f} us; bound {b_ms * 1e3:.5f} us ({b_by}) [{card}]")
 
+    G = 24
     K, P = 2, 159_010
     us = [1e-3 * prng.normal(prng.fold_in(prng.key(13), i), (G, K, P), device) for i in range(4)]
     us16 = [x.to(torch.bfloat16) for x in us] + [
@@ -3622,8 +3851,10 @@ def peak_sweep(eng, grid: Grid, want: dict, card):
 
 
 def wide_grids_phase(device, card) -> dict:
-    """Phase 4k: the batched grid round above 1,024 clients, in lane groups.
-    -> each grid's launches of one sweep."""
+    """Phase 4k: the batched grid round above 1,024 clients, in lane groups;
+    one grid round of the N = 2,048 grid and of the greedy grid's first lane
+    group profiled (``profile_grid_rounds``).  -> each grid's launches of
+    one sweep."""
     from repro_torch.configs import get_config
     from repro_torch.fl import ExperimentEngine
 
@@ -3642,7 +3873,11 @@ def wide_grids_phase(device, card) -> dict:
     print(f"N={WIDE_N} grid, {len(WIDE.runs())} lanes x {WIDE.rounds} rounds: the batched sweep "
           f"{wall:.3f} s, the lane loop's {loop['setup_s'] + loop['rounds_s']:.3f} s (set-up "
           f"{loop['setup_s']:.3f}, rounds {loop['rounds_s']:.3f}) [{card}]")
-    del eng, res
+    del res
+    torch.cuda.empty_cache()
+    profile_grid_rounds(eng, WIDE.runs(), f"N={WIDE_N} grid round, {len(WIDE.runs())} lanes",
+                        card)
+    del eng
     torch.cuda.empty_cache()
 
     n = dense_max_n()
@@ -3675,7 +3910,12 @@ def wide_grids_phase(device, card) -> dict:
         eng, grid, grid.batched_want("fedavg_reduce_grid"), card)
     lanes_vs_loop(eng, grid, res, [("greedy", "fedavg", 0, "ring"),
                                           ("contextual", "fedavg", 0, "platoon")], card)
-    del eng, res
+    del res
+    torch.cuda.empty_cache()
+    group = eng._groups(grid.runs())[0]
+    profile_grid_rounds(eng, group, f"greedy N={n} grid round, a lane group of {len(group)}",
+                        card)
+    del eng
     torch.cuda.empty_cache()
     return launches
 
@@ -3927,11 +4167,14 @@ def main(argv=()) -> int:
                 or "Compiling entry" in line:
             print("  " + line.strip())
     if other is None:
-        b1g = ptxas_entry(info.ptxas_log, "rttg_latency_grid_kernel")
-        print(f"rttg_latency_grid_kernel (B1g, up to 4 clients a thread, __launch_bounds__"
-              f"(1024, 1)): {b1g['registers']} registers, {b1g['spill_bytes']} bytes spilled")
-        if b1g["spill_bytes"]:
-            raise AssertionError("ptxas spills rttg_latency_grid_kernel's registers")
+        for kernel, what in (("rttg_latency_grid_kernel", "one block a lane"),
+                             ("rttg_latency_grid_tiles_kernel", "T tiles a lane")):
+            b1g = ptxas_entry(info.ptxas_log, kernel)
+            print(f"{kernel} (B1g, {what}, up to 4 clients a thread, __launch_bounds__"
+                  f"(1024, 1)): {b1g['registers']} registers, {b1g['spill_bytes']} bytes "
+                  "spilled")
+            if b1g["spill_bytes"]:
+                raise AssertionError(f"ptxas spills {kernel}'s registers")
     kbuild.library()
     if other is not None:
         phase(f"wrapper times of {other}")
@@ -3987,14 +4230,7 @@ def main(argv=()) -> int:
                          (("rush_hour", "urban_grid"), 1024), (("rsu_outage", "ring"), 100)):
         for predict in (True, False):
             check_rttg_grid(scenarios, n, predict, 0.7, device)
-    # B1g above one block of threads (up to 4,096 clients a lane, 4 a thread): one
-    # dark-RSU lane and 24 lanes over the catalog, predicted and realized, with and
-    # without the ids, every lane bitwise B1's cooperative launch on that lane
-    for n in (1025, 2048, 4096):
-        for scenarios in (("rsu_outage",), GRID_SCENARIOS * 3):
-            for predict in (True, False):
-                for want_rid in (False, True):
-                    check_rttg_grid(scenarios, n, predict, 0.7, device, want_rid=want_rid)
+    check_b1g_edges(device)
     # B1g's RSU ids (the two-tier grids' realized pass): the smoke probe's 12
     # lanes at N = 20, the streamed grid's 8 at N = 100, and the one-block edge
     for scenarios, n in ((("rush_hour", "rsu_outage") * 6, 20), (GRID_SCENARIOS, 100),
@@ -4721,6 +4957,7 @@ def main(argv=()) -> int:
           f"{fed16_bytes / fed16[2] / 1e3:.0f} GB/s by device time [{card}]")
 
     time_grid_kernels(kernels, lib, grid_launches, main_err, bf16_times, device, card)
+    b1g_plan_crossover(lib, device, card)
     time_cnn_reduces(kernels, lib, main_err, device, card)
     time_server_grid(kernels, lib, grid_launches, main_err, device, card)
     time_rsu_grid(kernels, lib, grid_launches, main_err, bf16_times, device, card)

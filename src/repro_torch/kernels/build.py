@@ -37,8 +37,9 @@ _SIGNATURES = {
     "rttg_latency_launch": (_P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _F, _F, _I, _P, _P, _P, _P,
                             _P, _P),
     "rttg_latency_blocks": (_I, _I),
-    "rttg_latency_grid_launch": (_P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _F, _F, _P,
-                                 _P, _P, _P),
+    "rttg_latency_grid_launch": (_P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _F, _F, _I,
+                                 _I, _P, _P, _P, _P, _P),
+    "rttg_latency_grid_resident": (_I, _P, _P),
     "fedavg_reduce_launch": (_P, _I, _P, _I, _LL, _I, _P, _P),
     "fedavg_reduce_grid_launch": (_P, _I, _P, _I, _I, _LL, _I, _P, _P),
     "server_update_launch": (_P, _I, _P, _I, _P, _P, _I, _P, _LL, _P, _I, _P, _P, _I, _I,

@@ -50,25 +50,52 @@
 // rounds as the plain PyTorch version's separate ops do and log10f / powf /
 // log2f / sinf stay within ulps of it.
 //
-// B1g, rttg_latency_grid_kernel: G lanes of the batched grid round in one
-// launch, one block a lane (blockIdx.x = lane), each lane's own scenario
-// row, kinematics row, t and forced row.  A block is the one-block design
-// above, widened: up to GRID_LANE_MAX (4,096, the dense neighbour search's
-// limit, core/messages.py DENSE_MAX_N) clients a lane, at most
-// ONE_BLOCK_MAX threads, thread tid taking clients tid, tid + blockDim.x,
-// ... (at most GRID_PER_THREAD = 4), their attachments in a fixed-size
-// register array.  Each thread counts its clients into the lane's
-// shared-memory histogram as B1 does (__match_any_sync, one add per
-// distinct RSU of a warp), one __syncthreads(), then it finishes each of
-// its clients from the counts.  Integer counts are exact in any order and
-// each client runs the same predict_attach and finish, so a lane is bitwise
-// B1 on that lane (its cooperative launch above 1,024 clients included),
-// RSU ids too.  No counters, no grid barrier, no state between calls.  The
-// cost is latency: up to 4 x n_steps dependent Euler steps a thread, with G
-// SMs busy.  The scenario operand is (G, row_bytes): the S_COUNT float32
+// B1g, rttg_latency_grid_kernel and rttg_latency_grid_tiles_kernel (one body,
+// grid_lanes, compiled twice): G lanes of the batched grid round in one
+// launch, each lane's own scenario row, kinematics row, t and forced row; up
+// to GRID_LANE_MAX (4,096, the dense neighbour search's limit,
+// core/messages.py DENSE_MAX_N) clients a lane.  What bounds it is ALU issue
+// and latency: a predicted client is ~505 dependent operations (fmad-free),
+// 24 lanes of 4,096 clients ~5e7, ~1.7 us of issue on 132 SMs; one block a
+// lane keeps G SMs busy and runs up to four clients a thread in turn.  So
+// kernels/rttg_latency.py::grid_plan cuts a wide lane's clients into T
+// tiles, one block each, so that the T G blocks cover the card's SMs, one
+// client a thread where residency allows.  Thread tid of a block takes its
+// clients tid, tid + blockDim.x, ... (at most GRID_PER_THREAD = 4), their
+// attachments in a fixed-size register array.  A block loads its first
+// client's kinematics, t and model_bytes beside its scenario row, then
+// counts its clients into a shared-memory histogram as B1 does
+// (__match_any_sync, one add per distinct RSU of a warp).
+// - T = 1, rttg_latency_grid_kernel, dim3(G) blocks (blockIdx.x the lane):
+//   lanes of fewer than 768 clients (where one block a lane measured faster
+//   than the spread), of more than POLL_RSU_MAX RSUs, G >= SMs, or too few
+//   resident blocks for two tiles a lane.  The block's histogram is the
+//   lane's; one __syncthreads(), then each thread finishes its clients as B1
+//   does.  No counters, no barrier.
+// - T > 1, rttg_latency_grid_tiles_kernel, a cooperative launch of dim3(T,
+//   G) blocks (every block resident; blockIdx.x the tile, blockIdx.y the
+//   lane), tile b holding clients [b N / T, (b + 1) N / T): each block adds
+//   its nonzero counts into lane g's R totals, in a (G, R + 1) int32 region
+//   (the R totals, then a departure count).  A tiled lane has at most
+//   POLL_RSU_MAX (32) RSUs, and the totals are their own flag: they sum to N
+//   once every tile's adds have landed and not before (every add is
+//   positive), so warp 0 polls them (one relaxed load a lane) until they do
+//   and keeps that read; no fence and no arrival count, one L2 round trip
+//   after the last add.  Meanwhile one
+//   thread computes the lane's terms of the latency (LaneConst: path loss
+//   offset, congestion, payload, backhaul) once for the block.  Each block
+//   then takes a departure ticket, whose latency hides behind its finish;
+//   the lane's last block to depart zeroes the lane's totals and its count,
+//   so every call leaves the region at zero (the wrapper zeroes it once per
+//   device).
+// Integer counts are exact in any order, each client runs the same
+// predict_attach and finish_lane (B1's finish, its lane terms computed once a
+// block by the same operations), so a lane is bitwise B1 on that lane at every
+// (G, N, T) (B1's cooperative launch above 1,024 clients included), RSU ids
+// too.  The scenario operand is (G, row_bytes): the S_COUNT float32
 // scalars, the R live flags, padding to 4 bytes.  With a rid_out pointer
-// each client's attachment id lands beside its latency (the two-tier
-// lanes' realized pass), as B1's does.
+// each client's attachment id lands beside its latency (the two-tier lanes'
+// realized pass), as B1's does.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -87,6 +114,8 @@ enum {
 #define GRID_THREADS 256    // block size of the cooperative launch above it
 #define GRID_PER_THREAD 4   // B1g: clients a thread at most
 #define GRID_LANE_MAX (GRID_PER_THREAD * ONE_BLOCK_MAX)  // B1g: clients a lane, DENSE_MAX_N
+#define GRID_TILE_THREADS 256  // B1g: the block size that its resident count is taken at
+#define POLL_RSU_MAX 32        // B1g: the most RSUs of a tiled lane (one warp polls them)
 #define FULL_MASK 0xffffffffu
 
 // jnp.mod / torch.remainder: the result takes the divisor's sign.
@@ -100,6 +129,12 @@ __device__ __forceinline__ float ring_mod(float x, float m) {
 __device__ __forceinline__ int load_acquire(const int* p) {
   int v;
   asm volatile("ld.acquire.gpu.global.b32 %0, [%1];" : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ int load_relaxed(const int* p) {
+  int v;
+  asm volatile("ld.relaxed.gpu.global.b32 %0, [%1];" : "=r"(v) : "l"(p) : "memory");
   return v;
 }
 
@@ -151,37 +186,69 @@ __device__ __forceinline__ Attach predict_attach(const float* s, const uint8_t* 
   return a;
 }
 
-// network.latency_from_geometry and the connectivity test for one client.
-__device__ __forceinline__ void finish(const float* s, Attach a, float load, float t_eff,
-                                       float model_bytes, int i,
-                                       const uint8_t* __restrict__ forced,
-                                       float* __restrict__ lat, uint8_t* __restrict__ conn,
-                                       int* __restrict__ rid_out) {
-  const float dist3d = sqrtf(a.d_min * a.d_min + 225.0f + 25.0f);
-  const float dmax = fmaxf(dist3d, 1.0f);
-  const float pl = 32.4f + 20.0f * log10f(s[S_CARRIER]) + 30.0f * log10f(dmax);
-  const float snr = s[S_EIRP] - pl - s[S_NOISE];
-  const float snr_lin = powf(10.0f, snr / 10.0f);
+// The terms of network.latency_from_geometry that depend only on the lane
+// (its scenario, t_eff and model_bytes).
+struct LaneConst {
+  float pl0;            // 32.4 + 20 log10(carrier)
+  float congestion;     // rttg.congestion_factor(t_eff)
+  float air_num;        // 2 payload_bits
+  float prop_backhaul;  // 2 backhaul
+  float half_spacing;   // 0.5 spacing
+};
+
+__device__ __forceinline__ LaneConst lane_const(const float* s, float t_eff, float model_bytes) {
+  LaneConst k;
+  k.pl0 = 32.4f + 20.0f * log10f(s[S_CARRIER]);
   // rttg.congestion_factor(t_eff) with its day_envelope
   const float x_day = PI_F * t_eff / fmaxf(s[S_DAY_PERIOD], 1e-3f);
   const float s1 = sinf(x_day), s2 = sinf(2.0f * x_day);
   const float env = 1.0f + s[S_DAY_AMP] * (s1 * s1 + s[S_DAY_H2] * s2 * s2);
   const float ph = sinf(PI_F * t_eff / fmaxf(s[S_RUSH_PERIOD], 1e-3f));
-  const float congestion = 1.0f + s[S_RUSH_AMP] * ph * ph * env;
-  const float load_eff = load * congestion;
+  k.congestion = 1.0f + s[S_RUSH_AMP] * ph * ph * env;
+  const float payload_bits = 8.0f * (model_bytes + s[S_OVERHEAD]);
+  k.air_num = 2.0f * payload_bits;
+  k.prop_backhaul = 2.0f * s[S_BACKHAUL];
+  k.half_spacing = 0.5f * s[S_SPACING];
+  return k;
+}
+
+// network.latency_from_geometry and the connectivity test for one client,
+// the lane's terms from lane_const.  Each sum and product rounds as it would
+// written out in one expression: 32.4 + 20 log10(c) + 30 log10(d) adds left
+// to right, 2 payload_bits / rate multiplies first.
+__device__ __forceinline__ void finish_lane(const float* s, const LaneConst& k, Attach a,
+                                            float load, int i,
+                                            const uint8_t* __restrict__ forced,
+                                            float* __restrict__ lat, uint8_t* __restrict__ conn,
+                                            int* __restrict__ rid_out) {
+  const float dist3d = sqrtf(a.d_min * a.d_min + 225.0f + 25.0f);
+  const float dmax = fmaxf(dist3d, 1.0f);
+  const float pl = k.pl0 + 30.0f * log10f(dmax);
+  const float snr = s[S_EIRP] - pl - s[S_NOISE];
+  const float snr_lin = powf(10.0f, snr / 10.0f);
+  const float load_eff = load * k.congestion;
   float rate = s[S_BANDWIDTH] / fmaxf(load_eff, 1.0f) * log2f(1.0f + snr_lin);
   rate = fmaxf(rate, 1e4f);
-  const float payload_bits = 8.0f * (model_bytes + s[S_OVERHEAD]);
-  const float t_air = 2.0f * payload_bits / rate;
-  const float t_prop = 2.0f * dist3d / 299792458.0f + 2.0f * s[S_BACKHAUL];
+  const float t_air = k.air_num / rate;
+  const float t_prop = 2.0f * dist3d / 299792458.0f + k.prop_backhaul;
   const float t_queue = s[S_QUEUE] * load_eff;
-  const float edge = dist3d / (0.5f * s[S_SPACING]);
+  const float edge = dist3d / k.half_spacing;
   const float t_ho =
       0.2f * fminf(fmaxf(edge - 0.7f, 0.0f), 1.0f) * a.speed / s[S_MEAN_SPEED];
   lat[i] = t_air + t_prop + t_queue + t_ho;
   const bool ok = snr >= s[S_SNR_MIN];
   conn[i] = (ok && (forced == nullptr || forced[i] != 0)) ? 1 : 0;
   if (rid_out != nullptr) rid_out[i] = a.rid;
+}
+
+// One client's latency and connectivity, its lane's terms computed beside it
+// (inlined into one block of code, so the two chains interleave).
+__device__ __forceinline__ void finish(const float* s, Attach a, float load, float t_eff,
+                                       float model_bytes, int i,
+                                       const uint8_t* __restrict__ forced,
+                                       float* __restrict__ lat, uint8_t* __restrict__ conn,
+                                       int* __restrict__ rid_out) {
+  finish_lane(s, lane_const(s, t_eff, model_bytes), a, load, i, forced, lat, conn, rid_out);
 }
 
 // counts: (R + 2,) int32, zero on entry (the R totals, then the arrival and
@@ -274,22 +341,44 @@ extern "C" __global__ void __launch_bounds__(ONE_BLOCK_MAX) rttg_latency_kernel(
   }
 }
 
+// B1g's body: TILED, T = gridDim.x tiles a lane (blockIdx.y the lane, R <=
+// POLL_RSU_MAX); otherwise one block a lane (blockIdx.x the lane).
 // scenario: (G, row_bytes) lane rows; t: (G,); pos / speed / accel / forced
-// / lat / conn / rid_out: (G, n), lane-major.  At least one block an SM: under
-// __launch_bounds__(1024) alone ptxas aims at two and spills a thread's
-// attachments at 32 registers; with one it takes 39 and spills none.
-extern "C" __global__ void __launch_bounds__(ONE_BLOCK_MAX, 1) rttg_latency_grid_kernel(
+// / lat / conn / rid_out: (G, n), lane-major; counts: (G, R + 1) int32, zero
+// on entry, read only when TILED.
+template <bool TILED>
+__device__ __forceinline__ void grid_lanes(
     const uint8_t* __restrict__ scenario, int row_bytes, int n_rsu, const float* __restrict__ t,
     const float* __restrict__ model_bytes, const float* __restrict__ pos,
     const float* __restrict__ speed, const float* __restrict__ accel,
     const uint8_t* __restrict__ forced, int n, int n_steps, float dt, float horizon_s,
-    float* __restrict__ lat, uint8_t* __restrict__ conn, int* __restrict__ rid_out) {
+    int* __restrict__ counts, float* __restrict__ lat, uint8_t* __restrict__ conn,
+    int* __restrict__ rid_out) {
   __shared__ float s[S_COUNT];
+  __shared__ LaneConst s_k;
+  __shared__ int s_last;
   extern __shared__ int s_dyn[];
   int* hist = s_dyn;                                            // (R,) counts
   uint8_t* s_live = reinterpret_cast<uint8_t*>(s_dyn + n_rsu);  // (R,) live flags
   const int tid = threadIdx.x;
-  const int g = blockIdx.x;
+  const int g = TILED ? (int)blockIdx.y : (int)blockIdx.x;
+  const int tiles = TILED ? (int)gridDim.x : 1;
+  // This block's tile of lane g, clients [lo, hi); tiles <= n <= 4,096, so
+  // blockIdx.x * n stays in an int.  Thread tid takes lo + tid + c * blockDim.x.
+  int lo = 0, hi = n;
+  if (TILED) {
+    lo = (int)blockIdx.x * n / tiles;
+    hi = ((int)blockIdx.x + 1) * n / tiles;
+  }
+  const int base = g * n;  // the launch keeps G * n below 2^31
+  // The first client's kinematics, t and model_bytes are loaded beside the
+  // scenario row, so that their latencies overlap.
+  const int i0 = base + lo + tid;
+  const bool has0 = lo + tid < hi;
+  const float pos0 = has0 ? pos[i0] : 0.0f, speed0 = has0 ? speed[i0] : 0.0f,
+              accel0 = has0 ? accel[i0] : 0.0f;
+  const float t_now = t[g];
+  const float mb = *model_bytes;
   const uint8_t* row = scenario + (long long)g * row_bytes;
   const float* scalars = reinterpret_cast<const float*>(row);
   for (int j = tid; j < S_COUNT; j += blockDim.x) s[j] = scalars[j];
@@ -299,36 +388,106 @@ extern "C" __global__ void __launch_bounds__(ONE_BLOCK_MAX, 1) rttg_latency_grid
   }
   __syncthreads();
 
-  // Predict and attach this thread's clients of lane g, tid + c * blockDim.x,
-  // and count each into the lane's histogram; the loop unrolls, so the
-  // attachments stay in registers.
+  // Predict and attach this thread's clients and count each into the tile's
+  // histogram; the loop unrolls, so the attachments stay in registers.
   const int lane = tid & 31;
-  const int base = g * n;  // the launch keeps G * n below 2^31
   Attach a[GRID_PER_THREAD];
 #pragma unroll
   for (int c = 0; c < GRID_PER_THREAD; ++c) {
-    const int j = tid + c * (int)blockDim.x;
+    const int j = lo + tid + c * (int)blockDim.x;
     a[c] = Attach{0.0f, 0.0f, 0};
-    if (j - lane < n) {  // warp-uniform: some client of this warp is live
-      const unsigned active = __ballot_sync(FULL_MASK, j < n);
-      if (j < n) {
+    if (j - lane < hi) {  // warp-uniform: some client of this warp is live
+      const unsigned active = __ballot_sync(FULL_MASK, j < hi);
+      if (j < hi) {
         const int i = base + j;
-        a[c] = predict_attach(s, s_live, n_rsu, pos[i], speed[i], accel[i], n_steps, dt);
+        a[c] = c == 0 ? predict_attach(s, s_live, n_rsu, pos0, speed0, accel0, n_steps, dt)
+                      : predict_attach(s, s_live, n_rsu, pos[i], speed[i], accel[i], n_steps,
+                                       dt);
         const unsigned peers = __match_any_sync(active, a[c].rid);
         if (lane == __ffs(peers) - 1) atomicAdd(hist + a[c].rid, __popc(peers));
       }
     }
   }
   __syncthreads();
-  const float t_now = t[g];
+
   const float t_eff = n_steps > 0 ? t_now + horizon_s : t_now;
-  const float mb = *model_bytes;
+  LaneConst k = {};
+  int ticket = 0;
+  if (TILED) {
+    // The tile's counts into lane g's totals.  They sum to n once every
+    // tile's adds have landed, and not before (every add is positive), so
+    // warp 0 polls them and keeps the last read: no fence, no arrival count.
+    // Thread kt (warp 1's first, or the only warp's) computes the lane's
+    // constants meanwhile.
+    int* totals = counts + (long long)g * (n_rsu + 1);
+    const int kt = blockDim.x > 32 ? 32 : 0;
+    for (int r = tid; r < n_rsu; r += blockDim.x) {
+      const int h = hist[r];
+      if (h != 0) atomicAdd(totals + r, h);
+    }
+    if (tid == kt) s_k = lane_const(s, t_eff, mb);
+    if (tid < 32) {
+      int v = 0;
+      do {
+        v = tid < n_rsu ? load_relaxed(totals + tid) : 0;
+      } while (__reduce_add_sync(FULL_MASK, v) < n);
+      if (tid < n_rsu) hist[tid] = v;
+    }
+    __syncthreads();
+    k = s_k;
+    // the departure ticket's latency hides behind the finish
+    if (tid == 0) ticket = atomicAdd(totals + n_rsu, 1);
+  }
+
+  // One block a lane finishes as B1 does, its lane terms interleaved with each
+  // client's; a tile takes them from s_k.
 #pragma unroll
   for (int c = 0; c < GRID_PER_THREAD; ++c) {
-    const int j = tid + c * (int)blockDim.x;
-    if (j < n)
-      finish(s, a[c], (float)hist[a[c].rid], t_eff, mb, base + j, forced, lat, conn, rid_out);
+    const int j = lo + tid + c * (int)blockDim.x;
+    if (j < hi) {
+      const float load = (float)hist[a[c].rid];
+      if (!TILED)
+        finish(s, a[c], load, t_eff, mb, base + j, forced, lat, conn, rid_out);
+      else
+        finish_lane(s, k, a[c], load, base + j, forced, lat, conn, rid_out);
+    }
   }
+
+  if (TILED) {
+    // the last of the lane's blocks to depart leaves its totals and count at zero
+    if (tid == 0) s_last = ticket == tiles - 1;
+    __syncthreads();
+    if (s_last) {
+      int* totals = counts + (long long)g * (n_rsu + 1);
+      for (int r = tid; r <= n_rsu; r += blockDim.x) totals[r] = 0;
+    }
+  }
+}
+
+// B1g's two kernels, each with its own registers: one block a lane (T = 1),
+// and T tiles a lane (a cooperative launch).  At least one block an SM: under
+// __launch_bounds__(1024) alone ptxas aims at two and spills a thread's
+// attachments at 32 registers; with one it spills none.
+extern "C" __global__ void __launch_bounds__(ONE_BLOCK_MAX, 1) rttg_latency_grid_kernel(
+    const uint8_t* __restrict__ scenario, int row_bytes, int n_rsu, const float* __restrict__ t,
+    const float* __restrict__ model_bytes, const float* __restrict__ pos,
+    const float* __restrict__ speed, const float* __restrict__ accel,
+    const uint8_t* __restrict__ forced, int n, int n_steps, float dt, float horizon_s,
+    int* __restrict__ counts, float* __restrict__ lat, uint8_t* __restrict__ conn,
+    int* __restrict__ rid_out) {
+  grid_lanes<false>(scenario, row_bytes, n_rsu, t, model_bytes, pos, speed, accel, forced, n,
+                    n_steps, dt, horizon_s, counts, lat, conn, rid_out);
+}
+
+extern "C" __global__ void __launch_bounds__(ONE_BLOCK_MAX, 1) rttg_latency_grid_tiles_kernel(
+    const uint8_t* __restrict__ scenario, int row_bytes, int n_rsu, const float* __restrict__ t,
+    const float* __restrict__ model_bytes, const float* __restrict__ pos,
+    const float* __restrict__ speed, const float* __restrict__ accel,
+    const uint8_t* __restrict__ forced, int n, int n_steps, float dt, float horizon_s,
+    int* __restrict__ counts, float* __restrict__ lat, uint8_t* __restrict__ conn,
+    int* __restrict__ rid_out) {
+  grid_lanes<true>(scenario, row_bytes, n_rsu, t, model_bytes, pos, speed, accel, forced, n,
+                   n_steps, dt, horizon_s, counts, lat, conn, rid_out);
 }
 
 static int shared_bytes(int n_rsu) { return n_rsu * (int)(sizeof(int) + sizeof(uint8_t)); }
@@ -399,27 +558,70 @@ extern "C" int rttg_latency_launch(
                                           dim3(GRID_THREADS), args, (size_t)smem, st);
 }
 
-// B1g: one launch on `stream` of `lanes` blocks, one a lane, for lanes of
-// n <= GRID_LANE_MAX clients (min(n, ONE_BLOCK_MAX) threads a block, rounded
-// up to a warp).  scenario is (lanes, row_bytes) with row_bytes
-// a multiple of 4 holding S_COUNT floats and n_rsu flags; t is (lanes,) on
-// the device; rid_out (lanes, n) int32 may be null (no ids).  Allocates
-// nothing; returns the launch's CUDA error code.
+static cudaError_t grant_grid(int smem) {
+  static int granted = 48 * 1024, granted_tiles = 48 * 1024;
+  const cudaError_t err = grant_for((const void*)rttg_latency_grid_kernel, &granted, smem);
+  if (err != cudaSuccess) return err;
+  return grant_for((const void*)rttg_latency_grid_tiles_kernel, &granted_tiles, smem);
+}
+
+// B1g's launch plan inputs on the current device: its SM count and the
+// GRID_TILE_THREADS-thread blocks of the tiled kernel an SM holds resident at
+// R = n_rsu (every smaller block holds at least as many).  The wrapper keeps
+// the answer per device and R.  Returns the CUDA error code.
+extern "C" int rttg_latency_grid_resident(int n_rsu, int* sms, int* per_sm) {
+  if (n_rsu < 1 || sms == nullptr || per_sm == nullptr) return (int)cudaErrorInvalidValue;
+  const int smem = shared_bytes(n_rsu);
+  cudaError_t err = grant_grid(smem);
+  int device = 0;
+  if (err == cudaSuccess) err = cudaGetDevice(&device);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, device);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, rttg_latency_grid_tiles_kernel,
+                                                        GRID_TILE_THREADS, smem);
+  return (int)err;
+}
+
+// B1g: one launch on `stream` for lanes of n <= GRID_LANE_MAX clients, in
+// `tiles` blocks a lane of `threads` threads (the plan of
+// kernels/rttg_latency.py::grid_plan).  scenario is (lanes, row_bytes) with
+// row_bytes a multiple of 4 holding S_COUNT floats and n_rsu flags; t is
+// (lanes,) on the device; counts ((lanes, n_rsu + 1) int32, zero) is needed
+// when tiles > 1, which launches cooperatively; rid_out (lanes, n) int32 may
+// be null (no ids).  A plan whose tiles do not cover the lane at
+// GRID_PER_THREAD clients a thread, that tiles a lane of more than
+// POLL_RSU_MAX RSUs, or whose blocks the card does not hold resident is
+// refused with cudaErrorInvalidValue.  Allocates nothing; returns the
+// launch's CUDA error code.
 extern "C" int rttg_latency_grid_launch(
     const uint8_t* scenario, int row_bytes, int n_rsu, int lanes, const float* t,
     const float* model_bytes, const float* pos, const float* speed, const float* accel,
-    const uint8_t* forced, int n, int n_steps, float dt, float horizon_s, float* lat,
-    uint8_t* conn, int* rid_out, void* stream) {
-  if (lanes < 1 || n < 1 || n > GRID_LANE_MAX || row_bytes % 4 != 0 ||
-      row_bytes < S_COUNT * (int)sizeof(float) + n_rsu || (long long)lanes * n > 0x7fffffffLL)
+    const uint8_t* forced, int n, int n_steps, float dt, float horizon_s, int tiles,
+    int threads, int* counts, float* lat, uint8_t* conn, int* rid_out, void* stream) {
+  if (lanes < 1 || n < 1 || n > GRID_LANE_MAX || n_rsu < 1 || row_bytes % 4 != 0 ||
+      row_bytes < S_COUNT * (int)sizeof(float) + n_rsu || (long long)lanes * n > 0x7fffffffLL ||
+      tiles < 1 || tiles > n || threads < 32 || threads > ONE_BLOCK_MAX || threads % 32 != 0 ||
+      (long long)threads * GRID_PER_THREAD < (n + tiles - 1) / tiles ||
+      (tiles > 1 && (counts == nullptr || n_rsu > POLL_RSU_MAX)))
     return (int)cudaErrorInvalidValue;
-  static int granted = 48 * 1024;
   const int smem = shared_bytes(n_rsu);
-  const cudaError_t err = grant_for((const void*)rttg_latency_grid_kernel, &granted, smem);
+  cudaError_t err = grant_grid(smem);
   if (err != cudaSuccess) return (int)err;
-  const int threads = n < ONE_BLOCK_MAX ? (n + 31) / 32 * 32 : ONE_BLOCK_MAX;
-  rttg_latency_grid_kernel<<<lanes, threads, smem, static_cast<cudaStream_t>(stream)>>>(
-      scenario, row_bytes, n_rsu, t, model_bytes, pos, speed, accel, forced, n, n_steps, dt,
-      horizon_s, lat, conn, rid_out);
-  return (int)cudaGetLastError();
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (tiles == 1) {
+    rttg_latency_grid_kernel<<<lanes, threads, smem, st>>>(
+        scenario, row_bytes, n_rsu, t, model_bytes, pos, speed, accel, forced, n, n_steps, dt,
+        horizon_s, counts, lat, conn, rid_out);
+    return (int)cudaGetLastError();
+  }
+  void* args[] = {&scenario, &row_bytes, &n_rsu,  &t,         &model_bytes, &pos,
+                  &speed,    &accel,     &forced, &n,         &n_steps,     &dt,
+                  &horizon_s, &counts,   &lat,    &conn,      &rid_out};
+  err = cudaLaunchCooperativeKernel((const void*)rttg_latency_grid_tiles_kernel,
+                                    dim3(tiles, lanes), dim3(threads), args, (size_t)smem, st);
+  if (err == cudaErrorCooperativeLaunchTooLarge) {
+    (void)cudaGetLastError();  // not sticky: leave no stale error for the next launch
+    return (int)cudaErrorInvalidValue;
+  }
+  return (int)err;
 }

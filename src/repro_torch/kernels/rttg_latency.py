@@ -14,12 +14,18 @@ connection-rate Bernoulli mask comes in as ``forced``.
 ``rttg_latency_grid`` is the batched grid round's form (B1g, the reference
 kernel under the engine's ``vmap``): G lanes of up to ``GRID_MAX_N``
 (4,096) clients, each with its own scenario, kinematics, time and forced
-mask, in one launch (one block a lane, a thread taking up to four clients;
-bitwise ``rttg_latency`` on each lane, the RSU ids too when asked for); its
-plain version is ``rttg_latency_grid_plain``.
+mask, in one launch.  ``grid_plan`` keeps one block a lane for lanes under
+``GRID_SPREAD_MIN`` clients or of more than ``GRID_POLL_RSU_MAX`` RSUs, and
+otherwise cuts each lane's clients into T tiles, one block each, so that the
+T x G blocks cover the card's SMs (one client a thread where residency
+allows, at most four); with T > 1 the launch is cooperative and a lane's
+blocks meet on its per-lane RSU totals.  Each lane is bitwise
+``rttg_latency`` on that lane, the RSU ids too when asked for; its plain
+version is ``rttg_latency_grid_plain``.
 """
 from __future__ import annotations
 
+import ctypes
 import weakref
 
 import torch
@@ -44,10 +50,21 @@ SCENARIO_SCALARS = (
 GRID_THREADS = 256  # block size of the kernel's cooperative launch (N > 1,024)
 MAX_RSU = 32768
 # Clients a lane of rttg_latency_grid (the .cu source's GRID_LANE_MAX: one
-# block a lane, up to four clients a thread).  It is core.messages.DENSE_MAX_N,
-# the largest fleet the dense neighbour search and fusion take, so the batched
-# grid round (fl.rounds.grid_round_fits) serves every N that search does.
+# block of 1,024 threads, up to four clients a thread).  It is
+# core.messages.DENSE_MAX_N, the largest fleet the dense neighbour search and
+# fusion take, so the batched grid round (fl.rounds.grid_round_fits) serves
+# every N that search does.
 GRID_MAX_N = 4096
+GRID_PER_THREAD = 4  # clients a thread of rttg_latency_grid at most
+# The largest block of a multi-tile B1g plan; the resident count that bounds
+# the plan is taken at it (a smaller block is resident at least as often).
+GRID_TILE_THREADS = 256
+GRID_POLL_RSU_MAX = 32  # the most RSUs of a tiled lane (the .cu source's POLL_RSU_MAX)
+# The fewest clients a lane that grid_plan spreads over tiles: below, one
+# block a lane measured faster on an H100 than the spread, predicted and
+# realized passes together (chip_smoke.py's b1g_plan_crossover), the
+# barrier's round trip costing more than the SMs it adds save.
+GRID_SPREAD_MIN = 768
 
 # Kernel launches made by ``rttg_latency`` (one per call on CUDA tensors).
 launches = 0
@@ -56,6 +73,7 @@ grid_launches = 0
 
 _OPERANDS = {}  # (id(cfg), device, grid) -> (weakref to cfg, scenario operand)
 _BLOCKS = {}  # (device, N, R) -> blocks of the kernel's launch plan
+_RESIDENT = {}  # (device, R) -> (SMs, resident GRID_TILE_THREADS-thread B1g blocks an SM)
 
 
 def rttg_latency_plain(pos, speed, accel, t, model_bytes, forced, cfg, predict,
@@ -215,9 +233,68 @@ def rttg_latency_grid_plain(pos, speed, accel, t, model_bytes, forced, cfg, pred
                               want_rid)
 
 
+def grid_plan(lanes: int, n: int, n_rsu: int, sms: int, per_sm: int,
+              spread_min: int = GRID_SPREAD_MIN) -> tuple:
+    """B1g's launch plan for ``lanes`` lanes of ``n`` clients and ``n_rsu``
+    RSUs on a card of ``sms`` SMs holding ``per_sm`` ``GRID_TILE_THREADS``-
+    thread blocks each resident -> (tiles a lane T, threads a block, clients
+    a thread at most).
+
+    Tile b of a lane holds its clients ``[b n // T, (b + 1) n // T)``; a
+    thread takes the tile's clients ``tid, tid + threads, ...``.  T = 1 (one
+    block a lane, as many warps as cover ``n`` up to 1,024 threads) for n <
+    ``spread_min``, n_rsu > ``GRID_POLL_RSU_MAX``, ``lanes >= sms`` and
+    where fewer than two tiles a lane stay resident (so also for n <= 32).
+    Otherwise the fewest clients a thread for which the tiles fit ``sms *
+    per_sm`` blocks, and T as large as covering the SMs asks (``ceil(sms /
+    lanes)`` tiles a lane, no more than a warp's 32 clients each) and
+    residency allows, or as the block size cap needs.
+    """
+    threads = min(-(-n // 32) * 32, 1024)
+    one = (1, threads, -(-n // threads))
+    if n < spread_min or n_rsu > GRID_POLL_RSU_MAX or lanes >= sms:
+        return one
+    cap = sms * per_sm // lanes  # tiles a lane that stay resident
+    want = min(-(-sms // lanes), -(-n // 32))
+    for per_thread in range(1, GRID_PER_THREAD + 1):
+        need = -(-n // (GRID_TILE_THREADS * per_thread))
+        if need <= cap:
+            tiles = max(need, min(want, cap))
+            break
+    else:
+        return one
+    if tiles < 2:
+        return one
+    tile = -(-n // tiles)
+    threads = -(-tile // (32 * per_thread)) * 32
+    return tiles, threads, -(-tile // threads)
+
+
+def grid_resident(lib, device, n_rsu: int) -> tuple:
+    """(SMs, resident ``GRID_TILE_THREADS``-thread tiled B1g blocks an SM) on
+    ``device`` at R = ``n_rsu``, from the C side once per (device, R)."""
+    from repro_torch.kernels.build import check
+
+    key = (device, n_rsu)
+    hit = _RESIDENT.get(key)
+    if hit is None:
+        sms, per_sm = ctypes.c_int(0), ctypes.c_int(0)
+        with torch.cuda.device(device):
+            status = lib.rttg_latency_grid_resident(n_rsu, ctypes.addressof(sms),
+                                                    ctypes.addressof(per_sm))
+        check(status, "rttg_latency_grid")
+        hit = _RESIDENT[key] = (sms.value, per_sm.value)
+    return hit
+
+
+def grid_launch_plan(lib, device, lanes: int, n: int, n_rsu: int) -> tuple:
+    """``grid_plan`` on ``device``, its SMs and residency from ``grid_resident``."""
+    return grid_plan(lanes, n, n_rsu, *grid_resident(lib, device, n_rsu))
+
+
 def _rttg_latency_grid_cuda(pos, speed, accel, t, model_bytes, forced, cfg, predict,
                             want_rid):
-    from repro_torch.kernels.build import check, library
+    from repro_torch.kernels.build import check, counters, library
 
     refuse_grad("rttg_latency_grid", pos, speed, accel, t, model_bytes)
     global grid_launches
@@ -246,17 +323,20 @@ def _rttg_latency_grid_cuda(pos, speed, accel, t, model_bytes, forced, cfg, pred
     if operand.shape[0] != G:
         raise ValueError(f"rttg_latency_grid: the scenario has {operand.shape[0]} lanes, "
                          f"the kinematics {G}")
+    lib = library()
+    tiles, threads, _ = grid_launch_plan(lib, device, G, n, n_rsu)
+    counts = counters(device, "rttg_latency_grid", G * (n_rsu + 1)) if tiles > 1 else None
     n_steps = horizon_steps(cfg.predict_horizon_s, cfg) if predict else 0
     horizon_s = float(cfg.predict_horizon_s) if predict else 0.0
     lat = torch.empty((G, n), dtype=torch.float32, device=device)
     conn = torch.empty((G, n), dtype=torch.bool, device=device)
     rid = torch.empty((G, n), dtype=torch.int32, device=device) if want_rid else None
-    status = library().rttg_latency_grid_launch(
+    ptr = lambda x: None if x is None else x.data_ptr()  # noqa: E731
+    status = lib.rttg_latency_grid_launch(
         operand.data_ptr(), operand.shape[1], n_rsu, G, t.data_ptr(), model_bytes.data_ptr(),
-        pos.data_ptr(), speed.data_ptr(), accel.data_ptr(),
-        None if forced is None else forced.data_ptr(), n, n_steps, float(cfg.sim_dt_s),
-        horizon_s, lat.data_ptr(), conn.data_ptr(), None if rid is None else rid.data_ptr(),
-        torch.cuda.current_stream(device).cuda_stream,
+        pos.data_ptr(), speed.data_ptr(), accel.data_ptr(), ptr(forced), n, n_steps,
+        float(cfg.sim_dt_s), horizon_s, tiles, threads, ptr(counts), lat.data_ptr(),
+        conn.data_ptr(), ptr(rid), torch.cuda.current_stream(device).cuda_stream,
     )
     check(status, "rttg_latency_grid")
     grid_launches += 1

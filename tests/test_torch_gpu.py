@@ -7,7 +7,9 @@ Run on a machine with a card:
 This file imports no JAX (the card's machine has none): each kernel is held
 against its plain PyTorch version on the card.  Connectivity and RSU ids
 exactly (also around the geometry kernel's one-block limit, past the
-card's resident threads, its lane-batched form up to 4,096 clients a lane, at R = 1, 40 and 32,768 and with positions at
+card's resident threads, its lane-batched form at its launch plan's edges
+(up to 4,096 clients a lane, one block or T tiles a lane; its per-lane
+counters at zero after each call and after a CUDA-graph replay), at R = 1, 40 and 32,768 and with positions at
 the predictor's wrap, each call repeated bit for bit); latency within rtol 1e-5 (the kernel's ``log10f`` / ``powf`` /
 ``log2f`` / ``sinf`` and PyTorch's elementwise kernels may round an ulp
 apart); the FedAvg sum within 1e-6 of ``sum_k |w_k u_k|`` (another
@@ -1263,12 +1265,12 @@ def test_engine_grid_on_the_card_matches_the_cpu(dev, aggregators):
             torch.testing.assert_close(a, b, rtol=2e-4, atol=1e-5, equal_nan=True, msg=f)
 
 
-def _grid_lanes(scenarios, n, cr, dev):
+def _grid_lanes(scenarios, n, cr, dev, **scn_kw):
     """G lanes of ``_geometry``, one a scenario: each lane's own scenario,
     their lane view, (G, N) kinematics, (G,) times, (G, N) forced or None."""
     from repro_torch.core.scenarios import lane_view, stack_scenarios
 
-    lanes = [_geometry(name, n, cr, dev) for name in scenarios]
+    lanes = [_geometry(name, n, cr, dev, **scn_kw) for name in scenarios]
     scns = [lane[0] for lane in lanes]
     pos, speed, accel = (torch.stack([lane[i] for lane in lanes]) for i in (1, 2, 3))
     forced = torch.stack([lane[4] for lane in lanes]) if cr < 1.0 else None
@@ -1649,23 +1651,78 @@ def test_rttg_latency_grid_kernel_ids_are_the_one_lane_kernels(dev, scenarios, n
     assert torch.equal(lat, without[0]) and torch.equal(conn, without[1])
 
 
-# B1g above one block of threads: lanes of up to 4,096 clients (four a thread),
-# one lane (rsu_outage: dark RSUs) and 24 over the catalog (dark-RSU lanes beside
-# live ones), predicted and realized, with and without the ids
-@pytest.mark.parametrize("n", [1025, 2048, 4096])
-@pytest.mark.parametrize("scenarios", [("rsu_outage",), CATALOG * 3], ids=["G1", "G24"])
+def _grid_counters_are_zero(dev, G, n_rsu):
+    """B1g's per-lane counter region (``(G, R + 1)`` int32: the RSU totals,
+    then the departure count) reads all zeros."""
+    from repro_torch.kernels.build import counters
+
+    region = counters(dev, "rttg_latency_grid", G * (n_rsu + 1))[:G * (n_rsu + 1)]
+    return int(torch.count_nonzero(region)) == 0
+
+
+def _grid_graph_replays_bitwise(dev, view, pos, speed, accel, t, forced, predict, want_rid):
+    """One B1g call captured into a CUDA graph (after a warm-up call on a side
+    stream) and replayed: the replay's outputs are the eager call's bit for
+    bit and the counter region reads zeros after it."""
+    mb = torch.tensor(636_040.0, device=dev)
+
+    def call():
+        return rttg_mod.rttg_latency_grid(pos, speed, accel, t, mb, forced, view,
+                                          predict=predict, want_rid=want_rid)
+
+    eager = call()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        call()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        static = call()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(static, eager))
+    assert _grid_counters_are_zero(dev, pos.shape[0], view.n_rsu)
+
+
+def _wide_grid_lanes(scenarios, n, dev, **scn_kw):
+    """``_grid_lanes`` at CR 0.7 with lane g's positions moved on by 97 g
+    metres round its ring, so that lanes of one scenario differ."""
+    scns, view, pos, speed, accel, t, forced = _grid_lanes(scenarios, n, 0.7, dev, **scn_kw)
+    shift = 97.0 * torch.arange(len(scenarios), dtype=torch.float32, device=dev)[:, None]
+    pos = torch.remainder(pos + shift, view.ring_length_m)
+    return scns, view, pos, speed, accel, t, forced
+
+
+def _grid_lanes_of(G):
+    """G lanes over the catalog (dark-RSU lanes beside live ones); one lane is
+    rsu_outage's (dark RSUs)."""
+    return (("rsu_outage",) + CATALOG * (G // len(CATALOG) + 1))[:G]
+
+
+# B1g at its launch plan's edges: lanes of up to 4,096 clients, one a thread up to
+# four, in one block a lane (N < 768, G >= SMs) or in T tiles of a cooperative
+# launch; one lane (rsu_outage: dark RSUs), two (the greedy grid's lane group), 24
+# over the catalog and 133 (more lanes than SMs), predicted and realized, with and
+# without the ids
+@pytest.mark.parametrize("n", [32, 33, 256, 257, 767, 768, 1023, 1025, 2048, 4095, 4096])
+@pytest.mark.parametrize("G", [1, 2, 24, 133], ids=["G1", "G2", "G24", "G133"])
 @pytest.mark.parametrize("predict", [True, False])
 @pytest.mark.parametrize("want_rid", [False, True])
-def test_rttg_latency_grid_kernel_above_one_block_is_the_one_lane_kernel(dev, n, scenarios,
+def test_rttg_latency_grid_kernel_above_one_block_is_the_one_lane_kernel(dev, n, G,
                                                                         predict, want_rid):
-    """Every lane bit for bit a B1 call on that lane (B1's cooperative launch
-    above 1,024 clients), ids included; conn (and ids) exactly the plain
-    version's, latency within rtol 1e-5; a second call bit for bit the first."""
-    scns, view, pos, speed, accel, t, forced = _grid_lanes(scenarios, n, 0.7, dev)
+    """Every lane bit for bit a B1 call on that lane, ids included; conn (and
+    ids) exactly the plain version's, latency within rtol 1e-5; a second call
+    bit for bit the first; the per-lane counters at zero after each call and
+    after a CUDA-graph replay of one."""
+    scns, view, pos, speed, accel, t, forced = _wide_grid_lanes(_grid_lanes_of(G), n, dev)
     before = rttg_mod.grid_launches
-    got, again = [rttg_mod.rttg_latency_grid(pos, speed, accel, t, 636_040.0, forced, view,
-                                             predict=predict, want_rid=want_rid)
-                  for _ in range(2)]
+    got = rttg_mod.rttg_latency_grid(pos, speed, accel, t, 636_040.0, forced, view,
+                                     predict=predict, want_rid=want_rid)
+    assert _grid_counters_are_zero(dev, G, view.n_rsu)
+    again = rttg_mod.rttg_latency_grid(pos, speed, accel, t, 636_040.0, forced, view,
+                                       predict=predict, want_rid=want_rid)
+    assert _grid_counters_are_zero(dev, G, view.n_rsu)
     assert rttg_mod.grid_launches == before + 2
     for g, scn in enumerate(scns):
         one = rttg_mod.rttg_latency(pos[g], speed[g], accel[g], t[g], 636_040.0, forced[g], scn,
@@ -1676,6 +1733,77 @@ def test_rttg_latency_grid_kernel_above_one_block_is_the_one_lane_kernel(dev, n,
     assert all(torch.equal(a, b) for a, b in zip(got[1:], ref[1:]))
     torch.testing.assert_close(got[0], ref[0], rtol=1e-5, atol=1e-7)
     assert all(torch.equal(x, y) for x, y in zip(got, again))
+    _grid_graph_replays_bitwise(dev, view, pos, speed, accel, t, forced, predict, want_rid)
+
+
+# R = 1 (lanes of 4,096 in tiles), R = 40 (past the 32 RSUs whose totals one warp
+# polls) and R = 32,768 (160 KB of shared memory a block): above 32 RSUs one block
+# a lane, four clients a thread at N = 4,096
+@pytest.mark.parametrize("spacing", [10_000.0, 250.0, 10_000.0 / 32768],
+                         ids=["R1", "R40", "R32768"])
+@pytest.mark.parametrize("G,n", [(2, 33), (24, 257), (2, 4096), (24, 4096)])
+@pytest.mark.parametrize("predict", [True, False])
+def test_rttg_latency_grid_kernel_at_the_rsu_count_edges(dev, spacing, G, n, predict):
+    """As above on ring lanes with one RSU and with 32,768; the plain version
+    lane by lane (its (G, N, R) distances at R = 32,768 would take tens of
+    GB)."""
+    from repro_torch.kernels.build import library
+
+    scns, view, pos, speed, accel, t, forced = _wide_grid_lanes(("ring",) * G, n, dev,
+                                                                rsu_spacing_m=spacing)
+    assert view.n_rsu == round(10_000.0 / spacing)
+    tiles = rttg_mod.grid_launch_plan(library(), dev, G, n, view.n_rsu)[0]
+    assert (tiles > 1) == (view.n_rsu <= rttg_mod.GRID_POLL_RSU_MAX
+                           and n >= rttg_mod.GRID_SPREAD_MIN)
+    got, again = [rttg_mod.rttg_latency_grid(pos, speed, accel, t, 636_040.0, forced, view,
+                                             predict=predict, want_rid=True)
+                  for _ in range(2)]
+    assert _grid_counters_are_zero(dev, G, view.n_rsu)
+    for g, scn in enumerate(scns):
+        one = rttg_mod.rttg_latency(pos[g], speed[g], accel[g], t[g], 636_040.0, forced[g], scn,
+                                    predict=predict, want_rid=True)
+        assert all(torch.equal(a[g], b) for a, b in zip(got, one)), g
+        ref = rttg_mod.rttg_latency_plain(pos[g], speed[g], accel[g], t[g], 636_040.0,
+                                          forced[g], scn, predict, want_rid=True)
+        assert torch.equal(got[1][g], ref[1]) and torch.equal(got[2][g], ref[2]), g
+        torch.testing.assert_close(got[0][g], ref[0], rtol=1e-5, atol=1e-7)
+    assert all(torch.equal(x, y) for x, y in zip(got, again))
+    _grid_graph_replays_bitwise(dev, view, pos, speed, accel, t, forced, predict, True)
+
+
+def test_rttg_latency_grid_launch_refuses_a_plan_it_cannot_run(dev):
+    """The C entry refuses, with cudaErrorInvalidValue (1), tiles that do not
+    cover a lane at four clients a thread, more blocks than the card holds
+    resident, a multi-tile launch without its counters and tiles of a lane
+    of more than 32 RSUs; a refused launch leaves no error behind."""
+    from repro_torch.kernels.build import counters, library
+
+    scns, view, pos, speed, accel, t, _ = _grid_lanes(("ring", "highway"), 4096, 1.0, dev)
+    lib = library()
+    op = rttg_mod.grid_operand(view, dev)
+    mb = torch.tensor(636_040.0, device=dev)
+    lat = torch.empty_like(pos)
+    conn = torch.empty(pos.shape, dtype=torch.bool, device=dev)
+    cnt = counters(dev, "rttg_latency_grid", 2 * (view.n_rsu + 1))
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def launch(tiles, threads, counts, n_rsu=view.n_rsu, op=op):
+        return lib.rttg_latency_grid_launch(
+            op.data_ptr(), op.shape[1], n_rsu, 2, t.data_ptr(), mb.data_ptr(),
+            pos.data_ptr(), speed.data_ptr(), accel.data_ptr(), None, 4096, 50, 0.1, 5.0, tiles,
+            threads, counts, lat.data_ptr(), conn.data_ptr(), None, stream)
+
+    assert launch(1, 512, None) == 1  # 2,048 of 4,096 clients
+    assert launch(2, 256, cnt.data_ptr()) == 1  # tiles of 2,048 on 1,024 slots
+    assert launch(4096, 32, cnt.data_ptr()) == 1  # 8,192 blocks: past residency
+    assert launch(16, 256, None) == 1  # tiles without counters
+    # tiles of lanes of 33 RSUs (rows of 33 dark RSUs, room enough)
+    rows33 = torch.zeros((2, 104), dtype=torch.uint8, device=dev)
+    assert launch(16, 256, cnt.data_ptr(), n_rsu=33, op=rows33) == 1
+    assert launch(1, 1024, None) == 0  # no stale error from the refusals
+    assert launch(16, 256, cnt.data_ptr()) == 0
+    torch.cuda.synchronize()
+    assert _grid_counters_are_zero(dev, 2, view.n_rsu)
 
 
 @pytest.mark.parametrize("name,fl_kw,aggregators,rounds", [
