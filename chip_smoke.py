@@ -1,16 +1,19 @@
 """Smoke run of the PyTorch / CUDA port on one NVIDIA card.
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --wrapper-times CHECKOUT
+    python3 chip_smoke.py --wrapper-times CHECKOUT [columns]
 
 The second form runs phases 1 and 2 from the ``src/`` of another checkout
 (say, the parent commit's ``git archive``; CHECKOUT ``.`` is this tree) and
 then only its wrappers as the rounds call them (``wrapper_times``):
 ``rttg_latency``'s and ``fedavg_reduce``'s device ops and time a call,
-``rttg_latency_grid`` at ``B1G_SHAPES`` by CUDA graph replay, and one
-profiled grid round of phase 4k's N = 2,048 grid and of its greedy grid's
-first lane group with B1g's share of the device time; run it on both trees
-in turns (parent, change, change, parent) in one call to compare them.
+``rttg_latency_grid`` at ``B1G_SHAPES`` by CUDA graph replay, one profiled
+grid round of phase 4k's N = 2,048 grid and of its greedy grid's first lane
+group with B1g's share of the device time, and the column streamers (B2,
+B2g, B3, B4, B3g, B4g at ``COLUMN_P``'s shapes, fp32 and bf16 rows) by CUDA
+graph replay of wrapper calls with the plan each takes (with ``columns``,
+those alone); run it on both trees in turns (parent, change, change,
+parent) in one call to compare them.
 
 Phases (any failure raises and exits non-zero):
 
@@ -54,14 +57,17 @@ Phases (any failure raises and exits non-zero):
    on 24 lanes at K = 2 and 10, P = 159,010, fp32 and bf16 rows, and at one
    lane, K = 1, an odd P and rows off their alignment: every lane bit for
    bit a ``fedavg_reduce`` call, within its plain version's tolerance,
-   repeated bitwise; ``server_update_grid`` and
+   repeated bitwise, also at the launch plan's edges (131 lanes at P of each
+   residue mod 8 but 0 and 4, rows 1-7 elements off their alignment);
+   ``server_update_grid`` and
    ``server_update_buffered_grid`` (B3g / B4g, the batched round's server
    step) on 24, 40 and 48 lanes at K = 2 and 20, the 8-slot ring, P =
    159,010, every rule mixed across lanes and ``drain`` mixed, fp32 and
    bf16 rows and master, the registry with no moment rule, and at one lane,
    an odd P, one ring slot and rows off their alignment: every lane bit for
    bit a ``server_update`` (``server_update_buffered``) call on that lane,
-   within its plain version's tolerance, repeated bitwise;
+   within its plain version's tolerance, repeated bitwise (131 lanes at P
+   4,099 and 4,102, rows 3 and 6 elements off, among them: the wide runs);
    ``fedavg_reduce`` at K = 1, 2, 7, 8, 9, 10, 17 and 100, odd P included;
    ``server_update`` for every rule
    and ``server_update_buffered`` for both ``drain`` states (also at the
@@ -69,8 +75,8 @@ Phases (any failure raises and exits non-zero):
    bitwise contracts (rule 0 is ``fedavg_reduce`` + the AXPY; no drain is
    the unbuffered update); ``fedavg_reduce`` and ``fedavg_reduce_grid`` at
    the CNN datasets' P (fl-cifar10-cnn's 1,070,794 and fl-svhn-cnn's
-   603,034): B2 at K = 10 on fp32 and bf16 rows, B2g at (24, 2) and, on bf16
-   rows, (24, 10), and B2g on a (9, 256, 1,070,794) bf16 grid whose last
+   603,034): B2 at K = 10 and B2g at (24, 2) on fp32 and bf16 rows, B2g at
+   (24, 10) on bf16 rows, and B2g on a (9, 256, 1,070,794) bf16 grid whose last
    lane starts past 2^31 elements, every lane bit for bit B2's;
    ``rsu_reduce`` with and without its carry, on
    random, dyadic and special operands, at R = 10, 33, 40 and 100 (one and
@@ -258,14 +264,18 @@ Phases (any failure raises and exits non-zero):
    each with its device time from CUDA graph replays; B4g at the async
    grid's (24, 2, Kb 8, 159,010) with no lane and every lane draining,
    beside the lane loop's 24 B4 launches, and B3g at the smoke grid's 40
-   lanes (K = 2, rules 0-4), each by CUDA graph replay; B5g at the streamed
+   lanes (K = 2, rules 0-4), each by CUDA graph replay, on fp32 and (in the
+   ``bf16_rows`` line) bf16 rows; the column streamers' two launch plans
+   against each other (``column_plan_sweep``: one run a thread and the
+   wide runs at B2, B2g, B3, B4, B3g and B4g's shapes); B5g at the streamed
    grid's chunk (8, 4, R 10, 159,010) with its carry, without one (the first
    chunk) and on bf16 rows and partials, beside its bound, its plain
    version, the lane loop's 8 B5 launches and ``torch.baddbmm`` /
    ``torch.bmm``, by CUDA graph replay;
-   B2 at the CNN main paths' (10, P) on fp32 and bf16 rows and B2g at the
-   CIFAR-10 and SVHN grids' (24, 2, P), beside ``torch.mv`` / ``torch.bmm``
-   and their bounds (``cnn_shapes`` of their rows in the kernels line);
+   B2 at the CNN main paths' (10, P) and B2g at the CIFAR-10 and SVHN
+   grids' (24, 2, P), on fp32 and bf16 rows, beside ``torch.mv`` /
+   ``torch.bmm`` and their bounds (``cnn_shapes`` of their rows in the
+   kernels line); each column streamer's line names its launch plan;
    ``rttg_latency`` and ``fedavg_reduce`` through their
    wrappers as the round calls them: device ops and device time per call; B2-B5 on the
    bf16 lane's rows beside their fp32 rows (the ``bf16_rows`` JSON line),
@@ -2056,7 +2066,7 @@ def device_us_per_call(fn, calls: int = 20) -> float:
     return device_profile(fn, calls)[0]
 
 
-def wrapper_times(device, card) -> None:
+def wrapper_times(device, card, rounds=True, columns=True) -> None:
     """``rttg_latency`` and ``fedavg_reduce`` called as the round calls them,
     through the wrappers of the ``repro_torch`` on ``sys.path``: per call, the
     profiled device time and device ops of everything the call issues, and
@@ -2067,7 +2077,9 @@ def wrapper_times(device, card) -> None:
     operand copies that exceed the 50 MB L2; ``rttg_latency_grid`` (B1g) at
     ``B1G_SHAPES``, predicted and realized, by CUDA graph replay of wrapper
     calls and by events; one grid round of phase 4k's N = 2,048 grid and of
-    its greedy grid's first lane group profiled, with B1g's share."""
+    its greedy grid's first lane group profiled, with B1g's share (all of
+    them with ``rounds``); then, with ``columns``, the column streamers B2,
+    B2g, B3, B4, B3g and B4g (``column_wrapper_times``)."""
     from repro_torch.configs import get_config
     from repro_torch.core.trajectory import horizon_steps
     from repro_torch.fl import ExperimentEngine
@@ -2075,6 +2087,10 @@ def wrapper_times(device, card) -> None:
     from repro_torch.kernels import rttg_latency as rttg_mod
     from repro_torch.utils import prng
 
+    if not rounds:
+        if columns:
+            column_wrapper_times(device, card)
+        return
     mb = torch.tensor(636_040.0, device=device)
     for label, n, predict in (("predicted", 100, True), ("realized", 100, False),
                               ("predicted", 100_000, True)):
@@ -2130,6 +2146,142 @@ def wrapper_times(device, card) -> None:
                         card)
     del eng
     torch.cuda.empty_cache()
+    if columns:
+        column_wrapper_times(device, card)
+
+
+# The column streamers' timed shapes (--wrapper-times): B2 at the main paths' K = 10
+# (fl-mnist-mlp's P and the two CNNs'), B2g at the bench grid's (24, 2) at the same
+# P, B3 (fedadam) and B4 (fedbuff, the 8-slot ring draining) at the main path's
+# (10, 159,010), B3g at the smoke grid's 40 lanes under rules 0-4, B4g at the async
+# grid's (24, 2, Kb 8), with no lane and with every lane draining
+COLUMN_P = (159_010, CNN_P["cifar10"], CNN_P["svhn"])
+
+
+def _checkout_threads(mod) -> int:
+    """The block size in the ``csrc`` source beside kernel module ``mod``."""
+    import re
+
+    src = os.path.join(os.path.dirname(mod.__file__), "csrc",
+                       os.path.basename(mod.__file__)[:-3] + ".cu")
+    return int(re.search(r"#define THREADS (\d+)", open(src).read()).group(1))
+
+
+def wrapper_plan_text(mod, lanes, P, rows, operands) -> str:
+    """The launch plan the checkout's wrapper in ``mod`` (``fedavg_reduce`` or
+    ``server_update``) takes for these operands: its ``launch_plan`` where it
+    has one; else the first design's, one run of the widest aligned vector a
+    thread and one block a THREADS-thread slice of a lane."""
+    from repro_torch.kernels import fedavg_reduce as fedavg_mod
+
+    vec = min(fedavg_mod._vector_width(x, P) for x in operands)
+    item = rows.element_size()
+    if not hasattr(mod, "launch_plan"):
+        blocks = -(-P // (vec * _checkout_threads(mod)))
+        return f"first design: {vec * item}-byte loads x 1 run a thread, {blocks} block(s) a lane"
+    if mod is fedavg_mod:
+        plan = mod.launch_plan(rows.device, lanes, P, rows, operands[-1])
+    else:
+        plan = mod.launch_plan(rows.device, lanes, P, rows, operands)
+    return plan_text(plan, item)
+
+
+def column_wrapper_times(device, card) -> None:
+    """B2, B2g, B3, B4, B3g and B4g through the wrappers of the ``repro_torch``
+    on ``sys.path`` at ``COLUMN_P``'s shapes, on fp32 and bf16 rows (fp32
+    master and moments): the device time of a wrapper call by CUDA graph
+    replay (the graph holds the kernel's launches alone), cycling operand
+    copies that together exceed the 50 MB L2, beside the bound, with the
+    plan the wrapper takes."""
+    from repro_torch.kernels import fedavg_reduce as fedavg_mod
+    from repro_torch.kernels import server_update as su_mod
+
+    def copies(n_bytes):
+        return max(2, math.ceil(120e6 / n_bytes))
+
+    def report(name, shape, rows, plan, us, n_bytes, flops):
+        b_ms, b_by = bound(n_bytes, flops)
+        print(f"{name} {shape} {str(rows)[6:]} rows ({plan}): device time {us:.2f} us a wrapper "
+              f"call (graph replay; {n_bytes / (us * 1e3):.0f} GB/s, {b_ms * 1e3 / us:.3f} of "
+              f"the bound {b_ms * 1e3:.2f} us, {b_by}, {n_bytes / 1e6:.1f} MB) [{card}]",
+              flush=True)
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(41)
+    for rows in (torch.float32, torch.bfloat16):
+        item = torch.tensor([], dtype=rows).element_size()
+        for P in COLUMN_P:
+            for G, K in ((0, 10), (24, 2)):
+                shape = (G, K, P) if G else (K, P)
+                n_bytes = (G or 1) * (K * P * item + K * 4 + P * 4)
+                us = [(1e-3 * torch.randn(shape, generator=gen, device=device)).to(rows)
+                      for _ in range(copies(n_bytes))]
+                w = torch.full(shape[:-1], 1.0 / K, dtype=torch.float32, device=device)
+                call = _cycle(us)
+                fn = ((lambda w=w, call=call: fedavg_mod.fedavg_reduce_grid(call(), w)) if G
+                      else (lambda w=w, call=call: fedavg_mod.fedavg_reduce(call(), w)))
+                out = torch.empty(shape[:-2] + (P,), dtype=torch.float32, device=device)
+                plan = wrapper_plan_text(fedavg_mod, G or 1, P, us[0], [us[0], out])
+                report("fedavg_reduce_grid" if G else "fedavg_reduce", shape, rows, plan,
+                       graph_us(fn, 20), n_bytes, 2 * (G or 1) * K * P)
+                del us, w, out
+        P, K, Kb = 159_010, 10, 8
+        sets = []
+        for i in range(copies(K * P * item + 6 * P * 4)):
+            u, w, params, m, v = server_operands(K, P, 500 + i, device)
+            ring, bw, *_ = server_operands(Kb, P, 600 + i, device)
+            sets.append((u.to(rows), w, params, m, v, ring.to(rows), bw))
+        on = torch.tensor(True, device=device)
+        call = _cycle(sets)
+        u, w, params, m, v, ring, bw = sets[0]
+        p_out = torch.empty_like(params)
+        plan = wrapper_plan_text(su_mod, 1, P, u, [u, params, p_out, m, v, m, v])
+        report("server_update fedadam", (K, P), rows, plan,
+               graph_us(lambda: su_mod.server_update(*call()[:5], 2, 0), 20),
+               K * P * item + K * 4 + 6 * P * 4, 2 * K * P + 12 * P)
+        plan = wrapper_plan_text(su_mod, 1, P, u, [u, params, p_out, ring])
+
+        def b4():
+            u, w, params, m, v, ring, bw = call()
+            return su_mod.server_update_buffered(u, w, ring, bw, params, m, v, 5, 0, on)
+
+        report("server_update_buffered fedbuff draining", (K, Kb, P), rows, plan, graph_us(b4, 20),
+               (K + Kb) * P * item + (K + Kb) * 4 + 1 + 2 * P * 4, 2 * (K + Kb) * P + P)
+        del sets, u, w, params, m, v, ring, bw
+        K = 2
+        for G, registry in ((40, (0, 1, 2, 3, 4)), (24, (5,))):
+            sets = [server_grid_operands(G, K, Kb, P, registry, 700 + 31 * i, device, rows)
+                    for i in range(2)]
+            rules = torch.tensor([registry[g * len(registry) // G] for g in range(G)],
+                                 dtype=torch.int32, device=device)
+            call = _cycle(sets)
+            u, w, params, m, v, ring, bw, _, _ = sets[0]
+            p_out = torch.empty_like(params)
+            if registry != (5,):
+                plan = wrapper_plan_text(su_mod, G, P, u, [u, params, p_out, m, v, m, v])
+                n_moment = sum(1 for r in rules.tolist() if r in su_mod.MOMENT_RULES)
+                report("server_update_grid rules 0-4", (G, K, P), rows, plan,
+                       graph_us(lambda: su_mod.server_update_grid(
+                           *call()[:5], rules, 0, registry=registry), 20),
+                       G * (K * P * item + K * 4 + 4 + 6 * P * 4),
+                       G * 2 * K * P + n_moment * 12 * P + (G - n_moment) * P)
+                continue
+            plan = wrapper_plan_text(su_mod, G, P, u, [u, params, p_out, ring])
+            for drain in (False, True):
+                flags = torch.full((G,), drain, dtype=torch.bool, device=device)
+
+                def b4g(flags=flags):
+                    u, w, params, m, v, ring, bw, _, _ = call()
+                    return su_mod.server_update_buffered_grid(u, w, ring, bw, params, m, v,
+                                                              rules, 0, flags, registry=registry)
+
+                n_rows = K + (Kb if drain else 0)
+                report(f"server_update_buffered_grid fedbuff, {'all' if drain else 'none'} "
+                       "draining", (G, K, Kb, P), rows, plan, graph_us(b4g, 20),
+                       G * (n_rows * P * item + K * 4 + Kb * 4 + 1 + 4 + 2 * P * 4),
+                       G * (2 * n_rows * P + P))
+            del sets, u, w, params, m, v, ring, bw
+    torch.cuda.empty_cache()
 
 
 def graph_us(fn, reps: int = 50) -> float:
@@ -2156,6 +2308,121 @@ def graph_us(fn, reps: int = 50) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) * 1e3 / (5 * reps)
+
+
+def plan_text(plan, item: int) -> str:
+    """A column streamer's launch plan (``fedavg_reduce.ColumnPlan``) for
+    rows of ``item``-byte elements, as a timing line prints it."""
+    return (f"plan {plan.vec * item}-byte loads x {plan.runs} run(s) a thread "
+            f"({plan.runs * plan.vec * item} bytes a row), {plan.tiles} block(s) a lane")
+
+
+def b2_call(lib, plan, u, w, out, lanes: int, stream) -> None:
+    """One launch of ``fedavg_reduce``'s C entry (B2 at ``lanes`` 1, B2g)
+    at ``plan`` on (lanes, K, P) rows ``u``."""
+    from repro_torch.kernels import build as kbuild
+
+    kbuild.check(lib.fedavg_reduce_launch(u.data_ptr(), u.element_size(), w.data_ptr(), lanes,
+                                          u.shape[-2], u.shape[-1], plan.vec, plan.runs,
+                                          out.data_ptr(), stream), "fedavg_reduce")
+
+
+def su_call(lib, plan, lanes: int, u, w, ring, bw, drain, params, m, v, rules, rule: int, hp,
+            outs, stream) -> None:
+    """One launch of ``server_update``'s C entry at ``plan``: B3 / B4 with
+    ``rules`` None (every lane runs ``rule``), else B3g / B4g; ``ring`` None
+    for no ring, ``m`` None for no moments; ``hp`` (eta, beta1, 1 - beta1,
+    beta2, 1 - beta2, tau); ``outs`` (params', m', v')."""
+    from repro_torch.kernels import build as kbuild
+
+    ring_args = ((ring.data_ptr(), bw.data_ptr(), ring.shape[-2], drain.data_ptr())
+                 if ring is not None else (None, None, 0, None))
+    mv = ((m.data_ptr(), v.data_ptr(), outs[1].data_ptr(), outs[2].data_ptr())
+          if m is not None else (None,) * 4)
+    kbuild.check(lib.server_update_launch(
+        u.data_ptr(), u.element_size(), w.data_ptr(), lanes, u.shape[-2], *ring_args,
+        u.shape[-1], params.data_ptr(), params.element_size(), *mv[:2],
+        None if rules is None else rules.data_ptr(), rule, 0, *hp, plan.vec, plan.runs,
+        outs[0].data_ptr(), *mv[2:], stream), "server_update")
+
+
+def column_plan_sweep(lib, device, card) -> None:
+    """The column streamers' two plans against each other on the same
+    operands, by CUDA graph replay of the C entry in turns (one run a
+    thread, the wide plan's runs, the wide, one): B2 at K = 10 and B2g at
+    (24, 2), at P = 159,010 and fl-cifar10-cnn's 1,070,794; B3 (fedadam) and
+    B4 (fedbuff, the 8-slot ring draining) at (10, 159,010); B3g at the smoke
+    grid's (40, 2, 159,010); B4g at the async grid's (24, 2, Kb 8, 159,010)
+    with no lane and with every lane draining; fp32 and bf16 rows.  Marks the
+    plan the wrapper takes."""
+    from repro_torch.kernels import server_update as su_mod
+    from repro_torch.kernels.fedavg_reduce import column_tiles, launch_plan, wide_runs
+
+    def stream():
+        return torch.cuda.current_stream(device).cuda_stream
+
+    def sweep(label, P, item, taken, launch):
+        plans = [taken._replace(runs=runs, tiles=column_tiles(P, taken.vec, runs))
+                 for runs in sorted({1, wide_runs(taken.vec, item)})]
+        times = {p: [] for p in plans}
+        for p in plans + plans[::-1]:
+            times[p].append(graph_us(lambda p=p: launch(p), 20))
+        text = "; ".join(
+            f"{p.runs} run(s) x {p.tiles} block(s) a lane{' (taken)' if p == taken else ''} "
+            f"{sum(t) / 2:.2f} us ({', '.join(f'{x:.2f}' for x in t)})"
+            for p, t in times.items())
+        print(f"column plans, {label}, {taken.vec * item}-byte loads: {text} [{card}]",
+              flush=True)
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(43)
+    hp = (1.0, 0.9, 1.0 - 0.9, 0.99, 1.0 - 0.99, 1e-3)
+    for rows in (torch.float32, torch.bfloat16):
+        item = torch.tensor([], dtype=rows).element_size()
+        for (G, K), P in ((g_k, P) for g_k in ((1, 10), (24, 2))
+                          for P in (159_010, CNN_P["cifar10"])):
+            n_bytes = G * (K * P * item + K * 4 + P * 4)
+            us = [(1e-3 * torch.randn((G, K, P), generator=gen, device=device)).to(rows)
+                  for _ in range(max(2, math.ceil(120e6 / n_bytes)))]
+            w = torch.full((G, K), 1.0 / K, dtype=torch.float32, device=device)
+            out = torch.empty((G, P), dtype=torch.float32, device=device)
+            nxt = _cycle(us)
+            sweep(f"{'fedavg_reduce_grid' if G > 1 else 'fedavg_reduce'} G={G} K={K} P={P} "
+                  f"{str(rows)[6:]} rows", P, item, launch_plan(device, G, P, us[0], out),
+                  lambda p, G=G, w=w, out=out, nxt=nxt: b2_call(lib, p, nxt(), w, out, G,
+                                                                stream()))
+            del us, w, out
+        P, Kb = 159_010, 8
+        for name, G, K, registry, drain in (
+                ("server_update fedadam", 1, 10, (2,), None),
+                ("server_update_buffered fedbuff, draining", 1, 10, (5,), True),
+                ("server_update_grid rules 0-4", 40, 2, (0, 1, 2, 3, 4), None),
+                ("server_update_buffered_grid fedbuff, none draining", 24, 2, (5,), False),
+                ("server_update_buffered_grid fedbuff, all draining", 24, 2, (5,), True)):
+            copies = max(2, math.ceil(120e6 / (G * (K + Kb) * P * item)))
+            sets = [server_grid_operands(G, K, Kb, P, registry, 900 + 17 * i, device, rows)
+                    for i in range(copies)]
+            rules = torch.tensor([registry[g * len(registry) // G] for g in range(G)],
+                                 dtype=torch.int32, device=device)
+            flags = torch.full((G,), bool(drain), dtype=torch.bool, device=device)
+            moments = any(r in su_mod.MOMENT_RULES for r in registry)
+            outs = [torch.empty((G, P), dtype=torch.float32, device=device) for _ in range(3)]
+            u, _, params, m, v, ring, _, _, _ = sets[0]
+            ring_on = drain is not None
+            taken = su_mod.launch_plan(device, G, P, u, [u, params, *outs] + (
+                [ring] if ring_on else []) + ([m, v] if moments else []))
+            nxt = _cycle(sets)
+
+            def launch(p, G=G, nxt=nxt, rules=rules, flags=flags, moments=moments,
+                       ring_on=ring_on, outs=outs, registry=registry):
+                u, w, params, m, v, ring, bw, _, _ = nxt()
+                su_call(lib, p, G, u, w, ring if ring_on else None, bw, flags, params,
+                        m if moments else None, v, None if G == 1 else rules, registry[0], hp,
+                        outs, stream())
+
+            sweep(f"{name} G={G} K={K} P={P} {str(rows)[6:]} rows", P, item, taken, launch)
+            del sets, outs
+    torch.cuda.empty_cache()
 
 
 # b1g_plan_crossover's shapes (lanes, clients a lane): the streamed grid's 8 lanes
@@ -2223,7 +2490,7 @@ def time_grid_kernels(kernels, lib, grid_launches, main_err, bf16_times, device,
     ``torch.bmm(w[:, None, :], u)``."""
     from repro_torch.core.trajectory import horizon_steps
     from repro_torch.kernels import build as kbuild
-    from repro_torch.kernels.fedavg_reduce import fedavg_reduce_grid_plain
+    from repro_torch.kernels.fedavg_reduce import fedavg_reduce_grid_plain, launch_plan
     from repro_torch.kernels.rttg_latency import (grid_launch_plan, grid_operand,
                                                   rttg_latency_grid_plain, scenario_operand)
     from repro_torch.utils import prng
@@ -2312,7 +2579,8 @@ def time_grid_kernels(kernels, lib, grid_launches, main_err, bf16_times, device,
         .to(torch.bfloat16) for i in range(4)]
     w = torch.full((G, K), 0.5, dtype=torch.float32, device=device)
     out = torch.empty((G, P), dtype=torch.float32, device=device)
-    vec = 2 if P % 2 == 0 else 1
+    plans = {rows[0].dtype: launch_plan(device, G, P, rows[0], out) for rows in (us, us16)}
+    lane_plan = launch_plan(device, 1, P, us[0][0], out[0])
     it = {"i": 0}
 
     def nxt(rows):
@@ -2321,16 +2589,12 @@ def time_grid_kernels(kernels, lib, grid_launches, main_err, bf16_times, device,
 
     def b2g(rows=us):
         u = nxt(rows)
-        kbuild.check(lib.fedavg_reduce_grid_launch(u.data_ptr(), u.element_size(), w.data_ptr(),
-                                                   G, K, P, vec, out.data_ptr(), stream()),
-                     "fedavg_reduce_grid")
+        b2_call(lib, plans[u.dtype], u, w, out, G, stream())
 
     def b2_lanes(rows=us):  # the lane loop's reduce: one B2 launch a lane
         u = nxt(rows)
         for g in range(G):
-            kbuild.check(lib.fedavg_reduce_launch(u[g].data_ptr(), u.element_size(),
-                                                  w[g].data_ptr(), K, P, vec, out[g].data_ptr(),
-                                                  stream()), "fedavg_reduce")
+            b2_call(lib, lane_plan, u[g][None], w[g], out[g], 1, stream())
 
     def bmm():
         return torch.bmm(w[:, None, :], nxt(us))
@@ -2351,7 +2615,8 @@ def time_grid_kernels(kernels, lib, grid_launches, main_err, bf16_times, device,
         "ms": b2g_t[0], "plain_ms": b2g_t[1], "bound_ms": b_ms, "bound_by": b_by,
         "library_ms": b2g_t[2], "device_us": b2g_t[3], "library_device_us": b2g_t[4],
     })
-    print(f"fedavg_reduce_grid G={G} K={K} P={P} (vec {vec}): events {b2g_t[0] * 1e3:.2f} us, "
+    print(f"fedavg_reduce_grid G={G} K={K} P={P} ({plan_text(plans[torch.float32], 4)}): "
+          f"events {b2g_t[0] * 1e3:.2f} us, "
           f"device time {b2g_t[3]:.2f} us (graph replay; {b2g_bytes / (b2g_t[3] * 1e3):.0f} "
           f"GB/s); the lane loop's {G} fedavg_reduce launches {b2g_t[5]:.2f} us; torch.bmm "
           f"events {b2g_t[2] * 1e3:.2f} us, device time {b2g_t[4]:.2f} us; plain "
@@ -2363,21 +2628,24 @@ def time_grid_kernels(kernels, lib, grid_launches, main_err, bf16_times, device,
     b16_bytes = G * K * P * 2 + G * K * 4 + G * P * 4
     b16_bound = bound(b16_bytes, 2 * G * K * P)
     bf16_times["fedavg_reduce_grid"] = b16 + (b16_bound, b16_bytes)
-    print(f"fedavg_reduce_grid G={G} K={K} P={P} bf16 rows: events {b16[0] * 1e3:.2f} us, "
-          f"device time {b16[2]:.2f} us (graph replay), plain {b16[1] * 1e3:.1f} us, bound "
-          f"{b16_bound[0] * 1e3:.2f} us ({b16_bound[1]}, {b16_bytes / 1e6:.1f} MB) [{card}]")
+    print(f"fedavg_reduce_grid G={G} K={K} P={P} bf16 rows ({plan_text(plans[torch.bfloat16], 2)}"
+          f"): events {b16[0] * 1e3:.2f} us, device time {b16[2]:.2f} us (graph replay, "
+          f"{b16_bound[0] * 1e3 / b16[2]:.3f} of the bound; fp32 rows {b2g_t[3]:.2f} us), plain "
+          f"{b16[1] * 1e3:.1f} us, bound {b16_bound[0] * 1e3:.2f} us ({b16_bound[1]}, "
+          f"{b16_bytes / 1e6:.1f} MB) [{card}]")
 
 
 def time_cnn_reduces(kernels, lib, main_err, device, card) -> None:
     """B2 and B2g at the CNN datasets' P (phase 4i), added to their rows of
-    ``kernels`` under ``cnn_shapes``: B2 at the main path's K = 10 on fp32
-    and bf16 rows, B2g at the bench grid's (24, 2), at fl-cifar10-cnn's P =
-    1,070,794 and fl-svhn-cnn's 603,034.  CUDA events over back-to-back
-    launches of the C entry point cycling copies that together exceed the
-    50 MB L2, the device time a launch from CUDA graph replays, beside the
-    plain version, ``torch.mv`` / ``torch.bmm`` on fp32 rows and the bound."""
-    from repro_torch.kernels import build as kbuild
-    from repro_torch.kernels.fedavg_reduce import fedavg_reduce_grid_plain, fedavg_reduce_plain
+    ``kernels`` under ``cnn_shapes``: B2 at the main path's K = 10 and B2g
+    at the bench grid's (24, 2), each on fp32 and bf16 rows, at
+    fl-cifar10-cnn's P = 1,070,794 and fl-svhn-cnn's 603,034.  CUDA events
+    over back-to-back launches of the C entry point cycling copies that
+    together exceed the 50 MB L2, the device time a launch from CUDA graph
+    replays, beside the plain version, ``torch.mv`` / ``torch.bmm`` on fp32
+    rows and the bound; each with the launch plan the wrapper takes."""
+    from repro_torch.kernels.fedavg_reduce import (fedavg_reduce_grid_plain, fedavg_reduce_plain,
+                                                   launch_plan)
 
     def stream():  # the current stream at each launch: a graph captures on its own
         return torch.cuda.current_stream(device).cuda_stream
@@ -2390,7 +2658,8 @@ def time_cnn_reduces(kernels, lib, main_err, device, card) -> None:
     for dataset, P in CNN_P.items():
         for name, G, K, rows in (("fedavg_reduce", 0, 10, torch.float32),
                                  ("fedavg_reduce", 0, 10, torch.bfloat16),
-                                 ("fedavg_reduce_grid", 24, 2, torch.float32)):
+                                 ("fedavg_reduce_grid", 24, 2, torch.float32),
+                                 ("fedavg_reduce_grid", 24, 2, torch.bfloat16)):
             shape = (G, K, P) if G else (K, P)
             item = torch.tensor([], dtype=rows).element_size()
             n_bytes = (G or 1) * (K * P * item + K * 4 + P * 4)
@@ -2398,24 +2667,15 @@ def time_cnn_reduces(kernels, lib, main_err, device, card) -> None:
                   for _ in range(max(2, math.ceil(100e6 / n_bytes)))]
             w = torch.full(shape[:-1], 1.0 / K, dtype=torch.float32, device=device)
             out = torch.empty(shape[:-2] + (P,), dtype=torch.float32, device=device)
-            vec = 4 if P % 4 == 0 else 2 if P % 2 == 0 else 1
+            plan = launch_plan(device, G or 1, P, us[0], out)
             it = {"i": 0}
 
             def nxt(us=us):
                 it["i"] = (it["i"] + 1) % len(us)
                 return us[it["i"]]
 
-            def launch(G=G, K=K, P=P, w=w, out=out, vec=vec, nxt=nxt):
-                u = nxt()
-                if G:
-                    status = lib.fedavg_reduce_grid_launch(u.data_ptr(), u.element_size(),
-                                                           w.data_ptr(), G, K, P, vec,
-                                                           out.data_ptr(), stream())
-                else:
-                    status = lib.fedavg_reduce_launch(u.data_ptr(), u.element_size(),
-                                                      w.data_ptr(), K, P, vec, out.data_ptr(),
-                                                      stream())
-                kbuild.check(status, "fedavg_reduce_grid" if G else "fedavg_reduce")
+            def launch(G=G, w=w, out=out, plan=plan, nxt=nxt):
+                b2_call(lib, plan, nxt(), w, out, G or 1, stream())
 
             plain = fedavg_reduce_grid_plain if G else fedavg_reduce_plain
             yardstick = None
@@ -2428,32 +2688,34 @@ def time_cnn_reduces(kernels, lib, main_err, device, card) -> None:
                                                                warmup=3),
                    "device_us": graph_us(launch), "bound_ms": b_ms, "bound_by": b_by,
                    "library_ms": time_ms(yardstick) if yardstick else None,
-                   "max_abs_err": main_err["cnn"][f"fedavg_reduce_grid P={P}" if G else
-                                                  f"fedavg_reduce {str(rows)[6:]} P={P}"]}
+                   "max_abs_err": main_err["cnn"][f"{name} {str(rows)[6:]} P={P}"],
+                   "plan": plan._asdict()}
             rows_by_name[name]["cnn_shapes"].append(row)
             lib_txt = (f", {'torch.bmm' if G else 'torch.mv'} {row['library_ms'] * 1e3:.2f} us"
                        if yardstick else "")
-            print(f"{name} {tuple(shape)} {row['rows']} rows ({dataset}): events "
-                  f"{row['ms'] * 1e3:.2f} us, device time {row['device_us']:.2f} us (graph replay, "
-                  f"{n_bytes / (row['device_us'] * 1e3):.0f} GB/s), plain "
+            print(f"{name} {tuple(shape)} {row['rows']} rows ({dataset}; {plan_text(plan, item)}): "
+                  f"events {row['ms'] * 1e3:.2f} us, device time {row['device_us']:.2f} us (graph "
+                  f"replay, {n_bytes / (row['device_us'] * 1e3):.0f} GB/s, "
+                  f"{b_ms * 1e3 / row['device_us']:.3f} of the bound), plain "
                   f"{row['plain_ms'] * 1e3:.1f} us{lib_txt}, bound {b_ms * 1e3:.2f} us ({b_by}, "
                   f"{n_bytes / 1e6:.1f} MB) [{card}]")
             del us, w, out
     torch.cuda.empty_cache()
 
 
-def time_server_grid(kernels, lib, grid_launches, main_err, device, card):
-    """B4g and B3g at the engine grids' shapes, appended to ``kernels``: CUDA
+def time_server_grid(kernels, lib, grid_launches, main_err, bf16_times, device, card):
+    """B4g and B3g at the engine grids' shapes, fp32 rows appended to
+    ``kernels``, bf16 rows (fp32 master and moments) to ``bf16_times``: CUDA
     events over back-to-back launches of the C entry point and the device
     time a launch from CUDA graph replays, cycling two operand sets (each
     past the 50 MB L2), beside the plain version (the one-lane plain version
-    lane by lane) and, for B4g, the lane loop's G B4 launches.  B4g: the
-    async grid's (24, 2, Kb 8, 159,010), fp32, the ``("fedbuff",)`` registry
-    (no moment rule: m and v neither read nor written), with no lane and
-    with every lane draining.  B3g: the smoke grid without fedbuff, 40 lanes
-    at K = 2 under rules 0-4 (8 lanes each), m' and v' written by every lane."""
-    from repro_torch.kernels import build as kbuild
-    from repro_torch.kernels.server_update import (MOMENT_RULES,
+    lane by lane), the bound and, for B4g, the lane loop's G B4 launches;
+    each with the launch plan the wrapper takes.  B4g: the async grid's (24,
+    2, Kb 8, 159,010), the ``("fedbuff",)`` registry (no moment rule: m and v
+    neither read nor written), with no lane and with every lane draining.
+    B3g: the smoke grid without fedbuff, 40 lanes at K = 2 under rules 0-4 (8
+    lanes each), m' and v' written by every lane."""
+    from repro_torch.kernels.server_update import (MOMENT_RULES, launch_plan,
                                                    server_update_buffered_grid_plain,
                                                    server_update_grid_plain)
 
@@ -2462,96 +2724,99 @@ def time_server_grid(kernels, lib, grid_launches, main_err, device, card):
 
     P, K, Kb = 159_010, 2, 8
     hp = (1.0, 0.9, 1.0 - 0.9, 0.99, 1.0 - 0.99, 1e-3)
-    rows_of = {}
+    out = {}
 
-    def operands(G, rules, seed):
+    def operands(G, rules, seed, rows):
         sets = []
         for i in range(2):
             u, w, params, m, v, ring, bw, _, _ = server_grid_operands(
-                G, K, Kb, P, rules, seed + 101 * i, device)
+                G, K, Kb, P, rules, seed + 101 * i, device, rows)
             sets.append((u, w, params, m, v, ring, bw))
         return sets
 
     def launcher(G, sets, rule_t, drain_t, buffered, moments):
         outs = [torch.empty((G, P), dtype=torch.float32, device=device) for _ in range(3)]
+        u, _, params, m, v, ring, _ = sets[0]
+        plan = launch_plan(device, G, P, u, [u, params, *outs] + (
+            [ring] if buffered else []) + ([m, v] if moments else []))
         it = {"i": 0}
 
         def launch():
             it["i"] ^= 1
             u, w, params, m, v, ring, bw = sets[it["i"]]
-            ring_args = (ring.data_ptr(), bw.data_ptr(), Kb, drain_t.data_ptr()) if buffered \
-                else (None, None, 0, None)
-            mv = (m.data_ptr(), v.data_ptr()) if moments else (None, None)
-            kbuild.check(lib.server_update_grid_launch(
-                u.data_ptr(), 4, w.data_ptr(), G, K, *ring_args, P, params.data_ptr(), 4, *mv,
-                rule_t.data_ptr(), 0, *hp, 2, outs[0].data_ptr(),
-                *((outs[1].data_ptr(), outs[2].data_ptr()) if moments else (None, None)),
-                stream()), "server_update_grid")
-        return launch
+            su_call(lib, plan, G, u, w, ring if buffered else None, bw, drain_t, params,
+                    m if moments else None, v, rule_t, 0, hp, outs, stream())
+        return launch, plan
 
-    # B4g: 24 fedbuff lanes, no moments
-    G = 24
-    sets = operands(G, (5,), 300)
-    rule5 = torch.full((G,), 5, dtype=torch.int32, device=device)
-    t4 = {}
-    for label, drain in (("none draining", False), ("all draining", True)):
-        drain_t = torch.full((G,), drain, dtype=torch.bool, device=device)
-        launch = launcher(G, sets, rule5, drain_t, True, False)
-        u, w, params, m, v, ring, bw = sets[0]
-
-        def plain(u=u, w=w, ring=ring, bw=bw, params=params, m=m, v=v, drain_t=drain_t):
-            return server_update_buffered_grid_plain(u, w, ring, bw, params, m, v, rule5, 0,
-                                                     drain_t, registry=(5,))
-
-        def lanes(drain_t=drain_t):  # the lane loop's server step: one B4 launch a lane
+    for rows in (torch.float32, torch.bfloat16):
+        item = torch.tensor([], dtype=rows).element_size()
+        # B4g: 24 fedbuff lanes, no moments
+        G = 24
+        sets = operands(G, (5,), 300, rows)
+        rule5 = torch.full((G,), 5, dtype=torch.int32, device=device)
+        t4 = {}
+        for label, drain in (("none draining", False), ("all draining", True)):
+            drain_t = torch.full((G,), drain, dtype=torch.bool, device=device)
+            launch, plan = launcher(G, sets, rule5, drain_t, True, False)
             u, w, params, m, v, ring, bw = sets[0]
-            out = torch.empty((P,), dtype=torch.float32, device=device)
-            for g in range(G):
-                kbuild.check(lib.server_update_launch(
-                    u[g].data_ptr(), 4, w[g].data_ptr(), K, ring[g].data_ptr(),
-                    bw[g].data_ptr(), Kb, drain_t[g:].data_ptr(), P, params[g].data_ptr(), 4,
-                    None, None, 5, 0, *hp, 2, out.data_ptr(), None, None, stream()),
-                    "server_update")
+            lane_plan = launch_plan(device, 1, P, u[0], [u[0], ring[0], params[0]])
 
-        rows = K + (Kb if drain else 0)
-        n_bytes = G * (rows * P * 4 + K * 4 + Kb * 4 + 1 + 4 + 2 * P * 4)
-        t4[label] = dict(ms=time_ms(launch), plain_ms=time_ms(plain, iters=10, warmup=2),
-                         device_us=graph_us(launch), loop_device_us=graph_us(lanes, 4),
-                         bound=bound(n_bytes, G * (2 * rows * P + P)), bytes=n_bytes)
-        t = t4[label]
-        print(f"server_update_buffered_grid G={G} K={K} Kb={Kb} P={P} fedbuff, {label}, one "
-              f"launch: events {t['ms'] * 1e3:.2f} us, device time {t['device_us']:.2f} us "
-              f"(graph replay; {n_bytes / (t['device_us'] * 1e3):.0f} GB/s); the lane loop's "
-              f"{G} server_update_buffered launches {t['loop_device_us']:.2f} us; plain "
-              f"{t['plain_ms'] * 1e3:.1f} us; bound {t['bound'][0] * 1e3:.2f} us "
-              f"({t['bound'][1]}, {n_bytes / 1e6:.1f} MB) [{card}]")
-    rows_of["server_update_buffered_grid"] = t4
-    del sets
+            def plain(u=u, w=w, ring=ring, bw=bw, params=params, m=m, v=v, drain_t=drain_t):
+                return server_update_buffered_grid_plain(u, w, ring, bw, params, m, v, rule5, 0,
+                                                         drain_t, registry=(5,))
 
-    # B3g: 40 lanes, rules 0-4, every lane writes m' and v'
-    G = 40
-    registry = (0, 1, 2, 3, 4)
-    sets = operands(G, registry, 400)
-    rules = torch.tensor([registry[g // 8] for g in range(G)], dtype=torch.int32, device=device)
-    launch = launcher(G, sets, rules, None, False, True)
-    u, w, params, m, v, _, _ = sets[0]
+            def lanes(drain_t=drain_t, lane_plan=lane_plan):  # the lane loop: one B4 a lane
+                u, w, params, m, v, ring, bw = sets[0]
+                one = [torch.empty((P,), dtype=torch.float32, device=device)]
+                for g in range(G):
+                    su_call(lib, lane_plan, 1, u[g][None], w[g], ring[g][None], bw[g],
+                            drain_t[g:], params[g], None, None, None, 5, hp, one, stream())
 
-    def plain3():
-        return server_update_grid_plain(u, w, params, m, v, rules, 0, registry=registry)
+            n_rows = K + (Kb if drain else 0)
+            n_bytes = G * (n_rows * P * item + K * 4 + Kb * 4 + 1 + 4 + 2 * P * 4)
+            t4[label] = dict(ms=time_ms(launch), plain_ms=time_ms(plain, iters=10, warmup=2),
+                             device_us=graph_us(launch), loop_device_us=graph_us(lanes, 4),
+                             bound=bound(n_bytes, G * (2 * n_rows * P + P)), bytes=n_bytes)
+            t = t4[label]
+            print(f"server_update_buffered_grid G={G} K={K} Kb={Kb} P={P} fedbuff, "
+                  f"{str(rows)[6:]} rows, {label} ({plan_text(plan, item)}), one launch: events "
+                  f"{t['ms'] * 1e3:.2f} us, device time {t['device_us']:.2f} us (graph replay; "
+                  f"{n_bytes / (t['device_us'] * 1e3):.0f} GB/s, "
+                  f"{t['bound'][0] * 1e3 / t['device_us']:.3f} of the bound); the lane loop's "
+                  f"{G} server_update_buffered launches {t['loop_device_us']:.2f} us; plain "
+                  f"{t['plain_ms'] * 1e3:.1f} us; bound {t['bound'][0] * 1e3:.2f} us "
+                  f"({t['bound'][1]}, {n_bytes / 1e6:.1f} MB) [{card}]")
+        del sets
 
-    n_moment = sum(1 for r in rules.tolist() if r in MOMENT_RULES)
-    n_bytes = G * (K * P * 4 + K * 4 + 4 + 2 * P * 4 + 4 * P * 4)
-    t3 = dict(ms=time_ms(launch), plain_ms=time_ms(plain3, iters=10, warmup=2),
-              device_us=graph_us(launch),
-              bound=bound(n_bytes, G * 2 * K * P + n_moment * 12 * P + (G - n_moment) * P),
-              bytes=n_bytes)
-    print(f"server_update_grid G={G} K={K} P={P} rules 0-4 (m', v' from every lane), one "
-          f"launch: events {t3['ms'] * 1e3:.2f} us, device time {t3['device_us']:.2f} us (graph "
-          f"replay; {n_bytes / (t3['device_us'] * 1e3):.0f} GB/s); plain "
-          f"{t3['plain_ms'] * 1e3:.1f} us; bound {t3['bound'][0] * 1e3:.2f} us "
-          f"({t3['bound'][1]}, {n_bytes / 1e6:.1f} MB) [{card}]")
-    del sets
+        # B3g: 40 lanes, rules 0-4, every lane writes m' and v'
+        G = 40
+        registry = (0, 1, 2, 3, 4)
+        sets = operands(G, registry, 400, rows)
+        rules = torch.tensor([registry[g // 8] for g in range(G)], dtype=torch.int32,
+                             device=device)
+        launch, plan = launcher(G, sets, rules, None, False, True)
+        u, w, params, m, v, _, _ = sets[0]
 
+        def plain3(u=u, w=w, params=params, m=m, v=v, rules=rules):
+            return server_update_grid_plain(u, w, params, m, v, rules, 0, registry=registry)
+
+        n_moment = sum(1 for r in rules.tolist() if r in MOMENT_RULES)
+        n_bytes = G * (K * P * item + K * 4 + 4 + 2 * P * 4 + 4 * P * 4)
+        t3 = dict(ms=time_ms(launch), plain_ms=time_ms(plain3, iters=10, warmup=2),
+                  device_us=graph_us(launch),
+                  bound=bound(n_bytes, G * 2 * K * P + n_moment * 12 * P + (G - n_moment) * P),
+                  bytes=n_bytes)
+        print(f"server_update_grid G={G} K={K} P={P} rules 0-4 (m', v' from every lane), "
+              f"{str(rows)[6:]} rows ({plan_text(plan, item)}), one launch: events "
+              f"{t3['ms'] * 1e3:.2f} us, device time {t3['device_us']:.2f} us (graph replay; "
+              f"{n_bytes / (t3['device_us'] * 1e3):.0f} GB/s, "
+              f"{t3['bound'][0] * 1e3 / t3['device_us']:.3f} of the bound); plain "
+              f"{t3['plain_ms'] * 1e3:.1f} us; bound {t3['bound'][0] * 1e3:.2f} us "
+              f"({t3['bound'][1]}, {n_bytes / 1e6:.1f} MB) [{card}]")
+        del sets
+        out[rows] = t3, t4
+
+    t3, t4 = out[torch.float32]
     for name, t, extra in (
             ("server_update_grid", t3, {}),
             ("server_update_buffered_grid", t4["none draining"], {
@@ -2572,6 +2837,11 @@ def time_server_grid(kernels, lib, grid_launches, main_err, device, card):
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound"][0],
             "bound_by": t["bound"][1], "library_ms": None, "device_us": t["device_us"], **extra,
         })
+    t3, t4 = out[torch.bfloat16]
+    for name, t in (("server_update_grid", t3),
+                    ("server_update_buffered_grid", t4["none draining"]),
+                    ("server_update_buffered_grid all draining", t4["all draining"])):
+        bf16_times[name] = (t["ms"], t["plain_ms"], t["device_us"], t["bound"], t["bytes"])
 
 
 def time_rsu_grid(kernels, lib, grid_launches, main_err, bf16_times, device, card):
@@ -4136,8 +4406,10 @@ def main(argv=()) -> int:
         return 1
     other = None
     if argv:
-        if len(argv) != 2 or argv[0] != "--wrapper-times":
-            print("usage: python3 chip_smoke.py [--wrapper-times CHECKOUT]", file=sys.stderr)
+        if len(argv) not in (2, 3) or argv[0] != "--wrapper-times" or argv[2:] not in (
+                [], ["columns"]):
+            print("usage: python3 chip_smoke.py [--wrapper-times CHECKOUT [columns]]",
+                  file=sys.stderr)
             return 2
         other = os.path.abspath(argv[1])
         sys.path.insert(0, os.path.join(other, "src"))  # before any repro_torch import
@@ -4178,7 +4450,7 @@ def main(argv=()) -> int:
     kbuild.library()
     if other is not None:
         phase(f"wrapper times of {other}")
-        wrapper_times(device, card)
+        wrapper_times(device, card, rounds=argv[2:] != ["columns"])
         print(card)
         print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                                  "count": count}}))
@@ -4351,6 +4623,11 @@ def main(argv=()) -> int:
         for G, K, P, offset in ((1, 2, 159_010, 0), (24, 1, 159_010, 0), (3, 7, 159_011, 0),
                                 (5, 3, 159_010, 1), (2, 9, 4097, 1), (1, 1, 1, 0)):
             check_fedavg_grid(G, K, P, device, rows, offset)
+        # the launch plan's edges (fedavg_reduce.column_plan): 131 lanes (the wide
+        # runs) at P of each residue mod 8 but 0 and 4, rows 1-7 elements off
+        # their alignment (1- and 2-element loads, the runs raised to 16 bytes)
+        for P, offset in ((4097, 1), (4098, 2), (4099, 3), (4101, 5), (4102, 6), (4103, 7)):
+            check_fedavg_grid(131, 3, P, device, rows, offset)
     # B2 and B2g at the CNN datasets' P (phase 4i): fl-cifar10-cnn's 1,070,794
     # and fl-svhn-cnn's 603,034 (both 2 mod 4: runs of 2), the main path's
     # cohort K = 10 in fp32 and bf16 rows, the bench grid's (24, 2) and (24, 10);
@@ -4360,7 +4637,8 @@ def main(argv=()) -> int:
         for rows in (f32, bf16):
             main_err["cnn"][f"fedavg_reduce {str(rows)[6:]} P={P}"] = check_fedavg(
                 10, P, device, rows)
-        main_err["cnn"][f"fedavg_reduce_grid P={P}"] = check_fedavg_grid(24, 2, P, device)
+            main_err["cnn"][f"fedavg_reduce_grid {str(rows)[6:]} P={P}"] = check_fedavg_grid(
+                24, 2, P, device, rows)
     check_fedavg_grid(24, 10, CNN_P["cifar10"], device, bf16)
     check_fedavg_grid_past_int32(device)
     # B3g / B4g (the batched grid round's server step, a lane a grid row): the
@@ -4384,7 +4662,9 @@ def main(argv=()) -> int:
             check_server_grid(G, 2, 8, 159_010, AXPY_RULES, buffered, device)
     for G, K, Kb, P, offset in ((1, 2, 8, 159_010, 0), (5, 3, 8, 2049, 0),
                                 (6, 2, 1, 159_010, 0), (7, 2, 8, 159_011, 0),
-                                (6, 3, 2, 4098, 1), (1, 1, 1, 1, 0)):
+                                (6, 3, 2, 4098, 1), (1, 1, 1, 1, 0),
+                                # the wide runs at odd P and rows off their alignment
+                                (131, 3, 2, 4099, 3), (131, 3, 2, 4102, 6)):
         for rows in (f32, bf16):
             for buffered in (False, True):
                 check_server_grid(G, K, Kb, P, ALL_RULES, buffered, device, rows, rows, offset)
@@ -4823,6 +5103,8 @@ def main(argv=()) -> int:
 
     # ---- 5. times ----------------------------------------------------------
     phase(f"times on {card}")
+    from repro_torch.kernels import fedavg_reduce as fedavg_mod
+    from repro_torch.kernels import server_update as su_mod
     from repro_torch.kernels.build import library
     from repro_torch.kernels.fedavg_reduce import fedavg_reduce_plain
     from repro_torch.kernels.rttg_latency import (launch_blocks, rttg_latency_plain,
@@ -4894,7 +5176,7 @@ def main(argv=()) -> int:
               f"(device time {dev_us:.2f} us), plain {plain_ms * 1e3:.1f} us"
               + (f", bound {b_ms * 1e3:.5f} us ({b_by})" if label == "predict" else "")
               + f" [{card}]")
-    wrapper_times(device, card)
+    wrapper_times(device, card, columns=False)  # phase 5 times the column streamers' C entry
 
     # fedavg_reduce at K=10, P=159,010; cycle through copies that together
     # exceed the 50 MB L2, so each launch streams its rows from HBM
@@ -4908,7 +5190,8 @@ def main(argv=()) -> int:
         for i in range(n_copies)]
     w = torch.full((K,), 0.1, dtype=torch.float32, device=device)
     out = torch.empty((P,), dtype=torch.float32, device=device)
-    vec = 2 if P % 2 == 0 else 1
+    fed_plans = {rows[0].dtype: fedavg_mod.launch_plan(device, 1, P, rows[0], out)
+                 for rows in (us, us16)}
     it = {"i": 0}
 
     def nxt(rows=us):
@@ -4917,8 +5200,7 @@ def main(argv=()) -> int:
 
     def fed_launch(rows=us):
         u_ = nxt(rows)
-        kbuild.check(lib.fedavg_reduce_launch(u_.data_ptr(), u_.element_size(), w.data_ptr(), K,
-                                              P, vec, out.data_ptr(), stream), "fedavg_reduce")
+        b2_call(lib, fed_plans[u_.dtype], u_, w, out, 1, stream)
 
     fed_ms = time_ms(fed_launch)
     fed_plain = time_ms(lambda: fedavg_reduce_plain(nxt(), w))
@@ -4936,7 +5218,8 @@ def main(argv=()) -> int:
         "ms": fed_ms, "plain_ms": fed_plain, "bound_ms": b_ms, "bound_by": b_by,
         "library_ms": fed_lib,
     })
-    print(f"fedavg_reduce K={K} P={P} (vec {vec}): kernel {fed_ms * 1e3:.2f} us, plain "
+    print(f"fedavg_reduce K={K} P={P} ({plan_text(fed_plans[torch.float32], 4)}): kernel "
+          f"{fed_ms * 1e3:.2f} us, plain "
           f"{fed_plain * 1e3:.2f} us, torch.mv {fed_lib * 1e3:.2f} us, bound "
           f"{b_ms * 1e3:.2f} us ({b_by}), {fed_bytes / (fed_ms * 1e-3) / 1e9:.0f} GB/s; device "
           f"time per call (profiler): kernel {fed_dev[0]:.2f} us, torch.mv {fed_dev[1]:.2f} us "
@@ -4950,7 +5233,8 @@ def main(argv=()) -> int:
     fed16_bytes = K * P * 2 + K * 4 + P * 4
     b16 = bound(fed16_bytes, 2 * K * P)
     bf16_times = {"fedavg_reduce": fed16 + (b16, fed16_bytes)}
-    print(f"fedavg_reduce K={K} P={P} bf16 rows (vec {vec}): kernel {fed16[0] * 1e3:.2f} us "
+    print(f"fedavg_reduce K={K} P={P} bf16 rows ({plan_text(fed_plans[torch.bfloat16], 2)}): "
+          f"kernel {fed16[0] * 1e3:.2f} us "
           f"(device time {fed16[2]:.2f} us, fp32 rows {fed_dev[0]:.2f} us), plain "
           f"{fed16[1] * 1e3:.2f} us, bound {b16[0] * 1e3:.2f} us ({b16[1]}, "
           f"{fed16_bytes / 1e6:.2f} MB; fp32 rows {b_ms * 1e3:.2f} us), "
@@ -4959,7 +5243,8 @@ def main(argv=()) -> int:
     time_grid_kernels(kernels, lib, grid_launches, main_err, bf16_times, device, card)
     b1g_plan_crossover(lib, device, card)
     time_cnn_reduces(kernels, lib, main_err, device, card)
-    time_server_grid(kernels, lib, grid_launches, main_err, device, card)
+    time_server_grid(kernels, lib, grid_launches, main_err, bf16_times, device, card)
+    column_plan_sweep(lib, device, card)
     time_rsu_grid(kernels, lib, grid_launches, main_err, bf16_times, device, card)
 
     # server_update (fedadam, rule 2) and server_update_buffered (fedbuff,
@@ -4984,15 +5269,18 @@ def main(argv=()) -> int:
         it["i"] = (it["i"] + 1) % n_copies
         return (sets16 if half else sets)[it["i"]], (rings16 if half else rings)[it["i"]]
 
+    su_hp = (hp.eta, hp.beta1, 1.0 - hp.beta1, hp.beta2, 1.0 - hp.beta2, hp.tau)
+    su_plans = {(half, buffered): su_mod.launch_plan(
+        device, 1, P, (sets16 if half else sets)[0][0],
+        [(sets16 if half else sets)[0][0], sets[0][2], *sets[0][3:], *outs]
+        + ([(rings16 if half else rings)[0][0]] if buffered else []))
+        for half in (False, True) for buffered in (False, True)}
+
     def su_launch(rule, buffered, half=False):
         (u, w_, p_, m_, v_), (ring, bw) = nxt_set(half)
-        ring_args = (ring.data_ptr(), bw.data_ptr(), Kb, on.data_ptr()) if buffered \
-            else (None, None, 0, None)
-        kbuild.check(lib.server_update_launch(
-            u.data_ptr(), u.element_size(), w_.data_ptr(), K, *ring_args, P, p_.data_ptr(),
-            p_.element_size(), m_.data_ptr(), v_.data_ptr(), rule, 0, hp.eta, hp.beta1,
-            1.0 - hp.beta1, hp.beta2, 1.0 - hp.beta2, hp.tau, vec,
-            *[o.data_ptr() for o in outs], stream), "server_update")
+        # the moments only under a moment rule, as the wrapper passes them
+        su_call(lib, su_plans[half, buffered], 1, u, w_, ring if buffered else None, bw, on, p_,
+                m_ if rule in MOMENT_RULES else None, v_, None, rule, su_hp, outs, stream)
 
     def su_plain(rule, buffered, half=False):
         (u, w_, p_, m_, v_), (ring, bw) = nxt_set(half)
@@ -5046,7 +5334,8 @@ def main(argv=()) -> int:
             "max_abs_err": main_err[name], "ms": ms,
             "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
         })
-        print(f"{name} K={K} Kb={rows_b} P={P} rule {rule} (vec {vec}): kernel "
+        print(f"{name} K={K} Kb={rows_b} P={P} rule {rule} "
+              f"({plan_text(su_plans[False, buffered], 4)}): kernel "
               f"{ms * 1e3:.2f} us (device time {dev_us:.2f} us), wrapper {wrap_ms * 1e3:.2f} us, "
               f"plain {plain_ms * 1e3:.2f} us, bound {b_ms * 1e3:.2f} us ({b_by}), "
               f"{su_bytes / (ms * 1e-3) / 1e9:.0f} GB/s [{card}]")
@@ -5054,7 +5343,8 @@ def main(argv=()) -> int:
         b16_bytes = su_bytes - rows * P * 2
         b16 = bound(b16_bytes, 2 * rows * P + (12 if moments else 1) * P)
         bf16_times[name] = su16[name] + (b16, b16_bytes)
-        print(f"{name} K={K} Kb={rows_b} P={P} rule {rule} bf16 rows, fp32 master: kernel "
+        print(f"{name} K={K} Kb={rows_b} P={P} rule {rule} bf16 rows, fp32 master "
+              f"({plan_text(su_plans[True, buffered], 2)}): kernel "
               f"{su16[name][0] * 1e3:.2f} us (device time {su16[name][2]:.2f} us, fp32 rows "
               f"{dev_us:.2f} us), plain {su16[name][1] * 1e3:.2f} us, bound {b16[0] * 1e3:.2f} us "
               f"({b16[1]}, {b16_bytes / 1e6:.2f} MB), {b16_bytes / su16[name][2] / 1e3:.0f} GB/s "

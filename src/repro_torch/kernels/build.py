@@ -40,12 +40,9 @@ _SIGNATURES = {
     "rttg_latency_grid_launch": (_P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _F, _F, _I,
                                  _I, _P, _P, _P, _P, _P),
     "rttg_latency_grid_resident": (_I, _P, _P),
-    "fedavg_reduce_launch": (_P, _I, _P, _I, _LL, _I, _P, _P),
-    "fedavg_reduce_grid_launch": (_P, _I, _P, _I, _I, _LL, _I, _P, _P),
-    "server_update_launch": (_P, _I, _P, _I, _P, _P, _I, _P, _LL, _P, _I, _P, _P, _I, _I,
-                             _F, _F, _F, _F, _F, _F, _I, _P, _P, _P, _P),
-    "server_update_grid_launch": (_P, _I, _P, _I, _I, _P, _P, _I, _P, _LL, _P, _I, _P, _P, _P,
-                                  _I, _F, _F, _F, _F, _F, _F, _I, _P, _P, _P, _P),
+    "fedavg_reduce_launch": (_P, _I, _P, _I, _I, _LL, _I, _I, _P, _P),
+    "server_update_launch": (_P, _I, _P, _I, _I, _P, _P, _I, _P, _LL, _P, _I, _P, _P, _P, _I,
+                             _I, _F, _F, _F, _F, _F, _F, _I, _I, _P, _P, _P, _P),
     "rsu_reduce_launch": (_P, _I, _P, _P, _I, _I, _I, _LL, _I, _P, _P, _I, _P, _P),
     "swa_decode_launch": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _I, _I, _I,
                           _P, _P, _P, _P),

@@ -10,9 +10,13 @@ the other.
 ``fedavg_reduce_grid`` is the batched grid round's form (B2g, the
 reference kernel under the engine's ``vmap``): ``(G, K, P) x (G, K) -> (G,
 P)`` in one launch, bitwise ``fedavg_reduce`` on each lane; its plain
-version is ``fedavg_reduce_grid_plain``.
+version is ``fedavg_reduce_grid_plain``.  Both launch the one kernel, at
+the launch plan ``column_plan`` gives (which ``server_update``'s kernel
+shares): the load width and the runs a thread.
 """
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
@@ -42,9 +46,82 @@ def _vector_width(x: torch.Tensor, P: int) -> int:
     return 1
 
 
-def _fedavg_reduce_cuda(updates: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
+# ---- the column streamers' launch plan (B2, B2g, B3, B4, B3g, B4g) ---------------------
+
+THREADS = 128  # threads a block of csrc/fedavg_reduce.cu and csrc/server_update.cu
+RUN_BYTES = 16  # bytes a thread of a wide plan loads from each row
+# A wide plan must leave every SM at least this many blocks (column tiles)
+# of its lanes; below, one run a thread spreads the columns over more blocks.
+# On an H100 (chip_smoke.py's column_plan_sweep) one run a thread was faster
+# for both kernels at one lane of 159,010 columns, where the wide plan gives
+# an SM 2.4 blocks (fp32 rows) or 1.2 (bf16 rows); the wide plan was faster
+# at one lane of 1,070,794 bf16 columns (7.9 blocks an SM) and at every
+# grid.  At one lane of 1,070,794 fp32 columns (15.8) one run was ~3%
+# faster, which this threshold does not catch.
+FILL_PER_SM = 4
+
+
+class ColumnPlan(NamedTuple):
+    """A launch of a column streamer: a thread loads ``vec`` elements of a
+    row at once (``vec * item`` bytes) for each of its ``runs`` runs of a
+    column tile of ``THREADS * runs * vec`` columns; a block a tile, ``tiles``
+    tiles a lane."""
+    vec: int
+    runs: int
+    tiles: int
+
+
+def wide_runs(vec: int, item: int) -> int:
+    """The runs a thread of a wide plan: ``RUN_BYTES`` bytes a row (at least
+    one run)."""
+    return max(1, RUN_BYTES // (vec * item))
+
+
+def column_tiles(P: int, vec: int, runs: int) -> int:
+    return -(-P // (THREADS * vec * runs))
+
+
+def column_plan(lanes: int, P: int, vec: int, item: int, sms: int) -> ColumnPlan:
+    """The launch plan of ``lanes`` lanes of P columns whose rows hold
+    ``item``-byte elements, loaded ``vec`` at a time, on a card of ``sms``
+    SMs: the wide runs (``RUN_BYTES`` bytes a thread a row) where the lanes'
+    tiles at that width give every SM ``FILL_PER_SM`` blocks, else one run a
+    thread."""
+    wide = wide_runs(vec, item)
+    runs = wide if lanes * column_tiles(P, vec, wide) >= FILL_PER_SM * sms else 1
+    return ColumnPlan(vec, runs, column_tiles(P, vec, runs))
+
+
+_SMS = {}  # device -> SMs
+
+
+def sm_count(device) -> int:
+    device = torch.device(device)
+    hit = _SMS.get(device)
+    if hit is None:
+        hit = _SMS[device] = torch.cuda.get_device_properties(device).multi_processor_count
+    return hit
+
+
+def launch_plan(device, lanes: int, P: int, rows: torch.Tensor,
+                out: torch.Tensor) -> ColumnPlan:
+    """``column_plan`` of ``fedavg_reduce``'s kernel for these rows and out."""
+    vec = min(_vector_width(rows, P), _vector_width(out, P))
+    return column_plan(lanes, P, vec, rows.element_size(), sm_count(device))
+
+
+def _launch(name: str, updates: torch.Tensor, weights: torch.Tensor, lanes: int, K: int,
+            P: int, out: torch.Tensor) -> None:
     from repro_torch.kernels.build import check, library
 
+    plan = launch_plan(updates.device, lanes, P, updates, out)
+    stream = torch.cuda.current_stream(updates.device).cuda_stream
+    check(library().fedavg_reduce_launch(updates.data_ptr(), updates.element_size(),
+                                         weights.data_ptr(), lanes, K, P, plan.vec, plan.runs,
+                                         out.data_ptr(), stream), name)
+
+
+def _fedavg_reduce_cuda(updates: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
     refuse_grad("fedavg_reduce", updates, weights)
     global launches
     if updates.dtype not in ROW_DTYPES or updates.dim() != 2 or not updates.is_contiguous():
@@ -58,13 +135,7 @@ def _fedavg_reduce_cuda(updates: torch.Tensor, weights: torch.Tensor) -> torch.T
     if K < 1:
         raise ValueError("fedavg_reduce: the cohort must have at least one row")
     out = torch.empty((P,), dtype=torch.float32, device=updates.device)
-    vec = min(_vector_width(updates, P), _vector_width(out, P))
-    stream = torch.cuda.current_stream(updates.device).cuda_stream
-    status = library().fedavg_reduce_launch(
-        updates.data_ptr(), updates.element_size(), weights.data_ptr(), K, P, vec,
-        out.data_ptr(), stream,
-    )
-    check(status, "fedavg_reduce")
+    _launch("fedavg_reduce", updates, weights, 1, K, P, out)
     launches += 1
     return out
 
@@ -91,8 +162,6 @@ def fedavg_reduce_grid_plain(updates: torch.Tensor, weights: torch.Tensor) -> to
 
 
 def _fedavg_reduce_grid_cuda(updates: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
-    from repro_torch.kernels.build import check, library
-
     refuse_grad("fedavg_reduce_grid", updates, weights)
     global grid_launches
     if updates.dtype not in ROW_DTYPES or updates.dim() != 3 or not updates.is_contiguous():
@@ -107,13 +176,7 @@ def _fedavg_reduce_grid_cuda(updates: torch.Tensor, weights: torch.Tensor) -> to
         raise ValueError(f"fedavg_reduce_grid: need K >= 1 and 1 <= G <= {MAX_LANES}, "
                          f"got G={G}, K={K}")
     out = torch.empty((G, P), dtype=torch.float32, device=updates.device)
-    vec = min(_vector_width(updates, P), _vector_width(out, P))
-    stream = torch.cuda.current_stream(updates.device).cuda_stream
-    status = library().fedavg_reduce_grid_launch(
-        updates.data_ptr(), updates.element_size(), weights.data_ptr(), G, K, P, vec,
-        out.data_ptr(), stream,
-    )
-    check(status, "fedavg_reduce_grid")
+    _launch("fedavg_reduce_grid", updates, weights, G, K, P, out)
     grid_launches += 1
     return out
 

@@ -16,11 +16,12 @@ master dtype, m' and v' in fp32.
 
 ``server_update_grid`` and ``server_update_buffered_grid`` are the batched
 grid round's forms (B3g and B4g, the reference kernels under the engine's
-``vmap``): G lanes in one launch of ``server_update_grid_kernel``, the rule
-a ``(G,)`` int32 device tensor of global indices read by the kernel, never
-by the host, and for B4g a ``(G, Kb, P)`` ring with a ``(G,)`` ``drain``.
-Each lane is bitwise the one-lane kernel on that lane.  Their plain
-versions run the one-lane plain version lane by lane.
+``vmap``): G lanes in one launch of the same kernel, the rule a ``(G,)``
+int32 device tensor of global indices read by the kernel, never by the
+host, and for B4g a ``(G, Kb, P)`` ring with a ``(G,)`` ``drain``.  Each
+lane is bitwise the one-lane kernel on that lane.  Their plain versions run
+the one-lane plain version lane by lane.  Every launch takes
+``fedavg_reduce.column_plan``'s plan (``launch_plan``).
 """
 from __future__ import annotations
 
@@ -28,8 +29,9 @@ import torch
 
 from repro_torch.fl.aggregators import AGGREGATOR_ORDER, ServerHP, apply_rule
 from repro_torch.kernels import refuse_grad
-from repro_torch.kernels.fedavg_reduce import (MAX_LANES, ROW_DTYPES, _vector_width,
-                                               fedavg_reduce_plain)
+from repro_torch.kernels.fedavg_reduce import (MAX_LANES, ROW_DTYPES, ColumnPlan,
+                                               _vector_width, column_plan, fedavg_reduce_plain,
+                                               sm_count)
 
 # Kernel launches made by each wrapper (one per call on CUDA tensors).
 launches = 0
@@ -99,6 +101,13 @@ def _check_vec(name, x, n, device, dtypes=(torch.float32,)):
                          f"{dtypes} on {device}, got {x.dtype} {tuple(x.shape)} on {x.device}")
 
 
+def launch_plan(device, lanes: int, P: int, updates: torch.Tensor, operands) -> ColumnPlan:
+    """``column_plan`` of the kernel for ``lanes`` lanes of these rows; the
+    load width aligns every operand the launch reads or writes."""
+    vec = min(_vector_width(x, P) for x in operands)
+    return column_plan(lanes, P, vec, updates.element_size(), sm_count(device))
+
+
 def _launch(updates, weights, buf, buf_w, drain, params, m, v, agg_idx, rnd,
             eta, beta1, beta2, tau):
     from repro_torch.kernels.build import check, library
@@ -131,13 +140,13 @@ def _launch(updates, weights, buf, buf_w, drain, params, m, v, agg_idx, rnd,
     else:  # the AXPY rules leave the moments as they are, as apply_rule does
         m_out, v_out = m, v
     mv = [x.data_ptr() if moments else None for x in (m, v, m_out, v_out)]
-    vec = min(_vector_width(x, P) for x in operands)
+    plan = launch_plan(device, 1, P, updates, operands)
     stream = torch.cuda.current_stream(device).cuda_stream
     # (1 - beta) in double, rounded to float once, as the reference's Python floats
     status = library().server_update_launch(
-        updates.data_ptr(), updates.element_size(), weights.data_ptr(), K, ring, ring_w, Kb,
-        flag, P, params.data_ptr(), params.element_size(), mv[0], mv[1], int(agg_idx),
-        int(rnd), eta, beta1, 1.0 - beta1, beta2, 1.0 - beta2, tau, vec,
+        updates.data_ptr(), updates.element_size(), weights.data_ptr(), 1, K, ring, ring_w, Kb,
+        flag, P, params.data_ptr(), params.element_size(), mv[0], mv[1], None, int(agg_idx),
+        int(rnd), eta, beta1, 1.0 - beta1, beta2, 1.0 - beta2, tau, plan.vec, plan.runs,
         p_out.data_ptr(), mv[2], mv[3], stream,
     )
     check(status, "server_update")
@@ -294,13 +303,13 @@ def _launch_grid(updates, weights, buf, buf_w, drain, params, m, v, rule_idx, rn
     else:  # no lane may move the moments: they stay the caller's
         m_out, v_out = m, v
     mv = [x.data_ptr() if moments else None for x in (m, v, m_out, v_out)]
-    vec = min(_vector_width(x, P) for x in operands)
+    plan = launch_plan(device, G, P, updates, operands)
     stream = torch.cuda.current_stream(device).cuda_stream
     # (1 - beta) in double, rounded to float once, as the one-lane launch
-    status = library().server_update_grid_launch(
+    status = library().server_update_launch(
         updates.data_ptr(), updates.element_size(), weights.data_ptr(), G, K, ring, ring_w, Kb,
-        flag, P, params.data_ptr(), params.element_size(), mv[0], mv[1], rule_idx.data_ptr(),
-        int(rnd), eta, beta1, 1.0 - beta1, beta2, 1.0 - beta2, tau, vec,
+        flag, P, params.data_ptr(), params.element_size(), mv[0], mv[1], rule_idx.data_ptr(), 0,
+        int(rnd), eta, beta1, 1.0 - beta1, beta2, 1.0 - beta2, tau, plan.vec, plan.runs,
         p_out.data_ptr(), mv[2], mv[3], stream,
     )
     check(status, "server_update_grid")

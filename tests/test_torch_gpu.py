@@ -22,7 +22,12 @@ bit on dyadic ones (any order sums those exactly), a chunk walk included,
 at 10 RSUs and past one 32-RSU group of the kernel (33, 40 and 100), and at
 its launch plan's edges (K off its 4-row slab, ragged and odd P, 16- and
 8-byte aligned rows, the fleet's padded last chunk), each launch repeated
-bit for bit.
+bit for bit.  The column streamers (B2 / B2g, B3 / B4 / B3g / B4g) at their
+launch plan's edges (``fedavg_reduce.column_plan``): P at each residue mod 8
+but 0 and 4, rows 0-7 elements off their alignment, K = 1 to 17, 1 to 131
+lanes, fp32 and bf16 rows, each lane bit for bit the one-lane kernel, the
+FedAvg sum bit for bit its plain version on dyadic operands, and the server
+update's two contracts on bf16 rows.
 The two-tier rounds: the hierarchical lane is the flat lane bit for bit
 (contract (a)), and the streamed lane launches one ``rsu_reduce`` per
 chunk.  At fleet size the windowed neighbour search is the dense one
@@ -1484,6 +1489,136 @@ def test_server_update_grid_wrappers_refuse_what_the_kernel_does_not_take(dev):
     with pytest.raises(ValueError):  # past the grid's second dimension
         su_mod.server_update_grid(big, big[:, :, 0], big[:, 0], big[:, 0], big[:, 0],
                                   torch.zeros((big.shape[0],), dtype=torch.int32, device=dev), 0)
+
+
+# ---- the column streamers' launch plan (fedavg_reduce.column_plan) at its edges -----
+def _column_rows(G, K, P, rows, offset, dev, seed, exact):
+    """(G, K, P) rows in ``rows`` starting ``offset`` elements into their
+    storage, and (G, K) weights.  ``exact``: dyadic rows (7 significant
+    bits, exact in bf16) and weights (3 bits) whose weighted sums are exact
+    in fp32 in any order, so every summation order gives the same bits."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    if exact:
+        u = torch.randint(-64, 65, (G, K, P), generator=g, device=dev).float() * 2.0 ** -12
+        w = torch.randint(1, 9, (G, K), generator=g, device=dev).float() / 16
+    else:
+        u = 1e-3 * torch.randn((G, K, P), generator=g, device=dev)
+        w = torch.rand((G, K), generator=g, device=dev)
+    store = torch.empty((G * K * P + offset,), dtype=rows, device=dev)
+    return store[offset:].view(G, K, P).copy_(u), w
+
+
+def _b2g_is_b2_and_plain(u, w, exact):
+    """B2g on (G, K, P) rows: each lane bit for bit B2 on that lane, the
+    plain version bit for bit on exact operands (else within 1e-6 of sum_k
+    |w_k u_k|), a second launch bit for bit the first."""
+    G = u.shape[0]
+    before = fedavg_mod.grid_launches
+    got = fedavg_mod.fedavg_reduce_grid(u, w)
+    assert fedavg_mod.grid_launches == before + 1
+    for g in range(G):
+        assert torch.equal(got[g], fedavg_mod.fedavg_reduce(u[g], w[g])), g
+    ref = fedavg_mod.fedavg_reduce_grid_plain(u, w)
+    if exact:
+        assert torch.equal(got, ref)
+    else:
+        scale = float((w.abs()[:, None, :] @ u.float().abs()).max())
+        torch.testing.assert_close(got, ref, rtol=1e-5, atol=1e-6 * scale)
+    assert torch.equal(got, fedavg_mod.fedavg_reduce_grid(u, w))
+
+
+# P at each residue mod 8 but 0 and 4 (P * item not a multiple of 16: the rows
+# of a lane start at different alignments), rows 0-7 elements off their
+# storage's alignment (the load width falls to 1 or 2 elements, the runs a
+# thread rise to keep 16 bytes a row)
+@pytest.mark.parametrize("exact", [False, True])
+@pytest.mark.parametrize("rows", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("offset", range(8))
+@pytest.mark.parametrize("residue", [1, 2, 3, 5, 6, 7])
+def test_fedavg_reduce_plan_at_every_residue_and_offset(dev, residue, offset, rows, exact):
+    P = 8 * 5000 + residue
+    u, w = _column_rows(3, 3, P, rows, offset, dev, residue * 10 + offset, exact)
+    _b2g_is_b2_and_plain(u, w, exact)
+
+
+# the cohort's rows against the load groups (K = 1, the wide plan's group of 2
+# and 4 rows, past 8, past 16) and the lanes (one, the bench grid's 24, 131 >
+# the H100's 132 SMs' worth of plans at one block a lane)
+@pytest.mark.parametrize("rows", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("G", [1, 24, 131])
+@pytest.mark.parametrize("K", [1, 2, 3, 9, 17])
+def test_fedavg_reduce_plan_across_cohorts_and_lanes(dev, K, G, rows):
+    u, w = _column_rows(G, K, 159_010, rows, 0, dev, 100 * K + G, exact=False)
+    _b2g_is_b2_and_plain(u, w, exact=False)
+
+
+@pytest.mark.parametrize("buffered", [False, True])
+@pytest.mark.parametrize("rows,master", [(torch.float32, torch.float32),
+                                         (torch.bfloat16, torch.float32),
+                                         (torch.bfloat16, torch.bfloat16)])
+@pytest.mark.parametrize("offset", [0, 1, 3, 6])
+@pytest.mark.parametrize("residue", [1, 2, 3, 5, 6, 7])
+def test_server_update_plan_at_every_residue(dev, residue, offset, rows, master, buffered):
+    """B3g / B4g at P of each residue mod 8 but 0 and 4, rows and ring
+    ``offset`` elements off their alignment: each lane (every rule, drain
+    mixed) bit for bit B3 / B4 on that lane, within the plain version's
+    tolerance, a second launch bit for bit the first."""
+    P = 8 * 3000 + residue
+    u, w, params, m, v, ring, bw, rules, drain = _server_grid_operands(
+        6, 3, 2, P, ALL_RULES, torch.float32, master, dev, 31 * residue + offset)
+    store = torch.empty((u.numel() + ring.numel() + offset,), dtype=rows, device=dev)
+    u = store[offset:offset + u.numel()].view(u.shape).copy_(u)
+    ring = store[offset + u.numel():].view(ring.shape).copy_(ring)
+    if buffered:
+        call = lambda: su_mod.server_update_buffered_grid(  # noqa: E731
+            u, w, ring, bw, params, m, v, rules, 3, drain)
+        plain = su_mod.server_update_buffered_grid_plain(u, w, ring, bw, params, m, v, rules, 3,
+                                                         drain)
+    else:
+        call = lambda: su_mod.server_update_grid(u, w, params, m, v, rules, 3)  # noqa: E731
+        plain = su_mod.server_update_grid_plain(u, w, params, m, v, rules, 3)
+    got = call()
+    for g, rule in enumerate(rules.tolist()):
+        one = (su_mod.server_update_buffered(u[g], w[g], ring[g], bw[g], params[g], m[g], v[g],
+                                             rule, 3, drain[g]) if buffered
+               else su_mod.server_update(u[g], w[g], params[g], m[g], v[g], rule, 3))
+        for a, b in zip(got, one):
+            assert torch.equal(a[g], b), (g, rule)
+    assert all(torch.equal(a, b) for a, b in zip(got, call()))
+    wts = torch.cat([w, torch.where(drain[:, None], bw, 0.0)], 1) if buffered else w
+    cat = torch.cat([u, ring], 1) if buffered else u
+    scale = float((wts.abs()[:, None, :] @ cat.float().abs()).max())
+    for a, b, atol in zip(got, plain, (1e-4 * scale, 1e-6 * scale, 1e-6 * scale)):
+        rtol = BF16_ULP if a.dtype == torch.bfloat16 else 1e-5
+        torch.testing.assert_close(a.float(), b.float(), rtol=rtol, atol=atol)
+
+
+@pytest.mark.parametrize("master", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("residue", [1, 2, 3, 5, 6, 7])
+def test_server_update_contracts_bitwise_on_bf16_rows_at_every_residue(dev, residue, master):
+    """B3 / B4's two contracts on bf16 rows and ring at P of each residue mod
+    8 but 0 and 4, the rows one element off their alignment: (a) rule 0 is
+    fedavg_reduce + apply_delta_flat; (b) drain=False is the unbuffered
+    update, every rule, signs of zeros included."""
+    from repro_torch.fl.server import apply_delta_flat
+
+    P = 8 * 20_000 + residue
+    u, w, params, m, v = _server_operands(10, P, dev, residue)
+    u[:, ::3] = 0.0
+    ub = torch.empty((10 * P + 1,), dtype=torch.bfloat16, device=dev)[1:].view(10, P).copy_(u)
+    pm = params.to(master)
+    p2, m2, v2 = su_mod.server_update(ub, w, pm, m, v, 0, 0)
+    assert torch.equal(p2, apply_delta_flat(pm, fedavg_mod.fedavg_reduce(ub, w)))
+    assert torch.equal(m2, m) and torch.equal(v2, v)
+    ring, bw, *_ = _server_operands(8, P, dev, residue + 50)
+    rb = ring.to(torch.bfloat16)
+    off = torch.tensor(False, device=dev)
+    for rule in range(6):
+        plain = su_mod.server_update(ub, w, pm, m, v, rule, 0)
+        buffered = su_mod.server_update_buffered(ub, w, rb, bw, pm, m, v, rule, 0, off)
+        for a, b in zip(plain, buffered):
+            assert torch.equal(a, b) and torch.equal(torch.signbit(a), torch.signbit(b))
 
 
 @pytest.mark.parametrize("aggregators,cr", [(("fedavg", "fedavgm", "fedadam", "fedyogi", "stale",
