@@ -1,7 +1,8 @@
 """Smoke run of the PyTorch / CUDA port on one NVIDIA card.
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --wrapper-times CHECKOUT [columns]
+    python3 chip_smoke.py --wrapper-times CHECKOUT [columns | main]
+    python3 chip_smoke.py --sharded
 
 The second form runs phases 1 and 2 from the ``src/`` of another checkout
 (say, the parent commit's ``git archive``; CHECKOUT ``.`` is this tree) and
@@ -12,8 +13,12 @@ grid round of phase 4k's N = 2,048 grid and of its greedy grid's first lane
 group with B1g's share of the device time, and the column streamers (B2,
 B2g, B3, B4, B3g, B4g at ``COLUMN_P``'s shapes, fp32 and bf16 rows) by CUDA
 graph replay of wrapper calls with the plan each takes (with ``columns``,
-those alone); run it on both trees in turns (parent, change, change,
-parent) in one call to compare them.
+those alone; with ``main``, instead, ``main_round_times``: the FL main
+path's round walls and profile, and the bench grid's sweeps and round
+profile); run it on both trees in turns (parent, change, change, parent) in
+one call to compare them.  The third runs phases 1 and 2 and then
+only the engine's sharded grids (``sharded_phase``), over every visible
+card: the form to run on several cards.
 
 Phases (any failure raises and exits non-zero):
 
@@ -204,6 +209,22 @@ Phases (any failure raises and exits non-zero):
    ``GRID_TOL`` and two lanes on the CPU's plain path; the streamed grid's
    set-up and rounds timed apart, its batched round profiled beside a
    lane-loop round (batched, loop, batched), and its sync check;
+   then the engine's grids SHARDED over a mesh (``ExperimentEngine(mesh=...)``,
+   ``sharded_phase``): on ``GridMesh`` meshes of cuda:0, the bench's 24-run
+   grid on 2 shards, ``tests/test_engine.py``'s 6-lane grid (the pad path)
+   and its seed-heavy grid (4 seeds x ring; one data row a shard of 4) on 4,
+   the async grid and the streamed two-tier grid on 2, each against the
+   unsharded grid on cuda:0 with every lane bit for bit, ``last_data_plan``
+   printed and exactly the launches of the shards' lane groups (padded lanes
+   included); then ``make_grid_mesh()``: where two or more cards are visible,
+   the 24-run grid over all of them bit for bit cuda:0's unsharded grid,
+   each card's peak memory, and B1g at R = 32,768 (above 48 KB of shared
+   memory a block) on each card but cuda:0 against its plain version; where
+   one is, a line says so; where two or more are, phase 4k's greedy grid at
+   N = 4,096 (24 lanes in lane groups of 2) on cuda:0 alone and on every
+   card, bit for bit, with the one card's peak memory beside each card's;
+   last, the warm sweep on one card against the mesh (every card, or cuda:0
+   twice), in turns;
 4i. CNN datasets: ``FLSimulation`` (ring / contextual, ``fl_sim``'s
    defaults: N=100, K=10, 256 samples, batches of 64, 1 local epoch) at
    fl-cifar10-cnn for 5 rounds and fl-svhn-cnn for 3, full width, exactly 2
@@ -314,8 +335,9 @@ Phases (any failure raises and exits non-zero):
 The last three lines are the kernels' JSON record (their fp32 rows;
 ``swa_decode``'s launches summed over every serving run; ``rttg_latency``'s,
 ``fedavg_reduce``'s and ``server_update_buffered``'s with one sweep of each
-engine grid of phases 4h, 4i and 4j, the CNN paths of phase 4i and the
-example paths of phase 4j, the parts named in their ``launches_by_path``;
+engine grid of phases 4h (its sharded grids too), 4i and 4j, the CNN paths of
+phase 4i and the example paths of phase 4j, the parts named in their
+``launches_by_path``;
 ``rttg_latency_grid``'s, ``fedavg_reduce_grid``'s, ``server_update_grid``'s,
 ``server_update_buffered_grid``'s and ``rsu_reduce_grid``'s from one sweep
 of each engine grid, the two-tier ones included),
@@ -2150,6 +2172,52 @@ def wrapper_times(device, card, rounds=True, columns=True) -> None:
         column_wrapper_times(device, card)
 
 
+def main_round_times(device, card) -> None:
+    """The FL main path's round (phase 4's fedavg lane: N = 100, K = 10, 3
+    local epochs, the eval every round) and the bench's 24-run grid, through
+    the ``repro_torch`` on ``sys.path``: five round walls after a warm round,
+    one round profiled; three warm sweeps of the grid and one grid round
+    profiled."""
+    from repro_torch.config import FLConfig
+    from repro_torch.configs import get_config
+    from repro_torch.core.scenarios import scenario_config
+    from repro_torch.fl import ExperimentEngine
+    from repro_torch.fl.simulation import FLSimulation
+    from repro_torch.utils import prng
+
+    model = get_config("fl-mnist-mlp")
+    fl = FLConfig(num_clients=100, local_epochs=3, connection_rate=1.0,
+                  classes_per_client=2, samples_per_client=256, num_clusters=10,
+                  aggregator="fedavg", seed=0, compute_dtype="float32")
+    sim = FLSimulation(model, fl, scenario_config("ring", num_vehicles=100), "mnist",
+                       "contextual", prng.key(0), device=device)
+    sim.warmup_sketches()
+    sim.step()
+    walls = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sim.step()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    print(f"main-path round wall, fedavg N=100 K=10 3 epochs: "
+          f"{', '.join(f'{w * 1e3:.1f}' for w in walls)} ms [{card}]")
+    profile_round("main-path round, fedavg N=100", sim.step, card)
+    eng = ExperimentEngine(model, grid_fl(), "mnist", strategies=BENCH.strategies,
+                           aggregators=BENCH.aggregators, device=device)
+    sweeps = []
+    for _ in range(4):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng.run_grid(seeds=(0,), scenarios=BENCH.scenarios, rounds=BENCH.rounds,
+                     eval_every=BENCH.eval_every)
+        torch.cuda.synchronize()
+        sweeps.append(time.perf_counter() - t0)
+    print(f"bench grid sweep (24 lanes x 5 rounds), cold then warm: "
+          f"{', '.join(f'{w:.3f}' for w in sweeps)} s [{card}]")
+    profile_grid_rounds(eng, BENCH.runs(), "bench grid round, 24 lanes", card)
+
+
 # The column streamers' timed shapes (--wrapper-times): B2 at the main paths' K = 10
 # (fl-mnist-mlp's P and the two CNNs'), B2g at the bench grid's (24, 2) at the same
 # P, B3 (fedadam) and B4 (fedbuff, the 8-slot ring draining) at the main path's
@@ -3815,6 +3883,204 @@ def two_tier_grids(model, device, card, summary, launches) -> None:
     summary["streamed_hier"]["sync"] = sync_check(eng_s, STREAMED_HIER, card)
 
 
+# Phase 4h's sharded grids: (name, FLConfig fields, strategies, registry, the
+# grid, shards).  The bench's 24-run grid on 2 shards; tests/test_engine.py's
+# 6-lane grid (the pad path) and its seed-heavy grid on 4; the async grid and
+# the streamed two-tier grid on 2.  Each at the bench's N and fl-mnist-mlp.
+PAD = Grid(("contextual",), ("fedavg",), scenarios=("ring", "rush_hour", "platoon"), rounds=3,
+           eval_every=3)
+SEEDS = Grid(("contextual",), ("fedavg",), scenarios=("ring",), rounds=2, eval_every=2)
+SHARDED_GRIDS = (
+    ("bench", {}, BENCH, (0,), "fedavg_reduce_grid", 2),
+    ("pad", {}, PAD, (0, 1), "fedavg_reduce_grid", 4),
+    ("seeds", {}, SEEDS, (0, 1, 2, 3), "fedavg_reduce_grid", 4),
+    ("async", dict(connection_rate=0.7), ASYNC, (0,), "server_update_buffered_grid", 2),
+    ("streamed", dict(num_clients=100, hierarchical=True, client_block=4), STREAMED_HIER, (0,),
+     "fedavg_reduce_grid", 2),
+)
+
+
+def assert_grid_bitwise(got, want, what) -> None:
+    """Two grid results: the same runs, every metric of every lane bit for
+    bit, NaN alike."""
+    if got.runs != want.runs:
+        raise AssertionError(f"{what}: the runs differ")
+    for f in want.metrics._fields:
+        x = getattr(got.metrics, f)
+        y = getattr(want.metrics, f).to(x.device)
+        same = torch.equal(x, y) if not x.is_floating_point() else (
+            torch.equal(torch.isnan(x), torch.isnan(y))
+            and torch.equal(x.nan_to_num(), y.nan_to_num()))
+        if not same:
+            lanes = torch.nonzero((x.nan_to_num() != y.nan_to_num()).any(1)).flatten().tolist()
+            raise AssertionError(f"{what}: metric {f} differs in lanes {lanes}")
+
+
+def sharded_run(eng, grid: Grid, seeds, want: dict, what: str):
+    """One sharded ``run_grid`` with its launches zeroed just before and read
+    just after: exactly ``want``.  -> (result, wall s, launches)."""
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = eng.run_grid(seeds=seeds, scenarios=grid.scenarios, rounds=grid.rounds,
+                       strategies=grid.strategies, aggregators=grid.aggregators,
+                       eval_every=grid.eval_every)
+    for d in set(eng.mesh):
+        torch.cuda.synchronize(d)
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    expected = dict.fromkeys(launches, 0)
+    expected.update(want)
+    if launches != expected:
+        raise AssertionError(f"{what}: expected {expected}, got {launches}")
+    return res, wall, launches
+
+
+def sharded_phase(device, card) -> dict:
+    """Phase 4h, last: the engine's grids sharded over a mesh
+    (``ExperimentEngine(mesh=...)``), every lane bit for bit the unsharded
+    grid's on cuda:0, on meshes of one card and, where two or more are
+    visible, on every card, with a grid of several lane groups (phase 4k's
+    greedy grid) on cuda:0 and on every card, each card's peak memory beside
+    the one card's; the warm sweep on one card against the mesh, in turns.
+    -> the launch counts of one sharded sweep of each grid, by grid."""
+    from repro_torch.configs import get_config
+    from repro_torch.fl import ExperimentEngine
+    from repro_torch.kernels.rttg_latency import rttg_latency_grid, rttg_latency_plain
+    from repro_torch.launch.mesh import GridMesh, make_grid_mesh
+
+    model = get_config("fl-mnist-mlp")
+    c0 = torch.device("cuda", 0)
+    launches, summary = {}, {"card": card}
+    phase("engine: the bench's grids sharded over the cards (ExperimentEngine(mesh=...)), "
+          "meshes on cuda:0 first")
+    bench = None
+    for name, fl_kw, grid, seeds, server, n in SHARDED_GRIDS:
+        fl = grid_fl(**fl_kw)
+        kw = dict(strategies=grid.strategies, aggregators=grid.aggregators)
+        base = ExperimentEngine(model, fl, "mnist", device=c0, **kw)
+        eng = ExperimentEngine(model, fl, "mnist", mesh=GridMesh([c0] * n), **kw)
+        G = len(grid.strategies) * len(grid.aggregators) * len(seeds) * len(grid.scenarios)
+        per = -(-G // n)
+        if not (eng.batched and eng.grid_shards() == n and eng.lanes_per_group() >= per):
+            raise AssertionError(f"sharded {name} grid: not {n} shards of one lane group")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want = base.run_grid(seeds=seeds, scenarios=grid.scenarios, rounds=grid.rounds,
+                             eval_every=grid.eval_every)
+        torch.cuda.synchronize()
+        base_s = time.perf_counter() - t0
+        shards = dataclasses.replace(grid, groups=n)
+        res, wall, launches[f"{name} sharded x{n}"] = sharded_run(
+            eng, grid, seeds, shards.batched_want(server), f"sharded {name} grid")
+        assert_grid_bitwise(res, want, f"sharded {name} grid")
+        plan = eng.last_data_plan
+        if plan["n_shards"] != n or (name == "seeds" and not
+                                     plan["rows_per_shard"] == 1 < plan["total_rows"] == 4):
+            raise AssertionError(f"sharded {name} grid: data plan {plan}")
+        summary[name] = dict(lanes=G, padded=n * per - G, shards=n, plan=plan,
+                             unsharded_s=base_s, sharded_s=wall)
+        print(f"{name} grid, {G} lanes ({n * per - G} padded) on GridMesh(cuda:0 x {n}): every "
+              f"lane bit for bit the unsharded grid's; last_data_plan {plan}; launches "
+              f"{ {k: v for k, v in launches[f'{name} sharded x{n}'].items() if v} } "
+              f"({n} lane groups); cold walls unsharded {base_s:.3f} s, sharded {wall:.3f} s "
+              f"[{card}]")
+        if name == "bench":
+            bench = base, want
+
+    phase("engine: the bench's 24-run grid over every visible card (make_grid_mesh())")
+    mesh = make_grid_mesh()
+    cards = len(mesh)
+    summary["cards"] = cards
+    print(f"make_grid_mesh(): {cards} card(s): {', '.join(str(d) for d in mesh)} [{card}]")
+    base, want = bench
+    wide = mesh if cards > 1 else GridMesh((c0, c0))
+    eng = ExperimentEngine(model, grid_fl(), "mnist", strategies=BENCH.strategies,
+                           aggregators=BENCH.aggregators, mesh=wide)
+    if cards < 2:
+        print("one card visible: the sharded grids ran on meshes of cuda:0 only")
+    else:
+        for d in mesh:
+            torch.cuda.reset_peak_memory_stats(d)
+        res, wall, launches[f"bench on {cards} cards"] = sharded_run(
+            eng, BENCH, (0,), dataclasses.replace(BENCH, groups=cards).batched_want(
+                "fedavg_reduce_grid"), f"bench grid on {cards} cards")
+        assert_grid_bitwise(res, want, f"bench grid on {cards} cards")
+        peaks = {str(d): torch.cuda.max_memory_allocated(d) / 2**30 for d in mesh}
+        summary["all_cards"] = dict(cold_s=wall, plan=eng.last_data_plan, peak_gib=peaks)
+        print(f"bench grid on {cards} cards: every lane bit for bit cuda:0's unsharded grid; "
+              f"last_data_plan {eng.last_data_plan}; cold wall {wall:.3f} s; peak memory "
+              f"{', '.join(f'{d} {g:.2f} GiB' for d, g in peaks.items())} [{card}]")
+        for d in mesh[1:]:
+            # B1g above 48 KB of shared memory a block (R = 32,768) on a card after cuda:0
+            scns, view, pos, speed, accel, t, forced = grid_lane_inputs(
+                ("ring", "ring"), 257, 0, 0.7, d, rsu_spacing_m=10_000.0 / 32768)
+            got = rttg_latency_grid(pos, speed, accel, t, 636_040.0, forced, view, predict=True)
+            for g, scn in enumerate(scns):
+                ref = rttg_latency_plain(pos[g], speed[g], accel[g], t[g], 636_040.0, forced[g],
+                                         scn, True)
+                if not (torch.equal(got[1][g], ref[1]) and torch.allclose(
+                        got[0][g], ref[0], rtol=1e-5, atol=1e-7)):
+                    raise AssertionError(f"B1g at R = 32,768 on {d} disagrees with its plain "
+                                         "version")
+            print(f"B1g at R = 32,768 (160 KB of shared memory a block) on {d}: within its "
+                  f"plain version's tolerance")
+        # a grid of several lane groups: each card's peak beside one card's
+        n = dense_max_n()
+        fl_w = grid_fl(num_clients=n, samples_per_client=32)
+        kw = dict(strategies=WIDE_GREEDY.strategies, aggregators=WIDE_GREEDY.aggregators)
+        G = len(WIDE_GREEDY.runs())
+        greedy = {}
+        for label, e in (("one card", ExperimentEngine(model, fl_w, "mnist", device=c0, **kw)),
+                         (f"{cards} cards", ExperimentEngine(model, fl_w, "mnist", mesh=mesh,
+                                                             **kw))):
+            per, size = -(-G // len(e.mesh)), e.lanes_per_group()
+            grid = dataclasses.replace(WIDE_GREEDY, groups=len(e.mesh) * -(-per // size))
+            torch.cuda.empty_cache()
+            held = {d: torch.cuda.memory_allocated(d) for d in mesh}
+            for d in mesh:
+                torch.cuda.reset_peak_memory_stats(d)
+            res, wall, launches[f"wide greedy {n} on {label}"] = sharded_run(
+                e, grid, (0,), grid.batched_want("fedavg_reduce_grid"), f"greedy grid, {label}")
+            peaks = {str(d): (torch.cuda.max_memory_allocated(d) - held[d]) / 2**30
+                     for d in e.mesh}
+            greedy[label] = dict(groups=grid.groups, lanes_per_group=size, cold_s=wall,
+                                 peak_gib=peaks)
+            print(f"greedy grid N={n}, {G} lanes in lane groups of {size}, on {label}: "
+                  f"{grid.groups} lane groups, cold wall {wall:.3f} s, peak memory above what "
+                  f"was held {', '.join(f'{d} {g:.2f} GiB' for d, g in peaks.items())} "
+                  f"[{card}]")
+            if label == "one card":
+                want_w = res
+            else:
+                assert_grid_bitwise(res, want_w, f"greedy grid on {cards} cards")
+            del e, res
+        summary["greedy"] = greedy
+        print(f"greedy grid on {cards} cards: every lane bit for bit cuda:0's [{card}]")
+        del want_w
+        torch.cuda.empty_cache()
+
+    phase(f"engine: the bench grid's warm sweep on one card against "
+          f"{'every card' if cards > 1 else 'GridMesh(cuda:0, cuda:0)'}, in turns")
+    walls = {"one card": [], "mesh": []}
+    for which in ("one card", "mesh", "mesh", "one card"):
+        e = base if which == "one card" else eng
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        e.run_grid(seeds=(0,), scenarios=BENCH.scenarios, rounds=BENCH.rounds,
+                   eval_every=BENCH.eval_every)
+        for d in set(wide):
+            torch.cuda.synchronize(d)
+        walls[which].append(time.perf_counter() - t0)
+    summary["warm_walls"] = walls
+    print(f"bench grid warm sweep (24 lanes x 5 rounds), turns one card, mesh, mesh, one card: "
+          f"one card {', '.join(f'{w:.3f}' for w in walls['one card'])} s, "
+          f"{len(wide)} shards on {len(set(wide))} card(s) "
+          f"{', '.join(f'{w:.3f}' for w in walls['mesh'])} s [{card}]")
+    print(json.dumps({"sharded_grids": summary}))
+    return launches
+
+
 # the CNN datasets' main path (phase 4i): launch_fl_sim.run_experiment's
 # defaults for CIFAR-10 and SVHN (N = 100, K = 10, 256 samples, batches of 64,
 # one local epoch, ("fedavg",), CR 1.0, fp32) for this many rounds
@@ -4405,11 +4671,12 @@ def main(argv=()) -> int:
               file=sys.stderr)
         return 1
     other = None
-    if argv:
+    sharded_only = list(argv) == ["--sharded"]
+    if argv and not sharded_only:
         if len(argv) not in (2, 3) or argv[0] != "--wrapper-times" or argv[2:] not in (
-                [], ["columns"]):
-            print("usage: python3 chip_smoke.py [--wrapper-times CHECKOUT [columns]]",
-                  file=sys.stderr)
+                [], ["columns"], ["main"]):
+            print("usage: python3 chip_smoke.py [--wrapper-times CHECKOUT [columns | main] | "
+                  "--sharded]", file=sys.stderr)
             return 2
         other = os.path.abspath(argv[1])
         sys.path.insert(0, os.path.join(other, "src"))  # before any repro_torch import
@@ -4448,9 +4715,19 @@ def main(argv=()) -> int:
             if b1g["spill_bytes"]:
                 raise AssertionError(f"ptxas spills {kernel}'s registers")
     kbuild.library()
+    if sharded_only:
+        sharded_phase(device, card)
+        print(card)
+        print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
+                                                 "count": count}}))
+        return 0
     if other is not None:
-        phase(f"wrapper times of {other}")
-        wrapper_times(device, card, rounds=argv[2:] != ["columns"])
+        if argv[2:] == ["main"]:
+            phase(f"main-path round and bench grid of {other}")
+            main_round_times(device, card)
+        else:
+            phase(f"wrapper times of {other}")
+            wrapper_times(device, card, rounds=argv[2:] != ["columns"])
         print(card)
         print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                                  "count": count}}))
@@ -5081,6 +5358,7 @@ def main(argv=()) -> int:
 
     # ---- 4h. the experiment engine ---------------------------------------------
     grid_launches = engine_phase(device, card)
+    grid_launches.update(sharded_phase(device, card))
 
     # ---- 4i. the CNN datasets ----------------------------------------------------
     path_launches = cnn_phase(fl, records, device, card)

@@ -1,4 +1,4 @@
-"""The experiment engine (``repro.fl.engine``): grids of experiments on one card.
+"""The experiment engine (``repro.fl.engine``): grids of experiments on one card or many.
 
 A grid is the product (strategy x aggregator x seed x scenario), in that
 order, as the reference forms it.  The reference runs it as one ``vmap`` of
@@ -58,11 +58,37 @@ Both run the same semantics:
     tensors, one op a field: nothing is read back to the host until
     ``GridResult.records`` or ``final_accuracy`` is called.
 
-Not ported: the reference's ``mesh`` / ``shard_map`` grid sharding
-(``grid_shards``, ``last_data_plan``, ``partition.shard_local_rows``), since
-one card has no mesh, and ``partition_on_device`` / ``init_on_device``,
-which choose between XLA placements: the port always builds state and data
-on the run's device.
+With a ``mesh`` (``launch.mesh.make_grid_mesh()``: a tuple of devices, one
+a shard) the grid's lanes are SHARDED over the mesh's devices, as the
+reference's ``shard_map`` over its ``("data",)`` mesh shards them
+(``grid_shards``):
+
+  * the runs are padded to a multiple of the shard count by repeating the
+    last run and cut into contiguous shards of ``(G + pad) / n`` lanes;
+  * each shard builds its lanes' states, ``ScenarioParams`` and
+    de-duplicated ``RoundData`` rows on its own device only (shard-local
+    rows: ``last_data_plan`` reports the placement, as
+    ``partition.shard_local_rows`` plans it for the reference), cuts its
+    lanes into lane groups by ``lanes_per_group()`` (so the budgets hold per
+    device) and sweeps them there, through the batched round or the lane
+    loop as the engine's path says;
+  * each shard's ``(per, rounds)`` metrics are gathered on the mesh's first
+    device in run order and the padded lanes dropped.
+
+A lane's arithmetic does not depend on its shard, so every lane is the
+unsharded grid's bit for bit.  Without a mesh the engine runs the same code
+on one shard, its own device.  The calling thread runs the shards in mesh
+order, each with its card current; every kernel wrapper launches on its
+operands' card (``kernels.on_card``).  One host thread issues every card's
+launches: torch drops and retakes the interpreter lock at every op, so one
+thread a card issued the same ops several times slower than one thread
+issuing them all.  A grid round issues about as many ops for 6 lanes as for
+24, so the mesh is slower than one card on every grid measured (PERF.md);
+and since lane groups already bound what a card holds, a grid of several
+lane groups peaks on every card of the mesh as on one card.  A worker
+process per card is what would divide the host time.  Not ported: ``partition_on_device`` / ``init_on_device``, which
+choose between XLA placements: the port always builds state and data on the
+shard's device.
 
 Usage:
 
@@ -76,6 +102,7 @@ Usage:
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import itertools
 from typing import Dict, List, Optional, Sequence, Tuple, Union
@@ -92,6 +119,7 @@ from repro_torch.core.scenarios import (
     stack_scenarios,
 )
 from repro_torch.fl.aggregators import AGGREGATOR_ORDER, validate_aggregators
+from repro_torch.fl.partition import shard_local_rows
 from repro_torch.fl.rounds import (
     RoundData,
     RoundMetrics,
@@ -112,7 +140,7 @@ from repro_torch.fl.rounds import (
     stack_states,
 )
 from repro_torch.models import build_model
-from repro_torch.utils.device import resolve_device
+from repro_torch.utils.device import GridMesh, resolve_device
 from repro_torch.utils.pytree import flat_size_of, tree_bytes
 
 ScenarioLike = Union[str, TrafficConfig]
@@ -154,6 +182,7 @@ class _Lanes:
     aggregator_idx: List[int]
     rows: List[RoundData]  # one per unique (strategy, seed, data_signature)
     row_idx: List[int]
+    device: torch.device
 
 
 @dataclasses.dataclass
@@ -169,6 +198,7 @@ class _GridLanes:
     rule_idx: torch.Tensor  # (G,) int32
     rows: RoundData  # (M, ...), one per unique (strategy, seed, data_signature)
     row_idx: torch.Tensor
+    device: torch.device
 
 
 @dataclasses.dataclass
@@ -221,6 +251,14 @@ class ExperimentEngine:
     module docstring), decided here from the config alone: the batched round
     for every engine of N <= ``messages.DENSE_MAX_N`` (4,096), in lane
     groups of ``lanes_per_group()``, the lane loop above.
+
+    ``mesh``: a ``GridMesh`` (``launch.mesh.make_grid_mesh()``) or a sequence
+    of devices; ``run_grid`` shards the grid's lanes over it (the module
+    docstring), and ``device`` defaults to the mesh's first device, where
+    the results are gathered.  Without one the mesh is ``(device,)``.  ``last_data_plan`` (after a sharded
+    ``run_grid``): the shard-local RoundData placement, ``{"total_rows",
+    "rows_per_shard", "n_shards"}``, the reference's for the same grid and
+    shard count; ``None`` unsharded and on a mesh of one.
     """
 
     def __init__(
@@ -232,9 +270,14 @@ class ExperimentEngine:
         num_clients: Optional[int] = None,
         aggregators: Sequence[str] = ("fedavg",),
         warmup: bool = True,
-        device="cuda",
+        device=None,
+        mesh=None,
     ):
+        if device is None:
+            device = "cuda" if mesh is None else GridMesh(mesh)[0]
         self.device = resolve_device(device)
+        self.mesh = GridMesh((self.device,) if mesh is None else mesh)
+        self.last_data_plan = None
         if num_clients is not None:
             fl_cfg = dataclasses.replace(fl_cfg, num_clients=num_clients)
         self.fl = fl_cfg
@@ -280,41 +323,45 @@ class ExperimentEngine:
         data = make_round_data(key, self.dataset, self.fl, regions, self.device)
         return state, data, scn, self.strategies.index(strategy)
 
-    def _lane_list(self, runs, warm: bool = True) -> _Lanes:
+    def _row_index(self, runs) -> List[int]:
+        """Each lane's data row among ``runs``: client shards depend on
+        (strategy, seed) and the spawn layout's signature, never on the
+        aggregator, so one row per unique (strategy, seed, data_signature),
+        numbered in order of first appearance."""
+        row_of = {}
+        return [row_of.setdefault((strategy, seed, data_signature(self._traffic_of(sc))),
+                                  len(row_of))
+                for strategy, _, seed, sc in runs]
+
+    def _lane_list(self, runs, warm: bool = True, device=None) -> _Lanes:
         """Every lane of ``runs`` initialized (and, with ``warm`` and the
-        engine's warm-up on, warmed up one lane at a time), as the lane loop
-        keeps them."""
-        dev, fl = self.device, self.fl
-        tcs = [self._traffic_of(run[3]) for run in runs]
-        scns = [scenario_params(tc, dev) for tc in tcs]
+        engine's warm-up on, warmed up one lane at a time) on ``device`` (the
+        engine's by default), as the lane loop keeps them."""
+        dev, fl = self.device if device is None else device, self.fl
+        scns = [scenario_params(self._traffic_of(run[3]), dev) for run in runs]
         stack_scenarios(scns)  # refuses lanes whose static fields differ
-        states, sidx, aidx = [], [], []
-        rows, row_of, row_idx = [], {}, []
-        for (strategy, aggregator, seed, _), tc, scn in zip(runs, tcs, scns):
+        row_idx = self._row_index(runs)
+        states, sidx, aidx, rows = [], [], [], []
+        for (strategy, aggregator, seed, _), scn, row in zip(runs, scns, row_idx):
             key = experiment_key(self.dataset, strategy, seed)
-            # client shards depend on (strategy, seed) and the spawn layout's
-            # signature, never on the aggregator: one row per unique triple,
-            # built from its first lane's scenario
-            triple = (strategy, seed, data_signature(tc))
-            if triple not in row_of:
-                row_of[triple] = len(rows)
+            if row == len(rows):  # the row's first lane builds it from its scenario
                 rows.append(make_round_data(key, self.dataset, fl, derive_regions(key, scn), dev))
-            row_idx.append(row_of[triple])
             state = init_state_for_key(self.api, fl, scn, key, dev)[0]
             if warm and self.warmup_enabled:
-                state = self._warmup(state, rows[row_idx[-1]])
+                state = self._warmup(state, rows[row])
             states.append(state)
             sidx.append(self.strategies.index(strategy))
             aidx.append(self.aggregators.index(aggregator))
-        return _Lanes(states, scns, sidx, aidx, rows, row_idx)
+        return _Lanes(states, scns, sidx, aidx, rows, row_idx, dev)
 
-    def _lanes(self, runs) -> Union[_Lanes, _GridLanes]:
-        """Every lane of ``runs`` initialized and warmed up, as this engine's
-        path keeps them (stacked for the batched round)."""
+    def _lanes(self, runs, device=None) -> Union[_Lanes, _GridLanes]:
+        """Every lane of ``runs`` initialized and warmed up on ``device`` (the
+        engine's by default), as this engine's path keeps them (stacked for
+        the batched round)."""
         if not self.batched:
-            return self._lane_list(runs)
-        lanes = self._lane_list(runs, warm=False)
-        dev = self.device
+            return self._lane_list(runs, device=device)
+        lanes = self._lane_list(runs, warm=False, device=device)
+        dev = lanes.device
         row_idx = torch.tensor(lanes.row_idx, device=dev)
         rows = stack_rows(lanes.rows)
         state = stack_states(lanes.states)
@@ -323,7 +370,13 @@ class ExperimentEngine:
         rules = [AGGREGATOR_ORDER.index(self.aggregators[a]) for a in lanes.aggregator_idx]
         return _GridLanes(state, lane_view(stack_scenarios(lanes.scns)),
                           torch.tensor(lanes.strategy_idx, device=dev),
-                          torch.tensor(rules, dtype=torch.int32, device=dev), rows, row_idx)
+                          torch.tensor(rules, dtype=torch.int32, device=dev), rows, row_idx,
+                          dev)
+
+    def grid_shards(self) -> int:
+        """How many shards ``run_grid`` cuts a grid into: the mesh's size (1
+        without a mesh)."""
+        return len(self.mesh)
 
     def lanes_per_group(self) -> int:
         """Lanes of one lane group on the batched path: as many as
@@ -362,7 +415,7 @@ class ExperimentEngine:
         device, nothing read back."""
         G = len(lanes.row_idx)
         metrics = RoundMetrics(*[
-            torch.empty((G, rounds), device=self.device,
+            torch.empty((G, rounds), device=lanes.device,
                         dtype=torch.int32 if f in _INT_METRICS else torch.float32)
             for f in RoundMetrics._fields])
         flags = zip(_eval_flags(rounds, eval_every),
@@ -402,11 +455,7 @@ class ExperimentEngine:
         runs = list(itertools.product(strategies, aggregators, seeds, scenarios))
         # refuse lanes whose static fields differ, whichever groups they fall in
         stack_scenarios([scenario_params(self._traffic_of(sc), self.device) for sc in scenarios])
-        # each group set up, swept and dropped before the next: one group's
-        # stack on the device at a time; the rows back in run order
-        parts = [self._sweep(self._lanes(group), rounds, eval_every)
-                 for group in self._groups(runs)]
-        metrics = RoundMetrics(*[torch.cat(xs) for xs in zip(*parts)])
+        metrics = self._run_sharded(runs, rounds, eval_every)
         scenarios = list(scenarios)
 
         def _label(sc):
@@ -415,6 +464,41 @@ class ExperimentEngine:
         labels = [(strategy, aggregator, seed, _label(sc))
                   for strategy, aggregator, seed, sc in runs]
         return GridResult(metrics=metrics, runs=labels)
+
+    def _sweep_groups(self, runs, rounds: int, eval_every: int, device) -> List[RoundMetrics]:
+        """``runs`` in lane groups on ``device``: each group set up, swept
+        and dropped before the next (one group's stack on the device at a
+        time); the groups' metrics in run order."""
+        return [self._sweep(self._lanes(group, device), rounds, eval_every)
+                for group in self._groups(runs)]
+
+    def _cat(self, parts: List[RoundMetrics]) -> RoundMetrics:
+        """Lane-group metrics joined in order on the engine's device."""
+        return RoundMetrics(*[torch.cat([x.to(self.device) for x in xs]) for xs in zip(*parts)])
+
+    def _run_sharded(self, runs, rounds: int, eval_every: int) -> RoundMetrics:
+        """``runs`` sharded over the mesh (the module docstring; without a
+        mesh, one shard on the engine's device): padded by repeating the last
+        run, cut into contiguous shards, each shard's lane groups swept on its
+        device, the shards in mesh order; the metrics gathered on the
+        engine's device in run order, padding dropped.  Sets
+        ``last_data_plan`` (None on one shard)."""
+        n, G = len(self.mesh), len(runs)
+        padded = runs + runs[-1:] * (-G % n)
+        per = len(padded) // n
+        self.last_data_plan = None
+        if n > 1:
+            row_idx = self._row_index(padded)
+            shard_rows, _ = shard_local_rows(row_idx, n)
+            self.last_data_plan = {"total_rows": max(row_idx) + 1,
+                                   "rows_per_shard": int(shard_rows.shape[1]), "n_shards": n}
+        parts = []
+        for s, dev in enumerate(self.mesh):
+            with torch.cuda.device(dev) if dev.type == "cuda" else contextlib.nullcontext():
+                parts += self._sweep_groups(padded[s * per:(s + 1) * per], rounds, eval_every,
+                                            dev)
+        metrics = self._cat(parts)
+        return RoundMetrics(*[x[:G] for x in metrics])
 
     def run_single(
         self,

@@ -9,6 +9,7 @@ prototypes are shared across clients; sample noise is per client.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from repro_torch.config import FLConfig
@@ -84,6 +85,38 @@ def partition_clients(key, dataset: str, cfg: FLConfig, regions=None, device="cp
     """(images (C, n, H, W, ch), labels (C, n)) for all C clients."""
     labels = partition_labels(key, dataset, cfg, regions, device)
     return client_images(key, dataset, labels), labels
+
+
+def shard_local_rows(data_idx, n_shards: int):
+    """Plan shard-local RoundData placement for a sharded grid.
+
+    ``data_idx``: (G,) global de-duplicated row index per grid lane, G a
+    multiple of ``n_shards`` (the engine pads first); lanes go to shards in
+    contiguous runs.  Returns
+
+      * ``shard_rows`` (n_shards, M) int32: the global rows each shard
+        builds, M the most unique rows any shard's lanes read (a shard that
+        reads fewer repeats its first row);
+      * ``local_idx`` (G,) int32: each lane's row as an index into its
+        shard's M rows.
+
+    Host-side numpy, known when the grid is built; equal to the reference's
+    ``repro.fl.partition.shard_local_rows``.
+    """
+    didx = np.asarray(data_idx, np.int32)
+    G = didx.shape[0]
+    if G % n_shards:
+        raise ValueError(f"shard_local_rows: {G} lanes do not split into {n_shards} shards")
+    per = G // n_shards
+    locals_ = [list(dict.fromkeys(didx[s * per:(s + 1) * per].tolist()))
+               for s in range(n_shards)]
+    M = max(len(r) for r in locals_)
+    shard_rows = np.stack([np.asarray(r + [r[0]] * (M - len(r)), np.int32) for r in locals_])
+    local_idx = np.empty((G,), np.int32)
+    for s, rows in enumerate(locals_):
+        pos = {g: i for i, g in enumerate(rows)}
+        local_idx[s * per:(s + 1) * per] = [pos[g] for g in didx[s * per:(s + 1) * per].tolist()]
+    return shard_rows, local_idx
 
 
 def make_test_set(key, dataset: str, n_test: int = 2_000, device="cpu"):

@@ -15,7 +15,17 @@ differentiable torch on any device; the one training path that meets a
 kernel's function, the ``ssm`` / ``hybrid`` families' scan, calls
 ``ssd_scan.ssd_scan_plain`` itself under grad mode (``models/ssm.py``), as
 the reference's models train through its plain scan.
+
+The wrappers launch on any card, from any host thread: each makes its
+operand's card current around the C entry call (``on_card``: a CUDA launch
+goes to the calling thread's current device, whatever card its operands
+are on), keys its per-device caches on indexed devices (``indexed``:
+``cuda`` is ``cuda:<current>``), and counts its launches under a lock
+(``count_launch``), so that host threads launching at once lose no count.
 """
+import sys
+import threading
+
 import torch
 
 __all__ = ("rttg_latency", "fedavg_reduce", "server_update", "rsu_reduce", "swa_decode",
@@ -32,3 +42,30 @@ def refuse_grad(name: str, *operands, use: str = "") -> None:
         raise RuntimeError(
             f"{name}: the CUDA kernel has no backward, and an operand requires grad with "
             f"grad mode on; run it under torch.no_grad() or detach the operands{todo}")
+
+
+def on_card(x: torch.Tensor) -> torch.cuda.device:
+    """A context that makes ``x``'s card the calling thread's current device,
+    around a C entry call: the launch goes to the current device, the stream
+    the wrapper passes is ``x``'s card's."""
+    return torch.cuda.device(x.device)
+
+
+def indexed(device) -> torch.device:
+    """``device`` with its card's index (``cuda`` -> ``cuda:<current>``), so
+    that a per-device cache holds one entry a card."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return device
+
+
+_COUNT_LOCK = threading.Lock()
+
+
+def count_launch(module: str, counter: str = "launches") -> None:
+    """Add one to ``module``'s launch counter ``counter``.  Under a lock:
+    ``+= 1`` on a module global is not atomic across host threads."""
+    mod = sys.modules[module]
+    with _COUNT_LOCK:
+        setattr(mod, counter, getattr(mod, counter) + 1)

@@ -2,11 +2,14 @@
 
 Each source under ``csrc/`` has a plain C entry point that takes device
 pointers and a CUDA stream, launches on that stream, allocates nothing and
-returns ``cudaGetLastError()``.  The sources are compiled for ``sm_90a`` at
-first use, one ``nvcc`` per source started together, and linked into
-``build/kernels/libkernels-<hash>.so`` at the repository root; the hash covers
-the sources and the flags, so an edited source rebuilds.  Nothing here runs
-at import time.
+returns ``cudaGetLastError()``; it launches on the calling thread's current
+device, which the wrappers set to their operands' card (``kernels.on_card``).
+The sources are compiled for ``sm_90a`` at first use, one ``nvcc`` per source
+started together, and linked into ``build/kernels/libkernels-<hash>.so`` at
+the repository root; the hash covers the sources, the headers they include and
+the flags, so an edited source rebuilds.  ``build`` and ``library`` hold a
+lock, so host threads that meet the library first at once build it once.
+Nothing here runs at import time.
 """
 from __future__ import annotations
 
@@ -17,11 +20,13 @@ import os
 import shutil
 import subprocess
 import tempfile
+import threading
 import time
 from pathlib import Path
 
 SOURCES = ("rttg_latency.cu", "fedavg_reduce.cu", "server_update.cu", "rsu_reduce.cu",
            "swa_decode.cu", "ssd_scan.cu", "pairwise_cosine.cu")
+HEADERS = ("grants.cuh",)  # included by the sources: hashed with them
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 # --fmad=false: every multiply and add rounds on its own, as the plain
@@ -61,7 +66,8 @@ class BuildInfo:
 
 _LIBRARY = None
 _INFO = None
-_COUNTERS = {}
+_COUNTERS = {}  # (name, indexed device) -> int32 buffer
+_LOCK = threading.Lock()  # around the build and the load
 
 
 def _nvcc() -> str:
@@ -74,13 +80,18 @@ def _nvcc() -> str:
 
 def _digest() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
+    for name in SOURCES + HEADERS:
         h.update((CSRC / name).read_bytes())
     return h.hexdigest()[:16]
 
 
 def build(force: bool = False) -> BuildInfo:
     """Compile the sources in parallel and link the library; return what it cost."""
+    with _LOCK:
+        return _build(force)
+
+
+def _build(force: bool) -> BuildInfo:
     global _INFO
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     lib = BUILD_DIR / f"libkernels-{_digest()}.so"
@@ -129,30 +140,40 @@ def _compile_and_link(nvcc: str, obj_dir: Path, lib: Path) -> str:
 def library() -> ctypes.CDLL:
     """The loaded kernel library, built on first use."""
     global _LIBRARY
-    if _LIBRARY is None:
-        info = _INFO or build()
-        lib = ctypes.CDLL(str(info.path))
-        for name, argtypes in _SIGNATURES.items():
-            fn = getattr(lib, name)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
-        _LIBRARY = lib
+    if _LIBRARY is not None:
+        return _LIBRARY
+    with _LOCK:
+        if _LIBRARY is None:
+            info = _INFO or _build(False)
+            lib = ctypes.CDLL(str(info.path))
+            for name, argtypes in _SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            _LIBRARY = lib
     return _LIBRARY
 
 
 def counters(device, name: str, n: int):
-    """``name``'s counters on ``device``: at least ``n`` int32 zeros.
+    """``name``'s counters on ``device``'s card: at least ``n`` int32 zeros.
 
-    The kernels that finish a reduction in the last block to arrive count
-    blocks in on these, and ``ssd_scan`` draws tickets and chains its chunks
-    on them; each resets every count it raised to 0 before it exits, so the
-    buffer is zeroed once per device (and again only when a call needs more
-    counters than it holds), not per call.  Calls on one stream run in
-    order, so they never share a count.
+    One buffer a name a card: ``cuda`` is the current card, keyed as
+    ``cuda:<index>`` (``kernels.indexed``).  The kernels that finish a
+    reduction in the last block to arrive count blocks in on these, and
+    ``ssd_scan`` draws tickets and chains its chunks on them; each resets
+    every count it raised to 0 before it exits, so a card's buffer is zeroed
+    once (and again only when a call needs more counters than it holds), not
+    per call.  Calls on one stream run in order, whichever host thread
+    issued them, so they never share a count; a card's buffer must not serve
+    two streams at once (every wrapper launches on its card's current stream,
+    the default one unless the caller sets another).
     """
     import torch
 
-    key = (name, torch.device(device))
+    from repro_torch.kernels import indexed
+
+    device = indexed(device)
+    key = (name, device)
     buf = _COUNTERS.get(key)
     if buf is None or buf.numel() < n:
         buf = torch.zeros((max(n, 1024),), dtype=torch.int32, device=device)

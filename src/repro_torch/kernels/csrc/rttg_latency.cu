@@ -101,6 +101,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "grants.cuh"
+
 // Layout of the scenario operand (kernels/rttg_latency.py SCENARIO_SCALARS):
 // S_COUNT float32 scalars, then the R uint8 live flags.
 enum {
@@ -492,18 +494,11 @@ extern "C" __global__ void __launch_bounds__(ONE_BLOCK_MAX, 1) rttg_latency_grid
 
 static int shared_bytes(int n_rsu) { return n_rsu * (int)(sizeof(int) + sizeof(uint8_t)); }
 
-// Above 48 KB a block's dynamic shared memory must be opted into (per kernel).
-static cudaError_t grant_for(const void* kernel, int* granted, int smem) {
-  if (smem <= *granted) return cudaSuccess;
-  const cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err == cudaSuccess) *granted = smem;
-  return err;
-}
-
+// Above 48 KB a block's dynamic shared memory must be opted into, per kernel
+// and per device (grants.cuh).
 static cudaError_t grant(int smem) {
-  static int granted = 48 * 1024;
-  return grant_for((const void*)rttg_latency_kernel, &granted, smem);
+  static Grants granted;
+  return grant_on_device((const void*)rttg_latency_kernel, granted, smem);
 }
 
 // Blocks of the launch plan for n clients on the current device: 1 up to
@@ -559,10 +554,11 @@ extern "C" int rttg_latency_launch(
 }
 
 static cudaError_t grant_grid(int smem) {
-  static int granted = 48 * 1024, granted_tiles = 48 * 1024;
-  const cudaError_t err = grant_for((const void*)rttg_latency_grid_kernel, &granted, smem);
+  static Grants granted, granted_tiles;
+  const cudaError_t err =
+      grant_on_device((const void*)rttg_latency_grid_kernel, granted, smem);
   if (err != cudaSuccess) return err;
-  return grant_for((const void*)rttg_latency_grid_tiles_kernel, &granted_tiles, smem);
+  return grant_on_device((const void*)rttg_latency_grid_tiles_kernel, granted_tiles, smem);
 }
 
 // B1g's launch plan inputs on the current device: its SM count and the

@@ -52,6 +52,8 @@
 
 #include <type_traits>
 
+#include "grants.cuh"
+
 #define THREADS 128
 #define WARPS (THREADS / 32)
 #define YT 8     // n-tiles of 8 columns of hp in one unit of the y product
@@ -542,14 +544,11 @@ static int launch_typed(int smem, cudaStream_t st, const void* xh, const float* 
                         const float* A, const void* Bs, const void* Cs, const float* h0,
                         int batch, int seq, int nh, int hp, int ds, int Q, bool vec_x,
                         bool vec_bc, float* y, float* hout, int* counters) {
-  // above 48 KB a block's dynamic shared memory must be opted into
-  static int granted = 48 * 1024;
-  if (smem > granted) {
-    cudaError_t err = cudaFuncSetAttribute(
-        ssd_scan_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return (int)err;
-    granted = smem;
-  }
+  // above 48 KB a block's dynamic shared memory must be opted into, per
+  // device (grants.cuh); one Grants an element type, as one kernel each
+  static Grants granted;
+  const cudaError_t err = grant_on_device((const void*)ssd_scan_kernel<T>, granted, smem);
+  if (err != cudaSuccess) return (int)err;
   const unsigned blocks = (unsigned)((long long)batch * nh * ((seq + Q - 1) / Q));
   ssd_scan_kernel<T><<<blocks, THREADS, smem, st>>>(
       static_cast<const T*>(xh), dt, A, static_cast<const T*>(Bs), static_cast<const T*>(Cs),

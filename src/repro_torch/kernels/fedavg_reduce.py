@@ -20,7 +20,7 @@ from typing import NamedTuple
 
 import torch
 
-from repro_torch.kernels import refuse_grad
+from repro_torch.kernels import count_launch, indexed, on_card, refuse_grad
 
 # Kernel launches made by ``fedavg_reduce`` (one per call on CUDA tensors).
 launches = 0
@@ -92,11 +92,11 @@ def column_plan(lanes: int, P: int, vec: int, item: int, sms: int) -> ColumnPlan
     return ColumnPlan(vec, runs, column_tiles(P, vec, runs))
 
 
-_SMS = {}  # device -> SMs
+_SMS = {}  # indexed device -> SMs
 
 
 def sm_count(device) -> int:
-    device = torch.device(device)
+    device = indexed(device)
     hit = _SMS.get(device)
     if hit is None:
         hit = _SMS[device] = torch.cuda.get_device_properties(device).multi_processor_count
@@ -115,15 +115,15 @@ def _launch(name: str, updates: torch.Tensor, weights: torch.Tensor, lanes: int,
     from repro_torch.kernels.build import check, library
 
     plan = launch_plan(updates.device, lanes, P, updates, out)
-    stream = torch.cuda.current_stream(updates.device).cuda_stream
-    check(library().fedavg_reduce_launch(updates.data_ptr(), updates.element_size(),
-                                         weights.data_ptr(), lanes, K, P, plan.vec, plan.runs,
-                                         out.data_ptr(), stream), name)
+    with on_card(updates):
+        stream = torch.cuda.current_stream(updates.device).cuda_stream
+        check(library().fedavg_reduce_launch(updates.data_ptr(), updates.element_size(),
+                                             weights.data_ptr(), lanes, K, P, plan.vec,
+                                             plan.runs, out.data_ptr(), stream), name)
 
 
 def _fedavg_reduce_cuda(updates: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
     refuse_grad("fedavg_reduce", updates, weights)
-    global launches
     if updates.dtype not in ROW_DTYPES or updates.dim() != 2 or not updates.is_contiguous():
         raise ValueError(f"fedavg_reduce: updates must be a contiguous (K, P) float32 or "
                          f"bfloat16 tensor, got {updates.dtype} {tuple(updates.shape)}")
@@ -136,7 +136,7 @@ def _fedavg_reduce_cuda(updates: torch.Tensor, weights: torch.Tensor) -> torch.T
         raise ValueError("fedavg_reduce: the cohort must have at least one row")
     out = torch.empty((P,), dtype=torch.float32, device=updates.device)
     _launch("fedavg_reduce", updates, weights, 1, K, P, out)
-    launches += 1
+    count_launch(__name__)
     return out
 
 
@@ -163,7 +163,6 @@ def fedavg_reduce_grid_plain(updates: torch.Tensor, weights: torch.Tensor) -> to
 
 def _fedavg_reduce_grid_cuda(updates: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
     refuse_grad("fedavg_reduce_grid", updates, weights)
-    global grid_launches
     if updates.dtype not in ROW_DTYPES or updates.dim() != 3 or not updates.is_contiguous():
         raise ValueError(f"fedavg_reduce_grid: updates must be a contiguous (G, K, P) float32 "
                          f"or bfloat16 tensor, got {updates.dtype} {tuple(updates.shape)}")
@@ -177,7 +176,7 @@ def _fedavg_reduce_grid_cuda(updates: torch.Tensor, weights: torch.Tensor) -> to
                          f"got G={G}, K={K}")
     out = torch.empty((G, P), dtype=torch.float32, device=updates.device)
     _launch("fedavg_reduce_grid", updates, weights, G, K, P, out)
-    grid_launches += 1
+    count_launch(__name__, "grid_launches")
     return out
 
 

@@ -17,7 +17,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import refuse_grad
+from repro_torch.kernels import count_launch, on_card, refuse_grad
 
 # Kernel launches made by ``gram_nt`` (one per call on CUDA tensors).
 launches = 0
@@ -64,7 +64,6 @@ def _gram_nt_cuda(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     from repro_torch.kernels.build import check, counters, library
 
     refuse_grad("pairwise_cosine", x, y)
-    global launches
     if x.dim() != 2 or y.dim() != 2 or x.shape[1] != y.shape[1]:
         raise ValueError(f"gram_nt: need x (N, D) and y (M, D), got {tuple(x.shape)} "
                          f"and {tuple(y.shape)}")
@@ -84,13 +83,14 @@ def _gram_nt_cuda(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
                               device=x.device)
         arrivals = counters(x.device, "gram_nt", tiles)
     aligned = D % 4 == 0 and x.data_ptr() % 16 == 0 and y.data_ptr() % 16 == 0
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    status = library().gram_nt_launch(
-        x.data_ptr(), y.data_ptr(), N, M, D, int(symmetric), tm, splits, 4 if aligned else 1,
-        out.data_ptr(), None if scratch is None else scratch.data_ptr(),
-        None if arrivals is None else arrivals.data_ptr(), stream)
+    with on_card(x):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        status = library().gram_nt_launch(
+            x.data_ptr(), y.data_ptr(), N, M, D, int(symmetric), tm, splits,
+            4 if aligned else 1, out.data_ptr(), None if scratch is None else scratch.data_ptr(),
+            None if arrivals is None else arrivals.data_ptr(), stream)
     check(status, "gram_nt")
-    launches += 1
+    count_launch(__name__)
     return out
 
 

@@ -27,7 +27,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import refuse_grad
+from repro_torch.kernels import count_launch, on_card, refuse_grad
 from repro_torch.kernels.fedavg_reduce import _vector_width
 
 # Kernel launches made by ``rsu_reduce`` (one per call on CUDA tensors).
@@ -115,12 +115,13 @@ def _launch(name, updates, weights, rid, n_rsu, carry, out_dtype, lanes):
                                     lanes)
     G = updates.shape[0] if lanes else 1
     K, P = updates.shape[lanes:]
-    stream = torch.cuda.current_stream(updates.device).cuda_stream
-    status = library().rsu_reduce_launch(
-        updates.data_ptr(), updates.element_size(), weights.data_ptr(), rid.data_ptr(), G, K,
-        n_rsu, P, vec, None if carry is None else carry.data_ptr(), out.data_ptr(),
-        out.element_size(), mass.data_ptr(), stream,
-    )
+    with on_card(updates):
+        stream = torch.cuda.current_stream(updates.device).cuda_stream
+        status = library().rsu_reduce_launch(
+            updates.data_ptr(), updates.element_size(), weights.data_ptr(), rid.data_ptr(), G,
+            K, n_rsu, P, vec, None if carry is None else carry.data_ptr(), out.data_ptr(),
+            out.element_size(), mass.data_ptr(), stream,
+        )
     check(status, name)
     return out, mass
 
@@ -132,10 +133,9 @@ def rsu_reduce(updates: torch.Tensor, weights: torch.Tensor, rid: torch.Tensor,
     ``rid`` is int32 on the card.  With ``carry`` (R, P, in ``out_dtype``)
     the partials are ``carry`` itself, updated in place.
     """
-    global launches
     if updates.is_cuda:
         out = _launch("rsu_reduce", updates, weights, rid, n_rsu, carry, out_dtype, 0)
-        launches += 1
+        count_launch(__name__)
         return out
     if updates.device.type != "cpu":
         raise ValueError(f"rsu_reduce: unsupported device {updates.device}")
@@ -164,10 +164,9 @@ def rsu_reduce_grid(updates: torch.Tensor, weights: torch.Tensor, rid: torch.Ten
     ``carry`` itself, updated in place.  CUDA tensors go to the kernel (one
     launch), CPU tensors to ``rsu_reduce_grid_plain``.
     """
-    global grid_launches
     if updates.is_cuda:
         out = _launch("rsu_reduce_grid", updates, weights, rid, n_rsu, carry, out_dtype, 1)
-        grid_launches += 1
+        count_launch(__name__, "grid_launches")
         return out
     if updates.device.type != "cpu":
         raise ValueError(f"rsu_reduce_grid: unsupported device {updates.device}")

@@ -37,7 +37,7 @@ from repro_torch.core.network import (
 )
 from repro_torch.core.rttg import n_rsu_of, rsu_geometry, rsu_up_mask
 from repro_torch.core.trajectory import horizon_steps, predict_kinematics
-from repro_torch.kernels import refuse_grad
+from repro_torch.kernels import count_launch, indexed, on_card, refuse_grad
 
 # The float32 scalars of the scenario operand, in the order of the .cu
 # source's S_* enum; the R uint8 live flags follow them.
@@ -71,6 +71,7 @@ launches = 0
 # Kernel launches made by ``rttg_latency_grid`` (one per call on CUDA tensors).
 grid_launches = 0
 
+# Per-device caches, keyed on indexed devices (``kernels.indexed``).
 _OPERANDS = {}  # (id(cfg), device, grid) -> (weakref to cfg, scenario operand)
 _BLOCKS = {}  # (device, N, R) -> blocks of the kernel's launch plan
 _RESIDENT = {}  # (device, R) -> (SMs, resident GRID_TILE_THREADS-thread B1g blocks an SM)
@@ -115,7 +116,7 @@ def grid_operand(cfg, device) -> torch.Tensor:
 
 
 def _operand(cfg, device, grid: bool) -> torch.Tensor:
-    device = torch.device(device)
+    device = indexed(device)
     key = (id(cfg), device, grid)
     hit = _OPERANDS.get(key)
     if hit is not None and hit[0]() is cfg:
@@ -136,6 +137,7 @@ def launch_blocks(lib, device, n: int, n_rsu: int) -> int:
     """Blocks of the kernel's launch plan (1 up to 1,024 clients), per shape."""
     from repro_torch.kernels.build import check
 
+    device = indexed(device)
     key = (device, n, n_rsu)
     blocks = _BLOCKS.get(key)
     if blocks is None:
@@ -167,7 +169,6 @@ def _rttg_latency_cuda(pos, speed, accel, t, model_bytes, forced, cfg, predict,
     from repro_torch.kernels.build import check, counters, library
 
     refuse_grad("rttg_latency", pos, speed, accel, t, model_bytes)
-    global launches
     device = pos.device
     n = pos.shape[0]
     n_rsu = n_rsu_of(cfg)
@@ -192,15 +193,16 @@ def _rttg_latency_cuda(pos, speed, accel, t, model_bytes, forced, cfg, predict,
     conn = torch.empty((n,), dtype=torch.bool, device=device)
     rid = torch.empty((n,), dtype=torch.int32, device=device) if want_rid else None
     ptr = lambda x: None if x is None else x.data_ptr()  # noqa: E731
-    stream = torch.cuda.current_stream(device).cuda_stream
-    status = lib.rttg_latency_launch(
-        operand.data_ptr(), n_rsu, t.data_ptr(), model_bytes.data_ptr(), pos.data_ptr(),
-        speed.data_ptr(), accel.data_ptr(), ptr(forced), n, n_steps,
-        float(cfg.sim_dt_s), horizon_s, blocks, ptr(counts), ptr(spill), lat.data_ptr(),
-        conn.data_ptr(), ptr(rid), stream,
-    )
+    with on_card(pos):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        status = lib.rttg_latency_launch(
+            operand.data_ptr(), n_rsu, t.data_ptr(), model_bytes.data_ptr(), pos.data_ptr(),
+            speed.data_ptr(), accel.data_ptr(), ptr(forced), n, n_steps,
+            float(cfg.sim_dt_s), horizon_s, blocks, ptr(counts), ptr(spill), lat.data_ptr(),
+            conn.data_ptr(), ptr(rid), stream,
+        )
     check(status, "rttg_latency")
-    launches += 1
+    count_launch(__name__)
     if want_rid:
         return lat, conn, rid
     return lat, conn
@@ -275,6 +277,7 @@ def grid_resident(lib, device, n_rsu: int) -> tuple:
     ``device`` at R = ``n_rsu``, from the C side once per (device, R)."""
     from repro_torch.kernels.build import check
 
+    device = indexed(device)
     key = (device, n_rsu)
     hit = _RESIDENT.get(key)
     if hit is None:
@@ -297,7 +300,6 @@ def _rttg_latency_grid_cuda(pos, speed, accel, t, model_bytes, forced, cfg, pred
     from repro_torch.kernels.build import check, counters, library
 
     refuse_grad("rttg_latency_grid", pos, speed, accel, t, model_bytes)
-    global grid_launches
     device = pos.device
     if pos.dim() != 2:
         raise ValueError(f"rttg_latency_grid: pos must be (G, N), got {tuple(pos.shape)}")
@@ -332,14 +334,16 @@ def _rttg_latency_grid_cuda(pos, speed, accel, t, model_bytes, forced, cfg, pred
     conn = torch.empty((G, n), dtype=torch.bool, device=device)
     rid = torch.empty((G, n), dtype=torch.int32, device=device) if want_rid else None
     ptr = lambda x: None if x is None else x.data_ptr()  # noqa: E731
-    status = lib.rttg_latency_grid_launch(
-        operand.data_ptr(), operand.shape[1], n_rsu, G, t.data_ptr(), model_bytes.data_ptr(),
-        pos.data_ptr(), speed.data_ptr(), accel.data_ptr(), ptr(forced), n, n_steps,
-        float(cfg.sim_dt_s), horizon_s, tiles, threads, ptr(counts), lat.data_ptr(),
-        conn.data_ptr(), ptr(rid), torch.cuda.current_stream(device).cuda_stream,
-    )
+    with on_card(pos):
+        status = lib.rttg_latency_grid_launch(
+            operand.data_ptr(), operand.shape[1], n_rsu, G, t.data_ptr(),
+            model_bytes.data_ptr(), pos.data_ptr(), speed.data_ptr(), accel.data_ptr(),
+            ptr(forced), n, n_steps, float(cfg.sim_dt_s), horizon_s, tiles, threads,
+            ptr(counts), lat.data_ptr(), conn.data_ptr(), ptr(rid),
+            torch.cuda.current_stream(device).cuda_stream,
+        )
     check(status, "rttg_latency_grid")
-    grid_launches += 1
+    count_launch(__name__, "grid_launches")
     if want_rid:
         return lat, conn, rid
     return lat, conn

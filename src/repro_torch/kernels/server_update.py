@@ -28,7 +28,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.fl.aggregators import AGGREGATOR_ORDER, ServerHP, apply_rule
-from repro_torch.kernels import refuse_grad
+from repro_torch.kernels import count_launch, on_card, refuse_grad
 from repro_torch.kernels.fedavg_reduce import (MAX_LANES, ROW_DTYPES, ColumnPlan,
                                                _vector_width, column_plan, fedavg_reduce_plain,
                                                sm_count)
@@ -141,14 +141,15 @@ def _launch(updates, weights, buf, buf_w, drain, params, m, v, agg_idx, rnd,
         m_out, v_out = m, v
     mv = [x.data_ptr() if moments else None for x in (m, v, m_out, v_out)]
     plan = launch_plan(device, 1, P, updates, operands)
-    stream = torch.cuda.current_stream(device).cuda_stream
-    # (1 - beta) in double, rounded to float once, as the reference's Python floats
-    status = library().server_update_launch(
-        updates.data_ptr(), updates.element_size(), weights.data_ptr(), 1, K, ring, ring_w, Kb,
-        flag, P, params.data_ptr(), params.element_size(), mv[0], mv[1], None, int(agg_idx),
-        int(rnd), eta, beta1, 1.0 - beta1, beta2, 1.0 - beta2, tau, plan.vec, plan.runs,
-        p_out.data_ptr(), mv[2], mv[3], stream,
-    )
+    with on_card(updates):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        # (1 - beta) in double, rounded to float once, as the reference's Python floats
+        status = library().server_update_launch(
+            updates.data_ptr(), updates.element_size(), weights.data_ptr(), 1, K, ring, ring_w,
+            Kb, flag, P, params.data_ptr(), params.element_size(), mv[0], mv[1], None,
+            int(agg_idx), int(rnd), eta, beta1, 1.0 - beta1, beta2, 1.0 - beta2, tau, plan.vec,
+            plan.runs, p_out.data_ptr(), mv[2], mv[3], stream,
+        )
     check(status, "server_update")
     return p_out, m_out, v_out
 
@@ -168,13 +169,12 @@ def server_update(updates, weights, params, m, v, agg_idx, rnd, *,
     ``agg_idx`` is the GLOBAL ``AGGREGATOR_ORDER`` index (a Python int);
     ``rnd`` is reserved for schedule-aware rules and ignored.
     """
-    global launches
     if _device_of(updates) == "cpu":
         return server_update_plain(updates, weights, params, m, v, agg_idx, rnd,
                                    eta=eta, beta1=beta1, beta2=beta2, tau=tau)
     out = _launch(updates, weights, None, None, None, params, m, v, agg_idx, rnd,
                   eta, beta1, beta2, tau)
-    launches += 1
+    count_launch(__name__)
     return out
 
 
@@ -186,14 +186,13 @@ def server_update_buffered(updates, weights, buf, buf_w, params, m, v, agg_idx, 
     ``drain`` a 0-dim bool tensor on the rows' device (never read back to
     the host).  With ``drain`` false the result equals ``server_update``.
     """
-    global buffered_launches
     if _device_of(updates) == "cpu":
         return server_update_buffered_plain(
             updates, weights, buf, buf_w, params, m, v, agg_idx, rnd, drain,
             eta=eta, beta1=beta1, beta2=beta2, tau=tau)
     out = _launch(updates, weights, buf, buf_w, drain, params, m, v, agg_idx, rnd,
                   eta, beta1, beta2, tau)
-    buffered_launches += 1
+    count_launch(__name__, "buffered_launches")
     return out
 
 
@@ -304,14 +303,15 @@ def _launch_grid(updates, weights, buf, buf_w, drain, params, m, v, rule_idx, rn
         m_out, v_out = m, v
     mv = [x.data_ptr() if moments else None for x in (m, v, m_out, v_out)]
     plan = launch_plan(device, G, P, updates, operands)
-    stream = torch.cuda.current_stream(device).cuda_stream
-    # (1 - beta) in double, rounded to float once, as the one-lane launch
-    status = library().server_update_launch(
-        updates.data_ptr(), updates.element_size(), weights.data_ptr(), G, K, ring, ring_w, Kb,
-        flag, P, params.data_ptr(), params.element_size(), mv[0], mv[1], rule_idx.data_ptr(), 0,
-        int(rnd), eta, beta1, 1.0 - beta1, beta2, 1.0 - beta2, tau, plan.vec, plan.runs,
-        p_out.data_ptr(), mv[2], mv[3], stream,
-    )
+    with on_card(updates):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        # (1 - beta) in double, rounded to float once, as the one-lane launch
+        status = library().server_update_launch(
+            updates.data_ptr(), updates.element_size(), weights.data_ptr(), G, K, ring, ring_w,
+            Kb, flag, P, params.data_ptr(), params.element_size(), mv[0], mv[1],
+            rule_idx.data_ptr(), 0, int(rnd), eta, beta1, 1.0 - beta1, beta2, 1.0 - beta2, tau,
+            plan.vec, plan.runs, p_out.data_ptr(), mv[2], mv[3], stream,
+        )
     check(status, "server_update_grid")
     return p_out, m_out, v_out
 
@@ -327,14 +327,13 @@ def server_update_grid(updates, weights, params, m, v, rule_idx, rnd, *, registr
     global indices any lane may hold; without a moment rule among them the
     moments come back as given, unread).  ``rnd`` is ignored.
     """
-    global grid_launches
     if _device_of(updates) == "cpu":
         return server_update_grid_plain(updates, weights, params, m, v, rule_idx, rnd,
                                         registry=registry, eta=eta, beta1=beta1, beta2=beta2,
                                         tau=tau)
     out = _launch_grid(updates, weights, None, None, None, params, m, v, rule_idx, rnd,
                        registry, eta, beta1, beta2, tau)
-    grid_launches += 1
+    count_launch(__name__, "grid_launches")
     return out
 
 
@@ -345,12 +344,11 @@ def server_update_buffered_grid(updates, weights, buf, buf_w, params, m, v, rule
     (G, Kb, P) in the rows' dtype, ``buf_w`` (G, Kb) and ``drain`` a (G,)
     bool tensor on the rows' device (never read back to the host).  A lane
     whose ``drain`` is false is ``server_update_grid``'s on that lane."""
-    global buffered_grid_launches
     if _device_of(updates) == "cpu":
         return server_update_buffered_grid_plain(
             updates, weights, buf, buf_w, params, m, v, rule_idx, rnd, drain,
             registry=registry, eta=eta, beta1=beta1, beta2=beta2, tau=tau)
     out = _launch_grid(updates, weights, buf, buf_w, drain, params, m, v, rule_idx, rnd,
                        registry, eta, beta1, beta2, tau)
-    buffered_grid_launches += 1
+    count_launch(__name__, "buffered_grid_launches")
     return out

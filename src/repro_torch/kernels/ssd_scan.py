@@ -25,7 +25,7 @@ import math
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.kernels import refuse_grad
+from repro_torch.kernels import count_launch, on_card, refuse_grad
 
 # Kernel launches made by ``ssd_scan`` (one per call on CUDA tensors).
 launches = 0
@@ -137,7 +137,6 @@ def _ssd_scan_cuda(xh, dt, A, Bs, Cs, chunk, h0):
     # no backward: training calls ssd_scan_plain (models/ssm.py routes by grad mode)
     refuse_grad("ssd_scan", xh, dt, A, Bs, Cs, h0,
                 use="call ssd_scan_plain, as models.ssm does")
-    global launches
     if xh.dtype not in _DTYPE_CODES:
         raise NotImplementedError(f"ssd_scan: the kernel takes float32 or bfloat16, "
                                   f"got {xh.dtype}")
@@ -164,14 +163,15 @@ def _ssd_scan_cuda(xh, dt, A, Bs, Cs, chunk, h0):
     y = torch.empty((Bsz, S, nh, hp), dtype=torch.float32, device=device)
     h = torch.empty((Bsz, nh, hp, ds), dtype=torch.float32, device=device)
     chain = counters(device, "ssd_scan", counter_count(Bsz, nh))
-    stream = torch.cuda.current_stream(device).cuda_stream
-    status = library().ssd_scan_launch(
-        xh.data_ptr(), dt.data_ptr(), A.data_ptr(), Bs.data_ptr(), Cs.data_ptr(),
-        None if h0 is None else h0.data_ptr(), Bsz, S, nh, hp, ds, Q, need,
-        _DTYPE_CODES[xh.dtype], y.data_ptr(), h.data_ptr(), chain.data_ptr(), stream,
-    )
+    with on_card(xh):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        status = library().ssd_scan_launch(
+            xh.data_ptr(), dt.data_ptr(), A.data_ptr(), Bs.data_ptr(), Cs.data_ptr(),
+            None if h0 is None else h0.data_ptr(), Bsz, S, nh, hp, ds, Q, need,
+            _DTYPE_CODES[xh.dtype], y.data_ptr(), h.data_ptr(), chain.data_ptr(), stream,
+        )
     check(status, "ssd_scan")
-    launches += 1
+    count_launch(__name__)
     return y, h
 
 

@@ -19,7 +19,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import refuse_grad
+from repro_torch.kernels import count_launch, on_card, refuse_grad
 
 # Kernel launches made by ``swa_decode`` (one per call on CUDA tensors).
 launches = 0
@@ -89,7 +89,6 @@ def _swa_decode_cuda(q, k, v, kv_pos, pos, window, softcap):
     from repro_torch.kernels.build import check, counters, library
 
     refuse_grad("swa_decode", q, k, v)
-    global launches
     if q.dtype not in _DTYPE_CODES:
         raise NotImplementedError(f"swa_decode: the kernel takes float32 or bfloat16, "
                                   f"got {q.dtype}")
@@ -116,15 +115,16 @@ def _swa_decode_cuda(q, k, v, kv_pos, pos, window, softcap):
                           device=device)
     arrivals = counters(device, "swa_decode", B * hkv)
     sqrt_d = float(torch.sqrt(torch.tensor(D, dtype=torch.float32)))
-    stream = torch.cuda.current_stream(device).cuda_stream
-    status = library().swa_decode_launch(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_pos.data_ptr(), pos.data_ptr(),
-        B, C, hkv, G, D, int(window), float(softcap), sqrt_d, _DTYPE_CODES[q.dtype],
-        split_len(D, esize), vector_bytes(D, esize, k, v), out.data_ptr(),
-        scratch.data_ptr(), arrivals.data_ptr(), stream,
-    )
+    with on_card(q):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        status = library().swa_decode_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_pos.data_ptr(), pos.data_ptr(),
+            B, C, hkv, G, D, int(window), float(softcap), sqrt_d, _DTYPE_CODES[q.dtype],
+            split_len(D, esize), vector_bytes(D, esize, k, v), out.data_ptr(),
+            scratch.data_ptr(), arrivals.data_ptr(), stream,
+        )
     check(status, "swa_decode")
-    launches += 1
+    count_launch(__name__)
     return out
 
 

@@ -1,0 +1,47 @@
+"""The grid mesh (``repro.launch.mesh.make_grid_mesh``): the devices that
+share an experiment grid's lanes.
+
+The reference's 1-D ``("data",)`` mesh shards a grid's lanes over every
+visible device, one ``shard_map`` program for all of them.  Here a mesh is a
+tuple of devices: ``ExperimentEngine(..., mesh=make_grid_mesh())`` cuts the
+grid into contiguous shards, one a device, and runs each shard's lane groups
+on its own device from one process: one host thread issues every card's
+launches, the shards in turn.  A device may appear more than once: its
+shards then run in turn on it.  ``GridMesh`` itself lives in
+``utils.device``, beside ``resolve_device``, so that the engine does not
+depend on the command-line launchers of ``launch``.
+
+The reference's ``make_production_mesh`` and ``make_host_mesh`` are TPU pod
+shapes ((16, 16) and (2, 16, 16) chips over ``("data", "model")``) and are
+not ported.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.utils.device import GridMesh, resolve_device
+
+__all__ = ["GridMesh", "make_grid_mesh"]
+
+
+def make_grid_mesh(num_devices: Optional[int] = None, device="cuda") -> GridMesh:
+    """A 1-D ``("data",)`` mesh for grid-sharded sweeps.
+
+    On ``cuda`` (the default): cards 0 to ``num_devices - 1``, every visible
+    card when ``num_devices`` is None; raises without CUDA (there is no CPU
+    fallback).  ``device="cpu"``: ``num_devices`` shards on the one CPU
+    device, as the reference's forced host device count gives; the count is
+    required there.
+    """
+    device = resolve_device(device)
+    if device.type == "cpu":
+        if num_devices is None:
+            raise ValueError("make_grid_mesh: device='cpu' needs num_devices (the shard count)")
+        return GridMesh([device] * num_devices)
+    visible = torch.cuda.device_count()
+    n = visible if num_devices is None else num_devices
+    if not 1 <= n <= visible:
+        raise ValueError(f"make_grid_mesh: {n} cards asked for, {visible} visible")
+    return GridMesh([torch.device("cuda", i) for i in range(n)])

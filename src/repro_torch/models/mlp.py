@@ -14,6 +14,7 @@ import torch
 
 from repro_torch.config import ModelConfig
 from repro_torch.utils import prng
+from repro_torch.utils.elementwise import row_mean
 
 
 def dense_init(key, shape, fan_in: int, device, scale: float = 1.0) -> torch.Tensor:
@@ -60,13 +61,22 @@ def mlp_logits(params: dict, images: torch.Tensor) -> torch.Tensor:
 
 def loss_from_logits(logits: torch.Tensor, labels: torch.Tensor):
     """Mean cross-entropy over the last batch axis, in fp32 whatever the
-    logits' dtype -> (loss (...,), metrics)."""
+    logits' dtype -> (loss (...,), metrics).
+
+    With grad mode off (the rounds' eval) the metric ``ce``, the rounds'
+    test loss, is the same mean through ``row_mean``, whose value for a row
+    does not depend on how many rows are evaluated together (a lane's test
+    loss is the same in any lane group, shard or lane loop).  Under grad
+    mode (a local step, which reads only ``loss``) ``ce`` is ``loss``.
+    """
     logits = logits.to(torch.float32)
     logz = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, labels[..., None])[..., 0]
-    loss = (logz - gold).mean(dim=-1)
+    nll = logz - gold
+    loss = nll.mean(dim=-1)
+    ce = loss if torch.is_grad_enabled() else row_mean(nll)
     acc = (torch.argmax(logits, dim=-1) == labels).to(torch.float32).mean(dim=-1)
-    return loss, {"ce": loss, "accuracy": acc}
+    return loss, {"ce": ce, "accuracy": acc}
 
 
 def mlp_loss(params: dict, batch: dict):

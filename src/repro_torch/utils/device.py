@@ -1,5 +1,7 @@
-"""Device resolution for the port's entry points."""
+"""Device resolution for the port's entry points, and the grid mesh."""
 from __future__ import annotations
+
+from typing import Dict
 
 import torch
 
@@ -28,3 +30,35 @@ def resolve_device(device="cuda") -> torch.device:
     elif device.type != "cpu":
         raise ValueError(f"unsupported device {device}; use 'cuda' or 'cpu'")
     return device
+
+
+class GridMesh(tuple):
+    """A frozen tuple of indexed ``torch.device``s, one a grid shard.
+
+    ``GridMesh(("cuda:0", "cuda:1"))`` shards a grid over two cards,
+    ``GridMesh(("cuda:0", "cuda:0"))`` cuts it in two on one card.  A
+    ``cuda`` device without an index is the current card; CUDA devices
+    raise without a card, as every entry point does.
+    """
+
+    __slots__ = ()
+
+    def __new__(cls, devices):
+        devs = []
+        for d in devices:
+            d = resolve_device(d)
+            if d.type == "cuda":
+                if d.index is None:
+                    d = torch.device("cuda", torch.cuda.current_device())
+                if d.index >= torch.cuda.device_count():
+                    raise ValueError(f"GridMesh: {d} is not a visible card "
+                                     f"({torch.cuda.device_count()} visible)")
+            devs.append(d)
+        if not devs:
+            raise ValueError("GridMesh: a mesh needs at least one device")
+        return super().__new__(cls, devs)
+
+    @property
+    def shape(self) -> Dict[str, int]:
+        """The mesh's one axis, as the reference's mesh names it."""
+        return {"data": len(self)}

@@ -127,7 +127,7 @@ def test_the_engine_picks_its_path_once_from_registry_lane_and_size(kw, batched)
 def test_no_argument_chooses_the_path():
     params = list(inspect.signature(ExperimentEngine.__init__).parameters)
     assert params == ["self", "model_cfg", "fl_cfg", "dataset", "strategies", "num_clients",
-                      "aggregators", "warmup", "device"]
+                      "aggregators", "warmup", "device", "mesh"]
 
 
 def test_the_batched_round_refuses_lanes_it_does_not_serve():

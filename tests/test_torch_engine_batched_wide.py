@@ -140,8 +140,8 @@ def test_a_grid_in_lane_groups_is_the_unsplit_grid_bit_for_bit(unsplit, monkeypa
     seen = []
     lanes_of = eng._lanes
 
-    def spy(group):
-        lanes = lanes_of(group)
+    def spy(group, *device):
+        lanes = lanes_of(group, *device)
         seen.append((len(group), int(lanes.rows.counts.shape[0]),
                      len({(st, seed, sc == "platoon") for st, _, seed, sc in group})))
         return lanes

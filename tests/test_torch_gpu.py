@@ -2218,3 +2218,142 @@ def test_loggamma_and_partition_labels_on_the_card_match_the_cpu(dev, alpha):
         lg = partition_labels(prng.key(0, dev), dataset, fl, device=dev)
         assert lg.device.type == "cuda"
         assert torch.equal(lg.cpu(), partition_labels(prng.key(0), dataset, fl))
+
+
+# ---- the engine's sharded grid, and the kernels on any card ---------------------------
+
+def _same_metrics(a, b) -> bool:
+    return all(torch.equal(x, y) if not x.is_floating_point() else
+               torch.equal(torch.isnan(x), torch.isnan(y))
+               and torch.equal(x.nan_to_num(), y.nan_to_num()) for x, y in zip(a, b))
+
+
+def test_two_shards_on_one_card_are_the_unsharded_grid_bitwise(dev):
+    """The 6-lane pad grid (two seeds x ring / rush_hour / platoon, N=20, 2
+    rounds) on ``GridMesh((cuda:0, cuda:0))``: every metric of every lane
+    the unsharded grid's on cuda:0 bit for bit, the launches those of the
+    shards' lane groups (one group a shard)."""
+    from repro_torch.config import FLConfig
+    from repro_torch.configs import get_config
+    from repro_torch.fl import ExperimentEngine
+    from repro_torch.launch.mesh import GridMesh
+
+    card = torch.device("cuda", 0)
+    fl = FLConfig(num_clients=20, samples_per_client=64, local_epochs=1, num_clusters=3,
+                  batch_size=32, recluster_every=2)
+    model = get_config("fl-mnist-mlp").replace(d_ff=32)
+    grid = dict(seeds=(0, 1), scenarios=("ring", "rush_hour", "platoon"), rounds=2,
+                eval_every=2)
+    base = ExperimentEngine(model, fl, "mnist", device=card)
+    sharded = ExperimentEngine(model, fl, "mnist", mesh=GridMesh((card, card)))
+    assert sharded.device == card and sharded.grid_shards() == 2
+    want = base.run_grid(**grid)
+    before = rttg_mod.grid_launches, fedavg_mod.grid_launches
+    got = sharded.run_grid(**grid)
+    assert (rttg_mod.grid_launches - before[0], fedavg_mod.grid_launches - before[1]) == (8, 4)
+    assert got.runs == want.runs and _same_metrics(got.metrics, want.metrics)
+    assert got.metrics.test_acc.device == card
+    assert sharded.last_data_plan == {"total_rows": 4, "rows_per_shard": 2, "n_shards": 2}
+
+
+@pytest.fixture
+def two_cards(dev):
+    """Cards 0 and 1, or a skip below two cards."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA cards")
+    return torch.device("cuda", 0), torch.device("cuda", 1)
+
+
+def _on_thread(fn, current):
+    """``fn()`` on a new host thread whose current device is ``current``."""
+    import threading
+
+    out = {}
+
+    def run():
+        torch.cuda.set_device(current)
+        try:
+            out["value"] = fn()
+        except BaseException as e:  # noqa: BLE001 - re-raised on the caller's thread
+            out["error"] = e
+
+    t = threading.Thread(target=run)
+    t.start()
+    t.join()
+    if "error" in out:
+        raise out["error"]
+    return out["value"]
+
+
+@pytest.mark.parametrize("operands_on", [0, 1])
+def test_wrappers_launch_on_their_operands_card_from_any_current_device(two_cards,
+                                                                        operands_on):
+    """Operands on one card, the calling thread's current device the other:
+    B1, B1g, B2, B2g, B3, B5 and B6 each give their plain version's result
+    on the operands' card (the launch went to that card)."""
+    from repro_torch.kernels import pairwise_cosine as pc_mod
+
+    card, other = two_cards[operands_on], two_cards[1 - operands_on]
+    scn, pos, speed, accel, forced = _geometry("ring", 100, 0.7, card)
+    t = torch.tensor(77.5, device=card)
+    scns, view, gpos, gspeed, gaccel, gt, gforced = _grid_lanes(CATALOG, 100, 0.7, card)
+    u = torch.randn((10, 4099), device=card)
+    w = torch.rand((10,), device=card)
+    gu, gw = torch.randn((3, 2, 4099), device=card), torch.rand((3, 2), device=card)
+    params, m = (torch.randn((4099,), device=card) for _ in range(2))
+    v = torch.rand((4099,), device=card)  # fedadam's second moment: not negative
+    rid = torch.randint(0, 10, (10,), dtype=torch.int32, device=card)
+
+    def calls():
+        return (rttg_mod.rttg_latency(pos, speed, accel, t, 636_040.0, forced, scn,
+                                      predict=True, want_rid=True),
+                rttg_mod.rttg_latency_grid(gpos, gspeed, gaccel, gt, 636_040.0, gforced, view,
+                                           predict=True),
+                fedavg_mod.fedavg_reduce(u, w), fedavg_mod.fedavg_reduce_grid(gu, gw),
+                su_mod.server_update(u, w, params, m, v, 2, 1),
+                rsu_mod.rsu_reduce(u, w, rid, 10), pc_mod.pairwise_cosine(u))
+
+    got = _on_thread(calls, other)
+    torch.cuda.synchronize(card)
+    b1, b1g, b2, b2g, b3, b5, b6 = got
+    assert all(x.device == card for x in (b1[0], b1g[0], b2, b2g, b3[0], b5[0], b6))
+    ref = rttg_mod.rttg_latency_plain(pos, speed, accel, t, 636_040.0, forced, scn, True,
+                                      want_rid=True)
+    assert torch.equal(b1[1], ref[1]) and torch.equal(b1[2], ref[2])
+    torch.testing.assert_close(b1[0], ref[0], rtol=1e-5, atol=1e-7)
+    ref = rttg_mod.rttg_latency_grid_plain(gpos, gspeed, gaccel, gt, 636_040.0, gforced, view,
+                                           True, False)
+    assert torch.equal(b1g[1], ref[1])
+    torch.testing.assert_close(b1g[0], ref[0], rtol=1e-5, atol=1e-7)
+    torch.testing.assert_close(b2, fedavg_mod.fedavg_reduce_plain(u, w), rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(b2g, fedavg_mod.fedavg_reduce_grid_plain(gu, gw), rtol=1e-5,
+                               atol=1e-5)
+    for a, b in zip(b3, su_mod.server_update_plain(u, w, params, m, v, 2, 1)):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+    for a, b in zip(b5, rsu_mod.rsu_reduce_plain(u, w, rid, 10)):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(b6, pc_mod.pairwise_cosine_plain(u), rtol=0, atol=1e-5)
+
+
+def test_kernels_above_48kb_of_shared_memory_on_card_1_after_card_0(two_cards):
+    """B1g at R = 32,768 (160 KB a block) and B8 at mamba2-130m's head (its
+    largest shared tile) on card 0, then on card 1: the grant is the card's
+    own, so the second card's launches run and match their plain versions."""
+    from repro_torch.kernels import ssd_scan as ssd
+
+    assert ssd.smem_bytes(128, 64, 128, 4) > 48 * 1024
+    for card in two_cards:
+        scns, view, pos, speed, accel, t, forced = _wide_grid_lanes(
+            ("ring",) * 2, 257, card, rsu_spacing_m=10_000.0 / 32768)
+        assert view.n_rsu == 32768
+        got = rttg_mod.rttg_latency_grid(pos, speed, accel, t, 636_040.0, forced, view,
+                                         predict=True)
+        for g, scn in enumerate(scns):
+            ref = rttg_mod.rttg_latency_plain(pos[g], speed[g], accel[g], t[g], 636_040.0,
+                                              forced[g], scn, True)
+            assert torch.equal(got[1][g], ref[1])
+            torch.testing.assert_close(got[0][g], ref[0], rtol=1e-5, atol=1e-7)
+        x, dt, A, Bs, Cs, h0 = _ssd_operands(1, 300, 24, 64, 128, torch.float32, card,
+                                             with_h0=True)
+        _assert_ssd_close(ssd.ssd_scan(x, dt, A, Bs, Cs, 128, h0),
+                          ssd.ssd_scan_plain(x, dt, A, Bs, Cs, 128, h0))
