@@ -150,12 +150,13 @@ Phases (any failure raises and exits non-zero):
    steps against one longer prefill; then the ssm and dense families, 2
    layers card-vs-CPU in fp32 and bf16 for mamba2-130m (S=300, a ragged
    chunk), gemma2-9b (one local and one global layer, S=4100, one row) and
-   chatglm3-6b (S=600), and mamba2-130m's decode vs prefill in fp32 at full
-   depth; then one MoE layer of mixtral-8x7b and of phi3.5-moe at full width
+   chatglm3-6b (S=600, one row), and mamba2-130m's decode vs prefill in fp32
+   at full depth; then one MoE layer of mixtral-8x7b and of phi3.5-moe at full width
    on a skewed input that drops copies, card vs CPU in fp32 and bf16 (expert
    ids, slots and kept mask exactly, no device-to-host sync on the card), and
-   2 layers card-vs-CPU in fp32 and bf16 for mixtral-8x7b (S=600),
-   phi3.5-moe (S=600) and internvl2-76b (S=300 after its 256 image tokens),
+   1 layer card-vs-CPU in fp32 and bf16 for mixtral-8x7b (S=300),
+   phi3.5-moe (S=300) and internvl2-76b (S=128 after its 256 image tokens),
+   one row and 2 decode steps each,
    and whisper-small cut to 2 + 2 layers (4 x 64 behind 1,500 frames, its
    ring wrapping, as the CLI prefills it) (the families' serving runs come
    last, after phase 5);
@@ -210,21 +211,29 @@ Phases (any failure raises and exits non-zero):
    set-up and rounds timed apart, its batched round profiled beside a
    lane-loop round (batched, loop, batched), and its sync check;
    then the engine's grids SHARDED over a mesh (``ExperimentEngine(mesh=...)``,
-   ``sharded_phase``): on ``GridMesh`` meshes of cuda:0, the bench's 24-run
-   grid on 2 shards, ``tests/test_engine.py``'s 6-lane grid (the pad path)
-   and its seed-heavy grid (4 seeds x ring; one data row a shard of 4) on 4,
-   the async grid and the streamed two-tier grid on 2, each against the
-   unsharded grid on cuda:0 with every lane bit for bit, ``last_data_plan``
-   printed and exactly the launches of the shards' lane groups (padded lanes
-   included); then ``make_grid_mesh()``: where two or more cards are visible,
-   the 24-run grid over all of them bit for bit cuda:0's unsharded grid,
-   each card's peak memory, and B1g at R = 32,768 (above 48 KB of shared
-   memory a block) on each card but cuda:0 against its plain version; where
-   one is, a line says so; where two or more are, phase 4k's greedy grid at
-   N = 4,096 (24 lanes in lane groups of 2) on cuda:0 alone and on every
-   card, bit for bit, with the one card's peak memory beside each card's;
-   last, the warm sweep on one card against the mesh (every card, or cuda:0
-   twice), in turns;
+   ``sharded_phase``): on ``GridMesh`` meshes of cuda:0 through the
+   in-process turn, the bench's 24-run grid on 2 shards,
+   ``tests/test_engine.py``'s 6-lane grid (the pad path) and its seed-heavy
+   grid (4 seeds x ring; one data row a shard of 4) on 4, the async grid and
+   the streamed two-tier grid on 2, each against the unsharded grid on
+   cuda:0 with every lane bit for bit, ``last_data_plan`` printed and
+   exactly the launches of the shards' lane groups (padded lanes included);
+   the bench grid through the PROCESS LANE (``processes=True``: two worker
+   processes on cuda:0), bit for bit, its launches (the workers', added to
+   this process's counters) exact, each worker's sweep seconds and peak
+   memory (``last_shard_stats``), the pool's start-up apart, and
+   ``nvidia-smi``'s compute processes (each worker on its own card only);
+   then ``make_grid_mesh()``: where one card is visible, a line says so;
+   where two or more are, first the process lane (a worker a card) for the
+   24-run grid and for phase 4k's greedy grid at N = 4,096 (24 lanes in lane
+   groups of 2, also swept on cuda:0 alone), each bit for bit cuda:0's
+   unsharded grid, with the same reports, then the in-process turn
+   (``processes=False``) for both grids, bit for bit, each card's peak
+   memory, and B1g at R = 32,768 (above 48 KB of shared memory a block) on
+   each card but cuda:0 against its plain version; last, the warm sweeps of
+   one card, the in-process mesh and the process mesh (every card, or
+   cuda:0 twice) in turns, for the bench grid and, on two or more cards,
+   the greedy grid;
 4i. CNN datasets: ``FLSimulation`` (ring / contextual, ``fl_sim``'s
    defaults: N=100, K=10, 256 samples, batches of 64, 1 local epoch) at
    fl-cifar10-cnn for 5 rounds and fl-svhn-cnn for 3, full width, exactly 2
@@ -1537,9 +1546,10 @@ class pin_routes:
         self.moe.route = self.route
 
 
-def path_vs_plain(dtype: str, device, arch="hymba-1.5b", S=1100, batch=2) -> float:
-    """``arch`` cut to 2 layers at full width: a prefill of ``S`` tokens and 4
-    decode steps on the card and on the CPU from the same weights, logits
+def path_vs_plain(dtype: str, device, arch="hymba-1.5b", S=1100, batch=2, steps=4,
+                  layers=2) -> float:
+    """``arch`` cut to ``layers`` layers at full width: a prefill of ``S`` tokens
+    and ``steps`` decode steps on the card and on the CPU from the same weights, logits
     within ``PATH_TOL``; the card's run launches its kernels as many times as
     ``expected_serving_launches`` says.  hymba-1.5b's S = 1100 passes its
     1024 window (the ring wraps) and spans 9 SSD chunks.  A ``vlm``'s image
@@ -1552,12 +1562,11 @@ def path_vs_plain(dtype: str, device, arch="hymba-1.5b", S=1100, batch=2) -> flo
     from repro_torch.models import build_model
     from repro_torch.utils import prng
 
-    cfg = cut_depth(get_config(arch), 2).replace(dtype=dtype)
+    cfg = cut_depth(get_config(arch), layers).replace(dtype=dtype)
     api = build_model(cfg)
     key = prng.key(0, device)
     params = api.init(prng.fold_in_str(key, "init"), device)
     cpu_params = tree_to(params, "cpu")
-    steps = 4
     toks = make_lm_batch(prng.fold_in_str(key, "prompts"), batch, S + steps + 1,
                          cfg.vocab_size, device)["tokens"]
     prompt = {"tokens": toks[:, :S]}
@@ -1606,7 +1615,7 @@ def path_vs_plain(dtype: str, device, arch="hymba-1.5b", S=1100, batch=2) -> flo
     img = f" after {cfg.num_image_tokens} image tokens" if cfg.num_image_tokens else ""
     if cfg.family == "encdec":
         kinds, img = " + 2 encoder layers", f" behind {cfg.encoder_seq} frames"
-    print(f"{arch} cut to 2 layers{kinds}, {dtype}, B={batch}, prompt {S}{img} + {steps} "
+    print(f"{arch} cut to {layers} layers{kinds}, {dtype}, B={batch}, prompt {S}{img} + {steps} "
           f"decode steps: "
           f"card vs CPU logits max_abs_err per step {', '.join(f'{e:.3e}' for e in errs)} "
           f"(tol {tol}, |logits| <= {float(pairs[0][1].float().abs().max()):.2f}); greedy "
@@ -3925,7 +3934,7 @@ def sharded_run(eng, grid: Grid, seeds, want: dict, what: str):
     res = eng.run_grid(seeds=seeds, scenarios=grid.scenarios, rounds=grid.rounds,
                        strategies=grid.strategies, aggregators=grid.aggregators,
                        eval_every=grid.eval_every)
-    for d in set(eng.mesh):
+    for d in {eng.device} if eng.processes else set(eng.mesh):
         torch.cuda.synchronize(d)
     wall = time.perf_counter() - t0
     launches = read_launches()
@@ -3936,14 +3945,99 @@ def sharded_run(eng, grid: Grid, seeds, want: dict, what: str):
     return res, wall, launches
 
 
+def compute_apps() -> list:
+    """``nvidia-smi --query-compute-apps``: (pid, card index, used MiB) of
+    every process that holds a context on a card."""
+    def query(what):
+        out = subprocess.run(["nvidia-smi", what, "--format=csv,noheader,nounits"],
+                             check=True, capture_output=True, text=True, timeout=60)
+        return [[f.strip() for f in line.split(",")] for line in out.stdout.splitlines()
+                if line.strip()]
+
+    index = {uuid: int(i) for i, uuid in query("--query-gpu=index,uuid")}
+    return [(int(pid), index.get(uuid, -1), mib)
+            for pid, uuid, mib in query("--query-compute-apps=pid,gpu_uuid,used_memory")]
+
+
+def check_worker_cards(engines, card) -> None:
+    """Each worker of the process lanes of ``engines`` (every engine whose
+    pool is alive) holds a context on its own card and on no other
+    (``nvidia-smi``'s compute processes, printed).  Where the tool reports
+    the pids of another pid namespace, each card's contexts are counted
+    instead: its workers' and, on cuda:0, this process's (which has touched
+    no other card when this runs)."""
+    want = {s["pid"]: torch.device(s["device"]).index
+            for eng in engines for s in eng.last_shard_stats}
+    role = {os.getpid(): "this process",
+            **{s["pid"]: f"worker {r} of pool {i}" for i, eng in enumerate(engines)
+               for r, s in enumerate(eng.last_shard_stats)}}
+    apps = compute_apps()
+    print("nvidia-smi --query-compute-apps=pid,gpu_uuid,used_memory: "
+          + "; ".join(f"pid {pid} ({role.get(pid, 'not a pid of this namespace')}) on "
+                      f"cuda:{c} {mib} MiB" for pid, c, mib in apps) + f" [{card}]")
+    seen = {pid: [c for p, c, _ in apps if p == pid] for pid in want}
+    if any(seen.values()):
+        for pid, c in want.items():
+            if seen[pid] != [c]:
+                raise AssertionError(f"{role[pid]} (pid {pid}, cuda:{c}) holds contexts on "
+                                     f"{seen[pid]}")
+        print(f"each worker holds a context on its own card only [{card}]")
+        return
+    counts = {c: sum(1 for _, cc, _ in apps if cc == c) for c in range(torch.cuda.device_count())}
+    expected = {c: list(want.values()).count(c) + (c == 0) for c in counts}
+    print(f"nvidia-smi lists none of the workers' pids (another pid namespace): contexts a "
+          f"card {counts}, expected (its workers, and this process on cuda:0) {expected} "
+          f"[{card}]")
+    if counts != expected:
+        raise AssertionError(f"contexts a card {counts}, expected {expected}")
+
+
+def shard_stats_text(eng) -> str:
+    """``last_shard_stats`` and the pool's start-up, as a line's text."""
+    return (f"the pool's start-up {eng.pool_start_s:.3f} s; per worker: "
+            + "; ".join(f"{s['device']} pid {s['pid']} {s['lanes']} lanes, sweep "
+                        f"{s['sweep_s']:.3f} s, peak {s['peak_bytes'] / 2**30:.2f} GiB (held "
+                        f"{s['held_bytes'] / 2**30:.2f})" for s in eng.last_shard_stats))
+
+
+def warm_turns(engines: dict, grid: Grid, seeds, mesh, card, what: str,
+               empty: bool = False) -> dict:
+    """``grid``'s warm sweep on each of ``engines`` (label -> engine), in
+    turns (each in order, then in reverse); with ``empty``, this process's
+    cached blocks returned to the cards before each turn, as the workers
+    return theirs after each call (a grid of several lane groups caches
+    about twice its peak).  -> label -> walls, s."""
+    walls = {label: [] for label in engines}
+    order = list(engines) + list(engines)[::-1]
+    for label in order:
+        if empty:
+            torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        engines[label].run_grid(seeds=seeds, scenarios=grid.scenarios, rounds=grid.rounds,
+                                strategies=grid.strategies, aggregators=grid.aggregators,
+                                eval_every=grid.eval_every)
+        for d in set(mesh) if label == "in-process mesh" else {torch.device("cuda", 0)}:
+            torch.cuda.synchronize(d)
+        walls[label].append(time.perf_counter() - t0)
+    print(f"{what} warm sweep, turns {', '.join(order)}: "
+          + "; ".join(f"{label} {', '.join(f'{w:.3f}' for w in ws)} s"
+                      for label, ws in walls.items()) + f" [{card}]")
+    return walls
+
+
 def sharded_phase(device, card) -> dict:
     """Phase 4h, last: the engine's grids sharded over a mesh
     (``ExperimentEngine(mesh=...)``), every lane bit for bit the unsharded
-    grid's on cuda:0, on meshes of one card and, where two or more are
-    visible, on every card, with a grid of several lane groups (phase 4k's
-    greedy grid) on cuda:0 and on every card, each card's peak memory beside
-    the one card's; the warm sweep on one card against the mesh, in turns.
-    -> the launch counts of one sharded sweep of each grid, by grid."""
+    grid's on cuda:0: on meshes of cuda:0 through the in-process turn, the
+    bench grid through the process lane (two worker processes on cuda:0),
+    and, where two or more cards are visible, the bench grid and a grid of
+    several lane groups (phase 4k's greedy grid) on every card, through the
+    process lane (a worker a card, each card's peak from
+    ``last_shard_stats``, the workers' contexts from ``nvidia-smi``) and
+    through the in-process turn; then the warm sweeps of one card, the
+    in-process mesh and the process mesh, in turns.  -> the launch counts
+    of one sharded sweep of each grid, by grid."""
     from repro_torch.configs import get_config
     from repro_torch.fl import ExperimentEngine
     from repro_torch.kernels.rttg_latency import rttg_latency_grid, rttg_latency_plain
@@ -3962,8 +4056,10 @@ def sharded_phase(device, card) -> dict:
         eng = ExperimentEngine(model, fl, "mnist", mesh=GridMesh([c0] * n), **kw)
         G = len(grid.strategies) * len(grid.aggregators) * len(seeds) * len(grid.scenarios)
         per = -(-G // n)
-        if not (eng.batched and eng.grid_shards() == n and eng.lanes_per_group() >= per):
-            raise AssertionError(f"sharded {name} grid: not {n} shards of one lane group")
+        if not (eng.batched and eng.grid_shards() == n and eng.lanes_per_group() >= per
+                and not eng.processes):
+            raise AssertionError(f"sharded {name} grid: not {n} in-process shards of one lane "
+                                 "group")
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         want = base.run_grid(seeds=seeds, scenarios=grid.scenarios, rounds=grid.rounds,
@@ -3986,31 +4082,101 @@ def sharded_phase(device, card) -> dict:
               f"({n} lane groups); cold walls unsharded {base_s:.3f} s, sharded {wall:.3f} s "
               f"[{card}]")
         if name == "bench":
-            bench = base, want
+            bench = base, want, eng
+    base, want, pair_turn = bench
+    bench_kw = dict(strategies=BENCH.strategies, aggregators=BENCH.aggregators)
+
+    def process_run(eng, grid, want_grid, label, key, live=()):
+        """One cold sweep on ``eng``'s process lane (the pool started in it),
+        bitwise ``want_grid``, the workers' launches folded in exactly; the
+        workers' cards checked beside those of the ``live`` engines' pools."""
+        per = -(-len(grid.runs()) // len(eng.mesh))
+        groups = len(eng.mesh) * -(-per // eng.lanes_per_group())
+        res, wall, launches[key] = sharded_run(
+            eng, grid, (0,), dataclasses.replace(grid, groups=groups).batched_want(
+                "fedavg_reduce_grid"), label)
+        assert_grid_bitwise(res, want_grid, label)
+        print(f"{label}: every lane bit for bit cuda:0's unsharded grid; launches (the "
+              f"workers', added here) { {k: v for k, v in launches[key].items() if v} }; cold "
+              f"wall {wall:.3f} s with {shard_stats_text(eng)} [{card}]")
+        check_worker_cards([*live, eng], card)
+        return res, wall
+
+    phase("engine: the bench grid through the process lane, 2 worker processes on cuda:0 "
+          "(ExperimentEngine(processes=True))")
+    torch.cuda.empty_cache()
+    pair_procs = ExperimentEngine(model, grid_fl(), "mnist", mesh=GridMesh((c0, c0)),
+                                  processes=True, **bench_kw)
+    _, wall = process_run(pair_procs, BENCH, want, "bench grid, 2 worker processes on cuda:0",
+                          "bench processes x2")
+    summary["processes_cuda0"] = dict(cold_s=wall, start_s=pair_procs.pool_start_s,
+                                      shards=pair_procs.last_shard_stats)
 
     phase("engine: the bench's 24-run grid over every visible card (make_grid_mesh())")
     mesh = make_grid_mesh()
     cards = len(mesh)
     summary["cards"] = cards
     print(f"make_grid_mesh(): {cards} card(s): {', '.join(str(d) for d in mesh)} [{card}]")
-    base, want = bench
-    wide = mesh if cards > 1 else GridMesh((c0, c0))
-    eng = ExperimentEngine(model, grid_fl(), "mnist", strategies=BENCH.strategies,
-                           aggregators=BENCH.aggregators, mesh=wide)
+    pools = [pair_procs]
     if cards < 2:
         print("one card visible: the sharded grids ran on meshes of cuda:0 only")
+        turns = {"one card": base, "in-process mesh": pair_turn, "process mesh": pair_procs}
+        turn_mesh = pair_turn.mesh
     else:
+        # the process lane first, while this process holds a context on cuda:0 only
+        pair_procs.close()
+        procs_eng = ExperimentEngine(model, grid_fl(), "mnist", mesh=mesh, **bench_kw)
+        if not procs_eng.processes:
+            raise AssertionError("make_grid_mesh() did not take the process lane")
+        pools.append(procs_eng)
+        _, wall = process_run(procs_eng, BENCH, want, f"bench grid, a worker process on each "
+                              f"of {cards} cards", f"bench processes on {cards} cards")
+        summary["processes_all_cards"] = dict(cold_s=wall, start_s=procs_eng.pool_start_s,
+                                              shards=procs_eng.last_shard_stats)
+        # a grid of several lane groups: one card, then a worker a card
+        n = dense_max_n()
+        fl_w = grid_fl(num_clients=n, samples_per_client=32)
+        kw = dict(strategies=WIDE_GREEDY.strategies, aggregators=WIDE_GREEDY.aggregators)
+        G = len(WIDE_GREEDY.runs())
+        greedy = {}
+        one = ExperimentEngine(model, fl_w, "mnist", device=c0, **kw)
+        size = one.lanes_per_group()
+        grid = dataclasses.replace(WIDE_GREEDY, groups=-(-G // size))
+        torch.cuda.empty_cache()
+        held = torch.cuda.memory_allocated(c0)
+        torch.cuda.reset_peak_memory_stats(c0)
+        want_w, wall, launches[f"wide greedy {n} on one card"] = sharded_run(
+            one, grid, (0,), grid.batched_want("fedavg_reduce_grid"), "greedy grid, one card")
+        greedy["one card"] = dict(groups=grid.groups, lanes_per_group=size, cold_s=wall,
+                                  peak_gib={str(c0): (torch.cuda.max_memory_allocated(c0)
+                                                      - held) / 2**30})
+        print(f"greedy grid N={n}, {G} lanes in lane groups of {size}, on one card: "
+              f"{grid.groups} lane groups, cold wall {wall:.3f} s, peak memory above what was "
+              f"held {greedy['one card']['peak_gib'][str(c0)]:.2f} GiB [{card}]")
+        torch.cuda.empty_cache()
+        greedy_procs = ExperimentEngine(model, fl_w, "mnist", mesh=mesh, **kw)
+        pools.append(greedy_procs)
+        _, wall = process_run(greedy_procs, WIDE_GREEDY, want_w,
+                              f"greedy grid N={n}, a worker process on each of {cards} cards",
+                              f"wide greedy {n} processes on {cards} cards", [procs_eng])
+        greedy["processes"] = dict(cold_s=wall, start_s=greedy_procs.pool_start_s,
+                                   shards=greedy_procs.last_shard_stats)
+
+        phase(f"engine: the bench grid and the greedy grid on {cards} cards through the "
+              f"in-process turn (processes=False)")
+        turn = ExperimentEngine(model, grid_fl(), "mnist", mesh=mesh, processes=False,
+                                **bench_kw)
         for d in mesh:
             torch.cuda.reset_peak_memory_stats(d)
         res, wall, launches[f"bench on {cards} cards"] = sharded_run(
-            eng, BENCH, (0,), dataclasses.replace(BENCH, groups=cards).batched_want(
+            turn, BENCH, (0,), dataclasses.replace(BENCH, groups=cards).batched_want(
                 "fedavg_reduce_grid"), f"bench grid on {cards} cards")
         assert_grid_bitwise(res, want, f"bench grid on {cards} cards")
         peaks = {str(d): torch.cuda.max_memory_allocated(d) / 2**30 for d in mesh}
-        summary["all_cards"] = dict(cold_s=wall, plan=eng.last_data_plan, peak_gib=peaks)
-        print(f"bench grid on {cards} cards: every lane bit for bit cuda:0's unsharded grid; "
-              f"last_data_plan {eng.last_data_plan}; cold wall {wall:.3f} s; peak memory "
-              f"{', '.join(f'{d} {g:.2f} GiB' for d, g in peaks.items())} [{card}]")
+        summary["all_cards"] = dict(cold_s=wall, plan=turn.last_data_plan, peak_gib=peaks)
+        print(f"bench grid on {cards} cards, in-process: every lane bit for bit cuda:0's "
+              f"unsharded grid; last_data_plan {turn.last_data_plan}; cold wall {wall:.3f} s; "
+              f"peak memory {', '.join(f'{d} {g:.2f} GiB' for d, g in peaks.items())} [{card}]")
         for d in mesh[1:]:
             # B1g above 48 KB of shared memory a block (R = 32,768) on a card after cuda:0
             scns, view, pos, speed, accel, t, forced = grid_lane_inputs(
@@ -4025,58 +4191,43 @@ def sharded_phase(device, card) -> dict:
                                          "version")
             print(f"B1g at R = 32,768 (160 KB of shared memory a block) on {d}: within its "
                   f"plain version's tolerance")
-        # a grid of several lane groups: each card's peak beside one card's
-        n = dense_max_n()
-        fl_w = grid_fl(num_clients=n, samples_per_client=32)
-        kw = dict(strategies=WIDE_GREEDY.strategies, aggregators=WIDE_GREEDY.aggregators)
-        G = len(WIDE_GREEDY.runs())
-        greedy = {}
-        for label, e in (("one card", ExperimentEngine(model, fl_w, "mnist", device=c0, **kw)),
-                         (f"{cards} cards", ExperimentEngine(model, fl_w, "mnist", mesh=mesh,
-                                                             **kw))):
-            per, size = -(-G // len(e.mesh)), e.lanes_per_group()
-            grid = dataclasses.replace(WIDE_GREEDY, groups=len(e.mesh) * -(-per // size))
-            torch.cuda.empty_cache()
-            held = {d: torch.cuda.memory_allocated(d) for d in mesh}
-            for d in mesh:
-                torch.cuda.reset_peak_memory_stats(d)
-            res, wall, launches[f"wide greedy {n} on {label}"] = sharded_run(
-                e, grid, (0,), grid.batched_want("fedavg_reduce_grid"), f"greedy grid, {label}")
-            peaks = {str(d): (torch.cuda.max_memory_allocated(d) - held[d]) / 2**30
-                     for d in e.mesh}
-            greedy[label] = dict(groups=grid.groups, lanes_per_group=size, cold_s=wall,
-                                 peak_gib=peaks)
-            print(f"greedy grid N={n}, {G} lanes in lane groups of {size}, on {label}: "
-                  f"{grid.groups} lane groups, cold wall {wall:.3f} s, peak memory above what "
-                  f"was held {', '.join(f'{d} {g:.2f} GiB' for d, g in peaks.items())} "
-                  f"[{card}]")
-            if label == "one card":
-                want_w = res
-            else:
-                assert_grid_bitwise(res, want_w, f"greedy grid on {cards} cards")
-            del e, res
-        summary["greedy"] = greedy
-        print(f"greedy grid on {cards} cards: every lane bit for bit cuda:0's [{card}]")
-        del want_w
+        greedy_turn = ExperimentEngine(model, fl_w, "mnist", mesh=mesh, processes=False, **kw)
+        per = -(-G // cards)
+        grid = dataclasses.replace(WIDE_GREEDY, groups=cards * -(-per // size))
         torch.cuda.empty_cache()
+        held = {d: torch.cuda.memory_allocated(d) for d in mesh}
+        for d in mesh:
+            torch.cuda.reset_peak_memory_stats(d)
+        res, wall, launches[f"wide greedy {n} on {cards} cards"] = sharded_run(
+            greedy_turn, grid, (0,), grid.batched_want("fedavg_reduce_grid"),
+            f"greedy grid, {cards} cards")
+        assert_grid_bitwise(res, want_w, f"greedy grid on {cards} cards")
+        peaks = {str(d): (torch.cuda.max_memory_allocated(d) - held[d]) / 2**30 for d in mesh}
+        greedy[f"{cards} cards"] = dict(groups=grid.groups, lanes_per_group=size, cold_s=wall,
+                                        peak_gib=peaks)
+        print(f"greedy grid N={n} on {cards} cards, in-process: {grid.groups} lane groups, "
+              f"every lane bit for bit cuda:0's; cold wall {wall:.3f} s, peak memory above what "
+              f"was held {', '.join(f'{d} {g:.2f} GiB' for d, g in peaks.items())} [{card}]")
+        del res
+        summary["greedy"] = greedy
+        turns = {"one card": base, "in-process mesh": turn, "process mesh": procs_eng}
+        turn_mesh = mesh
 
-    phase(f"engine: the bench grid's warm sweep on one card against "
-          f"{'every card' if cards > 1 else 'GridMesh(cuda:0, cuda:0)'}, in turns")
-    walls = {"one card": [], "mesh": []}
-    for which in ("one card", "mesh", "mesh", "one card"):
-        e = base if which == "one card" else eng
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        e.run_grid(seeds=(0,), scenarios=BENCH.scenarios, rounds=BENCH.rounds,
-                   eval_every=BENCH.eval_every)
-        for d in set(wide):
-            torch.cuda.synchronize(d)
-        walls[which].append(time.perf_counter() - t0)
-    summary["warm_walls"] = walls
-    print(f"bench grid warm sweep (24 lanes x 5 rounds), turns one card, mesh, mesh, one card: "
-          f"one card {', '.join(f'{w:.3f}' for w in walls['one card'])} s, "
-          f"{len(wide)} shards on {len(set(wide))} card(s) "
-          f"{', '.join(f'{w:.3f}' for w in walls['mesh'])} s [{card}]")
+    phase(f"engine: warm sweeps on one card, the in-process mesh and the process mesh "
+          f"({len(turn_mesh)} shards on {len(set(turn_mesh))} card(s)), in turns")
+    summary["warm_walls"] = warm_turns(turns, BENCH, (0,), turn_mesh, card,
+                                       "bench grid (24 lanes x 5 rounds)")
+    if cards > 1:
+        summary["greedy_warm_walls"] = warm_turns(
+            {"one card": one, "in-process mesh": greedy_turn, "process mesh": greedy_procs},
+            WIDE_GREEDY, (0,), mesh, card, f"greedy grid N={n} ({G} lanes x 1 round)",
+            empty=True)
+        summary["greedy_warm_shards"] = greedy_procs.last_shard_stats
+        del want_w
+    summary["warm_shards"] = turns["process mesh"].last_shard_stats
+    for eng in pools:
+        eng.close()
+    torch.cuda.empty_cache()
     print(json.dumps({"sharded_grids": summary}))
     return launches
 
@@ -5300,7 +5451,7 @@ def main(argv=()) -> int:
     # one global layer, 4 past the 4,096 window (one row: the CPU's share of the
     # time); chatglm3-6b: the 2d rope, the bias, G = 2
     for arch, S, batch in (("mamba2-130m", 300, 2), ("gemma2-9b", 4100, 1),
-                           ("chatglm3-6b", 600, 2)):
+                           ("chatglm3-6b", 600, 1)):
         for dt in ("float32", "bfloat16"):
             path_vs_plain(dt, device, arch, S, batch)
         torch.cuda.empty_cache()
@@ -5313,12 +5464,13 @@ def main(argv=()) -> int:
             moe_layer_vs_cpu(dt, device, arch)
         torch.cuda.empty_cache()
     phase("serving: the moe and vlm families' paths on the card vs the plain path on the CPU")
-    # mixtral-8x7b: 600 tokens, G 2 through its window; phi3.5-moe: 16 experts;
-    # internvl2-76b: 300 tokens after its 256 image embeddings, G 4
-    for arch, S, batch in (("mixtral-8x7b", 600, 2), ("phi3.5-moe-42b-a6.6b", 600, 2),
-                           ("internvl2-76b", 300, 2)):
+    # mixtral-8x7b: G 2 through its window; phi3.5-moe: 16 experts; internvl2-76b:
+    # 128 tokens after its 256 image embeddings, G 4; one layer, one row and 2
+    # decode steps each (drawing, copying and running the full-width weights on
+    # the CPU is most of the phase's time)
+    for arch, S in (("mixtral-8x7b", 300), ("phi3.5-moe-42b-a6.6b", 300), ("internvl2-76b", 128)):
         for dt in ("float32", "bfloat16"):
-            path_vs_plain(dt, device, arch, S, batch)
+            path_vs_plain(dt, device, arch, S, batch=1, steps=2, layers=1)
         torch.cuda.empty_cache()
     phase("serving: the encdec family's path on the card vs the plain path on the CPU")
     # whisper-small: 2 + 2 layers, 4 x 64 behind 1,500 frames, the 64-slot ring wrapping

@@ -75,20 +75,41 @@ reference's ``shard_map`` over its ``("data",)`` mesh shards them
   * each shard's ``(per, rounds)`` metrics are gathered on the mesh's first
     device in run order and the padded lanes dropped.
 
-A lane's arithmetic does not depend on its shard, so every lane is the
-unsharded grid's bit for bit.  Without a mesh the engine runs the same code
-on one shard, its own device.  The calling thread runs the shards in mesh
-order, each with its card current; every kernel wrapper launches on its
-operands' card (``kernels.on_card``).  One host thread issues every card's
-launches: torch drops and retakes the interpreter lock at every op, so one
-thread a card issued the same ops several times slower than one thread
-issuing them all.  A grid round issues about as many ops for 6 lanes as for
-24, so the mesh is slower than one card on every grid measured (PERF.md);
-and since lane groups already bound what a card holds, a grid of several
-lane groups peaks on every card of the mesh as on one card.  A worker
-process per card is what would divide the host time.  Not ported: ``partition_on_device`` / ``init_on_device``, which
-choose between XLA placements: the port always builds state and data on the
-shard's device.
+A lane's arithmetic does not depend on its shard or its process, so every
+lane is the unsharded grid's bit for bit.  Without a mesh the engine runs
+the same code on one shard, its own device.  Two lanes run the shards, both
+through the same shard body (``_sweep_groups`` on the shard's slice of the
+padded runs):
+
+  * the PROCESS LANE (``processes``; by default on a mesh of distinct
+    devices, ``make_grid_mesh()`` on two or more cards): each shard is swept
+    by a worker process of its own (``utils.procs.ShardPool``: spawned, its
+    card current, the caller's torch thread count, its own engine built
+    from this one's constructor arguments and kept warm for the pool's
+    life), all at once.  Each worker sends back its shard's ``(per,
+    rounds)`` metrics on the CPU (exact copies), its launch-counter deltas
+    (added to this process's counters), its sweep's seconds and its card's
+    memory (``last_shard_stats``), then returns its cached blocks to the
+    card, which it may share with other processes.  The pool starts at the
+    first such ``run_grid`` (``pool_start_s``, the kernel library built
+    first in this process) and ends on ``close()``, at the end of ``with
+    ExperimentEngine(...)`` or at exit.  A worker that raises or dies makes
+    ``run_grid`` raise and closes the pool: nothing falls back to the
+    in-process turn.  One process a card: threads of one process contend
+    for the interpreter lock at every op (one thread a card issued the same
+    ops several times slower than one thread issuing them all, PERF.md);
+  * the IN-PROCESS TURN (a mesh that repeats a device, such as
+    ``GridMesh((cuda:0, cuda:0))`` or a CPU mesh, unless ``processes=True``):
+    the calling thread sweeps the shards in mesh order, each with its card
+    current; every kernel wrapper launches on its operands' card
+    (``kernels.on_card``).  A grid round issues about as many ops for 6
+    lanes as for 24, so this turn is slower than one card on every grid
+    measured (PERF.md).
+
+Lane groups already bound what a card holds, so a grid of several lane
+groups peaks on every card of the mesh as on one card.  Not ported:
+``partition_on_device`` / ``init_on_device``, which choose between XLA
+placements: the port always builds state and data on the shard's device.
 
 Usage:
 
@@ -105,6 +126,8 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import itertools
+import pickle
+import time
 from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import torch
@@ -139,8 +162,11 @@ from repro_torch.fl.rounds import (
     stack_rows,
     stack_states,
 )
+from repro_torch.kernels import add_launches, launch_counts
+from repro_torch.kernels import build as kbuild
 from repro_torch.models import build_model
 from repro_torch.utils.device import GridMesh, resolve_device
+from repro_torch.utils.procs import ShardPool
 from repro_torch.utils.pytree import flat_size_of, tree_bytes
 
 ScenarioLike = Union[str, TrafficConfig]
@@ -160,6 +186,16 @@ _INT_METRICS = ("round", "n_selected", "n_succeeded", "n_buffered", "n_drained")
 # indices match: 4 GiB, 12 lanes at N = 4,096 and 51 at N = 2,048.
 GRID_ROW_BYTES = 6 << 30
 GRID_PAIR_BYTES = 4 << 30
+
+
+def shards_in_processes(mesh: Sequence[torch.device], processes: Optional[bool] = None) -> bool:
+    """Whether a grid sharded over ``mesh`` sweeps each shard in a worker
+    process of its own: never on a mesh of one shard; on a larger one as
+    ``processes`` says, and where it is None when no device repeats (every
+    card once, ``make_grid_mesh()``)."""
+    if len(mesh) < 2:
+        return False
+    return len(set(mesh)) == len(mesh) if processes is None else bool(processes)
 
 
 def _eval_flags(rounds: int, eval_every: int) -> List[bool]:
@@ -255,10 +291,18 @@ class ExperimentEngine:
     ``mesh``: a ``GridMesh`` (``launch.mesh.make_grid_mesh()``) or a sequence
     of devices; ``run_grid`` shards the grid's lanes over it (the module
     docstring), and ``device`` defaults to the mesh's first device, where
-    the results are gathered.  Without one the mesh is ``(device,)``.  ``last_data_plan`` (after a sharded
-    ``run_grid``): the shard-local RoundData placement, ``{"total_rows",
-    "rows_per_shard", "n_shards"}``, the reference's for the same grid and
-    shard count; ``None`` unsharded and on a mesh of one.
+    the results are gathered.  Without one the mesh is ``(device,)``.
+    ``processes``: whether each shard runs in a worker process of its own
+    (``shards_in_processes``: None takes the process lane on a mesh of
+    distinct devices, True on any mesh of more than one shard, False
+    never).  ``last_data_plan`` (after a sharded ``run_grid``): the
+    shard-local RoundData placement, ``{"total_rows", "rows_per_shard",
+    "n_shards"}``, the reference's for the same grid and shard count;
+    ``None`` unsharded and on a mesh of one.  ``last_shard_stats`` (after a
+    ``run_grid`` on the process lane, else None): a dict a shard, in mesh
+    order, of its ``device``, worker ``pid``, ``lanes``, ``sweep_s`` and card
+    ``held_bytes`` / ``peak_bytes`` (None on the CPU); ``pool_start_s``: the
+    pool's start-up seconds.  ``close()`` (or ``with``) ends the workers.
     """
 
     def __init__(
@@ -272,14 +316,23 @@ class ExperimentEngine:
         warmup: bool = True,
         device=None,
         mesh=None,
+        processes=None,
     ):
         if device is None:
             device = "cuda" if mesh is None else GridMesh(mesh)[0]
         self.device = resolve_device(device)
         self.mesh = GridMesh((self.device,) if mesh is None else mesh)
+        self.processes = shards_in_processes(self.mesh, processes)
         self.last_data_plan = None
+        self.last_shard_stats = None
+        self.pool_start_s = None
+        self._pool = None
         if num_clients is not None:
             fl_cfg = dataclasses.replace(fl_cfg, num_clients=num_clients)
+        # what a worker process builds its own engine from (the process lane)
+        self._spec = dict(model_cfg=model_cfg, fl_cfg=fl_cfg, dataset=dataset,
+                          strategies=tuple(strategies), aggregators=tuple(aggregators),
+                          warmup=warmup)
         self.fl = fl_cfg
         self.warmup_enabled = bool(warmup)
         self.dataset = dataset
@@ -480,25 +533,83 @@ class ExperimentEngine:
         """``runs`` sharded over the mesh (the module docstring; without a
         mesh, one shard on the engine's device): padded by repeating the last
         run, cut into contiguous shards, each shard's lane groups swept on its
-        device, the shards in mesh order; the metrics gathered on the
-        engine's device in run order, padding dropped.  Sets
-        ``last_data_plan`` (None on one shard)."""
+        device, the shards in mesh order on the calling thread or each in its
+        worker process (``processes``); the metrics gathered on the engine's
+        device in run order, padding dropped.  Sets ``last_data_plan`` (None
+        on one shard) and ``last_shard_stats`` (None off the process lane)."""
         n, G = len(self.mesh), len(runs)
         padded = runs + runs[-1:] * (-G % n)
         per = len(padded) // n
-        self.last_data_plan = None
+        shards = [padded[s * per:(s + 1) * per] for s in range(n)]
+        self.last_data_plan = self.last_shard_stats = None
         if n > 1:
             row_idx = self._row_index(padded)
             shard_rows, _ = shard_local_rows(row_idx, n)
             self.last_data_plan = {"total_rows": max(row_idx) + 1,
                                    "rows_per_shard": int(shard_rows.shape[1]), "n_shards": n}
-        parts = []
-        for s, dev in enumerate(self.mesh):
-            with torch.cuda.device(dev) if dev.type == "cuda" else contextlib.nullcontext():
-                parts += self._sweep_groups(padded[s * per:(s + 1) * per], rounds, eval_every,
-                                            dev)
+        if self.processes:
+            parts = self._sweep_in_processes(shards, rounds, eval_every)
+        else:
+            parts = []
+            for shard, dev in zip(shards, self.mesh):
+                with torch.cuda.device(dev) if dev.type == "cuda" else contextlib.nullcontext():
+                    parts += self._sweep_groups(shard, rounds, eval_every, dev)
         metrics = self._cat(parts)
         return RoundMetrics(*[x[:G] for x in metrics])
+
+    def _sweep_in_processes(self, shards, rounds: int, eval_every: int) -> List[RoundMetrics]:
+        """Each shard swept by its worker process (``_shard_sweep``), all at
+        once; the shards' CPU metrics in mesh order.  The workers' launches
+        are added to this process's counters; ``last_shard_stats`` gets each
+        worker's device, pid, lanes, sweep seconds and card memory (held
+        when the call began, and the peak since; None on the CPU)."""
+        args = [(shard, rounds, eval_every, self.batched) for shard in shards]
+        try:
+            pickle.dumps(args)
+        except (pickle.PicklingError, AttributeError, TypeError) as e:
+            raise TypeError("run_grid on the process lane sends each worker its runs, and "
+                            f"they do not pickle (a custom TrafficConfig scenario must): {e}"
+                            ) from e
+        pool = self._shard_pool()
+        try:
+            outs = pool.run(_shard_sweep, args)
+        finally:
+            if not pool.alive:
+                self._pool = None
+        deltas: Dict[tuple, int] = {}
+        for out in outs:
+            for k, v in out["launches"].items():
+                deltas[k] = deltas.get(k, 0) + v
+        add_launches(deltas)
+        self.last_shard_stats = [
+            dict(device=str(dev), pid=pid, lanes=len(shard), sweep_s=out["sweep_s"],
+                 held_bytes=out["held_bytes"], peak_bytes=out["peak_bytes"])
+            for dev, pid, shard, out in zip(self.mesh, pool.pids, shards, outs)]
+        return [out["metrics"] for out in outs]
+
+    def _shard_pool(self) -> ShardPool:
+        """The engine's workers, one a shard in mesh order, started at first
+        use (the kernel library built first, here, when the mesh is on
+        CUDA); ``pool_start_s`` their start-up."""
+        if self._pool is None:
+            if any(d.type == "cuda" for d in self.mesh):
+                kbuild.build()
+            self._pool = ShardPool(self.mesh, init=_start_shard, init_args=(self._spec,))
+            self.pool_start_s = self._pool.start_s
+        return self._pool
+
+    def close(self) -> None:
+        """End the engine's worker processes, if any (idempotent); the next
+        sharded ``run_grid`` on the process lane starts new ones."""
+        if self._pool is not None:
+            self._pool.close()
+            self._pool = None
+
+    def __enter__(self) -> "ExperimentEngine":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()
 
     def run_single(
         self,
@@ -517,3 +628,40 @@ class ExperimentEngine:
             eval_every=eval_every,
         )
         return metrics_to_records(RoundMetrics(*[x[0] for x in result.metrics]))
+
+
+def _start_shard(worker, spec: dict) -> ExperimentEngine:
+    """A worker process's engine (``utils.procs.ShardPool``'s ``init``): the
+    caller's constructor arguments on the worker's device, without a mesh;
+    kept for the pool's life, so its round steps and caches stay warm."""
+    return ExperimentEngine(**spec, device=worker.device)
+
+
+def _shard_sweep(worker, runs, rounds: int, eval_every: int, batched: bool) -> dict:
+    """A worker's shard: ``runs`` swept in lane groups by the worker's
+    engine (``_sweep_groups``, the in-process turn's body) on the path the
+    caller's engine takes.  -> its ``(per, rounds)`` metrics on the CPU, its
+    launch-counter deltas, the sweep's seconds, and the card's bytes held
+    when the call began and peak since (None on the CPU).  Then the worker
+    returns its cached blocks to the card: processes share a card (the
+    caller and the worker on cuda:0, two workers of one card), and a grid
+    of several lane groups leaves about twice its peak cached."""
+    eng, dev = worker.state, worker.device
+    eng.batched = batched
+    cuda = dev.type == "cuda"
+    if cuda:
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+    held = torch.cuda.memory_allocated(dev) if cuda else None
+    before = launch_counts()
+    t0 = time.perf_counter()
+    parts = eng._sweep_groups(runs, rounds, eval_every, dev)
+    metrics = RoundMetrics(*[torch.cat(xs).cpu() for xs in zip(*parts)])  # waits for the card
+    sweep_s = time.perf_counter() - t0
+    after = launch_counts()
+    out = dict(metrics=metrics, sweep_s=sweep_s, held_bytes=held,
+               peak_bytes=torch.cuda.max_memory_allocated(dev) if cuda else None,
+               launches={k: after[k] - before[k] for k in after if after[k] != before[k]})
+    if cuda:
+        torch.cuda.empty_cache()
+    return out

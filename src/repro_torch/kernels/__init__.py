@@ -22,6 +22,8 @@ goes to the calling thread's current device, whatever card its operands
 are on), keys its per-device caches on indexed devices (``indexed``:
 ``cuda`` is ``cuda:<current>``), and counts its launches under a lock
 (``count_launch``), so that host threads launching at once lose no count.
+A worker process counts its own launches; its caller adds them to its
+counters (``launch_counts``, ``add_launches``: the engine's process lane).
 """
 import sys
 import threading
@@ -69,3 +71,31 @@ def count_launch(module: str, counter: str = "launches") -> None:
     mod = sys.modules[module]
     with _COUNT_LOCK:
         setattr(mod, counter, getattr(mod, counter) + 1)
+
+
+# every launch counter: (kernel module, counter)
+COUNTERS = (("rttg_latency", "launches"), ("rttg_latency", "grid_launches"),
+            ("fedavg_reduce", "launches"), ("fedavg_reduce", "grid_launches"),
+            ("server_update", "launches"), ("server_update", "buffered_launches"),
+            ("server_update", "grid_launches"), ("server_update", "buffered_grid_launches"),
+            ("rsu_reduce", "launches"), ("rsu_reduce", "grid_launches"),
+            ("swa_decode", "launches"), ("ssd_scan", "launches"),
+            ("pairwise_cosine", "launches"))
+
+
+def launch_counts() -> dict:
+    """Every launch counter of this process, ``{(module, counter): count}``."""
+    import importlib
+
+    return {(m, c): getattr(importlib.import_module(f"{__name__}.{m}"), c) for m, c in COUNTERS}
+
+
+def add_launches(deltas: dict) -> None:
+    """Add ``{(module, counter): n}`` (another process's launches, say) to
+    this process's counters, under ``count_launch``'s lock."""
+    import importlib
+
+    mods = {m: importlib.import_module(f"{__name__}.{m}") for m, _ in deltas}
+    with _COUNT_LOCK:
+        for (m, c), n in deltas.items():
+            setattr(mods[m], c, getattr(mods[m], c) + n)

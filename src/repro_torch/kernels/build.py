@@ -8,13 +8,16 @@ The sources are compiled for ``sm_90a`` at first use, one ``nvcc`` per source
 started together, and linked into ``build/kernels/libkernels-<hash>.so`` at
 the repository root; the hash covers the sources, the headers they include and
 the flags, so an edited source rebuilds.  ``build`` and ``library`` hold a
-lock, so host threads that meet the library first at once build it once.
-Nothing here runs at import time.
+lock, and around the build a file lock in ``BUILD_DIR``, so host threads
+and processes (a sharded grid's workers) that meet a missing library at
+once build it once: the others wait, then load it.  Nothing here runs at
+import time.
 """
 from __future__ import annotations
 
 import ctypes
 import dataclasses
+import fcntl
 import hashlib
 import os
 import shutil
@@ -88,7 +91,20 @@ def _digest() -> str:
 def build(force: bool = False) -> BuildInfo:
     """Compile the sources in parallel and link the library; return what it cost."""
     with _LOCK:
-        return _build(force)
+        return _build_across_processes(force)
+
+
+def _build_across_processes(force: bool) -> BuildInfo:
+    """``_build`` under an exclusive lock on ``BUILD_DIR/.lock``: another
+    process building the same library finishes first, and this one finds
+    it built."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(BUILD_DIR / ".lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        try:
+            return _build(force)
+        finally:
+            fcntl.flock(lock, fcntl.LOCK_UN)
 
 
 def _build(force: bool) -> BuildInfo:
@@ -144,7 +160,7 @@ def library() -> ctypes.CDLL:
         return _LIBRARY
     with _LOCK:
         if _LIBRARY is None:
-            info = _INFO or _build(False)
+            info = _INFO or _build_across_processes(False)
             lib = ctypes.CDLL(str(info.path))
             for name, argtypes in _SIGNATURES.items():
                 fn = getattr(lib, name)

@@ -2,12 +2,14 @@
 share an experiment grid's lanes.
 
 The reference's 1-D ``("data",)`` mesh shards a grid's lanes over every
-visible device, one ``shard_map`` program for all of them.  Here a mesh is a
-tuple of devices: ``ExperimentEngine(..., mesh=make_grid_mesh())`` cuts the
-grid into contiguous shards, one a device, and runs each shard's lane groups
-on its own device from one process: one host thread issues every card's
-launches, the shards in turn.  A device may appear more than once: its
-shards then run in turn on it.  ``GridMesh`` itself lives in
+visible device, one ``shard_map`` program for all of them, every shard at
+once.  Here a mesh is a tuple of devices: ``ExperimentEngine(...,
+mesh=make_grid_mesh())`` cuts the grid into contiguous shards, one a
+device, and sweeps each shard's lane groups on its own card in a worker
+process of its own (``utils.procs.ShardPool``), all at once.  A device may
+appear more than once (``GridMesh((cuda:0, cuda:0))``, every CPU mesh):
+its shards then run in turn on the calling thread, unless the engine is
+built with ``processes=True``.  ``GridMesh`` itself lives in
 ``utils.device``, beside ``resolve_device``, so that the engine does not
 depend on the command-line launchers of ``launch``.
 

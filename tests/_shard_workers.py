@@ -1,0 +1,74 @@
+"""Worker-side functions for the tests of ``repro_torch.utils.procs.ShardPool``.
+
+A spawned worker unpickles the function it runs by its module's name, so
+these live in a module of their own that imports neither JAX nor a test
+module.  Each takes the worker (``procs.Worker``) first.
+"""
+import os
+import time
+
+import torch
+
+from repro_torch.fl import engine
+from repro_torch.kernels import build as kbuild
+from repro_torch.kernels import count_launch
+
+
+def whoami(worker):
+    """-> (rank, device, world, pid, torch threads, what init left)."""
+    return (worker.rank, str(worker.device), worker.world, os.getpid(),
+            torch.get_num_threads(), worker.state)
+
+
+def remember(worker, value):
+    """A pool ``init``: the worker keeps ``(rank, value)`` as its state."""
+    return worker.rank, value
+
+
+def boom(worker, rank):
+    """Raise on rank ``rank``; the others answer."""
+    if worker.rank == rank:
+        raise ValueError(f"boom on rank {rank}")
+    return worker.rank
+
+
+def nap(worker, seconds):
+    """Sleep ``seconds`` (a call that something can interrupt)."""
+    time.sleep(seconds)
+    return worker.rank
+
+
+def counted_sweep(worker, *args):
+    """The engine's shard body, with ``rank + 1`` B1g and ``2 (rank + 1)``
+    B2g launches counted first, as a card's sweep would count them."""
+    for _ in range(worker.rank + 1):
+        count_launch("repro_torch.kernels.rttg_latency", "grid_launches")
+        count_launch("repro_torch.kernels.fedavg_reduce", "grid_launches")
+        count_launch("repro_torch.kernels.fedavg_reduce", "grid_launches")
+    out = engine._shard_sweep(worker, *args)
+    for k, v in ((("rttg_latency", "grid_launches"), worker.rank + 1),
+                 (("fedavg_reduce", "grid_launches"), 2 * (worker.rank + 1))):
+        out["launches"][k] = out["launches"].get(k, 0) + v
+    return out
+
+
+def stub_build(worker, build_dir, log):
+    """``kernels.build.build()`` into ``build_dir`` with the compile stubbed:
+    a slow compile (1 s, so that another process arrives meanwhile) that
+    appends its pid to ``log`` and writes the library.  -> (pid, the
+    build's seconds, 0.0 where the library was found built, its path)."""
+    kbuild.BUILD_DIR = type(kbuild.BUILD_DIR)(build_dir)
+    kbuild._nvcc = lambda: "nvcc"
+
+    def compile_and_link(nvcc, obj_dir, lib):
+        with open(log, "a") as f:
+            f.write(f"{os.getpid()}\n")
+        time.sleep(1.0)
+        tmp = obj_dir / lib.name
+        tmp.write_bytes(b"stub")
+        os.replace(tmp, lib)
+        return ""
+
+    kbuild._compile_and_link = compile_and_link
+    info = kbuild.build()
+    return os.getpid(), info.seconds, str(info.path)

@@ -125,9 +125,11 @@ def test_the_engine_picks_its_path_once_from_registry_lane_and_size(kw, batched)
 
 
 def test_no_argument_chooses_the_path():
+    """No constructor argument picks the batched round or the lane loop
+    (``processes`` picks how a sharded grid's shards run, not the round)."""
     params = list(inspect.signature(ExperimentEngine.__init__).parameters)
     assert params == ["self", "model_cfg", "fl_cfg", "dataset", "strategies", "num_clients",
-                      "aggregators", "warmup", "device", "mesh"]
+                      "aggregators", "warmup", "device", "mesh", "processes"]
 
 
 def test_the_batched_round_refuses_lanes_it_does_not_serve():

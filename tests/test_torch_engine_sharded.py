@@ -16,10 +16,11 @@ lanes against the reference engine are held by ``test_torch_engine.py``;
 here one seed-heavy sharded grid is held against the reference's
 ``run_grid`` too.  Also here: the mesh's refusals without CUDA, the shards
 run on the calling thread, and the kernel helpers that let any host thread
-launch on any card (the locked launch counters, the locked build, every C
-entry call made on its operand's card, the per-device shared-memory
-grants), and the eval's test loss through ``row_mean``, whose value for a
-lane does not depend on its lane group.
+launch on any card (the locked launch counters, the build locked across
+threads and across processes, every C entry call made on its operand's
+card, the per-device shared-memory grants), and the eval's test loss
+through ``row_mean``, whose value for a lane does not depend on its lane
+group.
 """
 import ast
 import shutil
@@ -349,6 +350,22 @@ def test_the_build_runs_once_for_threads_that_meet_it_at_once(monkeypatch, tmp_p
     for t in threads:
         t.join()
     assert calls == {"build": 1, "load": 1} and len({id(x) for x in libs}) == 1
+
+
+def test_the_build_runs_once_for_processes_that_meet_it_at_once(tmp_path):
+    """``build()`` in two worker processes at once, into an empty build
+    directory with the compile stubbed (1 s): one compiles, the other waits
+    on the file lock and finds the library built."""
+    import _shard_workers
+
+    from repro_torch.utils.procs import ShardPool
+
+    log = tmp_path / "compiles"
+    with ShardPool(make_grid_mesh(2, device="cpu")) as pool:
+        outs = pool.run(_shard_workers.stub_build, [(str(tmp_path / "kernels"), str(log))] * 2)
+    assert log.read_text().split() in ([str(outs[0][0])], [str(outs[1][0])])
+    assert sorted(o[1] == 0.0 for o in outs) == [False, True]
+    assert outs[0][2] == outs[1][2] and Path(outs[0][2]).read_bytes() == b"stub"
 
 
 def test_devices_are_indexed_for_the_caches():

@@ -2264,6 +2264,55 @@ def two_cards(dev):
     return torch.device("cuda", 0), torch.device("cuda", 1)
 
 
+def _process_lane_vs_one_card(mesh, processes):
+    """The 6-lane pad grid (as above) through the process lane on ``mesh``
+    against the unsharded grid on cuda:0: every lane bit for bit, the
+    workers' launches added to this process's counters exactly (2 B1g and
+    1 B2g a round of each shard's one lane group), one worker a shard on its
+    device, each with its sweep seconds and card peak."""
+    from repro_torch.config import FLConfig
+    from repro_torch.configs import get_config
+    from repro_torch.fl import ExperimentEngine
+
+    card = torch.device("cuda", 0)
+    fl = FLConfig(num_clients=20, samples_per_client=64, local_epochs=1, num_clusters=3,
+                  batch_size=32, recluster_every=2)
+    model = get_config("fl-mnist-mlp").replace(d_ff=32)
+    grid = dict(seeds=(0, 1), scenarios=("ring", "rush_hour", "platoon"), rounds=2,
+                eval_every=2)
+    want = ExperimentEngine(model, fl, "mnist", device=card).run_grid(**grid)
+    n = len(mesh)
+    with ExperimentEngine(model, fl, "mnist", mesh=mesh, processes=processes) as eng:
+        assert eng.processes and eng.device == card
+        before = rttg_mod.grid_launches, fedavg_mod.grid_launches
+        got = eng.run_grid(**grid)
+        assert (rttg_mod.grid_launches - before[0],
+                fedavg_mod.grid_launches - before[1]) == (4 * n, 2 * n)
+        assert got.runs == want.runs and _same_metrics(got.metrics, want.metrics)
+        assert got.metrics.test_acc.device == card
+        stats = eng.last_shard_stats
+        assert [s["device"] for s in stats] == [str(d) for d in mesh]
+        assert all(s["peak_bytes"] > 0 and s["sweep_s"] > 0 for s in stats)
+        assert len({s["pid"] for s in stats}) == n and eng.pool_start_s > 0
+        pool = eng._pool
+    assert eng._pool is None and not pool.alive
+
+
+def test_the_process_lane_of_two_workers_on_one_card_is_the_one_card_grid_bitwise(dev):
+    from repro_torch.launch.mesh import GridMesh
+
+    card = torch.device("cuda", 0)
+    _process_lane_vs_one_card(GridMesh((card, card)), True)
+
+
+def test_the_process_lane_on_every_card_is_the_one_card_grid_bitwise(two_cards):
+    """``make_grid_mesh()`` on two or more cards takes the process lane by
+    default: a worker a card."""
+    from repro_torch.launch.mesh import make_grid_mesh
+
+    _process_lane_vs_one_card(make_grid_mesh(), None)
+
+
 def _on_thread(fn, current):
     """``fn()`` on a new host thread whose current device is ``current``."""
     import threading
