@@ -18,7 +18,16 @@ path's round walls and profile, and the bench grid's sweeps and round
 profile); run it on both trees in turns (parent, change, change, parent) in
 one call to compare them.  The third runs phases 1 and 2 and then
 only the engine's sharded grids (``sharded_phase``), over every visible
-card: the form to run on several cards.
+card, and on ``SHARDED_RANKS`` (4) or more cards the LM zoo sharded a rank a
+card over NCCL (``lm_sharded_cards``): mixtral-8x7b and internvl2-76b in
+fp32 at full width and 2 layers and the three configs of ``SHARDED_LM`` in
+bf16 at 16 layers against one card's run (``lm_sharded_vs_one_card``, as
+phase 4l; one card's 16-layer runs, with their set-up, prefill, decode and
+peak, are the serving rows that phase 6 cut to 8 layers), then each of the
+three at full width and depth (32, 32 and 80 layers; ``serve_sharded_full``):
+parameters, each rank's set-up, prefill, decode and peak, tokens/s, each
+card's contexts, exact launches, a profiled decode step a rank: the form to
+run on several cards.
 
 Phases (any failure raises and exits non-zero):
 
@@ -103,7 +112,9 @@ Phases (any failure raises and exits non-zero):
    4,096-slot ring and its global layers at D=256 with softcap 50, G=2 at
    D=128, qwen1.5-0.5b's G=1 at D=64, mamba2-130m's prefill), at the moe and
    vlm families' (mixtral-8x7b's wrapped 4,096-slot ring at G=2, phi3.5-moe's
-   B=4, internvl2-76b's G=4), at whisper-small's self ring (64 slots,
+   B=4, internvl2-76b's G=4; and their per-rank shapes served sharded over
+   4 ranks, ``SHARDED_SWA_SHAPES``: 4 kv heads a rank), at whisper-small's
+   self ring (64 slots,
    wrapped) and cross-attention (1,500 frames, every one visible) and at
    their edges (a ragged split, one slot, G=1, a partly filled and a
    wrapped ring, rows with no visible slot, softcap; a window narrower than
@@ -269,6 +280,21 @@ Phases (any failure raises and exits non-zero):
    ``WIDE_PEAK_BYTES``), two of its lanes against the lane loop; one grid
    round of the N = 2,048 grid and of the greedy grid's first lane group (2
    lanes) profiled: device ops, busy ms, idle share and B1g's share;
+4l. the LM zoo sharded (``lm_sharded_phase``): ``SHARDED_RANKS`` ranks sharing
+   cuda:0 (``ShardedServer`` on ``LMMesh([[cuda:0] * 4])``: ``gloo``, every
+   collective copied to the host and back, since ``gloo``'s all-gather takes
+   no CUDA tensor), full width cut to 2 layers at ``SHARDED_LM``'s batch and
+   prompt, 4 decode steps, against one card's run of the same config in the
+   same process, its MoE layers at world 1 (``local_moe``: the ranks'
+   capacity): mixtral-8x7b and internvl2-76b in fp32 (greedy tokens equal,
+   logits within ``PATH_TOL``) and all three in bf16 (teacher-forced with one
+   card's tokens, logits within ``PATH_TOL``); both routed as one card routed
+   (``RouteLog``, each flip within ``FLIP_MARGIN`` of a tie), the dropped
+   copies equal, every rank's tokens equal, exactly attention layers x
+   decode steps ``swa_decode`` launches a rank and no other kernel; then
+   mixtral-8x7b's MoE layer at full width on a skewed input that drops
+   copies, the 4 ranks' ``moe_ffn_local`` against world 1's: expert ids,
+   slots and the kept mask equal, y within ``PATH_TOL``;
 5. times: each kernel (CUDA events, after warm-up) beside its bound, its
    plain version and a one-call PyTorch yardstick (``pairwise_cosine`` at
    (100, 1024), (256, 4096) and (20,000, 1,024)), and for every kernel and
@@ -315,8 +341,9 @@ Phases (any failure raises and exits non-zero):
    2048, 32), gemma2-9b (2 x 4160, 16: the local layers' ring wraps),
    mistral-nemo-12b and chatglm3-6b (2 x 512, 8), each with its times, peak
    memory, exact launch counts and one profiled decode step; then the moe
-   and vlm families the same way at full width and 16 layers (no more fits
-   one card): mixtral-8x7b (2 x 4160, 16: its window ring wraps),
+   and vlm families the same way at full width and 8 layers (their 16-layer
+   and full-depth runs are ``--sharded``'s): mixtral-8x7b (2 x 4160, 16: its
+   window ring wraps),
    phi3.5-moe (4 x 2048, 32) and internvl2-76b (2 x (256 image + 512), 16),
    each also with the copies its prefill dropped over capacity; last, the
    encdec family: whisper-small at full width and depth (12 + 12 layers), 4 x
@@ -356,6 +383,7 @@ heading carries the seconds since the script started.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
 import math
 import os
@@ -1340,15 +1368,32 @@ FAMILY_RUNS = (("mamba2-130m", 4, 2048, 32), ("qwen1.5-0.5b", 4, 2048, 32),
                ("chatglm3-6b", 2, 512, 8))
 # The moe and vlm families' runs: (arch, batch, prompt, gen, layers).  At full depth
 # none fits one card (bf16 weights: mixtral-8x7b 87.0 GiB, phi3.5-moe 78.0,
-# internvl2-76b 131), so each runs at full width and 16 layers: 43.7, 39.2 and 29.4
-# GiB beside what the script holds.  mixtral's 4,160-token prompt wraps its 4,096-slot
-# window ring; internvl2's 512 tokens follow its 256 image tokens.
-MOE_VLM_RUNS = (("mixtral-8x7b", 2, 4160, 16, 16), ("phi3.5-moe-42b-a6.6b", 4, 2048, 32, 16),
-                ("internvl2-76b", 2, 512, 16, 16))
+# internvl2-76b 131), so each runs here at full width and 8 layers; at 16 layers (43.7,
+# 39.2 and 29.4 GiB) one card's run is the base of ``--sharded``'s comparison, and the
+# full depth serves sharded over 4 cards there (``lm_sharded_cards``).  mixtral's
+# 4,160-token prompt wraps its 4,096-slot window ring; internvl2's 512 tokens follow its
+# 256 image tokens.
+MOE_VLM_RUNS = (("mixtral-8x7b", 2, 4160, 16, 8), ("phi3.5-moe-42b-a6.6b", 4, 2048, 32, 8),
+                ("internvl2-76b", 2, 512, 16, 8))
 # The encdec family's run: ``--arch whisper-small --full`` at the CLI's defaults, 12 +
 # 12 layers.  The prefill (no max_seq, as the CLI's) leaves a 64-slot self ring that
 # wraps on the first decode step; the cross-attention reads 1,500 cached frames.
 ENCDEC_RUNS = (("whisper-small", 4, 64, 32),)
+
+
+# The LM zoo sharded over ranks (phase 4l; ``--sharded`` on 4 cards): (arch, batch,
+# prompt, gen), the serving runs' shapes (§5 of PERF.md); B7's per-rank operands
+# there, the kv heads cut over 4 ranks: (B, C, Hkv, G, D, window, softcap, fills).
+SHARDED_LM = (("mixtral-8x7b", 2, 4160, 16), ("phi3.5-moe-42b-a6.6b", 4, 2048, 32),
+              ("internvl2-76b", 2, 512, 16))
+SHARDED_RANKS = 4
+SHARDED_STEPS = 4  # decode steps of a sharded-vs-one-card comparison
+SHARDED_FP32 = ("mixtral-8x7b", "internvl2-76b")  # expert-sharded MoE; a dense MLP
+SHARDED_SWA_SHAPES = {
+    "mixtral-8x7b": (2, 4096, 4, 2, 128, 4096, 0.0, (4175,) * 2),
+    "phi3.5-moe-42b-a6.6b": (4, 2080, 4, 2, 128, 0, 0.0, (2079,) * 4),
+    "internvl2-76b": (2, 784, 4, 4, 128, 0, 0.0, (783,) * 2),
+}
 
 
 def expected_serving_launches(cfg, steps: int) -> dict:
@@ -1546,6 +1591,53 @@ class pin_routes:
         self.moe.route = self.route
 
 
+class RouteLog:
+    """Within the block, every ``moe.route`` call of this process, in order: its
+    expert ids kept (``experts``) and its dropped copies counted on the device.
+    With ``follow`` (another run's expert ids, call by call) a call takes those
+    experts where its own differ, with gates and slots recomputed from its own
+    router probabilities (``moe.assign`` at its own capacity), and the flip is
+    kept as (call, token, the probability gap); as ``pin_routes`` does, across
+    processes: a sharded run's ranks enter it through
+    ``ShardedServer.generate(hook=functools.partial(RouteLog, follow))``."""
+
+    def __init__(self, follow=None):
+        self.follow = None if follow is None else list(follow)
+        self.experts, self.drops, self.flips, self.calls = [], [], [], 0
+
+    def __enter__(self):
+        from repro_torch.models import moe
+
+        self.moe, self.route = moe, moe.route
+
+        def route(router, xt, K, capacity_factor=1.25, capacity=None):
+            r = self.route(router, xt, K, capacity_factor, capacity)
+            call, self.calls = self.calls, self.calls + 1
+            if self.follow is not None:
+                theirs = self.follow[call].to(r.expert.device)
+                if not torch.equal(theirs, r.expert):
+                    N = xt.shape[0]
+                    probs = torch.softmax(xt.float() @ router.float(), dim=-1)
+                    mine, theirs = r.expert.view(N, K), theirs.view(N, K)
+                    for n in (mine != theirs).any(dim=1).nonzero()[:, 0].tolist():
+                        gap = float((probs[n, mine[n]] - probs[n, theirs[n]]).abs().max())
+                        self.flips.append((call, n, gap))
+                    r = moe.assign(probs, theirs, capacity_factor, r.capacity)
+            self.experts.append(r.expert)
+            self.drops.append((~r.keep).sum())
+            return r
+
+        moe.route = route
+        return self
+
+    def __exit__(self, *exc):
+        self.moe.route = self.route
+
+    def report(self) -> dict:
+        return {"drops": int(sum(self.drops)) if self.drops else 0, "flips": self.flips,
+                "calls": self.calls}
+
+
 def path_vs_plain(dtype: str, device, arch="hymba-1.5b", S=1100, batch=2, steps=4,
                   layers=2) -> float:
     """``arch`` cut to ``layers`` layers at full width: a prefill of ``S`` tokens
@@ -1624,17 +1716,15 @@ def path_vs_plain(dtype: str, device, arch="hymba-1.5b", S=1100, batch=2, steps=
     return max(errs)
 
 
-def moe_layer_vs_cpu(dtype: str, device, arch: str, B=2, S=512) -> int:
-    """One MoE layer of ``arch`` at full width on the card and on the CPU, on
-    identical inputs: seeded weights (1 / sqrt(fan-in)) and an input that leans
-    along router column 0, so that expert overflows its capacity.  Expert ids,
-    slots and the kept mask equal exactly; y and aux within ``PATH_TOL``; the
-    card's call makes no device-to-host sync.  -> the copies dropped."""
+def moe_layer_operands(dtype: str, device, arch: str, B=2, S=512):
+    """One MoE layer of ``arch`` at full width: seeded weights (1 / sqrt(fan-in))
+    and an input that leans along router column 0, so that expert overflows its
+    capacity; the same on every process that draws them on its card.
+    -> (cfg, p, x)."""
     from repro_torch.configs import get_config
-    from repro_torch.models import moe
 
     cfg = get_config(arch)
-    d, ff, E, K = cfg.d_model, cfg.d_ff, cfg.num_experts, cfg.experts_per_token
+    d, ff, E = cfg.d_model, cfg.d_ff, cfg.num_experts
     wdt = getattr(torch, dtype)
     g = torch.Generator(device=device)
     g.manual_seed(7)
@@ -1647,6 +1737,18 @@ def moe_layer_vs_cpu(dtype: str, device, arch: str, B=2, S=512) -> int:
     col = p["router"][:, 0]
     x = (0.5 * torch.randn((B, S, d), generator=g, device=device)
          + 6.0 * col / col.norm()).to(wdt)
+    return cfg, p, x
+
+
+def moe_layer_vs_cpu(dtype: str, device, arch: str, B=2, S=512) -> int:
+    """One MoE layer of ``arch`` at full width on the card and on the CPU, on
+    identical inputs (``moe_layer_operands``).  Expert ids, slots and the kept
+    mask equal exactly; y and aux within ``PATH_TOL``; the card's call makes no
+    device-to-host sync.  -> the copies dropped."""
+    from repro_torch.models import moe
+
+    cfg, p, x = moe_layer_operands(dtype, device, arch, B, S)
+    d, K = cfg.d_model, cfg.experts_per_token
     cpu_p, cpu_x = tree_to(p, "cpu"), x.cpu()
     torch.cuda.synchronize()
     with torch.no_grad():
@@ -1710,6 +1812,369 @@ def decode_vs_prefill(device, arch="hymba-1.5b") -> float:
           f"{S + 2}-token prefill: max_abs_err {err:.3e} (tol 2e-2), greedy tokens agree: "
           f"{bool(torch.equal(ld.argmax(-1), lfull.argmax(-1)))}")
     return err
+
+
+def sharded_moe_layer(worker, dtype: str, arch: str) -> dict:
+    """A rank's ``moe_ffn_local`` of ``moe_layer_operands`` (drawn again on the
+    rank's card, its block cut: expert-sharded, the rank's E / world experts;
+    else its slice of every expert's ffn) over the process group of the
+    ``ShardedServer`` whose worker runs it.  -> y and the routing, on the CPU."""
+    import torch.distributed as dist
+
+    from repro_torch.models import moe
+    from repro_torch.sharding import SERVE_RULES
+    from repro_torch.sharding.shard import Rank, coords_of
+
+    cfg, p, x = moe_layer_operands(dtype, worker.device, arch)
+    n, r, E = worker.world, worker.rank, cfg.num_experts
+    mesh = {"data": 1, "model": n}
+    rank = Rank(r, n, mesh, coords_of(r, mesh), SERVE_RULES, group=dist.group.WORLD,
+                host_collectives=worker.device.type == "cuda", expert_sharded=E % n == 0)
+    if rank.expert_sharded:
+        e = E // n
+        local = {w: p[w][r * e:(r + 1) * e] for w in ("w_gate", "w_up", "w_down")}
+    else:
+        f = cfg.d_ff // n
+        local = {"w_gate": p["w_gate"][..., r * f:(r + 1) * f],
+                 "w_up": p["w_up"][..., r * f:(r + 1) * f], "w_down": p["w_down"][:, r * f:(r + 1) * f]}
+    local["router"] = p["router"]
+    B, S, d = x.shape
+    K = cfg.experts_per_token
+    with torch.no_grad():
+        y, _ = moe.moe_ffn_local(local, x, cfg, rank)
+        rt = moe.route(p["router"], x.reshape(B * S, d), K,
+                       capacity=moe.local_capacity(B * S, K, E))
+    out = {"y": y.float().cpu(), "expert": rt.expert.cpu(), "keep": rt.keep.cpu(),
+           "slot": torch.where(rt.keep, rt.slot, rt.capacity - 1).cpu()}
+    del p, local, x, y
+    torch.cuda.empty_cache()
+    return out
+
+
+def moe_layer_sharded(server, dtype: str, device, arch: str = "mixtral-8x7b") -> int:
+    """``arch``'s MoE layer at full width (``moe_layer_operands``, which drops
+    copies) on the server's ranks against ``moe_ffn_local`` at world 1 on this
+    process's card: expert ids, slots and the kept mask exactly equal, y within
+    ``PATH_TOL``.  -> the copies dropped."""
+    from repro_torch.models import moe
+    from repro_torch.sharding import SERVE_RULES
+    from repro_torch.sharding.shard import Rank
+
+    outs = server.run(sharded_moe_layer, (dtype, arch))
+    cfg, p, x = moe_layer_operands(dtype, device, arch)
+    B, S, d = x.shape
+    K, E = cfg.experts_per_token, cfg.num_experts
+    one = Rank(0, 1, {"data": 1, "model": 1}, {"data": 0, "model": 0}, SERVE_RULES,
+               expert_sharded=True)
+    with torch.no_grad():
+        y1, _ = moe.moe_ffn_local(p, x, cfg, one)
+        rt = moe.route(p["router"], x.reshape(B * S, d), K,
+                       capacity=moe.local_capacity(B * S, K, E))
+    want = {"expert": rt.expert.cpu(), "keep": rt.keep.cpu(),
+            "slot": torch.where(rt.keep, rt.slot, rt.capacity - 1).cpu()}
+    what = (f"{arch} MoE layer {dtype}, N={B * S}, C={rt.capacity}: {len(outs)} ranks "
+            f"({'expert-sharded' if E % len(outs) == 0 else 'ff-sliced'}) vs world 1")
+    for r, o in enumerate(outs):
+        for f in ("expert", "slot", "keep"):
+            if not torch.equal(o[f], want[f]):
+                raise AssertionError(f"{what}: rank {r}'s {f} differs")
+        if not torch.equal(o["y"], outs[0]["y"]):
+            raise AssertionError(f"{what}: rank {r}'s y differs from rank 0's")
+    drops = int((~want["keep"]).sum())
+    if drops == 0:
+        raise AssertionError(f"{what}: the skewed input dropped no copy")
+    tol = PATH_TOL[dtype]
+    y1 = y1.float().cpu()
+    torch.testing.assert_close(outs[0]["y"], y1, rtol=tol, atol=tol,
+                               msg=lambda m: f"{what}: y {m}")
+    print(f"{what}: {drops} of {B * S * K} copies dropped, expert ids / slots / kept mask "
+          f"equal on every rank, y max_abs_err {float((outs[0]['y'] - y1).abs().max()):.3e} "
+          f"(|y| <= {float(y1.abs().max()):.2f}, tol {tol})")
+    del p, x, y1
+    torch.cuda.empty_cache()
+    return drops
+
+
+def peak_text(o) -> str:
+    """A rank's peak device memory and what it held when its run began."""
+    if o["peak_bytes"] is None:
+        return "not measured (CPU)"
+    return (f"{o['peak_bytes'] / 2**30:.2f} GiB (held {o['held_bytes'] / 2**30:.2f} at its "
+            f"run's start)")
+
+
+def serve_line(res, arch, batch, prompt, gen, n_params, card) -> str:
+    """A serving run's times as ``serve_full`` prints them."""
+    return (f"{arch} {res.cfg.dtype}, {res.cfg.num_layers} layers, {n_params:,} parameters: "
+            f"set-up {res.setup_s:.2f} s; prefill {batch}x{prompt} "
+            f"{res.prefill_s * 1e3:.1f} ms; {gen - 1} decode steps {res.decode_s * 1e3:.1f} ms "
+            f"({res.decode_s / max(gen - 1, 1) * 1e3:.2f} ms a step, "
+            f"{batch * gen / res.decode_s:.1f} tok/s as the CLI counts) [{card}]")
+
+
+class local_moe:
+    """Within the block, this process's MoE layers take the expert-parallel form
+    at world 1 (``moe_ffn_local`` on a (1, 1) rank: the reference's
+    ``_moe_shard_map`` on a (1, 1) mesh), so that one card's run has the ranks'
+    capacity (rounded to 8, not 128).  With random routers a full-width layer
+    drops ~30% of its copies (PERF.md §5), so the one-program capacity would
+    give another function."""
+
+    def __enter__(self):
+        from repro_torch.models import moe
+        from repro_torch.models import transformer as tf
+        from repro_torch.sharding import SERVE_RULES
+        from repro_torch.sharding.shard import Rank
+
+        one = Rank(0, 1, {"data": 1, "model": 1}, {"data": 0, "model": 0}, SERVE_RULES,
+                   expert_sharded=True)
+        self.tf, self.moe_ffn = tf, tf.moe_ffn
+        tf.moe_ffn = lambda p, x, cfg: moe.moe_ffn_local(p, x, cfg, one)
+        return self
+
+    def __exit__(self, *exc):
+        self.tf.moe_ffn = self.moe_ffn
+
+
+def lm_sharded_vs_one_card(server, device, card, arch, batch, prompt, layers, dtype,
+                           steps=SHARDED_STEPS) -> dict:
+    """``arch`` at full width cut to ``layers`` layers in ``dtype``: one card's serve
+    (its MoE layers at world 1, ``local_moe``), then the server's ranks'
+    (``ShardedServer.generate``), launch counts zeroed just before and read just
+    after.  The ranks route as one card routed (``RouteLog``; each flip within
+    ``FLIP_MARGIN`` of a tie).  fp32: greedy tokens equal, last logits within
+    ``PATH_TOL``; bf16: the ranks teacher-forced with one card's tokens, last
+    logits within ``PATH_TOL``.  Both: every rank's tokens equal, the dropped
+    copies equal, ``swa_decode`` launched once an attention layer and decode
+    step on every rank, no other kernel.  -> the ranks' launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve as serve_mod
+
+    cfg = cut_depth(get_config(arch), layers).replace(dtype=dtype)
+    gen = steps + 1
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    with local_moe(), RouteLog() as one:
+        want = serve_mod.serve(cfg=cfg, batch=batch, prompt_len=prompt, gen=gen, device=device)
+    peak = torch.cuda.max_memory_allocated() - held
+    n_params = sum(x.numel() for x in _leaves(want.params))
+    print("one card: " + serve_line(want, arch, batch, prompt, gen, n_params, card)
+          + f"; peak {peak / 2**30:.2f} GiB above the {held / 2**30:.2f} held")
+    tokens, logits = want.tokens.cpu(), want.logits.float().cpu()
+    follow = [e.cpu() for e in one.experts]
+    one_drops = one.report()["drops"]
+    del want, one
+    torch.cuda.empty_cache()
+    loaded = server.load(cfg)
+    reset_launches()
+    res = server.generate(batch, prompt, gen, hook=functools.partial(RouteLog, follow),
+                          forced=tokens[:, :-1] if dtype == "bfloat16" else None)
+    launches = read_launches()
+    n = server.world
+    per_rank = {"swa_decode": cfg.num_layers * steps}
+    want_launches = dict.fromkeys(launches, 0)
+    want_launches["swa_decode"] = n * per_rank["swa_decode"]
+    if launches != want_launches:
+        raise AssertionError(f"{arch} sharded launches: expected {want_launches}, got {launches}")
+    for r, o in enumerate(res.ranks):
+        got = {m: c for (m, _), c in o["launches"].items()}
+        if got != per_rank:
+            raise AssertionError(f"{arch} sharded: rank {r} launched {got}, expected {per_rank}")
+        if o["hook"]["drops"] != one_drops:
+            raise AssertionError(f"{arch} sharded: rank {r} dropped {o['hook']['drops']} "
+                                 f"copies, one card {one_drops}")
+    flips = res.ranks[0]["hook"]["flips"]
+    for call, tok, gap in sorted(flips, key=lambda f: -f[2])[:3]:  # the widest three
+        step, layer = divmod(call, cfg.num_layers)
+        where = "prefill" if step == 0 else f"decode step {step - 1}"
+        print(f"{arch} {dtype} routing flip sharded vs one card: {where}, layer {layer}, token "
+              f"{tok}, router probabilities {gap:.3e} apart (allowed {FLIP_MARGIN[dtype]})")
+    widest = max((gap for _, _, gap in flips), default=0.0)
+    if widest > FLIP_MARGIN[dtype]:
+        raise AssertionError(f"{arch} sharded {dtype}: a routing flip {widest:.3e} from a tie")
+    if dtype == "float32" and not torch.equal(res.tokens, tokens):
+        raise AssertionError(f"{arch} sharded fp32: greedy tokens {res.tokens.tolist()} vs one "
+                             f"card's {tokens.tolist()}")
+    tol = PATH_TOL[dtype]
+    torch.testing.assert_close(res.logits, logits, rtol=tol, atol=tol,
+                               msg=lambda m: f"{arch} sharded vs one card {dtype}: {m}")
+    err = float((res.logits - logits).abs().max())
+    ranks = "; ".join(
+        f"rank {r}: set-up {o['setup_s']:.2f} s, prefill {o['prefill_s'] * 1e3:.1f} ms, decode "
+        f"{o['decode_s'] / steps * 1e3:.2f} ms a step, peak {peak_text(o)}"
+        for r, o in enumerate(res.ranks))
+    print(f"{arch} {dtype}, {layers} layers, B={batch}, prompt {prompt} + {steps} decode steps, "
+          f"{n} ranks ({server.backend}{', collectives through the host' if server.backend == 'gloo' else ''}) "
+          f"vs one card: last logits max_abs_err {err:.3e} (tol {tol}, |logits| <= "
+          f"{float(logits.abs().max()):.2f}); greedy tokens "
+          f"{'equal' if torch.equal(res.tokens, tokens) else 'teacher-forced'}; every rank's "
+          f"tokens equal; {one_drops} copies dropped on each side; {len(flips)} routing flip(s), "
+          f"the widest {widest:.3e} from a tie; "
+          f"{sum(x['params'] for x in loaded):,} parameters held over the ranks (replicated "
+          f"leaves once a rank) [{card}]")
+    print(f"  {ranks}")
+    return launches
+
+
+def lm_sharded_phase(device, card) -> dict:
+    """Phase 4l: ``SHARDED_RANKS`` ranks sharing cuda:0 (``gloo``, every collective
+    copied to the host and back: ``gloo``'s all-gather takes no CUDA tensor):
+    fp32 ``SHARDED_FP32`` and bf16 ``SHARDED_LM`` at full width and 2 layers
+    against one card's run, then mixtral-8x7b's MoE layer on the ranks against
+    world 1.  -> the ranks' launches summed."""
+    from repro_torch.launch import serve as serve_mod
+    from repro_torch.utils.device import LMMesh
+
+    mesh = LMMesh([[device] * SHARDED_RANKS])
+    total = dict.fromkeys(read_launches(), 0)
+    with serve_mod.ShardedServer(mesh) as server:
+        print(f"{mesh}: backend {server.backend}, the pool's start-up {server.start_s:.2f} s")
+        runs = [(a, b, p, "float32") for a, b, p, _ in SHARDED_LM if a in SHARDED_FP32] \
+            + [(a, b, p, "bfloat16") for a, b, p, _ in SHARDED_LM]
+        for arch, batch, prompt, dtype in runs:
+            phase(f"LM sharded: {arch} {dtype}, full width, 2 layers, {SHARDED_RANKS} ranks on "
+                  f"{device} vs one card")
+            for k, v in lm_sharded_vs_one_card(server, device, card, arch, batch, prompt, 2,
+                                               dtype).items():
+                total[k] += v
+        phase(f"LM sharded: mixtral-8x7b's MoE layer at full width, {SHARDED_RANKS} ranks vs "
+              f"world 1, a skewed input")
+        for dtype in ("float32", "bfloat16"):
+            moe_layer_sharded(server, dtype, device)
+    return total
+
+
+def lm_sharded_cards(device, card) -> None:
+    """``--sharded`` on ``SHARDED_RANKS`` or more cards: a rank a card over
+    ``nccl``: the fp32 configs at 2 layers and the three at 16 layers in bf16
+    against one card's run (``lm_sharded_vs_one_card``), then each of the three
+    at full depth (``serve_sharded_full``)."""
+    from repro_torch.launch import serve as serve_mod
+    from repro_torch.launch.mesh import make_lm_mesh
+
+    mesh = make_lm_mesh(SHARDED_RANKS)
+    with serve_mod.ShardedServer(mesh) as server:
+        print(f"{mesh}: backend {server.backend}, the pool's start-up {server.start_s:.2f} s")
+        for arch, batch, prompt, _ in SHARDED_LM:
+            if arch in SHARDED_FP32:
+                phase(f"LM sharded: {arch} fp32, 2 layers, a rank a card vs one card")
+                lm_sharded_vs_one_card(server, device, card, arch, batch, prompt, 2, "float32")
+        for arch, batch, prompt, _ in SHARDED_LM:
+            phase(f"LM sharded: {arch} bf16, 16 layers, a rank a card vs one card")
+            lm_sharded_vs_one_card(server, device, card, arch, batch, prompt, 16, "bfloat16")
+        for arch, batch, prompt, gen in SHARDED_LM:
+            phase(f"LM sharded: {arch} at full width and depth, bf16, a rank a card")
+            serve_sharded_full(server, card, arch, batch, prompt, gen)
+
+
+def profiled_rank_step(worker, batch: int, prompt: int) -> dict:
+    """On a ``ShardedServer`` rank: the CLI's prefill, one decode step, then one
+    more decode step under torch.profiler (the device alone), with the host
+    seconds spent inside the rank's collective calls counted.  -> wall, device
+    ops, busy ms, idle share, the NCCL kernels' count and ms, the host ms in
+    collective calls, and the five costliest device ops."""
+    from repro_torch.launch import serve as serve_mod
+    from repro_torch.sharding import activation_sharding
+
+    state, device = worker.state, worker.device
+    api, rank, cfg = state["api"], state["rank"], state["api"].cfg
+    prompts = serve_mod.make_prompts(cfg, batch, prompt, device)
+    host = [0.0, 0]
+
+    def timed(fn):
+        def call(*a, **kw):
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            host[0] += time.perf_counter() - t0
+            host[1] += 1
+            return out
+        return call
+
+    reduce_, gather = rank.all_reduce, rank.all_gather
+    with torch.no_grad(), activation_sharding(state["mesh"], state["rules"], rank):
+        logits, cache = api.prefill(state["params"], prompts, serve_mod.max_seq_for(cfg, prompt, 2))
+        tok = torch.argmax(logits, dim=-1)
+        logits, cache = api.decode_step(state["params"], cache, tok)
+        tok = torch.argmax(logits, dim=-1)
+        rank.all_reduce, rank.all_gather = timed(reduce_), timed(gather)
+        try:
+            with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+                serve_mod._sync(device)
+                t0 = time.perf_counter()
+                api.decode_step(state["params"], cache, tok)
+                serve_mod._sync(device)
+                wall = time.perf_counter() - t0
+        finally:
+            rank.all_reduce, rank.all_gather = reduce_, gather
+    dev = [e for e in prof.events()
+           if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA]
+    by_name: dict = {}
+    for e in dev:
+        c, us_ = by_name.get(e.name, (0, 0.0))
+        by_name[e.name] = (c + 1, us_ + e.time_range.elapsed_us())
+    busy = sum(us_ for _, us_ in by_name.values()) / 1e3
+    nccl = [(c, us_) for n, (c, us_) in by_name.items() if "nccl" in n.lower()]
+    del cache
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    return {"wall_ms": wall * 1e3, "ops": len(dev), "busy_ms": busy,
+            "idle": 1 - busy / (wall * 1e3) if dev else None,
+            "nccl_ops": sum(c for c, _ in nccl), "nccl_ms": sum(u for _, u in nccl) / 1e3,
+            "collective_calls": host[1], "collective_host_ms": host[0] * 1e3,
+            "top": sorted(((n[:60], c, u / 1e3) for n, (c, u) in by_name.items()),
+                          key=lambda t: -t[2])[:5]}
+
+
+def serve_sharded_full(server, card, arch, batch, prompt, gen) -> dict:
+    """``arch`` at full width and depth (bf16) on the server's ranks, the CLI's
+    run: launch counts zeroed just before and read just after (``swa_decode``
+    once an attention layer, decode step and rank); parameters, each rank's
+    set-up, prefill, decode, peak, tokens/s, and each card's contexts."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config(arch)
+    loaded = server.load(cfg)
+    reset_launches()
+    res = server.generate(batch, prompt, gen)
+    launches = read_launches()
+    want = dict.fromkeys(launches, 0)
+    want["swa_decode"] = server.world * cfg.num_layers * (gen - 1)
+    if launches != want:
+        raise AssertionError(f"{arch} full depth sharded launches: expected {want}, got "
+                             f"{launches}")
+    if not bool(torch.isfinite(res.logits).all()) or not (
+            0 <= int(res.tokens.min()) and int(res.tokens.max()) < cfg.padded_vocab):
+        raise AssertionError(f"{arch} full depth sharded: bad logits or tokens")
+    n_params = sum(x["params"] for x in loaded)
+    print(serve_line(res, arch, batch, prompt, gen, n_params, card))
+    for r, o in enumerate(res.ranks):
+        print(f"  rank {r} ({server.mesh.devices[r]}): {loaded[r]['params']:,} parameters "
+              f"({loaded[r]['param_bytes'] / 2**30:.2f} GiB), set-up {o['setup_s']:.2f} s, "
+              f"prefill {o['prefill_s'] * 1e3:.1f} ms, decode {o['decode_s'] / (gen - 1) * 1e3:.2f} "
+              f"ms a step, peak {peak_text(o)}")
+    apps = compute_apps()
+    counts = {c: sum(1 for _, cc, _ in apps if cc == c) for c in range(torch.cuda.device_count())}
+    print(f"contexts a card {counts} (a rank's on each, and this process's on each card it "
+          f"has touched) [{card}]")
+    if any(counts[c] < 1 for c in range(server.world)):
+        raise AssertionError(f"a card of the mesh holds no context: {counts}")
+    print(f"sample row: {res.tokens[0][:16].tolist()}")
+    print(f"launches: {launches}")
+    for r, p in enumerate(server.run(profiled_rank_step, (batch, prompt))):
+        if not p["ops"]:
+            print(f"profiled decode step, rank {r}: the profiler recorded no device activity; "
+                  f"busy share not measured")
+            continue
+        print(f"profiled decode step, {arch} rank {r} (position {prompt + cfg.num_image_tokens + 1}): "
+              f"wall {p['wall_ms']:.1f} ms, {p['ops']} device ops, busy {p['busy_ms']:.2f} ms, "
+              f"idle {p['idle']:.3f}; {p['nccl_ops']} NCCL kernels {p['nccl_ms']:.3f} ms; "
+              f"{p['collective_calls']} collective calls {p['collective_host_ms']:.2f} ms on "
+              f"the host [{card}]")
+        if r == 0:
+            for name, c, ms in p["top"]:
+                print(f"  {c:5d} ops {ms:8.3f} ms  {name}")
+    return launches
 
 
 def check_records(state, records, eval_rounds=None) -> None:
@@ -3188,6 +3653,16 @@ def time_swa(lib, stream, B, C, hkv, G, D, window, softcap, fills, device, card)
              "library": time_ms(swa_library)}
     dev_us = {"kernel": device_us_per_call(swa_launch),
               "scaled_dot_product_attention": device_us_per_call(swa_library)}
+
+    def swa_captured():  # on the current stream, as a graph capture needs
+        q, k, v, kv_pos, pos = nxt()
+        kbuild.check(lib.swa_decode_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_pos.data_ptr(), pos.data_ptr(),
+            B, C, hkv, G, D, window, softcap, sqrt_d, 1, split, vec, out.data_ptr(),
+            scratch.data_ptr(), arrivals.data_ptr(), torch.cuda.current_stream().cuda_stream),
+            "swa_decode")
+
+    graph = graph_us(swa_captured)
     q, k, v, kv_pos, pos = sets[0]
     vis = int(visible(kv_pos, pos).sum())
     isz = k.element_size()
@@ -3208,7 +3683,8 @@ def time_swa(lib, stream, B, C, hkv, G, D, window, softcap, fills, device, card)
           f"{swa_bytes / 1e6:.2f} MB, {swa_flops / 1e6:.1f} MFLOP) [{card}]")
     print(f"  device time per call (profiler): kernel {dev_us['kernel']:.2f} us "
           f"({swa_bytes / (dev_us['kernel'] * 1e-6) / 1e9:.0f} GB/s), "
-          f"scaled_dot_product_attention {dev_us['scaled_dot_product_attention']:.2f} us "
+          f"scaled_dot_product_attention {dev_us['scaled_dot_product_attention']:.2f} us; "
+          f"kernel by graph replay {graph:.2f} us ({b_ms * 1e3 / graph:.3f} of the bound) "
           f"[{card}]")
     return {"ms": t["kernel"], "plain_ms": t["plain"], "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": t["library"]}
@@ -3289,6 +3765,7 @@ FAMILY_SWA_SHAPES = {  # arch: (B, C, Hkv, G, D, window, softcap, fills)
     "mixtral-8x7b": (2, 4096, 16, 2, 128, 4096, 0.0, (4175,) * 2),
     "phi3.5-moe-42b-a6.6b": (4, 2080, 16, 2, 128, 0, 0.0, (2079,) * 4),
     "internvl2-76b": (2, 784, 16, 4, 128, 0, 0.0, (783,) * 2),
+    **{f"{arch}, a rank of 4": shape for arch, shape in SHARDED_SWA_SHAPES.items()},
     "whisper-small self": (4, 64, 12, 1, 64, 0, 0.0, (95,) * 4),
     "whisper-small cross": (4, 1500, 12, 1, 64, 0, 0.0, (1500,) * 4),
 }
@@ -4868,6 +5345,11 @@ def main(argv=()) -> int:
     kbuild.library()
     if sharded_only:
         sharded_phase(device, card)
+        if torch.cuda.device_count() >= SHARDED_RANKS:
+            lm_sharded_cards(device, card)
+        else:
+            print(f"LM sharded over cards: {torch.cuda.device_count()} card(s) visible, "
+                  f"{SHARDED_RANKS} needed; not run")
         print(card)
         print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                                  "count": count}}))
@@ -5130,6 +5612,9 @@ def main(argv=()) -> int:
     check_swa(1, 1024, 2, 2, 64, 0, 0.0, (100,), torch.float32, device)  # empty splits
     check_swa(2, 1000, 5, 5, 64, 1024, 0.0, (1000, 2080), torch.bfloat16, device,
               blind=(0,))  # a blind row over 16 splits, a ragged last split
+    # the per-rank shapes of the three configs served sharded over 4 ranks (phase 4l)
+    for shape in SHARDED_SWA_SHAPES.values():
+        check_swa(*shape, torch.bfloat16, device)
     for dtype in (torch.bfloat16, torch.float32):
         check_swa(1, 200, 2, 16, 256, 0, 50.0, (200,), dtype, device)  # G 16, D 256
         check_swa(2, 130, 3, 2, 36, 0, 0.0, (130, 90), dtype, device)  # 4-byte multiple rows
@@ -5522,6 +6007,11 @@ def main(argv=()) -> int:
 
     # ---- 4k. batched grid rounds above 1,024 clients, in lane groups -------------
     grid_launches.update(wide_grids_phase(device, card))
+    torch.cuda.empty_cache()
+
+    # ---- 4l. the LM zoo sharded over ranks sharing the card -------------------------
+    sharded_lm_launches = lm_sharded_phase(device, card)
+    torch.cuda.empty_cache()
 
     def by_path(name, first, first_path="the main path"):
         """The parts of a kernel's ``launches``: ``first`` on ``first_path``,
@@ -5931,7 +6421,7 @@ def main(argv=()) -> int:
     # those calls read half the device time (torch 2.11 on an H100 80GB HBM3)
     phase("serving: the ssm and dense families at full width and depth, bf16")
     family_launches = serve_families(device, card, FAMILY_RUNS)
-    phase("serving: the moe and vlm families at full width, 16 layers, bf16")
+    phase("serving: the moe and vlm families at full width, 8 layers, bf16")
     family_launches.update(serve_families(device, card, MOE_VLM_RUNS))
     phase("serving: the encdec family at full width and depth, bf16")
     family_launches.update(serve_families(device, card, ENCDEC_RUNS))
@@ -5944,6 +6434,7 @@ def main(argv=()) -> int:
     # B7's launches over every serving run: hymba-1.5b's and the families'
     swa_row = next(k for k in kernels if k["name"] == "swa_decode")
     family_launches["serve_decode"] = path_launches["serve_decode"]  # phase 4j's
+    family_launches["sharded, 4 ranks (phase 4l)"] = sharded_lm_launches
     swa_row["launches"] += sum(c["swa_decode"] for c in family_launches.values())
     print(f"swa_decode launches by serving run: hymba-1.5b {serve_launches['swa_decode']}, "
           + ", ".join(f"{a} {c['swa_decode']}" for a, c in family_launches.items())

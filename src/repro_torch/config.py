@@ -1,7 +1,8 @@
 """Configuration dataclasses of the port.
 
 Own copies of the JAX package's ``ModelConfig``, ``FLConfig``,
-``TrafficConfig`` and ``TrainConfig`` (field for field, same defaults:
+``TrafficConfig``, ``TrainConfig`` and ``ShapeConfig`` (field for field, same
+defaults:
 the paper's section IV-A setting for ``FLConfig`` and ``TrafficConfig``).
 The port imports nothing of the JAX package, so these are kept in step with
 ``repro.config`` by the tests, which compare the fields and defaults.
@@ -133,6 +134,24 @@ class TrainConfig:
     optimizer: str = "adamw"  # adamw | sgd | momentum
     param_dtype: str = "float32"
     compute_dtype: str = "bfloat16"
+
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    """One of the four assigned workload shapes."""
+
+    name: str
+    seq_len: int
+    global_batch: int
+    mode: str  # train | prefill | decode
+
+
+INPUT_SHAPES: dict = {
+    "train_4k": ShapeConfig("train_4k", 4_096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32_768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524_288, 1, "decode"),
+}
 
 
 @dataclass(frozen=True)

@@ -16,6 +16,12 @@ the optimizer's step, as the reference's jitted step does.
 Autograd runs on fresh leaves that share the parameters' storage, so the
 state's tensors never carry grad.  ``make_prefill_step`` and
 ``make_decode_step`` run with grad off.
+
+``input_specs(cfg, shape)`` and ``cache_specs(api, shape)`` give a workload
+shape's model inputs and decode cache as ``(shapes, logical axes)`` trees,
+the reference's: each shape a ``(torch.Size, dtype)`` pair, nothing
+allocated, the axes for ``sharding.tree_pspecs``.  The optimizer state's
+axes (``opt_state_axes``) wait for sharded training (ROADMAP A13).
 """
 from __future__ import annotations
 
@@ -23,7 +29,7 @@ from typing import Any, NamedTuple
 
 import torch
 
-from repro_torch.config import TrainConfig
+from repro_torch.config import ModelConfig, ShapeConfig, TrainConfig
 from repro_torch.optim import OptState, clip_by_global_norm, make_optimizer
 from repro_torch.utils.pytree import tree_leaves, tree_map
 
@@ -31,6 +37,49 @@ from repro_torch.utils.pytree import tree_leaves, tree_map
 class TrainState(NamedTuple):
     params: Any
     opt_state: OptState
+
+
+class Spec(NamedTuple):
+    """A tensor's shape and dtype, nothing allocated."""
+
+    shape: torch.Size
+    dtype: torch.dtype
+
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def input_specs(cfg: ModelConfig, shape: ShapeConfig):
+    """(specs, logical axes) of the workload batch's model inputs (a decode
+    cache comes from ``cache_specs``)."""
+    B, S = shape.global_batch, shape.seq_len
+    dt = _DTYPES[cfg.dtype]
+    if shape.mode == "decode":
+        return ({"tokens": Spec(torch.Size((B,)), torch.int32)}, {"tokens": ("batch",)})
+    specs: dict = {}
+    axes: dict = {}
+    s_text = S
+    if cfg.family == "vlm":
+        s_text = S - cfg.num_image_tokens
+        specs["image_embeds"] = Spec(torch.Size((B, cfg.num_image_tokens, cfg.d_model)), dt)
+        axes["image_embeds"] = ("batch", "seq", "embed_act")
+    if cfg.family == "encdec":
+        specs["frames"] = Spec(torch.Size((B, cfg.encoder_seq, cfg.d_model)), dt)
+        axes["frames"] = ("batch", "seq", "embed_act")
+    specs["tokens"] = Spec(torch.Size((B, s_text)), torch.int32)
+    axes["tokens"] = ("batch", "seq")
+    if shape.mode == "train":
+        specs["targets"] = Spec(torch.Size((B, s_text)), torch.int32)
+        axes["targets"] = ("batch", "seq")
+    return specs, axes
+
+
+def cache_specs(api, shape: ShapeConfig):
+    """(specs, logical axes) of the decode cache after a context of
+    ``shape.seq_len`` positions (the cache tree built on the ``meta`` device)."""
+    B, S = shape.global_batch, shape.seq_len
+    meta = api.init_cache(B, S, S, device="meta")
+    return tree_map(lambda t: Spec(t.shape, t.dtype), meta), api.cache_axes()
 
 
 def value_and_grad(loss_fn, params, batch):

@@ -37,38 +37,74 @@ def _sinusoid(seq: int, d: int, device=None) -> torch.Tensor:
     return out
 
 
-def init_encdec(key, cfg, device=None) -> dict:
+def init_encdec(key, cfg, device=None, shard=None) -> dict:
     """Parameter tree of the reference's ``init_encdec``, from the same key
-    split (``ks[7]`` unused)."""
+    split (``ks[7]`` unused); ``shard``: each leaf's block (a rank's shard)."""
     dtype = torch_dtype(cfg)
     device = key.device if device is None else torch.device(device)
     Le, Ld, d = cfg.encoder_layers, cfg.num_layers, cfg.d_model
     ks = prng.split(key, 8)
+    enc, dec = L.blocks_of(shard, "encoder"), L.blocks_of(shard, "decoder")
 
-    def ones(n):
-        return L.ones_init((n, d), dtype, device)
-
-    def zeros(n):
-        return L.zeros_init((n, d), dtype, device)
+    def norms(n, where, names, init):
+        return {name: init((n, d), dtype, device, L.blocks_of(where, name)) for name in names}
 
     return {
-        "embed": L.init_embedding(ks[0], cfg.padded_vocab, d, dtype, device),
+        "embed": L.init_embedding(ks[0], cfg.padded_vocab, d, dtype, device,
+                                  L.blocks_of(shard, "embed")),
         "pos_embed": L.scaled_normal(ks[1], 0.01, (cfg.max_position_embeddings, d), dtype,
-                                     device),
+                                     device, L.blocks_of(shard, "pos_embed")),
         "encoder": {
-            "attn": L.init_attention(ks[2], cfg, Le, dtype, device),
-            "mlp": L.init_gelu_mlp(ks[3], d, cfg.d_ff, Le, dtype, device),
-            "ln1": ones(Le), "ln1b": zeros(Le), "ln2": ones(Le), "ln2b": zeros(Le),
+            "attn": L.init_attention(ks[2], cfg, Le, dtype, device,
+                                     shard=L.blocks_of(enc, "attn")),
+            "mlp": L.init_gelu_mlp(ks[3], d, cfg.d_ff, Le, dtype, device,
+                                   L.blocks_of(enc, "mlp")),
+            **norms(Le, enc, ("ln1", "ln2"), L.ones_init),
+            **norms(Le, enc, ("ln1b", "ln2b"), L.zeros_init),
         },
         "decoder": {
-            "self_attn": L.init_attention(ks[4], cfg, Ld, dtype, device),
-            "cross_attn": L.init_attention(ks[5], cfg, Ld, dtype, device, cross=True),
-            "mlp": L.init_gelu_mlp(ks[6], d, cfg.d_ff, Ld, dtype, device),
-            "ln1": ones(Ld), "ln1b": zeros(Ld), "lnx": ones(Ld), "lnxb": zeros(Ld),
-            "ln2": ones(Ld), "ln2b": zeros(Ld),
+            "self_attn": L.init_attention(ks[4], cfg, Ld, dtype, device,
+                                          shard=L.blocks_of(dec, "self_attn")),
+            "cross_attn": L.init_attention(ks[5], cfg, Ld, dtype, device, cross=True,
+                                           shard=L.blocks_of(dec, "cross_attn")),
+            "mlp": L.init_gelu_mlp(ks[6], d, cfg.d_ff, Ld, dtype, device,
+                                   L.blocks_of(dec, "mlp")),
+            **norms(Ld, dec, ("ln1", "lnx", "ln2"), L.ones_init),
+            **norms(Ld, dec, ("ln1b", "lnxb", "ln2b"), L.zeros_init),
         },
-        "final_norm": L.ones_init((d,), dtype, device),
-        "final_norm_b": L.zeros_init((d,), dtype, device),
+        "final_norm": L.ones_init((d,), dtype, device, L.blocks_of(shard, "final_norm")),
+        "final_norm_b": L.zeros_init((d,), dtype, device, L.blocks_of(shard, "final_norm_b")),
+    }
+
+
+def encdec_param_axes(cfg) -> dict:
+    """The logical axes of ``init_encdec``'s leaves (the reference's
+    annotations)."""
+    norm = ("layers", "embed")
+    enc_norms = {n: norm for n in ("ln1", "ln1b", "ln2", "ln2b")}
+    dec_norms = {n: norm for n in ("ln1", "ln1b", "lnx", "lnxb", "ln2", "ln2b")}
+    return {
+        "embed": ("vocab", "embed"),
+        "pos_embed": ("seq", "embed"),
+        "encoder": {"attn": L.attention_axes(cfg.qkv_bias), "mlp": L.GELU_MLP_AXES,
+                    **enc_norms},
+        "decoder": {"self_attn": L.attention_axes(cfg.qkv_bias),
+                    "cross_attn": L.attention_axes(bias=False),
+                    "mlp": L.GELU_MLP_AXES, **dec_norms},
+        "final_norm": ("embed",),
+        "final_norm_b": ("embed",),
+    }
+
+
+def encdec_cache_axes(cfg) -> dict:
+    """The logical axes of ``init_encdec_cache``'s leaves (the reference's
+    ``zoo._encdec_cache_axes``)."""
+    del cfg
+    kv = ("layers", "batch", "kv_seq", "kv_heads", "head_dim")
+    return {
+        "pos": ("batch",),
+        "self": {"k": kv, "v": kv, "pos": ("layers", "batch", "kv_seq"), "xk": kv, "xv": kv},
+        "enc_pos": ("batch", "kv_seq"),
     }
 
 

@@ -39,48 +39,91 @@ from repro_torch.utils import prng
 INIT_CHUNK = 2 ** 26
 
 
-def _chunked(draw, std: float, shape, dtype, device):
-    """``(std * draw(n, start)).to(dtype)`` over a tensor of ``shape``, the single
-    draw bit for bit, filled ``INIT_CHUNK`` elements at a time."""
-    out = torch.empty(tuple(shape), dtype=dtype, device=device)
+def block_shape(shape, block) -> tuple:
+    """The shape of ``block`` (a slice a dimension) of a tensor of ``shape``;
+    ``shape`` itself without a block."""
+    if block is None:
+        return tuple(shape)
+    return tuple(s.stop - s.start for s in block)
+
+
+def take(t, block):
+    """``block`` of ``t`` as a tensor of its own (``t`` without a block)."""
+    return t if block is None else t[tuple(block)].clone()
+
+
+def _block_index(start: int, n: int, shape, block, device) -> torch.Tensor:
+    """The flat indices in a tensor of ``shape`` of elements ``[start, start +
+    n)`` of ``block`` taken in row-major order -> (n,) int64."""
+    local = block_shape(shape, block)
+    rem = torch.arange(start, start + n, dtype=torch.int64, device=device)
+    idx = torch.zeros_like(rem)
+    stride = 1
+    for d in reversed(range(len(shape))):
+        i = rem % local[d] if d else rem
+        rem = rem // local[d]
+        idx += (i + block[d].start) * stride
+        stride *= shape[d]
+    return idx
+
+
+def _chunked(draw, std: float, shape, dtype, device, block=None):
+    """``(std * draw(n, start, at)).to(dtype)`` over a tensor of ``shape``, the
+    single draw bit for bit, filled ``INIT_CHUNK`` elements at a time; with
+    ``block`` (a slice a dimension: a rank's shard) only that block, each
+    element drawn at its flat index in the whole tensor (``at``).  On the
+    ``meta`` device nothing is drawn (the shapes of a tree)."""
+    out = torch.empty(block_shape(shape, block), dtype=dtype, device=device)
+    if out.device.type == "meta":
+        return out
     flat = out.view(-1)
     for start in range(0, flat.numel(), INIT_CHUNK):
         n = min(INIT_CHUNK, flat.numel() - start)
-        flat[start:start + n] = std * draw(n, start)
+        at = None if block is None else _block_index(start, n, shape, block, out.device)
+        flat[start:start + n] = std * draw(n, start, at)
     return out
 
 
-def _scaled_truncated_normal(key, std: float, shape, dtype, device):
+def _scaled_truncated_normal(key, std: float, shape, dtype, device, block=None):
     """``(std * truncated_normal(key, -2, 2, shape)).to(dtype)``, chunked."""
     device = key.device if device is None else torch.device(device)
-    return _chunked(lambda n, start: prng.truncated_normal(key, -2.0, 2.0, (n,), device, start),
-                    std, shape, dtype, device)
+    return _chunked(lambda n, start, at: prng.truncated_normal(key, -2.0, 2.0, (n,), device,
+                                                               start, at),
+                    std, shape, dtype, device, block)
 
 
-def scaled_normal(key, std: float, shape, dtype, device=None):
+def scaled_normal(key, std: float, shape, dtype, device=None, block=None):
     """``(std * normal(key, shape)).to(dtype)``, chunked (whisper's ``pos_embed``)."""
     device = key.device if device is None else torch.device(device)
-    return _chunked(lambda n, start: prng.normal(key, (n,), device, start),
-                    std, shape, dtype, device)
+    return _chunked(lambda n, start, at: prng.normal(key, (n,), device, start, at),
+                    std, shape, dtype, device, block)
 
 
-def dense_init(key, shape, in_axis_dims=None, dtype=torch.float32, scale=1.0, device=None):
-    """Truncated-normal fan-in init (``std * truncated_normal(-2, 2)``)."""
+def dense_init(key, shape, in_axis_dims=None, dtype=torch.float32, scale=1.0, device=None,
+               block=None):
+    """Truncated-normal fan-in init (``std * truncated_normal(-2, 2)``); with
+    ``block``, that block of it."""
     fan_in = in_axis_dims if in_axis_dims is not None else shape[0]
     std = scale / math.sqrt(max(fan_in, 1))
-    return _scaled_truncated_normal(key, std, shape, dtype, device)
+    return _scaled_truncated_normal(key, std, shape, dtype, device, block)
 
 
-def zeros_init(shape, dtype=torch.float32, device=None):
-    return torch.zeros(shape, dtype=dtype, device=device)
+def zeros_init(shape, dtype=torch.float32, device=None, block=None):
+    return torch.zeros(block_shape(shape, block), dtype=dtype, device=device)
 
 
-def ones_init(shape, dtype=torch.float32, device=None):
-    return torch.ones(shape, dtype=dtype, device=device)
+def ones_init(shape, dtype=torch.float32, device=None, block=None):
+    return torch.ones(block_shape(shape, block), dtype=dtype, device=device)
 
 
-def init_embedding(key, vocab: int, d: int, dtype, device=None):
-    return _scaled_truncated_normal(key, 0.02, (vocab, d), dtype, device)
+def init_embedding(key, vocab: int, d: int, dtype, device=None, block=None):
+    return _scaled_truncated_normal(key, 0.02, (vocab, d), dtype, device, block)
+
+
+def blocks_of(shard, name):
+    """The blocks of ``shard``'s entry ``name`` (a subtree of blocks, one a
+    leaf), or None when nothing is sharded (``shard`` None)."""
+    return None if shard is None else shard[name]
 
 
 # ---------------------------------------------------------------------------
@@ -190,23 +233,40 @@ def blocked_attention(q, k, v, q_positions, kv_positions, *, causal: bool, windo
 # ---------------------------------------------------------------------------
 
 
-def init_attention(key, cfg, num_layers: int, dtype, device=None, cross: bool = False):
+def init_attention(key, cfg, num_layers: int, dtype, device=None, cross: bool = False,
+                   shard=None):
     """Stacked attention params for ``num_layers`` layers; a cross-attention
-    (``cross``) has no bias."""
+    (``cross``) has no bias.  ``shard``: each leaf's block (a rank's shard)."""
     d, H, KV, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
     ks = prng.split(key, 4)
     L = num_layers
+    b = lambda name: blocks_of(shard, name)  # noqa: E731
     params = {
-        "wq": dense_init(ks[0], (L, d, H, hd), d, dtype, device=device),
-        "wk": dense_init(ks[1], (L, d, KV, hd), d, dtype, device=device),
-        "wv": dense_init(ks[2], (L, d, KV, hd), d, dtype, device=device),
-        "wo": dense_init(ks[3], (L, H, hd, d), H * hd, dtype, device=device),
+        "wq": dense_init(ks[0], (L, d, H, hd), d, dtype, device=device, block=b("wq")),
+        "wk": dense_init(ks[1], (L, d, KV, hd), d, dtype, device=device, block=b("wk")),
+        "wv": dense_init(ks[2], (L, d, KV, hd), d, dtype, device=device, block=b("wv")),
+        "wo": dense_init(ks[3], (L, H, hd, d), H * hd, dtype, device=device, block=b("wo")),
     }
     if cfg.qkv_bias and not cross:
-        params["bq"] = zeros_init((L, H, hd), dtype, device)
-        params["bk"] = zeros_init((L, KV, hd), dtype, device)
-        params["bv"] = zeros_init((L, KV, hd), dtype, device)
+        params["bq"] = zeros_init((L, H, hd), dtype, device, b("bq"))
+        params["bk"] = zeros_init((L, KV, hd), dtype, device, b("bk"))
+        params["bv"] = zeros_init((L, KV, hd), dtype, device, b("bv"))
     return params
+
+
+def attention_axes(bias: bool) -> dict:
+    """The logical axes of ``init_attention``'s leaves (the reference's
+    annotations); ``bias``: the q / k / v biases are there."""
+    axes = {
+        "wq": ("layers", "embed", "heads", "head_dim"),
+        "wk": ("layers", "embed", "kv_heads", "head_dim"),
+        "wv": ("layers", "embed", "kv_heads", "head_dim"),
+        "wo": ("layers", "heads", "head_dim", "embed"),
+    }
+    if bias:
+        axes.update(bq=("layers", "heads", "head_dim"), bk=("layers", "kv_heads", "head_dim"),
+                    bv=("layers", "kv_heads", "head_dim"))
+    return axes
 
 
 def project_qkv(p, x, kv_repeat: int = 1, x_kv=None):
@@ -274,14 +334,22 @@ def init_cache(batch: int, cache_len: int, kv_heads: int, head_dim: int, dtype, 
 # ---------------------------------------------------------------------------
 
 
-def init_swiglu(key, d: int, ff: int, num_layers: int, dtype, device=None):
+def init_swiglu(key, d: int, ff: int, num_layers: int, dtype, device=None, shard=None):
     k1, k2, k3 = prng.split(key, 3)
     L = num_layers
+    b = lambda name: blocks_of(shard, name)  # noqa: E731
     return {
-        "w_gate": dense_init(k1, (L, d, ff), d, dtype, device=device),
-        "w_up": dense_init(k2, (L, d, ff), d, dtype, device=device),
-        "w_down": dense_init(k3, (L, ff, d), ff, dtype, device=device),
+        "w_gate": dense_init(k1, (L, d, ff), d, dtype, device=device, block=b("w_gate")),
+        "w_up": dense_init(k2, (L, d, ff), d, dtype, device=device, block=b("w_up")),
+        "w_down": dense_init(k3, (L, ff, d), ff, dtype, device=device, block=b("w_down")),
     }
+
+
+SWIGLU_AXES = {
+    "w_gate": ("layers", "embed", "mlp"),
+    "w_up": ("layers", "embed", "mlp"),
+    "w_down": ("layers", "mlp", "embed"),
+}
 
 
 def swiglu(p, x):
@@ -291,15 +359,24 @@ def swiglu(p, x):
     return torch.einsum("bsf,fd->bsd", h, p["w_down"].to(x.dtype))
 
 
-def init_gelu_mlp(key, d: int, ff: int, num_layers: int, dtype, device=None):
+def init_gelu_mlp(key, d: int, ff: int, num_layers: int, dtype, device=None, shard=None):
     k1, k2 = prng.split(key, 2)
     L = num_layers
+    b = lambda name: blocks_of(shard, name)  # noqa: E731
     return {
-        "w1": dense_init(k1, (L, d, ff), d, dtype, device=device),
-        "b1": zeros_init((L, ff), dtype, device),
-        "w2": dense_init(k2, (L, ff, d), ff, dtype, device=device),
-        "b2": zeros_init((L, d), dtype, device),
+        "w1": dense_init(k1, (L, d, ff), d, dtype, device=device, block=b("w1")),
+        "b1": zeros_init((L, ff), dtype, device, b("b1")),
+        "w2": dense_init(k2, (L, ff, d), ff, dtype, device=device, block=b("w2")),
+        "b2": zeros_init((L, d), dtype, device, b("b2")),
     }
+
+
+GELU_MLP_AXES = {
+    "w1": ("layers", "embed", "mlp"),
+    "b1": ("layers", "mlp"),
+    "w2": ("layers", "mlp", "embed"),
+    "b2": ("layers", "embed"),
+}
 
 
 def gelu_mlp(p, x):

@@ -20,35 +20,62 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ssd_scan as _ssd
-from repro_torch.models.layers import dense_init, ones_init, rms_norm, zeros_init
+from repro_torch.models.layers import blocks_of, dense_init, ones_init, rms_norm, take, zeros_init
 from repro_torch.utils import prng
 
 
-def init_ssm(key, cfg, num_layers: int, dtype, device=None):
+def init_ssm(key, cfg, num_layers: int, dtype, device=None, shard=None):
+    """The mixer's stacked params; ``shard``: each leaf's block (a rank's
+    shard; the small per-head fp32 leaves are drawn whole and cut)."""
     d, di, ds, nh = cfg.d_model, cfg.ssm_d_inner, cfg.ssm_state, cfg.ssm_num_heads
     w = cfg.ssm_conv_width
     conv_dim = di + 2 * ds
     ks = prng.split(key, 8)
     L = num_layers
+    b = lambda name: blocks_of(shard, name)  # noqa: E731
     # A initialized in [1, 16], dt_bias ~ softplus^-1 of dt in [1e-3, 1e-1]
     log = lambda x: torch.log(torch.tensor(x, dtype=torch.float32))  # noqa: E731
     a0 = torch.exp(prng.uniform(ks[0], (L, nh), log(1.0), log(16.0), device))
     dt0 = torch.exp(prng.uniform(ks[1], (L, nh), log(1e-3), log(1e-1), device))
     dt_bias = dt0 + torch.log(-torch.expm1(-dt0))  # inverse softplus
     return {
-        "in_z": dense_init(ks[2], (L, d, di), d, dtype, device=device),
-        "in_x": dense_init(ks[3], (L, d, di), d, dtype, device=device),
-        "in_B": dense_init(ks[4], (L, d, ds), d, dtype, device=device),
-        "in_C": dense_init(ks[5], (L, d, ds), d, dtype, device=device),
-        "in_dt": dense_init(ks[6], (L, d, nh), d, dtype, device=device),
-        "conv_w": dense_init(ks[7], (L, w, conv_dim), w, dtype, device=device),
-        "conv_b": zeros_init((L, conv_dim), dtype, device),
-        "A_log": torch.log(a0),
-        "dt_bias": dt_bias,
-        "D": ones_init((L, nh), torch.float32, device),
-        "norm_w": ones_init((L, di), dtype, device),
-        "out_proj": dense_init(ks[0], (L, di, d), di, dtype, device=device),
+        "in_z": dense_init(ks[2], (L, d, di), d, dtype, device=device, block=b("in_z")),
+        "in_x": dense_init(ks[3], (L, d, di), d, dtype, device=device, block=b("in_x")),
+        "in_B": dense_init(ks[4], (L, d, ds), d, dtype, device=device, block=b("in_B")),
+        "in_C": dense_init(ks[5], (L, d, ds), d, dtype, device=device, block=b("in_C")),
+        "in_dt": dense_init(ks[6], (L, d, nh), d, dtype, device=device, block=b("in_dt")),
+        "conv_w": dense_init(ks[7], (L, w, conv_dim), w, dtype, device=device,
+                             block=b("conv_w")),
+        "conv_b": zeros_init((L, conv_dim), dtype, device, b("conv_b")),
+        "A_log": take(torch.log(a0), b("A_log")),
+        "dt_bias": take(dt_bias, b("dt_bias")),
+        "D": ones_init((L, nh), torch.float32, device, b("D")),
+        "norm_w": ones_init((L, di), dtype, device, b("norm_w")),
+        "out_proj": dense_init(ks[0], (L, di, d), di, dtype, device=device,
+                               block=b("out_proj")),
     }
+
+
+# the logical axes of ``init_ssm``'s leaves (the reference's annotations) and
+# of ``init_ssm_state``'s
+SSM_PARAM_AXES = {
+    "in_z": ("layers", "embed", "ssm_inner"),
+    "in_x": ("layers", "embed", "ssm_inner"),
+    "in_B": ("layers", "embed", "ssm_state"),
+    "in_C": ("layers", "embed", "ssm_state"),
+    "in_dt": ("layers", "embed", "ssm_heads"),
+    "conv_w": ("layers", "conv", None),
+    "conv_b": ("layers", None),
+    "A_log": ("layers", "ssm_heads"),
+    "dt_bias": ("layers", "ssm_heads"),
+    "D": ("layers", "ssm_heads"),
+    "norm_w": ("layers", "ssm_inner"),
+    "out_proj": ("layers", "ssm_inner", "embed"),
+}
+SSM_STATE_AXES = {
+    "h": ("batch", "ssm_heads", None, "ssm_state"),
+    "conv": ("batch", "conv", None),
+}
 
 
 def init_ssm_state(batch: int, cfg, dtype, device=None):

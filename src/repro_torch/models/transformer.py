@@ -15,9 +15,25 @@ plain torch and the MoE FFN is ``models.moe.moe_ffn`` in plain torch; every
 decode step's attention goes through ``kernels.swa_decode`` and every
 prefill's SSM scan through ``kernels.ssd_scan`` (hand-written CUDA on the
 card, their plain versions on the CPU).  The reference's ``act_shard``
-annotations and remat policies have no counterpart on one card and are
-dropped; only the chunked loss (``_chunked_ce``) and the training scan's
+annotations and remat policies are dropped (``sharding.act_shard`` is a
+no-op); only the chunked loss (``_chunked_ce``) and the training scan's
 chunks (``models/ssm.py``) keep their remat.
+
+Sharded serving (the ``dense``, ``moe`` and ``vlm`` families): inside
+``sharding.activation_sharding`` each process runs one rank of a ``(1,
+model)`` mesh on its blocks of the weights (``lm_param_axes`` resolved under
+``SERVE_RULES``; ``sharding.make_rank`` reads the layout off those specs,
+never assumes it).  q, k and v are projected on the rank's heads (RoPE,
+``blocked_attention`` and the ring cache unchanged, the cache holding the
+rank's kv heads, decode through ``swa_decode`` on them), ``wo`` gives a
+partial sum; the SwiGLU's ``w_gate`` / ``w_up`` hold the rank's ffn columns
+and ``w_down`` its rows; the MoE layer is ``moe.moe_ffn_local``; each of
+these ends in one sum over ``model`` (``Rank.all_reduce``).  The embedding
+holds the rank's vocab rows: a token outside them gives 0, and the sum over
+ranks is exact, ``embed_scale`` applied after it; the LM head gives the
+rank's vocab columns, gathered to the whole vocab, so every rank takes the
+same greedy argmax.  Outside the context nothing of this runs: the
+unsharded path's ops are as they were.
 
 ``lm_loss`` is the training objective: ``forward_seq`` in its ``train`` mode
 (no cache is built), the MoE layers' load-balance losses summed over the
@@ -39,8 +55,10 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels import swa_decode as _swa
 from repro_torch.models import layers as L
-from repro_torch.models.moe import init_moe, moe_ffn
-from repro_torch.models.ssm import init_ssm, init_ssm_state, ssm_forward
+from repro_torch.models.moe import MOE_AXES, init_moe, moe_ffn
+from repro_torch.models.ssm import SSM_PARAM_AXES, SSM_STATE_AXES, init_ssm, init_ssm_state, \
+    ssm_forward
+from repro_torch.sharding.context import current_rank
 from repro_torch.utils import prng
 
 PORTED_FAMILIES = ("hybrid", "ssm", "dense", "moe", "vlm", "encdec")
@@ -107,9 +125,10 @@ def _ffn_kind(cfg):
     return None  # ssm: no FFN (mamba2 mixer only)
 
 
-def init_lm(key, cfg, device=None) -> dict:
+def init_lm(key, cfg, device=None, shard=None) -> dict:
     """Parameter tree (dict of tensors) of an LM, drawn as the reference's:
-    block key ``bk[0]`` draws the attention, ``bk[1]`` the SSM, ``bk[2]`` the FFN."""
+    block key ``bk[0]`` draws the attention, ``bk[1]`` the SSM, ``bk[2]`` the FFN.
+    ``shard``: each leaf's block (``sharding.init_shard``: a rank's shard)."""
     check_family(cfg)
     p = pattern_period(cfg)
     if cfg.num_layers % p:
@@ -119,33 +138,66 @@ def init_lm(key, cfg, device=None) -> dict:
     device = key.device if device is None else torch.device(device)
     keys = prng.split(key, 3 + p)
     d = cfg.d_model
+    b = lambda tree, name: L.blocks_of(tree, name)  # noqa: E731
     params: dict[str, Any] = {
-        "embed": L.init_embedding(keys[0], cfg.padded_vocab, d, dtype, device),
-        "final_norm": L.ones_init((d,), dtype, device),
+        "embed": L.init_embedding(keys[0], cfg.padded_vocab, d, dtype, device, b(shard, "embed")),
+        "final_norm": L.ones_init((d,), dtype, device, b(shard, "final_norm")),
         "blocks": [],
     }
     if not cfg.tie_embeddings:
         params["lm_head"] = L.dense_init(keys[1], (d, cfg.padded_vocab), d, dtype,
-                                         device=device)
+                                         device=device, block=b(shard, "lm_head"))
     for i in range(p):
         bk = prng.split(keys[3 + i], 4)
-        block = {"ln1": L.ones_init((Lp, d), dtype, device)}
+        bs = None if shard is None else shard["blocks"][i]
+        block = {"ln1": L.ones_init((Lp, d), dtype, device, b(bs, "ln1"))}
         if _has_attn(cfg):
-            block["attn"] = L.init_attention(bk[0], cfg, Lp, dtype, device)
+            block["attn"] = L.init_attention(bk[0], cfg, Lp, dtype, device, shard=b(bs, "attn"))
         if _has_ssm(cfg):
-            block["ssm"] = init_ssm(bk[1], cfg, Lp, dtype, device)
+            block["ssm"] = init_ssm(bk[1], cfg, Lp, dtype, device, b(bs, "ssm"))
             if cfg.family == "hybrid":
-                block["attn_out_norm"] = L.ones_init((Lp, d), dtype, device)
-                block["ssm_out_norm"] = L.ones_init((Lp, d), dtype, device)
+                block["attn_out_norm"] = L.ones_init((Lp, d), dtype, device,
+                                                     b(bs, "attn_out_norm"))
+                block["ssm_out_norm"] = L.ones_init((Lp, d), dtype, device,
+                                                    b(bs, "ssm_out_norm"))
         ffn = _ffn_kind(cfg)
         if ffn == "moe":
-            block["moe"] = init_moe(bk[2], cfg, Lp, dtype, device)
+            block["moe"] = init_moe(bk[2], cfg, Lp, dtype, device, b(bs, "moe"))
         elif ffn == "swiglu":
-            block["mlp"] = L.init_swiglu(bk[2], d, cfg.d_ff, Lp, dtype, device)
+            block["mlp"] = L.init_swiglu(bk[2], d, cfg.d_ff, Lp, dtype, device, b(bs, "mlp"))
         if ffn:
-            block["ln2"] = L.ones_init((Lp, d), dtype, device)
+            block["ln2"] = L.ones_init((Lp, d), dtype, device, b(bs, "ln2"))
         params["blocks"].append(block)
     return params
+
+
+def lm_param_axes(cfg) -> dict:
+    """The logical axes of ``init_lm``'s leaves, one name (or None) a
+    dimension: the reference's annotations (``repro.sharding.split_params``
+    of its ``init_lm``)."""
+    check_family(cfg)
+    norm = ("layers", "embed")
+    axes: dict[str, Any] = {"embed": ("vocab", "embed"), "final_norm": ("embed",),
+                            "blocks": []}
+    if not cfg.tie_embeddings:
+        axes["lm_head"] = ("embed", "vocab")
+    for _ in range(pattern_period(cfg)):
+        block: dict[str, Any] = {"ln1": norm}
+        if _has_attn(cfg):
+            block["attn"] = L.attention_axes(cfg.qkv_bias)
+        if _has_ssm(cfg):
+            block["ssm"] = dict(SSM_PARAM_AXES)
+            if cfg.family == "hybrid":
+                block["attn_out_norm"] = block["ssm_out_norm"] = norm
+        ffn = _ffn_kind(cfg)
+        if ffn == "moe":
+            block["moe"] = dict(MOE_AXES)
+        elif ffn == "swiglu":
+            block["mlp"] = dict(L.SWIGLU_AXES)
+        if ffn:
+            block["ln2"] = norm
+        axes["blocks"].append(block)
+    return axes
 
 
 # ---------------------------------------------------------------------------
@@ -183,20 +235,57 @@ def init_lm_cache(cfg, batch: int, seq_len: int, prefilled: int = 0, device=None
             "layers": layers_cache}
 
 
+def lm_cache_axes(cfg) -> dict:
+    """The logical axes of ``init_lm_cache``'s leaves (the reference's)."""
+    check_family(cfg)
+    layers_axes = []
+    for _ in range(pattern_period(cfg)):
+        entry: dict[str, Any] = {}
+        if _has_attn(cfg):
+            kv = ("layers", "batch", "kv_seq", "kv_heads", "head_dim")
+            entry["attn"] = {"k": kv, "v": kv, "pos": ("layers", "batch", "kv_seq")}
+        if _has_ssm(cfg):
+            entry["ssm"] = {k: ("layers",) + v for k, v in SSM_STATE_AXES.items()}
+        layers_axes.append(entry)
+    return {"pos": ("batch",), "layers": layers_axes}
+
+
 # ---------------------------------------------------------------------------
 # block application
 # ---------------------------------------------------------------------------
 
 
+def _project_qkv(cfg, bp, x):
+    """q, k, v of the heads this process holds: all of them, or inside
+    ``activation_sharding`` the rank's query heads and the kv heads they attend
+    (``Rank.kv_take``)."""
+    q, k, v = L.project_qkv(bp, x, cfg.kv_repeat)
+    rank = current_rank()
+    if rank is not None and rank.kv_take is not None:
+        a, b = rank.kv_take
+        k, v = k[:, :, a:b], v[:, :, a:b]
+    return q, k, v
+
+
+def _attn_out(bp, ctx):
+    """The output projection; a rank's over its heads is a partial sum, summed
+    over ``model``."""
+    out = L.attn_output(bp, ctx)
+    rank = current_rank()
+    if rank is not None and rank.heads_sharded:
+        out = rank.all_reduce(out)
+    return out
+
+
 def _attn_seq(cfg, bp, x, positions, inv_freq, window: int, cache_len):
     """Sequence-mode attention; returns (out, cache_entry), the entry None
     where ``cache_len`` is None (training builds no cache)."""
-    q, k, v = L.project_qkv(bp, x, cfg.kv_repeat)
+    q, k, v = _project_qkv(cfg, bp, x)
     q = L.apply_rope(q, positions, inv_freq, cfg.rope_style)
     k = L.apply_rope(k, positions, inv_freq, cfg.rope_style)
     out = L.blocked_attention(q, k, v, positions, positions, causal=True, window=window,
                               cap=cfg.attn_logit_softcap, block_q=cfg.attn_block_q)
-    out = L.attn_output(bp, out)
+    out = _attn_out(bp, out)
     if cache_len is None:
         return out, None
     B, S = x.shape[0], x.shape[1]
@@ -218,12 +307,12 @@ def _attn_seq(cfg, bp, x, positions, inv_freq, window: int, cache_len):
 def _attn_decode(cfg, bp, x, pos, inv_freq, window: int, cache):
     """Single-token attention against a ring-buffer cache (updated in place),
     through ``kernels.swa_decode``."""
-    q, k, v = L.project_qkv(bp, x, cfg.kv_repeat)
+    q, k, v = _project_qkv(cfg, bp, x)
     q = L.apply_rope(q, pos[:, None], inv_freq, cfg.rope_style)
     k = L.apply_rope(k, pos[:, None], inv_freq, cfg.rope_style)
     ck, cv, cp = L.cache_write(cache["k"], cache["v"], cache["pos"], k, v, pos)
     out = decode_attention(q, ck, cv, cp, pos.to(torch.int32), window, cfg.attn_logit_softcap)
-    return L.attn_output(bp, out), {"k": ck, "v": cv, "pos": cp}
+    return _attn_out(bp, out), {"k": ck, "v": cv, "pos": cp}
 
 
 def decode_attention(q, k, v, kv_pos, pos, window: int = 0, softcap: float = 0.0):
@@ -274,6 +363,9 @@ def apply_block(cfg, kind: str, bp, x, positions, inv_freq, mode: str, cache=Non
             y, aux = moe_ffn(bp["moe"], h2, cfg)
         else:
             y = L.swiglu(bp["mlp"], h2)
+            rank = current_rank()
+            if rank is not None and rank.mlp_sharded:  # a partial sum over the rank's ffn
+                y = rank.all_reduce(y)
         x = x + y
     return x, new_cache, aux
 
@@ -301,7 +393,18 @@ def layer_slices(tree, n: int) -> list:
 
 
 def _embed_tokens(params, cfg, tokens):
-    x = params["embed"][tokens.long()].to(torch_dtype(cfg))
+    rank = current_rank()
+    if rank is not None and rank.vocab_range is not None:
+        # the rank's vocab rows: a token outside them gives 0; one rank holds
+        # each token's row, so the sum over ranks is exact
+        v0, v1 = rank.vocab_range
+        local = tokens.long() - v0
+        inside = (local >= 0) & (local < v1 - v0)
+        rows = params["embed"][torch.where(inside, local, torch.zeros_like(local))]
+        x = rank.all_reduce(torch.where(inside[..., None], rows, torch.zeros_like(rows)))
+        x = x.to(torch_dtype(cfg))
+    else:
+        x = params["embed"][tokens.long()].to(torch_dtype(cfg))
     if cfg.embed_scale:
         # the reference's Python scalar is weakly typed: it rounds to the model
         # dtype before the product (sqrt(3584) is 59.75 in bf16)
@@ -323,9 +426,14 @@ def _head(params, cfg):
 
 def _logits(params, cfg, x):
     """Final norm and LM head; ``final_logit_softcap`` belongs to the loss, as in
-    the reference, and is not applied here."""
+    the reference, and is not applied here.  A rank's head holds its vocab
+    columns: the ranks' logits are gathered to the whole vocab."""
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps, cfg.zero_centered_norm)
-    return torch.einsum("bsd,dv->bsv", x, _head(params, cfg).to(x.dtype))
+    logits = torch.einsum("bsd,dv->bsv", x, _head(params, cfg).to(x.dtype))
+    rank = current_rank()
+    if rank is not None and rank.vocab_range is not None:
+        logits = rank.all_gather(logits, dim=-1)
+    return logits
 
 
 def _ce_chunk(xb, head, tb, cap: float):
@@ -359,6 +467,8 @@ def lm_loss(params, cfg, batch):
     """Training objective -> (loss, {"ce", "aux"}); ``batch`` holds tokens (B,
     S) and targets (B, S), -1 for no target, and for ``vlm`` image_embeds,
     whose positions get no target.  loss = ce + router_aux_loss * aux."""
+    if current_rank() is not None:
+        raise NotImplementedError("lm_loss: sharded training is not ported yet (ROADMAP A13)")
     x = _assemble_input(params, cfg, batch)
     B, S, _ = x.shape
     positions = torch.arange(S, device=x.device)[None, :].expand(B, S)

@@ -62,3 +62,40 @@ class GridMesh(tuple):
     def shape(self) -> Dict[str, int]:
         """The mesh's one axis, as the reference's mesh names it."""
         return {"data": len(self)}
+
+
+class LMMesh:
+    """A 2-D ``("data", "model")`` array of indexed ``torch.device``s for a
+    sharded LM, one a rank: ``LMMesh([["cuda:0", "cuda:1"]])`` is data = 1,
+    model = 2.  A flat sequence is one data row.  A device may repeat
+    (``LMMesh([["cuda:0"] * 4])``: four ranks on one card; every CPU mesh).
+    ``shape`` is ``{"data": rows, "model": columns}``, as the reference's
+    ``Mesh`` gives it; ``devices`` lists them in rank order (row-major);
+    ``backend`` is the collectives' backend the mesh asks for: ``nccl`` when
+    every rank has a card of its own, ``gloo`` when ranks share a card or run
+    on the CPU.  CUDA devices raise without a card, as every entry point does."""
+
+    def __init__(self, devices):
+        rows = [list(r) for r in devices] if isinstance(devices[0], (list, tuple)) \
+            else [list(devices)]
+        if len({len(r) for r in rows}) != 1 or not rows[0]:
+            raise ValueError("LMMesh: every data row needs the same, non-zero number of ranks")
+        self.rows = tuple(tuple(GridMesh(r)) for r in rows)
+
+    @property
+    def shape(self) -> Dict[str, int]:
+        return {"data": len(self.rows), "model": len(self.rows[0])}
+
+    @property
+    def devices(self) -> tuple:
+        return tuple(d for row in self.rows for d in row)
+
+    @property
+    def backend(self) -> str:
+        devs = self.devices
+        if all(d.type == "cuda" for d in devs) and len(set(devs)) == len(devs):
+            return "nccl"
+        return "gloo"
+
+    def __repr__(self) -> str:
+        return f"LMMesh({[[str(d) for d in r] for r in self.rows]})"

@@ -16,8 +16,11 @@ everything here runs on any device.  Nothing reads torch's global RNG.
 Samplers draw on ``device`` (default: the key's device) and return shape
 ``key.shape[:-1] + shape``.  ``bits``, ``uniform`` and ``truncated_normal``
 take a ``start``: they then draw elements ``[start, start + prod(shape))`` of
-the flat counter.  Element ``i``'s bits depend only on the key and ``i``, so
-a large draw made range by range is the single draw, bit for bit.
+the flat counter; or an ``at``, an int64 tensor of flat element indices, to
+draw those elements (shaped as ``at``).  Element ``i``'s bits depend only on
+the key and ``i``, so a large draw made range by range, or a block of it
+drawn index by index (a rank's shard of a weight), is the single draw, bit
+for bit.
 
 Integers and booleans (bits, ``randint``, ``bernoulli``, ``permutation``,
 keys) and ``uniform`` match JAX exactly; ``categorical`` is an argmax over
@@ -122,14 +125,19 @@ def _shape(shape) -> Tuple[int, ...]:
 
 
 def bits(k: torch.Tensor, shape: Sequence[int] = (), device=None,
-         start: int = 0) -> torch.Tensor:
+         start: int = 0, at: torch.Tensor | None = None) -> torch.Tensor:
     """32 random bits per element (int64 in [0, 2**32)), ``jax.random.bits``;
-    elements ``[start, start + prod(shape))`` of the flat draw."""
-    shape = _shape(shape)
+    elements ``[start, start + prod(shape))`` of the flat draw, or, with
+    ``at``, the elements at those flat indices (shape ``at.shape``)."""
     device = k.device if device is None else torch.device(device)
     k = k.to(device)
-    n = math.prod(shape)
-    counts = torch.arange(start, start + n, dtype=torch.int64, device=device)
+    if at is not None:
+        shape = tuple(at.shape)
+        counts = at.to(device=device, dtype=torch.int64).reshape(-1)
+    else:
+        shape = _shape(shape)
+        counts = torch.arange(start, start + math.prod(shape), dtype=torch.int64,
+                              device=device)
     batch = k.shape[:-1]
     k0 = k[..., 0].reshape(batch + (1,))
     k1 = k[..., 1].reshape(batch + (1,))
@@ -148,10 +156,10 @@ def _fma(a, b, c) -> torch.Tensor:
 
 
 def uniform(k: torch.Tensor, shape: Sequence[int] = (), minval=0.0, maxval=1.0,
-            device=None, start: int = 0) -> torch.Tensor:
+            device=None, start: int = 0, at: torch.Tensor | None = None) -> torch.Tensor:
     """float32 uniform in ``[minval, maxval)`` from the top 23 bits."""
     device = k.device if device is None else torch.device(device)
-    b = bits(k, shape, device, start)
+    b = bits(k, shape, device, start, at)
     fb = (b >> 9) | 0x3F800000
     floats = fb.to(torch.int32).view(torch.float32) - 1.0
     lo, hi = _as_f32(minval, device), _as_f32(maxval, device)
@@ -186,20 +194,21 @@ _NEXT_ABOVE_MINUS_ONE = float(torch.nextafter(
 
 
 def normal(k: torch.Tensor, shape: Sequence[int] = (), device=None,
-           start: int = 0) -> torch.Tensor:
+           start: int = 0, at: torch.Tensor | None = None) -> torch.Tensor:
     """Standard normal: ``sqrt(2) * erf_inv(u)``, u uniform on (-1, 1)."""
-    u = uniform(k, shape, _NEXT_ABOVE_MINUS_ONE, 1.0, device, start)
+    u = uniform(k, shape, _NEXT_ABOVE_MINUS_ONE, 1.0, device, start, at)
     return _SQRT2 * erf_inv(u)
 
 
 def truncated_normal(k: torch.Tensor, lower: float, upper: float,
-                     shape: Sequence[int] = (), device=None, start: int = 0) -> torch.Tensor:
+                     shape: Sequence[int] = (), device=None, start: int = 0,
+                     at: torch.Tensor | None = None) -> torch.Tensor:
     """Standard normal truncated to the open interval ``(lower, upper)``."""
     device = k.device if device is None else torch.device(device)
     lo, hi = _as_f32(lower, device), _as_f32(upper, device)
     a = torch.special.erf(lo / _SQRT2)
     b = torch.special.erf(hi / _SQRT2)
-    u = uniform(k, shape, a, b, device, start)
+    u = uniform(k, shape, a, b, device, start, at)
     out = _SQRT2 * erf_inv(u)
     inf = _as_f32(math.inf, device)
     return torch.clamp(out, torch.nextafter(lo, inf), torch.nextafter(hi, -inf))

@@ -72,3 +72,35 @@ def stub_build(worker, build_dir, log):
     kbuild._compile_and_link = compile_and_link
     info = kbuild.build()
     return os.getpid(), info.seconds, str(info.path)
+
+
+def moe_local(worker, p, x, E, K, expert_sharded):
+    """``models.moe.moe_ffn_local`` on this rank's block of the one-layer MoE
+    weights ``p`` (whole tensors: expert-sharded, the rank's E / world
+    experts; else its slice of every expert's ffn), over the process group a
+    ``launch.serve.ShardedServer`` joined -> y as float32."""
+    import types
+
+    import torch.distributed as dist
+
+    from repro_torch.models import moe
+    from repro_torch.sharding import SERVE_RULES
+    from repro_torch.sharding.shard import Rank, coords_of
+
+    n, r = worker.world, worker.rank
+    mesh = {"data": 1, "model": n}
+    rank = Rank(r, n, mesh, coords_of(r, mesh), SERVE_RULES, group=dist.group.WORLD,
+                expert_sharded=expert_sharded)
+    if expert_sharded:
+        e = E // n
+        local = {w: p[w][r * e:(r + 1) * e] for w in ("w_gate", "w_up", "w_down")}
+    else:
+        f = p["w_gate"].shape[-1] // n
+        local = {"w_gate": p["w_gate"][..., r * f:(r + 1) * f],
+                 "w_up": p["w_up"][..., r * f:(r + 1) * f],
+                 "w_down": p["w_down"][:, r * f:(r + 1) * f]}
+    local["router"] = p["router"]
+    cfg = types.SimpleNamespace(num_experts=E, experts_per_token=K)
+    with torch.no_grad():
+        y, _ = moe.moe_ffn_local(local, x, cfg, rank)
+    return y.float()

@@ -743,6 +743,10 @@ def _swa_operands(B, C, hkv, G, D, dtype, dev, fills, seed=0):
     (2, 4096, 16, 2, 128, 4096, 0.0, (4176, 4170)),
     (4, 2080, 16, 2, 128, 0, 0.0, (2080, 2079, 1500, 2080)),  # phi3.5-moe: B 4, no window
     (2, 784, 16, 4, 128, 0, 0.0, (784, 700)),  # internvl2-76b: G 4, image tokens first
+    # the three configs' per-rank shapes served sharded over 4 ranks (kv heads / 4)
+    (2, 4096, 4, 2, 128, 4096, 0.0, (4176, 4170)),  # mixtral-8x7b
+    (4, 2080, 4, 2, 128, 0, 0.0, (2080, 2079, 1500, 2080)),  # phi3.5-moe
+    (2, 784, 4, 4, 128, 0, 0.0, (784, 700)),  # internvl2-76b
     # whisper-small: the self ring of 64 slots wrapped, and the cross-attention over the
     # 1,500 cached frames with the query at the last one (every frame visible)
     (4, 64, 12, 1, 64, 0, 0.0, (95, 95, 95, 95)),
@@ -2406,3 +2410,42 @@ def test_kernels_above_48kb_of_shared_memory_on_card_1_after_card_0(two_cards):
                                              with_h0=True)
         _assert_ssd_close(ssd.ssd_scan(x, dt, A, Bs, Cs, 128, h0),
                           ssd.ssd_scan_plain(x, dt, A, Bs, Cs, 128, h0))
+
+
+def _sharded_vs_one_card(mesh, arch="internvl2-76b"):
+    """``arch``'s smoke config (fp32) served sharded on ``mesh`` against one
+    card's run: greedy tokens equal on every rank and to one card's, the last
+    logits within ``chip_smoke.py``'s fp32 path tolerance, ``swa_decode``
+    launched once an attention layer, decode step and rank."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.kernels import swa_decode as swa
+    from repro_torch.launch import serve
+
+    cfg = get_smoke_config(arch)
+    want = serve.serve(cfg=cfg, batch=2, prompt_len=40, gen=8, device="cuda:0")
+    before = swa.launches
+    got = serve.serve(cfg=cfg, batch=2, prompt_len=40, gen=8, mesh=mesh)
+    n = len(mesh.devices)
+    assert swa.launches - before == n * cfg.num_layers * 7
+    assert torch.equal(got.tokens, want.tokens.cpu())
+    torch.testing.assert_close(got.logits, want.logits.float().cpu(), rtol=5e-4, atol=5e-4)
+    assert len(got.ranks) == n and all(r["peak_bytes"] > 0 for r in got.ranks)
+    return got
+
+
+def test_sharded_serve_of_two_ranks_on_one_card_is_one_cards(dev):
+    """Two ranks sharing cuda:0 (``gloo``, the collectives through the host)."""
+    from repro_torch.utils.device import LMMesh
+
+    mesh = LMMesh([["cuda:0", "cuda:0"]])
+    assert mesh.backend == "gloo"
+    _sharded_vs_one_card(mesh)
+
+
+def test_sharded_serve_over_two_cards_is_one_cards(two_cards):
+    """A rank a card over ``nccl`` (``make_lm_mesh(2)``)."""
+    from repro_torch.launch.mesh import make_lm_mesh
+
+    mesh = make_lm_mesh(2)
+    assert mesh.backend == "nccl" and mesh.devices == two_cards
+    _sharded_vs_one_card(mesh)
