@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --wrapper-times CHECKOUT [columns | main]
-    python3 chip_smoke.py --sharded
+    python3 chip_smoke.py --sharded [ARCH ...]
 
 The second form runs phases 1 and 2 from the ``src/`` of another checkout
 (say, the parent commit's ``git archive``; CHECKOUT ``.`` is this tree) and
@@ -26,8 +26,12 @@ phase 4l; one card's 16-layer runs, with their set-up, prefill, decode and
 peak, are the serving rows that phase 6 cut to 8 layers), then each of the
 three at full width and depth (32, 32 and 80 layers; ``serve_sharded_full``):
 parameters, each rank's set-up, prefill, decode and peak, tokens/s, each
-card's contexts, exact launches, a profiled decode step a rank: the form to
-run on several cards.
+card's contexts, exact launches, a profiled decode step a rank; then the ssm
+and hybrid families (``SHARDED_SSM``: mamba2-130m and hymba-1.5b, 4 x 2048 +
+32 tokens) at full depth in bf16 against one card's full-depth run, each then
+through ``serve_sharded_full``: the form to run on several cards.  With
+ARCHs (of ``SHARDED_LM`` and ``SHARDED_SSM``) it runs those configs' LM rows
+alone, without the engine's grids.
 
 Phases (any failure raises and exits non-zero):
 
@@ -120,7 +124,11 @@ Phases (any failure raises and exits non-zero):
    wrapped ring, rows with no visible slot, softcap; a window narrower than
    a split, G=16 at D=256, rows of 4-byte and 2-byte multiples; one step, a
    ragged last chunk, Q > S, a given h0, mamba2's ds=128 head, 12,800
-   chunks on the chain, odd hp and ds, chunks of 16), each repeated bitwise;
+   chunks on the chain, odd hp and ds, chunks of 16; and ``ssd_scan`` at the
+   per-rank shapes of the ssm and hybrid families served sharded over 4
+   ranks, ``SHARDED_SSD_SHAPES``: mamba2-130m's 6 heads, hymba-1.5b's 25
+   virtual heads of 32, the half-head test config's 5 of 16, with and
+   without an h0), each repeated bitwise;
    ``pairwise_cosine`` at the reference's
    shapes (the 128 / 512 tile edges, one row, D=1) in fp32 and bf16 and at
    its launch plan's tile and split edges, with a zero row, bitwise
@@ -160,8 +168,8 @@ Phases (any failure raises and exits non-zero):
    from the same weights; then, at full width and depth in fp32, 2 decode
    steps against one longer prefill; then the ssm and dense families, 2
    layers card-vs-CPU in fp32 and bf16 for mamba2-130m (S=300, a ragged
-   chunk), gemma2-9b (one local and one global layer, S=4100, one row) and
-   chatglm3-6b (S=600, one row), and mamba2-130m's decode vs prefill in fp32
+   chunk) and chatglm3-6b (S=600, one row) and in fp32 for gemma2-9b (one
+   local and one global layer, S=4100, one row), and mamba2-130m's decode vs prefill in fp32
    at full depth; then one MoE layer of mixtral-8x7b and of phi3.5-moe at full width
    on a skewed input that drops copies, card vs CPU in fp32 and bf16 (expert
    ids, slots and kept mask exactly, no device-to-host sync on the card), and
@@ -292,9 +300,13 @@ Phases (any failure raises and exits non-zero):
    (``RouteLog``, each flip within ``FLIP_MARGIN`` of a tie), the dropped
    copies equal, every rank's tokens equal, exactly attention layers x
    decode steps ``swa_decode`` launches a rank and no other kernel; then
-   mixtral-8x7b's MoE layer at full width on a skewed input that drops
-   copies, the 4 ranks' ``moe_ffn_local`` against world 1's: expert ids,
-   slots and the kept mask equal, y within ``PATH_TOL``;
+   ``SHARDED_SSM``'s mamba2-130m and hymba-1.5b (4 x 2048) in fp32 and bf16
+   the same way, exactly SSM layers ``ssd_scan`` and attention layers x
+   decode steps ``swa_decode`` launches a rank (B8 on each rank's heads,
+   hymba's attention replicated); then mixtral-8x7b's MoE layer at full
+   width on a skewed input that drops copies, the 4 ranks' ``moe_ffn_local``
+   against world 1's: expert ids, slots and the kept mask equal, y within
+   ``PATH_TOL``;
 5. times: each kernel (CUDA events, after warm-up) beside its bound, its
    plain version and a one-call PyTorch yardstick (``pairwise_cosine`` at
    (100, 1024), (256, 4096) and (20,000, 1,024)), and for every kernel and
@@ -302,9 +314,11 @@ Phases (any failure raises and exits non-zero):
    device) its profiled device time per call (``rsu_reduce``'s with and
    without its carry, beside a copy of its rows; ``ssd_scan``'s beside its
    events, its bound with the products at the TF32 tensor-core rate and
-   beside it the fp32-core figure; both also at the ssm and dense families'
-   serving shapes and whisper-small's two decode shapes, printed beside the
-   kernels line); the round's wall time
+   beside it the fp32-core figure, and its time by CUDA graph replay; both
+   also at the ssm and dense families' serving shapes, ``ssd_scan`` at the
+   per-rank shapes served sharded (``SHARDED_SSD_SHAPES``, no yardstick: no
+   one PyTorch call computes the scan) and whisper-small's two decode shapes,
+   printed beside the kernels line); the round's wall time
    (the fedavg, fedadam, fedbuff and streamed lanes), and profiled rounds (with ``rsu_reduce``'s calls and
    device time per call in the streamed and fleet rounds), a profiled
    decode step and prefill (with ``ssd_scan``'s calls and time per call);
@@ -1396,6 +1410,22 @@ SHARDED_SWA_SHAPES = {
 }
 
 
+# The ssm and hybrid families sharded (phase 4l at 2 layers; ``--sharded`` at full
+# depth): (arch, batch, prompt, gen), the serving runs' shapes (mamba2-130m's
+# ``FAMILY_RUNS`` row, hymba-1.5b's ``serve_full`` default).  B8's per-rank operands
+# there, (B, S, nh, hp, ds, Q): mamba2-130m's 24 heads cut 6 a rank; hymba-1.5b's 50
+# heads replicate on 4 ranks while their 3,200 columns cut 800 a rank, 25 virtual
+# heads of 32 (``sharding.make_rank``); and the half-head test config
+# (``tests/test_torch_lm_sharded_ssm.py``: hymba's smoke config at d_model 160, 80
+# columns a rank, 5 virtual heads of 16, at its B, S and chunk).
+SHARDED_SSM = (("mamba2-130m", 4, 2048, 32), ("hymba-1.5b", 4, 2048, 32))
+SHARDED_SSD_SHAPES = {
+    "mamba2-130m": (4, 2048, 6, 64, 128, 128),
+    "hymba-1.5b": (4, 2048, 25, 32, 16, 128),
+    "the half-head test config": (2, 40, 5, 16, 16, 16),
+}
+
+
 def expected_serving_launches(cfg, steps: int) -> dict:
     """A prefill and ``steps`` decode steps: ``ssd_scan`` once per SSM layer (the
     prefill), ``swa_decode`` once per attention layer and step (twice per
@@ -1936,21 +1966,30 @@ class local_moe:
         self.tf.moe_ffn = self.moe_ffn
 
 
+def rank_launches(o) -> dict:
+    """A ``ShardedServer`` rank's launch deltas under ``read_launches``' names."""
+    return {m if c == "launches" else f"{m}.{c}": n for (m, c), n in o["launches"].items()}
+
+
 def lm_sharded_vs_one_card(server, device, card, arch, batch, prompt, layers, dtype,
                            steps=SHARDED_STEPS) -> dict:
-    """``arch`` at full width cut to ``layers`` layers in ``dtype``: one card's serve
-    (its MoE layers at world 1, ``local_moe``), then the server's ranks'
-    (``ShardedServer.generate``), launch counts zeroed just before and read just
-    after.  The ranks route as one card routed (``RouteLog``; each flip within
-    ``FLIP_MARGIN`` of a tie).  fp32: greedy tokens equal, last logits within
-    ``PATH_TOL``; bf16: the ranks teacher-forced with one card's tokens, last
-    logits within ``PATH_TOL``.  Both: every rank's tokens equal, the dropped
-    copies equal, ``swa_decode`` launched once an attention layer and decode
-    step on every rank, no other kernel.  -> the ranks' launches."""
+    """``arch`` at full width cut to ``layers`` layers (None: full depth) in
+    ``dtype``: one card's serve (its MoE layers at world 1, ``local_moe``), then
+    the server's ranks' (``ShardedServer.generate``), launch counts zeroed just
+    before and read just after.  The ranks route as one card routed
+    (``RouteLog``; each flip within ``FLIP_MARGIN`` of a tie).  fp32: greedy
+    tokens equal, last logits within ``PATH_TOL``; bf16: the ranks
+    teacher-forced with one card's tokens, last logits within ``PATH_TOL``.
+    Both: every rank's tokens equal, the dropped copies equal, on every rank
+    ``swa_decode`` launched once an attention layer and decode step and
+    ``ssd_scan`` once an SSM layer (the prefill), no other kernel.  -> the
+    ranks' launches."""
     from repro_torch.configs import get_config
     from repro_torch.launch import serve as serve_mod
 
-    cfg = cut_depth(get_config(arch), layers).replace(dtype=dtype)
+    cfg = get_config(arch)
+    layers = layers or cfg.num_layers
+    cfg = cut_depth(cfg, layers).replace(dtype=dtype)
     gen = steps + 1
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1972,13 +2011,13 @@ def lm_sharded_vs_one_card(server, device, card, arch, batch, prompt, layers, dt
                           forced=tokens[:, :-1] if dtype == "bfloat16" else None)
     launches = read_launches()
     n = server.world
-    per_rank = {"swa_decode": cfg.num_layers * steps}
+    per_rank = {k: v for k, v in expected_serving_launches(cfg, steps).items() if v}
     want_launches = dict.fromkeys(launches, 0)
-    want_launches["swa_decode"] = n * per_rank["swa_decode"]
+    want_launches.update({k: n * v for k, v in per_rank.items()})
     if launches != want_launches:
         raise AssertionError(f"{arch} sharded launches: expected {want_launches}, got {launches}")
     for r, o in enumerate(res.ranks):
-        got = {m: c for (m, _), c in o["launches"].items()}
+        got = rank_launches(o)
         if got != per_rank:
             raise AssertionError(f"{arch} sharded: rank {r} launched {got}, expected {per_rank}")
         if o["hook"]["drops"] != one_drops:
@@ -2012,7 +2051,7 @@ def lm_sharded_vs_one_card(server, device, card, arch, batch, prompt, layers, dt
           f"tokens equal; {one_drops} copies dropped on each side; {len(flips)} routing flip(s), "
           f"the widest {widest:.3e} from a tie; "
           f"{sum(x['params'] for x in loaded):,} parameters held over the ranks (replicated "
-          f"leaves once a rank) [{card}]")
+          f"leaves once a rank); launches a rank {per_rank} [{card}]")
     print(f"  {ranks}")
     return launches
 
@@ -2020,9 +2059,10 @@ def lm_sharded_vs_one_card(server, device, card, arch, batch, prompt, layers, dt
 def lm_sharded_phase(device, card) -> dict:
     """Phase 4l: ``SHARDED_RANKS`` ranks sharing cuda:0 (``gloo``, every collective
     copied to the host and back: ``gloo``'s all-gather takes no CUDA tensor):
-    fp32 ``SHARDED_FP32`` and bf16 ``SHARDED_LM`` at full width and 2 layers
-    against one card's run, then mixtral-8x7b's MoE layer on the ranks against
-    world 1.  -> the ranks' launches summed."""
+    fp32 ``SHARDED_FP32`` and bf16 ``SHARDED_LM``, then ``SHARDED_SSM`` in fp32
+    and bf16, at full width and 2 layers against one card's run, then
+    mixtral-8x7b's MoE layer on the ranks against world 1.  -> the ranks'
+    launches summed."""
     from repro_torch.launch import serve as serve_mod
     from repro_torch.utils.device import LMMesh
 
@@ -2031,7 +2071,8 @@ def lm_sharded_phase(device, card) -> dict:
     with serve_mod.ShardedServer(mesh) as server:
         print(f"{mesh}: backend {server.backend}, the pool's start-up {server.start_s:.2f} s")
         runs = [(a, b, p, "float32") for a, b, p, _ in SHARDED_LM if a in SHARDED_FP32] \
-            + [(a, b, p, "bfloat16") for a, b, p, _ in SHARDED_LM]
+            + [(a, b, p, "bfloat16") for a, b, p, _ in SHARDED_LM] \
+            + [(a, b, p, dt) for a, b, p, _ in SHARDED_SSM for dt in ("float32", "bfloat16")]
         for arch, batch, prompt, dtype in runs:
             phase(f"LM sharded: {arch} {dtype}, full width, 2 layers, {SHARDED_RANKS} ranks on "
                   f"{device} vs one card")
@@ -2045,25 +2086,36 @@ def lm_sharded_phase(device, card) -> dict:
     return total
 
 
-def lm_sharded_cards(device, card) -> None:
+def lm_sharded_cards(device, card, archs=None) -> None:
     """``--sharded`` on ``SHARDED_RANKS`` or more cards: a rank a card over
     ``nccl``: the fp32 configs at 2 layers and the three at 16 layers in bf16
     against one card's run (``lm_sharded_vs_one_card``), then each of the three
-    at full depth (``serve_sharded_full``)."""
+    at full depth (``serve_sharded_full``); then ``SHARDED_SSM``'s two at full
+    depth in bf16 against one card's full-depth run (one card holds either
+    whole), each then served greedily (``serve_sharded_full``).  ``archs``:
+    only those configs."""
     from repro_torch.launch import serve as serve_mod
     from repro_torch.launch.mesh import make_lm_mesh
 
+    lm = [r for r in SHARDED_LM if archs is None or r[0] in archs]
+    ssm = [r for r in SHARDED_SSM if archs is None or r[0] in archs]
     mesh = make_lm_mesh(SHARDED_RANKS)
     with serve_mod.ShardedServer(mesh) as server:
         print(f"{mesh}: backend {server.backend}, the pool's start-up {server.start_s:.2f} s")
-        for arch, batch, prompt, _ in SHARDED_LM:
+        for arch, batch, prompt, _ in lm:
             if arch in SHARDED_FP32:
                 phase(f"LM sharded: {arch} fp32, 2 layers, a rank a card vs one card")
                 lm_sharded_vs_one_card(server, device, card, arch, batch, prompt, 2, "float32")
-        for arch, batch, prompt, _ in SHARDED_LM:
+        for arch, batch, prompt, _ in lm:
             phase(f"LM sharded: {arch} bf16, 16 layers, a rank a card vs one card")
             lm_sharded_vs_one_card(server, device, card, arch, batch, prompt, 16, "bfloat16")
-        for arch, batch, prompt, gen in SHARDED_LM:
+        for arch, batch, prompt, gen in lm:
+            phase(f"LM sharded: {arch} at full width and depth, bf16, a rank a card")
+            serve_sharded_full(server, card, arch, batch, prompt, gen)
+        for arch, batch, prompt, gen in ssm:
+            phase(f"LM sharded: {arch} at full width and depth, bf16, a rank a card vs one card")
+            lm_sharded_vs_one_card(server, device, card, arch, batch, prompt, None, "bfloat16",
+                                   steps=gen - 1)
             phase(f"LM sharded: {arch} at full width and depth, bf16, a rank a card")
             serve_sharded_full(server, card, arch, batch, prompt, gen)
 
@@ -2129,8 +2181,9 @@ def profiled_rank_step(worker, batch: int, prompt: int) -> dict:
 def serve_sharded_full(server, card, arch, batch, prompt, gen) -> dict:
     """``arch`` at full width and depth (bf16) on the server's ranks, the CLI's
     run: launch counts zeroed just before and read just after (``swa_decode``
-    once an attention layer, decode step and rank); parameters, each rank's
-    set-up, prefill, decode, peak, tokens/s, and each card's contexts."""
+    once an attention layer, decode step and rank, ``ssd_scan`` once an SSM
+    layer and rank); parameters, each rank's set-up, prefill, decode, peak,
+    tokens/s, and each card's contexts."""
     from repro_torch.configs import get_config
 
     cfg = get_config(arch)
@@ -2139,7 +2192,8 @@ def serve_sharded_full(server, card, arch, batch, prompt, gen) -> dict:
     res = server.generate(batch, prompt, gen)
     launches = read_launches()
     want = dict.fromkeys(launches, 0)
-    want["swa_decode"] = server.world * cfg.num_layers * (gen - 1)
+    want.update({k: server.world * v
+                 for k, v in expected_serving_launches(cfg, gen - 1).items() if v})
     if launches != want:
         raise AssertionError(f"{arch} full depth sharded launches: expected {want}, got "
                              f"{launches}")
@@ -3700,19 +3754,22 @@ def time_ssd(lib, stream, Bz, S, nh, hp, ds, Q, device, card) -> dict:
     from repro_torch.kernels.ssd_scan import counter_count, smem_bytes, ssd_scan_plain
 
     dtype = torch.bfloat16
-    ssd_sets = [ssd_operands(Bz, S, nh, hp, ds, dtype, device, seed=i) for i in range(2)]
+    # operand sets cycled past the 50 MB L2 (each layer reads its own), at most 16
+    set_bytes = Bz * S * (nh * hp * 2 + nh * 4 + 2 * ds * 2)
+    n_sets = min(16, max(2, -(-100_000_000 // set_bytes)))
+    ssd_sets = [ssd_operands(Bz, S, nh, hp, ds, dtype, device, seed=i) for i in range(n_sets)]
     y = torch.empty((Bz, S, nh, hp), dtype=torch.float32, device=device)
     h = torch.empty((Bz, nh, hp, ds), dtype=torch.float32, device=device)
     smem = smem_bytes(Q, hp, ds, 2)
     chain = kbuild.counters(device, "ssd_scan", counter_count(Bz, nh))
     nxt = _cycle(ssd_sets)
 
-    def ssd_launch():
+    def ssd_launch(on=stream):
         x, dt, A, Bs, Cs, _ = nxt()
         kbuild.check(lib.ssd_scan_launch(
             x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bs.data_ptr(), Cs.data_ptr(), None,
             Bz, S, nh, hp, ds, Q, smem, 1, y.data_ptr(), h.data_ptr(), chain.data_ptr(),
-            stream), "ssd_scan")
+            on), "ssd_scan")
 
     def ssd_plain():
         x, dt, A, Bs, Cs, _ = nxt()
@@ -3723,6 +3780,8 @@ def time_ssd(lib, stream, Bz, S, nh, hp, ds, Q, device, card) -> dict:
         ts = {"kernel": time_ms(ssd_launch, iters=20, warmup=3),
               "plain": time_ms(ssd_plain, iters=5, warmup=2)}
     ssd_dev = device_us_per_call(ssd_launch)
+    # on the current stream, as a graph capture needs
+    graph = graph_us(lambda: ssd_launch(torch.cuda.current_stream().cuda_stream), reps=20)
     x, dt, A, Bs, Cs, _ = ssd_sets[0]
     isz = x.element_size()
     ssd_bytes = (x.numel() * isz + dt.numel() * 4 + A.numel() * 4 + 2 * Bs.numel() * isz
@@ -3749,7 +3808,9 @@ def time_ssd(lib, stream, Bz, S, nh, hp, ds, Q, device, card) -> dict:
           f"{fp32_ms * 1e3:.2f} us all on the fp32 cores; "
           f"{ssd_flops / (ts['kernel'] * 1e-3) / 1e12:.2f} TFLOP/s achieved) [{card}]")
     print(f"  device time per call (profiler): kernel {ssd_dev:.2f} us "
-          f"({ssd_bytes / (ssd_dev * 1e-6) / 1e9:.0f} GB/s) [{card}]")
+          f"({ssd_bytes / (ssd_dev * 1e-6) / 1e9:.0f} GB/s); kernel by graph replay "
+          f"{graph:.2f} us ({b_ms * 1e3 / graph:.3f} of the bound); yardstick none (no one "
+          f"PyTorch call computes the scan) [{card}]")
     return {"ms": ts["kernel"], "plain_ms": ts["plain"], "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": None}
 
@@ -3769,7 +3830,9 @@ FAMILY_SWA_SHAPES = {  # arch: (B, C, Hkv, G, D, window, softcap, fills)
     "whisper-small self": (4, 64, 12, 1, 64, 0, 0.0, (95,) * 4),
     "whisper-small cross": (4, 1500, 12, 1, 64, 0, 0.0, (1500,) * 4),
 }
-FAMILY_SSD_SHAPES = {"mamba2-130m": (4, 2048, 24, 64, 128, 128)}
+FAMILY_SSD_SHAPES = {"mamba2-130m": (4, 2048, 24, 64, 128, 128),
+                     **{f"{arch}, a rank of 4": shape
+                        for arch, shape in SHARDED_SSD_SHAPES.items()}}
 
 
 def time_serving_kernels(kernels, lib, stream, serve_launches, main_err, device, card):
@@ -5299,12 +5362,14 @@ def main(argv=()) -> int:
               file=sys.stderr)
         return 1
     other = None
-    sharded_only = list(argv) == ["--sharded"]
-    if argv and not sharded_only:
-        if len(argv) not in (2, 3) or argv[0] != "--wrapper-times" or argv[2:] not in (
-                [], ["columns"], ["main"]):
+    sharded_only = bool(argv) and argv[0] == "--sharded"
+    sharded_archs = list(argv[1:]) if sharded_only else []
+    known = {r[0] for r in SHARDED_LM + SHARDED_SSM}
+    if argv and (not sharded_only or not set(sharded_archs) <= known):
+        if sharded_only or len(argv) not in (2, 3) or argv[0] != "--wrapper-times" \
+                or argv[2:] not in ([], ["columns"], ["main"]):
             print("usage: python3 chip_smoke.py [--wrapper-times CHECKOUT [columns | main] | "
-                  "--sharded]", file=sys.stderr)
+                  f"--sharded [ARCH ...]] (ARCH of {sorted(known)})", file=sys.stderr)
             return 2
         other = os.path.abspath(argv[1])
         sys.path.insert(0, os.path.join(other, "src"))  # before any repro_torch import
@@ -5344,9 +5409,10 @@ def main(argv=()) -> int:
                 raise AssertionError(f"ptxas spills {kernel}'s registers")
     kbuild.library()
     if sharded_only:
-        sharded_phase(device, card)
+        if not sharded_archs:
+            sharded_phase(device, card)
         if torch.cuda.device_count() >= SHARDED_RANKS:
-            lm_sharded_cards(device, card)
+            lm_sharded_cards(device, card, sharded_archs or None)
         else:
             print(f"LM sharded over cards: {torch.cuda.device_count()} card(s) visible, "
                   f"{SHARDED_RANKS} needed; not run")
@@ -5637,6 +5703,13 @@ def main(argv=()) -> int:
     check_ssd(8, 4096, 50, 64, 16, 128, False, torch.bfloat16, device)
     check_ssd(1, 77, 2, 13, 9, 32, True, torch.float32, device)
     check_ssd(3, 100, 12, 32, 16, 16, True, torch.bfloat16, device)
+    # the per-rank shapes of the ssm and hybrid families served sharded over 4 ranks
+    # (phase 4l): mamba2-130m's 6 heads, hymba-1.5b's 25 virtual heads of 32 (half of
+    # each 64-column y unit padding), the half-head test config's 5 of 16
+    for B, S, nh, hp, ds, Q in SHARDED_SSD_SHAPES.values():
+        for dtype in (torch.bfloat16, torch.float32):
+            check_ssd(B, S, nh, hp, ds, Q, False, dtype, device)
+        check_ssd(B, S, nh, hp, ds, Q, True, torch.float32, device)
     # the ssm and dense families' serving shapes: gemma2-9b's local layers (16 kv
     # heads, D 256, softcap 50, the 4,096-slot ring wrapped) and global layers (every
     # position, no window), mistral-nemo-12b / chatglm3-6b (G 2, D 128), qwen1.5-0.5b
@@ -5933,11 +6006,14 @@ def main(argv=()) -> int:
     torch.cuda.empty_cache()
     phase("serving: the families' paths on the card vs the plain path on the CPU")
     # mamba2-130m: a ragged last chunk (300 = 2 x 128 + 44); gemma2-9b: one local and
-    # one global layer, 4 past the 4,096 window (one row: the CPU's share of the
-    # time); chatglm3-6b: the 2d rope, the bias, G = 2
-    for arch, S, batch in (("mamba2-130m", 300, 2), ("gemma2-9b", 4100, 1),
-                           ("chatglm3-6b", 600, 1)):
-        for dt in ("float32", "bfloat16"):
+    # one global layer, 4 past the 4,096 window (one row, fp32 only: its 4,100-token
+    # CPU prefill in bf16 was the phase's largest cost; the bf16 path
+    # serves at full depth after phase 5's times, and B7 holds at its shapes in both
+    # dtypes in phase 3); chatglm3-6b: the 2d rope, the bias, G = 2
+    for arch, S, batch, dtypes in (("mamba2-130m", 300, 2, ("float32", "bfloat16")),
+                                   ("gemma2-9b", 4100, 1, ("float32",)),
+                                   ("chatglm3-6b", 600, 1, ("float32", "bfloat16"))):
+        for dt in dtypes:
             path_vs_plain(dt, device, arch, S, batch)
         torch.cuda.empty_cache()
     phase("serving: mamba2-130m decode vs prefill on the card")

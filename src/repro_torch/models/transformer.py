@@ -19,7 +19,8 @@ annotations and remat policies are dropped (``sharding.act_shard`` is a
 no-op); only the chunked loss (``_chunked_ce``) and the training scan's
 chunks (``models/ssm.py``) keep their remat.
 
-Sharded serving (the ``dense``, ``moe`` and ``vlm`` families): inside
+Sharded serving (the ``dense``, ``moe``, ``vlm``, ``ssm`` and ``hybrid``
+families): inside
 ``sharding.activation_sharding`` each process runs one rank of a ``(1,
 model)`` mesh on its blocks of the weights (``lm_param_axes`` resolved under
 ``SERVE_RULES``; ``sharding.make_rank`` reads the layout off those specs,
@@ -32,8 +33,20 @@ these ends in one sum over ``model`` (``Rank.all_reduce``).  The embedding
 holds the rank's vocab rows: a token outside them gives 0, and the sum over
 ranks is exact, ``embed_scale`` applied after it; the LM head gives the
 rank's vocab columns, gathered to the whole vocab, so every rank takes the
-same greedy argmax.  Outside the context nothing of this runs: the
-unsharded path's ops are as they were.
+same greedy argmax.  The mamba2 mixer (``ssm`` and ``hybrid``) runs on the
+rank's ``ssm_inner`` columns and ends in its own sum over ``model``
+(``models/ssm.py``): an ``ssm`` block adds it to the residual as it is, a
+``hybrid`` block norms it (``ssm_out_norm``) beside its attention branch,
+which is replicated where its heads do not divide the ranks (hymba-1.5b's 25
+heads and 5 kv heads on 4: every rank runs every head, no sum).  A rank's
+decode cache holds the blocks it computes (``init_lm_cache`` inside the
+context): its kv heads, and its SSM state, ``h`` ``(B, heads, Rank.ssm_hp,
+ds)`` and ``conv`` ``(B, width - 1, (c1 - c0) + 2 ds)``.  The reference's
+resolved cache spec (``lm_cache_axes`` under ``SERVE_RULES``) replicates ``h``
+where ``ssm_heads`` does not divide the ranks (hymba-1.5b on 4), while each
+rank here holds only the block it computes; the tests gather the ranks'
+blocks into the reference's layout.  Outside the context nothing of this
+runs: the unsharded path's ops are as they were.
 
 ``lm_loss`` is the training objective: ``forward_seq`` in its ``train`` mode
 (no cache is built), the MoE layers' load-balance losses summed over the
@@ -207,13 +220,15 @@ def lm_param_axes(cfg) -> dict:
 
 def init_lm_cache(cfg, batch: int, seq_len: int, prefilled: int = 0, device=None) -> dict:
     """Decode-state tree; ``prefilled`` marks positions [0, prefilled) as
-    already written (slot p % C holds the latest such position)."""
+    already written (slot p % C holds the latest such position).  Inside
+    ``activation_sharding``, the rank's blocks: its kv heads and SSM state."""
     check_family(cfg)
     p = pattern_period(cfg)
     kinds = pattern_kinds(cfg)
     Lp = cfg.num_layers // p
     dtype = torch_dtype(cfg)
-    kv_eff = cfg.num_kv_heads * cfg.kv_repeat
+    rank = current_rank()
+    kv_eff = rank.kv_heads if rank is not None else cfg.num_kv_heads * cfg.kv_repeat
     hd = cfg.resolved_head_dim
     layers_cache = []
     for i in range(p):
@@ -236,7 +251,8 @@ def init_lm_cache(cfg, batch: int, seq_len: int, prefilled: int = 0, device=None
 
 
 def lm_cache_axes(cfg) -> dict:
-    """The logical axes of ``init_lm_cache``'s leaves (the reference's)."""
+    """The logical axes of ``init_lm_cache``'s leaves (the reference's; a sharded
+    rank's SSM state is the block it computes, see the module docstring)."""
     check_family(cfg)
     layers_axes = []
     for _ in range(pattern_period(cfg)):

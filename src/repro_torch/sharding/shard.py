@@ -20,9 +20,17 @@ inferred.  Here one process runs each rank (``launch/serve.py``, a worker of
 - ``Rank``: what a rank's forward needs, all of it read off the leaves'
   resolved specs (``make_rank``): its mesh coordinates, its ``model``
   process group, which leaves are sharded, and the local sizes of heads, kv
-  heads, experts, ffn and vocab.  A layout that the sharded forward does not
-  implement (query heads sharded while the kv heads they need are not cut
-  the same way; ``data`` > 1) raises ``NotImplementedError``.
+  heads, experts, ffn and vocab, and of the mamba2 mixer: the rank's
+  ``ssm_inner`` columns and the heads it scans over them.  Where the SSD
+  heads replicate while their columns shard (hymba-1.5b's 50 heads on 4
+  ranks: 800 columns a rank, 12.5 heads of 64), the rank scans *virtual
+  heads* of ``gcd(hp, c0, c1 - c0)`` columns, each with its parent head's
+  ``dt``, ``A`` and ``D``: the recurrence is separable along a head's
+  columns, since ``dt``, ``A``, B and C are shared across them.  A layout
+  that the sharded forward does not implement (query heads sharded while the
+  kv heads they need are not cut the same way; SSD heads sharded while the
+  inner columns are not theirs; a replicated leaf of the mixer cut; the
+  ``encdec`` family; ``data`` > 1) raises ``NotImplementedError``.
 - ``Rank.all_reduce`` / ``Rank.all_gather``: sums and concatenations over
   ``model``.  With NCCL they take the tensors where they lie.  With ``gloo``
   on CUDA tensors (ranks sharing one card) both copy to the host and back
@@ -115,7 +123,13 @@ class Rank:
     ``mlp_sharded``: the dense SwiGLU's ffn is cut (its output a partial
     sum); ``expert_sharded``: the MoE layer's experts are cut (else its ffn);
     ``vocab_range``: the embedding's rows and the LM head's columns the rank
-    holds, None when replicated."""
+    holds, None when replicated.  The mamba2 mixer: ``ssm_sharded``, its
+    ``ssm_inner`` columns are cut (``ssm_cols``, the rank's ``[c0, c1)``; the
+    out projection a partial sum, the gated norm's mean of squares summed
+    over ``model``); ``ssm_hp``, the width of the heads the rank scans over
+    them; ``ssm_parent``, each such head's index into the rank's per-head
+    leaves (``in_dt``'s columns, ``A_log``, ``dt_bias``, ``D``), None where
+    they are one to one."""
 
     index: int
     world: int
@@ -134,6 +148,19 @@ class Rank:
     mlp_sharded: bool = False
     expert_sharded: bool = False
     vocab_range: Optional[Tuple[int, int]] = None
+    ssm_sharded: bool = False
+    ssm_cols: Optional[Tuple[int, int]] = None
+    ssm_hp: int = 0
+    ssm_parent: Optional[Tuple[int, ...]] = None
+    _parent_index: dict = dataclasses.field(default_factory=dict, repr=False, compare=False)
+
+    def ssm_parent_index(self, device) -> torch.Tensor:
+        """``ssm_parent`` as an int64 tensor on ``device``, made once a device."""
+        key = str(torch.device(device))
+        if key not in self._parent_index:
+            self._parent_index[key] = torch.tensor(self.ssm_parent, dtype=torch.int64,
+                                                   device=device)
+        return self._parent_index[key]
 
     @property
     def model(self) -> int:
@@ -171,7 +198,9 @@ def _range(block: slice) -> Tuple[int, int]:
 
 def make_rank(api, mesh, rules, index: int, group=None, host_collectives: bool = False) -> Rank:
     """Rank ``index`` of ``mesh`` for the model of ``api`` under ``rules``:
-    its coordinates, its blocks' specs and the local layout they give."""
+    its coordinates, its blocks' specs and the local layout they give; the
+    blocks a layer holds (attention, mamba2 mixer, MoE or dense MLP) are read
+    off the parameter tree."""
     cfg = api.cfg
     sizes = mesh_sizes(mesh)
     world = math.prod(sizes.values())
@@ -179,10 +208,10 @@ def make_rank(api, mesh, rules, index: int, group=None, host_collectives: bool =
         raise NotImplementedError(
             f"{cfg.name}: a mesh with data = {sizes['data']} > 1 is not ported yet "
             "(ROADMAP A13, data > 1); serve on a (1, model) mesh")
-    if cfg.family not in ("dense", "moe", "vlm"):
+    if cfg.family == "encdec":
         raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family!r} family does not serve sharded yet (ROADMAP "
-            "A13: the ssm / hybrid / encdec families sharded); sharded: dense, moe, vlm")
+            f"{cfg.name}: the 'encdec' family does not serve sharded yet (ROADMAP A13 (2)); "
+            "sharded: dense, moe, vlm, ssm, hybrid")
     coords = coords_of(index, sizes)
     shapes = param_shapes(api)
     specs = tree_pspecs(api.param_axes(), shapes, sizes, rules)
@@ -194,7 +223,39 @@ def make_rank(api, mesh, rules, index: int, group=None, host_collectives: bool =
             spec, shaped = spec[p], shaped[p]
         return leaf_block(spec, tuple(shaped.shape), sizes, coords)
 
-    # attention: the query heads' block, the kv heads projected, those the cache holds
+    def whole(path):
+        shaped = shapes
+        for p in path:
+            shaped = shaped[p]
+        return block(path) == tuple(slice(0, n) for n in shaped.shape)
+
+    layer = shapes["blocks"][0]
+    if "attn" in layer:
+        _attention_layout(rank, api, block)
+    if "ssm" in layer:
+        _ssm_layout(rank, cfg, block, whole)
+    if "moe" in layer:
+        wg = block(("blocks", 0, "moe", "w_gate"))
+        rank.expert_sharded = wg[1] != slice(0, cfg.num_experts)
+        rank.experts, rank.ffn = wg[1].stop - wg[1].start, wg[3].stop - wg[3].start
+        if rank.model > 1 and not rank.expert_sharded and rank.ffn == cfg.d_ff:
+            raise NotImplementedError(f"{cfg.name}: neither the experts nor their ffn shard "
+                                      f"over model = {rank.model}")
+    elif "mlp" in layer:
+        wg = block(("blocks", 0, "mlp", "w_gate"))[2]
+        rank.mlp_sharded = wg != slice(0, cfg.d_ff)
+        rank.ffn = wg.stop - wg.start
+    rows = block(("embed",))[0]
+    rank.vocab = rows.stop - rows.start
+    rank.vocab_range = None if rank.vocab == cfg.padded_vocab else _range(rows)
+    if not cfg.tie_embeddings and block(("lm_head",))[1] != rows:
+        raise NotImplementedError(f"{cfg.name}: lm_head's vocab is not cut as embed's")
+    return rank
+
+
+def _attention_layout(rank: Rank, api, block) -> None:
+    """The query heads' block, the kv heads projected, those the cache holds."""
+    cfg, sizes, coords = api.cfg, rank.mesh, rank.coords
     H, kv_eff = cfg.num_heads, cfg.num_kv_heads * cfg.kv_repeat
     G = H // kv_eff
     attn = block(("blocks", 0, "attn", "wq"))[2]
@@ -204,7 +265,8 @@ def make_rank(api, mesh, rules, index: int, group=None, host_collectives: bool =
     wk = block(("blocks", 0, "attn", "wk"))[2]
     proj = (wk.start * cfg.kv_repeat, wk.stop * cfg.kv_repeat)
     k_shape = (1, 1, 1, kv_eff, 1)  # (layers, batch, kv_seq, kv_heads, head_dim)
-    k_spec = resolve_pspec(api.cache_axes()["layers"][0]["attn"]["k"], k_shape, sizes, rules)
+    k_spec = resolve_pspec(api.cache_axes()["layers"][0]["attn"]["k"], k_shape, sizes,
+                           rank.rules)
     cache = leaf_block(k_spec, k_shape, sizes, coords)[3]
     local_g = (h1 - h0) // (want[1] - want[0])
     if (_range(cache) != want or not proj[0] <= want[0] < want[1] <= proj[1]
@@ -218,23 +280,38 @@ def make_rank(api, mesh, rules, index: int, group=None, host_collectives: bool =
     rank.kv_take = None if want == proj else (want[0] - proj[0], want[1] - proj[0])
     if block(("blocks", 0, "attn", "wo"))[1] != attn:
         raise NotImplementedError(f"{cfg.name}: wo's heads are not cut as wq's")
-    if cfg.family == "moe":
-        wg = block(("blocks", 0, "moe", "w_gate"))
-        rank.expert_sharded = wg[1] != slice(0, cfg.num_experts)
-        rank.experts, rank.ffn = wg[1].stop - wg[1].start, wg[3].stop - wg[3].start
-        if rank.model > 1 and not rank.expert_sharded and rank.ffn == cfg.d_ff:
-            raise NotImplementedError(f"{cfg.name}: neither the experts nor their ffn shard "
-                                      f"over model = {rank.model}")
+
+
+def _ssm_layout(rank: Rank, cfg, block, whole) -> None:
+    """The mamba2 mixer's layout: the rank's ``ssm_inner`` columns (``in_x``), its
+    ``ssm_heads`` block (``in_dt``), and the heads it scans over those columns,
+    whole heads where the heads shard, virtual heads where they replicate."""
+    nh, hp, di, sizes = cfg.ssm_num_heads, cfg.ssm_head_dim, cfg.ssm_d_inner, rank.mesh
+    ssm = lambda name: block(("blocks", 0, "ssm", name))  # noqa: E731
+    cols, heads = ssm("in_x")[2], ssm("in_dt")[2]
+    (c0, c1), (h0, h1) = _range(cols), _range(heads)
+    for name, dim, want in (("in_z", 2, cols), ("norm_w", 1, cols), ("out_proj", 1, cols),
+                            ("A_log", 1, heads), ("dt_bias", 1, heads), ("D", 1, heads)):
+        if ssm(name)[dim] != want:
+            raise NotImplementedError(f"{cfg.name} on {sizes}: {name} is not cut as "
+                                      f"{'in_x' if want is cols else 'in_dt'}")
+    for name in ("in_B", "in_C", "conv_w", "conv_b"):
+        if not whole(("blocks", 0, "ssm", name)):
+            raise NotImplementedError(f"{cfg.name} on {sizes}: {name} is cut; the sharded "
+                                      "mixer holds it whole (ROADMAP A13)")
+    rank.ssm_cols, rank.ssm_sharded = (c0, c1), (c0, c1) != (0, di)
+    if (h0, h1) != (0, nh):
+        if (h0 * hp, h1 * hp) != (c0, c1):
+            raise NotImplementedError(
+                f"{cfg.name} on {sizes}: SSD heads {h0}-{h1 - 1} are sharded, but the rank's "
+                f"inner columns {c0}-{c1 - 1} are not theirs ({h0 * hp}-{h1 * hp - 1}); this "
+                "layout is not ported (ROADMAP A13)")
+        rank.ssm_hp = hp
+    elif rank.ssm_sharded:  # heads replicated, columns cut: virtual heads
+        rank.ssm_hp = math.gcd(hp, c0, c1 - c0)
+        rank.ssm_parent = tuple(c // hp for c in range(c0, c1, rank.ssm_hp))
     else:
-        wg = block(("blocks", 0, "mlp", "w_gate"))[2]
-        rank.mlp_sharded = wg != slice(0, cfg.d_ff)
-        rank.ffn = wg.stop - wg.start
-    rows = block(("embed",))[0]
-    rank.vocab = rows.stop - rows.start
-    rank.vocab_range = None if rank.vocab == cfg.padded_vocab else _range(rows)
-    if not cfg.tie_embeddings and block(("lm_head",))[1] != rows:
-        raise NotImplementedError(f"{cfg.name}: lm_head's vocab is not cut as embed's")
-    return rank
+        rank.ssm_hp = hp
 
 
 __all__ = ["Rank", "coords_of", "leaf_block", "tree_blocks", "shard_tree", "param_shapes",

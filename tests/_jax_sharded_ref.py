@@ -1,4 +1,5 @@
-"""The reference's sharded runs, for ``tests/test_torch_lm_sharded.py``.
+"""The reference's sharded runs, for ``tests/test_torch_lm_sharded.py`` and
+``tests/test_torch_lm_sharded_ssm.py``.
 
 Run as a script in a process of its own: it asks JAX for four CPU devices
 (``jax_num_cpu_devices``, set before JAX starts; jax 0.9.0 ignores
@@ -10,6 +11,10 @@ Run as a script in a process of its own: it asks JAX for four CPU devices
   under ``activation_sharding`` of a ``(data 1, model 4)`` mesh with
   ``SERVE_RULES``: every MoE layer dispatches to ``_moe_shard_map``; the
   greedy tokens (2, 8) and each step's logits (8, 2, V), the prefill's first;
+  for a model with an SSM mixer also ``serve/<arch>/<dtype>/ssm/<i>/{h,conv}``,
+  sub-layer i's state in the final cache (fp32).  An ``<arch>`` may carry
+  overrides of the smoke config, ``ARCH:key=value,...`` (integers), e.g.
+  ``hymba-1.5b:d_model=160``;
 - ``moe/<case>/y``: ``_moe_shard_map`` on the operands in ``moe/<case>/*``
   of the input file, on the ``(1, 4)`` mesh, and ``moe1/<case>/y`` on a
   ``(1, 1)`` mesh.
@@ -37,8 +42,15 @@ BATCH, PROMPT, GEN = 2, 40, 8
 DTYPES = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
 
 
+def smoke_config(spec: str):
+    """The smoke config of ``ARCH[:key=value,...]``, the overrides applied."""
+    arch, _, over = spec.partition(":")
+    kw = dict(item.split("=") for item in over.split(",")) if over else {}
+    return get_smoke_config(arch).replace(**{k: int(v) for k, v in kw.items()})
+
+
 def serve(arch: str, dtype: str, mesh) -> dict:
-    cfg = get_smoke_config(arch).replace(dtype=dtype)
+    cfg = smoke_config(arch).replace(dtype=dtype)
     api = build_model(cfg)
     key = jax.random.key(0)
     params, _ = split_params(api.init(fold_in_str(key, "init")))
@@ -58,8 +70,12 @@ def serve(arch: str, dtype: str, mesh) -> dict:
             tokens = jnp.argmax(logits, axis=-1).astype(jnp.int32)
             out.append(tokens)
             steps.append(logits)
-    return {"tokens": np.asarray(jnp.stack(out, axis=1)),
-            "logits": np.asarray(jnp.stack(steps).astype(jnp.float32))}
+    got = {"tokens": np.asarray(jnp.stack(out, axis=1)),
+           "logits": np.asarray(jnp.stack(steps).astype(jnp.float32))}
+    for i, entry in enumerate(cache["layers"]):
+        for k, v in entry.get("ssm", {}).items():
+            got[f"ssm/{i}/{k}"] = np.asarray(v.astype(jnp.float32))
+    return got
 
 
 class _Cfg:

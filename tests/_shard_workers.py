@@ -104,3 +104,24 @@ def moe_local(worker, p, x, E, K, expert_sharded):
     with torch.no_grad():
         y, _ = moe.moe_ffn_local(local, x, cfg, rank)
     return y.float()
+
+
+def serve_states(worker, batch, prompt, gen, forced):
+    """The serve CLI's run on this ``ShardedServer`` rank (``launch.serve.generate``
+    inside ``activation_sharding``, as ``ShardedServer.generate`` runs it) ->
+    the rank's tokens, last logits, ``ssm_cols`` and the final cache's SSM
+    states, one ``{"h", "conv"}`` a sub-layer (on the CPU, fp32)."""
+    from repro_torch.launch import serve
+    from repro_torch.sharding import activation_sharding
+
+    state = worker.state
+    api, rank = state["api"], state["rank"]
+    cfg = api.cfg
+    prompts = serve.make_prompts(cfg, batch, prompt, worker.device)
+    with activation_sharding(state["mesh"], state["rules"], rank):
+        tokens, logits, cache, _, _ = serve.generate(
+            api, state["params"], prompts, gen, serve.max_seq_for(cfg, prompt, gen),
+            worker.device, forced)
+    return {"tokens": tokens.cpu(), "logits": logits.float().cpu(), "cols": rank.ssm_cols,
+            "ssm": [{k: v.float().cpu() for k, v in entry["ssm"].items()}
+                    for entry in cache["layers"] if "ssm" in entry]}

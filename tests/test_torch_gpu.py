@@ -867,6 +867,12 @@ def _assert_ssd_close(got, ref):
     (1, 77, 2, 13, 9, 32, True),  # odd hp and ds, a ragged chunk of 13 steps
     (2, 40, 12, 32, 16, 16, False),  # the smoke config's prefill: chunks of 16
     (3, 100, 12, 32, 16, 16, True),  # chunks of 16, a ragged last one, an h0
+    # the per-rank shapes served sharded over 4 ranks: mamba2-130m's 6 heads,
+    # hymba-1.5b's 25 virtual heads of 32, the half-head test config's 5 of 16
+    (4, 2048, 6, 64, 128, 128, False),
+    (4, 2048, 25, 32, 16, 128, False),
+    (2, 40, 5, 16, 16, 16, False),
+    (2, 40, 5, 16, 16, 16, True),
 ])
 def test_ssd_scan_kernel_matches_plain(dev, dtype, B, S, nh, hp, ds, chunk, with_h0):
     from repro_torch.kernels import ssd_scan as ssd
@@ -2412,21 +2418,25 @@ def test_kernels_above_48kb_of_shared_memory_on_card_1_after_card_0(two_cards):
                           ssd.ssd_scan_plain(x, dt, A, Bs, Cs, 128, h0))
 
 
-def _sharded_vs_one_card(mesh, arch="internvl2-76b"):
-    """``arch``'s smoke config (fp32) served sharded on ``mesh`` against one
-    card's run: greedy tokens equal on every rank and to one card's, the last
-    logits within ``chip_smoke.py``'s fp32 path tolerance, ``swa_decode``
-    launched once an attention layer, decode step and rank."""
+def _sharded_vs_one_card(mesh, arch="internvl2-76b", **overrides):
+    """``arch``'s smoke config (fp32; ``overrides`` replaced) served sharded on
+    ``mesh`` against one card's run: greedy tokens equal on every rank and to
+    one card's, the last logits within ``chip_smoke.py``'s fp32 path
+    tolerance, ``swa_decode`` launched once an attention layer, decode step and
+    rank, ``ssd_scan`` once an SSM layer and rank."""
     from repro_torch.configs import get_smoke_config
+    from repro_torch.kernels import ssd_scan as ssd
     from repro_torch.kernels import swa_decode as swa
     from repro_torch.launch import serve
+    from repro_torch.models.transformer import _has_attn, _has_ssm
 
-    cfg = get_smoke_config(arch)
+    cfg = get_smoke_config(arch).replace(**overrides)
     want = serve.serve(cfg=cfg, batch=2, prompt_len=40, gen=8, device="cuda:0")
-    before = swa.launches
+    before = swa.launches, ssd.launches
     got = serve.serve(cfg=cfg, batch=2, prompt_len=40, gen=8, mesh=mesh)
     n = len(mesh.devices)
-    assert swa.launches - before == n * cfg.num_layers * 7
+    assert swa.launches - before[0] == (n * cfg.num_layers * 7 if _has_attn(cfg) else 0)
+    assert ssd.launches - before[1] == (n * cfg.num_layers if _has_ssm(cfg) else 0)
     assert torch.equal(got.tokens, want.tokens.cpu())
     torch.testing.assert_close(got.logits, want.logits.float().cpu(), rtol=5e-4, atol=5e-4)
     assert len(got.ranks) == n and all(r["peak_bytes"] > 0 for r in got.ranks)
@@ -2440,6 +2450,19 @@ def test_sharded_serve_of_two_ranks_on_one_card_is_one_cards(dev):
     mesh = LMMesh([["cuda:0", "cuda:0"]])
     assert mesh.backend == "gloo"
     _sharded_vs_one_card(mesh)
+
+
+@pytest.mark.parametrize("arch,overrides", [
+    ("mamba2-130m", {}),  # 16 heads, 4 a rank
+    ("hymba-1.5b", {}),  # 12 heads, 3 a rank; its attention replicated
+    ("hymba-1.5b", {"d_model": 160}),  # 10 heads replicated: 5 virtual heads of 16 a rank
+])
+def test_sharded_ssm_serve_of_four_ranks_on_one_card_is_one_cards(dev, arch, overrides):
+    """The ssm and hybrid families on four ranks sharing cuda:0 (``gloo``): B8 on
+    each rank's heads, whole or virtual."""
+    from repro_torch.utils.device import LMMesh
+
+    _sharded_vs_one_card(LMMesh([["cuda:0"] * 4]), arch, **overrides)
 
 
 def test_sharded_serve_over_two_cards_is_one_cards(two_cards):

@@ -26,8 +26,10 @@ the module and runs while the port's ranks work.
   and bf16, on a skewed input that drops copies; its routing (expert ids, slots, the kept
   mask) against the reference's ``_route_local`` exactly; at world 1 against
   ``_moe_shard_map`` on a (1, 1) mesh.
-- The ranks' layouts (``make_rank``), the refusals (data > 1, an unported
-  family or layout, CUDA without a card), and a rank that fails.
+- The ranks' layouts (``make_rank``, the ssm and hybrid smoke configs' mixer
+  among them), the refusals (data > 1, the encdec family, an unported
+  attention layout, CUDA without a card), and a rank that fails.  The ssm and
+  hybrid families' serve is held in ``test_torch_lm_sharded_ssm.py``.
 """
 import os
 import subprocess
@@ -244,11 +246,18 @@ def test_local_routing_matches_route_local_exactly(case):
     assert int((~r.keep).sum()) > 0
 
 
+# the mamba2 mixer's layout a rank of 4: (ssm_inner columns a rank, SSD head width);
+# the smoke configs cut whole heads (mamba2 16 / 4, hymba 12 / 4)
+SSM_COLS = {"mamba2-130m": (128, 32), "hymba-1.5b": (96, 32)}
+
+
 @pytest.mark.parametrize("arch,heads,kv,experts,ffn,vocab,flags", [
     ("mixtral-8x7b", 2, 1, 1, 512, 128, "experts"),
     ("phi3.5-moe-42b-a6.6b", 2, 1, 1, 512, 128, "experts"),
     ("internvl2-76b", 2, 1, 0, 128, 128, "mlp"),
     ("qwen1.5-0.5b", 2, 2, 0, 128, 128, "mlp"),
+    ("mamba2-130m", 0, 0, 0, 0, 128, "ssm"),  # no attention, no MLP
+    ("hymba-1.5b", 6, 2, 0, 96, 128, "mlp"),  # 6 / 2 heads replicate on 4 ranks
 ])
 def test_make_rank_reads_the_layout_off_the_specs(arch, heads, kv, experts, ffn, vocab, flags):
     api = build_model(get_smoke_config(arch))
@@ -256,13 +265,20 @@ def test_make_rank_reads_the_layout_off_the_specs(arch, heads, kv, experts, ffn,
         r = make_rank(api, {"data": 1, "model": 4}, SERVE_RULES, i)
         assert (r.heads, r.kv_heads, r.experts, r.ffn, r.vocab) == (heads, kv, experts, ffn,
                                                                     vocab)
-        assert r.heads_sharded and r.kv_take is None and r.coords == {"data": 0, "model": i}
+        assert r.heads_sharded == (arch not in SSM_COLS)
+        assert r.kv_take is None and r.coords == {"data": 0, "model": i}
         assert r.vocab_range == (128 * i, 128 * (i + 1))
         assert (r.expert_sharded, r.mlp_sharded) == (flags == "experts", flags == "mlp")
+        if arch in SSM_COLS:
+            cols, hp = SSM_COLS[arch]
+            assert (r.ssm_sharded, r.ssm_cols, r.ssm_hp, r.ssm_parent) == (
+                True, (cols * i, cols * (i + 1)), hp, None)
+        else:
+            assert not r.ssm_sharded and r.ssm_cols is None
     full = build_model(get_smoke_config(arch).replace(num_layers=2))
     one = make_rank(full, {"data": 1, "model": 1}, SERVE_RULES, 0)
-    assert not (one.heads_sharded or one.mlp_sharded or one.expert_sharded) \
-        and one.vocab_range is None
+    assert not (one.heads_sharded or one.mlp_sharded or one.expert_sharded
+                or one.ssm_sharded) and one.vocab_range is None
 
 
 def test_make_rank_takes_the_kv_heads_a_rank_attends_from_replicated_kv_weights():
@@ -297,7 +313,9 @@ def test_make_rank_refuses_what_is_not_ported():
     with pytest.raises(NotImplementedError, match="data > 1"):
         make_rank(build_model(get_smoke_config("mixtral-8x7b")), {"data": 2, "model": 2},
                   SERVE_RULES, 0)
-    for arch in ("mamba2-130m", "hymba-1.5b", "whisper-small"):
+    # the encdec family (ROADMAP A13 (2)); the ssm / hybrid layouts that do not
+    # run are refused in test_torch_lm_sharded_ssm.py
+    for arch in ("whisper-small",):
         with pytest.raises(NotImplementedError, match="A13"):
             make_rank(build_model(get_smoke_config(arch)), mesh, SERVE_RULES, 0)
     # chatglm3-6b-smoke: 8 query heads cut 2 a rank, its 2 kv heads replicated
@@ -323,8 +341,8 @@ def test_a_rank_that_fails_raises_and_closes_the_pool():
     ``WorkerError`` naming it, and the pool is closed; nothing falls back."""
     s = serve_mod.ShardedServer(make_lm_mesh(2, device="cpu"))
     try:
-        with pytest.raises(WorkerError, match="ssm"):
-            s.load(get_smoke_config("mamba2-130m"))
+        with pytest.raises(WorkerError, match="encdec"):
+            s.load(get_smoke_config("whisper-small"))
         assert not s.pool.alive
     finally:
         s.close()
