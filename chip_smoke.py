@@ -23,15 +23,17 @@ card over NCCL (``lm_sharded_cards``): mixtral-8x7b and internvl2-76b in
 fp32 at full width and 2 layers and the three configs of ``SHARDED_LM`` in
 bf16 at 16 layers against one card's run (``lm_sharded_vs_one_card``, as
 phase 4l; one card's 16-layer runs, with their set-up, prefill, decode and
-peak, are the serving rows that phase 6 cut to 8 layers), then each of the
+peak, are the serving rows that phase 6 cut to 4 layers), then each of the
 three at full width and depth (32, 32 and 80 layers; ``serve_sharded_full``):
 parameters, each rank's set-up, prefill, decode and peak, tokens/s, each
 card's contexts, exact launches, a profiled decode step a rank; then the ssm
 and hybrid families (``SHARDED_SSM``: mamba2-130m and hymba-1.5b, 4 x 2048 +
-32 tokens) at full depth in bf16 against one card's full-depth run, each then
-through ``serve_sharded_full``: the form to run on several cards.  With
-ARCHs (of ``SHARDED_LM`` and ``SHARDED_SSM``) it runs those configs' LM rows
-alone, without the engine's grids.
+32 tokens) and the encdec family (``SHARDED_ENCDEC``: whisper-small, 4 x 64
+tokens behind 4 x 1,500 frames, 32 tokens) at full depth in bf16 against one
+card's full-depth run, each then through ``serve_sharded_full``: the form to
+run on several cards.  With ARCHs (of ``SHARDED_LM``, ``SHARDED_SSM`` and
+``SHARDED_ENCDEC``) it runs those configs' LM rows alone, without the
+engine's grids.
 
 Phases (any failure raises and exits non-zero):
 
@@ -128,7 +130,10 @@ Phases (any failure raises and exits non-zero):
    per-rank shapes of the ssm and hybrid families served sharded over 4
    ranks, ``SHARDED_SSD_SHAPES``: mamba2-130m's 6 heads, hymba-1.5b's 25
    virtual heads of 32, the half-head test config's 5 of 16, with and
-   without an h0), each repeated bitwise;
+   without an h0; ``swa_decode`` at whisper-small's per-rank shapes served
+   sharded over 4 ranks, ``SHARDED_ENCDEC_SWA_SHAPES``: 3 heads a rank, the
+   64-slot self ring and the 1,500-frame cross-attention, fp32 and bf16),
+   each repeated bitwise;
    ``pairwise_cosine`` at the reference's
    shapes (the 128 / 512 tile edges, one row, D=1) in fp32 and bf16 and at
    its launch plan's tile and split edges, with a zero row, bitwise
@@ -303,10 +308,13 @@ Phases (any failure raises and exits non-zero):
    ``SHARDED_SSM``'s mamba2-130m and hymba-1.5b (4 x 2048) in fp32 and bf16
    the same way, exactly SSM layers ``ssd_scan`` and attention layers x
    decode steps ``swa_decode`` launches a rank (B8 on each rank's heads,
-   hymba's attention replicated); then mixtral-8x7b's MoE layer at full
-   width on a skewed input that drops copies, the 4 ranks' ``moe_ffn_local``
-   against world 1's: expert ids, slots and the kept mask equal, y within
-   ``PATH_TOL``;
+   hymba's attention replicated); then ``SHARDED_ENCDEC``'s whisper-small (4
+   x 64 behind 4 x 1,500 frames, 2 + 2 layers) in fp32 and bf16 the same way,
+   exactly 2 x decoder layers x decode steps ``swa_decode`` launches a rank
+   (B7 on each rank's 3 heads, self and cross); then mixtral-8x7b's MoE layer
+   at full width on a skewed input that drops copies, the 4 ranks'
+   ``moe_ffn_local`` against world 1's: expert ids, slots and the kept mask
+   equal, y within ``PATH_TOL``; each row prints its seconds;
 5. times: each kernel (CUDA events, after warm-up) beside its bound, its
    plain version and a one-call PyTorch yardstick (``pairwise_cosine`` at
    (100, 1024), (256, 4096) and (20,000, 1,024)), and for every kernel and
@@ -318,7 +326,7 @@ Phases (any failure raises and exits non-zero):
    also at the ssm and dense families' serving shapes, ``ssd_scan`` at the
    per-rank shapes served sharded (``SHARDED_SSD_SHAPES``, no yardstick: no
    one PyTorch call computes the scan) and whisper-small's two decode shapes,
-   printed beside the kernels line); the round's wall time
+   one card's and a rank of 4's, printed beside the kernels line); the round's wall time
    (the fedavg, fedadam, fedbuff and streamed lanes), and profiled rounds (with ``rsu_reduce``'s calls and
    device time per call in the streamed and fleet rounds), a profiled
    decode step and prefill (with ``ssd_scan``'s calls and time per call);
@@ -355,14 +363,14 @@ Phases (any failure raises and exits non-zero):
    2048, 32), gemma2-9b (2 x 4160, 16: the local layers' ring wraps),
    mistral-nemo-12b and chatglm3-6b (2 x 512, 8), each with its times, peak
    memory, exact launch counts and one profiled decode step; then the moe
-   and vlm families the same way at full width and 8 layers (their 16-layer
+   and vlm families the same way at full width and 4 layers (their 16-layer
    and full-depth runs are ``--sharded``'s): mixtral-8x7b (2 x 4160, 16: its
    window ring wraps),
    phi3.5-moe (4 x 2048, 32) and internvl2-76b (2 x (256 image + 512), 16),
    each also with the copies its prefill dropped over capacity; last, the
    encdec family: whisper-small at full width and depth (12 + 12 layers), 4 x
    64 behind 4 x 1,500 frames, 32 tokens, exactly 2 x 12 ``swa_decode``
-   launches a decode step.
+   launches a decode step; each row prints its seconds.
 7. training (after the serving runs): ``python -m repro_torch.launch.train
    --arch ARCH --full --steps 5`` for qwen1.5-0.5b (464,118,784 bf16
    parameters), hymba-1.5b (1,641,790,720; 4 microbatches) and mamba2-130m
@@ -1382,13 +1390,13 @@ FAMILY_RUNS = (("mamba2-130m", 4, 2048, 32), ("qwen1.5-0.5b", 4, 2048, 32),
                ("chatglm3-6b", 2, 512, 8))
 # The moe and vlm families' runs: (arch, batch, prompt, gen, layers).  At full depth
 # none fits one card (bf16 weights: mixtral-8x7b 87.0 GiB, phi3.5-moe 78.0,
-# internvl2-76b 131), so each runs here at full width and 8 layers; at 16 layers (43.7,
+# internvl2-76b 131), so each runs here at full width and 4 layers; at 16 layers (43.7,
 # 39.2 and 29.4 GiB) one card's run is the base of ``--sharded``'s comparison, and the
 # full depth serves sharded over 4 cards there (``lm_sharded_cards``).  mixtral's
 # 4,160-token prompt wraps its 4,096-slot window ring; internvl2's 512 tokens follow its
 # 256 image tokens.
-MOE_VLM_RUNS = (("mixtral-8x7b", 2, 4160, 16, 8), ("phi3.5-moe-42b-a6.6b", 4, 2048, 32, 8),
-                ("internvl2-76b", 2, 512, 16, 8))
+MOE_VLM_RUNS = (("mixtral-8x7b", 2, 4160, 16, 4), ("phi3.5-moe-42b-a6.6b", 4, 2048, 32, 4),
+                ("internvl2-76b", 2, 512, 16, 4))
 # The encdec family's run: ``--arch whisper-small --full`` at the CLI's defaults, 12 +
 # 12 layers.  The prefill (no max_seq, as the CLI's) leaves a 64-slot self ring that
 # wraps on the first decode step; the cross-attention reads 1,500 cached frames.
@@ -1423,6 +1431,17 @@ SHARDED_SSD_SHAPES = {
     "mamba2-130m": (4, 2048, 6, 64, 128, 128),
     "hymba-1.5b": (4, 2048, 25, 32, 16, 128),
     "the half-head test config": (2, 40, 5, 16, 16, 16),
+}
+
+
+# The encdec family sharded (phase 4l at 2 + 2 layers; ``--sharded`` at full depth):
+# (arch, batch, prompt, gen), ``ENCDEC_RUNS``' row.  B7's per-rank operands there,
+# whisper-small's 12 heads cut 3 a rank: the self ring of the prompt's 64 slots and
+# the cross-attention over the 1,500 cached frames, the query at the last frame.
+SHARDED_ENCDEC = (("whisper-small", 4, 64, 32),)
+SHARDED_ENCDEC_SWA_SHAPES = {
+    "whisper-small self": (4, 64, 3, 1, 64, 0, 0.0, (64,) * 4),
+    "whisper-small cross": (4, 1500, 3, 1, 64, 0, 0.0, (1500,) * 4),
 }
 
 
@@ -1531,6 +1550,7 @@ def serve_families(device, card, runs) -> dict:
 
     counts = {}
     for arch, batch, prompt, gen, *layers in runs:
+        t_row = time.perf_counter()
         res, counts[arch] = serve_full(device, card, arch, batch, prompt, gen, *layers)
         cfg = res.cfg
         api = build_model(cfg)
@@ -1542,6 +1562,7 @@ def serve_families(device, card, runs) -> dict:
                           lambda: api.decode_step(res.params, res.cache, tok), card)
         del res, api, tok
         torch.cuda.empty_cache()
+        print(f"{arch}: the row took {time.perf_counter() - t_row:.1f} s")
     return counts
 
 
@@ -1987,6 +2008,7 @@ def lm_sharded_vs_one_card(server, device, card, arch, batch, prompt, layers, dt
     from repro_torch.configs import get_config
     from repro_torch.launch import serve as serve_mod
 
+    t_row = time.perf_counter()
     cfg = get_config(arch)
     layers = layers or cfg.num_layers
     cfg = cut_depth(cfg, layers).replace(dtype=dtype)
@@ -2051,7 +2073,8 @@ def lm_sharded_vs_one_card(server, device, card, arch, batch, prompt, layers, dt
           f"tokens equal; {one_drops} copies dropped on each side; {len(flips)} routing flip(s), "
           f"the widest {widest:.3e} from a tie; "
           f"{sum(x['params'] for x in loaded):,} parameters held over the ranks (replicated "
-          f"leaves once a rank); launches a rank {per_rank} [{card}]")
+          f"leaves once a rank); launches a rank {per_rank}; the row took "
+          f"{time.perf_counter() - t_row:.1f} s [{card}]")
     print(f"  {ranks}")
     return launches
 
@@ -2059,10 +2082,10 @@ def lm_sharded_vs_one_card(server, device, card, arch, batch, prompt, layers, dt
 def lm_sharded_phase(device, card) -> dict:
     """Phase 4l: ``SHARDED_RANKS`` ranks sharing cuda:0 (``gloo``, every collective
     copied to the host and back: ``gloo``'s all-gather takes no CUDA tensor):
-    fp32 ``SHARDED_FP32`` and bf16 ``SHARDED_LM``, then ``SHARDED_SSM`` in fp32
-    and bf16, at full width and 2 layers against one card's run, then
-    mixtral-8x7b's MoE layer on the ranks against world 1.  -> the ranks'
-    launches summed."""
+    fp32 ``SHARDED_FP32`` and bf16 ``SHARDED_LM``, then ``SHARDED_SSM`` and
+    ``SHARDED_ENCDEC`` in fp32 and bf16, at full width and 2 layers (2 + 2 for
+    whisper-small) against one card's run, then mixtral-8x7b's MoE layer on the
+    ranks against world 1.  -> the ranks' launches summed."""
     from repro_torch.launch import serve as serve_mod
     from repro_torch.utils.device import LMMesh
 
@@ -2072,9 +2095,11 @@ def lm_sharded_phase(device, card) -> dict:
         print(f"{mesh}: backend {server.backend}, the pool's start-up {server.start_s:.2f} s")
         runs = [(a, b, p, "float32") for a, b, p, _ in SHARDED_LM if a in SHARDED_FP32] \
             + [(a, b, p, "bfloat16") for a, b, p, _ in SHARDED_LM] \
-            + [(a, b, p, dt) for a, b, p, _ in SHARDED_SSM for dt in ("float32", "bfloat16")]
+            + [(a, b, p, dt) for a, b, p, _ in SHARDED_SSM + SHARDED_ENCDEC
+               for dt in ("float32", "bfloat16")]
         for arch, batch, prompt, dtype in runs:
-            phase(f"LM sharded: {arch} {dtype}, full width, 2 layers, {SHARDED_RANKS} ranks on "
+            depth = "2 + 2 layers" if any(arch == r[0] for r in SHARDED_ENCDEC) else "2 layers"
+            phase(f"LM sharded: {arch} {dtype}, full width, {depth}, {SHARDED_RANKS} ranks on "
                   f"{device} vs one card")
             for k, v in lm_sharded_vs_one_card(server, device, card, arch, batch, prompt, 2,
                                                dtype).items():
@@ -2092,13 +2117,14 @@ def lm_sharded_cards(device, card, archs=None) -> None:
     against one card's run (``lm_sharded_vs_one_card``), then each of the three
     at full depth (``serve_sharded_full``); then ``SHARDED_SSM``'s two at full
     depth in bf16 against one card's full-depth run (one card holds either
-    whole), each then served greedily (``serve_sharded_full``).  ``archs``:
-    only those configs."""
+    whole), each then served greedily (``serve_sharded_full``); then
+    ``SHARDED_ENCDEC``'s whisper-small the same way.  ``archs``: only those
+    configs."""
     from repro_torch.launch import serve as serve_mod
     from repro_torch.launch.mesh import make_lm_mesh
 
     lm = [r for r in SHARDED_LM if archs is None or r[0] in archs]
-    ssm = [r for r in SHARDED_SSM if archs is None or r[0] in archs]
+    ssm = [r for r in SHARDED_SSM + SHARDED_ENCDEC if archs is None or r[0] in archs]
     mesh = make_lm_mesh(SHARDED_RANKS)
     with serve_mod.ShardedServer(mesh) as server:
         print(f"{mesh}: backend {server.backend}, the pool's start-up {server.start_s:.2f} s")
@@ -3829,6 +3855,7 @@ FAMILY_SWA_SHAPES = {  # arch: (B, C, Hkv, G, D, window, softcap, fills)
     **{f"{arch}, a rank of 4": shape for arch, shape in SHARDED_SWA_SHAPES.items()},
     "whisper-small self": (4, 64, 12, 1, 64, 0, 0.0, (95,) * 4),
     "whisper-small cross": (4, 1500, 12, 1, 64, 0, 0.0, (1500,) * 4),
+    **{f"{arch}, a rank of 4": shape for arch, shape in SHARDED_ENCDEC_SWA_SHAPES.items()},
 }
 FAMILY_SSD_SHAPES = {"mamba2-130m": (4, 2048, 24, 64, 128, 128),
                      **{f"{arch}, a rank of 4": shape
@@ -5364,7 +5391,7 @@ def main(argv=()) -> int:
     other = None
     sharded_only = bool(argv) and argv[0] == "--sharded"
     sharded_archs = list(argv[1:]) if sharded_only else []
-    known = {r[0] for r in SHARDED_LM + SHARDED_SSM}
+    known = {r[0] for r in SHARDED_LM + SHARDED_SSM + SHARDED_ENCDEC}
     if argv and (not sharded_only or not set(sharded_archs) <= known):
         if sharded_only or len(argv) not in (2, 3) or argv[0] != "--wrapper-times" \
                 or argv[2:] not in ([], ["columns"], ["main"]):
@@ -5732,6 +5759,9 @@ def main(argv=()) -> int:
     for dtype in (torch.bfloat16, torch.float32):
         check_swa(4, 64, 12, 1, 64, 0, 0.0, (95,) * 4, dtype, device)
         check_swa(4, 1500, 12, 1, 64, 0, 0.0, (1500,) * 4, dtype, device)
+        # whisper-small's per-rank shapes served sharded over 4 ranks (phase 4l)
+        for shape in SHARDED_ENCDEC_SWA_SHAPES.values():
+            check_swa(*shape, dtype, device)
     main_err["pairwise_cosine"] = 0.0
     # the reference's shapes (tests/test_kernels.py): 128 / 512 tile edges,
     # one row, D = 1; the stage-3 shape is (100, 1024)
@@ -6497,7 +6527,7 @@ def main(argv=()) -> int:
     # those calls read half the device time (torch 2.11 on an H100 80GB HBM3)
     phase("serving: the ssm and dense families at full width and depth, bf16")
     family_launches = serve_families(device, card, FAMILY_RUNS)
-    phase("serving: the moe and vlm families at full width, 8 layers, bf16")
+    phase("serving: the moe and vlm families at full width, 4 layers, bf16")
     family_launches.update(serve_families(device, card, MOE_VLM_RUNS))
     phase("serving: the encdec family at full width and depth, bf16")
     family_launches.update(serve_families(device, card, ENCDEC_RUNS))

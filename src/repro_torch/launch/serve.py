@@ -29,10 +29,11 @@ of the one-process draw).  The prefill and the greedy decode then run on
 every rank at once inside ``sharding.activation_sharding``, as one
 ``ShardPool.run``; every rank gets the same tokens (asserted), and its
 times, peak memory and kernel launches come back with them.  A rank that
-fails makes the call raise.  The ``dense``, ``moe``, ``vlm``, ``ssm`` and
-``hybrid`` families serve sharded on a ``(1, N)`` mesh (mamba2-130m and
-hymba-1.5b: ``--arch hymba-1.5b --full --model-shards 4``); ``encdec`` raises
-(ROADMAP A13).
+fails makes the call raise.  Every family serves sharded on a ``(1, N)``
+mesh (mamba2-130m and hymba-1.5b: ``--arch hymba-1.5b --full
+--model-shards 4``; whisper-small: ``--arch whisper-small --full
+--model-shards 4``, each rank's frames the CLI's and its self ring
+``prompt_len`` slots, as unsharded).
 """
 from __future__ import annotations
 

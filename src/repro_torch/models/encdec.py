@@ -13,6 +13,20 @@ in plain torch; each decode step runs both of its attentions per layer through
 over the cached encoder K / V with the query placed at the last frame, so
 that every frame is visible (the reference's ``causal=False``).
 ``encdec_decode_step`` updates the cache it is given in place and returns it.
+
+Sharded serving: inside ``sharding.activation_sharding`` each process runs
+one rank of a ``(1, model)`` mesh on its blocks (``sharding.make_rank`` reads
+the layout off the decoder's self-attention and MLP and checks the encoder's
+and the cross-attention's against it).  Every attention (the encoder's, the
+decoder's self- and cross-attention) runs on the rank's heads and sums its
+output projection over ``model`` (``transformer.attn_out_summed``), the
+GELU MLP on the rank's ffn (``layers.gelu_mlp``: summed, then ``b2``), the
+token lookup on its vocab rows and the logits on its vocab columns, gathered;
+``pos_embed`` and the norms are whole on every rank.  Where the heads do not
+divide the ranks (whisper-small's 12 on 16) they replicate: every rank runs
+every head and no sum is taken for the attention.  A rank's cache holds its
+kv heads (``init_encdec_cache`` inside the context); ``gather_cache`` puts
+the ranks' caches back into the reference's layout.
 ``encdec_loss`` is the training objective: the decoder's sequence path with
 no cache built, the CE with no softcap and no auxiliary loss.
 """
@@ -21,7 +35,9 @@ from __future__ import annotations
 import torch
 
 from repro_torch.models import layers as L
-from repro_torch.models.transformer import decode_attention, layer_slices, torch_dtype
+from repro_torch.models.transformer import attn_out_summed, decode_attention, embed_rows, \
+    gather_vocab, layer_slices, project_qkv_local, torch_dtype
+from repro_torch.sharding.context import current_rank
 from repro_torch.utils import prng
 
 
@@ -122,10 +138,10 @@ def encode(params, cfg, frames):
     positions = _positions(B, S, x.device)
     for bp in layer_slices(params["encoder"], cfg.encoder_layers):
         h = L.layer_norm(x, bp["ln1"], bp["ln1b"], cfg.norm_eps)
-        q, k, v = L.project_qkv(bp["attn"], h)
+        q, k, v = project_qkv_local(bp["attn"], h)
         a = L.blocked_attention(q, k, v, positions, positions, causal=False,
                                 block_q=cfg.attn_block_q)
-        x = x + L.attn_output(bp["attn"], a)
+        x = x + attn_out_summed(bp["attn"], a)
         h = L.layer_norm(x, bp["ln2"], bp["ln2b"], cfg.norm_eps)
         x = x + L.gelu_mlp(bp["mlp"], h)
     return x
@@ -133,11 +149,11 @@ def encode(params, cfg, frames):
 
 def _logits(params, cfg, x):
     x = L.layer_norm(x, params["final_norm"], params["final_norm_b"], cfg.norm_eps)
-    return torch.einsum("bsd,vd->bsv", x, params["embed"].to(x.dtype))
+    return gather_vocab(torch.einsum("bsd,vd->bsv", x, params["embed"].to(x.dtype)))
 
 
 def _embed(params, cfg, tok):
-    x = params["embed"][tok.long()].to(torch_dtype(cfg))
+    x = embed_rows(params["embed"], tok, torch_dtype(cfg))
     return x + params["pos_embed"][:tok.shape[1]].to(x.dtype)[None]
 
 
@@ -151,15 +167,15 @@ def _decoder_seq(params, cfg, x, enc, positions, cache_len=None):
     per_layer = []
     for bp in layer_slices(params["decoder"], cfg.num_layers):
         h = L.layer_norm(x, bp["ln1"], bp["ln1b"], cfg.norm_eps)
-        q, k, v = L.project_qkv(bp["self_attn"], h, cfg.kv_repeat)
+        q, k, v = project_qkv_local(bp["self_attn"], h, cfg.kv_repeat)
         a = L.blocked_attention(q, k, v, positions, positions, causal=True,
                                 block_q=cfg.attn_block_q)
-        x = x + L.attn_output(bp["self_attn"], a)
+        x = x + attn_out_summed(bp["self_attn"], a)
         h = L.layer_norm(x, bp["lnx"], bp["lnxb"], cfg.norm_eps)
-        qx, kx, vx = L.project_qkv(bp["cross_attn"], h, 1, x_kv=enc)
+        qx, kx, vx = project_qkv_local(bp["cross_attn"], h, 1, x_kv=enc)
         a = L.blocked_attention(qx, kx, vx, positions, enc_pos, causal=False,
                                 block_q=cfg.attn_block_q)
-        x = x + L.attn_output(bp["cross_attn"], a)
+        x = x + attn_out_summed(bp["cross_attn"], a)
         h = L.layer_norm(x, bp["ln2"], bp["ln2b"], cfg.norm_eps)
         x = x + L.gelu_mlp(bp["mlp"], h)
         if cache_len is not None:
@@ -210,7 +226,7 @@ def encdec_decode_step(params, cfg, cache, tokens):
     """One decoder token against the cached self and cross K / V: tokens (B,) ->
     (logits (B, V), cache).  The self-attention ring is written in place."""
     pos = cache["pos"]
-    x = params["embed"][tokens[:, None].long()].to(torch_dtype(cfg))
+    x = embed_rows(params["embed"], tokens[:, None], torch_dtype(cfg))
     x = x + params["pos_embed"][pos.long()][:, None].to(x.dtype)
     enc_pos = cache["enc_pos"]
     # the query sits at the last frame: every frame is visible, the reference's causal=False
@@ -219,13 +235,13 @@ def encdec_decode_step(params, cfg, cache, tokens):
     sc = cache["self"]
     for li, bp in enumerate(layer_slices(params["decoder"], cfg.num_layers)):
         h = L.layer_norm(x, bp["ln1"], bp["ln1b"], cfg.norm_eps)
-        q, k, v = L.project_qkv(bp["self_attn"], h, cfg.kv_repeat)
+        q, k, v = project_qkv_local(bp["self_attn"], h, cfg.kv_repeat)
         ck, cv, cp = L.cache_write(sc["k"][li], sc["v"][li], sc["pos"][li], k, v, pos)
-        x = x + L.attn_output(bp["self_attn"], decode_attention(q, ck, cv, cp, pos32))
+        x = x + attn_out_summed(bp["self_attn"], decode_attention(q, ck, cv, cp, pos32))
         h = L.layer_norm(x, bp["lnx"], bp["lnxb"], cfg.norm_eps)
         qx = torch.einsum("bsd,dhk->bshk", h, bp["cross_attn"]["wq"].to(h.dtype))
         a = decode_attention(qx, sc["xk"][li], sc["xv"][li], enc_pos, enc_last)
-        x = x + L.attn_output(bp["cross_attn"], a)
+        x = x + attn_out_summed(bp["cross_attn"], a)
         h = L.layer_norm(x, bp["ln2"], bp["ln2b"], cfg.norm_eps)
         x = x + L.gelu_mlp(bp["mlp"], h)
     logits = _logits(params, cfg, x)[:, 0]
@@ -235,9 +251,11 @@ def encdec_decode_step(params, cfg, cache, tokens):
 
 def init_encdec_cache(cfg, batch: int, seq_len: int, prefilled: int = 0, device=None) -> dict:
     """The reference's ``zoo._encdec_cache``: zero K / V, slots below
-    ``prefilled`` marked with their own position, the rest -1."""
+    ``prefilled`` marked with their own position, the rest -1.  Inside
+    ``activation_sharding``, the rank's kv heads."""
     dtype = torch_dtype(cfg)
-    kv_eff = cfg.num_kv_heads * cfg.kv_repeat
+    rank = current_rank()
+    kv_eff = rank.kv_heads if rank is not None else cfg.num_kv_heads * cfg.kv_repeat
     hd = cfg.resolved_head_dim
     Ld = cfg.num_layers
     k = torch.zeros((Ld, batch, seq_len, kv_eff, hd), dtype=dtype, device=device)
@@ -251,3 +269,20 @@ def init_encdec_cache(cfg, batch: int, seq_len: int, prefilled: int = 0, device=
                  "xk": xk, "xv": torch.zeros_like(xk)},
         "enc_pos": _positions(batch, cfg.encoder_seq, device),
     }
+
+
+def gather_cache(parts, cfg) -> dict:
+    """The ranks' ``self`` caches, each holding its kv heads, as one cache in
+    the reference's layout.  ``parts``: in rank order.  Where the heads shard,
+    ``k`` / ``v`` / ``xk`` / ``xv`` are concatenated over the kv-head axis and
+    ``pos`` is rank 0's; where every rank holds every head (replicated), rank
+    0's cache."""
+    kv_eff = cfg.num_kv_heads * cfg.kv_repeat
+    heads = [p["k"].shape[3] for p in parts]
+    if all(h == kv_eff for h in heads):
+        return dict(parts[0])
+    if sum(heads) != kv_eff:
+        raise ValueError(f"gather_cache: the ranks' kv heads {heads} do not tile {kv_eff}")
+    out = {n: torch.cat([p[n] for p in parts], dim=3) for n in ("k", "v", "xk", "xv")}
+    out["pos"] = parts[0]["pos"]
+    return out

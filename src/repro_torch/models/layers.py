@@ -24,6 +24,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.sharding.context import current_rank
 from repro_torch.utils import prng
 
 
@@ -380,10 +381,18 @@ GELU_MLP_AXES = {
 
 
 def gelu_mlp(p, x):
-    """The GELU is ``jax.nn.gelu``'s default, the tanh approximation, in fp32."""
+    """The GELU is ``jax.nn.gelu``'s default, the tanh approximation, in fp32.
+    Inside ``activation_sharding`` with the ffn cut (``Rank.mlp_sharded``),
+    ``w1`` / ``b1`` hold the rank's ffn columns and ``w2`` its rows: the
+    product is a partial sum, summed over ``model`` before the replicated
+    ``b2`` is added once (dot, reduce, then bias, as XLA's partitioner does)."""
     h = torch.einsum("bsd,df->bsf", x, p["w1"].to(x.dtype)) + p["b1"].to(x.dtype)
     h = F.gelu(h.to(torch.float32), approximate="tanh").to(x.dtype)
-    return torch.einsum("bsf,fd->bsd", h, p["w2"].to(x.dtype)) + p["b2"].to(x.dtype)
+    y = torch.einsum("bsf,fd->bsd", h, p["w2"].to(x.dtype))
+    rank = current_rank()
+    if rank is not None and rank.mlp_sharded:
+        y = rank.all_reduce(y)
+    return y + p["b2"].to(x.dtype)
 
 
 # ---------------------------------------------------------------------------

@@ -55,7 +55,10 @@ differentiable by autograd and runs no kernel: under grad mode the ``ssm``
 and ``hybrid`` families' scan is the plain one (``models/ssm.py``).
 ``lm_decode_step`` updates the cache it is given in place and returns it.
 The ``encdec`` family (whisper-small) lives in ``models/encdec.py``, which
-shares this module's helpers; ``models.zoo.build_lm`` picks the engine.
+shares this module's helpers, the rank-aware ones among them
+(``project_qkv_local``, ``attn_out_summed``, ``embed_rows``,
+``gather_vocab``; its GELU MLP sums over ``model`` in ``layers.gelu_mlp``);
+``models.zoo.build_lm`` picks the engine.
 """
 from __future__ import annotations
 
@@ -271,11 +274,12 @@ def lm_cache_axes(cfg) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def _project_qkv(cfg, bp, x):
-    """q, k, v of the heads this process holds: all of them, or inside
+def project_qkv_local(bp, x, kv_repeat: int = 1, x_kv=None):
+    """q, k, v of the heads this process holds (``layers.project_qkv``; k and v
+    from ``x_kv`` where it is given): all of them, or inside
     ``activation_sharding`` the rank's query heads and the kv heads they attend
     (``Rank.kv_take``)."""
-    q, k, v = L.project_qkv(bp, x, cfg.kv_repeat)
+    q, k, v = L.project_qkv(bp, x, kv_repeat, x_kv)
     rank = current_rank()
     if rank is not None and rank.kv_take is not None:
         a, b = rank.kv_take
@@ -283,7 +287,7 @@ def _project_qkv(cfg, bp, x):
     return q, k, v
 
 
-def _attn_out(bp, ctx):
+def attn_out_summed(bp, ctx):
     """The output projection; a rank's over its heads is a partial sum, summed
     over ``model``."""
     out = L.attn_output(bp, ctx)
@@ -296,12 +300,12 @@ def _attn_out(bp, ctx):
 def _attn_seq(cfg, bp, x, positions, inv_freq, window: int, cache_len):
     """Sequence-mode attention; returns (out, cache_entry), the entry None
     where ``cache_len`` is None (training builds no cache)."""
-    q, k, v = _project_qkv(cfg, bp, x)
+    q, k, v = project_qkv_local(bp, x, cfg.kv_repeat)
     q = L.apply_rope(q, positions, inv_freq, cfg.rope_style)
     k = L.apply_rope(k, positions, inv_freq, cfg.rope_style)
     out = L.blocked_attention(q, k, v, positions, positions, causal=True, window=window,
                               cap=cfg.attn_logit_softcap, block_q=cfg.attn_block_q)
-    out = _attn_out(bp, out)
+    out = attn_out_summed(bp, out)
     if cache_len is None:
         return out, None
     B, S = x.shape[0], x.shape[1]
@@ -323,12 +327,12 @@ def _attn_seq(cfg, bp, x, positions, inv_freq, window: int, cache_len):
 def _attn_decode(cfg, bp, x, pos, inv_freq, window: int, cache):
     """Single-token attention against a ring-buffer cache (updated in place),
     through ``kernels.swa_decode``."""
-    q, k, v = _project_qkv(cfg, bp, x)
+    q, k, v = project_qkv_local(bp, x, cfg.kv_repeat)
     q = L.apply_rope(q, pos[:, None], inv_freq, cfg.rope_style)
     k = L.apply_rope(k, pos[:, None], inv_freq, cfg.rope_style)
     ck, cv, cp = L.cache_write(cache["k"], cache["v"], cache["pos"], k, v, pos)
     out = decode_attention(q, ck, cv, cp, pos.to(torch.int32), window, cfg.attn_logit_softcap)
-    return _attn_out(bp, out), {"k": ck, "v": cv, "pos": cp}
+    return attn_out_summed(bp, out), {"k": ck, "v": cv, "pos": cp}
 
 
 def decode_attention(q, k, v, kv_pos, pos, window: int = 0, softcap: float = 0.0):
@@ -408,19 +412,23 @@ def layer_slices(tree, n: int) -> list:
     return list(torch.unbind(tree, 0))
 
 
-def _embed_tokens(params, cfg, tokens):
+def embed_rows(embed, tokens, dtype):
+    """The embedding rows of ``tokens`` in ``dtype``.  Inside
+    ``activation_sharding`` a rank holds its vocab rows: a token outside them
+    gives 0; one rank holds each token's row, so the sum over ranks is exact."""
     rank = current_rank()
     if rank is not None and rank.vocab_range is not None:
-        # the rank's vocab rows: a token outside them gives 0; one rank holds
-        # each token's row, so the sum over ranks is exact
         v0, v1 = rank.vocab_range
         local = tokens.long() - v0
         inside = (local >= 0) & (local < v1 - v0)
-        rows = params["embed"][torch.where(inside, local, torch.zeros_like(local))]
-        x = rank.all_reduce(torch.where(inside[..., None], rows, torch.zeros_like(rows)))
-        x = x.to(torch_dtype(cfg))
-    else:
-        x = params["embed"][tokens.long()].to(torch_dtype(cfg))
+        rows = embed[torch.where(inside, local, torch.zeros_like(local))]
+        return rank.all_reduce(torch.where(inside[..., None], rows,
+                                           torch.zeros_like(rows))).to(dtype)
+    return embed[tokens.long()].to(dtype)
+
+
+def _embed_tokens(params, cfg, tokens):
+    x = embed_rows(params["embed"], tokens, torch_dtype(cfg))
     if cfg.embed_scale:
         # the reference's Python scalar is weakly typed: it rounds to the model
         # dtype before the product (sqrt(3584) is 59.75 in bf16)
@@ -445,7 +453,12 @@ def _logits(params, cfg, x):
     the reference, and is not applied here.  A rank's head holds its vocab
     columns: the ranks' logits are gathered to the whole vocab."""
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps, cfg.zero_centered_norm)
-    logits = torch.einsum("bsd,dv->bsv", x, _head(params, cfg).to(x.dtype))
+    return gather_vocab(torch.einsum("bsd,dv->bsv", x, _head(params, cfg).to(x.dtype)))
+
+
+def gather_vocab(logits):
+    """Logits over the whole vocab: inside ``activation_sharding`` a rank's
+    head gives its vocab columns, gathered over ``model`` in rank order."""
     rank = current_rank()
     if rank is not None and rank.vocab_range is not None:
         logits = rank.all_gather(logits, dim=-1)

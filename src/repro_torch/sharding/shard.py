@@ -29,8 +29,13 @@ inferred.  Here one process runs each rank (``launch/serve.py``, a worker of
   columns, since ``dt``, ``A``, B and C are shared across them.  A layout
   that the sharded forward does not implement (query heads sharded while the
   kv heads they need are not cut the same way; SSD heads sharded while the
-  inner columns are not theirs; a replicated leaf of the mixer cut; the
-  ``encdec`` family; ``data`` > 1) raises ``NotImplementedError``.
+  inner columns are not theirs; a replicated leaf of the mixer cut; an
+  ``encdec`` model whose cross-attention, encoder attention or encoder MLP is
+  not cut as the decoder's, or whose ``b2`` or ``pos_embed`` is cut; ``data``
+  > 1) raises ``NotImplementedError``.  An ``encdec`` tree has no
+  ``blocks``: its layout is read off the stacked ``decoder`` (self-attention,
+  GELU MLP) and ``embed``, and checked against ``encoder`` and
+  ``decoder.cross_attn``.
 - ``Rank.all_reduce`` / ``Rank.all_gather``: sums and concatenations over
   ``model``.  With NCCL they take the tensors where they lie.  With ``gloo``
   on CUDA tensors (ranks sharing one card) both copy to the host and back
@@ -199,8 +204,8 @@ def _range(block: slice) -> Tuple[int, int]:
 def make_rank(api, mesh, rules, index: int, group=None, host_collectives: bool = False) -> Rank:
     """Rank ``index`` of ``mesh`` for the model of ``api`` under ``rules``:
     its coordinates, its blocks' specs and the local layout they give; the
-    blocks a layer holds (attention, mamba2 mixer, MoE or dense MLP) are read
-    off the parameter tree."""
+    blocks a layer holds (attention, mamba2 mixer, MoE or dense MLP; an
+    encoder-decoder's stacks) are read off the parameter tree."""
     cfg = api.cfg
     sizes = mesh_sizes(mesh)
     world = math.prod(sizes.values())
@@ -208,10 +213,6 @@ def make_rank(api, mesh, rules, index: int, group=None, host_collectives: bool =
         raise NotImplementedError(
             f"{cfg.name}: a mesh with data = {sizes['data']} > 1 is not ported yet "
             "(ROADMAP A13, data > 1); serve on a (1, model) mesh")
-    if cfg.family == "encdec":
-        raise NotImplementedError(
-            f"{cfg.name}: the 'encdec' family does not serve sharded yet (ROADMAP A13 (2)); "
-            "sharded: dense, moe, vlm, ssm, hybrid")
     coords = coords_of(index, sizes)
     shapes = param_shapes(api)
     specs = tree_pspecs(api.param_axes(), shapes, sizes, rules)
@@ -229,9 +230,13 @@ def make_rank(api, mesh, rules, index: int, group=None, host_collectives: bool =
             shaped = shaped[p]
         return block(path) == tuple(slice(0, n) for n in shaped.shape)
 
+    if cfg.family == "encdec":
+        _encdec_layout(rank, api, block, whole)
+        return rank
     layer = shapes["blocks"][0]
     if "attn" in layer:
-        _attention_layout(rank, api, block)
+        _attention_layout(rank, api, block, ("blocks", 0, "attn"),
+                          api.cache_axes()["layers"][0]["attn"])
     if "ssm" in layer:
         _ssm_layout(rank, cfg, block, whole)
     if "moe" in layer:
@@ -245,28 +250,35 @@ def make_rank(api, mesh, rules, index: int, group=None, host_collectives: bool =
         wg = block(("blocks", 0, "mlp", "w_gate"))[2]
         rank.mlp_sharded = wg != slice(0, cfg.d_ff)
         rank.ffn = wg.stop - wg.start
-    rows = block(("embed",))[0]
-    rank.vocab = rows.stop - rows.start
-    rank.vocab_range = None if rank.vocab == cfg.padded_vocab else _range(rows)
+    rows = _vocab_layout(rank, cfg, block)
     if not cfg.tie_embeddings and block(("lm_head",))[1] != rows:
         raise NotImplementedError(f"{cfg.name}: lm_head's vocab is not cut as embed's")
     return rank
 
 
-def _attention_layout(rank: Rank, api, block) -> None:
-    """The query heads' block, the kv heads projected, those the cache holds."""
+def _vocab_layout(rank: Rank, cfg, block) -> slice:
+    """The embedding's vocab rows the rank holds (-> their block)."""
+    rows = block(("embed",))[0]
+    rank.vocab = rows.stop - rows.start
+    rank.vocab_range = None if rank.vocab == cfg.padded_vocab else _range(rows)
+    return rows
+
+
+def _attention_layout(rank: Rank, api, block, at, cache_axes) -> None:
+    """The query heads' block, the kv heads projected, those the cache holds:
+    the attention at ``at`` (a path into the tree), its cache's axes
+    ``cache_axes`` (``k`` read)."""
     cfg, sizes, coords = api.cfg, rank.mesh, rank.coords
     H, kv_eff = cfg.num_heads, cfg.num_kv_heads * cfg.kv_repeat
     G = H // kv_eff
-    attn = block(("blocks", 0, "attn", "wq"))[2]
+    attn = block(at + ("wq",))[2]
     rank.heads_sharded = attn != slice(0, H)
     h0, h1 = _range(attn)
     want = (h0 // G, (h1 - 1) // G + 1)  # the kv heads the local query heads attend
-    wk = block(("blocks", 0, "attn", "wk"))[2]
+    wk = block(at + ("wk",))[2]
     proj = (wk.start * cfg.kv_repeat, wk.stop * cfg.kv_repeat)
     k_shape = (1, 1, 1, kv_eff, 1)  # (layers, batch, kv_seq, kv_heads, head_dim)
-    k_spec = resolve_pspec(api.cache_axes()["layers"][0]["attn"]["k"], k_shape, sizes,
-                           rank.rules)
+    k_spec = resolve_pspec(cache_axes["k"], k_shape, sizes, rank.rules)
     cache = leaf_block(k_spec, k_shape, sizes, coords)[3]
     local_g = (h1 - h0) // (want[1] - want[0])
     if (_range(cache) != want or not proj[0] <= want[0] < want[1] <= proj[1]
@@ -278,8 +290,50 @@ def _attention_layout(rank: Rank, api, block) -> None:
             "(ROADMAP A13)")
     rank.heads, rank.kv_heads = h1 - h0, want[1] - want[0]
     rank.kv_take = None if want == proj else (want[0] - proj[0], want[1] - proj[0])
-    if block(("blocks", 0, "attn", "wo"))[1] != attn:
+    if block(at + ("wo",))[1] != attn:
         raise NotImplementedError(f"{cfg.name}: wo's heads are not cut as wq's")
+
+
+def _encdec_layout(rank: Rank, api, block, whole) -> None:
+    """whisper's layout: the heads read off the decoder's self-attention (its
+    ring cache ``self.k``; ``xk`` must resolve alike), the cross-attention's and
+    the encoder's attention cut as it is; the ffn off the decoder's GELU MLP,
+    the encoder's cut alike; the vocab off ``embed``'s rows (the logits come
+    from ``embed``: there is no ``lm_head``).  ``pos_embed`` and each MLP's
+    ``b2`` are held whole (``b2`` is added once, after the sum over
+    ``model``)."""
+    cfg, sizes = api.cfg, rank.mesh
+    cache = api.cache_axes()["self"]
+    _attention_layout(rank, api, block, ("decoder", "self_attn"), cache)
+    if rank.model > 1 and (cfg.kv_repeat != 1 or rank.kv_take is not None):
+        raise NotImplementedError(
+            f"{cfg.name} on {sizes}: kv_repeat {cfg.kv_repeat} with the heads cut; the "
+            "sharded encoder-decoder projects the kv heads its query heads attend "
+            "(ROADMAP A13)")
+    k_shape = (1, 1, 1, cfg.num_kv_heads * cfg.kv_repeat, 1)
+    if resolve_pspec(cache["xk"], k_shape, sizes, rank.rules) != \
+            resolve_pspec(cache["k"], k_shape, sizes, rank.rules):
+        raise NotImplementedError(f"{cfg.name} on {sizes}: the cache's xk is not cut as k")
+    for at in (("decoder", "cross_attn"), ("encoder", "attn")):
+        for name in ("wq", "wk", "wv", "wo"):
+            if block(at + (name,))[1:] != block(("decoder", "self_attn", name))[1:]:
+                raise NotImplementedError(
+                    f"{cfg.name} on {sizes}: {'.'.join(at + (name,))} is not cut as "
+                    f"decoder.self_attn.{name}")
+    w1 = block(("decoder", "mlp", "w1"))[2]
+    rank.mlp_sharded, rank.ffn = w1 != slice(0, cfg.d_ff), w1.stop - w1.start
+    for at in ("decoder", "encoder"):
+        for name, dim in (("w1", 2), ("b1", 1), ("w2", 1)):
+            if block((at, "mlp", name))[dim] != w1:
+                raise NotImplementedError(f"{cfg.name} on {sizes}: {at}.mlp.{name}'s ffn is "
+                                          "not cut as decoder.mlp.w1's")
+        if not whole((at, "mlp", "b2")):
+            raise NotImplementedError(f"{cfg.name} on {sizes}: {at}.mlp.b2 is cut; it is "
+                                      "added once, after the sum over model")
+    if not whole(("pos_embed",)):
+        raise NotImplementedError(f"{cfg.name} on {sizes}: pos_embed is cut; the sharded "
+                                  "decoder holds it whole")
+    _vocab_layout(rank, cfg, block)
 
 
 def _ssm_layout(rank: Rank, cfg, block, whole) -> None:

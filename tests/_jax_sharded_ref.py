@@ -1,5 +1,6 @@
-"""The reference's sharded runs, for ``tests/test_torch_lm_sharded.py`` and
-``tests/test_torch_lm_sharded_ssm.py``.
+"""The reference's sharded runs, for ``tests/test_torch_lm_sharded.py``,
+``tests/test_torch_lm_sharded_ssm.py`` and
+``tests/test_torch_lm_sharded_encdec.py``.
 
 Run as a script in a process of its own: it asks JAX for four CPU devices
 (``jax_num_cpu_devices``, set before JAX starts; jax 0.9.0 ignores
@@ -12,8 +13,11 @@ Run as a script in a process of its own: it asks JAX for four CPU devices
   ``SERVE_RULES``: every MoE layer dispatches to ``_moe_shard_map``; the
   greedy tokens (2, 8) and each step's logits (8, 2, V), the prefill's first;
   for a model with an SSM mixer also ``serve/<arch>/<dtype>/ssm/<i>/{h,conv}``,
-  sub-layer i's state in the final cache (fp32).  An ``<arch>`` may carry
-  overrides of the smoke config, ``ARCH:key=value,...`` (integers), e.g.
+  sub-layer i's state in the final cache (fp32); for an encoder-decoder
+  (its stubbed frames from ``"frames"``, no ``max_seq``, as the CLI
+  prefills it) ``serve/<arch>/<dtype>/self/{k,v,xk,xv}``, the final cache's
+  (fp32) and ``.../self/pos``.  An ``<arch>`` may carry overrides of the
+  smoke config, ``ARCH:key=value,...`` (integers), e.g.
   ``hymba-1.5b:d_model=160``;
 - ``moe/<case>/y``: ``_moe_shard_map`` on the operands in ``moe/<case>/*``
   of the input file, on the ``(1, 4)`` mesh, and ``moe1/<case>/y`` on a
@@ -59,7 +63,10 @@ def serve(arch: str, dtype: str, mesh) -> dict:
     if cfg.family == "vlm":
         batch["image_embeds"] = 0.02 * jax.random.normal(
             fold_in_str(key, "img"), (BATCH, cfg.num_image_tokens, cfg.d_model))
-    max_seq = PROMPT + GEN + (cfg.num_image_tokens or 0)
+    if cfg.family == "encdec":
+        batch["frames"] = 0.02 * jax.random.normal(
+            fold_in_str(key, "frames"), (BATCH, cfg.encoder_seq, cfg.d_model))
+    max_seq = None if cfg.family == "encdec" else PROMPT + GEN + (cfg.num_image_tokens or 0)
     with activation_sharding(mesh, SERVE_RULES):
         logits, cache = jax.jit(lambda p, x: api.prefill(p, x, max_seq))(params, batch)
         decode = jax.jit(api.decode_step)
@@ -72,6 +79,10 @@ def serve(arch: str, dtype: str, mesh) -> dict:
             steps.append(logits)
     got = {"tokens": np.asarray(jnp.stack(out, axis=1)),
            "logits": np.asarray(jnp.stack(steps).astype(jnp.float32))}
+    if cfg.family == "encdec":
+        for k, v in cache["self"].items():
+            got[f"self/{k}"] = np.asarray(v if k == "pos" else v.astype(jnp.float32))
+        return got
     for i, entry in enumerate(cache["layers"]):
         for k, v in entry.get("ssm", {}).items():
             got[f"ssm/{i}/{k}"] = np.asarray(v.astype(jnp.float32))

@@ -109,8 +109,9 @@ def moe_local(worker, p, x, E, K, expert_sharded):
 def serve_states(worker, batch, prompt, gen, forced):
     """The serve CLI's run on this ``ShardedServer`` rank (``launch.serve.generate``
     inside ``activation_sharding``, as ``ShardedServer.generate`` runs it) ->
-    the rank's tokens, last logits, ``ssm_cols`` and the final cache's SSM
-    states, one ``{"h", "conv"}`` a sub-layer (on the CPU, fp32)."""
+    the rank's tokens, last logits, ``ssm_cols`` and the final cache's state
+    (on the CPU, fp32; positions int32): an encoder-decoder's ``self`` entries,
+    or the SSM states, one ``{"h", "conv"}`` a sub-layer."""
     from repro_torch.launch import serve
     from repro_torch.sharding import activation_sharding
 
@@ -122,6 +123,24 @@ def serve_states(worker, batch, prompt, gen, forced):
         tokens, logits, cache, _, _ = serve.generate(
             api, state["params"], prompts, gen, serve.max_seq_for(cfg, prompt, gen),
             worker.device, forced)
-    return {"tokens": tokens.cpu(), "logits": logits.float().cpu(), "cols": rank.ssm_cols,
-            "ssm": [{k: v.float().cpu() for k, v in entry["ssm"].items()}
-                    for entry in cache["layers"] if "ssm" in entry]}
+    out = {"tokens": tokens.cpu(), "logits": logits.float().cpu(), "cols": rank.ssm_cols}
+    if "self" in cache:
+        out["self"] = {k: v.cpu() if k == "pos" else v.float().cpu()
+                       for k, v in cache["self"].items()}
+    else:
+        out["ssm"] = [{k: v.float().cpu() for k, v in entry["ssm"].items()}
+                      for entry in cache["layers"] if "ssm" in entry]
+    return out
+
+
+def hold_params(worker, whole):
+    """Replace this rank's weights by its blocks of ``whole`` (a full tree of
+    CPU tensors, ``sharding.shard_tree``), on its device -> the blocks' shapes."""
+    from repro_torch.sharding import shard_tree
+    from repro_torch.utils.pytree import tree_map
+
+    state = worker.state
+    api, rank = state["api"], state["rank"]
+    blocks = shard_tree(whole, api.param_axes(), state["mesh"], state["rules"], rank.coords)
+    state["params"] = tree_map(lambda t: t.to(worker.device), blocks)
+    return tree_map(lambda t: tuple(t.shape), state["params"])

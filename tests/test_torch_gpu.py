@@ -751,6 +751,10 @@ def _swa_operands(B, C, hkv, G, D, dtype, dev, fills, seed=0):
     # 1,500 cached frames with the query at the last one (every frame visible)
     (4, 64, 12, 1, 64, 0, 0.0, (95, 95, 95, 95)),
     (4, 1500, 12, 1, 64, 0, 0.0, (1500, 1500, 1500, 1500)),
+    # whisper-small's per-rank shapes served sharded over 4 ranks: 3 heads a rank, the
+    # 64-slot self ring after the prompt, the 1,500-frame cross-attention
+    (4, 64, 3, 1, 64, 0, 0.0, (64, 64, 64, 64)),
+    (4, 1500, 3, 1, 64, 0, 0.0, (1500, 1500, 1500, 1500)),
     (2, 1000, 2, 3, 64, 0, 0.0, (1000, 640)),  # C not a multiple of the 256-slot tile
     (3, 1, 2, 4, 32, 0, 0.0, (1, 5, 9)),  # one slot
     (2, 300, 4, 1, 128, 64, 0.0, (300, 77)),  # G = 1, a window inside the ring
@@ -2423,7 +2427,8 @@ def _sharded_vs_one_card(mesh, arch="internvl2-76b", **overrides):
     ``mesh`` against one card's run: greedy tokens equal on every rank and to
     one card's, the last logits within ``chip_smoke.py``'s fp32 path
     tolerance, ``swa_decode`` launched once an attention layer, decode step and
-    rank, ``ssd_scan`` once an SSM layer and rank."""
+    rank (twice a decoder layer for an encoder-decoder: self and cross),
+    ``ssd_scan`` once an SSM layer and rank."""
     from repro_torch.configs import get_smoke_config
     from repro_torch.kernels import ssd_scan as ssd
     from repro_torch.kernels import swa_decode as swa
@@ -2435,7 +2440,9 @@ def _sharded_vs_one_card(mesh, arch="internvl2-76b", **overrides):
     before = swa.launches, ssd.launches
     got = serve.serve(cfg=cfg, batch=2, prompt_len=40, gen=8, mesh=mesh)
     n = len(mesh.devices)
-    assert swa.launches - before[0] == (n * cfg.num_layers * 7 if _has_attn(cfg) else 0)
+    attn = 2 * cfg.num_layers if cfg.family == "encdec" else \
+        cfg.num_layers if _has_attn(cfg) else 0
+    assert swa.launches - before[0] == n * attn * 7
     assert ssd.launches - before[1] == (n * cfg.num_layers if _has_ssm(cfg) else 0)
     assert torch.equal(got.tokens, want.tokens.cpu())
     torch.testing.assert_close(got.logits, want.logits.float().cpu(), rtol=5e-4, atol=5e-4)
@@ -2463,6 +2470,18 @@ def test_sharded_ssm_serve_of_four_ranks_on_one_card_is_one_cards(dev, arch, ove
     from repro_torch.utils.device import LMMesh
 
     _sharded_vs_one_card(LMMesh([["cuda:0"] * 4]), arch, **overrides)
+
+
+@pytest.mark.parametrize("overrides", [
+    {},  # 4 heads, 1 a rank
+    {"num_heads": 6, "num_kv_heads": 6, "d_model": 192},  # 6 heads replicated, MLP cut
+])
+def test_sharded_encdec_serve_of_four_ranks_on_one_card_is_one_cards(dev, overrides):
+    """whisper-small on four ranks sharing cuda:0 (``gloo``): B7 on each rank's
+    self- and cross-attention heads."""
+    from repro_torch.utils.device import LMMesh
+
+    _sharded_vs_one_card(LMMesh([["cuda:0"] * 4]), "whisper-small", **overrides)
 
 
 def test_sharded_serve_over_two_cards_is_one_cards(two_cards):

@@ -27,9 +27,10 @@ the module and runs while the port's ranks work.
   mask) against the reference's ``_route_local`` exactly; at world 1 against
   ``_moe_shard_map`` on a (1, 1) mesh.
 - The ranks' layouts (``make_rank``, the ssm and hybrid smoke configs' mixer
-  among them), the refusals (data > 1, the encdec family, an unported
-  attention layout, CUDA without a card), and a rank that fails.  The ssm and
-  hybrid families' serve is held in ``test_torch_lm_sharded_ssm.py``.
+  among them), the refusals (data > 1, an unported attention layout, CUDA
+  without a card), and a rank that fails.  The ssm and hybrid families' serve
+  is held in ``test_torch_lm_sharded_ssm.py``, the encdec family's in
+  ``test_torch_lm_sharded_encdec.py``.
 """
 import os
 import subprocess
@@ -313,11 +314,8 @@ def test_make_rank_refuses_what_is_not_ported():
     with pytest.raises(NotImplementedError, match="data > 1"):
         make_rank(build_model(get_smoke_config("mixtral-8x7b")), {"data": 2, "model": 2},
                   SERVE_RULES, 0)
-    # the encdec family (ROADMAP A13 (2)); the ssm / hybrid layouts that do not
-    # run are refused in test_torch_lm_sharded_ssm.py
-    for arch in ("whisper-small",):
-        with pytest.raises(NotImplementedError, match="A13"):
-            make_rank(build_model(get_smoke_config(arch)), mesh, SERVE_RULES, 0)
+    # the ssm / hybrid and encdec layouts that do not run are refused in
+    # test_torch_lm_sharded_ssm.py and test_torch_lm_sharded_encdec.py
     # chatglm3-6b-smoke: 8 query heads cut 2 a rank, its 2 kv heads replicated
     with pytest.raises(NotImplementedError, match="not ported"):
         make_rank(build_model(get_smoke_config("chatglm3-6b")), mesh, SERVE_RULES, 0)
@@ -337,12 +335,13 @@ def test_meshes_choose_their_backend_and_refuse_cuda_without_a_card():
 
 
 def test_a_rank_that_fails_raises_and_closes_the_pool():
-    """An unported family makes every rank raise in ``load``: the caller gets
-    ``WorkerError`` naming it, and the pool is closed; nothing falls back."""
-    s = serve_mod.ShardedServer(make_lm_mesh(2, device="cpu"))
+    """An unported layout (a mesh with data = 2) makes every rank raise in
+    ``load``: the caller gets ``WorkerError`` naming it, and the pool is
+    closed; nothing falls back."""
+    s = serve_mod.ShardedServer(make_lm_mesh(1, data=2, device="cpu"))
     try:
-        with pytest.raises(WorkerError, match="encdec"):
-            s.load(get_smoke_config("whisper-small"))
+        with pytest.raises(WorkerError, match="data = 2 > 1 is not ported"):
+            s.load(get_smoke_config("qwen1.5-0.5b"))
         assert not s.pool.alive
     finally:
         s.close()
